@@ -1,0 +1,161 @@
+"""The Flare gradient-reduction engine (the paper's technique, first-class).
+
+The port of ``repro/core/engine.py`` on its flat-arena path.
+``GradReducer`` takes an unreduced gradient pytree whose leaves carry
+the mesh's rank axes in front (``(*mesh, *shape)``, one slice per
+emulated rank), and:
+
+  1. packs the leaves into one padded ``(*mesh, B, S)`` arena per dtype
+     (``core/arena.py``), with the collectives' pad folded into the plan;
+  2. per dtype group, picks a transport (``core/transports.py``): the
+     wire allreduce, or with ``transport="innetwork"`` the emulated
+     switch data plane;
+  3. reduces all B buckets of a group in one call and unpacks.
+
+With ``reproducible=True`` (F3) the result is bitwise-deterministic and
+bitwise-equal to the JAX package's on the same inputs.
+
+Not ported yet: the int8 and sparse transports (ROADMAP queue 1 items 7
+and 8), the per-bucket ``arena=False`` path (item 2), the lossy fabric
+(item 9), the multi-tenant runtime (item 11) and telemetry (item 13).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from repro_torch import tree
+from repro_torch.core import arena as arena_mod
+from repro_torch.core import transports
+from repro_torch.mesh import RankMesh
+
+
+@dataclasses.dataclass(frozen=True)
+class FlareConfig:
+    """Configuration of the in-network-style gradient reduction."""
+
+    axes: tuple[str, ...] = ("data",)   # (outer..., inner); inner = leaf level
+    algorithm: str = "auto"             # auto|ring|rhd|fixed_tree|
+    #                                     two_level|hierarchical|psum
+    reproducible: bool = False          # F3: bitwise-deterministic reduction
+    compression: str = "none"           # none|int8  (F1 transport dtypes)
+    sparse_k_frac: float = 0.0          # >0 → §7 sparse allreduce
+    density_threshold: float = 0.25     # sparse densify-on-overflow point
+    bucket_bytes: int = 4 << 20
+    stagger: bool = True                # §5 staggered sending
+    mean: bool = False                  # divide by world size after reduce
+    arena: bool = True                  # flat-arena pipelined hot path
+    #: flat vs hierarchical wire schedule; None → the reduction tree decides
+    hierarchical: bool | None = None
+    #: "auto" — the wire transports; "innetwork" — the emulated switch
+    transport: str = "auto"
+    #: deterministic lossy-fabric injection (innetwork only)
+    fault_plan: Any = None
+    #: flight recorder; never part of equality
+    telemetry: Any = dataclasses.field(default=None, compare=False,
+                                       repr=False)
+
+    def __post_init__(self):
+        if self.transport not in ("auto", "innetwork"):
+            raise ValueError(f"unknown transport {self.transport!r}")
+        if self.fault_plan is not None and self.transport != "innetwork":
+            raise ValueError("fault_plan models the lossy switch fabric; "
+                             "it needs transport='innetwork'")
+        if self.transport == "innetwork":
+            if self.algorithm != "auto":
+                raise ValueError(
+                    f"transport='innetwork' conflicts with algorithm="
+                    f"{self.algorithm!r}: the switch data plane picks its "
+                    "aggregation design by the §6.4 size switchover")
+            if self.hierarchical is False:
+                raise ValueError(
+                    "transport='innetwork' is tree-driven by construction; "
+                    "hierarchical=False cannot apply")
+        if self.reproducible and self.compression != "none":
+            raise ValueError("reproducible mode is incompatible with lossy "
+                             "compression")
+        if self.reproducible and self.sparse_k_frac > 0:
+            raise ValueError("reproducible mode is incompatible with "
+                             "sparsification")
+        if self.compression not in ("none", "int8"):
+            raise ValueError(f"unknown compression {self.compression!r}")
+        if self.hierarchical and len(self.axes) < 2:
+            raise ValueError("hierarchical=True needs a multi-axis mesh "
+                             f"(axes={self.axes!r}); the tree has one level")
+        if (self.hierarchical is True
+                and self.algorithm not in ("auto", "hierarchical")):
+            raise ValueError(
+                f"hierarchical=True conflicts with algorithm="
+                f"{self.algorithm!r}; use algorithm='auto' or 'hierarchical'")
+        if self.hierarchical is False and self.algorithm == "hierarchical":
+            raise ValueError("hierarchical=False conflicts with "
+                             "algorithm='hierarchical'")
+
+
+class GradReducer:
+    """Reduces a gradient pytree over ``config.axes`` of ``mesh``."""
+
+    def __init__(self, config: FlareConfig, mesh: RankMesh):
+        missing = [a for a in config.axes if a not in mesh.axes]
+        if missing:
+            raise ValueError(f"config axes {missing} are not mesh axes "
+                             f"{mesh.axes}")
+        if not config.arena:
+            raise NotImplementedError(
+                "the per-bucket arena=False path is not ported yet: ROADMAP "
+                "queue 1 item 2")
+        if config.fault_plan is not None:
+            raise NotImplementedError(
+                "the lossy fabric is not ported yet: ROADMAP queue 1 item 9")
+        if config.telemetry is not None:
+            raise NotImplementedError(
+                "telemetry is not ported yet: ROADMAP queue 1 item 13")
+        self.config = config
+        self.mesh = mesh
+
+    def __call__(self, grads: Any, state: Any = None) -> tuple[Any, Any]:
+        """Reduce ``grads``; returns ``(reduced, state)``.  ``state`` is
+        the lossy transports' error-feedback residual; the dense
+        transports ported so far keep none and return None.
+
+        With ``transport="innetwork"`` the ranks share one copy of each
+        reduced leaf: the multicast gives every rank the same bits, so a
+        leaf is a broadcast view, stride 0 over the rank axes.  Update it
+        out of place, or ``clone()`` it first: an in-place update raises
+        (it would write through to every rank).  The wire transports
+        return a tensor of their own for every rank.
+        """
+        return self._reduce_arena(grads, state)
+
+    def _world(self) -> int:
+        return self.mesh.world_size(self.config.axes)
+
+    def _pad_multiple(self, world: int) -> int:
+        """Chunk divisibility folded into the arena plan: ``2 · world``
+        covers every wire schedule; int8 adds whole quantization blocks."""
+        pad = 2 * world
+        if self.config.compression == "int8":
+            pad = math.lcm(pad, world * transports.QUANT_BLOCK)
+        return pad
+
+    def _reduce_arena(self, grads: Any, state: Any) -> tuple[Any, Any]:
+        c = self.config
+        leaves, spec = tree.flatten(grads)
+        for l in leaves:
+            if tuple(l.shape[:self.mesh.ndim]) != self.mesh.shape:
+                raise ValueError(f"leaf {tuple(l.shape)} does not lead with "
+                                 f"the mesh shape {self.mesh.shape}")
+        plan = arena_mod.build_plan(
+            leaves, c.bucket_bytes, pad_multiple=self._pad_multiple(
+                self._world()), lead_dims=self.mesh.ndim)
+        red_groups: list[torch.Tensor] = []
+        for g in plan.groups:
+            buf = g.pack(leaves)
+            transport = transports.from_config(c, self.mesh, g.dtype)
+            red, _ = transport(buf, None, g.staggers(c.stagger, buf.device),
+                               g.valid_extents)
+            red_groups.append(red)
+        return tree.unflatten(spec, plan.unpack(red_groups)), None

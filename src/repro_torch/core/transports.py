@@ -1,0 +1,139 @@
+"""The transport layer: one reduction schedule per dtype arena.
+
+The port of the dense part of ``repro/core/transports.py``.  A
+``Transport`` reduces a whole ``(*mesh, B, S)`` dtype arena — all B
+buckets of every rank in one call.  Ported so far:
+
+* ``DenseTransport`` — the wire allreduce (``fixed_tree`` and ``psum``);
+* ``SwitchTransport`` in dense mode — the emulated switch data plane
+  (``switch.dataplane.switch_allreduce_dense``), which with
+  ``reproducible=True`` folds every level in the ``tree_reduce`` kernel.
+
+Every other branch of ``from_config`` raises ``NotImplementedError``
+naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+
+from repro_torch.core import collectives as coll, topology
+from repro_torch.mesh import RankMesh
+from repro_torch.switch import dataplane
+
+#: Quantization block of the int8 transport (folded into the arena pad).
+QUANT_BLOCK = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class Transport:
+    """Reduces one dtype's ``(*mesh, B, S)`` arena in a single schedule.
+
+    ``__call__(buf, ef, staggers, extents)``:
+      * ``buf`` — the arena buffer, rank axes in front;
+      * ``ef`` — error-feedback residuals of the same shape (or None);
+      * ``staggers`` — per-bucket ring-phase offsets (§5), shape ``(B,)``;
+      * ``extents`` — per-bucket unpadded element counts.
+
+    Returns ``(reduced, ef_out)`` with ``ef_out`` None for lossless
+    transports.
+    """
+
+    mesh: RankMesh
+    axes: tuple[str, ...]
+    mean: bool = False
+    #: flat vs hierarchical wire schedule; None → the reduction tree decides
+    hierarchical: bool | None = None
+
+    def _world(self) -> int:
+        return self.mesh.world_size(self.axes)
+
+    def _use_hierarchy(self) -> bool:
+        """Flat vs hierarchical, with the mesh's reduction tree as arbiter."""
+        if len(self.axes) < 2:
+            return False
+        if self.hierarchical is not None:
+            return self.hierarchical
+        sizes = tuple(self.mesh.axis_size(a) for a in self.axes)
+        tree = topology.build_mesh_tree(sizes)
+        return topology.transport_schedule(tree) == "hierarchical"
+
+    def __call__(self, buf: torch.Tensor, ef: torch.Tensor | None,
+                 staggers: torch.Tensor, extents: Sequence[int],
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseTransport(Transport):
+    """Lossless wire allreduce of the arena."""
+
+    algorithm: str = "auto"
+    reproducible: bool = False
+
+    def _resolve(self, buf: torch.Tensor) -> str:
+        alg = self.algorithm
+        if alg == "auto":
+            if self._use_hierarchy():
+                return "hierarchical"
+            nbytes = buf.shape[-1] * buf.element_size()
+            alg = coll.select_algorithm(nbytes, reproducible=self.reproducible,
+                                        multi_level=len(self.axes) > 1)
+        return alg
+
+    def __call__(self, buf, ef, staggers, extents):
+        # the wire algorithms are elementwise over the buckets, so all B
+        # buckets ride one call
+        red = coll.allreduce(buf, self.mesh, self.axes,
+                             algorithm=self._resolve(buf),
+                             reproducible=self.reproducible)
+        if self.mean:
+            red = red / self._world()
+        return red, (torch.zeros_like(ef) if ef is not None else None)
+
+
+@dataclasses.dataclass(frozen=True)
+class SwitchTransport(Transport):
+    """The emulated sPIN switch data plane as a transport (dense mode;
+    the int8 and sparse modes come with ROADMAP queue 1 items 7 and 8).
+
+    ``reproducible`` pins the fixed-tree handler (always tree
+    aggregation, §6.4); otherwise the §6.4 size switchover picks the
+    buffer design.  It runs the batched plane.
+    """
+
+    reproducible: bool = False
+
+    def __call__(self, buf, ef, staggers, extents):
+        red = dataplane.switch_allreduce_dense(
+            buf, self.mesh, self.axes, reproducible=self.reproducible)
+        if self.mean:
+            red = red / self._world()
+        return red, (torch.zeros_like(ef) if ef is not None else None)
+
+
+def from_config(config, mesh: RankMesh, dtype: torch.dtype) -> Transport:
+    """The transport dispatch, in one place.
+
+    ``config`` is any object with the ``FlareConfig`` transport fields.
+    Lossy transports apply to floating dtypes only; everything else rides
+    the dense path.  ``transport="innetwork"`` swaps the wire schedule
+    for the emulated switch data plane.
+    """
+    axes = tuple(config.axes)
+    is_float = dtype.is_floating_point
+    lossy = is_float and (config.sparse_k_frac > 0
+                          or config.compression == "int8")
+    if lossy:
+        raise NotImplementedError(
+            "lossy transports are not ported yet: ROADMAP queue 1 items 7 "
+            "(int8) and 8 (sparse)")
+    if config.transport == "innetwork":
+        return SwitchTransport(mesh, axes, mean=config.mean,
+                               reproducible=config.reproducible)
+    return DenseTransport(mesh, axes, mean=config.mean,
+                          hierarchical=config.hierarchical,
+                          algorithm=config.algorithm,
+                          reproducible=config.reproducible)

@@ -1,0 +1,196 @@
+"""sPIN-style packet handlers for the emulated switch (paper §3, §6).
+
+The port of the dense part of ``repro/switch/handlers.py``.  A handler
+triple — header (steering), payload (the combine) and completion
+(finalisation) — runs over a whole child-stacked ingress at once.  Every
+stack here carries a leading group axis: ``(G, P, n, ...)`` holds the
+ingress of the G switches of one tree level (the ``vmap`` of the JAX
+package written out), so one fold serves every switch of the level.
+
+Aggregation-buffer designs (§6.1–§6.3) are folds over the child axis:
+``single`` folds in stack (arrival) order, ``multi`` keeps ``n_bufs``
+round-robin partials and merges them, ``tree`` combines in the aligned
+binary tree over the child index (the ``tree_reduce`` kernel, fp32
+accumulation) — the F3 bitwise-reproducibility mechanism.
+
+The int8 and sparse handlers come with their planes in later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.switch import packets as pk
+
+DESIGNS = ("single", "multi", "tree")
+
+
+# ---------------------------------------------------------------------------
+# Aggregation-buffer designs (§6.1–§6.3): folds over the child axis (1).
+# ---------------------------------------------------------------------------
+
+def fold_single(stack: torch.Tensor) -> torch.Tensor:
+    """§6.1 contended single buffer: sequential fold in stack order."""
+    acc = stack[:, 0]
+    for i in range(1, stack.shape[1]):
+        acc = acc + stack[:, i]
+    return acc
+
+
+def fold_multi(stack: torch.Tensor, n_bufs: int) -> torch.Tensor:
+    """§6.2 multi-buffer: round-robin partials + the final (B-1)·L merge."""
+    p = stack.shape[1]
+    n_bufs = max(1, min(int(n_bufs), p))
+    partials = [fold_single(stack[:, j::n_bufs]) for j in range(n_bufs)]
+    acc = partials[0]
+    for part in partials[1:]:
+        acc = acc + part
+    return acc
+
+
+def fold_tree(stack: torch.Tensor) -> torch.Tensor:
+    """§6.3 binary-counter tree: the aligned fixed tree over the child
+    index (``kernels.ops.tree_reduce_slots``; fp32 accumulation for
+    floats, exact native accumulation for integers; P padded to a power
+    of two with zero streams).  A ``(G, P, S, E)`` packet-slot stack
+    keeps its slot axis; any other stack folds as one slot of its
+    flattened elements — the tree is elementwise, so the bits agree."""
+    if stack.dim() == 4:
+        return ops.tree_reduce_slots(stack)
+    g, p = stack.shape[:2]
+    flat = stack.reshape(g, p, 1, -1)
+    return ops.tree_reduce_slots(flat).reshape(g, *stack.shape[2:])
+
+
+def fold(stack: torch.Tensor, design: str, n_bufs: int = 1) -> torch.Tensor:
+    if design == "single":
+        return fold_single(stack)
+    if design == "multi":
+        return fold_multi(stack, n_bufs)
+    if design == "tree":
+        return fold_tree(stack)
+    raise ValueError(f"unknown aggregation design {design!r}")
+
+
+# ---------------------------------------------------------------------------
+# Header-handler steering: arrival order vs child-rank order.
+# ---------------------------------------------------------------------------
+
+def child_order(headers: torch.Tensor) -> torch.Tensor:
+    """Per-packet-slot child order: ``(G, P, n)`` argsort of HDR_CHILD
+    over the child axis, so any arrival permutation lands every payload
+    in the same tree leaf."""
+    return torch.argsort(headers[..., pk.HDR_CHILD], dim=1, stable=True)
+
+
+def apply_order(leaf: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """Reorder a ``(G, P, n, ...)`` payload leaf by a ``(G, P, n)`` order."""
+    o = order.reshape(order.shape + (1,) * (leaf.dim() - order.dim()))
+    return torch.take_along_dim(leaf, o.expand(leaf.shape).long(), dim=1)
+
+
+def child_order_opt(headers):
+    """Child-rank steering when headers ride along (``None`` when the
+    stack is already in child order)."""
+    return None if headers is None else child_order(headers)
+
+
+# ---------------------------------------------------------------------------
+# The handler registry.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Handler:
+    """One sPIN handler triple, vectorised over the packet batch axis.
+
+    ``header_handler(headers) -> (G, P, n) order | None`` — steering.
+    ``payload_handler(stack, headers, design, n_bufs, ctx) -> (agg,
+    stats)`` — the combine over the (already steered) child stack.
+    ``completion_handler(agg, ctx) -> egress`` — block finalisation.
+    """
+
+    name: str
+    kind: str                       # dense | int8 | sparse
+    header_handler: Callable
+    payload_handler: Callable
+    completion_handler: Callable
+    #: designs this handler supports; fixed_tree pins "tree" (§6.3).
+    designs: tuple[str, ...] = DESIGNS
+
+
+def run(handler: Handler, payload: torch.Tensor, headers: torch.Tensor, *,
+        design: str, n_bufs: int = 1, ctx: dict | None = None):
+    """Execute one handler triple over a child-stacked ingress.
+
+    ``payload`` is ``(G, P, n, ...)``, ``headers`` the matching
+    ``(G, P, n, F)`` stack.  Returns ``(egress, stats)``.
+    """
+    ctx = {} if ctx is None else ctx
+    order = handler.header_handler(headers)
+    if order is not None:
+        payload = apply_order(payload, order)
+        headers = apply_order(headers, order)
+    agg, stats = handler.payload_handler(payload, headers, design, n_bufs,
+                                         ctx)
+    return handler.completion_handler(agg, ctx), stats
+
+
+_REGISTRY: dict[str, Handler] = {}
+
+
+def register(handler: Handler) -> Handler:
+    _REGISTRY[handler.name] = handler
+    return handler
+
+
+def get_handler(name: str) -> Handler:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown switch handler {name!r}; have "
+                         f"{sorted(_REGISTRY)}") from None
+
+
+# -- dense sum ---------------------------------------------------------------
+
+def _dense_payload(stack, headers, design, n_bufs, ctx):
+    return fold(stack.to(ops.accum_dtype_for(stack.dtype)), design,
+                n_bufs), {}
+
+
+def _dense_completion(agg, ctx):
+    return agg.to(ctx["dtype"])
+
+
+register(Handler(
+    name="dense_sum", kind="dense",
+    header_handler=lambda headers: None,
+    payload_handler=_dense_payload,
+    completion_handler=_dense_completion))
+
+# child-steered variant: the same folds in child-rank order instead of
+# arrival order (the sparse plane's densified levels use it).
+register(Handler(
+    name="dense_sum_steered", kind="dense",
+    header_handler=child_order_opt,
+    payload_handler=_dense_payload,
+    completion_handler=_dense_completion))
+
+
+# -- fixed tree (F3 reproducible) --------------------------------------------
+
+def _fixed_tree_payload(stack, headers, design, n_bufs, ctx):
+    # design is pinned to "tree": §6.4 — "when reproducibility ... is
+    # required, Flare always uses tree aggregation."
+    return fold_tree(stack.to(ops.accum_dtype_for(stack.dtype))), {}
+
+
+register(Handler(
+    name="fixed_tree", kind="dense",
+    header_handler=child_order,
+    payload_handler=_fixed_tree_payload,
+    completion_handler=_dense_completion,
+    designs=("tree",)))
