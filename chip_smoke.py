@@ -1,26 +1,47 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--seed 0]
 
-1. Builds the ``tree_reduce`` CUDA kernel from ``src/repro_torch/kernels/
-   csrc`` (``nvcc``, ``sm_90a``) and holds it against its plain PyTorch
-   version on the card, bitwise: f32, bf16, f16 and int32; P = 1, 2, 3
-   (padded), 4, 8 and 64; G > 1; a ragged row length (the scalar path);
-   a strided stack; rows holding -0.0.
-2. Reduces the gradient tree of TinyLlama-1.1B at its published widths
-   (depth cut to ``LAYERS``; fp32; random per-rank gradients from a
-   seeded ``torch.Generator`` on the card) over 8 emulated ranks on the
-   ``(2, 4)`` mesh through ``GradReducer(FlareConfig(axes=("pod",
-   "data"), transport="innetwork", reproducible=True))``: arena → switch
-   data plane → fixed-tree fold kernel on every tree level.  The launch
-   counter is set to 0 just before and read just after.  The result must
-   be bitwise equal to the same reduction with the plain fold and to the
-   wire ``fixed_tree`` transport, and within a tree's rounding of an fp64
-   sum.  Then the flat ``(1, 8)`` mesh, the same way.
-3. Times the whole reduction (median of a few runs), and the kernel, its
-   plain version and ``torch.sum`` at the shapes the main path gave the
-   kernel, beside the kernel's memory bound.
+1. Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` a source, ``sm_90a``, all started together) and holds each
+   against its plain PyTorch version on the card, bitwise:
+   ``tree_reduce_slots`` over f32, bf16, f16 and int32, P = 1, 2, 3
+   (padded), 4, 8 and 64, G > 1, a ragged row length, a strided stack,
+   -0.0 rows, and its flat form ``tree_reduce``; ``quantize`` over f32,
+   bf16 and f16 with zero, tie, NaN and inf blocks (scales only where a
+   block holds NaN or inf) and a row-strided view; ``dequantize`` into
+   f32, bf16 and f16 and as the fused error-feedback residual, in place
+   too; ``dequant_accum_slots`` with P = 1, 2, 3, 4, 5, 8, G = 3 and
+   strided P and G; its flat form ``dequant_accum``.
+2. The dense main path: reduces the gradient tree of TinyLlama-1.1B at its
+   published widths (depth cut to ``LAYERS``; fp32; random per-rank
+   gradients from a seeded ``torch.Generator`` on the card) over 8
+   emulated ranks on the ``(2, 4)`` mesh through
+   ``GradReducer(FlareConfig(axes=("pod", "data"), transport="innetwork",
+   reproducible=True))``: arena → switch data plane → fixed-tree fold
+   kernel on every tree level.  The launch counters are set to 0 just
+   before and read just after.  The result must be bitwise equal to the
+   same reduction with the plain fold and to the wire ``fixed_tree``
+   transport, and within a tree's rounding of an fp64 sum.  Then the
+   flat ``(1, 8)`` mesh, the same way.
+3. The int8 main path (F1): the same model and mesh through
+   ``FlareConfig(axes=("pod", "data"), transport="innetwork",
+   compression="int8")``, two steps with the error-feedback state
+   carried: quantize → fold (``dequant_accum_slots``) on every level →
+   quantize and dequantize at the root → the fused residual.  Counters
+   reset just before, read just after: ``quantize``, ``dequantize`` and
+   ``dequant_accum_slots`` must each have launched.  Result and state
+   must be bitwise equal to the same two steps with the kernels patched
+   to their plain versions, and step 1 within half an int8 step of every
+   quantization on each element's path of an fp64 sum.  Then the flat
+   ``(1, 8)`` mesh, and the ``multi`` and ``tree`` designs on a reduced
+   arena, each bitwise against its plain twin.
+4. Times each whole reduction (median of a few runs) with its peak
+   device memory, profiles one int8 reduction, and times every kernel,
+   its plain version and, where one PyTorch call computes the same
+   function, that call, at the shapes the main paths gave the kernel,
+   beside the kernel's memory bound.
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line
 of kernel figures, and as its last line ``{"ok": true, "device": ...}``.
@@ -42,17 +63,27 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: H100 SXM HBM3 bandwidth (NVIDIA data sheet), the kernel's bound
+#: H100 SXM HBM3 bandwidth (NVIDIA data sheet), the kernels' bound
 HBM_BYTES_PER_S = 3.35e12
-REPLACES = "src/repro/kernels/tree_reduce.py:101"
-#: TinyLlama depth, cut from the published 22: the reduction's peak is
-#: several times the 8 ranks' gradient bytes, and 22 layers of fp32
+#: TinyLlama depth, cut from the published 22: the int8 reduction's peak
+#: is about four times the 8 ranks' fp32 gradient bytes (the caller's
+#: gradients and state, the two packed arenas), and 22 layers of fp32
 #: gradients for 8 ranks alone are 35 GB of the card's 80
 LAYERS = 4
-SOURCE = "src/repro_torch/kernels/csrc/tree_reduce.cu"
+SOURCES = {"tree_reduce": "src/repro_torch/kernels/csrc/tree_reduce.cu",
+           "quant": "src/repro_torch/kernels/csrc/quant.cu"}
+#: the pallas_call each kernel replaces
+REPLACES = {"tree_reduce_slots": "src/repro/kernels/tree_reduce.py:101",
+            "tree_reduce": "src/repro/kernels/tree_reduce.py:56",
+            "quantize": "src/repro/kernels/quant.py:52",
+            "dequant_accum": "src/repro/kernels/quant.py:99",
+            "dequant_accum_slots": "src/repro/kernels/quant.py:148",
+            "dequantize": "src/repro/kernels/quant.py:171"}
+QBLOCK = 256
 #: the informative part of a templated kernel name in a profile
-KERNEL_NAME = re.compile(r"tree_reduce_kernel<[^>]*>|CatArrayBatchedCopy\w*|"
-                         r"\w+_kernel_cuda|\w+Functor(<\w+>)?")
+KERNEL_NAME = re.compile(
+    r"(tree_reduce|quantize|dequantize|dequant_accum)_kernel<[^>]*>|"
+    r"CatArrayBatchedCopy\w*|\w+_kernel_cuda|\w*Functor\w*(<\w+>)?")
 
 
 def check(ok: bool, what: str) -> None:
@@ -65,8 +96,23 @@ def same_bits(a, b) -> bool:
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
     ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    a, b = a.contiguous(), b.contiguous()
     return torch.equal(a.view(ints[a.element_size()]),
                        b.view(ints[b.element_size()]))
+
+
+def same_or_both_nan(a, b) -> bool:
+    """Bitwise, except that a NaN matches any NaN."""
+    import torch
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and same_bits(torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)))
+
+
+def trees_same_bits(a, b) -> bool:
+    from repro_torch import tree
+    return all(same_bits(x, y) for x, y in zip(tree.flatten(a)[0],
+                                               tree.flatten(b)[0]))
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -84,15 +130,31 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_build(tr) -> None:
+def timed(torch, fn, n):
+    """Host time of ``n`` synchronised calls: (median, all)."""
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts), ts
+
+
+def phase_build(kb, sources) -> None:
     t0 = time.perf_counter()
-    lib = tr.build()
-    log = lib.with_suffix(".log").read_text()
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s; "
-          f"{len(regs)} kernels, registers max {max(regs)}, "
-          f"spill stores max {max(spills, default=0)} bytes")
+    libs = kb.build(*sources)
+    took = time.perf_counter() - t0
+    for lib in libs:
+        log = lib.with_suffix(".log").read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores",
+                                             log)]
+        print(f"build: {lib.name}; {len(regs)} kernels, registers max "
+              f"{max(regs)}, spill stores max {max(spills, default=0)} "
+              "bytes")
+    print(f"build: {len(libs)} sources in {took:.1f} s, compiled at once")
 
 
 def phase_kernel_vs_plain(torch, ops) -> None:
@@ -123,12 +185,84 @@ def phase_kernel_vs_plain(torch, ops) -> None:
                             ops.tree_reduce_slots_plain(x)),
                   f"kernel != plain on a strided stack {dtype}")
             cases += 1
+        # the flat (P, N) form, P padded from 3
+        x = (torch.randn((3, 4100), generator=gen, device="cuda")
+             * 100).to(dtype)
+        check(same_bits(ops.tree_reduce(x),
+                        ops.tree_reduce_slots_plain(x.reshape(1, 3, 1, -1))
+                        .reshape(-1)), f"flat tree_reduce != plain {dtype}")
+        cases += 1
     torch.cuda.synchronize()
-    print(f"kernel vs plain: {cases} cases bitwise equal "
-          "(f32 bf16 f16 int32; P 1 2 3 4 8 64; G=3; ragged; strided; -0.0)")
+    print(f"tree_reduce kernel vs plain: {cases} cases bitwise equal "
+          "(f32 bf16 f16 int32; P 1 2 3 4 8 64; G=3; ragged; strided; "
+          "-0.0; flat)")
 
 
-def phase_profile(torch, run, card: str) -> None:
+def phase_quant_vs_plain(torch, ops, qt) -> None:
+    """Bitwise quant kernels vs their plain versions."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for qblock in qt.QBLOCKS:
+            x = (torch.randn((6, 4 * qblock), generator=gen, device="cuda")
+                 * 50).to(dtype)
+            x[0, :qblock] = 0.0                                 # zero block
+            x[1, :qblock] = (torch.arange(qblock, device="cuda") % 7
+                             - 3.5).to(dtype)                   # k + 1/2
+            x[1, 0], x[1, 1] = 127.0, -127.0                    # ±127 ties
+            x[2, 5], x[3, qblock + 1] = float("nan"), float("inf")
+            q, s = ops.quantize(x, qblock)
+            pq, ps = ops.quantize_plain(x, qblock)
+            torch.cuda.synchronize()
+            check(same_or_both_nan(s, ps), f"quantize scales {dtype} {qblock}")
+            check(same_bits(q[:2], pq[:2]) and same_bits(q[4:], pq[4:]),
+                  f"quantize q {dtype} {qblock}")
+            check(bool((s[0, 0] == ps[0, 0]) & (q[1, 0] == 127)),
+                  "zero and tie blocks")
+            cases += 1
+            for out_dtype in (torch.float32, torch.bfloat16, torch.float16):
+                check(same_bits(ops.dequantize(q[4:], s[4:], qblock,
+                                               out_dtype),
+                                ops.dequantize_plain(q[4:], s[4:], qblock,
+                                                     out_dtype)),
+                      f"dequantize {out_dtype} {qblock}")
+                cases += 1
+            v = x[4:].contiguous()
+            want = ops.dequantize_plain(q[4:], s[4:], qblock, minuend=v)
+            check(same_bits(ops.dequantize(q[4:], s[4:], qblock, minuend=v),
+                            want), f"residual {dtype} {qblock}")
+            ops.dequantize(q[4:], s[4:], qblock, minuend=v, out=v)
+            check(same_bits(v, want), f"residual in place {dtype} {qblock}")
+            cases += 2
+        rows = torch.randn((3, 2560), generator=gen, device="cuda").to(
+            dtype)[:, 256:2304]
+        for a, b in zip(ops.quantize(rows), ops.quantize_plain(rows)):
+            check(same_bits(a, b), f"quantize on strided rows {dtype}")
+        cases += 1
+    for p in (1, 2, 3, 4, 5, 8):
+        q = torch.randint(-127, 128, (3, p, 7, 1024), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        s = torch.rand((3, p, 7, 4), generator=gen, device="cuda") * 4
+        for qq, ss in ((q, s), (q[:, ::2], s[:, ::2]),
+                       (q.movedim(0, 1), s.movedim(0, 1))):
+            check(same_bits(ops.dequant_accum_slots(qq, ss),
+                            ops.dequant_accum_slots_plain(qq, ss)),
+                  f"dequant_accum_slots {tuple(qq.shape)} {qq.stride()}")
+            cases += 1
+        flat, fs = q[0].reshape(p, -1), s[0].reshape(p, -1)
+        check(same_bits(ops.dequant_accum(flat, fs),
+                        ops.dequant_accum_plain(flat, fs)),
+              f"dequant_accum P={p}")
+        cases += 1
+    torch.cuda.synchronize()
+    print(f"quant kernels vs plain: {cases} cases bitwise equal (quantize "
+          "f32 bf16 f16, qblock 32..1024, zero/tie/NaN/inf blocks, strided "
+          "rows; dequantize to f32 bf16 f16 and the residual, in place "
+          "too; dequant_accum_slots P 1 2 3 4 5 8, G=3, strided P and G; "
+          "dequant_accum)")
+
+
+def phase_profile(torch, run, card: str, what: str) -> None:
     """Where one reduction's device time goes: ``torch.profiler`` over a
     warm run, device time by operator, largest first."""
     from torch.autograd import DeviceType
@@ -137,8 +271,10 @@ def phase_profile(torch, run, card: str) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
     # device-side events only (the kernels); an operator's row would
     # count its kernels' time a second time
     rows = [(e.self_device_time_total, e.key, e.count)
@@ -146,11 +282,12 @@ def phase_profile(torch, run, card: str) -> None:
             if e.device_type == DeviceType.CUDA]
     total = sum(r[0] for r in rows)
     if total == 0:
-        print("profile: the profiler saw no device time (not measured)")
+        print(f"profile of {what}: the profiler saw no device time "
+              "(not measured)")
         return
-    print(f"profile of one reduction [{card}]: device time "
-          f"{total / 1e3:.3f} ms by kernel:")
-    for us, key, count in sorted(rows, reverse=True)[:10]:
+    print(f"profile of {what} [{card}]: device time {total / 1e3:.3f} ms "
+          f"in {wall:.3f} ms of wall time under the profiler, by kernel:")
+    for us, key, count in sorted(rows, reverse=True)[:12]:
         m = KERNEL_NAME.search(key)
         print(f"  {us / 1e3:9.3f} ms {us / total:6.1%}  x{count}  "
               f"{m.group(0) if m else key[:70]}")
@@ -179,6 +316,70 @@ def check_against_fp64(torch, grads, out, lead) -> float:
     return worst
 
 
+def check_quant_bound(torch, group, leaves, out_leaves, mesh) -> float:
+    """Step 1 of the int8 path against the fp64 sum of the gradients.
+
+    Each quantization on an element's path (every leaf rank, every
+    level-1 switch, the root) errs by at most half a step of its block.
+    A leaf rank's step is its block's ``max|x| / 127``; a switch's
+    aggregate is at most the sum of its children's dequantized maxima, so
+    its step is at most the sum of their steps, and the root's at most
+    the sum of every leaf's.  On the ``(2, 4)`` mesh that bounds the
+    error by ``(1 + 1 + 1) / 2 · Σ_r step_r``, with 2^-10 of slack for
+    the fp32 rounding of the folds.  Checked block by block on the
+    arena; returns the worst ratio of error to bound."""
+    check(len(mesh.shape) == 2, "the bound is written for a 2-level mesh")
+    x = group.pack(leaves)                                   # (2, 4, B, S)
+    red = group.pack([o[:1, :1] for o in out_leaves])[0, 0]  # (B, S)
+    worst = 0.0
+    for b in range(x.shape[-2]):
+        xb = x[..., b, :].double()
+        exact = xb.sum(dim=(0, 1))
+        steps = xb.abs().reshape(*mesh.shape, -1, QBLOCK).amax(-1) / 127
+        bound = (1.5 * (1 + 2.0**-10) * steps.sum(dim=(0, 1))
+                 ).repeat_interleave(QBLOCK)
+        err = (red[b].double() - exact).abs()
+        check(bool((err <= bound).all()), f"int8 result outside the "
+              f"quantization bound in bucket {b}")
+        worst = max(worst, float((err / bound.clamp_min(1e-300)).max()))
+    return worst
+
+
+def plain_quant_patches(qt, ops):
+    """The int8 kernels' entries patched to their plain versions."""
+    return [mock.patch.object(qt, "quantize", ops.quantize_plain),
+            mock.patch.object(qt, "dequantize", ops.dequantize_plain),
+            mock.patch.object(qt, "dequant_accum_slots",
+                              ops.dequant_accum_slots_plain),
+            mock.patch.object(qt, "dequant_accum", ops.dequant_accum_plain)]
+
+
+def run_plain(patches, fn):
+    for p in patches:
+        p.start()
+    try:
+        return fn()
+    finally:
+        for p in patches:
+            p.stop()
+
+
+class Recorder:
+    """Wraps a kernel entry to record the arguments of every launch."""
+
+    def __init__(self, module, name, describe):
+        self.module, self.name, self.describe = module, name, describe
+        self.real = getattr(module, name)
+        self.seen = []
+
+    def __call__(self, *a, **kw):
+        self.seen.append(self.describe(*a, **kw))
+        return self.real(*a, **kw)
+
+    def patch(self):
+        return mock.patch.object(self.module, self.name, self)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -194,11 +395,15 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch import tree
     from repro_torch.configs import tinyllama_1_1b as tl
+    from repro_torch.core import arena as arena_mod
     from repro_torch.core.engine import FlareConfig, GradReducer
+    from repro_torch.kernels import build as kb
     from repro_torch.kernels import ops
+    from repro_torch.kernels import quant as qt
     from repro_torch.kernels import tree_reduce as tr
     from repro_torch.mesh import AXES, FLAT, TWO_LEVEL, RankMesh
     from repro_torch.models import transformer
+    from repro_torch.switch import dataplane
 
     smi = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
@@ -207,11 +412,13 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+    total_mem = torch.cuda.get_device_properties(0).total_memory
 
-    phase_build(tr)
+    phase_build(kb, [tr.SOURCE, qt.SOURCE])
     phase_kernel_vs_plain(torch, ops)
+    phase_quant_vs_plain(torch, ops, qt)
 
-    # -- the main path: (2, 4) mesh, full width ------------------------------
+    # -- the dense main path: (2, 4) mesh, full width -----------------------
     cfg = tl.CONFIG.scaled(n_layers=LAYERS)
     mesh = RankMesh(TWO_LEVEL, AXES)
     innet = GradReducer(FlareConfig(axes=AXES, transport="innetwork",
@@ -225,26 +432,23 @@ def main() -> int:
           f"{tl.CONFIG.n_layers} layers, {n_params} fp32 parameters "
           f"({n_params * 4 / 1e9:.3f} GB per rank), mesh {mesh.shape}")
 
-    launch_shapes = []
-    kernel = tr.tree_reduce_slots
-
-    def recording(x):
-        launch_shapes.append((tuple(x.shape), x.stride(), x.dtype))
-        return kernel(x)
-
+    tree_rec = Recorder(tr, "tree_reduce_slots",
+                        lambda x: (tuple(x.shape), x.stride(), x.dtype))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tr.launches = 0
-    with mock.patch.object(tr, "tree_reduce_slots", recording):
+    tr.launches = tr.flat_launches = 0
+    with tree_rec.patch():
         out, _ = innet(grads)
     torch.cuda.synchronize()
-    launches = tr.launches
+    launches = {"tree_reduce_slots": tr.launches,
+                "tree_reduce": tr.flat_launches}
     peak = torch.cuda.max_memory_allocated()
-    check(launches > 0, "the main path launched no tree_reduce kernel")
+    check(launches["tree_reduce_slots"] > 0,
+          "the main path launched no tree_reduce kernel")
     out_leaves = tree.flatten(out)[0]
     print(f"main path: GradReducer innetwork reproducible on {mesh.shape}: "
-          f"tree_reduce_slots launches {launches}, shapes "
-          f"{[s for s, _, _ in launch_shapes]}")
+          f"tree_reduce_slots launches {launches['tree_reduce_slots']}, "
+          f"shapes {[s for s, _, _ in tree_rec.seen]}")
 
     with mock.patch.object(ops, "tree_reduce_slots",
                            ops.tree_reduce_slots_plain):
@@ -266,29 +470,20 @@ def main() -> int:
           f"{worst:.3f} of the 3-level bound")
 
     # -- whole-reduction time (host clock around synchronised runs) ---------
-    def timed(fn, n):
-        ts = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(ts), ts
-
     del out, out_leaves
-    red_ms, red_all = timed(lambda: innet(grads), 5)
+    red_ms, red_all = timed(torch, lambda: innet(grads), 5)
     with mock.patch.object(ops, "tree_reduce_slots",
                            ops.tree_reduce_slots_plain):
-        plain_red_ms, _ = timed(lambda: innet(grads), 3)
-    wire_ms, _ = timed(lambda: wire(grads), 3)
+        plain_red_ms, _ = timed(torch, lambda: innet(grads), 3)
+    wire_ms, _ = timed(torch, lambda: wire(grads), 3)
     print(f"reduction ms (median of 5, {card}): innetwork kernel "
           f"{red_ms:.3f} (runs {[round(t, 3) for t in red_all]}); same with "
           f"plain fold {plain_red_ms:.3f}; wire fixed_tree {wire_ms:.3f}; "
           f"peak device memory {peak / 2**30:.2f} GiB of "
-          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
+          f"{total_mem / 2**30:.1f}")
 
-    phase_profile(torch, lambda: innet(grads), card)
+    phase_profile(torch, lambda: innet(grads), card,
+                  "one dense reproducible reduction")
 
     # -- the flat (1, 8) mesh ---------------------------------------------
     flat = RankMesh(FLAT, AXES)
@@ -301,48 +496,292 @@ def main() -> int:
     check(flat_launches > 0, "the flat mesh launched no kernel")
     fwire, _ = GradReducer(FlareConfig(axes=AXES, algorithm="fixed_tree",
                                        reproducible=True), flat)(fgrads)
-    check(all(same_bits(a, b) for a, b in zip(tree.flatten(fout)[0],
-                                               tree.flatten(fwire)[0])),
+    check(trees_same_bits(fout, fwire),
           "flat mesh: in-network != wire fixed tree")
     print(f"flat mesh {flat.shape}: launches {flat_launches}, bitwise == "
           "wire fixed_tree")
     del fout, fwire, fgrads, grads, leaves
     torch.cuda.empty_cache()
 
-    # -- the kernel at the main path's shapes ---------------------------------
+    # -- the int8 main path: (2, 4) mesh, full width, two steps -------------
+    int8_cfg = FlareConfig(axes=AXES, transport="innetwork",
+                           compression="int8")
+    red8 = GradReducer(int8_cfg, mesh)
+    mk = lambda seed, shape=mesh.shape: make_grads(
+        torch, tree, transformer, cfg, shape, seed)
+    recs = {
+        "quantize": Recorder(qt, "quantize", lambda x, qblock=QBLOCK: (
+            tuple(x.shape), x.stride(), x.dtype, qblock)),
+        "dequantize": Recorder(qt, "dequantize", lambda q, s, qblock=QBLOCK,
+                               out_dtype=torch.float32, minuend=None,
+                               out=None: (
+            tuple(q.shape), minuend.dtype if minuend is not None
+            else out_dtype, minuend is not None, out is not None
+            and out is minuend)),
+        "dequant_accum_slots": Recorder(qt, "dequant_accum_slots",
+                                        lambda q, s, qblock=QBLOCK: (
+            tuple(q.shape), q.stride(), s.stride())),
+    }
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in qt.launches:
+        qt.launches[k] = 0
+    g = mk(args.seed)
+    r1, st1 = red8(g)                          # step 1: no state yet
+    del g
+    g = mk(args.seed + 1)
+    with recs["quantize"].patch(), recs["dequantize"].patch(), \
+            recs["dequant_accum_slots"].patch():
+        r2, st2 = red8(g, st1)                 # step 2: the state carried
+    del g, st1
+    torch.cuda.synchronize()
+    for k in ("quantize", "dequantize", "dequant_accum_slots",
+              "dequant_accum"):
+        launches[k] = qt.launches[k]
+    peak8 = torch.cuda.max_memory_allocated()
+    for k in ("quantize", "dequantize", "dequant_accum_slots"):
+        check(launches[k] > 0, f"the int8 main path launched no {k} kernel")
+    plan8 = arena_mod.build_plan(
+        tree.flatten(r1)[0], int8_cfg.bucket_bytes,
+        pad_multiple=red8._pad_multiple(8), lead_dims=2)
+    grp = plan8.groups[0]
+    per_step = {k: len(r.seen) for k, r in recs.items()}
+    print(f"int8 main path: GradReducer innetwork int8 on {mesh.shape}, two "
+          f"steps: arena B={grp.num_buckets} S={grp.bucket_elems}; launches "
+          f"{ {k: launches[k] for k in recs} } (per step {per_step}); "
+          f"designs {[dataplane.resolve_design(grp.bucket_elems)]}; peak "
+          f"device memory {peak8 / 2**30:.2f} GiB of {total_mem / 2**30:.1f}")
+    for k, r in recs.items():
+        print(f"  {k} launches of step 2: {r.seen}")
+
+    g = mk(args.seed)
+    worst8 = check_quant_bound(torch, grp, tree.flatten(g)[0],
+                               tree.flatten(r1)[0], mesh)
+    del g
+
+    def plain_steps(red, shape):
+        patches = plain_quant_patches(qt, ops)
+        before = dict(qt.launches)
+        g = mk(args.seed, shape)
+        p1, pst = run_plain(patches, lambda: red(g))
+        g = mk(args.seed + 1, shape)
+        p2, pst = run_plain(patches, lambda: red(g, pst))
+        check(qt.launches == before, "the plain run launched a kernel")
+        return p1, p2, pst
+
+    p1, p2, pst2 = plain_steps(red8, mesh.shape)
+    check(trees_same_bits(r1, p1), "int8 step 1 != plain twin")
+    check(trees_same_bits(r2, p2), "int8 step 2 != plain twin")
+    check(trees_same_bits(st2, pst2), "int8 state != plain twin")
+    del p1, p2, pst2, r1
+    print("int8 main path checks: both steps' results and the state bitwise "
+          "== the plain twin (all four int8 entries on their plain "
+          f"versions), at {LAYERS} layers; step 1 error <= {worst8:.3f} of "
+          "the quantization bound")
+
+    g = mk(args.seed + 1)
+    red8_ms, red8_all = timed(torch, lambda: red8(g, st2), 5)
+    print(f"int8 reduction ms with a state (median of 5, {card}): "
+          f"{red8_ms:.3f} (runs {[round(t, 3) for t in red8_all]}); dense "
+          f"reproducible {red_ms:.3f}; peak device memory int8 "
+          f"{peak8 / 2**30:.2f} GiB, dense {peak / 2**30:.2f} GiB")
+    phase_profile(torch, lambda: red8(g, st2), card,
+                  "one int8 reduction with a state")
+    del g, r2, st2
+    torch.cuda.empty_cache()
+
+    # the flat (1, 8) mesh, one step, against its plain twin
+    fred8 = GradReducer(int8_cfg, flat)
+    for k in qt.launches:
+        qt.launches[k] = 0
+    g = mk(args.seed, flat.shape)
+    f1, _ = fred8(g)
+    del g
+    torch.cuda.synchronize()
+    flat8 = dict(qt.launches)
+    check(flat8["dequant_accum_slots"] > 0, "flat int8 launched no fold")
+    patches = plain_quant_patches(qt, ops)
+    g = mk(args.seed, flat.shape)
+    pf1, _ = run_plain(patches, lambda: fred8(g))
+    del g
+    check(trees_same_bits(f1, pf1), "flat int8 != plain twin")
+    print(f"int8 flat mesh {flat.shape}: launches {flat8}, bitwise == "
+          "plain twin")
+    del f1, pf1
+    torch.cuda.empty_cache()
+
+    # the multi and tree designs on a reduced arena
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 2)
+    arena = torch.randn((*mesh.shape, 6, 300_000), generator=gen,
+                        device="cuda")
+    for design in ("multi", "tree"):
+        tr.launches = 0
+        got = dataplane.switch_allreduce_int8(arena, mesh, AXES,
+                                              design=design)
+        torch.cuda.synchronize()
+        twin = run_plain(plain_quant_patches(qt, ops) + [mock.patch.object(
+            tr, "tree_reduce_slots", lambda x: ops.tree_reduce_slots_plain(
+                x))], lambda: dataplane.switch_allreduce_int8(
+                    arena, mesh, AXES, design=design))
+        check(same_bits(got, twin), f"int8 {design} design != plain twin")
+        per = dataplane.switch_allreduce_int8(arena, mesh, AXES,
+                                              design=design, batched=False)
+        check(same_bits(got, per), f"int8 {design}: batched != per-packet")
+        print(f"int8 design {design} on a (2, 4, 6, 300000) arena: bitwise "
+              "== plain twin and == the per-packet plane"
+              + (f"; tree_reduce launches {tr.launches}"
+                 if design == "tree" else ""))
+    del arena, got, twin, per
+    torch.cuda.empty_cache()
+
+    # -- each kernel at the main paths' shapes --------------------------------
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    max_err = 0.0
-    for shape, stride, dtype in launch_shapes:
+    figures = {}
+
+    def account(name, nbytes, k_ms, p_ms, l_ms, err, what):
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        f = figures.setdefault(name, {"ms": 0.0, "plain_ms": 0.0,
+                                      "bound_ms": 0.0, "library_ms": None,
+                                      "max_abs_err": 0.0})
+        f["ms"] += k_ms
+        f["plain_ms"] += p_ms
+        f["bound_ms"] += b_ms
+        if l_ms is not None:
+            f["library_ms"] = (f["library_ms"] or 0.0) + l_ms
+        f["max_abs_err"] = max(f["max_abs_err"], err)
+        lib = "" if l_ms is None else f"; library {l_ms:.3f} ms"
+        print(f"{name} {what}: {k_ms:.3f} ms, {nbytes} bytes, bound "
+              f"{b_ms:.3f} ms ({b_ms / k_ms:.1%} of the bound), "
+              f"{nbytes / k_ms / 1e6:.0f} GB/s; plain {p_ms:.3f} ms{lib}  "
+              f"[{card}]")
+
+    def err_of(a, b):
+        """Largest |a - b|, in pieces so that the fp64 copies stay small."""
+        a, b = a.reshape(-1), b.reshape(-1)
+        return max(float((a[i:i + (1 << 26)].double()
+                          - b[i:i + (1 << 26)].double()).abs().max())
+                   for i in range(0, a.numel(), 1 << 26))
+
+    for shape, stride, dtype in tree_rec.seen:
         span = 1 + sum((n - 1) * s for n, s in zip(shape, stride))
         x = torch.randn(span, generator=gen, device="cuda").to(
             dtype).as_strided(shape, stride)
         got, want = ops.tree_reduce_slots(x), ops.tree_reduce_slots_plain(x)
         check(same_bits(got, want), f"kernel != plain at {shape}")
-        max_err = max(max_err, float((got.double() - want.double()).abs()
-                                     .max()))
+        err = err_of(got, want)
         del got, want
-        nbytes = tr.bytes_moved(x)
-        k_ms = cuda_ms(lambda: ops.tree_reduce_slots(x), 10)
-        p_ms = cuda_ms(lambda: ops.tree_reduce_slots_plain(x), 5)
-        l_ms = cuda_ms(lambda: x.sum(1, dtype=torch.float32), 5)
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        print(f"kernel {shape} stride {stride}: {k_ms:.3f} ms, {nbytes} "
-              f"bytes, bound {b_ms:.3f} ms ({b_ms / k_ms:.1%} of the "
-              f"bound), {nbytes / k_ms / 1e6:.0f} GB/s; plain {p_ms:.3f} "
-              f"ms; torch.sum {l_ms:.3f} ms  [{card}]")
-        for k, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms),
-                     ("library_ms", l_ms)):
-            tot[k] += v
+        account("tree_reduce_slots", tr.bytes_moved(x),
+                cuda_ms(lambda: ops.tree_reduce_slots(x), 10),
+                cuda_ms(lambda: ops.tree_reduce_slots_plain(x), 5),
+                cuda_ms(lambda: x.sum(1, dtype=torch.float32), 5), err,
+                f"{shape} stride {stride}")
         del x
-    print("kernel figures are per reduction: the sum over its "
-          f"{len(launch_shapes)} launches")
-    print(json.dumps({"kernels": [{
-        "name": "tree_reduce_slots", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-        "bound_ms": tot["bound_ms"], "bound_by": "bytes",
-        "library_ms": tot["library_ms"]}]}))
+    # the flat form, off the main paths: one launch at a (4, 2^26) stack
+    x = torch.randn((4, 1 << 26), generator=gen, device="cuda")
+    got = ops.tree_reduce(x)
+    want = ops.tree_reduce_slots_plain(x.reshape(1, 4, 1, -1)).reshape(-1)
+    check(same_bits(got, want), "flat tree_reduce != plain at (4, 2^26)")
+    account("tree_reduce", tr.bytes_moved(x.reshape(1, 4, 1, -1)),
+            cuda_ms(lambda: ops.tree_reduce(x), 10),
+            cuda_ms(lambda: ops.tree_reduce_slots_plain(
+                x.reshape(1, 4, 1, -1)), 5),
+            cuda_ms(lambda: x.sum(0, dtype=torch.float32), 5),
+            err_of(got, want), "(4, 67108864), off the main paths")
+    del x, got, want
+    torch.cuda.empty_cache()
+
+    for shape, stride, dtype, qblock in recs["quantize"].seen:
+        span = 1 + sum((n - 1) * s for n, s in zip(shape, stride))
+        x = torch.randn(span, generator=gen, device="cuda").to(
+            dtype).as_strided(shape, stride)
+        got, want = qt.quantize(x, qblock), ops.quantize_plain(x, qblock)
+        check(same_bits(got[0], want[0]) and same_bits(got[1], want[1]),
+              f"quantize != plain at {shape}")
+        err = max(err_of(got[0], want[0]), err_of(got[1], want[1]))
+        del got, want
+        account("quantize", qt.quantize_bytes(x, qblock),
+                cuda_ms(lambda: qt.quantize(x, qblock), 5),
+                cuda_ms(lambda: ops.quantize_plain(x, qblock), 2), None, err,
+                f"{shape} stride {stride}")
+        del x
+        torch.cuda.empty_cache()
+    for shape, dtype, residual, _ in recs["dequantize"].seen:
+        n = 1
+        for d in shape:
+            n *= d
+        q = torch.randint(-127, 128, (n,), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        s = torch.rand((n // QBLOCK,), generator=gen, device="cuda") + 0.5
+        v = (torch.randn((n,), generator=gen, device="cuda").to(dtype)
+             if residual else None)
+        o = torch.empty((n,), dtype=dtype, device="cuda")
+        got = qt.dequantize(q, s, QBLOCK, dtype, minuend=v)
+        want = ops.dequantize_plain(q, s, QBLOCK, dtype, minuend=v)
+        check(same_bits(got, want), f"dequantize != plain at {shape}")
+        err = err_of(got, want)
+        del got, want
+        qv, sv = q.view(-1, QBLOCK), s.unsqueeze(-1)
+        if residual:
+            lib = lambda: torch.addcmul(v.view(-1, QBLOCK), qv, sv, value=-1)
+        else:
+            lib = lambda: torch.mul(qv, sv)
+        account("dequantize", qt.dequantize_bytes(q, QBLOCK, dtype, residual),
+                cuda_ms(lambda: qt.dequantize(q, s, QBLOCK, dtype, minuend=v,
+                                              out=o), 5),
+                cuda_ms(lambda: ops.dequantize_plain(q, s, QBLOCK, dtype,
+                                                     minuend=v, out=o), 2),
+                cuda_ms(lib, 5), err,
+                f"{shape}{' residual' if residual else ''}")
+        del q, s, v, o, qv, sv
+        torch.cuda.empty_cache()
+    for shape, qstride, sstride in recs["dequant_accum_slots"].seen:
+        g_, p_, s_, e_ = shape
+        qspan = 1 + sum((n - 1) * st for n, st in zip(shape, qstride))
+        sshape = (g_, p_, s_, e_ // QBLOCK)
+        sspan = 1 + sum((n - 1) * st for n, st in zip(sshape, sstride))
+        q = torch.randint(-127, 128, (qspan,), generator=gen, device="cuda",
+                          dtype=torch.int8).as_strided(shape, qstride)
+        s = (torch.rand((sspan,), generator=gen, device="cuda") + 0.5
+             ).as_strided(sshape, sstride)
+        got = qt.dequant_accum_slots(q, s, QBLOCK)
+        want = ops.dequant_accum_slots_plain(q, s, QBLOCK)
+        check(same_bits(got, want), f"dequant_accum_slots != plain {shape}")
+        err = err_of(got, want)
+        del got, want
+        account("dequant_accum_slots", qt.dequant_accum_bytes(q, QBLOCK),
+                cuda_ms(lambda: qt.dequant_accum_slots(q, s, QBLOCK), 10),
+                cuda_ms(lambda: ops.dequant_accum_slots_plain(q, s, QBLOCK),
+                        2), None, err, f"{shape} stride {qstride}")
+        del q, s
+        torch.cuda.empty_cache()
+    # the flat form, off the main path: one launch at a (4, 2^28) stack
+    q = torch.randint(-127, 128, (4, 1 << 28), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((4, (1 << 28) // QBLOCK), generator=gen,
+                   device="cuda") + 0.5
+    got, want = qt.dequant_accum(q, s, QBLOCK), ops.dequant_accum_plain(q, s)
+    check(same_bits(got, want), "dequant_accum != plain at (4, 2^28)")
+    account("dequant_accum", qt.dequant_accum_bytes(
+                q.reshape(1, 4, -1, QBLOCK), QBLOCK),
+            cuda_ms(lambda: qt.dequant_accum(q, s, QBLOCK), 10),
+            cuda_ms(lambda: ops.dequant_accum_plain(q, s), 2), None,
+            err_of(got, want), "(4, 268435456), off the main paths")
+    del q, s, got, want
+
+    print("kernel figures are per reduction: the sum over one reduction's "
+          "launches (one step of the int8 path); the flat forms are one "
+          "launch each")
+    routes = [("tree_reduce_slots", "tree_reduce"),
+              ("tree_reduce", "tree_reduce"), ("quantize", "quant"),
+              ("dequantize", "quant"), ("dequant_accum_slots", "quant"),
+              ("dequant_accum", "quant")]
+    print(json.dumps({"kernels": [dict(
+        name=name, route="cuda", source=SOURCES[src],
+        replaces=REPLACES[name], launches=launches[name],
+        max_abs_err=figures[name]["max_abs_err"], ms=figures[name]["ms"],
+        plain_ms=figures[name]["plain_ms"],
+        bound_ms=figures[name]["bound_ms"], bound_by="bytes",
+        library_ms=figures[name]["library_ms"]) for name, src in routes]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

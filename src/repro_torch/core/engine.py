@@ -13,11 +13,14 @@ emulated rank), and:
   3. reduces all B buckets of a group in one call and unpacks.
 
 With ``reproducible=True`` (F3) the result is bitwise-deterministic and
-bitwise-equal to the JAX package's on the same inputs.
+bitwise-equal to the JAX package's on the same inputs.  With
+``compression="int8"`` and ``transport="innetwork"`` (F1) the reducer
+carries each rank's error-feedback residual as its state.
 
-Not ported yet: the int8 and sparse transports (ROADMAP queue 1 items 7
-and 8), the per-bucket ``arena=False`` path (item 2), the lossy fabric
-(item 9), the multi-tenant runtime (item 11) and telemetry (item 13).
+Not ported yet: the wire int8 transport and the sparse transports
+(ROADMAP queue 1 items 7 and 8), the per-bucket ``arena=False`` path
+(item 2), the lossy fabric (item 9), the multi-tenant runtime (item 11)
+and telemetry (item 13).
 """
 from __future__ import annotations
 
@@ -116,17 +119,31 @@ class GradReducer:
         self.config = config
         self.mesh = mesh
 
+    @property
+    def needs_state(self) -> bool:
+        """Whether the reducer carries error-feedback residuals."""
+        c = self.config
+        return c.compression != "none" or c.sparse_k_frac > 0
+
+    def init_state(self, grads: Any) -> Any:
+        """Zero error-feedback residuals shaped like ``grads`` (or None)."""
+        if not self.needs_state:
+            return None
+        return tree.map_leaves(torch.zeros_like, grads)
+
     def __call__(self, grads: Any, state: Any = None) -> tuple[Any, Any]:
         """Reduce ``grads``; returns ``(reduced, state)``.  ``state`` is
-        the lossy transports' error-feedback residual; the dense
-        transports ported so far keep none and return None.
+        the error-feedback residual tree of the lossy transports (None
+        for the lossless ones), shaped like ``grads``: pass it back in on
+        the next step.  ``state=None`` counts as zero residuals.
 
         With ``transport="innetwork"`` the ranks share one copy of each
         reduced leaf: the multicast gives every rank the same bits, so a
         leaf is a broadcast view, stride 0 over the rank axes.  Update it
         out of place, or ``clone()`` it first: an in-place update raises
         (it would write through to every rank).  The wire transports
-        return a tensor of their own for every rank.
+        return a tensor of their own for every rank.  State leaves are
+        views into one arena per dtype.
         """
         return self._reduce_arena(grads, state)
 
@@ -144,6 +161,7 @@ class GradReducer:
     def _reduce_arena(self, grads: Any, state: Any) -> tuple[Any, Any]:
         c = self.config
         leaves, spec = tree.flatten(grads)
+        ef_leaves = tree.flatten(state)[0] if state is not None else None
         for l in leaves:
             if tuple(l.shape[:self.mesh.ndim]) != self.mesh.shape:
                 raise ValueError(f"leaf {tuple(l.shape)} does not lead with "
@@ -152,10 +170,21 @@ class GradReducer:
             leaves, c.bucket_bytes, pad_multiple=self._pad_multiple(
                 self._world()), lead_dims=self.mesh.ndim)
         red_groups: list[torch.Tensor] = []
+        ef_groups: list[torch.Tensor | None] = []
         for g in plan.groups:
-            buf = g.pack(leaves)
             transport = transports.from_config(c, self.mesh, g.dtype)
-            red, _ = transport(buf, None, g.staggers(c.stagger, buf.device),
-                               g.valid_extents)
+            # the packed arenas go straight into the call: a transport
+            # may form its results in their storage
+            red, ef_red = transport(
+                g.pack(leaves),
+                g.pack(ef_leaves) if ef_leaves is not None else None,
+                g.staggers(c.stagger, leaves[0].device),
+                g.valid_extents)
             red_groups.append(red)
-        return tree.unflatten(spec, plan.unpack(red_groups)), None
+            ef_groups.append(ef_red)
+        out = tree.unflatten(spec, plan.unpack(red_groups))
+        if not self.needs_state:
+            return out, None
+        ef_flat = plan.unpack([e if e is not None else torch.zeros_like(r)
+                               for e, r in zip(ef_groups, red_groups)])
+        return out, tree.unflatten(spec, ef_flat)

@@ -5,9 +5,12 @@ The port of the dense part of ``repro/core/transports.py``.  A
 buckets of every rank in one call.  Ported so far:
 
 * ``DenseTransport`` — the wire allreduce (``fixed_tree`` and ``psum``);
-* ``SwitchTransport`` in dense mode — the emulated switch data plane
-  (``switch.dataplane.switch_allreduce_dense``), which with
-  ``reproducible=True`` folds every level in the ``tree_reduce`` kernel.
+* ``SwitchTransport`` — the emulated switch data plane: in dense mode
+  ``switch.dataplane.switch_allreduce_dense``, which with
+  ``reproducible=True`` folds every level in the ``tree_reduce`` kernel;
+  in int8 mode ``switch_allreduce_int8`` under error feedback, which
+  quantizes with the ``quantize`` kernel and folds every level in the
+  ``dequant_accum_slots`` kernel.
 
 Every other branch of ``from_config`` raises ``NotImplementedError``
 naming its ROADMAP item.
@@ -19,7 +22,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.core import collectives as coll, topology
+from repro_torch.core import collectives as coll, compression, topology
 from repro_torch.mesh import RankMesh
 from repro_torch.switch import dataplane
 
@@ -96,22 +99,43 @@ class DenseTransport(Transport):
 
 @dataclasses.dataclass(frozen=True)
 class SwitchTransport(Transport):
-    """The emulated sPIN switch data plane as a transport (dense mode;
-    the int8 and sparse modes come with ROADMAP queue 1 items 7 and 8).
+    """The emulated sPIN switch data plane as a transport (the sparse
+    mode comes with ROADMAP queue 1 item 8).
 
-    ``reproducible`` pins the fixed-tree handler (always tree
-    aggregation, §6.4); otherwise the §6.4 size switchover picks the
-    buffer design.  It runs the batched plane.
+    ``mode`` picks the handler family: ``"dense"`` (``reproducible`` pins
+    the fixed-tree handler, always tree aggregation, §6.4) or ``"int8"``
+    (F1: int8 packets with a scales sideband, under error feedback).
+    Otherwise the §6.4 size switchover picks the buffer design.  It runs
+    the batched plane.
+
+    In int8 mode ``buf`` is consumed: the error-feedback sum and then the
+    new residual are formed in its storage (``compression.
+    error_feedback_step``), so callers pass an arena of their own.
     """
 
+    mode: str = "dense"             # dense | int8
     reproducible: bool = False
+    block: int = QUANT_BLOCK
 
     def __call__(self, buf, ef, staggers, extents):
-        red = dataplane.switch_allreduce_dense(
-            buf, self.mesh, self.axes, reproducible=self.reproducible)
+        if self.mode == "dense":
+            red = dataplane.switch_allreduce_dense(
+                buf, self.mesh, self.axes, reproducible=self.reproducible)
+            if self.mean:
+                red = red / self._world()
+            return red, (torch.zeros_like(ef) if ef is not None else None)
+        if self.mode != "int8":
+            raise ValueError(f"unknown switch transport mode {self.mode!r}")
+
+        def transmit(v):
+            return dataplane.switch_allreduce_int8(v, self.mesh, self.axes,
+                                                   block=self.block)
+
+        red, ef_out = compression.error_feedback_step(buf, ef, transmit,
+                                                      block=self.block)
         if self.mean:
             red = red / self._world()
-        return red, (torch.zeros_like(ef) if ef is not None else None)
+        return red, ef_out
 
 
 def from_config(config, mesh: RankMesh, dtype: torch.dtype) -> Transport:
@@ -124,15 +148,18 @@ def from_config(config, mesh: RankMesh, dtype: torch.dtype) -> Transport:
     """
     axes = tuple(config.axes)
     is_float = dtype.is_floating_point
-    lossy = is_float and (config.sparse_k_frac > 0
-                          or config.compression == "int8")
-    if lossy:
-        raise NotImplementedError(
-            "lossy transports are not ported yet: ROADMAP queue 1 items 7 "
-            "(int8) and 8 (sparse)")
+    unported = ("the lossy wire transports and the sparse ones are not "
+                "ported yet: ROADMAP queue 1 items 7 (wire int8) and 8 "
+                "(sparse)")
+    if is_float and config.sparse_k_frac > 0:
+        raise NotImplementedError(unported)
     if config.transport == "innetwork":
+        if config.compression == "int8" and is_float:
+            return SwitchTransport(mesh, axes, mean=config.mean, mode="int8")
         return SwitchTransport(mesh, axes, mean=config.mean,
                                reproducible=config.reproducible)
+    if config.compression == "int8" and is_float:
+        raise NotImplementedError(unported)
     return DenseTransport(mesh, axes, mean=config.mean,
                           hierarchical=config.hierarchical,
                           algorithm=config.algorithm,

@@ -1,13 +1,15 @@
 """Public wrappers over the kernels: padding, accumulation type, dispatch.
 
-The port of ``repro/kernels/ops.py`` for the fixed-tree fold.  A tensor
-on the CPU takes the plain PyTorch version (``ref``); a tensor on the
-card launches the CUDA kernel or raises — there is no fallback.
+The port of ``repro/kernels/ops.py`` for the fixed-tree fold and the int8
+quantization kernels.  A tensor on the CPU takes the plain PyTorch
+version (``ref``); a tensor on the card launches the CUDA kernel or
+raises — there is no fallback.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import tree_reduce as _tr
 
@@ -67,4 +69,159 @@ def tree_reduce(x: torch.Tensor) -> torch.Tensor:
     if x.dim() != 2:
         raise ValueError(f"tree_reduce wants (P, N), got {tuple(x.shape)}")
     p, n = x.shape
-    return tree_reduce_slots(x.reshape(1, p, 1, n)).reshape(n)
+    if x.device.type == "cpu":
+        return tree_reduce_slots_plain(x.reshape(1, p, 1, n)).reshape(n)
+    return _tr.tree_reduce(_pad_pow2(x, 0))
+
+
+# ---------------------------------------------------------------------------
+# Blockwise int8 quantization (F1): the port of ``repro/kernels/ops.py``'s
+# ``quantize``, ``dequantize``, ``dequant_accum`` and
+# ``dequant_accum_slots``.  The ``*_plain`` functions run the plain
+# versions in pieces of about ``PLAIN_CHUNK`` elements (the pieces are
+# independent, so the bits are the same), which keeps their fp64
+# temporaries small on a full-width arena.
+# ---------------------------------------------------------------------------
+
+PLAIN_CHUNK = 1 << 24
+
+
+def _row_chunks(rows: int, width: int):
+    step = max(1, PLAIN_CHUNK // max(1, width))
+    return [slice(i, min(i + step, rows)) for i in range(0, rows, step)]
+
+
+def _rows(x: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    if x.dim() == 1:
+        return x.unsqueeze(0), True
+    if x.dim() != 2:
+        raise ValueError(f"want (n,) or (R, n), got {tuple(x.shape)}")
+    return x, False
+
+
+def quantize_plain(x: torch.Tensor, qblock: int = 256
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`quantize` on ``(R, n)`` rows."""
+    r, n = x.shape
+    q = torch.empty((r, n), dtype=torch.int8, device=x.device)
+    s = torch.empty((r, n // qblock), dtype=torch.float32, device=x.device)
+    for c in _row_chunks(r, n):
+        q[c], s[c] = _ref.quantize(x[c], qblock)
+    return q, s
+
+
+def quantize(x: torch.Tensor, qblock: int = 256
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise symmetric int8 of ``(n,)`` or ``(R, n)`` rows →
+    ``(q, scales)`` of shape ``(..., n)`` and ``(..., n / qblock)``.  A
+    ragged ``n`` is zero-padded to whole blocks, as the JAX wrapper
+    does."""
+    x2, squeeze = _rows(x)
+    pad = (-x2.shape[-1]) % qblock
+    if pad:
+        x2 = torch.cat([x2, x2.new_zeros(x2.shape[0], pad)], dim=-1)
+    if x2.device.type == "cpu":
+        q, s = quantize_plain(x2, qblock)
+    else:
+        q, s = _quant.quantize(x2, qblock)
+    return (q[0], s[0]) if squeeze else (q, s)
+
+
+def dequantize_plain(q: torch.Tensor, scales: torch.Tensor,
+                     qblock: int = 256,
+                     out_dtype: torch.dtype = torch.float32,
+                     minuend: torch.Tensor | None = None,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version of :func:`dequantize`."""
+    if minuend is not None:
+        out_dtype = minuend.dtype
+    if out is None:
+        out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    nb = q.numel() // qblock
+    q2, s2, o2 = (q.reshape(nb, qblock), scales.reshape(nb, 1),
+                  out.view(nb, qblock))
+    v2 = None if minuend is None else minuend.reshape(nb, qblock)
+    for c in _row_chunks(nb, qblock):
+        o2[c] = _ref.dequantize(q2[c], s2[c], qblock, out_dtype,
+                                minuend=None if v2 is None else v2[c])
+    return out
+
+
+def dequantize(q: torch.Tensor, scales: torch.Tensor, qblock: int = 256,
+               out_dtype: torch.dtype = torch.float32,
+               minuend: torch.Tensor | None = None,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverse of :func:`quantize`: ``q·s`` blockwise in ``out_dtype``,
+    ``q``'s shape.  With ``minuend`` ``v``, the error-feedback residual
+    ``v − q·s`` in ``v``'s dtype; ``out`` may be ``v`` itself."""
+    if q.numel() % qblock:
+        raise ValueError(f"dequantize: n={q.numel()} % qblock={qblock} "
+                         "!= 0")
+    if q.device.type == "cpu":
+        return dequantize_plain(q, scales, qblock, out_dtype, minuend, out)
+    return _quant.dequantize(q, scales, qblock, out_dtype, minuend, out)
+
+
+def _stack_slots(q: torch.Tensor, scales: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, bool]:
+    if q.dim() == 3:
+        return q.unsqueeze(0), scales.unsqueeze(0), True
+    if q.dim() != 4:
+        raise ValueError(f"dequant_accum_slots wants (P, S, E) or "
+                         f"(G, P, S, E), got {tuple(q.shape)}")
+    return q, scales, False
+
+
+def dequant_accum_slots_plain(q: torch.Tensor, scales: torch.Tensor,
+                              qblock: int = 256) -> torch.Tensor:
+    """The plain version of :func:`dequant_accum_slots`, on any device."""
+    q4, s4, squeeze = _stack_slots(q, scales)
+    g, p, s, e = q4.shape
+    out = torch.empty((g, s, e), dtype=torch.float32, device=q.device)
+    for c in _row_chunks(s, g * p * e):
+        out[:, c] = _ref.dequant_accum_slots(q4[:, :, c], s4[:, :, c],
+                                             qblock)
+    return out[0] if squeeze else out
+
+
+def dequant_accum_slots(q: torch.Tensor, scales: torch.Tensor,
+                        qblock: int = 256) -> torch.Tensor:
+    """Fused dequantize and fold of a ``(P, S, E)`` int8 slot stack over
+    its child axis, in stack order → ``(S, E)`` fp32; or ``(G, P, S, E)``
+    → ``(G, S, E)`` for G switches at once.  Scales are ``(..., P, S,
+    E / qblock)``.  Raises when ``E % qblock``: the caller owns the
+    per-slot scales layout."""
+    e = q.shape[-1]
+    if e % qblock:
+        raise ValueError(f"dequant_accum_slots: E={e} % qblock={qblock} "
+                         "!= 0")
+    if q.device.type == "cpu":
+        return dequant_accum_slots_plain(q, scales, qblock)
+    q4, s4, squeeze = _stack_slots(q, scales)
+    out = _quant.dequant_accum_slots(q4, s4, qblock)
+    return out[0] if squeeze else out
+
+
+def dequant_accum_plain(q: torch.Tensor, scales: torch.Tensor,
+                        qblock: int = 256) -> torch.Tensor:
+    """The plain version of :func:`dequant_accum`."""
+    p, n = q.shape
+    return dequant_accum_slots_plain(
+        q.reshape(p, n // qblock, qblock), scales.reshape(p, -1, 1),
+        qblock).reshape(n)
+
+
+def dequant_accum(q: torch.Tensor, scales: torch.Tensor,
+                  qblock: int = 256) -> torch.Tensor:
+    """Fused dequantize and fold of a ``(P, n)`` int8 child stack with
+    ``(P, n / qblock)`` scales → ``(n,)`` fp32, in stack order.  Raises
+    when ``n % qblock``."""
+    if q.dim() != 2:
+        raise ValueError(f"dequant_accum wants (P, n), got "
+                         f"{tuple(q.shape)}")
+    n = q.shape[1]
+    if n % qblock:
+        raise ValueError(f"dequant_accum: n={n} % qblock={qblock} != 0")
+    if q.device.type == "cpu":
+        return dequant_accum_plain(q, scales, qblock)
+    return _quant.dequant_accum(q, scales, qblock)

@@ -28,3 +28,109 @@ def tree_reduce(x: torch.Tensor, accum_dtype: torch.dtype = torch.float32,
         y = y.select(dim + 1, 0) + y.select(dim + 1, 1)
         p //= 2
     return y.select(dim, 0).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise int8 quantization (F1).
+#
+# These reproduce the bits XLA computes for the JAX package's jitted
+# quantization code, which is not what its source says literally:
+#   * ``max|x| / 127`` is compiled as ``max|x| * fl32(1/127)``;
+#   * the dequant-accumulate fold ``acc = q0·s0; acc = acc + qi·si`` is
+#     contracted to ``acc = fma(q0, s0, q1·s1)``, then ``fma(qi, si, acc)``;
+#   * the error-feedback residual ``v - q·s`` is ``fma(-q, s, v)``.
+# A fused multiply-add is computed here in fp64 (see ``fma_f32``).
+# ---------------------------------------------------------------------------
+
+INT8_MAX = 127.0
+#: fl32(1/127): the reciprocal XLA multiplies by in place of ``/ 127``
+INV_INT8_MAX = 1.0 / 127.0
+#: the scale floor of an all-zero block, 1e-30 as fp32
+SCALE_FLOOR = 1e-30
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``fl32(a·b + c)`` with one rounding, as a fused multiply-add.
+
+    ``a`` holds int8 values and ``b`` fp32, so ``a·b`` is exact in fp64;
+    the fp64 sum with ``c`` is rounded to odd (its error is found by
+    TwoSum, and an inexact sum with an even last bit moves one ulp
+    toward the exact value), which makes the final rounding to fp32 the
+    single rounding of the exact value.
+    """
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def quantize(x: torch.Tensor, qblock: int = 256
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise symmetric int8 along the last axis: ``(..., n)`` →
+    int8 ``(..., n)`` and fp32 scales ``(..., n / qblock)``.
+
+    ``scale = max(max|x| · fl32(1/127), 1e-30)`` (NaN kept), then
+    ``q = clamp(round_half_even(x / scale), ±127)`` with a true division.
+    """
+    *lead, n = x.shape
+    xb = x.float().reshape(*lead, n // qblock, qblock)
+    scale = xb.abs().amax(dim=-1, keepdim=True) * xb.new_tensor(INV_INT8_MAX)
+    scale = torch.maximum(scale, scale.new_tensor(SCALE_FLOOR))
+    q = torch.clamp(torch.round(xb / scale), -INT8_MAX, INT8_MAX)
+    return q.to(torch.int8).reshape(x.shape), scale[..., 0]
+
+
+def dequantize(q: torch.Tensor, scales: torch.Tensor, qblock: int = 256,
+               out_dtype: torch.dtype = torch.float32,
+               minuend: torch.Tensor | None = None) -> torch.Tensor:
+    """``q · s`` blockwise along the last axis, cast to ``out_dtype``.
+
+    With ``minuend`` ``v``, returns the error-feedback residual
+    ``v - q·s`` in ``v``'s dtype, as XLA computes it: ``fma(-q, s, v)``
+    for fp32; for bf16 and f16, ``v - cast(q·s)`` in fp32 rounded once
+    (the cast between product and difference stops the contraction).
+    """
+    *lead, n = q.shape
+    qb = q.reshape(*lead, n // qblock, qblock)
+    s = scales.unsqueeze(-1)
+    if minuend is None:
+        return (qb.float() * s).reshape(q.shape).to(out_dtype)
+    v = minuend.reshape(qb.shape)
+    if v.dtype == torch.float32:
+        return fma_f32(-qb, s, v).reshape(q.shape)
+    dec = (qb.float() * s).to(v.dtype)
+    return (v.float() - dec.float()).to(v.dtype).reshape(q.shape)
+
+
+def dequant_accum_slots(q: torch.Tensor, scales: torch.Tensor,
+                        qblock: int = 256) -> torch.Tensor:
+    """Dequantize and fold a ``(..., P, S, E)`` int8 stack over its child
+    axis in stack order → ``(..., S, E)`` fp32, contracted as XLA does:
+    ``q0·s0`` for one child, else ``fma(q0, s0, q1·s1)`` and then
+    ``fma(qi, si, acc)``.  Scales are ``(..., P, S, E / qblock)``."""
+    *lead, p, s, e = q.shape
+    qb = q.reshape(*lead, p, s, e // qblock, qblock)
+    sc = scales.unsqueeze(-1)
+    if p == 1:
+        acc = qb[..., 0, :, :, :].float() * sc[..., 0, :, :, :]
+    else:
+        acc = fma_f32(qb[..., 0, :, :, :], sc[..., 0, :, :, :],
+                      qb[..., 1, :, :, :].float() * sc[..., 1, :, :, :])
+        for i in range(2, p):
+            acc = fma_f32(qb[..., i, :, :, :], sc[..., i, :, :, :], acc)
+    return acc.reshape(*lead, s, e)
+
+
+def dequant_accum(q: torch.Tensor, scales: torch.Tensor,
+                  qblock: int = 256) -> torch.Tensor:
+    """The flat form: a ``(..., P, n)`` stack with ``(..., P, n / qblock)``
+    scales → ``(..., n)`` fp32, the slot fold with one block a slot."""
+    *lead, p, n = q.shape
+    out = dequant_accum_slots(q.reshape(*lead, p, n // qblock, qblock),
+                              scales.unsqueeze(-1), qblock)
+    return out.reshape(*lead, n)

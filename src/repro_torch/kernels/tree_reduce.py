@@ -8,7 +8,8 @@ memory: ``(P + 1)·G·S·E·itemsize`` bytes over the card's bandwidth.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/`` beside this file (named by the source's hash) and loaded with
-``ctypes``; the kernel launches on PyTorch's current stream.  Nothing is
+``ctypes`` (``build.py``); the kernel launches on PyTorch's current
+stream.  Nothing is
 built or imported when this module is imported.  The plain version of
 the same function is ``ref.tree_reduce``; ``ops`` picks between them by
 the tensor's device.
@@ -17,18 +18,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).with_name("csrc") / "tree_reduce.cu"
-BUILD_DIR = Path(__file__).with_name("build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from repro_torch.kernels import build as _build
+
+SOURCE = _build.CSRC / "tree_reduce.cu"
 
 #: dtype codes of the C entry point
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
@@ -38,46 +33,13 @@ MAX_P = 64
 #: Kernel launches so far; the wrapper adds one per launch and nothing
 #: else touches it but a caller that resets it.
 launches = 0
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
-                           "PATH to build the tree_reduce kernel")
-    return found
-
-
-def build() -> Path:
-    """Compile the kernel if this source has not been built yet.
-
-    The compiler's output (``-Xptxas -v``: registers, spills) is kept
-    beside the library as ``.log``.  The library is written under a
-    temporary name and renamed, so processes building at once are safe.
-    """
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libtree_reduce_{tag}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    r = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if r.returncode:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}"
-                           f"\n{r.stdout}\n{r.stderr}")
-    lib.with_suffix(".log").write_text(r.stdout + r.stderr)
-    os.replace(tmp, lib)
-    return lib
+#: The same for the flat ``(P, N)`` form, ``tree_reduce``.
+flat_launches = 0
 
 
 @functools.cache
 def _entry():
-    fn = ctypes.CDLL(str(build())).tree_reduce_slots
+    fn = _build.load(SOURCE).tree_reduce_slots
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
@@ -91,15 +53,9 @@ def bytes_moved(x: torch.Tensor) -> int:
     return (p + 1) * g * s * e * x.element_size()
 
 
-def tree_reduce_slots(x: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on a ``(G, P, S, E)`` CUDA stack → ``(G, S, E)``.
-
-    ``P`` must be a power of two up to 64 (``ops`` pads it with zero
-    rows).  Floats accumulate in fp32, int32 natively.  Each ``(S, E)``
-    block must be contiguous; the ``G`` and ``P`` strides are free, so
-    a stack gathered along any rank axis is a view.
-    """
-    global launches
+def _launch(x: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    """Check a ``(G, P, S, E)`` CUDA stack and launch the kernel on it;
+    returns the output and whether a kernel ran (not for an empty one)."""
     if x.device.type != "cuda":
         raise ValueError(f"tree_reduce_slots kernel needs a CUDA tensor, "
                          f"got {x.device}")
@@ -118,7 +74,7 @@ def tree_reduce_slots(x: torch.Tensor) -> torch.Tensor:
                          f"be contiguous, strides {x.stride()}")
     out = torch.empty((g, s, e), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
-        return out
+        return out, False
     fn = _entry()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -127,5 +83,31 @@ def tree_reduce_slots(x: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"tree_reduce_slots kernel launch failed: "
                            f"cudaError {err} for {tuple(x.shape)} {x.dtype}")
-    launches += 1
+    return out, True
+
+
+def tree_reduce_slots(x: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on a ``(G, P, S, E)`` CUDA stack → ``(G, S, E)``.
+
+    ``P`` must be a power of two up to 64 (``ops`` pads it with zero
+    rows).  Floats accumulate in fp32, int32 natively.  Each ``(S, E)``
+    block must be contiguous; the ``G`` and ``P`` strides are free, so
+    a stack gathered along any rank axis is a view.
+    """
+    global launches
+    out, ran = _launch(x)
+    launches += ran
     return out
+
+
+def tree_reduce(x: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on a ``(P, N)`` CUDA stack → ``(N,)``: the case
+    of one group and one slot, counted in ``flat_launches``."""
+    global flat_launches
+    if x.dim() != 2:
+        raise ValueError(f"tree_reduce kernel wants (P, N), got "
+                         f"{tuple(x.shape)}")
+    p, n = x.shape
+    out, ran = _launch(x.reshape(1, p, 1, n))
+    flat_launches += ran
+    return out.reshape(n)

@@ -1,8 +1,9 @@
 """The emulated switch data plane: ingress → aggregate → multicast (§4).
 
-The port of the dense part of ``repro/switch/dataplane.py``.  Arenas
-carry the mesh's rank axes in front, ``(*mesh, B, S)``.  Per level of the
-mesh's reduction tree (``topology.mesh_levels``), leaf level first:
+The port of the dense and int8 parts of ``repro/switch/dataplane.py``.
+Arenas carry the mesh's rank axes in front, ``(*mesh, B, S)``.  Per level
+of the mesh's reduction tree (``topology.mesh_levels``), leaf level
+first:
 
   1. **ingress** — every child frames its arena into MTU packets and
      streams them to the level's switch rank.  The child stack is a view
@@ -21,8 +22,11 @@ packed ``(G, P, n, E)`` slot tensor; ``batched=False`` keeps the
 per-packet schedule (``packetize`` / header steering / ``depacketize``,
 binomial multicast) as the bitwise oracle.
 
-The lossy fabric (``fault_plan``), telemetry and multi-tenant arrivals
-are not ported yet (ROADMAP queue 1 items 9, 11 and 13).
+Two planes share this schedule: the dense one (``switch_allreduce_dense``)
+and the int8 one (``switch_allreduce_int8``, F1), whose packets carry
+int8 payloads with an fp32 scales sideband.  The lossy fabric
+(``fault_plan``), telemetry and multi-tenant arrivals are not ported yet
+(ROADMAP queue 1 items 9, 11 and 13).
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import topology
+from repro_torch.core import compression, topology
 from repro_torch.mesh import RankMesh
 from repro_torch.perfmodel import switch_model as sm
 from repro_torch.switch import handlers as hd
@@ -150,15 +154,15 @@ def _group_order(order: np.ndarray, groups: int,
     return o.expand(groups, *o.shape)
 
 
-def _apply_arrival(stack: torch.Tensor, headers: torch.Tensor, perm,
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Reorder the child streams by a static arrival permutation; headers
-    ride along so child-order handlers can undo it."""
+def _apply_arrival(stack, headers: torch.Tensor, perm):
+    """Reorder the child streams (a stack, or a dict of stacks) by a
+    static arrival permutation; headers ride along so child-order
+    handlers can undo it."""
     g, p, n = headers.shape[:3]
     order = _resolve_perm(perm, p, n)
     if order is None:
         return stack, headers
-    o = _group_order(order, g, stack.device)
+    o = _group_order(order, g, headers.device)
     return hd.apply_order(stack, o), hd.apply_order(headers, o)
 
 
@@ -287,3 +291,145 @@ def switch_allreduce_dense(arena: torch.Tensor, mesh: RankMesh,
     if mean:
         cur = cur / mesh.world_size(axes)
     return cur
+
+
+# ---------------------------------------------------------------------------
+# int8 dequant-accumulate data plane (F1).
+# ---------------------------------------------------------------------------
+
+def _scales_format(fmt: pk.PacketFormat, block: int) -> pk.PacketFormat:
+    """The fp32 scales sideband: one packet per payload packet.
+
+    Requires the payload MTU to hold whole quantization blocks — that
+    is what keeps the sideband's packet count aligned with the
+    payload's (``E_s = E / block``) through any tail padding.
+    """
+    e = fmt.payload_elems(torch.int8)
+    if e % block:
+        raise ValueError(
+            f"int8 switch transport needs the packet MTU ({fmt.mtu_bytes} B) "
+            f"to hold whole quantization blocks of {block}")
+    return pk.PacketFormat(mtu_bytes=e // block * 4)
+
+
+def _int8_level_batched(acc: torch.Tensor, mesh: RankMesh,
+                        lvl: topology.MeshLevel, handler: hd.Handler,
+                        design: str, n_bufs: int, block: int,
+                        qplan: pk.FramePlan, splan: pk.FramePlan
+                        ) -> tuple[torch.Tensor, RankMesh]:
+    """One up-hop of the int8 plane over the packed tensors: the ranks
+    that hold data quantize, the switches fold their children's int8
+    stacks with the scales sideband (views of the rank axis), all
+    switches of the level at once.  The handler is child-steered, so any
+    arrival interleave composes with its steering to the identity and is
+    never materialised.  Returns the switches' fp32 aggregates on
+    ``mesh.collapse(lvl.axis)``."""
+    q, scales = compression.quantize_int8(acc, block)
+    stack = {"q": mesh.group_stack(qplan.pack(q), lvl.axis, lvl.switch_rank),
+             "scale": mesh.group_stack(splan.pack(scales), lvl.axis,
+                                       lvl.switch_rank)}
+    del q, scales
+    agg, _ = handler.payload_handler(stack, None, design, n_bufs,
+                                     {"qblock": block})
+    del stack           # release the level's int8 copy before unpacking
+    out = qplan.unpack(handler.completion_handler(agg, {}))   # (G, B, S)
+    up = mesh.collapse(lvl.axis)
+    return out.reshape(up.shape + tuple(out.shape[1:])), up
+
+
+def _int8_level(acc: torch.Tensor, mesh: RankMesh, lvl: topology.MeshLevel,
+                handler: hd.Handler, design: str, n_bufs: int, block: int,
+                fmt: pk.PacketFormat, sfmt: pk.PacketFormat,
+                arrival) -> torch.Tensor:
+    """One up-hop packet by packet: every rank quantizes and frames both
+    streams, the switch steers by the payload's headers, folds and
+    places its aggregate at the switch rank (zeros elsewhere)."""
+    b, s = acc.shape[-2:]
+    q, scales = compression.quantize_int8(acc, block)
+    r = mesh.axis_index(lvl.axis, acc.device)
+    qs = pk.packetize(q, fmt, child_rank=r)
+    ss = pk.packetize(scales, sfmt, child_rank=r)
+    payload = {"q": mesh.group_stack(qs.payload, lvl.axis, lvl.switch_rank),
+               "scale": mesh.group_stack(ss.payload, lvl.axis,
+                                         lvl.switch_rank)}
+    headers = mesh.group_stack(qs.headers, lvl.axis, lvl.switch_rank)
+    payload, headers = _apply_arrival(payload, headers, arrival)
+    agg, _ = hd.run(handler, payload, headers, design=design, n_bufs=n_bufs,
+                    ctx={"qblock": block})
+    e = fmt.payload_elems(torch.int8)
+    npkt = fmt.packets_per_block(s, torch.int8)
+    out = agg.reshape(agg.shape[0], b, npkt * e)[..., :s]
+    return _mask_to_switch(out, mesh, lvl)
+
+
+def switch_allreduce_int8(arena: torch.Tensor, mesh: RankMesh,
+                          axes: Sequence[str], *,
+                          block: int = 256,
+                          design: str = "auto",
+                          fmt: pk.PacketFormat = DEFAULT_FORMAT,
+                          arrival_perms: Sequence | None = None,
+                          fault_plan=None,
+                          batched: bool = True,
+                          mean: bool = False) -> torch.Tensor:
+    """int8-transport allreduce of a ``(*mesh, B, S)`` arena through the
+    emulated switch.
+
+    Packets carry int8 payloads with a per-``block`` fp32 scale
+    sideband; every switch runs the ``int8_dequant`` handler (fused
+    dequantize-accumulate into an fp32 buffer — the "FPU in every HPU")
+    and requantizes the aggregate for the next wire hop; the root
+    requantizes once, multicasts, and every rank dequantizes.  The
+    batched plane dequantizes the root's one copy and broadcasts it
+    (stride 0 over the rank axes), as ``_multicast_root`` does: every
+    rank would dequantize the same bits.
+    """
+    if fault_plan is not None:
+        raise NotImplementedError(
+            "the lossy fabric (fault_plan) is not ported yet: ROADMAP "
+            "queue 1 item 9")
+    b, s0 = arena.shape[-2:]
+    handler = hd.get_handler("int8_dequant")
+    sfmt = _scales_format(fmt, block)
+    levels = _levels(mesh, axes)
+    if len(levels) == 1 and levels[0].fanin == 1:
+        return arena
+    # quantization needs whole blocks; the scales sideband's packet count
+    # matches the payload's by construction (E_s = E / block), padding
+    # included
+    acc, _ = compression._pad_last(arena, block)
+    s = acc.shape[-1]
+    design, n_bufs = resolve_design(s, design)     # int8: S bytes per block
+    acc = acc.float()
+    qplan = pk.FramePlan(b, s, torch.int8, fmt)
+    splan = pk.FramePlan(b, s // block, torch.float32, sfmt)
+    if batched:
+        held = mesh
+        for lvl in levels:
+            acc, held = _int8_level_batched(acc, held, lvl, handler, design,
+                                            n_bufs, block, qplan, splan)
+        q, scales = compression.quantize_int8(acc, block)
+        del acc
+        out = compression.dequantize_int8(q, scales, block,
+                                          dtype=arena.dtype)[..., :s0]
+        out = out.expand(mesh.shape + tuple(out.shape[mesh.ndim:]))
+    else:
+        for i, lvl in enumerate(levels):
+            arrival = arrival_perms[i] if arrival_perms is not None else None
+            acc = _int8_level(acc, mesh, lvl, handler, design, n_bufs, block,
+                              fmt, sfmt, arrival)
+        # root multicast: requantize once, stream int8 + scales back down
+        q, scales = compression.quantize_int8(acc, block)
+        streams = [pk.packetize(q, fmt), pk.packetize(scales, sfmt)]
+        for lvl in reversed(levels):
+            streams = [pk.PacketStream(
+                headers=_multicast(st.headers, mesh, lvl.axis,
+                                   lvl.switch_rank),
+                payload=_multicast(st.payload, mesh, lvl.axis,
+                                   lvl.switch_rank)) for st in streams]
+        q = pk.depacketize(streams[0], fmt, b, s)
+        scales = pk.depacketize(streams[1], sfmt, b, s // block)
+        out = compression.dequantize_int8(q, scales, block,
+                                          dtype=arena.dtype)[..., :s0]
+    if mean:
+        out = out / mesh.world_size(axes)
+    return out

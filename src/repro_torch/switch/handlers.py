@@ -13,7 +13,8 @@ round-robin partials and merges them, ``tree`` combines in the aligned
 binary tree over the child index (the ``tree_reduce`` kernel, fp32
 accumulation) — the F3 bitwise-reproducibility mechanism.
 
-The int8 and sparse handlers come with their planes in later slices.
+The ``int8_dequant`` handler (F1) folds int8 payloads with their fp32
+scales; the sparse handler comes with its plane in a later slice.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core import compression
 from repro_torch.kernels import ops
 from repro_torch.switch import packets as pk
 
@@ -86,8 +88,11 @@ def child_order(headers: torch.Tensor) -> torch.Tensor:
     return torch.argsort(headers[..., pk.HDR_CHILD], dim=1, stable=True)
 
 
-def apply_order(leaf: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
-    """Reorder a ``(G, P, n, ...)`` payload leaf by a ``(G, P, n)`` order."""
+def apply_order(leaf, order: torch.Tensor):
+    """Reorder a ``(G, P, n, ...)`` payload leaf (or a dict of them, the
+    int8 payload and its scales) by a ``(G, P, n)`` order."""
+    if isinstance(leaf, dict):
+        return {k: apply_order(v, order) for k, v in leaf.items()}
     o = order.reshape(order.shape + (1,) * (leaf.dim() - order.dim()))
     return torch.take_along_dim(leaf, o.expand(leaf.shape).long(), dim=1)
 
@@ -121,11 +126,13 @@ class Handler:
     designs: tuple[str, ...] = DESIGNS
 
 
-def run(handler: Handler, payload: torch.Tensor, headers: torch.Tensor, *,
-        design: str, n_bufs: int = 1, ctx: dict | None = None):
+def run(handler: Handler, payload: torch.Tensor | dict[str, torch.Tensor],
+        headers: torch.Tensor, *, design: str, n_bufs: int = 1,
+        ctx: dict | None = None):
     """Execute one handler triple over a child-stacked ingress.
 
-    ``payload`` is ``(G, P, n, ...)``, ``headers`` the matching
+    ``payload`` is ``(G, P, n, ...)`` (or a dict of such stacks, as the
+    int8 handler's ``{"q", "scale"}``), ``headers`` the matching
     ``(G, P, n, F)`` stack.  Returns ``(egress, stats)``.
     """
     ctx = {} if ctx is None else ctx
@@ -194,3 +201,54 @@ register(Handler(
     payload_handler=_fixed_tree_payload,
     completion_handler=_dense_completion,
     designs=("tree",)))
+
+
+# -- int8 dequantize-accumulate (F1) -----------------------------------------
+
+def _int8_payload(stack, headers, design, n_bufs, ctx):
+    """stack = {"q": (G, P, n, E) int8, "scale": (G, P, n, E/qblock) fp32}.
+
+    The slot axis is kept through the fold (``dequant_accum_slots``, one
+    launch for the G switches of a level) whenever the per-packet payload
+    tiles into whole quantization blocks; a payload narrower than a block
+    folds its slots flattened (``dequant_accum``).  ``multi`` folds the
+    round-robin buffers ``q[j::n_bufs]`` as strided views and adds the
+    buffers in order; ``tree`` dequantizes and folds in the fixed tree.
+    """
+    q, s = stack["q"], stack["scale"]
+    g, p = q.shape[:2]
+    qblock = ctx["qblock"]
+    if q.shape[-1] % qblock == 0:
+        def accum(qs, ss):
+            return ops.dequant_accum_slots(qs, ss, qblock)
+    else:   # payload narrower than a quantization block: flatten slots
+        def accum(qs, ss):
+            pp = qs.shape[1]
+            return torch.stack([
+                ops.dequant_accum(qi.reshape(pp, -1), si.reshape(pp, -1),
+                                  qblock).reshape(qs.shape[2:])
+                for qi, si in zip(qs, ss)])
+    if design == "single":
+        acc = accum(q, s)
+    elif design == "multi":
+        n_bufs = max(1, min(int(n_bufs), p))
+        acc = accum(q[:, 0::n_bufs], s[:, 0::n_bufs])
+        for j in range(1, n_bufs):
+            acc = acc + accum(q[:, j::n_bufs], s[:, j::n_bufs])
+    elif design == "tree":
+        deq = compression.dequantize_int8(q.reshape(g, p, -1),
+                                          s.reshape(g, p, -1), qblock)
+        acc = fold_tree(deq.reshape(q.shape))
+    else:
+        raise ValueError(f"unknown aggregation design {design!r}")
+    return acc.reshape(g, *q.shape[2:]), {}
+
+
+# child-rank steering makes the int8 plane's bits a pure function of
+# child rank, so any arrival interleave gives the same result.
+register(Handler(
+    name="int8_dequant", kind="int8",
+    header_handler=child_order_opt,
+    payload_handler=_int8_payload,
+    completion_handler=lambda agg, ctx: agg))   # stays fp32; the data
+#                                 plane requantizes for the next wire hop

@@ -1,12 +1,13 @@
-"""The port on the card: the CUDA kernel against its plain version, and
-the whole reduction on the GPU against the same reduction on the CPU.
+"""The port on the card: the CUDA kernels against their plain versions,
+and the whole reduction on the GPU against the same reduction on the CPU
+(the reproducible dense path and the int8 path with its state).
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance is zero throughout: the kernel adds in the plain version's
+Tolerance is zero throughout: each kernel computes in the plain version's
 order and rounds the same way.
 """
 import pytest
@@ -16,6 +17,7 @@ from repro_torch import tree
 from repro_torch.configs import tinyllama_1_1b as tl
 from repro_torch.core.engine import FlareConfig, GradReducer
 from repro_torch.kernels import ops
+from repro_torch.kernels import quant as qt
 from repro_torch.kernels import tree_reduce as tr
 from repro_torch.mesh import AXES, FLAT, TWO_LEVEL, RankMesh
 from repro_torch.models import transformer
@@ -80,3 +82,102 @@ def test_grad_reducer_on_cuda_matches_cpu(cuda, mshape):
     want, _ = red(tree.map_leaves(lambda g: g.cpu(), grads))
     for g, w in zip(tree.flatten(out)[0], tree.flatten(want)[0]):
         assert _same_bits(g.contiguous(), w.contiguous())
+
+
+def _same_or_both_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise, except that a NaN matches any NaN (scales of NaN blocks)."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and _same_bits(torch.where(nan, 0.0, a), torch.where(nan, 0.0, b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_quantize_and_dequantize_kernels_match_plain_on_cuda(cuda, dtype):
+    """Quantize over every built block size, with zero, tie, NaN and inf
+    blocks (scales only where a block holds NaN or inf), a row-strided
+    view, and dequantize with and without the residual, in place too."""
+    dt = getattr(torch, dtype)
+    for qblock in qt.QBLOCKS:
+        x = (torch.randn((6, 4 * qblock), generator=cuda, device="cuda")
+             * 50).to(dt)
+        x[0, :qblock] = 0.0
+        x[1, :qblock] = torch.arange(qblock, device="cuda").to(dt) % 7 - 3.5
+        x[1, 0] = 127.0
+        x[2, 5], x[3, qblock + 1] = float("nan"), float("inf")
+        q, s = ops.quantize(x, qblock)
+        pq, ps = ops.quantize_plain(x, qblock)
+        torch.cuda.synchronize()
+        assert _same_or_both_nan(s, ps), qblock
+        assert _same_bits(q[4:], pq[4:]) and _same_bits(q[:2], pq[:2])
+        for out_dtype in (torch.float32, torch.bfloat16, torch.float16):
+            assert _same_bits(ops.dequantize(q[4:], s[4:], qblock, out_dtype),
+                              ops.dequantize_plain(q[4:], s[4:], qblock,
+                                                   out_dtype))
+        v = x[4:].contiguous()
+        want = ops.dequantize_plain(q[4:], s[4:], qblock, minuend=v)
+        assert _same_bits(ops.dequantize(q[4:], s[4:], qblock, minuend=v),
+                          want)
+        assert ops.dequantize(q[4:], s[4:], qblock, minuend=v, out=v) is v
+        assert _same_bits(v, want)
+    wide = torch.randn((3, 2048 + 512), generator=cuda, device="cuda").to(dt)
+    rows = wide[:, 256:2304]                        # rows a stride apart
+    for a, b in zip(ops.quantize(rows), ops.quantize_plain(rows)):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+def test_dequant_accum_kernel_matches_plain_on_cuda(cuda):
+    """Every fan-in P = 1..8 in a runtime loop, G = 3, strided G and P
+    (the multi design's round-robin views), and the flat form."""
+    for p in (1, 2, 3, 4, 5, 8):
+        q = torch.randint(-127, 128, (3, p, 5, 1024), generator=cuda,
+                          device="cuda", dtype=torch.int8)
+        s = torch.rand((3, p, 5, 4), generator=cuda, device="cuda") * 4
+        assert _same_bits(ops.dequant_accum_slots(q, s),
+                          ops.dequant_accum_slots_plain(q, s)), p
+        assert _same_bits(ops.dequant_accum_slots(q[:, ::2], s[:, ::2]),
+                          ops.dequant_accum_slots_plain(q[:, ::2], s[:, ::2]))
+        qt_, st_ = q.movedim(0, 1), s.movedim(0, 1)     # (G=p, P=3) view
+        assert _same_bits(ops.dequant_accum_slots(qt_, st_),
+                          ops.dequant_accum_slots_plain(qt_, st_))
+        flat, fs = q[0].reshape(p, -1), s[0].reshape(p, -1)
+        assert _same_bits(ops.dequant_accum(flat, fs),
+                          ops.dequant_accum_plain(flat, fs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree_name", ["smoke", "wide"])
+@pytest.mark.parametrize("mshape", [FLAT, TWO_LEVEL])
+def test_int8_grad_reducer_on_cuda_matches_cpu(cuda, mshape, tree_name):
+    """Two steps of the int8 in-network reduction with the state carried:
+    the card launches the int8 kernels and gives the CPU's bits.  The
+    SMOKE model's small tree takes the ``tree`` design (dequantize, then
+    the fixed-tree fold); a 600,000-element tree takes ``single``, the
+    main path's design (the ``dequant_accum_slots`` fold)."""
+    if tree_name == "smoke":
+        params = transformer.init_params(tl.SMOKE, cuda)
+        fold = lambda: tr.launches
+    else:
+        params = {"w": torch.zeros(600, 1000), "b": torch.zeros(64)}
+        fold = lambda: qt.launches["dequant_accum_slots"]
+    mk = lambda: tree.map_leaves(lambda p: torch.randn(
+        (*mshape, *p.shape), generator=cuda, device="cuda"), params)
+    g1, g2 = mk(), mk()
+    red = GradReducer(FlareConfig(axes=AXES, transport="innetwork",
+                                  compression="int8"), RankMesh(mshape))
+    for k in qt.launches:
+        qt.launches[k] = 0
+    tr.launches = 0
+    r1, st = red(g1)
+    r2, st = red(g2, st)
+    torch.cuda.synchronize()
+    assert qt.launches["quantize"] > 0 and qt.launches["dequantize"] > 0
+    assert fold() > 0
+    cpu = lambda t: tree.map_leaves(lambda a: a.cpu(), t)
+    w1, wst = red(cpu(g1))
+    w2, wst = red(cpu(g2), wst)
+    for got, want in ((r1, w1), (r2, w2), (st, wst)):
+        for g, w in zip(tree.flatten(got)[0], tree.flatten(want)[0]):
+            assert _same_bits(g.contiguous(), w.contiguous())
