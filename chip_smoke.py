@@ -37,11 +37,34 @@
    quantization on each element's path of an fp64 sum.  Then the flat
    ``(1, 8)`` mesh, and the ``multi`` and ``tree`` designs on a reduced
    arena, each bitwise against its plain twin.
-4. Times each whole reduction (median of a few runs) with its peak
-   device memory, profiles one int8 reduction, and times every kernel,
-   its plain version and, where one PyTorch call computes the same
-   function, that call, at the shapes the main paths gave the kernel,
-   beside the kernel's memory bound.
+4. The sparse main path (§7): the same model and mesh through
+   ``FlareConfig(axes=("pod", "data"), transport="innetwork",
+   sparse_k_frac=f)`` for f = 0.01 (the lists reach the root, which
+   densifies them) and f = 0.05 (the level-1 switches densify, the pod
+   level folds dense), two steps each with the state carried.  Counters
+   reset just before, read just after: ``sparse_accum_slots`` must have
+   launched.  Results, state and collision counts must be bitwise equal
+   to the same steps with the plain kernels patched in; on a few
+   buckets every selected magnitude is at least every unselected one,
+   exactly ``k`` are selected, and the result is within ``8 · 2^-24 ·
+   Σ|selected|`` of the fp64 sum of the ranks' selected entries; the
+   plane gives the same bits under per-level arrival permutations.  On a
+   reduced arena, both meshes, the per-packet plane under arrival
+   permutations and a densify before level 1 (f = 0.1) agree bitwise
+   with the batched plane on the kernels and on the plain versions.
+   Before it, both sparse kernels are held against their plain versions
+   (``sparse_accum_slots`` sorted and unsorted, -1 and out-of-range
+   entries, duplicates, B = 1, 3, 294, strided G; ``topk_compact`` with
+   k = 1, 8, 64, ties, zero, ±0.0, inf and NaN blocks, f32, bf16, f16).
+5. The SparCML sparsifier: ``ops.blockwise_sparsify`` (k = 1 per block of
+   512) of a 2^28-element vector and its round trip into the flat
+   ``ops.sparse_accum``, counters reset just before and read just after,
+   bitwise against the plain versions.
+6. Times each whole reduction (median of a few runs) with its peak
+   device memory, profiles one int8 and one sparse reduction, and times
+   every kernel, its plain version and, where one PyTorch call computes
+   the same function, that call, at the shapes the paths gave the
+   kernel, beside the kernel's memory bound.
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line
 of kernel figures, and as its last line ``{"ok": true, "device": ...}``.
@@ -51,6 +74,7 @@ fails; there is no fallback.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import re
 import statistics
@@ -71,19 +95,30 @@ HBM_BYTES_PER_S = 3.35e12
 #: gradients for 8 ranks alone are 35 GB of the card's 80
 LAYERS = 4
 SOURCES = {"tree_reduce": "src/repro_torch/kernels/csrc/tree_reduce.cu",
-           "quant": "src/repro_torch/kernels/csrc/quant.cu"}
+           "quant": "src/repro_torch/kernels/csrc/quant.cu",
+           "sparse": "src/repro_torch/kernels/csrc/sparse.cu"}
 #: the pallas_call each kernel replaces
 REPLACES = {"tree_reduce_slots": "src/repro/kernels/tree_reduce.py:101",
             "tree_reduce": "src/repro/kernels/tree_reduce.py:56",
             "quantize": "src/repro/kernels/quant.py:52",
             "dequant_accum": "src/repro/kernels/quant.py:99",
             "dequant_accum_slots": "src/repro/kernels/quant.py:148",
-            "dequantize": "src/repro/kernels/quant.py:171"}
+            "dequantize": "src/repro/kernels/quant.py:171",
+            "sparse_accum_slots": "src/repro/kernels/sparse_accum.py:123",
+            "sparse_accum": "src/repro/kernels/sparse_accum.py:67",
+            "topk_compact": "src/repro/kernels/topk_compact.py:95"}
 QBLOCK = 256
+#: the sparse path's fractions: the root densifies at 0.01, the level-1
+#: switches at 0.05 (``density_threshold`` 0.25)
+SPARSE_FRACS = (0.01, 0.05)
+#: the SparCML sparsifier's setting: one value of every block of 512
+SPARCML_K = 1
 #: the informative part of a templated kernel name in a profile
 KERNEL_NAME = re.compile(
-    r"(tree_reduce|quantize|dequantize|dequant_accum)_kernel<[^>]*>|"
-    r"CatArrayBatchedCopy\w*|\w+_kernel_cuda|\w*Functor\w*(<\w+>)?")
+    r"(tree_reduce|quantize|dequantize|dequant_accum|accum_sorted|"
+    r"accum_scatter|zero|topk)_kernel(<[^>]*>)?|"
+    r"CatArrayBatchedCopy\w*|\w*(Sort|sort|TopK|topk|Select)\w*|"
+    r"\w+_kernel_cuda|\w*Functor\w*(<\w+>)?")
 
 
 def check(ok: bool, what: str) -> None:
@@ -380,6 +415,188 @@ class Recorder:
         return mock.patch.object(self.module, self.name, self)
 
 
+def sorted_lists(torch, gen, rows, e, size):
+    """The sparse plane's list form: ascending as unsigned integers, 80 %
+    distinct indices (some at and past ``size``) then a ``-1`` tail;
+    entries 1 and 2 of each row share an index."""
+    m = int(0.8 * e)
+    keys = torch.rand((rows, size + 50), generator=gen, device="cuda")
+    idx = torch.full((rows, e), -1, dtype=torch.int32, device="cuda")
+    idx[:, :m] = keys.argsort(dim=1)[:, :m].sort(dim=1).values.int()
+    idx[:, 1] = idx[:, 2]
+    return idx
+
+
+def phase_sparse_vs_plain(torch, ops, tk) -> None:
+    """The sparse kernels vs their plain versions: bitwise, except three
+    or more duplicates of an index in unsorted lists (rtol = atol =
+    1e-5, the reference's own tolerance) and NaN payloads."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for b, e, size in ((1, 777, 10_007), (3, 4099, 50_000),
+                           (294, 1500, 30_001)):
+            idx = sorted_lists(torch, gen, b, e, size)
+            val = torch.randn((b, e), generator=gen, device="cuda").to(dtype)
+            want = ops.sparse_accum_slots_plain(idx, val, size)
+            got = ops.sparse_accum_slots(idx, val, size, indices_sorted=True)
+            torch.cuda.synchronize()
+            check(same_bits(got, want), f"sorted sparse_accum_slots {dtype} "
+                  f"{(b, e, size)}")
+            fi, fv = idx.flip(1).contiguous(), val.flip(1).contiguous()
+            check(same_bits(ops.sparse_accum_slots(fi, fv, size),
+                            ops.sparse_accum_slots_plain(fi, fv, size)),
+                  f"unsorted sparse_accum_slots {dtype} {(b, e, size)}")
+            cases += 2
+        # a (G, B) stack strided over G, unsorted, many duplicates
+        lists = torch.randint(-3, 70, (3, 2, 5000), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        vals = torch.randn((3, 2, 5000), generator=gen, device="cuda").to(
+            dtype)
+        got = ops.sparse_accum_slots(lists.movedim(0, 1), vals.movedim(0, 1),
+                                     64)
+        want = ops.sparse_accum_slots_plain(lists.movedim(0, 1),
+                                            vals.movedim(0, 1), 64)
+        check(bool(torch.isclose(got, want, rtol=1e-5, atol=1e-5).all()),
+              f"unsorted triples {dtype}")
+        flat = ops.sparse_accum(lists[0, 0], vals[0, 0], 64)
+        check(bool(torch.isclose(flat, want[0, 0], rtol=1e-5,
+                                 atol=1e-5).all()), f"flat {dtype}")
+        cases += 2
+        for block in tk.BLOCKS:
+            for k in (1, 8, 64):
+                if k > block:
+                    continue
+                x = torch.randn((9, block), generator=gen, device="cuda")
+                x[1] = torch.randint(-3, 4, (block,), generator=gen,
+                                     device="cuda") / 2        # ties
+                x[2] = 0.0
+                x[3, ::2] = -0.0
+                x[4, 0], x[5, block - 1] = float("inf"), float("nan")
+                x[6, 1], x[6, 2] = float("-inf"), float("inf")
+                x = x.to(dtype).reshape(-1)
+                v, i = ops.topk_compact(x, k, block)
+                pv, pi = ops.topk_compact_plain(x, k, block)
+                torch.cuda.synchronize()
+                check(torch.equal(i, pi) and same_or_both_nan(v, pv),
+                      f"topk_compact {dtype} block {block} k {k}")
+                cases += 1
+    print(f"sparse kernels vs plain: {cases} cases (sparse_accum_slots "
+          "sorted and unsorted, -1 and out-of-range entries, duplicates, "
+          "B 1 3 294, strided G, ragged E and size, f32 bf16 f16: bitwise, "
+          "unsorted triples within rtol = atol = 1e-5; topk_compact every "
+          "block size, k 1 8 64, ties, zero, ±0.0, inf and NaN blocks: "
+          "bitwise, NaN payloads aside)")
+
+
+def plain_sparse_patches(sa, tk, ops):
+    """The sparse kernels' entries patched to their plain versions."""
+    return [mock.patch.object(
+                sa, "sparse_accum_slots",
+                lambda i, v, size, indices_sorted=False:
+                ops.sparse_accum_slots_plain(i, v, size)),
+            mock.patch.object(
+                sa, "sparse_accum", lambda i, v, size:
+                ops.sparse_accum_slots_plain(i[None], v[None], size)[0]),
+            mock.patch.object(tk, "topk_compact", ops.topk_compact_plain)]
+
+
+class SparseSpy:
+    """Wraps ``dataplane.switch_allreduce_sparse`` inside a reduction: it
+    asks for the collision counts and keeps them, notes the device memory
+    allocated when the plane starts and the peak when it returns, and on
+    its first call keeps a few buckets of the arena ``v``, of the lists
+    sent and of the result (for the checks), then hands the transport
+    what it expects."""
+
+    def __init__(self, dataplane, buckets):
+        self.dataplane, self.buckets = dataplane, buckets
+        self.real = dataplane.switch_allreduce_sparse
+        self.collisions, self.kept, self.memory = [], None, []
+
+    def __call__(self, arena, mesh, axes, ks, **kw):
+        import torch
+        held = torch.cuda.memory_allocated()
+        red, sent, stats = self.real(arena, mesh, axes, ks, with_stats=True,
+                                     **kw)
+        self.memory.append((held, torch.cuda.max_memory_allocated()))
+        self.collisions.append(stats["collisions"].clone())
+        if self.kept is None:
+            b = self.buckets
+            self.kept = {"v": arena[..., b, :].clone(),
+                         "val": sent[0][..., b, :].clone(),
+                         "idx": sent[1][..., b, :].clone(),
+                         "red": red[(0,) * mesh.ndim][b].clone(),
+                         "ks": [ks[i] for i in b]}
+        return red, sent
+
+    def patch(self):
+        return mock.patch.object(self.dataplane, "switch_allreduce_sparse",
+                                 self)
+
+
+class Capture:
+    """Wraps a kernel entry to keep a copy of the arguments of every
+    launch, for timing the kernel on exactly what the path gave it."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.seen = []
+
+    def __call__(self, *a, **kw):
+        self.seen.append(([t.clone() if hasattr(t, "clone") else t
+                           for t in a], kw))
+        return self.real(*a, **kw)
+
+    def patch(self):
+        return mock.patch.object(self.module, self.name, self)
+
+
+def check_sparse_kept(torch, kept, sentinel) -> tuple[float, int]:
+    """On the kept buckets: every rank selected exactly ``k`` entries,
+    each at least as large in magnitude as every entry it left, and the
+    result lies within ``8 · 2^-24 · Σ|selected|`` of the fp64 sum of
+    every rank's selected entries.  Returns the worst error ratio and the
+    buckets checked."""
+    v, val, idx, red = kept["v"], kept["val"], kept["idx"], kept["red"]
+    lead = v.shape[:-2]
+    worst = 0.0
+    for j, k in enumerate(kept["ks"]):
+        exact = torch.zeros(v.shape[-1], dtype=torch.float64, device="cuda")
+        mag = torch.zeros_like(exact)
+        for rr in itertools.product(*map(range, lead)):
+            ix, vs, row = idx[rr][j], val[rr][j], v[rr][j]
+            ok = ix != sentinel
+            check(int(ok.sum()) == k, f"rank {rr} selected {int(ok.sum())} "
+                  f"!= k={k}")
+            sel = torch.zeros(row.shape, dtype=torch.bool, device="cuda")
+            sel[ix[ok].long()] = True
+            check(bool(row.abs()[sel].min() >= row.abs()[~sel].max()),
+                  f"rank {rr}: an unselected magnitude beats a selected one")
+            check(same_bits(vs[ok], row[ix[ok].long()]),
+                  "sent values != the arena's")
+            exact.index_add_(0, ix[ok].long(), vs[ok].double())
+            mag.index_add_(0, ix[ok].long(), vs[ok].double().abs())
+        err = (red[j].double() - exact).abs()
+        bound = 8 * 2.0**-24 * mag
+        check(bool((err <= bound).all()), "sparse result outside the fp64 "
+              "bound")
+        worst = max(worst, float((err / bound.clamp_min(1e-300)).max()))
+    return worst, len(kept["ks"])
+
+
+def level_perms(dataplane, mesh, axes, seed):
+    """Per-slot arrival permutations, one callable per level."""
+    import numpy as np
+
+    def perm(p, n, s):
+        r = np.random.default_rng(s + 31 * n)
+        return np.stack([r.permutation(p) for _ in range(n)], axis=1)
+    return [lambda p, n, s=seed + i: perm(p, n, s)
+            for i, _ in enumerate(dataplane._levels(mesh, axes))]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -395,11 +612,13 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch import tree
     from repro_torch.configs import tinyllama_1_1b as tl
-    from repro_torch.core import arena as arena_mod
+    from repro_torch.core import arena as arena_mod, sparse
     from repro_torch.core.engine import FlareConfig, GradReducer
     from repro_torch.kernels import build as kb
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant as qt
+    from repro_torch.kernels import sparse_accum as sa
+    from repro_torch.kernels import topk_compact as tk
     from repro_torch.kernels import tree_reduce as tr
     from repro_torch.mesh import AXES, FLAT, TWO_LEVEL, RankMesh
     from repro_torch.models import transformer
@@ -414,9 +633,10 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     total_mem = torch.cuda.get_device_properties(0).total_memory
 
-    phase_build(kb, [tr.SOURCE, qt.SOURCE])
+    phase_build(kb, [tr.SOURCE, qt.SOURCE, sa.SOURCE])
     phase_kernel_vs_plain(torch, ops)
     phase_quant_vs_plain(torch, ops, qt)
+    phase_sparse_vs_plain(torch, ops, tk)
 
     # -- the dense main path: (2, 4) mesh, full width -----------------------
     cfg = tl.CONFIG.scaled(n_layers=LAYERS)
@@ -426,6 +646,9 @@ def main() -> int:
     wire = GradReducer(FlareConfig(axes=AXES, algorithm="fixed_tree",
                                    reproducible=True), mesh)
     grads = make_grads(torch, tree, transformer, cfg, mesh.shape, args.seed)
+    # the tree's shapes without its storage, for the arena plans below
+    params_like = tree.map_leaves(
+        lambda g: torch.empty(g.shape, device="meta"), grads)
     leaves = tree.flatten(grads)[0]
     n_params = sum(l[0, 0].numel() for l in leaves)
     print(f"model: {cfg.name} at published widths, {LAYERS} of "
@@ -595,14 +818,14 @@ def main() -> int:
     for k in qt.launches:
         qt.launches[k] = 0
     g = mk(args.seed, flat.shape)
-    f1, _ = fred8(g)
+    f1 = fred8(g)[0]                # the state, an arena, is not kept
     del g
     torch.cuda.synchronize()
     flat8 = dict(qt.launches)
     check(flat8["dequant_accum_slots"] > 0, "flat int8 launched no fold")
     patches = plain_quant_patches(qt, ops)
     g = mk(args.seed, flat.shape)
-    pf1, _ = run_plain(patches, lambda: fred8(g))
+    pf1 = run_plain(patches, lambda: fred8(g))[0]
     del g
     check(trees_same_bits(f1, pf1), "flat int8 != plain twin")
     print(f"int8 flat mesh {flat.shape}: launches {flat8}, bitwise == "
@@ -632,6 +855,174 @@ def main() -> int:
               + (f"; tree_reduce launches {tr.launches}"
                  if design == "tree" else ""))
     del arena, got, twin, per
+    torch.cuda.empty_cache()
+
+    # -- the sparse main path (§7): (2, 4) mesh, full width, two steps -------
+    sparse_runs = {}
+    for frac in SPARSE_FRACS:
+        cfg_s = FlareConfig(axes=AXES, transport="innetwork",
+                            sparse_k_frac=frac)
+        reds = GradReducer(cfg_s, mesh)
+        plan_s = arena_mod.build_plan(
+            tree.flatten(params_like)[0], cfg_s.bucket_bytes,
+            pad_multiple=reds._pad_multiple(8), lead_dims=2)
+        grp_s = plan_s.groups[0]
+        nb = grp_s.num_buckets
+        spy = SparseSpy(dataplane, [0, nb // 2, nb - 1])
+        rec = Recorder(sa, "sparse_accum_slots",
+                       lambda i, v, size, indices_sorted=False: (
+                           tuple(i.shape), i.stride(), size, indices_sorted))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in sa.launches:
+            sa.launches[k] = 0
+        tk.launches = 0
+        with spy.patch(), rec.patch():
+            g = mk(args.seed)
+            r1, st1 = reds(g)                      # step 1: no state yet
+            g = mk(args.seed + 1)
+            r2, st2 = reds(g, st1)                 # step 2: the state carried
+            del g, st1
+        torch.cuda.synchronize()
+        got_launches = dict(sa.launches, topk_compact=tk.launches)
+        peak_s = torch.cuda.max_memory_allocated()
+        check(got_launches["sparse_accum_slots"] > 0,
+              f"the sparse main path (f={frac}) launched no "
+              "sparse_accum_slots kernel")
+        ks = [sparse.sparse_k(frac, e) for e in grp_s.valid_extents]
+        print(f"sparse main path f={frac}: GradReducer innetwork sparse on "
+              f"{mesh.shape}, two steps: arena B={nb} S={grp_s.bucket_elems}"
+              f", k {min(ks)}..{max(ks)}; launches {got_launches}; "
+              f"sparse_accum_slots launches {rec.seen}; collisions per "
+              f"step (rank 0) {[int(c[0, 0]) for c in spy.collisions]}; "
+              f"peak device memory {peak_s / 2**30:.2f} GiB of "
+              f"{total_mem / 2**30:.1f}; per step, GiB allocated as the "
+              f"plane starts and the peak so far as it returns "
+              f"{[(round(a / 2**30, 2), round(b / 2**30, 2))
+                  for a, b in spy.memory]}  [{card}]")
+        worst_s, nchecked = check_sparse_kept(torch, spy.kept,
+                                              sparse.SENTINEL)
+        spy.kept = None
+
+        # the same two steps with every sparse kernel on its plain version
+        twin = SparseSpy(dataplane, [0])
+        before = dict(sa.launches)
+        with twin.patch():
+            g = mk(args.seed)
+            p1, pst = run_plain(plain_sparse_patches(sa, tk, ops),
+                                lambda: reds(g))
+            g = mk(args.seed + 1)
+            p2, pst = run_plain(plain_sparse_patches(sa, tk, ops),
+                                lambda: reds(g, pst))
+            del g
+        check(sa.launches == before, "the plain run launched a kernel")
+        check(trees_same_bits(r1, p1), f"sparse f={frac} step 1 != plain")
+        check(trees_same_bits(r2, p2), f"sparse f={frac} step 2 != plain")
+        check(trees_same_bits(st2, pst), f"sparse f={frac} state != plain")
+        check(all(torch.equal(a, b) for a, b in zip(spy.collisions,
+                                                    twin.collisions)),
+              f"sparse f={frac} collisions != plain")
+        del p1, p2, pst, r1, twin
+        torch.cuda.empty_cache()
+
+        # the plane itself under per-level arrival permutations
+        g = mk(args.seed)
+        arena = grp_s.pack(tree.flatten(g)[0])
+        del g
+        base = dataplane.switch_allreduce_sparse(arena, mesh, AXES, ks)[0]
+        perm = dataplane.switch_allreduce_sparse(
+            arena, mesh, AXES, ks,
+            arrival_perms=level_perms(dataplane, mesh, AXES, 5))[0]
+        check(same_bits(base, perm), f"sparse f={frac}: arrival order "
+              "changed the bits")
+        del arena, base, perm
+        torch.cuda.empty_cache()
+        print(f"sparse main path f={frac} checks: both steps' results, the "
+              "state and the collision counts bitwise == the plain twin; "
+              f"on {nchecked} buckets x 8 ranks exactly k selected, no "
+              "unselected magnitude above a selected one, fp64 error <= "
+              f"{worst_s:.3f} of 8·2^-24·Σ|selected|; bitwise the same "
+              "under per-level arrival permutations")
+
+        g = mk(args.seed + 1)
+        ms_s, all_s = timed(torch, lambda: reds(g, st2), 5)
+        print(f"sparse reduction f={frac} ms with a state (median of 5, "
+              f"{card}): {ms_s:.3f} (runs {[round(t, 3) for t in all_s]}); "
+              f"sparse_accum_slots launches per reduction "
+              f"{len(rec.seen) // 2}; peak {peak_s / 2**30:.2f} GiB")
+        phase_profile(torch, lambda: reds(g, st2), card,
+                      f"one sparse reduction (f={frac}) with a state")
+        cap = Capture(sa, "sparse_accum_slots")
+        with cap.patch():
+            reds(g, st2)
+        torch.cuda.synchronize()
+        sparse_runs[frac] = {"launches": got_launches, "seen": cap.seen,
+                             "ms": ms_s, "peak": peak_s}
+        del g, r2, st2, cap
+        torch.cuda.empty_cache()
+
+    # the per-packet plane, the flat mesh and a densify before level 1, on
+    # a reduced arena, against the batched plane on kernels and on plain
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 3)
+    small = torch.randn((8, 6, 100_000), generator=gen, device="cuda")
+    small[..., 5, 60_000:] = 0.0                  # a padded bucket tail
+    small_cases = []
+    for m in (mesh, flat):
+        x = small.reshape(*m.shape, 6, 100_000)
+        for frac in (0.01, 0.05, 0.1):
+            ks = [sparse.sparse_k(frac, 100_000)] * 5 + [
+                sparse.sparse_k(frac, 60_000)]
+            runs = [dataplane.switch_allreduce_sparse(
+                x, m, AXES, ks, with_stats=True, batched=bt,
+                arrival_perms=level_perms(dataplane, m, AXES, 9) if not bt
+                else None) for bt in (True, False)]
+            runs.append(run_plain(plain_sparse_patches(sa, tk, ops),
+                                  lambda: dataplane.switch_allreduce_sparse(
+                                      x, m, AXES, ks, with_stats=True)))
+            for r in runs[1:]:
+                check(same_bits(r[0], runs[0][0]) and torch.equal(
+                    r[2]["collisions"], runs[0][2]["collisions"]),
+                      f"reduced arena {m.shape} f={frac}: planes disagree")
+            small_cases.append(f"{m.shape} f={frac}")
+    del small, x, runs
+    torch.cuda.empty_cache()
+    print(f"sparse planes on a (8, 6, 100000) arena: batched == per-packet "
+          f"under arrival permutations == plain twin, results and "
+          f"collisions bitwise, for {small_cases} (on (2, 4): root, "
+          "mid-tree and leaf densify; on (1, 8): root and leaf)")
+
+    # -- the SparCML sparsifier: blockwise_sparsify → sparse_accum ---------
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 4)
+    xs = torch.randn(1 << 28, generator=gen, device="cuda")
+    xs[: 1 << 20] = 0.0                            # all-zero blocks
+    tk.launches = 0
+    for k in sa.launches:
+        sa.launches[k] = 0
+    vs, gs = ops.blockwise_sparsify(xs, SPARCML_K)
+    dense = ops.sparse_accum(gs, vs, xs.numel())
+    torch.cuda.synchronize()
+    launches["topk_compact"] = tk.launches
+    launches["sparse_accum"] = sa.launches["sparse_accum"]
+    check(launches["topk_compact"] > 0 and launches["sparse_accum"] > 0,
+          "the sparsifier's round trip launched no kernel")
+    pvs, pgs = run_plain(plain_sparse_patches(sa, tk, ops),
+                         lambda: ops.blockwise_sparsify(xs, SPARCML_K))
+    check(same_bits(vs, pvs) and torch.equal(gs, pgs),
+          "blockwise_sparsify != plain")
+    check(same_bits(dense, ops.sparse_accum_slots_plain(
+        gs[None], vs[None], xs.numel())[0]), "round trip != plain")
+    blocks = xs.view(-1, 512).abs().amax(dim=1)
+    kept = gs >= 0
+    check(int((dense != 0).sum()) == int(kept.sum()) == int(
+        (blocks > 0).sum()), "the round trip lost or added entries")
+    check(bool((vs[kept].abs() >= blocks[kept] * (1 - 2.0**-23)).all()),
+          "a block's selected value is not its largest")
+    print(f"sparsifier round trip on 2^28 fp32, k={SPARCML_K} a block of "
+          f"512: launches topk_compact {launches['topk_compact']}, "
+          f"sparse_accum {launches['sparse_accum']}; {int(kept.sum())} "
+          "entries kept, each its block's largest magnitude; bitwise == "
+          "plain")
+    del pvs, pgs, blocks, kept, dense
     torch.cuda.empty_cache()
 
     # -- each kernel at the main paths' shapes --------------------------------
@@ -767,14 +1158,83 @@ def main() -> int:
             cuda_ms(lambda: ops.dequant_accum_plain(q, s), 2), None,
             err_of(got, want), "(4, 268435456), off the main paths")
     del q, s, got, want
+    torch.cuda.empty_cache()
+
+    # the sparse path's densify, on exactly the lists each fraction gave it
+    launches["sparse_accum_slots"] = 0
+    for frac, run in sparse_runs.items():
+        launches["sparse_accum_slots"] += run["launches"][
+            "sparse_accum_slots"]
+        for (i, v, size, *rest), kw in run["seen"]:
+            srt = kw.get("indices_sorted", rest[0] if rest else False)
+            got = sa.sparse_accum_slots(i, v, size, srt)
+            want = ops.sparse_accum_slots_plain(i, v, size)
+            check(same_bits(got, want), f"sparse_accum_slots != plain at "
+                  f"{tuple(i.shape)}")
+            err = err_of(got, want)
+            del got, want
+            g_, b_, e_ = i.shape
+            ok = (i >= 0) & (i < size)
+            flat_i = (torch.arange(g_ * b_, device="cuda").view(g_, b_, 1)
+                      * size + i)[ok]
+            flat_v = v[ok].float()
+            buf = torch.empty(g_ * b_ * size, device="cuda")
+            account("sparse_accum_slots", sa.sparse_accum_bytes(i, v, size),
+                    cuda_ms(lambda: sa.sparse_accum_slots(i, v, size, srt),
+                            10),
+                    cuda_ms(lambda: ops.sparse_accum_slots_plain(i, v, size),
+                            2),
+                    cuda_ms(lambda: buf.zero_().index_put_(
+                        (flat_i,), flat_v, accumulate=True), 5), err,
+                    f"f={frac} {tuple(i.shape)} sorted={srt}, "
+                    f"{int(ok.sum())} entries; library index_put_ "
+                    "accumulate into a zeroed buffer, -1 entries removed")
+            del flat_i, flat_v, buf, ok
+        del run["seen"]
+        torch.cuda.empty_cache()
+
+    # the sparsifier's kernels at the round trip's shapes (2^28, k = 1)
+    got = tk.topk_compact(xs, SPARCML_K)
+    want = ops.topk_compact_plain(xs, SPARCML_K)
+    check(same_bits(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "topk_compact != plain at 2^28")
+    err = err_of(got[0], want[0])
+    del got, want
+    xb = xs.view(-1, 512)
+    account("topk_compact", tk.topk_bytes(xs, SPARCML_K, 512),
+            cuda_ms(lambda: tk.topk_compact(xs, SPARCML_K), 10),
+            cuda_ms(lambda: ops.topk_compact_plain(xs, SPARCML_K), 2),
+            cuda_ms(lambda: torch.topk(xb.abs(), SPARCML_K, dim=1), 5), err,
+            f"(2^28,) k={SPARCML_K} block 512; library torch.topk per block "
+            "(the same set, not the same order)")
+    ok = gs >= 0
+    gi, gv = gs[ok].long(), vs[ok]
+    buf = torch.empty(xs.numel(), device="cuda")
+    got = sa.sparse_accum(gs, vs, xs.numel())
+    want = ops.sparse_accum_slots_plain(gs[None], vs[None], xs.numel())[0]
+    check(same_bits(got, want), "flat sparse_accum != plain at 2^28")
+    err = err_of(got, want)
+    del got, want
+    account("sparse_accum", sa.sparse_accum_bytes(gs, vs, xs.numel()),
+            cuda_ms(lambda: sa.sparse_accum(gs, vs, xs.numel()), 10),
+            cuda_ms(lambda: ops.sparse_accum_slots_plain(
+                gs[None], vs[None], xs.numel()), 2),
+            cuda_ms(lambda: buf.zero_().index_put_((gi,), gv,
+                                                   accumulate=True), 5),
+            err, f"({gs.numel()},) unsorted into 2^28, {int(ok.sum())} "
+            "entries; library index_put_ accumulate into a zeroed buffer, "
+            "-1 entries removed")
+    del xs, xb, vs, gs, gi, gv, buf, ok
 
     print("kernel figures are per reduction: the sum over one reduction's "
-          "launches (one step of the int8 path); the flat forms are one "
-          "launch each")
+          "launches (one step of the int8 path; for sparse_accum_slots one "
+          "step at each sparse fraction); the flat forms and topk_compact "
+          "are one launch each")
     routes = [("tree_reduce_slots", "tree_reduce"),
               ("tree_reduce", "tree_reduce"), ("quantize", "quant"),
               ("dequantize", "quant"), ("dequant_accum_slots", "quant"),
-              ("dequant_accum", "quant")]
+              ("dequant_accum", "quant"), ("sparse_accum_slots", "sparse"),
+              ("sparse_accum", "sparse"), ("topk_compact", "sparse")]
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=SOURCES[src],
         replaces=REPLACES[name], launches=launches[name],

@@ -3,17 +3,17 @@
 The port of the int8 half of ``repro/core/compression.py`` that the
 in-network int8 transport runs: blockwise symmetric int8 quantization
 with one fp32 scale a block of ``block`` elements, and error feedback,
-which keeps each rank's quantization residual and adds it into its next
-step.  Quantization goes through ``kernels.ops`` (the CUDA kernels on the
-card, their plain versions on the CPU), with leading axes flattened into
-rows of blocks.
+which keeps each rank's compression residual (int8 or sparse) and adds
+it into its next step.  Quantization goes through ``kernels.ops`` (the
+CUDA kernels on the card, their plain versions on the CPU), with leading
+axes flattened into rows of blocks.
 
 The wire protocol (``quantized_*``) is not ported yet (ROADMAP queue 1
 item 7).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -74,26 +74,29 @@ def roundtrip_residual_(v: torch.Tensor, block: int = 256) -> torch.Tensor:
 
 
 def error_feedback_step(grad: torch.Tensor, ef: torch.Tensor | None,
-                        transmit: Callable[[torch.Tensor], torch.Tensor], *,
-                        block: int = 256
+                        transmit: Callable[[torch.Tensor], tuple],
+                        residual_: Callable[[torch.Tensor, Any],
+                                            torch.Tensor]
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One EF-compressed reduction step with the int8 encoding.
+    """One EF-compressed reduction step.
 
-    ``v = grad + ef``; ``transmit(v)`` returns the (lossy) reduced
-    ``v``.  Returns ``(reduced, new_ef)`` with ``new_ef = v −
-    quantize_roundtrip(v)``: the residual against the rank's own lossy
-    encoding, which is what accumulates into the next step.
+    ``v = grad + ef``; ``transmit(v)`` returns ``(reduced, sent)``: the
+    (lossy) reduced ``v`` and what this rank put on the wire, in whatever
+    form the encoding keeps it.  ``residual_(v, sent)`` then writes the
+    new state ``v − decode(sent)`` over ``v``: the residual against the
+    rank's own lossy encoding, which accumulates into the next step.
+    Returns ``(reduced, new_ef)``.
 
     ``grad`` is consumed: ``v`` is formed in its storage and the residual
-    is written over ``v`` (:func:`roundtrip_residual_`), so callers pass a
-    tensor of their own (the engine passes the arena it packed).  The
-    JAX function has ``transmit`` return the decoded local copy as well;
-    here the round trip is taken after ``transmit`` and fused into the
-    subtraction, so the decoded copy, an arena's size, is never held.
-    The bits are the same.
+    is written over ``v``, so callers pass a tensor of their own (the
+    engine passes the arena it packed).  The JAX function has
+    ``transmit`` return the decoded local copy, an arena's size; here the
+    residual is formed from what was sent without holding that copy
+    (:func:`roundtrip_residual_` for int8, ``sparse.residual_``).  The
+    bits are the same.
     """
     v = grad if ef is None else grad.add_(ef)
-    reduced = transmit(v)
+    reduced, sent = transmit(v)
     if reduced is v:            # a reduction over one rank hands v back
         reduced = v.clone()
-    return reduced, roundtrip_residual_(v, block)
+    return reduced, residual_(v, sent)

@@ -14,13 +14,14 @@ emulated rank), and:
 
 With ``reproducible=True`` (F3) the result is bitwise-deterministic and
 bitwise-equal to the JAX package's on the same inputs.  With
-``compression="int8"`` and ``transport="innetwork"`` (F1) the reducer
-carries each rank's error-feedback residual as its state.
+``transport="innetwork"`` and ``compression="int8"`` (F1) or
+``sparse_k_frac > 0`` (§7) the reducer carries each rank's
+error-feedback residual as its state.
 
-Not ported yet: the wire int8 transport and the sparse transports
-(ROADMAP queue 1 items 7 and 8), the per-bucket ``arena=False`` path
-(item 2), the lossy fabric (item 9), the multi-tenant runtime (item 11)
-and telemetry (item 13).
+Not ported yet: the wire int8 and wire sparse transports (ROADMAP queue
+1 items 7 and 8), the per-bucket ``arena=False`` path (item 2), the
+lossy fabric (item 9), the multi-tenant runtime (item 11) and telemetry
+(item 13).
 """
 from __future__ import annotations
 

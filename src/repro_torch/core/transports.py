@@ -10,7 +10,10 @@ buckets of every rank in one call.  Ported so far:
   ``reproducible=True`` folds every level in the ``tree_reduce`` kernel;
   in int8 mode ``switch_allreduce_int8`` under error feedback, which
   quantizes with the ``quantize`` kernel and folds every level in the
-  ``dequant_accum_slots`` kernel.
+  ``dequant_accum_slots`` kernel; in sparse mode
+  ``switch_allreduce_sparse`` under error feedback, which merges top-k
+  coordinate lists and densifies them in the ``sparse_accum_slots``
+  kernel.
 
 Every other branch of ``from_config`` raises ``NotImplementedError``
 naming its ROADMAP item.
@@ -22,7 +25,8 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.core import collectives as coll, compression, topology
+from repro_torch.core import collectives as coll, compression, sparse
+from repro_torch.core import topology
 from repro_torch.mesh import RankMesh
 from repro_torch.switch import dataplane
 
@@ -99,23 +103,28 @@ class DenseTransport(Transport):
 
 @dataclasses.dataclass(frozen=True)
 class SwitchTransport(Transport):
-    """The emulated sPIN switch data plane as a transport (the sparse
-    mode comes with ROADMAP queue 1 item 8).
+    """The emulated sPIN switch data plane as a transport.
 
     ``mode`` picks the handler family: ``"dense"`` (``reproducible`` pins
-    the fixed-tree handler, always tree aggregation, §6.4) or ``"int8"``
-    (F1: int8 packets with a scales sideband, under error feedback).
-    Otherwise the §6.4 size switchover picks the buffer design.  It runs
-    the batched plane.
+    the fixed-tree handler, always tree aggregation, §6.4), ``"int8"``
+    (F1: int8 packets with a scales sideband) or ``"sparse"`` (§7: each
+    bucket's top-``k`` coordinate list, ``k`` = ``sparse.sparse_k(k_frac,
+    extent)`` of its unpadded extent, merged until ``density_threshold``
+    and then densified), the last two under error feedback.  Otherwise
+    the §6.4 size switchover picks the buffer design.  It runs the
+    batched plane.
 
-    In int8 mode ``buf`` is consumed: the error-feedback sum and then the
-    new residual are formed in its storage (``compression.
-    error_feedback_step``), so callers pass an arena of their own.
+    In the int8 and sparse modes ``buf`` is consumed: the error-feedback
+    sum and then the new residual are formed in its storage
+    (``compression.error_feedback_step``), so callers pass an arena of
+    their own.
     """
 
-    mode: str = "dense"             # dense | int8
+    mode: str = "dense"             # dense | int8 | sparse
     reproducible: bool = False
     block: int = QUANT_BLOCK
+    k_frac: float = 0.0
+    density_threshold: float = 0.25
 
     def __call__(self, buf, ef, staggers, extents):
         if self.mode == "dense":
@@ -124,15 +133,27 @@ class SwitchTransport(Transport):
             if self.mean:
                 red = red / self._world()
             return red, (torch.zeros_like(ef) if ef is not None else None)
-        if self.mode != "int8":
+        if self.mode == "int8":
+            def transmit(v):
+                return dataplane.switch_allreduce_int8(
+                    v, self.mesh, self.axes, block=self.block), None
+
+            def residual_(v, sent):
+                return compression.roundtrip_residual_(v, self.block)
+        elif self.mode == "sparse":
+            ks = tuple(sparse.sparse_k(self.k_frac, e) for e in extents)
+
+            def transmit(v):
+                return dataplane.switch_allreduce_sparse(
+                    v, self.mesh, self.axes, ks,
+                    density_threshold=self.density_threshold)
+
+            def residual_(v, sent):
+                return sparse.residual_(v, *sent)
+        else:
             raise ValueError(f"unknown switch transport mode {self.mode!r}")
-
-        def transmit(v):
-            return dataplane.switch_allreduce_int8(v, self.mesh, self.axes,
-                                                   block=self.block)
-
         red, ef_out = compression.error_feedback_step(buf, ef, transmit,
-                                                      block=self.block)
+                                                      residual_)
         if self.mean:
             red = red / self._world()
         return red, ef_out
@@ -148,18 +169,20 @@ def from_config(config, mesh: RankMesh, dtype: torch.dtype) -> Transport:
     """
     axes = tuple(config.axes)
     is_float = dtype.is_floating_point
-    unported = ("the lossy wire transports and the sparse ones are not "
-                "ported yet: ROADMAP queue 1 items 7 (wire int8) and 8 "
-                "(sparse)")
-    if is_float and config.sparse_k_frac > 0:
-        raise NotImplementedError(unported)
     if config.transport == "innetwork":
+        if config.sparse_k_frac > 0 and is_float:
+            return SwitchTransport(mesh, axes, mean=config.mean,
+                                   mode="sparse", k_frac=config.sparse_k_frac,
+                                   density_threshold=config.density_threshold)
         if config.compression == "int8" and is_float:
             return SwitchTransport(mesh, axes, mean=config.mean, mode="int8")
         return SwitchTransport(mesh, axes, mean=config.mean,
                                reproducible=config.reproducible)
-    if config.compression == "int8" and is_float:
-        raise NotImplementedError(unported)
+    if is_float and (config.sparse_k_frac > 0
+                     or config.compression == "int8"):
+        raise NotImplementedError(
+            "the lossy wire transports are not ported yet: ROADMAP queue 1 "
+            "items 7 (wire int8) and 8 (wire sparse)")
     return DenseTransport(mesh, axes, mean=config.mean,
                           hierarchical=config.hierarchical,
                           algorithm=config.algorithm,

@@ -1,9 +1,9 @@
 """Public wrappers over the kernels: padding, accumulation type, dispatch.
 
-The port of ``repro/kernels/ops.py`` for the fixed-tree fold and the int8
-quantization kernels.  A tensor on the CPU takes the plain PyTorch
-version (``ref``); a tensor on the card launches the CUDA kernel or
-raises — there is no fallback.
+The port of ``repro/kernels/ops.py``: the fixed-tree fold, the int8
+quantization kernels, the sparse accumulate and the per-block top-k.  A
+tensor on the CPU takes the plain PyTorch version (``ref``); a tensor on
+the card launches the CUDA kernel or raises — there is no fallback.
 """
 from __future__ import annotations
 
@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import sparse_accum as _sa
+from repro_torch.kernels import topk_compact as _tk
 from repro_torch.kernels import tree_reduce as _tr
 
 
@@ -225,3 +227,107 @@ def dequant_accum(q: torch.Tensor, scales: torch.Tensor,
     if q.device.type == "cpu":
         return dequant_accum_plain(q, scales, qblock)
     return _quant.dequant_accum(q, scales, qblock)
+
+
+# ---------------------------------------------------------------------------
+# Sparse accumulate and per-block top-k (§7): the port of
+# ``repro/kernels/ops.py``'s ``sparse_accum``, ``sparse_accum_slots``,
+# ``topk_compact`` and ``blockwise_sparsify``.  Their plain versions run
+# in pieces of about ``PLAIN_CHUNK`` entries or elements, as above.
+# ---------------------------------------------------------------------------
+
+def sparse_accum_slots_plain(idx: torch.Tensor, val: torch.Tensor,
+                             size: int) -> torch.Tensor:
+    """The plain version of :func:`sparse_accum_slots`, on any device."""
+    *lead, e = idx.shape
+    i2, v2 = idx.reshape(-1, e), val.reshape(-1, e)
+    out = torch.empty((i2.shape[0], size), dtype=torch.float32,
+                      device=idx.device)
+    for c in _row_chunks(i2.shape[0], e):
+        out[c] = _ref.sparse_accum_slots(i2[c], v2[c], size)
+    return out.reshape(*lead, size)
+
+
+def _lists(t: torch.Tensor) -> torch.Tensor:
+    """``(..., B, E)`` lists as ``(G, B, E)``: a view where the leading
+    axes merge, else a copy."""
+    if t.dim() == 2:
+        return t.unsqueeze(0)
+    return t if t.dim() == 3 else t.reshape(-1, *t.shape[-2:])
+
+
+def sparse_accum_slots(idx: torch.Tensor, val: torch.Tensor, size: int,
+                       indices_sorted: bool = False) -> torch.Tensor:
+    """Scatter-add ``(..., B, E)`` bucket-local coordinate lists into
+    ``(..., B, size)`` fp32 buffers: zeros plus every entry whose index
+    lies in ``[0, size)``; duplicates add.  ``indices_sorted`` says every
+    list is ascending as unsigned integers (a ``-1`` tail last), which
+    lets the kernel write each output once; it is not checked."""
+    if idx.dim() < 2 or idx.shape != val.shape:
+        raise ValueError(f"sparse_accum_slots wants (..., B, E) indices and "
+                         f"values, got {tuple(idx.shape)} and "
+                         f"{tuple(val.shape)}")
+    if idx.device.type == "cpu":
+        return sparse_accum_slots_plain(idx, val, size)
+    out = _sa.sparse_accum_slots(_lists(idx), _lists(val), size,
+                                 indices_sorted)
+    return out.reshape(*idx.shape[:-1], size)
+
+
+def sparse_accum(idx: torch.Tensor, val: torch.Tensor,
+                 size: int) -> torch.Tensor:
+    """Scatter-add one ``(E,)`` coordinate list, in any order, into
+    ``(size,)`` fp32 (−1 entries dropped): one row of
+    :func:`sparse_accum_slots`."""
+    if idx.dim() != 1 or idx.shape != val.shape:
+        raise ValueError(f"sparse_accum wants (E,) indices and values, got "
+                         f"{tuple(idx.shape)} and {tuple(val.shape)}")
+    if idx.device.type == "cpu":
+        return sparse_accum_slots_plain(idx.unsqueeze(0), val.unsqueeze(0),
+                                        size).reshape(size)
+    return _sa.sparse_accum(idx, val, size)
+
+
+def topk_compact_plain(x: torch.Tensor, k: int, block: int = 512
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`topk_compact` on a padded ``(n,)``."""
+    nb = x.numel() // block
+    xb = x.reshape(nb, block)
+    vals = torch.empty((nb, k), dtype=x.dtype, device=x.device)
+    idxs = torch.empty((nb, k), dtype=torch.int32, device=x.device)
+    for c in _row_chunks(nb, block):
+        vals[c], idxs[c] = _ref.topk_compact(xb[c], k)
+    return vals, idxs
+
+
+def topk_compact(x: torch.Tensor, k: int, block: int = 512
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-block magnitude top-k of a flat vector → ``(values, local
+    indices)``, each ``(n / block, k)``, ``-1`` in empty slots; a ragged
+    ``n`` is zero-padded to whole blocks, as the JAX wrapper does.  The
+    strictly-above entries come first, the threshold ties after them:
+    the output is not index-sorted."""
+    if x.dim() != 1:
+        raise ValueError(f"topk_compact wants (n,), got {tuple(x.shape)}")
+    if k > block:
+        raise ValueError(f"topk_compact: k={k} > block={block}")
+    pad = (-x.shape[0]) % block
+    if pad:
+        x = torch.cat([x, x.new_zeros(pad)])
+    if x.device.type == "cpu":
+        return topk_compact_plain(x, k, block)
+    return _tk.topk_compact(x.contiguous(), k, block)
+
+
+def blockwise_sparsify(x: torch.Tensor, k: int, block: int = 512
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Global ``(values, indices)`` from per-block top-k (SparCML
+    packetization): flat vectors of length ``(n / block)·k`` with global
+    indices; zero-valued tie fills and empty slots get index ``-1``,
+    which ``sparse_accum`` drops.  Within a block the order is
+    ``topk_compact``'s, so the lists are not sorted."""
+    vals, idx = topk_compact(x, k, block)
+    base = (torch.arange(vals.shape[0], dtype=torch.int32,
+                         device=x.device) * block).unsqueeze(1)
+    gidx = torch.where((idx >= 0) & (vals != 0), idx + base, -1)
+    return vals.reshape(-1), gidx.reshape(-1)

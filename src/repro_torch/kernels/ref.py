@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the kernels (the correctness contract).
 
-The port of ``repro/kernels/ref.py`` for the kernels ported so far.  On a
-CPU tensor the ``ops`` wrappers run these; on the card they are what
-each CUDA kernel is held against, bit for bit.
+The port of ``repro/kernels/ref.py``.  On a CPU tensor the ``ops``
+wrappers run these; on the card they are what each CUDA kernel is held
+against, bit for bit.
 """
 from __future__ import annotations
 
@@ -134,3 +134,109 @@ def dequant_accum(q: torch.Tensor, scales: torch.Tensor,
     out = dequant_accum_slots(q.reshape(*lead, p, n // qblock, qblock),
                               scales.unsqueeze(-1), qblock)
     return out.reshape(*lead, n)
+
+
+# ---------------------------------------------------------------------------
+# Sparse accumulate (§7 array storage).
+# ---------------------------------------------------------------------------
+
+def scatter_add_rows(out: torch.Tensor, idx: torch.Tensor,
+                     val: torch.Tensor) -> torch.Tensor:
+    """``out[r, idx[r, j]] += val[r, j]`` on ``(R, size)`` rows, in list
+    order, in ``out``'s dtype; indices outside ``[0, size)`` drop.
+
+    Entries that share an index add one after another in list order,
+    the order XLA's CPU scatter adds them: the entries are taken in
+    rounds, round ``r`` holding every entry that is the ``r``-th of its
+    index, so no round adds twice to one element and the result does not
+    depend on the device's scatter order.  Returns ``out``.
+    """
+    rows, size = out.shape
+    keep = (idx >= 0) & (idx < size)
+    key = torch.where(keep, idx.long() + torch.arange(
+        rows, device=idx.device).unsqueeze(1) * size, -1).reshape(-1)
+    val = val.reshape(-1).to(out.dtype)
+    order = torch.argsort(key, stable=True)
+    sk = key[order]
+    head = torch.ones_like(sk, dtype=torch.bool)
+    head[1:] = sk[1:] != sk[:-1]
+    pos = torch.arange(sk.numel(), device=sk.device)
+    start = torch.cummax(torch.where(head, pos, 0), 0).values
+    nth = torch.empty_like(pos)
+    nth[order] = pos - start
+    flat = out.view(-1)
+    kept = keep.reshape(-1)
+    rounds = int(nth[kept].max()) + 1 if bool(kept.any()) else 0
+    for r in range(rounds):
+        m = kept & (nth == r)
+        flat.index_add_(0, key[m], val[m])
+    return out
+
+
+def sparse_accum_slots(idx: torch.Tensor, val: torch.Tensor,
+                       size: int) -> torch.Tensor:
+    """``(R, E)`` int32 coordinate lists → ``(R, size)`` fp32 buffers:
+    zeros plus each entry, in list order (``scatter_add_rows``)."""
+    out = torch.zeros((idx.shape[0], size), dtype=torch.float32,
+                      device=idx.device)
+    return scatter_add_rows(out, idx, val)
+
+
+# ---------------------------------------------------------------------------
+# Per-block magnitude top-k (the SparCML sparsifier).
+# ---------------------------------------------------------------------------
+
+#: the bisection's headroom above the block maximum, 1e-30 as fp32
+TOPK_HEADROOM = 1e-30
+
+
+def topk_compact(xb: torch.Tensor, k: int, n_iter: int = 24
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row top-k of ``(nb, block)`` rows → ``(values (nb, k)`` in
+    ``xb``'s dtype, ``local indices (nb, k)`` int32).
+
+    The reference's algorithm in its own arithmetic: ``n_iter`` fp32
+    bisection steps for a threshold that admits at least ``k`` magnitudes
+    (``hi = max|x| + 1e-30`` with NaN kept, ``mid = 0.5·(lo + hi)``),
+    then the elements strictly above it in index order, then the ties
+    at it in index order, ``k`` in all; ``-1`` and ``0`` fill the slots
+    of a row that admits fewer (only NaN does).  The output is not
+    index-sorted: a tie can follow larger indices.
+
+    Each value is what the reference's one-hot product gives: ``0 +``
+    the sum over the row of ``x[j]·(j == sel)``.  So a NaN or an inf
+    anywhere else in the row makes it NaN (``inf·0``), and a selected
+    ``-0.0`` comes out ``+0.0``.
+    """
+    x = xb.float()
+    ax = x.abs()
+    lo = torch.zeros((x.shape[0], 1), dtype=torch.float32, device=x.device)
+    hi = ax.amax(dim=1, keepdim=True) + TOPK_HEADROOM
+    for _ in range(n_iter):
+        mid = 0.5 * (lo + hi)
+        ge = (ax >= mid).sum(dim=1, keepdim=True) >= k
+        lo = torch.where(ge, mid, lo)
+        hi = torch.where(ge, hi, mid)
+    gt = ax > lo
+    n1 = gt.cumsum(dim=1, dtype=torch.int32)
+    total1 = torch.clamp(n1[:, -1:], max=k)
+    sel1 = gt & (n1 <= k)
+    eq = (ax >= lo) & ~gt
+    n2 = eq.cumsum(dim=1, dtype=torch.int32)
+    sel2 = eq & (n2 <= k - total1)
+    pos = torch.where(sel1, n1 - 1, total1 + n2 - 1)
+    sel = sel1 | sel2
+
+    bad = ~torch.isfinite(x)
+    others_bad = bad.sum(dim=1, keepdim=True) - bad.int() > 0
+    value = torch.where(others_bad, torch.nan, x + 0.0)
+
+    nb, block = x.shape
+    row = torch.arange(nb, device=x.device).unsqueeze(1).expand(nb, block)
+    col = torch.arange(block, dtype=torch.int32,
+                       device=x.device).expand(nb, block)
+    vals = torch.zeros((nb, k), dtype=torch.float32, device=x.device)
+    idxs = torch.full((nb, k), -1, dtype=torch.int32, device=x.device)
+    vals[row[sel], pos[sel].long()] = value[sel]
+    idxs[row[sel], pos[sel].long()] = col[sel]
+    return vals.to(xb.dtype), idxs

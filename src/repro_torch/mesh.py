@@ -102,14 +102,14 @@ class RankMesh:
         return dataclasses.replace(
             self, shape=self.shape[:k] + (1,) + self.shape[k + 1:])
 
-    def scatter_group(self, y: torch.Tensor, axis: str,
-                      rank: int) -> torch.Tensor:
+    def scatter_group(self, y: torch.Tensor, axis: str, rank: int,
+                      fill: int | float = 0) -> torch.Tensor:
         """Inverse of a group reduction: ``(G, *s)`` held by rank ``rank``
-        of every ``axis`` group → ``(*mesh, *s)``, zeros elsewhere."""
+        of every ``axis`` group → ``(*mesh, *s)``, ``fill`` elsewhere."""
         k = self.dim(axis)
         others = tuple(n for i, n in enumerate(self.shape) if i != k)
         rest = tuple(y.shape[1:])
-        out = y.new_zeros(self.shape + rest)
+        out = y.new_full(self.shape + rest, fill)
         out.select(k, rank).copy_(y.reshape(others + rest))
         return out
 

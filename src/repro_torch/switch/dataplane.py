@@ -22,11 +22,14 @@ packed ``(G, P, n, E)`` slot tensor; ``batched=False`` keeps the
 per-packet schedule (``packetize`` / header steering / ``depacketize``,
 binomial multicast) as the bitwise oracle.
 
-Two planes share this schedule: the dense one (``switch_allreduce_dense``)
-and the int8 one (``switch_allreduce_int8``, F1), whose packets carry
-int8 payloads with an fp32 scales sideband.  The lossy fabric
-(``fault_plan``), telemetry and multi-tenant arrivals are not ported yet
-(ROADMAP queue 1 items 9, 11 and 13).
+Three planes share this schedule: the dense one
+(``switch_allreduce_dense``), the int8 one (``switch_allreduce_int8``,
+F1), whose packets carry int8 payloads with an fp32 scales sideband, and
+the sparse one (``switch_allreduce_sparse``, §7), whose packets carry
+top-k coordinate lists that the switches merge until they would
+overflow, then densify.  The lossy fabric (``fault_plan``), telemetry
+and multi-tenant arrivals are not ported yet (ROADMAP queue 1 items 9,
+11 and 13).
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import compression, topology
+from repro_torch.core import compression, sparse, topology
+from repro_torch.kernels import ops
 from repro_torch.mesh import RankMesh
 from repro_torch.perfmodel import switch_model as sm
 from repro_torch.switch import handlers as hd
@@ -433,3 +437,218 @@ def switch_allreduce_int8(arena: torch.Tensor, mesh: RankMesh,
     if mean:
         out = out / mesh.world_size(axes)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Sparse coordinate-merge data plane (§7).
+# ---------------------------------------------------------------------------
+
+def _pack_lists(idx: torch.Tensor, val32: torch.Tensor) -> torch.Tensor:
+    """``(..., B, cap)`` int32 indices and fp32 values → the ``(..., B,
+    2·cap)`` int32 wire image; the values ride as their bits."""
+    return torch.cat([idx, val32.view(torch.int32)], dim=-1)
+
+
+def _unpack_lists(packed: torch.Tensor, cap: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    return packed[..., :cap], packed[..., cap:].view(torch.float32)
+
+
+def _densify(idx: torch.Tensor, val32: torch.Tensor, s: int) -> torch.Tensor:
+    """§7 array storage: scatter-add ``(..., B, cap)`` lists into dense
+    ``(..., B, S)`` fp32 buffers — the ``sparse_accum_slots`` kernel over
+    every bucket at once, in its sorted mode: every list here comes from
+    ``topk_sparsify`` or ``merge_coordinate_lists``, index-sorted with
+    its sentinels (mapped to ``-1``) last."""
+    lidx = torch.where(idx != sparse.SENTINEL, idx, -1)
+    return ops.sparse_accum_slots(lidx, val32, s, indices_sorted=True)
+
+
+def _held_stat(stat: torch.Tensor, mesh: RankMesh, held: RankMesh,
+               placed: list, lvl: topology.MeshLevel) -> torch.Tensor:
+    """A level's per-switch count ``(G,)`` as a per-rank ``mesh``-shaped
+    count: every rank of a switch's group holds it, as every rank of the
+    group computes it in the reference; a rank off ``held`` (its group's
+    lists are all sentinels there) holds 0.  ``placed`` indexes ``held``
+    inside ``mesh``: the switch rank on each collapsed axis."""
+    x = stat.reshape(held.collapse(lvl.axis).shape).expand(held.shape)
+    out = torch.zeros(mesh.shape, dtype=stat.dtype, device=stat.device)
+    out[tuple(placed)] = x[tuple(0 if isinstance(p, int) else slice(None)
+                                 for p in placed)]
+    return out
+
+
+def _sparse_level_batched(idx: torch.Tensor, val32: torch.Tensor,
+                          held: RankMesh, lvl: topology.MeshLevel,
+                          handler: hd.Handler, cap: int,
+                          fmt: pk.PacketFormat):
+    """One up-hop of the list plane over the packed wire image: frame the
+    ``(B, 2·cap)`` int32 image of every held rank, take the switches'
+    child stacks (a view), unframe and merge, every switch of the level
+    at once.  The merge regroups packets by child, and any arrival
+    interleave composed with that regrouping is the identity on each
+    child's image, so arrivals are never materialised.  Returns the
+    merged lists on ``held.collapse(lvl.axis)``, the per-switch collision
+    counts and that mesh."""
+    b = idx.shape[-2]
+    plan = pk.FramePlan(b, 2 * cap, torch.int32, fmt)
+    stack = held.group_stack(plan.pack(_pack_lists(idx, val32)), lvl.axis,
+                             lvl.switch_rank)                 # (G, P, n, E)
+    cidx, cval = _unpack_lists(plan.unpack(stack), cap)       # (G, P, B, cap)
+    merged, stats = handler.payload_handler({"idx": cidx, "val": cval},
+                                            None, "single", 1, {})
+    up = held.collapse(lvl.axis)
+    shape = up.shape + tuple(merged["idx"].shape[1:])
+    return (merged["idx"].reshape(shape), merged["val"].reshape(shape),
+            stats["collisions"], up)
+
+
+def _sparse_level(idx: torch.Tensor, val32: torch.Tensor, mesh: RankMesh,
+                  lvl: topology.MeshLevel, handler: hd.Handler, cap: int,
+                  fmt: pk.PacketFormat, arrival):
+    """One up-hop packet by packet: every rank frames its wire image, the
+    switch regroups the arrivals by the CHILD header (a list spans
+    several packets: pairing one child's indices with another's values
+    would corrupt the sum), reassembles each child's image, merges, and
+    places the merged lists at the switch rank (sentinels elsewhere).
+    Returns the lists and the per-rank collision counts."""
+    b = idx.shape[-2]
+    stream = pk.packetize(_pack_lists(idx, val32), fmt,
+                          child_rank=mesh.axis_index(lvl.axis, idx.device))
+    payload = mesh.group_stack(stream.payload, lvl.axis, lvl.switch_rank)
+    headers = mesh.group_stack(stream.headers, lvl.axis, lvl.switch_rank)
+    payload, headers = _apply_arrival(payload, headers, arrival)
+    order = hd.child_order(headers)
+    payload, headers = hd.apply_order(payload, order), hd.apply_order(
+        headers, order)
+    child = pk.depacketize(pk.PacketStream(headers, payload), fmt, b,
+                           2 * cap)                           # (G, P, B, 2cap)
+    cidx, cval = _unpack_lists(child, cap)
+    merged, stats = hd.run(handler, {"idx": cidx, "val": cval}, headers,
+                           design="single")
+    idx = mesh.scatter_group(merged["idx"], lvl.axis, lvl.switch_rank,
+                             fill=sparse.SENTINEL)
+    val32 = mesh.scatter_group(merged["val"], lvl.axis, lvl.switch_rank)
+    counts = stats["collisions"].reshape(
+        mesh.collapse(lvl.axis).shape).expand(mesh.shape)
+    return idx, val32, counts
+
+
+def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
+                            axes: Sequence[str], ks: Sequence[int] | int, *,
+                            density_threshold: float = 0.25,
+                            fmt: pk.PacketFormat = DEFAULT_FORMAT,
+                            arrival_perms: Sequence | None = None,
+                            fault_plan=None,
+                            batched: bool = True,
+                            mean: bool = False,
+                            with_stats: bool = False):
+    """Top-k sparse allreduce of a ``(*mesh, B, S)`` arena through the
+    emulated switch (§7).
+
+    Every rank sends each bucket's top-``ks[b]`` coordinate list (``ks``
+    one per bucket, or one for all; the lists hold ``max(ks)`` slots);
+    each switch runs the ``sparse_merge`` handler and forwards the merged
+    list — capacity ``cap · fan-in`` — up the tree while it fits under
+    ``density_threshold · S``.  At the first level where it would not
+    (before level 1, mid-tree, or at the root) the lists densify into
+    fp32 buffers (the ``sparse_accum_slots`` kernel, the paper's array
+    storage) and the remaining levels fold them with the child-steered
+    ``dense_sum_steered`` handler, so the result is bitwise the same
+    under any arrival order.  The root's result multicasts down.
+
+    Returns ``(reduced, sent)``: ``sent`` is this rank's ``(values,
+    indices)`` lists, ``(*mesh, B, max(ks))``, from which the caller
+    forms its error-feedback residual (the reference returns them
+    scattered to a dense arena, ``mine``; the port never holds that
+    copy).  With ``with_stats`` a third item, ``{"collisions",
+    "spill_bytes"}``, counts per rank the index collisions on the
+    switches of its root path.  The batched plane folds and densifies
+    only the ranks that hold data, and its result is one copy broadcast
+    over the rank axes.
+    """
+    if fault_plan is not None:
+        raise NotImplementedError(
+            "the lossy fabric (fault_plan) is not ported yet: ROADMAP "
+            "queue 1 item 9")
+    b, s = arena.shape[-2:]
+    handler = hd.get_handler("sparse_merge")
+    ks = tuple(int(k) for k in (ks if hasattr(ks, "__len__") else [ks] * b))
+    if len(ks) != b:
+        raise ValueError(f"got {len(ks)} ks for {b} buckets")
+    k_max = max(ks)
+    levels = _levels(mesh, axes)
+    val, idx = sparse.topk_sparsify(arena, k_max, torch.tensor(
+        ks, device=arena.device))
+    sent = (val, idx)
+    collisions = torch.zeros(mesh.shape, dtype=torch.int32,
+                             device=arena.device)
+    if len(levels) == 1 and levels[0].fanin == 1:
+        out = sparse.scatter_dense(val, idx, s, dtype=arena.dtype).float()
+        if mean:
+            out = out / mesh.world_size(axes)
+        ret = [out.to(arena.dtype), sent]
+        if with_stats:
+            ret.append({"collisions": collisions,
+                        "spill_bytes": collisions * 8})
+        return tuple(ret)
+    val32 = val.float()
+    del val
+    cap = k_max
+    dense: torch.Tensor | None = None
+    steered = hd.get_handler("dense_sum_steered")
+    held, placed = mesh, [slice(None)] * mesh.ndim
+    dplan = pk.FramePlan(b, s, torch.float32, fmt)
+    for i, lvl in enumerate(levels):
+        arrival = arrival_perms[i] if arrival_perms is not None else None
+        if dense is None and sparse.densify_step(cap * lvl.fanin, s,
+                                                 density_threshold):
+            # array storage from here on: this level would overflow the
+            # list capacity (§7 densification toward the root)
+            dense = _densify(idx, val32, s)
+            idx = val32 = None
+        if dense is not None and batched:
+            dense, held = _dense_level_batched(dense, held, lvl, steered,
+                                               "single", 1, dplan, arrival)
+        elif dense is not None:
+            dense = _dense_level(dense, mesh, lvl, steered, "single", 1, fmt,
+                                 arrival)
+        elif batched:
+            idx, val32, stat, up = _sparse_level_batched(
+                idx, val32, held, lvl, handler, cap, fmt)
+            collisions += _held_stat(stat, mesh, held, placed, lvl)
+            held = up
+            cap *= lvl.fanin
+        else:
+            idx, val32, counts = _sparse_level(idx, val32, mesh, lvl,
+                                               handler, cap, fmt, arrival)
+            collisions += counts
+            cap *= lvl.fanin
+        placed[mesh.dim(lvl.axis)] = lvl.switch_rank
+
+    top = levels[-1]
+    if dense is None and batched:
+        dense = _densify(idx, val32, s)                 # root array storage
+    elif dense is None:
+        k = mesh.dim(top.axis)
+        lists = [t.select(k, top.switch_rank).reshape(-1, b, cap)
+                 for t in (idx, val32)]
+        dense = _mask_to_switch(_densify(*lists, s), mesh, top)
+    del idx, val32
+    if batched:
+        red = dense.contiguous()                # one copy for every rank
+    else:
+        red = dense
+        for lvl in reversed(levels):
+            red = _multicast_arena(red, mesh, lvl, fmt)
+    del dense
+    if mean:
+        red = red / mesh.world_size(axes)
+    red = red.to(arena.dtype)
+    if batched:
+        red = red.expand(mesh.shape + (b, s))
+    ret = [red, sent]
+    if with_stats:
+        ret.append({"collisions": collisions,
+                    "spill_bytes": collisions * 8})   # (idx, val) a spill
+    return tuple(ret)

@@ -14,7 +14,8 @@ binary tree over the child index (the ``tree_reduce`` kernel, fp32
 accumulation) — the F3 bitwise-reproducibility mechanism.
 
 The ``int8_dequant`` handler (F1) folds int8 payloads with their fp32
-scales; the sparse handler comes with its plane in a later slice.
+scales; ``sparse_merge`` (§7) merges the children's coordinate lists one
+after another and counts the index collisions.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core import compression
+from repro_torch.core import compression, sparse
 from repro_torch.kernels import ops
 from repro_torch.switch import packets as pk
 
@@ -252,3 +253,41 @@ register(Handler(
     payload_handler=_int8_payload,
     completion_handler=lambda agg, ctx: agg))   # stays fp32; the data
 #                                 plane requantizes for the next wire hop
+
+
+# -- sparse coordinate merge (§7) --------------------------------------------
+
+def _list_nnz(idx: torch.Tensor) -> torch.Tensor:
+    """Non-sentinel entries of each group's lists: ``(G, ...)`` → ``(G,)``
+    int32."""
+    return (idx != sparse.SENTINEL).reshape(idx.shape[0], -1).sum(
+        dim=1, dtype=torch.int32)
+
+
+def _sparse_payload(stack, headers, design, n_bufs, ctx):
+    """stack = {"idx": (G, P, B, cap) int32, "val": (G, P, B, cap)}.
+
+    Sequential insert-or-accumulate of each child's coordinate list into
+    the aggregation storage, in stack order (the sorted-list analogue of
+    the paper's hash table), counting index *collisions* — entries that
+    accumulated into an existing slot, what the paper's fixed-size hash
+    spills to the host (§7, Fig. 14).  Returns the merged ``(G, B, cap·P)``
+    lists and ``{"collisions": (G,) int32}``.
+    """
+    idx, val = stack["idx"], stack["val"]
+    merged_i, merged_v = idx[:, 0], val[:, 0]
+    collisions = torch.zeros(idx.shape[0], dtype=torch.int32,
+                             device=idx.device)
+    for c in range(1, idx.shape[1]):
+        before = _list_nnz(merged_i) + _list_nnz(idx[:, c])
+        merged_i, merged_v = sparse.merge_coordinate_lists(
+            merged_i, merged_v, idx[:, c], val[:, c])
+        collisions += before - _list_nnz(merged_i)
+    return {"idx": merged_i, "val": merged_v}, {"collisions": collisions}
+
+
+register(Handler(
+    name="sparse_merge", kind="sparse",
+    header_handler=lambda headers: None,
+    payload_handler=_sparse_payload,
+    completion_handler=lambda agg, ctx: agg))

@@ -1,6 +1,7 @@
 """The port on the card: the CUDA kernels against their plain versions,
 and the whole reduction on the GPU against the same reduction on the CPU
-(the reproducible dense path and the int8 path with its state).
+(the reproducible dense path, the int8 path and the sparse path, the
+last two with their state).
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so it runs where only PyTorch is installed:
@@ -8,7 +9,10 @@ imports no JAX, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance is zero throughout: each kernel computes in the plain version's
-order and rounds the same way.
+order and rounds the same way.  Two exceptions, both stated where they
+apply: NaN payloads are not compared, and ``sparse_accum_slots`` on
+unsorted lists adds three or more duplicates of an index in the
+hardware's order (``rtol = atol = 1e-5``, the reference's own tolerance).
 """
 import pytest
 import torch
@@ -18,6 +22,8 @@ from repro_torch.configs import tinyllama_1_1b as tl
 from repro_torch.core.engine import FlareConfig, GradReducer
 from repro_torch.kernels import ops
 from repro_torch.kernels import quant as qt
+from repro_torch.kernels import sparse_accum as sa
+from repro_torch.kernels import topk_compact as tk
 from repro_torch.kernels import tree_reduce as tr
 from repro_torch.mesh import AXES, FLAT, TWO_LEVEL, RankMesh
 from repro_torch.models import transformer
@@ -177,6 +183,108 @@ def test_int8_grad_reducer_on_cuda_matches_cpu(cuda, mshape, tree_name):
     assert fold() > 0
     cpu = lambda t: tree.map_leaves(lambda a: a.cpu(), t)
     w1, wst = red(cpu(g1))
+    w2, wst = red(cpu(g2), wst)
+    for got, want in ((r1, w1), (r2, w2), (st, wst)):
+        for g, w in zip(tree.flatten(got)[0], tree.flatten(want)[0]):
+            assert _same_bits(g.contiguous(), w.contiguous())
+
+
+def _sorted_lists(gen, rows, e, size, fill):
+    """The sparse data plane's list form: ascending as unsigned integers,
+    ``fill·e`` distinct indices (some at and past ``size``) then a ``-1``
+    tail; entries 1 and 2 of each row share an index."""
+    idx = torch.full((rows, e), -1, dtype=torch.int32, device="cuda")
+    m = int(fill * e)
+    for r in range(rows):
+        pick = torch.randperm(size + 50, generator=gen, device="cuda")[:m]
+        idx[r, :m] = pick.sort().values.int()
+    idx[:, 1] = idx[:, 2]
+    return idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_sparse_accum_kernel_matches_plain_on_cuda(cuda, dtype):
+    """Sorted lists (bitwise, duplicates too) with -1 tails and entries at
+    and past ``size``, B = 1, 3 and a strided (G, B) stack, a ragged size;
+    unsorted lists bitwise with pairs of duplicates and within the
+    reference's tolerance with more."""
+    dt = getattr(torch, dtype)
+    for b, e, size in ((1, 700, 9000), (3, 5000, 20_000), (3, 64, 100)):
+        idx = _sorted_lists(cuda, b, e, size, 0.8)
+        val = torch.randn((b, e), generator=cuda, device="cuda").to(dt)
+        got = ops.sparse_accum_slots(idx, val, size, indices_sorted=True)
+        torch.cuda.synchronize()
+        assert _same_bits(got, ops.sparse_accum_slots_plain(idx, val, size))
+        mixed = idx.flip(1).contiguous()           # unsorted, pairs only
+        assert _same_bits(ops.sparse_accum_slots(mixed, val.flip(1)
+                                                 .contiguous(), size),
+                          ops.sparse_accum_slots_plain(mixed, val.flip(1),
+                                                       size))
+    lists = torch.randint(0, 50, (4, 2, 300), generator=cuda, device="cuda",
+                          dtype=torch.int32)         # many duplicates
+    vals = torch.randn((4, 2, 300), generator=cuda, device="cuda").to(dt)
+    got = ops.sparse_accum_slots(lists.movedim(0, 1), vals.movedim(0, 1), 64)
+    want = ops.sparse_accum_slots_plain(lists.movedim(0, 1),
+                                        vals.movedim(0, 1), 64)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    flat = ops.sparse_accum(lists[0, 0], vals[0, 0], 64)
+    torch.testing.assert_close(flat, want[0, 0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_topk_compact_kernel_matches_plain_on_cuda(cuda, dtype):
+    """k = 1, 8, 64 and every block size: ties, zero blocks, ±0.0, inf
+    and NaN blocks (NaN payloads not compared), a ragged length."""
+    dt = getattr(torch, dtype)
+    for block in tk.BLOCKS:
+        for k in (1, 8, 64):
+            if k > block:
+                continue
+            x = torch.randn((9, block), generator=cuda, device="cuda")
+            x[1] = torch.randint(-3, 4, (block,), generator=cuda,
+                                 device="cuda") / 2
+            x[2] = 0.0
+            x[3, ::2] = -0.0
+            x[4, 0], x[5, block - 1] = float("inf"), float("nan")
+            x[6, 1], x[6, 2] = float("-inf"), float("inf")
+            x = x.to(dt).reshape(-1)[:-3]             # ragged: padded
+            v, i = ops.topk_compact(x, k, block)
+            pv, pi = ops.topk_compact_plain(
+                torch.cat([x, x.new_zeros(3)]), k, block)
+            torch.cuda.synchronize()
+            assert torch.equal(i, pi), (block, k)
+            assert _same_or_both_nan(v.float(), pv.float()), (block, k)
+    x = torch.randn(8 * 512, generator=cuda, device="cuda").to(dt)
+    v, g = ops.blockwise_sparsify(x, 1)
+    assert (g >= 0).sum() == 8
+    dense = ops.sparse_accum(g, v, x.numel())
+    assert _same_bits(dense, ops.sparse_accum_slots_plain(
+        g[None], v[None], x.numel())[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mshape", [FLAT, TWO_LEVEL])
+@pytest.mark.parametrize("frac", [0.01, 0.3])
+def test_sparse_grad_reducer_on_cuda_matches_cpu(cuda, mshape, frac):
+    """Two steps of the sparse in-network reduction with the state
+    carried, on the SMOKE model's tree: the card launches the densify
+    kernel and gives the CPU's bits, lists to the root at 0.01 and a
+    densify before level 1 at 0.3."""
+    params = transformer.init_params(tl.SMOKE, cuda)
+    mk = lambda: tree.map_leaves(lambda p: torch.randn(
+        (*mshape, *p.shape), generator=cuda, device="cuda"), params)
+    g1, g2 = mk(), mk()
+    red = GradReducer(FlareConfig(axes=AXES, transport="innetwork",
+                                  sparse_k_frac=frac), RankMesh(mshape))
+    sa.launches["sparse_accum_slots"] = 0
+    r1, st = red(g1, red.init_state(g1))
+    r2, st = red(g2, st)
+    torch.cuda.synchronize()
+    assert sa.launches["sparse_accum_slots"] > 0
+    cpu = lambda t: tree.map_leaves(lambda a: a.cpu(), t)
+    w1, wst = red(cpu(g1), red.init_state(cpu(g1)))
     w2, wst = red(cpu(g2), wst)
     for got, want in ((r1, w1), (r2, w2), (st, wst)):
         for g, w in zip(tree.flatten(got)[0], tree.flatten(want)[0]):

@@ -444,18 +444,17 @@ def test_from_config_routes_int8_innetwork_to_the_switch():
                                torch.float32)
     assert isinstance(t, transports.SwitchTransport) and t.mode == "int8"
     assert t.block == transports.QUANT_BLOCK
-    # integers ride the dense switch; the wire int8 and sparse transports
-    # are not ported
+    # integers ride the dense switch; the wire int8 and wire sparse
+    # transports are not ported
     dense = transports.from_config(FlareConfig(**INT8_INNET), mesh,
                                    torch.int32)
     assert dense.mode == "dense"
     with pytest.raises(NotImplementedError, match="items 7 .wire int8."):
         transports.from_config(FlareConfig(axes=AXES, compression="int8"),
                                mesh, torch.float32)
-    with pytest.raises(NotImplementedError, match="8 .sparse."):
-        transports.from_config(FlareConfig(axes=AXES, transport="innetwork",
-                                           sparse_k_frac=0.1), mesh,
-                               torch.float32)
+    with pytest.raises(NotImplementedError, match="8 .wire sparse."):
+        transports.from_config(FlareConfig(axes=AXES, sparse_k_frac=0.1),
+                               mesh, torch.float32)
     assert GradReducer(FlareConfig(axes=AXES, transport="innetwork",
                                    reproducible=True), mesh).init_state(
         {"w": torch.ones(2, 4, 3)}) is None
