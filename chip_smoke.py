@@ -65,6 +65,32 @@
    every kernel, its plain version and, where one PyTorch call computes
    the same function, that call, at the shapes the paths gave the
    kernel, beside the kernel's memory bound.
+7. The flash attention kernel (``csrc/flash_attn.cu``) against its plain
+   version: causal and not, cap 0 and 30, window 0 and 256, GQA 1 and 8,
+   ragged ``Sq``/``Sk``, fp32 (``atol = 3e-5``, the reference's own) and
+   bf16 (one bf16 ulp of the plain version on the same bf16 inputs), and
+   the training path's shape, q ``(8, 4096, 32, 64)`` against k, v
+   ``(8, 4096, 4, 64)`` bf16 causal (the plain version on one batch row).
+8. The training step, the port's main path end to end, through the
+   launcher's own setup (``repro_torch.launch.train.setup``):
+   TinyLlama-1.1B at full width and depth ``TRAIN_LAYERS``, bf16 compute
+   with fp32 master weights, 8 ranks on ``--mesh 2x4x1``, one sequence
+   of 4096 a rank (global batch 8, cut from ``TRAIN_4K``'s 256),
+   ``--transport innetwork --reproducible`` (gather ``fixed_tree``), lr
+   5e-6, data ``synthetic_batches(seed=1)``.  A warm-up step, then 5
+   steps with the counters set to 0 just before and read just after:
+   every layer's attention launches the flash kernel in the forward and
+   again in the remat recompute, ``2 × TRAIN_LAYERS`` a step.  It prints each loss
+   (all finite, the 5th below the 1st), the median step time, the peak
+   device memory and a profile of one step; replays one step's captured
+   per-rank gradients through the reduce-scatter and through the
+   ``GradReducer`` with the plain fold (bitwise, and bitwise to the wire
+   ``fixed_tree``: F3); and runs one step at ``COMPARE_LAYERS`` with the
+   plain attention patched in against the kernel's step from the same
+   parameters (loss and gradient norm within 2e-2 relative: bf16).
+   Then times the kernel at the path's shape beside its tensor-core
+   FLOP bound, its plain version and ``scaled_dot_product_attention``
+   (the library yardstick, which the port never calls).
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line
 of kernel figures, and as its last line ``{"ok": true, "device": ...}``.
@@ -76,6 +102,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -89,6 +116,25 @@ SRC = ROOT / "src"
 
 #: H100 SXM HBM3 bandwidth (NVIDIA data sheet), the kernels' bound
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet), the flash
+#: kernel's bound: the least time its flops could take on this card
+BF16_FLOPS_PER_S = 989e12
+#: depth of the training phase: TinyLlama's published 22 (predicted
+#: peak 45-60 GiB of the card's 80)
+TRAIN_LAYERS = 22
+#: depth of the step compared against the plain attention, whose
+#: forward holds a (ranks · heads, 4096, 512) fp32 score tile
+COMPARE_LAYERS = 2
+#: the training phase's launcher flags.  Adam's first steps move every
+#: weight by about lr in its gradient's sign, and on this random 22-layer
+#: init any lr from 2e-5 up overshoots within 5 steps (the loss climbs
+#: back above its step-1 value; at lr 0 it stays at 11.15-11.27, so the
+#: climb is the update, not the data).  5e-6 falls on every step: it is
+#: where TinyLlama's published warm-up (linear to 4e-4 over 2000 steps,
+#: arXiv:2401.02385) stands near its 25th step.
+TRAIN_FLAGS = ["--mesh", "2x4x1", "--batch", "8", "--seq", "4096",
+               "--transport", "innetwork", "--reproducible", "--lr", "5e-6",
+               "--device", "cuda"]
 #: TinyLlama depth, cut from the published 22: the int8 reduction's peak
 #: is about four times the 8 ranks' fp32 gradient bytes (the caller's
 #: gradients and state, the two packed arenas), and 22 layers of fp32
@@ -96,7 +142,8 @@ HBM_BYTES_PER_S = 3.35e12
 LAYERS = 4
 SOURCES = {"tree_reduce": "src/repro_torch/kernels/csrc/tree_reduce.cu",
            "quant": "src/repro_torch/kernels/csrc/quant.cu",
-           "sparse": "src/repro_torch/kernels/csrc/sparse.cu"}
+           "sparse": "src/repro_torch/kernels/csrc/sparse.cu",
+           "flash_attn": "src/repro_torch/kernels/csrc/flash_attn.cu"}
 #: the pallas_call each kernel replaces
 REPLACES = {"tree_reduce_slots": "src/repro/kernels/tree_reduce.py:101",
             "tree_reduce": "src/repro/kernels/tree_reduce.py:56",
@@ -106,7 +153,8 @@ REPLACES = {"tree_reduce_slots": "src/repro/kernels/tree_reduce.py:101",
             "dequantize": "src/repro/kernels/quant.py:171",
             "sparse_accum_slots": "src/repro/kernels/sparse_accum.py:123",
             "sparse_accum": "src/repro/kernels/sparse_accum.py:67",
-            "topk_compact": "src/repro/kernels/topk_compact.py:95"}
+            "topk_compact": "src/repro/kernels/topk_compact.py:95",
+            "flash_attention": "src/repro/kernels/flash_attn.py:86"}
 QBLOCK = 256
 #: the sparse path's fractions: the root densifies at 0.01, the level-1
 #: switches at 0.05 (``density_threshold`` 0.25)
@@ -116,7 +164,8 @@ SPARCML_K = 1
 #: the informative part of a templated kernel name in a profile
 KERNEL_NAME = re.compile(
     r"(tree_reduce|quantize|dequantize|dequant_accum|accum_sorted|"
-    r"accum_scatter|zero|topk)_kernel(<[^>]*>)?|"
+    r"accum_scatter|zero|topk|flash_fwd)_kernel(<[^>]*>)?|"
+    r"\w*gemm\w*|"
     r"CatArrayBatchedCopy\w*|\w*(Sort|sort|TopK|topk|Select)\w*|"
     r"\w+_kernel_cuda|\w*Functor\w*(<\w+>)?")
 
@@ -536,18 +585,28 @@ class SparseSpy:
 
 
 class Capture:
-    """Wraps a kernel entry to keep a copy of the arguments of every
-    launch, for timing the kernel on exactly what the path gave it."""
+    """Wraps a function to keep a copy of the arguments and the result of
+    its calls (the first ``keep`` whose first argument has at most
+    ``max_elems`` elements; every call by default), for timing a kernel on
+    exactly what the path gave it or replaying a call."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, keep=None, max_elems=None):
         self.module, self.name = module, name
         self.real = getattr(module, name)
-        self.seen = []
+        self.keep, self.max_elems = keep, max_elems
+        self.seen, self.calls = [], 0
 
     def __call__(self, *a, **kw):
-        self.seen.append(([t.clone() if hasattr(t, "clone") else t
-                           for t in a], kw))
-        return self.real(*a, **kw)
+        self.calls += 1
+        if not ((self.keep is None or len(self.seen) < self.keep)
+                and (self.max_elems is None
+                     or a[0].numel() <= self.max_elems)):
+            return self.real(*a, **kw)
+        args = [t.clone() if hasattr(t, "clone") else t for t in a]
+        out = self.real(*a, **kw)
+        self.seen.append((args, kw,
+                          out.clone() if hasattr(out, "clone") else out))
+        return out
 
     def patch(self):
         return mock.patch.object(self.module, self.name, self)
@@ -597,6 +656,245 @@ def level_perms(dataplane, mesh, axes, seed):
             for i, _ in enumerate(dataplane._levels(mesh, axes))]
 
 
+def bf16_ulp(torch, x):
+    """One bf16 ulp at each value (8 significant bits)."""
+    _, e = torch.frexp(x.float().abs().clamp_min(1e-30))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def flash_err(torch, got, want, v) -> float:
+    """Worst |kernel − plain|.  fp32: at most 3e-5.  bf16: at most one
+    bf16 ulp of the plain output plus the fp32 sums' own rounding floor,
+    2^-17 · max|v|: both versions sum in fp32 in different orders, and
+    where an output nearly cancels, that rounding exceeds a bf16 ulp of
+    the tiny result (the one-ulp claim holds wherever |o| > 2^-9·max|v|)."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if got.dtype == torch.float32:
+        check(err <= 3e-5, f"flash fp32 error {err} > 3e-5")
+    else:
+        floor = 2.0**-17 * float(v.float().abs().max())
+        excess = diff - bf16_ulp(torch, want)
+        check(float(excess.max()) <= floor, f"flash bf16 output more than "
+              f"one ulp + {floor:.2e} from plain (by {float(excess.max())})")
+    return err
+
+
+def phase_flash_vs_plain(torch, ops, ref) -> float:
+    """The flash kernel vs its plain version; returns the worst error at
+    the training path's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for h, kv in ((8, 8), (8, 1)):
+            for sq, sk, causal in ((700, 700, True), (300, 1000, False),
+                                   (129, 129, True)):
+                for cap, win in ((0.0, 0), (30.0, 0), (0.0, 256),
+                                 (30.0, 256)):
+                    if win and not causal:
+                        continue
+                    q = torch.randn((2, sq, h, 64), generator=gen,
+                                    device="cuda").to(dtype)
+                    k, v = (torch.randn((2, sk, kv, 64), generator=gen,
+                                        device="cuda").to(dtype)
+                            for _ in range(2))
+                    got = ops.attention(q, k, v, causal=causal,
+                                        attn_cap=cap, window=win)
+                    want, _ = ref.flash_attention_bshd(
+                        q, k, v, causal=causal, attn_cap=cap, window=win)
+                    torch.cuda.synchronize()
+                    worst[dtype] = max(worst[dtype],
+                                       flash_err(torch, got, want, v))
+                    cases += 1
+    # the (BH, S, hd) signature of the TPU kernel, fp32
+    q, k, v = (torch.randn((6, 333, 64), generator=gen, device="cuda")
+               for _ in range(3))
+    worst[torch.float32] = max(worst[torch.float32], flash_err(
+        torch, ops.flash_attention(q, k, v, causal=True, attn_cap=30.0),
+        ref.flash_attention(q, k, v, causal=True, attn_cap=30.0), v))
+    cases += 1
+    # the training path's shape; the plain version on one batch row
+    q = torch.randn((8, 4096, 32, 64), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((8, 4096, 4, 64), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    got = ops.attention(q, k, v, causal=True)
+    want, _ = ref.flash_attention_bshd(q[:1], k[:1], v[:1], causal=True)
+    torch.cuda.synchronize()
+    path_err = flash_err(torch, got[:1], want, v[:1])
+    cases += 1
+    print(f"flash kernel vs plain: {cases} cases within tolerance (causal "
+          "and not, cap 0 and 30, window 0 and 256, GQA 1 and 8, ragged Sq "
+          "and Sk, fp32 at atol 3e-5, bf16 within one ulp + 2^-17 max|v|); "
+          "worst error "
+          f"fp32 {worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e};"
+          f" at the path's shape (8, 4096, 32|4, 64) bf16 causal, batch row "
+          f"0: {path_err:.3e}")
+    return path_err
+
+
+def phase_train(torch, card, total_mem, tr) -> dict:
+    """The training step at full width: checks, time, memory, profile,
+    the F3 replay and the comparison against the plain attention."""
+    from repro_torch import tree
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.engine import FlareConfig, GradReducer
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train as launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = launch.setup(TRAIN_FLAGS, n_layers=TRAIN_LAYERS, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p[(0,) * run.step.mesh.ndim].numel()
+                   for p in tree.flatten(run.params)[0])
+    print(f"training: {run.cfg.name} at published widths, {run.cfg.n_layers} "
+          f"of 22 layers, bf16 compute, fp32 master weights, mesh "
+          f"{dict(zip(run.mesh.axes, run.mesh.shape))}, global batch "
+          f"{run.args.batch} x {run.args.seq} (one sequence a rank), "
+          f"{n_params} parameters a rank, set up in {setup_s:.1f} s")
+
+    steps, losses, norms = [], [], []
+
+    def one():
+        t = time.perf_counter()
+        m = run.train_step()
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t) * 1e3)
+
+    one()                                      # warm-up
+    fa.launches = tr.launches = 0
+    for _ in range(5):
+        one()
+    torch.cuda.synchronize()
+    launches = fa.launches
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(steps[1:])
+    print(f"training losses (warm-up, then steps 1-5): "
+          f"{[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(x, 3) for x in norms]}")
+    print(f"training step ms (median of 5, {card}): {step_ms:.1f} (runs "
+          f"{[round(t, 1) for t in steps[1:]]}; warm-up {steps[0]:.1f}); "
+          f"flash launches {launches} over 5 steps ({launches // 5} a step "
+          f"= 2 x {TRAIN_LAYERS} layers); tree_reduce_slots launches "
+          f"{tr.launches} ({tr.launches // 5} a step); peak device memory "
+          f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}")
+    check(all(map(math.isfinite, losses)), f"a loss is not finite: {losses}")
+    check(losses[5] < losses[1], f"step 5 loss {losses[5]} is not below "
+          f"step 1 loss {losses[1]}")
+    per_step = 2 * TRAIN_LAYERS
+    check(launches == 5 * per_step, f"flash launches {launches} over 5 "
+          f"steps, want {5 * per_step} (2 a layer a step)")
+
+    phase_profile(torch, run.train_step, card, "one training step")
+
+    # -- F3: one step's captured per-rank gradients, replayed ---------------
+    rs = Capture(coll, "reduce_scatter", keep=8, max_elems=1 << 30)
+    red_in = []
+    real_call = GradReducer.__call__
+
+    def spy(self, grads, state=None):
+        out = real_call(self, grads, state)
+        red_in.append(([g.clone() for g in grads],
+                       [o.clone() for o in out[0]]))
+        return out
+    with rs.patch(), mock.patch.object(GradReducer, "__call__", spy):
+        run.train_step()
+    torch.cuda.synchronize()
+    check(rs.calls > 0 and len(rs.seen) == min(8, rs.calls)
+          and len(red_in) == 1, "capture missed a call")
+    for a, kw, out in rs.seen:
+        check(same_bits(coll.reduce_scatter(*a, **kw), out),
+              "reduce-scatter replay != the step's")
+    grads, reduced = red_in[0]
+    with mock.patch.object(ops, "tree_reduce_slots",
+                           ops.tree_reduce_slots_plain):
+        before = tr.launches
+        plain, _ = run.step.reducer(grads)
+        check(tr.launches == before, "the plain fold launched the kernel")
+    wire, _ = GradReducer(FlareConfig(axes=run.mesh.reduce_axes,
+                                      algorithm="fixed_tree",
+                                      reproducible=True),
+                          run.step.mesh)(grads)
+    check(all(same_bits(a, b) for a, b in zip(reduced, plain)),
+          "the step's reduced gradients != the plain fold's")
+    check(all(same_bits(a, b) for a, b in zip(reduced, wire)),
+          "the step's reduced gradients != the wire fixed tree's")
+    print(f"F3 replay of one step's per-rank gradients: {len(rs.seen)} of "
+          f"its {rs.calls} FSDP reduce-scatters (shapes "
+          f"{[tuple(a[0].shape) for a, *_ in rs.seen]}) "
+          f"bitwise; the GradReducer's {len(grads)} replicated leaves "
+          f"({[tuple(g.shape) for g in grads]}) bitwise == the plain fold "
+          "== the wire fixed_tree")
+    del rs, red_in, grads, reduced, plain, wire, run
+    torch.cuda.empty_cache()
+
+    # -- the plain attention patched in, at COMPARE_LAYERS ------------------
+    def compare_step(plain):
+        r = launch.setup(TRAIN_FLAGS, n_layers=COMPARE_LAYERS,
+                         dtype=torch.bfloat16)
+        if not plain:
+            return r.train_step()
+        before = fa.launches
+        with mock.patch.object(fa, "attention_fwd",
+                               lambda q, k, v, **kw:
+                               ref.flash_attention_bshd(q, k, v, **kw)):
+            m = r.train_step()
+        check(fa.launches == before, "the plain step launched the kernel")
+        return m
+    km, pm = compare_step(False), compare_step(True)
+    torch.cuda.synchronize()
+    rel = {k: abs(float(km[k]) - float(pm[k])) / abs(float(pm[k]))
+           for k in ("loss", "grad_norm")}
+    check(all(v <= 2e-2 for v in rel.values()),
+          f"kernel step vs plain-attention step: {rel}")
+    print(f"kernel step vs plain-attention step at {COMPARE_LAYERS} layers: "
+          f"loss {float(km['loss']):.5f} vs {float(pm['loss']):.5f}, grad "
+          f"norm {float(km['grad_norm']):.5f} vs {float(pm['grad_norm']):.5f}"
+          f"; relative {rel['loss']:.2e} and {rel['grad_norm']:.2e} (bf16 "
+          "tolerance 2e-2)")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "peak": peak}
+
+
+def flash_figures(torch, fa, ref, card, err) -> dict:
+    """The flash kernel at the training path's shape: its time by CUDA
+    events, its bound, the plain version's time and SDPA's."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, s, h, kv, hd = 8, 4096, 32, 4, 64
+    q = torch.randn((b, s, h, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, s, kv, hd), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    kw = dict(causal=True, scale=hd ** -0.5, attn_cap=0.0, window=0)
+    k_ms = cuda_ms(lambda: fa.attention_fwd(q, k, v, **kw), 5)
+    p_ms = cuda_ms(lambda: ref.flash_attention_bshd(q, k, v, **kw), 2)
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(h // kv, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(h // kv, dim=2).transpose(1, 2)
+    l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 5)
+    flops = fa.flops(b, h, s, s, hd, causal=True)
+    nbytes = fa.bytes_moved(q, k, v)
+    bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    print(f"flash_attention q (8, 4096, 32, 64) k, v (8, 4096, 4, 64) bf16 "
+          f"causal: {k_ms:.3f} ms, {flops} flops ({flops / k_ms / 1e9:.1f} "
+          f"TFLOP/s), {nbytes} bytes; bound {bound:.3f} ms by operations "
+          f"({bound / k_ms:.1%} of the bound); plain {p_ms:.3f} ms; library "
+          f"scaled_dot_product_attention {l_ms:.3f} ms  [{card}]")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+            "library_ms": l_ms, "max_abs_err": err}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -615,7 +913,8 @@ def main() -> int:
     from repro_torch.core import arena as arena_mod, sparse
     from repro_torch.core.engine import FlareConfig, GradReducer
     from repro_torch.kernels import build as kb
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import quant as qt
     from repro_torch.kernels import sparse_accum as sa
     from repro_torch.kernels import topk_compact as tk
@@ -633,10 +932,11 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     total_mem = torch.cuda.get_device_properties(0).total_memory
 
-    phase_build(kb, [tr.SOURCE, qt.SOURCE, sa.SOURCE])
+    phase_build(kb, [tr.SOURCE, qt.SOURCE, sa.SOURCE, fa.SOURCE])
     phase_kernel_vs_plain(torch, ops)
     phase_quant_vs_plain(torch, ops, qt)
     phase_sparse_vs_plain(torch, ops, tk)
+    flash_path_err = phase_flash_vs_plain(torch, ops, ref)
 
     # -- the dense main path: (2, 4) mesh, full width -----------------------
     cfg = tl.CONFIG.scaled(n_layers=LAYERS)
@@ -1165,7 +1465,7 @@ def main() -> int:
     for frac, run in sparse_runs.items():
         launches["sparse_accum_slots"] += run["launches"][
             "sparse_accum_slots"]
-        for (i, v, size, *rest), kw in run["seen"]:
+        for (i, v, size, *rest), kw, _ in run["seen"]:
             srt = kw.get("indices_sorted", rest[0] if rest else False)
             got = sa.sparse_accum_slots(i, v, size, srt)
             want = ops.sparse_accum_slots_plain(i, v, size)
@@ -1225,22 +1525,32 @@ def main() -> int:
             "entries; library index_put_ accumulate into a zeroed buffer, "
             "-1 entries removed")
     del xs, xb, vs, gs, gi, gv, buf, ok
+    torch.cuda.empty_cache()
+
+    # -- the training step: the main path end to end ---------------------------
+    trained = phase_train(torch, card, total_mem, tr)
+    launches["flash_attention"] = trained["launches"]
+    figures["flash_attention"] = flash_figures(torch, fa, ref, card,
+                                               flash_path_err)
 
     print("kernel figures are per reduction: the sum over one reduction's "
           "launches (one step of the int8 path; for sparse_accum_slots one "
           "step at each sparse fraction); the flat forms and topk_compact "
-          "are one launch each")
+          "are one launch each; flash_attention is one launch at the "
+          "training path's shape, its launches those of 5 training steps")
     routes = [("tree_reduce_slots", "tree_reduce"),
               ("tree_reduce", "tree_reduce"), ("quantize", "quant"),
               ("dequantize", "quant"), ("dequant_accum_slots", "quant"),
               ("dequant_accum", "quant"), ("sparse_accum_slots", "sparse"),
-              ("sparse_accum", "sparse"), ("topk_compact", "sparse")]
+              ("sparse_accum", "sparse"), ("topk_compact", "sparse"),
+              ("flash_attention", "flash_attn")]
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=SOURCES[src],
         replaces=REPLACES[name], launches=launches[name],
         max_abs_err=figures[name]["max_abs_err"], ms=figures[name]["ms"],
         plain_ms=figures[name]["plain_ms"],
-        bound_ms=figures[name]["bound_ms"], bound_by="bytes",
+        bound_ms=figures[name]["bound_ms"],
+        bound_by="operations" if name == "flash_attention" else "bytes",
         library_ms=figures[name]["library_ms"]) for name, src in routes]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,44 @@
-"""Model configurations (``CONFIG`` at published widths, ``SMOKE`` small)."""
+"""Architecture configs (``--arch <id>``) the port has.
+
+The port of ``repro/configs/__init__.py`` for the configs whose model is
+ported: each module exports ``CONFIG`` (the published configuration),
+``SMOKE`` (a reduced same-family config for CPU smoke tests) and
+``SHAPES`` (its shape cells).  The other architectures wait for their
+models (ROADMAP queue 1 item 14).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+ARCHS = ["tinyllama_1_1b"]
+
+#: canonical ids → module names (the reference's, for the ported archs)
+ALIASES = {"tinyllama-1.1b": "tinyllama_1_1b"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One (shape) cell for an architecture."""
+
+    name: str            # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+TRAIN_4K = ShapeCell("train_4k", "train", 4096, 256)
+PREFILL_32K = ShapeCell("prefill_32k", "prefill", 32768, 32)
+DECODE_32K = ShapeCell("decode_32k", "decode", 32768, 128)
+
+FULL_ATTN_SHAPES = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+
+
+def load(arch: str):
+    """Return the config module for an arch id (canonical or module name)."""
+    name = ALIASES.get(arch, arch)
+    if name not in ARCHS:
+        raise NotImplementedError(
+            f"arch {arch!r} is not ported (have {ARCHS}): ROADMAP queue 1 "
+            "item 14")
+    return importlib.import_module(f"repro_torch.configs.{name}")

@@ -1,8 +1,10 @@
 """tinyllama-1.1b [arXiv:2401.02385; hf].
 
 22L, d_model=2048, 32 heads (hd=64, GQA kv=4), d_ff=5632, vocab 32000,
-untied head.  The same ``CONFIG`` and ``SMOKE`` as the JAX package's.
+untied head.  The same ``CONFIG``, ``SMOKE`` and ``SHAPES`` as the JAX
+package's.  Full attention → long_500k skipped.
 """
+from repro_torch.configs import FULL_ATTN_SHAPES
 from repro_torch.models.base import ModelConfig
 
 CONFIG = ModelConfig(
@@ -16,3 +18,5 @@ SMOKE = ModelConfig(
     n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
     d_ff=128, vocab=256,
 )
+
+SHAPES = FULL_ATTN_SHAPES

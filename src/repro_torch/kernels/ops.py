@@ -1,7 +1,8 @@
 """Public wrappers over the kernels: padding, accumulation type, dispatch.
 
 The port of ``repro/kernels/ops.py``: the fixed-tree fold, the int8
-quantization kernels, the sparse accumulate and the per-block top-k.  A
+quantization kernels, the sparse accumulate, the per-block top-k and
+flash attention.  A
 tensor on the CPU takes the plain PyTorch version (``ref``); a tensor on
 the card launches the CUDA kernel or raises — there is no fallback.
 """
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attn as _fa
 from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sparse_accum as _sa
@@ -331,3 +333,40 @@ def blockwise_sparsify(x: torch.Tensor, k: int, block: int = 512
                          device=x.device) * block).unsqueeze(1)
     gidx = torch.where((idx >= 0) & (vals != 0), idx + base, -1)
     return vals.reshape(-1), gidx.reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: the port of ``repro/kernels/flash_attn.py``'s
+# ``flash_attention``.  ``attention`` takes the model's ``(B, S, H, hd)``
+# layout with GQA; ``flash_attention`` keeps the TPU kernel's ``(BH, S,
+# hd)`` signature.  On the card both run the kernel under an autograd
+# Function whose backward is the plain chunked recompute.
+# ---------------------------------------------------------------------------
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, scale: float | None = None,
+              attn_cap: float = 0.0, window: int = 0) -> torch.Tensor:
+    """Attention of ``(B, Sq, H, hd)`` queries over ``(B, Sk, KV, hd)``
+    keys and values (``H % KV == 0``) → ``(B, Sq, H, hd)`` in ``q``'s
+    dtype, differentiable.  Scores are ``fl32(q)·scale · k`` in fp32,
+    capped by ``attn_cap``, ``-1e30`` where the causal mask or the window
+    hides a key."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return _ref.flash_attention_bshd(q, k, v, causal=causal, scale=scale,
+                                         attn_cap=attn_cap, window=window)[0]
+    return _fa.FlashAttention.apply(q, k, v, causal, scale, attn_cap, window)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    attn_cap: float = 0.0, window: int = 0) -> torch.Tensor:
+    """``(BH, S, hd)`` q, k, v (heads folded into the leading dim, GQA
+    broadcast by the caller) → ``(BH, S, hd)``: the TPU kernel's
+    signature.  Any ``S`` is taken: the kernel masks ragged tails."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"flash_attention wants (BH, S, hd), got "
+                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    return attention(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
+                     causal=causal, scale=scale, attn_cap=attn_cap,
+                     window=window).squeeze(2)

@@ -240,3 +240,150 @@ def topk_compact(xb: torch.Tensor, k: int, n_iter: int = 24
     vals[row[sel], pos[sel].long()] = value[sel]
     idxs[row[sel], pos[sel].long()] = col[sel]
     return vals.to(xb.dtype), idxs
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (online softmax over KV tiles, fp32 state).
+# ---------------------------------------------------------------------------
+
+#: the score of a masked (query, key) pair, as the TPU kernel writes it
+MASKED = -1e30
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+          window: int) -> torch.Tensor | None:
+    """Visible (query, key) pairs, ``(Sq, Sk)`` bool; None = all."""
+    if not causal:
+        return None
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    return mask
+
+
+def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, scale: float | None = None,
+                         attn_cap: float = 0.0, window: int = 0,
+                         kv_tile: int = 512
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the flash kernel: ``(o, lse)``.
+
+    ``q`` ``(B, Sq, H, hd)``, ``k``/``v`` ``(B, Sk, KV, vd)``, head ``h``
+    reading KV head ``h // (H / KV)``.  Like the TPU kernel it walks the
+    keys in tiles of ``kv_tile`` carrying fp32 ``(m, l, o)``: the scores
+    are ``fl32(q)·scale · k``, tanh-capped when ``attn_cap > 0``,
+    ``-1e30`` where masked; ``o / max(l, 1e-30)`` in ``q``'s dtype, and
+    ``lse = m + log(l)`` ``(B, H, Sq)`` fp32.  Memory is O(Sq · kv_tile)
+    a head, never O(Sq · Sk).  A ragged last tile is just shorter.
+    """
+    b, sq, h, hd = q.shape
+    sk, kv, vd = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // kv
+    scale = scale if scale is not None else hd ** -0.5
+    qf = (q.float() * scale).reshape(b, sq, kv, g, hd).permute(0, 2, 3, 1, 4)
+    m = torch.full((b, kv, g, sq), -torch.inf, device=q.device)
+    l = torch.zeros((b, kv, g, sq), device=q.device)
+    o = torch.zeros((b, kv, g, sq, vd), device=q.device)
+    q_pos = torch.arange(sq, device=q.device)
+    for t0 in range(0, sk, kv_tile):
+        kb = k[:, t0:t0 + kv_tile].float().permute(0, 2, 1, 3).unsqueeze(2)
+        vb = v[:, t0:t0 + kv_tile].float().permute(0, 2, 1, 3).unsqueeze(2)
+        s = qf @ kb.transpose(-1, -2)                        # (B,KV,G,Sq,T)
+        if attn_cap > 0:
+            s = torch.tanh(s / attn_cap) * attn_cap
+        mask = _mask(q_pos, torch.arange(t0, t0 + kb.shape[-2],
+                                         device=q.device), causal, window)
+        if mask is not None:
+            s = torch.where(mask, s, MASKED)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + p @ vb
+        m = m_new
+    out = o / torch.clamp(l[..., None], min=1e-30)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, vd).to(q.dtype)
+    return out, (m + torch.log(l)).reshape(b, h, sq)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    attn_cap: float = 0.0, window: int = 0,
+                    kv_tile: int = 512) -> torch.Tensor:
+    """The TPU kernel's signature: ``(BH, S, hd)`` q, k, v, heads folded
+    into the leading dim, GQA broadcast by the caller."""
+    o, _ = flash_attention_bshd(q.unsqueeze(2), k.unsqueeze(2),
+                                v.unsqueeze(2), causal=causal, scale=scale,
+                                attn_cap=attn_cap, window=window,
+                                kv_tile=kv_tile)
+    return o.squeeze(2)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool, scale: float, attn_cap: float,
+                        window: int, q_chunk: int = 512,
+                        max_elems: int = 1 << 26
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of :func:`flash_attention_bshd`'s output, in fp32.
+
+    Query rows are independent, so the probabilities are recomputed from
+    the forward's log-sum-exp for ``q_chunk`` rows (and as many batch
+    rows as keep a chunk's scores under ``max_elems``) at a time, against
+    the keys those rows can see; dK and dV accumulate in fp32.  The
+    softmax's own backward, ``ds = p·(dp − Σ p·dp)``, is taken over the
+    whole row, as the reference's autodiff of ``softmax`` does; masked
+    scores get no gradient.
+    """
+    b, sq, h, hd = q.shape
+    sk, kv, vd = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // kv
+    dq = torch.empty_like(q)
+    dk = torch.zeros((b, sk, kv, hd), device=q.device)
+    dv = torch.zeros((b, sk, kv, vd), device=q.device)
+    nb = max(1, max_elems // (h * min(q_chunk, sq) * sk))
+    for b0 in range(0, b, nb):
+        b1 = min(b, b0 + nb)
+        n = b1 - b0
+        for i0 in range(0, sq, q_chunk):
+            i1 = min(sq, i0 + q_chunk)
+            qn = i1 - i0
+            lo, hi = 0, sk
+            if causal and i1 - 1 < sk:     # every row sees its own key
+                hi = i1
+                if window > 0:
+                    lo = max(0, i0 - window + 1)
+            qc = (q[b0:b1, i0:i1].float() * scale).reshape(
+                n, qn, kv, g, hd).permute(0, 2, 3, 1, 4)     # (n,KV,G,qn,hd)
+            doc = do[b0:b1, i0:i1].float().reshape(
+                n, qn, kv, g, vd).permute(0, 2, 3, 1, 4)
+            kk = k[b0:b1, lo:hi].float().permute(0, 2, 1, 3).unsqueeze(2)
+            vv = v[b0:b1, lo:hi].float().permute(0, 2, 1, 3).unsqueeze(2)
+            s = qc @ kk.transpose(-1, -2)                    # (n,KV,G,qn,kn)
+            t = None
+            if attn_cap > 0:
+                t = torch.tanh(s.div_(attn_cap))
+                s = t * attn_cap
+            mask = _mask(torch.arange(i0, i1, device=q.device),
+                         torch.arange(lo, hi, device=q.device), causal,
+                         window)
+            if mask is not None:
+                s.masked_fill_(~mask, MASKED)
+            lse_c = lse[b0:b1, :, i0:i1].reshape(n, kv, g, qn, 1)
+            p = s.sub_(lse_c).exp_()
+            dv[b0:b1, lo:hi] += (p.transpose(-1, -2) @ doc).sum(2).permute(
+                0, 2, 1, 3)
+            dp = doc @ vv.transpose(-1, -2)
+            ds = dp.sub_((p * dp).sum(-1, keepdim=True)).mul_(p)
+            del p, s
+            if t is not None:
+                ds.mul_(t.mul_(t).neg_().add_(1.0))
+                del t
+            if mask is not None:
+                ds.masked_fill_(~mask, 0.0)
+            dq[b0:b1, i0:i1] = (ds @ kk).mul_(scale).permute(
+                0, 3, 1, 2, 4).reshape(n, qn, h, hd).to(q.dtype)
+            dk[b0:b1, lo:hi] += (ds.transpose(-1, -2) @ qc).sum(2).permute(
+                0, 2, 1, 3)
+            del ds, dp
+    return dq, dk.to(k.dtype), dv.to(v.dtype)

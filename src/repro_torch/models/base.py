@@ -1,15 +1,28 @@
-"""The shared model configuration (dataclass only).
+"""The shared model configuration and the layer library.
 
-The port of ``ModelConfig`` from ``repro/models/base.py``: one config
-covers every architecture the repo supports; the layer library comes
-with the model forward in a later slice (ROADMAP queue 1 item 6).
+The port of ``repro/models/base.py`` for the dense transformer's train
+forward: ``ModelConfig``, RMSNorm, RoPE, soft-capping, remat, attention
+(dense and chunked online-softmax on the CPU, the flash kernel on the
+card), the GQA block, SwiGLU and cross-entropy.
+
+Rank axes.  The port runs every emulated rank in one process, so a
+weight may carry the mesh's rank axes in front, ``(*R, *shape)``, with
+activations ``(*R, B, S, D)`` beside it.  The functions here take the
+number of rank axes from the weight (``w.dim()`` less its own rank) and
+run one product per rank (``mm``): a weight is never broadcast across
+another rank's rows, so autograd hands each rank its own gradient.  With
+no rank axes they are the reference's functions on one rank.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels import ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,3 +118,215 @@ class ModelConfig:
     def scaled(self, **overrides) -> "ModelConfig":
         """Reduced config for CPU smoke tests (same family/topology)."""
         return dataclasses.replace(self, **overrides)
+
+
+# ---------------------------------------------------------------------------
+# Products and normalization over rank axes.
+# ---------------------------------------------------------------------------
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` on every rank: ``w`` ``(*R, K, N)``, ``x`` ``(*R, ..., K)``
+    → ``(*R, ..., N)``, one batched product over ``R`` (never a broadcast
+    that lines ``R`` up with a batch dim)."""
+    r = w.dim() - 2
+    if r == 0:
+        return x @ w
+    lead = x.shape[:-1]
+    y = torch.matmul(x.reshape(*x.shape[:r], -1, x.shape[-1]), w)
+    return y.reshape(*lead, w.shape[-1])
+
+
+def _lift(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A ``(*R, D)`` weight shaped to broadcast against ``(*R, ..., D)``."""
+    return w.reshape(*w.shape[:-1], *([1] * (x.dim() - w.dim())),
+                     w.shape[-1])
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+    return (x * (1.0 + _lift(w, x).float())).to(dt)
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, H, hd); pos: (..., S) absolute positions."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)              # (hd/2,)
+    ang = pos[..., None].float() * freqs                 # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return torch.tanh(x / cap) * cap if cap > 0 else x
+
+
+def remat(cfg: ModelConfig, fn: Callable) -> Callable:
+    """Layer-boundary remat: ``full`` recomputes the layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant), keeping only its input."""
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported: only 'full' "
+            "is (ROADMAP queue 1 item 6)")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+# ---------------------------------------------------------------------------
+# Attention.
+# ---------------------------------------------------------------------------
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, q_pos: torch.Tensor | None = None,
+           kv_len: torch.Tensor | None = None, window: int = 0,
+           attn_cap: float = 0.0, scale: float | None = None,
+           chunk: int = 0) -> torch.Tensor:
+    """Scaled dot-product attention.
+
+    q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) with H % KV == 0.  On the CPU
+    it follows the reference's two branches exactly: dense softmax, or
+    with ``chunk > 0`` the online softmax over query and KV chunks.  On
+    the card both are the flash kernel (``ops.attention``), which
+    computes the same function; it scales ``fl32(q)`` where the dense
+    branch scales ``q`` in its own dtype (the same bits when ``scale`` is
+    a power of two, as ``hd ** -0.5`` is for hd 16, 64, 256).  Masked
+    decode (``kv_len``, ``q_pos``) is not on the card path.
+    """
+    if q.device.type != "cpu":
+        if kv_len is not None or q_pos is not None:
+            raise NotImplementedError(
+                "masked decode attention on the card is not ported: "
+                "ROADMAP queue 1 item 14 (serving)")
+        return ops.attention(q, k, v, causal=causal, scale=scale,
+                             attn_cap=attn_cap, window=window)
+    if chunk > 0 and q.shape[1] > 1 and k.shape[1] % chunk == 0 \
+            and kv_len is None:
+        return _attend_chunked(q, k, v, causal=causal, window=window,
+                               attn_cap=attn_cap, scale=scale, chunk=chunk)
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = scale if scale is not None else hd ** -0.5
+    qf = (q * scale).float().reshape(b, sq, kv, g, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    scores = softcap(scores, attn_cap)
+    kpos = torch.arange(sk, device=q.device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        qp = q_pos if q_pos is not None else torch.arange(sq, device=q.device)
+        mask &= kpos[None, :] <= qp[:, None]
+        if window > 0:
+            mask &= kpos[None, :] > qp[:, None] - window
+    if kv_len is not None:
+        mask &= kpos[None, :] < kv_len
+    scores = torch.where(mask, scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+def _attend_chunked(q, k, v, *, causal, window, attn_cap, scale, chunk):
+    """Online-softmax attention tiled over both queries and keys (the
+    flash-attention schedule), carrying a query-chunk-sized (m, l, o)."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    vd = v.shape[-1]
+    scale = scale if scale is not None else hd ** -0.5
+    nq = max(1, sq // chunk)
+    qc_len = sq // nq
+    nk = sk // chunk
+    qf = (q * scale).float().reshape(b, nq, qc_len, kv, g, hd)
+    outs = []
+    for qi in range(nq):
+        qb = qf[:, qi]                                    # (B,qc,KV,G,hd)
+        qpos = qi * qc_len + torch.arange(qc_len, device=q.device)
+        m = torch.full((b, kv, g, qc_len), -torch.inf, device=q.device)
+        l = torch.zeros((b, kv, g, qc_len), device=q.device)
+        o = torch.zeros((b, kv, g, qc_len, vd), device=q.device)
+        for ki in range(nk):
+            kb = k[:, ki * chunk:(ki + 1) * chunk].float()
+            vb = v[:, ki * chunk:(ki + 1) * chunk].float()
+            s = torch.einsum("bqkgd,bckd->bkgqc", qb, kb)
+            s = softcap(s, attn_cap)
+            kpos = ki * chunk + torch.arange(chunk, device=q.device)
+            mask = torch.ones((qc_len, chunk), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                mask &= kpos[None, :] <= qpos[:, None]
+                if window > 0:
+                    mask &= kpos[None, :] > qpos[:, None] - window
+            s = torch.where(mask, s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + torch.einsum("bkgqc,bckd->bkgqd",
+                                                    p, vb)
+            m = m_new
+        out = o / torch.clamp(l[..., None], min=1e-30)   # (B,KV,G,qc,vd)
+        outs.append(out.permute(0, 3, 1, 2, 4))           # (B,qc,KV,G,vd)
+    out = torch.stack(outs, 1).reshape(b, sq, h, vd)
+    return out.to(q.dtype)
+
+
+def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  pos_offset: int | torch.Tensor | None = None,
+                  cache: dict | None = None,
+                  kv_override: tuple | None = None) -> tuple:
+    """Full attention block: qkv proj + rope + attend + out proj.
+
+    ``x`` is ``(*R, B, S, D)`` with weights ``(*R, ...)``; returns
+    ``(out, (k, v))``.  The rank axes fold into attention's batch dim.
+    Decode caches and cross-attention are serving's (not ported).
+    """
+    if cache is not None or kv_override is not None:
+        raise NotImplementedError(
+            "KV caches and cross-attention are not ported: ROADMAP queue 1 "
+            "item 14 (serving, decode)")
+    *lead, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = mm(x, p["wq"]).reshape(*lead, s, h, hd)
+    kk = mm(x, p["wk"]).reshape(*lead, s, kv, hd)
+    vv = mm(x, p["wv"]).reshape(*lead, s, kv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        kk = rmsnorm(kk, p["k_norm"], cfg.norm_eps)
+    pos0 = pos_offset if pos_offset is not None else 0
+    pos = pos0 + torch.arange(s, device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    kk = apply_rope(kk, pos, cfg.rope_theta)
+    out = attend(q.reshape(-1, s, h, hd), kk.reshape(-1, s, kv, hd),
+                 vv.reshape(-1, s, kv, hd), causal=causal, window=window,
+                 attn_cap=cfg.attn_softcap, chunk=cfg.attn_chunk)
+    out = mm(out.reshape(*lead, s, h * hd), p["wo"])
+    return out, (kk, vv)
+
+
+# ---------------------------------------------------------------------------
+# Feed-forward and loss.
+# ---------------------------------------------------------------------------
+
+def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return mm(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]), p["w_down"])
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  logit_cap: float = 0.0, rank_dims: int = 0
+                  ) -> torch.Tensor:
+    """Mean token cross-entropy, one value per rank (the leading
+    ``rank_dims`` axes are kept)."""
+    logits = softcap(logits.float(), logit_cap)
+    lp = torch.log_softmax(logits, dim=-1)
+    ll = torch.take_along_dim(lp, labels.long()[..., None], dim=-1)[..., 0]
+    return -ll.mean(dim=tuple(range(rank_dims, ll.dim())))

@@ -1,19 +1,36 @@
-"""Parameter tree of the dense decoder-only transformer (Llama family).
+"""The dense decoder-only transformer (Llama family): parameters and the
+train-mode forward.
 
-The port of ``init_params`` from ``repro/models/transformer.py`` for the
-dense GQA variant (tinyllama-1.1b, granite-20b): the same dict of
+The port of ``repro/models/transformer.py`` for the dense GQA variant
+(tinyllama-1.1b, granite-20b).  ``init_params`` builds the same dict of
 leaves, per-layer weights stacked on a leading ``L`` axis, so a gradient
 pytree of this shape flattens to the JAX package's leaves in the same
 order.  Weights are random from a ``torch.Generator``; they will not
 equal the JAX package's ``jax.random`` draws (use ``convert`` to carry
-those across).  The forward pass and the other variants come later
-(ROADMAP queue 1 items 6 and 14).
+those across).
+
+``loss_fn`` is the train forward: embed → ``run_stack`` (a Python loop
+over the layers, each under ``base.remat``, the FSDP ``gather`` applied
+inside it so the backward re-gathers) → final norm → sequence-chunked
+cross-entropy.  Parameters may carry the mesh's rank axes in front
+(``(*R, ...)``, with the stacked ``L`` axis after them) and the batch
+``(*R, B, S)``; the loss then has one value per rank.  ``params["layers"]``
+may also be a list of per-layer dicts (how the trainer hands autograd
+one leaf per layer).  Prefill, decode and the other variants are
+serving's and the other families' (ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
+import math
+from typing import Callable
+
 import torch
 
+from repro_torch import tree
+from repro_torch.models import base
 from repro_torch.models.base import ModelConfig
+
+Gather = Callable | None
 
 
 def dense_init(gen: torch.Generator, shape: tuple[int, ...],
@@ -62,3 +79,126 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
                                        cfg.d_model ** -0.5)
     params["layers"] = _layers(cfg, gen)
     return params
+
+
+# ---------------------------------------------------------------------------
+# Layer application and the train-mode stack.
+# ---------------------------------------------------------------------------
+
+def _check_dense(cfg: ModelConfig) -> None:
+    if (cfg.is_moe or cfg.mla_kv_lora or cfg.cross_attn_every
+            or cfg.local_global or cfg.post_norms or cfg.family != "dense"):
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense GQA transformer's forward is "
+            "ported; the other variants are ROADMAP queue 1 item 14")
+
+
+def _g(gather: Gather, lp: dict) -> dict:
+    return gather(lp) if gather is not None else lp
+
+
+def _rank_dims(params: dict) -> int:
+    return params["final_norm"].dim() - 1
+
+
+def _self_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
+                window: int = 0) -> torch.Tensor:
+    h = base.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    attn_out, _ = base.gqa_attention(cfg, lp["attn"], h, window=window)
+    x = x + attn_out
+    h = base.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    return x + base.swiglu(lp["ffn"], h)
+
+
+def _layer_slices(stack, rank_dims: int) -> list:
+    """Per-layer dicts of a stacked tree (a list is taken as it is)."""
+    if isinstance(stack, list):
+        return stack
+    n = tree.flatten(stack)[0][0].shape[rank_dims]
+    return [tree.map_leaves(lambda t, i=i: t.select(rank_dims, i), stack)
+            for i in range(n)]
+
+
+def run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
+              mode: str = "train", gather: Gather = None):
+    """All layers in train mode → ``(x, None)``; each layer (its FSDP
+    gather included) is recomputed in the backward."""
+    if mode != "train":
+        raise NotImplementedError(
+            f"run_stack(mode={mode!r}): prefill and decode are serving's, "
+            "ROADMAP queue 1 item 14")
+    _check_dense(cfg)
+
+    def body(x, lp):
+        return _self_layer(cfg, _g(gather, lp), x)
+
+    body = base.remat(cfg, body)
+    for lp in _layer_slices(params["layers"], _rank_dims(params)):
+        x = body(x, lp)
+    return x, None
+
+
+# ---------------------------------------------------------------------------
+# Public entry points.
+# ---------------------------------------------------------------------------
+
+def _take_rows(table: torch.Tensor, tokens: torch.Tensor,
+               rank_dims: int) -> torch.Tensor:
+    """``table[tokens]`` on every rank: ``(*R, V, D)`` and ``(*R, ...)``."""
+    if rank_dims == 0:
+        return table[tokens.long()]
+    p = math.prod(table.shape[:rank_dims])
+    t = table.reshape(p, *table.shape[rank_dims:])
+    idx = tokens.reshape(p, -1).long()
+    rows = torch.arange(p, device=table.device)[:, None]
+    return t[rows, idx].reshape(*tokens.shape, table.shape[-1])
+
+
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+           gather: Gather):
+    emb = params["embed"]
+    if gather is not None:
+        emb = gather({"embed": emb})["embed"]
+    x = _take_rows(emb.to(cfg.dtype), tokens, _rank_dims(params))
+    return x, emb
+
+
+def _head(cfg: ModelConfig, params: dict, emb: torch.Tensor,
+          gather: Gather) -> torch.Tensor:
+    if "lm_head" in params:
+        head = params["lm_head"]
+        if gather is not None:
+            head = gather({"lm_head": head})["lm_head"]
+        return head.to(cfg.dtype)
+    return emb.transpose(-1, -2).to(cfg.dtype)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
+            gather: Gather = None, loss_chunk: int = 2048) -> torch.Tensor:
+    """Mean next-token cross-entropy, one value per rank."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    x, emb = _embed(cfg, params, tokens, gather)
+    x, _ = run_stack(cfg, params, x, mode="train", gather=gather)
+    x = base.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = _head(cfg, params, emb, gather)
+    return chunked_ce(cfg, x, head, labels, loss_chunk,
+                      rank_dims=_rank_dims(params))
+
+
+def chunked_ce(cfg: ModelConfig, x: torch.Tensor, head: torch.Tensor,
+               labels: torch.Tensor, chunk: int, rank_dims: int = 0
+               ) -> torch.Tensor:
+    """Sequence-chunked cross-entropy: no ``(B, S, V)`` logits at once."""
+    s = x.shape[-2]
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s
+    nc = s // chunk
+    tot = torch.zeros(x.shape[:rank_dims], device=x.device)
+    for c in range(nc):
+        xx = x[..., c * chunk:(c + 1) * chunk, :]
+        ll = labels[..., c * chunk:(c + 1) * chunk]
+        logits = base.mm(xx, head)
+        tot = tot + base.cross_entropy(logits, ll, cfg.logit_softcap,
+                                       rank_dims) * (1.0 / nc)
+    return tot

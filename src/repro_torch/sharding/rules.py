@@ -1,0 +1,255 @@
+"""Single source of truth for how every tensor is partitioned.
+
+The port of ``repro/sharding/rules.py`` for the FSDP half.  Strategy:
+
+  * **FSDP/ZeRO over ``data``**: every ≥64 Ki-element matrix is sharded
+    on one dim, gathered per layer through ``core.fsdp.gather_params``
+    (whose backward is the Flare gradient reduce-scatter).  Parameters
+    are replicated across ``pod``.
+  * small tensors (norms) replicate; their gradients go through the
+    ``GradReducer`` engine.
+  * tensor parallelism over ``model`` is not ported (ROADMAP queue 1
+    item 16): ``decide`` still reports the TP dim the reference would
+    use, so the FSDP decisions are the reference's, but nothing shards
+    over ``model``.
+
+There are no ``PartitionSpec``s: on the rank-axis layout a rank-local
+leaf ``x`` is a tensor ``(*mesh, *x.shape)`` (``shard_params``), and a
+batch row block is a rank's (``split_batch``), exactly where a
+``NamedSharding`` would place them.  ``cache_specs`` waits for serving.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from repro_torch import tree
+from repro_torch.core import fsdp as fsdp_mod
+from repro_torch.mesh import RankMesh
+
+#: leading-axis-stacked parameter collections (per-layer stacks)
+STACKED_ROOTS = frozenset({
+    "layers", "local_layers", "global_layers", "cross_layers",
+    "dense_layers", "enc_layers", "dec_layers",
+})
+
+MIN_FSDP_SIZE = 1 << 16
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshCfg:
+    """Logical mesh: ('pod',)? + 'data' + 'model'."""
+
+    axes: tuple[str, ...]
+    shape: tuple[int, ...]
+
+    @property
+    def tp(self) -> int:
+        return self.shape[self.axes.index("model")]
+
+    @property
+    def fsdp(self) -> int:
+        return self.shape[self.axes.index("data")]
+
+    @property
+    def reduce_axes(self) -> tuple[str, ...]:
+        """Gradient-reduction axes, outer→inner: ('pod','data') or ('data',)."""
+        return tuple(a for a in self.axes if a != "model")
+
+    @property
+    def world(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def data_world(self) -> int:
+        return math.prod(s for a, s in zip(self.axes, self.shape)
+                         if a != "model")
+
+    def rank_mesh(self) -> RankMesh:
+        """The reduction axes as the port's rank mesh."""
+        return RankMesh(tuple(s for a, s in zip(self.axes, self.shape)
+                              if a != "model"), self.reduce_axes)
+
+
+#: leaf name → (tp_dim, fsdp_dim) for 2D weights
+_RULES_2D = {
+    "wq": (1, 0), "wk": (1, 0), "wv": (1, 0), "wo": (0, 1),
+    "w_gate": (1, 0), "w_up": (1, 0), "w_down": (0, 1),
+    "w_dkv": (1, 0), "w_kr": (None, 0), "w_ukv": (1, 0),
+    "wz": (1, 0), "wx": (1, 0), "wb": (None, 0), "wc": (None, 0),
+    "wdt": (None, 0), "out_proj": (0, 1),
+    "router": (None, 0),
+    "embed": (0, 1), "lm_head": (1, 0),
+    "dec_pos": (None, 0), "enc_pos": (None, 0),
+    "conv_xw": (1, None), "conv_bw": (None, None), "conv_cw": (None, None),
+}
+
+
+def decide(name: str, shape: tuple[int, ...], *, tp: int, fsdp: int,
+           local_shard: bool = False) -> tuple[int | None, int | None]:
+    """(tp_dim, fsdp_dim) for one *sliced* (no stack axis) leaf.
+
+    ``local_shard=True`` means ``shape`` is the per-rank FSDP shard: the
+    size threshold scales by ``fsdp`` and divisibility was already
+    established on the global shape.
+    """
+    if len(shape) >= 3 and name in ("w_gate", "w_up", "w_down"):
+        tp_dim, fsdp_dim = 0, 1        # expert-parallel MoE weights
+    elif len(shape) < 2:
+        return None, None
+    elif name in _RULES_2D:
+        tp_dim, fsdp_dim = _RULES_2D[name]
+    else:
+        tp_dim, fsdp_dim = None, (0 if len(shape) >= 2 else None)
+
+    if tp_dim is not None and shape[tp_dim] % tp:
+        tp_dim = None
+    size = math.prod(shape) * (fsdp if local_shard else 1)
+    if fsdp_dim is not None and (size < MIN_FSDP_SIZE
+                                 or (not local_shard
+                                     and shape[fsdp_dim] % fsdp)
+                                 or fsdp_dim == tp_dim):
+        fsdp_dim = None
+    return tp_dim, fsdp_dim
+
+
+def _leaf_name(path: tuple) -> tuple[str, bool]:
+    """(leaf rule name, stacked?) from a tree path (dict keys only)."""
+    keys = [k for k in path if isinstance(k, str)]
+    stacked = bool(keys) and keys[0] in STACKED_ROOTS
+    return (keys[-1] if keys else ""), stacked
+
+
+def _fsdp_dim(path: tuple, shape, mesh: MeshCfg) -> int | None:
+    name, stacked = _leaf_name(path)
+    sliced = tuple(shape[1:] if stacked else shape)
+    return decide(name, sliced, tp=mesh.tp, fsdp=mesh.fsdp)[1]
+
+
+def param_specs(params_tree: Any, mesh: MeshCfg) -> Any:
+    """The FSDP dim of every leaf of a global params tree (of the sliced
+    leaf, no stack axis; -1 for a replicated leaf)."""
+    def f(path, leaf):
+        d = _fsdp_dim(path, leaf.shape, mesh)
+        return -1 if d is None else d
+    return tree.map_with_path(f, params_tree)
+
+
+#: leaves that must stay fp32 through the compute path
+KEEP_F32 = frozenset({"A_log", "D", "dt_bias", "router"})
+
+
+def cast_params(params_tree: Any, dtype: torch.dtype) -> Any:
+    """Cast float leaves to the compute dtype (KEEP_F32 names exempt)."""
+    def f(path, leaf):
+        name, _ = _leaf_name(path)
+        if name in KEEP_F32 or not leaf.dtype.is_floating_point:
+            return leaf
+        return leaf.to(dtype)
+    return tree.map_with_path(f, params_tree)
+
+
+def make_gather(mesh: MeshCfg, algorithm: str, params_tree: Any,
+                compute_dtype: torch.dtype | None = None):
+    """FSDP gather closure passed to models (applied to sliced layer dicts
+    whose leaves carry the rank axes in front).
+
+    For each leaf the rules mark FSDP, all-gather it over ``data`` via
+    ``core.fsdp.gather_params``, whose backward reduce-scatters the
+    gradient over ``data`` and all-reduces it over ``pod``: the paper's
+    reduction tree, per layer.  Decisions come from the *global* params
+    tree, keyed by (leaf name, local shard shape).  ``compute_dtype``:
+    float leaves are cast before the gather, so the gather and the
+    reduce-scatter move the compute dtype and only the optimizer sees
+    fp32 (KEEP_F32 leaves exempt).
+    """
+    rmesh = mesh.rank_mesh()
+    axes = mesh.reduce_axes
+    nd = rmesh.ndim
+    lookup: dict[tuple[str, tuple[int, ...]], int] = {}
+
+    def record(path, leaf):
+        name, stacked = _leaf_name(path)
+        sliced = tuple(leaf.shape[1:] if stacked else leaf.shape)
+        _, fsdp_dim = decide(name, sliced, tp=mesh.tp, fsdp=mesh.fsdp)
+        local = list(sliced)
+        if fsdp_dim is not None:
+            local[fsdp_dim] //= mesh.fsdp
+        key = (name, tuple(local))
+        val = -1 if fsdp_dim is None else fsdp_dim
+        if lookup.get(key, val) != val:
+            raise ValueError(f"ambiguous FSDP decision for {key}")
+        lookup[key] = val
+        return leaf
+    tree.map_with_path(record, params_tree)
+
+    def gather(layer_tree):
+        def f(path, leaf):
+            name, _ = _leaf_name(path)
+            if (compute_dtype is not None and name not in KEEP_F32
+                    and leaf.dtype.is_floating_point):
+                leaf = leaf.to(compute_dtype)
+            fsdp_dim = lookup.get((name, tuple(leaf.shape[nd:])), -1)
+            if fsdp_dim < 0:
+                return leaf
+            return fsdp_mod.gather_params(leaf, rmesh, axes, algorithm,
+                                          fsdp_dim)
+        return tree.map_with_path(f, layer_tree)
+    return gather
+
+
+def shard_fsdp_leaves(params: Any, mesh: MeshCfg) -> Any:
+    """What each rank's params look like: ``meta`` tensors with the
+    shapes divided on their FSDP dims (no allocation)."""
+    def f(path, leaf):
+        _, stacked = _leaf_name(path)
+        d = _fsdp_dim(path, leaf.shape, mesh)
+        shape = list(leaf.shape)
+        if d is not None:
+            shape[d + (1 if stacked else 0)] //= mesh.fsdp
+        return torch.empty(shape, dtype=leaf.dtype, device="meta")
+    return tree.map_with_path(f, params)
+
+
+def shard_params(params: Any, mesh: MeshCfg) -> Any:
+    """Global leaves → every rank's own copy, ``(*mesh, *local)``: data
+    rank ``d`` holds block ``d`` of each FSDP dim, every pod the same;
+    replicated leaves are copied to every rank."""
+    rmesh = mesh.rank_mesh()
+
+    def f(path, leaf):
+        _, stacked = _leaf_name(path)
+        d = _fsdp_dim(path, leaf.shape, mesh)
+        if d is None:
+            per_data = leaf.unsqueeze(0).expand(mesh.fsdp, *leaf.shape)
+        else:
+            per_data = torch.stack(leaf.chunk(mesh.fsdp,
+                                              dim=d + (1 if stacked else 0)))
+        outer = rmesh.shape[:-1]
+        return per_data.expand(*outer, *per_data.shape).contiguous()
+    return tree.map_with_path(f, params)
+
+
+def split_batch(batch: Any, mesh: MeshCfg) -> Any:
+    """Each rank's rows of a global batch, ``(*mesh, rows, ...)``, as the
+    reference's ``batch_spec`` places them: rank ``r`` of the flattened
+    (pod, data) axes gets rows ``r·B/P … (r+1)·B/P``; a batch that only
+    divides by ``data`` is split over it and shared by the pods; one
+    that divides by neither goes whole to every rank."""
+    rmesh = mesh.rank_mesh()
+    dworld = mesh.data_world
+
+    def f(leaf):
+        if leaf.dim() == 0:
+            return leaf.expand(rmesh.shape)
+        b, rest = leaf.shape[0], tuple(leaf.shape[1:])
+        if b % dworld == 0:
+            return leaf.reshape(*rmesh.shape, b // dworld, *rest)
+        if b % mesh.fsdp == 0:
+            per = leaf.reshape(mesh.fsdp, b // mesh.fsdp, *rest)
+            return per.expand(*rmesh.shape[:-1], *per.shape)
+        return leaf.expand(*rmesh.shape, *leaf.shape)
+    return tree.map_leaves(f, batch)

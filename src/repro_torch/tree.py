@@ -51,3 +51,29 @@ def unflatten(spec: Any, leaves: list) -> Any:
 def map_leaves(fn: Callable, tree: Any) -> Any:
     leaves, spec = flatten(tree)
     return unflatten(spec, [fn(l) for l in leaves])
+
+
+def _walk_paths(t: Any, path: tuple, out: list) -> None:
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _walk_paths(t[k], path + (k,), out)
+    elif isinstance(t, (list, tuple)):
+        for i, v in enumerate(t):
+            _walk_paths(v, path + (i,), out)
+    elif t is not None:
+        out.append(path)
+
+
+def paths(tree: Any) -> list[tuple]:
+    """Each leaf's path of dict keys and sequence indices, in
+    :func:`flatten`'s order."""
+    out: list = []
+    _walk_paths(tree, (), out)
+    return out
+
+
+def map_with_path(fn: Callable, tree: Any) -> Any:
+    """``fn(path, leaf)`` over every leaf (``jax.tree_util.
+    tree_map_with_path``), paths as :func:`paths` gives them."""
+    leaves, spec = flatten(tree)
+    return unflatten(spec, [fn(p, l) for p, l in zip(paths(tree), leaves)])

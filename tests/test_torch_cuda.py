@@ -1,7 +1,8 @@
 """The port on the card: the CUDA kernels against their plain versions,
-and the whole reduction on the GPU against the same reduction on the CPU
+the whole reduction on the GPU against the same reduction on the CPU
 (the reproducible dense path, the int8 path and the sparse path, the
-last two with their state).
+last two with their state), and the train step on the GPU against the
+same step on the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so it runs where only PyTorch is installed:
@@ -13,6 +14,11 @@ order and rounds the same way.  Two exceptions, both stated where they
 apply: NaN payloads are not compared, and ``sparse_accum_slots`` on
 unsorted lists adds three or more duplicates of an index in the
 hardware's order (``rtol = atol = 1e-5``, the reference's own tolerance).
+The flash attention kernel sums in another order than its plain version:
+fp32 outputs are held at ``atol = 3e-5`` (the reference's own tolerance
+for it), bf16 outputs to one bf16 ulp of the plain version computed from
+the same bf16 inputs, plus the fp32 sums' rounding floor where an output
+nearly cancels.
 """
 import pytest
 import torch
@@ -20,7 +26,9 @@ import torch
 from repro_torch import tree
 from repro_torch.configs import tinyllama_1_1b as tl
 from repro_torch.core.engine import FlareConfig, GradReducer
+from repro_torch.kernels import flash_attn as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref
 from repro_torch.kernels import quant as qt
 from repro_torch.kernels import sparse_accum as sa
 from repro_torch.kernels import topk_compact as tk
@@ -289,3 +297,143 @@ def test_sparse_grad_reducer_on_cuda_matches_cpu(cuda, mshape, frac):
     for got, want in ((r1, w1), (r2, w2), (st, wst)):
         for g, w in zip(tree.flatten(got)[0], tree.flatten(want)[0]):
             assert _same_bits(g.contiguous(), w.contiguous())
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each value (8 significant bits)."""
+    _, e = torch.frexp(x.float().abs().clamp_min(1e-30))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def _assert_flash_close(got, want, v):
+    """fp32: 3e-5.  bf16: one bf16 ulp of the plain output plus the fp32
+    sums' rounding floor, 2^-17 · max|v| (both sum in fp32, in different
+    orders; where an output nearly cancels, that rounding exceeds a bf16
+    ulp of the tiny result)."""
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        assert float(diff.max()) <= 3e-5
+    else:
+        floor = 2.0**-17 * float(v.float().abs().max())
+        assert float((diff - _bf16_ulp(want)).max()) <= floor
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain_on_cuda(cuda, dtype):
+    """Causal and not, cap 0 and 30, window 0 and 64, GQA 1 and 4, head
+    dims 16 and 64, ragged Sq and Sk (not multiples of the tiles)."""
+    dt = getattr(torch, dtype)
+    cases = 0
+    for hd in (16, 64):
+        for h, kv in ((4, 4), (4, 1)):
+            for sq, sk, causal in ((200, 200, True), (100, 300, False),
+                                   (77, 77, True)):
+                for cap, win in ((0.0, 0), (30.0, 64)):
+                    q = torch.randn((2, sq, h, hd), generator=cuda,
+                                    device="cuda").to(dt)
+                    k, v = (torch.randn((2, sk, kv, hd), generator=cuda,
+                                        device="cuda").to(dt)
+                            for _ in range(2))
+                    w = win if causal else 0
+                    got = ops.attention(q, k, v, causal=causal,
+                                        attn_cap=cap, window=w)
+                    want, _ = ref.flash_attention_bshd(
+                        q, k, v, causal=causal, attn_cap=cap, window=w,
+                        scale=hd ** -0.5)
+                    torch.cuda.synchronize()
+                    _assert_flash_close(got, want, v)
+                    cases += 1
+    assert cases == 24
+
+
+@pytest.mark.cuda
+def test_flash_kernel_lse_and_public_signature_on_cuda(cuda):
+    q, k, v = (torch.randn((6, 300, 64), generator=cuda, device="cuda")
+               for _ in range(3))
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, causal=True, attn_cap=30.0,
+                              window=100)
+    assert fa.launches == before + 1
+    want = ref.flash_attention(q, k, v, causal=True, attn_cap=30.0,
+                               window=100)
+    assert float((got - want).abs().max()) <= 3e-5
+    o, lse = fa.attention_fwd(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
+                              causal=True, scale=0.125, attn_cap=30.0,
+                              window=100)
+    _, plse = ref.flash_attention_bshd(q.unsqueeze(2), k.unsqueeze(2),
+                                       v.unsqueeze(2), causal=True,
+                                       scale=0.125, attn_cap=30.0,
+                                       window=100)
+    assert fa.launches == before + 2
+    assert float((lse - plse).abs().max()) <= 3e-5
+
+
+@pytest.mark.cuda
+def test_flash_function_gradient_matches_plain_autograd_on_cuda(cuda):
+    """The kernel's autograd Function (plain chunked backward) against
+    autograd through the plain forward, fp32, GQA 4/2."""
+    for causal, cap, win in ((True, 0.0, 0), (True, 30.0, 50),
+                             (False, 0.0, 0)):
+        q = torch.randn((2, 300, 4, 64), generator=cuda, device="cuda")
+        k, v = (torch.randn((2, 300, 2, 64), generator=cuda, device="cuda")
+                for _ in range(2))
+        do = torch.randn((2, 300, 4, 64), generator=cuda, device="cuda")
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = ops.attention(*ins, causal=causal, attn_cap=cap, window=win)
+        got = torch.autograd.grad(out, ins, do)
+        pins = [t.clone().requires_grad_() for t in (q, k, v)]
+        pout, _ = ref.flash_attention_bshd(*pins, causal=causal,
+                                           attn_cap=cap, window=win)
+        want = torch.autograd.grad(pout, pins, do)
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= 1e-4
+
+
+def test_flash_kernel_wrapper_refuses_what_it_does_not_take():
+    """Checked before anything is built, so this runs without a card."""
+    q = torch.zeros((1, 8, 2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.attention_fwd(q, q, q, causal=True, scale=0.125, attn_cap=0.0,
+                         window=0)
+
+
+@pytest.mark.cuda
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """Two steps of the Flare train step (innetwork, reproducible, the
+    (2, 4) mesh, a widened SMOKE model in fp32) on the card and on the
+    CPU: the card launches the flash kernel twice a layer a step (the
+    forward and its recompute) and gives the same losses within fp32
+    summation-order noise."""
+    from repro_torch.data import pipeline
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding import rules
+    from repro_torch.train import trainer
+
+    cfg = tl.SMOKE.scaled(dtype=torch.float32, d_model=256, n_heads=4,
+                          n_kv_heads=2, head_dim=64, d_ff=512, vocab=512)
+    mcfg = rules.MeshCfg(("pod", "data", "model"), (2, 4, 1))
+    tcfg = trainer.TrainConfig(lr=1e-3, gather_algorithm="fixed_tree",
+                               flare=FlareConfig(axes=AXES,
+                                                 transport="innetwork",
+                                                 reproducible=True))
+    model = get_model(cfg)
+    full = model.init(torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        f = tree.map_leaves(lambda t: t.to(dev), full)
+        step = trainer.make_train_step(model, mcfg, tcfg, f)
+        params = rules.shard_params(f, mcfg)
+        opt = step.init_opt_state(params)
+        stream = pipeline.synthetic_batches(cfg, 8, 64, seed=1, device=dev)
+        fa.launches = 0
+        losses = []
+        for _ in range(2):
+            params, opt, m = step(params, opt,
+                                  rules.split_batch(next(stream), mcfg))
+            losses.append(float(m["loss"]))
+        runs[dev] = (losses, fa.launches)
+    assert runs["cuda"][1] == 2 * 2 * cfg.n_layers
+    assert runs["cpu"][1] == 0
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        assert abs(a - b) <= 1e-4 * abs(b)

@@ -1,0 +1,518 @@
+"""The port's training path against the JAX package's.
+
+The same seeded numpy inputs go through the JAX function (under nested
+``jax.vmap`` over ``("pod", "data")`` where it runs per rank, Pallas in
+interpret mode) and through its port on the rank-axis layout:
+
+* the flash kernel's plain version, ``attend`` in both branches and the
+  layer library, at the reference's own tolerances (fp32);
+* the rhd collectives, the FSDP reduce-scatter / all-gather pair and
+  ``fsdp.gather_params`` forward and backward: bitwise, f32 and bf16;
+* the sharding rules and the data stream (bitwise), the loss and its
+  gradients, two full train steps (``transport="innetwork",
+  reproducible=True`` on the ``(2, 4)`` mesh, gather ``fixed_tree``),
+  three in bf16 compute, and, fed the reference's own per-rank
+  gradients, the reduced gradients: bitwise;
+* the launcher on the CPU, and the port's sources, which import no JAX.
+
+The train tests use TinyLlama's SMOKE config widened (d_model 256, 4
+heads / 2 kv heads × 64, d_ff 512, vocab 512, 2 layers, fp32), so that
+``wq``, ``wo``, the FFN, ``embed`` and ``lm_head`` are FSDP-sharded over
+``data`` (``rules.MIN_FSDP_SIZE`` is 64 Ki elements) while ``wk``, ``wv``
+and the norms are not.
+"""
+import functools
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import tinyllama_1_1b as jtl
+from repro.core import collectives as jcoll
+from repro.core import engine as jengine
+from repro.core import fsdp as jfsdp
+from repro.data import pipeline as jpipeline
+from repro.kernels.flash_attn import flash_attention as jflash
+from repro.models import base as jbase
+from repro.models import registry as jregistry
+from repro.sharding import rules as jrules
+from repro.train import trainer as jtrainer
+from repro_torch import tree
+from repro_torch.configs import tinyllama_1_1b as tl
+from repro_torch.convert import params_from_jax, tensor_from_numpy
+from repro_torch.core import collectives as coll
+from repro_torch.core import fsdp
+from repro_torch.core.engine import FlareConfig
+from repro_torch.data import pipeline
+from repro_torch.kernels import ops, ref
+from repro_torch.launch import train as launch_train
+from repro_torch.mesh import RankMesh
+from repro_torch.models import base
+from repro_torch.models.registry import get_model
+from repro_torch.sharding import rules
+from repro_torch.train import trainer
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+AXES = ("pod", "data")
+_INT = {1: np.int8, 2: np.int16, 4: np.int32}
+WIDE = dict(d_model=256, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512,
+            vocab=512, n_layers=2)
+JCFG = jtl.SMOKE.scaled(dtype=jnp.float32, **WIDE)
+CFG = tl.SMOKE.scaled(dtype=torch.float32, **WIDE)
+
+
+def _bits(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().contiguous()
+        return a.view({1: torch.int8, 2: torch.int16,
+                       4: torch.int32}[a.element_size()]).numpy()
+    a = np.asarray(a)
+    return a.view(_INT[a.dtype.itemsize])
+
+
+def _nested(f):
+    return jax.jit(jax.vmap(jax.vmap(f, axis_name="data"), axis_name="pod"))
+
+
+def _rand(rng, shape, dtype=np.float32):
+    x = rng.normal(size=shape).astype(np.float32)
+    return np.asarray(jnp.asarray(x, jnp.bfloat16)) if dtype == "bf16" else x
+
+
+# ---------------------------------------------------------------------------
+# The kernel's plain version, attention, the layer library.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("cap,win", [(0.0, 0), (30.0, 64)])
+def test_flash_plain_matches_pallas_interpret(causal, cap, win):
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.normal(size=(4, 256, 64)).astype(np.float32)
+               for _ in range(3))
+    win = win if causal else 0
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  causal=causal, attn_cap=cap, window=win, q_tile=128,
+                  kv_tile=128, interpret=True)
+    got = ref.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal,
+                              attn_cap=cap, window=win, kv_tile=128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
+    # on the CPU the public wrapper is the plain version
+    assert torch.equal(ops.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, attn_cap=cap, window=win),
+        ref.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), causal=causal,
+                            attn_cap=cap, window=win))
+
+
+@pytest.mark.parametrize("chunk", [0, 64])
+@pytest.mark.parametrize("causal,cap,win", [(True, 0.0, 0), (True, 30.0, 48),
+                                            (False, 0.0, 0)])
+def test_attend_matches_jax(chunk, causal, cap, win):
+    rng = np.random.default_rng(1)
+    q = rng.normal(size=(2, 128, 4, 16)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 128, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    want = jbase.attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        causal=causal, attn_cap=cap, window=win, chunk=chunk)
+    got = base.attend(torch.from_numpy(q), torch.from_numpy(k),
+                      torch.from_numpy(v), causal=causal, attn_cap=cap,
+                      window=win, chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
+    # the flash schedule computes the same function
+    flash = ops.attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=causal, attn_cap=cap,
+                          window=win)
+    np.testing.assert_allclose(flash.numpy(), np.asarray(want), atol=3e-5)
+
+
+def test_flash_backward_matches_autograd_of_plain():
+    """The autograd Function's backward (plain, chunked from the saved
+    log-sum-exp) against autograd through the plain forward."""
+    rng = np.random.default_rng(2)
+    for causal, cap, win in ((True, 0.0, 0), (True, 20.0, 40),
+                             (False, 0.0, 0)):
+        q = torch.tensor(rng.normal(size=(2, 150, 4, 16)), dtype=torch.float32,
+                         requires_grad=True)
+        k, v = (torch.tensor(rng.normal(size=(2, 150, 2, 16)),
+                             dtype=torch.float32, requires_grad=True)
+                for _ in range(2))
+        o, lse = ref.flash_attention_bshd(q, k, v, causal=causal,
+                                          attn_cap=cap, window=win,
+                                          kv_tile=64)
+        do = torch.tensor(rng.normal(size=o.shape), dtype=torch.float32)
+        want = torch.autograd.grad(o, (q, k, v), do)
+        got = ref.flash_attention_bwd(q.detach(), k.detach(), v.detach(),
+                                      lse.detach(), do, causal=causal,
+                                      scale=0.25, attn_cap=cap, window=win,
+                                      q_chunk=64, max_elems=1 << 15)
+        for w, g in zip(want, got):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5)
+
+
+def test_layer_library_matches_jax():
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, 8, 4, 16)).astype(np.float32)
+    w = rng.normal(size=(16,)).astype(np.float32) * 0.1
+    np.testing.assert_allclose(
+        base.rmsnorm(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
+        np.asarray(jbase.rmsnorm(jnp.asarray(x), jnp.asarray(w))), rtol=1e-6)
+    pos = np.arange(8) + 3
+    np.testing.assert_allclose(
+        base.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                        1e4).numpy(),
+        np.asarray(jbase.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e4)),
+        rtol=1e-6, atol=1e-6)
+    p = {n: rng.normal(size=s).astype(np.float32) * 0.2 for n, s in
+         (("w_gate", (16, 24)), ("w_up", (16, 24)), ("w_down", (24, 16)))}
+    h = x.reshape(2, 32, 16)
+    np.testing.assert_allclose(
+        base.swiglu(params_from_jax(p, "cpu"), torch.from_numpy(h)).numpy(),
+        np.asarray(jbase.swiglu(p, jnp.asarray(h))), rtol=1e-6, atol=1e-6)
+    logits = rng.normal(size=(2, 8, 50)).astype(np.float32) * 3
+    labels = rng.integers(0, 50, size=(2, 8)).astype(np.int32)
+    for cap in (0.0, 5.0):
+        np.testing.assert_allclose(
+            base.cross_entropy(torch.from_numpy(logits),
+                               torch.from_numpy(labels), cap).numpy(),
+            np.asarray(jbase.cross_entropy(jnp.asarray(logits),
+                                           jnp.asarray(labels), cap)),
+            rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Collectives and FSDP: bitwise.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("mshape", [(2, 4), (1, 8)])
+def test_rhd_collectives_bitwise(mshape, dtype):
+    rng = np.random.default_rng(4)
+    mesh = RankMesh(mshape)
+    x = _rand(rng, mshape + (24, 3), dtype)
+    odd = _rand(rng, mshape + (22, 3), dtype)
+
+    def check(jf, tf, arr):
+        want = _nested(jf)(jnp.asarray(arr))
+        got = tf(tensor_from_numpy(arr, "cpu"))
+        assert tuple(got.shape) == want.shape
+        assert np.array_equal(_bits(got), _bits(want))
+        return want
+
+    seg = check(lambda a: jcoll.rhd_reduce_scatter(a, "data"),
+                lambda t: coll.rhd_reduce_scatter(t, mesh, "data"), x)
+    check(lambda a: jcoll.rhd_all_gather(a, "data"),
+          lambda t: coll.rhd_all_gather(t, mesh, "data"), np.asarray(seg))
+    check(lambda a: jcoll.allreduce_rhd(a, "data"),
+          lambda t: coll.allreduce_rhd(t, mesh, "data"), odd)
+    check(lambda a: jcoll.allreduce(a, AXES, algorithm="rhd"),
+          lambda t: coll.allreduce(t, mesh, AXES, algorithm="rhd"), odd)
+    for alg in ("rhd", "fixed_tree"):
+        seg = check(lambda a: jcoll.reduce_scatter(a, AXES, algorithm=alg,
+                                                   ordered=True),
+                    lambda t: coll.reduce_scatter(t, mesh, AXES,
+                                                  algorithm=alg,
+                                                  ordered=True), x)
+        check(lambda a: jcoll.all_gather(a, AXES, algorithm=alg,
+                                         ordered=True),
+              lambda t: coll.all_gather(t, mesh, AXES, algorithm=alg,
+                                        ordered=True), np.asarray(seg))
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        coll.reduce_scatter(tensor_from_numpy(x, "cpu"), mesh, AXES,
+                            algorithm="ring")
+
+
+@pytest.mark.parametrize("alg", ["rhd", "fixed_tree"])
+@pytest.mark.parametrize("mshape", [(2, 4), (1, 8)])
+def test_gather_params_forward_backward_bitwise(mshape, alg):
+    rng = np.random.default_rng(5)
+    mesh = RankMesh(mshape)
+    for dtype, axis in (("f32", 1), ("bf16", 0)):
+        local = (3, 5) if axis == 1 else (5, 3)
+        full = (3, 5 * mshape[1]) if axis == 1 else (5 * mshape[1], 3)
+        shard = _rand(rng, mshape + local, dtype)
+        g = _rand(rng, mshape + full, dtype)
+
+        def fwd_bwd(s, gg):
+            out, vjp = jax.vjp(
+                lambda a: jfsdp.gather_params(a, AXES, alg, axis), s)
+            return out, vjp(gg)[0]
+        want_full, want_grad = _nested(fwd_bwd)(jnp.asarray(shard),
+                                                jnp.asarray(g))
+        t = tensor_from_numpy(shard, "cpu").requires_grad_()
+        got = fsdp.gather_params(t, mesh, AXES, alg, axis)
+        got.backward(tensor_from_numpy(g, "cpu"))
+        assert np.array_equal(_bits(got), _bits(want_full))
+        assert np.array_equal(_bits(t.grad), _bits(want_grad))
+
+
+@pytest.mark.parametrize("mesh", [(("pod", "data", "model"), (2, 4, 1)),
+                                  (("data", "model"), (8, 1))])
+def test_param_specs_fsdp_dims_match_jax(mesh):
+    shapes = jax.eval_shape(jregistry.get_model(jtl.CONFIG).init,
+                            jax.random.PRNGKey(0))
+    _, _, want = jrules.param_specs(shapes, jrules.MeshCfg(*mesh))
+    meta = jax.tree.map(lambda s: torch.empty(s.shape, device="meta"),
+                        shapes)
+    got = rules.param_specs(meta, rules.MeshCfg(*mesh))
+    assert tree.flatten(got)[0] == jax.tree.leaves(want)
+    assert set(tree.flatten(got)[0]) == {-1, 0, 1}
+
+
+def test_synthetic_batches_match_jax():
+    jit = jpipeline.synthetic_batches(JCFG, 8, 64, seed=1)
+    it = pipeline.synthetic_batches(CFG, 8, 64, seed=1)
+    for _ in range(3):
+        want, got = next(jit), next(it)
+        for k in ("tokens", "labels"):
+            assert got[k].dtype == torch.int32
+            assert np.array_equal(got[k].numpy(), np.asarray(want[k]))
+
+
+# ---------------------------------------------------------------------------
+# The loss, the train step, the launcher.
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _jparams():
+    """The reference's widened-smoke parameters (read-only numpy)."""
+    return jax.tree.map(np.asarray, jregistry.get_model(JCFG).init(
+        jax.random.PRNGKey(0)))
+
+
+def _batch(n=8):
+    return {k: np.asarray(v) for k, v in next(jpipeline.synthetic_batches(
+        JCFG, n, 64, seed=1, prefetch=False)).items()}
+
+
+def test_widened_config_shards_the_fsdp_leaves():
+    dims = rules.param_specs(_jparams(), rules.MeshCfg(
+        ("pod", "data", "model"), (2, 4, 1)))
+    fsdp_leaves = {"/".join(p): d for p, d in zip(tree.paths(dims),
+                                                  tree.flatten(dims)[0])}
+    assert {k for k, d in fsdp_leaves.items() if d >= 0} == {
+        "embed", "lm_head", "layers/attn/wq", "layers/attn/wo",
+        "layers/ffn/w_down", "layers/ffn/w_gate", "layers/ffn/w_up"}
+
+
+def test_loss_and_gradients_match_jax():
+    jp, batch = _jparams(), _batch(2)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jregistry.get_model(JCFG).loss(p, batch)))(jp)
+    params = tree.map_leaves(lambda t: t.requires_grad_(),
+                             params_from_jax(jp, "cpu"))
+    loss = get_model(CFG).loss(params, params_from_jax(batch, "cpu"))
+    assert loss.shape == ()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    loss.backward()
+    for g, w in zip(tree.flatten(params)[0], jax.tree.leaves(jgrads)):
+        np.testing.assert_allclose(g.grad.numpy(), np.asarray(w),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def _mesh_cfgs():
+    return (jrules.MeshCfg(("pod", "data", "model"), (2, 4, 1)),
+            rules.MeshCfg(("pod", "data", "model"), (2, 4, 1)))
+
+
+def _per_rank_jax(jp, jmcfg):
+    """Each rank's shard of every leaf, split as the reference's manual
+    specs place them: ``(2, 4, *local)``."""
+    _, manual, _ = jrules.param_specs(jp, jmcfg)
+
+    def f(a, spec):
+        for i, ax in enumerate(spec):
+            if ax == "data":
+                blocks = np.stack(np.split(a, 4, axis=i))
+                return np.broadcast_to(blocks, (2,) + blocks.shape).copy()
+        return np.broadcast_to(a, (2, 4) + a.shape).copy()
+    return jax.tree.map(f, jp, manual,
+                        is_leaf=lambda x: isinstance(x, np.ndarray))
+
+
+def test_two_train_steps_match_jax():
+    jmcfg, mcfg = _mesh_cfgs()
+    flare = dict(axes=AXES, transport="innetwork", reproducible=True)
+    jp = _jparams()
+    jtcfg = jtrainer.TrainConfig(lr=1e-3, gather_algorithm="fixed_tree",
+                                 flare=jengine.FlareConfig(**flare))
+    jstep_body, _, _, _, jinit = jtrainer.make_train_step(
+        jregistry.get_model(JCFG), jmcfg, jtcfg, jp)
+    jstep = _nested(jstep_body)
+    jparams = _per_rank_jax(jp, jmcfg)
+    jopt = jax.vmap(jax.vmap(jinit))(jparams)
+
+    tcfg = trainer.TrainConfig(lr=1e-3, gather_algorithm="fixed_tree",
+                               flare=FlareConfig(**flare))
+    full = params_from_jax(jp, "cpu")
+    step = trainer.make_train_step(get_model(CFG), mcfg, tcfg, full)
+    params = rules.shard_params(full, mcfg)
+    for a, b in zip(tree.flatten(params)[0], jax.tree.leaves(jparams)):
+        assert np.array_equal(_bits(a), _bits(b))
+    opt = step.init_opt_state(params)
+
+    stream = jpipeline.synthetic_batches(JCFG, 8, 64, seed=1, prefetch=False)
+    losses, m1 = [], None
+    for _ in range(2):
+        batch = {k: np.asarray(v) for k, v in next(stream).items()}
+        jparams, jopt, jm = jstep(
+            jparams, jopt, {k: v.reshape(2, 4, 1, 64) for k, v in
+                            batch.items()})
+        params, opt, m = step(params, opt, rules.split_batch(
+            params_from_jax(batch, "cpu"), mcfg))
+        np.testing.assert_allclose(float(m["loss"]),
+                                   float(np.asarray(jm["loss"])[0, 0]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(np.asarray(jm["grad_norm"])[0, 0]),
+                                   rtol=1e-5)
+        losses.append(float(m["loss"]))
+        m1 = m1 or jax.tree.leaves(jax.tree.map(np.asarray, jopt["m"]))
+    assert losses[1] < losses[0]
+    assert int(opt["step"]) == 2
+    # Adam's first step moves a parameter by lr·g / (|g| + eps).  Where the
+    # step-1 gradient is under 10·eps (|m1| = 0.1·|g| < 1e-8) that is
+    # ill-conditioned, lr / eps = 1e5 per unit of gradient: fp32 sums taken
+    # in another order (about 1e-9 apart there) move it by up to 1e-4.
+    # Everywhere else the parameters are held at 1e-5.
+    for a, b, mm in zip(tree.flatten(params)[0], jax.tree.leaves(jparams),
+                        m1):
+        well = np.abs(mm) >= 1e-8
+        np.testing.assert_allclose(a.numpy()[well], np.asarray(b)[well],
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(a.numpy()[~well], np.asarray(b)[~well],
+                                   rtol=0, atol=1e-4)
+
+
+def test_bf16_train_steps_track_jax():
+    """The bf16 compute path (bf16 gathers, reduce-scatters and
+    activations over fp32 master weights) against the reference's, three
+    steps at lr 1e-3: losses and gradient norms within one bf16 epsilon,
+    2^-8, relative (the two frameworks round bf16 products and sums in
+    different places)."""
+    jmcfg, mcfg = _mesh_cfgs()
+    flare = dict(axes=AXES, transport="innetwork", reproducible=True)
+    jp = _jparams()
+    jcfg = jtl.SMOKE.scaled(dtype=jnp.bfloat16, **WIDE)
+    jstep_body, _, _, _, jinit = jtrainer.make_train_step(
+        jregistry.get_model(jcfg), jmcfg, jtrainer.TrainConfig(
+            lr=1e-3, gather_algorithm="fixed_tree",
+            flare=jengine.FlareConfig(**flare)), jp)
+    jstep = _nested(jstep_body)
+    jparams = _per_rank_jax(jp, jmcfg)
+    jopt = jax.vmap(jax.vmap(jinit))(jparams)
+    full = params_from_jax(jp, "cpu")
+    step = trainer.make_train_step(
+        get_model(tl.SMOKE.scaled(dtype=torch.bfloat16, **WIDE)), mcfg,
+        trainer.TrainConfig(lr=1e-3, gather_algorithm="fixed_tree",
+                            flare=FlareConfig(**flare)), full)
+    params = rules.shard_params(full, mcfg)
+    opt = step.init_opt_state(params)
+    stream = jpipeline.synthetic_batches(JCFG, 8, 64, seed=1, prefetch=False)
+    for _ in range(3):
+        batch = {k: np.asarray(v) for k, v in next(stream).items()}
+        jparams, jopt, jm = jstep(
+            jparams, jopt, {k: v.reshape(2, 4, 1, 64) for k, v in
+                            batch.items()})
+        params, opt, m = step(params, opt, rules.split_batch(
+            params_from_jax(batch, "cpu"), mcfg))
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(m[k]),
+                                       float(np.asarray(jm[k])[0, 0]),
+                                       rtol=2.0**-8)
+
+
+def test_reduced_gradients_bitwise_from_jax_per_rank_gradients():
+    """Fed the reference's per-rank gradients of the gathered leaves, the
+    trainer's FSDP reduce-scatter and its ``GradReducer`` give the
+    reference's bits."""
+    jmcfg, mcfg = _mesh_cfgs()
+    flare = dict(axes=AXES, transport="innetwork", reproducible=True)
+    jp = _jparams()
+    jmodel = jregistry.get_model(JCFG)
+    batch = {k: v.reshape(2, 4, 1, 64) for k, v in _batch().items()}
+    # each rank's gradient of its own loss w.r.t. the full leaves
+    grads = _nested(lambda b: jax.grad(
+        lambda p: jmodel.loss(p, b) / 8)(jp))(batch)
+    grads = jax.tree.map(np.asarray, grads)
+    _, _, dims = jrules.param_specs(jp, jmcfg)
+    jgather = jrules.make_gather(jmcfg, "fixed_tree", jp,
+                                 compute_dtype=jnp.float32)
+    jred = jengine.GradReducer(jengine.FlareConfig(**flare))
+
+    step = trainer.make_train_step(get_model(CFG), mcfg, trainer.TrainConfig(
+        gather_algorithm="fixed_tree", flare=FlareConfig(**flare)),
+        params_from_jax(jp, "cpu"))
+    shards = rules.shard_params(params_from_jax(jp, "cpu"), mcfg)
+    leaves = tree.flatten(shards)[0]
+    rep_got, rep_want = [], []
+    for path, d, shard, g in zip(tree.paths(grads), jax.tree.leaves(dims),
+                                 leaves, jax.tree.leaves(grads)):
+        if d < 0:
+            rep_got.append(tensor_from_numpy(g, "cpu"))
+            rep_want.append(g)
+            continue
+        stacked = path[0] == "layers"
+        sub = {path[-1]: None}
+        n = shard.shape[2] if stacked else 1
+        for i in range(n):
+            s = shard[:, :, i] if stacked else shard
+            gi = g[:, :, i] if stacked else g
+
+            def jbwd(sh, gg, name=path[-1]):
+                _, vjp = jax.vjp(lambda a: jgather({name: a})[name], sh)
+                return vjp(gg)[0]
+            want = _nested(jbwd)(jnp.asarray(np.asarray(s)), jnp.asarray(gi))
+            t = s.clone().requires_grad_()
+            sub[path[-1]] = t
+            step.gather(sub)[path[-1]].backward(tensor_from_numpy(gi, "cpu"))
+            assert np.array_equal(_bits(t.grad), _bits(want)), path
+    want = _nested(lambda gs: jred(gs)[0])(rep_want)
+    got, _ = step.reducer(rep_got)
+    assert len(got) == 5
+    for a, b in zip(got, jax.tree.leaves(want)):
+        assert np.array_equal(_bits(a), _bits(b))
+
+
+def test_launcher_runs_on_cpu(capsys):
+    losses = launch_train.main(["--smoke", "--steps", "2", "--mesh",
+                                "2x4x1", "--device", "cpu", "--transport",
+                                "innetwork", "--reproducible"])
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    out = capsys.readouterr().out
+    assert out.count(" loss ") == 2
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--tenants", "2"], "item 11"), (["--fault-rate", "0.01"], "item 9"),
+    (["--ckpt-dir", "x"], "item 12"), (["--trace-out", "x"], "item 13"),
+    (["--metrics-out", "x"], "item 13"),
+    (["--health-policy", "observe"], "item 13")])
+def test_launcher_unported_flags_name_their_item(flags, item):
+    with pytest.raises(SystemExit, match=item):
+        launch_train.main(["--smoke", "--device", "cpu", *flags])
+
+
+def test_launcher_refuses_tensor_parallelism_and_a_missing_card():
+    with pytest.raises(NotImplementedError, match="item 16"):
+        launch_train.main(["--smoke", "--device", "cpu", "--mesh", "4x2"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            launch_train.main(["--smoke", "--steps", "1"])
+
+
+def test_port_sources_import_no_jax_and_no_reference():
+    bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                     re.MULTILINE)
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 30
+    offenders = [str(f) for f in files if bad.search(f.read_text())]
+    assert offenders == []
