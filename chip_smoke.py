@@ -65,12 +65,18 @@
    every kernel, its plain version and, where one PyTorch call computes
    the same function, that call, at the shapes the paths gave the
    kernel, beside the kernel's memory bound.
-7. The flash attention kernel (``csrc/flash_attn.cu``) against its plain
-   version: causal and not, cap 0 and 30, window 0 and 256, GQA 1 and 8,
-   ragged ``Sq``/``Sk``, fp32 (``atol = 3e-5``, the reference's own) and
-   bf16 (one bf16 ulp of the plain version on the same bf16 inputs), and
-   the training path's shape, q ``(8, 4096, 32, 64)`` against k, v
-   ``(8, 4096, 4, 64)`` bf16 causal (the plain version on one batch row).
+7. The flash attention kernels (``csrc/flash_attn.cu``: bf16 on the
+   tensor cores, fp32 on the CUDA cores) against their plain version:
+   causal and not, cap 0 and 30, window 0 and 256, GQA 1, 4 and 8, ragged
+   ``Sq``/``Sk``, fp32 (``atol = 3e-5``, the reference's own) and bf16
+   (one bf16 ulp of the plain version on the same bf16 inputs) at hd 64,
+   with the launch counters showing every bf16 case on the tensor-core
+   kernel and no fp32 one; bf16 at ``(hd, vd)`` = (16, 16), (32, 32),
+   (128, 128), (256, 256) and (192, 128); ``base.attend`` in bf16 at hd
+   128 on the card against its dense CPU branch (the scale rounded to
+   bf16 in both); and the training path's shape, q ``(8, 4096, 32, 64)``
+   against k, v ``(8, 4096, 4, 64)`` bf16 causal (the plain version on one
+   batch row).
 8. The training step, the port's main path end to end, through the
    launcher's own setup (``repro_torch.launch.train.setup``):
    TinyLlama-1.1B at full width and depth ``TRAIN_LAYERS``, bf16 compute
@@ -80,7 +86,8 @@
    5e-6, data ``synthetic_batches(seed=1)``.  A warm-up step, then 5
    steps with the counters set to 0 just before and read just after:
    every layer's attention launches the flash kernel in the forward and
-   again in the remat recompute, ``2 × TRAIN_LAYERS`` a step.  It prints each loss
+   again in the remat recompute, ``2 × TRAIN_LAYERS`` a step, all of them
+   the tensor-core kernel.  It prints each loss
    (all finite, the 5th below the 1st), the median step time, the peak
    device memory and a profile of one step; replays one step's captured
    per-rank gradients through the reduce-scatter and through the
@@ -90,7 +97,8 @@
    parameters (loss and gradient norm within 2e-2 relative: bf16).
    Then times the kernel at the path's shape beside its tensor-core
    FLOP bound, its plain version and ``scaled_dot_product_attention``
-   (the library yardstick, which the port never calls).
+   (the library yardstick, which the port never calls), and at hd 128 on
+   ``(1, 4096, 32, 128)``.
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line
 of kernel figures, and as its last line ``{"ok": true, "device": ...}``.
@@ -164,7 +172,7 @@ SPARCML_K = 1
 #: the informative part of a templated kernel name in a profile
 KERNEL_NAME = re.compile(
     r"(tree_reduce|quantize|dequantize|dequant_accum|accum_sorted|"
-    r"accum_scatter|zero|topk|flash_fwd)_kernel(<[^>]*>)?|"
+    r"accum_scatter|zero|topk|flash_fwd_wgmma|flash_fwd)_kernel(<[^>]*>)?|"
     r"\w*gemm\w*|"
     r"CatArrayBatchedCopy\w*|\w*(Sort|sort|TopK|topk|Select)\w*|"
     r"\w+_kernel_cuda|\w*Functor\w*(<\w+>)?")
@@ -371,10 +379,13 @@ def phase_profile(torch, run, card: str, what: str) -> None:
         return
     print(f"profile of {what} [{card}]: device time {total / 1e3:.3f} ms "
           f"in {wall:.3f} ms of wall time under the profiler, by kernel:")
-    for us, key, count in sorted(rows, reverse=True)[:12]:
+    # the largest twelve, and this repo's kernels wherever they rank
+    ranked = sorted(rows, reverse=True)
+    for n, (us, key, count) in enumerate(ranked):
         m = KERNEL_NAME.search(key)
-        print(f"  {us / 1e3:9.3f} ms {us / total:6.1%}  x{count}  "
-              f"{m.group(0) if m else key[:70]}")
+        if n < 12 or (m and m.group(1)):
+            print(f"  {us / 1e3:9.3f} ms {us / total:6.1%}  x{count}  "
+                  f"{m.group(0) if m else key[:70]}")
 
 
 def make_grads(torch, tree, transformer, cfg, mesh_shape, seed):
@@ -680,12 +691,13 @@ def flash_err(torch, got, want, v) -> float:
     return err
 
 
-def phase_flash_vs_plain(torch, ops, ref) -> float:
-    """The flash kernel vs its plain version; returns the worst error at
-    the training path's shape."""
+def phase_flash_vs_plain(torch, ops, ref, fa, base) -> float:
+    """The flash kernels vs their plain version; returns the worst error
+    at the training path's shape."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     cases = 0
+    fa.launches = fa.tc_launches = 0
     for dtype in (torch.float32, torch.bfloat16):
         for h, kv in ((8, 8), (8, 1)):
             for sq, sk, causal in ((700, 700, True), (300, 1000, False),
@@ -707,12 +719,52 @@ def phase_flash_vs_plain(torch, ops, ref) -> float:
                     worst[dtype] = max(worst[dtype],
                                        flash_err(torch, got, want, v))
                     cases += 1
+    # every bf16 case went to the tensor cores, every fp32 one did not
+    check(fa.launches == cases and fa.tc_launches == cases // 2,
+          f"flash routing: {fa.tc_launches} tensor-core launches of "
+          f"{fa.launches}, want {cases // 2} of {cases} (bf16 only)")
     # the (BH, S, hd) signature of the TPU kernel, fp32
     q, k, v = (torch.randn((6, 333, 64), generator=gen, device="cuda")
                for _ in range(3))
     worst[torch.float32] = max(worst[torch.float32], flash_err(
         torch, ops.flash_attention(q, k, v, causal=True, attn_cap=30.0),
         ref.flash_attention(q, k, v, causal=True, attn_cap=30.0), v))
+    cases += 1
+    # the tensor-core kernel's other head dims, bf16: (hd, vd) with GQA
+    # 8/2, causal and not, cap and window, ragged Sq and Sk, Sq > Sk (rows
+    # past Sk + 255 see no key)
+    wide = 0
+    for hd, vd in ((16, 16), (32, 32), (128, 128), (256, 256), (192, 128)):
+        for sq, sk, causal, cap, win in ((700, 700, True, 0.0, 0),
+                                         (300, 1000, False, 30.0, 0),
+                                         (129, 129, True, 30.0, 256),
+                                         (600, 300, True, 0.0, 256)):
+            q = torch.randn((2, sq, 8, hd), generator=gen,
+                            device="cuda").bfloat16()
+            k = torch.randn((2, sk, 2, hd), generator=gen,
+                            device="cuda").bfloat16()
+            v = torch.randn((2, sk, 2, vd), generator=gen,
+                            device="cuda").bfloat16()
+            before = fa.tc_launches
+            got = ops.attention(q, k, v, causal=causal, attn_cap=cap,
+                                window=win)
+            want, _ = ref.flash_attention_bshd(q, k, v, causal=causal,
+                                               attn_cap=cap, window=win)
+            torch.cuda.synchronize()
+            check(fa.tc_launches == before + 1 and got.shape == want.shape,
+                  f"(hd, vd) = {(hd, vd)} missed the tensor-core kernel")
+            worst[torch.bfloat16] = max(worst[torch.bfloat16],
+                                        flash_err(torch, got, want, v))
+            wide += 1
+    cases += wide
+    # the model's attention at hd 128 (scale 128^-0.5 rounded to bf16) on
+    # the card against the dense CPU branch on the same bf16 inputs
+    q = torch.randn((2, 256, 8, 128), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((2, 256, 2, 128), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    got = base.attend(q, k, v, causal=True).cpu()
+    want = base.attend(q.cpu(), k.cpu(), v.cpu(), causal=True)
+    attend_err = flash_err(torch, got, want, v.cpu())
     cases += 1
     # the training path's shape; the plain version on one batch row
     q = torch.randn((8, 4096, 32, 64), generator=gen,
@@ -724,13 +776,16 @@ def phase_flash_vs_plain(torch, ops, ref) -> float:
     torch.cuda.synchronize()
     path_err = flash_err(torch, got[:1], want, v[:1])
     cases += 1
-    print(f"flash kernel vs plain: {cases} cases within tolerance (causal "
-          "and not, cap 0 and 30, window 0 and 256, GQA 1 and 8, ragged Sq "
-          "and Sk, fp32 at atol 3e-5, bf16 within one ulp + 2^-17 max|v|); "
-          "worst error "
+    print(f"flash kernels vs plain: {cases} cases within tolerance (causal "
+          "and not, cap 0 and 30, window 0 and 256, GQA 1, 4 and 8, ragged "
+          "Sq and Sk; fp32 on the CUDA cores at atol 3e-5, bf16 on the "
+          f"tensor cores within one ulp + 2^-17 max|v|, {wide} of them at "
+          "(hd, vd) = (16, 16), (32, 32), (128, 128), (256, 256), (192, "
+          "128)); worst error "
           f"fp32 {worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e};"
-          f" at the path's shape (8, 4096, 32|4, 64) bf16 causal, batch row "
-          f"0: {path_err:.3e}")
+          f" base.attend bf16 hd 128 on the card vs the CPU's dense branch "
+          f"{attend_err:.3e}; at the path's shape (8, 4096, 32|4, 64) bf16 "
+          f"causal, batch row 0: {path_err:.3e}")
     return path_err
 
 
@@ -771,11 +826,11 @@ def phase_train(torch, card, total_mem, tr) -> dict:
         steps.append((time.perf_counter() - t) * 1e3)
 
     one()                                      # warm-up
-    fa.launches = tr.launches = 0
+    fa.launches = fa.tc_launches = tr.launches = 0
     for _ in range(5):
         one()
     torch.cuda.synchronize()
-    launches = fa.launches
+    launches, tc_launches = fa.launches, fa.tc_launches
     peak = torch.cuda.max_memory_allocated()
     step_ms = statistics.median(steps[1:])
     print(f"training losses (warm-up, then steps 1-5): "
@@ -784,7 +839,8 @@ def phase_train(torch, card, total_mem, tr) -> dict:
     print(f"training step ms (median of 5, {card}): {step_ms:.1f} (runs "
           f"{[round(t, 1) for t in steps[1:]]}; warm-up {steps[0]:.1f}); "
           f"flash launches {launches} over 5 steps ({launches // 5} a step "
-          f"= 2 x {TRAIN_LAYERS} layers); tree_reduce_slots launches "
+          f"= 2 x {TRAIN_LAYERS} layers; {tc_launches} of them the tensor-"
+          f"core kernel's); tree_reduce_slots launches "
           f"{tr.launches} ({tr.launches // 5} a step); peak device memory "
           f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}")
     check(all(map(math.isfinite, losses)), f"a loss is not finite: {losses}")
@@ -793,6 +849,8 @@ def phase_train(torch, card, total_mem, tr) -> dict:
     per_step = 2 * TRAIN_LAYERS
     check(launches == 5 * per_step, f"flash launches {launches} over 5 "
           f"steps, want {5 * per_step} (2 a layer a step)")
+    check(tc_launches == launches, f"{launches - tc_launches} of the step's "
+          "flash launches missed the tensor-core kernel")
 
     phase_profile(torch, run.train_step, card, "one training step")
 
@@ -891,6 +949,22 @@ def flash_figures(torch, fa, ref, card, err) -> dict:
           f"TFLOP/s), {nbytes} bytes; bound {bound:.3f} ms by operations "
           f"({bound / k_ms:.1%} of the bound); plain {p_ms:.3f} ms; library "
           f"scaled_dot_product_attention {l_ms:.3f} ms  [{card}]")
+    # hd 128, one batch row of 32 heads (no GQA)
+    q, k, v = (torch.randn((1, s, h, 128), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    kw["scale"] = 128 ** -0.5
+    w_ms = cuda_ms(lambda: fa.attention_fwd(q, k, v, **kw), 10)
+    w_flops = fa.flops(1, h, s, s, 128, causal=True)
+    w_bound = max(w_flops / BF16_FLOPS_PER_S,
+                  fa.bytes_moved(q, k, v) / HBM_BYTES_PER_S) * 1e3
+    wl_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True), 10)
+    print(f"flash_attention q, k, v (1, 4096, 32, 128) bf16 causal: "
+          f"{w_ms:.3f} ms ({w_flops / w_ms / 1e9:.1f} TFLOP/s); bound "
+          f"{w_bound:.3f} ms ({w_bound / w_ms:.1%} of the bound); library "
+          f"scaled_dot_product_attention {wl_ms:.3f} ms  [{card}]")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
             "library_ms": l_ms, "max_abs_err": err}
 
@@ -920,7 +994,7 @@ def main() -> int:
     from repro_torch.kernels import topk_compact as tk
     from repro_torch.kernels import tree_reduce as tr
     from repro_torch.mesh import AXES, FLAT, TWO_LEVEL, RankMesh
-    from repro_torch.models import transformer
+    from repro_torch.models import base, transformer
     from repro_torch.switch import dataplane
 
     smi = subprocess.run(
@@ -936,7 +1010,7 @@ def main() -> int:
     phase_kernel_vs_plain(torch, ops)
     phase_quant_vs_plain(torch, ops, qt)
     phase_sparse_vs_plain(torch, ops, tk)
-    flash_path_err = phase_flash_vs_plain(torch, ops, ref)
+    flash_path_err = phase_flash_vs_plain(torch, ops, ref, fa, base)
 
     # -- the dense main path: (2, 4) mesh, full width -----------------------
     cfg = tl.CONFIG.scaled(n_layers=LAYERS)

@@ -8,35 +8,67 @@
 //   s_j = -1e30 where the causal / sliding-window mask hides key j
 //   o_i = Σ_j exp(s_j − m) v_j / max(Σ_j exp(s_j − m), 1e-30)
 //
-// in fp32, with the running max m, the running sum l and the output
-// accumulator kept in registers, and writes o in the input dtype and the
-// row's log-sum-exp m + log(l) in fp32 (the backward recomputes the
-// probabilities from it).  Masked scores are −1e30, not −inf, exactly as
-// the TPU kernel has them.  Layout: q is (B, Sq, H, hd) and k, v are
-// (B, Sk, KV, hd) with H % KV == 0, any strides with a contiguous head
-// dim; head h reads KV head h / (H / KV), so a GQA caller passes K and V
-// once, not broadcast.  Ragged Sq and Sk tails are masked here, so no
-// length has to be a multiple of a tile.
+// in fp32, with the running max m and the running sum l, and writes o in
+// the input dtype and the row's log-sum-exp m + log(l) in fp32 (the
+// backward recomputes the probabilities from it).  The fp32 kernel
+// applies the scale to q before the product, as written; the bf16 kernel
+// applies it to the fp32 product q_i · k_j after it.  The two orders
+// differ by fp32 rounding only.  Masked scores are
+// −1e30, not −inf, exactly as the TPU kernel has them; keys past Sk are
+// −inf and never counted.  Layout: q is (B, Sq, H, hd), k is
+// (B, Sk, KV, hd) and v (B, Sk, KV, vd) with H % KV == 0; head h reads KV
+// head h / (H / KV), so a GQA caller passes K and V once, not broadcast.
+// No length has to be a multiple of a tile.
 //
 // What bounds it: operations.  A causal launch at the training path's
-// shape (B·H = 8·32, S = 4096, hd = 64, bf16) does 2·hd·S²/2 multiply-adds
-// twice (scores, then P·V) per head: 550 GFLOP, 0.56 ms at the tensor
-// cores' 989 TFLOP/s; its bytes (q and the 4 KV heads' k, v read once,
-// o and the log-sum-exp written once, 306 MB) take 0.09 ms at 3.35 TB/s.
-// This first version runs on the CUDA cores in fp32 (67 TFLOP/s peak),
-// which also keeps fp32 inputs exact to the reference's tolerance; tensor
-// cores (wgmma, TMA-fed tiles) are the next step.  Design: one block of
-// 128 threads per (batch·head, tile of 128 query rows), one query row a
-// thread, its scaled q row and its output accumulator in registers.  K
-// and V stream through shared memory in tiles of 64 keys, converted to
-// fp32 once; every lane of a warp reads the same key (a broadcast, no
-// bank conflicts) with 16-byte loads, and 16 keys at a time are scored
-// into registers, so each thread runs 16 independent multiply-add
-// chains.  Tiles that the causal mask or the window hides from every row
-// of the block are skipped (exact: each skipped score would add
-// exp(−1e30 − m) = 0 to a row that holds its own key).  Heavy (late)
-// causal query tiles are scheduled first.
+// shape (B·H = 8·32, S = 4096, hd = vd = 64, bf16) does 2·hd·S²/2
+// multiply-adds twice (scores, then P·V) per head: 550 GFLOP, 0.56 ms at
+// the tensor cores' 989 TFLOP/s; its bytes (q and the 4 KV heads' k, v
+// read once, o and the log-sum-exp written once, 306 MB) take 0.09 ms at
+// 3.35 TB/s.
+//
+// Two kernels, picked by dtype alone:
+//
+// * bf16 (flash_fwd_wgmma_kernel): the tensor cores.  A block holds 128
+//   query rows of one (batch, head): two consumer warpgroups of 64 rows
+//   and one producer warpgroup, whose registers go to the consumers
+//   (setmaxnreg 40 / 232).  One producer thread loads the Q tile once and
+//   keeps K and V tiles of KT keys (128 at hd 64, 64 above, 32 at vd 256)
+//   in flight in a ring of two stages, all by TMA (128-byte swizzle, so a
+//   64-wide box a row: wider heads load as 2-4 boxes, narrower ones are
+//   zero-filled to 64), with mbarriers for "loaded" and, apart for K and
+//   V, "released".  A consumer computes S = Q·Kᵀ by wgmma (bf16 in, fp32
+//   accumulate, both operands in shared memory), scales the fp32
+//   fragment by scale · log2 e, caps it with accurate tanhf first when
+//   cap > 0, masks only tiles that cross the diagonal, the window edge or
+//   the ragged tail, and keeps the online max and sum on its fragment
+//   rows (4 lanes a row, shuffles; ex2.approx.ftz on the SFU).  P stays
+//   in registers as the A operand, split as P_hi = bf16(p) and P_lo =
+//   bf16(p − P_hi): the two wgmmas P_hi·V and P_lo·V add into one fp32
+//   accumulator, so each probability is carried to about 2^-16 of itself
+//   (a single bf16 P, 2^-9, would move o by about 2^-15·max|v| over 4096
+//   keys, past the bf16 tolerance).  That costs 1.5× the tensor-core
+//   work (825 GFLOP at the path's shape, a 0.83 ms floor); the
+//   exponentials, 16 a clock an SM, are the other floor (about 0.5 ms).
+//   So the softmax is hidden under GEMMs twice over: a warpgroup issues
+//   tile j + 1's scores before tile j's P·V and runs tile j + 1's softmax
+//   while P·V runs, and the two warpgroups take turns issuing their
+//   GEMMs (named barriers), so that one's softmax runs under the other's
+//   GEMMs.  Head dims (hd, vd): (16, 16), (32, 32), (64, 64), (128, 128),
+//   (256, 256) and (192, 128).
+// * fp32 (flash_fwd_kernel): the CUDA cores (67 TFLOP/s), which hold
+//   fp32 to the reference's 3e-5.  One block of 128 threads per (batch ·
+//   head, 128 query rows), one query row a thread, its scaled q row
+//   (fl32(q) · scale) and its output accumulator in registers; K and V
+//   stream through shared memory in fp32 tiles of 64 keys.  hd = vd in
+//   {16, 32, 64}.
+//
+// Both skip key tiles that the causal mask or the window hides from
+// every row of the block (exact: each skipped score would add
+// exp(−1e30 − m) = 0 to a row that holds its own key), and both schedule
+// heavy (late) causal query tiles first.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,13 +81,9 @@ constexpr int KT = 64;    // keys a shared-memory tile
 constexpr int SUB = 16;   // keys scored into registers at a time
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 struct Args {
   const void* q;
@@ -186,13 +214,12 @@ __global__ void __launch_bounds__(QT) flash_fwd_kernel(Args a) {
   }
 }
 
-template <typename T>
-cudaError_t launch_t(const Args& a, int hd, cudaStream_t s) {
+cudaError_t launch_fp32(const Args& a, int hd, cudaStream_t s) {
   const dim3 grid(a.B * a.H, (a.Sq + QT - 1) / QT);
   switch (hd) {
-    case 16: flash_fwd_kernel<T, 16><<<grid, QT, 0, s>>>(a); break;
-    case 32: flash_fwd_kernel<T, 32><<<grid, QT, 0, s>>>(a); break;
-    case 64: flash_fwd_kernel<T, 64><<<grid, QT, 0, s>>>(a); break;
+    case 16: flash_fwd_kernel<float, 16><<<grid, QT, 0, s>>>(a); break;
+    case 32: flash_fwd_kernel<float, 32><<<grid, QT, 0, s>>>(a); break;
+    case 64: flash_fwd_kernel<float, 64><<<grid, QT, 0, s>>>(a); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -200,17 +227,609 @@ cudaError_t launch_t(const Args& a, int hd, cudaStream_t s) {
 
 }  // namespace
 
-// q (B, Sq, H, hd), k and v (B, Sk, KV, hd), o (B, Sq, H, hd) in dtype
-// (0 = fp32, 1 = bf16); lse (B, H, Sq) fp32, contiguous.  strides holds
-// the (batch, seq, head) element strides of q, k, v and o in that order.
-// Returns the launch's cudaError_t (0 on success); launches nothing and
-// returns cudaErrorInvalidValue for arguments the kernel does not take.
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel.
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int CONSUMERS = 2;                    // warpgroups of 64 query rows
+constexpr int QT = 64 * CONSUMERS;              // query rows a block
+constexpr int THREADS = 128 * (CONSUMERS + 1);  // and one producer warpgroup
+constexpr int STAGES = 2;                       // K/V ring depth
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int HD, int VD>
+struct Shape {
+  static constexpr int HDP = HD < 64 ? 64 : HD;  // padded to one 64-wide box
+  static constexpr int VDP = VD < 64 ? 64 : VD;
+  static constexpr int HC = HDP / 64, VC = VDP / 64;  // boxes a row
+  // keys a tile: the score, P and output fragments of one consumer thread
+  // (KT / 2 + KT / 2 + VDP / 2 registers) fit beside its other state
+  static constexpr int KT = HDP == 64 && VDP == 64 ? 128 : VDP == 256 ? 32 : 64;
+  static constexpr int Q_BYTES = QT * HDP * 2;
+  static constexpr int K_BYTES = KT * HDP * 2;
+  static constexpr int V_BYTES = KT * VDP * 2;
+  static constexpr int TILE_BYTES = Q_BYTES + STAGES * (K_BYTES + V_BYTES);
+  // tiles 1024-byte aligned (the swizzle's period), then the mbarriers
+  static constexpr int SMEM = TILE_BYTES + 1024 + 8 * (1 + 4 * STAGES);
+  static_assert(HD % 16 == 0 && VD % 16 == 0, "dims are multiples of 16");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+struct Args {
+  void* o;
+  float* lse;
+  int H, KV, Sq, Sk;
+  long long os[3];  // element strides (batch, seq, head) of o
+  float scale, cap;
+  int causal, window;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra LAB_WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 4-D (dim, heads, seq, batch) tensor map into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor, 128-byte swizzle: rows of 128 bytes,
+// 8-row atoms `sbo` bytes apart; `lbo` is the stride between 64-wide
+// chunks of an MN-major operand (unused for K-major ones).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers a wgmma reads or writes asynchronously: pinned here, after
+// its wait, so that the compiler neither reads them early nor reuses them.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// 2^x on the SFU; results below 2^-126 flush to 0 (a probability that
+// small is under the fp32 sum's rounding of the row's largest term, 1)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// D (64 × N, fp32) (+)= A · B: A and B bf16 in shared memory, both K-major.
+// D (64 × 64, fp32) += A · B: A bf16 in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+    uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 128) {
+    wgmma_ss_n128(d, da, db, accumulate);
+  } else if constexpr (N == 64) {
+    wgmma_ss_n64(d, da, db, accumulate);
+  } else {
+    static_assert(N == 32, "score tiles of 32, 64 or 128 keys");
+    wgmma_ss_n32(d, da, db, accumulate);
+  }
+}
+
+// bf16(x0), bf16(x1) packed as the A operand wants them (x0 low), and the
+// bf16 of what that leaves of each.
+__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// This thread's place in a consumer warpgroup's fragments: rows row0 and
+// row1 = row0 + 8, columns col + {0, 1} of every 8-wide block.
+struct Frag {
+  int r_lo, row0, row1, col;
+};
+
+// One score tile, in log2 units: s = acc · scale · log2 e (capped first
+// when cap > 0), masked to −1e30 · log2 e where the causal mask or the
+// window hides a key and to −inf past Sk — only on a tile that some row
+// of the warpgroup sees in part.  Then the online softmax on the
+// thread's two rows: s becomes exp2(s − m), l gathers it, and al0, al1
+// are the factors the output rows are rescaled by.
+template <int KT>
+__device__ __forceinline__ void softmax_tile(float (&s)[KT / 2], const Args& a, const Frag& f,
+                                             int t0, float& m0, float& m1, float& l0,
+                                             float& l1, float& al0, float& al1) {
+  if (a.cap > 0.f) {
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) s[i] = tanhf(s[i] * a.scale / a.cap) * a.cap * LOG2E;
+  } else {
+    const float c = a.scale * LOG2E;
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) s[i] *= c;
+  }
+  const bool whole = t0 + KT <= a.Sk &&
+                     (!a.causal || (t0 + KT - 1 <= f.r_lo &&
+                                    (a.window == 0 || t0 > f.r_lo + 63 - a.window)));
+  if (!whole) {
+#pragma unroll
+    for (int i = 0; i < KT / 2; ++i) {
+      const int key = t0 + 8 * (i / 4) + f.col + (i & 1);
+      const int row = (i & 2) ? f.row1 : f.row0;
+      if (key >= a.Sk) {
+        s[i] = -INFINITY;  // no such key
+      } else if (a.causal && (key > row || (a.window > 0 && key <= row - a.window))) {
+        s[i] = -1e30f * LOG2E;
+      }
+    }
+  }
+  // the tile holds a key below Sk, so each row's max is finite
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int i = 0; i < KT / 2; i += 4) {
+    mx0 = fmaxf(mx0, fmaxf(s[i], s[i + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[i + 2], s[i + 3]));
+  }
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh *= 2) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+  }
+  al0 = ex2(m0 - mx0);
+  al1 = ex2(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < KT / 2; i += 4) {
+    s[i] = ex2(s[i] - mx0);
+    s[i + 1] = ex2(s[i + 1] - mx0);
+    s[i + 2] = ex2(s[i + 2] - mx1);
+    s[i + 3] = ex2(s[i + 3] - mx1);
+    ps0 += s[i] + s[i + 1];
+    ps1 += s[i + 2] + s[i + 3];
+  }
+  l0 = l0 * al0 + ps0;  // this thread's share; the 4 lanes add at the end
+  l1 = l1 * al1 + ps1;
+}
+
+template <int HD, int VD>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ Args a) {
+  using S = Shape<HD, VD>;
+  constexpr int KT = S::KT;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base;                          // Q  [HC][QT][64]
+  const uint32_t sk = sq + S::Q_BYTES;               // K  [STAGES][HC][KT][64]
+  const uint32_t sv = sk + STAGES * S::K_BYTES;      // V  [STAGES][VC][KT][64]
+  const uint32_t qbar = base + S::TILE_BYTES;        // Q loaded
+  const uint32_t kfull = qbar + 8;                   // [STAGES] K loaded
+  const uint32_t vfull = kfull + 8 * STAGES;         // [STAGES] V loaded
+  const uint32_t kfree = vfull + 8 * STAGES;         // [STAGES] K released
+  const uint32_t vfree = kfree + 8 * STAGES;         // [STAGES] V released
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H;
+  const int kvh = h / (a.H / a.KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * QT;  // late tiles first
+  // the key range any row of this block can see
+  const int qlast = min(q0 + QT, a.Sq) - 1;
+  int kbeg = 0, kend = a.Sk;
+  if (a.causal) {
+    kend = min(a.Sk, qlast + 1);
+    if (a.window > 0 && qlast < a.Sk) kbeg = max(0, q0 - a.window + 1) / KT * KT;
+  }
+  const int ntiles = (kend - kbeg + KT - 1) / KT;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(kfull + 8 * s, 1);
+      mbar_init(vfull + 8 * s, 1);
+      mbar_init(kfree + 8 * s, 4 * CONSUMERS);  // every consumer warp
+      mbar_init(vfree + 8 * s, 4 * CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * CONSUMERS) {  // the producer warpgroup: one thread loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 4 * CONSUMERS && lane == 0) {
+      mbar_expect_tx(qbar, S::Q_BYTES);
+#pragma unroll 1
+      for (int c = 0; c < S::HC; ++c) tma_load(sq + c * QT * 128, &tq, qbar, 64 * c, h, q0, b);
+#pragma unroll 1
+      for (int it = 0; it < ntiles; ++it) {
+        const int st = it % STAGES;
+        const uint32_t par = (it / STAGES + 1) & 1;  // the previous round's
+        const int t0 = kbeg + it * KT;
+        if (it >= STAGES) mbar_wait(kfree + 8 * st, par);
+        mbar_expect_tx(kfull + 8 * st, S::K_BYTES);
+#pragma unroll 1
+        for (int c = 0; c < S::HC; ++c)
+          tma_load(sk + st * S::K_BYTES + c * KT * 128, &tk, kfull + 8 * st, 64 * c, kvh, t0, b);
+        if (it >= STAGES) mbar_wait(vfree + 8 * st, par);
+        mbar_expect_tx(vfull + 8 * st, S::V_BYTES);
+#pragma unroll 1
+        for (int c = 0; c < S::VC; ++c)
+          tma_load(sv + st * S::V_BYTES + c * KT * 128, &tv, vfull + 8 * st, 64 * c, kvh, t0, b);
+      }
+    }
+    return;
+  }
+  // 128 · 40 + 256 · 232 registers: within the block's 384 · 168
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  // a consumer warpgroup: rows r_lo .. r_lo + 63
+  const int wg = warp / 4;
+  Frag f;
+  f.r_lo = q0 + 64 * wg;
+  f.row0 = f.r_lo + 16 * (warp % 4) + lane / 4;
+  f.row1 = f.row0 + 8;
+  f.col = 2 * (lane % 4);
+
+  float o[S::VC][32];
+#pragma unroll
+  for (int c = 0; c < S::VC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float s[KT / 2];
+#pragma unroll
+  for (int i = 0; i < KT / 2; ++i) s[i] = 0.f;
+  uint32_t phi[KT / 16][4], plo[KT / 16][4];
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, al0, al1;
+
+  const uint32_t qa = sq + wg * 64 * 128;
+  // S = Q · Kᵀ of tile `it` (over the true head dim: the padding is zeros)
+  auto scores = [&](int it) {
+    const uint32_t kb = sk + (it % STAGES) * S::K_BYTES;
+    // Q's descriptors are rebuilt each tile, not held in registers
+    uint32_t qt;
+    asm volatile("mov.b32 %0, %1;\n" : "=r"(qt) : "r"(qa));
+    mbar_wait(kfull + 8 * (it % STAGES), (it / STAGES) & 1);
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < HD / 16; ++kc) {
+      const uint32_t off = (kc % 4) * 32;  // 16 values along the swizzled row
+      wgmma_ss<KT>(s, desc(qt + (kc / 4) * QT * 128 + off, 16, 1024),
+                   desc(kb + (kc / 4) * KT * 128 + off, 16, 1024), kc > 0);
+    }
+    wg_commit();
+  };
+  // O += P_hi · V + P_lo · V of tile `it`
+  auto values = [&](int it) {
+    const uint32_t vb = sv + (it % STAGES) * S::V_BYTES;
+    mbar_wait(vfull + 8 * (it % STAGES), (it / STAGES) & 1);
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < S::VC; ++c) {
+        const uint64_t dv = desc(vb + c * KT * 128 + kk * 16 * 128, KT * 128, 1024);
+        wgmma_rs_n64(o[c], phi[kk], dv, 1);
+        wgmma_rs_n64(o[c], plo[kk], dv, 1);
+      }
+    wg_commit();
+  };
+  // P as the A operand: keys 16·kk .. 16·kk + 15 are fragment values
+  // 8·kk .. 8·kk + 7, in the A layout's order
+  auto to_operand = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], phi[kk][r], plo[kk][r]);
+  };
+  auto release = [&](uint32_t bars, int it) {
+    if (lane == 0) mbar_arrive(bars + 8 * (it % STAGES));
+  };
+  // ping-pong: a warpgroup issues its GEMMs on its turn, then hands the
+  // turn to the other, so that one's softmax runs under the other's GEMMs
+  // (named barriers 1 and 2)
+  auto my_turn = [&]() { asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory"); };
+  auto your_turn = [&]() { asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory"); };
+  if (wg == 1) your_turn();  // warpgroup 0 goes first
+
+  mbar_wait(qbar, 0);
+  my_turn();
+  scores(0);
+  your_turn();
+  wg_wait<0>();
+  pin(s);
+  release(kfree, 0);
+  softmax_tile<KT>(s, a, f, kbeg, m0, m1, l0, l1, al0, al1);
+  to_operand();
+  // tile it's scores on the tensor cores while tile it - 1's P·V follows
+  // them, then tile it's softmax while P·V runs
+  for (int it = 1; it < ntiles; ++it) {
+    my_turn();
+    scores(it);
+    values(it - 1);
+    your_turn();
+    wg_wait<1>();
+    pin(s);
+    release(kfree, it);
+    softmax_tile<KT>(s, a, f, kbeg + it * KT, m0, m1, l0, l1, al0, al1);
+    wg_wait<0>();
+#pragma unroll
+    for (int c = 0; c < S::VC; ++c) pin(o[c]);
+    pin(phi);
+    pin(plo);
+    release(vfree, it - 1);
+#pragma unroll
+    for (int c = 0; c < S::VC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; i += 4) {
+        o[c][i] *= al0;
+        o[c][i + 1] *= al0;
+        o[c][i + 2] *= al1;
+        o[c][i + 3] *= al1;
+      }
+    to_operand();
+  }
+  my_turn();
+  wg_fence();
+  values(ntiles - 1);
+  if (wg == 0) your_turn();  // the last turn is handed to no one
+  wg_wait<0>();
+#pragma unroll
+  for (int c = 0; c < S::VC; ++c) pin(o[c]);
+  pin(phi);
+  pin(plo);
+
+  // the epilogue: the row sums over the 4 lanes, o / max(l, 1e-30) in
+  // bf16 clipped at Sq and vd, and the log-sum-exp m · ln 2 + log(l)
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh *= 2) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.o) + b * a.os[0] + h * a.os[2];
+#pragma unroll
+  for (int c = 0; c < S::VC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; i += 4) {
+      const int d = 64 * c + 8 * (i / 4) + f.col;
+      if (d >= VD) continue;
+      if (f.row0 < a.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + f.row0 * a.os[1] + d) =
+            __floats2bfloat162_rn(o[c][i] / d0, o[c][i + 1] / d0);
+      if (f.row1 < a.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + f.row1 * a.os[1] + d) =
+            __floats2bfloat162_rn(o[c][i + 2] / d1, o[c][i + 3] / d1);
+    }
+  if (lane % 4 == 0) {
+    float* lb = a.lse + static_cast<long long>(bh) * a.Sq;
+    if (f.row0 < a.Sq) lb[f.row0] = m0 * LN2 + logf(l0);
+    if (f.row1 < a.Sq) lb[f.row1] = m1 * LN2 + logf(l1);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 (batch, seq, heads, dim) tensor with element strides st (batch,
+// seq, head) and a contiguous dim, read in boxes of 64 × rows.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int dim,
+              const long long* st, int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dim), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+             box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, int VD>
+cudaError_t launch(const void* q, const void* k, const void* v, const Args& a, int B,
+                   const long long* strides, cudaStream_t s) {
+  using Sh = Shape<HD, VD>;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, B, a.Sq, a.H, HD, strides, QT) ||
+      !make_map(&mk, k, B, a.Sk, a.KV, HD, strides + 3, Sh::KT) ||
+      !make_map(&mv, v, B, a.Sk, a.KV, VD, strides + 6, Sh::KT))
+    return cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel<HD, VD>, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(B * a.H, (a.Sq + QT - 1) / QT);
+  flash_fwd_wgmma_kernel<HD, VD><<<grid, THREADS, Sh::SMEM, s>>>(mq, mk, mv, a);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// q (B, Sq, H, hd), k (B, Sk, KV, hd), v (B, Sk, KV, vd), o (B, Sq, H, vd)
+// in dtype (0 = fp32: the CUDA-core kernel; 1 = bf16: the tensor-core
+// kernel); lse (B, H, Sq) fp32, contiguous.  strides holds the (batch,
+// seq, head) element strides of q, k, v and o in that order; the bf16
+// kernel reads q, k and v by TMA, so their bases are 16-byte aligned and
+// their strides multiples of 8 elements.  Returns the launch's
+// cudaError_t (0 on success); launches nothing and returns
+// cudaErrorInvalidValue for arguments neither kernel takes.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                              void* lse, int dtype, int hd, int B, int H, int KV,
+                              void* lse, int dtype, int hd, int vd, int B, int H, int KV,
                               int Sq, int Sk, const long long* strides, float scale,
                               int causal, float cap, int window, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Sk < 1 || Sq > 65535 * QT)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    tc::Args a;
+    a.o = o;
+    a.lse = static_cast<float*>(lse);
+    a.H = H;
+    a.KV = KV;
+    a.Sq = Sq;
+    a.Sk = Sk;
+    for (int i = 0; i < 3; ++i) a.os[i] = strides[9 + i];
+    a.scale = scale;
+    a.cap = cap;
+    a.causal = causal;
+    a.window = window;
+    cudaError_t err = cudaErrorInvalidValue;
+    if (hd == vd) {
+      switch (hd) {
+        case 16: err = tc::launch<16, 16>(q, k, v, a, B, strides, s); break;
+        case 32: err = tc::launch<32, 32>(q, k, v, a, B, strides, s); break;
+        case 64: err = tc::launch<64, 64>(q, k, v, a, B, strides, s); break;
+        case 128: err = tc::launch<128, 128>(q, k, v, a, B, strides, s); break;
+        case 256: err = tc::launch<256, 256>(q, k, v, a, B, strides, s); break;
+        default: break;
+      }
+    } else if (hd == 192 && vd == 128) {
+      err = tc::launch<192, 128>(q, k, v, a, B, strides, s);
+    }
+    return static_cast<int>(err);
+  }
+  if (dtype != 0 || hd != vd) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q;
   a.k = k;
@@ -232,12 +851,5 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
   a.cap = cap;
   a.causal = causal;
   a.window = window;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dtype) {
-    case 0: err = launch_t<float>(a, hd, s); break;
-    case 1: err = launch_t<__nv_bfloat16>(a, hd, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(launch_fp32(a, hd, s));
 }

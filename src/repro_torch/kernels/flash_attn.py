@@ -1,13 +1,19 @@
-"""CUDA kernel: flash attention forward (online softmax), for Hopper.
+"""CUDA kernels: flash attention forward (online softmax), for Hopper.
 
 The port of the Pallas kernel ``repro/kernels/flash_attn.py::
-flash_attention``: one kernel, written by hand in ``csrc/flash_attn.cu``,
-computes causal / sliding-window / tanh-capped attention with fp32
-state over ``(B, Sq, H, hd)`` queries and ``(B, Sk, KV, hd)`` keys and
-values (GQA: head ``h`` reads KV head ``h // (H / KV)``), and writes each
-query row's log-sum-exp beside the output.  Ragged ``Sq``/``Sk`` tails
-are masked in the kernel.  It is bound by operations: ``4·hd`` flops per
-visible (query, key) pair.
+flash_attention``: ``csrc/flash_attn.cu``, written by hand, computes
+causal / sliding-window / tanh-capped attention with fp32 state over
+``(B, Sq, H, hd)`` queries, ``(B, Sk, KV, hd)`` keys and ``(B, Sk, KV,
+vd)`` values (GQA: head ``h`` reads KV head ``h // (H / KV)``), and
+writes each query row's log-sum-exp beside the output.  Ragged
+``Sq``/``Sk`` tails are masked in the kernel.  It is bound by
+operations: ``2·(hd + vd)`` flops per visible (query, key) pair.
+
+The dtype alone picks the kernel: bf16 runs on the tensor cores
+(``wgmma`` fed by TMA, probabilities split into two bf16 halves; head
+dims ``TC_DIMS``), fp32 on the CUDA cores (``FP32_DIMS``), the only
+route that holds fp32 to the reference's 3e-5.  ``launches`` counts
+every launch, ``tc_launches`` the tensor-core kernel's alone.
 
 ``FlashAttention`` is the ``torch.autograd.Function`` around it.  The
 JAX package has no backward kernel (its training path differentiates
@@ -35,20 +41,24 @@ SOURCE = _build.CSRC / "flash_attn.cu"
 
 #: dtype codes of the C entry point
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64)
+#: (hd, vd) the CUDA-core kernel takes, fp32 only
+FP32_DIMS = ((16, 16), (32, 32), (64, 64))
+#: (hd, vd) the tensor-core kernel takes, bf16 only
+TC_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
 #: query rows a block (the grid's second dimension is ceil(Sq / QT))
 QT = 128
 
-#: Kernel launches so far; the wrapper adds one per launch and nothing
-#: else touches it but a caller that resets it.
+#: Kernel launches so far, either kernel; the wrapper adds one per launch
+#: and nothing else touches it but a caller that resets it.
 launches = 0
+#: The tensor-core kernel's launches alone, counted the same way.
+tc_launches = 0
 
 
 @functools.cache
 def _entry():
     fn = _build.load(SOURCE).flash_attn_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_int, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
@@ -57,9 +67,11 @@ def _entry():
 
 
 def flops(b: int, h: int, sq: int, sk: int, hd: int, *, causal: bool,
-          window: int = 0) -> int:
-    """Flops one forward launch needs: ``4·hd`` for every (query, key)
-    pair the mask leaves visible (a score and its share of ``P·V``)."""
+          window: int = 0, vd: int | None = None) -> int:
+    """Flops one forward launch needs: ``2·hd`` for the score and ``2·vd``
+    for its share of ``P·V``, for every (query, key) pair the mask leaves
+    visible."""
+    vd = hd if vd is None else vd
     if not causal:
         pairs = sq * sk
     else:
@@ -67,27 +79,43 @@ def flops(b: int, h: int, sq: int, sk: int, hd: int, *, causal: bool,
         hi = torch.clamp(i + 1, max=sk)
         lo = torch.clamp(i - window + 1, min=0) if window > 0 else 0 * i
         pairs = int(torch.clamp(hi - lo, min=0).sum())
-    return 4 * hd * pairs * b * h
+    return 2 * (hd + vd) * pairs * b * h
 
 
 def bytes_moved(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
-    """Bytes one launch must move: q, k and v read once, the output and
-    the fp32 log-sum-exp written once."""
+    """Bytes one launch must move: q, k and v read once, the output
+    ``(B, Sq, H, vd)`` and the fp32 log-sum-exp written once."""
     b, sq, h, _ = q.shape
-    return (2 * q.numel() * q.element_size() + k.numel() * k.element_size()
-            + v.numel() * v.element_size() + 4 * b * h * sq)
+    out = b * sq * h * v.shape[-1] * q.element_size()
+    return (q.numel() * q.element_size() + k.numel() * k.element_size()
+            + v.numel() * v.element_size() + out + 4 * b * h * sq)
+
+
+def _strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """``t``'s (batch, seq, head) element strides, a size-1 dim's taken
+    as if packed (it is never stepped, and TMA checks every stride)."""
+    out = []
+    inner = t.shape[3]                      # the head dim is contiguous
+    for d in (2, 1, 0):
+        out.append(t.stride(d) if t.shape[d] > 1 else inner)
+        inner = out[-1] * t.shape[d]
+    return out[2], out[1], out[0]
 
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool, scale: float, attn_cap: float,
                   window: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel → ``(o (B, Sq, H, hd), lse (B, H, Sq) fp32)``.
+    """Launch a kernel → ``(o (B, Sq, H, vd), lse (B, H, Sq) fp32)``.
 
-    ``q`` is ``(B, Sq, H, hd)``, ``k``/``v`` ``(B, Sk, KV, hd)`` CUDA
-    tensors of one dtype (fp32 or bf16), ``H % KV == 0``, ``hd`` in
-    ``HEAD_DIMS``, each with a contiguous last dim (other strides free).
+    ``q`` is ``(B, Sq, H, hd)``, ``k`` ``(B, Sk, KV, hd)`` and ``v``
+    ``(B, Sk, KV, vd)``, CUDA tensors of one dtype, ``H % KV == 0``, each
+    with a contiguous last dim.  bf16 launches the tensor-core kernel at
+    ``(hd, vd)`` in ``TC_DIMS``; it reads q, k and v by TMA, so each base
+    is 16-byte aligned and each stride a multiple of 8 elements.  fp32
+    launches the CUDA-core kernel at ``(hd, vd)`` in ``FP32_DIMS`` (other
+    strides free).  Anything else raises; nothing is copied.
     """
-    global launches
+    global launches, tc_launches
     ts = (q, k, v)
     if any(t.device.type != "cuda" for t in ts):
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
@@ -98,40 +126,50 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention kernel: dtypes {q.dtype} "
                          f"{k.dtype} {v.dtype}; wants one of {list(DTYPES)}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention kernel wants (B, Sq, H, hd) q and "
-                         f"(B, Sk, KV, hd) k, v; got {tuple(q.shape)} "
-                         f"{tuple(k.shape)} {tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention kernel wants (B, Sq, H, hd) q, "
+                         f"(B, Sk, KV, hd) k and (B, Sk, KV, vd) v; got "
+                         f"{tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
     b, sq, h, hd = q.shape
-    sk, kv = k.shape[1], k.shape[2]
+    sk, kv, vd = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != b or k.shape[3] != hd or h % kv:
         raise ValueError(f"flash_attention kernel: q {tuple(q.shape)} and "
                          f"k {tuple(k.shape)} do not match (H % KV == 0)")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel: head dim {hd} not in "
-                         f"{HEAD_DIMS}")
+    tc = q.dtype == torch.bfloat16
+    dims = TC_DIMS if tc else FP32_DIMS
+    if (hd, vd) not in dims:
+        raise ValueError(f"flash_attention kernel: (hd, vd) = {(hd, vd)} "
+                         f"not in {dims} for {q.dtype}")
     if sq < 1 or sk < 1 or b < 1 or sq > 65535 * QT:
         raise ValueError(f"flash_attention kernel: empty or too long "
                          f"{tuple(q.shape)} {tuple(k.shape)}")
     if any(t.stride(3) != 1 for t in ts):
         raise ValueError("flash_attention kernel: the head dim must be "
                          "contiguous")
-    o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    strides = [_strides(t) for t in ts]
+    if tc and (any(t.data_ptr() % 16 for t in ts)
+               or any(x % 8 for st in strides for x in st)):
+        raise ValueError(f"flash_attention kernel: TMA wants 16-byte "
+                         f"aligned bases and strides of 8 elements; got "
+                         f"strides {strides}")
+    o = torch.empty((b, sq, h, vd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
-                                       *v.stride()[:3], *o.stride()[:3])
+    cstrides = (ctypes.c_longlong * 12)(*strides[0], *strides[1],
+                                        *strides[2], *o.stride()[:3])
     fn = _entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), DTYPES[q.dtype], hd, b, h, kv, sq, sk,
-                 strides, float(scale), int(bool(causal)), float(attn_cap),
+                 lse.data_ptr(), DTYPES[q.dtype], hd, vd, b, h, kv, sq, sk,
+                 cstrides, float(scale), int(bool(causal)), float(attn_cap),
                  int(window), stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError "
                            f"{err} for q {tuple(q.shape)} k {tuple(k.shape)} "
-                           f"{q.dtype}")
+                           f"v {tuple(v.shape)} {q.dtype}")
     launches += 1
+    tc_launches += tc
     return o, lse
 
 

@@ -347,10 +347,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, scale: float | None = None,
               attn_cap: float = 0.0, window: int = 0) -> torch.Tensor:
     """Attention of ``(B, Sq, H, hd)`` queries over ``(B, Sk, KV, hd)``
-    keys and values (``H % KV == 0``) → ``(B, Sq, H, hd)`` in ``q``'s
-    dtype, differentiable.  Scores are ``fl32(q)·scale · k`` in fp32,
-    capped by ``attn_cap``, ``-1e30`` where the causal mask or the window
-    hides a key."""
+    keys and ``(B, Sk, KV, vd)`` values (``H % KV == 0``) → ``(B, Sq, H,
+    vd)`` in ``q``'s dtype, differentiable.  Scores are ``fl32(q)·scale ·
+    k`` in fp32, capped by ``attn_cap``, ``-1e30`` where the causal mask
+    or the window hides a key.  On the card bf16 runs on the tensor
+    cores and fp32 on the CUDA cores (``flash_attn``)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return _ref.flash_attention_bshd(q, k, v, causal=causal, scale=scale,
@@ -361,9 +362,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
                     attn_cap: float = 0.0, window: int = 0) -> torch.Tensor:
-    """``(BH, S, hd)`` q, k, v (heads folded into the leading dim, GQA
-    broadcast by the caller) → ``(BH, S, hd)``: the TPU kernel's
-    signature.  Any ``S`` is taken: the kernel masks ragged tails."""
+    """``(BH, S, hd)`` q and k, ``(BH, S, vd)`` v (heads folded into the
+    leading dim, GQA broadcast by the caller) → ``(BH, S, vd)``: the TPU
+    kernel's signature.  Any ``S`` is taken: the kernel masks ragged
+    tails."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError(f"flash_attention wants (BH, S, hd), got "
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")

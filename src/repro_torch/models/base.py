@@ -185,6 +185,13 @@ def remat(cfg: ModelConfig, fn: Callable) -> Callable:
 # Attention.
 # ---------------------------------------------------------------------------
 
+def _scale(q: torch.Tensor, scale: float | None) -> float:
+    """The query scale as the reference's step applies it: rounded to
+    ``q``'s dtype (the identity in fp32)."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return torch.tensor(scale, dtype=q.dtype).item()
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool, q_pos: torch.Tensor | None = None,
            kv_len: torch.Tensor | None = None, window: int = 0,
@@ -192,22 +199,25 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            chunk: int = 0) -> torch.Tensor:
     """Scaled dot-product attention.
 
-    q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd) with H % KV == 0.  On the CPU
-    it follows the reference's two branches exactly: dense softmax, or
-    with ``chunk > 0`` the online softmax over query and KV chunks.  On
-    the card both are the flash kernel (``ops.attention``), which
-    computes the same function; it scales ``fl32(q)`` where the dense
-    branch scales ``q`` in its own dtype (the same bits when ``scale`` is
-    a power of two, as ``hd ** -0.5`` is for hd 16, 64, 256).  Masked
-    decode (``kv_len``, ``q_pos``) is not on the card path.
+    q: (B, Sq, H, hd); k/v: (B, Sk, KV, vd) with H % KV == 0.  On the CPU
+    it follows the reference's two branches: dense softmax, or with
+    ``chunk > 0`` the online softmax over query and KV chunks.  On the
+    card both are the flash kernel (``ops.attention``), which computes
+    the same function.  Every branch scales queries as the reference's
+    jitted step does: ``scale`` (given or ``hd ** -0.5``) is rounded to
+    ``q``'s dtype, as a weakly typed constant is, and ``fl32(q)`` is
+    multiplied by it in fp32, unrounded (XLA drops the round trip
+    through ``q``'s dtype).  Masked decode (``kv_len``, ``q_pos``) is not
+    on the card path.
     """
     if q.device.type != "cpu":
         if kv_len is not None or q_pos is not None:
             raise NotImplementedError(
                 "masked decode attention on the card is not ported: "
                 "ROADMAP queue 1 item 14 (serving)")
-        return ops.attention(q, k, v, causal=causal, scale=scale,
-                             attn_cap=attn_cap, window=window)
+        return ops.attention(q, k, v, causal=causal,
+                             scale=_scale(q, scale), attn_cap=attn_cap,
+                             window=window)
     if chunk > 0 and q.shape[1] > 1 and k.shape[1] % chunk == 0 \
             and kv_len is None:
         return _attend_chunked(q, k, v, causal=causal, window=window,
@@ -215,8 +225,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
-    scale = scale if scale is not None else hd ** -0.5
-    qf = (q * scale).float().reshape(b, sq, kv, g, hd)
+    qf = (q.float() * _scale(q, scale)).reshape(b, sq, kv, g, hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
     scores = softcap(scores, attn_cap)
     kpos = torch.arange(sk, device=q.device)
@@ -241,11 +250,10 @@ def _attend_chunked(q, k, v, *, causal, window, attn_cap, scale, chunk):
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
     vd = v.shape[-1]
-    scale = scale if scale is not None else hd ** -0.5
     nq = max(1, sq // chunk)
     qc_len = sq // nq
     nk = sk // chunk
-    qf = (q * scale).float().reshape(b, nq, qc_len, kv, g, hd)
+    qf = (q.float() * _scale(q, scale)).reshape(b, nq, qc_len, kv, g, hd)
     outs = []
     for qi in range(nq):
         qb = qf[:, qi]                                    # (B,qc,KV,G,hd)

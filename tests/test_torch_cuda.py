@@ -14,11 +14,12 @@ order and rounds the same way.  Two exceptions, both stated where they
 apply: NaN payloads are not compared, and ``sparse_accum_slots`` on
 unsorted lists adds three or more duplicates of an index in the
 hardware's order (``rtol = atol = 1e-5``, the reference's own tolerance).
-The flash attention kernel sums in another order than its plain version:
-fp32 outputs are held at ``atol = 3e-5`` (the reference's own tolerance
-for it), bf16 outputs to one bf16 ulp of the plain version computed from
-the same bf16 inputs, plus the fp32 sums' rounding floor where an output
-nearly cancels.
+The flash attention kernels sum in another order than their plain
+version: fp32 outputs (the CUDA-core kernel) are held at ``atol = 3e-5``
+(the reference's own tolerance for it), bf16 outputs (the tensor-core
+kernel) to one bf16 ulp of the plain version computed from the same bf16
+inputs, plus the fp32 sums' rounding floor where an output nearly
+cancels.
 """
 import pytest
 import torch
@@ -345,6 +346,97 @@ def test_flash_kernel_matches_plain_on_cuda(cuda, dtype):
                     _assert_flash_close(got, want, v)
                     cases += 1
     assert cases == 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,vd", [(16, 16), (32, 32), (64, 64), (128, 128),
+                                   (256, 256), (192, 128)])
+def test_flash_tensor_core_kernel_matches_plain_on_cuda(cuda, hd, vd):
+    """bf16 on the tensor cores at every (hd, vd) the kernel takes:
+    causal and not, cap 0 and 30, window 0 and 64, GQA 4/4 and 4/1,
+    ragged Sq and Sk, Sq > Sk (with the window, rows past Sk + 63 see no
+    key and average every value); every launch is the tensor-core
+    kernel's."""
+    cases = 0
+    for h, kv in ((4, 4), (4, 1)):
+        for sq, sk, causal in ((200, 200, True), (100, 300, False),
+                               (77, 77, True), (260, 130, True)):
+            for cap, win in ((0.0, 0), (30.0, 64)):
+                q = torch.randn((2, sq, h, hd), generator=cuda,
+                                device="cuda").bfloat16()
+                k = torch.randn((2, sk, kv, hd), generator=cuda,
+                                device="cuda").bfloat16()
+                v = torch.randn((2, sk, kv, vd), generator=cuda,
+                                device="cuda").bfloat16()
+                w = win if causal else 0
+                before = fa.tc_launches
+                got = ops.attention(q, k, v, causal=causal, attn_cap=cap,
+                                    window=w)
+                assert fa.tc_launches == before + 1
+                want, _ = ref.flash_attention_bshd(
+                    q, k, v, causal=causal, attn_cap=cap, window=w,
+                    scale=hd ** -0.5)
+                torch.cuda.synchronize()
+                assert got.shape == (2, sq, h, vd)
+                _assert_flash_close(got, want, v)
+                cases += 1
+    assert cases == 16
+
+
+@pytest.mark.cuda
+def test_flash_tensor_core_kernel_takes_strided_views_on_cuda(cuda):
+    """Views whose strides TMA can read (multiples of 8 elements) go to
+    the kernel as they are: q a slice of wider heads, k and v two halves
+    of one packed tensor."""
+    q = torch.randn((2, 150, 4, 128), generator=cuda,
+                    device="cuda").bfloat16()[..., :64]
+    kv = torch.randn((2, 150, 2, 2, 64), generator=cuda,
+                     device="cuda").bfloat16()
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    assert not (q.is_contiguous() or k.is_contiguous())
+    before = fa.tc_launches
+    got = ops.attention(q, k, v, causal=True, attn_cap=30.0, window=64)
+    assert fa.tc_launches == before + 1
+    want, _ = ref.flash_attention_bshd(q, k, v, causal=True, attn_cap=30.0,
+                                       window=64)
+    torch.cuda.synchronize()
+    _assert_flash_close(got, want, v)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_routes_by_dtype_on_cuda(cuda):
+    """bf16 goes to the tensor-core kernel, fp32 to the CUDA-core one."""
+    q = torch.randn((1, 64, 2, 64), generator=cuda, device="cuda")
+    before, tc_before = fa.launches, fa.tc_launches
+    fa.attention_fwd(q.bfloat16(), q.bfloat16(), q.bfloat16(), causal=True,
+                     scale=0.125, attn_cap=0.0, window=0)
+    assert (fa.launches, fa.tc_launches) == (before + 1, tc_before + 1)
+    fa.attention_fwd(q, q, q, causal=True, scale=0.125, attn_cap=0.0,
+                     window=0)
+    assert (fa.launches, fa.tc_launches) == (before + 2, tc_before + 1)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_raises_on_what_neither_kernel_takes_on_cuda(cuda):
+    """fp32 past hd 64, a head dim neither kernel has, another dtype and
+    strides TMA cannot read raise, and launch nothing."""
+    def qkv(hd, vd, dtype, pad=0):
+        q = torch.randn((1, 64, 2, hd + pad), generator=cuda,
+                        device="cuda").to(dtype)[..., :hd]
+        v = torch.randn((1, 64, 2, vd), generator=cuda,
+                        device="cuda").to(dtype)
+        return q, q, v
+    before = fa.launches
+    for hd, vd, dtype, pad, what in (
+            (128, 128, torch.float32, 0, "not in"),
+            (48, 48, torch.bfloat16, 0, "not in"),
+            (128, 64, torch.bfloat16, 0, "not in"),
+            (64, 64, torch.float16, 0, "dtypes"),
+            (64, 64, torch.bfloat16, 4, "TMA")):
+        with pytest.raises(ValueError, match=what):
+            fa.attention_fwd(*qkv(hd, vd, dtype, pad), causal=True,
+                             scale=0.125, attn_cap=0.0, window=0)
+    assert fa.launches == before
 
 
 @pytest.mark.cuda

@@ -22,6 +22,7 @@ heads / 2 kv heads × 64, d_ff 512, vocab 512, 2 layers, fp32), so that
 and the norms are not.
 """
 import functools
+import math
 import re
 from pathlib import Path
 
@@ -131,6 +132,108 @@ def test_attend_matches_jax(chunk, causal, cap, win):
                           torch.from_numpy(v), causal=causal, attn_cap=cap,
                           window=win)
     np.testing.assert_allclose(flash.numpy(), np.asarray(want), atol=3e-5)
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at each value (8 significant bits)."""
+    _, e = np.frexp(np.maximum(np.abs(x), 1e-30))
+    return np.ldexp(1.0, e - 8)
+
+
+@pytest.mark.parametrize("chunk", [0, 64])
+@pytest.mark.parametrize("hd", [32, 128])
+def test_attend_bf16_scales_queries_as_the_jitted_reference(hd, chunk):
+    """bf16 at head dims whose ``hd ** -0.5`` is not a power of two: the
+    jitted reference multiplies ``fl32(q)`` by the scale rounded to bf16,
+    unrounded; both CPU branches of the port do the same, so they agree
+    within one bf16 ulp (summation order).  Scaling by the fp32 scale, or
+    rounding the product to bf16, moves thousands of outputs further."""
+    rng = np.random.default_rng(3)
+    q = _rand(rng, (1, 128, 4, hd), "bf16") * 4
+    k, v = (_rand(rng, (1, 128, 2, hd), "bf16") for _ in range(2))
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(jax.jit(functools.partial(
+        jbase.attend, causal=True, chunk=chunk))(jq, jk, jv), np.float32)
+    got = base.attend(*(torch.from_numpy(x.astype(np.float32)).bfloat16()
+                        for x in (q, k, v)),
+                      causal=True, chunk=chunk).float().numpy()
+    assert np.all(np.abs(got - want) <= _bf16_ulp(want))
+
+
+@pytest.mark.parametrize("hd,vd", [(128, 128), (256, 256), (192, 128)])
+def test_flash_plain_matches_pallas_interpret_wide_heads(hd, vd):
+    """The plain version at the head dims the tensor-core kernel adds,
+    and a value dim apart from the head dim (DeepSeek-V2's MLA)."""
+    rng = np.random.default_rng(4)
+    q, k = (rng.normal(size=(2, 256, hd)).astype(np.float32)
+            for _ in range(2))
+    v = rng.normal(size=(2, 256, vd)).astype(np.float32)
+    for causal, cap, win in ((True, 0.0, 0), (True, 30.0, 64),
+                             (False, 0.0, 0)):
+        want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      causal=causal, attn_cap=cap, window=win, q_tile=128,
+                      kv_tile=128, interpret=True)
+        got = ref.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), causal=causal,
+                                  attn_cap=cap, window=win, kv_tile=128)
+        assert got.shape == (2, 256, vd)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=3e-5)
+
+
+def _tensor_core_emulation(q, k, v, *, scale, kt, split=True):
+    """The bf16 tensor-core kernel's rounding in plain PyTorch, causal:
+    bf16 operands, fp32 scores scaled after the product, an online
+    softmax over key tiles of ``kt`` with ``exp2((s - m) · log2 e)``, and
+    P split as ``bf16(p) + bf16(p - bf16(p))`` into two bf16 products
+    summed in one fp32 accumulator (``split=False`` keeps ``bf16(p)``
+    alone).  q ``(S, hd)``, k ``(S, hd)``, v ``(S, vd)``, all bf16 → o
+    ``(S, vd)`` bf16."""
+    s_len = q.shape[0]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    rows = torch.arange(s_len)
+    m = torch.full((s_len,), -torch.inf)
+    l = torch.zeros(s_len)
+    acc = torch.zeros((s_len, v.shape[1]))
+    for t0 in range(0, s_len, kt):
+        s = (qf @ kf[t0:t0 + kt].T) * scale
+        keys = t0 + torch.arange(s.shape[1])
+        s = torch.where(keys[None, :] <= rows[:, None], s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2((m - m_new) * math.log2(math.e))
+        p = torch.exp2((s - m_new[:, None]) * math.log2(math.e))
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float() if split else torch.zeros_like(p)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[:, None] + hi @ vf[t0:t0 + kt] + lo @ vf[t0:t0 + kt]
+        m = m_new
+    return (acc / torch.clamp(l[:, None], min=1e-30)).bfloat16()
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_split_probabilities_hold_the_bf16_gate(hd):
+    """The design's tolerance argument, before any card: with P split in
+    two bf16 halves the kernel's rounding stays within ``chip_smoke.py``'s
+    bf16 gate (one ulp of the plain output + 2^-17 · max|v|) on a
+    4096-key causal row set, and a single bf16 P does not, so the gate
+    tells the two apart."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(_rand(rng, (4096, hd), "bf16")
+                                .astype(np.float32)).bfloat16()
+               for _ in range(3))
+    scale = base._scale(q, None)
+    want, _ = ref.flash_attention_bshd(q[None, :, None], k[None, :, None],
+                                       v[None, :, None], causal=True,
+                                       scale=scale)
+    want = want[0, :, 0].float().numpy()
+    floor = 2.0**-17 * float(v.float().abs().max())
+    excess = {}
+    for split in (True, False):
+        got = _tensor_core_emulation(q, k, v, scale=scale,
+                                     kt=128 if hd == 64 else 64,
+                                     split=split).float().numpy()
+        excess[split] = (np.abs(got - want) - _bf16_ulp(want)).max()
+    assert excess[True] <= floor, (excess[True], floor)
+    assert excess[False] > floor, (excess[False], floor)
 
 
 def test_flash_backward_matches_autograd_of_plain():
