@@ -55,16 +55,19 @@
    Before it, both sparse kernels are held against their plain versions
    (``sparse_accum_slots`` sorted and unsorted, -1 and out-of-range
    entries, duplicates, B = 1, 3, 294, strided G; ``topk_compact`` with
-   k = 1, 8, 64, ties, zero, ±0.0, inf and NaN blocks, f32, bf16, f16).
+   k = 1, 2, 8, 64, block - 1 and block, ties, zero, ±0.0, inf and NaN
+   blocks, the cluster (one 1e6, the rest in [1, 1.0001]), all-NaN and
+   all-inf blocks, f32, bf16, f16).
 5. The SparCML sparsifier: ``ops.blockwise_sparsify`` (k = 1 per block of
    512) of a 2^28-element vector and its round trip into the flat
    ``ops.sparse_accum``, counters reset just before and read just after,
-   bitwise against the plain versions.
+   bitwise against the plain versions; the round trip's device time.
 6. Times each whole reduction (median of a few runs) with its peak
    device memory, profiles one int8 and one sparse reduction, and times
    every kernel, its plain version and, where one PyTorch call computes
    the same function, that call, at the shapes the paths gave the
-   kernel, beside the kernel's memory bound.
+   kernel, beside the kernel's memory bound; ``topk_compact`` also at
+   k = 8 and 64 on the sparsifier's 2^28 vector.
 7. The flash attention kernels (``csrc/flash_attn.cu``: bf16 on the
    tensor cores, fp32 on the CUDA cores) against their plain version:
    causal and not, cap 0 and 30, window 0 and 256, GQA 1, 4 and 8, ragged
@@ -524,16 +527,24 @@ def phase_sparse_vs_plain(torch, ops, tk) -> None:
                                  atol=1e-5).all()), f"flat {dtype}")
         cases += 2
         for block in tk.BLOCKS:
-            for k in (1, 8, 64):
-                if k > block:
+            for k in sorted({1, 2, 8, 64, block - 1, block}):
+                if not 1 <= k <= block:
                     continue
-                x = torch.randn((9, block), generator=gen, device="cuda")
+                x = torch.randn((12, block), generator=gen, device="cuda")
                 x[1] = torch.randint(-3, 4, (block,), generator=gen,
                                      device="cuda") / 2        # ties
                 x[2] = 0.0
                 x[3, ::2] = -0.0
                 x[4, 0], x[5, block - 1] = float("inf"), float("nan")
                 x[6, 1], x[6, 2] = float("-inf"), float("inf")
+                # the cluster: every entry above the threshold, the cap by
+                # index order decides
+                x[8] = 1 + 1e-4 * torch.rand(block, generator=gen,
+                                             device="cuda")
+                x[8, block // 3] = 1e6
+                x[9] = float("nan")
+                x[10] = float("inf")
+                x[10, ::3] = float("-inf")
                 x = x.to(dtype).reshape(-1)
                 v, i = ops.topk_compact(x, k, block)
                 pv, pi = ops.topk_compact_plain(x, k, block)
@@ -545,8 +556,9 @@ def phase_sparse_vs_plain(torch, ops, tk) -> None:
           "sorted and unsorted, -1 and out-of-range entries, duplicates, "
           "B 1 3 294, strided G, ragged E and size, f32 bf16 f16: bitwise, "
           "unsorted triples within rtol = atol = 1e-5; topk_compact every "
-          "block size, k 1 8 64, ties, zero, ±0.0, inf and NaN blocks: "
-          "bitwise, NaN payloads aside)")
+          "block size, k 1 2 8 64 block-1 block, ties, zero, ±0.0, inf, "
+          "NaN, cluster, all-NaN and all-inf blocks: bitwise, NaN payloads "
+          "aside)")
 
 
 def plain_sparse_patches(sa, tk, ops):
@@ -1391,11 +1403,17 @@ def main() -> int:
         (blocks > 0).sum()), "the round trip lost or added entries")
     check(bool((vs[kept].abs() >= blocks[kept] * (1 - 2.0**-23)).all()),
           "a block's selected value is not its largest")
+    def round_trip():
+        v, g = ops.blockwise_sparsify(xs, SPARCML_K)
+        return ops.sparse_accum(g, v, xs.numel())
+
+    trip_ms = cuda_ms(round_trip, 10)
     print(f"sparsifier round trip on 2^28 fp32, k={SPARCML_K} a block of "
           f"512: launches topk_compact {launches['topk_compact']}, "
           f"sparse_accum {launches['sparse_accum']}; {int(kept.sum())} "
           "entries kept, each its block's largest magnitude; bitwise == "
-          "plain")
+          f"plain; {trip_ms:.3f} ms a round trip (blockwise_sparsify + "
+          f"sparse_accum, CUDA events)  [{card}]")
     del pvs, pgs, blocks, kept, dense
     torch.cuda.empty_cache()
 
@@ -1567,20 +1585,25 @@ def main() -> int:
         del run["seen"]
         torch.cuda.empty_cache()
 
-    # the sparsifier's kernels at the round trip's shapes (2^28, k = 1)
-    got = tk.topk_compact(xs, SPARCML_K)
-    want = ops.topk_compact_plain(xs, SPARCML_K)
-    check(same_bits(got[0], want[0]) and torch.equal(got[1], want[1]),
-          "topk_compact != plain at 2^28")
-    err = err_of(got[0], want[0])
-    del got, want
+    # the sparsifier's kernels at the round trip's shapes (2^28, k = 1);
+    # topk_compact also at k = 8 and 64 (off the path: printed, not in the
+    # JSON line, whose figure is the path's k)
     xb = xs.view(-1, 512)
-    account("topk_compact", tk.topk_bytes(xs, SPARCML_K, 512),
-            cuda_ms(lambda: tk.topk_compact(xs, SPARCML_K), 10),
-            cuda_ms(lambda: ops.topk_compact_plain(xs, SPARCML_K), 2),
-            cuda_ms(lambda: torch.topk(xb.abs(), SPARCML_K, dim=1), 5), err,
-            f"(2^28,) k={SPARCML_K} block 512; library torch.topk per block "
-            "(the same set, not the same order)")
+    for k in (SPARCML_K, 8, 64):
+        got = tk.topk_compact(xs, k)
+        want = ops.topk_compact_plain(xs, k)
+        check(same_bits(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"topk_compact != plain at 2^28, k={k}")
+        err = err_of(got[0], want[0])
+        del got, want
+        account("topk_compact" if k == SPARCML_K
+                else "topk_compact (off the path)",
+                tk.topk_bytes(xs, k, 512),
+                cuda_ms(lambda: tk.topk_compact(xs, k), 10),
+                cuda_ms(lambda: ops.topk_compact_plain(xs, k), 2),
+                cuda_ms(lambda: torch.topk(xb.abs(), k, dim=1), 5), err,
+                f"(2^28,) k={k} block 512; library torch.topk per block "
+                "(the same set, not the same order)")
     ok = gs >= 0
     gi, gv = gs[ok].long(), vs[ok]
     buf = torch.empty(xs.numel(), device="cuda")

@@ -190,6 +190,23 @@ def sparse_accum_slots(idx: torch.Tensor, val: torch.Tensor,
 TOPK_HEADROOM = 1e-30
 
 
+def topk_threshold(xb: torch.Tensor, k: int, n_iter: int = 24
+                   ) -> torch.Tensor:
+    """The reference's threshold ``lo`` of each ``(nb, block)`` row,
+    ``(nb, 1)`` fp32: ``n_iter`` bisection steps from ``lo = 0``, ``hi =
+    max|x| + 1e-30`` (NaN kept), each counting the row's ``|x| >= mid``
+    against ``k``."""
+    ax = xb.float().abs()
+    lo = torch.zeros((ax.shape[0], 1), dtype=torch.float32, device=ax.device)
+    hi = ax.amax(dim=1, keepdim=True) + TOPK_HEADROOM
+    for _ in range(n_iter):
+        mid = 0.5 * (lo + hi)
+        ge = (ax >= mid).sum(dim=1, keepdim=True) >= k
+        lo = torch.where(ge, mid, lo)
+        hi = torch.where(ge, hi, mid)
+    return lo
+
+
 def topk_compact(xb: torch.Tensor, k: int, n_iter: int = 24
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row top-k of ``(nb, block)`` rows → ``(values (nb, k)`` in
@@ -210,13 +227,7 @@ def topk_compact(xb: torch.Tensor, k: int, n_iter: int = 24
     """
     x = xb.float()
     ax = x.abs()
-    lo = torch.zeros((x.shape[0], 1), dtype=torch.float32, device=x.device)
-    hi = ax.amax(dim=1, keepdim=True) + TOPK_HEADROOM
-    for _ in range(n_iter):
-        mid = 0.5 * (lo + hi)
-        ge = (ax >= mid).sum(dim=1, keepdim=True) >= k
-        lo = torch.where(ge, mid, lo)
-        hi = torch.where(ge, hi, mid)
+    lo = topk_threshold(xb, k, n_iter)
     gt = ax > lo
     n1 = gt.cumsum(dim=1, dtype=torch.int32)
     total1 = torch.clamp(n1[:, -1:], max=k)

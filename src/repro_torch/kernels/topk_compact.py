@@ -1,17 +1,23 @@
 """CUDA kernel: per-block magnitude top-k compaction (feeds §7).
 
 The port of the Pallas kernel ``repro/kernels/topk_compact.py::
-topk_compact``, the SparCML sparsifier behind ``ops.blockwise_sparsify``:
-for each block of ``block`` elements (512 on the path), the ``k``
-elements of largest magnitude found by the reference's 24-step fp32
-bisection, the ones strictly above the threshold first and the ties at
-it after them, each run in index order — so the output is not
-index-sorted.  ``csrc/sparse.cu`` (its head comment gives the design)
-runs one warp a block with ``block / 32`` elements a lane in registers,
-warp reductions for the max and the counts and warp prefix sums for the
-positions, and writes each output directly.  Its values are what the
-reference's one-hot product gives: NaN in a block that holds a NaN or an
-inf elsewhere, a selected ``-0.0`` as ``+0.0``; bitwise equal to
+topk_compact`` (``pallas_call`` at :95), the SparCML sparsifier behind
+``ops.blockwise_sparsify``: for each block of ``block`` elements (512 on
+the path), the ``k`` elements of largest magnitude above the threshold of
+the reference's 24-step fp32 bisection, the ones strictly above it first
+and the ties at it after them, each run in index order, so the output is
+not index-sorted.
+
+The reference's step asks ``count(|x| >= mid) >= k``, which holds exactly
+when the block's k-th largest magnitude ``v_k`` is ``>= mid``.
+``csrc/sparse.cu`` (its head comment gives the design) runs one warp a
+block with ``block / 32`` elements a lane in registers, finds ``v_k`` in
+one pass (for ``k = 1`` the block's max; for ``k > 1`` a radix select
+over the 31-bit magnitude patterns, per-lane byte counters in shared
+memory), runs the bisection on scalars, so no step reads an element,
+then compacts by warp prefix sums.  Its values are what the reference's
+one-hot product gives: NaN in a block that holds a NaN or an inf
+elsewhere, a selected ``-0.0`` as ``+0.0``; bitwise equal to
 ``ref.topk_compact`` (NaN payloads aside).
 
 Bound by memory: ``topk_bytes``.  Built with ``nvcc`` at first launch

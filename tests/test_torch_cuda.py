@@ -244,20 +244,28 @@ def test_sparse_accum_kernel_matches_plain_on_cuda(cuda, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_topk_compact_kernel_matches_plain_on_cuda(cuda, dtype):
-    """k = 1, 8, 64 and every block size: ties, zero blocks, ±0.0, inf
-    and NaN blocks (NaN payloads not compared), a ragged length."""
+    """k = 1, 2, 8, 64, block - 1 and block, every block size: ties,
+    zero blocks, ±0.0, inf and NaN blocks, the cluster (one 1e6, the rest
+    in [1, 1.0001]: the cap by index order decides), all-NaN and all-inf
+    blocks (NaN payloads not compared), a ragged length."""
     dt = getattr(torch, dtype)
     for block in tk.BLOCKS:
-        for k in (1, 8, 64):
-            if k > block:
+        for k in sorted({1, 2, 8, 64, block - 1, block}):
+            if not 1 <= k <= block:
                 continue
-            x = torch.randn((9, block), generator=cuda, device="cuda")
+            x = torch.randn((12, block), generator=cuda, device="cuda")
             x[1] = torch.randint(-3, 4, (block,), generator=cuda,
                                  device="cuda") / 2
             x[2] = 0.0
             x[3, ::2] = -0.0
             x[4, 0], x[5, block - 1] = float("inf"), float("nan")
             x[6, 1], x[6, 2] = float("-inf"), float("inf")
+            x[8] = 1 + 1e-4 * torch.rand(block, generator=cuda,
+                                         device="cuda")
+            x[8, block // 3] = 1e6
+            x[9] = float("nan")
+            x[10] = float("inf")
+            x[10, ::3] = float("-inf")
             x = x.to(dt).reshape(-1)[:-3]             # ragged: padded
             v, i = ops.topk_compact(x, k, block)
             pv, pi = ops.topk_compact_plain(

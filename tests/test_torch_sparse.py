@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.core import engine as jengine
 from repro.core import sparse as jsparse
@@ -322,6 +323,182 @@ def test_topk_compact_signed_zero_deviation():
         assert np.array_equal(i.numpy(), np.asarray(wi))
         assert (np.signbit(np.asarray(wv)) == ref_sign).all()
         assert not torch.signbit(v).any()
+
+
+# The CUDA kernel's own arithmetic, emulated: v_k by its radix select,
+# then the bisection on scalars, then its compaction.
+
+_U32 = np.uint32(0xFFFFFFFF)
+
+
+def _bitonic_descending(c: np.ndarray) -> np.ndarray:
+    """The warp's bitonic sort of 32 keys, one a lane, largest first: at
+    each stage lane ``l`` keeps the max or the min of itself and lane
+    ``l ^ stride``."""
+    lane = np.arange(32)
+    size = 2
+    while size <= 32:
+        stride = size // 2
+        while stride:
+            o = c[lane ^ stride]
+            keep_max = ((lane & stride) == 0) == ((lane & size) == 0)
+            c = np.where(keep_max, np.maximum(c, o), np.minimum(c, o))
+            stride //= 2
+        size *= 2
+    return c
+
+
+def _radix_kth_largest(u: np.ndarray, k: int) -> np.uint32:
+    """``warp_kth_largest``: the k-th largest of the 31-bit magnitude
+    patterns ``u``, passes over 6-bit digits from the top (bits 25-30,
+    19-24, ..., 1-6, then bit 0) until at most 32 candidates are left,
+    which a warp bitonic sort orders."""
+    prefix, above, want = np.uint32(0), np.uint32(0), k
+    for shift in (25, 19, 13, 7, 1, 0):
+        cand = u[(u & above) == prefix]
+        hist = np.bincount((cand >> np.uint32(shift)) % 64, minlength=64)
+        from_top = np.append(np.cumsum(hist[::-1])[::-1][1:], 0)
+        hit = np.flatnonzero((from_top < want) & (want <= from_top + hist))
+        assert hit.size == 1
+        d = int(hit[0])
+        want -= int(from_top[d])
+        prefix |= np.uint32(d << shift)
+        above = _U32 << np.uint32(shift)
+        if hist[d] <= 32:
+            c = np.zeros(32, np.uint32)                 # one a lane
+            c[:hist[d]] = u[(u & above) == prefix]
+            return _bitonic_descending(c)[want - 1]
+    return prefix                                   # the candidates all equal it
+
+
+def _kernel_threshold(x: np.ndarray, k: int, n_iter: int = 24) -> np.float32:
+    """``topk_kernel``'s ``lo`` for one fp32 block: ``v_k``, then ``n_iter``
+    steps of ``v_k >= mid`` on the scalars."""
+    ax = np.abs(x)
+    amax = np.float32(np.nan) if np.isnan(ax).any() else ax.max()
+    vk = amax
+    if k > 1:                       # unused where a NaN makes hi NaN
+        vk = _radix_kth_largest(ax.view(np.uint32), k).view(np.float32)
+    lo, hi = np.float32(0), amax + np.float32(1e-30)
+    for _ in range(n_iter):
+        mid = np.float32(0.5) * (lo + hi)
+        if vk >= mid:
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+def _kernel_compact(x: np.ndarray, lo: np.float32, k: int):
+    """The kernel's compaction of one fp32 block: strictly above ``lo`` in
+    index order, then ties, ``k`` in all; ``inf · 0`` NaN, ``0 + x``."""
+    ax = np.abs(x)
+    gt = ax > lo
+    eq = ~gt & (ax >= lo)
+    sel = np.flatnonzero(gt)[:k].tolist()
+    sel += np.flatnonzero(eq)[:k - len(sel)].tolist()
+    bad = ~np.isfinite(x)
+    vals = np.zeros(k, np.float32)
+    idx = np.full(k, -1, np.int32)
+    for pos, j in enumerate(sel):
+        vals[pos] = np.nan if bad.sum() - bad[j] > 0 else np.float32(0) + x[j]
+        idx[pos] = j
+    return vals, idx
+
+
+_KINDS = ("normal", "ties", "zeros", "signed_zeros", "subnormal", "inf",
+          "nan", "inf_pair", "cluster", "spread", "three_ones", "all_nan",
+          "all_inf")
+
+
+def _block(rng, kind: str, block: int) -> np.ndarray:
+    """One block of ``kind``: ties, zeros, ±0.0, subnormals, inf, NaN, the
+    cluster (one 1e6, the rest in [1, 1.0001], a spread under ``max ·
+    2^-24``, so more than ``k`` lie strictly above ``lo``)."""
+    x = rng.normal(size=block).astype(np.float32)
+    if kind == "ties":
+        x = _tied(rng, (block,))
+    elif kind == "zeros":
+        x[:] = 0.0
+    elif kind == "signed_zeros":
+        x[:] = np.where(rng.random(block) < 0.5, -0.0, 0.0)
+    elif kind == "subnormal":
+        x = (x * np.float32(1e-39)).astype(np.float32)
+    elif kind == "inf":
+        x[rng.integers(block)] = np.inf
+    elif kind == "nan":
+        x[rng.integers(block)] = np.nan
+    elif kind == "inf_pair":
+        x[rng.choice(block, 2, replace=False)] = [-np.inf, np.inf]
+    elif kind == "cluster":
+        x = (rng.uniform(1, 1.0001, block)
+             * rng.choice([-1, 1], block)).astype(np.float32)
+        x[rng.integers(block)] = 1e6
+    elif kind == "spread":
+        x = (x * np.exp2(rng.integers(-20, 21, block))).astype(np.float32)
+    elif kind == "three_ones":
+        x[:] = 0.0
+        x[rng.choice(block, 3, replace=False)] = 1.0
+    elif kind == "all_nan":
+        x[:] = np.nan
+    elif kind == "all_inf":
+        x[:] = np.where(rng.random(block) < 0.5, -np.inf, np.inf)
+    return x
+
+
+@settings(max_examples=150, deadline=None)
+@given(block=st.sampled_from([32, 64, 512]),
+       kk=st.sampled_from([1, 2, 8, -1, 0]),
+       dtype=st.sampled_from(["float32", "bfloat16", "float16"]),
+       kinds=st.lists(st.sampled_from(_KINDS), min_size=1, max_size=4),
+       seed=st.integers(0, 2**31 - 1))
+def test_topk_kernel_arithmetic_is_the_references(block, kk, dtype, kinds,
+                                                  seed):
+    """The CUDA kernel's threshold (``v_k`` by its radix select, then the
+    bisection on scalars) has the bits of the reference's counting
+    bisection, and its compaction gives ``ref.topk_compact``'s outputs:
+    ``k`` in {1, 2, 8, block - 1, block}, fp32, bf16 and fp16."""
+    k = {-1: block - 1, 0: block}.get(kk, kk)
+    rng = np.random.default_rng(seed)
+    xb = torch.from_numpy(np.stack([_block(rng, kind, block)
+                                    for kind in kinds])).to(
+        getattr(torch, dtype))
+    x32 = xb.float().numpy()
+    want_lo = ref.topk_threshold(xb, k).numpy()[:, 0]
+    want_v, want_i = ref.topk_compact(xb, k)
+    for r in range(len(kinds)):
+        lo = _kernel_threshold(x32[r], k)
+        assert lo.view(np.int32) == want_lo[r].view(np.int32), (kinds[r], k)
+        v, i = _kernel_compact(x32[r], lo, k)
+        assert np.array_equal(i, want_i[r].numpy()), (kinds[r], k)
+        got_v = torch.from_numpy(v).to(xb.dtype)
+        nan = torch.isnan(got_v)
+        assert torch.equal(nan, torch.isnan(want_v[r])), (kinds[r], k)
+        assert np.array_equal(_bits(got_v[~nan]), _bits(want_v[r][~nan])), \
+            (kinds[r], k)
+
+
+@pytest.mark.parametrize("k,dtype", [(1, "float32"), (8, "float32"),
+                                     (64, "float32"), (511, "float32"),
+                                     (8, "bfloat16")])
+def test_topk_compact_cluster_matches_jax(k, dtype):
+    """Eight cluster blocks (one 1e6, the rest of either sign in [1,
+    1.0001]): every entry lies strictly above the threshold, and the cap
+    by index order decides.  The port against the Pallas body (interpret
+    mode) and against the kernel's arithmetic, emulated."""
+    rng = np.random.default_rng(k)
+    x = _in_dtype(np.concatenate([_block(rng, "cluster", 512)
+                                  for _ in range(8)]), dtype)
+    wv, wi = jops.topk_compact(x, k)
+    v, i = ops.topk_compact(_t(x), k)
+    assert np.array_equal(i.numpy(), np.asarray(wi)) and _same(v, wv)
+    x32 = np.asarray(x, np.float32).reshape(8, 512)
+    for r in range(8):
+        lo = _kernel_threshold(x32[r], k)
+        if dtype == "float32" and k > 1:
+            assert (np.abs(x32[r]) > lo).sum() > k
+        ev, ei = _kernel_compact(x32[r], lo, k)
+        assert np.array_equal(ei, i[r].numpy())
 
 
 def test_blockwise_sparsify_round_trip_matches_jax():
