@@ -80,7 +80,18 @@
    bf16 in both); and the training path's shape, q ``(8, 4096, 32, 64)``
    against k, v ``(8, 4096, 4, 64)`` bf16 causal (the plain version on one
    batch row).
-8. The training step, the port's main path end to end, through the
+8. The wire dense reductions (``WIRE_RUNS``), at the reduction paths'
+   model and size: on ``(2, 4)`` the default (the hierarchical schedule,
+   rhd levels), ``reproducible=True`` (its fixed-tree variant),
+   ``two_level`` and ``ring``; on ``(1, 8)`` the default (the ring, each
+   bucket at its own stagger) and ``fixed_tree``.  Each: every rank the
+   same bits within ``(P - 1) · 2^-24 · Σ|x|`` of an fp64 sum, P = 8;
+   bitwise the same through the transport's per-bucket oracle
+   (``batched=False``); for the fixed trees, bitwise the same through the
+   per-bucket ``arena=False`` loop, and twice the same when reproducible;
+   on a reduced arena of 2 buckets, the card's bits equal the CPU's.  Its
+   median time of 5, its peak and ``wire_bytes_per_rank``.
+9. The training step, the port's main path end to end, through the
    launcher's own setup (``repro_torch.launch.train.setup``):
    TinyLlama-1.1B at full width and depth ``TRAIN_LAYERS``, bf16 compute
    with fp32 master weights, 8 ranks on ``--mesh 2x4x1``, one sequence
@@ -102,6 +113,16 @@
    FLOP bound, its plain version and ``scaled_dot_product_attention``
    (the library yardstick, which the port never calls), and at hd 128 on
    ``(1, 4096, 32, 128)``.
+10. The training step on the wire, the launcher's default
+   (``WIRE_TRAIN_FLAGS``: the same flags without ``--transport innetwork
+   --reproducible``), after the in-network run is freed: a warm-up step,
+   then ``WIRE_STEPS`` with the counters set to 0 just before and read
+   just after (flash ``2 × TRAIN_LAYERS`` a step, all on the tensor
+   cores; the norms through ``hierarchical_allreduce``); losses finite
+   and falling; step 1's loss bitwise the in-network step 1's (the same
+   forward, the rhd and fixed-tree gathers the same all-gather) and its
+   gradient norm within 1e-3; at ``COMPARE_LAYERS``, ``--gather-algorithm
+   ring`` against rhd the same way.
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line
 of kernel figures, and as its last line ``{"ok": true, "device": ...}``.
@@ -146,6 +167,25 @@ COMPARE_LAYERS = 2
 TRAIN_FLAGS = ["--mesh", "2x4x1", "--batch", "8", "--seq", "4096",
                "--transport", "innetwork", "--reproducible", "--lr", "5e-6",
                "--device", "cuda"]
+#: the wire training phase: ``TRAIN_FLAGS`` without ``--transport
+#: innetwork --reproducible``, the launcher's default wire reduction (FSDP
+#: gathers rhd, the norms through the hierarchical schedule)
+WIRE_TRAIN_FLAGS = [f for f in TRAIN_FLAGS
+                    if f not in ("--transport", "innetwork", "--reproducible")]
+#: timed steps of the wire training phase, after its warm-up step
+WIRE_STEPS = 3
+#: the wire reductions: name, mesh, ``FlareConfig`` fields.  On (2, 4)
+#: over ``("pod", "data")``, where auto resolves to the hierarchical
+#: schedule (rhd levels); on (1, 8) over ``("data",)``, ``FlareConfig``'s
+#: default axes and the launcher's on ``--mesh 8x1``, where auto resolves,
+#: with 4 MiB buckets, to the ring with staggers = bucket index
+WIRE_RUNS = (("auto", (2, 4), {}),
+             ("reproducible", (2, 4), {"reproducible": True}),
+             ("two_level", (2, 4), {"algorithm": "two_level"}),
+             ("ring", (2, 4), {"algorithm": "ring"}),
+             ("auto", (1, 8), {"axes": ("data",)}),
+             ("fixed_tree", (1, 8), {"axes": ("data",),
+                                     "algorithm": "fixed_tree"}))
 #: TinyLlama depth, cut from the published 22: the int8 reduction's peak
 #: is about four times the 8 ranks' fp32 gradient bytes (the caller's
 #: gradients and state, the two packed arenas), and 22 layers of fp32
@@ -409,6 +449,25 @@ def check_against_fp64(torch, grads, out, lead) -> float:
         bound = 3 * 2.0**-24 * x.abs().sum(dim=tuple(range(lead)))
         err = (r[(0,) * lead].double() - exact).abs()
         check(bool((err <= bound).all()), "result outside fp64 bound")
+        worst = max(worst, float((err / bound.clamp_min(1e-300)).max()))
+        del x, exact, bound, err
+    return worst
+
+
+def check_wire_bound(torch, grads, out, p) -> float:
+    """Every rank holds the same bits, within ``(P - 1) · 2^-24 · Σ|x|``
+    of the fp64 sum (a chain of P - 1 fp32 adds, the longest any wire
+    schedule takes).  Returns the worst ratio to the bound."""
+    worst = 0.0
+    for g, r in zip(grads, out):
+        iv = r.view(torch.int32)
+        check(bool((iv == iv[0, 0]).all()), "the ranks' results differ")
+        del iv
+        x = g.double()
+        exact = x.sum(dim=(0, 1))
+        bound = (p - 1) * 2.0**-24 * x.abs().sum(dim=(0, 1))
+        err = (r[0, 0].double() - exact).abs()
+        check(bool((err <= bound).all()), "wire result outside fp64 bound")
         worst = max(worst, float((err / bound.clamp_min(1e-300)).max()))
         del x, exact, bound, err
     return worst
@@ -932,7 +991,184 @@ def phase_train(torch, card, total_mem, tr) -> dict:
           f"; relative {rel['loss']:.2e} and {rel['grad_norm']:.2e} (bf16 "
           "tolerance 2e-2)")
     torch.cuda.empty_cache()
-    return {"launches": launches, "step_ms": step_ms, "peak": peak}
+    return {"launches": launches, "step_ms": step_ms, "peak": peak,
+            "loss1": losses[0], "norm1": norms[0]}
+
+
+def phase_wire_reductions(torch, card, total_mem, cfg, seed) -> None:
+    """The wire dense reductions at full width (``WIRE_RUNS``): the fp64
+    bound, batched == per-bucket, arena == per-bucket loop for the fixed
+    trees, reproducible twice, card == CPU on two buckets; time, peak and
+    the bytes each rank would put on the wire."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.core import arena as arena_mod
+    from repro_torch.core import collectives as coll, transports
+    from repro_torch.core.engine import FlareConfig, GradReducer
+    from repro_torch.kernels import tree_reduce as tr
+    from repro_torch.mesh import AXES, RankMesh
+    from repro_torch.models import transformer
+
+    held = torch.cuda.memory_allocated()
+    grads = make_grads(torch, tree, transformer, cfg, (2, 4), seed)
+    n_params = sum(l[0, 0].numel() for l in tree.flatten(grads)[0])
+    print(f"wire reductions: {cfg.name} at published widths, {LAYERS} "
+          f"layers, {n_params} fp32 parameters a rank, 8 ranks "
+          f"({8 * n_params * 4 / 1e9:.2f} GB of input); "
+          f"{held / 2**30:.2f} GiB allocated as the phase starts")
+    for name, shape, kw in WIRE_RUNS:
+        mesh = RankMesh(shape, AXES)
+        gt = tree.map_leaves(lambda g: g.view(*shape, *g.shape[2:]), grads)
+        leaves = tree.flatten(gt)[0]
+        config = FlareConfig(**{"axes": AXES, **kw})
+        red = GradReducer(config, mesh)
+        grp = arena_mod.build_plan(leaves, config.bucket_bytes,
+                                   pad_multiple=red._pad_multiple(8),
+                                   lead_dims=2).groups[0]
+        batched = transports.from_config(config, mesh, torch.float32)
+        alg = batched._resolve(torch.empty(grp.bucket_elems, device="meta"))
+        what = (f"{name} on {shape} over {config.axes} ({alg}"
+                f"{', fixed tree' if config.reproducible else ''})")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr.launches = 0
+        out, _ = red(gt)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        check(tr.launches == 0, f"{what}: the wire launched the switch fold")
+        out_leaves = tree.flatten(out)[0]
+        worst = check_wire_bound(torch, leaves, out_leaves, 8)
+        done = [f"within {worst:.3f} of the fp64 bound, every rank the same"]
+        if config.reproducible:
+            again = tree.flatten(red(gt)[0])[0]
+            check(all(same_bits(a, b) for a, b in zip(out_leaves, again)),
+                  f"{what}: two runs differ")
+            del again
+            done.append("the same bits twice")
+        if config.reproducible or alg == "fixed_tree":
+            legacy = GradReducer(dataclasses.replace(config, arena=False),
+                                 mesh)(gt)[0]
+            check(trees_same_bits(out, legacy),
+                  f"{what}: arena != per-bucket loop")
+            del legacy
+            done.append("arena == arena=False")
+        arena = grp.pack(leaves)
+        st = grp.staggers(config.stagger, arena.device)
+        small = arena[..., :2, :].clone()
+        per = transports.from_config(config, mesh, torch.float32,
+                                     batched=False)
+        per_out = per(arena, None, st, grp.valid_extents)[0]
+        del arena
+        per_leaves = [None] * len(leaves)
+        grp.unpack(per_out, per_leaves)
+        check(all(same_bits(a, b) for a, b in zip(out_leaves, per_leaves)),
+              f"{what}: batched != per-bucket")
+        del per_leaves, per_out, out, out_leaves
+        ext = grp.valid_extents[:2]
+        on_card = batched(small, None, st[:2], ext)[0]
+        on_cpu = batched(small.cpu(), None, st[:2].cpu(), ext)[0]
+        check(same_bits(on_card.cpu(), on_cpu), f"{what}: card != CPU")
+        del small, on_card, on_cpu
+        done += ["batched == per-bucket", "card == CPU on 2 buckets"]
+        ms, runs = timed(torch, lambda: red(gt), 5)
+        wire = coll.wire_bytes_per_rank(n_params * 4, shape[1], shape[0],
+                                        algorithm=alg)
+        print(f"wire {what}: arena B={grp.num_buckets} "
+              f"S={grp.bucket_elems}; {'; '.join(done)}; ms (median of 5, "
+              f"{card}): {ms:.3f} (runs {[round(t, 3) for t in runs]}); "
+              f"peak device memory {peak / 2**30:.2f} GiB of "
+              f"{total_mem / 2**30:.1f}; wire_bytes_per_rank "
+              f"{wire / 1e9:.3f} GB")
+        del gt, leaves, red
+    del grads
+    torch.cuda.empty_cache()
+
+
+def phase_wire_train(torch, card, total_mem, innet: dict) -> None:
+    """The training step on the wire at full size (``WIRE_TRAIN_FLAGS``):
+    losses finite and falling, flash on the tensor cores 2 × layers a
+    step, step 1's loss bitwise the in-network phase's, its gradient norm
+    within 1e-3; then the ring gather against rhd at ``COMPARE_LAYERS``."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.launch import train as launch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = launch.setup(WIRE_TRAIN_FLAGS, n_layers=TRAIN_LAYERS,
+                       dtype=torch.bfloat16)
+    cfg = run.step.reducer.config
+    check(cfg.transport == "auto" and not cfg.reproducible
+          and run.args.gather_algorithm == "rhd",
+          f"the wire step is not the launcher's default wire path: {cfg}")
+    steps, losses, norms = [], [], []
+
+    def one():
+        t = time.perf_counter()
+        m = run.train_step()
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t) * 1e3)
+
+    one()                                      # warm-up: step 1
+    hier = Capture(coll, "hierarchical_allreduce", keep=0)
+    fa.launches = fa.tc_launches = 0
+    with hier.patch():
+        for _ in range(WIRE_STEPS):
+            one()
+    torch.cuda.synchronize()
+    launches, tc_launches = fa.launches, fa.tc_launches
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(steps[1:])
+    print(f"wire training ({' '.join(WIRE_TRAIN_FLAGS)}, {TRAIN_LAYERS} "
+          f"layers): losses (warm-up, then steps 2-{WIRE_STEPS + 1}) "
+          f"{[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(x, 3) for x in norms]}")
+    print(f"wire training step ms (median of {WIRE_STEPS}, {card}): "
+          f"{step_ms:.1f} (runs {[round(t, 1) for t in steps[1:]]}; warm-up "
+          f"{steps[0]:.1f}); flash launches {launches} over {WIRE_STEPS} "
+          f"steps, {tc_launches} of them the tensor-core kernel's; "
+          f"hierarchical_allreduce calls {hier.calls}; peak device memory "
+          f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}")
+    check(all(map(math.isfinite, losses)), f"a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"the last loss {losses[-1]} is not below "
+          f"step 1's {losses[0]}")
+    check(launches == WIRE_STEPS * 2 * TRAIN_LAYERS
+          and tc_launches == launches,
+          f"flash launches {launches} ({tc_launches} tensor-core) over "
+          f"{WIRE_STEPS} steps, want {2 * TRAIN_LAYERS} a step, all on the "
+          "tensor cores")
+    check(hier.calls >= WIRE_STEPS, "the norms missed the hierarchical "
+          "schedule")
+    rel = abs(norms[0] - innet["norm1"]) / innet["norm1"]
+    check(losses[0] == innet["loss1"], f"step 1 loss {losses[0]!r} != the "
+          f"in-network step's {innet['loss1']!r}")
+    check(rel <= 1e-3, f"step 1 grad norm {norms[0]} vs in-network "
+          f"{innet['norm1']}: relative {rel:.2e}")
+    print(f"wire step 1 vs in-network step 1: loss {losses[0]!r} bitwise "
+          f"equal; grad norm {norms[0]!r} vs {innet['norm1']!r}, relative "
+          f"{rel:.2e} (limit 1e-3)")
+    del run
+    torch.cuda.empty_cache()
+
+    def first_step(*flags):
+        r = launch.setup([*WIRE_TRAIN_FLAGS, *flags], n_layers=COMPARE_LAYERS,
+                         dtype=torch.bfloat16)
+        m = r.train_step()
+        return float(m["loss"]), float(m["grad_norm"])
+    (l_rhd, n_rhd), (l_ring, n_ring) = first_step(), first_step(
+        "--gather-algorithm", "ring")
+    rel = abs(n_ring - n_rhd) / n_rhd
+    check(l_ring == l_rhd, f"ring gather loss {l_ring!r} != rhd {l_rhd!r}")
+    check(rel <= 1e-3, f"ring gather grad norm {n_ring} vs rhd {n_rhd}")
+    print(f"wire step 1 at {COMPARE_LAYERS} layers, --gather-algorithm ring "
+          f"vs rhd: loss {l_ring!r} bitwise equal; grad norm {n_ring!r} vs "
+          f"{n_rhd!r}, relative {rel:.2e} (limit 1e-3)")
+    torch.cuda.empty_cache()
 
 
 def flash_figures(torch, fa, ref, card, err) -> dict:
@@ -1582,7 +1818,9 @@ def main() -> int:
                     f"{int(ok.sum())} entries; library index_put_ "
                     "accumulate into a zeroed buffer, -1 entries removed")
             del flat_i, flat_v, buf, ok
-        del run["seen"]
+        # the loop's names hold the last captured lists and result
+        # (3.2 GiB at f = 0.05): free them with the captures
+        del run["seen"], i, v, _
         torch.cuda.empty_cache()
 
     # the sparsifier's kernels at the round trip's shapes (2^28, k = 1);
@@ -1624,8 +1862,13 @@ def main() -> int:
     del xs, xb, vs, gs, gi, gv, buf, ok
     torch.cuda.empty_cache()
 
+    # -- the wire dense reductions: every schedule at full width ---------------
+    phase_wire_reductions(torch, card, total_mem, cfg, args.seed)
+
     # -- the training step: the main path end to end ---------------------------
     trained = phase_train(torch, card, total_mem, tr)
+    # -- and on the wire, the launcher's default --------------------------------
+    phase_wire_train(torch, card, total_mem, trained)
     launches["flash_attention"] = trained["launches"]
     figures["flash_attention"] = flash_figures(torch, fa, ref, card,
                                                flash_path_err)

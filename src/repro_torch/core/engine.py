@@ -1,9 +1,8 @@
 """The Flare gradient-reduction engine (the paper's technique, first-class).
 
-The port of ``repro/core/engine.py`` on its flat-arena path.
-``GradReducer`` takes an unreduced gradient pytree whose leaves carry
-the mesh's rank axes in front (``(*mesh, *shape)``, one slice per
-emulated rank), and:
+The port of ``repro/core/engine.py``.  ``GradReducer`` takes an
+unreduced gradient pytree whose leaves carry the mesh's rank axes in
+front (``(*mesh, *shape)``, one slice per emulated rank), and:
 
   1. packs the leaves into one padded ``(*mesh, B, S)`` arena per dtype
      (``core/arena.py``), with the collectives' pad folded into the plan;
@@ -12,6 +11,11 @@ emulated rank), and:
      switch data plane;
   3. reduces all B buckets of a group in one call and unpacks.
 
+``arena=False`` keeps the reference's per-bucket loop
+(``core/bucketing.py``: one unpadded bucket a call, each transport's
+per-bucket oracle), which gives the arena's bits wherever the combine
+is elementwise.
+
 With ``reproducible=True`` (F3) the result is bitwise-deterministic and
 bitwise-equal to the JAX package's on the same inputs.  With
 ``transport="innetwork"`` and ``compression="int8"`` (F1) or
@@ -19,9 +23,8 @@ bitwise-equal to the JAX package's on the same inputs.  With
 error-feedback residual as its state.
 
 Not ported yet: the wire int8 and wire sparse transports (ROADMAP queue
-1 items 7 and 8), the per-bucket ``arena=False`` path (item 2), the
-lossy fabric (item 9), the multi-tenant runtime (item 11) and telemetry
-(item 13).
+1 items 7 and 8), the lossy fabric (item 9), the multi-tenant runtime
+(item 11) and telemetry (item 13).
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core import arena as arena_mod
-from repro_torch.core import transports
+from repro_torch.core import bucketing, transports
 from repro_torch.mesh import RankMesh
 
 
@@ -107,10 +110,6 @@ class GradReducer:
         if missing:
             raise ValueError(f"config axes {missing} are not mesh axes "
                              f"{mesh.axes}")
-        if not config.arena:
-            raise NotImplementedError(
-                "the per-bucket arena=False path is not ported yet: ROADMAP "
-                "queue 1 item 2")
         if config.fault_plan is not None:
             raise NotImplementedError(
                 "the lossy fabric is not ported yet: ROADMAP queue 1 item 9")
@@ -146,10 +145,26 @@ class GradReducer:
         return a tensor of their own for every rank.  State leaves are
         views into one arena per dtype.
         """
-        return self._reduce_arena(grads, state)
+        if self.config.arena:
+            return self._reduce_arena(grads, state)
+        return self._reduce_legacy(grads, state)
 
     def _world(self) -> int:
         return self.mesh.world_size(self.config.axes)
+
+    def _transport(self, dtype: torch.dtype, *, batched: bool
+                   ) -> transports.Transport:
+        return transports.from_config(self.config, self.mesh, dtype,
+                                      batched=batched)
+
+    def _leaves(self, grads: Any, state: Any):
+        leaves, spec = tree.flatten(grads)
+        for l in leaves:
+            if tuple(l.shape[:self.mesh.ndim]) != self.mesh.shape:
+                raise ValueError(f"leaf {tuple(l.shape)} does not lead with "
+                                 f"the mesh shape {self.mesh.shape}")
+        ef_leaves = tree.flatten(state)[0] if state is not None else None
+        return leaves, spec, ef_leaves
 
     def _pad_multiple(self, world: int) -> int:
         """Chunk divisibility folded into the arena plan: ``2 · world``
@@ -161,19 +176,14 @@ class GradReducer:
 
     def _reduce_arena(self, grads: Any, state: Any) -> tuple[Any, Any]:
         c = self.config
-        leaves, spec = tree.flatten(grads)
-        ef_leaves = tree.flatten(state)[0] if state is not None else None
-        for l in leaves:
-            if tuple(l.shape[:self.mesh.ndim]) != self.mesh.shape:
-                raise ValueError(f"leaf {tuple(l.shape)} does not lead with "
-                                 f"the mesh shape {self.mesh.shape}")
+        leaves, spec, ef_leaves = self._leaves(grads, state)
         plan = arena_mod.build_plan(
             leaves, c.bucket_bytes, pad_multiple=self._pad_multiple(
                 self._world()), lead_dims=self.mesh.ndim)
         red_groups: list[torch.Tensor] = []
         ef_groups: list[torch.Tensor | None] = []
         for g in plan.groups:
-            transport = transports.from_config(c, self.mesh, g.dtype)
+            transport = self._transport(g.dtype, batched=True)
             # the packed arenas go straight into the call: a transport
             # may form its results in their storage
             red, ef_red = transport(
@@ -189,3 +199,32 @@ class GradReducer:
         ef_flat = plan.unpack([e if e is not None else torch.zeros_like(r)
                                for e, r in zip(ef_groups, red_groups)])
         return out, tree.unflatten(spec, ef_flat)
+
+    def _reduce_legacy(self, grads: Any, state: Any) -> tuple[Any, Any]:
+        """The per-bucket loop: each bucket, unpadded, through its
+        transport's per-bucket oracle (``batched=False``)."""
+        c = self.config
+        nd = self.mesh.ndim
+        leaves, spec, ef_leaves = self._leaves(grads, state)
+        out: list[torch.Tensor | None] = [None] * len(leaves)
+        new_ef: list[torch.Tensor | None] = [None] * len(leaves)
+        for b in bucketing.build_buckets(leaves, c.bucket_bytes, c.stagger,
+                                         lead_dims=nd):
+            flat = bucketing.pack_bucket(leaves, b, nd).unsqueeze(nd)
+            ef_flat = (bucketing.pack_bucket(ef_leaves, b, nd).unsqueeze(nd)
+                       if ef_leaves is not None else None)
+            stagger = torch.full((1,), b.stagger if c.stagger else 0,
+                                 dtype=torch.int32, device=flat.device)
+            red, ef_out = self._transport(b.dtype, batched=False)(
+                flat, ef_flat, stagger, (b.num_elements,))
+            for i, piece in bucketing.unpack_bucket(red.select(nd, 0),
+                                                    leaves, b, nd):
+                out[i] = piece
+            if ef_out is not None:
+                for i, piece in bucketing.unpack_bucket(ef_out.select(nd, 0),
+                                                        leaves, b, nd):
+                    new_ef[i] = piece
+        result = tree.unflatten(spec, out)
+        if not self.needs_state:
+            return result, None
+        return result, tree.unflatten(spec, new_ef)

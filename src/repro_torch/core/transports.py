@@ -4,7 +4,9 @@ The port of the dense part of ``repro/core/transports.py``.  A
 ``Transport`` reduces a whole ``(*mesh, B, S)`` dtype arena — all B
 buckets of every rank in one call.  Ported so far:
 
-* ``DenseTransport`` — the wire allreduce (``fixed_tree`` and ``psum``);
+* ``DenseTransport`` — the wire allreduce: ring (each bucket at its own
+  §5 stagger), rhd, fixed_tree, two_level, the tree-driven hierarchical
+  schedule and psum;
 * ``SwitchTransport`` — the emulated switch data plane: in dense mode
   ``switch.dataplane.switch_allreduce_dense``, which with
   ``reproducible=True`` folds every level in the ``tree_reduce`` kernel;
@@ -15,8 +17,11 @@ buckets of every rank in one call.  Ported so far:
   coordinate lists and densifies them in the ``sparse_accum_slots``
   kernel.
 
-Every other branch of ``from_config`` raises ``NotImplementedError``
-naming its ROADMAP item.
+``batched=False`` keeps the reference's per-bucket ancestor (its
+``lax.scan``; the switch's per-packet plane) as the bitwise oracle of the
+batched schedule.  The wire int8 and wire sparse branches of
+``from_config`` raise ``NotImplementedError`` naming their ROADMAP
+items.
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ class Transport:
     mesh: RankMesh
     axes: tuple[str, ...]
     mean: bool = False
+    batched: bool = True    # False → the per-bucket ancestor (the oracle)
     #: flat vs hierarchical wire schedule; None → the reduction tree decides
     hierarchical: bool | None = None
 
@@ -91,11 +97,20 @@ class DenseTransport(Transport):
         return alg
 
     def __call__(self, buf, ef, staggers, extents):
-        # the wire algorithms are elementwise over the buckets, so all B
-        # buckets ride one call
-        red = coll.allreduce(buf, self.mesh, self.axes,
-                             algorithm=self._resolve(buf),
-                             reproducible=self.reproducible)
+        alg = self._resolve(buf)
+
+        def one(v, s):
+            return coll.allreduce(v, self.mesh, self.axes, algorithm=alg,
+                                  reproducible=self.reproducible, stagger=s)
+        if self.batched:
+            # all B buckets in one schedule: every collective round
+            # carries the whole arena, each bucket at its own stagger
+            red = one(buf, staggers)
+        else:
+            nd = self.mesh.ndim
+            red = torch.empty_like(buf)
+            for b in range(buf.shape[nd]):
+                red.select(nd, b).copy_(one(buf.select(nd, b), staggers[b]))
         if self.mean:
             red = red / self._world()
         return red, (torch.zeros_like(ef) if ef is not None else None)
@@ -111,8 +126,8 @@ class SwitchTransport(Transport):
     bucket's top-``k`` coordinate list, ``k`` = ``sparse.sparse_k(k_frac,
     extent)`` of its unpadded extent, merged until ``density_threshold``
     and then densified), the last two under error feedback.  Otherwise
-    the §6.4 size switchover picks the buffer design.  It runs the
-    batched plane.
+    the §6.4 size switchover picks the buffer design.  ``batched``
+    picks the batched plane or, with False, the per-packet one.
 
     In the int8 and sparse modes ``buf`` is consumed: the error-feedback
     sum and then the new residual are formed in its storage
@@ -129,14 +144,16 @@ class SwitchTransport(Transport):
     def __call__(self, buf, ef, staggers, extents):
         if self.mode == "dense":
             red = dataplane.switch_allreduce_dense(
-                buf, self.mesh, self.axes, reproducible=self.reproducible)
+                buf, self.mesh, self.axes, reproducible=self.reproducible,
+                batched=self.batched)
             if self.mean:
                 red = red / self._world()
             return red, (torch.zeros_like(ef) if ef is not None else None)
         if self.mode == "int8":
             def transmit(v):
                 return dataplane.switch_allreduce_int8(
-                    v, self.mesh, self.axes, block=self.block), None
+                    v, self.mesh, self.axes, block=self.block,
+                    batched=self.batched), None
 
             def residual_(v, sent):
                 return compression.roundtrip_residual_(v, self.block)
@@ -146,7 +163,8 @@ class SwitchTransport(Transport):
             def transmit(v):
                 return dataplane.switch_allreduce_sparse(
                     v, self.mesh, self.axes, ks,
-                    density_threshold=self.density_threshold)
+                    density_threshold=self.density_threshold,
+                    batched=self.batched)
 
             def residual_(v, sent):
                 return sparse.residual_(v, *sent)
@@ -159,31 +177,35 @@ class SwitchTransport(Transport):
         return red, ef_out
 
 
-def from_config(config, mesh: RankMesh, dtype: torch.dtype) -> Transport:
+def from_config(config, mesh: RankMesh, dtype: torch.dtype, *,
+                batched: bool = True) -> Transport:
     """The transport dispatch, in one place.
 
     ``config`` is any object with the ``FlareConfig`` transport fields.
     Lossy transports apply to floating dtypes only; everything else rides
     the dense path.  ``transport="innetwork"`` swaps the wire schedule
-    for the emulated switch data plane.
+    for the emulated switch data plane.  ``batched=False`` gives the
+    per-bucket oracle of the same transport.
     """
     axes = tuple(config.axes)
     is_float = dtype.is_floating_point
     if config.transport == "innetwork":
         if config.sparse_k_frac > 0 and is_float:
             return SwitchTransport(mesh, axes, mean=config.mean,
-                                   mode="sparse", k_frac=config.sparse_k_frac,
+                                   batched=batched, mode="sparse",
+                                   k_frac=config.sparse_k_frac,
                                    density_threshold=config.density_threshold)
         if config.compression == "int8" and is_float:
-            return SwitchTransport(mesh, axes, mean=config.mean, mode="int8")
-        return SwitchTransport(mesh, axes, mean=config.mean,
+            return SwitchTransport(mesh, axes, mean=config.mean,
+                                   batched=batched, mode="int8")
+        return SwitchTransport(mesh, axes, mean=config.mean, batched=batched,
                                reproducible=config.reproducible)
     if is_float and (config.sparse_k_frac > 0
                      or config.compression == "int8"):
         raise NotImplementedError(
             "the lossy wire transports are not ported yet: ROADMAP queue 1 "
             "items 7 (wire int8) and 8 (wire sparse)")
-    return DenseTransport(mesh, axes, mean=config.mean,
+    return DenseTransport(mesh, axes, mean=config.mean, batched=batched,
                           hierarchical=config.hierarchical,
                           algorithm=config.algorithm,
                           reproducible=config.reproducible)

@@ -10,7 +10,8 @@ fake meshes ``launch/mesh.FAKE_FLAT`` / ``FAKE_2D``.
 
 * ``all_gather`` returns a **view** — every rank's copy of the stack is
   the same storage, never materialised.
-* ``psum`` sums in rank order (a fixed order, unlike XLA's psum).
+* ``psum`` sums in rank order (a fixed order; XLA's psum leaves it
+  unspecified, and under nested ``vmap`` on the CPU takes the same).
 * ``ppermute`` is an index along the rank axis; ranks that receive
   nothing get zeros, as in ``lax.ppermute``.
 """
@@ -114,16 +115,19 @@ class RankMesh:
         return out
 
     def psum(self, x: torch.Tensor, axes: str | Sequence[str]) -> torch.Tensor:
-        """Sum over ``axes`` in rank order, result on every rank."""
+        """Sum over ``axes`` in rank order, result on every rank.  Over
+        several axes the ranks are taken in their flat (row-major) order,
+        the order XLA's psum takes under nested ``vmap``."""
         self._check(x)
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        for a in axes:
-            k = self.dim(a)
-            acc = x.select(k, 0)
-            for c in range(1, self.shape[k]):
-                acc = acc + x.select(k, c)
-            x = acc.unsqueeze(k).expand(x.shape)
-        return x
+        ks = sorted(self.dim(a) for a in axes)
+        ranks = x.movedim(ks, list(range(len(ks)))).flatten(0, len(ks) - 1)
+        acc = ranks[0]
+        for c in range(1, ranks.shape[0]):
+            acc = acc + ranks[c]
+        for k in ks:
+            acc = acc.unsqueeze(k)
+        return acc.expand(x.shape)
 
     def ppermute(self, x: torch.Tensor, axis: str,
                  perm: Sequence[tuple[int, int]]) -> torch.Tensor:

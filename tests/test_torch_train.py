@@ -327,12 +327,12 @@ def test_rhd_collectives_bitwise(mshape, dtype):
                                          ordered=True),
               lambda t: coll.all_gather(t, mesh, AXES, algorithm=alg,
                                         ordered=True), np.asarray(seg))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        coll.reduce_scatter(tensor_from_numpy(x, "cpu"), mesh, AXES,
-                            algorithm="ring")
+    # the ring reduce-scatter, ported, gives the reference's bits
+    check(lambda a: jcoll.reduce_scatter(a, AXES, algorithm="ring"),
+          lambda t: coll.reduce_scatter(t, mesh, AXES, algorithm="ring"), x)
 
 
-@pytest.mark.parametrize("alg", ["rhd", "fixed_tree"])
+@pytest.mark.parametrize("alg", ["rhd", "fixed_tree", "ring"])
 @pytest.mark.parametrize("mshape", [(2, 4), (1, 8)])
 def test_gather_params_forward_backward_bitwise(mshape, alg):
     rng = np.random.default_rng(5)
@@ -440,11 +440,12 @@ def _per_rank_jax(jp, jmcfg):
                         is_leaf=lambda x: isinstance(x, np.ndarray))
 
 
-def test_two_train_steps_match_jax():
+def _two_train_steps(flare: dict, gather: str) -> None:
+    """Two train steps of the port against the reference ``step_body``
+    under nested ``vmap``, from the same parameters and batches."""
     jmcfg, mcfg = _mesh_cfgs()
-    flare = dict(axes=AXES, transport="innetwork", reproducible=True)
     jp = _jparams()
-    jtcfg = jtrainer.TrainConfig(lr=1e-3, gather_algorithm="fixed_tree",
+    jtcfg = jtrainer.TrainConfig(lr=1e-3, gather_algorithm=gather,
                                  flare=jengine.FlareConfig(**flare))
     jstep_body, _, _, _, jinit = jtrainer.make_train_step(
         jregistry.get_model(JCFG), jmcfg, jtcfg, jp)
@@ -452,7 +453,7 @@ def test_two_train_steps_match_jax():
     jparams = _per_rank_jax(jp, jmcfg)
     jopt = jax.vmap(jax.vmap(jinit))(jparams)
 
-    tcfg = trainer.TrainConfig(lr=1e-3, gather_algorithm="fixed_tree",
+    tcfg = trainer.TrainConfig(lr=1e-3, gather_algorithm=gather,
                                flare=FlareConfig(**flare))
     full = params_from_jax(jp, "cpu")
     step = trainer.make_train_step(get_model(CFG), mcfg, tcfg, full)
@@ -492,6 +493,17 @@ def test_two_train_steps_match_jax():
                                    rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(a.numpy()[~well], np.asarray(b)[~well],
                                    rtol=0, atol=1e-4)
+
+
+def test_two_train_steps_match_jax():
+    _two_train_steps(dict(axes=AXES, transport="innetwork",
+                          reproducible=True), "fixed_tree")
+
+
+def test_two_train_steps_match_jax_on_the_wire():
+    """The launcher's default: the norms through the wire's hierarchical
+    schedule (rhd levels on the ``(2, 4)`` mesh), the FSDP pair rhd."""
+    _two_train_steps(dict(axes=AXES), "rhd")
 
 
 def test_bf16_train_steps_track_jax():
@@ -582,6 +594,18 @@ def test_reduced_gradients_bitwise_from_jax_per_rank_gradients():
     assert len(got) == 5
     for a, b in zip(got, jax.tree.leaves(want)):
         assert np.array_equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mesh", "2x4x1"], ["--mesh", "8x1"],
+    ["--mesh", "2x4x1", "--gather-algorithm", "ring"]])
+def test_launcher_runs_the_wire_path_on_cpu(flags, capsys):
+    """No ``--transport``: the launcher's default wire reduction."""
+    losses = launch_train.main(["--smoke", "--steps", "2", "--device", "cpu",
+                                *flags])
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert losses[1] < losses[0]
+    assert capsys.readouterr().out.count(" loss ") == 2
 
 
 def test_launcher_runs_on_cpu(capsys):
