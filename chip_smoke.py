@@ -123,6 +123,34 @@
    forward, the rhd and fixed-tree gathers the same all-gather) and its
    gradient norm within 1e-3; at ``COMPARE_LAYERS``, ``--gather-algorithm
    ring`` against rhd the same way.
+11. The wire int8 and sparse reductions (``WIRE_LOSSY_RUNS``) on the
+   reduction paths' tree, before the training phase: int8 on ``(2, 4)``
+   hierarchical and flat and on ``(1, 8)``; sparse at f = 0.01 and 0.05
+   on ``(2, 4)`` hierarchical (the lists cross the pod hop) and
+   ``two_level`` and on ``(1, 8)``.  Two steps each with the state
+   carried, the counters set to 0 just before and read just after
+   (``quantize``, ``dequantize`` and the wire-order ``dequant_accum``;
+   ``sparse_accum_slots``, which ``scatter_dense`` launches); results and
+   state bitwise the plain twin's (through digests: the two do not fit
+   on the card at once); int8 step 1 within half a step of every
+   quantization on each element's path of an fp64 sum, sparse step 1
+   keeping exactly k, the largest, within ``8 · 2^-24 · Σ|kept|``;
+   batched == per bucket and card == CPU on a reduced arena of 8
+   buckets; the median time of 5 with a state, the peak, the wire bytes
+   a rank; a profile of one int8 and one sparse reduction.  Phase 1
+   holds the wire order bitwise against its plain version (P = 1 .. 8),
+   and ``scatter_dense`` on the card against the CPU's on sorted lists
+   with -0.0 values and a SENTINEL tail, fp32 and a bf16 ``mine``.
+12. The wire training step with ``--compression int8`` and with
+   ``--sparse-k 0.01`` (``LOSSY_TRAIN``) at 22 layers, each after the
+   previous run is freed: a warm-up step, then ``LOSSY_STEPS`` timed;
+   losses finite and falling, flash 44 launches a step on the tensor
+   cores, the three norm leaves' state in ``opt["ef"]``, step 1's loss
+   bitwise the dense wire step's and its gradient norm within 1e-3.
+13. The remat policies ``full``, ``dots`` and ``names`` on the wire at
+   ``COMPARE_LAYERS`` from the same parameters and batch: step 1's loss
+   and gradient norm bitwise equal, flash 2 × 2 launches a step under
+   each; each policy's peak and step time.
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line
 of kernel figures, and as its last line ``{"ok": true, "device": ...}``.
@@ -132,6 +160,7 @@ fails; there is no fallback.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -186,6 +215,29 @@ WIRE_RUNS = (("auto", (2, 4), {}),
              ("auto", (1, 8), {"axes": ("data",)}),
              ("fixed_tree", (1, 8), {"axes": ("data",),
                                      "algorithm": "fixed_tree"}))
+#: the wire lossy reductions: name, mesh, ``FlareConfig`` fields.  int8 on
+#: (2, 4) hierarchical (auto) and flat (data, then pod), and on (1, 8);
+#: sparse at each fraction on (2, 4) hierarchical (auto: the lists cross
+#: the pod hop, densifying there at 0.05) and ``two_level`` (dense across
+#: pods), and on (1, 8) (densifying at the third step at 0.05)
+WIRE_LOSSY_RUNS = (
+    ("int8 hierarchical", (2, 4), {"compression": "int8"}),
+    ("int8 flat", (2, 4), {"compression": "int8", "hierarchical": False}),
+    ("int8", (1, 8), {"axes": ("data",), "compression": "int8"}),
+    *((f"sparse f={f}{kind}", shape, dict(kw, sparse_k_frac=f))
+      for f in (0.01, 0.05)
+      for kind, shape, kw in ((" hierarchical", (2, 4), {}),
+                              (" two_level", (2, 4), {"hierarchical": False}),
+                              ("", (1, 8), {"axes": ("data",)}))))
+#: the reduced arena on which batched == per bucket and card == CPU
+SMALL_BUCKETS, SMALL_S = 8, 1 << 17
+#: the wire training step with a lossy transport: extra launcher flags
+LOSSY_TRAIN = {"int8": ["--compression", "int8"],
+               "sparse": ["--sparse-k", "0.01"]}
+#: timed steps of each lossy wire step, after its warm-up step
+LOSSY_STEPS = 2
+#: the remat policies held against each other at ``COMPARE_LAYERS``
+REMAT_POLICIES = ("full", "dots", "names")
 #: TinyLlama depth, cut from the published 22: the int8 reduction's peak
 #: is about four times the 8 ranks' fp32 gradient bytes (the caller's
 #: gradients and state, the two packed arenas), and 22 layers of fp32
@@ -374,27 +426,34 @@ def phase_quant_vs_plain(torch, ops, qt) -> None:
         for a, b in zip(ops.quantize(rows), ops.quantize_plain(rows)):
             check(same_bits(a, b), f"quantize on strided rows {dtype}")
         cases += 1
+    wire = qt.wire_launches
     for p in (1, 2, 3, 4, 5, 8):
         q = torch.randint(-127, 128, (3, p, 7, 1024), generator=gen,
                           device="cuda", dtype=torch.int8)
         s = torch.rand((3, p, 7, 4), generator=gen, device="cuda") * 4
-        for qq, ss in ((q, s), (q[:, ::2], s[:, ::2]),
-                       (q.movedim(0, 1), s.movedim(0, 1))):
-            check(same_bits(ops.dequant_accum_slots(qq, ss),
-                            ops.dequant_accum_slots_plain(qq, ss)),
-                  f"dequant_accum_slots {tuple(qq.shape)} {qq.stride()}")
+        for order in (False, True):          # the switch's, the wire's
+            for qq, ss in ((q, s), (q[:, ::2], s[:, ::2]),
+                           (q.movedim(0, 1), s.movedim(0, 1))):
+                check(same_bits(
+                    ops.dequant_accum_slots(qq, ss, wire_order=order),
+                    ops.dequant_accum_slots_plain(qq, ss, wire_order=order)),
+                      f"dequant_accum_slots {tuple(qq.shape)} {qq.stride()}"
+                      f" wire_order={order}")
+                cases += 1
+            flat, fs = q[0].reshape(p, -1), s[0].reshape(p, -1)
+            check(same_bits(ops.dequant_accum(flat, fs, wire_order=order),
+                            ops.dequant_accum_plain(flat, fs,
+                                                    wire_order=order)),
+                  f"dequant_accum P={p} wire_order={order}")
             cases += 1
-        flat, fs = q[0].reshape(p, -1), s[0].reshape(p, -1)
-        check(same_bits(ops.dequant_accum(flat, fs),
-                        ops.dequant_accum_plain(flat, fs)),
-              f"dequant_accum P={p}")
-        cases += 1
     torch.cuda.synchronize()
+    check(qt.wire_launches - wire == 6 * 4, "the wire order missed its "
+          "kernel")
     print(f"quant kernels vs plain: {cases} cases bitwise equal (quantize "
           "f32 bf16 f16, qblock 32..1024, zero/tie/NaN/inf blocks, strided "
           "rows; dequantize to f32 bf16 f16 and the residual, in place "
-          "too; dequant_accum_slots P 1 2 3 4 5 8, G=3, strided P and G; "
-          "dequant_accum)")
+          "too; dequant_accum_slots P 1 2 3 4 5 8, G=3, strided P and G, "
+          "in the switch's and the wire's order; dequant_accum in both)")
 
 
 def phase_profile(torch, run, card: str, what: str) -> None:
@@ -473,18 +532,21 @@ def check_wire_bound(torch, grads, out, p) -> float:
     return worst
 
 
-def check_quant_bound(torch, group, leaves, out_leaves, mesh) -> float:
+def check_quant_bound(torch, group, leaves, out_leaves, mesh,
+                      rounds=3) -> float:
     """Step 1 of the int8 path against the fp64 sum of the gradients.
 
-    Each quantization on an element's path (every leaf rank, every
-    level-1 switch, the root) errs by at most half a step of its block.
-    A leaf rank's step is its block's ``max|x| / 127``; a switch's
+    Each quantization on an element's path errs by at most half a step
+    of its block, and every level's blocks cover the same 256 positions
+    of a bucket.  A leaf rank's step is its block's ``max|x| / 127``; an
     aggregate is at most the sum of its children's dequantized maxima, so
-    its step is at most the sum of their steps, and the root's at most
-    the sum of every leaf's.  On the ``(2, 4)`` mesh that bounds the
-    error by ``(1 + 1 + 1) / 2 · Σ_r step_r``, with 2^-10 of slack for
-    the fp32 rounding of the folds.  Checked block by block on the
-    arena; returns the worst ratio of error to bound."""
+    its step is at most the sum of their steps, and a full sum's at most
+    the sum of every leaf's.  With ``rounds`` quantizations on the path
+    (in the network on the ``(2, 4)`` mesh 3: every leaf rank, every
+    level-1 switch, the root) that bounds the error by ``rounds / 2 ·
+    Σ_r step_r``, with 2^-10 of slack for the fp32 rounding of the folds.
+    Checked block by block on the arena; returns the worst ratio of error
+    to bound."""
     check(len(mesh.shape) == 2, "the bound is written for a 2-level mesh")
     x = group.pack(leaves)                                   # (2, 4, B, S)
     red = group.pack([o[:1, :1] for o in out_leaves])[0, 0]  # (B, S)
@@ -493,13 +555,39 @@ def check_quant_bound(torch, group, leaves, out_leaves, mesh) -> float:
         xb = x[..., b, :].double()
         exact = xb.sum(dim=(0, 1))
         steps = xb.abs().reshape(*mesh.shape, -1, QBLOCK).amax(-1) / 127
-        bound = (1.5 * (1 + 2.0**-10) * steps.sum(dim=(0, 1))
+        bound = (rounds / 2 * (1 + 2.0**-10) * steps.sum(dim=(0, 1))
                  ).repeat_interleave(QBLOCK)
         err = (red[b].double() - exact).abs()
         check(bool((err <= bound).all()), f"int8 result outside the "
               f"quantization bound in bucket {b}")
         worst = max(worst, float((err / bound.clamp_min(1e-300)).max()))
     return worst
+
+
+#: the digest's modulus, the prime 2^31 - 1
+DIGEST_P = (1 << 31) - 1
+
+
+def digest(torch, tensors) -> tuple[int, int]:
+    """Two sums of the bit patterns of ``tensors`` (in order), each
+    pattern times a weight of its position, modulo the prime 2^31 - 1:
+    equal bits give equal digests, and any change of bits changes both
+    but with a chance of about 2^-62.  Used to hold a full-size result
+    against its plain twin where the two do not fit on the card at
+    once."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    d1 = d2 = pos = 0
+    for t in tensors:
+        flat = t.contiguous().view(ints[t.element_size()]).reshape(-1)
+        for i in range(0, flat.numel(), 1 << 26):
+            b = flat[i:i + (1 << 26)].long() % DIGEST_P
+            w = torch.arange(pos + i, pos + i + b.numel(), device=b.device)
+            d1 = (d1 + int(((b * (w % DIGEST_P + 1)) % DIGEST_P).sum())
+                  ) % DIGEST_P
+            d2 = (d2 + int(((b * ((w * 48271) % DIGEST_P + 1)) % DIGEST_P
+                            ).sum())) % DIGEST_P
+        pos += flat.numel()
+    return d1, d2
 
 
 def plain_quant_patches(qt, ops):
@@ -549,7 +637,7 @@ def sorted_lists(torch, gen, rows, e, size):
     return idx
 
 
-def phase_sparse_vs_plain(torch, ops, tk) -> None:
+def phase_sparse_vs_plain(torch, ops, tk, sa, sparse) -> None:
     """The sparse kernels vs their plain versions: bitwise, except three
     or more duplicates of an index in unsorted lists (rtol = atol =
     1e-5, the reference's own tolerance) and NaN payloads."""
@@ -611,13 +699,37 @@ def phase_sparse_vs_plain(torch, ops, tk) -> None:
                 check(torch.equal(i, pi) and same_or_both_nan(v, pv),
                       f"topk_compact {dtype} block {block} k {k}")
                 cases += 1
+    # core/sparse.scatter_dense, which launches the sorted mode on the
+    # card: index-sorted, index-unique lists with their SENTINEL tail
+    # (as topk_sparsify and merge_coordinate_lists give them), -0.0 and
+    # ordinary values, into fp32 and into a bf16 ``mine``
+    launched = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        keys = torch.rand((6, 50_050), generator=gen, device="cuda")
+        idx = torch.full((6, 3000), sparse.SENTINEL, dtype=torch.int32,
+                         device="cuda")
+        idx[:, :2400] = keys.argsort(dim=1)[:, :2400].sort(dim=1).values.int()
+        val = torch.randn((6, 3000), generator=gen, device="cuda").to(dtype)
+        val[:, ::3] = -0.0
+        lead = (2, 3)
+        before = sa.launches["sparse_accum_slots"]
+        got = sparse.scatter_dense(val.view(*lead, -1), idx.view(*lead, -1),
+                                   50_000, dtype)
+        launched += sa.launches["sparse_accum_slots"] - before
+        want = sparse.scatter_dense(val.cpu().view(*lead, -1),
+                                    idx.cpu().view(*lead, -1), 50_000, dtype)
+        check(same_bits(got.cpu(), want), f"scatter_dense {dtype} on the "
+              "card != the CPU's")
+        cases += 1
+    check(launched == 2, "scatter_dense missed the kernel on the card")
     print(f"sparse kernels vs plain: {cases} cases (sparse_accum_slots "
           "sorted and unsorted, -1 and out-of-range entries, duplicates, "
           "B 1 3 294, strided G, ragged E and size, f32 bf16 f16: bitwise, "
           "unsorted triples within rtol = atol = 1e-5; topk_compact every "
           "block size, k 1 2 8 64 block-1 block, ties, zero, ±0.0, inf, "
           "NaN, cluster, all-NaN and all-inf blocks: bitwise, NaN payloads "
-          "aside)")
+          "aside; sparse.scatter_dense of sorted unique lists with -0.0 "
+          "values and a SENTINEL tail, fp32 and a bf16 mine, card == CPU)")
 
 
 def plain_sparse_patches(sa, tk, ops):
@@ -1086,11 +1198,12 @@ def phase_wire_reductions(torch, card, total_mem, cfg, seed) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_wire_train(torch, card, total_mem, innet: dict) -> None:
+def phase_wire_train(torch, card, total_mem, innet: dict) -> dict:
     """The training step on the wire at full size (``WIRE_TRAIN_FLAGS``):
     losses finite and falling, flash on the tensor cores 2 × layers a
     step, step 1's loss bitwise the in-network phase's, its gradient norm
-    within 1e-3; then the ring gather against rhd at ``COMPARE_LAYERS``."""
+    within 1e-3; then the ring gather against rhd at ``COMPARE_LAYERS``.
+    Returns step 1's loss and gradient norm."""
     from repro_torch.core import collectives as coll
     from repro_torch.kernels import flash_attn as fa
     from repro_torch.launch import train as launch
@@ -1169,6 +1282,373 @@ def phase_wire_train(torch, card, total_mem, innet: dict) -> None:
           f"vs rhd: loss {l_ring!r} bitwise equal; grad norm {n_ring!r} vs "
           f"{n_rhd!r}, relative {rel:.2e} (limit 1e-3)")
     torch.cuda.empty_cache()
+    return {"loss1": losses[0], "norm1": norms[0]}
+
+
+def phase_lossy_train(torch, card, total_mem, dense: dict) -> None:
+    """The wire training step with a lossy transport at full size
+    (``WIRE_TRAIN_FLAGS`` plus each of ``LOSSY_TRAIN``): a warm-up step,
+    then ``LOSSY_STEPS`` timed with the counters set to 0 just before and
+    read just after.  Losses finite and falling from step 1 to 2, flash
+    on the tensor cores 2 × layers a step, the error-feedback state in
+    ``opt["ef"]`` (the three norm leaves), step 1's loss bitwise the
+    dense wire step's (the forward does not depend on the reduction) and
+    its gradient norm within 1e-3 (only the norm leaves go lossy)."""
+    from repro_torch import tree
+    from repro_torch.core import transports
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import quant as qt
+    from repro_torch.kernels import sparse_accum as sa
+    from repro_torch.launch import train as launch
+
+    for name, extra in LOSSY_TRAIN.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        flags = [*WIRE_TRAIN_FLAGS, *extra]
+        run = launch.setup(flags, n_layers=TRAIN_LAYERS, dtype=torch.bfloat16)
+        t = run.step.reducer._transport(torch.float32, batched=True)
+        check(isinstance(t, transports.Int8Transport if name == "int8"
+                         else transports.SparseTransport),
+              f"--{name}: the launcher built {type(t).__name__}")
+        steps, losses, norms = [], [], []
+
+        def one():
+            t0 = time.perf_counter()
+            m = run.train_step()
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+
+        one()                                  # warm-up: step 1
+        fa.launches = fa.tc_launches = qt.wire_launches = 0
+        for k in qt.launches:
+            qt.launches[k] = 0
+        for k in sa.launches:
+            sa.launches[k] = 0
+        for _ in range(LOSSY_STEPS):
+            one()
+        torch.cuda.synchronize()
+        launches, tc_launches = fa.launches, fa.tc_launches
+        kernels = {k: v // LOSSY_STEPS for k, v in dict(
+            qt.launches, wire_order=qt.wire_launches, **sa.launches).items()
+            if v}
+        peak = torch.cuda.max_memory_allocated()
+        ef = tree.flatten(run.opt["ef"])[0]
+        rel = abs(norms[0] - dense["norm1"]) / dense["norm1"]
+        print(f"wire training with {' '.join(extra)} ({TRAIN_LAYERS} "
+              f"layers): losses (warm-up, then steps 2-{LOSSY_STEPS + 1}) "
+              f"{[round(x, 4) for x in losses]}; grad norms "
+              f"{[round(x, 3) for x in norms]}; step ms (median of "
+              f"{LOSSY_STEPS}, {card}): {statistics.median(steps[1:]):.1f} "
+              f"(runs {[round(x, 1) for x in steps[1:]]}; warm-up "
+              f"{steps[0]:.1f}); flash launches {launches} over "
+              f"{LOSSY_STEPS} steps ({tc_launches} tensor-core); reduction "
+              f"kernels a step {kernels}; opt['ef'] "
+              f"{[tuple(e.shape) for e in ef]}; peak device memory "
+              f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}; step 1 "
+              f"vs the dense wire step: loss {losses[0]!r} vs "
+              f"{dense['loss1']!r}, grad norm relative {rel:.2e}")
+        check(all(map(math.isfinite, losses)), f"a loss is not finite: "
+              f"{losses}")
+        check(losses[1] < losses[0], f"--{name}: step 2 loss {losses[1]} is "
+              f"not below step 1's {losses[0]}")
+        check(launches == LOSSY_STEPS * 2 * TRAIN_LAYERS
+              and tc_launches == launches, f"--{name}: flash launches "
+              f"{launches} ({tc_launches} tensor-core) over {LOSSY_STEPS} "
+              "steps")
+        check(len(ef) == 3, f"--{name}: opt['ef'] holds {len(ef)} leaves")
+        check(kernels.get("wire_order" if name == "int8"
+                          else "sparse_accum_slots", 0) > 0,
+              f"--{name}: the step launched no reduction kernel")
+        check(losses[0] == dense["loss1"], f"--{name}: step 1 loss "
+              f"{losses[0]!r} != the dense wire step's {dense['loss1']!r}")
+        check(rel <= 1e-3, f"--{name}: step 1 grad norm {norms[0]} vs "
+              f"{dense['norm1']}")
+        del run, ef, t
+        torch.cuda.empty_cache()
+
+
+def phase_remat(torch, card, total_mem) -> None:
+    """The remat policies at full width (``WIRE_TRAIN_FLAGS`` at
+    ``COMPARE_LAYERS``), each from the same parameters and batch: step 1's
+    loss and gradient norm bitwise equal under ``full``, ``dots`` and
+    ``names`` (remat changes what is kept, not what is computed), flash
+    2 × layers a step under each (the backward recomputes it: no policy
+    sees the kernel's launch); each policy's peak and step time."""
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.launch import train as launch
+
+    got = {}
+    for policy in REMAT_POLICIES:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run = launch.setup(WIRE_TRAIN_FLAGS, n_layers=COMPARE_LAYERS,
+                           dtype=torch.bfloat16, remat_policy=policy)
+        fa.launches = 0
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = run.train_step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if len(ms) == 1:
+                m1 = {k: m[k].clone() for k in ("loss", "grad_norm")}
+        got[policy] = (m1, fa.launches, ms,
+                       torch.cuda.max_memory_allocated())
+        del run, m
+    for policy, (m1, launches, ms, peak) in got.items():
+        print(f"remat {policy} at {COMPARE_LAYERS} layers: step 1 loss "
+              f"{float(m1['loss'])!r} grad norm {float(m1['grad_norm'])!r}; "
+              f"flash launches {launches} over 2 steps; step ms ({card}) "
+              f"{ms[0]:.1f} then {ms[1]:.1f}; peak device memory "
+              f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}")
+        check(launches == 2 * 2 * COMPARE_LAYERS, f"remat {policy}: flash "
+              f"launches {launches}, want {2 * COMPARE_LAYERS} a step")
+        for k in ("loss", "grad_norm"):
+            check(same_bits(m1[k], got["full"][0][k]), f"remat {policy}: "
+                  f"step 1 {k} != full's")
+    torch.cuda.empty_cache()
+
+
+def int8_wire_bytes(z: int, sizes: dict, axes, hier: bool,
+                    block: int = QBLOCK) -> float:
+    """Bytes a rank puts on the wire for the int8 protocol on ``z``
+    elements: each leg over an axis of P ranks sends ``(P - 1) / P`` of
+    its vector as int8 plus a 4-byte scale a block, once in the
+    ``all_to_all`` and once in the all-gather.  Hierarchical: the inner
+    legs at ``z``, each outer axis at ``z / P_inner``; flat: every axis
+    at ``z``."""
+    def legs(n, p):
+        return 2 * (p - 1) / p * n * (1 + 4 / block)
+    *outer, inner = axes
+    total = legs(z, sizes[inner])
+    n = z / sizes[inner] if hier else z
+    return total + sum(legs(n, sizes[a]) for a in outer)
+
+
+def sparse_wire_bytes(sparse, ks, s: int, sizes: dict, axes, hier: bool,
+                      threshold: float) -> float:
+    """Bytes a rank puts on the wire for the sparse schedules on B
+    buckets of ``s`` elements (lists of capacity ``max(ks)``):
+    ``expected_sparse_wire_bytes`` over the recursive doubling (across
+    every level when hierarchical), plus the dense rhd hop across pods
+    for ``two_level``."""
+    *outer, inner = axes
+    p = sizes[inner] * (math.prod(sizes[a] for a in outer) if hier else 1)
+    one = sparse.expected_sparse_wire_bytes(s, max(ks), p,
+                                            density_threshold=threshold)
+    if outer and not hier:
+        q = sizes[outer[-1]]
+        one += 2 * (q - 1) / q * s * 4
+    return len(ks) * one
+
+
+class WireSparseSpy:
+    """Keeps a few buckets of a wire sparse reduction's first step: the
+    arena ``v`` its transport reduces (the gradients: no state yet), the
+    lists each rank sent (``topk_sparsify``'s first call) and the
+    result."""
+
+    def __init__(self, sparse, transports, buckets):
+        self.sparse, self.transports, self.buckets = sparse, transports, buckets
+        self.topk = sparse.topk_sparsify
+        self.call = transports.SparseTransport.__call__
+        self.kept = None
+
+    def patches(self):
+        spy = self
+
+        def topk(x, k, k_eff=None):
+            val, idx = spy.topk(x, k, k_eff)
+            if spy.kept is not None and "val" not in spy.kept:
+                spy.kept["val"] = val[..., spy.buckets, :].clone()
+                spy.kept["idx"] = idx[..., spy.buckets, :].clone()
+            return val, idx
+
+        def call(self, buf, ef, staggers, extents):
+            first = spy.kept is None
+            if first:
+                spy.kept = {"v": buf[..., spy.buckets, :].clone(),
+                            "ks": [spy.sparse.sparse_k(self.k_frac,
+                                                       extents[b])
+                                   for b in spy.buckets]}
+            red, ef_out = spy.call(self, buf, ef, staggers, extents)
+            if first:
+                spy.kept["red"] = red[(0,) * self.mesh.ndim][
+                    spy.buckets].clone()
+            return red, ef_out
+        return [mock.patch.object(self.sparse, "topk_sparsify", topk),
+                mock.patch.object(self.transports.SparseTransport,
+                                  "__call__", call)]
+
+
+def phase_wire_lossy(torch, card, total_mem, cfg, seed) -> dict:
+    """The wire int8 and sparse reductions at full width
+    (``WIRE_LOSSY_RUNS``): two steps with the error-feedback state, the
+    kernels' launches, the plain twin, the int8 and kept-entry bounds,
+    batched == per bucket and card == CPU on a reduced arena; time, peak
+    and the bytes each rank would put on the wire.  Returns the launches
+    and the shapes of the wire-order accumulation for the kernel
+    figures."""
+    from repro_torch import tree
+    from repro_torch.core import arena as arena_mod
+    from repro_torch.core import sparse, transports
+    from repro_torch.core.engine import FlareConfig, GradReducer
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant as qt
+    from repro_torch.kernels import sparse_accum as sa
+    from repro_torch.kernels import topk_compact as tk
+    from repro_torch.mesh import AXES, RankMesh
+    from repro_torch.models import transformer
+
+    def mk(shape, s):
+        return make_grads(torch, tree, transformer, cfg, shape, s)
+
+    def reset():
+        for k in qt.launches:
+            qt.launches[k] = 0
+        for k in sa.launches:
+            sa.launches[k] = 0
+        qt.wire_launches = tk.launches = 0
+
+    def counts():
+        return dict(qt.launches, wire_order=qt.wire_launches, **sa.launches,
+                    topk_compact=tk.launches)
+    found, profiled = {}, set()
+    shapes = [tuple(p.shape) for p in tree.flatten(transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0)))[0]]
+    print(f"wire lossy reductions: {cfg.name} at published widths, "
+          f"{LAYERS} layers, 8 ranks, two steps each with the state")
+    for name, shape, kw in WIRE_LOSSY_RUNS:
+        mesh = RankMesh(shape, AXES)
+        config = FlareConfig(**{"axes": AXES, **kw})
+        int8 = config.compression == "int8"
+        red = GradReducer(config, mesh)
+        meta = [torch.empty((*shape, *p), device="meta") for p in shapes]
+        grp = arena_mod.build_plan(meta, config.bucket_bytes,
+                                   pad_multiple=red._pad_multiple(8),
+                                   lead_dims=2).groups[0]
+        t = transports.from_config(config, mesh, torch.float32)
+        hier = (t._use_hierarchy() and len(config.axes) > 1 if int8
+                else t._hier())
+        nb = grp.num_buckets
+        spy = WireSparseSpy(sparse, transports, [0, nb // 2, nb - 1])
+        wire_rec = Recorder(qt, "dequant_accum_slots",
+                            lambda q, s, qblock=QBLOCK, wire_order=False: (
+                                tuple(q.shape), wire_order))
+        # -- two steps on the kernels, the counters read around them ------
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        with contextlib.ExitStack() as stack:
+            for ptc in ([wire_rec.patch()] if int8 else spy.patches()):
+                stack.enter_context(ptc)
+            g = mk(shape, seed)
+            r1, st1 = red(g)
+            del g
+            d1 = digest(torch, tree.flatten(r1)[0] + tree.flatten(st1)[0])
+            g = mk(shape, seed + 1)
+            r2, st2 = red(g, st1)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        got = counts()
+        d2 = digest(torch, tree.flatten(r2)[0] + tree.flatten(st2)[0])
+        del r2, st2
+        need = (("quantize", "dequantize", "wire_order") if int8
+                else ("sparse_accum_slots",))
+        for k in need:
+            check(got[k] > 0, f"wire {name} on {shape}: no {k} launch")
+        # -- step 1 against fp64 ---------------------------------------------
+        if int8:
+            rounds = 4 if len(config.axes) > 1 else 2
+            worst = check_quant_bound(
+                torch, grp, tree.flatten(mk(shape, seed))[0],
+                tree.flatten(r1)[0], mesh, rounds)
+            bound = (f"step 1 within {worst:.3f} of the int8 bound "
+                     f"({rounds} quantizations on each element's path)")
+        else:
+            worst, nchecked = check_sparse_kept(torch, spy.kept,
+                                                sparse.SENTINEL)
+            spy.kept = None
+            bound = (f"on {nchecked} buckets x 8 ranks exactly k kept, no "
+                     f"dropped magnitude above a kept one, fp64 error <= "
+                     f"{worst:.3f} of 8·2^-24·Σ|kept|")
+        del r1
+        # -- time: five reductions with the state ---------------------------
+        ms, runs = timed(torch, lambda: red(g, st1), 5)
+        if ("int8" if int8 else "sparse") not in profiled:
+            profiled.add("int8" if int8 else "sparse")
+            phase_profile(torch, lambda: red(g, st1), card,
+                          f"one wire {name} reduction on {shape} with a "
+                          "state")
+        del g, st1
+        torch.cuda.empty_cache()
+        # -- the plain twin, held through the digests -----------------------
+        before = counts()
+        patches = (plain_quant_patches(qt, ops) if int8
+                   else plain_sparse_patches(sa, tk, ops))
+        g = mk(shape, seed)
+        p1, pst = run_plain(patches, lambda: red(g))
+        del g
+        check(digest(torch, tree.flatten(p1)[0] + tree.flatten(pst)[0])
+              == d1, f"wire {name}: step 1 != the plain twin")
+        del p1
+        g = mk(shape, seed + 1)
+        p2, pst = run_plain(patches, lambda: red(g, pst))
+        del g
+        check(digest(torch, tree.flatten(p2)[0] + tree.flatten(pst)[0])
+              == d2, f"wire {name}: step 2 != the plain twin")
+        check(counts() == before, f"wire {name}: the plain twin launched")
+        del p2, pst
+        torch.cuda.empty_cache()
+        # -- a reduced arena: batched == per bucket, card == CPU ------------
+        gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+        small = grp.pack(tree.flatten(mk(shape, seed))[0])[
+            ..., :SMALL_BUCKETS, :SMALL_S].clone()
+        ef = torch.randn(small.shape, generator=gen, device="cuda") * 1e-3
+        ext = [min(e, SMALL_S) for e in grp.valid_extents[:SMALL_BUCKETS]]
+        st = torch.arange(SMALL_BUCKETS, device="cuda")
+        outs = [transports.from_config(config, mesh, torch.float32,
+                                       batched=b)(small.clone(), ef, st, ext)
+                for b in (True, False)]
+        cpu = t(small.cpu(), ef.cpu(), st.cpu(), ext)
+        for o, what in ((outs[1], "per bucket"), (cpu, "the CPU")):
+            check(same_bits(outs[0][0].cpu(), o[0].cpu())
+                  and same_bits(outs[0][1].cpu(), o[1].cpu()),
+                  f"wire {name}: batched on the card != {what}")
+        del small, ef, outs, cpu
+        torch.cuda.empty_cache()
+        sizes = dict(zip(AXES, shape))
+        z = grp.num_buckets * grp.bucket_elems
+        if int8:
+            wire = int8_wire_bytes(z, sizes, config.axes, hier)
+        else:
+            ks = [sparse.sparse_k(config.sparse_k_frac, e)
+                  for e in grp.valid_extents]
+            wire = sparse_wire_bytes(sparse, ks, grp.bucket_elems, sizes,
+                                     config.axes, hier,
+                                     config.density_threshold)
+        print(f"wire {name} on {shape} over {config.axes} "
+              f"({'hierarchical' if hier else 'flat'}): arena B={nb} "
+              f"S={grp.bucket_elems}; launches over two steps "
+              f"{ {k: v for k, v in got.items() if v} }; {bound}; both "
+              "steps' results and state bitwise == the plain twin "
+              "(digests); batched == per bucket and card == CPU on "
+              f"{SMALL_BUCKETS} buckets of {SMALL_S}; ms with a state "
+              f"(median of 5, {card}): {ms:.3f} (runs "
+              f"{[round(x, 3) for x in runs]}); peak device memory "
+              f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}; wire "
+              f"bytes per rank {wire / 1e9:.3f} GB")
+        if name == "int8 hierarchical":
+            step1 = wire_rec.seen[:len(wire_rec.seen) // 2]
+            found = {"launches": got["wire_order"],
+                     "shapes": [q for q, order in step1 if order]}
+    return found
 
 
 def flash_figures(torch, fa, ref, card, err) -> dict:
@@ -1257,7 +1737,7 @@ def main() -> int:
     phase_build(kb, [tr.SOURCE, qt.SOURCE, sa.SOURCE, fa.SOURCE])
     phase_kernel_vs_plain(torch, ops)
     phase_quant_vs_plain(torch, ops, qt)
-    phase_sparse_vs_plain(torch, ops, tk)
+    phase_sparse_vs_plain(torch, ops, tk, sa, sparse)
     flash_path_err = phase_flash_vs_plain(torch, ops, ref, fa, base)
 
     # -- the dense main path: (2, 4) mesh, full width -----------------------
@@ -1364,7 +1844,8 @@ def main() -> int:
             else out_dtype, minuend is not None, out is not None
             and out is minuend)),
         "dequant_accum_slots": Recorder(qt, "dequant_accum_slots",
-                                        lambda q, s, qblock=QBLOCK: (
+                                        lambda q, s, qblock=QBLOCK,
+                                        wire_order=False: (
             tuple(q.shape), q.stride(), s.stride())),
     }
     torch.cuda.synchronize()
@@ -1773,18 +2254,18 @@ def main() -> int:
                         2), None, err, f"{shape} stride {qstride}")
         del q, s
         torch.cuda.empty_cache()
-    # the flat form, off the main path: one launch at a (4, 2^28) stack
+    # and in the switch's order off the paths: one launch at (4, 2^28)
     q = torch.randint(-127, 128, (4, 1 << 28), generator=gen, device="cuda",
                       dtype=torch.int8)
     s = torch.rand((4, (1 << 28) // QBLOCK), generator=gen,
                    device="cuda") + 0.5
     got, want = qt.dequant_accum(q, s, QBLOCK), ops.dequant_accum_plain(q, s)
     check(same_bits(got, want), "dequant_accum != plain at (4, 2^28)")
-    account("dequant_accum", qt.dequant_accum_bytes(
+    account("dequant_accum (off the path)", qt.dequant_accum_bytes(
                 q.reshape(1, 4, -1, QBLOCK), QBLOCK),
             cuda_ms(lambda: qt.dequant_accum(q, s, QBLOCK), 10),
             cuda_ms(lambda: ops.dequant_accum_plain(q, s), 2), None,
-            err_of(got, want), "(4, 268435456), off the main paths")
+            err_of(got, want), "(4, 268435456), the switch's order")
     del q, s, got, want
     torch.cuda.empty_cache()
 
@@ -1864,20 +2345,51 @@ def main() -> int:
 
     # -- the wire dense reductions: every schedule at full width ---------------
     phase_wire_reductions(torch, card, total_mem, cfg, args.seed)
+    # -- the wire int8 and sparse reductions ---------------------------------
+    lossy = phase_wire_lossy(torch, card, total_mem, cfg, args.seed)
+    launches["dequant_accum"] = lossy["launches"]
+    # the flat form in the wire's order, at the shapes the wire int8
+    # reduction gave it (its every rank's and bucket's (P, n) stack in
+    # one launch of the slot entry)
+    for shape in lossy["shapes"]:
+        g_, p_, s_, e_ = shape
+        q = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int8)
+        s = torch.rand((g_, p_, s_, e_ // QBLOCK), generator=gen,
+                       device="cuda") + 0.5
+        got = qt.dequant_accum_slots(q, s, QBLOCK, wire_order=True)
+        want = ops.dequant_accum_slots_plain(q, s, QBLOCK, wire_order=True)
+        check(same_bits(got, want), f"wire-order dequant_accum != plain at "
+              f"{shape}")
+        err = err_of(got, want)
+        del got, want
+        account("dequant_accum", qt.dequant_accum_bytes(q, QBLOCK),
+                cuda_ms(lambda: qt.dequant_accum_slots(q, s, QBLOCK, True),
+                        10),
+                cuda_ms(lambda: ops.dequant_accum_slots_plain(q, s, QBLOCK,
+                                                              True), 2),
+                None, err, f"{shape}, the wire order")
+        del q, s
+        torch.cuda.empty_cache()
 
     # -- the training step: the main path end to end ---------------------------
     trained = phase_train(torch, card, total_mem, tr)
     # -- and on the wire, the launcher's default --------------------------------
-    phase_wire_train(torch, card, total_mem, trained)
+    dense_wire = phase_wire_train(torch, card, total_mem, trained)
+    # -- on the wire with a lossy transport, and the remat policies ----------
+    phase_lossy_train(torch, card, total_mem, dense_wire)
+    phase_remat(torch, card, total_mem)
     launches["flash_attention"] = trained["launches"]
     figures["flash_attention"] = flash_figures(torch, fa, ref, card,
                                                flash_path_err)
 
     print("kernel figures are per reduction: the sum over one reduction's "
           "launches (one step of the int8 path; for sparse_accum_slots one "
-          "step at each sparse fraction); the flat forms and topk_compact "
-          "are one launch each; flash_attention is one launch at the "
-          "training path's shape, its launches those of 5 training steps")
+          "step at each sparse fraction; for dequant_accum one step of the "
+          "hierarchical wire int8 reduction, its launches those of two); "
+          "tree_reduce, sparse_accum and topk_compact are one launch each; "
+          "flash_attention is one launch at the training path's shape, its "
+          "launches those of 5 training steps")
     routes = [("tree_reduce_slots", "tree_reduce"),
               ("tree_reduce", "tree_reduce"), ("quantize", "quant"),
               ("dequantize", "quant"), ("dequant_accum_slots", "quant"),

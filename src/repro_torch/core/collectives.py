@@ -244,8 +244,13 @@ def rhd_all_gather(seg: torch.Tensor, mesh: RankMesh, axis: str, *,
         d = 1 << k
         recv = mesh.ppermute(seg, axis, xor_perm(p, d))
         bit = _bit(mesh, axis, d, seg)
-        seg = torch.where(bit, torch.cat([recv, seg], dim=nd),
-                          torch.cat([seg, recv], dim=nd))
+        # the lower half is the partner's where my bit is set; each half
+        # is selected straight into the doubled segment
+        n = seg.shape[nd]
+        out = seg.new_empty((*seg.shape[:nd], 2 * n, *seg.shape[nd + 1:]))
+        torch.where(bit, recv, seg, out=out.narrow(nd, 0, n))
+        torch.where(bit, seg, recv, out=out.narrow(nd, n, n))
+        seg = out
     return seg
 
 

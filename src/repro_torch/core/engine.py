@@ -18,13 +18,12 @@ is elementwise.
 
 With ``reproducible=True`` (F3) the result is bitwise-deterministic and
 bitwise-equal to the JAX package's on the same inputs.  With
-``transport="innetwork"`` and ``compression="int8"`` (F1) or
-``sparse_k_frac > 0`` (§7) the reducer carries each rank's
-error-feedback residual as its state.
+``compression="int8"`` (F1) or ``sparse_k_frac > 0`` (§7), on the wire
+or in the network, the reducer carries each rank's error-feedback
+residual as its state.
 
-Not ported yet: the wire int8 and wire sparse transports (ROADMAP queue
-1 items 7 and 8), the lossy fabric (item 9), the multi-tenant runtime
-(item 11) and telemetry (item 13).
+Not ported yet: the lossy fabric (ROADMAP queue 1 item 9), the
+multi-tenant runtime (item 11) and telemetry (item 13).
 """
 from __future__ import annotations
 
@@ -116,6 +115,23 @@ class GradReducer:
         if config.telemetry is not None:
             raise NotImplementedError(
                 "telemetry is not ported yet: ROADMAP queue 1 item 13")
+        if config.sparse_k_frac > 0 and config.transport != "innetwork":
+            # the wire's recursive-doubling merge needs a power-of-two
+            # inner axis (and, hierarchical, outer axes): fail here, not
+            # inside the first reduction
+            inner = config.axes[-1]
+            p = mesh.axis_size(inner)
+            if p & (p - 1):
+                raise ValueError(
+                    f"sparse_k_frac={config.sparse_k_frac} requires a "
+                    f"power-of-two inner axis for the §7 recursive-doubling "
+                    f"merge; mesh axis {inner!r} has size {p}")
+            sizes = tuple(mesh.axis_size(a) for a in config.axes[:-1])
+            if config.hierarchical and any(n & (n - 1) for n in sizes):
+                raise ValueError(
+                    "hierarchical sparse transport requires power-of-two "
+                    f"outer axes; mesh axes {config.axes[:-1]!r} have "
+                    f"sizes {sizes}")
         self.config = config
         self.mesh = mesh
 
@@ -220,7 +236,10 @@ class GradReducer:
             for i, piece in bucketing.unpack_bucket(red.select(nd, 0),
                                                     leaves, b, nd):
                 out[i] = piece
-            if ef_out is not None:
+            if self.needs_state:
+                # a lossless bucket's state is zeros, as on the arena path
+                if ef_out is None:
+                    ef_out = torch.zeros_like(red)
                 for i, piece in bucketing.unpack_bucket(ef_out.select(nd, 0),
                                                         leaves, b, nd):
                     new_ef[i] = piece

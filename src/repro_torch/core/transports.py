@@ -1,12 +1,20 @@
 """The transport layer: one reduction schedule per dtype arena.
 
-The port of the dense part of ``repro/core/transports.py``.  A
-``Transport`` reduces a whole ``(*mesh, B, S)`` dtype arena — all B
-buckets of every rank in one call.  Ported so far:
+The port of ``repro/core/transports.py``.  A ``Transport`` reduces a
+whole ``(*mesh, B, S)`` dtype arena — all B buckets of every rank in one
+call:
 
 * ``DenseTransport`` — the wire allreduce: ring (each bucket at its own
   §5 stagger), rhd, fixed_tree, two_level, the tree-driven hierarchical
   schedule and psum;
+* ``Int8Transport`` — F1 on the wire under error feedback: the int8
+  protocol (``compression.quantized_allreduce*``: one ``all_to_all`` and
+  one all-gather pair a level for every bucket), hierarchical or flat
+  over each axis in turn;
+* ``SparseTransport`` — §7 on the wire under error feedback: top-k
+  coordinate lists merged by recursive doubling with densify-on-overflow
+  (``sparse.sparse_allreduce*``), within the pod only (``two_level``)
+  or across the tree (hierarchical);
 * ``SwitchTransport`` — the emulated switch data plane: in dense mode
   ``switch.dataplane.switch_allreduce_dense``, which with
   ``reproducible=True`` folds every level in the ``tree_reduce`` kernel;
@@ -19,9 +27,12 @@ buckets of every rank in one call.  Ported so far:
 
 ``batched=False`` keeps the reference's per-bucket ancestor (its
 ``lax.scan``; the switch's per-packet plane) as the bitwise oracle of the
-batched schedule.  The wire int8 and wire sparse branches of
-``from_config`` raise ``NotImplementedError`` naming their ROADMAP
-items.
+batched schedule.
+
+The lossy transports consume ``buf``: the error-feedback sum and then
+the new residual are formed in its storage
+(``compression.error_feedback_step``), so callers pass an arena of their
+own.
 """
 from __future__ import annotations
 
@@ -59,9 +70,6 @@ class Transport:
     batched: bool = True    # False → the per-bucket ancestor (the oracle)
     #: flat vs hierarchical wire schedule; None → the reduction tree decides
     hierarchical: bool | None = None
-
-    def _world(self) -> int:
-        return self.mesh.world_size(self.axes)
 
     def _use_hierarchy(self) -> bool:
         """Flat vs hierarchical, with the mesh's reduction tree as arbiter."""
@@ -112,8 +120,115 @@ class DenseTransport(Transport):
             for b in range(buf.shape[nd]):
                 red.select(nd, b).copy_(one(buf.select(nd, b), staggers[b]))
         if self.mean:
-            red = red / self._world()
+            red = self.mesh.mean(red, self.axes)
         return red, (torch.zeros_like(ef) if ef is not None else None)
+
+
+def _error_feedback(t: Transport, buf: torch.Tensor,
+                    ef: torch.Tensor | None, transmit, residual_
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A lossy transport's reduction under error feedback: ``transmit(v,
+    b)`` reduces the whole arena (``b`` None) or, per bucket (``batched=
+    False``, the oracle), bucket ``b``; ``residual_`` forms the new state
+    (``compression.error_feedback_step``).  Applies ``mean``."""
+    if t.batched:
+        red, res = compression.error_feedback_step(
+            buf, ef, lambda v: transmit(v, None), residual_)
+    else:
+        nd = t.mesh.ndim
+        red, res = torch.empty_like(buf), torch.empty_like(buf)
+        for b in range(buf.shape[nd]):
+            r, e = compression.error_feedback_step(
+                buf.select(nd, b), None if ef is None else ef.select(nd, b),
+                lambda v: transmit(v, b), residual_)
+            red.select(nd, b).copy_(r)
+            res.select(nd, b).copy_(e)
+    if t.mean:
+        red = t.mesh.mean(red, t.axes)
+    return red, res
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Transport(Transport):
+    """F1 int8 transport on the wire: the quantized exchange under error
+    feedback.  On a multi-axis mesh the hierarchical protocol (intra-pod
+    reduce-scatter, quantized allreduce of the owned chunk across each
+    upper level) or, flat, the protocol over the inner axis and then over
+    each outer axis in turn."""
+
+    block: int = QUANT_BLOCK
+
+    def _allreduce(self, v: torch.Tensor) -> torch.Tensor:
+        *outer_axes, inner = self.axes
+        if self._use_hierarchy() and outer_axes:
+            # upper tree levels leaf-first: outer axes innermost-first
+            return compression.quantized_allreduce_hier(
+                v, self.mesh, inner, tuple(reversed(outer_axes)),
+                block=self.block)
+        red = compression.quantized_allreduce(v, self.mesh, inner,
+                                              block=self.block)
+        for ax in outer_axes:
+            red = compression.quantized_allreduce(red, self.mesh, ax,
+                                                  block=self.block)
+        return red
+
+    def __call__(self, buf, ef, staggers, extents):
+        return _error_feedback(
+            self, buf, ef, lambda v, b: (self._allreduce(v), None),
+            lambda v, sent: compression.roundtrip_residual_(v, self.block))
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseTransport(Transport):
+    """§7 top-k sparse transport on the wire, densify-on-overflow, under
+    error feedback.  Bucket ``b`` keeps ``sparse_k(k_frac, extents[b])``
+    entries of its unpadded extent.  The recursive doubling needs a
+    power-of-two inner axis; the hierarchical schedule needs power-of-two
+    outer axes as well, and in auto mode a mesh without them stays on
+    ``two_level`` (dense across pods)."""
+
+    k_frac: float = 0.01
+    density_threshold: float = 0.25
+
+    def _hier(self) -> bool:
+        *outer_axes, inner = self.axes
+        p = self.mesh.axis_size(inner)
+        if p & (p - 1):
+            raise ValueError(
+                f"sparse transport requires a power-of-two inner axis; "
+                f"mesh axis {inner!r} has size {p}")
+        if not (self._use_hierarchy() and outer_axes):
+            return False
+        bad = [a for a in outer_axes
+               if self.mesh.axis_size(a) & (self.mesh.axis_size(a) - 1)]
+        if bad and self.hierarchical:
+            raise ValueError(
+                f"hierarchical sparse transport requires power-of-two "
+                f"outer axes; mesh axes {bad!r} are not")
+        return not bad
+
+    def __call__(self, buf, ef, staggers, extents):
+        *outer_axes, inner = self.axes
+        hier = self._hier()
+        ks = tuple(sparse.sparse_k(self.k_frac, e) for e in extents)
+        k_all = torch.tensor(ks, dtype=torch.int32, device=buf.device)
+        kw = dict(density_threshold=self.density_threshold)
+
+        def transmit(v, b):
+            k_eff = k_all if b is None else ks[b]
+            if hier:
+                # lists stay sparse across the inter-pod hop
+                return sparse.sparse_allreduce_hier(
+                    v, self.mesh, inner, tuple(reversed(outer_axes)),
+                    max(ks), k_eff=k_eff, **kw)
+            if outer_axes:
+                return sparse.sparse_allreduce_two_level(
+                    v, self.mesh, inner, outer_axes[-1], max(ks),
+                    k_eff=k_eff, **kw)
+            return sparse.sparse_allreduce(v, self.mesh, inner, max(ks),
+                                           k_eff=k_eff, **kw)
+        return _error_feedback(self, buf, ef, transmit,
+                               lambda v, sent: sparse.residual_(v, *sent))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,7 +262,7 @@ class SwitchTransport(Transport):
                 buf, self.mesh, self.axes, reproducible=self.reproducible,
                 batched=self.batched)
             if self.mean:
-                red = red / self._world()
+                red = self.mesh.mean(red, self.axes)
             return red, (torch.zeros_like(ef) if ef is not None else None)
         if self.mode == "int8":
             def transmit(v):
@@ -173,7 +288,7 @@ class SwitchTransport(Transport):
         red, ef_out = compression.error_feedback_step(buf, ef, transmit,
                                                       residual_)
         if self.mean:
-            red = red / self._world()
+            red = self.mesh.mean(red, self.axes)
         return red, ef_out
 
 
@@ -200,11 +315,14 @@ def from_config(config, mesh: RankMesh, dtype: torch.dtype, *,
                                    batched=batched, mode="int8")
         return SwitchTransport(mesh, axes, mean=config.mean, batched=batched,
                                reproducible=config.reproducible)
-    if is_float and (config.sparse_k_frac > 0
-                     or config.compression == "int8"):
-        raise NotImplementedError(
-            "the lossy wire transports are not ported yet: ROADMAP queue 1 "
-            "items 7 (wire int8) and 8 (wire sparse)")
+    if config.sparse_k_frac > 0 and is_float:
+        return SparseTransport(mesh, axes, mean=config.mean, batched=batched,
+                               hierarchical=config.hierarchical,
+                               k_frac=config.sparse_k_frac,
+                               density_threshold=config.density_threshold)
+    if config.compression == "int8" and is_float:
+        return Int8Transport(mesh, axes, mean=config.mean, batched=batched,
+                             hierarchical=config.hierarchical)
     return DenseTransport(mesh, axes, mean=config.mean, batched=batched,
                           hierarchical=config.hierarchical,
                           algorithm=config.algorithm,

@@ -37,7 +37,10 @@
 //   (:99).  A (G, P, S, E) int8 stack with (G, P, S, E / qblock) fp32
 //   scales -> (G, S, E) fp32: the P children fold in stack order,
 //   q0*s0 for one child, else fma(q0, s0, q1*s1) and then fma(qi, si,
-//   acc), P any fan-in in a runtime loop.  Each (S, E) block is
+//   acc), P any fan-in in a runtime loop.  The wire order (the int8
+//   wire protocol's reduce-scatter, jnp.sum of the dequantized stack,
+//   which XLA contracts differently) is acc = q0*s0, then fma(qi, si,
+//   acc) for i = 1 .. P-1.  Each (S, E) block is
 //   contiguous, the G and P strides are free, so a stack gathered along a
 //   rank axis, and the multi design's strided q[j::n_bufs], are views.
 //   Each thread folds 16 contiguous elements, one 16-byte load a child,
@@ -321,7 +324,7 @@ __device__ __forceinline__ void load_i8x16(const int8_t* __restrict__ p, float* 
 // one 16-byte load a child (a warp reads 512 contiguous bytes).  Its 64
 // bytes of fp32 output go out through a per-warp stage in shared memory,
 // so that each of the warp's four stores covers 512 contiguous bytes.
-template <bool VEC>
+template <bool VEC, bool WIRE>
 __global__ void __launch_bounds__(kThreads)
 dequant_accum_kernel(const int8_t* __restrict__ q, const float* __restrict__ scales,
                      float* __restrict__ out, int p, long long g_count, long long len,
@@ -341,9 +344,15 @@ dequant_accum_kernel(const int8_t* __restrict__ q, const float* __restrict__ sca
       const float* sg = scales + g * s_stride_g + si;
       load_i8x16<VEC>(qg, acc);
       const float s0 = __ldg(sg);
-      if (p == 1) {
+      if (p == 1 || WIRE) {
 #pragma unroll
         for (int k = 0; k < kElems; ++k) acc[k] = __fmul_rn(acc[k], s0);
+        for (int c = 1; c < p; ++c) {
+          load_i8x16<VEC>(qg + c * q_stride_p, qv);
+          const float sc = __ldg(sg + c * s_stride_p);
+#pragma unroll
+          for (int k = 0; k < kElems; ++k) acc[k] = __fmaf_rn(qv[k], sc, acc[k]);
+        }
       } else {
         load_i8x16<VEC>(qg + q_stride_p, qv);
         const float s1 = __ldg(sg + s_stride_p);
@@ -424,11 +433,13 @@ extern "C" int dequantize(const void* q, const void* scales, const void* minuend
 
 // q (G, P, len) int8 and scales (G, P, len / qblock) fp32 with free G and
 // P strides and contiguous rows; out (G, len) fp32 contiguous.
-// qblock % 16 == 0 and len % qblock == 0.
+// qblock % 16 == 0 and len % qblock == 0.  wire_order: 0 the switch's
+// contraction, 1 the wire protocol's.
 extern "C" int dequant_accum_slots(const void* q, const void* scales, void* out, int p,
                                    long long g, long long len, int qblock,
                                    long long q_stride_g, long long q_stride_p,
-                                   long long s_stride_g, long long s_stride_p, void* stream) {
+                                   long long s_stride_g, long long s_stride_p, int wire_order,
+                                   void* stream) {
   if (p < 1 || g < 1 || len < 1 || qblock < 16 || qblock % 16 || len % qblock)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
@@ -442,12 +453,11 @@ extern "C" int dequant_accum_slots(const void* q, const void* scales, void* out,
   const int8_t* qt = static_cast<const int8_t*>(q);
   const float* st = static_cast<const float*>(scales);
   float* ot = static_cast<float*>(out);
-  if (vec) {
-    dequant_accum_kernel<true><<<grid, kThreads, 0, s>>>(qt, st, ot, p, g, len, qblock, q_stride_g,
-                                                         q_stride_p, s_stride_g, s_stride_p);
-  } else {
-    dequant_accum_kernel<false><<<grid, kThreads, 0, s>>>(qt, st, ot, p, g, len, qblock, q_stride_g,
-                                                          q_stride_p, s_stride_g, s_stride_p);
-  }
+  void (*kernel)(const int8_t*, const float*, float*, int, long long, long long, int, long long,
+                 long long, long long, long long);
+  if (vec) kernel = wire_order ? dequant_accum_kernel<true, true> : dequant_accum_kernel<true, false>;
+  else kernel = wire_order ? dequant_accum_kernel<false, true> : dequant_accum_kernel<false, false>;
+  kernel<<<grid, kThreads, 0, s>>>(qt, st, ot, p, g, len, qblock, q_stride_g, q_stride_p,
+                                   s_stride_g, s_stride_p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -177,46 +177,52 @@ def _stack_slots(q: torch.Tensor, scales: torch.Tensor
 
 
 def dequant_accum_slots_plain(q: torch.Tensor, scales: torch.Tensor,
-                              qblock: int = 256) -> torch.Tensor:
+                              qblock: int = 256, wire_order: bool = False
+                              ) -> torch.Tensor:
     """The plain version of :func:`dequant_accum_slots`, on any device."""
     q4, s4, squeeze = _stack_slots(q, scales)
     g, p, s, e = q4.shape
     out = torch.empty((g, s, e), dtype=torch.float32, device=q.device)
     for c in _row_chunks(s, g * p * e):
         out[:, c] = _ref.dequant_accum_slots(q4[:, :, c], s4[:, :, c],
-                                             qblock)
+                                             qblock, wire_order)
     return out[0] if squeeze else out
 
 
 def dequant_accum_slots(q: torch.Tensor, scales: torch.Tensor,
-                        qblock: int = 256) -> torch.Tensor:
+                        qblock: int = 256, wire_order: bool = False
+                        ) -> torch.Tensor:
     """Fused dequantize and fold of a ``(P, S, E)`` int8 slot stack over
     its child axis, in stack order → ``(S, E)`` fp32; or ``(G, P, S, E)``
     → ``(G, S, E)`` for G switches at once.  Scales are ``(..., P, S,
-    E / qblock)``.  Raises when ``E % qblock``: the caller owns the
-    per-slot scales layout."""
+    E / qblock)``.  The fold is contracted as the switch's, or with
+    ``wire_order`` as the int8 wire protocol's reduce-scatter leg
+    (``ref.dequant_accum_slots``).  Raises when ``E % qblock``: the
+    caller owns the per-slot scales layout."""
     e = q.shape[-1]
     if e % qblock:
         raise ValueError(f"dequant_accum_slots: E={e} % qblock={qblock} "
                          "!= 0")
     if q.device.type == "cpu":
-        return dequant_accum_slots_plain(q, scales, qblock)
+        return dequant_accum_slots_plain(q, scales, qblock, wire_order)
     q4, s4, squeeze = _stack_slots(q, scales)
-    out = _quant.dequant_accum_slots(q4, s4, qblock)
+    out = _quant.dequant_accum_slots(q4, s4, qblock, wire_order)
     return out[0] if squeeze else out
 
 
 def dequant_accum_plain(q: torch.Tensor, scales: torch.Tensor,
-                        qblock: int = 256) -> torch.Tensor:
+                        qblock: int = 256, wire_order: bool = False
+                        ) -> torch.Tensor:
     """The plain version of :func:`dequant_accum`."""
     p, n = q.shape
     return dequant_accum_slots_plain(
         q.reshape(p, n // qblock, qblock), scales.reshape(p, -1, 1),
-        qblock).reshape(n)
+        qblock, wire_order).reshape(n)
 
 
 def dequant_accum(q: torch.Tensor, scales: torch.Tensor,
-                  qblock: int = 256) -> torch.Tensor:
+                  qblock: int = 256, wire_order: bool = False
+                  ) -> torch.Tensor:
     """Fused dequantize and fold of a ``(P, n)`` int8 child stack with
     ``(P, n / qblock)`` scales → ``(n,)`` fp32, in stack order.  Raises
     when ``n % qblock``."""
@@ -227,8 +233,8 @@ def dequant_accum(q: torch.Tensor, scales: torch.Tensor,
     if n % qblock:
         raise ValueError(f"dequant_accum: n={n} % qblock={qblock} != 0")
     if q.device.type == "cpu":
-        return dequant_accum_plain(q, scales, qblock)
-    return _quant.dequant_accum(q, scales, qblock)
+        return dequant_accum_plain(q, scales, qblock, wire_order)
+    return _quant.dequant_accum(q, scales, qblock, wire_order)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ hand in ``csrc/quant.cu`` (its head comment gives the design and the
 exact rounding): ``quantize`` (rows → int8 and one fp32 scale a block),
 ``dequantize`` (int8 → f32/bf16/f16, or the fused error-feedback
 residual ``v − q·s``) and ``dequant_accum_slots`` (the switch's fold of a
-``(G, P, S, E)`` int8 stack, G switches in one launch), with
+``(G, P, S, E)`` int8 stack, G switches in one launch, or with
+``wire_order`` the int8 wire protocol's accumulation), with
 ``dequant_accum`` as its reshape.  All three are bound by memory; each
 wrapper's ``*_bytes`` gives the bytes a launch must move.
 
@@ -33,6 +34,8 @@ QBLOCKS = (32, 64, 128, 256, 512, 1024)
 #: and nothing else touches them but a caller that resets them.
 launches = {"quantize": 0, "dequantize": 0, "dequant_accum_slots": 0,
             "dequant_accum": 0}
+#: of those fold launches, the ones in the wire order
+wire_launches = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -44,7 +47,7 @@ def _entry(name: str):
         "quantize": [_P, _P, _P, _I, _I, _L, _L, _L, _P],
         "dequantize": [_P, _P, _P, _P, _I, _I, _L, _P],
         "dequant_accum_slots": [_P, _P, _P, _I, _L, _L, _I, _L, _L, _L, _L,
-                                _P],
+                                _I, _P],
     }[name]
     fn.restype = ctypes.c_int
     return fn
@@ -180,7 +183,8 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, qblock: int = 256,
 
 
 def _accum(q: torch.Tensor, scales: torch.Tensor, qblock: int,
-           name: str) -> torch.Tensor:
+           name: str, wire_order: bool) -> torch.Tensor:
+    global wire_launches
     _check_cuda(name, q, scales)
     if q.dtype != torch.int8 or scales.dtype != torch.float32:
         raise ValueError(f"{name} kernel wants int8 and float32, got "
@@ -209,28 +213,32 @@ def _accum(q: torch.Tensor, scales: torch.Tensor, qblock: int,
         err = _entry("dequant_accum_slots")(
             q.data_ptr(), scales.data_ptr(), out.data_ptr(), p, g, s * e,
             qblock, q.stride(0), q.stride(1), scales.stride(0),
-            scales.stride(1), _stream(q))
+            scales.stride(1), int(wire_order), _stream(q))
     _raise_on(err, name, tuple(q.shape))
     launches[name] += 1
+    wire_launches += int(wire_order)
     return out
 
 
 def dequant_accum_slots(q: torch.Tensor, scales: torch.Tensor,
-                        qblock: int = 256) -> torch.Tensor:
+                        qblock: int = 256, wire_order: bool = False
+                        ) -> torch.Tensor:
     """Launch on a ``(G, P, S, E)`` int8 stack with ``(G, P, S,
     E/qblock)`` fp32 scales → ``(G, S, E)`` fp32, children folded in
-    stack order.  Each ``(S, E)`` block must be contiguous; the G and P
-    strides are free."""
-    return _accum(q, scales, qblock, "dequant_accum_slots")
+    stack order: the switch's contraction, or with ``wire_order`` the
+    wire protocol's (``ref.dequant_accum_slots``).  Each ``(S, E)``
+    block must be contiguous; the G and P strides are free."""
+    return _accum(q, scales, qblock, "dequant_accum_slots", wire_order)
 
 
 def dequant_accum(q: torch.Tensor, scales: torch.Tensor,
-                  qblock: int = 256) -> torch.Tensor:
+                  qblock: int = 256, wire_order: bool = False
+                  ) -> torch.Tensor:
     """Launch on a ``(P, n)`` int8 stack with ``(P, n/qblock)`` scales →
     ``(n,)`` fp32: the slot kernel on the reshape ``(1, P, n/qblock,
     qblock)``, one block a slot."""
     p, n = q.shape
     out = _accum(q.reshape(1, p, n // qblock, qblock),
                  scales.reshape(1, p, n // qblock, 1), qblock,
-                 "dequant_accum")
+                 "dequant_accum", wire_order)
     return out.reshape(n)

@@ -38,6 +38,8 @@ def tree_reduce(x: torch.Tensor, accum_dtype: torch.dtype = torch.float32,
 #   * ``max|x| / 127`` is compiled as ``max|x| * fl32(1/127)``;
 #   * the dequant-accumulate fold ``acc = q0·s0; acc = acc + qi·si`` is
 #     contracted to ``acc = fma(q0, s0, q1·s1)``, then ``fma(qi, si, acc)``;
+#     the wire protocol's ``jnp.sum`` of the dequantized stack to
+#     ``acc = q0·s0``, then ``fma(qi, si, acc)``;
 #   * the error-feedback residual ``v - q·s`` is ``fma(-q, s, v)``.
 # A fused multiply-add is computed here in fp64 (see ``fma_f32``).
 # ---------------------------------------------------------------------------
@@ -108,16 +110,21 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, qblock: int = 256,
 
 
 def dequant_accum_slots(q: torch.Tensor, scales: torch.Tensor,
-                        qblock: int = 256) -> torch.Tensor:
+                        qblock: int = 256, wire_order: bool = False
+                        ) -> torch.Tensor:
     """Dequantize and fold a ``(..., P, S, E)`` int8 stack over its child
     axis in stack order → ``(..., S, E)`` fp32, contracted as XLA does:
-    ``q0·s0`` for one child, else ``fma(q0, s0, q1·s1)`` and then
-    ``fma(qi, si, acc)``.  Scales are ``(..., P, S, E / qblock)``."""
+    for the switch's fold ``q0·s0`` for one child, else ``fma(q0, s0,
+    q1·s1)`` and then ``fma(qi, si, acc)``; with ``wire_order`` (the wire
+    protocol's ``jnp.sum``) ``q0·s0`` and then ``fma(qi, si, acc)``.
+    Scales are ``(..., P, S, E / qblock)``."""
     *lead, p, s, e = q.shape
     qb = q.reshape(*lead, p, s, e // qblock, qblock)
     sc = scales.unsqueeze(-1)
-    if p == 1:
+    if p == 1 or wire_order:
         acc = qb[..., 0, :, :, :].float() * sc[..., 0, :, :, :]
+        for i in range(1, p):
+            acc = fma_f32(qb[..., i, :, :, :], sc[..., i, :, :, :], acc)
     else:
         acc = fma_f32(qb[..., 0, :, :, :], sc[..., 0, :, :, :],
                       qb[..., 1, :, :, :].float() * sc[..., 1, :, :, :])
@@ -127,12 +134,13 @@ def dequant_accum_slots(q: torch.Tensor, scales: torch.Tensor,
 
 
 def dequant_accum(q: torch.Tensor, scales: torch.Tensor,
-                  qblock: int = 256) -> torch.Tensor:
+                  qblock: int = 256, wire_order: bool = False
+                  ) -> torch.Tensor:
     """The flat form: a ``(..., P, n)`` stack with ``(..., P, n / qblock)``
     scales → ``(..., n)`` fp32, the slot fold with one block a slot."""
     *lead, p, n = q.shape
     out = dequant_accum_slots(q.reshape(*lead, p, n // qblock, qblock),
-                              scales.unsqueeze(-1), qblock)
+                              scales.unsqueeze(-1), qblock, wire_order)
     return out.reshape(*lead, n)
 
 

@@ -14,6 +14,8 @@ fake meshes ``launch/mesh.FAKE_FLAT`` / ``FAKE_2D``.
   unspecified, and under nested ``vmap`` on the CPU takes the same).
 * ``ppermute`` is an index along the rank axis; ranks that receive
   nothing get zeros, as in ``lax.ppermute``.
+* ``all_to_all`` swaps the rank axis with the chunk axis, one copy.
+* ``mean`` divides by a world size as XLA does, by its reciprocal.
 """
 from __future__ import annotations
 
@@ -27,6 +29,11 @@ import torch
 FLAT = (1, 8)
 TWO_LEVEL = (2, 4)
 AXES = ("pod", "data")
+
+
+def axis_tuple(axes: str | Sequence[str]) -> tuple[str, ...]:
+    """A mesh axis name or names as a tuple (``compat.axis_tuple``)."""
+    return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +71,13 @@ class RankMesh:
     def world_size(self, axes: Sequence[str] | None = None) -> int:
         axes = self.axes if axes is None else axes
         return math.prod(self.axis_size(a) for a in axes)
+
+    def mean(self, x: torch.Tensor, axes: str | Sequence[str]
+             ) -> torch.Tensor:
+        """``x`` over the world size of ``axes``, as the jitted reference
+        computes ``x / world``: XLA turns a division by a constant into
+        a product with its reciprocal."""
+        return x * (1.0 / self.world_size(axis_tuple(axes)))
 
     def _check(self, x: torch.Tensor) -> None:
         if tuple(x.shape[:self.ndim]) != self.shape:
@@ -119,8 +133,7 @@ class RankMesh:
         several axes the ranks are taken in their flat (row-major) order,
         the order XLA's psum takes under nested ``vmap``."""
         self._check(x)
-        axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        ks = sorted(self.dim(a) for a in axes)
+        ks = sorted(self.dim(a) for a in axis_tuple(axes))
         ranks = x.movedim(ks, list(range(len(ks)))).flatten(0, len(ks) - 1)
         acc = ranks[0]
         for c in range(1, ranks.shape[0]):
@@ -128,6 +141,32 @@ class RankMesh:
         for k in ks:
             acc = acc.unsqueeze(k)
         return acc.expand(x.shape)
+
+    def all_to_all(self, x: torch.Tensor, axis: str, split_axis: int,
+                   concat_axis: int, tiled: bool = True) -> torch.Tensor:
+        """``lax.all_to_all`` over ``axis``: each rank splits its tensor
+        into P chunks along ``split_axis`` and sends chunk ``j`` to rank
+        ``j``, which concatenates what it receives along ``concat_axis``
+        in source-rank order.  The axes count in the rank-local tensor.
+        ``tiled`` keeps the rank-local shape's rank; untiled, the split
+        axis (of size P) goes and an axis of size P is inserted at
+        ``concat_axis``.  One strided copy: the rank axis swapped with
+        the chunk axis."""
+        self._check(x)
+        k, nd, p = self.dim(axis), self.ndim, self.axis_size(axis)
+        sa, ca = nd + split_axis, nd + concat_axis
+        if tiled:
+            if x.shape[sa] % p:
+                raise ValueError(f"all_to_all: split axis of size "
+                                 f"{x.shape[sa]} is not divisible by {p}")
+            x = x.unflatten(sa, (p, x.shape[sa] // p))   # chunk axis at sa
+        elif x.shape[sa] != p:
+            raise ValueError(f"all_to_all: untiled split axis has size "
+                             f"{x.shape[sa]}, not {p}")
+        # rank r's chunk j ← rank j's chunk r: swap the two axes
+        x = x.transpose(k, sa).movedim(sa, ca).contiguous()
+        # tiled: the sources' chunks, in rank order, join concat_axis
+        return x.flatten(ca, ca + 1) if tiled else x
 
     def ppermute(self, x: torch.Tensor, axis: str,
                  perm: Sequence[tuple[int, int]]) -> torch.Tensor:

@@ -16,11 +16,13 @@ no rank axes they are the reference's functions on one rank.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels import ops
 
@@ -171,14 +173,62 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return torch.tanh(x / cap) * cap if cap > 0 else x
 
 
+@torch.library.custom_op("repro_torch::block_out", mutates_args=())
+def _block_out(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` under an operator of its own, which the ``names``
+    policy saves by name (a custom op's output may not alias its
+    input)."""
+    return x.clone()
+
+
+@_block_out.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+_block_out.register_autograd(lambda ctx, grad: grad)
+
+#: the matrix products that ``dots`` saves (``einsum`` and ``@`` reach
+#: them), as ``jax.checkpoint_policies.checkpoint_dots`` saves dots
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_block_out(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE
+            if op is torch.ops.repro_torch.block_out.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def remat(cfg: ModelConfig, fn: Callable) -> Callable:
-    """Layer-boundary remat: ``full`` recomputes the layer in the backward
-    (``torch.utils.checkpoint``, non-reentrant), keeping only its input."""
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported: only 'full' "
-            "is (ROADMAP queue 1 item 6)")
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    """Layer-boundary remat with the configured policy
+    (``torch.utils.checkpoint``, non-reentrant).  ``full`` recomputes the
+    layer in the backward, keeping only its input; ``dots`` also keeps
+    every matrix product's output; ``names`` keeps the tensors
+    :func:`tag_block_out` marks, the attention and FFN block outputs.
+    The flash kernel launches outside PyTorch's dispatch, so no policy
+    can keep its output: the backward recomputes it under every one."""
+    policy = {"dots": _save_dots, "names": _save_block_out}.get(
+        cfg.remat_policy)
+    if policy is None:
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    ctx = functools.partial(create_selective_checkpoint_contexts, policy)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    context_fn=ctx)
+
+
+def tag_block_out(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Mark ``x`` as a named remat checkpoint (``remat_policy="names"``,
+    at the cost of one copy of ``x``); the identity otherwise."""
+    if cfg.remat_policy == "names":
+        return torch.ops.repro_torch.block_out(x)
+    return x
 
 
 # ---------------------------------------------------------------------------

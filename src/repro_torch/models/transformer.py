@@ -105,9 +105,9 @@ def _self_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
                 window: int = 0) -> torch.Tensor:
     h = base.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     attn_out, _ = base.gqa_attention(cfg, lp["attn"], h, window=window)
-    x = x + attn_out
+    x = x + base.tag_block_out(cfg, attn_out)
     h = base.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + base.swiglu(lp["ffn"], h)
+    return x + base.tag_block_out(cfg, base.swiglu(lp["ffn"], h))
 
 
 def _layer_slices(stack, rank_dims: int) -> list:

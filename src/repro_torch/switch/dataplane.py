@@ -293,7 +293,7 @@ def switch_allreduce_dense(arena: torch.Tensor, mesh: RankMesh,
         for lvl in reversed(levels):
             cur = _multicast_arena(cur, mesh, lvl, fmt)
     if mean:
-        cur = cur / mesh.world_size(axes)
+        cur = mesh.mean(cur, axes)
     return cur
 
 
@@ -435,7 +435,7 @@ def switch_allreduce_int8(arena: torch.Tensor, mesh: RankMesh,
         out = compression.dequantize_int8(q, scales, block,
                                           dtype=arena.dtype)[..., :s0]
     if mean:
-        out = out / mesh.world_size(axes)
+        out = mesh.mean(out, axes)
     return out
 
 
@@ -586,7 +586,7 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
     if len(levels) == 1 and levels[0].fanin == 1:
         out = sparse.scatter_dense(val, idx, s, dtype=arena.dtype).float()
         if mean:
-            out = out / mesh.world_size(axes)
+            out = mesh.mean(out, axes)
         ret = [out.to(arena.dtype), sent]
         if with_stats:
             ret.append({"collisions": collisions,
@@ -643,7 +643,7 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
             red = _multicast_arena(red, mesh, lvl, fmt)
     del dense
     if mean:
-        red = red / mesh.world_size(axes)
+        red = mesh.mean(red, axes)
     red = red.to(arena.dtype)
     if batched:
         red = red.expand(mesh.shape + (b, s))

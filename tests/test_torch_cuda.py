@@ -1,8 +1,8 @@
 """The port on the card: the CUDA kernels against their plain versions,
 the whole reduction on the GPU against the same reduction on the CPU
 (the reproducible dense path, the int8 path and the sparse path, the
-last two with their state), and the train step on the GPU against the
-same step on the CPU.
+last two with their state, in the network and on the wire), and the
+train step on the GPU against the same step on the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so it runs where only PyTorch is installed:
@@ -302,6 +302,72 @@ def test_sparse_grad_reducer_on_cuda_matches_cpu(cuda, mshape, frac):
     assert sa.launches["sparse_accum_slots"] > 0
     cpu = lambda t: tree.map_leaves(lambda a: a.cpu(), t)
     w1, wst = red(cpu(g1), red.init_state(cpu(g1)))
+    w2, wst = red(cpu(g2), wst)
+    for got, want in ((r1, w1), (r2, w2), (st, wst)):
+        for g, w in zip(tree.flatten(got)[0], tree.flatten(want)[0]):
+            assert _same_bits(g.contiguous(), w.contiguous())
+
+
+@pytest.mark.cuda
+def test_dequant_accum_wire_order_matches_plain_on_cuda(cuda):
+    """The wire protocol's order of the fold, ``q0·s0`` then ``fma(qi,
+    si, acc)``, on the kernel and on its plain version."""
+    before = qt.wire_launches
+    for p in (1, 2, 3, 4, 8):
+        q = torch.randint(-127, 128, (3, p, 5, 512), generator=cuda,
+                          device="cuda", dtype=torch.int8)
+        s = torch.rand((3, p, 5, 2), generator=cuda, device="cuda") * 4
+        assert _same_bits(ops.dequant_accum_slots(q, s, wire_order=True),
+                          ops.dequant_accum_slots_plain(q, s,
+                                                        wire_order=True)), p
+        flat, fs = q[0].reshape(p, -1), s[0].reshape(p, -1)
+        assert _same_bits(ops.dequant_accum(flat, fs, wire_order=True),
+                          ops.dequant_accum_plain(flat, fs, wire_order=True))
+    assert qt.wire_launches == before + 10
+
+
+@pytest.mark.cuda
+def test_scatter_dense_launches_the_kernel_on_cuda(cuda):
+    """``sparse.scatter_dense`` of sorted unique lists with a SENTINEL
+    tail and -0.0 values: the kernel on the card, the CPU's bits, into
+    fp32 and bf16."""
+    from repro_torch.core import sparse
+    idx = torch.rand((4, 20_050), generator=cuda, device="cuda").argsort(
+        dim=1)[:, :900].sort(dim=1).values.int()
+    idx = torch.cat([idx, torch.full((4, 100), sparse.SENTINEL,
+                                     dtype=torch.int32, device="cuda")], 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        val = torch.randn((4, 1000), generator=cuda, device="cuda").to(dtype)
+        val[:, ::4] = -0.0
+        before = sa.launches["sparse_accum_slots"]
+        got = sparse.scatter_dense(val, idx, 20_000, dtype)
+        assert sa.launches["sparse_accum_slots"] == before + 1
+        assert _same_bits(got, sparse.scatter_dense(val.cpu(), idx.cpu(),
+                                                    20_000, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mshape", [FLAT, TWO_LEVEL])
+@pytest.mark.parametrize("kw", [dict(compression="int8"),
+                                dict(sparse_k_frac=0.01),
+                                dict(sparse_k_frac=0.3)])
+def test_lossy_wire_grad_reducer_on_cuda_matches_cpu(cuda, mshape, kw):
+    """Two steps of the wire int8 and sparse reductions with the state
+    carried, on the SMOKE model's tree: the card launches the kernels
+    and gives the CPU's bits."""
+    params = transformer.init_params(tl.SMOKE, cuda)
+    mk = lambda: tree.map_leaves(lambda p: torch.randn(
+        (*mshape, *p.shape), generator=cuda, device="cuda"), params)
+    g1, g2 = mk(), mk()
+    red = GradReducer(FlareConfig(axes=AXES, **kw), RankMesh(mshape))
+    qt.wire_launches = sa.launches["sparse_accum_slots"] = 0
+    r1, st = red(g1)
+    r2, st = red(g2, st)
+    torch.cuda.synchronize()
+    assert (qt.wire_launches if "compression" in kw
+            else sa.launches["sparse_accum_slots"]) > 0
+    cpu = lambda t: tree.map_leaves(lambda a: a.cpu(), t)
+    w1, wst = red(cpu(g1))
     w2, wst = red(cpu(g2), wst)
     for got, want in ((r1, w1), (r2, w2), (st, wst)):
         for g, w in zip(tree.flatten(got)[0], tree.flatten(want)[0]):

@@ -137,11 +137,13 @@ def test_flare_config_validation_matches_jax(kw):
 def test_unported_paths_raise_naming_their_roadmap_item():
     mesh = RankMesh((2, 4))
     grads = {"w": torch.zeros(2, 4, 8)}
-    # the per-bucket path and the hierarchical schedule that auto picks
-    # on the (2, 4) mesh are ported: they give the reference's bits
+    # the per-bucket path, the hierarchical schedule that auto picks on
+    # the (2, 4) mesh and the wire int8 transport are ported: they give
+    # the reference's bits
     rng = np.random.default_rng(9)
     jgrads = {"w": rng.normal(size=(2, 4, 8)).astype(np.float32)}
-    for kw in (dict(arena=False), dict(reproducible=True)):
+    for kw in (dict(arena=False), dict(reproducible=True),
+               dict(compression="int8")):
         jred = jengine.GradReducer(jengine.FlareConfig(axes=AXES, **kw))
         want = jax.jit(jax.vmap(jax.vmap(lambda g: jred(g)[0],
                                          axis_name="data"),
@@ -152,8 +154,6 @@ def test_unported_paths_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         GradReducer(FlareConfig(axes=AXES, transport="innetwork",
                                 fault_plan=object()), mesh)
-    with pytest.raises(NotImplementedError, match="items 7"):
-        GradReducer(FlareConfig(axes=AXES, compression="int8"), mesh)(grads)
     with pytest.raises(ValueError, match="mesh shape"):
         GradReducer(FlareConfig(axes=AXES), mesh)({"w": torch.zeros(8, 8)})
 

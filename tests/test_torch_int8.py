@@ -31,6 +31,7 @@ import torch
 
 from repro.core import compression as jcomp
 from repro.core import engine as jengine
+from repro.core import transports as jtransports
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.switch import dataplane as jdp
@@ -444,17 +445,26 @@ def test_from_config_routes_int8_innetwork_to_the_switch():
                                torch.float32)
     assert isinstance(t, transports.SwitchTransport) and t.mode == "int8"
     assert t.block == transports.QUANT_BLOCK
-    # integers ride the dense switch; the wire int8 and wire sparse
-    # transports are not ported
+    # integers ride the dense switch; without transport="innetwork" the
+    # same fields build the wire int8 and wire sparse transports, which
+    # give the reference's bits
     dense = transports.from_config(FlareConfig(**INT8_INNET), mesh,
                                    torch.int32)
     assert dense.mode == "dense"
-    with pytest.raises(NotImplementedError, match="items 7 .wire int8."):
-        transports.from_config(FlareConfig(axes=AXES, compression="int8"),
-                               mesh, torch.float32)
-    with pytest.raises(NotImplementedError, match="8 .wire sparse."):
-        transports.from_config(FlareConfig(axes=AXES, sparse_k_frac=0.1),
-                               mesh, torch.float32)
+    x = np.random.default_rng(12).normal(size=(2, 4, 2, 512)).astype(
+        np.float32)
+    for kw, kind in ((dict(compression="int8"), transports.Int8Transport),
+                     (dict(sparse_k_frac=0.1), transports.SparseTransport)):
+        t = transports.from_config(FlareConfig(axes=AXES, **kw), mesh,
+                                   torch.float32)
+        assert isinstance(t, kind)
+        jt = jtransports.from_config(jengine.FlareConfig(axes=AXES, **kw),
+                                     jnp.float32)
+        want = _nested(lambda a: jt(a, jnp.zeros_like(a), jnp.arange(2),
+                                    (512, 300)))(x)
+        got = t(_t(x).clone(), None, torch.arange(2), (512, 300))
+        for g, w in zip(got, want):
+            assert np.array_equal(_bits(g), _bits(w)), kind
     assert GradReducer(FlareConfig(axes=AXES, transport="innetwork",
                                    reproducible=True), mesh).init_state(
         {"w": torch.ones(2, 4, 3)}) is None

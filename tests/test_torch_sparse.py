@@ -29,6 +29,7 @@ from hypothesis import given, settings, strategies as st
 
 from repro.core import engine as jengine
 from repro.core import sparse as jsparse
+from repro.core import transports as jtransports
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.switch import dataplane as jdp
@@ -687,6 +688,18 @@ def test_from_config_routes_sparse_innetwork_to_the_switch():
     both = FlareConfig(**_sparse_cfg(0.05), compression="int8")
     assert transports.from_config(both, mesh, torch.bfloat16).mode == "sparse"
     assert transports.from_config(cfg, mesh, torch.int32).mode == "dense"
-    with pytest.raises(NotImplementedError, match="8 .wire sparse."):
-        transports.from_config(FlareConfig(axes=AXES, sparse_k_frac=0.1),
+    # without transport="innetwork" the wire sparse transport, which gives
+    # the reference's bits
+    t = transports.from_config(FlareConfig(axes=AXES, sparse_k_frac=0.1),
                                mesh, torch.float32)
+    assert isinstance(t, transports.SparseTransport)
+    jt = jtransports.from_config(jengine.FlareConfig(axes=AXES,
+                                                     sparse_k_frac=0.1),
+                                 jnp.float32)
+    x = np.random.default_rng(14).normal(size=(2, 4, 2, 300)).astype(
+        np.float32)
+    want = _nested(lambda a: jt(a, jnp.zeros_like(a), jnp.arange(2),
+                                (300, 200)))(x)
+    got = t(torch.from_numpy(x.copy()), None, torch.arange(2), (300, 200))
+    for g, w in zip(got, want):
+        assert np.array_equal(_bits(g), _bits(w))

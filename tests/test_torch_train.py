@@ -25,6 +25,7 @@ import functools
 import math
 import re
 from pathlib import Path
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -420,62 +421,87 @@ def test_loss_and_gradients_match_jax():
                                    rtol=1e-5, atol=1e-5)
 
 
-def _mesh_cfgs():
-    return (jrules.MeshCfg(("pod", "data", "model"), (2, 4, 1)),
-            rules.MeshCfg(("pod", "data", "model"), (2, 4, 1)))
+#: the meshes of the train steps: ``--mesh 2x4x1`` and the flat ``8x1``
+MESH_SHAPES = {"2x4": (("pod", "data", "model"), (2, 4, 1)),
+               "8": (("data", "model"), (8, 1))}
+
+
+def _mesh_cfgs(mesh="2x4"):
+    return (jrules.MeshCfg(*MESH_SHAPES[mesh]),
+            rules.MeshCfg(*MESH_SHAPES[mesh]))
 
 
 def _per_rank_jax(jp, jmcfg):
     """Each rank's shard of every leaf, split as the reference's manual
-    specs place them: ``(2, 4, *local)``."""
+    specs place them: ``(*ranks, *local)``, ranks ``(2, 4)`` or ``(8,)``."""
     _, manual, _ = jrules.param_specs(jp, jmcfg)
+    ranks = jmcfg.shape[:-1]
 
     def f(a, spec):
         for i, ax in enumerate(spec):
             if ax == "data":
-                blocks = np.stack(np.split(a, 4, axis=i))
-                return np.broadcast_to(blocks, (2,) + blocks.shape).copy()
-        return np.broadcast_to(a, (2, 4) + a.shape).copy()
+                blocks = np.stack(np.split(a, ranks[-1], axis=i))
+                return np.broadcast_to(blocks, ranks[:-1] + blocks.shape
+                                       ).copy()
+        return np.broadcast_to(a, ranks + a.shape).copy()
     return jax.tree.map(f, jp, manual,
                         is_leaf=lambda x: isinstance(x, np.ndarray))
 
 
-def _two_train_steps(flare: dict, gather: str) -> None:
+def _per_rank_step(f, ranks):
+    """The reference's per-rank function over the ranks' axes."""
+    if len(ranks) == 1:
+        return jax.jit(jax.vmap(f, axis_name="data"))
+    return _nested(f)
+
+
+def _two_train_steps(flare: dict, gather: str, mesh: str = "2x4",
+                     remat: str = "full") -> None:
     """Two train steps of the port against the reference ``step_body``
-    under nested ``vmap``, from the same parameters and batches."""
-    jmcfg, mcfg = _mesh_cfgs()
+    under nested ``vmap``, from the same parameters and batches: losses
+    and gradient norms within 1e-5, the parameters and the
+    error-feedback state ``opt["ef"]`` as the Adam comment below says."""
+    jmcfg, mcfg = _mesh_cfgs(mesh)
+    ranks = jmcfg.shape[:-1]
+    first = (0,) * len(ranks)
     jp = _jparams()
     jtcfg = jtrainer.TrainConfig(lr=1e-3, gather_algorithm=gather,
                                  flare=jengine.FlareConfig(**flare))
     jstep_body, _, _, _, jinit = jtrainer.make_train_step(
-        jregistry.get_model(JCFG), jmcfg, jtcfg, jp)
-    jstep = _nested(jstep_body)
+        jregistry.get_model(JCFG.scaled(remat_policy=remat)), jmcfg, jtcfg,
+        jp)
+    jstep = _per_rank_step(jstep_body, ranks)
     jparams = _per_rank_jax(jp, jmcfg)
-    jopt = jax.vmap(jax.vmap(jinit))(jparams)
+    init = jinit
+    for _ in ranks:
+        init = jax.vmap(init)
+    jopt = init(jparams)
 
     tcfg = trainer.TrainConfig(lr=1e-3, gather_algorithm=gather,
                                flare=FlareConfig(**flare))
     full = params_from_jax(jp, "cpu")
-    step = trainer.make_train_step(get_model(CFG), mcfg, tcfg, full)
+    step = trainer.make_train_step(get_model(CFG.scaled(remat_policy=remat)),
+                                   mcfg, tcfg, full)
     params = rules.shard_params(full, mcfg)
     for a, b in zip(tree.flatten(params)[0], jax.tree.leaves(jparams)):
         assert np.array_equal(_bits(a), _bits(b))
     opt = step.init_opt_state(params)
+    assert ("ef" in opt) == ("ef" in jopt)
 
     stream = jpipeline.synthetic_batches(JCFG, 8, 64, seed=1, prefetch=False)
     losses, m1 = [], None
     for _ in range(2):
         batch = {k: np.asarray(v) for k, v in next(stream).items()}
         jparams, jopt, jm = jstep(
-            jparams, jopt, {k: v.reshape(2, 4, 1, 64) for k, v in
+            jparams, jopt, {k: v.reshape(*ranks, -1, 64) for k, v in
                             batch.items()})
         params, opt, m = step(params, opt, rules.split_batch(
             params_from_jax(batch, "cpu"), mcfg))
         np.testing.assert_allclose(float(m["loss"]),
-                                   float(np.asarray(jm["loss"])[0, 0]),
+                                   float(np.asarray(jm["loss"])[first]),
                                    rtol=1e-5)
         np.testing.assert_allclose(float(m["grad_norm"]),
-                                   float(np.asarray(jm["grad_norm"])[0, 0]),
+                                   float(np.asarray(jm["grad_norm"])[first]),
                                    rtol=1e-5)
         losses.append(float(m["loss"]))
         m1 = m1 or jax.tree.leaves(jax.tree.map(np.asarray, jopt["m"]))
@@ -485,14 +511,38 @@ def _two_train_steps(flare: dict, gather: str) -> None:
     # step-1 gradient is under 10·eps (|m1| = 0.1·|g| < 1e-8) that is
     # ill-conditioned, lr / eps = 1e5 per unit of gradient: fp32 sums taken
     # in another order (about 1e-9 apart there) move it by up to 1e-4.
-    # Everywhere else the parameters are held at 1e-5.
-    for a, b, mm in zip(tree.flatten(params)[0], jax.tree.leaves(jparams),
-                        m1):
-        well = np.abs(mm) >= 1e-8
-        np.testing.assert_allclose(a.numpy()[well], np.asarray(b)[well],
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(a.numpy()[~well], np.asarray(b)[~well],
-                                   rtol=0, atol=1e-4)
+    # Everywhere else the parameters, and the error-feedback state, are
+    # held at 1e-5.
+    pairs = list(zip(tree.flatten(params)[0], jax.tree.leaves(jparams), m1))
+    pairs += [(a, b, None) for a, b in zip(
+        tree.flatten(opt.get("ef", {}))[0], jax.tree.leaves(
+            jopt.get("ef", {})))]
+    for a, b, mm in pairs:
+        a, b = a.numpy(), np.asarray(b)
+        well = np.abs(mm) >= 1e-8 if mm is not None else np.ones_like(a, bool)
+        if flare.get("compression") == "int8":
+            _int8_flips(a, b, well)
+            continue
+        np.testing.assert_allclose(a[well], b[well], rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(a[~well], b[~well], rtol=0, atol=1e-4)
+
+
+def _int8_flips(a: np.ndarray, b: np.ndarray, well: np.ndarray) -> None:
+    """The int8 train steps' pinned deviation (ROADMAP queue 3).  The two
+    frameworks' step-1 gradients agree to fp32 rounding, not bit for bit,
+    and an element within that distance of a rounding boundary of its
+    block's int8 grid rounds to the neighbouring step: its reduced
+    gradient differs by one int8 step (up to 1e-5 here) and its
+    error-feedback state by the same step the other way, and Adam's
+    second step carries that into the parameters (up to 1.7e-4 here).
+    The reducer itself is bitwise on the same inputs
+    (``test_torch_lossy_wire.py``).  So every element is held within
+    ``lr / 4``, and all but 0.1 % of them within the masked tolerance
+    that the other cases hold everywhere."""
+    d = np.abs(a - b)
+    assert float(d.max()) <= 2.5e-4
+    off = (d > np.where(well, 1e-5 + 1e-5 * np.abs(b), 1e-4)).sum()
+    assert off <= 1e-3 * d.size, (off, d.size)
 
 
 def test_two_train_steps_match_jax():
@@ -500,10 +550,81 @@ def test_two_train_steps_match_jax():
                           reproducible=True), "fixed_tree")
 
 
+def test_two_train_steps_match_jax_under_remat_names():
+    """``remat_policy="names"`` on both sides: the reference saves its
+    ``block_out`` tags, the port its ``tag_block_out`` copies."""
+    _two_train_steps(dict(axes=AXES, transport="innetwork",
+                          reproducible=True), "fixed_tree", remat="names")
+
+
+def test_remat_policies_keep_the_gradients_and_save_what_they_name():
+    """``dots`` and ``names`` give ``full``'s gradients bit for bit (remat
+    changes what is kept, not what is computed).  The forward's saves,
+    counted where the selective policy decides them (the checkpoint
+    keeps them in its own cache, out of reach of
+    ``saved_tensors_hooks``, which see only the layer inputs and the
+    ops outside the layers, the same under every policy): ``names``
+    keeps exactly two tagged tensors a layer, ``dots`` more."""
+    batch = params_from_jax(_batch(2), "cpu")
+    grads, saved, outer = {}, {}, {}
+    for policy in ("full", "dots", "names"):
+        cfg = CFG.scaled(remat_policy=policy)
+        params = tree.map_leaves(lambda t: t.requires_grad_(),
+                                 params_from_jax(_jparams(), "cpu"))
+        seen = []
+
+        def counting(fn):
+            def wrapped(ctx, op, *a, **kw):
+                decision = fn(ctx, op, *a, **kw)
+                if (not ctx.is_recompute
+                        and decision == base.CheckpointPolicy.MUST_SAVE):
+                    seen.append(op)
+                return decision
+            return wrapped
+        packed = []
+        with mock.patch.object(base, "_save_dots",
+                               counting(base._save_dots)), \
+                mock.patch.object(base, "_save_block_out",
+                                  counting(base._save_block_out)), \
+                torch.autograd.graph.saved_tensors_hooks(
+                    lambda t: packed.append(t) or t, lambda t: t):
+            loss = get_model(cfg).loss(params, batch)
+        loss.backward()
+        grads[policy] = [p.grad for p in tree.flatten(params)[0]]
+        saved[policy], outer[policy] = seen, len(packed)
+    for policy in ("dots", "names"):
+        assert all(torch.equal(a, b) for a, b in zip(grads["full"],
+                                                     grads[policy])), policy
+    tag = torch.ops.repro_torch.block_out.default
+    assert saved["full"] == []
+    assert saved["names"] == [tag] * (2 * CFG.n_layers)
+    assert len(saved["dots"]) > len(saved["names"])
+    assert tag not in saved["dots"]
+    assert outer["full"] == outer["dots"] == outer["names"]
+
+
 def test_two_train_steps_match_jax_on_the_wire():
     """The launcher's default: the norms through the wire's hierarchical
     schedule (rhd levels on the ``(2, 4)`` mesh), the FSDP pair rhd."""
     _two_train_steps(dict(axes=AXES), "rhd")
+
+
+LOSSY_STEPS = {
+    "innetwork int8": (dict(axes=AXES, transport="innetwork",
+                            compression="int8"), "rhd", "2x4"),
+    "innetwork sparse": (dict(axes=AXES, transport="innetwork",
+                              sparse_k_frac=0.1), "rhd", "2x4"),
+    "wire int8": (dict(axes=AXES, compression="int8"), "rhd", "2x4"),
+    "wire sparse": (dict(axes=AXES, sparse_k_frac=0.1), "rhd", "2x4"),
+    "wire on the flat mesh": (dict(axes=("data",)), "rhd", "8")}
+
+
+@pytest.mark.parametrize("case", sorted(LOSSY_STEPS))
+def test_two_train_steps_match_jax_lossy_and_flat(case):
+    """The lossy transports, in the network and on the wire, with their
+    error-feedback state in ``opt["ef"]``; the wire default on the flat
+    ``(8,)`` mesh (``--mesh 8x1``)."""
+    _two_train_steps(*LOSSY_STEPS[case])
 
 
 def test_bf16_train_steps_track_jax():

@@ -482,9 +482,21 @@ def test_switch_transport_takes_batched():
                 torch.float32, batched=b)
             assert isinstance(t, transports.SwitchTransport)
             assert t.batched is b
-    with pytest.raises(NotImplementedError, match="items 7"):
-        transports.from_config(FlareConfig(axes=AXES, compression="int8"),
+    # the wire int8 transport's per-bucket oracle gives the reference's
+    # bits
+    t = transports.from_config(FlareConfig(axes=AXES, compression="int8"),
                                mesh, torch.float32, batched=False)
+    assert isinstance(t, transports.Int8Transport) and t.batched is False
+    jt = jtransports.from_config(jengine.FlareConfig(axes=AXES,
+                                                     compression="int8"),
+                                 jnp.float32, batched=False)
+    a = _rand(np.random.default_rng(13), (2, 4, B, 300))
+    want = _nested(lambda x: jt(x, jnp.zeros_like(x), jnp.arange(B),
+                                (300,) * B))(a)
+    got = t(tensor_from_numpy(a, "cpu").clone(), None,
+            torch.arange(B, dtype=torch.int32), (300,) * B)
+    for g, w in zip(got, want):
+        _check(g, w, "int8 per bucket")
 
 
 REDUCER_CONFIGS = {k: WIRE_CONFIGS[k] for k in (
