@@ -151,6 +151,25 @@
    ``COMPARE_LAYERS`` from the same parameters and batch: step 1's loss
    and gradient norm bitwise equal, flash 2 × 2 launches a step under
    each; each policy's peak and step time.
+14. The in-network reduction over a lossy fabric (``FABRIC_RATES``:
+   drops, corruption, duplicates and reordered rounds, each plan's seed
+   the first that survives the retry budget and makes every fault
+   happen).  The schedules' host time, cold and cached, beside
+   ``model_lossy``.  On the reduction paths' tree: dense reproducible
+   (the traced fault counters integer-equal to the static schedules',
+   ``plan_counters`` and ``model_point``; then the flat ``(1, 8)`` mesh),
+   int8 and sparse at f = 0.01 (two steps with the state), each bitwise
+   the fault-free run (digests where both do not fit), the counters set
+   to 0 just before and read just after, the median of 5 and the peak
+   beside phases 2-4's.  On a reduced arena: the per-packet plane under
+   the plan and arrival permutations == the batched plane == fault-free,
+   card == CPU.  A doomed plan (drop 0.9, no retries) degrades to the
+   wire: dense at full width bitwise the in-network fault-free result
+   and the wire ``fixed_tree``; int8 and sparse bitwise the wire
+   transport ``_degrade`` builds.  The launcher with ``--fault-rate 0.01
+   --fault-seed 1`` at ``TRAIN_LAYERS``: losses finite and falling,
+   flash on the tensor cores, one step's per-rank gradients replayed
+   with and without the plan, bitwise.  Prints its own wall time.
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line
 of kernel figures, and as its last line ``{"ok": true, "device": ...}``.
@@ -238,6 +257,18 @@ LOSSY_TRAIN = {"int8": ["--compression", "int8"],
 LOSSY_STEPS = 2
 #: the remat policies held against each other at ``COMPARE_LAYERS``
 REMAT_POLICIES = ("full", "dots", "names")
+#: the lossy fabric (phase 14): rates under which every level of the
+#: reduction paths' tree (2.4-4.8 M packets a level) survives the default
+#: retry budget with ``model_lossy``'s survival above 0.8; the seed is the
+#: first that survives and makes every kind of fault happen
+FABRIC_RATES = dict(drop=0.01, corrupt=0.002, duplicate=0.1, reorder=0.5)
+#: the sparse fraction of phase 14 (the lists reach the root)
+FABRIC_SPARSE = 0.01
+#: the launcher's in-network training step over the lossy fabric
+FABRIC_TRAIN_FLAGS = [*TRAIN_FLAGS, "--fault-rate", "0.01", "--fault-seed",
+                      "1"]
+#: timed steps of the lossy-fabric training step, after its warm-up step
+FABRIC_STEPS = 2
 #: TinyLlama depth, cut from the published 22: the int8 reduction's peak
 #: is about four times the 8 ranks' fp32 gradient bytes (the caller's
 #: gradients and state, the two packed arenas), and 22 layers of fp32
@@ -1651,6 +1682,369 @@ def phase_wire_lossy(torch, card, total_mem, cfg, seed) -> dict:
     return found
 
 
+def find_plan(dataplane, pk, counts, start=0, **rates):
+    """The first seed from ``start`` whose plan survives the default retry
+    budget on these level shapes and makes every kind of fault happen
+    (a retransmission, a duplicate, a corrupted delivery, a reordered
+    round), as the reference's chaos group searches."""
+    import numpy as np
+    for seed in range(start, start + 50):
+        plan = pk.FaultPlan(seed=seed, **rates)
+        if not dataplane.plan_survives(plan, counts):
+            continue
+        sch = [x for x in dataplane.fault_schedules(plan, counts)
+               if x is not None]
+        if (sum(x.retransmits for x in sch) and sum(x.duplicates for x in sch)
+                and sum(x.corrupt_rejected for x in sch)
+                and any(not np.array_equal(q, np.sort(q))
+                        for x in sch for q in x.perms)):
+            return plan
+    raise RuntimeError(f"no surviving plan with every fault on {counts}")
+
+
+def phase_lossy_fabric(torch, card, total_mem, cfg, seed, clean) -> dict:
+    """Phase 14: the in-network reduction over a lossy fabric (module
+    docstring, item 14).  ``clean`` holds the fault-free figures of
+    phases 2-4 (median ms, peak bytes).  Returns the kernels' launches
+    on the lossy paths."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.core import arena as arena_mod, sparse, transports
+    from repro_torch.core.engine import FlareConfig, GradReducer
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import quant as qt
+    from repro_torch.kernels import sparse_accum as sa
+    from repro_torch.kernels import tree_reduce as tr
+    from repro_torch.launch import train as launch
+    from repro_torch.mesh import AXES, FLAT, TWO_LEVEL, RankMesh
+    from repro_torch.models import transformer
+    from repro_torch.perfmodel import switch_model as sm
+    from repro_torch.switch import dataplane, packets as pk
+
+    t_phase = time.perf_counter()
+    mesh, flat = RankMesh(TWO_LEVEL, AXES), RankMesh(FLAT, AXES)
+    mk = lambda s, shape=mesh.shape: make_grads(torch, tree, transformer,
+                                                cfg, shape, s)
+    fanins = [l.fanin for l in dataplane._levels(mesh, AXES)]
+    g = mk(seed)
+    like = [torch.empty(l.shape[2:], device="meta")
+            for l in tree.flatten(g)[0]]
+    del g
+    torch.cuda.empty_cache()
+    runs = {"dense": dict(reproducible=True), "int8": dict(
+        compression="int8"), "sparse": dict(sparse_k_frac=FABRIC_SPARSE)}
+    launched = {}
+
+    def group_of(red):
+        return arena_mod.build_plan(
+            like, red.config.bucket_bytes, pad_multiple=red._pad_multiple(8),
+            lead_dims=0).groups[0]
+
+    def counts_of(mode, grp, fan=fanins):
+        ks = [sparse.sparse_k(FABRIC_SPARSE, e) for e in grp.valid_extents]
+        return dataplane.level_packet_counts(
+            fan, grp.num_buckets, grp.bucket_elems, torch.float32, mode=mode,
+            block=QBLOCK, k_max=max(ks) if mode == "sparse" else None)
+
+    # -- the plans, and the schedules' host time cold and cached ------------
+    plans, counts, host = {}, {}, {}
+    for mode, kw in runs.items():
+        red = GradReducer(FlareConfig(axes=AXES, transport="innetwork", **kw),
+                          mesh)
+        counts[mode] = counts_of(mode, group_of(red))
+        plans[mode] = find_plan(dataplane, pk, counts[mode], **FABRIC_RATES)
+        dataplane._schedules.cache_clear()
+        dataplane._admission_folds.cache_clear()
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for x in dataplane.fault_schedules(plans[mode], counts[mode]):
+                dataplane._admission_folds(x)
+            times.append((time.perf_counter() - t0) * 1e3)
+        host[mode] = times
+        sch = dataplane.fault_schedules(plans[mode], counts[mode])
+        model = [sm.model_lossy(plans[mode].drop, plans[mode].corrupt, p * n)
+                 for p, n in counts[mode]]
+        print(f"lossy fabric {mode}: levels (P, n) {counts[mode]}, plan "
+              f"{plans[mode]}; schedules and admission folds on the host "
+              f"{times[0]:.1f} ms cold, {times[1]:.3f} ms cached; per level "
+              f"rounds {[x.rounds for x in sch]}, retransmits "
+              f"{[x.retransmits for x in sch]} (model_lossy "
+              f"{[round(m.retransmits, 1) for m in model]}), duplicates "
+              f"{[x.duplicates for x in sch]}, corrupt "
+              f"{[x.corrupt_rejected for x in sch]}, wait rounds "
+              f"{[x.wait_rounds for x in sch]}, reordered rounds "
+              f"{[int(sum(not np.array_equal(q, np.sort(q)) for q in x.perms)) for x in sch]}"
+              f"; model survival {[round(m.survival, 4) for m in model]}")
+
+    # -- dense reproducible at full width ------------------------------------
+    kw = runs["dense"]
+    red = GradReducer(FlareConfig(axes=AXES, transport="innetwork",
+                                  fault_plan=plans["dense"], **kw), mesh)
+    ref = GradReducer(FlareConfig(axes=AXES, transport="innetwork", **kw),
+                      mesh)
+    grads = mk(seed)
+    want, _ = ref(grads)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr.launches = 0
+    got, _ = red(grads)
+    torch.cuda.synchronize()
+    launched["tree_reduce_slots"] = tr.launches
+    check(tr.launches > 0, "the lossy dense path launched no fold")
+    check(trees_same_bits(got, want), "lossy dense != the fault-free run")
+    del got, want
+    ms, all_ms = timed(torch, lambda: red(grads), 5)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"lossy fabric dense reproducible on {mesh.shape}: tree_reduce_slots "
+          f"launches {launched['tree_reduce_slots']}; bitwise == the "
+          f"fault-free run; ms (median of 5, {card}) {ms:.3f} (runs "
+          f"{[round(t, 3) for t in all_ms]}), fault-free "
+          f"{clean['dense'][0]:.3f}; peak {peak / 2**30:.2f} GiB (fault-free "
+          f"{clean['dense'][1] / 2**30:.2f}) of {total_mem / 2**30:.1f}")
+
+    # the traced counters against the static schedules
+    grp = group_of(red)
+    arena = grp.pack(tree.flatten(grads)[0])
+    del grads
+    _, st = dataplane.switch_allreduce_dense(
+        arena, mesh, AXES, reproducible=True, fault_plan=plans["dense"],
+        with_fault_stats=True)
+    sch = dataplane.fault_schedules(plans["dense"], counts["dense"])
+    want_st = {"retransmits": sum(x.retransmits for x in sch),
+               "duplicates_dropped": sum(x.duplicates for x in sch),
+               "corrupt_rejected": sum(x.corrupt_rejected for x in sch),
+               "delivered": sum(p * n for p, n in counts["dense"])}
+    for k, v in want_st.items():
+        check(bool((st[k] == v).all()), f"traced {k} {st[k].tolist()} != "
+              f"the static schedules' {v}")
+    model = [sm.model_lossy(plans["dense"].drop, plans["dense"].corrupt, p * n)
+             for p, n in counts["dense"]]
+    c = dataplane.plan_counters(AXES, mesh.shape, grp.num_buckets,
+                                grp.bucket_elems, torch.float32,
+                                reproducible=True)
+    print(f"lossy fabric dense counters, every rank: {want_st} == the static "
+          f"schedules' sums; model_lossy at the same P·n expects "
+          f"retransmits {sum(m.retransmits for m in model):.1f}, retry "
+          f"rounds {[round(m.retry_rounds, 3) for m in model]}, survival "
+          f"{np.prod([m.survival for m in model]):.4f}; plan_counters "
+          f"{c}; model_point {c.model_point(grp.num_buckets * grp.bucket_elems * 4)}")
+    del arena, st
+    torch.cuda.empty_cache()
+
+    # the flat (1, 8) mesh
+    fgrads = mk(seed, flat.shape)
+    fred = GradReducer(FlareConfig(axes=AXES, transport="innetwork", **kw),
+                       flat)
+    fcounts = counts_of("dense", group_of(fred), [8])
+    fplan = find_plan(dataplane, pk, fcounts, **FABRIC_RATES)
+    fwant, _ = fred(fgrads)
+    tr.launches = 0
+    fgot, _ = GradReducer(FlareConfig(axes=AXES, transport="innetwork",
+                                      fault_plan=fplan, **kw), flat)(fgrads)
+    torch.cuda.synchronize()
+    check(tr.launches > 0, "the flat lossy path launched no fold")
+    check(trees_same_bits(fgot, fwant), "flat lossy dense != fault-free")
+    print(f"lossy fabric dense on {flat.shape}: levels {fcounts}, plan seed "
+          f"{fplan.seed}; launches {tr.launches}; bitwise == fault-free")
+    del fgrads, fwant, fgot
+    torch.cuda.empty_cache()
+
+    # -- int8 and sparse, two steps with the state, through digests ---------
+    for mode, kernels in (("int8", ("quantize", "dequantize",
+                                    "dequant_accum_slots")),
+                          ("sparse", ("sparse_accum_slots",))):
+        kw = runs[mode]
+        ref = GradReducer(FlareConfig(axes=AXES, transport="innetwork", **kw),
+                          mesh)
+        red = GradReducer(FlareConfig(axes=AXES, transport="innetwork",
+                                      fault_plan=plans[mode], **kw), mesh)
+
+        def two(r):
+            g = mk(seed)
+            r1, st = r(g)
+            g = mk(seed + 1)
+            r2, st = r(g, st)
+            del g
+            d = [digest(torch, tree.flatten(x)[0]) for x in (r1, r2, st)]
+            return d, st
+        want, st = two(ref)
+        del st
+        torch.cuda.empty_cache()
+        counters = qt.launches if mode == "int8" else sa.launches
+        for k in counters:
+            counters[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got, st = two(red)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        for k in kernels:
+            launched[k] = counters[k]
+            check(counters[k] > 0, f"the lossy {mode} path launched no {k}")
+        check(got == want, f"lossy {mode}: results or state != the fault-free "
+              f"run's (digests {got} vs {want})")
+        g = mk(seed + 1)
+        ms, all_ms = timed(torch, lambda: red(g, st), 5)
+        print(f"lossy fabric {mode} on {mesh.shape}, two steps: launches "
+              f"{ {k: launched[k] for k in kernels} }; results and state "
+              f"bitwise == the fault-free run's (digests {got}); ms with a "
+              f"state (median of 5, {card}) {ms:.3f} (runs "
+              f"{[round(t, 3) for t in all_ms]}), fault-free "
+              f"{clean[mode][0]:.3f}; peak {peak / 2**30:.2f} GiB "
+              f"(fault-free {clean[mode][1] / 2**30:.2f})")
+        del g, st
+        torch.cuda.empty_cache()
+
+    # -- the per-packet plane on a reduced arena, card == CPU ----------------
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    small = torch.randn((*mesh.shape, SMALL_BUCKETS, SMALL_S), generator=gen,
+                        device="cuda")
+    ks = [sparse.sparse_k(FABRIC_SPARSE, SMALL_S)] * SMALL_BUCKETS
+
+    def sparse_plane(x, m, a, **k):
+        out = dataplane.switch_allreduce_sparse(x, m, a, ks, **k)
+        return (out[0], out[-1]) if k.get("with_fault_stats") else out[0]
+    planes = {"dense": (dataplane.switch_allreduce_dense,
+                        dict(reproducible=True)),
+              "int8": (dataplane.switch_allreduce_int8, {}),
+              "sparse": (sparse_plane, {})}
+    for mode, (plane, pkw) in planes.items():
+        grp_counts = dataplane.level_packet_counts(
+            fanins, SMALL_BUCKETS, SMALL_S, torch.float32, mode=mode,
+            block=QBLOCK, k_max=ks[0])
+        plan = find_plan(dataplane, pk, grp_counts, start=plans[mode].seed,
+                         **FABRIC_RATES)
+        outs = [plane(small, mesh, AXES, fault_plan=plan,
+                      with_fault_stats=True, batched=bt,
+                      arrival_perms=None if bt else level_perms(
+                          dataplane, mesh, AXES, 9), **pkw)
+                for bt in (True, False)]
+        cpu = plane(small.cpu(), mesh, AXES, fault_plan=plan,
+                    with_fault_stats=True, **pkw)
+        base = plane(small, mesh, AXES, **pkw)
+        check(same_bits(outs[0][0], outs[1][0]), f"reduced {mode}: batched "
+              "!= per-packet under faults and arrival permutations")
+        check(same_bits(outs[0][0], base), f"reduced {mode}: lossy != the "
+              "fault-free plane")
+        check(same_bits(outs[0][0].cpu(), cpu[0]), f"reduced {mode}: card "
+              "!= CPU")
+        check(all(torch.equal(outs[0][-1][k], o[-1][k].to(outs[0][-1][k]))
+                  for o in (outs[1], cpu) for k in outs[0][-1]),
+              f"reduced {mode}: fault counters differ between the planes")
+        print(f"lossy fabric {mode} on a {tuple(small.shape)} arena: levels "
+              f"{grp_counts}, plan seed {plan.seed}: per-packet (under "
+              "arrival permutations) == batched == fault-free, card == CPU, "
+              f"counters equal {({k: int(v[0, 0]) for k, v in outs[0][-1].items()})}")
+    del outs, cpu, base
+
+    # -- a doomed plan degrades to the wire ----------------------------------
+    doomed = pk.FaultPlan(seed=0, drop=0.9,
+                          retry=pk.RetryPolicy(max_retries=0))
+    check(not dataplane.plan_survives(doomed, counts["dense"]),
+          "the doomed plan survives")
+    grads = mk(seed)
+    kw = runs["dense"]
+    want, _ = GradReducer(FlareConfig(axes=AXES, transport="innetwork", **kw),
+                          mesh)(grads)
+    tr.launches = 0
+    got, _ = GradReducer(FlareConfig(axes=AXES, transport="innetwork",
+                                     fault_plan=doomed, **kw), mesh)(grads)
+    torch.cuda.synchronize()
+    check(tr.launches == 0, "the degraded reduction ran the switch's fold")
+    check(trees_same_bits(got, want), "degraded dense != the in-network "
+          "fault-free result")
+    del want
+    wire, _ = GradReducer(FlareConfig(axes=AXES, algorithm="fixed_tree",
+                                      reproducible=True), mesh)(grads)
+    check(trees_same_bits(got, wire), "degraded dense != the wire fixed tree")
+    del grads, got, wire
+    torch.cuda.empty_cache()
+    staggers = torch.zeros(SMALL_BUCKETS, dtype=torch.int32, device="cuda")
+    for mode in ("int8", "sparse"):
+        t = transports.from_config(FlareConfig(
+            axes=AXES, transport="innetwork", fault_plan=doomed,
+            **runs[mode]), mesh, torch.float32)
+        wire_t = t._degrade()
+        got = t(small.clone(), None, staggers, (SMALL_S,) * SMALL_BUCKETS)
+        want = wire_t(small.clone(), None, staggers,
+                      (SMALL_S,) * SMALL_BUCKETS)
+        check(same_bits(got[0], want[0]) and same_bits(got[1], want[1]),
+              f"degraded {mode} != {type(wire_t).__name__}")
+    print(f"lossy fabric, a doomed plan ({doomed}): plan_survives False; "
+          "dense reproducible at full width degrades to the wire, bitwise "
+          "== the in-network fault-free result == the wire fixed_tree; int8 "
+          "and sparse on the reduced arena bitwise == the wire transport "
+          "_degrade builds (Int8Transport, SparseTransport)")
+    del small, got, want, t, wire_t
+    torch.cuda.empty_cache()
+
+    # -- the launcher's training step with --fault-rate ----------------------
+    torch.cuda.reset_peak_memory_stats()
+    run = launch.setup(FABRIC_TRAIN_FLAGS, n_layers=TRAIN_LAYERS,
+                       dtype=torch.bfloat16)
+    check(run.step.reducer.config.fault_plan == pk.FaultPlan(
+        seed=1, drop=0.01), "the launcher built another plan")
+    steps, losses = [], []
+
+    def one():
+        t0 = time.perf_counter()
+        losses.append(float(run.train_step()["loss"]))
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    one()                                      # warm-up
+    fa.launches = fa.tc_launches = 0
+    for _ in range(FABRIC_STEPS):
+        one()
+    torch.cuda.synchronize()
+    launched["flash_attention"], tc = fa.launches, fa.tc_launches
+    check(all(map(math.isfinite, losses)), f"a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"losses do not fall: {losses}")
+    check(fa.launches == FABRIC_STEPS * 2 * TRAIN_LAYERS
+          and fa.tc_launches == fa.launches, f"flash launches {fa.launches} "
+          f"({fa.tc_launches} tensor-core) over {FABRIC_STEPS} steps")
+    red_in = []
+    real_call = GradReducer.__call__
+
+    def spy(self, grads, state=None):
+        out = real_call(self, grads, state)
+        red_in.append(([x.clone() for x in grads],
+                       [o.clone() for o in out[0]]))
+        return out
+    with mock.patch.object(GradReducer, "__call__", spy):
+        run.train_step()
+    torch.cuda.synchronize()
+    check(len(red_in) == 1, "the replay captured no reduction")
+    grads, reduced = red_in[0]
+    lossy_t = run.step.reducer._transport(torch.float32, batched=True)
+    again, _ = run.step.reducer(grads)
+    plain, _ = GradReducer(dataclasses.replace(run.step.reducer.config,
+                                               fault_plan=None),
+                           run.step.mesh)(grads)
+    check(all(same_bits(a, b) for a, b in zip(reduced, again)),
+          "the step's reduced gradients != their replay under the plan")
+    check(all(same_bits(a, b) for a, b in zip(reduced, plain)),
+          "the step's reduced gradients != the fault-free reduction's")
+    print(f"lossy fabric training step ({' '.join(FABRIC_TRAIN_FLAGS)}, "
+          f"{TRAIN_LAYERS} layers): losses (warm-up, then {FABRIC_STEPS} "
+          f"steps) {[round(x, 4) for x in losses]}; step ms (median of "
+          f"{FABRIC_STEPS}, {card}) {statistics.median(steps[1:]):.1f} (runs "
+          f"{[round(t, 1) for t in steps[1:]]}); flash launches "
+          f"{launched['flash_attention']} ({tc} tensor-core); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the plan "
+          f"{type(lossy_t).__name__}({lossy_t.fault_plan}); one step's "
+          f"{len(grads)} per-rank gradient leaves replayed with and without "
+          "the plan: bitwise")
+    del run, red_in, grads, reduced, again, plain, lossy_t
+    torch.cuda.empty_cache()
+    print(f"lossy fabric phase: {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {launched}")
+    return launched
+
+
 def flash_figures(torch, fa, ref, card, err) -> dict:
     """The flash kernel at the training path's shape: its time by CUDA
     events, its bound, the plain version's time and SDPA's."""
@@ -2379,6 +2773,11 @@ def main() -> int:
     # -- on the wire with a lossy transport, and the remat policies ----------
     phase_lossy_train(torch, card, total_mem, dense_wire)
     phase_remat(torch, card, total_mem)
+    # -- the in-network reduction over a lossy fabric --------------------------
+    phase_lossy_fabric(torch, card, total_mem, cfg, args.seed, {
+        "dense": (red_ms, peak), "int8": (red8_ms, peak8),
+        "sparse": (sparse_runs[FABRIC_SPARSE]["ms"],
+                   sparse_runs[FABRIC_SPARSE]["peak"])})
     launches["flash_attention"] = trained["launches"]
     figures["flash_attention"] = flash_figures(torch, fa, ref, card,
                                                flash_path_err)

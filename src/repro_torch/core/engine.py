@@ -20,10 +20,12 @@ With ``reproducible=True`` (F3) the result is bitwise-deterministic and
 bitwise-equal to the JAX package's on the same inputs.  With
 ``compression="int8"`` (F1) or ``sparse_k_frac > 0`` (§7), on the wire
 or in the network, the reducer carries each rank's error-feedback
-residual as its state.
+residual as its state.  With ``transport="innetwork"`` a ``fault_plan``
+runs the switch over the lossy fabric (bitwise the fault-free result
+while the plan survives, the wire transport when it cannot).
 
-Not ported yet: the lossy fabric (ROADMAP queue 1 item 9), the
-multi-tenant runtime (item 11) and telemetry (item 13).
+Not ported yet: the multi-tenant runtime (ROADMAP queue 1 item 11) and
+telemetry (item 13).
 """
 from __future__ import annotations
 
@@ -109,9 +111,6 @@ class GradReducer:
         if missing:
             raise ValueError(f"config axes {missing} are not mesh axes "
                              f"{mesh.axes}")
-        if config.fault_plan is not None:
-            raise NotImplementedError(
-                "the lossy fabric is not ported yet: ROADMAP queue 1 item 9")
         if config.telemetry is not None:
             raise NotImplementedError(
                 "telemetry is not ported yet: ROADMAP queue 1 item 13")

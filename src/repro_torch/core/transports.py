@@ -23,7 +23,9 @@ call:
   ``dequant_accum_slots`` kernel; in sparse mode
   ``switch_allreduce_sparse`` under error feedback, which merges top-k
   coordinate lists and densifies them in the ``sparse_accum_slots``
-  kernel.
+  kernel.  Under a ``fault_plan`` every plane runs over the lossy
+  fabric; a plan the retry budget cannot recover hands the arena to the
+  matching wire transport.
 
 ``batched=False`` keeps the reference's per-bucket ancestor (its
 ``lax.scan``; the switch's per-packet plane) as the bitwise oracle of the
@@ -37,7 +39,7 @@ own.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Any, Sequence
 
 import torch
 
@@ -248,6 +250,12 @@ class SwitchTransport(Transport):
     sum and then the new residual are formed in its storage
     (``compression.error_feedback_step``), so callers pass an arena of
     their own.
+
+    ``fault_plan`` (``switch.packets.FaultPlan``) replays a deterministic
+    lossy fabric: a surviving plan runs in the network, bitwise the
+    fault-free run; a plan the retry budget cannot recover is detected
+    statically before the reduction (``dataplane.plan_survives``) and the
+    arena goes to the matching wire transport (``_degrade``).
     """
 
     mode: str = "dense"             # dense | int8 | sparse
@@ -255,12 +263,43 @@ class SwitchTransport(Transport):
     block: int = QUANT_BLOCK
     k_frac: float = 0.0
     density_threshold: float = 0.25
+    fault_plan: Any = None
+
+    def _plan_survives(self, buf: torch.Tensor, ks) -> bool:
+        """Static retry-budget pre-check on this arena's level shapes."""
+        fanins = [l.fanin for l in dataplane._levels(self.mesh, self.axes)]
+        counts = dataplane.level_packet_counts(
+            fanins, int(buf.shape[-2]), int(buf.shape[-1]), buf.dtype,
+            mode=self.mode, block=self.block,
+            k_max=max(ks) if ks else None,
+            density_threshold=self.density_threshold)
+        return dataplane.plan_survives(self.fault_plan, counts)
+
+    def _degrade(self) -> Transport:
+        """Retry budget exhausted: hand the arena to the matching wire
+        transport.  (The reference also drains the session from a shared
+        multi-tenant runtime; the port has no runtime yet, ROADMAP queue 1
+        items 11 and 12.)"""
+        if self.mode == "sparse":
+            return SparseTransport(self.mesh, self.axes, mean=self.mean,
+                                   batched=True, k_frac=self.k_frac,
+                                   density_threshold=self.density_threshold)
+        if self.mode == "int8":
+            return Int8Transport(self.mesh, self.axes, mean=self.mean,
+                                 batched=True, block=self.block)
+        return DenseTransport(self.mesh, self.axes, mean=self.mean,
+                              batched=True, reproducible=self.reproducible)
 
     def __call__(self, buf, ef, staggers, extents):
+        ks = (tuple(sparse.sparse_k(self.k_frac, e) for e in extents)
+              if self.mode == "sparse" else None)
+        if self.fault_plan is not None and not self._plan_survives(buf, ks):
+            return self._degrade()(buf, ef, staggers, extents)
+        plane = dict(fault_plan=self.fault_plan, batched=self.batched)
         if self.mode == "dense":
             red = dataplane.switch_allreduce_dense(
                 buf, self.mesh, self.axes, reproducible=self.reproducible,
-                batched=self.batched)
+                **plane)
             if self.mean:
                 red = self.mesh.mean(red, self.axes)
             return red, (torch.zeros_like(ef) if ef is not None else None)
@@ -268,18 +307,15 @@ class SwitchTransport(Transport):
             def transmit(v):
                 return dataplane.switch_allreduce_int8(
                     v, self.mesh, self.axes, block=self.block,
-                    batched=self.batched), None
+                    **plane), None
 
             def residual_(v, sent):
                 return compression.roundtrip_residual_(v, self.block)
         elif self.mode == "sparse":
-            ks = tuple(sparse.sparse_k(self.k_frac, e) for e in extents)
-
             def transmit(v):
                 return dataplane.switch_allreduce_sparse(
                     v, self.mesh, self.axes, ks,
-                    density_threshold=self.density_threshold,
-                    batched=self.batched)
+                    density_threshold=self.density_threshold, **plane)
 
             def residual_(v, sent):
                 return sparse.residual_(v, *sent)
@@ -290,6 +326,23 @@ class SwitchTransport(Transport):
         if self.mean:
             red = self.mesh.mean(red, self.axes)
         return red, ef_out
+
+
+def _switch_from_config(config, mesh: RankMesh, is_float: bool, *,
+                        batched: bool = True) -> SwitchTransport:
+    axes = tuple(config.axes)
+    fault_plan = getattr(config, "fault_plan", None)
+    if config.sparse_k_frac > 0 and is_float:
+        return SwitchTransport(mesh, axes, mean=config.mean, batched=batched,
+                               mode="sparse", k_frac=config.sparse_k_frac,
+                               density_threshold=config.density_threshold,
+                               fault_plan=fault_plan)
+    if config.compression == "int8" and is_float:
+        return SwitchTransport(mesh, axes, mean=config.mean, batched=batched,
+                               mode="int8", fault_plan=fault_plan)
+    return SwitchTransport(mesh, axes, mean=config.mean, batched=batched,
+                           mode="dense", reproducible=config.reproducible,
+                           fault_plan=fault_plan)
 
 
 def from_config(config, mesh: RankMesh, dtype: torch.dtype, *,
@@ -305,16 +358,7 @@ def from_config(config, mesh: RankMesh, dtype: torch.dtype, *,
     axes = tuple(config.axes)
     is_float = dtype.is_floating_point
     if config.transport == "innetwork":
-        if config.sparse_k_frac > 0 and is_float:
-            return SwitchTransport(mesh, axes, mean=config.mean,
-                                   batched=batched, mode="sparse",
-                                   k_frac=config.sparse_k_frac,
-                                   density_threshold=config.density_threshold)
-        if config.compression == "int8" and is_float:
-            return SwitchTransport(mesh, axes, mean=config.mean,
-                                   batched=batched, mode="int8")
-        return SwitchTransport(mesh, axes, mean=config.mean, batched=batched,
-                               reproducible=config.reproducible)
+        return _switch_from_config(config, mesh, is_float, batched=batched)
     if config.sparse_k_frac > 0 and is_float:
         return SparseTransport(mesh, axes, mean=config.mean, batched=batched,
                                hierarchical=config.hierarchical,

@@ -10,12 +10,18 @@ none) or, for tests, on the CPU (``--device cpu``).  Examples::
         --mesh 2x4x1 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --steps 5 \\
         --mesh 2x4x1 --batch 8 --seq 4096 --transport innetwork --reproducible
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 3 \\
+        --mesh 2x4x1 --device cpu --transport innetwork --fault-rate 0.01
+
+``--fault-rate`` / ``--fault-seed`` run the switch over a deterministic
+lossy fabric (``--transport innetwork`` only): a surviving plan gives the
+fault-free bits, a plan past the retry budget degrades to the wire.
 
 Not ported, each stopping with the ROADMAP item that will port it: the
-multi-tenant runtime (``--tenants > 1``), the lossy fabric
-(``--fault-rate``), checkpoints (``--ckpt-*``, ``--resume``), telemetry
-and the health plane (``--trace-out``, ``--metrics-out``,
-``--health-policy``), and tensor parallelism (a ``model`` axis > 1).
+multi-tenant runtime (``--tenants > 1``), checkpoints (``--ckpt-*``,
+``--resume``), telemetry and the health plane (``--trace-out``,
+``--metrics-out``, ``--health-policy``), and tensor parallelism (a
+``model`` axis > 1).
 """
 from __future__ import annotations
 
@@ -50,9 +56,15 @@ def _parse(argv=None):
     ap.add_argument("--device", type=str, default="cuda",
                     choices=("cuda", "cpu"),
                     help="where the ranks run (cpu: tests and bring-up)")
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="per-packet drop probability of the injected "
+                         "lossy fabric (needs --transport innetwork).  "
+                         "Surviving plans stay bitwise; plans past the "
+                         "retry budget degrade to the wire")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the deterministic fault plan")
     # not ported: each exits naming its ROADMAP item
     ap.add_argument("--tenants", type=int, default=1)
-    ap.add_argument("--fault-rate", type=float, default=0.0)
     ap.add_argument("--ckpt-dir", type=str, default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
@@ -67,15 +79,25 @@ def _refuse_unported(args) -> None:
     if args.tenants > 1:
         sys.exit("--tenants > 1: the multi-tenant switch runtime is not "
                  "ported (ROADMAP queue 1 item 11)")
-    if args.fault_rate:
-        sys.exit("--fault-rate: the lossy fabric is not ported (ROADMAP "
-                 "queue 1 item 9)")
     if args.ckpt_dir or args.ckpt_every or args.resume:
         sys.exit("--ckpt-dir/--ckpt-every/--resume: checkpoints are not "
                  "ported (ROADMAP queue 1 item 12)")
     if args.trace_out or args.metrics_out or args.health_policy != "off":
         sys.exit("--trace-out/--metrics-out/--health-policy: telemetry and "
                  "the health plane are not ported (ROADMAP queue 1 item 13)")
+
+
+def _fault_plan(args):
+    """``--fault-rate/--fault-seed`` → a deterministic ``FaultPlan``
+    (``None`` when no faults are requested, keeping ``FlareConfig``
+    valid for the wire transports)."""
+    if not args.fault_rate:
+        return None
+    if args.transport != "innetwork" and args.tenants <= 1:
+        sys.exit("--fault-rate models the lossy switch fabric; it needs "
+                 "--transport innetwork (or --tenants > 1)")
+    from repro_torch.switch.packets import FaultPlan
+    return FaultPlan(seed=args.fault_seed, drop=args.fault_rate)
 
 
 @dataclasses.dataclass
@@ -149,7 +171,8 @@ def setup(argv=None, **overrides) -> Run:
                           reproducible=args.reproducible,
                           compression=args.compression,
                           sparse_k_frac=args.sparse_k,
-                          transport=args.transport))
+                          transport=args.transport,
+                          fault_plan=_fault_plan(args)))
     full = model.init(torch.Generator(device=dev).manual_seed(0))
     step = trainer.make_train_step(model, mcfg, tcfg, full)
     params = rules.shard_params(full, mcfg)

@@ -1,6 +1,6 @@
 """The emulated switch data plane: ingress → aggregate → multicast (§4).
 
-The port of the dense and int8 parts of ``repro/switch/dataplane.py``.
+The port of ``repro/switch/dataplane.py``.
 Arenas carry the mesh's rank axes in front, ``(*mesh, B, S)``.  Per level
 of the mesh's reduction tree (``topology.mesh_levels``), leaf level
 first:
@@ -27,12 +27,24 @@ Three planes share this schedule: the dense one
 F1), whose packets carry int8 payloads with an fp32 scales sideband, and
 the sparse one (``switch_allreduce_sparse``, §7), whose packets carry
 top-k coordinate lists that the switches merge until they would
-overflow, then densify.  The lossy fabric (``fault_plan``), telemetry
-and multi-tenant arrivals are not ported yet (ROADMAP queue 1 items 9,
-11 and 13).
+overflow, then densify.
+
+``fault_plan`` replays a deterministic lossy fabric on every up-hop: the
+reliability layer admits each ``(child, packet)`` slot exactly once
+(checksum gating, seen-bitmaps, retransmission rounds), so a surviving
+plan leaves every plane's result bitwise the fault-free one.  The
+batched planes fold the schedule's masks in numpy and gate the stack
+with one select a level (``_admit``); the per-packet planes replay every
+round on the packets (``_reliable_ingress``).  ``plan_counters`` and
+``level_packet_counts`` give the static packet, combine and buffer
+counts that ``perfmodel.switch_model`` consumes.  Telemetry and
+multi-tenant arrivals are not ported yet (ROADMAP queue 1 items 13 and
+11).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -185,19 +197,270 @@ def _net_order(handler: hd.Handler, arrival, p: int,
 
 
 # ---------------------------------------------------------------------------
+# Reliability layer: lossy ingress + exactly-once recovery.
+# ---------------------------------------------------------------------------
+
+class FaultBudgetExceeded(RuntimeError):
+    """A fault plan loses packets the retry budget cannot recover.
+
+    Survival is statically known (corruption deterministically fails the
+    checksum, so the set of accepted packets is a pure function of the
+    schedule): the transport layer pre-checks with :func:`plan_survives`
+    and degrades to the wire transport instead of ever running a
+    non-surviving plane."""
+
+
+def _budget_exceeded(sched: pk.FaultSchedule) -> FaultBudgetExceeded:
+    return FaultBudgetExceeded(
+        f"fault schedule loses packets beyond the retry budget "
+        f"({sched.rounds} rounds, {sched.retransmits} retransmits)")
+
+
+def _new_fault_stats(mesh: RankMesh, device) -> dict:
+    """Per-rank fault counters, ``mesh``-shaped int32: every rank counts
+    every level's ingress, as every rank replays it in the reference."""
+    return {k: torch.zeros(mesh.shape, dtype=torch.int32, device=device)
+            for k in ("retransmits", "duplicates_dropped",
+                      "corrupt_rejected", "delivered", "wait_rounds")}
+
+
+@functools.lru_cache(maxsize=16)
+def _admission_folds(sched: pk.FaultSchedule) -> tuple[np.ndarray, dict]:
+    """The schedule's per-round masks folded over the rounds: clean =
+    arrives ∧ ¬corrupt, seen = any clean delivery so far.  Returns the
+    final ``(P, n)`` delivered mask and the counters it implies.  Memoised
+    per schedule (schedules are cached per plan and shapes, so a plane
+    folds each level's masks once); callers must not write to the
+    mask."""
+    arrives = np.asarray(sched.arrives)
+    corrupt = np.asarray(sched.corrupt)
+    clean = arrives & ~corrupt
+    seen_after = np.cumsum(clean, axis=0) > 0
+    seen_before = np.zeros_like(seen_after)
+    seen_before[1:] = seen_after[:-1]
+    return seen_after[-1], {
+        "corrupt_rejected": int(corrupt.sum()),
+        "duplicates_dropped": int((clean & seen_before).sum()),
+        "delivered": int(seen_after[-1].sum())}
+
+
+def _batched_admission(sched: pk.FaultSchedule, stats: dict) -> np.ndarray:
+    """Vectorized replay of a level's fault schedule.
+
+    The per-packet ``_reliable_ingress`` is exactly-once by construction:
+    when the schedule survives, the recovered stack equals the clean
+    stack bit for bit, and every counter is a pure function of the
+    schedule's masks.  So the batched planes fold those masks in numpy
+    and add the counters as constants:
+
+    * ``corrupt_rejected``: every corrupted delivery fails the checksum,
+      ``Σ corrupt``;
+    * ``duplicates_dropped``: a clean delivery of an already-seen slot;
+    * ``delivered``: slots seen after the final round (= P·n iff the
+      schedule survives).
+
+    Returns the final ``(P, n)`` delivered mask — all-ones on a
+    surviving schedule, so admission never perturbs bits.
+    """
+    if not sched.survives:
+        raise _budget_exceeded(sched)
+    delivered, counts = _admission_folds(sched)
+    for k, v in counts.items():
+        stats[k] += v
+    stats["retransmits"] += sched.retransmits
+    stats["wait_rounds"] += round(sched.wait_rounds)
+    return delivered
+
+
+def _admit(stack, fault: pk.FaultSchedule | None, fault_stats: dict):
+    """Apply a level's batched admission mask to the gathered stack (or
+    to each stack of a dict: the int8 scales sideband fate-shares the
+    payload's mask).  The mask goes to the device once a level; the
+    select writes the admitted stack as a new tensor, as the reference
+    does."""
+    if fault is None:
+        return stack
+    mask = _batched_admission(fault, fault_stats)
+    leaf = next(iter(stack.values())) if isinstance(stack, dict) else stack
+    m = torch.as_tensor(mask, device=leaf.device)
+
+    def one(l):
+        return hd.fold_once(l.new_zeros(()), l, m)
+    if isinstance(stack, dict):
+        return {k: one(v) for k, v in stack.items()}
+    return one(stack)
+
+
+def _per_rank(count: torch.Tensor, mesh: RankMesh,
+              lvl: topology.MeshLevel) -> torch.Tensor:
+    """A level's per-switch ``(G,)`` count at every rank of its group."""
+    return count.reshape(mesh.collapse(lvl.axis).shape).expand(mesh.shape)
+
+
+def _reliable_ingress(stack, headers: torch.Tensor, sched: pk.FaultSchedule,
+                      stats: dict, mesh: RankMesh, lvl: topology.MeshLevel):
+    """Replay a level's fault schedule on the ``(G, P, n, ...)`` child
+    stacks and rebuild the clean canonical stack, exactly once per packet.
+
+    Each delivery round: the round's packets arrive (possibly
+    bit-corrupted on the wire, possibly interleaved across children),
+    header steering un-permutes them by ``HDR_CHILD``, the checksum
+    header gates out corrupted payloads, and the seen-bitmap admits each
+    ``(child, packet)`` slot at most once (``handlers.accept_mask`` /
+    ``fold_once``).  Corruption targets the first leaf of the payload in
+    sorted-key order (``"q"`` of the int8 plane's ``{"q", "scale"}``,
+    whose headers ride the stack); sidebands fate-share the accept mask.
+    One schedule serves every switch of the level.  Returns the
+    recovered stack and headers; adds the counters to ``stats`` at every
+    rank of each switch's group."""
+    if not sched.survives:
+        raise _budget_exceeded(sched)
+    keys = sorted(stack) if isinstance(stack, dict) else None
+    leaves = [stack[k] for k in keys] if keys else [stack]
+    g, p, n = headers.shape[:3]
+    dev = headers.device
+    seen = torch.zeros((g, p, n), dtype=torch.bool, device=dev)
+    acc = [torch.zeros_like(l) for l in leaves]
+    acc_hdr = torch.zeros_like(headers)
+    rejected = torch.zeros(g, dtype=torch.int32, device=dev)
+    dropped = torch.zeros(g, dtype=torch.int32, device=dev)
+    for r in range(sched.rounds):
+        arrives = torch.as_tensor(sched.arrives[r], device=dev)
+        any_corrupt = bool(np.asarray(sched.corrupt[r]).any())
+        if any_corrupt:
+            # wire leg: corrupt the checksummed stream's masked packets
+            corrupt = torch.as_tensor(sched.corrupt[r], device=dev)
+            lvs = [pk.corrupt_first_elem(leaves[0], corrupt)] + leaves[1:]
+        else:
+            lvs = list(leaves)
+        hdr_r = headers
+        perm = np.asarray(sched.perms[r])
+        if not np.array_equal(perm, np.arange(p)):
+            # the round's streams arrive interleaved; steer them back by
+            # the CHILD header, never by arrival position
+            order = _group_order(np.broadcast_to(perm[:, None], (p, n)), g,
+                                 dev)
+            lvs = [hd.apply_order(l, order) for l in lvs]
+            hdr_r = hd.apply_order(headers, order)
+            back = hd.child_order(hdr_r)
+            lvs = [hd.apply_order(l, back) for l in lvs]
+            hdr_r = hd.apply_order(hdr_r, back)
+        if any_corrupt:
+            ok = pk.payload_checksum(lvs[0]) == hdr_r[..., pk.HDR_CSUM]
+        else:
+            # injection is the only corruption source in the emulation:
+            # with none scheduled this round the verify is a pass
+            ok = torch.ones((g, p, n), dtype=torch.bool, device=dev)
+        accept = hd.accept_mask(arrives, ok, seen)
+        acc = [hd.fold_once(a, l, accept) for a, l in zip(acc, lvs)]
+        acc_hdr = hd.fold_once(acc_hdr, hdr_r, accept)
+        rejected += (arrives & ~ok).sum(dim=(1, 2), dtype=torch.int32)
+        dropped += (arrives & ok & seen).sum(dim=(1, 2), dtype=torch.int32)
+        seen = seen | (arrives & ok)
+    stats["corrupt_rejected"] += _per_rank(rejected, mesh, lvl)
+    stats["duplicates_dropped"] += _per_rank(dropped, mesh, lvl)
+    stats["delivered"] += _per_rank(seen.sum(dim=(1, 2), dtype=torch.int32),
+                                    mesh, lvl)
+    stats["retransmits"] += sched.retransmits
+    stats["wait_rounds"] += round(sched.wait_rounds)
+    out = dict(zip(keys, acc)) if keys else acc[0]
+    return out, acc_hdr
+
+
+def level_packet_counts(level_fanins: Sequence[int], num_buckets: int,
+                        bucket_elems: int, dtype: torch.dtype, *,
+                        mode: str = "dense",
+                        fmt: pk.PacketFormat = DEFAULT_FORMAT,
+                        block: int = 256, k_max: int | None = None,
+                        density_threshold: float = 0.25,
+                        ) -> list[tuple[int, int]]:
+    """Per up-hop ``(fanin, packets per child)`` for one plane's schedule.
+
+    The fault plan keys its per-level schedules on these shapes, so this
+    is the single source of truth shared by the planes (which inject)
+    and the transport layer (which pre-checks survival): dense streams a
+    constant ``B · ceil(S/N)`` packets per level, int8 frames the
+    quantized (block-padded) arena, and the sparse plane's packed
+    coordinate lists grow ``cap *= fanin`` per level until the density
+    threshold trips and it continues as dense fp32."""
+    if mode == "dense":
+        n = num_buckets * fmt.packets_per_block(bucket_elems, dtype)
+        return [(p, n) for p in level_fanins]
+    if mode == "int8":
+        s = bucket_elems + (-bucket_elems) % block
+        n = num_buckets * fmt.packets_per_block(s, torch.int8)
+        return [(p, n) for p in level_fanins]
+    if mode == "sparse":
+        if k_max is None:
+            raise ValueError("sparse level_packet_counts needs k_max")
+        out, cap, dense = [], int(k_max), False
+        for p in level_fanins:
+            if not dense and sparse.densify_step(cap * p, bucket_elems,
+                                                 density_threshold):
+                dense = True
+            if dense:
+                n = num_buckets * fmt.packets_per_block(bucket_elems,
+                                                        torch.float32)
+            else:
+                n = num_buckets * fmt.packets_per_block(2 * cap, torch.int32)
+                cap *= p
+            out.append((p, n))
+        return out
+    raise ValueError(f"unknown plane mode {mode!r}")
+
+
+@functools.lru_cache(maxsize=8)
+def _schedules(plan: pk.FaultPlan, counts: tuple[tuple[int, int], ...]
+               ) -> tuple[pk.FaultSchedule | None, ...]:
+    return tuple(plan.schedule(i, p, n) if plan.applies(i) else None
+                 for i, (p, n) in enumerate(counts))
+
+
+def fault_schedules(plan: pk.FaultPlan | None,
+                    counts: Sequence[tuple[int, int]],
+                    ) -> list[pk.FaultSchedule | None]:
+    """One schedule per level (``None`` where the plan doesn't apply).
+
+    Cached per ``(plan, counts)``: an eager caller would otherwise draw
+    the same masks on every reduction (hundreds of ms at full width).
+    The schedules are shared between callers; never write to them."""
+    counts = tuple((int(p), int(n)) for p, n in counts)
+    if plan is None:
+        return [None] * len(counts)
+    return list(_schedules(plan, counts))
+
+
+def plan_survives(plan: pk.FaultPlan | None,
+                  counts: Sequence[tuple[int, int]]) -> bool:
+    """Static pre-check: does every level recover within the budget?
+
+    Deterministic in (plan, level shapes) — exactly the schedules the
+    plane will replay — so the transport can decide before running
+    whether to go in-network or degrade to the wire."""
+    return all(s is None or s.survives
+               for s in fault_schedules(plan, counts))
+
+
+# ---------------------------------------------------------------------------
 # Dense / fixed-tree data plane.
 # ---------------------------------------------------------------------------
 
 def _dense_level(arena: torch.Tensor, mesh: RankMesh,
                  lvl: topology.MeshLevel, handler: hd.Handler, design: str,
-                 n_bufs: int, fmt: pk.PacketFormat, arrival) -> torch.Tensor:
-    """One up-hop, packet by packet: frame, stream to the switch,
-    steer by header, aggregate, place at the switch rank."""
+                 n_bufs: int, fmt: pk.PacketFormat, arrival,
+                 fault: pk.FaultSchedule | None = None,
+                 fault_stats: dict | None = None) -> torch.Tensor:
+    """One up-hop, packet by packet: frame, stream to the switch (through
+    the reliability layer under a fault schedule), steer by header,
+    aggregate, place at the switch rank."""
     b, s = arena.shape[-2:]
     r = mesh.axis_index(lvl.axis, arena.device)
     stream = pk.packetize(arena, fmt, child_rank=r)
     payload = mesh.group_stack(stream.payload, lvl.axis, lvl.switch_rank)
     headers = mesh.group_stack(stream.headers, lvl.axis, lvl.switch_rank)
+    if fault is not None:
+        payload, headers = _reliable_ingress(payload, headers, fault,
+                                             fault_stats, mesh, lvl)
     payload, headers = _apply_arrival(payload, headers, arrival)
     egress, _ = hd.run(handler, payload, headers, design=design,
                        n_bufs=n_bufs, ctx={"dtype": arena.dtype})
@@ -222,10 +485,13 @@ def _multicast_arena(arena: torch.Tensor, mesh: RankMesh,
 def _dense_level_batched(arena: torch.Tensor, mesh: RankMesh,
                          lvl: topology.MeshLevel, handler: hd.Handler,
                          design: str, n_bufs: int, plan: pk.FramePlan,
-                         arrival) -> tuple[torch.Tensor, RankMesh]:
+                         arrival, fault: pk.FaultSchedule | None = None,
+                         fault_stats: dict | None = None
+                         ) -> tuple[torch.Tensor, RankMesh]:
     """One up-hop as a few batched operations over the packed tensor:
-    pack, take the switches' child stacks (a view), fold every switch of
-    the level at once, unpack.
+    pack, take the switches' child stacks (a view), fold the schedule's
+    admission mask in (``_admit``), fold every switch of the level at
+    once, unpack.
 
     ``arena`` holds only the ranks that still carry data: ``mesh`` is
     collapsed to the switch rank on every lower level's axis.  Returns
@@ -237,6 +503,7 @@ def _dense_level_batched(arena: torch.Tensor, mesh: RankMesh,
     ctx = {"dtype": arena.dtype}
     stack = mesh.group_stack(plan.pack(arena), lvl.axis,
                              lvl.switch_rank)                 # (G, P, n, E)
+    stack = _admit(stack, fault, fault_stats)
     order = _net_order(handler, arrival, lvl.fanin, plan.num_packets)
     if order is not None:
         stack = hd.apply_order(
@@ -254,9 +521,10 @@ def switch_allreduce_dense(arena: torch.Tensor, mesh: RankMesh,
                            design: str = "auto",
                            fmt: pk.PacketFormat = DEFAULT_FORMAT,
                            arrival_perms: Sequence | None = None,
-                           fault_plan=None,
+                           fault_plan: pk.FaultPlan | None = None,
+                           with_fault_stats: bool = False,
                            batched: bool = True,
-                           mean: bool = False) -> torch.Tensor:
+                           mean: bool = False):
     """Allreduce a ``(*mesh, B, S)`` arena through the emulated switch tree.
 
     ``reproducible=True`` installs the ``fixed_tree`` handler: combines
@@ -264,18 +532,22 @@ def switch_allreduce_dense(arena: torch.Tensor, mesh: RankMesh,
     the result is bitwise-invariant to packet arrival order and
     bitwise-equal to the wire ``fixed_tree`` collective.
     ``arrival_perms`` holds one arrival permutation (or None) per level.
+
+    ``fault_plan`` replays a deterministic lossy fabric on every up-hop;
+    a surviving plan leaves the result bitwise the fault-free one.
+    ``with_fault_stats`` returns ``(out, fstats)``: the retry and
+    rejection counters, ``mesh``-shaped int32.
     """
-    if fault_plan is not None:
-        raise NotImplementedError(
-            "the lossy fabric (fault_plan) is not ported yet: ROADMAP "
-            "queue 1 item 9")
     b, s = arena.shape[-2:]
     handler = hd.get_handler("fixed_tree" if reproducible else "dense_sum")
     design, n_bufs = resolve_design(s * arena.element_size(), design,
                                     reproducible)
     levels = _levels(mesh, axes)
+    fstats = _new_fault_stats(mesh, arena.device)
     if len(levels) == 1 and levels[0].fanin == 1:
-        return arena
+        return (arena, fstats) if with_fault_stats else arena
+    faults = fault_schedules(fault_plan, level_packet_counts(
+        [l.fanin for l in levels], b, s, arena.dtype, mode="dense", fmt=fmt))
     cur = arena
     if batched:
         plan = pk.FramePlan(b, s, arena.dtype, fmt)
@@ -283,18 +555,19 @@ def switch_allreduce_dense(arena: torch.Tensor, mesh: RankMesh,
         for i, lvl in enumerate(levels):
             arrival = arrival_perms[i] if arrival_perms is not None else None
             cur, held = _dense_level_batched(cur, held, lvl, handler, design,
-                                             n_bufs, plan, arrival)
+                                             n_bufs, plan, arrival,
+                                             faults[i], fstats)
         cur = _multicast_root(cur, mesh)
     else:
         for i, lvl in enumerate(levels):
             arrival = arrival_perms[i] if arrival_perms is not None else None
             cur = _dense_level(cur, mesh, lvl, handler, design, n_bufs, fmt,
-                               arrival)
+                               arrival, faults[i], fstats)
         for lvl in reversed(levels):
             cur = _multicast_arena(cur, mesh, lvl, fmt)
     if mean:
         cur = mesh.mean(cur, axes)
-    return cur
+    return (cur, fstats) if with_fault_stats else cur
 
 
 # ---------------------------------------------------------------------------
@@ -319,20 +592,24 @@ def _scales_format(fmt: pk.PacketFormat, block: int) -> pk.PacketFormat:
 def _int8_level_batched(acc: torch.Tensor, mesh: RankMesh,
                         lvl: topology.MeshLevel, handler: hd.Handler,
                         design: str, n_bufs: int, block: int,
-                        qplan: pk.FramePlan, splan: pk.FramePlan
+                        qplan: pk.FramePlan, splan: pk.FramePlan,
+                        fault: pk.FaultSchedule | None = None,
+                        fault_stats: dict | None = None
                         ) -> tuple[torch.Tensor, RankMesh]:
     """One up-hop of the int8 plane over the packed tensors: the ranks
     that hold data quantize, the switches fold their children's int8
     stacks with the scales sideband (views of the rank axis), all
     switches of the level at once.  The handler is child-steered, so any
     arrival interleave composes with its steering to the identity and is
-    never materialised.  Returns the switches' fp32 aggregates on
-    ``mesh.collapse(lvl.axis)``."""
+    never materialised.  Under a fault schedule ``"q"`` is the admission-
+    gated stream and the scales sideband fate-shares its mask.  Returns
+    the switches' fp32 aggregates on ``mesh.collapse(lvl.axis)``."""
     q, scales = compression.quantize_int8(acc, block)
     stack = {"q": mesh.group_stack(qplan.pack(q), lvl.axis, lvl.switch_rank),
              "scale": mesh.group_stack(splan.pack(scales), lvl.axis,
                                        lvl.switch_rank)}
     del q, scales
+    stack = _admit(stack, fault, fault_stats)
     agg, _ = handler.payload_handler(stack, None, design, n_bufs,
                                      {"qblock": block})
     del stack           # release the level's int8 copy before unpacking
@@ -344,10 +621,13 @@ def _int8_level_batched(acc: torch.Tensor, mesh: RankMesh,
 def _int8_level(acc: torch.Tensor, mesh: RankMesh, lvl: topology.MeshLevel,
                 handler: hd.Handler, design: str, n_bufs: int, block: int,
                 fmt: pk.PacketFormat, sfmt: pk.PacketFormat,
-                arrival) -> torch.Tensor:
+                arrival, fault: pk.FaultSchedule | None = None,
+                fault_stats: dict | None = None) -> torch.Tensor:
     """One up-hop packet by packet: every rank quantizes and frames both
-    streams, the switch steers by the payload's headers, folds and
-    places its aggregate at the switch rank (zeros elsewhere)."""
+    streams (``"q"`` is the checksummed stream of the reliability layer,
+    its headers steer the stack), the switch steers by the payload's
+    headers, folds and places its aggregate at the switch rank (zeros
+    elsewhere)."""
     b, s = acc.shape[-2:]
     q, scales = compression.quantize_int8(acc, block)
     r = mesh.axis_index(lvl.axis, acc.device)
@@ -357,6 +637,9 @@ def _int8_level(acc: torch.Tensor, mesh: RankMesh, lvl: topology.MeshLevel,
                "scale": mesh.group_stack(ss.payload, lvl.axis,
                                          lvl.switch_rank)}
     headers = mesh.group_stack(qs.headers, lvl.axis, lvl.switch_rank)
+    if fault is not None:
+        payload, headers = _reliable_ingress(payload, headers, fault,
+                                             fault_stats, mesh, lvl)
     payload, headers = _apply_arrival(payload, headers, arrival)
     agg, _ = hd.run(handler, payload, headers, design=design, n_bufs=n_bufs,
                     ctx={"qblock": block})
@@ -372,9 +655,10 @@ def switch_allreduce_int8(arena: torch.Tensor, mesh: RankMesh,
                           design: str = "auto",
                           fmt: pk.PacketFormat = DEFAULT_FORMAT,
                           arrival_perms: Sequence | None = None,
-                          fault_plan=None,
+                          fault_plan: pk.FaultPlan | None = None,
+                          with_fault_stats: bool = False,
                           batched: bool = True,
-                          mean: bool = False) -> torch.Tensor:
+                          mean: bool = False):
     """int8-transport allreduce of a ``(*mesh, B, S)`` arena through the
     emulated switch.
 
@@ -385,32 +669,34 @@ def switch_allreduce_int8(arena: torch.Tensor, mesh: RankMesh,
     requantizes once, multicasts, and every rank dequantizes.  The
     batched plane dequantizes the root's one copy and broadcasts it
     (stride 0 over the rank axes), as ``_multicast_root`` does: every
-    rank would dequantize the same bits.
+    rank would dequantize the same bits.  ``fault_plan`` and
+    ``with_fault_stats`` as in ``switch_allreduce_dense``.
     """
-    if fault_plan is not None:
-        raise NotImplementedError(
-            "the lossy fabric (fault_plan) is not ported yet: ROADMAP "
-            "queue 1 item 9")
     b, s0 = arena.shape[-2:]
     handler = hd.get_handler("int8_dequant")
     sfmt = _scales_format(fmt, block)
     levels = _levels(mesh, axes)
+    fstats = _new_fault_stats(mesh, arena.device)
     if len(levels) == 1 and levels[0].fanin == 1:
-        return arena
+        return (arena, fstats) if with_fault_stats else arena
     # quantization needs whole blocks; the scales sideband's packet count
     # matches the payload's by construction (E_s = E / block), padding
     # included
     acc, _ = compression._pad_last(arena, block)
     s = acc.shape[-1]
     design, n_bufs = resolve_design(s, design)     # int8: S bytes per block
+    faults = fault_schedules(fault_plan, level_packet_counts(
+        [l.fanin for l in levels], b, s0, arena.dtype, mode="int8", fmt=fmt,
+        block=block))
     acc = acc.float()
     qplan = pk.FramePlan(b, s, torch.int8, fmt)
     splan = pk.FramePlan(b, s // block, torch.float32, sfmt)
     if batched:
         held = mesh
-        for lvl in levels:
+        for i, lvl in enumerate(levels):
             acc, held = _int8_level_batched(acc, held, lvl, handler, design,
-                                            n_bufs, block, qplan, splan)
+                                            n_bufs, block, qplan, splan,
+                                            faults[i], fstats)
         q, scales = compression.quantize_int8(acc, block)
         del acc
         out = compression.dequantize_int8(q, scales, block,
@@ -420,7 +706,7 @@ def switch_allreduce_int8(arena: torch.Tensor, mesh: RankMesh,
         for i, lvl in enumerate(levels):
             arrival = arrival_perms[i] if arrival_perms is not None else None
             acc = _int8_level(acc, mesh, lvl, handler, design, n_bufs, block,
-                              fmt, sfmt, arrival)
+                              fmt, sfmt, arrival, faults[i], fstats)
         # root multicast: requantize once, stream int8 + scales back down
         q, scales = compression.quantize_int8(acc, block)
         streams = [pk.packetize(q, fmt), pk.packetize(scales, sfmt)]
@@ -436,7 +722,7 @@ def switch_allreduce_int8(arena: torch.Tensor, mesh: RankMesh,
                                           dtype=arena.dtype)[..., :s0]
     if mean:
         out = mesh.mean(out, axes)
-    return out
+    return (out, fstats) if with_fault_stats else out
 
 
 # ---------------------------------------------------------------------------
@@ -481,19 +767,23 @@ def _held_stat(stat: torch.Tensor, mesh: RankMesh, held: RankMesh,
 def _sparse_level_batched(idx: torch.Tensor, val32: torch.Tensor,
                           held: RankMesh, lvl: topology.MeshLevel,
                           handler: hd.Handler, cap: int,
-                          fmt: pk.PacketFormat):
+                          fmt: pk.PacketFormat,
+                          fault: pk.FaultSchedule | None = None,
+                          fault_stats: dict | None = None):
     """One up-hop of the list plane over the packed wire image: frame the
     ``(B, 2·cap)`` int32 image of every held rank, take the switches'
     child stacks (a view), unframe and merge, every switch of the level
     at once.  The merge regroups packets by child, and any arrival
     interleave composed with that regrouping is the identity on each
-    child's image, so arrivals are never materialised.  Returns the
-    merged lists on ``held.collapse(lvl.axis)``, the per-switch collision
-    counts and that mesh."""
+    child's image, so arrivals are never materialised.  A fault schedule's
+    admission mask gates the stack first.  Returns the merged lists on
+    ``held.collapse(lvl.axis)``, the per-switch collision counts and that
+    mesh."""
     b = idx.shape[-2]
     plan = pk.FramePlan(b, 2 * cap, torch.int32, fmt)
     stack = held.group_stack(plan.pack(_pack_lists(idx, val32)), lvl.axis,
                              lvl.switch_rank)                 # (G, P, n, E)
+    stack = _admit(stack, fault, fault_stats)
     cidx, cval = _unpack_lists(plan.unpack(stack), cap)       # (G, P, B, cap)
     merged, stats = handler.payload_handler({"idx": cidx, "val": cval},
                                             None, "single", 1, {})
@@ -505,7 +795,9 @@ def _sparse_level_batched(idx: torch.Tensor, val32: torch.Tensor,
 
 def _sparse_level(idx: torch.Tensor, val32: torch.Tensor, mesh: RankMesh,
                   lvl: topology.MeshLevel, handler: hd.Handler, cap: int,
-                  fmt: pk.PacketFormat, arrival):
+                  fmt: pk.PacketFormat, arrival,
+                  fault: pk.FaultSchedule | None = None,
+                  fault_stats: dict | None = None):
     """One up-hop packet by packet: every rank frames its wire image, the
     switch regroups the arrivals by the CHILD header (a list spans
     several packets: pairing one child's indices with another's values
@@ -517,6 +809,9 @@ def _sparse_level(idx: torch.Tensor, val32: torch.Tensor, mesh: RankMesh,
                           child_rank=mesh.axis_index(lvl.axis, idx.device))
     payload = mesh.group_stack(stream.payload, lvl.axis, lvl.switch_rank)
     headers = mesh.group_stack(stream.headers, lvl.axis, lvl.switch_rank)
+    if fault is not None:
+        payload, headers = _reliable_ingress(payload, headers, fault,
+                                             fault_stats, mesh, lvl)
     payload, headers = _apply_arrival(payload, headers, arrival)
     order = hd.child_order(headers)
     payload, headers = hd.apply_order(payload, order), hd.apply_order(
@@ -529,9 +824,7 @@ def _sparse_level(idx: torch.Tensor, val32: torch.Tensor, mesh: RankMesh,
     idx = mesh.scatter_group(merged["idx"], lvl.axis, lvl.switch_rank,
                              fill=sparse.SENTINEL)
     val32 = mesh.scatter_group(merged["val"], lvl.axis, lvl.switch_rank)
-    counts = stats["collisions"].reshape(
-        mesh.collapse(lvl.axis).shape).expand(mesh.shape)
-    return idx, val32, counts
+    return idx, val32, _per_rank(stats["collisions"], mesh, lvl)
 
 
 def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
@@ -539,7 +832,8 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
                             density_threshold: float = 0.25,
                             fmt: pk.PacketFormat = DEFAULT_FORMAT,
                             arrival_perms: Sequence | None = None,
-                            fault_plan=None,
+                            fault_plan: pk.FaultPlan | None = None,
+                            with_fault_stats: bool = False,
                             batched: bool = True,
                             mean: bool = False,
                             with_stats: bool = False):
@@ -565,12 +859,10 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
     "spill_bytes"}``, counts per rank the index collisions on the
     switches of its root path.  The batched plane folds and densifies
     only the ranks that hold data, and its result is one copy broadcast
-    over the rank axes.
+    over the rank axes.  ``fault_plan`` replays a lossy fabric on every
+    up-hop, the list levels' and the densified ones'; ``with_fault_stats``
+    appends the fault counters (``mesh``-shaped int32) last.
     """
-    if fault_plan is not None:
-        raise NotImplementedError(
-            "the lossy fabric (fault_plan) is not ported yet: ROADMAP "
-            "queue 1 item 9")
     b, s = arena.shape[-2:]
     handler = hd.get_handler("sparse_merge")
     ks = tuple(int(k) for k in (ks if hasattr(ks, "__len__") else [ks] * b))
@@ -583,6 +875,7 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
     sent = (val, idx)
     collisions = torch.zeros(mesh.shape, dtype=torch.int32,
                              device=arena.device)
+    fstats = _new_fault_stats(mesh, arena.device)
     if len(levels) == 1 and levels[0].fanin == 1:
         out = sparse.scatter_dense(val, idx, s, dtype=arena.dtype).float()
         if mean:
@@ -591,6 +884,8 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
         if with_stats:
             ret.append({"collisions": collisions,
                         "spill_bytes": collisions * 8})
+        if with_fault_stats:
+            ret.append(fstats)
         return tuple(ret)
     val32 = val.float()
     del val
@@ -599,6 +894,9 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
     steered = hd.get_handler("dense_sum_steered")
     held, placed = mesh, [slice(None)] * mesh.ndim
     dplan = pk.FramePlan(b, s, torch.float32, fmt)
+    faults = fault_schedules(fault_plan, level_packet_counts(
+        [l.fanin for l in levels], b, s, arena.dtype, mode="sparse", fmt=fmt,
+        k_max=k_max, density_threshold=density_threshold))
     for i, lvl in enumerate(levels):
         arrival = arrival_perms[i] if arrival_perms is not None else None
         if dense is None and sparse.densify_step(cap * lvl.fanin, s,
@@ -609,19 +907,21 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
             idx = val32 = None
         if dense is not None and batched:
             dense, held = _dense_level_batched(dense, held, lvl, steered,
-                                               "single", 1, dplan, arrival)
+                                               "single", 1, dplan, arrival,
+                                               faults[i], fstats)
         elif dense is not None:
             dense = _dense_level(dense, mesh, lvl, steered, "single", 1, fmt,
-                                 arrival)
+                                 arrival, faults[i], fstats)
         elif batched:
             idx, val32, stat, up = _sparse_level_batched(
-                idx, val32, held, lvl, handler, cap, fmt)
+                idx, val32, held, lvl, handler, cap, fmt, faults[i], fstats)
             collisions += _held_stat(stat, mesh, held, placed, lvl)
             held = up
             cap *= lvl.fanin
         else:
             idx, val32, counts = _sparse_level(idx, val32, mesh, lvl,
-                                               handler, cap, fmt, arrival)
+                                               handler, cap, fmt, arrival,
+                                               faults[i], fstats)
             collisions += counts
             cap *= lvl.fanin
         placed[mesh.dim(lvl.axis)] = lvl.switch_rank
@@ -651,4 +951,114 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
     if with_stats:
         ret.append({"collisions": collisions,
                     "spill_bytes": collisions * 8})   # (idx, val) a spill
+    if with_fault_stats:
+        ret.append(fstats)
     return tuple(ret)
+
+
+# ---------------------------------------------------------------------------
+# Static packet/combine counters — the perfmodel cross-check surface.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LevelCounters:
+    """Per-switch traffic and work at one tree level, per allreduce."""
+
+    axis: str
+    fanin: int                  # P: packets per block arriving at a switch
+    ingress_packets: int        # blocks · fanin received per switch
+    egress_packets: int         # blocks forwarded up (1 per block)
+    combines: int               # blocks · (fanin − 1) combine ops
+    buffers_per_block: float    # M — the working-memory multiplier
+
+
+@dataclasses.dataclass(frozen=True)
+class SwitchCounters:
+    """What the data plane will execute for one ``(B, S)`` arena.
+
+    These are exactly the analytic model's inputs: ``payload_elems`` is
+    the paper's ``N``, each level's ``fanin`` its ``P``, ``combines``
+    the ``P−1``-per-block count every §6 service time amortizes, and
+    ``buffers_per_block`` the ``M`` of the working-memory equation
+    (Little's law, §4.3).
+    """
+
+    levels: tuple[LevelCounters, ...]
+    blocks: int                 # B · ceil(S/N) reduction blocks framed
+    payload_elems: int          # N
+    packet_bytes: int           # MTU
+    design: str
+    n_bufs: int
+
+    @property
+    def total_combines(self) -> int:
+        return sum(l.combines for l in self.levels)
+
+    def model_point(self, data_bytes: int) -> sm.DesignPoint:
+        """Evaluate the analytic model at this plane's operating point."""
+        params = sm.SwitchParams(packet_bytes=self.packet_bytes)
+        return sm.model_design(self.design, data_bytes, params,
+                               B=self.n_bufs, P=self.levels[0].fanin)
+
+
+def _counters(level_fanins: Sequence[tuple[str, int]], num_buckets: int,
+              bucket_elems: int, dtype: torch.dtype, fmt: pk.PacketFormat,
+              design: str, reproducible: bool) -> SwitchCounters:
+    """Shared counter math for a sequence of (axis label, fan-in) levels."""
+    n = fmt.payload_elems(dtype)
+    npkt = fmt.packets_per_block(bucket_elems, dtype)
+    blocks = num_buckets * npkt
+    nbytes = bucket_elems * dtype.itemsize
+    design, n_bufs = resolve_design(nbytes, design, reproducible)
+    levels = []
+    for axis, p in level_fanins:
+        levels.append(LevelCounters(
+            axis=axis, fanin=p,
+            ingress_packets=blocks * p,
+            egress_packets=blocks,
+            combines=blocks * hd.combines_per_packet_slot(p, design),
+            buffers_per_block=sm.buffers_per_block(design, p, n_bufs)))
+    return SwitchCounters(levels=tuple(levels), blocks=blocks,
+                          payload_elems=n, packet_bytes=fmt.mtu_bytes,
+                          design=design, n_bufs=n_bufs)
+
+
+def plan_counters(axis_names: Sequence[str], axis_sizes: Sequence[int],
+                  num_buckets: int, bucket_elems: int, dtype: torch.dtype, *,
+                  fmt: pk.PacketFormat = DEFAULT_FORMAT,
+                  design: str = "auto",
+                  reproducible: bool = False,
+                  batched: bool = True) -> SwitchCounters:
+    """Static counters for the plane's schedule on a mesh (no reduction).
+
+    ``batched`` is accepted and ignored, so callers can pass the
+    transport's knob straight through: batching changes the schedule of
+    the emulation, never the modeled switch work.
+    """
+    del batched
+    fanins = [(lvl.axis, lvl.fanin) for lvl in
+              topology.mesh_levels(tuple(axis_names), tuple(axis_sizes))]
+    return _counters(fanins, num_buckets, bucket_elems, dtype, fmt,
+                     design, reproducible)
+
+
+def tree_counters(tree: topology.ReductionTree, num_buckets: int,
+                  bucket_elems: int, dtype: torch.dtype, *,
+                  fmt: pk.PacketFormat = DEFAULT_FORMAT,
+                  design: str = "auto",
+                  reproducible: bool = False,
+                  batched: bool = True) -> SwitchCounters:
+    """Static counters for an arbitrary :class:`topology.ReductionTree`:
+    the fan-ins are read off the tree (per level the largest child count,
+    the busiest switch bounding the schedule); a single-host tree
+    degenerates to one fan-in-1 level, matching ``topology.mesh_levels``.
+    ``batched`` is ignored as in :func:`plan_counters`.
+    """
+    del batched
+    fanins = [(f"level{lvl}",
+               max(len(tree.nodes[i].children) for i in tree.levels[lvl]))
+              for lvl in range(1, len(tree.levels))]
+    if not fanins:
+        fanins = [("level1", 1)]
+    return _counters(fanins, num_buckets, bucket_elems, dtype, fmt,
+                     design, reproducible)

@@ -16,6 +16,9 @@ accumulation) — the F3 bitwise-reproducibility mechanism.
 The ``int8_dequant`` handler (F1) folds int8 payloads with their fp32
 scales; ``sparse_merge`` (§7) merges the children's coordinate lists one
 after another and counts the index collisions.
+
+Exactly-once admission (``accept_mask``, ``fold_once``) gates the
+reliability layer's deliveries before any fold.
 """
 from __future__ import annotations
 
@@ -78,6 +81,19 @@ def fold(stack: torch.Tensor, design: str, n_bufs: int = 1) -> torch.Tensor:
     raise ValueError(f"unknown aggregation design {design!r}")
 
 
+def combines_per_packet_slot(p: int, design: str) -> int:
+    """Combine operations one packet slot costs across P children.
+
+    Every design performs exactly ``P - 1`` combines per reduction-block
+    packet slot — the quantity the analytic model's service times
+    amortize — they differ in contention and working memory, not in
+    arithmetic count.
+    """
+    if design not in DESIGNS:
+        raise ValueError(f"unknown aggregation design {design!r}")
+    return p - 1
+
+
 # ---------------------------------------------------------------------------
 # Header-handler steering: arrival order vs child-rank order.
 # ---------------------------------------------------------------------------
@@ -102,6 +118,34 @@ def child_order_opt(headers):
     """Child-rank steering when headers ride along (``None`` when the
     stack is already in child order)."""
     return None if headers is None else child_order(headers)
+
+
+# ---------------------------------------------------------------------------
+# Exactly-once admission: seen-bitmaps + checksum gating.
+# ---------------------------------------------------------------------------
+
+def accept_mask(arrives: torch.Tensor, ok: torch.Tensor,
+                seen: torch.Tensor) -> torch.Tensor:
+    """Which of a round's deliveries the switch admits: delivered,
+    checksum-valid, and not yet in the per-(block, child) seen-bitmap —
+    so duplicates and redundant retransmissions are idempotent and
+    corrupted payloads never reach a fold."""
+    return arrives & ok & ~seen
+
+
+def fold_once(acc: torch.Tensor, update: torch.Tensor,
+              accept: torch.Tensor) -> torch.Tensor:
+    """Admit the accepted packets of one delivery round into the
+    reassembly buffer: a select keyed on the accept mask, so folding the
+    same round twice is a no-op.  ``update`` is a ``(G, P, n, ...)``
+    stack; ``accept`` is ``(G, P, n)``, or ``(P, n)`` — one schedule for
+    every switch of the level — and broadcasts over the leading ``G``
+    and the payload's trailing axes.  ``acc`` broadcasts too (a 0-dim
+    zero gives the admitted stack without a zero-filled copy)."""
+    if accept.dim() == 2:
+        accept = accept.unsqueeze(0)
+    m = accept.reshape(accept.shape + (1,) * (update.dim() - 3))
+    return torch.where(m, update, acc)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Packet framing for the emulated switch data plane (paper §3, §4).
 
-The port of the framing half of ``repro/switch/packets.py``.  Hosts carve
+The port of ``repro/switch/packets.py``.  Hosts carve
 each ``(B, S)`` dtype arena into MTU-sized packets; every packet carries
 the header the handlers key on (block id, sequence number, child rank,
 valid element count, last-packet flag, payload checksum).
@@ -9,6 +9,14 @@ Framing is bitwise: payloads are padded, reshaped and reassembled
 through their integer bit view, so every bit pattern survives, bf16 and
 f16 NaN payloads included.  Arenas may carry the mesh's rank axes in
 front (``(*mesh, B, S)``); framing maps over them.
+
+The reliability layer rides on two extras here: the payload checksum
+(``HDR_CSUM``) makes a corrupted payload detectable at the switch, and
+:class:`FaultPlan` / :class:`FaultSchedule` describe a deterministic,
+seedable lossy fabric — which packets drop, duplicate, arrive corrupted
+or reordered on each delivery round — that the data plane replays.  The
+plan and its schedules are numpy on the host, drawn exactly as the JAX
+package draws them, so one plan gives the same masks in both.
 """
 from __future__ import annotations
 
@@ -212,3 +220,151 @@ def payload_checksum(payload: torch.Tensor) -> torch.Tensor:
     u = bits(payload).to(torch.int64) & ((1 << width) - 1)
     s = u.sum(dim=-1) & 0xFFFFFFFF
     return torch.where(s >= 1 << 31, s - (1 << 32), s).to(torch.int32)
+
+
+def corrupt_first_elem(payload: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """Flip bits of element 0 of each masked packet (``mask`` broadcasts
+    over the leading packet axes of a ``(..., E)`` payload).  The XOR
+    pattern 0x5A... is nonzero, so a corrupted packet never equals the
+    clean one and its header checksum can never validate; it is positive
+    at every width, so the XOR runs on the signed integer view."""
+    u = bits(payload)
+    pattern = 0x5A5A5A5A5A5A5A5A & ((1 << (8 * u.element_size())) - 1)
+    first = u[..., 0]
+    out = u.clone()
+    out[..., 0] = torch.where(mask, first ^ pattern, first)
+    return out.view(payload.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Deterministic fault injection.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """Timeout/retransmit knobs, in *modeled rounds* (never wall clock).
+
+    The switch waits ``timeout_rounds`` service rounds for a slot to
+    complete, NACKs the missing packets, and backs the wait off
+    geometrically (``timeout_rounds * backoff**(retry-1)``) for up to
+    ``max_retries`` retransmission rounds before declaring the slot — and
+    with it the session — lost."""
+
+    timeout_rounds: int = 4
+    max_retries: int = 3
+    backoff: float = 2.0
+
+    def wait_rounds(self, retry: int) -> float:
+        """Modeled rounds waited before retransmission round ``retry``."""
+        return self.timeout_rounds * self.backoff ** max(0, retry - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultPlan:
+    """A deterministic, seedable lossy fabric for the emulated switch.
+
+    Per delivery attempt each packet independently drops with
+    probability ``drop`` or arrives bit-corrupted with probability
+    ``corrupt``; each retransmission round redelivers already-accepted
+    packets with probability ``duplicate`` (exercising the seen-bitmap),
+    and with probability ``reorder`` a round's child streams arrive
+    interleaved by a random permutation (exercising header steering).
+    ``levels`` restricts injection to those tree levels (``None`` = all).
+
+    Hashable and frozen so it can ride inside ``FlareConfig``; all draws
+    come from ``np.random.default_rng([seed, level, P, n])`` in the JAX
+    package's order, so a plan is a pure function of (plan, level,
+    shape) and gives the same schedule in both packages."""
+
+    seed: int = 0
+    drop: float = 0.0
+    duplicate: float = 0.0
+    reorder: float = 0.0
+    corrupt: float = 0.0
+    levels: tuple[int, ...] | None = None
+    retry: RetryPolicy = RetryPolicy()
+
+    def __post_init__(self):
+        for f in ("drop", "duplicate", "reorder", "corrupt"):
+            v = getattr(self, f)
+            if not 0.0 <= v < 1.0:
+                raise ValueError(f"FaultPlan.{f}={v} outside [0, 1)")
+        if self.levels is not None:
+            object.__setattr__(self, "levels",
+                               tuple(int(l) for l in self.levels))
+
+    def applies(self, level: int) -> bool:
+        return self.levels is None or level in self.levels
+
+    def schedule(self, level: int, num_children: int,
+                 num_packets: int) -> "FaultSchedule":
+        """Materialize the per-round delivery masks for one level's
+        ``(P, n)`` child stack — deterministic in (plan, level, P, n)."""
+        p, n = int(num_children), int(num_packets)
+        rng = np.random.default_rng([self.seed, level, p, n])
+        rounds = 1 + self.retry.max_retries
+        arrives = np.zeros((rounds, p, n), bool)
+        corrupt = np.zeros((rounds, p, n), bool)
+        perms = np.tile(np.arange(p), (rounds, 1))
+        accepted = np.zeros((p, n), bool)
+        retransmits = duplicates = corrupt_rejected = 0
+        used = 1
+        for r in range(rounds):
+            attempt = ~accepted if r else np.ones((p, n), bool)
+            if r and not attempt.any():
+                break
+            used = r + 1
+            dropped = rng.random((p, n)) < self.drop
+            corr = rng.random((p, n)) < self.corrupt
+            arr = attempt & ~dropped
+            arrives[r] = arr
+            corrupt[r] = arr & corr
+            if r:
+                retransmits += int(attempt.sum())
+                dup = accepted & (rng.random((p, n)) < self.duplicate)
+                arrives[r] |= dup            # redelivered clean copies
+                duplicates += int(dup.sum())
+            corrupt_rejected += int((arr & corr).sum())
+            accepted |= arr & ~corr
+            if self.reorder and rng.random() < self.reorder:
+                perms[r] = rng.permutation(p)
+        return FaultSchedule(
+            arrives=arrives[:used], corrupt=corrupt[:used],
+            perms=perms[:used], survives=bool(accepted.all()),
+            retransmits=retransmits, duplicates=duplicates,
+            corrupt_rejected=corrupt_rejected,
+            wait_rounds=sum(self.retry.wait_rounds(r)
+                            for r in range(1, used)))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FaultSchedule:
+    """One level's replayable fault trace: static numpy masks plus the
+    derived counters the perfmodel cross-check keys on.
+
+    ``arrives[r, p, i]`` — child ``p``'s packet ``i`` is delivered on
+    round ``r`` (round 0 = first transmission, later rounds =
+    NACK-driven retransmissions and duplicate redeliveries);
+    ``corrupt[r, p, i]`` — that delivery is bit-corrupted (fails the
+    checksum);  ``perms[r]`` — the child interleaving of round ``r``'s
+    arrivals.  ``survives`` is statically known because corruption
+    deterministically fails the checksum: every clean delivery is
+    accepted, everything else is rejected.
+
+    Equality is identity (``eq=False``): numpy masks have no truth
+    value, and identity lets the data plane memoise work per schedule.
+    """
+
+    arrives: np.ndarray         # (R, P, n) bool
+    corrupt: np.ndarray         # (R, P, n) bool
+    perms: np.ndarray           # (R, P) int — per-round child interleave
+    survives: bool              # all packets accepted within the budget
+    retransmits: int            # NACK-driven retransmission attempts
+    duplicates: int             # redeliveries of already-accepted packets
+    corrupt_rejected: int       # deliveries the checksum must reject
+    wait_rounds: float          # modeled backoff rounds spent waiting
+
+    @property
+    def rounds(self) -> int:
+        return self.arrives.shape[0]

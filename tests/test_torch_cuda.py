@@ -1,8 +1,9 @@
 """The port on the card: the CUDA kernels against their plain versions,
 the whole reduction on the GPU against the same reduction on the CPU
 (the reproducible dense path, the int8 path and the sparse path, the
-last two with their state, in the network and on the wire), and the
-train step on the GPU against the same step on the CPU.
+last two with their state, in the network and on the wire; the
+in-network planes over a lossy fabric), and the train step on the GPU
+against the same step on the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file
 imports no JAX, so it runs where only PyTorch is installed:
@@ -306,6 +307,56 @@ def test_sparse_grad_reducer_on_cuda_matches_cpu(cuda, mshape, frac):
     for got, want in ((r1, w1), (r2, w2), (st, wst)):
         for g, w in zip(tree.flatten(got)[0], tree.flatten(want)[0]):
             assert _same_bits(g.contiguous(), w.contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dense", "int8", "sparse"])
+def test_lossy_fabric_on_cuda_matches_cpu(cuda, mode):
+    """The in-network planes over a lossy fabric on the card: under a plan
+    that drops, corrupts, duplicates and reorders, the per-packet plane
+    (checksums, corruption, seen-bitmaps on the card) under arrival
+    permutations gives the batched plane's bits, the fault-free bits and
+    the CPU's, with equal fault counters, and the fold kernels launch."""
+    from repro_torch.switch import dataplane, packets as pk
+    mesh = RankMesh(TWO_LEVEL)
+    x = torch.randn((*mesh.shape, 3, 5000), generator=cuda, device="cuda")
+    k = 64
+    counts = dataplane.level_packet_counts(
+        [4, 2], 3, 5000, torch.float32, mode=mode, k_max=k)
+    plan = next(p for p in (pk.FaultPlan(seed=s, drop=0.05, corrupt=0.02,
+                                         duplicate=0.3, reorder=0.5)
+                            for s in range(200))
+                if dataplane.plan_survives(p, counts)
+                and any(sc.corrupt_rejected and sc.retransmits
+                        for sc in dataplane.fault_schedules(p, counts)))
+
+    def plane(a, **kw):
+        if mode == "dense":
+            return dataplane.switch_allreduce_dense(a, mesh, AXES,
+                                                    reproducible=True, **kw)
+        if mode == "int8":
+            return dataplane.switch_allreduce_int8(a, mesh, AXES,
+                                                   design="single", **kw)
+        out = dataplane.switch_allreduce_sparse(a, mesh, AXES, k, **kw)
+        return (out[0], out[-1]) if kw.get("with_fault_stats") else out[0]
+    perms = [lambda p, n: torch.randperm(
+        p * n, generator=torch.Generator().manual_seed(p)).reshape(n, p)
+        .argsort(dim=1).T.numpy()] * 2
+    tr.launches = qt.launches["dequant_accum_slots"] = 0
+    sa.launches["sparse_accum_slots"] = 0
+    batched, stats = plane(x, fault_plan=plan, with_fault_stats=True)
+    torch.cuda.synchronize()
+    assert {"dense": tr.launches,
+            "int8": qt.launches["dequant_accum_slots"],
+            "sparse": sa.launches["sparse_accum_slots"]}[mode] > 0
+    slots, sstats = plane(x, fault_plan=plan, with_fault_stats=True,
+                          batched=False, arrival_perms=perms)
+    cpu, cstats = plane(x.cpu(), fault_plan=plan, with_fault_stats=True)
+    assert _same_bits(batched, slots) and _same_bits(batched, plane(x))
+    assert _same_bits(batched, cpu)
+    for key in stats:
+        assert torch.equal(stats[key].cpu(), sstats[key].cpu())
+        assert torch.equal(stats[key].cpu(), cstats[key])
 
 
 @pytest.mark.cuda

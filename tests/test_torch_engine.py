@@ -151,9 +151,23 @@ def test_unported_paths_raise_naming_their_roadmap_item():
         got, _ = GradReducer(FlareConfig(axes=AXES, **kw), mesh)(
             params_from_jax(jgrads, "cpu"))
         assert np.array_equal(_bits(got["w"]), _bits(want["w"])), kw
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        GradReducer(FlareConfig(axes=AXES, transport="innetwork",
-                                fault_plan=object()), mesh)
+    # the lossy fabric is ported: a plan gives the reference's bits
+    from repro.switch import packets as jpk
+    from repro_torch.switch import packets as pk
+    plan = dict(seed=1, drop=0.05, duplicate=0.3, reorder=0.5, corrupt=0.02,
+                retry=(8,))
+    kw = dict(transport="innetwork", reproducible=True)
+    jred = jengine.GradReducer(jengine.FlareConfig(
+        axes=AXES, fault_plan=jpk.FaultPlan(**dict(
+            plan, retry=jpk.RetryPolicy(*plan["retry"]))), **kw))
+    want = jax.jit(jax.vmap(jax.vmap(lambda g: jred(g)[0], axis_name="data"),
+                            axis_name="pod"))(jgrads)
+    got, _ = GradReducer(FlareConfig(axes=AXES, fault_plan=pk.FaultPlan(
+        **dict(plan, retry=pk.RetryPolicy(*plan["retry"]))), **kw), mesh)(
+        params_from_jax(jgrads, "cpu"))
+    assert np.array_equal(_bits(got["w"]), _bits(want["w"]))
+    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+        GradReducer(FlareConfig(axes=AXES, telemetry=object()), mesh)
     with pytest.raises(ValueError, match="mesh shape"):
         GradReducer(FlareConfig(axes=AXES), mesh)({"w": torch.zeros(8, 8)})
 

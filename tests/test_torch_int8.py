@@ -344,7 +344,8 @@ def test_per_packet_plane_matches_jax_per_packet_plane():
 
 def test_switch_allreduce_int8_options():
     """``mean``, a bf16 arena, the MTU/block contract, the one-rank
-    shortcut and the unported lossy fabric."""
+    shortcut and the lossy fabric (a surviving plan gives the fault-free
+    bits)."""
     rng = np.random.default_rng(8)
     x = _in_dtype(rng.normal(size=(2, 4, 2, 512)).astype(np.float32),
                   "bfloat16")
@@ -359,9 +360,15 @@ def test_switch_allreduce_int8_options():
                                         fmt=pk.PacketFormat(mtu_bytes=384))
     one = _t(x[:1, :1])
     assert dataplane.switch_allreduce_int8(one, RankMesh((1, 1)), AXES) is one
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        dataplane.switch_allreduce_int8(_t(x), RankMesh((2, 4)), AXES,
-                                        fault_plan=object())
+    plan = pk.FaultPlan(seed=2, drop=0.3, duplicate=0.3, reorder=0.5,
+                        corrupt=0.1, retry=pk.RetryPolicy(max_retries=8))
+    clean = dataplane.switch_allreduce_int8(_t(x), RankMesh((2, 4)), AXES)
+    for batched in (True, False):
+        lossy, stats = dataplane.switch_allreduce_int8(
+            _t(x), RankMesh((2, 4)), AXES, fault_plan=plan,
+            with_fault_stats=True, batched=batched)
+        assert np.array_equal(_bits(lossy), _bits(clean))
+        assert int(stats["retransmits"][0, 0]) > 0
 
 
 # ---------------------------------------------------------------------------

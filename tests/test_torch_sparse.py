@@ -43,6 +43,7 @@ from repro_torch.kernels import sparse_accum as sa
 from repro_torch.kernels import topk_compact as tk
 from repro_torch.mesh import RankMesh
 from repro_torch.switch import dataplane, handlers as hd
+from repro_torch.switch import packets as pk
 
 torch.set_num_threads(1)
 
@@ -595,7 +596,8 @@ def test_switch_allreduce_sparse_matches_jax(mshape, cross):
 
 def test_per_packet_plane_and_mean_match_jax():
     """The reference's own per-packet plane under the same arrival
-    permutations, mid-tree densify, and ``mean`` on a bf16 arena."""
+    permutations, mid-tree densify, ``mean`` on a bf16 arena, and the
+    lossy fabric (a surviving plan gives the fault-free bits)."""
     mshape, thr = (2, 4), _thresholds((2, 4))["mid"]
     rng = np.random.default_rng(21)
     x = (rng.normal(size=mshape + (B, S)) * 1e2).astype(np.float32)
@@ -618,9 +620,16 @@ def test_per_packet_plane_and_mean_match_jax():
     red, sent = dataplane.switch_allreduce_sparse(one, RankMesh((1, 1)),
                                                   AXES, K)
     assert np.array_equal(_bits(red), _bits(sparse.scatter_dense(*sent, S)))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        dataplane.switch_allreduce_sparse(_t(x), RankMesh(mshape), AXES, K,
-                                          fault_plan=object())
+    # the lossy fabric is ported: a surviving plan gives the fault-free bits
+    plan = pk.FaultPlan(seed=4, drop=0.05, duplicate=0.3, reorder=0.5,
+                        corrupt=0.02, retry=pk.RetryPolicy(max_retries=8))
+    clean = dataplane.switch_allreduce_sparse(_t(x), RankMesh(mshape), AXES,
+                                              K, density_threshold=thr)[0]
+    for batched in (True, False):
+        lossy = dataplane.switch_allreduce_sparse(
+            _t(x), RankMesh(mshape), AXES, K, density_threshold=thr,
+            fault_plan=plan, batched=batched)[0]
+        assert np.array_equal(_bits(lossy), _bits(clean))
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,8 @@
   per-packet, reproducible or not, with and without adversarial per-slot
   arrival permutations, equals JAX's run under nested ``jax.vmap``.
 * **F3** — the in-network fixed tree equals the wire fixed tree.
+* **Counters** — ``plan_counters``, ``tree_counters``, ``model_point`` and
+  ``combines_per_packet_slot`` equal the reference's.
 
 Every combine is the same add in the same order: tolerance zero.
 """
@@ -226,3 +228,62 @@ def test_wire_fixed_tree_matches_jax(mshape, dtype):
     got = coll.allreduce(tensor_from_numpy(x, "cpu"), RankMesh(mshape),
                          AXES, algorithm="ring")
     assert np.array_equal(_bits(got), _bits(want))
+
+
+# ---------------------------------------------------------------------------
+# Static counters: the analytic model's inputs.
+# ---------------------------------------------------------------------------
+
+def _plain(x):
+    """A counters dataclass as plain nested tuples (class name first)."""
+    import dataclasses
+    if dataclasses.is_dataclass(x):
+        return (type(x).__name__,) + tuple(
+            _plain(getattr(x, f.name)) for f in dataclasses.fields(x))
+    if isinstance(x, tuple):
+        return tuple(_plain(v) for v in x)
+    return x
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(reproducible=True),
+                                dict(design="single"),
+                                dict(design="multi", batched=False),
+                                dict(fmt="small")])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_plan_and_tree_counters_match_jax(dtype, kw):
+    """``plan_counters`` on both meshes, ``tree_counters`` on the meshes'
+    reduction trees, ``model_point`` at the plane's operating point and
+    ``combines_per_packet_slot`` for every design equal the reference's
+    (``tests/test_switch.py``), and batching changes none of them."""
+    from repro.core import topology as jtopology
+    from repro.switch import handlers as jhd
+    from repro_torch.core import topology
+    from repro_torch.switch import handlers as hd
+    kw, jkw = dict(kw), dict(kw)
+    if kw.pop("fmt", None):
+        kw["fmt"], jkw["fmt"] = (pk.PacketFormat(mtu_bytes=256),
+                                 jpk.PacketFormat(mtu_bytes=256))
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    for sizes in ((2, 4), (1, 8), (2, 3)):
+        for b, s in ((3, 2048), (1, 1 << 20), (2, 37)):
+            c = dataplane.plan_counters(AXES, sizes, b, s, tdt, **kw)
+            want = jdp.plan_counters(AXES, sizes, b, s, jdt, **jkw)
+            assert _plain(c) == _plain(want)
+            assert c.total_combines == want.total_combines
+            assert _plain(c.model_point(b * s * tdt.itemsize)) == _plain(
+                want.model_point(b * s * tdt.itemsize))
+            assert c == dataplane.plan_counters(
+                AXES, sizes, b, s, tdt, **dict(kw, batched=False))
+            tree = topology.build_mesh_tree(sizes)
+            jtree = jtopology.build_mesh_tree(sizes)
+            assert _plain(dataplane.tree_counters(tree, b, s, tdt, **kw)) \
+                == _plain(jdp.tree_counters(jtree, b, s, jdt, **jkw))
+    one = topology.build_mesh_tree((1,))
+    assert _plain(dataplane.tree_counters(one, 2, 64, tdt)) == _plain(
+        jdp.tree_counters(jtopology.build_mesh_tree((1,)), 2, 64, jdt))
+    for design in hd.DESIGNS:
+        for p in (1, 2, 4, 8, 64):
+            assert hd.combines_per_packet_slot(p, design) == \
+                jhd.combines_per_packet_slot(p, design) == p - 1
+    with pytest.raises(ValueError, match="unknown aggregation design"):
+        hd.combines_per_packet_slot(4, "bogus")
