@@ -170,6 +170,25 @@
    --fault-seed 1`` at ``TRAIN_LAYERS``: losses finite and falling,
    flash on the tensor cores, one step's per-rank gradients replayed
    with and without the plan, bitwise.  Prints its own wall time.
+15. The shared switch (``runtime.SessionManager``).  At scale on ``(2,
+   4)``: three tenants (``SHARED_TENANTS``: dense reproducible, int8,
+   sparse at f = 0.01) at the largest arenas the static memory share
+   admits, seeded per rank on the card; under two manager seeds each
+   shared reduction bitwise its solo run, the solo run under a manager
+   bitwise the manager-less plane; the median of 5, shared and solo,
+   with the peak; the arrival permutations' host time, cold and cached;
+   the same on ``(1, 8)`` at the arenas it admits; the 4-layer gradient
+   arena raises ``AdmissionError``.  Then the launcher's ``--tenants 3``
+   path (``TENANT_FLAGS``: three TinyLlama jobs at published widths,
+   ``TENANT_LAYERS`` deep, each with its own parameters, optimizer and
+   data, reducing as tenants of one switch): a warm-up step, then
+   ``TENANT_STEPS`` a job with every kernel counter set to 0 just before
+   and read just after (``tree_reduce_slots``, ``quantize``,
+   ``dequant_accum_slots``, ``dequantize``, ``sparse_accum_slots`` and
+   flash all launched); losses finite and falling; every tenant's
+   reduced gradients at the first timed step bitwise a manager-less
+   reduction of the same leaves; the report names three sessions; the
+   replan's line, after which the reproducible tenant keeps its bits.
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line
 of kernel figures, and as its last line ``{"ok": true, "device": ...}``.
@@ -269,6 +288,22 @@ FABRIC_TRAIN_FLAGS = [*TRAIN_FLAGS, "--fault-rate", "0.01", "--fault-seed",
                       "1"]
 #: timed steps of the lossy-fabric training step, after its warm-up step
 FABRIC_STEPS = 2
+#: the shared switch (phase 15): the launcher's ``--tenants 3`` path, three
+#: TinyLlama jobs at published widths and ``TENANT_LAYERS`` (three jobs'
+#: fp32 parameters and Adam state, held on both pods, are about 3 x 11.6
+#: GB at 8 layers)
+TENANT_FLAGS = ["--mesh", "2x4x1", "--batch", "8", "--seq", "4096",
+                "--lr", "5e-6", "--device", "cuda", "--tenants", "3",
+                "--congestion-replan", "0.9"]
+TENANT_LAYERS = 8
+#: timed steps of every job, after one warm-up step
+TENANT_STEPS = 2
+#: the at-scale tenants of phase 15 on (2, 4): name, (B, S), FlareConfig
+#: fields; the largest arenas the 8 MiB static share (64 clusters x 1 MiB
+#: / 8 sessions) admits there.  (1, 8) halves B until it admits.
+SHARED_TENANTS = (("dense", (16, 1 << 16), {"reproducible": True}),
+                  ("int8", (6, 1 << 20), {"compression": "int8"}),
+                  ("sparse", (64, 1 << 20), {"sparse_k_frac": 0.01}))
 #: TinyLlama depth, cut from the published 22: the int8 reduction's peak
 #: is about four times the 8 ranks' fp32 gradient bytes (the caller's
 #: gradients and state, the two packed arenas), and 22 layers of fp32
@@ -2045,6 +2080,275 @@ def phase_lossy_fabric(torch, card, total_mem, cfg, seed, clean) -> dict:
     return launched
 
 
+def phase_shared_switch(torch, card, total_mem, cfg, seed) -> dict:
+    """Phase 15: the shared switch (module docstring, item 15).  Returns
+    the kernels' launches on the ``--tenants 3`` path."""
+    import contextlib
+    import io
+
+    from repro_torch import tree
+    from repro_torch.core import arena as arena_mod, sparse, transports
+    from repro_torch.core.engine import FlareConfig, GradReducer
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import quant as qt
+    from repro_torch.kernels import sparse_accum as sa
+    from repro_torch.kernels import tree_reduce as tr
+    from repro_torch.launch import train as launch
+    from repro_torch.mesh import AXES, FLAT, TWO_LEVEL, RankMesh
+    from repro_torch.models import transformer
+    from repro_torch.runtime import AdmissionError, SessionManager, sessions
+    from repro_torch.switch import dataplane
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    kernels_of = {"dense": ("tree_reduce_slots",),
+                  "int8": ("quantize", "dequant_accum_slots", "dequantize"),
+                  "sparse": ("sparse_accum_slots",)}
+
+    def zero_counters():
+        tr.launches = fa.launches = fa.tc_launches = 0
+        for c in (qt.launches, sa.launches):
+            for k in c:
+                c[k] = 0
+
+    def counters():
+        return {"tree_reduce_slots": tr.launches,
+                "quantize": qt.launches["quantize"],
+                "dequant_accum_slots": qt.launches["dequant_accum_slots"],
+                "dequantize": qt.launches["dequantize"],
+                "sparse_accum_slots": sa.launches["sparse_accum_slots"],
+                "flash_attention": fa.launches}
+
+    def transport(mesh, kw, mgr, name):
+        return transports.from_config(
+            FlareConfig(axes=AXES, transport="innetwork", **kw), mesh,
+            torch.float32, manager=mgr, tenant=name)
+
+    def admits(shape, name, b, s, kw):
+        t = transport(RankMesh(shape, AXES), kw,
+                      SessionManager(AXES, shape), name)
+        try:
+            t.attach(b, s, torch.float32, (s,) * b)
+            return True
+        except AdmissionError:
+            return False
+
+    # -- at scale: shared == solo == the manager-less plane --------------------
+    for shape in (TWO_LEVEL, FLAT):
+        mesh = RankMesh(shape, AXES)
+        tenants = []
+        for name, (b, s), kw in SHARED_TENANTS:
+            while b > 1 and not admits(shape, name, b, s, kw):
+                b //= 2
+            check(admits(shape, name, b, s, kw), f"{name} {b}x{s} is not "
+                  f"admitted on {shape}")
+            tenants.append((name, b, s, kw))
+        gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+        zeros = torch.zeros(max(b for _, b, _, _ in tenants),
+                            dtype=torch.int32, device="cuda")
+        for name, b, s, kw in tenants:
+            x = torch.randn((*shape, b, s), generator=gen, device="cuda")
+            ext = (s,) * b
+
+            def run(t):
+                # the lossy transports consume their input: a copy each
+                return t(x.clone(), None, zeros[:b], ext)[0]
+            plain = transport(mesh, kw, None, None)
+            solo_mgr = SessionManager(AXES, shape, seed=7)
+            solo_t = transport(mesh, kw, solo_mgr, name)
+            want = run(plain)
+            solo = run(solo_t)
+            check(solo_mgr.arrival_perms(name) is None, "a solo tenant got "
+                  "arrival permutations")
+            check(same_bits(solo, want), f"{name} on {shape}: solo under a "
+                  "manager != the manager-less plane")
+            del want
+            shared_ts = []
+            for mseed in (7, 8):
+                mgr = SessionManager(AXES, shape, seed=mseed)
+                for n2, b2, s2, kw2 in tenants:
+                    transport(mesh, kw2, mgr, n2).attach(
+                        b2, s2, torch.float32, (s2,) * b2)
+                check(len(mgr.active()) == 3, f"{[x.tenant for x in mgr.active()]}")
+                t = transport(mesh, kw, mgr, name)
+                draws = sessions._perm_draw.cache_info().misses
+                torch.cuda.synchronize()
+                zero_counters()
+                got = run(t)
+                torch.cuda.synchronize()
+                at_scale = {k: counters()[k] for k in kernels_of[name]}
+                drawn = sessions._perm_draw.cache_info().misses - draws
+                check(all(at_scale.values()), f"{name} on {shape}: the "
+                      f"shared reduction launched {at_scale}")
+                check(same_bits(got, solo), f"{name} on {shape}: shared "
+                      f"(manager seed {mseed}) != solo")
+                del got
+                shared_ts.append((mgr, t))
+            mgr, t = shared_ts[0]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            solo_ms, solo_all = timed(torch, lambda: run(solo_t), 5)
+            solo_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            shared_ms, shared_all = timed(torch, lambda: run(t), 5)
+            shared_peak = torch.cuda.max_memory_allocated()
+            # the permutations this tenant's levels would draw, by hand
+            sess = mgr.session(name)
+            fanins = [l.fanin for l in dataplane._levels(mesh, AXES)]
+            counts = dataplane.level_packet_counts(
+                fanins, b, s, torch.float32, mode=sess.mode, block=QBLOCK,
+                k_max=sess.k)
+            perms = mgr.arrival_perms(name)
+            host = []
+            sessions._perm_draw.cache_clear()
+            for _ in range(2):
+                t0 = time.perf_counter()
+                for i, (p, n) in enumerate(counts):
+                    perms[i](p, n)
+                host.append((time.perf_counter() - t0) * 1e3)
+            print(f"shared switch at scale, {name} {b}x{s} on {shape}: "
+                  f"demand {sess.demand_bytes} B of {mgr.bytes_per_session}; "
+                  f"shared (manager seeds 7, 8) == solo == manager-less, "
+                  f"bitwise; launches {at_scale}; permutations the batched "
+                  f"plane drew: {drawn}; "
+                  f"ms (median of 5, a copy of the input included, {card}) "
+                  f"shared {shared_ms:.3f} (runs "
+                  f"{[round(v, 3) for v in shared_all]}), solo {solo_ms:.3f} "
+                  f"(runs {[round(v, 3) for v in solo_all]}); peak shared "
+                  f"{shared_peak / 2**30:.3f} GiB, solo "
+                  f"{solo_peak / 2**30:.3f}; the levels' arrival "
+                  f"permutations {counts} on the host {host[0]:.3f} ms "
+                  f"cold, {host[1]:.4f} ms cached")
+            del x, solo, shared_ts, mgr, t, solo_t, plain
+            torch.cuda.empty_cache()
+
+    # the 4-layer gradient arena is refused: the host-fallback signal
+    g = make_grads(torch, tree, transformer, cfg, (1, 1), seed)
+    like = [torch.empty(l.shape[2:], device="meta")
+            for l in tree.flatten(g)[0]]
+    del g
+    torch.cuda.empty_cache()
+    red = GradReducer(FlareConfig(axes=AXES, transport="innetwork",
+                                  reproducible=True), RankMesh(TWO_LEVEL))
+    grp = arena_mod.build_plan(like, red.config.bucket_bytes,
+                               pad_multiple=red._pad_multiple(8),
+                               lead_dims=0).groups[0]
+    mgr = SessionManager(AXES, TWO_LEVEL)
+    try:
+        transport(RankMesh(TWO_LEVEL), {"reproducible": True}, mgr,
+                  "arena").attach(grp.num_buckets, grp.bucket_elems,
+                                  torch.float32, grp.valid_extents)
+        refused = None
+    except AdmissionError as e:
+        refused = str(e)
+    check(refused is not None, "the 4-layer arena was admitted")
+    print(f"shared switch: the {LAYERS}-layer gradient arena "
+          f"{grp.num_buckets}x{grp.bucket_elems} raises AdmissionError: "
+          f"{refused}")
+
+    # -- the launcher's --tenants 3 path ---------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    shared = launch.setup_tenants(TENANT_FLAGS, n_layers=TENANT_LAYERS,
+                                  dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mgr = shared.manager
+    check([x.tenant for x in mgr.active()] == [
+        f"job{k}/float32" for k in range(3)], "the jobs are not registered "
+        f"before their first step: {[x.tenant for x in mgr.active()]}")
+    runs = [(name, kind, run) for name, kind, run in shared.jobs]
+    losses = {name: [] for name, _, _ in runs}
+    step_ms = {name: [] for name, _, _ in runs}
+    captured = {}
+    real_call = GradReducer.__call__
+
+    def spy(self, grads, state=None):
+        g_in = [x.clone() for x in grads]
+        s_in = None if state is None else [x.clone() for x in state]
+        out = real_call(self, grads, state)
+        captured[self.tenant] = (self, g_in, s_in,
+                                 [o.clone() for o in out[0]],
+                                 None if out[1] is None
+                                 else [o.clone() for o in out[1]])
+        return out
+
+    def one_step(spying=False):
+        for name, _, run in runs:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with (mock.patch.object(GradReducer, "__call__", spy)
+                  if spying else contextlib.nullcontext()):
+                losses[name].append(float(run.train_step()["loss"]))
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t) * 1e3)
+    one_step()                                 # warm-up
+    zero_counters()
+    for i in range(TENANT_STEPS):
+        one_step(spying=(i == 0))
+    torch.cuda.synchronize()
+    launched = counters()
+    peak = torch.cuda.max_memory_allocated()
+    # the int8 tenant's norm-leaf arena is below the §6.4 switchover: its
+    # switches fold in the tree design (dequantize, then the fixed tree),
+    # so dequant_accum_slots launches only at scale above
+    for k, v in launched.items():
+        check(v > 0 or k == "dequant_accum_slots",
+              f"the --tenants 3 path launched no {k}")
+    check(fa.tc_launches == fa.launches == 3 * TENANT_STEPS * 2
+          * TENANT_LAYERS, f"flash launches {fa.launches} ({fa.tc_launches} "
+          "tensor-core)")
+    for name, ls in losses.items():
+        check(all(map(math.isfinite, ls)), f"{name}: a loss is not finite "
+              f"{ls}")
+        check(ls[-1] < ls[0], f"{name}: losses do not fall {ls}")
+    print(f"shared switch training ({' '.join(TENANT_FLAGS)}, "
+          f"{TENANT_LAYERS} layers, bf16 compute): set up in {setup_s:.1f} "
+          f"s; losses (warm-up, then {TENANT_STEPS} steps) "
+          f"{ {n: [round(x, 4) for x in v] for n, v in losses.items()} }; "
+          f"step ms ({card}) "
+          f"{ {n: [round(x, 1) for x in v[1:]] for n, v in step_ms.items()} } "
+          f"(warm-up {[round(v[0], 1) for v in step_ms.values()]}); "
+          f"launches over {TENANT_STEPS} steps of every job {launched}; "
+          f"peak {peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}")
+
+    # each tenant's reduction bitwise a manager-less one of the same leaves
+    check(sorted(captured) == [f"job{k}" for k in range(3)],
+          f"captured {sorted(captured)}")
+    for tenant, (red, g_in, s_in, out, s_out) in sorted(captured.items()):
+        alone = GradReducer(red.config, red.mesh)
+        got, st = alone([x.clone() for x in g_in],
+                        None if s_in is None else [x.clone() for x in s_in])
+        check(all(same_bits(a, b) for a, b in zip(got, out)),
+              f"{tenant}: shared reduction != the manager-less one")
+        check((st is None) == (s_out is None) and (st is None or all(
+            same_bits(a, b) for a, b in zip(st, s_out))),
+              f"{tenant}: shared state != the manager-less one")
+    report = str(mgr.report())
+    print(report)
+    check(mgr.report().sessions == 3 and report.count("job") == 3,
+          "the report does not name three sessions")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = shared.replan()
+    line = buf.getvalue().strip()
+    print(line)
+    check(line.startswith("congestion replan: replanned="), "no replan line")
+    red, g_in, s_in, out, _ = captured["job0"]
+    again, _ = red([x.clone() for x in g_in])
+    check(all(same_bits(a, b) for a, b in zip(again, out)),
+          "the reproducible tenant's bits changed after the replan")
+    print(mgr.report())
+    print(f"shared switch: replan {res.reason!r}, epoch {mgr._epoch}; "
+          f"job0's reduction after it bitwise the same; every tenant's "
+          f"first timed step bitwise a manager-less GradReducer; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    del shared, runs, captured, red, g_in, out, again
+    torch.cuda.empty_cache()
+    return launched
+
+
 def flash_figures(torch, fa, ref, card, err) -> dict:
     """The flash kernel at the training path's shape: its time by CUDA
     events, its bound, the plain version's time and SDPA's."""
@@ -2778,6 +3082,8 @@ def main() -> int:
         "dense": (red_ms, peak), "int8": (red8_ms, peak8),
         "sparse": (sparse_runs[FABRIC_SPARSE]["ms"],
                    sparse_runs[FABRIC_SPARSE]["peak"])})
+    # -- the shared switch: three tenants ------------------------------------
+    phase_shared_switch(torch, card, total_mem, cfg, args.seed)
     launches["flash_attention"] = trained["launches"]
     figures["flash_attention"] = flash_figures(torch, fa, ref, card,
                                                flash_path_err)

@@ -22,10 +22,11 @@ bitwise-equal to the JAX package's on the same inputs.  With
 or in the network, the reducer carries each rank's error-feedback
 residual as its state.  With ``transport="innetwork"`` a ``fault_plan``
 runs the switch over the lossy fabric (bitwise the fault-free result
-while the plan survives, the wire transport when it cannot).
+while the plan survives, the wire transport when it cannot), and a
+``manager`` (``runtime.SessionManager``) makes the reducer a tenant of a
+shared switch.
 
-Not ported yet: the multi-tenant runtime (ROADMAP queue 1 item 11) and
-telemetry (item 13).
+Not ported yet: telemetry (ROADMAP queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -104,9 +105,27 @@ class FlareConfig:
 
 
 class GradReducer:
-    """Reduces a gradient pytree over ``config.axes`` of ``mesh``."""
+    """Reduces a gradient pytree over ``config.axes`` of ``mesh``.
 
-    def __init__(self, config: FlareConfig, mesh: RankMesh):
+    ``manager``/``tenant`` attach the reducer to a shared multi-tenant
+    switch runtime (``runtime.SessionManager``, ``transport="innetwork"``
+    only): each dtype arena opens its own session, named
+    ``{tenant}/{dtype}`` (``"job0/float32"``), admitted against the
+    switch's capacity, and reduces under the runtime's contention-derived
+    packet arrival permutations.  Without a ``tenant`` the manager names
+    one (``manager.new_tenant()``).
+    """
+
+    def __init__(self, config: FlareConfig, mesh: RankMesh, *,
+                 manager=None, tenant: str | None = None):
+        if manager is not None and config.transport != "innetwork":
+            raise ValueError(
+                "a runtime.SessionManager needs transport='innetwork'; "
+                f"config has transport={config.transport!r}")
+        if manager is not None and tenant is None:
+            # two reducers sharing a manager are distinct tenants even
+            # with equal shapes
+            tenant = manager.new_tenant()
         missing = [a for a in config.axes if a not in mesh.axes]
         if missing:
             raise ValueError(f"config axes {missing} are not mesh axes "
@@ -133,6 +152,8 @@ class GradReducer:
                     f"sizes {sizes}")
         self.config = config
         self.mesh = mesh
+        self.manager = manager
+        self.tenant = tenant
 
     @property
     def needs_state(self) -> bool:
@@ -169,8 +190,39 @@ class GradReducer:
 
     def _transport(self, dtype: torch.dtype, *, batched: bool
                    ) -> transports.Transport:
+        """The group's transport; under a manager each dtype arena is its
+        own wire image, hence its own session ``{tenant}/{dtype}``."""
+        tenant = self.tenant
+        if self.manager is not None and tenant is not None:
+            tenant = f"{tenant}/{arena_mod.dtype_name(dtype)}"
         return transports.from_config(self.config, self.mesh, dtype,
-                                      batched=batched)
+                                      batched=batched, manager=self.manager,
+                                      tenant=tenant)
+
+    def attach(self, grads: Any) -> None:
+        """Open this reducer's sessions on a shared switch for ``grads``,
+        without reducing (nothing happens without a manager, or on the
+        per-bucket path, which re-attaches its tenant bucket by bucket).
+
+        Arrival permutations depend on every session of the switch, so a
+        job that attached only at its first reduction would reduce on a
+        switch that does not hold the later jobs' sessions yet.  Calling
+        this for every job before the first step registers the whole mix
+        (the reference traces every job once before its real builds for
+        the same reason).  Only shapes and dtypes are read.
+        """
+        c = self.config
+        if self.manager is None or not c.arena:
+            return
+        leaves, _, _ = self._leaves(grads, None)
+        plan = arena_mod.build_plan(
+            leaves, c.bucket_bytes, pad_multiple=self._pad_multiple(
+                self._world()), lead_dims=self.mesh.ndim)
+        for g in plan.groups:
+            t = self._transport(g.dtype, batched=True)
+            if isinstance(t, transports.SwitchTransport):
+                t.attach(g.num_buckets, g.bucket_elems, g.dtype,
+                         g.valid_extents)
 
     def _leaves(self, grads: Any, state: Any):
         leaves, spec = tree.flatten(grads)

@@ -25,7 +25,11 @@ call:
   coordinate lists and densifies them in the ``sparse_accum_slots``
   kernel.  Under a ``fault_plan`` every plane runs over the lossy
   fabric; a plan the retry budget cannot recover hands the arena to the
-  matching wire transport.
+  matching wire transport.  With a ``manager``
+  (``runtime.SessionManager``) the transport is one tenant of a shared
+  switch: it attaches its session (admission control;
+  ``runtime.AdmissionError`` propagates to the caller) and its planes
+  run under the manager's contention-derived arrival permutations.
 
 ``batched=False`` keeps the reference's per-bucket ancestor (its
 ``lax.scan``; the switch's per-packet plane) as the bitwise oracle of the
@@ -251,35 +255,87 @@ class SwitchTransport(Transport):
     (``compression.error_feedback_step``), so callers pass an arena of
     their own.
 
+    ``design`` is the §6.1-§6.3 buffer design of the dense and int8
+    planes, ``"auto"`` the §6.4 size switchover.
+
+    ``manager`` (``runtime.SessionManager``, never part of equality)
+    attaches the transport as tenant ``tenant`` of a shared switch: each
+    call attaches its session (admission control: an
+    ``runtime.AdmissionError`` propagates to the caller, the host-fallback
+    signal) and runs the planes under the manager's arrival permutations
+    for the tenant (``None`` alone on an idle switch).  ``None`` is the
+    single-job plane.
+
     ``fault_plan`` (``switch.packets.FaultPlan``) replays a deterministic
     lossy fabric: a surviving plan runs in the network, bitwise the
     fault-free run; a plan the retry budget cannot recover is detected
-    statically before the reduction (``dataplane.plan_survives``) and the
-    arena goes to the matching wire transport (``_degrade``).
+    statically before the reduction (``dataplane.plan_survives``), the
+    session drains from a shared manager and the arena goes to the
+    matching wire transport (``_degrade``).
     """
 
     mode: str = "dense"             # dense | int8 | sparse
     reproducible: bool = False
+    design: str = "auto"            # §6.1-§6.3 buffer design, auto = §6.4
     block: int = QUANT_BLOCK
     k_frac: float = 0.0
     density_threshold: float = 0.25
+    manager: Any = dataclasses.field(default=None, compare=False)
+    tenant: str | None = None
     fault_plan: Any = None
 
-    def _plan_survives(self, buf: torch.Tensor, ks) -> bool:
+    def _ks(self, extents: Sequence[int]) -> tuple[int, ...] | None:
+        """Each bucket's top-k of its unpadded extent (sparse mode)."""
+        if self.mode != "sparse":
+            return None
+        return tuple(sparse.sparse_k(self.k_frac, e) for e in extents)
+
+    def _plan_survives(self, num_buckets: int, bucket_elems: int,
+                       dtype: torch.dtype, ks) -> bool:
         """Static retry-budget pre-check on this arena's level shapes."""
         fanins = [l.fanin for l in dataplane._levels(self.mesh, self.axes)]
         counts = dataplane.level_packet_counts(
-            fanins, int(buf.shape[-2]), int(buf.shape[-1]), buf.dtype,
+            fanins, int(num_buckets), int(bucket_elems), dtype,
             mode=self.mode, block=self.block,
             k_max=max(ks) if ks else None,
             density_threshold=self.density_threshold)
         return dataplane.plan_survives(self.fault_plan, counts)
 
+    def _session_perms(self, num_buckets: int, bucket_elems: int,
+                       dtype: torch.dtype, ks):
+        """Attach to the shared switch; returns this tenant's per-level
+        arrival permutations (``None`` alone on an idle switch or without
+        a manager).  The sparse session's lists hold ``max(ks)``."""
+        if self.manager is None:
+            return None
+        sess = self.manager.attach(
+            self.tenant, mode=self.mode, num_buckets=num_buckets,
+            bucket_elems=bucket_elems, dtype=dtype,
+            reproducible=self.reproducible, design=self.design,
+            k=max(ks) if ks else None, axes=self.axes,
+            fault_plan=self.fault_plan)
+        return self.manager.arrival_perms(sess.tenant)
+
+    def attach(self, num_buckets: int, bucket_elems: int,
+               dtype: torch.dtype, extents: Sequence[int]):
+        """Attach what a call on a ``(B, S)`` arena of ``dtype`` attaches,
+        without reducing: the tenant's session, unless a doomed fault plan
+        sends the arena to the wire.  Returns the arrival permutations."""
+        ks = self._ks(extents)
+        if (self.fault_plan is not None and not self._plan_survives(
+                num_buckets, bucket_elems, dtype, ks)):
+            return None
+        return self._session_perms(num_buckets, bucket_elems, dtype, ks)
+
     def _degrade(self) -> Transport:
-        """Retry budget exhausted: hand the arena to the matching wire
-        transport.  (The reference also drains the session from a shared
-        multi-tenant runtime; the port has no runtime yet, ROADMAP queue 1
-        items 11 and 12.)"""
+        """Retry budget exhausted: drain this session from the shared
+        runtime (``ft.recover_session_failure``) and hand the arena to the
+        matching wire transport.  Only this session degrades: other
+        tenants keep the switch."""
+        from repro_torch.ft import coordinator as ft
+
+        if self.manager is not None:
+            ft.recover_session_failure(self.manager, self.tenant)
         if self.mode == "sparse":
             return SparseTransport(self.mesh, self.axes, mean=self.mean,
                                    batched=True, k_frac=self.k_frac,
@@ -291,15 +347,18 @@ class SwitchTransport(Transport):
                               batched=True, reproducible=self.reproducible)
 
     def __call__(self, buf, ef, staggers, extents):
-        ks = (tuple(sparse.sparse_k(self.k_frac, e) for e in extents)
-              if self.mode == "sparse" else None)
-        if self.fault_plan is not None and not self._plan_survives(buf, ks):
+        b, s = buf.shape[-2:]
+        ks = self._ks(extents)
+        if (self.fault_plan is not None
+                and not self._plan_survives(b, s, buf.dtype, ks)):
             return self._degrade()(buf, ef, staggers, extents)
-        plane = dict(fault_plan=self.fault_plan, batched=self.batched)
+        perms = self._session_perms(b, s, buf.dtype, ks)
+        plane = dict(fault_plan=self.fault_plan, batched=self.batched,
+                     arrival_perms=perms)
         if self.mode == "dense":
             red = dataplane.switch_allreduce_dense(
                 buf, self.mesh, self.axes, reproducible=self.reproducible,
-                **plane)
+                design=self.design, **plane)
             if self.mean:
                 red = self.mesh.mean(red, self.axes)
             return red, (torch.zeros_like(ef) if ef is not None else None)
@@ -307,7 +366,7 @@ class SwitchTransport(Transport):
             def transmit(v):
                 return dataplane.switch_allreduce_int8(
                     v, self.mesh, self.axes, block=self.block,
-                    **plane), None
+                    design=self.design, **plane), None
 
             def residual_(v, sent):
                 return compression.roundtrip_residual_(v, self.block)
@@ -329,36 +388,45 @@ class SwitchTransport(Transport):
 
 
 def _switch_from_config(config, mesh: RankMesh, is_float: bool, *,
-                        batched: bool = True) -> SwitchTransport:
+                        batched: bool = True, manager=None,
+                        tenant: str | None = None) -> SwitchTransport:
+    kw = dict(mean=config.mean, batched=batched, manager=manager,
+              tenant=tenant, fault_plan=getattr(config, "fault_plan", None))
     axes = tuple(config.axes)
-    fault_plan = getattr(config, "fault_plan", None)
     if config.sparse_k_frac > 0 and is_float:
-        return SwitchTransport(mesh, axes, mean=config.mean, batched=batched,
-                               mode="sparse", k_frac=config.sparse_k_frac,
+        return SwitchTransport(mesh, axes, mode="sparse",
+                               k_frac=config.sparse_k_frac,
                                density_threshold=config.density_threshold,
-                               fault_plan=fault_plan)
+                               **kw)
     if config.compression == "int8" and is_float:
-        return SwitchTransport(mesh, axes, mean=config.mean, batched=batched,
-                               mode="int8", fault_plan=fault_plan)
-    return SwitchTransport(mesh, axes, mean=config.mean, batched=batched,
-                           mode="dense", reproducible=config.reproducible,
-                           fault_plan=fault_plan)
+        return SwitchTransport(mesh, axes, mode="int8", **kw)
+    return SwitchTransport(mesh, axes, mode="dense",
+                           reproducible=config.reproducible, **kw)
 
 
 def from_config(config, mesh: RankMesh, dtype: torch.dtype, *,
-                batched: bool = True) -> Transport:
+                batched: bool = True, manager=None,
+                tenant: str | None = None) -> Transport:
     """The transport dispatch, in one place.
 
     ``config`` is any object with the ``FlareConfig`` transport fields.
     Lossy transports apply to floating dtypes only; everything else rides
     the dense path.  ``transport="innetwork"`` swaps the wire schedule
-    for the emulated switch data plane.  ``batched=False`` gives the
-    per-bucket oracle of the same transport.
+    for the emulated switch data plane; a shared ``manager``
+    (``runtime.SessionManager``) attaches it as tenant ``tenant`` of the
+    multi-tenant switch runtime.  ``batched=False`` gives the per-bucket
+    oracle of the same transport.
     """
     axes = tuple(config.axes)
     is_float = dtype.is_floating_point
     if config.transport == "innetwork":
-        return _switch_from_config(config, mesh, is_float, batched=batched)
+        return _switch_from_config(config, mesh, is_float, batched=batched,
+                                   manager=manager, tenant=tenant)
+    if manager is not None:
+        raise ValueError(
+            "a runtime.SessionManager applies to transport='innetwork' "
+            f"only; config has "
+            f"transport={getattr(config, 'transport', 'auto')!r}")
     if config.sparse_k_frac > 0 and is_float:
         return SparseTransport(mesh, axes, mean=config.mean, batched=batched,
                                hierarchical=config.hierarchical,

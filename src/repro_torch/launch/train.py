@@ -13,15 +13,26 @@ none) or, for tests, on the CPU (``--device cpu``).  Examples::
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 3 \\
         --mesh 2x4x1 --device cpu --transport innetwork --fault-rate 0.01
 
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 2 \\
+        --mesh 2x4x1 --device cpu --tenants 3 --congestion-replan 0.9
+
 ``--fault-rate`` / ``--fault-seed`` run the switch over a deterministic
 lossy fabric (``--transport innetwork`` only): a surviving plan gives the
 fault-free bits, a plan past the retry budget degrades to the wire.
 
-Not ported, each stopping with the ROADMAP item that will port it: the
-multi-tenant runtime (``--tenants > 1``), checkpoints (``--ckpt-*``,
-``--resume``), telemetry and the health plane (``--trace-out``,
-``--metrics-out``, ``--health-policy``), and tensor parallelism (a
-``model`` axis > 1).
+``--tenants K`` trains K jobs, each with its own parameters, optimizer
+and data, whose gradients reduce as tenants of ONE shared emulated
+switch (``runtime.SessionManager``; implies ``--transport innetwork``).
+Job k cycles dense reproducible / int8 / sparse.  The manager prints its
+partition, schedule and prediction report after training;
+``--partition-policy`` and ``--schedule-order`` pick its policies, and
+``--congestion-replan HOTNESS`` then injects that load on the first leaf
+switch slot and re-plans the sessions onto the cheapest tree.
+
+Not ported, each stopping with the ROADMAP item that will port it:
+checkpoints (``--ckpt-*``, ``--resume``), telemetry and the health plane
+(``--trace-out``, ``--metrics-out``, ``--health-policy``), and tensor
+parallelism (a ``model`` axis > 1).
 """
 from __future__ import annotations
 
@@ -63,8 +74,25 @@ def _parse(argv=None):
                          "retry budget degrade to the wire")
     ap.add_argument("--fault-seed", type=int, default=0,
                     help="seed of the deterministic fault plan")
+    ap.add_argument("--tenants", type=int, default=1,
+                    help="run K concurrent training jobs as tenants of ONE "
+                         "shared emulated switch (implies --transport "
+                         "innetwork); job k cycles through dense / int8 / "
+                         "sparse gradient transports")
+    ap.add_argument("--partition-policy", type=str, default="weighted_fair",
+                    choices=("static", "weighted_fair", "greedy"),
+                    help="HPU-cluster partition policy for --tenants > 1")
+    ap.add_argument("--schedule-order", type=str, default="round_robin",
+                    choices=("round_robin", "priority"),
+                    help="ingress interleave order for --tenants > 1")
+    ap.add_argument("--congestion-replan", type=float, default=0.0,
+                    metavar="HOTNESS",
+                    help="after training, inject HOTNESS background load "
+                         "on the fabric's first leaf slot, observe it "
+                         "through the congestion monitor and re-plan the "
+                         "sessions onto the cheapest tree (needs "
+                         "--tenants > 1)")
     # not ported: each exits naming its ROADMAP item
-    ap.add_argument("--tenants", type=int, default=1)
     ap.add_argument("--ckpt-dir", type=str, default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
@@ -76,15 +104,15 @@ def _parse(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    if args.tenants > 1:
-        sys.exit("--tenants > 1: the multi-tenant switch runtime is not "
-                 "ported (ROADMAP queue 1 item 11)")
     if args.ckpt_dir or args.ckpt_every or args.resume:
         sys.exit("--ckpt-dir/--ckpt-every/--resume: checkpoints are not "
                  "ported (ROADMAP queue 1 item 12)")
     if args.trace_out or args.metrics_out or args.health_policy != "off":
         sys.exit("--trace-out/--metrics-out/--health-policy: telemetry and "
                  "the health plane are not ported (ROADMAP queue 1 item 13)")
+    if args.congestion_replan > 0 and args.tenants <= 1:
+        sys.exit("--congestion-replan re-plans the shared switch's "
+                 "sessions; it needs --tenants > 1")
 
 
 def _fault_plan(args):
@@ -123,20 +151,13 @@ class Run:
         return metrics
 
 
-def setup(argv=None, **overrides) -> Run:
-    """Parse the flags and build the job (``overrides`` replace fields
-    of the model config, e.g. ``n_layers``)."""
-    args = _parse(argv)
-    _refuse_unported(args)
-
+def _prepare(args, overrides):
+    """The device, the mesh config and the model the flags ask for."""
     import torch
 
     from repro_torch import configs
-    from repro_torch.core.engine import FlareConfig
-    from repro_torch.data import pipeline
     from repro_torch.models.registry import get_model
     from repro_torch.sharding import rules
-    from repro_torch.train import trainer
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device (use --device cpu "
@@ -160,9 +181,43 @@ def setup(argv=None, **overrides) -> Run:
         cfg = cfg.scaled(dtype=torch.float32)
     if overrides:
         cfg = cfg.scaled(**overrides)
-    model = get_model(cfg)
-    dev = torch.device(args.device)
+    return torch.device(args.device), mcfg, cfg, get_model(cfg)
 
+
+def _job(args, dev, mcfg, cfg, model, tcfg, *, init_seed: int,
+         data_seed: int, manager=None, tenant: str | None = None) -> Run:
+    """One job: its parameters from ``init_seed``, its train step (a
+    tenant of ``manager`` when given), optimizer state and data."""
+    import torch
+
+    from repro_torch.data import pipeline
+    from repro_torch.sharding import rules
+    from repro_torch.train import trainer
+
+    full = model.init(torch.Generator(device=dev).manual_seed(init_seed))
+    step = trainer.make_train_step(model, mcfg, tcfg, full,
+                                   reduce_manager=manager, tenant=tenant)
+    params = rules.shard_params(full, mcfg)
+    del full
+    opt = step.init_opt_state(params)
+    stream = pipeline.synthetic_batches(cfg, args.batch, args.seq,
+                                        seed=data_seed, device=dev)
+    return Run(args, cfg, mcfg, step, params, opt, stream)
+
+
+def setup(argv=None, **overrides) -> Run:
+    """Parse the flags and build the job (``overrides`` replace fields
+    of the model config, e.g. ``n_layers``)."""
+    args = _parse(argv)
+    _refuse_unported(args)
+    if args.tenants > 1:
+        raise ValueError("--tenants > 1 builds several jobs: use "
+                         "setup_tenants")
+
+    from repro_torch.core.engine import FlareConfig
+    from repro_torch.train import trainer
+
+    dev, mcfg, cfg, model = _prepare(args, overrides)
     tcfg = trainer.TrainConfig(
         lr=args.lr,
         gather_algorithm=("fixed_tree" if args.reproducible
@@ -173,18 +228,113 @@ def setup(argv=None, **overrides) -> Run:
                           sparse_k_frac=args.sparse_k,
                           transport=args.transport,
                           fault_plan=_fault_plan(args)))
-    full = model.init(torch.Generator(device=dev).manual_seed(0))
-    step = trainer.make_train_step(model, mcfg, tcfg, full)
-    params = rules.shard_params(full, mcfg)
-    del full
-    opt = step.init_opt_state(params)
-    stream = pipeline.synthetic_batches(cfg, args.batch, args.seq, seed=1,
-                                        device=dev)
-    return Run(args, cfg, mcfg, step, params, opt, stream)
+    return _job(args, dev, mcfg, cfg, model, tcfg, init_seed=0, data_seed=1)
 
 
-def main(argv=None) -> list[float]:
-    """Run the steps; returns the losses."""
+@dataclasses.dataclass
+class Tenants:
+    """K training jobs that reduce as tenants of one shared switch.
+
+    ``jobs`` holds ``(name, kind, run)`` per job; every job's
+    ``GradReducer`` is a tenant of ``manager``.
+    """
+
+    args: argparse.Namespace
+    manager: Any
+    jobs: list
+
+    def train_step(self) -> list[float]:
+        """One step of every job, in order; returns their losses."""
+        return [float(run.train_step()["loss"]) for _, _, run in self.jobs]
+
+    def replan(self):
+        """The ``--congestion-replan`` pass: inject the load on the first
+        leaf slot, observe it and re-plan.  Prints the reference's line
+        and returns the ``ReplanResult``."""
+        from repro_torch.runtime import CongestionMonitor
+
+        mgr = self.manager
+        monitor = CongestionMonitor(mgr)
+        monitor.inject((1, 0), self.args.congestion_replan)
+        res = mgr.replan(monitor, threshold=0.5, hysteresis=0.05)
+        fanins = [sorted((len(mgr.tree.nodes[n].children) for n in lvl),
+                         reverse=True) for lvl in mgr.tree.levels[1:]]
+        print(f"congestion replan: replanned={res.replanned} "
+              f"reason={res.reason!r} improvement_x={res.improvement_x:.3f} "
+              f"readmitted={list(res.readmitted)} "
+              f"evicted={list(res.evicted)} fanins={fanins}", flush=True)
+        return res
+
+
+def setup_tenants(argv=None, **overrides) -> Tenants:
+    """Parse the flags and build ``--tenants`` jobs on one shared switch.
+
+    Job k is ``job{k}``: dense reproducible, int8 or sparse (``max(
+    --sparse-k, 0.01)``) by k mod 3, parameters from seed k and data
+    from seed 100 + k.  Every job's sessions are attached before any
+    step runs (``GradReducer.attach``), so step 0 already sees the full
+    mix, as in the reference.
+    """
+    args = _parse(argv)
+    _refuse_unported(args)
+    if args.tenants < 2:
+        raise ValueError("setup_tenants needs --tenants > 1")
+
+    from repro_torch.core.engine import FlareConfig
+    from repro_torch.runtime import SessionManager
+    from repro_torch.train import trainer
+
+    dev, mcfg, cfg, model = _prepare(args, overrides)
+    reduce_sizes = tuple(s for a, s in zip(mcfg.axes, mcfg.shape)
+                         if a in mcfg.reduce_axes)
+    manager = SessionManager(mcfg.reduce_axes, reduce_sizes,
+                             policy=args.partition_policy,
+                             order=args.schedule_order,
+                             max_sessions=max(8, 2 * args.tenants))
+    variants = [dict(reproducible=True), dict(compression="int8"),
+                dict(sparse_k_frac=max(args.sparse_k, 0.01))]
+    jobs = []
+    for k in range(args.tenants):
+        kw = variants[k % len(variants)]
+        tcfg = trainer.TrainConfig(
+            lr=args.lr, gather_algorithm=args.gather_algorithm,
+            flare=FlareConfig(axes=mcfg.reduce_axes, transport="innetwork",
+                              fault_plan=_fault_plan(args), **kw))
+        run = _job(args, dev, mcfg, cfg, model, tcfg, init_seed=k,
+                   data_seed=100 + k, manager=manager, tenant=f"job{k}")
+        jobs.append((f"job{k}", sorted(kw)[0], run))
+    # registration: every job's sessions, before any job steps
+    for _, _, run in jobs:
+        run.step.attach(run.params)
+    return Tenants(args, manager, jobs)
+
+
+def _run_tenants(argv) -> list[list[float]]:
+    """``--tenants K``: train the jobs, then print the manager's report
+    and, with ``--congestion-replan``, the replan and the new report."""
+    shared = setup_tenants(argv)
+    args = shared.args
+    losses = []
+    for step in range(args.steps):
+        t0 = time.time()
+        row = shared.train_step()
+        losses.append(row)
+        line = [f"{name}({kind}) {loss:8.4f}"
+                for (name, kind, _), loss in zip(shared.jobs, row)]
+        print(f"step {step:5d} | " + " | ".join(line) +
+              f" | dt {time.time() - t0:6.3f}s", flush=True)
+    print(shared.manager.report(), flush=True)
+    if args.congestion_replan > 0:
+        shared.replan()
+        print(shared.manager.report(), flush=True)
+    return losses
+
+
+def main(argv=None) -> list:
+    """Run the steps; returns the losses (with ``--tenants > 1`` a row of
+    every job's losses a step)."""
+    if _parse(argv).tenants > 1:
+        return _run_tenants(argv)
     run = setup(argv)
     args, cfg = run.args, run.cfg
     where = args.device

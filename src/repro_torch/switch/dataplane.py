@@ -37,9 +37,10 @@ batched planes fold the schedule's masks in numpy and gate the stack
 with one select a level (``_admit``); the per-packet planes replay every
 round on the packets (``_reliable_ingress``).  ``plan_counters`` and
 ``level_packet_counts`` give the static packet, combine and buffer
-counts that ``perfmodel.switch_model`` consumes.  Telemetry and
-multi-tenant arrivals are not ported yet (ROADMAP queue 1 items 13 and
-11).
+counts that ``perfmodel.switch_model`` consumes, and the multi-tenant
+runtime (``runtime.SessionManager``) its admission demands; its
+contention reaches the planes as ``arrival_perms``.  Telemetry is not
+ported yet (ROADMAP queue 1 item 13).
 """
 from __future__ import annotations
 

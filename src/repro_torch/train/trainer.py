@@ -94,9 +94,17 @@ class TrainStep:
     gather: Callable
     reducer: GradReducer
     mesh: RankMesh
+    dims: Any = None        # FSDP dim of every leaf, -1 where replicated
 
     def __call__(self, params, opt_state, batch):
         return self.step(params, opt_state, batch)
+
+    def attach(self, params) -> None:
+        """Open the reducer's shared-switch sessions for these parameters'
+        gradients (the replicated leaves), without stepping
+        (``GradReducer.attach``)."""
+        leaves, _, _, rep_idx = _split_by_fsdp(params, self.dims)
+        self.reducer.attach([leaves[i] for i in rep_idx])
 
 
 def make_train_step(model, mesh_cfg: rules.MeshCfg, tcfg: TrainConfig,
@@ -109,11 +117,12 @@ def make_train_step(model, mesh_cfg: rules.MeshCfg, tcfg: TrainConfig,
     step takes each rank's parameters ``(*mesh, *local)``, updates them
     and the optimizer state in place, and returns the loss summed over
     the ranks (the global mean) and the global gradient norm.
+
+    ``reduce_manager``/``tenant`` attach this job's ``GradReducer`` to a
+    shared multi-tenant switch runtime (``runtime.SessionManager``,
+    ``transport="innetwork"`` only): several jobs' steps then reduce as
+    tenants of one switch.
     """
-    if reduce_manager is not None or tenant is not None:
-        raise NotImplementedError(
-            "a shared multi-tenant switch runtime is not ported: ROADMAP "
-            "queue 1 item 11")
     if mesh_cfg.tp > 1:
         raise NotImplementedError(
             f"tensor parallelism over 'model' (size {mesh_cfg.tp}) is not "
@@ -123,7 +132,8 @@ def make_train_step(model, mesh_cfg: rules.MeshCfg, tcfg: TrainConfig,
     dims = rules.param_specs(params_tree, mesh_cfg)
     gather = rules.make_gather(mesh_cfg, tcfg.gather_algorithm, params_tree,
                                compute_dtype=model.cfg.dtype)
-    reducer = GradReducer(tcfg.flare, mesh)
+    reducer = GradReducer(tcfg.flare, mesh, manager=reduce_manager,
+                          tenant=tenant)
     reduce_axes = mesh_cfg.reduce_axes
     data_world = mesh_cfg.data_world
 
@@ -184,4 +194,4 @@ def make_train_step(model, mesh_cfg: rules.MeshCfg, tcfg: TrainConfig,
             st["ef"] = reducer.init_state([leaves[i] for i in rep_idx])
         return st
 
-    return TrainStep(step_body, init_opt_state, gather, reducer, mesh)
+    return TrainStep(step_body, init_opt_state, gather, reducer, mesh, dims)

@@ -281,6 +281,9 @@ def test_dense_plane_under_faults_matches_jax(mshape, reproducible):
     want, wstats = _nested(lambda a: jdp.switch_allreduce_dense(
         a, AXES, fault_plan=jplan, with_fault_stats=True,
         arrival_perms=perms, **kw))(jnp.asarray(x))
+    # the reference's faulted run in canonical arrival order
+    want0 = _nested(lambda a: jdp.switch_allreduce_dense(
+        a, AXES, fault_plan=jplan, **kw))(jnp.asarray(x))
     t, mesh = tensor_from_numpy(x, "cpu"), RankMesh(mshape)
     clean = dataplane.switch_allreduce_dense(t, mesh, AXES, **kw)
     for (bt, permuted), (got, stats) in _port_runs(
@@ -289,6 +292,8 @@ def test_dense_plane_under_faults_matches_jax(mshape, reproducible):
         # the fixed tree steers by child rank: arrival order cannot matter
         ref = _bits(want) if permuted or reproducible else _bits(clean)
         assert np.array_equal(_bits(got), ref), (bt, permuted)
+        if not permuted:
+            assert np.array_equal(_bits(got), _bits(want0)), bt
         assert _same_stats(stats, wstats), (bt, permuted)
     if reproducible:
         assert np.array_equal(_bits(clean), _bits(want))

@@ -739,7 +739,10 @@ def test_launcher_runs_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tenants", "2"], "item 11"),
+    # --tenants is ported (item 11): on the shared switch the telemetry
+    # flags still stop, naming their item
+    pytest.param(["--tenants", "2", "--trace-out", "x"], "item 13",
+                 id="flags0-item 11"),
     # --fault-rate is ported (item 9): without the switch it stops with
     # the reference's message, as the reference's launcher does
     pytest.param(["--fault-rate", "0.01"], "needs --transport innetwork",
