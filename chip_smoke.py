@@ -189,6 +189,29 @@
    reduced gradients at the first timed step bitwise a manager-less
    reduction of the same leaves; the report names three sessions; the
    replan's line, after which the reproducible tenant keeps its bits.
+16. Checkpoints, recovery and the flight recorder, through the
+   launcher's ``main`` (``TRAIN_FLAGS`` at ``CKPT_LAYERS``, a 5.80 GB
+   checkpoint in a temporary directory, removed at the end): 2 steps
+   with ``--ckpt-every 2``, the kernel counters set to 0 just before and
+   read just after (flash twice a layer a step on the tensor cores,
+   ``tree_reduce_slots``); ``--resume --steps 3`` prints ``resumed from
+   step 2`` and restores every rank's parameters and optimizer state
+   bitwise, and its step's loss is bitwise the saved run's on batch 0 of
+   a fresh stream; the heartbeat ``Coordinator`` loses host 7, its
+   ``plan`` gives a world of 4, and the resume on ``--mesh 1x4x1``
+   restores the saved global leaves bitwise and steps to a finite loss.
+   The times of ``save``'s host copy, of the write until ``wait()`` and
+   of ``restore``, with the bytes on disk.  Then 1 + ``OBS_STEPS`` steps
+   with and without ``--trace-out`` / ``--metrics-out``: the same bits,
+   the step time ratio, the ``switch.*`` counters ``plan_counters``'
+   (recorded once), ``python -m repro_torch.obs.report`` on both files.
+   The ``obs`` group at phase 15's dense shape twice under a counting
+   clock: byte-identical exports, bits neutral to telemetry.  A leaf
+   switch fails under ``SHARED_TENANTS`` on a radix-2 lease
+   (``Coordinator.switch_failure``): every tenant re-admitted, as the
+   reference's manager decides, reduces bitwise as before, each
+   kernel of the three planes launched; a root without a sibling drains
+   every session.
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line
 of kernel figures, and as its last line ``{"ok": true, "device": ...}``.
@@ -298,6 +321,12 @@ TENANT_FLAGS = ["--mesh", "2x4x1", "--batch", "8", "--seq", "4096",
 TENANT_LAYERS = 8
 #: timed steps of every job, after one warm-up step
 TENANT_STEPS = 2
+#: phase 16: the launcher's in-network reproducible step (``TRAIN_FLAGS``)
+#: at this depth holds 483,428,352 parameters, a 5.80 GB checkpoint (fp32
+#: parameters and both Adam moments)
+CKPT_LAYERS = 8
+#: timed steps of phase 16's flight-recorder runs, after one warm-up step
+OBS_STEPS = 3
 #: the at-scale tenants of phase 15 on (2, 4): name, (B, S), FlareConfig
 #: fields; the largest arenas the 8 MiB static share (64 clusters x 1 MiB
 #: / 8 sessions) admits there.  (1, 8) halves B until it admits.
@@ -2349,6 +2378,380 @@ def phase_shared_switch(torch, card, total_mem, cfg, seed) -> dict:
     return launched
 
 
+def phase_ft_obs(torch, card, total_mem, seed) -> dict:
+    """Phase 16: checkpoints, recovery and the flight recorder (module
+    docstring, item 16).  Returns the kernels' launches on its paths."""
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.core import arena as arena_mod, topology, transports
+    from repro_torch.core.engine import FlareConfig
+    from repro_torch.data import pipeline
+    from repro_torch.ft import CheckpointManager, Coordinator
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import quant as qt
+    from repro_torch.kernels import sparse_accum as sa
+    from repro_torch.kernels import tree_reduce as tr
+    from repro_torch.launch import train as launch
+    from repro_torch.mesh import AXES, RankMesh
+    from repro_torch.obs import Telemetry, counting_clock, timeline
+    from repro_torch.runtime import SessionManager
+    from repro_torch.switch import dataplane
+    from repro_torch.switch import packets as pk
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launched = {}
+
+    def zero_counters():
+        tr.launches = fa.launches = fa.tc_launches = 0
+        for c in (qt.launches, sa.launches):
+            for k in c:
+                c[k] = 0
+
+    def counters():
+        return {"tree_reduce_slots": tr.launches,
+                "quantize": qt.launches["quantize"],
+                "dequant_accum_slots": qt.launches["dequant_accum_slots"],
+                "dequantize": qt.launches["dequantize"],
+                "sparse_accum_slots": sa.launches["sparse_accum_slots"],
+                "flash_attention": fa.launches}
+
+    # every run the launcher builds, kept to compare with the next one
+    runs = []
+    real_setup = launch.setup
+
+    def keep_setup(argv=None, **kw):
+        runs.append(real_setup(argv, **kw))
+        return runs[-1]
+
+    times = {"save": [], "wait": [], "restore": []}
+
+    def timed_method(name, real):
+        def f(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(self, *a, **kw)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            return out
+        return f
+
+    def main(argv, extra_patches=()):
+        """The launcher's ``main`` at ``CKPT_LAYERS``; its output is
+        echoed and returned with the losses."""
+        buf = io.StringIO()
+        with contextlib.ExitStack() as st:
+            st.enter_context(mock.patch.object(launch, "setup", keep_setup))
+            for obj, name, fn in (
+                    (CheckpointManager, "save", CheckpointManager.save),
+                    (CheckpointManager, "wait", CheckpointManager.wait),
+                    (CheckpointManager, "restore",
+                     CheckpointManager.restore)):
+                st.enter_context(mock.patch.object(
+                    obj, name, timed_method(name, fn)))
+            for patch in extra_patches:
+                st.enter_context(patch)
+            st.enter_context(contextlib.redirect_stdout(buf))
+            losses = launch.main(argv, n_layers=CKPT_LAYERS)
+        print(buf.getvalue(), end="")
+        return losses, buf.getvalue()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ft_")
+    try:
+        ck = os.path.join(tmp, "ck")
+        usage = shutil.disk_usage(tmp)
+        print(f"checkpoints in a temporary directory: "
+              f"{usage.free / 1e9:.1f} GB free of {usage.total / 1e9:.1f}")
+        flags = [*TRAIN_FLAGS, "--ckpt-dir", ck]
+
+        # -- 1. checkpoint, then resume -------------------------------------
+        zero_counters()
+        saved, _ = main([*flags, "--steps", "2", "--ckpt-every", "2"])
+        torch.cuda.synchronize()
+        launched["checkpoint"] = counters()
+        run1 = runs.pop()
+        check(all(map(math.isfinite, saved)), f"losses {saved}")
+        check(fa.launches == fa.tc_launches == 2 * 2 * CKPT_LAYERS
+              and tr.launches > 0, f"the checkpointed run's launches "
+              f"{launched['checkpoint']}")
+        step_dir = os.path.join(ck, "step_000002")
+        check(CheckpointManager(ck).all_steps() == [2], "no step 2")
+        on_disk = sum(os.path.getsize(os.path.join(step_dir, f))
+                      for f in os.listdir(step_dir))
+        manifest = json.load(open(os.path.join(step_dir, "manifest.json")))
+        n_params = sum(math.prod(s) for n, s in zip(
+            manifest["names"], manifest["shapes"]) if n.startswith("['p']"))
+        save_s, wait_s = times["save"][0], times["wait"][-1]
+        print(f"checkpoint of {run1.cfg.name} at published widths, "
+              f"{CKPT_LAYERS} layers ({n_params} parameters; p, m and v in "
+              f"fp32): {on_disk} bytes on disk in {len(manifest['names'])} "
+              f"leaves; save's host copy {save_s * 1e3:.1f} ms "
+              f"({on_disk / save_s / 1e9:.2f} GB/s), the write until "
+              f"wait() returns {wait_s * 1e3:.1f} ms "
+              f"({on_disk / wait_s / 1e9:.2f} GB/s) ({card})")
+
+        def same_state(a, b) -> bool:
+            la = tree.flatten(a)[0]
+            lb = tree.flatten(b)[0]
+            return len(la) == len(lb) and all(
+                same_bits(x, y) for x, y in zip(la, lb))
+
+        real_load = launch.Run.load_state
+        loaded = {}
+
+        def load_against_run1(self, state):
+            real_load(self, state)
+            loaded["ranks"] = (same_state(self.params, run1.params)
+                               and same_state(self.opt, run1.opt))
+
+        resumed, out = main([*flags, "--steps", "3", "--resume"], [
+            mock.patch.object(launch.Run, "load_state", load_against_run1)])
+        runs.clear()
+        restore_s = times["restore"][-1]
+        check("resumed from step 2" in out, "no 'resumed from step 2'")
+        check(loaded.get("ranks") is True, "the restored parameters and "
+              "optimizer state are not bitwise the saved run's on every "
+              "rank")
+        print(f"restore {restore_s * 1e3:.1f} ms "
+              f"({on_disk / restore_s / 1e9:.2f} GB/s) ({card}); the "
+              f"restored state bitwise the saved run's on every rank")
+
+        # -- 2. elastic restart onto the survivors ------------------------
+        clock = [0.0]
+        coord = Coordinator(8, timeout_s=5, clock=lambda: clock[0])
+        clock[0] = 8.0
+        for h in range(7):
+            coord.heartbeat(h)
+        clock[0] = 12.0
+        check(coord.check() == {7}, f"failed hosts {coord.failed}")
+        plan = coord.plan(model=1, hosts_per_pod=4)
+        check(plan.world == 4, f"re-mesh world {plan.world}")
+        mesh_flag = f"{plan.new_pod}x{plan.new_data}x{plan.model}"
+        global_saved = run1.state()
+
+        def load_against_global(self, state):
+            real_load(self, state)
+            loaded["global"] = same_state(self.state(), global_saved)
+
+        elastic_flags = [mesh_flag if f == "2x4x1" else f for f in flags]
+        elastic, out = main([*elastic_flags, "--steps", "3", "--resume"], [
+            mock.patch.object(launch.Run, "load_state", load_against_global)])
+        runs.clear()
+        del global_saved
+        check("resumed from step 2" in out and loaded.get("global") is True,
+              "the elastic restart's unshard_params is not bitwise the "
+              "saved global leaves")
+        check(all(map(math.isfinite, elastic)), f"elastic loss {elastic}")
+
+        # the saved run on a fresh stream: the resumed step's loss
+        run1.stream = pipeline.synthetic_batches(
+            run1.cfg, run1.args.batch, run1.args.seq, seed=1,
+            device=torch.device("cuda"))
+        again = float(run1.train_step()["loss"])
+        check(again == resumed[0], f"resumed loss {resumed[0]!r} != the "
+              f"saved run's {again!r} on the same state and batch")
+        print(f"resume: step 2's loss {resumed[0]!r} bitwise the saved "
+              f"run's on batch 0 of a fresh stream; elastic restart: hosts "
+              f"{sorted(coord.failed)} failed, re-mesh to --mesh "
+              f"{mesh_flag} (world {plan.world}), its global leaves "
+              f"bitwise the saved ones, loss {elastic[0]:.4f}")
+        del run1
+        torch.cuda.empty_cache()
+
+        # -- 3. the flight recorder: the same step with and without ---------
+        tpath, mpath = os.path.join(tmp, "t.json"), os.path.join(tmp, "m.json")
+        step_ms = {False: [], True: []}
+        seen = {}
+        real_step = launch.Run.train_step
+        for traced in (False, True):
+            def timed_step(self, batch=None, traced=traced):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = real_step(self, batch)
+                torch.cuda.synchronize()
+                step_ms[traced].append((time.perf_counter() - t0) * 1e3)
+                return m
+            argv = [*TRAIN_FLAGS, "--steps", str(1 + OBS_STEPS)]
+            if traced:
+                argv += ["--trace-out", tpath, "--metrics-out", mpath]
+            losses, _ = main(argv, [mock.patch.object(launch.Run,
+                                                      "train_step",
+                                                      timed_step)])
+            run = runs.pop()
+            seen[traced] = (losses, digest(torch, tree.flatten(run.params)[0]
+                                           + tree.flatten(run.opt)[0]))
+            if traced:
+                red = run.step.reducer
+                rep = [p for p, d in zip(tree.flatten(run.params)[0],
+                                         tree.flatten(run.step.dims)[0])
+                       if d < 0]
+                aplan = arena_mod.build_plan(
+                    rep, red.config.bucket_bytes,
+                    pad_multiple=red._pad_multiple(red._world()),
+                    lead_dims=red.mesh.ndim)
+                (group,) = aplan.groups
+                pc = dataplane.plan_counters(
+                    red.config.axes, tuple(red.mesh.axis_size(a)
+                                           for a in red.config.axes),
+                    group.num_buckets, group.bucket_elems, group.dtype,
+                    reproducible=True)
+            del run
+            torch.cuda.empty_cache()
+        check(seen[False] == seen[True], "telemetry changed the bits: "
+              f"losses {seen[False][0]} vs {seen[True][0]}")
+        metrics = json.load(open(mpath))
+        for i, lvl in enumerate(pc.levels):
+            pre = f"switch.solo.l{i + 1}"
+            got = tuple(metrics[f"{pre}.{k}"]["value"] for k in (
+                "ingress_packets", "egress_packets", "combines"))
+            check(got == (lvl.ingress_packets, lvl.egress_packets,
+                          lvl.combines), f"{pre}: {got} after "
+                  f"{1 + OBS_STEPS} steps, plan_counters gives "
+                  f"{(lvl.ingress_packets, lvl.egress_packets, lvl.combines)}")
+        check(metrics["switch.solo.total_combines"]["value"]
+              == pc.total_combines, "total_combines")
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.report", mpath, tpath],
+            capture_output=True, text=True, timeout=120,
+            env={**os.environ, "PYTHONPATH": str(SRC)})
+        check(cli.returncode == 0 and "== per-tenant ==" in cli.stdout
+              and "spans on" in cli.stdout, f"the report CLI: {cli.stderr}")
+        without = statistics.median(step_ms[False][1:])
+        with_ = statistics.median(step_ms[True][1:])
+        print(f"flight recorder ({CKPT_LAYERS} layers): losses, parameters "
+              f"and optimizer state bitwise the same with and without "
+              f"--trace-out/--metrics-out; step ms (median of {OBS_STEPS}, "
+              f"{card}) {with_:.1f} with, {without:.1f} without, ratio "
+              f"{with_ / without:.4f} (runs {[round(t, 1) for t in step_ms[True]]}"
+              f" vs {[round(t, 1) for t in step_ms[False]]}, warm-up first); "
+              f"switch.* counters plan_counters' after {1 + OBS_STEPS} steps "
+              f"(recorded once); the report CLI:\n{cli.stdout.strip()}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 4. the obs group at phase 15's dense shape, twice ------------------
+    mesh = RankMesh((2, 4))
+    b, s = SHARED_TENANTS[0][1]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xs = torch.randn((2, 4, b, s), generator=gen, device="cuda") * 100
+    counts = dataplane.level_packet_counts([4, 2], b, s, torch.float32)
+    fplan = None
+    for fseed in range(200):
+        cand = pk.FaultPlan(seed=fseed, drop=0.05, duplicate=0.2)
+        scheds = [x for x in dataplane.fault_schedules(cand, counts)
+                  if x is not None]
+        if (dataplane.plan_survives(cand, counts)
+                and sum(x.retransmits for x in scheds) > 0):
+            fplan = cand
+            break
+    check(fplan is not None, f"no surviving fault seed for {counts}")
+
+    def obs_run(with_tm):
+        tm = Telemetry.create(clock=counting_clock()) if with_tm else None
+        mgr = SessionManager(AXES, (2, 4), seed=7, telemetry=tm)
+        outs = {}
+        for tenant, kw in (("det", dict(reproducible=True)),
+                           ("lossy", dict(fault_plan=fplan))):
+            t = transports.from_config(
+                FlareConfig(axes=AXES, transport="innetwork", telemetry=tm,
+                            **kw), mesh, torch.float32, manager=mgr,
+                tenant=tenant)
+            outs[tenant], _ = t(xs.clone(), None, torch.zeros(
+                b, dtype=torch.int32, device="cuda"), (s,) * b)
+        if tm is not None:
+            mgr.schedule()
+            timeline.manager_tracks(tm.tracer, mgr)
+        return tm, outs
+    zero_counters()
+    tm1, out1 = obs_run(True)
+    tm2, out2 = obs_run(True)
+    _, bare = obs_run(False)
+    launched["obs group"] = counters()
+    check(tm1.trace_json() == tm2.trace_json()
+          and tm1.metrics_json() == tm2.metrics_json(),
+          "the obs group's exports differ between two runs")
+    check(all(same_bits(out1[t], out2[t]) and same_bits(out1[t], bare[t])
+              for t in out1), "the obs group's bits changed")
+    check(tr.launches > 0, "the obs group launched no tree_reduce_slots")
+    retrans = json.loads(tm1.metrics_json())["tenant.lossy.retransmits"]
+    print(f"obs group at ({b}, {s}) on (2, 4): two runs under a counting "
+          f"clock export byte-identical trace ({len(tm1.trace_json())} B) "
+          f"and metrics ({len(tm1.metrics_json())} B) JSON; bits the same "
+          f"without telemetry; the lossy tenant's plan (seed {fplan.seed}) "
+          f"retransmits {retrans['value']} packets")
+    del xs, out1, out2, bare
+
+    # -- 5. a switch fails under the shared switch's tenants ----------------
+    xs = {}
+    for name, (b, s), _ in SHARED_TENANTS:
+        xs[name] = torch.randn((2, 4, b, s), generator=gen,
+                               device="cuda") * 100
+    nm = topology.NetworkManager()
+    lease = nm.request(8, radix=2)
+    mgr = SessionManager(AXES, (2, 4))
+    mgr.rebind(lease.tree)
+
+    def reduce_all(names):
+        outs = {}
+        for name, (b, s), kw in SHARED_TENANTS:
+            if name not in names:
+                continue
+            t = transports.from_config(
+                FlareConfig(axes=AXES, transport="innetwork", **kw), mesh,
+                torch.float32, manager=mgr, tenant=name)
+            outs[name], _ = t(xs[name].clone(), None, torch.zeros(
+                b, dtype=torch.int32, device="cuda"), (s,) * b)
+        return outs
+    zero_counters()
+    names = [n for n, _, _ in SHARED_TENANTS]
+    before = reduce_all(names)
+    epoch = mgr._epoch
+    new = Coordinator(8, network=nm).switch_failure(
+        lease, lease.tree.levels[1][0], runtime=mgr)
+    check(new is not None and mgr.tree is new.tree
+          and mgr._epoch == epoch + 1, "the switch failure did not rebind")
+    readmitted = sorted(x.tenant for x in mgr.active())
+    # the reference's manager re-admits all three at these arenas
+    # (tests/test_torch_ft.py::
+    # test_switch_failure_drill_at_the_chips_shapes_matches_jax)
+    check(readmitted == sorted(names) and mgr.evictions == [],
+          f"re-admitted {readmitted}, evicted {mgr.evictions}")
+    after = reduce_all(readmitted)
+    torch.cuda.synchronize()
+    launched["switch failure"] = counters()
+    for name in readmitted:
+        check(same_bits(before[name], after[name]),
+              f"{name}: the reduction changed after the switch failure")
+    for k, v in launched["switch failure"].items():
+        check(v > 0 or k == "flash_attention",
+              f"the switch-failure drill launched no {k}")
+    nm2 = topology.NetworkManager()
+    lease2 = nm2.request(4, radix=4)
+    gone = Coordinator(4, network=nm2).switch_failure(
+        lease2, lease2.tree.root.node_id, runtime=mgr)
+    check(gone is None and mgr.active() == () and nm2.active() == [],
+          "a root without a sibling must drain every session")
+    print(f"switch failure under {len(names)} tenants "
+          f"({', '.join(f'{n} {bs[0]}x{bs[1]}' for n, bs, _ in SHARED_TENANTS)}"
+          f") on a radix-2 lease: leaf switch {lease.tree.levels[1][0]} "
+          f"failed, fan-in {lease.tree.radix} -> {new.tree.radix}, all "
+          f"re-admitted (epoch {mgr._epoch}), each reduction bitwise as "
+          f"before; a root without a sibling drains them all")
+    del xs, before, after
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 16 launches {launched}; peak {peak / 2**30:.2f} GiB of "
+          f"{total_mem / 2**30:.1f}; phase {time.perf_counter() - t_phase:.1f}"
+          f" s ({card})")
+    return launched
+
+
 def flash_figures(torch, fa, ref, card, err) -> dict:
     """The flash kernel at the training path's shape: its time by CUDA
     events, its bound, the plain version's time and SDPA's."""
@@ -3084,6 +3487,8 @@ def main() -> int:
                    sparse_runs[FABRIC_SPARSE]["peak"])})
     # -- the shared switch: three tenants ------------------------------------
     phase_shared_switch(torch, card, total_mem, cfg, args.seed)
+    # -- checkpoints, recovery and the flight recorder -----------------------
+    phase_ft_obs(torch, card, total_mem, args.seed)
     launches["flash_attention"] = trained["launches"]
     figures["flash_attention"] = flash_figures(torch, fa, ref, card,
                                                flash_path_err)

@@ -24,9 +24,10 @@ residual as its state.  With ``transport="innetwork"`` a ``fault_plan``
 runs the switch over the lossy fabric (bitwise the fault-free result
 while the plan survives, the wire transport when it cannot), and a
 ``manager`` (``runtime.SessionManager``) makes the reducer a tenant of a
-shared switch.
-
-Not ported yet: telemetry (ROADMAP queue 1 item 13).
+shared switch.  A ``telemetry`` handle (``obs.Telemetry``) records the
+switch's static counters and phase spans on the reducer's first call
+for a given set of gradient shapes: the reference records them while
+``jit`` traces its step, once per compiled shape, not once per step.
 """
 from __future__ import annotations
 
@@ -130,9 +131,6 @@ class GradReducer:
         if missing:
             raise ValueError(f"config axes {missing} are not mesh axes "
                              f"{mesh.axes}")
-        if config.telemetry is not None:
-            raise NotImplementedError(
-                "telemetry is not ported yet: ROADMAP queue 1 item 13")
         if config.sparse_k_frac > 0 and config.transport != "innetwork":
             # the wire's recursive-doubling merge needs a power-of-two
             # inner axis (and, hierarchical, outer axes): fail here, not
@@ -154,6 +152,10 @@ class GradReducer:
         self.mesh = mesh
         self.manager = manager
         self.tenant = tenant
+        #: gradient shapes already reduced: the port's record of the
+        #: traces the reference would have compiled (telemetry records
+        #: on the first call of each)
+        self._traced: set = set()
 
     @property
     def needs_state(self) -> bool:
@@ -188,16 +190,27 @@ class GradReducer:
     def _world(self) -> int:
         return self.mesh.world_size(self.config.axes)
 
-    def _transport(self, dtype: torch.dtype, *, batched: bool
-                   ) -> transports.Transport:
+    def _transport(self, dtype: torch.dtype, *, batched: bool,
+                   record: bool = True) -> transports.Transport:
         """The group's transport; under a manager each dtype arena is its
-        own wire image, hence its own session ``{tenant}/{dtype}``."""
+        own wire image, hence its own session ``{tenant}/{dtype}``.
+        Without ``record`` it records nothing (the shapes were traced)."""
         tenant = self.tenant
         if self.manager is not None and tenant is not None:
             tenant = f"{tenant}/{arena_mod.dtype_name(dtype)}"
-        return transports.from_config(self.config, self.mesh, dtype,
-                                      batched=batched, manager=self.manager,
-                                      tenant=tenant)
+        t = transports.from_config(self.config, self.mesh, dtype,
+                                   batched=batched, manager=self.manager,
+                                   tenant=tenant)
+        return t if record else dataclasses.replace(t, telemetry=None)
+
+    def _first_trace(self, leaves: list, ef_leaves) -> bool:
+        """Whether this call is the first for these gradient shapes, the
+        call on which the reference would trace (and record)."""
+        key = (self.config.arena, ef_leaves is None,
+               tuple((tuple(l.shape), l.dtype) for l in leaves))
+        first = key not in self._traced
+        self._traced.add(key)
+        return first
 
     def attach(self, grads: Any) -> None:
         """Open this reducer's sessions on a shared switch for ``grads``,
@@ -244,13 +257,14 @@ class GradReducer:
     def _reduce_arena(self, grads: Any, state: Any) -> tuple[Any, Any]:
         c = self.config
         leaves, spec, ef_leaves = self._leaves(grads, state)
+        record = self._first_trace(leaves, ef_leaves)
         plan = arena_mod.build_plan(
             leaves, c.bucket_bytes, pad_multiple=self._pad_multiple(
                 self._world()), lead_dims=self.mesh.ndim)
         red_groups: list[torch.Tensor] = []
         ef_groups: list[torch.Tensor | None] = []
         for g in plan.groups:
-            transport = self._transport(g.dtype, batched=True)
+            transport = self._transport(g.dtype, batched=True, record=record)
             # the packed arenas go straight into the call: a transport
             # may form its results in their storage
             red, ef_red = transport(
@@ -273,6 +287,7 @@ class GradReducer:
         c = self.config
         nd = self.mesh.ndim
         leaves, spec, ef_leaves = self._leaves(grads, state)
+        record = self._first_trace(leaves, ef_leaves)
         out: list[torch.Tensor | None] = [None] * len(leaves)
         new_ef: list[torch.Tensor | None] = [None] * len(leaves)
         for b in bucketing.build_buckets(leaves, c.bucket_bytes, c.stagger,
@@ -282,7 +297,8 @@ class GradReducer:
                        if ef_leaves is not None else None)
             stagger = torch.full((1,), b.stagger if c.stagger else 0,
                                  dtype=torch.int32, device=flat.device)
-            red, ef_out = self._transport(b.dtype, batched=False)(
+            red, ef_out = self._transport(b.dtype, batched=False,
+                                          record=record)(
                 flat, ef_flat, stagger, (b.num_elements,))
             for i, piece in bucketing.unpack_bucket(red.select(nd, 0),
                                                     leaves, b, nd):

@@ -30,6 +30,9 @@ call:
   switch: it attaches its session (admission control;
   ``runtime.AdmissionError`` propagates to the caller) and its planes
   run under the manager's contention-derived arrival permutations.
+  With a ``telemetry`` handle (``obs.Telemetry``) a solo transport
+  records the static counters of its wire image and every plane its
+  phase spans (``_record_solo``, ``dataplane._PlaneObs``).
 
 ``batched=False`` keeps the reference's per-bucket ancestor (its
 ``lax.scan``; the switch's per-packet plane) as the bitwise oracle of the
@@ -76,6 +79,11 @@ class Transport:
     batched: bool = True    # False → the per-bucket ancestor (the oracle)
     #: flat vs hierarchical wire schedule; None → the reduction tree decides
     hierarchical: bool | None = None
+    #: ``obs.Telemetry`` flight recorder, never part of equality.  The
+    #: switch transport records its static counters and phase spans into
+    #: it; the wire transports carry it for callers but add nothing.
+    telemetry: Any = dataclasses.field(default=None, compare=False,
+                                       repr=False)
 
     def _use_hierarchy(self) -> bool:
         """Flat vs hierarchical, with the mesh's reduction tree as arbiter."""
@@ -266,6 +274,11 @@ class SwitchTransport(Transport):
     for the tenant (``None`` alone on an idle switch).  ``None`` is the
     single-job plane.
 
+    ``telemetry`` records, in a solo transport, the static counters of
+    this call's wire image (``_record_solo``; under a manager the
+    session's admission records them), and in every plane the phase
+    spans under ``tenant``.
+
     ``fault_plan`` (``switch.packets.FaultPlan``) replays a deterministic
     lossy fabric: a surviving plan runs in the network, bitwise the
     fault-free run; a plan the retry budget cannot recover is detected
@@ -320,12 +333,52 @@ class SwitchTransport(Transport):
                dtype: torch.dtype, extents: Sequence[int]):
         """Attach what a call on a ``(B, S)`` arena of ``dtype`` attaches,
         without reducing: the tenant's session, unless a doomed fault plan
-        sends the arena to the wire.  Returns the arrival permutations."""
+        sends the arena to the wire.  With telemetry it records what the
+        plane records (``dataplane.record_trace``), as the reference's
+        registration trace does.  Returns the arrival permutations."""
         ks = self._ks(extents)
         if (self.fault_plan is not None and not self._plan_survives(
                 num_buckets, bucket_elems, dtype, ks)):
             return None
-        return self._session_perms(num_buckets, bucket_elems, dtype, ks)
+        perms = self._session_perms(num_buckets, bucket_elems, dtype, ks)
+        dataplane.record_trace(
+            self.mode, self.mesh, self.axes, num_buckets, bucket_elems,
+            dtype, telemetry=self.telemetry, tenant=self.tenant,
+            block=self.block, ks=ks,
+            density_threshold=self.density_threshold,
+            fault_plan=self.fault_plan)
+        return perms
+
+    def _record_solo(self, num_buckets: int, bucket_elems: int,
+                     dtype: torch.dtype, ks) -> None:
+        """Solo (manager-less) flight recording: register the static
+        wire and reliability counters of this call.  Under a manager the
+        session's admission records the same sums once, so the two paths
+        never double-count."""
+        if self.telemetry is None or self.manager is not None:
+            return
+        tenant = self.tenant or "solo"
+        b, s = int(num_buckets), int(bucket_elems)
+        if self.mode == "dense":
+            wire_dtype, elems = dtype, s
+        elif self.mode == "int8":
+            wire_dtype, elems = torch.int8, s + (-s) % self.block
+        else:
+            wire_dtype, elems = torch.int32, 2 * max(ks)
+        sizes = tuple(self.mesh.axis_size(a) for a in self.axes)
+        self.telemetry.record_switch_counters(
+            tenant, dataplane.plan_counters(
+                self.axes, sizes, b, elems, wire_dtype,
+                design=self.design, reproducible=self.reproducible))
+        if self.fault_plan is not None:
+            fanins = [l.fanin for l in dataplane._levels(self.mesh,
+                                                         self.axes)]
+            counts = dataplane.level_packet_counts(
+                fanins, b, s, dtype, mode=self.mode, block=self.block,
+                k_max=max(ks) if ks else None,
+                density_threshold=self.density_threshold)
+            self.telemetry.record_fault_schedules(
+                tenant, dataplane.fault_schedules(self.fault_plan, counts))
 
     def _degrade(self) -> Transport:
         """Retry budget exhausted: drain this session from the shared
@@ -352,9 +405,11 @@ class SwitchTransport(Transport):
         if (self.fault_plan is not None
                 and not self._plan_survives(b, s, buf.dtype, ks)):
             return self._degrade()(buf, ef, staggers, extents)
+        self._record_solo(b, s, buf.dtype, ks)
         perms = self._session_perms(b, s, buf.dtype, ks)
         plane = dict(fault_plan=self.fault_plan, batched=self.batched,
-                     arrival_perms=perms)
+                     arrival_perms=perms, telemetry=self.telemetry,
+                     tenant=self.tenant)
         if self.mode == "dense":
             red = dataplane.switch_allreduce_dense(
                 buf, self.mesh, self.axes, reproducible=self.reproducible,
@@ -389,9 +444,11 @@ class SwitchTransport(Transport):
 
 def _switch_from_config(config, mesh: RankMesh, is_float: bool, *,
                         batched: bool = True, manager=None,
-                        tenant: str | None = None) -> SwitchTransport:
+                        tenant: str | None = None,
+                        telemetry=None) -> SwitchTransport:
     kw = dict(mean=config.mean, batched=batched, manager=manager,
-              tenant=tenant, fault_plan=getattr(config, "fault_plan", None))
+              tenant=tenant, fault_plan=getattr(config, "fault_plan", None),
+              telemetry=telemetry)
     axes = tuple(config.axes)
     if config.sparse_k_frac > 0 and is_float:
         return SwitchTransport(mesh, axes, mode="sparse",
@@ -415,13 +472,16 @@ def from_config(config, mesh: RankMesh, dtype: torch.dtype, *,
     for the emulated switch data plane; a shared ``manager``
     (``runtime.SessionManager``) attaches it as tenant ``tenant`` of the
     multi-tenant switch runtime.  ``batched=False`` gives the per-bucket
-    oracle of the same transport.
+    oracle of the same transport.  The transport carries the config's
+    ``telemetry``.
     """
     axes = tuple(config.axes)
     is_float = dtype.is_floating_point
+    telemetry = getattr(config, "telemetry", None)
     if config.transport == "innetwork":
         return _switch_from_config(config, mesh, is_float, batched=batched,
-                                   manager=manager, tenant=tenant)
+                                   manager=manager, tenant=tenant,
+                                   telemetry=telemetry)
     if manager is not None:
         raise ValueError(
             "a runtime.SessionManager applies to transport='innetwork' "
@@ -430,12 +490,15 @@ def from_config(config, mesh: RankMesh, dtype: torch.dtype, *,
     if config.sparse_k_frac > 0 and is_float:
         return SparseTransport(mesh, axes, mean=config.mean, batched=batched,
                                hierarchical=config.hierarchical,
+                               telemetry=telemetry,
                                k_frac=config.sparse_k_frac,
                                density_threshold=config.density_threshold)
     if config.compression == "int8" and is_float:
         return Int8Transport(mesh, axes, mean=config.mean, batched=batched,
-                             hierarchical=config.hierarchical)
+                             hierarchical=config.hierarchical,
+                             telemetry=telemetry)
     return DenseTransport(mesh, axes, mean=config.mean, batched=batched,
                           hierarchical=config.hierarchical,
+                          telemetry=telemetry,
                           algorithm=config.algorithm,
                           reproducible=config.reproducible)

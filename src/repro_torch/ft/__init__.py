@@ -1,8 +1,8 @@
-"""Fault tolerance: the session-scoped recovery of the multi-tenant switch.
+"""Fault tolerance: sharded checkpoints, failure detection, elastic
+re-mesh, and the switch's and the sessions' failure recovery."""
+from repro_torch.ft.checkpoint import CheckpointManager
+from repro_torch.ft.coordinator import (Coordinator, RemeshPlan,
+                                        recover_switch_failure)
 
-Only ``coordinator.recover_session_failure`` is ported; checkpoints,
-failure detection and elastic re-meshing are ROADMAP queue 1 item 12.
-"""
-from repro_torch.ft.coordinator import recover_session_failure
-
-__all__ = ["recover_session_failure"]
+__all__ = ["CheckpointManager", "Coordinator", "RemeshPlan",
+           "recover_switch_failure"]

@@ -1,6 +1,6 @@
 """Training driver: ``python -m repro_torch.launch.train --arch tinyllama-1.1b``.
 
-The port of the single-job path of ``repro/launch/train.py``: the Flare
+The port of ``repro/launch/train.py``: the Flare
 train step (FSDP gather + ``GradReducer`` + AdamW) over emulated ranks,
 the ``--mesh`` axes laid out as leading tensor axes on one device.  It
 runs on the card (``--device cuda``, the default; it stops when there is
@@ -29,14 +29,31 @@ partition, schedule and prediction report after training;
 ``--congestion-replan HOTNESS`` then injects that load on the first leaf
 switch slot and re-plans the sessions onto the cheapest tree.
 
-Not ported, each stopping with the ROADMAP item that will port it:
-checkpoints (``--ckpt-*``, ``--resume``), telemetry and the health plane
-(``--trace-out``, ``--metrics-out``, ``--health-policy``), and tensor
+``--ckpt-dir D --ckpt-every N`` saves the run's global state
+(``{"p": params, "o": opt}``, ``ft.CheckpointManager``, the reference's
+layout) every N steps; ``--resume`` restores the latest step, on this
+run's ``--mesh`` (an elastic restart onto fewer ranks reshards it), and
+trains from there on a fresh data stream, as the reference does::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 4 \
+        --mesh 2x4x1 --device cpu --ckpt-dir /tmp/ck --ckpt-every 2
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 5 \
+        --mesh 1x4x1 --device cpu --ckpt-dir /tmp/ck --resume
+
+``--trace-out`` / ``--metrics-out`` record the run in one
+``obs.Telemetry`` flight recorder (DESIGN.md §16: step spans, session
+events, the data plane's phases, the modeled scheduler tracks) and write
+the Chrome-trace and metrics JSON; ``python -m repro_torch.obs.report
+METRICS [TRACE]`` summarizes them.
+
+Not ported, each stopping with the ROADMAP item that will port it: the
+health plane (``--health-policy``, ``--incidents-out``) and tensor
 parallelism (a ``model`` axis > 1).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import sys
 import time
@@ -92,27 +109,79 @@ def _parse(argv=None):
                          "through the congestion monitor and re-plan the "
                          "sessions onto the cheapest tree (needs "
                          "--tenants > 1)")
+    ap.add_argument("--ckpt-dir", type=str, default=None,
+                    help="checkpoint directory (single job)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="save the run's state every N steps")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint of --ckpt-dir")
+    ap.add_argument("--trace-out", type=str, default=None, metavar="PATH",
+                    help="export a Chrome-trace/Perfetto JSON timeline of "
+                         "the run (flight recorder, DESIGN.md §16): "
+                         "measured step spans, session lifecycle events, "
+                         "the data plane's phases and the modeled "
+                         "scheduler/perfmodel tracks, with the metric "
+                         "snapshot embedded.  Summarize with "
+                         "`python -m repro_torch.obs.report`")
+    ap.add_argument("--metrics-out", type=str, default=None, metavar="PATH",
+                    help="export the metrics registry (typed counters/"
+                         "gauges, DESIGN.md §16 name schema) as JSON")
     # not ported: each exits naming its ROADMAP item
-    ap.add_argument("--ckpt-dir", type=str, default=None)
-    ap.add_argument("--ckpt-every", type=int, default=0)
-    ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--trace-out", type=str, default=None)
-    ap.add_argument("--metrics-out", type=str, default=None)
     ap.add_argument("--health-policy", type=str, default="off",
                     choices=("off", "observe", "auto"))
+    ap.add_argument("--incidents-out", type=str, default=None,
+                    metavar="PATH")
     return ap.parse_args(argv)
 
 
 def _refuse_unported(args) -> None:
-    if args.ckpt_dir or args.ckpt_every or args.resume:
-        sys.exit("--ckpt-dir/--ckpt-every/--resume: checkpoints are not "
-                 "ported (ROADMAP queue 1 item 12)")
-    if args.trace_out or args.metrics_out or args.health_policy != "off":
-        sys.exit("--trace-out/--metrics-out/--health-policy: telemetry and "
-                 "the health plane are not ported (ROADMAP queue 1 item 13)")
     if args.congestion_replan > 0 and args.tenants <= 1:
         sys.exit("--congestion-replan re-plans the shared switch's "
                  "sessions; it needs --tenants > 1")
+    if args.health_policy == "auto" and args.tenants <= 1:
+        sys.exit("--health-policy auto binds remediations to the shared "
+                 "switch's SessionManager; it needs --tenants > 1 "
+                 "(use --health-policy observe for a single job)")
+    if args.incidents_out and args.health_policy == "off":
+        sys.exit("--incidents-out exports the health plane's log; it "
+                 "needs --health-policy observe|auto")
+    if args.health_policy != "off":
+        sys.exit("--health-policy/--incidents-out: the health plane is not "
+                 "ported (ROADMAP queue 1 item 13)")
+
+
+def _telemetry(args):
+    """``--trace-out``/``--metrics-out`` → one ``obs.Telemetry`` flight
+    recorder threaded through ``FlareConfig`` and the ``SessionManager``
+    (DESIGN.md §16); ``None`` when no artifact is requested: the run is
+    then uninstrumented."""
+    if not (args.trace_out or args.metrics_out):
+        return None
+    from repro_torch.obs import Telemetry
+    return Telemetry.create()
+
+
+def _step_span(telemetry, step: int):
+    """A measured span around one train step (all jobs), or a no-op."""
+    if telemetry is None:
+        return contextlib.nullcontext()
+    return telemetry.tracer.span("train.step", track="steps",
+                                 args={"step": step})
+
+
+def _export(args, telemetry, manager=None) -> None:
+    """Render the modeled timeline tracks and write the artifacts."""
+    if telemetry is None:
+        return
+    if manager is not None:
+        from repro_torch.obs import timeline
+        timeline.manager_tracks(telemetry.tracer, manager)
+    if args.trace_out:
+        telemetry.export_trace(args.trace_out)
+        print(f"trace -> {args.trace_out}", flush=True)
+    if args.metrics_out:
+        telemetry.export_metrics(args.metrics_out)
+        print(f"metrics -> {args.metrics_out}", flush=True)
 
 
 def _fault_plan(args):
@@ -131,7 +200,8 @@ def _fault_plan(args):
 @dataclasses.dataclass
 class Run:
     """Everything one training job holds: its config, mesh, train step,
-    every rank's parameters and optimizer state, and its data stream."""
+    every rank's parameters and optimizer state, its data stream and its
+    flight recorder (``None`` without one)."""
 
     args: argparse.Namespace
     cfg: Any
@@ -140,15 +210,55 @@ class Run:
     params: Any
     opt: Any
     stream: Iterator[dict]
+    telemetry: Any = None
 
-    def train_step(self) -> dict:
-        """One step on the next batch, split over the ranks; returns its
-        metrics."""
+    def next_batch(self) -> dict:
+        """The stream's next batch, split over the ranks."""
         from repro_torch.sharding import rules
-        self.params, self.opt, metrics = self.step(
-            self.params, self.opt, rules.split_batch(next(self.stream),
-                                                     self.mesh))
+        return rules.split_batch(next(self.stream), self.mesh)
+
+    def train_step(self, batch: dict | None = None) -> dict:
+        """One step on ``batch`` (by default the next one); returns its
+        metrics."""
+        if batch is None:
+            batch = self.next_batch()
+        self.params, self.opt, metrics = self.step(self.params, self.opt,
+                                                   batch)
         return metrics
+
+    def state(self) -> dict:
+        """The run's global state, ``{"p": params, "o": opt}``, as the
+        reference's checkpoint holds it: parameters and moments unsharded
+        (``rules.unshard_params``), and the error-feedback residual of
+        rank 0, the one the reference saves."""
+        from repro_torch.sharding import rules
+        dims = self.step.dims
+        first = (0,) * self.step.mesh.ndim
+        opt = {"m": rules.unshard_params(self.opt["m"], self.mesh, dims),
+               "v": rules.unshard_params(self.opt["v"], self.mesh, dims),
+               "step": self.opt["step"]}
+        if "ef" in self.opt:
+            opt["ef"] = [e[first] for e in self.opt["ef"]]
+        return {"p": rules.unshard_params(self.params, self.mesh, dims),
+                "o": opt}
+
+    def load_state(self, state: dict) -> None:
+        """Lay a global state (:meth:`state`, or a restored checkpoint) out
+        on this run's mesh, which may differ from the saving one (elastic
+        restart).  The error-feedback residual goes to every rank, as the
+        reference restores its one saved copy."""
+        import torch
+
+        from repro_torch.sharding import rules
+        shape = self.step.mesh.shape
+        opt = {"m": rules.shard_params(state["o"]["m"], self.mesh),
+               "v": rules.shard_params(state["o"]["v"], self.mesh),
+               "step": state["o"]["step"]}
+        if "ef" in state["o"]:
+            opt["ef"] = [torch.broadcast_to(e, shape + e.shape).contiguous()
+                         for e in state["o"]["ef"]]
+        self.params = rules.shard_params(state["p"], self.mesh)
+        self.opt = opt
 
 
 def _prepare(args, overrides):
@@ -185,7 +295,8 @@ def _prepare(args, overrides):
 
 
 def _job(args, dev, mcfg, cfg, model, tcfg, *, init_seed: int,
-         data_seed: int, manager=None, tenant: str | None = None) -> Run:
+         data_seed: int, manager=None, tenant: str | None = None,
+         telemetry=None) -> Run:
     """One job: its parameters from ``init_seed``, its train step (a
     tenant of ``manager`` when given), optimizer state and data."""
     import torch
@@ -202,7 +313,7 @@ def _job(args, dev, mcfg, cfg, model, tcfg, *, init_seed: int,
     opt = step.init_opt_state(params)
     stream = pipeline.synthetic_batches(cfg, args.batch, args.seq,
                                         seed=data_seed, device=dev)
-    return Run(args, cfg, mcfg, step, params, opt, stream)
+    return Run(args, cfg, mcfg, step, params, opt, stream, telemetry)
 
 
 def setup(argv=None, **overrides) -> Run:
@@ -218,6 +329,7 @@ def setup(argv=None, **overrides) -> Run:
     from repro_torch.train import trainer
 
     dev, mcfg, cfg, model = _prepare(args, overrides)
+    telemetry = _telemetry(args)
     tcfg = trainer.TrainConfig(
         lr=args.lr,
         gather_algorithm=("fixed_tree" if args.reproducible
@@ -227,8 +339,10 @@ def setup(argv=None, **overrides) -> Run:
                           compression=args.compression,
                           sparse_k_frac=args.sparse_k,
                           transport=args.transport,
-                          fault_plan=_fault_plan(args)))
-    return _job(args, dev, mcfg, cfg, model, tcfg, init_seed=0, data_seed=1)
+                          fault_plan=_fault_plan(args),
+                          telemetry=telemetry))
+    return _job(args, dev, mcfg, cfg, model, tcfg, init_seed=0, data_seed=1,
+                telemetry=telemetry)
 
 
 @dataclasses.dataclass
@@ -236,12 +350,14 @@ class Tenants:
     """K training jobs that reduce as tenants of one shared switch.
 
     ``jobs`` holds ``(name, kind, run)`` per job; every job's
-    ``GradReducer`` is a tenant of ``manager``.
+    ``GradReducer`` is a tenant of ``manager``, and all record into
+    ``telemetry`` (``None`` without a flight recorder).
     """
 
     args: argparse.Namespace
     manager: Any
     jobs: list
+    telemetry: Any = None
 
     def train_step(self) -> list[float]:
         """One step of every job, in order; returns their losses."""
@@ -254,7 +370,9 @@ class Tenants:
         from repro_torch.runtime import CongestionMonitor
 
         mgr = self.manager
-        monitor = CongestionMonitor(mgr)
+        tm = self.telemetry
+        monitor = CongestionMonitor(
+            mgr, registry=tm.registry if tm is not None else None)
         monitor.inject((1, 0), self.args.congestion_replan)
         res = mgr.replan(monitor, threshold=0.5, hysteresis=0.05)
         fanins = [sorted((len(mgr.tree.nodes[n].children) for n in lvl),
@@ -287,10 +405,12 @@ def setup_tenants(argv=None, **overrides) -> Tenants:
     dev, mcfg, cfg, model = _prepare(args, overrides)
     reduce_sizes = tuple(s for a, s in zip(mcfg.axes, mcfg.shape)
                          if a in mcfg.reduce_axes)
+    telemetry = _telemetry(args)
     manager = SessionManager(mcfg.reduce_axes, reduce_sizes,
                              policy=args.partition_policy,
                              order=args.schedule_order,
-                             max_sessions=max(8, 2 * args.tenants))
+                             max_sessions=max(8, 2 * args.tenants),
+                             telemetry=telemetry)
     variants = [dict(reproducible=True), dict(compression="int8"),
                 dict(sparse_k_frac=max(args.sparse_k, 0.01))]
     jobs = []
@@ -299,25 +419,29 @@ def setup_tenants(argv=None, **overrides) -> Tenants:
         tcfg = trainer.TrainConfig(
             lr=args.lr, gather_algorithm=args.gather_algorithm,
             flare=FlareConfig(axes=mcfg.reduce_axes, transport="innetwork",
-                              fault_plan=_fault_plan(args), **kw))
+                              fault_plan=_fault_plan(args),
+                              telemetry=telemetry, **kw))
         run = _job(args, dev, mcfg, cfg, model, tcfg, init_seed=k,
-                   data_seed=100 + k, manager=manager, tenant=f"job{k}")
+                   data_seed=100 + k, manager=manager, tenant=f"job{k}",
+                   telemetry=telemetry)
         jobs.append((f"job{k}", sorted(kw)[0], run))
     # registration: every job's sessions, before any job steps
     for _, _, run in jobs:
         run.step.attach(run.params)
-    return Tenants(args, manager, jobs)
+    return Tenants(args, manager, jobs, telemetry)
 
 
-def _run_tenants(argv) -> list[list[float]]:
+def _run_tenants(argv, **overrides) -> list[list[float]]:
     """``--tenants K``: train the jobs, then print the manager's report
-    and, with ``--congestion-replan``, the replan and the new report."""
-    shared = setup_tenants(argv)
+    and, with ``--congestion-replan``, the replan and the new report;
+    write the flight recorder's artifacts last."""
+    shared = setup_tenants(argv, **overrides)
     args = shared.args
     losses = []
     for step in range(args.steps):
         t0 = time.time()
-        row = shared.train_step()
+        with _step_span(shared.telemetry, step):
+            row = shared.train_step()
         losses.append(row)
         line = [f"{name}({kind}) {loss:8.4f}"
                 for (name, kind, _), loss in zip(shared.jobs, row)]
@@ -327,15 +451,20 @@ def _run_tenants(argv) -> list[list[float]]:
     if args.congestion_replan > 0:
         shared.replan()
         print(shared.manager.report(), flush=True)
+    _export(args, shared.telemetry, shared.manager)
     return losses
 
 
-def main(argv=None) -> list:
+def main(argv=None, **overrides) -> list:
     """Run the steps; returns the losses (with ``--tenants > 1`` a row of
-    every job's losses a step)."""
+    every job's losses a step).  With ``--ckpt-dir`` the single job saves
+    every ``--ckpt-every`` steps and, with ``--resume``, starts from the
+    latest checkpoint: its state, on this run's mesh, and batch 0 of the
+    data stream, as the reference's launcher does.  ``overrides`` replace
+    fields of the model config, as in :func:`setup`."""
     if _parse(argv).tenants > 1:
-        return _run_tenants(argv)
-    run = setup(argv)
+        return _run_tenants(argv, **overrides)
+    run = setup(argv, **overrides)
     args, cfg = run.args, run.cfg
     where = args.device
     if args.device == "cuda":
@@ -344,15 +473,30 @@ def main(argv=None) -> list:
     print(f"{cfg.name}: {cfg.n_layers} layers, mesh "
           f"{dict(zip(run.mesh.axes, run.mesh.shape))} on {where}",
           flush=True)
+    start, cm = 0, None
+    if args.ckpt_dir:
+        from repro_torch.ft import CheckpointManager
+        cm = CheckpointManager(args.ckpt_dir)
+        if args.resume and cm.latest_step() is not None:
+            start = cm.latest_step()
+            run.load_state(cm.restore(start, run.state()))
+            print(f"resumed from step {start}", flush=True)
     losses = []
-    for i in range(args.steps):
+    for i in range(start, args.steps):
         t0 = time.time()
-        metrics = run.train_step()
-        loss = float(metrics["loss"])
+        batch = run.next_batch()
+        with _step_span(run.telemetry, i):
+            metrics = run.train_step(batch)
+            loss = float(metrics["loss"])
         losses.append(loss)
         print(f"step {i:5d} loss {loss:8.4f} "
               f"gnorm {float(metrics['grad_norm']):8.3f} "
               f"dt {time.time() - t0:6.3f}s", flush=True)
+        if cm and args.ckpt_every and (i + 1) % args.ckpt_every == 0:
+            cm.save(i + 1, run.state())
+    if cm:
+        cm.wait()
+    _export(args, run.telemetry)
     return losses
 
 

@@ -66,12 +66,14 @@ class CongestionMonitor:
 
     def __init__(self, manager, *, net: ns.FatTree = ns.FatTree(),
                  registry=None):
-        if registry is not None:
-            raise NotImplementedError(
-                "a metrics registry is telemetry, not ported yet: ROADMAP "
-                "queue 1 item 13")
         self.manager = manager
         self.net = net
+        #: optional ``obs.MetricsRegistry``: when set, the measured
+        #: utilization is read from the ``schedule.*`` gauges the
+        #: manager's telemetry publishes on every ``schedule()`` call
+        #: instead of re-simulating the FCFS schedule here (same
+        #: counters, same formula, identical maps).
+        self.registry = registry
         self._injected: dict[Slot, float] = {}
         self._flows: list[ns.BackgroundFlow] = []
         #: peak hotness of each successive ``observe()``; append-only
@@ -98,14 +100,21 @@ class CongestionMonitor:
     # -- observation -------------------------------------------------------
     def _measured_utilization(self, schedule) -> float:
         """Busy core-cycles per makespan cycle per core, from the shared
-        schedule's occupancy/span counters."""
-        if schedule is None:
-            if not self.manager.active():
-                return 0.0
-            schedule = self.manager.schedule()
-        occupancy = sum(c.occupancy_cycles for c in schedule.counters)
-        makespan = max((c.span_cycles for c in schedule.counters),
-                       default=0.0)
+        schedule's occupancy/span counters, or, with a ``registry``
+        attached, from the ``schedule.*`` gauges the manager's telemetry
+        publishes (same counters, so the maps are identical)."""
+        if schedule is None and self.registry is not None \
+                and "schedule.makespan_cycles" in self.registry:
+            occupancy = self.registry.value("schedule.occupancy_cycles", 0.0)
+            makespan = self.registry.value("schedule.makespan_cycles", 0.0)
+        else:
+            if schedule is None:
+                if not self.manager.active():
+                    return 0.0
+                schedule = self.manager.schedule()
+            occupancy = sum(c.occupancy_cycles for c in schedule.counters)
+            makespan = max((c.span_cycles for c in schedule.counters),
+                           default=0.0)
         if makespan <= 0.0:
             return 0.0
         params = self.manager.params
@@ -128,4 +137,7 @@ class CongestionMonitor:
                                  + self._injected.get((lvl, i), 0.0))
         cmap = CongestionMap(hot)
         self.history.append(cmap.peak())
+        telemetry = getattr(self.manager, "telemetry", None)
+        if telemetry is not None:
+            telemetry.record_congestion(cmap)
         return cmap

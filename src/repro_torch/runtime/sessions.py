@@ -7,8 +7,9 @@ the reference names them (``"float32"``, ``"bfloat16"``, ``"int8"``:
 and the seeds of the arrival permutations.  The reference draws a
 tenant's permutations once per trace; the port runs eagerly, so every
 drawn ``(P, n)`` array is cached per seed, level and shape
-(:func:`_perm_draw`).  Telemetry (``telemetry=``) is not ported yet
-(ROADMAP queue 1 item 13).
+(:func:`_perm_draw`).  A ``telemetry`` handle records the session
+lifecycle, the static admission counters and the schedule gauges as the
+reference does.
 
 The paper's network manager (§4) statically partitions switch memory
 across a predefined maximum number of concurrent allreduces and rejects
@@ -200,9 +201,6 @@ class SessionManager:
                  fmt=dataplane.DEFAULT_FORMAT,
                  seed: int = 0,
                  telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "telemetry is not ported yet: ROADMAP queue 1 item 13")
         if policy not in pt.POLICIES:
             raise ValueError(f"unknown partition policy {policy!r}")
         if order not in sc.ORDERS:
@@ -241,6 +239,10 @@ class SessionManager:
         self.replans: list[tuple[bool, str]] = []
         #: total successful admissions (``open``), monotone.
         self.admissions = 0
+        #: ``obs.Telemetry``: session-lifecycle events, static admission
+        #: counters and schedule gauges publish here (DESIGN.md §16).
+        #: ``None`` = uninstrumented.
+        self.telemetry = telemetry
 
     def new_tenant(self) -> str:
         """A fresh unique tenant name (``tenant0``, ``tenant1``, ...)
@@ -370,6 +372,15 @@ class SessionManager:
                        retransmit_packets=retransmits)
         self._sessions[tenant] = sess
         self.admissions += 1
+        if self.telemetry is not None:
+            tm = self.telemetry
+            tm.registry.counter("manager.admissions").inc()
+            tm.registry.gauge(f"session.{tenant}.demand_bytes").set(demand)
+            tm.record_switch_counters(tenant, counters)
+            tm.record_fault_schedules(tenant, schedules)
+            tm.tracer.instant("session.admit", track=f"session/{tenant}",
+                              args={"mode": mode, "demand_bytes": demand,
+                                    "retransmit_packets": retransmits})
         return sess
 
     def attach(self, tenant: str | None, *, mode: str, num_buckets: int,
@@ -411,7 +422,10 @@ class SessionManager:
                          fault_plan=fault_plan)
 
     def close(self, tenant: str) -> None:
-        self._sessions.pop(str(tenant), None)
+        closed = self._sessions.pop(str(tenant), None)
+        if closed is not None and self.telemetry is not None:
+            self.telemetry.tracer.instant("session.close",
+                                          track=f"session/{tenant}")
 
     def evict(self, tenant: str, *, reason: str = "evicted") -> bool:
         """Forcibly drain one session (session-scoped degradation,
@@ -425,6 +439,11 @@ class SessionManager:
             return False
         del self._sessions[tenant]
         self.evictions.append((tenant, reason))
+        if self.telemetry is not None:
+            self.telemetry.registry.counter("manager.evictions").inc()
+            self.telemetry.tracer.instant("session.evict",
+                                          track=f"session/{tenant}",
+                                          args={"reason": reason})
         return True
 
     def drain(self) -> tuple[str, ...]:
@@ -477,6 +496,8 @@ class SessionManager:
         sched = sc.simulate_shared(self._loads(self.partition(queued),
                                                queued, service_scale),
                                    order=self.order, params=self.params)
+        if self.telemetry is not None:
+            self.telemetry.record_shared_schedule(sched, self.params)
         return sched
 
     def predicted(self, *, service_scale: float = 1.0,
@@ -541,6 +562,10 @@ class SessionManager:
         """
         self.tree = tree
         self._epoch += 1
+        if self.telemetry is not None:
+            self.telemetry.registry.counter("manager.rebinds").inc()
+            self.telemetry.tracer.instant("manager.rebind", track="manager",
+                                          args={"epoch": self._epoch})
         old = list(self._sessions.values())
         self._sessions.clear()
         readmitted, evicted = [], []
@@ -621,6 +646,12 @@ class SessionManager:
         res = self._replan(monitor, hotness=hotness, threshold=threshold,
                            hysteresis=hysteresis)
         self.replans.append((res.replanned, res.reason))
+        if self.telemetry is not None:
+            self.telemetry.registry.counter("manager.replans").inc()
+            self.telemetry.tracer.instant(
+                "manager.replan", track="manager",
+                args={"replanned": res.replanned, "reason": res.reason,
+                      "improvement_x": res.improvement_x})
         return res
 
     def _replan(self, monitor=None, *, hotness=None,

@@ -14,9 +14,9 @@ The port of ``repro/sharding/rules.py`` for the FSDP half.  Strategy:
     over ``model``.
 
 There are no ``PartitionSpec``s: on the rank-axis layout a rank-local
-leaf ``x`` is a tensor ``(*mesh, *x.shape)`` (``shard_params``), and a
-batch row block is a rank's (``split_batch``), exactly where a
-``NamedSharding`` would place them.  ``cache_specs`` waits for serving.
+leaf ``x`` is a tensor ``(*mesh, *x.shape)`` (``shard_params``; its
+global view ``unshard_params``), and a batch row block is a rank's
+(``split_batch``), exactly where a ``NamedSharding`` would place them.  ``cache_specs`` waits for serving.
 """
 from __future__ import annotations
 
@@ -231,6 +231,32 @@ def shard_params(params: Any, mesh: MeshCfg) -> Any:
         outer = rmesh.shape[:-1]
         return per_data.expand(*outer, *per_data.shape).contiguous()
     return tree.map_with_path(f, params)
+
+
+def unshard_params(params: Any, mesh: MeshCfg, dims: Any) -> Any:
+    """Every rank's leaves ``(*mesh, *local)`` → the global leaves: the
+    inverse of :func:`shard_params`, and what the reference's
+    ``device_get`` of a sharded array gives.  An FSDP leaf is its data
+    blocks concatenated, those of pod 0; a replicated leaf is rank 0's.
+    Serves the optimizer moments too (they take the parameters' layout).
+
+    ``dims`` is each leaf's FSDP dim, -1 where replicated
+    (:func:`param_specs` of the global tree, ``TrainStep.dims``): a local
+    shape alone does not tell a replicated leaf from the shard of a leaf
+    ``fsdp`` times larger.
+    """
+    first = (0,) * mesh.rank_mesh().ndim
+
+    def f(path, leaf, d):
+        if d < 0:
+            return leaf[first]
+        _, stacked = _leaf_name(path)
+        pod0 = leaf[first[:-1]]                 # (fsdp, *local)
+        return torch.cat(pod0.unbind(0), dim=d + (1 if stacked else 0))
+
+    leaves, spec = tree.flatten(params)
+    return tree.unflatten(spec, [f(p, l, d) for p, l, d in zip(
+        tree.paths(params), leaves, tree.flatten(dims)[0])])
 
 
 def split_batch(batch: Any, mesh: MeshCfg) -> Any:

@@ -39,11 +39,15 @@ round on the packets (``_reliable_ingress``).  ``plan_counters`` and
 ``level_packet_counts`` give the static packet, combine and buffer
 counts that ``perfmodel.switch_model`` consumes, and the multi-tenant
 runtime (``runtime.SessionManager``) its admission demands; its
-contention reaches the planes as ``arrival_perms``.  Telemetry is not
-ported yet (ROADMAP queue 1 item 13).
+contention reaches the planes as ``arrival_perms``.  A ``telemetry``
+handle (``obs.Telemetry``) records each plane's phases as spans on the
+``"trace"`` process, track ``plane/<tenant>``, and the static retry
+rounds of every faulted level as instants (``_PlaneObs``): host-side
+events only, so the bits are the same with or without it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Sequence
@@ -82,6 +86,41 @@ def _levels(mesh: RankMesh,
             axes: Sequence[str]) -> tuple[topology.MeshLevel, ...]:
     sizes = tuple(mesh.axis_size(a) for a in axes)
     return topology.mesh_levels(tuple(axes), sizes)
+
+
+class _PlaneObs:
+    """The phase spans of one plane call (DESIGN.md §16).
+
+    Spans land on the ``"trace"`` process, track ``plane/<tenant>``,
+    where the reference records them while tracing the plane.  They wrap
+    the level's work on the host and add nothing to it, so the result is
+    bitwise the same with or without telemetry.  ``telemetry=None``
+    degrades every phase to a ``nullcontext``.
+    """
+
+    def __init__(self, telemetry, tenant):
+        self._tracer = None if telemetry is None else telemetry.tracer
+        self._track = f"plane/{tenant}" if tenant else "plane/solo"
+
+    def __call__(self, name, **args):
+        if self._tracer is None:
+            return contextlib.nullcontext()
+        return self._tracer.span(name, track=self._track, process="trace",
+                                 args=args or None)
+
+    def instant(self, name, **args):
+        if self._tracer is not None:
+            self._tracer.instant(name, track=self._track, process="trace",
+                                 args=args or None)
+
+    def retries(self, faults):
+        """One instant per faulted level: the static retry rounds the
+        reliability layer will execute (mirrors ``FaultSchedule``)."""
+        for i, f in enumerate(faults):
+            if f is not None:
+                self.instant(f"plane.retry.l{i + 1}", rounds=int(f.rounds),
+                             retransmits=int(f.retransmits),
+                             wait_rounds=float(f.wait_rounds))
 
 
 def _rank_mask(mask: torch.Tensor, mesh: RankMesh,
@@ -525,7 +564,8 @@ def switch_allreduce_dense(arena: torch.Tensor, mesh: RankMesh,
                            fault_plan: pk.FaultPlan | None = None,
                            with_fault_stats: bool = False,
                            batched: bool = True,
-                           mean: bool = False):
+                           mean: bool = False,
+                           telemetry=None, tenant: str | None = None):
     """Allreduce a ``(*mesh, B, S)`` arena through the emulated switch tree.
 
     ``reproducible=True`` installs the ``fixed_tree`` handler: combines
@@ -537,7 +577,8 @@ def switch_allreduce_dense(arena: torch.Tensor, mesh: RankMesh,
     ``fault_plan`` replays a deterministic lossy fabric on every up-hop;
     a surviving plan leaves the result bitwise the fault-free one.
     ``with_fault_stats`` returns ``(out, fstats)``: the retry and
-    rejection counters, ``mesh``-shaped int32.
+    rejection counters, ``mesh``-shaped int32.  ``telemetry`` records
+    the phases under ``tenant`` (``_PlaneObs``).
     """
     b, s = arena.shape[-2:]
     handler = hd.get_handler("fixed_tree" if reproducible else "dense_sum")
@@ -549,23 +590,29 @@ def switch_allreduce_dense(arena: torch.Tensor, mesh: RankMesh,
         return (arena, fstats) if with_fault_stats else arena
     faults = fault_schedules(fault_plan, level_packet_counts(
         [l.fanin for l in levels], b, s, arena.dtype, mode="dense", fmt=fmt))
+    obs = _PlaneObs(telemetry, tenant)
+    obs.retries(faults)
     cur = arena
     if batched:
         plan = pk.FramePlan(b, s, arena.dtype, fmt)
         held = mesh
         for i, lvl in enumerate(levels):
             arrival = arrival_perms[i] if arrival_perms is not None else None
-            cur, held = _dense_level_batched(cur, held, lvl, handler, design,
-                                             n_bufs, plan, arrival,
-                                             faults[i], fstats)
-        cur = _multicast_root(cur, mesh)
+            with obs(f"plane.l{i + 1}", mode="dense", fanin=lvl.fanin):
+                cur, held = _dense_level_batched(cur, held, lvl, handler,
+                                                 design, n_bufs, plan,
+                                                 arrival, faults[i], fstats)
+        with obs("plane.multicast", mode="dense"):
+            cur = _multicast_root(cur, mesh)
     else:
         for i, lvl in enumerate(levels):
             arrival = arrival_perms[i] if arrival_perms is not None else None
-            cur = _dense_level(cur, mesh, lvl, handler, design, n_bufs, fmt,
-                               arrival, faults[i], fstats)
-        for lvl in reversed(levels):
-            cur = _multicast_arena(cur, mesh, lvl, fmt)
+            with obs(f"plane.l{i + 1}", mode="dense", fanin=lvl.fanin):
+                cur = _dense_level(cur, mesh, lvl, handler, design, n_bufs,
+                                   fmt, arrival, faults[i], fstats)
+        with obs("plane.multicast", mode="dense"):
+            for lvl in reversed(levels):
+                cur = _multicast_arena(cur, mesh, lvl, fmt)
     if mean:
         cur = mesh.mean(cur, axes)
     return (cur, fstats) if with_fault_stats else cur
@@ -659,7 +706,8 @@ def switch_allreduce_int8(arena: torch.Tensor, mesh: RankMesh,
                           fault_plan: pk.FaultPlan | None = None,
                           with_fault_stats: bool = False,
                           batched: bool = True,
-                          mean: bool = False):
+                          mean: bool = False,
+                          telemetry=None, tenant: str | None = None):
     """int8-transport allreduce of a ``(*mesh, B, S)`` arena through the
     emulated switch.
 
@@ -670,8 +718,9 @@ def switch_allreduce_int8(arena: torch.Tensor, mesh: RankMesh,
     requantizes once, multicasts, and every rank dequantizes.  The
     batched plane dequantizes the root's one copy and broadcasts it
     (stride 0 over the rank axes), as ``_multicast_root`` does: every
-    rank would dequantize the same bits.  ``fault_plan`` and
-    ``with_fault_stats`` as in ``switch_allreduce_dense``.
+    rank would dequantize the same bits.  ``fault_plan``,
+    ``with_fault_stats``, ``telemetry`` and ``tenant`` as in
+    ``switch_allreduce_dense``.
     """
     b, s0 = arena.shape[-2:]
     handler = hd.get_handler("int8_dequant")
@@ -689,36 +738,43 @@ def switch_allreduce_int8(arena: torch.Tensor, mesh: RankMesh,
     faults = fault_schedules(fault_plan, level_packet_counts(
         [l.fanin for l in levels], b, s0, arena.dtype, mode="int8", fmt=fmt,
         block=block))
+    obs = _PlaneObs(telemetry, tenant)
+    obs.retries(faults)
     acc = acc.float()
     qplan = pk.FramePlan(b, s, torch.int8, fmt)
     splan = pk.FramePlan(b, s // block, torch.float32, sfmt)
     if batched:
         held = mesh
         for i, lvl in enumerate(levels):
-            acc, held = _int8_level_batched(acc, held, lvl, handler, design,
-                                            n_bufs, block, qplan, splan,
-                                            faults[i], fstats)
-        q, scales = compression.quantize_int8(acc, block)
-        del acc
-        out = compression.dequantize_int8(q, scales, block,
-                                          dtype=arena.dtype)[..., :s0]
-        out = out.expand(mesh.shape + tuple(out.shape[mesh.ndim:]))
+            with obs(f"plane.l{i + 1}", mode="int8", fanin=lvl.fanin):
+                acc, held = _int8_level_batched(acc, held, lvl, handler,
+                                                design, n_bufs, block, qplan,
+                                                splan, faults[i], fstats)
+        with obs("plane.multicast", mode="int8"):
+            q, scales = compression.quantize_int8(acc, block)
+            del acc
+            out = compression.dequantize_int8(q, scales, block,
+                                              dtype=arena.dtype)[..., :s0]
+            out = out.expand(mesh.shape + tuple(out.shape[mesh.ndim:]))
     else:
         for i, lvl in enumerate(levels):
             arrival = arrival_perms[i] if arrival_perms is not None else None
-            acc = _int8_level(acc, mesh, lvl, handler, design, n_bufs, block,
-                              fmt, sfmt, arrival, faults[i], fstats)
+            with obs(f"plane.l{i + 1}", mode="int8", fanin=lvl.fanin):
+                acc = _int8_level(acc, mesh, lvl, handler, design, n_bufs,
+                                  block, fmt, sfmt, arrival, faults[i],
+                                  fstats)
         # root multicast: requantize once, stream int8 + scales back down
-        q, scales = compression.quantize_int8(acc, block)
-        streams = [pk.packetize(q, fmt), pk.packetize(scales, sfmt)]
-        for lvl in reversed(levels):
-            streams = [pk.PacketStream(
-                headers=_multicast(st.headers, mesh, lvl.axis,
-                                   lvl.switch_rank),
-                payload=_multicast(st.payload, mesh, lvl.axis,
-                                   lvl.switch_rank)) for st in streams]
-        q = pk.depacketize(streams[0], fmt, b, s)
-        scales = pk.depacketize(streams[1], sfmt, b, s // block)
+        with obs("plane.multicast", mode="int8"):
+            q, scales = compression.quantize_int8(acc, block)
+            streams = [pk.packetize(q, fmt), pk.packetize(scales, sfmt)]
+            for lvl in reversed(levels):
+                streams = [pk.PacketStream(
+                    headers=_multicast(st.headers, mesh, lvl.axis,
+                                       lvl.switch_rank),
+                    payload=_multicast(st.payload, mesh, lvl.axis,
+                                       lvl.switch_rank)) for st in streams]
+            q = pk.depacketize(streams[0], fmt, b, s)
+            scales = pk.depacketize(streams[1], sfmt, b, s // block)
         out = compression.dequantize_int8(q, scales, block,
                                           dtype=arena.dtype)[..., :s0]
     if mean:
@@ -837,7 +893,8 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
                             with_fault_stats: bool = False,
                             batched: bool = True,
                             mean: bool = False,
-                            with_stats: bool = False):
+                            with_stats: bool = False,
+                            telemetry=None, tenant: str | None = None):
     """Top-k sparse allreduce of a ``(*mesh, B, S)`` arena through the
     emulated switch (§7).
 
@@ -863,6 +920,7 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
     over the rank axes.  ``fault_plan`` replays a lossy fabric on every
     up-hop, the list levels' and the densified ones'; ``with_fault_stats``
     appends the fault counters (``mesh``-shaped int32) last.
+    ``telemetry`` and ``tenant`` as in ``switch_allreduce_dense``.
     """
     b, s = arena.shape[-2:]
     handler = hd.get_handler("sparse_merge")
@@ -898,34 +956,38 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
     faults = fault_schedules(fault_plan, level_packet_counts(
         [l.fanin for l in levels], b, s, arena.dtype, mode="sparse", fmt=fmt,
         k_max=k_max, density_threshold=density_threshold))
+    obs = _PlaneObs(telemetry, tenant)
+    obs.retries(faults)
     for i, lvl in enumerate(levels):
-        arrival = arrival_perms[i] if arrival_perms is not None else None
-        if dense is None and sparse.densify_step(cap * lvl.fanin, s,
-                                                 density_threshold):
-            # array storage from here on: this level would overflow the
-            # list capacity (§7 densification toward the root)
-            dense = _densify(idx, val32, s)
-            idx = val32 = None
-        if dense is not None and batched:
-            dense, held = _dense_level_batched(dense, held, lvl, steered,
-                                               "single", 1, dplan, arrival,
-                                               faults[i], fstats)
-        elif dense is not None:
-            dense = _dense_level(dense, mesh, lvl, steered, "single", 1, fmt,
-                                 arrival, faults[i], fstats)
-        elif batched:
-            idx, val32, stat, up = _sparse_level_batched(
-                idx, val32, held, lvl, handler, cap, fmt, faults[i], fstats)
-            collisions += _held_stat(stat, mesh, held, placed, lvl)
-            held = up
-            cap *= lvl.fanin
-        else:
-            idx, val32, counts = _sparse_level(idx, val32, mesh, lvl,
-                                               handler, cap, fmt, arrival,
-                                               faults[i], fstats)
-            collisions += counts
-            cap *= lvl.fanin
-        placed[mesh.dim(lvl.axis)] = lvl.switch_rank
+        with obs(f"plane.l{i + 1}", mode="sparse", fanin=lvl.fanin):
+            arrival = arrival_perms[i] if arrival_perms is not None else None
+            if dense is None and sparse.densify_step(cap * lvl.fanin, s,
+                                                     density_threshold):
+                # array storage from here on: this level would overflow
+                # the list capacity (§7 densification toward the root)
+                dense = _densify(idx, val32, s)
+                idx = val32 = None
+            if dense is not None and batched:
+                dense, held = _dense_level_batched(
+                    dense, held, lvl, steered, "single", 1, dplan, arrival,
+                    faults[i], fstats)
+            elif dense is not None:
+                dense = _dense_level(dense, mesh, lvl, steered, "single", 1,
+                                     fmt, arrival, faults[i], fstats)
+            elif batched:
+                idx, val32, stat, up = _sparse_level_batched(
+                    idx, val32, held, lvl, handler, cap, fmt, faults[i],
+                    fstats)
+                collisions += _held_stat(stat, mesh, held, placed, lvl)
+                held = up
+                cap *= lvl.fanin
+            else:
+                idx, val32, counts = _sparse_level(idx, val32, mesh, lvl,
+                                                   handler, cap, fmt, arrival,
+                                                   faults[i], fstats)
+                collisions += counts
+                cap *= lvl.fanin
+            placed[mesh.dim(lvl.axis)] = lvl.switch_rank
 
     top = levels[-1]
     if dense is None and batched:
@@ -936,12 +998,13 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
                  for t in (idx, val32)]
         dense = _mask_to_switch(_densify(*lists, s), mesh, top)
     del idx, val32
-    if batched:
-        red = dense.contiguous()                # one copy for every rank
-    else:
-        red = dense
-        for lvl in reversed(levels):
-            red = _multicast_arena(red, mesh, lvl, fmt)
+    with obs("plane.multicast", mode="sparse"):
+        if batched:
+            red = dense.contiguous()            # one copy for every rank
+        else:
+            red = dense
+            for lvl in reversed(levels):
+                red = _multicast_arena(red, mesh, lvl, fmt)
     del dense
     if mean:
         red = mesh.mean(red, axes)
@@ -955,6 +1018,38 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
     if with_fault_stats:
         ret.append(fstats)
     return tuple(ret)
+
+
+def record_trace(mode: str, mesh: RankMesh, axes: Sequence[str],
+                 num_buckets: int, bucket_elems: int, dtype: torch.dtype, *,
+                 telemetry, tenant: str | None = None, block: int = 256,
+                 ks: Sequence[int] | None = None,
+                 density_threshold: float = 0.25,
+                 fmt: pk.PacketFormat = DEFAULT_FORMAT,
+                 fault_plan: pk.FaultPlan | None = None) -> None:
+    """Record what one call of the ``mode`` plane on a ``(B, S)`` arena
+    of ``dtype`` records, without reducing: the retry instants and the
+    phase spans, in the plane's order.
+
+    The registration pass of a shared switch's tenants
+    (``SwitchTransport.attach``) records with it what the reference's
+    registration trace records: the reference traces each tenant's plane
+    once to register its session and once more to run it.
+    """
+    levels = _levels(mesh, axes)
+    if telemetry is None or (len(levels) == 1 and levels[0].fanin == 1):
+        return
+    faults = fault_schedules(fault_plan, level_packet_counts(
+        [l.fanin for l in levels], num_buckets, bucket_elems, dtype,
+        mode=mode, fmt=fmt, block=block, k_max=max(ks) if ks else None,
+        density_threshold=density_threshold))
+    obs = _PlaneObs(telemetry, tenant)
+    obs.retries(faults)
+    for i, lvl in enumerate(levels):
+        with obs(f"plane.l{i + 1}", mode=mode, fanin=lvl.fanin):
+            pass
+    with obs("plane.multicast", mode=mode):
+        pass
 
 
 # ---------------------------------------------------------------------------

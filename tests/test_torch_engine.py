@@ -166,8 +166,20 @@ def test_unported_paths_raise_naming_their_roadmap_item():
         **dict(plan, retry=pk.RetryPolicy(*plan["retry"]))), **kw), mesh)(
         params_from_jax(jgrads, "cpu"))
     assert np.array_equal(_bits(got["w"]), _bits(want["w"]))
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        GradReducer(FlareConfig(axes=AXES, telemetry=object()), mesh)
+    # telemetry is ported: a reducer with a flight recorder gives the
+    # bits of the one without, and records the switch's counters once
+    from repro_torch.obs import Telemetry
+    tm = Telemetry.create()
+    wired = GradReducer(FlareConfig(axes=AXES, telemetry=tm, fault_plan=(
+        pk.FaultPlan(**dict(plan, retry=pk.RetryPolicy(*plan["retry"])))),
+        **kw), mesh)
+    counts = []
+    for _ in range(2):
+        again, _ = wired(params_from_jax(jgrads, "cpu"))
+        assert np.array_equal(_bits(again["w"]), _bits(got["w"]))
+        counts.append(tm.metrics_json())
+    assert counts[0] == counts[1]
+    assert tm.registry.value("switch.solo.l1.ingress_packets") > 0
     with pytest.raises(ValueError, match="mesh shape"):
         GradReducer(FlareConfig(axes=AXES), mesh)({"w": torch.zeros(8, 8)})
 

@@ -676,10 +676,24 @@ def test_replan_fixed_point_and_conservation_match_jax(heat, slot_idx,
 
 
 def test_manager_and_monitor_refuse_telemetry_naming_item_13():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        runtime.SessionManager(AXES, (2, 4), telemetry=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        runtime.CongestionMonitor(_mgr(PORT), registry=object())
+    """Telemetry is ported: the manager and the monitor take it, and a
+    run with it gives the reports and maps of the run without (the name
+    stays from when they refused it)."""
+    from repro_torch.obs import Telemetry
+
+    def script(tm):
+        mgr = runtime.SessionManager(AXES, (2, 4), telemetry=tm)
+        _open_two(PORT, mgr)
+        mon = runtime.CongestionMonitor(
+            mgr, registry=None if tm is None else tm.registry)
+        mgr.schedule()
+        mon.inject((1, 0), 0.9)
+        res = mgr.replan(mon, threshold=0.5, hysteresis=0.05)
+        return str(mgr.report()), mon.history, _plain(res), mgr.admissions
+    tm = Telemetry.create()
+    wired = script(tm)
+    assert wired == script(None)
+    assert tm.registry.value("manager.admissions") == wired[-1] > 2
     assert sorted(runtime.__all__) == sorted(jruntime.__all__)
 
 

@@ -22,6 +22,7 @@ heads / 2 kv heads × 64, d_ff 512, vocab 512, 2 layers, fp32), so that
 and the norms are not.
 """
 import functools
+import json
 import math
 import re
 from pathlib import Path
@@ -738,21 +739,54 @@ def test_launcher_runs_on_cpu(capsys):
     assert out.count(" loss ") == 2
 
 
+#: what each flag set now writes (the files under ``tmp_path``); the
+#: cases that still stop name their ROADMAP item or the reference's check
+_WRITES = {"ckpt": ["ck/step_000001/manifest.json",
+                    "ck/step_000002/manifest.json"],
+           "trace": ["t.json"], "metrics": ["m.json"]}
+
+
 @pytest.mark.parametrize("flags,item", [
-    # --tenants is ported (item 11): on the shared switch the telemetry
-    # flags still stop, naming their item
-    pytest.param(["--tenants", "2", "--trace-out", "x"], "item 13",
+    # --tenants is ported (item 11) and so is telemetry (item 13): the
+    # shared switch's run writes its trace
+    pytest.param(["--tenants", "2", "--trace-out", "{tmp}/t.json"], "trace",
                  id="flags0-item 11"),
     # --fault-rate is ported (item 9): without the switch it stops with
     # the reference's message, as the reference's launcher does
     pytest.param(["--fault-rate", "0.01"], "needs --transport innetwork",
                  id="flags1-item 9"),
-    (["--ckpt-dir", "x"], "item 12"), (["--trace-out", "x"], "item 13"),
-    (["--metrics-out", "x"], "item 13"),
-    (["--health-policy", "observe"], "item 13")])
-def test_launcher_unported_flags_name_their_item(flags, item):
-    with pytest.raises(SystemExit, match=item):
-        launch_train.main(["--smoke", "--device", "cpu", *flags])
+    # checkpoints (item 12) and the flight recorder (item 13) are ported
+    pytest.param(["--ckpt-dir", "{tmp}/ck", "--ckpt-every", "1"], "ckpt",
+                 id="flags2-item 12"),
+    pytest.param(["--trace-out", "{tmp}/t.json"], "trace",
+                 id="flags3-item 13"),
+    pytest.param(["--metrics-out", "{tmp}/m.json"], "metrics",
+                 id="flags4-item 13"),
+    # the health plane is not: it stops naming item 13
+    pytest.param(["--health-policy", "observe"], "item 13",
+                 id="flags5-item 13"),
+    pytest.param(["--health-policy", "observe", "--incidents-out", "x"],
+                 "item 13", id="flags6-item 13"),
+    pytest.param(["--incidents-out", "x"], "needs --health-policy",
+                 id="flags7-item 13")])
+def test_launcher_unported_flags_name_their_item(flags, item, tmp_path,
+                                                 capsys):
+    argv = ["--smoke", "--device", "cpu", "--steps", "2",
+            *[f.format(tmp=tmp_path) for f in flags]]
+    if item not in _WRITES:
+        with pytest.raises(SystemExit, match=item):
+            launch_train.main(argv)
+        return
+    losses = launch_train.main(argv)
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    out = capsys.readouterr().out
+    for name in _WRITES[item]:
+        # the wire path records no switch counters: "{}" is a valid export
+        assert isinstance(json.loads((tmp_path / name).read_text()), dict)
+    if item == "ckpt":
+        assert out.count(" loss ") == 2
+    else:
+        assert f"{item} -> {tmp_path}" in out
 
 
 def test_launcher_refuses_tensor_parallelism_and_a_missing_card():
