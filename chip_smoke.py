@@ -213,6 +213,42 @@
    kernel of the three planes launched; a root without a sibling drains
    every session.
 
+17. The fabric health plane (``obs.HealthMonitor``, ``obs.SLOPolicy``) at
+   phase 15's dense shape on ``(2, 4)``: a reproducible canary and a
+   lossy dense tenant (``FABRIC_RATES``, the first plan that survives
+   and makes every fault happen) share one ``SessionManager`` under one
+   ``Telemetry`` with counting clocks; the hot slot ``HEALTH_HOT``;
+   ``watch(3)`` under a drift rule.  The fault storm's evidence equals
+   the static ``FaultSchedule`` sums as integers; the policy's replan
+   equals a twin manager's manual replan and each tenant's next
+   reduction on the card is bitwise the twin's (the canary's also
+   bitwise its first); polls 2 and 3 raise nothing new but the standing
+   storm and dispatch nothing; a ``recover_session`` rule drains the
+   lossy tenant, whose next reduction is bitwise the manually recovered
+   twin's; two watched runs export byte-identical incident JSON; the
+   ``health.incidents.*`` counters and instants agree with the log; the
+   host cost of one poll.  Then the launcher with ``TENANT_FLAGS``,
+   ``--health-policy auto --incidents-out`` at ``HEALTH_LAYERS`` and one
+   step: the log loads in ``python -m repro_torch.obs.report --incidents``
+   and ``--fail-on critical`` exits as the log says.
+18. Serving TinyLlama-1.1B at full width and all 22 layers, bf16, random
+   weights from a seed.  The main path, ``launch.serve`` at the
+   reference's defaults (8 requests, 4 slots, ``max_len`` 64, ``max_new``
+   16), with the flash counter set to 0 just before and read just after:
+   22 launches a decode call, every one on the tensor cores; its tok/s.
+   At scale: ``prefill`` of ``SERVE_B`` prompts of ``SERVE_PROMPT``
+   tokens, the cache grown to ``SERVE_CACHE``, then ``SERVE_STEPS``
+   lockstep greedy decode steps (22 flash launches a step), against the
+   same steps with the plain attention teacher-forced on the kernel's
+   tokens: logits within ``SERVE_LOGIT_TOL`` of max|logit|, greedy
+   tokens equal except where the plain run's top two logits lie within
+   that tolerance (counted).  The median prefill and decode step times,
+   the peak; the decode launch (q ``(16, 1, 32, 64)`` over a layer's
+   ``(16, 2048, 4, 64)`` cache at ``kv_len`` 1088) against its plain
+   version, its byte bound and ``scaled_dot_product_attention`` with a
+   boolean mask; a profile of one decode step (device time against wall
+   time).
+
 Prints the card's name and power limit (``nvidia-smi``), one JSON line
 of kernel figures, and as its last line ``{"ok": true, "device": ...}``.
 Exits non-zero without a result when no GPU is present or any check
@@ -333,6 +369,17 @@ OBS_STEPS = 3
 SHARED_TENANTS = (("dense", (16, 1 << 16), {"reproducible": True}),
                   ("int8", (6, 1 << 20), {"compression": "int8"}),
                   ("sparse", (64, 1 << 20), {"sparse_k_frac": 0.01}))
+#: phase 17: the hot slot the health plane's drift detector must see
+HEALTH_HOT = ((1, 0), 0.9)
+#: phase 17: the launcher's health pass at this depth, one step (a check
+#: of the launcher's path, not a figure)
+HEALTH_LAYERS = 2
+#: phase 18: the at-scale serving run: prompts, prompt length, the cache
+#: grown to this many positions, lockstep decode steps
+SERVE_B, SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 16, 1024, 2048, 64
+#: phase 18: logits of the kernel's steps within this share of max|logit|
+#: of the same steps with the plain attention (bf16 through 22 layers)
+SERVE_LOGIT_TOL = 3e-2
 #: TinyLlama depth, cut from the published 22: the int8 reduction's peak
 #: is about four times the 8 ranks' fp32 gradient bytes (the caller's
 #: gradients and state, the two packed arenas), and 22 layers of fp32
@@ -2752,6 +2799,409 @@ def phase_ft_obs(torch, card, total_mem, seed) -> dict:
     return launched
 
 
+def phase_health(torch, card, total_mem, seed) -> dict:
+    """Phase 17: the fabric health plane (module docstring, item 17).
+    Returns the kernels' launches of its reductions."""
+    import os
+    import tempfile
+
+    from repro_torch.core import transports
+    from repro_torch.core.engine import FlareConfig
+    from repro_torch.ft import coordinator
+    from repro_torch.kernels import tree_reduce as tr
+    from repro_torch.launch import train as launch
+    from repro_torch.mesh import AXES, TWO_LEVEL, RankMesh
+    from repro_torch.obs import (HealthMonitor, SLOPolicy, SLORule,
+                                 Telemetry, counting_clock, timeline)
+    from repro_torch.runtime import CongestionMonitor, SessionManager
+    from repro_torch.switch import dataplane
+    from repro_torch.switch import packets as pk
+
+    import io
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mesh = RankMesh(TWO_LEVEL, AXES)
+    _, (b, s), _ = SHARED_TENANTS[0]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    xs = torch.randn((*TWO_LEVEL, b, s), generator=gen, device="cuda") * 100
+    zeros = torch.zeros(b, dtype=torch.int32, device="cuda")
+    counts = dataplane.level_packet_counts([TWO_LEVEL[1], TWO_LEVEL[0]], b,
+                                           s, torch.float32)
+    plan = find_plan(dataplane, pk, counts, **FABRIC_RATES)
+    scheds = [x for x in dataplane.fault_schedules(plan, counts)
+              if x is not None]
+    drift = (SLORule("congestion_drift", "warning", "replan"),)
+    storm = (SLORule("fault_storm", "warning", "recover_session"),)
+
+    def reduce_tenants(mgr, tm):
+        outs = {}
+        for tenant, kw in (("canary", dict(reproducible=True)),
+                           ("lossy", dict(fault_plan=plan))):
+            t = transports.from_config(
+                FlareConfig(axes=AXES, transport="innetwork", telemetry=tm,
+                            **kw), mesh, torch.float32, manager=mgr,
+                tenant=tenant)
+            outs[tenant], _ = t(xs.clone(), None, zeros, (s,) * b)
+        return outs
+
+    def one_run(rules):
+        tm = Telemetry.create(clock=counting_clock())
+        mgr = SessionManager(AXES, TWO_LEVEL, seed=7, telemetry=tm)
+        outs = reduce_tenants(mgr, tm)
+        mgr.schedule()
+        timeline.manager_tracks(tm.tracer, mgr)
+        mon = CongestionMonitor(mgr, registry=tm.registry)
+        mon.inject(*HEALTH_HOT)
+        hm = HealthMonitor(tm, manager=mgr, monitor=mon,
+                           clock=counting_clock())
+        pol = SLOPolicy(mgr, monitor=mon, rules=rules) if rules else None
+        polls = [hm.watch(1, policy=pol) for _ in range(3)]
+        return dict(tm=tm, mgr=mgr, mon=mon, hm=hm, outs=outs, polls=polls)
+
+    tr.launches = 0
+    pol = one_run(drift)
+    torch.cuda.synchronize()
+    launched = {"tree_reduce_slots": tr.launches}
+    check(tr.launches > 0, "the health phase's reductions launched no "
+          "tree_reduce_slots")
+    (raised1, taken1), *later = pol["polls"]
+    storms = [i for i in raised1 if i.detector == "fault_storm"]
+    check(len(storms) == 1 and storms[0].tenant == "lossy",
+          f"poll 1 raised {[(i.detector, i.tenant) for i in raised1]}")
+    ev = dict(storms[0].evidence)
+    sums = {"retransmits": sum(x.retransmits for x in scheds),
+            "retry_rounds": sum(max(0, x.rounds - 1) for x in scheds),
+            "duplicates": sum(x.duplicates for x in scheds),
+            "corrupt_rejected": sum(x.corrupt_rejected for x in scheds)}
+    for k, v in sums.items():
+        got = ev[f"tenant.lossy.{k}"]
+        check(got == v and int(got) == v, f"fault_storm evidence {k} {got} "
+              f"!= the static schedules' {v}")
+    drifts = [i for i in raised1 if i.detector == "congestion_drift"]
+    check(len(drifts) == 1 and [r.action for r in taken1] == ["replan"]
+          and taken1[0].applied, f"poll 1: drift {drifts}, taken {taken1}")
+    for raised, taken in later:
+        check([i.detector for i in raised] == ["fault_storm"] and taken == (),
+              f"a later poll raised {[i.detector for i in raised]} and took "
+              f"{taken}")
+    # the manual twin: the same run without a policy, then the manual call
+    man = one_run(None)
+    res_man = man["mgr"].replan(man["mon"], threshold=0.5, hysteresis=0.05)
+    res_pol = taken1[0].result
+    check((res_pol.replanned, res_pol.reason, res_pol.improvement_x)
+          == (res_man.replanned, res_man.reason, res_man.improvement_x)
+          and pol["mgr"].tree.nodes == man["mgr"].tree.nodes
+          and pol["mgr"]._epoch == man["mgr"]._epoch
+          and [x.tenant for x in pol["mgr"].active()]
+          == [x.tenant for x in man["mgr"].active()],
+          f"the policy's replan {res_pol} != the manual {res_man}")
+    after_pol = reduce_tenants(pol["mgr"], pol["tm"])
+    after_man = reduce_tenants(man["mgr"], man["tm"])
+    for t in after_pol:
+        check(same_bits(pol["outs"][t], man["outs"][t]),
+              f"{t}: the two runs' first reductions differ")
+        check(same_bits(after_pol[t], after_man[t]),
+              f"{t}: the policy's and the manual replan's next reductions "
+              "differ")
+    check(same_bits(after_pol["canary"], pol["outs"]["canary"]),
+          "the canary's bits changed across the replan")
+    # determinism and the mirrors
+    again = one_run(drift)
+    check(again["hm"].incidents_json() == pol["hm"].incidents_json(),
+          "two watched runs export different incident logs")
+    reg = pol["tm"].registry
+    by_sev = {}
+    for i in pol["hm"].incidents:
+        by_sev[i.severity] = by_sev.get(i.severity, 0) + 1
+    instants = [e for e in pol["tm"].tracer.events
+                if e["name"] == "health.incident"]
+    check(all(reg.value(f"health.incidents.{k}") == v
+              for k, v in by_sev.items())
+          and len(instants) == len(pol["hm"].incidents)
+          and all(e["track"] == "health" for e in instants),
+          "the incident mirrors disagree with the log")
+    # recover_session: the lossy tenant drains, as the manual recovery does
+    rec = one_run(storm)
+    rec_man = one_run(None)
+    check(coordinator.recover_session_failure(rec_man["mgr"], "lossy"),
+          "the manual recovery drained nothing")
+    (_, rtaken), *_ = rec["polls"]
+    check([(r.action, r.applied) for r in rtaken] == [
+        ("recover_session", True)], f"recover_session took {rtaken}")
+    check([x.tenant for x in rec["mgr"].active()] == ["canary"]
+          == [x.tenant for x in rec_man["mgr"].active()],
+          "recover_session left other sessions than the manual recovery")
+    a_rec = reduce_tenants(rec["mgr"], rec["tm"])
+    a_man = reduce_tenants(rec_man["mgr"], rec_man["tm"])
+    for t in a_rec:
+        check(same_bits(a_rec[t], a_man[t]), f"{t}: after recover_session "
+              "the reduction differs from the manually recovered twin's")
+    torch.cuda.synchronize()
+    launched["tree_reduce_slots"] = tr.launches
+    # the host cost of one poll (a live monitor observes first)
+    hm = HealthMonitor(pol["tm"], manager=pol["mgr"], monitor=pol["mon"],
+                       clock=counting_clock())
+    n = 50
+    t0 = time.perf_counter()
+    for _ in range(n):
+        hm.poll()
+    poll_us = (time.perf_counter() - t0) / n * 1e6
+    print(f"health plane at ({b}, {s}) on (2, 4): plan seed {plan.seed} "
+          f"({FABRIC_RATES}); poll 1 raised "
+          f"{[(i.detector, i.severity, i.tenant) for i in raised1]}, "
+          f"evidence {sums} == the static schedules' sums; the policy's "
+          f"replan (replanned={res_pol.replanned}, reason "
+          f"{res_pol.reason!r}, improvement {res_pol.improvement_x:.3f}) "
+          f"== the manual twin's, each tenant's next reduction bitwise the "
+          f"twin's, the canary's bitwise its first; polls 2-3 quiet; "
+          f"recover_session drains the lossy tenant bitwise as the manual "
+          f"recovery; two runs' incident logs byte-identical "
+          f"({len(pol['hm'].incidents_json())} B); mirrors agree; one poll "
+          f"{poll_us:.1f} us on the host (mean of {n}, {card})")
+    del xs, pol, man, again, rec, rec_man, after_pol, after_man, a_rec, a_man
+    torch.cuda.empty_cache()
+
+    # the launcher's health pass, before its artifacts
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_health_")
+    try:
+        path = os.path.join(tmp, "incidents.json")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            losses = launch.main([*TENANT_FLAGS, "--steps", "1",
+                                  "--health-policy", "auto",
+                                  "--incidents-out", path],
+                                 n_layers=HEALTH_LAYERS)
+        out = buf.getvalue()
+        check(all(math.isfinite(x) for row in losses for x in row),
+              f"launcher losses {losses}")
+        check("== health ==" in out and f"incidents -> {path}" in out,
+              "the launcher printed no health pass")
+        log = json.loads(open(path).read())
+        worst = max((["info", "warning", "critical"].index(r["severity"])
+                     for r in log), default=-1)
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        rep = subprocess.run([sys.executable, "-m", "repro_torch.obs.report",
+                              "--incidents", path, "--fail-on", "critical"],
+                             capture_output=True, text=True, env=env,
+                             timeout=120)
+        check("== incidents ==" in rep.stdout,
+              f"the report CLI did not render the log: {rep.stderr[-300:]}")
+        check(rep.returncode == (1 if worst >= 2 else 0),
+              f"--fail-on critical exited {rep.returncode} for a log whose "
+              f"worst severity is {worst}")
+        health_out = out[out.index("== health =="):].strip()
+        print(f"launcher ({' '.join(TENANT_FLAGS)} --steps 1 --health-policy "
+              f"auto, {HEALTH_LAYERS} layers): {len(log)} incidents; the "
+              f"report CLI exits {rep.returncode} under --fail-on critical; "
+              f"its health pass:\n{health_out}")
+    finally:
+        for name in os.listdir(tmp):
+            os.remove(os.path.join(tmp, name))
+        os.rmdir(tmp)
+    torch.cuda.empty_cache()
+    print(f"phase 17 launches {launched}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return launched
+
+
+def phase_serve(torch, card, total_mem, seed) -> None:
+    """Phase 18: serving TinyLlama-1.1B (module docstring, item 18)."""
+    import io
+
+    import torch.nn.functional as F
+
+    from repro_torch import tree
+    from repro_torch.configs import tinyllama_1_1b as tl
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = tl.CONFIG
+    layers = cfg.n_layers
+
+    # -- (a) the main path: launch.serve at the reference's defaults --------
+    calls = []
+    real_decode = transformer.decode_step
+
+    def counting_decode(*a, **k):
+        calls.append(1)
+        return real_decode(*a, **k)
+    buf = io.StringIO()
+    fa.launches = fa.tc_launches = 0
+    with mock.patch.object(transformer, "decode_step", counting_decode), \
+            contextlib.redirect_stdout(buf):
+        reqs = launch_serve.main(["--seed", str(seed)])
+    torch.cuda.synchronize()
+    served = (fa.launches, fa.tc_launches)
+    out = buf.getvalue()
+    print(out, end="")
+    check(served[0] == served[1] == layers * len(calls) and calls,
+          f"launch.serve: flash launches {served} for {len(calls)} decode "
+          f"calls of {layers} layers")
+    check(len(reqs) == 8 and all(r.done and len(r.out) == 16 for r in reqs),
+          "launch.serve did not finish its 8 requests of 16 tokens")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+          "a served token is out of the vocabulary")
+    print(f"launch.serve (TinyLlama-1.1B, {layers} layers, bf16, {card}): "
+          f"{len(calls)} decode calls, flash launches {served[0]} "
+          f"({served[1]} tensor-core) = {layers} a call")
+    del reqs
+    torch.cuda.empty_cache()
+
+    # -- (b) at scale: prefill, a grown cache, lockstep decode --------------
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    params = tree.map_leaves(lambda t: t.to(cfg.dtype), model.init(gen))
+    torch.cuda.empty_cache()
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_PROMPT),
+                            generator=gen, device="cuda")
+
+    def grow(cache):
+        pad = SERVE_CACHE - SERVE_PROMPT
+        cache["layers"] = {k: torch.cat([v, v.new_zeros(
+            v.shape[:2] + (pad,) + v.shape[3:])], 2)
+            for k, v in cache["layers"].items()}
+        return cache
+
+    def plain_attention(q, k, v, *, causal=True, scale=None, attn_cap=0.0,
+                        window=0, q_offset=0, kv_len=None):
+        return ref.flash_attention_bshd(
+            q, k, v, causal=causal, scale=scale, attn_cap=attn_cap,
+            window=window, q_offset=q_offset, kv_len=kv_len)[0]
+
+    def run(feed=None):
+        """Prefill and SERVE_STEPS greedy steps; ``feed`` teacher-forces
+        the tokens.  Returns the step logits, tokens and times."""
+        logits_all, toks, step_ms, launches = [], [], [], []
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, {"tokens": prompts})
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            cache = grow(cache)
+            for i in range(SERVE_STEPS):
+                logits_all.append(logits[:, -1].float())
+                tok = logits[:, -1].argmax(-1) if feed is None else feed[i]
+                toks.append(tok)
+                before = fa.launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = model.decode(params, tok[:, None], cache)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                launches.append(fa.launches - before)
+        return dict(logits=logits_all, toks=toks, prefill_ms=prefill_ms,
+                    step_ms=step_ms, launches=launches, pos=cache["pos"],
+                    cache=cache)
+
+    fa.launches = fa.tc_launches = 0
+    kern = run()
+    kern_launches = fa.launches
+    check(all(n == layers for n in kern["launches"]),
+          f"decode steps launched flash {kern['launches']} times")
+    check(kern_launches == layers * (SERVE_STEPS + 1) == fa.tc_launches,
+          f"flash launches {kern_launches} ({fa.tc_launches} tensor-core)")
+    check(kern["pos"] == SERVE_PROMPT + SERVE_STEPS, f"pos {kern['pos']}")
+    prefills = [kern["prefill_ms"]]
+    for _ in range(2):
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, c = model.prefill(params, {"tokens": prompts})
+            torch.cuda.synchronize()
+            prefills.append((time.perf_counter() - t0) * 1e3)
+        del c
+    peak = torch.cuda.max_memory_allocated()
+    # where a decode step's time goes: device time against wall time
+    cache, tok = kern.pop("cache"), kern["toks"][-1][:, None]
+
+    def one_step():
+        with torch.inference_mode():
+            model.decode(params, tok, cache)     # rewrites one position
+    phase_profile(torch, one_step, card,
+                  f"one decode step ({SERVE_B} slots, {layers} layers, "
+                  f"kv_len {SERVE_PROMPT + SERVE_STEPS + 1})")
+    del cache
+    fa.launches = 0
+    with mock.patch.object(ops, "attention", plain_attention):
+        plain = run(feed=kern["toks"])
+    check(fa.launches == 0, "the plain run launched the kernel")
+    worst, near, mism = 0.0, 0, 0
+    for lk, lp in zip(kern["logits"], plain["logits"]):
+        scale = float(lp.abs().max())
+        worst = max(worst, float((lk - lp).abs().max()) / scale)
+        top2 = lp.topk(2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= SERVE_LOGIT_TOL * scale
+        differ = lk.argmax(-1) != lp.argmax(-1)
+        near += int(tie.sum())
+        mism += int((differ & ~tie).sum())
+        check(float((lk - lp).abs().max()) <= SERVE_LOGIT_TOL * scale,
+              f"decode logits {float((lk - lp).abs().max())} from the plain "
+              f"run's, beyond {SERVE_LOGIT_TOL} of {scale}")
+    check(mism == 0, f"{mism} greedy tokens differ outside a near tie")
+    ptoks = sum(int((lk.argmax(-1) != lp.argmax(-1)).sum())
+                for lk, lp in zip(kern["logits"], plain["logits"]))
+    dec_ms = statistics.median(kern["step_ms"])
+    pre_ms = statistics.median(prefills)
+    print(f"serving at scale ({SERVE_B} prompts of {SERVE_PROMPT}, cache "
+          f"{SERVE_CACHE}, {SERVE_STEPS} lockstep steps, {layers} layers "
+          f"bf16): prefill ms (median of 3, {card}) {pre_ms:.1f} (runs "
+          f"{[round(x, 1) for x in prefills]}); decode step ms (median of "
+          f"{SERVE_STEPS}) {dec_ms:.2f} (first {kern['step_ms'][0]:.2f}, "
+          f"last {kern['step_ms'][-1]:.2f}); {SERVE_B * 1e3 / dec_ms:.1f} "
+          f"tok/s decoding; flash launches {kern_launches} ({layers} a "
+          f"step); peak {peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}; "
+          f"against the plain attention teacher-forced: logits within "
+          f"{worst:.3e} of max|logit| (tolerance {SERVE_LOGIT_TOL}), "
+          f"greedy tokens differing {ptoks} of {SERVE_B * SERVE_STEPS}, "
+          f"{near} plain-run near ties within the tolerance")
+    del kern, plain, params, prompts
+    torch.cuda.empty_cache()
+
+    # -- the decode launch at the path's shape --------------------------------
+    b, h, kv, hd = SERVE_B, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    pos = SERVE_PROMPT + SERVE_STEPS - 1        # the last step's position
+    q = torch.randn((b, 1, h, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, SERVE_CACHE, kv, hd), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    kw = dict(causal=True, scale=torch.tensor(
+        hd ** -0.5, dtype=torch.bfloat16).item(), attn_cap=0.0, window=0,
+        q_offset=pos, kv_len=pos + 1)
+    got, _ = fa.attention_fwd(q, k, v, **kw)
+    want, _ = ref.flash_attention_bshd(q, k, v, **kw)
+    err = flash_err(torch, got, want, v)
+    k_ms = cuda_ms(lambda: fa.attention_fwd(q, k, v, **kw), 50)
+    p_ms = cuda_ms(lambda: ref.flash_attention_bshd(q, k, v, **kw), 5)
+    mask = (torch.arange(SERVE_CACHE, device="cuda") <= pos)[None, None, None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, scale=kw["scale"], enable_gqa=True), 50)
+    nbytes = fa.bytes_moved(q, k, v, kv_len=pos + 1)
+    flops = fa.flops(b, h, 1, SERVE_CACHE, hd, causal=True, q_offset=pos,
+                     kv_len=pos + 1)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+    print(f"flash_attention decode q ({b}, 1, {h}, {hd}) over a ({b}, "
+          f"{SERVE_CACHE}, {kv}, {hd}) bf16 cache at kv_len {pos + 1}: "
+          f"{k_ms:.4f} ms; bound {bound:.4f} ms by bytes ({nbytes} bytes; "
+          f"{flops} flops) ({bound / k_ms:.1%} of the bound); plain "
+          f"{p_ms:.3f} ms; library scaled_dot_product_attention with a "
+          f"boolean mask {l_ms:.4f} ms; max |kernel - plain| {err:.3e}  "
+          f"[{card}]")
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    print(f"phase 18: phase {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def flash_figures(torch, fa, ref, card, err) -> dict:
     """The flash kernel at the training path's shape: its time by CUDA
     events, its bound, the plain version's time and SDPA's."""
@@ -3489,6 +3939,9 @@ def main() -> int:
     phase_shared_switch(torch, card, total_mem, cfg, args.seed)
     # -- checkpoints, recovery and the flight recorder -----------------------
     phase_ft_obs(torch, card, total_mem, args.seed)
+    # -- the health plane, and serving ---------------------------------------
+    phase_health(torch, card, total_mem, args.seed)
+    phase_serve(torch, card, total_mem, args.seed)
     launches["flash_attention"] = trained["launches"]
     figures["flash_attention"] = flash_figures(torch, fa, ref, card,
                                                flash_path_err)

@@ -20,12 +20,31 @@
 // head h / (H / KV), so a GQA caller passes K and V once, not broadcast.
 // No length has to be a multiple of a tile.
 //
+// Query row i sits at the absolute position q_offset + i, and keys at
+// j >= kv_len are hidden: key j is visible to row i iff j < kv_len and,
+// when causal, j <= q_offset + i and, when window > 0, j > q_offset + i −
+// window.  That is the reference's masked decode attention (repro/models/
+// base.py::attend with q_pos = pos + arange(Sq) and kv_len = pos + Sq);
+// q_offset = 0 and kv_len = Sk are the whole-sequence attention.  Keys at
+// or past kv_len are never loaded into the sums (the key loop stops at
+// min(Sk, kv_len, q_offset + the block's last row + 1)), so a decode step
+// over a long cache reads only its filled part.  This is exact whenever
+// every row sees a key (the wrapper checks it for the masked launches):
+// a hidden key's exp(−1e30 − m) is 0.
+//
 // What bounds it: operations.  A causal launch at the training path's
 // shape (B·H = 8·32, S = 4096, hd = vd = 64, bf16) does 2·hd·S²/2
 // multiply-adds twice (scores, then P·V) per head: 550 GFLOP, 0.56 ms at
 // the tensor cores' 989 TFLOP/s; its bytes (q and the 4 KV heads' k, v
 // read once, o and the log-sum-exp written once, 306 MB) take 0.09 ms at
-// 3.35 TB/s.
+// 3.35 TB/s.  A decode launch is bound by bytes instead: one query row a
+// (batch, head) over the cache's first kv_len keys does 4·hd operations a
+// key, and the cache gives 4·hd bytes a key and KV head in bf16 (its K
+// and V rows): at B = 16, kv_len 1088, 32 heads over 4 KV heads of 64,
+// 17.8 MB (5.3 µs) against 0.14 GFLOP (0.14 µs).  This
+// kernel spends a whole block of 128 query rows on it, 127 of them
+// padding, and each of a KV group's 8 query heads reads the group's K
+// and V again (from L2): simple and right, not shaped for decode.
 //
 // Two kernels, picked by dtype alone:
 //
@@ -96,6 +115,8 @@ struct Args {
   long long qs[3], ks[3], vs[3], os[3];
   float scale, cap;
   int causal, window;
+  int q_off;  // absolute position of query row 0
+  int klim;   // keys below min(Sk, kv_len) exist; the rest are hidden
 };
 
 template <typename T, int HD>
@@ -124,12 +145,13 @@ __global__ void __launch_bounds__(QT) flash_fwd_kernel(Args a) {
   float m = -INFINITY, l = 0.f;
 
   // the key range any row of this block can see
-  const int qlast = min(q0 + QT, a.Sq) - 1;
-  int kbeg = 0, kend = a.Sk;
+  const int qlast = a.q_off + min(q0 + QT, a.Sq) - 1;
+  int kbeg = 0, kend = a.klim;
   if (a.causal) {
-    kend = min(a.Sk, qlast + 1);
-    if (a.window > 0 && qlast < a.Sk) kbeg = max(0, q0 - a.window + 1) / KT * KT;
+    kend = min(a.klim, qlast + 1);
+    if (a.window > 0 && qlast < a.klim) kbeg = max(0, a.q_off + q0 - a.window + 1) / KT * KT;
   }
+  const int pos = a.q_off + row;  // the row's absolute position
 
   const T* kb = static_cast<const T*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
   const T* vb = static_cast<const T*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
@@ -170,7 +192,7 @@ __global__ void __launch_bounds__(QT) flash_fwd_kernel(Args a) {
         if (a.cap > 0.f) x = tanhf(x / a.cap) * a.cap;
         if (j0 + jj >= nk) {
           x = -INFINITY;   // past the block's key range: no such key
-        } else if (a.causal && (key > row || (a.window > 0 && key <= row - a.window))) {
+        } else if (a.causal && (key > pos || (a.window > 0 && key <= pos - a.window))) {
           x = -1e30f;
         }
         s[jj] = x;
@@ -266,6 +288,8 @@ struct Args {
   long long os[3];  // element strides (batch, seq, head) of o
   float scale, cap;
   int causal, window;
+  int q_off;  // absolute position of query row 0
+  int klim;   // keys below min(Sk, kv_len) exist; the rest are hidden
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -445,8 +469,8 @@ struct Frag {
 
 // One score tile, in log2 units: s = acc · scale · log2 e (capped first
 // when cap > 0), masked to −1e30 · log2 e where the causal mask or the
-// window hides a key and to −inf past Sk — only on a tile that some row
-// of the warpgroup sees in part.  Then the online softmax on the
+// window hides a key and to −inf past min(Sk, kv_len) — only on a tile
+// that some row of the warpgroup sees in part.  Then the online softmax on the
 // thread's two rows: s becomes exp2(s − m), l gathers it, and al0, al1
 // are the factors the output rows are rescaled by.
 template <int KT>
@@ -461,15 +485,16 @@ __device__ __forceinline__ void softmax_tile(float (&s)[KT / 2], const Args& a, 
 #pragma unroll
     for (int i = 0; i < KT / 2; ++i) s[i] *= c;
   }
-  const bool whole = t0 + KT <= a.Sk &&
-                     (!a.causal || (t0 + KT - 1 <= f.r_lo &&
-                                    (a.window == 0 || t0 > f.r_lo + 63 - a.window)));
+  const int lo = a.q_off + f.r_lo;  // the warpgroup's first absolute position
+  const bool whole = t0 + KT <= a.klim &&
+                     (!a.causal || (t0 + KT - 1 <= lo &&
+                                    (a.window == 0 || t0 > lo + 63 - a.window)));
   if (!whole) {
 #pragma unroll
     for (int i = 0; i < KT / 2; ++i) {
       const int key = t0 + 8 * (i / 4) + f.col + (i & 1);
-      const int row = (i & 2) ? f.row1 : f.row0;
-      if (key >= a.Sk) {
+      const int row = a.q_off + ((i & 2) ? f.row1 : f.row0);
+      if (key >= a.klim) {
         s[i] = -INFINITY;  // no such key
       } else if (a.causal && (key > row || (a.window > 0 && key <= row - a.window))) {
         s[i] = -1e30f * LOG2E;
@@ -530,11 +555,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int kvh = h / (a.H / a.KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * QT;  // late tiles first
   // the key range any row of this block can see
-  const int qlast = min(q0 + QT, a.Sq) - 1;
-  int kbeg = 0, kend = a.Sk;
+  const int qlast = a.q_off + min(q0 + QT, a.Sq) - 1;
+  int kbeg = 0, kend = a.klim;
   if (a.causal) {
-    kend = min(a.Sk, qlast + 1);
-    if (a.window > 0 && qlast < a.Sk) kbeg = max(0, q0 - a.window + 1) / KT * KT;
+    kend = min(a.klim, qlast + 1);
+    if (a.window > 0 && qlast < a.klim) kbeg = max(0, a.q_off + q0 - a.window + 1) / KT * KT;
   }
   const int ntiles = (kend - kbeg + KT - 1) / KT;
 
@@ -791,15 +816,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, const Args& a, i
 // kernel); lse (B, H, Sq) fp32, contiguous.  strides holds the (batch,
 // seq, head) element strides of q, k, v and o in that order; the bf16
 // kernel reads q, k and v by TMA, so their bases are 16-byte aligned and
-// their strides multiples of 8 elements.  Returns the launch's
-// cudaError_t (0 on success); launches nothing and returns
-// cudaErrorInvalidValue for arguments neither kernel takes.
+// their strides multiples of 8 elements.  Query row i sits at position
+// q_offset + i and keys at or past kv_len are hidden (q_offset = 0 and
+// kv_len = Sk: no such mask); the caller makes sure that every row sees
+// a key.  Returns the launch's cudaError_t (0 on success); launches
+// nothing and returns cudaErrorInvalidValue for arguments neither kernel
+// takes.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                               void* lse, int dtype, int hd, int vd, int B, int H, int KV,
                               int Sq, int Sk, const long long* strides, float scale,
-                              int causal, float cap, int window, void* stream) {
-  if (B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Sk < 1 || Sq > 65535 * QT)
+                              int causal, float cap, int window, int q_offset, int kv_len,
+                              void* stream) {
+  if (B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Sk < 1 || Sq > 65535 * QT ||
+      q_offset < 0 || kv_len < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int klim = kv_len < Sk ? kv_len : Sk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     tc::Args a;
@@ -814,6 +845,8 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
     a.cap = cap;
     a.causal = causal;
     a.window = window;
+    a.q_off = q_offset;
+    a.klim = klim;
     cudaError_t err = cudaErrorInvalidValue;
     if (hd == vd) {
       switch (hd) {
@@ -851,5 +884,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
   a.cap = cap;
   a.causal = causal;
   a.window = window;
+  a.q_off = q_offset;
+  a.klim = klim;
   return static_cast<int>(launch_fp32(a, hd, s));
 }

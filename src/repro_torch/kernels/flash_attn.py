@@ -9,6 +9,12 @@ writes each query row's log-sum-exp beside the output.  Ragged
 ``Sq``/``Sk`` tails are masked in the kernel.  It is bound by
 operations: ``2·(hd + vd)`` flops per visible (query, key) pair.
 
+Masked decode: ``q_offset`` places query row ``i`` at position
+``q_offset + i`` and ``kv_len`` hides the keys at or past it, the
+reference's ``attend(q_pos=pos + arange(Sq), kv_len=pos + Sq)`` over a KV
+cache.  The kernel streams only the keys some row can see, so a decode
+step reads the cache's filled part; it is then bound by those bytes.
+
 The dtype alone picks the kernel: bf16 runs on the tensor cores
 (``wgmma`` fed by TMA, probabilities split into two bf16 halves; head
 dims ``TC_DIMS``), fp32 on the CUDA cores (``FP32_DIMS``), the only
@@ -61,34 +67,61 @@ def _entry():
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def flops(b: int, h: int, sq: int, sk: int, hd: int, *, causal: bool,
-          window: int = 0, vd: int | None = None) -> int:
+          window: int = 0, vd: int | None = None, q_offset: int = 0,
+          kv_len: int | None = None) -> int:
     """Flops one forward launch needs: ``2·hd`` for the score and ``2·vd``
     for its share of ``P·V``, for every (query, key) pair the mask leaves
     visible."""
     vd = hd if vd is None else vd
+    klim = sk if kv_len is None else min(sk, kv_len)
     if not causal:
-        pairs = sq * sk
+        pairs = sq * klim
     else:
-        i = torch.arange(sq, dtype=torch.int64)
-        hi = torch.clamp(i + 1, max=sk)
-        lo = torch.clamp(i - window + 1, min=0) if window > 0 else 0 * i
+        pos = q_offset + torch.arange(sq, dtype=torch.int64)
+        hi = torch.clamp(pos + 1, max=klim)
+        lo = torch.clamp(pos - window + 1, min=0) if window > 0 else 0 * pos
         pairs = int(torch.clamp(hi - lo, min=0).sum())
     return 2 * (hd + vd) * pairs * b * h
 
 
-def bytes_moved(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
-    """Bytes one launch must move: q, k and v read once, the output
-    ``(B, Sq, H, vd)`` and the fp32 log-sum-exp written once."""
+def bytes_moved(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                kv_len: int | None = None) -> int:
+    """Bytes one launch must move: q and the keys and values below
+    ``kv_len`` (all of them by default) read once, the output ``(B, Sq,
+    H, vd)`` and the fp32 log-sum-exp written once."""
     b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    keys = sk if kv_len is None else min(sk, kv_len)
     out = b * sq * h * v.shape[-1] * q.element_size()
-    return (q.numel() * q.element_size() + k.numel() * k.element_size()
-            + v.numel() * v.element_size() + out + 4 * b * h * sq)
+    return (q.numel() * q.element_size()
+            + (k.numel() * k.element_size()
+               + v.numel() * v.element_size()) // sk * keys
+            + out + 4 * b * h * sq)
+
+
+def rows_see_a_key(sq: int, sk: int, *, causal: bool, window: int,
+                   q_offset: int, kv_len: int) -> bool:
+    """Whether every query row sees at least one key under the mask.
+
+    The kernel leaves out keys that no row of a block sees, exactly only
+    if every row sees one (a row that sees none gets the reference's
+    mean over all ``-1e30`` scores).  The visible span of row ``i`` is
+    ``[lo_i, hi_i)`` with both ends nondecreasing in ``i``, so its
+    length is smallest at the first or the last row."""
+    klim = min(sk, kv_len)
+    if not causal:
+        return klim >= 1
+    for pos in (q_offset, q_offset + sq - 1):
+        lo = max(0, pos - window + 1) if window > 0 else 0
+        if min(klim, pos + 1) <= lo:
+            return False
+    return True
 
 
 def _strides(t: torch.Tensor) -> tuple[int, int, int]:
@@ -103,8 +136,9 @@ def _strides(t: torch.Tensor) -> tuple[int, int, int]:
 
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool, scale: float, attn_cap: float,
-                  window: int) -> tuple[torch.Tensor, torch.Tensor]:
+                  causal: bool, scale: float, attn_cap: float, window: int,
+                  q_offset: int = 0, kv_len: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch a kernel → ``(o (B, Sq, H, vd), lse (B, H, Sq) fp32)``.
 
     ``q`` is ``(B, Sq, H, hd)``, ``k`` ``(B, Sk, KV, hd)`` and ``v``
@@ -113,7 +147,10 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``(hd, vd)`` in ``TC_DIMS``; it reads q, k and v by TMA, so each base
     is 16-byte aligned and each stride a multiple of 8 elements.  fp32
     launches the CUDA-core kernel at ``(hd, vd)`` in ``FP32_DIMS`` (other
-    strides free).  Anything else raises; nothing is copied.
+    strides free).  ``q_offset`` (a host int, at least 0) is query row
+    0's position and ``kv_len`` (a host int, at least 1; ``Sk`` by
+    default) hides the keys at or past it; a mask under which some row
+    sees no key raises.  Anything else raises; nothing is copied.
     """
     global launches, tc_launches
     ts = (q, k, v)
@@ -144,6 +181,18 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if sq < 1 or sk < 1 or b < 1 or sq > 65535 * QT:
         raise ValueError(f"flash_attention kernel: empty or too long "
                          f"{tuple(q.shape)} {tuple(k.shape)}")
+    kv_len = sk if kv_len is None else kv_len
+    if not (isinstance(q_offset, int) and isinstance(kv_len, int)):
+        raise TypeError(f"flash_attention kernel: q_offset and kv_len are "
+                        f"host ints, got {type(q_offset).__name__} and "
+                        f"{type(kv_len).__name__}")
+    if (q_offset, kv_len) != (0, sk) and (
+            q_offset < 0 or kv_len < 1 or not rows_see_a_key(
+                sq, sk, causal=causal, window=window, q_offset=q_offset,
+                kv_len=kv_len)):
+        raise ValueError(f"flash_attention kernel: q_offset {q_offset}, "
+                         f"kv_len {kv_len} leave a query row of "
+                         f"{tuple(q.shape)} without a key")
     if any(t.stride(3) != 1 for t in ts):
         raise ValueError("flash_attention kernel: the head dim must be "
                          "contiguous")
@@ -163,7 +212,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), DTYPES[q.dtype], hd, vd, b, h, kv, sq, sk,
                  cstrides, float(scale), int(bool(causal)), float(attn_cap),
-                 int(window), stream)
+                 int(window), q_offset, kv_len, stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError "
                            f"{err} for q {tuple(q.shape)} k {tuple(k.shape)} "

@@ -351,17 +351,29 @@ def blockwise_sparsify(x: torch.Tensor, k: int, block: int = 512
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, scale: float | None = None,
-              attn_cap: float = 0.0, window: int = 0) -> torch.Tensor:
+              attn_cap: float = 0.0, window: int = 0, q_offset: int = 0,
+              kv_len: int | None = None) -> torch.Tensor:
     """Attention of ``(B, Sq, H, hd)`` queries over ``(B, Sk, KV, hd)``
     keys and ``(B, Sk, KV, vd)`` values (``H % KV == 0``) → ``(B, Sq, H,
     vd)`` in ``q``'s dtype, differentiable.  Scores are ``fl32(q)·scale ·
-    k`` in fp32, capped by ``attn_cap``, ``-1e30`` where the causal mask
-    or the window hides a key.  On the card bf16 runs on the tensor
-    cores and fp32 on the CUDA cores (``flash_attn``)."""
+    k`` in fp32, capped by ``attn_cap``, ``-1e30`` where the causal mask,
+    the window or ``kv_len`` hides a key; query row ``i`` sits at
+    position ``q_offset + i`` (masked decode over a KV cache).  On the
+    card bf16 runs on the tensor cores and fp32 on the CUDA cores
+    (``flash_attn``); when no gradient is wanted the kernel launches
+    directly, so nothing is saved for a backward.  The masked form is
+    serving's and has no backward on the card."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    kw = dict(causal=causal, scale=scale, attn_cap=attn_cap, window=window,
+              q_offset=q_offset, kv_len=kv_len)
     if q.device.type == "cpu":
-        return _ref.flash_attention_bshd(q, k, v, causal=causal, scale=scale,
-                                         attn_cap=attn_cap, window=window)[0]
+        return _ref.flash_attention_bshd(q, k, v, **kw)[0]
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return _fa.attention_fwd(q, k, v, **kw)[0]
+    if q_offset or kv_len is not None:
+        raise ValueError("masked attention on the card is forward-only: "
+                         "run it under torch.no_grad or inference_mode")
     return _fa.FlashAttention.apply(q, k, v, causal, scale, attn_cap, window)
 
 

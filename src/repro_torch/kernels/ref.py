@@ -270,20 +270,25 @@ MASKED = -1e30
 
 
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
-          window: int) -> torch.Tensor | None:
-    """Visible (query, key) pairs, ``(Sq, Sk)`` bool; None = all."""
-    if not causal:
-        return None
-    mask = k_pos[None, :] <= q_pos[:, None]
-    if window > 0:
-        mask &= k_pos[None, :] > q_pos[:, None] - window
+          window: int, kv_len: int | None = None) -> torch.Tensor | None:
+    """Visible (query, key) pairs, ``(Sq, Sk)`` bool (``(1, Sk)`` when
+    only ``kv_len`` masks); None = all."""
+    mask = None
+    if causal:
+        mask = k_pos[None, :] <= q_pos[:, None]
+        if window > 0:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+    if kv_len is not None:
+        live = k_pos[None, :] < kv_len
+        mask = live if mask is None else mask & live
     return mask
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, scale: float | None = None,
                          attn_cap: float = 0.0, window: int = 0,
-                         kv_tile: int = 512
+                         kv_tile: int = 512, q_offset: int = 0,
+                         kv_len: int | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain version of the flash kernel: ``(o, lse)``.
 
@@ -294,6 +299,9 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``-1e30`` where masked; ``o / max(l, 1e-30)`` in ``q``'s dtype, and
     ``lse = m + log(l)`` ``(B, H, Sq)`` fp32.  Memory is O(Sq · kv_tile)
     a head, never O(Sq · Sk).  A ragged last tile is just shorter.
+    Masked decode, as the reference's ``attend``: query row ``i`` sits at
+    position ``q_offset + i`` for the causal mask and the window, and
+    keys at or past ``kv_len`` are masked too (every key is walked).
     """
     b, sq, h, hd = q.shape
     sk, kv, vd = k.shape[1], k.shape[2], v.shape[-1]
@@ -303,7 +311,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = torch.full((b, kv, g, sq), -torch.inf, device=q.device)
     l = torch.zeros((b, kv, g, sq), device=q.device)
     o = torch.zeros((b, kv, g, sq, vd), device=q.device)
-    q_pos = torch.arange(sq, device=q.device)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
     for t0 in range(0, sk, kv_tile):
         kb = k[:, t0:t0 + kv_tile].float().permute(0, 2, 1, 3).unsqueeze(2)
         vb = v[:, t0:t0 + kv_tile].float().permute(0, 2, 1, 3).unsqueeze(2)
@@ -311,7 +319,8 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if attn_cap > 0:
             s = torch.tanh(s / attn_cap) * attn_cap
         mask = _mask(q_pos, torch.arange(t0, t0 + kb.shape[-2],
-                                         device=q.device), causal, window)
+                                         device=q.device), causal, window,
+                     kv_len)
         if mask is not None:
             s = torch.where(mask, s, MASKED)
         m_new = torch.maximum(m, s.amax(-1))

@@ -46,9 +46,19 @@ events, the data plane's phases, the modeled scheduler tracks) and write
 the Chrome-trace and metrics JSON; ``python -m repro_torch.obs.report
 METRICS [TRACE]`` summarizes them.
 
-Not ported, each stopping with the ROADMAP item that will port it: the
-health plane (``--health-policy``, ``--incidents-out``) and tensor
-parallelism (a ``model`` axis > 1).
+``--health-policy observe|auto`` runs the fabric health plane once after
+training (DESIGN.md §17), before the artifacts are written: the
+detectors poll the flight recorder, the incident log is printed and, with
+``--incidents-out PATH``, exported for ``python -m repro_torch.obs.report
+--incidents PATH --fail-on critical``.  ``auto`` (``--tenants`` > 1) also
+applies the SLO policy's remediations to the shared switch::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 2 \
+        --mesh 2x4x1 --device cpu --tenants 3 --health-policy auto \
+        --incidents-out /tmp/incidents.json
+
+Not ported: tensor parallelism (a ``model`` axis > 1), which stops
+naming ROADMAP queue 1 item 16.
 """
 from __future__ import annotations
 
@@ -126,15 +136,26 @@ def _parse(argv=None):
     ap.add_argument("--metrics-out", type=str, default=None, metavar="PATH",
                     help="export the metrics registry (typed counters/"
                          "gauges, DESIGN.md §16 name schema) as JSON")
-    # not ported: each exits naming its ROADMAP item
     ap.add_argument("--health-policy", type=str, default="off",
-                    choices=("off", "observe", "auto"))
+                    choices=("off", "observe", "auto"),
+                    help="run the fabric health plane after training "
+                         "(DESIGN.md §17): stream the Straggler/"
+                         "FaultStorm/CongestionDrift/ModelDivergence "
+                         "detectors over the flight recorder and print "
+                         "the incident log.  'observe' detects only; "
+                         "'auto' additionally binds incidents to the "
+                         "SLO policy's remediation paths (replan / "
+                         "session recovery; needs --tenants > 1)")
     ap.add_argument("--incidents-out", type=str, default=None,
-                    metavar="PATH")
+                    metavar="PATH",
+                    help="export the health plane's incident log as "
+                         "JSON (needs --health-policy; gate with "
+                         "`python -m repro_torch.obs.report --incidents "
+                         "PATH --fail-on critical`)")
     return ap.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
+def _check_flags(args) -> None:
     if args.congestion_replan > 0 and args.tenants <= 1:
         sys.exit("--congestion-replan re-plans the shared switch's "
                  "sessions; it needs --tenants > 1")
@@ -145,17 +166,15 @@ def _refuse_unported(args) -> None:
     if args.incidents_out and args.health_policy == "off":
         sys.exit("--incidents-out exports the health plane's log; it "
                  "needs --health-policy observe|auto")
-    if args.health_policy != "off":
-        sys.exit("--health-policy/--incidents-out: the health plane is not "
-                 "ported (ROADMAP queue 1 item 13)")
 
 
 def _telemetry(args):
-    """``--trace-out``/``--metrics-out`` → one ``obs.Telemetry`` flight
-    recorder threaded through ``FlareConfig`` and the ``SessionManager``
-    (DESIGN.md §16); ``None`` when no artifact is requested: the run is
-    then uninstrumented."""
-    if not (args.trace_out or args.metrics_out):
+    """``--trace-out``/``--metrics-out`` (or a health policy, which reads
+    the recorder) → one ``obs.Telemetry`` flight recorder threaded through
+    ``FlareConfig`` and the ``SessionManager`` (DESIGN.md §16); ``None``
+    otherwise: the run is then uninstrumented."""
+    if not (args.trace_out or args.metrics_out
+            or args.health_policy != "off"):
         return None
     from repro_torch.obs import Telemetry
     return Telemetry.create()
@@ -167,6 +186,37 @@ def _step_span(telemetry, step: int):
         return contextlib.nullcontext()
     return telemetry.tracer.span("train.step", track="steps",
                                  args={"step": step})
+
+
+def _health(args, telemetry, manager=None) -> None:
+    """``--health-policy`` → one deterministic watch pass over the run's
+    flight recorder (DESIGN.md §17): poll the detectors, print the
+    incident log and (``auto``) the SLO policy's remediation dispatch,
+    optionally exporting the log for the report CLI's ``--fail-on``
+    gate.  As in the reference the pass watches a fresh
+    ``CongestionMonitor`` of the manager, and runs before ``_export``
+    renders the modeled tracks."""
+    if args.health_policy == "off":
+        return
+    from repro_torch.obs import HealthMonitor, SLOPolicy
+    from repro_torch.obs.health import render_incidents
+    monitor = None
+    if manager is not None:
+        from repro_torch.runtime import CongestionMonitor
+        monitor = CongestionMonitor(manager, registry=telemetry.registry)
+    hm = HealthMonitor(telemetry, manager=manager, monitor=monitor)
+    policy = (SLOPolicy(manager, monitor=monitor)
+              if args.health_policy == "auto" else None)
+    incidents, taken = hm.watch(1, policy=policy)
+    print("== health ==", flush=True)
+    print(render_incidents(incidents), flush=True)
+    for rem in taken:
+        print(f"  -> {rem.action}: "
+              f"{'applied' if rem.applied else 'skipped'} "
+              f"({rem.detail})", flush=True)
+    if args.incidents_out:
+        hm.export_incidents(args.incidents_out)
+        print(f"incidents -> {args.incidents_out}", flush=True)
 
 
 def _export(args, telemetry, manager=None) -> None:
@@ -320,7 +370,7 @@ def setup(argv=None, **overrides) -> Run:
     """Parse the flags and build the job (``overrides`` replace fields
     of the model config, e.g. ``n_layers``)."""
     args = _parse(argv)
-    _refuse_unported(args)
+    _check_flags(args)
     if args.tenants > 1:
         raise ValueError("--tenants > 1 builds several jobs: use "
                          "setup_tenants")
@@ -394,7 +444,7 @@ def setup_tenants(argv=None, **overrides) -> Tenants:
     mix, as in the reference.
     """
     args = _parse(argv)
-    _refuse_unported(args)
+    _check_flags(args)
     if args.tenants < 2:
         raise ValueError("setup_tenants needs --tenants > 1")
 
@@ -433,8 +483,8 @@ def setup_tenants(argv=None, **overrides) -> Tenants:
 
 def _run_tenants(argv, **overrides) -> list[list[float]]:
     """``--tenants K``: train the jobs, then print the manager's report
-    and, with ``--congestion-replan``, the replan and the new report;
-    write the flight recorder's artifacts last."""
+    and, with ``--congestion-replan``, the replan and the new report; run
+    the health pass; write the flight recorder's artifacts last."""
     shared = setup_tenants(argv, **overrides)
     args = shared.args
     losses = []
@@ -451,6 +501,7 @@ def _run_tenants(argv, **overrides) -> list[list[float]]:
     if args.congestion_replan > 0:
         shared.replan()
         print(shared.manager.report(), flush=True)
+    _health(args, shared.telemetry, shared.manager)
     _export(args, shared.telemetry, shared.manager)
     return losses
 
@@ -496,6 +547,7 @@ def main(argv=None, **overrides) -> list:
             cm.save(i + 1, run.state())
     if cm:
         cm.wait()
+    _health(args, run.telemetry)
     _export(args, run.telemetry)
     return losses
 

@@ -1,9 +1,10 @@
 """The shared model configuration and the layer library.
 
 The port of ``repro/models/base.py`` for the dense transformer's train
-forward: ``ModelConfig``, RMSNorm, RoPE, soft-capping, remat, attention
-(dense and chunked online-softmax on the CPU, the flash kernel on the
-card), the GQA block, SwiGLU and cross-entropy.
+forward and its serving steps: ``ModelConfig``, RMSNorm, RoPE,
+soft-capping, remat, attention (dense and chunked online-softmax on the
+CPU, the flash kernel on the card, masked decode over a KV cache on
+both), the GQA block with its cache write, SwiGLU and cross-entropy.
 
 Rank axes.  The port runs every emulated rank in one process, so a
 weight may carry the mesh's rank axes in front, ``(*R, *shape)``, with
@@ -243,8 +244,8 @@ def _scale(q: torch.Tensor, scale: float | None) -> float:
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           causal: bool, q_pos: torch.Tensor | None = None,
-           kv_len: torch.Tensor | None = None, window: int = 0,
+           causal: bool, q_pos: torch.Tensor | int | None = None,
+           kv_len: torch.Tensor | int | None = None, window: int = 0,
            attn_cap: float = 0.0, scale: float | None = None,
            chunk: int = 0) -> torch.Tensor:
     """Scaled dot-product attention.
@@ -257,17 +258,27 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     jitted step does: ``scale`` (given or ``hd ** -0.5``) is rounded to
     ``q``'s dtype, as a weakly typed constant is, and ``fl32(q)`` is
     multiplied by it in fp32, unrounded (XLA drops the round trip
-    through ``q``'s dtype).  Masked decode (``kv_len``, ``q_pos``) is not
-    on the card path.
+    through ``q``'s dtype).
+
+    Masked decode: ``q_pos`` gives the queries' absolute positions for the
+    causal mask and ``kv_len`` the number of valid cache entries, as in
+    the reference.  ``q_pos`` may also be a host int, the first query's
+    position (the queries then sit at ``q_pos + arange(Sq)``, the only
+    form a decode step makes); on the card it must be, and ``kv_len`` a
+    host int too: they are the flash kernel's launch arguments, so that
+    no layer syncs the card to read a position.
     """
     if q.device.type != "cpu":
-        if kv_len is not None or q_pos is not None:
-            raise NotImplementedError(
-                "masked decode attention on the card is not ported: "
-                "ROADMAP queue 1 item 14 (serving)")
+        if not (q_pos is None or isinstance(q_pos, int)) or not (
+                kv_len is None or isinstance(kv_len, int)):
+            raise TypeError("attend on the card takes q_pos (the first "
+                            "query's position) and kv_len as host ints")
         return ops.attention(q, k, v, causal=causal,
                              scale=_scale(q, scale), attn_cap=attn_cap,
-                             window=window)
+                             window=window, q_offset=q_pos or 0,
+                             kv_len=kv_len)
+    if isinstance(q_pos, int):
+        q_pos = q_pos + torch.arange(q.shape[1], device=q.device)
     if chunk > 0 and q.shape[1] > 1 and k.shape[1] % chunk == 0 \
             and kv_len is None:
         return _attend_chunked(q, k, v, causal=causal, window=window,
@@ -346,12 +357,21 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 
     ``x`` is ``(*R, B, S, D)`` with weights ``(*R, ...)``; returns
     ``(out, (k, v))``.  The rank axes fold into attention's batch dim.
-    Decode caches and cross-attention are serving's (not ported).
+
+    ``cache`` is ``{"k": (B, Smax, KV, hd), "v": ..., "pos": int}`` for a
+    decode step (no rank axes): the new K/V are written into it **in
+    place** at ``pos``, the start clamped to ``[0, Smax - S]`` as
+    ``dynamic_update_slice`` clamps it, and the queries attend at
+    positions ``pos + arange(S)`` over the first ``pos + S`` entries.  The
+    returned ``(k, v)`` are the cache's own tensors: the caller's cache is
+    consumed, as the reference's is under donation.  ``pos_offset`` is
+    the rotary position of the first token (``pos`` when decoding).
+    Cross-attention (``kv_override``) is not ported.
     """
-    if cache is not None or kv_override is not None:
+    if kv_override is not None:
         raise NotImplementedError(
-            "KV caches and cross-attention are not ported: ROADMAP queue 1 "
-            "item 14 (serving, decode)")
+            "cross-attention is not ported: ROADMAP queue 1 item 14 (the "
+            "other families)")
     *lead, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = mm(x, p["wq"]).reshape(*lead, s, h, hd)
@@ -364,11 +384,24 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     pos = pos0 + torch.arange(s, device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     kk = apply_rope(kk, pos, cfg.rope_theta)
-    out = attend(q.reshape(-1, s, h, hd), kk.reshape(-1, s, kv, hd),
-                 vv.reshape(-1, s, kv, hd), causal=causal, window=window,
-                 attn_cap=cfg.attn_softcap, chunk=cfg.attn_chunk)
-    out = mm(out.reshape(*lead, s, h * hd), p["wo"])
-    return out, (kk, vv)
+    if cache is not None:
+        if len(lead) != 1:
+            raise ValueError(f"a KV cache takes (B, S, D) activations, got "
+                             f"{tuple(x.shape)}")
+        pos = cache["pos"]
+        start = min(max(pos, 0), cache["k"].shape[1] - s)
+        cache["k"][:, start:start + s] = kk
+        cache["v"][:, start:start + s] = vv
+        out = attend(q, cache["k"], cache["v"], causal=True, q_pos=pos,
+                     kv_len=pos + s, window=window,
+                     attn_cap=cfg.attn_softcap)
+        newkv = (cache["k"], cache["v"])
+    else:
+        out = attend(q.reshape(-1, s, h, hd), kk.reshape(-1, s, kv, hd),
+                     vv.reshape(-1, s, kv, hd), causal=causal, window=window,
+                     attn_cap=cfg.attn_softcap, chunk=cfg.attn_chunk)
+        newkv = (kk, vv)
+    return mm(out.reshape(*lead, s, h * hd), p["wo"]), newkv
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """Family → model-function dispatch.
 
 The port of ``repro/models/registry.py`` for the ``"dense"`` family, the
-only one whose forward is ported; the others raise.  ``init`` takes a
-``torch.Generator`` (on the device the parameters should live on) where
-the reference takes a ``jax.random`` key.
+only one ported (training and serving); the others raise.  ``init`` takes
+a ``torch.Generator`` (on the device the parameters should live on) where
+the reference takes a ``jax.random`` key, and ``init_cache`` also takes
+the ``device`` its cache should live on.
 """
 from __future__ import annotations
 
@@ -13,15 +14,6 @@ from typing import Any, Callable
 from repro_torch.models import transformer
 from repro_torch.models.base import ModelConfig
 
-_TODO = "ROADMAP queue 1 item 14 (serving, decode and the other families)"
-
-
-def _not_ported(what: str) -> Callable:
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{what} is not ported: {_TODO}")
-    return fn
-
-
 @dataclasses.dataclass(frozen=True)
 class Model:
     """Functional model bundle for one architecture."""
@@ -29,9 +21,9 @@ class Model:
     cfg: ModelConfig
     init: Callable          # (generator) -> params
     loss: Callable          # (params, batch, *, gather=None) -> per-rank loss
-    prefill: Callable       # not ported
-    decode: Callable        # not ported
-    init_cache: Callable    # not ported
+    prefill: Callable       # (params, batch, *, gather=None) -> (logits, cache)
+    decode: Callable        # (params, token, cache, *, gather=None) -> (logits, cache)
+    init_cache: Callable    # (batch_size, max_seq, *, dtype=, device=) -> cache
 
 
 _FAMILIES: dict[str, Any] = {"dense": transformer}
@@ -41,12 +33,16 @@ def get_model(cfg: ModelConfig) -> Model:
     mod = _FAMILIES.get(cfg.family)
     if mod is None:
         raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported: {_TODO}")
+            f"model family {cfg.family!r} ({cfg.name}) is not ported: "
+            "ROADMAP queue 1 item 14 (the other families)")
     return Model(
         cfg=cfg,
         init=lambda gen: mod.init_params(cfg, gen),
         loss=lambda params, batch, **kw: mod.loss_fn(cfg, params, batch, **kw),
-        prefill=_not_ported("prefill"),
-        decode=_not_ported("decode"),
-        init_cache=_not_ported("init_cache"),
+        prefill=lambda params, batch, **kw: mod.prefill(cfg, params, batch,
+                                                        **kw),
+        decode=lambda params, token, cache, **kw: mod.decode_step(
+            cfg, params, token, cache, **kw),
+        init_cache=lambda bs, max_seq, **kw: mod.init_cache(cfg, bs, max_seq,
+                                                            **kw),
     )

@@ -1,5 +1,5 @@
-"""The dense decoder-only transformer (Llama family): parameters and the
-train-mode forward.
+"""The dense decoder-only transformer (Llama family): parameters, the
+train-mode forward and the serving steps.
 
 The port of ``repro/models/transformer.py`` for the dense GQA variant
 (tinyllama-1.1b, granite-20b).  ``init_params`` builds the same dict of
@@ -16,12 +16,19 @@ cross-entropy.  Parameters may carry the mesh's rank axes in front
 (``(*R, ...)``, with the stacked ``L`` axis after them) and the batch
 ``(*R, B, S)``; the loss then has one value per rank.  ``params["layers"]``
 may also be a list of per-layer dicts (how the trainer hands autograd
-one leaf per layer).  Prefill, decode and the other variants are
-serving's and the other families' (ROADMAP queue 1 item 14).
+one leaf per layer).
+
+``prefill``, ``decode_step`` and ``init_cache`` are the serving steps, on
+one rank: the prompt's forward returning its last logits and a ``{"layers":
+{"k", "v"}, "pos"}`` cache of ``(L, B, S, KV, hd)``, and one token a row
+against that cache, written in place.  The cache's ``pos`` is a host
+int, so the flash kernel's masks are launch arguments.  The other
+variants are the other families' (ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
 import math
+import operator
 from typing import Callable
 
 import torch
@@ -102,12 +109,14 @@ def _rank_dims(params: dict) -> int:
 
 
 def _self_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
-                window: int = 0) -> torch.Tensor:
+                window: int = 0, cache: dict | None = None,
+                pos_offset: int | None = None) -> tuple:
     h = base.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    attn_out, _ = base.gqa_attention(cfg, lp["attn"], h, window=window)
+    attn_out, newkv = base.gqa_attention(cfg, lp["attn"], h, window=window,
+                                         cache=cache, pos_offset=pos_offset)
     x = x + base.tag_block_out(cfg, attn_out)
     h = base.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + base.tag_block_out(cfg, base.swiglu(lp["ffn"], h))
+    return x + base.tag_block_out(cfg, base.swiglu(lp["ffn"], h)), newkv
 
 
 def _layer_slices(stack, rank_dims: int) -> list:
@@ -120,22 +129,41 @@ def _layer_slices(stack, rank_dims: int) -> list:
 
 
 def run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
-              mode: str = "train", gather: Gather = None):
-    """All layers in train mode → ``(x, None)``; each layer (its FSDP
-    gather included) is recomputed in the backward."""
-    if mode != "train":
-        raise NotImplementedError(
-            f"run_stack(mode={mode!r}): prefill and decode are serving's, "
-            "ROADMAP queue 1 item 14")
+              mode: str = "train", cache: dict | None = None,
+              pos: int | None = None, gather: Gather = None):
+    """All layers; ``mode`` is ``train``, ``prefill`` or ``decode``.
+
+    ``train`` → ``(x, None)``, each layer (its FSDP gather included)
+    recomputed in the backward.  ``prefill`` → ``(x, {"layers": {"k",
+    "v"}})``, every layer's rotated K and V stacked ``(L, B, S, KV,
+    hd)``.  ``decode`` takes that layout as ``cache`` (``{"layers":
+    ...}``, without ``pos``) and the step's first position ``pos``, writes
+    each layer's K/V into it in place and returns ``(x, cache)``.
+    """
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"run_stack: mode {mode!r} is not one of train, "
+                         "prefill, decode")
     _check_dense(cfg)
-
-    def body(x, lp):
-        return _self_layer(cfg, _g(gather, lp), x)
-
-    body = base.remat(cfg, body)
-    for lp in _layer_slices(params["layers"], _rank_dims(params)):
-        x = body(x, lp)
-    return x, None
+    layers = _layer_slices(params["layers"], _rank_dims(params))
+    if mode == "train":
+        body = base.remat(cfg, lambda x, lp: _self_layer(
+            cfg, _g(gather, lp), x)[0])
+        for lp in layers:
+            x = body(x, lp)
+        return x, None
+    if mode == "decode":
+        kc, vc = cache["layers"]["k"], cache["layers"]["v"]
+        for i, lp in enumerate(layers):
+            c = {"k": kc[i], "v": vc[i], "pos": pos}
+            x, _ = _self_layer(cfg, _g(gather, lp), x, cache=c,
+                               pos_offset=pos)
+        return x, cache
+    ks, vs = [], []
+    for lp in layers:
+        x, (kk, vv) = _self_layer(cfg, _g(gather, lp), x)
+        ks.append(kk)
+        vs.append(vv)
+    return x, {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
 
 
 # ---------------------------------------------------------------------------
@@ -202,3 +230,56 @@ def chunked_ce(cfg: ModelConfig, x: torch.Tensor, head: torch.Tensor,
         tot = tot + base.cross_entropy(logits, ll, cfg.logit_softcap,
                                        rank_dims) * (1.0 / nc)
     return tot
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
+            gather: Gather = None):
+    """Forward pass over a prompt; returns (last-token logits, cache)."""
+    tokens = batch["tokens"]
+    x, emb = _embed(cfg, params, tokens, gather)
+    x, cache = run_stack(cfg, params, x, mode="prefill", gather=gather)
+    x = base.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = _head(cfg, params, emb, gather)
+    logits = base.softcap(base.mm(x[..., -1:, :], head), cfg.logit_softcap)
+    cache["pos"] = tokens.shape[-1]
+    return logits, cache
+
+
+def _host_pos(pos) -> int:
+    """The cache's position as a host int (a numpy integer is taken; a
+    tensor is refused, since reading one off the card syncs it)."""
+    if isinstance(pos, torch.Tensor):
+        raise TypeError("cache['pos'] is a host int, not a tensor")
+    return operator.index(pos)
+
+
+def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
+                cache: dict, *, gather: Gather = None):
+    """One decode step: token (B, S) + cache → (logits (B, S, V), cache).
+
+    The K/V of the step are written into ``cache``'s tensors in place
+    (the input cache is consumed, as the reference's is when its decode
+    donates it) and the returned cache holds them with ``pos + S``."""
+    pos = _host_pos(cache["pos"])
+    x, emb = _embed(cfg, params, token, gather)
+    layer_caches = {k: v for k, v in cache.items() if k != "pos"}
+    x, new_cache = run_stack(cfg, params, x, mode="decode",
+                             cache=layer_caches, pos=pos, gather=gather)
+    x = base.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = _head(cfg, params, emb, gather)
+    logits = base.softcap(base.mm(x, head), cfg.logit_softcap)
+    new_cache["pos"] = pos + token.shape[-1]
+    return logits, new_cache
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
+               dtype: torch.dtype | None = None,
+               device: str | torch.device | None = None) -> dict:
+    """Zero KV cache sized for ``max_seq`` (the decode dry-run's shapes:
+    ``pos`` stands at ``max_seq - 1``), on ``device``."""
+    _check_dense(cfg)
+    dtype = dtype or cfg.dtype
+    shape = (cfg.n_layers, batch_size, max_seq, cfg.n_kv_heads, cfg.hd)
+    return {"layers": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)},
+            "pos": max_seq - 1}

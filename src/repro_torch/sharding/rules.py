@@ -16,7 +16,9 @@ The port of ``repro/sharding/rules.py`` for the FSDP half.  Strategy:
 There are no ``PartitionSpec``s: on the rank-axis layout a rank-local
 leaf ``x`` is a tensor ``(*mesh, *x.shape)`` (``shard_params``; its
 global view ``unshard_params``), and a batch row block is a rank's
-(``split_batch``), exactly where a ``NamedSharding`` would place them.  ``cache_specs`` waits for serving.
+(``split_batch``), exactly where a ``NamedSharding`` would place them.
+``cache_specs``, which describes a sharded KV cache for the dry-run
+tooling, is ROADMAP queue 1 item 15.
 """
 from __future__ import annotations
 

@@ -607,6 +607,121 @@ def test_flash_function_gradient_matches_plain_autograd_on_cuda(cuda):
             assert float((g - w).abs().max()) <= 1e-4
 
 
+#: masked decode cases: (Sq, q_offset, kv_len) over a cache of 300 keys,
+#: kv_len ragged against the kernel's 64-key tile; the last is the clamp
+#: (a step past the cache's end: every key visible)
+_DECODE_CASES = ((1, 0, 1), (1, 62, 63), (1, 64, 65), (1, 199, 200),
+                 (7, 58, 65), (7, 293, 300), (128, 0, 128), (128, 72, 200),
+                 (1, 300, 301))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dims", [
+    *(("float32", d) for d in fa.FP32_DIMS),
+    *(("bfloat16", d) for d in fa.TC_DIMS)])
+def test_flash_masked_decode_matches_plain_on_cuda(cuda, dtype, dims):
+    """Masked decode (``q_offset``, ``kv_len``) at every (hd, vd) each
+    kernel takes, Sq 1, 7 and 128, GQA 8/1 and 4/4, with the window and
+    the cap once: one launch each, of the kernel the dtype picks, held to
+    the plain version at the unmasked tolerances."""
+    dt = getattr(torch, dtype)
+    hd, vd = dims
+    cases = 0
+    for h, kv in ((8, 1), (4, 4)):
+        for sq, off, kvl in _DECODE_CASES:
+            for cap, win in ((0.0, 0), (30.0, 64)):
+                if win and (h, kv) == (4, 4):
+                    continue
+                q = torch.randn((2, sq, h, hd), generator=cuda,
+                                device="cuda").to(dt)
+                k = torch.randn((2, 300, kv, hd), generator=cuda,
+                                device="cuda").to(dt)
+                v = torch.randn((2, 300, kv, vd), generator=cuda,
+                                device="cuda").to(dt)
+                kw = dict(causal=True, attn_cap=cap, window=win,
+                          q_offset=off, kv_len=kvl)
+                before = (fa.launches, fa.tc_launches)
+                got = ops.attention(q, k, v, **kw)
+                assert (fa.launches, fa.tc_launches) == (
+                    before[0] + 1, before[1] + (dt == torch.bfloat16))
+                want, _ = ref.flash_attention_bshd(q, k, v, scale=hd ** -0.5,
+                                                   **kw)
+                torch.cuda.synchronize()
+                assert got.shape == (2, sq, h, vd)
+                _assert_flash_close(got, want, v)
+                cases += 1
+    assert cases == 27
+
+
+@pytest.mark.cuda
+def test_flash_masked_decode_refuses_a_row_without_a_key_on_cuda(cuda):
+    """A mask that leaves some row no key (the reference would average
+    every value there), a negative offset and a tensor position raise
+    and launch nothing; base.attend on the card takes host ints only,
+    and the masked form has no backward on the card."""
+    from repro_torch.models import base
+    q = torch.randn((1, 4, 2, 64), generator=cuda, device="cuda").bfloat16()
+    k = torch.randn((1, 64, 2, 64), generator=cuda, device="cuda").bfloat16()
+    before = fa.launches
+    for off, kvl, win in ((0, 2, 2), (-1, 8, 0), (40, 8, 16)):
+        with pytest.raises(ValueError, match="without a key"):
+            fa.attention_fwd(q, k, k, causal=True, scale=0.125,
+                             attn_cap=0.0, window=win, q_offset=off,
+                             kv_len=kvl)
+    with pytest.raises(TypeError, match="host ints"):
+        fa.attention_fwd(q, k, k, causal=True, scale=0.125, attn_cap=0.0,
+                         window=0, q_offset=torch.tensor(3), kv_len=8)
+    with pytest.raises(TypeError, match="host ints"):
+        base.attend(q, k, k, causal=True,
+                    q_pos=torch.arange(4, device="cuda"), kv_len=8)
+    with pytest.raises(ValueError, match="forward-only"):
+        ops.attention(q.clone().requires_grad_(), k, k, q_offset=4,
+                      kv_len=8)
+    assert fa.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_step_on_cuda_matches_cpu(cuda, dtype):
+    """A prefill grown by 8 and 8 decode steps of a narrow TinyLlama (hd
+    64, GQA 8/2) on the card against the same steps on the CPU, from the
+    same parameters: one flash launch a layer a step (masked decode on
+    the card from the second), the same final position, and the logits
+    within 1e-4 of max|logit| in fp32 and 4e-2 in bf16 (the card's and
+    the CPU's bf16 matmuls round their outputs at other points, a few
+    bf16 ulps of drift over three layers)."""
+    from repro_torch.models.registry import get_model
+    dt = getattr(torch, dtype)
+    cfg = tl.SMOKE.scaled(dtype=dt, d_model=256, n_heads=8, n_kv_heads=2,
+                          head_dim=64, d_ff=512, vocab=512, n_layers=3)
+    model = get_model(cfg)
+    full = tree.map_leaves(lambda t: t.to(dt),
+                           model.init(torch.Generator().manual_seed(0)))
+    toks = torch.randint(0, cfg.vocab, (4, 40), generator=torch.Generator()
+                         .manual_seed(1))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = tree.map_leaves(lambda t: t.to(dev), full)
+        fa.launches = 0
+        with torch.inference_mode():
+            logits, cache = model.prefill(p, {"tokens": toks[:, :32].to(dev)})
+            cache["layers"] = {k: torch.cat([v, torch.zeros_like(v[:, :, :8])],
+                                            2)
+                               for k, v in cache["layers"].items()}
+            outs = [logits]
+            for t in range(32, 40):
+                logits, cache = model.decode(p, toks[:, t:t + 1].to(dev),
+                                             cache)
+                outs.append(logits)
+        runs[dev] = (torch.cat(outs, 1).float().cpu(), fa.launches,
+                     cache["pos"])
+    assert runs["cuda"][1] == cfg.n_layers * 9 and runs["cpu"][1] == 0
+    assert runs["cuda"][2] == runs["cpu"][2] == 40
+    got, want = runs["cuda"][0], runs["cpu"][0]
+    tol = (1e-4 if dt == torch.float32 else 4e-2) * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+
+
 def test_flash_kernel_wrapper_refuses_what_it_does_not_take():
     """Checked before anything is built, so this runs without a card."""
     q = torch.zeros((1, 8, 2, 64))

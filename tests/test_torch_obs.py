@@ -547,7 +547,8 @@ def test_report_cli_renders_histogram_section(tmp_path, capsys):
 
 def _incident_log(tmp_path, worst="warning"):
     """An incident log written by the reference's health plane (the
-    port's is ROADMAP queue 1 item 13), which both CLIs render."""
+    port's writes the same bytes: ``tests/test_torch_health.py``), which
+    both CLIs render."""
     tm = jobs.Telemetry.create(clock=jobs.counting_clock())
     tm.registry.counter("tenant.t.retransmits").inc(7)
     if worst == "critical":
@@ -621,11 +622,10 @@ def test_flare_config_telemetry_is_not_a_cache_key():
     assert t.telemetry is wired.telemetry
     assert t == transports.from_config(bare, RankMesh((1, 8)),
                                        torch.float32)
-    # what the port still lacks of the reference's surface is the
-    # health plane's (ROADMAP queue 1 item 13)
+    # the port has the reference's whole surface, the health plane's
+    # (ROADMAP queue 1 item 13) included
     assert set(obs.__all__) <= set(jobs.__all__)
-    assert sorted(set(jobs.__all__) - set(obs.__all__)) == [
-        "HealthMonitor", "Incident", "Remediation", "SLOPolicy", "SLORule"]
+    assert sorted(set(jobs.__all__) - set(obs.__all__)) == []
 
 
 # ---------------------------------------------------------------------------

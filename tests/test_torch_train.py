@@ -149,17 +149,28 @@ def test_attend_bf16_scales_queries_as_the_jitted_reference(hd, chunk):
     jitted reference multiplies ``fl32(q)`` by the scale rounded to bf16,
     unrounded; both CPU branches of the port do the same, so they agree
     within one bf16 ulp (summation order).  Scaling by the fp32 scale, or
-    rounding the product to bf16, moves thousands of outputs further."""
+    rounding the product to bf16, moves thousands of outputs further.
+    The masked decode branch (``q_pos``, ``kv_len``: the last 8 queries
+    over a cache of 124 valid entries, ``q_pos`` as positions and as the
+    first position's host int) scales the same way."""
     rng = np.random.default_rng(3)
     q = _rand(rng, (1, 128, 4, hd), "bf16") * 4
     k, v = (_rand(rng, (1, 128, 2, hd), "bf16") for _ in range(2))
     jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
     want = np.asarray(jax.jit(functools.partial(
         jbase.attend, causal=True, chunk=chunk))(jq, jk, jv), np.float32)
-    got = base.attend(*(torch.from_numpy(x.astype(np.float32)).bfloat16()
-                        for x in (q, k, v)),
-                      causal=True, chunk=chunk).float().numpy()
+    tq, tk, tv = (torch.from_numpy(x.astype(np.float32)).bfloat16()
+                  for x in (q, k, v))
+    got = base.attend(tq, tk, tv, causal=True, chunk=chunk).float().numpy()
     assert np.all(np.abs(got - want) <= _bf16_ulp(want))
+    want = np.asarray(jax.jit(functools.partial(
+        jbase.attend, causal=True, chunk=chunk))(
+            jq[:, -8:], jk, jv, q_pos=120 + jnp.arange(8),
+            kv_len=jnp.int32(124)), np.float32)
+    for q_pos in (120 + torch.arange(8), 120):
+        got = base.attend(tq[:, -8:], tk, tv, causal=True, chunk=chunk,
+                          q_pos=q_pos, kv_len=124).float().numpy()
+        assert np.all(np.abs(got - want) <= _bf16_ulp(want))
 
 
 @pytest.mark.parametrize("hd,vd", [(128, 128), (256, 256), (192, 128)])
@@ -743,7 +754,8 @@ def test_launcher_runs_on_cpu(capsys):
 #: cases that still stop name their ROADMAP item or the reference's check
 _WRITES = {"ckpt": ["ck/step_000001/manifest.json",
                     "ck/step_000002/manifest.json"],
-           "trace": ["t.json"], "metrics": ["m.json"]}
+           "trace": ["t.json"], "metrics": ["m.json"],
+           "health": [], "incidents": ["i.json"]}
 
 
 @pytest.mark.parametrize("flags,item", [
@@ -762,11 +774,13 @@ _WRITES = {"ckpt": ["ck/step_000001/manifest.json",
                  id="flags3-item 13"),
     pytest.param(["--metrics-out", "{tmp}/m.json"], "metrics",
                  id="flags4-item 13"),
-    # the health plane is not: it stops naming item 13
-    pytest.param(["--health-policy", "observe"], "item 13",
+    # and so is the health plane (item 13): it prints its incident log
+    # and writes it with --incidents-out; alone, --incidents-out stops
+    # with the reference's message
+    pytest.param(["--health-policy", "observe"], "health",
                  id="flags5-item 13"),
-    pytest.param(["--health-policy", "observe", "--incidents-out", "x"],
-                 "item 13", id="flags6-item 13"),
+    pytest.param(["--health-policy", "observe", "--incidents-out",
+                  "{tmp}/i.json"], "incidents", id="flags6-item 13"),
     pytest.param(["--incidents-out", "x"], "needs --health-policy",
                  id="flags7-item 13")])
 def test_launcher_unported_flags_name_their_item(flags, item, tmp_path,
@@ -781,10 +795,14 @@ def test_launcher_unported_flags_name_their_item(flags, item, tmp_path,
     assert len(losses) == 2 and np.isfinite(losses).all()
     out = capsys.readouterr().out
     for name in _WRITES[item]:
-        # the wire path records no switch counters: "{}" is a valid export
-        assert isinstance(json.loads((tmp_path / name).read_text()), dict)
+        # the wire path records no switch counters: "{}" is a valid export;
+        # it raises no incident: "[]" is a valid incident log
+        doc = json.loads((tmp_path / name).read_text())
+        assert doc == [] if item == "incidents" else isinstance(doc, dict)
     if item == "ckpt":
         assert out.count(" loss ") == 2
+    elif item == "health":
+        assert "== health ==\nhealth: no incidents" in out
     else:
         assert f"{item} -> {tmp_path}" in out
 
@@ -801,7 +819,9 @@ def test_port_sources_import_no_jax_and_no_reference():
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.MULTILINE)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += sorted((ROOT / "examples_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 30
+    assert ROOT / "examples_torch" / "serve_batched.py" in files
     offenders = [str(f) for f in files if bad.search(f.read_text())]
     assert offenders == []
