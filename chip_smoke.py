@@ -77,9 +77,18 @@
    kernel and no fp32 one; bf16 at ``(hd, vd)`` = (16, 16), (32, 32),
    (128, 128), (256, 256) and (192, 128); ``base.attend`` in bf16 at hd
    128 on the card against its dense CPU branch (the scale rounded to
-   bf16 in both); and the training path's shape, q ``(8, 4096, 32, 64)``
-   against k, v ``(8, 4096, 4, 64)`` bf16 causal (the plain version on one
-   batch row).
+   bf16 in both).  Then ``FLASH_MODEL_CASES``: every launch shape that
+   the model paths give the kernel (TinyLlama's train step, prefill and
+   decode; gemma2-2b's train step, prefill and decode, local and global,
+   hd 256, cap 50, window 4096; qwen3's prefill and decode, hd 128,
+   16-way groups), granite-20b's 48 query heads on one KV head, gemma2's window
+   where it hides most keys (``Sq = Sk = 8192``) and its masked decode
+   at ``kv_len`` 6144.  Each is one tensor-core launch held against the
+   plain version at every batch row, timed beside its bound and
+   ``scaled_dot_product_attention`` with the same boolean mask (no cap:
+   SDPA takes none); where the window hides a key, the plain version
+   without it differs.  After phase 21 every launch that phases 9 and
+   18–21 recorded must have its case here.
 8. The wire dense reductions (``WIRE_RUNS``), at the reduction paths'
    model and size: on ``(2, 4)`` the default (the hierarchical schedule,
    rhd levels), ``reproducible=True`` (its fixed-tree variant),
@@ -109,10 +118,9 @@
    ``fixed_tree``: F3); and runs one step at ``COMPARE_LAYERS`` with the
    plain attention patched in against the kernel's step from the same
    parameters (loss and gradient norm within 2e-2 relative: bf16).
-   Then times the kernel at the path's shape beside its tensor-core
-   FLOP bound, its plain version and ``scaled_dot_product_attention``
-   (the library yardstick, which the port never calls), and at hd 128 on
-   ``(1, 4096, 32, 128)``.
+   The kernel's line takes phase 7's figures at the path's launch, with
+   ``scaled_dot_product_attention`` causal and unmasked as its library
+   yardstick (which the port never calls).
 10. The training step on the wire, the launcher's default
    (``WIRE_TRAIN_FLAGS``: the same flags without ``--transport innetwork
    --reproducible``), after the in-network run is freed: a warm-up step,
@@ -243,11 +251,31 @@
    tokens: logits within ``SERVE_LOGIT_TOL`` of max|logit|, greedy
    tokens equal except where the plain run's top two logits lie within
    that tolerance (counted).  The median prefill and decode step times,
-   the peak; the decode launch (q ``(16, 1, 32, 64)`` over a layer's
-   ``(16, 2048, 4, 64)`` cache at ``kv_len`` 1088) against its plain
-   version, its byte bound and ``scaled_dot_product_attention`` with a
-   boolean mask; a profile of one decode step (device time against wall
-   time).
+   the peak; a profile of one decode step (device time against wall
+   time).  The decode launch's own figures are phase 7's.
+19. The gemma2-2b training step: phase 9's checks through
+   ``launch.train.setup`` with ``GEMMA_TRAIN_FLAGS`` (``TRAIN_FLAGS`` and
+   ``--arch gemma2-2b``: local/global pairs, softcaps, sandwich norms, the
+   tied head) at ``GEMMA_TRAIN_LAYERS``: 5 timed steps, flash 2 a layer a
+   step on the tensor cores at hd 256, ``tree_reduce_slots`` launched,
+   losses finite and falling, the F3 replay, 2 layers against the plain
+   attention; the median step, the peak and a profile.
+20. Serving gemma2-2b at all 26 layers, bf16: ``launch.serve --arch
+   gemma2-2b`` at its defaults (26 flash launches a decode call), then
+   ``GEMMA_SERVE_B`` prompts of ``GEMMA_SERVE_PROMPT`` tokens (past the
+   window of 4096) and ``GEMMA_SERVE_STEPS`` decode steps past them
+   against the plain attention, as phase 18 holds TinyLlama; opening the
+   window moves the logits by more than that comparison's tolerance.
+21. Serving qwen3-moe-235b-a22b at published widths, ``QWEN_SERVE_LAYERS``
+   deep (bf16, the router fp32, drawn a layer at a time): prefill and
+   decode as phase 20, the plain run teacher-forced on the kernel run's
+   expert choices as well as its tokens (the router flips it would have
+   made counted), with the ``gather`` combine and then ``scatter_ar``
+   teacher-forced on gather's tokens and choices (logits within
+   ``SERVE_LOGIT_TOL``, tokens equal outside near ties); the slot server
+   on the same model.  The MoE train step does not fit the card at these
+   widths (one layer's fp32 state is about 60 GB before any gradient):
+   it is held on the CPU against the reference.
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line
 of kernel figures, and as its last line ``{"ok": true, "device": ...}``.
@@ -380,6 +408,60 @@ SERVE_B, SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 16, 1024, 2048, 64
 #: phase 18: logits of the kernel's steps within this share of max|logit|
 #: of the same steps with the plain attention (bf16 through 22 layers)
 SERVE_LOGIT_TOL = 3e-2
+#: phase 19: the gemma2-2b training step, ``TRAIN_FLAGS`` with its arch.
+#: Depth cut from the published 26 to fit: fp32 weights, gradients and
+#: both Adam moments are 16 B a parameter, held by both pods (8 layers:
+#: 1.21 G parameters, 0.59 G of them the tied embedding, 38.8 GB), beside
+#: the gathered bf16 embedding (9.4 GB on 8 ranks) and its gradient
+GEMMA_TRAIN_FLAGS = [*TRAIN_FLAGS, "--arch", "gemma2-2b"]
+GEMMA_TRAIN_LAYERS = 8
+#: phase 20: gemma2-2b served at all 26 layers: prompts, prompt length
+#: (past the local layers' window of 4096), the cache grown to this many
+#: positions, lockstep decode steps
+GEMMA_SERVE_B, GEMMA_SERVE_PROMPT, GEMMA_SERVE_CACHE, GEMMA_SERVE_STEPS = (
+    2, 6144, 6144 + 32, 32)
+#: phase 21: qwen3-moe-235b-a22b served at published widths, depth cut
+#: from 94: a layer is 2.49 G parameters (4.98 GB in bf16), the untied
+#: embedding and head 2.49 GB more, so 8 layers hold about 42 GB
+QWEN_SERVE_LAYERS = 8
+QWEN_SERVE_B, QWEN_SERVE_PROMPT, QWEN_SERVE_CACHE, QWEN_SERVE_STEPS = (
+    4, 1024, 1024 + 32, 32)
+#: phase 7's flash cases at the model paths' launches, name → (B, Sq, Sk,
+#: H, KV, hd, cap, window, q_offset, kv_len): every launch shape that
+#: phases 9 and 18–21 give the kernel (a decode case at its last step's
+#: position; ``path_flash`` records the paths' launches and ``main``
+#: checks each has its case here), and three that no path launches on the
+#: card: gemma2's window where it hides most keys (Sq = Sk = 8192),
+#: granite-20b's 48 query heads on one KV head, and gemma2's windowed
+#: decode at ``kv_len`` 6144 of an 8192-position cache
+_TL, _GE, _QW = (32, 4, 64, 0.0), (8, 4, 256, 50.0), (64, 4, 128, 0.0)
+FLASH_MODEL_CASES = {
+    "tinyllama train": (8, 4096, 4096, *_TL, 0, 0, None),
+    "tinyllama prefill": (SERVE_B, SERVE_PROMPT, SERVE_PROMPT, *_TL, 0, 0,
+                          None),
+    "tinyllama decode": (SERVE_B, 1, SERVE_CACHE, *_TL, 0,
+                         SERVE_PROMPT + SERVE_STEPS - 1,
+                         SERVE_PROMPT + SERVE_STEPS),
+    "gemma2 train local": (8, 4096, 4096, *_GE, 4096, 0, None),
+    "gemma2 train global": (8, 4096, 4096, *_GE, 0, 0, None),
+    "gemma2 prefill local": (GEMMA_SERVE_B, GEMMA_SERVE_PROMPT,
+                             GEMMA_SERVE_PROMPT, *_GE, 4096, 0, None),
+    "gemma2 prefill global": (GEMMA_SERVE_B, GEMMA_SERVE_PROMPT,
+                              GEMMA_SERVE_PROMPT, *_GE, 0, 0, None),
+    "gemma2 decode local": (GEMMA_SERVE_B, 1, GEMMA_SERVE_CACHE, *_GE,
+                            4096, GEMMA_SERVE_PROMPT + GEMMA_SERVE_STEPS - 1,
+                            GEMMA_SERVE_PROMPT + GEMMA_SERVE_STEPS),
+    "gemma2 decode global": (GEMMA_SERVE_B, 1, GEMMA_SERVE_CACHE, *_GE, 0,
+                             GEMMA_SERVE_PROMPT + GEMMA_SERVE_STEPS - 1,
+                             GEMMA_SERVE_PROMPT + GEMMA_SERVE_STEPS),
+    "qwen3 prefill": (QWEN_SERVE_B, QWEN_SERVE_PROMPT, QWEN_SERVE_PROMPT,
+                      *_QW, 0, 0, None),
+    "qwen3 decode": (QWEN_SERVE_B, 1, QWEN_SERVE_CACHE, *_QW, 0,
+                     QWEN_SERVE_PROMPT + QWEN_SERVE_STEPS - 1,
+                     QWEN_SERVE_PROMPT + QWEN_SERVE_STEPS),
+    "gemma2 window 4096 at 8192": (1, 8192, 8192, *_GE, 4096, 0, None),
+    "granite GQA 48": (1, 4096, 4096, 48, 1, 128, 0.0, 0, 0, None),
+    "gemma2 decode kv_len 6144": (2, 1, 8192, *_GE, 4096, 6143, 6144)}
 #: TinyLlama depth, cut from the published 22: the int8 reduction's peak
 #: is about four times the 8 ranks' fp32 gradient bytes (the caller's
 #: gradients and state, the two packed arenas), and 22 layers of fp32
@@ -1016,9 +1098,8 @@ def flash_err(torch, got, want, v) -> float:
     return err
 
 
-def phase_flash_vs_plain(torch, ops, ref, fa, base) -> float:
-    """The flash kernels vs their plain version; returns the worst error
-    at the training path's shape."""
+def phase_flash_vs_plain(torch, ops, ref, fa, base) -> None:
+    """The flash kernels vs their plain version on synthetic cases."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     cases = 0
@@ -1091,16 +1172,6 @@ def phase_flash_vs_plain(torch, ops, ref, fa, base) -> float:
     want = base.attend(q.cpu(), k.cpu(), v.cpu(), causal=True)
     attend_err = flash_err(torch, got, want, v.cpu())
     cases += 1
-    # the training path's shape; the plain version on one batch row
-    q = torch.randn((8, 4096, 32, 64), generator=gen,
-                    device="cuda").to(torch.bfloat16)
-    k, v = (torch.randn((8, 4096, 4, 64), generator=gen,
-                        device="cuda").to(torch.bfloat16) for _ in range(2))
-    got = ops.attention(q, k, v, causal=True)
-    want, _ = ref.flash_attention_bshd(q[:1], k[:1], v[:1], causal=True)
-    torch.cuda.synchronize()
-    path_err = flash_err(torch, got[:1], want, v[:1])
-    cases += 1
     print(f"flash kernels vs plain: {cases} cases within tolerance (causal "
           "and not, cap 0 and 30, window 0 and 256, GQA 1, 4 and 8, ragged "
           "Sq and Sk; fp32 on the CUDA cores at atol 3e-5, bf16 on the "
@@ -1109,14 +1180,137 @@ def phase_flash_vs_plain(torch, ops, ref, fa, base) -> float:
           "128)); worst error "
           f"fp32 {worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e};"
           f" base.attend bf16 hd 128 on the card vs the CPU's dense branch "
-          f"{attend_err:.3e}; at the path's shape (8, 4096, 32|4, 64) bf16 "
-          f"causal, batch row 0: {path_err:.3e}")
-    return path_err
+          f"{attend_err:.3e}")
 
 
-def phase_train(torch, card, total_mem, tr) -> dict:
-    """The training step at full width: checks, time, memory, profile,
-    the F3 replay and the comparison against the plain attention."""
+def flash_signature(q, k, v, *, causal, scale, attn_cap, window,
+                    q_offset=0, kv_len=None) -> tuple:
+    """What a flash launch's arithmetic depends on but its decode
+    position: shapes, dtype, mask kind, scale, cap, window."""
+    return (tuple(q.shape), tuple(k.shape), tuple(v.shape), str(q.dtype),
+            causal, scale, attn_cap, window,
+            bool(q_offset) or kv_len is not None)
+
+
+#: label → the set of ``flash_signature``s a path phase launched
+PATH_FLASH: dict = {}
+
+
+def path_flash(label: str):
+    """Record the signature of every flash launch under ``label`` (the
+    kernel still launches)."""
+    from repro_torch.kernels import flash_attn as fa
+    seen = PATH_FLASH.setdefault(label, set())
+    real = fa.attention_fwd
+
+    def record(q, k, v, **kw):
+        seen.add(flash_signature(q, k, v, **kw))
+        return real(q, k, v, **kw)
+    return mock.patch.object(fa, "attention_fwd", record)
+
+
+def case_kw(torch, case) -> dict:
+    """A ``FLASH_MODEL_CASES`` entry's launch keywords: the model's query
+    scale (``hd ** -0.5`` rounded to bf16), its cap, window and mask."""
+    hd, cap, win, off, kvl = case[5:]
+    return dict(causal=True, scale=torch.tensor(
+        hd ** -0.5, dtype=torch.bfloat16).item(), attn_cap=cap, window=win,
+        q_offset=off, kv_len=kvl)
+
+
+def case_shapes(case) -> tuple:
+    """A ``FLASH_MODEL_CASES`` entry's q, k and v shapes."""
+    b, sq, sk, h, kv, hd = case[:6]
+    return (b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd)
+
+
+def check_path_flash(torch) -> None:
+    """Every flash launch the path phases recorded has its phase-7 case."""
+    cases = {flash_signature(*(torch.empty(shape, dtype=torch.bfloat16,
+                                           device="meta")
+                               for shape in case_shapes(case)),
+                             **case_kw(torch, case))
+             for case in FLASH_MODEL_CASES.values()}
+    for label, seen in PATH_FLASH.items():
+        missing = seen - cases
+        check(bool(seen) and not missing, f"{label}: flash launches "
+              f"{sorted(missing)} have no case in FLASH_MODEL_CASES")
+    print(f"every flash launch of {sorted(PATH_FLASH)} is a phase-7 case "
+          f"({sum(map(len, PATH_FLASH.values()))} shapes), held there "
+          "against the plain version at every batch row")
+
+
+def phase_flash_model_cases(torch, fa, ref, card) -> dict:
+    """Phase 7's model-path cases (``FLASH_MODEL_CASES``): bf16 flash
+    against its plain version at every batch row, one tensor-core launch
+    each, timed by CUDA events beside its bound and
+    ``scaled_dot_product_attention`` on the same boolean mask (SDPA takes
+    no tanh cap: it is timed without one).  Where the window hides a key,
+    the plain version without it must differ.  Returns each case's
+    figures."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    out = {}
+    for name, case in FLASH_MODEL_CASES.items():
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                   for shape in case_shapes(case))
+        kw = case_kw(torch, case)
+        b, sq, h, hd = q.shape
+        sk = k.shape[1]
+        win, off, kvl = kw["window"], kw["q_offset"], kw["kv_len"]
+        before = fa.tc_launches
+        got, _ = fa.attention_fwd(q, k, v, **kw)
+        check(fa.tc_launches == before + 1, f"{name}: not on the tensor "
+              "cores")
+        want, _ = ref.flash_attention_bshd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = flash_err(torch, got, want, v)
+        if win and off + sq - 1 >= win:
+            opened, _ = ref.flash_attention_bshd(q, k, v,
+                                                 **dict(kw, window=0))
+            check(not torch.equal(opened, want), f"{name}: the window hid "
+                  "no key")
+            del opened
+        k_ms = cuda_ms(lambda: fa.attention_fwd(q, k, v, **kw), 10)
+        p_ms = cuda_ms(lambda: ref.flash_attention_bshd(q, k, v, **kw), 1,
+                       warmup=1)
+        pos = off + torch.arange(sq, device="cuda")
+        kp = torch.arange(sk, device="cuda")
+        mask = (kp[None] <= pos[:, None]) & (kp[None] < (kvl or sk))
+        if win:
+            mask &= kp[None] > pos[:, None] - win
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask[None, None], scale=kw["scale"],
+            enable_gqa=True), 10)
+        flops = fa.flops(b, h, sq, sk, hd, causal=True, window=win,
+                         q_offset=off, kv_len=kvl or sk)
+        nbytes = fa.bytes_moved(q, k, v, kvl or sk, window=win,
+                                q_offset=off)
+        by_ops = flops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
+        bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        print(f"flash_attention {name}: q {tuple(q.shape)} k, v "
+              f"{tuple(k.shape)} bf16 causal cap {kw['attn_cap']} window "
+              f"{win}" + (f" q_offset {off} kv_len {kvl}" if kvl else "")
+              + f": {k_ms:.4f} ms; bound {bound:.4f} ms by "
+              f"{'operations' if by_ops else 'bytes'} ({flops} flops, "
+              f"{nbytes} bytes; {bound / k_ms:.1%} of the bound); plain "
+              f"{p_ms:.3f} ms; library scaled_dot_product_attention with "
+              f"the boolean mask, no cap, {l_ms:.4f} ms; max |kernel - "
+              f"plain| over all {b} batch rows {err:.3e}  [{card}]")
+        out[name] = dict(ms=k_ms, bound_ms=bound, plain_ms=p_ms,
+                         library_ms=l_ms, max_abs_err=err)
+        del q, k, v, got, want, mask
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(torch, card, total_mem, tr, flags=TRAIN_FLAGS,
+                layers=TRAIN_LAYERS, phase=9) -> dict:
+    """The training step at full width (the launcher's ``flags``, depth
+    ``layers``): checks, time, memory, profile, the F3 replay and the
+    comparison against the plain attention at ``COMPARE_LAYERS``."""
+    from repro_torch import configs
     from repro_torch import tree
     from repro_torch.core import collectives as coll
     from repro_torch.core.engine import FlareConfig, GradReducer
@@ -1128,14 +1322,15 @@ def phase_train(torch, card, total_mem, tr) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    run = launch.setup(TRAIN_FLAGS, n_layers=TRAIN_LAYERS, dtype=torch.bfloat16)
+    t_phase = t0 = time.perf_counter()
+    run = launch.setup(flags, n_layers=layers, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(p[(0,) * run.step.mesh.ndim].numel()
                    for p in tree.flatten(run.params)[0])
+    published = configs.load(run.args.arch).CONFIG.n_layers
     print(f"training: {run.cfg.name} at published widths, {run.cfg.n_layers} "
-          f"of 22 layers, bf16 compute, fp32 master weights, mesh "
+          f"of {published} layers, bf16 compute, fp32 master weights, mesh "
           f"{dict(zip(run.mesh.axes, run.mesh.shape))}, global batch "
           f"{run.args.batch} x {run.args.seq} (one sequence a rank), "
           f"{n_params} parameters a rank, set up in {setup_s:.1f} s")
@@ -1150,12 +1345,13 @@ def phase_train(torch, card, total_mem, tr) -> dict:
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t) * 1e3)
 
-    one()                                      # warm-up
+    with path_flash(f"phase {phase}"):
+        one()                                  # warm-up
     fa.launches = fa.tc_launches = tr.launches = 0
     for _ in range(5):
         one()
     torch.cuda.synchronize()
-    launches, tc_launches = fa.launches, fa.tc_launches
+    launches, tc_launches, folds = fa.launches, fa.tc_launches, tr.launches
     peak = torch.cuda.max_memory_allocated()
     step_ms = statistics.median(steps[1:])
     print(f"training losses (warm-up, then steps 1-5): "
@@ -1164,18 +1360,19 @@ def phase_train(torch, card, total_mem, tr) -> dict:
     print(f"training step ms (median of 5, {card}): {step_ms:.1f} (runs "
           f"{[round(t, 1) for t in steps[1:]]}; warm-up {steps[0]:.1f}); "
           f"flash launches {launches} over 5 steps ({launches // 5} a step "
-          f"= 2 x {TRAIN_LAYERS} layers; {tc_launches} of them the tensor-"
+          f"= 2 x {layers} layers; {tc_launches} of them the tensor-"
           f"core kernel's); tree_reduce_slots launches "
-          f"{tr.launches} ({tr.launches // 5} a step); peak device memory "
+          f"{folds} ({folds // 5} a step); peak device memory "
           f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}")
     check(all(map(math.isfinite, losses)), f"a loss is not finite: {losses}")
     check(losses[5] < losses[1], f"step 5 loss {losses[5]} is not below "
           f"step 1 loss {losses[1]}")
-    per_step = 2 * TRAIN_LAYERS
+    per_step = 2 * layers
     check(launches == 5 * per_step, f"flash launches {launches} over 5 "
           f"steps, want {5 * per_step} (2 a layer a step)")
     check(tc_launches == launches, f"{launches - tc_launches} of the step's "
           "flash launches missed the tensor-core kernel")
+    check(folds > 0, "the step's reduction launched no tree_reduce_slots")
 
     phase_profile(torch, run.train_step, card, "one training step")
 
@@ -1222,7 +1419,7 @@ def phase_train(torch, card, total_mem, tr) -> dict:
 
     # -- the plain attention patched in, at COMPARE_LAYERS ------------------
     def compare_step(plain):
-        r = launch.setup(TRAIN_FLAGS, n_layers=COMPARE_LAYERS,
+        r = launch.setup(flags, n_layers=COMPARE_LAYERS,
                          dtype=torch.bfloat16)
         if not plain:
             return r.train_step()
@@ -1245,8 +1442,10 @@ def phase_train(torch, card, total_mem, tr) -> dict:
           f"; relative {rel['loss']:.2e} and {rel['grad_norm']:.2e} (bf16 "
           "tolerance 2e-2)")
     torch.cuda.empty_cache()
-    return {"launches": launches, "step_ms": step_ms, "peak": peak,
-            "loss1": losses[0], "norm1": norms[0]}
+    print(f"phase {phase}: phase {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+    return {"launches": launches, "folds": folds, "step_ms": step_ms,
+            "peak": peak, "loss1": losses[0], "norm1": norms[0]}
 
 
 def phase_wire_reductions(torch, card, total_mem, cfg, seed) -> None:
@@ -3010,12 +3209,9 @@ def phase_serve(torch, card, total_mem, seed) -> None:
     """Phase 18: serving TinyLlama-1.1B (module docstring, item 18)."""
     import io
 
-    import torch.nn.functional as F
-
     from repro_torch import tree
     from repro_torch.configs import tinyllama_1_1b as tl
     from repro_torch.kernels import flash_attn as fa
-    from repro_torch.kernels import ops, ref
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import transformer
     from repro_torch.models.registry import get_model
@@ -3063,23 +3259,253 @@ def phase_serve(torch, card, total_mem, seed) -> None:
     torch.cuda.empty_cache()
     prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_PROMPT),
                             generator=gen, device="cuda")
+    serve_at_scale(torch, card, total_mem, model, params, prompts,
+                   SERVE_CACHE, SERVE_STEPS, "serving at scale")
+    del params, prompts
+    torch.cuda.empty_cache()
+
+    print(f"phase 18: phase {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def phase_gemma_serve(torch, card, total_mem, seed) -> dict:
+    """Phase 20: serving gemma2-2b at all 26 layers (module docstring,
+    item 20)."""
+    import io
+
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding import rules
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = gemma2_2b.CONFIG
+    layers = cfg.n_layers
+
+    # -- (a) launch.serve --arch gemma2-2b at the reference's defaults -------
+    calls = []
+    real_decode = transformer.decode_step
+
+    def counting_decode(*a, **k):
+        calls.append(1)
+        return real_decode(*a, **k)
+    buf = io.StringIO()
+    fa.launches = fa.tc_launches = 0
+    with mock.patch.object(transformer, "decode_step", counting_decode), \
+            contextlib.redirect_stdout(buf):
+        reqs = launch_serve.main(["--arch", "gemma2-2b", "--seed",
+                                  str(seed)])
+    torch.cuda.synchronize()
+    served = (fa.launches, fa.tc_launches)
+    print(buf.getvalue(), end="")
+    check(served[0] == served[1] == layers * len(calls) and calls,
+          f"launch.serve --arch gemma2-2b: flash launches {served} for "
+          f"{len(calls)} decode calls of {layers} layers")
+    check(len(reqs) == 8 and all(r.done and len(r.out) == 16 for r in reqs)
+          and all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+          "launch.serve --arch gemma2-2b did not finish its requests")
+    print(f"launch.serve --arch gemma2-2b ({layers} layers, bf16, {card}): "
+          f"{len(calls)} decode calls, flash launches {served[0]} "
+          f"({served[1]} tensor-core) = {layers} a call")
+    del reqs
+    torch.cuda.empty_cache()
+
+    # -- (b) prompts past the window, decode past them ----------------------
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    params = rules.cast_params(model.init(gen), cfg.dtype)
+    torch.cuda.empty_cache()
+    prompts = torch.randint(0, cfg.vocab, (GEMMA_SERVE_B,
+                                           GEMMA_SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    got = serve_at_scale(torch, card, total_mem, model, params, prompts,
+                         GEMMA_SERVE_CACHE, GEMMA_SERVE_STEPS,
+                         "gemma2-2b serving")
+    # the local layers' window hid keys: opening it moves the logits by
+    # more than the kernel-vs-plain tolerance, so that comparison would
+    # catch a kernel that ignored the window
+    with torch.inference_mode():
+        opened, _ = get_model(cfg.scaled(window=0)).prefill(
+            params, {"tokens": prompts})
+    scale = float(got["logits"][0].abs().max())
+    moved = float((opened[:, -1].float() - got["logits"][0]).abs().max())
+    check(moved > SERVE_LOGIT_TOL * scale, f"gemma2-2b: opening the window "
+          f"moves the logits by {moved}, within {SERVE_LOGIT_TOL} of {scale}")
+    print(f"gemma2-2b: opening the local layers' window moves the last "
+          f"prefill logits by up to {moved:.3f}, {moved / scale:.3e} of "
+          f"max|logit| {scale:.3f} (the kernel-vs-plain tolerance is "
+          f"{SERVE_LOGIT_TOL}; the kernel run's own worst {got['worst']:.3e})")
+    del params, prompts, opened, got["logits"]
+    torch.cuda.empty_cache()
+    print(f"phase 20: phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return got
+
+
+def layerwise_params(torch, model, gen) -> dict:
+    """The model's parameters in its compute dtype (``KEEP_F32`` leaves in
+    fp32), drawn one layer at a time into the stacks: the fp32 draw of the
+    whole stack would not fit beside them."""
+    from repro_torch import tree
+    from repro_torch.models import transformer
+    from repro_torch.sharding import rules
+    cfg = model.cfg
+    params = rules.cast_params(
+        transformer.init_params(cfg.scaled(n_layers=1), gen), cfg.dtype)
+    first = params["layers"]
+    params["layers"] = tree.map_leaves(
+        lambda t: t.new_empty((cfg.n_layers, *t.shape[1:])), first)
+    for i in range(cfg.n_layers):
+        layer = first if i == 0 else rules.cast_params(
+            transformer._layers(cfg, gen, 1), cfg.dtype)
+        for dst, src in zip(tree.flatten(params["layers"])[0],
+                            tree.flatten(layer)[0]):
+            dst[i].copy_(src[0])
+        del layer
+    return params
+
+
+def phase_qwen_serve(torch, card, total_mem, seed) -> dict:
+    """Phase 21: serving qwen3-moe-235b-a22b at published widths
+    (module docstring, item 21)."""
+    from repro_torch import tree
+    from repro_torch.configs import qwen3_moe_235b_a22b as qwen
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve import BatchedServer
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = qwen.CONFIG.scaled(n_layers=QWEN_SERVE_LAYERS)
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    t0 = time.perf_counter()
+    params = layerwise_params(torch, model, gen)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree.flatten(params)[0])
+    print(f"qwen3-moe-235b-a22b at published widths, {cfg.n_layers} of 94 "
+          f"layers: {nbytes / 1e9:.2f} GB of bf16 parameters (router fp32), "
+          f"drawn in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    prompts = torch.randint(0, cfg.vocab, (QWEN_SERVE_B, QWEN_SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    got = serve_at_scale(torch, card, total_mem, model, params, prompts,
+                         QWEN_SERVE_CACHE, QWEN_SERVE_STEPS,
+                         "qwen3 serving (gather combine)")
+    # the scatter_ar combine, teacher-forced on the gather run's tokens
+    # and expert choices
+    ar = serve_at_scale(torch, card, total_mem,
+                        get_model(cfg.scaled(moe_combine="scatter_ar")),
+                        params, prompts, QWEN_SERVE_CACHE, QWEN_SERVE_STEPS,
+                        "qwen3 serving (scatter_ar combine)",
+                        feed=got["toks"], routes=got["routes"])
+    worst, near, mism = 0.0, 0, 0
+    for la, lg in zip(ar["logits"], got["logits"]):
+        scale = float(lg.abs().max())
+        worst = max(worst, float((la - lg).abs().max()) / scale)
+        top2 = lg.topk(2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= SERVE_LOGIT_TOL * scale
+        near += int(tie.sum())
+        mism += int(((la.argmax(-1) != lg.argmax(-1)) & ~tie).sum())
+    check(worst <= SERVE_LOGIT_TOL and mism == 0,
+          f"qwen3: scatter_ar vs gather logits {worst}, {mism} tokens "
+          "differ outside a near tie")
+    print(f"qwen3 combines: scatter_ar's logits within {worst:.3e} of "
+          f"max|logit| of gather's (tolerance {SERVE_LOGIT_TOL}), greedy "
+          f"tokens equal outside {near} near ties")
+    # the slot server on the same model
+    srv = BatchedServer(model, params, slots=4, max_len=64)
+    rng = torch.Generator().manual_seed(seed)
+    reqs = [srv.submit(torch.randint(0, cfg.vocab, (n,),
+                                     generator=rng).numpy(), max_new=8)
+            for n in (3, 5, 2, 7)]
+    fa.launches = 0
+    steps = srv.run()
+    torch.cuda.synchronize()
+    check(all(r.done and len(r.out) == 8 for r in reqs)
+          and fa.launches > 0 and fa.launches % cfg.n_layers == 0,
+          f"qwen3 BatchedServer: {fa.launches} flash launches")
+    print(f"qwen3 BatchedServer: 4 requests of 8 tokens in {steps} steps, "
+          f"flash launches {fa.launches} ({cfg.n_layers} a decode call)")
+    del params, prompts, srv, got["logits"], got["routes"], ar
+    torch.cuda.empty_cache()
+    print(f"phase 21: phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return got
+
+
+def plain_attention(q, k, v, *, causal=True, scale=None, attn_cap=0.0,
+                    window=0, q_offset=0, kv_len=None):
+    """``ops.attention``'s signature over the plain version (no kernel)."""
+    from repro_torch.kernels import ref
+    return ref.flash_attention_bshd(
+        q, k, v, causal=causal, scale=scale, attn_cap=attn_cap,
+        window=window, q_offset=q_offset, kv_len=kv_len)[0]
+
+
+def routing(base, calls: list, replay: list | None = None,
+            flips: list | None = None):
+    """Patch the MoE router's top-k (``base._top_k``): record each call's
+    expert choices in ``calls``; with ``replay`` (another run's
+    ``calls``), take those choices instead, gate values from this run's
+    probabilities, and count in ``flips`` the rows whose own choice
+    differed, and all rows."""
+    real = base._top_k
+    want = iter(replay) if replay is not None else None
+
+    def top_k(x, k):
+        vals, idx = real(x, k)
+        if want is not None:
+            forced = next(want)
+            flips[0] += int((idx.sort(-1).values != forced.sort(-1).values
+                             ).any(-1).sum())
+            flips[1] += idx[..., 0].numel()
+            idx = forced
+            vals = x.gather(-1, idx)
+        calls.append(idx)
+        return vals, idx
+    return mock.patch.object(base, "_top_k", top_k)
+
+
+def serve_at_scale(torch, card, total_mem, model, params, prompts,
+                   cache_len: int, steps: int, label: str, *,
+                   feed=None, routes=None) -> dict:
+    """Prefill ``prompts`` (``(B, S)`` on the card), grow the cache to
+    ``cache_len`` positions, then ``steps`` lockstep greedy decode steps,
+    the flash counter read around each (one launch a layer a step, all on
+    the tensor cores); the same steps with the plain attention patched in,
+    teacher-forced on the kernel's tokens: logits within
+    ``SERVE_LOGIT_TOL`` of max|logit|, greedy tokens equal except where
+    the plain run's top two lie within it (counted).  An MoE model's
+    plain run is teacher-forced on the kernel run's expert choices too
+    (``routing``): a bf16 ulp of attention may flip a router's top-k,
+    which moves a token's logits by far more than the ulp; the flips the
+    plain run would have made are counted.  ``feed`` and ``routes`` force
+    the kernel run's tokens and expert choices too.  Prints the median
+    prefill (of 3) and decode step times, the peak and a profile of one
+    decode step; returns the figures and the kernel run's step logits,
+    tokens and expert choices."""
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import base
+
+    layers = model.cfg.n_layers
+    b, s = prompts.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     def grow(cache):
-        pad = SERVE_CACHE - SERVE_PROMPT
-        cache["layers"] = {k: torch.cat([v, v.new_zeros(
-            v.shape[:2] + (pad,) + v.shape[3:])], 2)
-            for k, v in cache["layers"].items()}
+        pad = cache_len - s
+        for name in set(cache) - {"pos"}:
+            cache[name] = {k: torch.cat([v, v.new_zeros(
+                v.shape[:2] + (pad,) + v.shape[3:])], 2)
+                for k, v in cache[name].items()}
         return cache
 
-    def plain_attention(q, k, v, *, causal=True, scale=None, attn_cap=0.0,
-                        window=0, q_offset=0, kv_len=None):
-        return ref.flash_attention_bshd(
-            q, k, v, causal=causal, scale=scale, attn_cap=attn_cap,
-            window=window, q_offset=q_offset, kv_len=kv_len)[0]
-
     def run(feed=None):
-        """Prefill and SERVE_STEPS greedy steps; ``feed`` teacher-forces
-        the tokens.  Returns the step logits, tokens and times."""
         logits_all, toks, step_ms, launches = [], [], [], []
         with torch.inference_mode():
             torch.cuda.synchronize()
@@ -3088,7 +3514,7 @@ def phase_serve(torch, card, total_mem, seed) -> None:
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t0) * 1e3
             cache = grow(cache)
-            for i in range(SERVE_STEPS):
+            for i in range(steps):
                 logits_all.append(logits[:, -1].float())
                 tok = logits[:, -1].argmax(-1) if feed is None else feed[i]
                 toks.append(tok)
@@ -3103,14 +3529,19 @@ def phase_serve(torch, card, total_mem, seed) -> None:
                     step_ms=step_ms, launches=launches, pos=cache["pos"],
                     cache=cache)
 
+    moe = model.cfg.is_moe
+    kern_routes, kern_flips, flips = [], [0, 0], [0, 0]
     fa.launches = fa.tc_launches = 0
-    kern = run()
+    with (routing(base, kern_routes, routes, kern_flips) if moe
+          else contextlib.nullcontext()), path_flash(label):
+        kern = run(feed)
     kern_launches = fa.launches
     check(all(n == layers for n in kern["launches"]),
-          f"decode steps launched flash {kern['launches']} times")
-    check(kern_launches == layers * (SERVE_STEPS + 1) == fa.tc_launches,
-          f"flash launches {kern_launches} ({fa.tc_launches} tensor-core)")
-    check(kern["pos"] == SERVE_PROMPT + SERVE_STEPS, f"pos {kern['pos']}")
+          f"{label}: decode steps launched flash {kern['launches']} times")
+    check(kern_launches == layers * (steps + 1) == fa.tc_launches,
+          f"{label}: flash launches {kern_launches} ({fa.tc_launches} "
+          "tensor-core)")
+    check(kern["pos"] == s + steps, f"{label}: pos {kern['pos']}")
     prefills = [kern["prefill_ms"]]
     for _ in range(2):
         with torch.inference_mode():
@@ -3121,131 +3552,78 @@ def phase_serve(torch, card, total_mem, seed) -> None:
             prefills.append((time.perf_counter() - t0) * 1e3)
         del c
     peak = torch.cuda.max_memory_allocated()
-    # where a decode step's time goes: device time against wall time
     cache, tok = kern.pop("cache"), kern["toks"][-1][:, None]
 
     def one_step():
         with torch.inference_mode():
             model.decode(params, tok, cache)     # rewrites one position
     phase_profile(torch, one_step, card,
-                  f"one decode step ({SERVE_B} slots, {layers} layers, "
-                  f"kv_len {SERVE_PROMPT + SERVE_STEPS + 1})")
+                  f"one decode step ({label}: {b} rows, {layers} layers, "
+                  f"kv_len {s + steps + 1})")
     del cache
     fa.launches = 0
-    with mock.patch.object(ops, "attention", plain_attention):
+    with mock.patch.object(ops, "attention", plain_attention), \
+            (routing(base, [], kern_routes, flips) if moe
+             else contextlib.nullcontext()):
         plain = run(feed=kern["toks"])
-    check(fa.launches == 0, "the plain run launched the kernel")
+    check(fa.launches == 0, f"{label}: the plain run launched the kernel")
     worst, near, mism = 0.0, 0, 0
     for lk, lp in zip(kern["logits"], plain["logits"]):
         scale = float(lp.abs().max())
-        worst = max(worst, float((lk - lp).abs().max()) / scale)
+        err = float((lk - lp).abs().max())
+        worst = max(worst, err / scale)
         top2 = lp.topk(2, dim=-1).values
         tie = (top2[:, 0] - top2[:, 1]) <= SERVE_LOGIT_TOL * scale
         differ = lk.argmax(-1) != lp.argmax(-1)
         near += int(tie.sum())
         mism += int((differ & ~tie).sum())
-        check(float((lk - lp).abs().max()) <= SERVE_LOGIT_TOL * scale,
-              f"decode logits {float((lk - lp).abs().max())} from the plain "
-              f"run's, beyond {SERVE_LOGIT_TOL} of {scale}")
-    check(mism == 0, f"{mism} greedy tokens differ outside a near tie")
+        check(err <= SERVE_LOGIT_TOL * scale,
+              f"{label}: decode logits {err} from the plain run's, beyond "
+              f"{SERVE_LOGIT_TOL} of {scale}")
+    check(mism == 0, f"{label}: {mism} greedy tokens differ outside a near "
+          "tie")
     ptoks = sum(int((lk.argmax(-1) != lp.argmax(-1)).sum())
                 for lk, lp in zip(kern["logits"], plain["logits"]))
     dec_ms = statistics.median(kern["step_ms"])
     pre_ms = statistics.median(prefills)
-    print(f"serving at scale ({SERVE_B} prompts of {SERVE_PROMPT}, cache "
-          f"{SERVE_CACHE}, {SERVE_STEPS} lockstep steps, {layers} layers "
-          f"bf16): prefill ms (median of 3, {card}) {pre_ms:.1f} (runs "
-          f"{[round(x, 1) for x in prefills]}); decode step ms (median of "
-          f"{SERVE_STEPS}) {dec_ms:.2f} (first {kern['step_ms'][0]:.2f}, "
-          f"last {kern['step_ms'][-1]:.2f}); {SERVE_B * 1e3 / dec_ms:.1f} "
-          f"tok/s decoding; flash launches {kern_launches} ({layers} a "
-          f"step); peak {peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}; "
-          f"against the plain attention teacher-forced: logits within "
-          f"{worst:.3e} of max|logit| (tolerance {SERVE_LOGIT_TOL}), "
-          f"greedy tokens differing {ptoks} of {SERVE_B * SERVE_STEPS}, "
-          f"{near} plain-run near ties within the tolerance")
-    del kern, plain, params, prompts
-    torch.cuda.empty_cache()
-
-    # -- the decode launch at the path's shape --------------------------------
-    b, h, kv, hd = SERVE_B, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    pos = SERVE_PROMPT + SERVE_STEPS - 1        # the last step's position
-    q = torch.randn((b, 1, h, hd), generator=gen,
-                    device="cuda").to(torch.bfloat16)
-    k, v = (torch.randn((b, SERVE_CACHE, kv, hd), generator=gen,
-                        device="cuda").to(torch.bfloat16) for _ in range(2))
-    kw = dict(causal=True, scale=torch.tensor(
-        hd ** -0.5, dtype=torch.bfloat16).item(), attn_cap=0.0, window=0,
-        q_offset=pos, kv_len=pos + 1)
-    got, _ = fa.attention_fwd(q, k, v, **kw)
-    want, _ = ref.flash_attention_bshd(q, k, v, **kw)
-    err = flash_err(torch, got, want, v)
-    k_ms = cuda_ms(lambda: fa.attention_fwd(q, k, v, **kw), 50)
-    p_ms = cuda_ms(lambda: ref.flash_attention_bshd(q, k, v, **kw), 5)
-    mask = (torch.arange(SERVE_CACHE, device="cuda") <= pos)[None, None, None]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, scale=kw["scale"], enable_gqa=True), 50)
-    nbytes = fa.bytes_moved(q, k, v, kv_len=pos + 1)
-    flops = fa.flops(b, h, 1, SERVE_CACHE, hd, causal=True, q_offset=pos,
-                     kv_len=pos + 1)
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
-    print(f"flash_attention decode q ({b}, 1, {h}, {hd}) over a ({b}, "
-          f"{SERVE_CACHE}, {kv}, {hd}) bf16 cache at kv_len {pos + 1}: "
-          f"{k_ms:.4f} ms; bound {bound:.4f} ms by bytes ({nbytes} bytes; "
-          f"{flops} flops) ({bound / k_ms:.1%} of the bound); plain "
-          f"{p_ms:.3f} ms; library scaled_dot_product_attention with a "
-          f"boolean mask {l_ms:.4f} ms; max |kernel - plain| {err:.3e}  "
-          f"[{card}]")
-    del q, k, v, got, want
-    torch.cuda.empty_cache()
-    print(f"phase 18: phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    print(f"{label} ({b} prompts of {s}, cache {cache_len}, {steps} "
+          f"lockstep steps, {layers} layers bf16): prefill ms (median of "
+          f"3, {card}) {pre_ms:.1f} (runs {[round(x, 1) for x in prefills]})"
+          f"; decode step ms (median of {steps}) {dec_ms:.2f} (first "
+          f"{kern['step_ms'][0]:.2f}, last {kern['step_ms'][-1]:.2f}); "
+          f"{b * 1e3 / dec_ms:.1f} tok/s decoding; flash launches "
+          f"{kern_launches} ({layers} a step); peak {peak / 2**30:.2f} GiB "
+          f"of {total_mem / 2**30:.1f}; against the plain attention "
+          f"teacher-forced: logits within {worst:.3e} of max|logit| "
+          f"(tolerance {SERVE_LOGIT_TOL}), greedy tokens differing {ptoks} "
+          f"of {b * steps}, {near} plain-run near ties within the tolerance"
+          + (f"; the plain run's own expert choices would differ in "
+             f"{flips[0]} of {flips[1]} router rows" if moe else "")
+          + (f" (this run's own from the forced ones in {kern_flips[0]} of "
+             f"{kern_flips[1]})" if routes is not None else ""))
+    return dict(pre_ms=pre_ms, dec_ms=dec_ms, peak=peak, worst=worst,
+                launches=kern_launches, logits=kern["logits"],
+                toks=kern["toks"], routes=kern_routes)
 
 
-def flash_figures(torch, fa, ref, card, err) -> dict:
-    """The flash kernel at the training path's shape: its time by CUDA
-    events, its bound, the plain version's time and SDPA's."""
+def flash_figures(torch, card, case: dict) -> dict:
+    """The flash kernel's line: phase 7's figures at the training path's
+    launch (``case``), with the library time of
+    ``scaled_dot_product_attention`` in its fastest form there (causal
+    without a mask, the KV heads repeated)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(6)
-    b, s, h, kv, hd = 8, 4096, 32, 4, 64
-    q = torch.randn((b, s, h, hd), generator=gen,
-                    device="cuda").to(torch.bfloat16)
-    k, v = (torch.randn((b, s, kv, hd), generator=gen,
-                        device="cuda").to(torch.bfloat16) for _ in range(2))
-    kw = dict(causal=True, scale=hd ** -0.5, attn_cap=0.0, window=0)
-    k_ms = cuda_ms(lambda: fa.attention_fwd(q, k, v, **kw), 5)
-    p_ms = cuda_ms(lambda: ref.flash_attention_bshd(q, k, v, **kw), 2)
-    qt = q.transpose(1, 2)
-    kt = k.repeat_interleave(h // kv, dim=2).transpose(1, 2)
-    vt = v.repeat_interleave(h // kv, dim=2).transpose(1, 2)
+    (b, s, h, hd), (_, _, kv, _), _ = case_shapes(
+        FLASH_MODEL_CASES["tinyllama train"])
+    q = torch.randn((b, h, s, hd), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((b, kv, s, hd), generator=gen, device="cuda")
+            .bfloat16().repeat_interleave(h // kv, dim=1) for _ in range(2))
     l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), 5)
-    flops = fa.flops(b, h, s, s, hd, causal=True)
-    nbytes = fa.bytes_moved(q, k, v)
-    bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-    print(f"flash_attention q (8, 4096, 32, 64) k, v (8, 4096, 4, 64) bf16 "
-          f"causal: {k_ms:.3f} ms, {flops} flops ({flops / k_ms / 1e9:.1f} "
-          f"TFLOP/s), {nbytes} bytes; bound {bound:.3f} ms by operations "
-          f"({bound / k_ms:.1%} of the bound); plain {p_ms:.3f} ms; library "
-          f"scaled_dot_product_attention {l_ms:.3f} ms  [{card}]")
-    # hd 128, one batch row of 32 heads (no GQA)
-    q, k, v = (torch.randn((1, s, h, 128), generator=gen,
-                           device="cuda").to(torch.bfloat16)
-               for _ in range(3))
-    kw["scale"] = 128 ** -0.5
-    w_ms = cuda_ms(lambda: fa.attention_fwd(q, k, v, **kw), 10)
-    w_flops = fa.flops(1, h, s, s, 128, causal=True)
-    w_bound = max(w_flops / BF16_FLOPS_PER_S,
-                  fa.bytes_moved(q, k, v) / HBM_BYTES_PER_S) * 1e3
-    wl_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True), 10)
-    print(f"flash_attention q, k, v (1, 4096, 32, 128) bf16 causal: "
-          f"{w_ms:.3f} ms ({w_flops / w_ms / 1e9:.1f} TFLOP/s); bound "
-          f"{w_bound:.3f} ms ({w_bound / w_ms:.1%} of the bound); library "
-          f"scaled_dot_product_attention {wl_ms:.3f} ms  [{card}]")
-    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-            "library_ms": l_ms, "max_abs_err": err}
+        q, k, v, is_causal=True), 5)
+    print(f"flash_attention at the training path's launch: {case['ms']:.3f}"
+          f" ms against library scaled_dot_product_attention causal, no "
+          f"mask, {l_ms:.3f} ms  [{card}]")
+    return dict(case, library_ms=l_ms)
 
 
 def main() -> int:
@@ -3289,7 +3667,8 @@ def main() -> int:
     phase_kernel_vs_plain(torch, ops)
     phase_quant_vs_plain(torch, ops, qt)
     phase_sparse_vs_plain(torch, ops, tk, sa, sparse)
-    flash_path_err = phase_flash_vs_plain(torch, ops, ref, fa, base)
+    phase_flash_vs_plain(torch, ops, ref, fa, base)
+    flash_cases = phase_flash_model_cases(torch, fa, ref, card)
 
     # -- the dense main path: (2, 4) mesh, full width -----------------------
     cfg = tl.CONFIG.scaled(n_layers=LAYERS)
@@ -3942,9 +4321,15 @@ def main() -> int:
     # -- the health plane, and serving ---------------------------------------
     phase_health(torch, card, total_mem, args.seed)
     phase_serve(torch, card, total_mem, args.seed)
+    # -- the other decoder-only models: gemma2 trained and served, qwen3 ----
+    phase_train(torch, card, total_mem, tr, GEMMA_TRAIN_FLAGS,
+                GEMMA_TRAIN_LAYERS, phase=19)
+    phase_gemma_serve(torch, card, total_mem, args.seed)
+    phase_qwen_serve(torch, card, total_mem, args.seed)
+    check_path_flash(torch)
     launches["flash_attention"] = trained["launches"]
-    figures["flash_attention"] = flash_figures(torch, fa, ref, card,
-                                               flash_path_err)
+    figures["flash_attention"] = flash_figures(
+        torch, card, flash_cases["tinyllama train"])
 
     print("kernel figures are per reduction: the sum over one reduction's "
           "launches (one step of the int8 path; for sparse_accum_slots one "

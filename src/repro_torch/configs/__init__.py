@@ -11,10 +11,15 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-ARCHS = ["tinyllama_1_1b"]
+ARCHS = ["qwen3_moe_235b_a22b", "gemma2_27b", "tinyllama_1_1b",
+         "granite_20b", "gemma2_2b"]
 
 #: canonical ids → module names (the reference's, for the ported archs)
-ALIASES = {"tinyllama-1.1b": "tinyllama_1_1b"}
+ALIASES = {"qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+           "gemma2-27b": "gemma2_27b",
+           "tinyllama-1.1b": "tinyllama_1_1b",
+           "granite-20b": "granite_20b",
+           "gemma2-2b": "gemma2_2b"}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -91,13 +91,18 @@ def flops(b: int, h: int, sq: int, sk: int, hd: int, *, causal: bool,
 
 
 def bytes_moved(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                kv_len: int | None = None) -> int:
-    """Bytes one launch must move: q and the keys and values below
-    ``kv_len`` (all of them by default) read once, the output ``(B, Sq,
-    H, vd)`` and the fp32 log-sum-exp written once."""
+                kv_len: int | None = None, *, window: int = 0,
+                q_offset: int = 0) -> int:
+    """Bytes one launch must move: q and the keys and values some query
+    row can see read once (those below ``kv_len``, all of them by
+    default, and with a causal ``window`` none before the first row's
+    window, which starts at ``q_offset - window + 1``), the output ``(B,
+    Sq, H, vd)`` and the fp32 log-sum-exp written once."""
     b, sq, h, _ = q.shape
     sk = k.shape[1]
     keys = sk if kv_len is None else min(sk, kv_len)
+    if window > 0:
+        keys -= min(keys, max(0, q_offset - window + 1))
     out = b * sq * h * v.shape[-1] * q.element_size()
     return (q.numel() * q.element_size()
             + (k.numel() * k.element_size()

@@ -11,9 +11,12 @@ is none) or, for tests, on the CPU (``--device cpu``).  The weights are
 random from ``torch.Generator(device).manual_seed(--seed)``, the prompts
 (2 to 7 tokens) from ``numpy.random.default_rng(--seed)``.  Parameters
 are held in the model's compute dtype (bf16 at full width, fp32 with
-``--smoke``): the reference's launcher hands its fp32 parameters to a
-bf16 model, whose decode then fails on a mixed-dtype layer carry, so it
-serves only ``--smoke``.  ``--fake-devices`` has no counterpart: the
+``--smoke``) but for the ``KEEP_F32`` leaves (the MoE router), as
+``sharding.rules.cast_params`` casts them: the reference's launcher
+hands its fp32 parameters to a bf16 model, whose decode then fails on a
+mixed-dtype layer carry, so it serves only ``--smoke``.  ``--arch`` takes
+every ported config: tinyllama-1.1b, gemma2-2b, gemma2-27b, granite-20b
+and qwen3-moe-235b-a22b.  ``--fake-devices`` has no counterpart: the
 server runs on one device.
 """
 from __future__ import annotations
@@ -47,9 +50,10 @@ def main(argv=None) -> list:
     import numpy as np
     import torch
 
-    from repro_torch import configs, tree
+    from repro_torch import configs
     from repro_torch.models.registry import get_model
     from repro_torch.serve import BatchedServer
+    from repro_torch.sharding import rules
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device (use --device cpu "
@@ -60,7 +64,7 @@ def main(argv=None) -> list:
         cfg = cfg.scaled(dtype=torch.float32)
     model = get_model(cfg)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
-    params = tree.map_leaves(lambda t: t.to(cfg.dtype), model.init(gen))
+    params = rules.cast_params(model.init(gen), cfg.dtype)
 
     srv = BatchedServer(model, params, slots=args.slots,
                         max_len=args.max_len)

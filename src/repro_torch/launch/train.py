@@ -16,6 +16,12 @@ none) or, for tests, on the CPU (``--device cpu``).  Examples::
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 2 \\
         --mesh 2x4x1 --device cpu --tenants 3 --congestion-replan 0.9
 
+``--arch`` takes every ported config: tinyllama-1.1b (the default),
+gemma2-2b, gemma2-27b, granite-20b and qwen3-moe-235b-a22b::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
+        --smoke --steps 2 --mesh 2x4x1 --device cpu
+
 ``--fault-rate`` / ``--fault-seed`` run the switch over a deterministic
 lossy fabric (``--transport innetwork`` only): a surviving plan gives the
 fault-free bits, a plan past the retry budget degrades to the wire.

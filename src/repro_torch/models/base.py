@@ -1,10 +1,13 @@
 """The shared model configuration and the layer library.
 
-The port of ``repro/models/base.py`` for the dense transformer's train
+The port of ``repro/models/base.py`` for the GQA transformer's train
 forward and its serving steps: ``ModelConfig``, RMSNorm, RoPE,
 soft-capping, remat, attention (dense and chunked online-softmax on the
 CPU, the flash kernel on the card, masked decode over a KV cache on
-both), the GQA block with its cache write, SwiGLU and cross-entropy.
+both; windows and tanh caps), the GQA block with its q/k norms and cache
+write, SwiGLU, the MoE block (``moe_block`` and its dispatch) and
+cross-entropy.  ``layernorm`` and ``gelu_mlp`` wait for their families
+(ROADMAP queue 1 item 14).
 
 Rank axes.  The port runs every emulated rank in one process, so a
 weight may carry the mesh's rank axes in front, ``(*R, *shape)``, with
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Callable
 
 import torch
@@ -410,6 +414,139 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 
 def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     return mm(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]), p["w_down"])
+
+
+def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` along the last dim: the ``k`` largest, descending,
+    equal values in index order (``torch.topk`` promises no order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Capacity-based top-k MoE with scatter dispatch, on every rank.
+
+    ``x`` is ``(*R, B, S, D)`` with the router ``(*R, D, E)`` and the
+    expert weights ``w_gate``/``w_up`` ``(*R, E, D, F)``, ``w_down``
+    ``(*R, E, F, D)``.  Each rank routes its own ``T = B·S`` tokens, as
+    the reference does at ``model = 1`` (expert parallelism over ``model``
+    is ROADMAP queue 1 item 16): the router's fp32 softmax, its top-k
+    (ties to the lower index) renormalized, each (token, choice) placed
+    at its running count within its expert, choices past the capacity
+    dropped.  The dispatch adds every choice's row into its expert slot,
+    a dropped one as a zero row at its clipped slot (``flat_c`` is
+    clipped, not dropped, in the reference's ``.at[].add``); the
+    experts are batched products.  ``moe_combine`` ``gather`` (the
+    default) gathers each choice's slot weighted by its gate and sums the
+    ``k``; ``scatter_ar`` scatters each kept slot's gated row into its
+    token (``slot_to_row``), through :class:`_EPDispatch`, whose backward
+    is the reference's f32 scatter.
+    """
+    r = p["router"].dim() - 2
+    lead = x.shape[:r]
+    nr = math.prod(lead)
+    b, s, d = x.shape[r:]
+    t = b * s
+    e, k = cfg.n_experts, cfg.experts_per_token
+    cap = max(int(cfg.capacity_factor * t * k / e), min(t * k, 32))
+    dev = x.device
+
+    xt = x.reshape(*lead, t, d)
+    logits = mm(xt.to(p["router"].dtype), p["router"]).float()   # (*R,T,E)
+    u = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = u / u.sum(-1, keepdim=True)
+    gate_vals, gate_idx = _top_k(probs, k)                        # (*R,T,k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    # each (token, choice)'s running count within its expert, flat order
+    onehot = F.one_hot(gate_idx.reshape(nr, t * k), e)            # (P,Tk,E)
+    pos = (onehot.cumsum(1) - 1).gather(
+        -1, gate_idx.reshape(nr, t * k, 1))[..., 0]               # (P,Tk)
+    keep_f = pos < cap
+    flat_e = gate_idx.reshape(nr, t * k)
+    flat_c = torch.clamp(pos, 0, cap - 1)
+    ranks = torch.arange(nr, device=dev)[:, None]
+    slot = (ranks * e + flat_e) * cap + flat_c                    # (P,Tk)
+
+    src = xt.reshape(nr, t, 1, d).expand(nr, t, k, d).reshape(nr, t * k, d)
+    src = torch.where(keep_f[..., None], src, 0).to(cfg.dtype)
+    w = torch.where(keep_f.reshape(gate_vals.shape), gate_vals,
+                    0.0).to(cfg.dtype)                            # (*R,T,k)
+
+    if cfg.moe_combine == "scatter_ar":
+        # slot → flat row (unique by construction); a dropped choice's
+        # slot is out of range and never written
+        rows = torch.arange(t * k, device=dev).expand(nr, t * k)
+        slot_to_row = torch.full((nr * e * cap,), t * k, dtype=torch.int64,
+                                 device=dev)
+        slot_to_row.scatter_reduce_(0, slot[keep_f], rows[keep_f],
+                                    reduce="amin")
+        slot_to_row = slot_to_row.reshape(nr, e * cap)
+        xin = _EPDispatch.apply(src, slot, slot_to_row, e * cap)
+    else:
+        xin = _dispatch(src, slot, e * cap)
+    xin = xin.reshape(*lead, e, cap, d)
+
+    h = F.silu(torch.matmul(xin, p["w_gate"]))
+    h = h * torch.matmul(xin, p["w_up"])
+    out_e = torch.matmul(h, p["w_down"]).reshape(nr, e * cap, d)
+
+    if cfg.moe_combine == "scatter_ar":
+        kept = slot[keep_f]
+        slot_gate = torch.zeros(nr * e * cap, dtype=cfg.dtype,
+                                device=dev).index_put(
+            (kept,), w.reshape(nr, t * k)[keep_f], accumulate=True)
+        tok = slot_to_row // k + ranks * (t + 1)                  # (P,E·C)
+        out = torch.zeros(nr * (t + 1), d, dtype=cfg.dtype,
+                          device=dev).index_put(
+            (tok.reshape(-1),),
+            (out_e * slot_gate.reshape(nr, e * cap, 1)).reshape(-1, d),
+            accumulate=True)
+        out = out.reshape(nr, t + 1, d)[:, :t]
+    else:
+        gath = out_e.reshape(nr * e * cap, d)[slot.reshape(-1)]
+        out = (gath.reshape(nr, t, k, d)
+               * w.reshape(nr, t, k, 1)).sum(2)
+    out = out.reshape(*lead, t, d)
+    if cfg.n_shared_experts > 0:
+        out = out + swiglu(p["shared"], xt)
+    return out.reshape(x.shape)
+
+
+def _dispatch(src: torch.Tensor, slot: torch.Tensor, n: int
+              ) -> torch.Tensor:
+    """Every rank's ``(T·k, D)`` rows added into its ``(n, D)`` slots."""
+    nr, _, d = src.shape
+    return torch.zeros(nr * n, d, dtype=src.dtype, device=src.device
+                       ).index_put((slot.reshape(-1),), src.reshape(-1, d),
+                                   accumulate=True).reshape(nr, n, d)
+
+
+class _EPDispatch(torch.autograd.Function):
+    """The token → expert-slot scatter whose backward is also a scatter
+    (the reference's ``_ep_dispatch`` custom VJP): the slots' gradient
+    rows are added, in fp32, into a ``(T·k + 1, D)`` buffer through
+    ``slot_to_row`` (an empty slot names row ``T·k``, dropped), instead
+    of autograd's gather from the slots."""
+
+    @staticmethod
+    def forward(ctx, src, slot, slot_to_row, n):
+        ctx.save_for_backward(slot_to_row)
+        ctx.t_k = src.shape[1]
+        return _dispatch(src, slot, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        (slot_to_row,) = ctx.saved_tensors
+        nr, _, d = g.shape
+        t_k = ctx.t_k
+        rows = slot_to_row + torch.arange(nr, device=g.device)[:, None] \
+            * (t_k + 1)
+        gsrc = torch.zeros(nr * (t_k + 1), d, device=g.device).index_put(
+            (rows.reshape(-1),), g.reshape(-1, d).float(), accumulate=True)
+        gsrc = gsrc.reshape(nr, t_k + 1, d)[:, :t_k].to(g.dtype)
+        return gsrc, None, None, None
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

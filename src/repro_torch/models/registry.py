@@ -1,7 +1,8 @@
 """Family → model-function dispatch.
 
-The port of ``repro/models/registry.py`` for the ``"dense"`` family, the
-only one ported (training and serving); the others raise.  ``init`` takes
+The port of ``repro/models/registry.py`` for the ``"dense"`` and
+``"moe"`` families (training and serving, both through
+``transformer``); the others raise.  ``init`` takes
 a ``torch.Generator`` (on the device the parameters should live on) where
 the reference takes a ``jax.random`` key, and ``init_cache`` also takes
 the ``device`` its cache should live on.
@@ -26,7 +27,7 @@ class Model:
     init_cache: Callable    # (batch_size, max_seq, *, dtype=, device=) -> cache
 
 
-_FAMILIES: dict[str, Any] = {"dense": transformer}
+_FAMILIES: dict[str, Any] = {"dense": transformer, "moe": transformer}
 
 
 def get_model(cfg: ModelConfig) -> Model:

@@ -1,29 +1,36 @@
-"""The dense decoder-only transformer (Llama family): parameters, the
-train-mode forward and the serving steps.
+"""The decoder-only transformer: parameters, the train-mode forward and
+the serving steps.
 
-The port of ``repro/models/transformer.py`` for the dense GQA variant
-(tinyllama-1.1b, granite-20b).  ``init_params`` builds the same dict of
-leaves, per-layer weights stacked on a leading ``L`` axis, so a gradient
+The port of ``repro/models/transformer.py`` for its GQA variants: dense
+GQA/MQA (tinyllama-1.1b, granite-20b), local/global layer pairs with
+attention and final-logit softcaps, sandwich norms and a tied head
+(gemma2-2b, gemma2-27b), and per-head q/k RMSNorm with the MoE FFN
+(qwen3-moe-235b-a22b).  ``init_params`` builds the same dict of leaves,
+per-layer weights stacked on a leading ``L`` axis (``layers``, or the
+pair stacks ``local_layers`` and ``global_layers``), so a gradient
 pytree of this shape flattens to the JAX package's leaves in the same
 order.  Weights are random from a ``torch.Generator``; they will not
 equal the JAX package's ``jax.random`` draws (use ``convert`` to carry
-those across).
+those across).  MLA, cross-attention and the first-dense-layer stack
+(deepseek, the VLM) are ROADMAP queue 1 item 14 and refuse.
 
 ``loss_fn`` is the train forward: embed → ``run_stack`` (a Python loop
-over the layers, each under ``base.remat``, the FSDP ``gather`` applied
-inside it so the backward re-gathers) → final norm → sequence-chunked
-cross-entropy.  Parameters may carry the mesh's rank axes in front
-(``(*R, ...)``, with the stacked ``L`` axis after them) and the batch
-``(*R, B, S)``; the loss then has one value per rank.  ``params["layers"]``
-may also be a list of per-layer dicts (how the trainer hands autograd
-one leaf per layer).
+over the layers, or the local/global pairs, each under ``base.remat``,
+the FSDP ``gather`` applied inside it so the backward re-gathers) →
+final norm → sequence-chunked cross-entropy.  Parameters may carry the
+mesh's rank axes in front (``(*R, ...)``, with the stacked ``L`` axis
+after them) and the batch ``(*R, B, S)``; the loss then has one value per
+rank.  A stack may also be a list of per-layer dicts (how the trainer
+hands autograd one leaf per layer).  A tied head is the gathered
+embedding's transpose, so autograd sums the embedding's two uses.
 
 ``prefill``, ``decode_step`` and ``init_cache`` are the serving steps, on
-one rank: the prompt's forward returning its last logits and a ``{"layers":
-{"k", "v"}, "pos"}`` cache of ``(L, B, S, KV, hd)``, and one token a row
-against that cache, written in place.  The cache's ``pos`` is a host
-int, so the flash kernel's masks are launch arguments.  The other
-variants are the other families' (ROADMAP queue 1 item 14).
+one rank: the prompt's forward returning its last logits and a cache of
+``(L, B, S, KV, hd)`` K/V stacks (``{"layers": {"k", "v"}, "pos"}``, or
+``{"local": ..., "global": ..., "pos"}``), and one token a row against
+that cache, written in place.  The cache's ``pos`` is a host int, so the
+flash kernel's masks (the local layers' window among them) are launch
+arguments.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import operator
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.models import base
@@ -47,36 +55,65 @@ def dense_init(gen: torch.Generator, shape: tuple[int, ...],
     return torch.randn(shape, generator=gen, device=gen.device) * scale
 
 
-def _layers(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+def _mlp(gen: torch.Generator, n: int, d: int, f: int, scale: float
+         ) -> dict:
+    return {"w_gate": dense_init(gen, (n, d, f), scale),
+            "w_up": dense_init(gen, (n, d, f), scale),
+            "w_down": dense_init(gen, (n, f, d), f ** -0.5)}
+
+
+def _layers(cfg: ModelConfig, gen: torch.Generator, n: int) -> dict:
+    """``n`` layers' parameters stacked on a leading axis: attention (q/k
+    norms with ``qk_norm``), a SwiGLU or MoE FFN, the norms (the post
+    norms ``ln1b``/``ln2b`` with ``post_norms``)."""
+    d = cfg.d_model
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     scale = d ** -0.5
     zeros = lambda *s: torch.zeros(s, device=gen.device)
-    return {
-        "ln1": zeros(n, d),
-        "attn": {
-            "wq": dense_init(gen, (n, d, h * hd), scale),
-            "wk": dense_init(gen, (n, d, kv * hd), scale),
-            "wv": dense_init(gen, (n, d, kv * hd), scale),
-            "wo": dense_init(gen, (n, h * hd, d), scale),
-        },
-        "ln2": zeros(n, d),
-        "ffn": {
-            "w_gate": dense_init(gen, (n, d, f), scale),
-            "w_up": dense_init(gen, (n, d, f), scale),
-            "w_down": dense_init(gen, (n, f, d), f ** -0.5),
-        },
+    attn = {
+        "wq": dense_init(gen, (n, d, h * hd), scale),
+        "wk": dense_init(gen, (n, d, kv * hd), scale),
+        "wv": dense_init(gen, (n, d, kv * hd), scale),
+        "wo": dense_init(gen, (n, h * hd, d), scale),
     }
+    if cfg.qk_norm:
+        attn["q_norm"] = zeros(n, hd)
+        attn["k_norm"] = zeros(n, hd)
+    if cfg.is_moe:
+        e, f = cfg.n_experts, cfg.moe_d_ff
+        ffn = {"router": dense_init(gen, (n, d, e), scale),
+               "w_gate": dense_init(gen, (n, e, d, f), scale),
+               "w_up": dense_init(gen, (n, e, d, f), scale),
+               "w_down": dense_init(gen, (n, e, f, d), f ** -0.5)}
+        if cfg.n_shared_experts:
+            ffn["shared"] = _mlp(gen, n, d, f * cfg.n_shared_experts, scale)
+    else:
+        ffn = _mlp(gen, n, d, cfg.d_ff, scale)
+    p = {"ln1": zeros(n, d), "attn": attn, "ln2": zeros(n, d), "ffn": ffn}
+    if cfg.post_norms:
+        p["ln1b"] = zeros(n, d)
+        p["ln2b"] = zeros(n, d)
+    return p
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported: ROADMAP "
+            "queue 1 item 14")
+    for field, what in (("mla_kv_lora", "MLA attention"),
+                        ("cross_attn_every", "cross-attention"),
+                        ("first_dense_layers", "the first-dense-layer stack")):
+        if getattr(cfg, field):
+            raise NotImplementedError(
+                f"{cfg.name}: {what} is not ported: ROADMAP queue 1 item 14")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    """fp32 parameters of a dense transformer, on ``gen``'s device."""
-    if (cfg.is_moe or cfg.mla_kv_lora or cfg.cross_attn_every
-            or cfg.local_global or cfg.first_dense_layers or cfg.qk_norm
-            or cfg.post_norms or cfg.family != "dense"):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA transformer is ported; the "
-            "other variants are ROADMAP queue 1 item 14")
+    """fp32 parameters, on ``gen``'s device: one stack ``layers``, or the
+    local/global pair stacks ``local_layers`` and ``global_layers`` of
+    ``n_layers // 2`` each."""
+    _check_ported(cfg)
     params = {
         "embed": dense_init(gen, (cfg.vocab, cfg.d_model), 0.02),
         "final_norm": torch.zeros(cfg.d_model, device=gen.device),
@@ -84,21 +121,17 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab),
                                        cfg.d_model ** -0.5)
-    params["layers"] = _layers(cfg, gen)
+    if cfg.local_global:
+        params["local_layers"] = _layers(cfg, gen, cfg.n_layers // 2)
+        params["global_layers"] = _layers(cfg, gen, cfg.n_layers // 2)
+    else:
+        params["layers"] = _layers(cfg, gen, cfg.n_layers)
     return params
 
 
 # ---------------------------------------------------------------------------
 # Layer application and the train-mode stack.
 # ---------------------------------------------------------------------------
-
-def _check_dense(cfg: ModelConfig) -> None:
-    if (cfg.is_moe or cfg.mla_kv_lora or cfg.cross_attn_every
-            or cfg.local_global or cfg.post_norms or cfg.family != "dense"):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA transformer's forward is "
-            "ported; the other variants are ROADMAP queue 1 item 14")
-
 
 def _g(gather: Gather, lp: dict) -> dict:
     return gather(lp) if gather is not None else lp
@@ -114,9 +147,17 @@ def _self_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
     h = base.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     attn_out, newkv = base.gqa_attention(cfg, lp["attn"], h, window=window,
                                          cache=cache, pos_offset=pos_offset)
-    x = x + base.tag_block_out(cfg, attn_out)
+    attn_out = base.tag_block_out(cfg, attn_out)
+    if cfg.post_norms:
+        attn_out = base.rmsnorm(attn_out, lp["ln1b"], cfg.norm_eps)
+    x = x + attn_out
     h = base.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + base.tag_block_out(cfg, base.swiglu(lp["ffn"], h)), newkv
+    ffn_out = base.moe_block(cfg, lp["ffn"], h) if cfg.is_moe \
+        else base.swiglu(lp["ffn"], h)
+    ffn_out = base.tag_block_out(cfg, ffn_out)
+    if cfg.post_norms:
+        ffn_out = base.rmsnorm(ffn_out, lp["ln2b"], cfg.norm_eps)
+    return x + ffn_out, newkv
 
 
 def _layer_slices(stack, rank_dims: int) -> list:
@@ -128,42 +169,65 @@ def _layer_slices(stack, rank_dims: int) -> list:
             for i in range(n)]
 
 
+def _stacks(cfg: ModelConfig) -> tuple[tuple[str, str, int], ...]:
+    """The parameter stacks a layer walk interleaves, each with its cache
+    entry and attention window: one ``layers``, or the local/global
+    pairs."""
+    if cfg.local_global:
+        return (("local_layers", "local", cfg.window),
+                ("global_layers", "global", 0))
+    return (("layers", "layers", 0),)
+
+
 def run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
               mode: str = "train", cache: dict | None = None,
               pos: int | None = None, gather: Gather = None):
     """All layers; ``mode`` is ``train``, ``prefill`` or ``decode``.
 
-    ``train`` → ``(x, None)``, each layer (its FSDP gather included)
-    recomputed in the backward.  ``prefill`` → ``(x, {"layers": {"k",
-    "v"}})``, every layer's rotated K and V stacked ``(L, B, S, KV,
-    hd)``.  ``decode`` takes that layout as ``cache`` (``{"layers":
-    ...}``, without ``pos``) and the step's first position ``pos``, writes
-    each layer's K/V into it in place and returns ``(x, cache)``.
+    The layers are ``params["layers"]``, or with ``local_global`` the
+    pairs of ``local_layers[i]`` (attending within ``cfg.window``) and
+    ``global_layers[i]``.  ``train`` → ``(x, None)``, each layer (a pair
+    with ``local_global``), its FSDP gather included, recomputed in the
+    backward.  ``prefill`` → ``(x, cache)``, every layer's rotated K and
+    V stacked ``(L, B, S, KV, hd)`` under ``{"layers": {"k", "v"}}`` (or
+    ``{"local": ..., "global": ...}``, ``L`` the pairs).  ``decode`` takes
+    that layout as ``cache`` (without ``pos``) and the step's first
+    position ``pos``, writes each layer's K/V into it in place and returns
+    ``(x, cache)``.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"run_stack: mode {mode!r} is not one of train, "
                          "prefill, decode")
-    _check_dense(cfg)
-    layers = _layer_slices(params["layers"], _rank_dims(params))
+    _check_ported(cfg)
+    stacks = _stacks(cfg)
+    rd = _rank_dims(params)
+    groups = list(zip(*(_layer_slices(params[name], rd)
+                        for name, _, _ in stacks)))
     if mode == "train":
-        body = base.remat(cfg, lambda x, lp: _self_layer(
-            cfg, _g(gather, lp), x)[0])
-        for lp in layers:
-            x = body(x, lp)
+        def group(x, *lps):
+            for (_, _, win), lp in zip(stacks, lps):
+                x = _self_layer(cfg, _g(gather, lp), x, window=win)[0]
+            return x
+        body = base.remat(cfg, group)
+        for lps in groups:
+            x = body(x, *lps)
         return x, None
     if mode == "decode":
-        kc, vc = cache["layers"]["k"], cache["layers"]["v"]
-        for i, lp in enumerate(layers):
-            c = {"k": kc[i], "v": vc[i], "pos": pos}
-            x, _ = _self_layer(cfg, _g(gather, lp), x, cache=c,
-                               pos_offset=pos)
+        for i, lps in enumerate(groups):
+            for (_, entry, win), lp in zip(stacks, lps):
+                c = {"k": cache[entry]["k"][i], "v": cache[entry]["v"][i],
+                     "pos": pos}
+                x, _ = _self_layer(cfg, _g(gather, lp), x, window=win,
+                                   cache=c, pos_offset=pos)
         return x, cache
-    ks, vs = [], []
-    for lp in layers:
-        x, (kk, vv) = _self_layer(cfg, _g(gather, lp), x)
-        ks.append(kk)
-        vs.append(vv)
-    return x, {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    kvs = {entry: ([], []) for _, entry, _ in stacks}
+    for lps in groups:
+        for (_, entry, win), lp in zip(stacks, lps):
+            x, (kk, vv) = _self_layer(cfg, _g(gather, lp), x, window=win)
+            kvs[entry][0].append(kk)
+            kvs[entry][1].append(vv)
+    return x, {entry: {"k": torch.stack(ks), "v": torch.stack(vs)}
+               for entry, (ks, vs) in kvs.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -213,23 +277,66 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
                       rank_dims=_rank_dims(params))
 
 
+def _chunk_ce(cap: float, x: torch.Tensor, head: torch.Tensor,
+              labels: torch.Tensor, rank_dims: int = 0) -> torch.Tensor:
+    return base.cross_entropy(base.mm(x, head), labels, cap, rank_dims)
+
+
+def _ce_fits(nbytes: int, device: torch.device) -> bool:
+    """Whether ``nbytes`` may be held on ``device`` now with as much again
+    left for the backward: twice ``nbytes`` within the device's free
+    memory plus the CUDA allocator's cached-but-free bytes.  On the CPU,
+    always."""
+    if device.type != "cuda":
+        return True
+    free, _ = torch.cuda.mem_get_info(device)
+    cached = (torch.cuda.memory_reserved(device)
+              - torch.cuda.memory_allocated(device))
+    return 2 * nbytes <= free + cached
+
+
 def chunked_ce(cfg: ModelConfig, x: torch.Tensor, head: torch.Tensor,
                labels: torch.Tensor, chunk: int, rank_dims: int = 0
                ) -> torch.Tensor:
-    """Sequence-chunked cross-entropy: no ``(B, S, V)`` logits at once."""
+    """Sequence-chunked cross-entropy: no ``(B, S, V)`` logits at once.
+
+    Each chunk's fp32 log-softmax (and its softcap's tanh) is kept for
+    the backward, so the loss holds about ``nc · (1 + capped) + 2``
+    copies of one chunk's fp32 logits over every rank.  Where those fit
+    in the device's free memory (``_ce_fits``) the chunks are taken over
+    all ranks at once, as the reference does.  Where they do not (gemma2's
+    vocab of 256000: 16.8 GB of logits a chunk of 2048 on 8 ranks), each
+    rank's chunk is taken alone under ``checkpoint`` and recomputed in the
+    backward, so one rank's logits are all that is live.  Both sum a
+    rank's chunks in order, as the reference's scan does, and give the
+    same values."""
     s = x.shape[-2]
     chunk = min(chunk, s)
     if s % chunk:
         chunk = s
     nc = s // chunk
-    tot = torch.zeros(x.shape[:rank_dims], device=x.device)
-    for c in range(nc):
-        xx = x[..., c * chunk:(c + 1) * chunk, :]
-        ll = labels[..., c * chunk:(c + 1) * chunk]
-        logits = base.mm(xx, head)
-        tot = tot + base.cross_entropy(logits, ll, cfg.logit_softcap,
-                                       rank_dims) * (1.0 / nc)
-    return tot
+    rows = math.prod(labels.shape[:-1]) * chunk
+    copies = nc * (2 if cfg.logit_softcap else 1) + 2
+    if _ce_fits(copies * rows * head.shape[-1] * 4, x.device):
+        tot = torch.zeros(x.shape[:rank_dims], device=x.device)
+        for c in range(nc):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            tot = tot + _chunk_ce(cfg.logit_softcap, x[..., sl, :], head,
+                                  labels[..., sl], rank_dims) * (1.0 / nc)
+        return tot
+    xs = x.reshape(-1, *x.shape[rank_dims:])
+    hs = head.reshape(-1, *head.shape[-2:])
+    ls = labels.reshape(-1, *labels.shape[rank_dims:])
+    tot = []
+    for r in range(xs.shape[0]):
+        t = torch.zeros((), device=x.device)
+        for c in range(nc):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            ce = checkpoint(_chunk_ce, cfg.logit_softcap, xs[r, ..., sl, :],
+                            hs[r], ls[r, ..., sl], use_reentrant=False)
+            t = t + ce * (1.0 / nc)
+        tot.append(t)
+    return torch.stack(tot).reshape(x.shape[:rank_dims])
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
@@ -276,10 +383,16 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
                dtype: torch.dtype | None = None,
                device: str | torch.device | None = None) -> dict:
     """Zero KV cache sized for ``max_seq`` (the decode dry-run's shapes:
-    ``pos`` stands at ``max_seq - 1``), on ``device``."""
-    _check_dense(cfg)
+    ``pos`` stands at ``max_seq - 1``), on ``device``: ``{"layers": {"k",
+    "v"}}`` of ``(L, B, max_seq, KV, hd)``, or ``{"local": ..., "global":
+    ...}`` of the pairs."""
+    _check_ported(cfg)
     dtype = dtype or cfg.dtype
-    shape = (cfg.n_layers, batch_size, max_seq, cfg.n_kv_heads, cfg.hd)
-    return {"layers": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)},
-            "pos": max_seq - 1}
+    n = cfg.n_layers // 2 if cfg.local_global else cfg.n_layers
+    shape = (n, batch_size, max_seq, cfg.n_kv_heads, cfg.hd)
+    cache: dict = {entry: {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device)}
+        for _, entry, _ in _stacks(cfg)}
+    cache["pos"] = max_seq - 1
+    return cache

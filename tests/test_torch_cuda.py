@@ -769,3 +769,91 @@ def test_train_step_on_cuda_matches_cpu(cuda):
     assert runs["cpu"][1] == 0
     for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
         assert abs(a - b) <= 1e-4 * abs(b)
+
+
+#: the model paths' flash launches (``chip_smoke.py`` phase 7's new
+#: cases, cut in length): q heads, kv heads, hd, Sq = Sk, cap, window
+_MODEL_CASES = {"gemma2 hd 256 window cap": (8, 4, 256, 1024, 50.0, 256),
+                "granite MQA G 48": (48, 1, 128, 512, 0.0, 0),
+                "qwen3 G 16": (64, 4, 128, 256, 0.0, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_MODEL_CASES))
+def test_flash_model_paths_match_plain_on_cuda(cuda, case):
+    """bf16 causal attention at the new models' head layouts, one
+    tensor-core launch each: gemma2's hd 256 with the attention cap and a
+    window shorter than the sequence (it hides keys: the plain version
+    without it differs), granite's 48 query heads on one KV head, qwen3's
+    16-way groups."""
+    h, kv, hd, s, cap, win = _MODEL_CASES[case]
+    q = torch.randn((1, s, h, hd), generator=cuda, device="cuda").bfloat16()
+    k, v = (torch.randn((1, s, kv, hd), generator=cuda,
+                        device="cuda").bfloat16() for _ in range(2))
+    before = fa.tc_launches
+    got = ops.attention(q, k, v, causal=True, attn_cap=cap, window=win)
+    assert fa.tc_launches == before + 1
+    want, _ = ref.flash_attention_bshd(q, k, v, causal=True, attn_cap=cap,
+                                       window=win, scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    _assert_flash_close(got, want, v)
+    if win:
+        open_, _ = ref.flash_attention_bshd(q, k, v, causal=True,
+                                            attn_cap=cap, scale=hd ** -0.5)
+        assert not torch.equal(open_, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1, 4])
+def test_flash_windowed_masked_decode_matches_plain_on_cuda(cuda, sq):
+    """Masked decode with gemma2's window at hd 256 (GQA 8/4): the cache
+    filled past the window (``kv_len`` 700 and 900 of 1024, window 256),
+    so the window and ``kv_len`` both hide keys in one launch."""
+    k, v = (torch.randn((2, 1024, 4, 256), generator=cuda,
+                        device="cuda").bfloat16() for _ in range(2))
+    for off in (700 - sq, 900 - sq):
+        q = torch.randn((2, sq, 8, 256), generator=cuda,
+                        device="cuda").bfloat16()
+        kw = dict(causal=True, attn_cap=50.0, window=256, q_offset=off,
+                  kv_len=off + sq)
+        before = fa.tc_launches
+        got = ops.attention(q, k, v, **kw)
+        assert fa.tc_launches == before + 1
+        want, _ = ref.flash_attention_bshd(q, k, v, scale=256 ** -0.5, **kw)
+        torch.cuda.synchronize()
+        _assert_flash_close(got, want, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-moe-235b-a22b"])
+def test_new_models_decode_on_cuda_matches_cpu(cuda, arch):
+    """gemma2's and qwen3's SMOKE configs (fp32, hd 16): a prefill of 32
+    grown by 8 and 8 decode steps on the card against the CPU, as
+    ``test_decode_step_on_cuda_matches_cpu`` holds TinyLlama: one flash
+    launch a layer a step, logits within 1e-4 of max|logit| (gemma2's
+    local layers see 8 keys of up to 40)."""
+    from repro_torch import configs
+    from repro_torch.models.registry import get_model
+    cfg = configs.load(arch).SMOKE.scaled(dtype=torch.float32)
+    model = get_model(cfg)
+    full = model.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (4, 40), generator=torch.Generator()
+                         .manual_seed(1))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = tree.map_leaves(lambda t: t.to(dev), full)
+        fa.launches = 0
+        with torch.inference_mode():
+            logits, cache = model.prefill(p, {"tokens": toks[:, :32].to(dev)})
+            for name in set(cache) - {"pos"}:
+                cache[name] = {k: torch.cat([v, torch.zeros_like(
+                    v[:, :, :8])], 2) for k, v in cache[name].items()}
+            outs = [logits]
+            for t in range(32, 40):
+                logits, cache = model.decode(p, toks[:, t:t + 1].to(dev),
+                                             cache)
+                outs.append(logits)
+        runs[dev] = (torch.cat(outs, 1).cpu(), fa.launches)
+    assert runs["cuda"][1] == cfg.n_layers * 9 and runs["cpu"][1] == 0
+    got, want = runs["cuda"][0], runs["cpu"][0]
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
