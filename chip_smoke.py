@@ -75,20 +75,27 @@
    (one bf16 ulp of the plain version on the same bf16 inputs) at hd 64,
    with the launch counters showing every bf16 case on the tensor-core
    kernel and no fp32 one; bf16 at ``(hd, vd)`` = (16, 16), (32, 32),
-   (128, 128), (256, 256) and (192, 128); ``base.attend`` in bf16 at hd
-   128 on the card against its dense CPU branch (the scale rounded to
-   bf16 in both).  Then ``FLASH_MODEL_CASES``: every launch shape that
-   the model paths give the kernel (TinyLlama's train step, prefill and
-   decode; gemma2-2b's train step, prefill and decode, local and global,
-   hd 256, cap 50, window 4096; qwen3's prefill and decode, hd 128,
-   16-way groups), granite-20b's 48 query heads on one KV head, gemma2's window
-   where it hides most keys (``Sq = Sk = 8192``) and its masked decode
-   at ``kv_len`` 6144.  Each is one tensor-core launch held against the
-   plain version at every batch row, timed beside its bound and
-   ``scaled_dot_product_attention`` with the same boolean mask (no cap:
-   SDPA takes none); where the window hides a key, the plain version
-   without it differs.  After phase 21 every launch that phases 9 and
-   18–21 recorded must have its case here.
+   (128, 128), (256, 256) and (192, 128); fp32 at (128, 128) (two
+   threads a query row), causal and not, ``Sq != Sk``, GQA 8, cap 0 and
+   30; ``base.attend`` in bf16 at hd 128 on the card against its dense
+   CPU branch (the scale rounded to bf16 in both), and a bf16 query over
+   fp32 K/V the same way (upcast, the fp32 kernel, bf16 out).  Then
+   ``FLASH_MODEL_CASES``: every launch shape that the model paths give
+   the kernel (TinyLlama's train step, prefill and decode; gemma2-2b's
+   train step, prefill and decode, local and global, hd 256, cap 50,
+   window 4096; qwen3's prefill and decode, hd 128, 16-way groups;
+   deepseek's MLA train step, prefill and decode at ``(hd, vd)`` = (192,
+   128); the VLM's self prefill and decode, its cross prefill and decode
+   over 1600 vision keys, not causal, fp32 K/V, and the slot server's
+   self and bf16 cross decode), granite-20b's 48 query heads on one KV
+   head, gemma2's window where it hides most keys (``Sq = Sk = 8192``)
+   and its masked decode at ``kv_len`` 6144.  Each is one launch (bf16
+   on the tensor cores, fp32 on the CUDA cores) held against the plain
+   version at every batch row, timed beside its bound and
+   ``scaled_dot_product_attention`` in the same dtype with the same
+   boolean mask (no cap: SDPA takes none); where the window hides a key,
+   the plain version without it differs.  After phase 24 every launch
+   that phases 9 and 18–24 recorded must have its case here.
 8. The wire dense reductions (``WIRE_RUNS``), at the reduction paths'
    model and size: on ``(2, 4)`` the default (the hierarchical schedule,
    rhd levels), ``reproducible=True`` (its fixed-tree variant),
@@ -276,6 +283,43 @@
    on the same model.  The MoE train step does not fit the card at these
    widths (one layer's fp32 state is about 60 GB before any gradient):
    it is held on the CPU against the reference.
+22. deepseek-v2-lite's training step, the first MoE step on the card:
+   phase 9's checks through ``launch.train.setup`` with
+   ``DEEPSEEK_TRAIN_FLAGS`` (``TRAIN_FLAGS`` and ``--arch
+   deepseek-v2-lite-16b``) at ``DEEPSEEK_TRAIN_LAYERS`` (the dense first
+   layer and one MoE layer, 64 experts × 1408, top 6, 2 shared): 5 timed
+   steps, flash 2 a layer a step on the tensor cores at ``(hd, vd)`` =
+   (192, 128) (MLA's strided ``v`` as it is), ``tree_reduce_slots``
+   launched, the MoE's dropped choices counted, losses finite and
+   falling, the F3 replay, 2 layers against the plain attention; the
+   median step, the peak and a profile.
+23. Serving deepseek-v2-lite at all 27 layers (bf16, the router fp32,
+   drawn a layer at a time): ``launch.serve --arch deepseek-v2-lite-16b``
+   at its defaults (27 flash launches a decode call), then
+   ``DS_SERVE_B`` prompts of ``DS_SERVE_PROMPT`` and ``DS_SERVE_STEPS``
+   expanded-MLA decode steps against the plain attention (the plain run
+   forced on the kernel run's tokens and expert choices, as phase 21);
+   then the absorbed decode (latent-space fp32 products, no flash)
+   against the expanded one on the same cache, step by step (each
+   absorbed step on a copy of the expanded run's cache, both fed its
+   tokens and forced on its expert choices): logits within
+   ``MLA_ABSORBED_TOL``, tokens equal outside near ties, both step times;
+   and a witness for that tolerance (``mla_fp32_witness``): the same
+   steps in fp32 from the same cache and weights, where the absorbed and
+   expanded decodes agree within ``MLA_FP32_TOL`` and each bf16 decode
+   lies within ``SERVE_LOGIT_TOL`` of them.
+24. Serving llama-3.2-vision at published widths, ``VLM_SERVE_GROUPS``
+   groups deep (4 self layers and a gated cross layer each; bf16, the
+   gates drawn away from their init of 0): ``VLM_SERVE_B`` prompts of
+   ``VLM_SERVE_PROMPT`` with the data pipeline's fp32 ``vision_embeds``
+   ``(B, 1600, 8192)`` and ``VLM_SERVE_STEPS`` decode steps against the
+   plain attention, the cross layers' launches on the fp32 kernel
+   (counted); closing the gates moves the logits by more than the
+   tolerance; the slot server (``SERVER_SLOTS`` lanes, ``SERVER_MAX_LEN``)
+   against the zero cross cache, every launch on the tensor cores.  The
+   VLM's train step does not fit the card at these widths (one group's
+   fp32 state with the embedding and head is about 102 GB): it is held
+   on the CPU against the reference.
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line
 of kernel figures, and as its last line ``{"ok": true, "device": ...}``.
@@ -305,6 +349,9 @@ HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet), the flash
 #: kernel's bound: the least time its flops could take on this card
 BF16_FLOPS_PER_S = 989e12
+#: H100 SXM fp32 rate outside the tensor cores (NVIDIA data sheet), the
+#: bound of the fp32 flash kernel's launches
+FP32_FLOPS_PER_S = 67e12
 #: depth of the training phase: TinyLlama's published 22 (predicted
 #: peak 45-60 GiB of the card's 80)
 TRAIN_LAYERS = 22
@@ -426,16 +473,73 @@ GEMMA_SERVE_B, GEMMA_SERVE_PROMPT, GEMMA_SERVE_CACHE, GEMMA_SERVE_STEPS = (
 QWEN_SERVE_LAYERS = 8
 QWEN_SERVE_B, QWEN_SERVE_PROMPT, QWEN_SERVE_CACHE, QWEN_SERVE_STEPS = (
     4, 1024, 1024 + 32, 32)
-#: phase 7's flash cases at the model paths' launches, name → (B, Sq, Sk,
-#: H, KV, hd, cap, window, q_offset, kv_len): every launch shape that
-#: phases 9 and 18–21 give the kernel (a decode case at its last step's
-#: position; ``path_flash`` records the paths' launches and ``main``
-#: checks each has its case here), and three that no path launches on the
-#: card: gemma2's window where it hides most keys (Sq = Sk = 8192),
-#: granite-20b's 48 query heads on one KV head, and gemma2's windowed
-#: decode at ``kv_len`` 6144 of an 8192-position cache
+#: phase 22: deepseek-v2-lite's training step, ``TRAIN_FLAGS`` with its
+#: arch, at this depth: the dense first layer and one MoE layer.  Its
+#: published widths give a MoE layer 584.8 M parameters, the dense layer
+#: 81.0 M and the untied embedding and head 419.4 M: 1.085 G, 17.4 GB of
+#: fp32 weights, gradients and both Adam moments, which both pods hold
+DEEPSEEK_TRAIN_FLAGS = [*TRAIN_FLAGS, "--arch", "deepseek-v2-lite-16b"]
+DEEPSEEK_TRAIN_LAYERS = 2
+#: phase 23: deepseek-v2-lite served at all 27 layers (15.71 G parameters,
+#: 31.4 GB in bf16): prompts, prompt length, cache positions, steps
+DS_SERVE_B, DS_SERVE_PROMPT, DS_SERVE_CACHE, DS_SERVE_STEPS = (
+    4, 2048, 2048 + 32, 32)
+#: phase 23: the absorbed decode's logits within this share of max|logit|
+#: of the expanded decode's, each step from the same cache.  The two
+#: round to bf16 at other points of every MLA layer (the expanded one the
+#: up-projected K and V, the absorbed one the latent query and output),
+#: so each carries its own bf16 error, and two independent errors of up
+#: to ``SERVE_LOGIT_TOL`` add to about √2 of it.  The fp32 witness
+#: (``mla_fp32_witness``) holds each decode within ``SERVE_LOGIT_TOL`` of
+#: the same steps in fp32
+MLA_ABSORBED_TOL = math.sqrt(2) * SERVE_LOGIT_TOL
+#: phase 23's fp32 witness: the fp32 absorbed and expanded decodes (one
+#: function, two orders of operations) within this share of max|logit|
+#: of each other: fp32 rounding through 27 layers is far below it, and
+#: it is 300 times under ``SERVE_LOGIT_TOL``, so a wrong term of either
+#: decode cannot hide under it
+MLA_FP32_TOL = 1e-4
+#: phase 24: llama-3.2-vision-90b served at published widths, cut to this
+#: many groups of 4 self layers and a cross layer (a layer is 855.6 M
+#: parameters, the untied embedding and head 2.10 G: 21.3 GB in bf16)
+VLM_SERVE_GROUPS = 2
+VLM_SERVE_B, VLM_SERVE_PROMPT, VLM_SERVE_CACHE, VLM_SERVE_STEPS = (
+    2, 1024, 1024 + 16, 16)
+#: the slot servers' lanes and cache length (``launch.serve``'s defaults,
+#: which ``served_at_defaults`` runs; phases 21 and 24 take them too)
+SERVER_SLOTS, SERVER_MAX_LEN = 4, 64
+
+
+def flash_case(b, sq, sk, h, kv, hd, cap=0.0, window=0, q_offset=0,
+               kv_len=None, *, vd=None, causal=True, dtype="bfloat16",
+               v_in=None) -> dict:
+    """One ``FLASH_MODEL_CASES`` entry: the launch's shapes (q ``(b, sq,
+    h, hd)``, k ``(b, sk, kv, hd)``, v ``(b, sk, kv, vd)``), cap, window,
+    mask, the kernel's dtype (bf16: the tensor cores; fp32: the CUDA
+    cores, which a bf16 query over fp32 K/V reaches upcast) and, where
+    the model's ``v`` is a strided view of a wider tensor, that tensor's
+    width a head (MLA's up-projection: ``v`` its last ``vd`` of ``v_in``
+    values a head)."""
+    return dict(b=b, sq=sq, sk=sk, h=h, kv=kv, hd=hd, cap=cap, window=window,
+                q_offset=q_offset, kv_len=kv_len, vd=vd or hd, causal=causal,
+                dtype=dtype, v_in=v_in)
+
+
+#: phase 7's flash cases at the model paths' launches: every launch shape
+#: that phases 9, 18–24 give the kernel (a decode case at its last step's
+#: position, a slot server's at its cache's end; ``path_flash`` records
+#: the paths' launches and ``main`` checks each has its case here), and
+#: three that no path launches on the card: gemma2's window where it
+#: hides most keys (Sq = Sk = 8192), granite-20b's 48 query heads on one
+#: KV head, and gemma2's windowed decode at ``kv_len`` 6144 of an
+#: 8192-position cache.  MLA's ``v`` is the model's strided view of its
+#: up-projection (head stride 256, 128 values in)
 _TL, _GE, _QW = (32, 4, 64, 0.0), (8, 4, 256, 50.0), (64, 4, 128, 0.0)
-FLASH_MODEL_CASES = {
+_DS = dict(h=16, kv=16, hd=192, vd=128, v_in=256)
+_SRV = (SERVER_SLOTS, 1, SERVER_MAX_LEN)
+_SRV_MASK = dict(q_offset=SERVER_MAX_LEN - 2, kv_len=SERVER_MAX_LEN - 1)
+_VL = dict(h=64, kv=8, hd=128)
+FLASH_MODEL_CASES = {k: flash_case(*v) for k, v in {
     "tinyllama train": (8, 4096, 4096, *_TL, 0, 0, None),
     "tinyllama prefill": (SERVE_B, SERVE_PROMPT, SERVE_PROMPT, *_TL, 0, 0,
                           None),
@@ -461,7 +565,35 @@ FLASH_MODEL_CASES = {
                      QWEN_SERVE_PROMPT + QWEN_SERVE_STEPS),
     "gemma2 window 4096 at 8192": (1, 8192, 8192, *_GE, 4096, 0, None),
     "granite GQA 48": (1, 4096, 4096, 48, 1, 128, 0.0, 0, 0, None),
-    "gemma2 decode kv_len 6144": (2, 1, 8192, *_GE, 4096, 6143, 6144)}
+    "gemma2 decode kv_len 6144": (2, 1, 8192, *_GE, 4096, 6143, 6144),
+    "tinyllama server decode": (*_SRV, *_TL, 0, *_SRV_MASK.values()),
+    "gemma2 server decode local": (*_SRV, *_GE, 4096,
+                                   *_SRV_MASK.values()),
+    "gemma2 server decode global": (*_SRV, *_GE, 0, *_SRV_MASK.values()),
+    "qwen3 server decode": (*_SRV, *_QW, 0, *_SRV_MASK.values()),
+}.items()} | {
+    "deepseek train": flash_case(8, 4096, 4096, **_DS),
+    "deepseek prefill": flash_case(DS_SERVE_B, DS_SERVE_PROMPT,
+                                   DS_SERVE_PROMPT, **_DS),
+    "deepseek decode": flash_case(
+        DS_SERVE_B, 1, DS_SERVE_CACHE, **_DS,
+        q_offset=DS_SERVE_PROMPT + DS_SERVE_STEPS - 1,
+        kv_len=DS_SERVE_PROMPT + DS_SERVE_STEPS),
+    "deepseek server decode": flash_case(*_SRV, **_DS, **_SRV_MASK),
+    "vlm self prefill": flash_case(VLM_SERVE_B, VLM_SERVE_PROMPT,
+                                   VLM_SERVE_PROMPT, **_VL),
+    "vlm self decode": flash_case(
+        VLM_SERVE_B, 1, VLM_SERVE_CACHE, **_VL,
+        q_offset=VLM_SERVE_PROMPT + VLM_SERVE_STEPS - 1,
+        kv_len=VLM_SERVE_PROMPT + VLM_SERVE_STEPS),
+    "vlm cross prefill fp32": flash_case(
+        VLM_SERVE_B, VLM_SERVE_PROMPT, 1600, **_VL, causal=False,
+        dtype="float32"),
+    "vlm cross decode fp32": flash_case(VLM_SERVE_B, 1, 1600, **_VL,
+                                        causal=False, dtype="float32"),
+    "vlm server self decode": flash_case(*_SRV, **_VL, **_SRV_MASK),
+    "vlm server cross decode bf16": flash_case(SERVER_SLOTS, 1, 1600,
+                                               **_VL, causal=False)}
 #: TinyLlama depth, cut from the published 22: the int8 reduction's peak
 #: is about four times the 8 ranks' fp32 gradient bytes (the caller's
 #: gradients and state, the two packed arenas), and 22 layers of fp32
@@ -1163,6 +1295,40 @@ def phase_flash_vs_plain(torch, ops, ref, fa, base) -> None:
                                         flash_err(torch, got, want, v))
             wide += 1
     cases += wide
+    # the CUDA-core kernel at (128, 128), two threads a query row (the
+    # VLM's fp32 cross K/V): causal and not, Sq != Sk, GQA 8, cap 0 and 30
+    fp32_128 = 0
+    for sq, sk, causal in ((700, 700, True), (300, 1600, False),
+                           (129, 1000, True)):
+        for cap in (0.0, 30.0):
+            q = torch.randn((2, sq, 64, 128), generator=gen, device="cuda")
+            k, v = (torch.randn((2, sk, 8, 128), generator=gen,
+                                device="cuda") for _ in range(2))
+            before = (fa.launches, fa.tc_launches)
+            got = ops.attention(q, k, v, causal=causal, attn_cap=cap)
+            want, _ = ref.flash_attention_bshd(q, k, v, causal=causal,
+                                               attn_cap=cap)
+            torch.cuda.synchronize()
+            check((fa.launches, fa.tc_launches) == (before[0] + 1, before[1]),
+                  "fp32 (128, 128) missed the CUDA-core kernel")
+            worst[torch.float32] = max(worst[torch.float32],
+                                       flash_err(torch, got, want, v))
+            fp32_128 += 1
+    # a bf16 query over fp32 K/V through base.attend: upcast, the fp32
+    # kernel, bf16 out, against the CPU's dense branch (scale rounded to
+    # bf16 in both)
+    q = (torch.randn((2, 300, 64, 128), generator=gen, device="cuda")
+         * 4).bfloat16()
+    k, v = (torch.randn((2, 1600, 8, 128), generator=gen, device="cuda")
+            for _ in range(2))
+    before = (fa.launches, fa.tc_launches)
+    got = base.attend(q, k, v, causal=False).cpu()
+    check((fa.launches, fa.tc_launches) == (before[0] + 1, before[1])
+          and got.dtype == torch.bfloat16,
+          "a bf16 query over fp32 K/V missed the fp32 kernel")
+    mixed_err = flash_err(torch, got, base.attend(
+        q.cpu(), k.cpu(), v.cpu(), causal=False), v.cpu())
+    cases += fp32_128 + 1
     # the model's attention at hd 128 (scale 128^-0.5 rounded to bf16) on
     # the card against the dense CPU branch on the same bf16 inputs
     q = torch.randn((2, 256, 8, 128), generator=gen, device="cuda").bfloat16()
@@ -1177,10 +1343,11 @@ def phase_flash_vs_plain(torch, ops, ref, fa, base) -> None:
           "Sq and Sk; fp32 on the CUDA cores at atol 3e-5, bf16 on the "
           f"tensor cores within one ulp + 2^-17 max|v|, {wide} of them at "
           "(hd, vd) = (16, 16), (32, 32), (128, 128), (256, 256), (192, "
-          "128)); worst error "
-          f"fp32 {worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e};"
-          f" base.attend bf16 hd 128 on the card vs the CPU's dense branch "
-          f"{attend_err:.3e}")
+          f"128); {fp32_128} fp32 at (128, 128), GQA 8, Sq != Sk); worst "
+          f"error fp32 {worst[torch.float32]:.3e}, bf16 "
+          f"{worst[torch.bfloat16]:.3e}; base.attend bf16 hd 128 on the card "
+          f"vs the CPU's dense branch {attend_err:.3e}; a bf16 query over "
+          f"fp32 K/V (upcast, the fp32 kernel) vs the CPU's {mixed_err:.3e}")
 
 
 def flash_signature(q, k, v, *, causal, scale, attn_cap, window,
@@ -1211,26 +1378,28 @@ def path_flash(label: str):
 
 def case_kw(torch, case) -> dict:
     """A ``FLASH_MODEL_CASES`` entry's launch keywords: the model's query
-    scale (``hd ** -0.5`` rounded to bf16), its cap, window and mask."""
-    hd, cap, win, off, kvl = case[5:]
-    return dict(causal=True, scale=torch.tensor(
-        hd ** -0.5, dtype=torch.bfloat16).item(), attn_cap=cap, window=win,
-        q_offset=off, kv_len=kvl)
+    scale (``hd ** -0.5`` rounded to bf16: the bf16 query's, also where it
+    is upcast over fp32 K/V), its cap, window and mask."""
+    return dict(causal=case["causal"], scale=torch.tensor(
+        case["hd"] ** -0.5, dtype=torch.bfloat16).item(),
+        attn_cap=case["cap"], window=case["window"],
+        q_offset=case["q_offset"], kv_len=case["kv_len"])
 
 
 def case_shapes(case) -> tuple:
     """A ``FLASH_MODEL_CASES`` entry's q, k and v shapes."""
-    b, sq, sk, h, kv, hd = case[:6]
-    return (b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd)
+    c = case
+    return ((c["b"], c["sq"], c["h"], c["hd"]),
+            (c["b"], c["sk"], c["kv"], c["hd"]),
+            (c["b"], c["sk"], c["kv"], c["vd"]))
 
 
 def check_path_flash(torch) -> None:
     """Every flash launch the path phases recorded has its phase-7 case."""
-    cases = {flash_signature(*(torch.empty(shape, dtype=torch.bfloat16,
-                                           device="meta")
-                               for shape in case_shapes(case)),
-                             **case_kw(torch, case))
-             for case in FLASH_MODEL_CASES.values()}
+    cases = {flash_signature(*(torch.empty(shape, dtype=getattr(
+        torch, case["dtype"]), device="meta")
+        for shape in case_shapes(case)), **case_kw(torch, case))
+        for case in FLASH_MODEL_CASES.values()}
     for label, seen in PATH_FLASH.items():
         missing = seen - cases
         check(bool(seen) and not missing, f"{label}: flash launches "
@@ -1241,27 +1410,39 @@ def check_path_flash(torch) -> None:
 
 
 def phase_flash_model_cases(torch, fa, ref, card) -> dict:
-    """Phase 7's model-path cases (``FLASH_MODEL_CASES``): bf16 flash
-    against its plain version at every batch row, one tensor-core launch
-    each, timed by CUDA events beside its bound and
-    ``scaled_dot_product_attention`` on the same boolean mask (SDPA takes
-    no tanh cap: it is timed without one).  Where the window hides a key,
-    the plain version without it must differ.  Returns each case's
-    figures."""
+    """Phase 7's model-path cases (``FLASH_MODEL_CASES``): flash against
+    its plain version at every batch row, one launch each (bf16 on the
+    tensor cores, fp32 on the CUDA cores), timed by CUDA events beside its
+    bound and ``scaled_dot_product_attention`` in the same dtype on the
+    same boolean mask, or none where nothing is masked (SDPA takes no
+    tanh cap: it is timed without one).  Where the window hides a key,
+    the plain version without it must differ.  The bound takes the
+    operations at the dtype's peak (bf16 on the tensor cores, fp32 on the
+    CUDA cores).  Returns each case's figures."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(24)
     out = {}
     for name, case in FLASH_MODEL_CASES.items():
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
-                   for shape in case_shapes(case))
+        dtype = getattr(torch, case["dtype"])
+        tc = dtype == torch.bfloat16
+        qs, ks, vs = case_shapes(case)
+        q, k = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for shape in (qs, ks))
+        if case["v_in"]:
+            v = torch.randn((*vs[:-1], case["v_in"]), generator=gen,
+                            device="cuda").to(dtype)[..., -case["vd"]:]
+        else:
+            v = torch.randn(vs, generator=gen, device="cuda").to(dtype)
         kw = case_kw(torch, case)
         b, sq, h, hd = q.shape
         sk = k.shape[1]
         win, off, kvl = kw["window"], kw["q_offset"], kw["kv_len"]
-        before = fa.tc_launches
+        causal = kw["causal"]
+        before = (fa.launches, fa.tc_launches)
         got, _ = fa.attention_fwd(q, k, v, **kw)
-        check(fa.tc_launches == before + 1, f"{name}: not on the tensor "
-              "cores")
+        check((fa.launches, fa.tc_launches) == (before[0] + 1,
+                                                before[1] + tc),
+              f"{name}: not on the {'tensor' if tc else 'CUDA'} cores")
         want, _ = ref.flash_attention_bshd(q, k, v, **kw)
         torch.cuda.synchronize()
         err = flash_err(torch, got, want, v)
@@ -1274,35 +1455,68 @@ def phase_flash_model_cases(torch, fa, ref, card) -> dict:
         k_ms = cuda_ms(lambda: fa.attention_fwd(q, k, v, **kw), 10)
         p_ms = cuda_ms(lambda: ref.flash_attention_bshd(q, k, v, **kw), 1,
                        warmup=1)
-        pos = off + torch.arange(sq, device="cuda")
-        kp = torch.arange(sk, device="cuda")
-        mask = (kp[None] <= pos[:, None]) & (kp[None] < (kvl or sk))
-        if win:
-            mask &= kp[None] > pos[:, None] - win
+        mask = None
+        if causal or kvl:
+            pos = off + torch.arange(sq, device="cuda")
+            kp = torch.arange(sk, device="cuda")
+            mask = (kp[None] < (kvl or sk)).expand(sq, sk)
+            if causal:
+                mask = mask & (kp[None] <= pos[:, None])
+            if win:
+                mask &= kp[None] > pos[:, None] - win
+            mask = mask[None, None]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask[None, None], scale=kw["scale"],
+            qt, kt, vt, attn_mask=mask, scale=kw["scale"],
             enable_gqa=True), 10)
-        flops = fa.flops(b, h, sq, sk, hd, causal=True, window=win,
-                         q_offset=off, kv_len=kvl or sk)
+        flops = fa.flops(b, h, sq, sk, hd, causal=causal, window=win,
+                         q_offset=off, kv_len=kvl or sk, vd=v.shape[-1])
         nbytes = fa.bytes_moved(q, k, v, kvl or sk, window=win,
                                 q_offset=off)
-        by_ops = flops / BF16_FLOPS_PER_S > nbytes / HBM_BYTES_PER_S
-        bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-        print(f"flash_attention {name}: q {tuple(q.shape)} k, v "
-              f"{tuple(k.shape)} bf16 causal cap {kw['attn_cap']} window "
-              f"{win}" + (f" q_offset {off} kv_len {kvl}" if kvl else "")
+        rate = BF16_FLOPS_PER_S if tc else FP32_FLOPS_PER_S
+        by_ops = flops / rate > nbytes / HBM_BYTES_PER_S
+        bound = max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3
+        print(f"flash_attention {name}: q {tuple(q.shape)} k "
+              f"{tuple(k.shape)} v {tuple(v.shape)}"
+              + (f" (a view, strides {v.stride()}, offset "
+                 f"{v.storage_offset()})" if case["v_in"] else "")
+              + f" {case['dtype']} "
+              f"{'causal' if causal else 'not causal'} cap {kw['attn_cap']} "
+              f"window {win}" + (f" q_offset {off} kv_len {kvl}" if kvl
+                                 else "")
               + f": {k_ms:.4f} ms; bound {bound:.4f} ms by "
-              f"{'operations' if by_ops else 'bytes'} ({flops} flops, "
-              f"{nbytes} bytes; {bound / k_ms:.1%} of the bound); plain "
-              f"{p_ms:.3f} ms; library scaled_dot_product_attention with "
-              f"the boolean mask, no cap, {l_ms:.4f} ms; max |kernel - "
+              f"{'operations' if by_ops else 'bytes'} ({flops} flops at "
+              f"{rate / 1e12:.0f} TFLOP/s, {nbytes} bytes; "
+              f"{bound / k_ms:.1%} of the bound); plain "
+              f"{p_ms:.3f} ms; library scaled_dot_product_attention "
+              f"{case['dtype']} with " + ("the boolean mask" if mask is not
+                                          None else "no mask")
+              + f", no cap, {l_ms:.4f} ms; max |kernel - "
               f"plain| over all {b} batch rows {err:.3e}  [{card}]")
         out[name] = dict(ms=k_ms, bound_ms=bound, plain_ms=p_ms,
                          library_ms=l_ms, max_abs_err=err)
         del q, k, v, got, want, mask
         torch.cuda.empty_cache()
     return out
+
+
+@contextlib.contextmanager
+def counting_drops(drops: list):
+    """Count the MoE's dropped choices: each router call's ``(dropped,
+    choices)``, as ``base.moe_block``'s ``_expert_slots`` finds them,
+    appended to ``drops`` (the dropped count a tensor on the card, read
+    after the run)."""
+    from repro_torch.models import base
+    real = base._expert_slots
+
+    def slots(flat_e, e, cap):
+        pos, keep = real(flat_e, e, cap)
+        drops.append(((~keep).sum(), keep.numel()))
+        return pos, keep
+    with mock.patch.object(base, "_expert_slots", slots):
+        yield
+    for i, (d, n) in enumerate(drops):
+        drops[i] = (int(d), n)
 
 
 def phase_train(torch, card, total_mem, tr, flags=TRAIN_FLAGS,
@@ -1348,8 +1562,11 @@ def phase_train(torch, card, total_mem, tr, flags=TRAIN_FLAGS,
     with path_flash(f"phase {phase}"):
         one()                                  # warm-up
     fa.launches = fa.tc_launches = tr.launches = 0
-    for _ in range(5):
-        one()
+    drops: list = []
+    with (counting_drops(drops) if run.cfg.is_moe
+          else contextlib.nullcontext()):
+        for _ in range(5):
+            one()
     torch.cuda.synchronize()
     launches, tc_launches, folds = fa.launches, fa.tc_launches, tr.launches
     peak = torch.cuda.max_memory_allocated()
@@ -1363,7 +1580,11 @@ def phase_train(torch, card, total_mem, tr, flags=TRAIN_FLAGS,
           f"= 2 x {layers} layers; {tc_launches} of them the tensor-"
           f"core kernel's); tree_reduce_slots launches "
           f"{folds} ({folds // 5} a step); peak device memory "
-          f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}")
+          f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}"
+          + (f"; the MoE dropped {int(sum(d for d, _ in drops))} of "
+             f"{sum(n for _, n in drops)} expert choices over "
+             f"{len(drops)} router calls (forward and remat recompute; "
+             f"capacity factor {run.cfg.capacity_factor})" if drops else ""))
     check(all(map(math.isfinite, losses)), f"a loss is not finite: {losses}")
     check(losses[5] < losses[1], f"step 5 loss {losses[5]} is not below "
           f"step 1 loss {losses[1]}")
@@ -3207,13 +3428,8 @@ def phase_health(torch, card, total_mem, seed) -> dict:
 
 def phase_serve(torch, card, total_mem, seed) -> None:
     """Phase 18: serving TinyLlama-1.1B (module docstring, item 18)."""
-    import io
-
     from repro_torch import tree
     from repro_torch.configs import tinyllama_1_1b as tl
-    from repro_torch.kernels import flash_attn as fa
-    from repro_torch.launch import serve as launch_serve
-    from repro_torch.models import transformer
     from repro_torch.models.registry import get_model
 
     t_phase = time.perf_counter()
@@ -3221,36 +3437,9 @@ def phase_serve(torch, card, total_mem, seed) -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg = tl.CONFIG
-    layers = cfg.n_layers
 
     # -- (a) the main path: launch.serve at the reference's defaults --------
-    calls = []
-    real_decode = transformer.decode_step
-
-    def counting_decode(*a, **k):
-        calls.append(1)
-        return real_decode(*a, **k)
-    buf = io.StringIO()
-    fa.launches = fa.tc_launches = 0
-    with mock.patch.object(transformer, "decode_step", counting_decode), \
-            contextlib.redirect_stdout(buf):
-        reqs = launch_serve.main(["--seed", str(seed)])
-    torch.cuda.synchronize()
-    served = (fa.launches, fa.tc_launches)
-    out = buf.getvalue()
-    print(out, end="")
-    check(served[0] == served[1] == layers * len(calls) and calls,
-          f"launch.serve: flash launches {served} for {len(calls)} decode "
-          f"calls of {layers} layers")
-    check(len(reqs) == 8 and all(r.done and len(r.out) == 16 for r in reqs),
-          "launch.serve did not finish its 8 requests of 16 tokens")
-    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
-          "a served token is out of the vocabulary")
-    print(f"launch.serve (TinyLlama-1.1B, {layers} layers, bf16, {card}): "
-          f"{len(calls)} decode calls, flash launches {served[0]} "
-          f"({served[1]} tensor-core) = {layers} a call")
-    del reqs
-    torch.cuda.empty_cache()
+    served_at_defaults(torch, card, "tinyllama-1.1b", seed)
 
     # -- (b) at scale: prefill, a grown cache, lockstep decode --------------
     model = get_model(cfg)
@@ -3270,12 +3459,7 @@ def phase_serve(torch, card, total_mem, seed) -> None:
 def phase_gemma_serve(torch, card, total_mem, seed) -> dict:
     """Phase 20: serving gemma2-2b at all 26 layers (module docstring,
     item 20)."""
-    import io
-
     from repro_torch.configs import gemma2_2b
-    from repro_torch.kernels import flash_attn as fa
-    from repro_torch.launch import serve as launch_serve
-    from repro_torch.models import transformer
     from repro_torch.models.registry import get_model
     from repro_torch.sharding import rules
 
@@ -3283,35 +3467,9 @@ def phase_gemma_serve(torch, card, total_mem, seed) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     cfg = gemma2_2b.CONFIG
-    layers = cfg.n_layers
 
     # -- (a) launch.serve --arch gemma2-2b at the reference's defaults -------
-    calls = []
-    real_decode = transformer.decode_step
-
-    def counting_decode(*a, **k):
-        calls.append(1)
-        return real_decode(*a, **k)
-    buf = io.StringIO()
-    fa.launches = fa.tc_launches = 0
-    with mock.patch.object(transformer, "decode_step", counting_decode), \
-            contextlib.redirect_stdout(buf):
-        reqs = launch_serve.main(["--arch", "gemma2-2b", "--seed",
-                                  str(seed)])
-    torch.cuda.synchronize()
-    served = (fa.launches, fa.tc_launches)
-    print(buf.getvalue(), end="")
-    check(served[0] == served[1] == layers * len(calls) and calls,
-          f"launch.serve --arch gemma2-2b: flash launches {served} for "
-          f"{len(calls)} decode calls of {layers} layers")
-    check(len(reqs) == 8 and all(r.done and len(r.out) == 16 for r in reqs)
-          and all(0 <= t < cfg.vocab for r in reqs for t in r.out),
-          "launch.serve --arch gemma2-2b did not finish its requests")
-    print(f"launch.serve --arch gemma2-2b ({layers} layers, bf16, {card}): "
-          f"{len(calls)} decode calls, flash launches {served[0]} "
-          f"({served[1]} tensor-core) = {layers} a call")
-    del reqs
-    torch.cuda.empty_cache()
+    served_at_defaults(torch, card, "gemma2-2b", seed)
 
     # -- (b) prompts past the window, decode past them ----------------------
     model = get_model(cfg)
@@ -3344,27 +3502,13 @@ def phase_gemma_serve(torch, card, total_mem, seed) -> dict:
     return got
 
 
-def layerwise_params(torch, model, gen) -> dict:
+def layerwise_params(model, gen) -> dict:
     """The model's parameters in its compute dtype (``KEEP_F32`` leaves in
-    fp32), drawn one layer at a time into the stacks: the fp32 draw of the
-    whole stack would not fit beside them."""
-    from repro_torch import tree
-    from repro_torch.models import transformer
+    fp32), drawn one layer at a time into the stacks (``launch.serve``'s
+    draw): the fp32 draw of the whole stack would not fit beside them."""
     from repro_torch.sharding import rules
-    cfg = model.cfg
-    params = rules.cast_params(
-        transformer.init_params(cfg.scaled(n_layers=1), gen), cfg.dtype)
-    first = params["layers"]
-    params["layers"] = tree.map_leaves(
-        lambda t: t.new_empty((cfg.n_layers, *t.shape[1:])), first)
-    for i in range(cfg.n_layers):
-        layer = first if i == 0 else rules.cast_params(
-            transformer._layers(cfg, gen, 1), cfg.dtype)
-        for dst, src in zip(tree.flatten(params["layers"])[0],
-                            tree.flatten(layer)[0]):
-            dst[i].copy_(src[0])
-        del layer
-    return params
+    return model.init(gen, cast=lambda t: rules.cast_params(
+        t, model.cfg.dtype))
 
 
 def phase_qwen_serve(torch, card, total_mem, seed) -> dict:
@@ -3383,7 +3527,7 @@ def phase_qwen_serve(torch, card, total_mem, seed) -> dict:
     model = get_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(seed + 21)
     t0 = time.perf_counter()
-    params = layerwise_params(torch, model, gen)
+    params = layerwise_params(model, gen)
     torch.cuda.synchronize()
     nbytes = sum(t.numel() * t.element_size()
                  for t in tree.flatten(params)[0])
@@ -3403,14 +3547,7 @@ def phase_qwen_serve(torch, card, total_mem, seed) -> dict:
                         params, prompts, QWEN_SERVE_CACHE, QWEN_SERVE_STEPS,
                         "qwen3 serving (scatter_ar combine)",
                         feed=got["toks"], routes=got["routes"])
-    worst, near, mism = 0.0, 0, 0
-    for la, lg in zip(ar["logits"], got["logits"]):
-        scale = float(lg.abs().max())
-        worst = max(worst, float((la - lg).abs().max()) / scale)
-        top2 = lg.topk(2, dim=-1).values
-        tie = (top2[:, 0] - top2[:, 1]) <= SERVE_LOGIT_TOL * scale
-        near += int(tie.sum())
-        mism += int(((la.argmax(-1) != lg.argmax(-1)) & ~tie).sum())
+    worst, near, mism = compare_logits(ar["logits"], got["logits"])
     check(worst <= SERVE_LOGIT_TOL and mism == 0,
           f"qwen3: scatter_ar vs gather logits {worst}, {mism} tokens "
           "differ outside a near tie")
@@ -3418,13 +3555,15 @@ def phase_qwen_serve(torch, card, total_mem, seed) -> dict:
           f"max|logit| of gather's (tolerance {SERVE_LOGIT_TOL}), greedy "
           f"tokens equal outside {near} near ties")
     # the slot server on the same model
-    srv = BatchedServer(model, params, slots=4, max_len=64)
+    srv = BatchedServer(model, params, slots=SERVER_SLOTS,
+                        max_len=SERVER_MAX_LEN)
     rng = torch.Generator().manual_seed(seed)
     reqs = [srv.submit(torch.randint(0, cfg.vocab, (n,),
                                      generator=rng).numpy(), max_new=8)
             for n in (3, 5, 2, 7)]
     fa.launches = 0
-    steps = srv.run()
+    with path_flash("phase 21 BatchedServer"):
+        steps = srv.run()
     torch.cuda.synchronize()
     check(all(r.done and len(r.out) == 8 for r in reqs)
           and fa.launches > 0 and fa.launches % cfg.n_layers == 0,
@@ -3434,6 +3573,346 @@ def phase_qwen_serve(torch, card, total_mem, seed) -> dict:
     del params, prompts, srv, got["logits"], got["routes"], ar
     torch.cuda.empty_cache()
     print(f"phase 21: phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return got
+
+
+def served_at_defaults(torch, card, arch: str, seed: int) -> None:
+    """``launch.serve --arch ARCH`` at the reference's defaults (8
+    requests, ``SERVER_SLOTS`` slots, ``max_len`` ``SERVER_MAX_LEN``,
+    ``max_new`` 16), the flash counter set to 0 just before and read just
+    after: one launch a layer a decode call, all on the tensor cores, each
+    launch's shape recorded (``path_flash``)."""
+    import io
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer
+
+    cfg = configs.load(arch).CONFIG
+    calls = []
+    real_decode = transformer.decode_step
+
+    def counting_decode(*a, **k):
+        calls.append(1)
+        return real_decode(*a, **k)
+    buf = io.StringIO()
+    fa.launches = fa.tc_launches = 0
+    with mock.patch.object(transformer, "decode_step", counting_decode), \
+            contextlib.redirect_stdout(buf), \
+            path_flash(f"launch.serve --arch {arch}"):
+        reqs = launch_serve.main(["--arch", arch, "--seed", str(seed)])
+    torch.cuda.synchronize()
+    served = (fa.launches, fa.tc_launches)
+    print(buf.getvalue(), end="")
+    check(served[0] == served[1] == cfg.n_layers * len(calls) and calls,
+          f"launch.serve --arch {arch}: flash launches {served} for "
+          f"{len(calls)} decode calls of {cfg.n_layers} layers")
+    check(len(reqs) == 8 and all(r.done and len(r.out) == 16 for r in reqs)
+          and all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+          f"launch.serve --arch {arch} did not finish its requests")
+    print(f"launch.serve --arch {arch} ({cfg.n_layers} layers, bf16, "
+          f"{card}): {len(calls)} decode calls, flash launches {served[0]} "
+          f"({served[1]} tensor-core) = {cfg.n_layers} a call")
+    del reqs
+    torch.cuda.empty_cache()
+
+
+def compare_logits(got: list, want: list) -> tuple[float, int, int]:
+    """Step logits ``got`` against ``want``: the worst error as a share of
+    each step's max|logit|, the near ties of ``want`` (top two within
+    ``SERVE_LOGIT_TOL`` of it) and the greedy tokens that differ outside
+    them."""
+    worst, near, mism = 0.0, 0, 0
+    for lg, lw in zip(got, want):
+        scale = float(lw.abs().max())
+        worst = max(worst, float((lg - lw).abs().max()) / scale)
+        top2 = lw.topk(2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= SERVE_LOGIT_TOL * scale
+        near += int(tie.sum())
+        mism += int(((lg.argmax(-1) != lw.argmax(-1)) & ~tie).sum())
+    return worst, near, mism
+
+
+def phase_deepseek_serve(torch, card, total_mem, seed) -> dict:
+    """Phase 23: deepseek-v2-lite served at all 27 layers (module
+    docstring, item 23)."""
+    from repro_torch import tree
+    from repro_torch.configs import deepseek_v2_lite_16b as ds
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.models import base
+    from repro_torch.models.registry import get_model
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = ds.CONFIG
+    served_at_defaults(torch, card, "deepseek-v2-lite-16b", seed)
+
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    t0 = time.perf_counter()
+    params = layerwise_params(model, gen)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree.flatten(params)[0])
+    print(f"deepseek-v2-lite-16b at published widths and all {cfg.n_layers} "
+          f"layers: {nbytes / 1e9:.2f} GB of bf16 parameters (router fp32), "
+          f"drawn a layer at a time in {time.perf_counter() - t0:.1f} s")
+    prompts = torch.randint(0, cfg.vocab, (DS_SERVE_B, DS_SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    got = serve_at_scale(torch, card, total_mem, model, params, prompts,
+                         DS_SERVE_CACHE, DS_SERVE_STEPS,
+                         "deepseek-v2-lite serving (expanded MLA)")
+
+    # -- the absorbed decode against the expanded one on the same cache:
+    # each step from one cache state, the absorbed step on a copy of it,
+    # both fed the kernel run's token and forced on its expert choices
+    absorbed = get_model(cfg.scaled(mla_absorbed=True))
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    routes = got["routes"]
+    replay = routes[:n_moe]
+    for i in range(DS_SERVE_STEPS):
+        step = routes[(i + 1) * n_moe:(i + 2) * n_moe]
+        replay = replay + step + step
+    abs_logits, exp_logits, abs_ms, exp_ms, flips = [], [], [], [], [0, 0]
+
+    def timed_step(m, tok, cache):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = m.decode(params, tok, cache)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+    with torch.inference_mode(), routing(base, [], replay, flips):
+        _, cache = model.prefill(params, {"tokens": prompts})
+        pad = DS_SERVE_CACHE - DS_SERVE_PROMPT
+        for name in ("dense", "moe"):
+            cache[name] = {k: torch.cat([v, v.new_zeros(
+                v.shape[:2] + (pad,) + v.shape[3:])], 2)
+                for k, v in cache[name].items()}
+        for i in range(DS_SERVE_STEPS):
+            tok = got["toks"][i][:, None]
+            twin = {k: ({n: t.clone() for n, t in v.items()}
+                        if isinstance(v, dict) else v)
+                    for k, v in cache.items()}
+            before = fa.launches
+            (la, _), ms = timed_step(absorbed, tok, twin)
+            check(fa.launches == before, "an absorbed step launched flash")
+            abs_ms.append(ms)
+            (le, cache), ms = timed_step(model, tok, cache)
+            exp_ms.append(ms)
+            abs_logits.append(la[:, -1].float())
+            exp_logits.append(le[:, -1].float())
+            del twin
+    abs_steps = [compare_logits([a], [e])[0]
+                 for a, e in zip(abs_logits, exp_logits)]
+    worst, near, mism = compare_logits(abs_logits, exp_logits)
+    check(worst <= MLA_ABSORBED_TOL and mism == 0,
+          f"deepseek absorbed vs expanded decode: logits {worst}, {mism} "
+          "tokens differ outside a near tie")
+    abs_med, exp_med = statistics.median(abs_ms), statistics.median(exp_ms)
+    print(f"deepseek-v2-lite decode, absorbed MLA (latent-space fp32 "
+          f"products over the compressed cache, no flash) vs expanded, "
+          f"{DS_SERVE_STEPS} steps each from the same cache, fed the kernel "
+          f"run's tokens and forced on its expert choices: logits within "
+          f"{worst:.3e} of max|logit| (tolerance {MLA_ABSORBED_TOL:.4f}), "
+          f"greedy "
+          f"tokens equal outside {near} near ties; decode step ms (median, "
+          f"{card}) absorbed {abs_med:.2f} vs expanded {exp_med:.2f} (whose "
+          f"steps re-expand all {DS_SERVE_CACHE} cache rows of every "
+          f"layer); per step {min(abs_steps):.3e} to {max(abs_steps):.3e}, "
+          f"median {statistics.median(abs_steps):.3e}")
+
+    # -- the fp32 witness: the same steps in fp32 from the final cache
+    probe = params["layers"]["attn"]["w_dkv"][-1].clone()
+    del params, prompts, replay, got["logits"]
+    torch.cuda.empty_cache()
+    witness = mla_fp32_witness(torch, card, cfg, seed + 23, cache,
+                               got["toks"], routes[n_moe:], abs_logits,
+                               exp_logits, probe)
+    del cache, abs_logits, exp_logits, routes, got["routes"], probe
+    torch.cuda.empty_cache()
+    print(f"phase 23: phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return dict(got, absorbed_ms=abs_med, expanded_ms=exp_med, **witness)
+
+
+def mla_fp32_witness(torch, card, cfg, seed, cache, toks, routes,
+                     abs_logits, exp_logits, probe) -> dict:
+    """Phase 23's witness for ``MLA_ABSORBED_TOL``: the decode steps the
+    bf16 absorbed and expanded decodes took, each from the same cache,
+    taken again in fp32 by both decodes, on the bf16 run's weights
+    (``seed``'s draw, rounded to bf16 and held in fp32: one draw order, so
+    ``probe``, a bf16 leaf of that run, must come out equal) and its
+    final cache upcast (exact; step ``i`` writes its own row at ``pos`` and
+    attends over the rows below it), with the plain attention (the fp32
+    kernel takes no ``(192, 128)``), forced on the bf16 run's tokens and
+    expert choices.  The fp32 decodes must agree within ``MLA_FP32_TOL``,
+    and each bf16 decode must lie within ``SERVE_LOGIT_TOL`` of the fp32
+    expanded one, tokens equal outside its near ties.  Returns the worst
+    errors."""
+    from repro_torch import tree
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import base
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding import rules
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    expanded = get_model(cfg32)
+    absorbed = get_model(cfg32.scaled(mla_absorbed=True))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = expanded.init(gen, cast=lambda t: tree.map_leaves(
+        lambda x: x.float(), rules.cast_params(t, torch.bfloat16)))
+    check(torch.equal(params["layers"]["attn"]["w_dkv"][-1],
+                      probe.float()),
+          "the fp32 witness's weights are not the bf16 run's")
+    names = sorted(set(cache) - {"pos"})
+    cache32 = {n: {k: t.float() for k, t in cache[n].items()}
+               for n in names}
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    replay = []
+    for i in range(len(toks)):
+        step = routes[i * n_moe:(i + 1) * n_moe]
+        replay = replay + step + step
+    f_exp, f_abs, flips = [], [], [0, 0]
+    before = fa.launches
+    with torch.inference_mode(), routing(base, [], replay, flips), \
+            mock.patch.object(ops, "attention", plain_attention):
+        for i, tok in enumerate(toks):
+            for m, out in ((expanded, f_exp), (absorbed, f_abs)):
+                twin = {n: {k: t.clone() for k, t in cache32[n].items()}
+                        for n in names}
+                twin["pos"] = DS_SERVE_PROMPT + i
+                lg, _ = m.decode(params, tok[:, None], twin)
+                out.append(lg[:, -1].float())
+                del twin, lg
+    torch.cuda.synchronize()
+    check(fa.launches == before, "the fp32 witness launched the kernel")
+    peak = torch.cuda.max_memory_allocated()
+    del params, cache32
+    torch.cuda.empty_cache()
+
+    def steps(got):
+        return [compare_logits([g], [w])[0] for g, w in zip(got, f_exp)]
+    same, _, mism = compare_logits(f_abs, f_exp)
+    check(same <= MLA_FP32_TOL and mism == 0, f"deepseek fp32 absorbed vs "
+          f"expanded decode: logits {same}, {mism} tokens differ outside a "
+          "near tie")
+    e_exp, near, mism_e = compare_logits(exp_logits, f_exp)
+    e_abs, _, mism_a = compare_logits(abs_logits, f_exp)
+    check(e_exp <= SERVE_LOGIT_TOL and e_abs <= SERVE_LOGIT_TOL
+          and mism_e == mism_a == 0, f"deepseek bf16 decodes vs fp32: "
+          f"expanded {e_exp} ({mism_e} tokens), absorbed {e_abs} ({mism_a} "
+          f"tokens), beyond {SERVE_LOGIT_TOL}")
+    se, sa = steps(exp_logits), steps(abs_logits)
+    print(f"deepseek-v2-lite fp32 witness ({len(toks)} steps of "
+          f"{toks[0].shape[0]} rows, {cfg.n_layers} layers, the bf16 run's "
+          f"weights and cache in fp32, plain attention, forced on its "
+          f"tokens and expert choices; {card}): fp32 absorbed vs fp32 "
+          f"expanded within {same:.3e} of max|logit| (tolerance "
+          f"{MLA_FP32_TOL}); against the fp32 expanded decode, bf16 "
+          f"expanded within {e_exp:.3e} (per step median "
+          f"{statistics.median(se):.3e}, max {max(se):.3e}) and bf16 "
+          f"absorbed within {e_abs:.3e} (median "
+          f"{statistics.median(sa):.3e}, max {max(sa):.3e}) (tolerance "
+          f"{SERVE_LOGIT_TOL}), greedy tokens equal outside {near} fp32 "
+          f"near ties; hypot of the two {math.hypot(e_exp, e_abs):.3e}; "
+          f"the fp32 run's own expert choices would differ in {flips[0]} "
+          f"of {flips[1]} router rows; peak {peak / 2**30:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(fp32_same=same, fp32_exp=e_exp, fp32_abs=e_abs)
+
+
+def phase_vlm_serve(torch, card, total_mem, seed) -> dict:
+    """Phase 24: llama-3.2-vision served at published widths, cut to
+    ``VLM_SERVE_GROUPS`` groups (module docstring, item 24)."""
+    from repro_torch import tree
+    from repro_torch.configs import llama32_vision_90b as vlm
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve import BatchedServer
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = vlm.CONFIG.scaled(
+        n_layers=VLM_SERVE_GROUPS * vlm.CONFIG.cross_attn_every)
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 24)
+    t0 = time.perf_counter()
+    params = layerwise_params(model, gen)
+    # the tanh gates, 0 at init (where the cross layers add nothing),
+    # drawn from the seed in [0.3, 1)
+    cross = params["cross_layers"]
+    for k in ("gate_attn", "gate_mlp"):
+        cross[k] = (0.3 + 0.7 * torch.rand(cross[k].shape, generator=gen,
+                                           device="cuda")).to(cfg.dtype)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree.flatten(params)[0])
+    print(f"llama-3.2-vision-90b at published widths, {VLM_SERVE_GROUPS} "
+          f"of 20 groups ({cfg.n_layers} of 100 layers: "
+          f"{params['layers']['ln1'].shape[0]} self, "
+          f"{cross['ln1'].shape[0]} cross): {nbytes / 1e9:.2f} GB of bf16 "
+          f"parameters, drawn a layer at a time in "
+          f"{time.perf_counter() - t0:.1f} s")
+    batch = next(pipeline.synthetic_batches(
+        cfg, VLM_SERVE_B, VLM_SERVE_PROMPT, seed=seed, train=False,
+        device="cuda", prefetch=False))
+    ve = batch["vision_embeds"]
+    check(ve.dtype == torch.float32 and ve.shape == (
+        VLM_SERVE_B, cfg.vision_tokens, cfg.d_model),
+        f"vision_embeds {ve.dtype} {tuple(ve.shape)}")
+    got = serve_at_scale(torch, card, total_mem, model, params,
+                         batch["tokens"], VLM_SERVE_CACHE, VLM_SERVE_STEPS,
+                         "llama-3.2-vision serving", extra={
+                             "vision_embeds": ve},
+                         fp32_launches=VLM_SERVE_GROUPS)
+    # the cross layers matter: with their gates closed the last prefill
+    # logits move by more than the kernel-vs-plain tolerance
+    shut = dict(params, cross_layers=dict(cross, **{
+        k: torch.zeros_like(cross[k]) for k in ("gate_attn", "gate_mlp")}))
+    with torch.inference_mode():
+        closed, _ = model.prefill(shut, batch)
+    scale = float(got["logits"][0].abs().max())
+    moved = float((closed[:, -1].float() - got["logits"][0]).abs().max())
+    check(moved > SERVE_LOGIT_TOL * scale, f"vlm: closing the gates moves "
+          f"the logits by {moved}, within {SERVE_LOGIT_TOL} of {scale}")
+    print(f"llama-3.2-vision: closing the cross layers' gates moves the last "
+          f"prefill logits by up to {moved:.3f}, {moved / scale:.3e} of "
+          f"max|logit| {scale:.3f} (the kernel-vs-plain tolerance is "
+          f"{SERVE_LOGIT_TOL})")
+    del shut, closed, got["logits"], batch, ve
+    torch.cuda.empty_cache()
+
+    # the slot server against the zero cross cache (it passes no vision
+    # embeddings, as the reference's does)
+    srv = BatchedServer(model, params, slots=SERVER_SLOTS,
+                        max_len=SERVER_MAX_LEN)
+    rng = torch.Generator().manual_seed(seed)
+    reqs = [srv.submit(torch.randint(0, cfg.vocab, (n,),
+                                     generator=rng).numpy(), max_new=8)
+            for n in (3, 5, 2, 7)]
+    fa.launches = fa.tc_launches = 0
+    with path_flash("phase 24 BatchedServer"):
+        steps = srv.run()
+    torch.cuda.synchronize()
+    check(all(r.done and len(r.out) == 8 for r in reqs)
+          and fa.launches > 0 and fa.launches % cfg.n_layers == 0
+          and fa.tc_launches == fa.launches
+          and not any(t.any() for t in srv.cache["cross"].values()),
+          f"vlm BatchedServer: {fa.launches} flash launches "
+          f"({fa.tc_launches} tensor-core)")
+    print(f"llama-3.2-vision BatchedServer: 4 requests of 8 tokens in {steps} "
+          f"steps against the zero cross cache, flash launches "
+          f"{fa.launches} ({cfg.n_layers} a decode call, all on the tensor "
+          f"cores)")
+    del params, srv, cross
+    torch.cuda.empty_cache()
+    print(f"phase 24: phase {time.perf_counter() - t_phase:.1f} s ({card})")
     return got
 
 
@@ -3472,7 +3951,8 @@ def routing(base, calls: list, replay: list | None = None,
 
 def serve_at_scale(torch, card, total_mem, model, params, prompts,
                    cache_len: int, steps: int, label: str, *,
-                   feed=None, routes=None) -> dict:
+                   feed=None, routes=None, extra=None,
+                   fp32_launches: int = 0) -> dict:
     """Prefill ``prompts`` (``(B, S)`` on the card), grow the cache to
     ``cache_len`` positions, then ``steps`` lockstep greedy decode steps,
     the flash counter read around each (one launch a layer a step, all on
@@ -3484,10 +3964,13 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
     (``routing``): a bf16 ulp of attention may flip a router's top-k,
     which moves a token's logits by far more than the ulp; the flips the
     plain run would have made are counted.  ``feed`` and ``routes`` force
-    the kernel run's tokens and expert choices too.  Prints the median
-    prefill (of 3) and decode step times, the peak and a profile of one
-    decode step; returns the figures and the kernel run's step logits,
-    tokens and expert choices."""
+    the kernel run's tokens and expert choices too.  ``extra`` joins the
+    prompts in the prefill's batch (the VLM's ``vision_embeds``), and
+    ``fp32_launches`` of a call's launches a layer go to the fp32 kernel
+    (the VLM's cross layers over fp32 K/V); the cross entry of the cache
+    keeps its length.  Prints the median prefill (of 3) and decode step
+    times, the peak and a profile of one decode step; returns the figures
+    and the kernel run's step logits, tokens and expert choices."""
     from repro_torch.kernels import flash_attn as fa
     from repro_torch.kernels import ops
     from repro_torch.models import base
@@ -3497,9 +3980,11 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    batch = {"tokens": prompts, **(extra or {})}
+
     def grow(cache):
         pad = cache_len - s
-        for name in set(cache) - {"pos"}:
+        for name in set(cache) - {"pos", "cross"}:
             cache[name] = {k: torch.cat([v, v.new_zeros(
                 v.shape[:2] + (pad,) + v.shape[3:])], 2)
                 for k, v in cache[name].items()}
@@ -3510,7 +3995,7 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
         with torch.inference_mode():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            logits, cache = model.prefill(params, {"tokens": prompts})
+            logits, cache = model.prefill(params, batch)
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t0) * 1e3
             cache = grow(cache)
@@ -3538,16 +4023,17 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
     kern_launches = fa.launches
     check(all(n == layers for n in kern["launches"]),
           f"{label}: decode steps launched flash {kern['launches']} times")
-    check(kern_launches == layers * (steps + 1) == fa.tc_launches,
+    check(kern_launches == layers * (steps + 1)
+          and fa.tc_launches == (layers - fp32_launches) * (steps + 1),
           f"{label}: flash launches {kern_launches} ({fa.tc_launches} "
-          "tensor-core)")
+          f"tensor-core, want {fp32_launches} a call on the CUDA cores)")
     check(kern["pos"] == s + steps, f"{label}: pos {kern['pos']}")
     prefills = [kern["prefill_ms"]]
     for _ in range(2):
         with torch.inference_mode():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            _, c = model.prefill(params, {"tokens": prompts})
+            _, c = model.prefill(params, batch)
             torch.cuda.synchronize()
             prefills.append((time.perf_counter() - t0) * 1e3)
         del c
@@ -3567,19 +4053,9 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
              else contextlib.nullcontext()):
         plain = run(feed=kern["toks"])
     check(fa.launches == 0, f"{label}: the plain run launched the kernel")
-    worst, near, mism = 0.0, 0, 0
-    for lk, lp in zip(kern["logits"], plain["logits"]):
-        scale = float(lp.abs().max())
-        err = float((lk - lp).abs().max())
-        worst = max(worst, err / scale)
-        top2 = lp.topk(2, dim=-1).values
-        tie = (top2[:, 0] - top2[:, 1]) <= SERVE_LOGIT_TOL * scale
-        differ = lk.argmax(-1) != lp.argmax(-1)
-        near += int(tie.sum())
-        mism += int((differ & ~tie).sum())
-        check(err <= SERVE_LOGIT_TOL * scale,
-              f"{label}: decode logits {err} from the plain run's, beyond "
-              f"{SERVE_LOGIT_TOL} of {scale}")
+    worst, near, mism = compare_logits(kern["logits"], plain["logits"])
+    check(worst <= SERVE_LOGIT_TOL, f"{label}: decode logits {worst} of "
+          f"max|logit| from the plain run's, beyond {SERVE_LOGIT_TOL}")
     check(mism == 0, f"{label}: {mism} greedy tokens differ outside a near "
           "tie")
     ptoks = sum(int((lk.argmax(-1) != lp.argmax(-1)).sum())
@@ -3592,7 +4068,10 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
           f"; decode step ms (median of {steps}) {dec_ms:.2f} (first "
           f"{kern['step_ms'][0]:.2f}, last {kern['step_ms'][-1]:.2f}); "
           f"{b * 1e3 / dec_ms:.1f} tok/s decoding; flash launches "
-          f"{kern_launches} ({layers} a step); peak {peak / 2**30:.2f} GiB "
+          f"{kern_launches} ({layers} a step"
+          + (f", {fp32_launches} of them fp32 on the CUDA cores"
+             if fp32_launches else "")
+          + f"); peak {peak / 2**30:.2f} GiB "
           f"of {total_mem / 2**30:.1f}; against the plain attention "
           f"teacher-forced: logits within {worst:.3e} of max|logit| "
           f"(tolerance {SERVE_LOGIT_TOL}), greedy tokens differing {ptoks} "
@@ -3603,7 +4082,8 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
              f"{kern_flips[1]})" if routes is not None else ""))
     return dict(pre_ms=pre_ms, dec_ms=dec_ms, peak=peak, worst=worst,
                 launches=kern_launches, logits=kern["logits"],
-                toks=kern["toks"], routes=kern_routes)
+                toks=kern["toks"], routes=kern_routes,
+                step_ms=kern["step_ms"])
 
 
 def flash_figures(torch, card, case: dict) -> dict:
@@ -4326,6 +4806,11 @@ def main() -> int:
                 GEMMA_TRAIN_LAYERS, phase=19)
     phase_gemma_serve(torch, card, total_mem, args.seed)
     phase_qwen_serve(torch, card, total_mem, args.seed)
+    # -- the rest of the transformer: deepseek trained and served, the VLM --
+    phase_train(torch, card, total_mem, tr, DEEPSEEK_TRAIN_FLAGS,
+                DEEPSEEK_TRAIN_LAYERS, phase=22)
+    phase_deepseek_serve(torch, card, total_mem, args.seed)
+    phase_vlm_serve(torch, card, total_mem, args.seed)
     check_path_flash(torch)
     launches["flash_attention"] = trained["launches"]
     figures["flash_attention"] = flash_figures(

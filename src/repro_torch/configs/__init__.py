@@ -3,19 +3,21 @@
 The port of ``repro/configs/__init__.py`` for the configs whose model is
 ported: each module exports ``CONFIG`` (the published configuration),
 ``SMOKE`` (a reduced same-family config for CPU smoke tests) and
-``SHAPES`` (its shape cells).  The other architectures wait for their
-models (ROADMAP queue 1 item 14).
+``SHAPES`` (its shape cells).  The other architectures (whisper,
+mamba2, zamba2) wait for their models (ROADMAP queue 1 item 14).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-ARCHS = ["qwen3_moe_235b_a22b", "gemma2_27b", "tinyllama_1_1b",
-         "granite_20b", "gemma2_2b"]
+ARCHS = ["qwen3_moe_235b_a22b", "deepseek_v2_lite_16b", "llama32_vision_90b",
+         "gemma2_27b", "tinyllama_1_1b", "granite_20b", "gemma2_2b"]
 
 #: canonical ids → module names (the reference's, for the ported archs)
 ALIASES = {"qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+           "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+           "llama-3.2-vision-90b": "llama32_vision_90b",
            "gemma2-27b": "gemma2_27b",
            "tinyllama-1.1b": "tinyllama_1_1b",
            "granite-20b": "granite_20b",

@@ -76,11 +76,18 @@
 //   GEMMs.  Head dims (hd, vd): (16, 16), (32, 32), (64, 64), (128, 128),
 //   (256, 256) and (192, 128).
 // * fp32 (flash_fwd_kernel): the CUDA cores (67 TFLOP/s), which hold
-//   fp32 to the reference's 3e-5.  One block of 128 threads per (batch ·
-//   head, 128 query rows), one query row a thread, its scaled q row
-//   (fl32(q) · scale) and its output accumulator in registers; K and V
-//   stream through shared memory in fp32 tiles of 64 keys.  hd = vd in
-//   {16, 32, 64}.
+//   fp32 to the reference's 3e-5.  One block per (batch · head, 128 query
+//   rows), TPR threads a query row: each holds hd / TPR of the row's
+//   scaled q (fl32(q) · scale) and of its output accumulator in
+//   registers, the partial scores of the TPR threads are summed by warp
+//   shuffles (so every thread of a row holds the same score bits and the
+//   same running max and sum), and K and V stream through shared memory
+//   in fp32 tiles.  hd = vd in {16, 32, 64} take one thread a row and
+//   tiles of 64 keys; hd = vd = 128 takes two threads a row, so that a
+//   thread keeps 64 + 64 floats of q and accumulator as at hd 64 (one
+//   thread a row would need 256 of the 255 registers and spill), and
+//   tiles of 32 keys, so that the two fp32 tiles stay within the 48 KB of
+//   static shared memory (32 KB).
 //
 // Both skip key tiles that the causal mask or the window hides from
 // every row of the block (exact: each skipped score would add
@@ -95,8 +102,8 @@
 
 namespace {
 
-constexpr int QT = 128;   // query rows a block, one a thread
-constexpr int KT = 64;    // keys a shared-memory tile
+constexpr int QT = 128;   // query rows a block
+constexpr int KT = 64;    // keys a shared-memory tile (32 above hd 64)
 constexpr int SUB = 16;   // keys scored into registers at a time
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -119,29 +126,34 @@ struct Args {
   int klim;   // keys below min(Sk, kv_len) exist; the rest are hidden
 };
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(QT) flash_fwd_kernel(Args a) {
-  static_assert(HD % 4 == 0, "head dim must be a multiple of 4");
-  __shared__ __align__(16) float ksm[KT][HD];
-  __shared__ __align__(16) float vsm[KT][HD];
+// TPR threads a query row (neighbours in one warp), each holding the DH =
+// HD / TPR head dims from d0 on.
+template <typename T, int HD, int TPR>
+__global__ void __launch_bounds__(QT * TPR) flash_fwd_kernel(Args a) {
+  constexpr int DH = HD / TPR;
+  constexpr int KTT = HD > 64 ? KT / 2 : KT;
+  static_assert(DH % 4 == 0 && 32 % TPR == 0, "bad head split");
+  __shared__ __align__(16) float ksm[KTT][HD];
+  __shared__ __align__(16) float vsm[KTT][HD];
 
   const int bh = blockIdx.x;
   const int b = bh / a.H, h = bh % a.H;
   const int kvh = h / (a.H / a.KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * QT;   // late tiles first
-  const int row = q0 + threadIdx.x;
+  const int row = q0 + threadIdx.x / TPR;
+  const int d0 = threadIdx.x % TPR * DH;
   const bool live = row < a.Sq;
 
-  float qr[HD];
+  float qr[DH];
   {
     const T* qp = static_cast<const T*>(a.q) + b * a.qs[0] +
-                  static_cast<long long>(live ? row : 0) * a.qs[1] + h * a.qs[2];
+                  static_cast<long long>(live ? row : 0) * a.qs[1] + h * a.qs[2] + d0;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = live ? to_f(qp[d]) * a.scale : 0.f;
+    for (int d = 0; d < DH; ++d) qr[d] = live ? to_f(qp[d]) * a.scale : 0.f;
   }
-  float acc[HD];
+  float acc[DH];
 #pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = 0.f;
+  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
   float m = -INFINITY, l = 0.f;
 
   // the key range any row of this block can see
@@ -149,16 +161,16 @@ __global__ void __launch_bounds__(QT) flash_fwd_kernel(Args a) {
   int kbeg = 0, kend = a.klim;
   if (a.causal) {
     kend = min(a.klim, qlast + 1);
-    if (a.window > 0 && qlast < a.klim) kbeg = max(0, a.q_off + q0 - a.window + 1) / KT * KT;
+    if (a.window > 0 && qlast < a.klim) kbeg = max(0, a.q_off + q0 - a.window + 1) / KTT * KTT;
   }
   const int pos = a.q_off + row;  // the row's absolute position
 
   const T* kb = static_cast<const T*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
   const T* vb = static_cast<const T*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
 
-  for (int t0 = kbeg; t0 < kend; t0 += KT) {
+  for (int t0 = kbeg; t0 < kend; t0 += KTT) {
     __syncthreads();   // the previous tile is consumed
-    for (int i = threadIdx.x; i < KT * HD; i += QT) {
+    for (int i = threadIdx.x; i < KTT * HD; i += QT * TPR) {
       const int r = i / HD, c = i % HD;
       const int key = t0 + r;
       const bool in = key < kend;
@@ -166,23 +178,30 @@ __global__ void __launch_bounds__(QT) flash_fwd_kernel(Args a) {
       vsm[r][c] = in ? to_f(vb[static_cast<long long>(key) * a.vs[1] + c]) : 0.f;
     }
     __syncthreads();
-    const int nk = min(KT, kend - t0);
+    const int nk = min(KTT, kend - t0);
     for (int j0 = 0; j0 < nk; j0 += SUB) {
       float s[SUB];
 #pragma unroll
       for (int jj = 0; jj < SUB; ++jj) s[jj] = 0.f;
 #pragma unroll
-      for (int c = 0; c < HD / 4; ++c) {
+      for (int c = 0; c < DH / 4; ++c) {
         const float q0v = qr[4 * c], q1v = qr[4 * c + 1], q2v = qr[4 * c + 2],
                     q3v = qr[4 * c + 3];
 #pragma unroll
         for (int jj = 0; jj < SUB; ++jj) {
-          const float4 k4 = reinterpret_cast<const float4*>(&ksm[j0 + jj][0])[c];
+          const float4 k4 = reinterpret_cast<const float4*>(&ksm[j0 + jj][d0])[c];
           s[jj] = fmaf(q0v, k4.x, s[jj]);
           s[jj] = fmaf(q1v, k4.y, s[jj]);
           s[jj] = fmaf(q2v, k4.z, s[jj]);
           s[jj] = fmaf(q3v, k4.w, s[jj]);
         }
+      }
+      // add the row's other partial sums (a + b == b + a: every thread of
+      // the row gets the same bits)
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off /= 2) {
+#pragma unroll
+        for (int jj = 0; jj < SUB; ++jj) s[jj] += __shfl_xor_sync(0xffffffffu, s[jj], off);
       }
       float mt = -INFINITY;
 #pragma unroll
@@ -209,13 +228,13 @@ __global__ void __launch_bounds__(QT) flash_fwd_kernel(Args a) {
       }
       l = l * alpha + ps;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] *= alpha;
+      for (int d = 0; d < DH; ++d) acc[d] *= alpha;
 #pragma unroll
       for (int jj = 0; jj < SUB; ++jj) {
         const float p = s[jj];
 #pragma unroll
-        for (int c = 0; c < HD / 4; ++c) {
-          const float4 v4 = reinterpret_cast<const float4*>(&vsm[j0 + jj][0])[c];
+        for (int c = 0; c < DH / 4; ++c) {
+          const float4 v4 = reinterpret_cast<const float4*>(&vsm[j0 + jj][d0])[c];
           acc[4 * c] = fmaf(p, v4.x, acc[4 * c]);
           acc[4 * c + 1] = fmaf(p, v4.y, acc[4 * c + 1]);
           acc[4 * c + 2] = fmaf(p, v4.z, acc[4 * c + 2]);
@@ -229,19 +248,20 @@ __global__ void __launch_bounds__(QT) flash_fwd_kernel(Args a) {
   if (live) {
     const float den = fmaxf(l, 1e-30f);
     T* op = static_cast<T*>(a.o) + b * a.os[0] + static_cast<long long>(row) * a.os[1] +
-            h * a.os[2];
+            h * a.os[2] + d0;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) op[d] = from_f<T>(acc[d] / den);
-    a.lse[static_cast<long long>(bh) * a.Sq + row] = m + logf(l);
+    for (int d = 0; d < DH; ++d) op[d] = from_f<T>(acc[d] / den);
+    if (d0 == 0) a.lse[static_cast<long long>(bh) * a.Sq + row] = m + logf(l);
   }
 }
 
 cudaError_t launch_fp32(const Args& a, int hd, cudaStream_t s) {
   const dim3 grid(a.B * a.H, (a.Sq + QT - 1) / QT);
   switch (hd) {
-    case 16: flash_fwd_kernel<float, 16><<<grid, QT, 0, s>>>(a); break;
-    case 32: flash_fwd_kernel<float, 32><<<grid, QT, 0, s>>>(a); break;
-    case 64: flash_fwd_kernel<float, 64><<<grid, QT, 0, s>>>(a); break;
+    case 16: flash_fwd_kernel<float, 16, 1><<<grid, QT, 0, s>>>(a); break;
+    case 32: flash_fwd_kernel<float, 32, 1><<<grid, QT, 0, s>>>(a); break;
+    case 64: flash_fwd_kernel<float, 64, 1><<<grid, QT, 0, s>>>(a); break;
+    case 128: flash_fwd_kernel<float, 128, 2><<<grid, 2 * QT, 0, s>>>(a); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();

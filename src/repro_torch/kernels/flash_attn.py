@@ -47,8 +47,9 @@ SOURCE = _build.CSRC / "flash_attn.cu"
 
 #: dtype codes of the C entry point
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: (hd, vd) the CUDA-core kernel takes, fp32 only
-FP32_DIMS = ((16, 16), (32, 32), (64, 64))
+#: (hd, vd) the CUDA-core kernel takes, fp32 only (128: two threads a
+#: query row)
+FP32_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128))
 #: (hd, vd) the tensor-core kernel takes, bf16 only
 TC_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
 #: query rows a block (the grid's second dimension is ceil(Sq / QT))

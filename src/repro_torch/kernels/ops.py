@@ -362,7 +362,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     card bf16 runs on the tensor cores and fp32 on the CUDA cores
     (``flash_attn``); when no gradient is wanted the kernel launches
     directly, so nothing is saved for a backward.  The masked form is
-    serving's and has no backward on the card."""
+    serving's and has no backward on the card.
+
+    A bf16 query over fp32 K/V (the VLM's cross layers over the
+    pipeline's fp32 vision embeddings) is upcast and takes the fp32
+    kernel, its output cast back to bf16: the reference's ``attend``
+    computes it in fp32 and returns ``q``'s dtype.  Any other mix of
+    dtypes raises on the card."""
+    if (q.dtype == torch.bfloat16 and k.dtype == v.dtype == torch.float32):
+        return attention(q.float(), k, v, causal=causal, scale=scale,
+                         attn_cap=attn_cap, window=window,
+                         q_offset=q_offset, kv_len=kv_len).to(q.dtype)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     kw = dict(causal=causal, scale=scale, attn_cap=attn_cap, window=window,
               q_offset=q_offset, kv_len=kv_len)

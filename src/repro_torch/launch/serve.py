@@ -9,14 +9,18 @@ The port of ``repro/launch/serve.py``::
 It runs on the card (``--device cuda``, the default; it stops when there
 is none) or, for tests, on the CPU (``--device cpu``).  The weights are
 random from ``torch.Generator(device).manual_seed(--seed)``, the prompts
-(2 to 7 tokens) from ``numpy.random.default_rng(--seed)``.  Parameters
-are held in the model's compute dtype (bf16 at full width, fp32 with
+(2 to 7 tokens) from ``numpy.random.default_rng(--seed)``; the layers
+are drawn one at a time and cast as they are drawn, so that a model
+whose fp32 weights would not fit beside their cast (deepseek-v2-lite at
+27 layers) is served.  Parameters are held in the model's compute dtype (bf16 at full width, fp32 with
 ``--smoke``) but for the ``KEEP_F32`` leaves (the MoE router), as
 ``sharding.rules.cast_params`` casts them: the reference's launcher
 hands its fp32 parameters to a bf16 model, whose decode then fails on a
 mixed-dtype layer carry, so it serves only ``--smoke``.  ``--arch`` takes
-every ported config: tinyllama-1.1b, gemma2-2b, gemma2-27b, granite-20b
-and qwen3-moe-235b-a22b.  ``--fake-devices`` has no counterpart: the
+every ported config: tinyllama-1.1b, gemma2-2b, gemma2-27b, granite-20b,
+qwen3-moe-235b-a22b, deepseek-v2-lite-16b (the MLA cache) and
+llama-3.2-vision-90b (decoding against the zero cross-attention cache,
+as the reference's server does: it passes no vision embeddings).  ``--fake-devices`` has no counterpart: the
 server runs on one device.
 """
 from __future__ import annotations
@@ -64,7 +68,7 @@ def main(argv=None) -> list:
         cfg = cfg.scaled(dtype=torch.float32)
     model = get_model(cfg)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
-    params = rules.cast_params(model.init(gen), cfg.dtype)
+    params = model.init(gen, cast=lambda t: rules.cast_params(t, cfg.dtype))
 
     srv = BatchedServer(model, params, slots=args.slots,
                         max_len=args.max_len)

@@ -17,7 +17,9 @@ none) or, for tests, on the CPU (``--device cpu``).  Examples::
         --mesh 2x4x1 --device cpu --tenants 3 --congestion-replan 0.9
 
 ``--arch`` takes every ported config: tinyllama-1.1b (the default),
-gemma2-2b, gemma2-27b, granite-20b and qwen3-moe-235b-a22b::
+gemma2-2b, gemma2-27b, granite-20b, qwen3-moe-235b-a22b,
+deepseek-v2-lite-16b and llama-3.2-vision-90b (whose batches carry the
+pipeline's fp32 ``vision_embeds``)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
         --smoke --steps 2 --mesh 2x4x1 --device cpu

@@ -352,6 +352,15 @@ def _attend_chunked(q, k, v, *, causal, window, attn_cap, scale, chunk):
     return out.to(q.dtype)
 
 
+def write_cache(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+    """``new``'s ``S`` rows into ``cache`` in place at ``pos`` along dim 1,
+    the start clamped to ``[0, Smax − S]`` as ``dynamic_update_slice``
+    clamps it."""
+    s = new.shape[1]
+    start = min(max(pos, 0), cache.shape[1] - s)
+    cache[:, start:start + s] = new
+
+
 def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
                   pos_offset: int | torch.Tensor | None = None,
@@ -370,12 +379,14 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     returned ``(k, v)`` are the cache's own tensors: the caller's cache is
     consumed, as the reference's is under donation.  ``pos_offset`` is
     the rotary position of the first token (``pos`` when decoding).
-    Cross-attention (``kv_override``) is not ported.
+    ``kv_override`` (whisper's decoder cross-attention over precomputed
+    K/V) is not ported; the VLM's cross layers have their own block
+    (``transformer._cross_layer``).
     """
     if kv_override is not None:
         raise NotImplementedError(
-            "cross-attention is not ported: ROADMAP queue 1 item 14 (the "
-            "other families)")
+            "gqa_attention(kv_override=): whisper's cross-attention is not "
+            "ported: ROADMAP queue 1 item 14")
     *lead, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = mm(x, p["wq"]).reshape(*lead, s, h, hd)
@@ -393,9 +404,8 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
             raise ValueError(f"a KV cache takes (B, S, D) activations, got "
                              f"{tuple(x.shape)}")
         pos = cache["pos"]
-        start = min(max(pos, 0), cache["k"].shape[1] - s)
-        cache["k"][:, start:start + s] = kk
-        cache["v"][:, start:start + s] = vv
+        write_cache(cache["k"], kk, pos)
+        write_cache(cache["v"], vv, pos)
         out = attend(q, cache["k"], cache["v"], causal=True, q_pos=pos,
                      kv_len=pos + s, window=window,
                      attn_cap=cfg.attn_softcap)
@@ -459,12 +469,8 @@ def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
 
-    # each (token, choice)'s running count within its expert, flat order
-    onehot = F.one_hot(gate_idx.reshape(nr, t * k), e)            # (P,Tk,E)
-    pos = (onehot.cumsum(1) - 1).gather(
-        -1, gate_idx.reshape(nr, t * k, 1))[..., 0]               # (P,Tk)
-    keep_f = pos < cap
     flat_e = gate_idx.reshape(nr, t * k)
+    pos, keep_f = _expert_slots(flat_e, e, cap)                   # (P,Tk)
     flat_c = torch.clamp(pos, 0, cap - 1)
     ranks = torch.arange(nr, device=dev)[:, None]
     slot = (ranks * e + flat_e) * cap + flat_c                    # (P,Tk)
@@ -512,6 +518,16 @@ def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.n_shared_experts > 0:
         out = out + swiglu(p["shared"], xt)
     return out.reshape(x.shape)
+
+
+def _expert_slots(flat_e: torch.Tensor, e: int, cap: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each (token, choice)'s running count within its expert, in flat
+    order, and whether it is under the capacity ``cap`` (else dropped),
+    for ``flat_e`` ``(P, T·k)`` expert ids of ``e``."""
+    pos = (F.one_hot(flat_e, e).cumsum(1) - 1).gather(
+        -1, flat_e[..., None])[..., 0]
+    return pos, pos < cap
 
 
 def _dispatch(src: torch.Tensor, slot: torch.Tensor, n: int

@@ -1,8 +1,8 @@
 """Family → model-function dispatch.
 
-The port of ``repro/models/registry.py`` for the ``"dense"`` and
-``"moe"`` families (training and serving, both through
-``transformer``); the others raise.  ``init`` takes
+The port of ``repro/models/registry.py`` for the ``"dense"``, ``"moe"``
+and ``"vlm"`` families (training and serving, all through
+``transformer``); ``"ssm"``, ``"hybrid"`` and ``"audio"`` raise.  ``init`` takes
 a ``torch.Generator`` (on the device the parameters should live on) where
 the reference takes a ``jax.random`` key, and ``init_cache`` also takes
 the ``device`` its cache should live on.
@@ -20,14 +20,15 @@ class Model:
     """Functional model bundle for one architecture."""
 
     cfg: ModelConfig
-    init: Callable          # (generator) -> params
+    init: Callable          # (generator, cast=None) -> params
     loss: Callable          # (params, batch, *, gather=None) -> per-rank loss
     prefill: Callable       # (params, batch, *, gather=None) -> (logits, cache)
     decode: Callable        # (params, token, cache, *, gather=None) -> (logits, cache)
     init_cache: Callable    # (batch_size, max_seq, *, dtype=, device=) -> cache
 
 
-_FAMILIES: dict[str, Any] = {"dense": transformer, "moe": transformer}
+_FAMILIES: dict[str, Any] = {"dense": transformer, "moe": transformer,
+                             "vlm": transformer}
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -38,7 +39,7 @@ def get_model(cfg: ModelConfig) -> Model:
             "ROADMAP queue 1 item 14 (the other families)")
     return Model(
         cfg=cfg,
-        init=lambda gen: mod.init_params(cfg, gen),
+        init=lambda gen, **kw: mod.init_params(cfg, gen, **kw),
         loss=lambda params, batch, **kw: mod.loss_fn(cfg, params, batch, **kw),
         prefill=lambda params, batch, **kw: mod.prefill(cfg, params, batch,
                                                         **kw),

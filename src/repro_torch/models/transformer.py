@@ -1,42 +1,46 @@
 """The decoder-only transformer: parameters, the train-mode forward and
 the serving steps.
 
-The port of ``repro/models/transformer.py`` for its GQA variants: dense
+The port of ``repro/models/transformer.py``, all its variants: dense
 GQA/MQA (tinyllama-1.1b, granite-20b), local/global layer pairs with
 attention and final-logit softcaps, sandwich norms and a tied head
-(gemma2-2b, gemma2-27b), and per-head q/k RMSNorm with the MoE FFN
-(qwen3-moe-235b-a22b).  ``init_params`` builds the same dict of leaves,
-per-layer weights stacked on a leading ``L`` axis (``layers``, or the
-pair stacks ``local_layers`` and ``global_layers``), so a gradient
-pytree of this shape flattens to the JAX package's leaves in the same
-order.  Weights are random from a ``torch.Generator``; they will not
-equal the JAX package's ``jax.random`` draws (use ``convert`` to carry
-those across).  MLA, cross-attention and the first-dense-layer stack
-(deepseek, the VLM) are ROADMAP queue 1 item 14 and refuse.
+(gemma2-2b, gemma2-27b), per-head q/k RMSNorm with the MoE FFN
+(qwen3-moe-235b-a22b), MLA attention with a dense first layer and MoE
+layers with shared experts (deepseek-v2-lite-16b), and groups of self
+layers each closed by a gated cross-attention layer over vision
+embeddings (llama-3.2-vision-90b).  ``init_params`` builds the same dict
+of leaves, per-layer weights stacked on a leading ``L`` axis (the roots
+:func:`stacks` names), so a gradient pytree of this shape flattens to
+the JAX package's leaves in the same order.  Weights are random from a
+``torch.Generator``; they will not equal the JAX package's
+``jax.random`` draws (use ``convert`` to carry those across).
 
 ``loss_fn`` is the train forward: embed → ``run_stack`` (a Python loop
-over the layers, or the local/global pairs, each under ``base.remat``,
-the FSDP ``gather`` applied inside it so the backward re-gathers) →
-final norm → sequence-chunked cross-entropy.  Parameters may carry the
-mesh's rank axes in front (``(*R, ...)``, with the stacked ``L`` axis
-after them) and the batch ``(*R, B, S)``; the loss then has one value per
-rank.  A stack may also be a list of per-layer dicts (how the trainer
-hands autograd one leaf per layer).  A tied head is the gathered
-embedding's transpose, so autograd sums the embedding's two uses.
+over the layers in :func:`_walk`'s order, each self layer or
+local/global pair under ``base.remat``, the FSDP ``gather`` applied
+inside it so the backward re-gathers) → final norm → sequence-chunked
+cross-entropy.  Parameters may carry the mesh's rank axes in front
+(``(*R, ...)``, with the stacked ``L`` axis after them) and the batch
+``(*R, B, S)`` (the VLM's ``vision_embeds`` ``(*R, B, T, D)``); the loss
+then has one value per rank.  A stack may also be a list of per-layer
+dicts (how the trainer hands autograd one leaf per layer).  A tied head
+is the gathered embedding's transpose, so autograd sums the embedding's
+two uses.
 
 ``prefill``, ``decode_step`` and ``init_cache`` are the serving steps, on
 one rank: the prompt's forward returning its last logits and a cache of
-``(L, B, S, KV, hd)`` K/V stacks (``{"layers": {"k", "v"}, "pos"}``, or
-``{"local": ..., "global": ..., "pos"}``), and one token a row against
-that cache, written in place.  The cache's ``pos`` is a host int, so the
-flash kernel's masks (the local layers' window among them) are launch
-arguments.
+per-stack K/V (``{"layers": {"k", "v"}, "pos"}``, ``{"local", "global",
+"pos"}``, deepseek's ``{"dense": {"c_kv", "k_rope"}, "moe": ...,
+"pos"}`` or the VLM's ``{"self", "cross", "pos"}``), and one token a row
+against that cache, written in place.  The cache's ``pos`` is a host
+int, so the flash kernel's masks (the local layers' window among them)
+are launch arguments.
 """
 from __future__ import annotations
 
 import math
 import operator
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -62,24 +66,44 @@ def _mlp(gen: torch.Generator, n: int, d: int, f: int, scale: float
             "w_down": dense_init(gen, (n, f, d), f ** -0.5)}
 
 
-def _layers(cfg: ModelConfig, gen: torch.Generator, n: int) -> dict:
-    """``n`` layers' parameters stacked on a leading axis: attention (q/k
-    norms with ``qk_norm``), a SwiGLU or MoE FFN, the norms (the post
+def _attn(cfg: ModelConfig, gen: torch.Generator, n: int, scale: float,
+          mla: bool) -> dict:
+    """``n`` layers' attention: GQA (q/k norms with ``qk_norm``), or MLA's
+    query, compressed KV (``w_dkv``), shared rope key (``w_kr``) and KV
+    up-projection (``w_ukv``)."""
+    d, h = cfg.d_model, cfg.n_heads
+    if mla:
+        qk = cfg.mla_qk_nope + cfg.mla_qk_rope
+        lora = cfg.mla_kv_lora
+        return {"wq": dense_init(gen, (n, d, h * qk), scale),
+                "w_dkv": dense_init(gen, (n, d, lora), scale),
+                "w_kr": dense_init(gen, (n, d, cfg.mla_qk_rope), scale),
+                "w_ukv": dense_init(gen, (n, lora, h * (cfg.mla_qk_nope
+                                                        + cfg.mla_v_dim)),
+                                    lora ** -0.5),
+                "wo": dense_init(gen, (n, h * cfg.mla_v_dim, d), scale)}
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    attn = {"wq": dense_init(gen, (n, d, h * hd), scale),
+            "wk": dense_init(gen, (n, d, kv * hd), scale),
+            "wv": dense_init(gen, (n, d, kv * hd), scale),
+            "wo": dense_init(gen, (n, h * hd, d), scale)}
+    if cfg.qk_norm:
+        attn["q_norm"] = torch.zeros((n, hd), device=gen.device)
+        attn["k_norm"] = torch.zeros((n, hd), device=gen.device)
+    return attn
+
+
+def _layers(cfg: ModelConfig, gen: torch.Generator, n: int, *,
+            moe: bool, mla: bool = False) -> dict:
+    """``n`` layers' parameters stacked on a leading axis: attention
+    (``_attn``), a SwiGLU FFN ``d_ff`` wide or the MoE FFN (its shared
+    experts ``moe_d_ff · n_shared_experts`` wide), the norms (the post
     norms ``ln1b``/``ln2b`` with ``post_norms``)."""
     d = cfg.d_model
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     scale = d ** -0.5
-    zeros = lambda *s: torch.zeros(s, device=gen.device)
-    attn = {
-        "wq": dense_init(gen, (n, d, h * hd), scale),
-        "wk": dense_init(gen, (n, d, kv * hd), scale),
-        "wv": dense_init(gen, (n, d, kv * hd), scale),
-        "wo": dense_init(gen, (n, h * hd, d), scale),
-    }
-    if cfg.qk_norm:
-        attn["q_norm"] = zeros(n, hd)
-        attn["k_norm"] = zeros(n, hd)
-    if cfg.is_moe:
+    zeros = lambda *s: torch.zeros(s, device=gen.device)    # noqa: E731
+    attn = _attn(cfg, gen, n, scale, mla)
+    if moe:
         e, f = cfg.n_experts, cfg.moe_d_ff
         ffn = {"router": dense_init(gen, (n, d, e), scale),
                "w_gate": dense_init(gen, (n, e, d, f), scale),
@@ -96,24 +120,62 @@ def _layers(cfg: ModelConfig, gen: torch.Generator, n: int) -> dict:
     return p
 
 
+class Stack(NamedTuple):
+    """One stack of layers: its parameter root, its serving cache entry,
+    its depth, whether its FFN is the MoE block and its attention
+    window (0: none)."""
+
+    name: str
+    entry: str
+    n: int
+    moe: bool = False
+    window: int = 0
+
+
+def stacks(cfg: ModelConfig) -> tuple[Stack, ...]:
+    """The model's layer stacks, in the reference's ``init_params``
+    order: the VLM's ``ngroups · (g − 1)`` self ``layers`` and ``ngroups``
+    ``cross_layers`` (g = ``cross_attn_every``); gemma2's
+    ``local_layers`` and ``global_layers`` pairs; deepseek's
+    ``first_dense_layers`` ``dense_layers`` and its MoE ``layers``; or one
+    ``layers`` stack."""
+    n, moe = cfg.n_layers, cfg.is_moe
+    if cfg.cross_attn_every > 0:
+        ngroups = n // cfg.cross_attn_every
+        return (Stack("layers", "self", ngroups * (cfg.cross_attn_every - 1)),
+                Stack("cross_layers", "cross", ngroups))
+    if cfg.local_global:
+        return (Stack("local_layers", "local", n // 2, moe, cfg.window),
+                Stack("global_layers", "global", n // 2, moe))
+    if cfg.first_dense_layers > 0:
+        return (Stack("dense_layers", "dense", cfg.first_dense_layers),
+                Stack("layers", "moe", n - cfg.first_dense_layers, moe))
+    return (Stack("layers", "layers", n, moe),)
+
+
+def init_layer(cfg: ModelConfig, gen: torch.Generator, stack: Stack
+               ) -> dict:
+    """One layer of ``stack``'s parameters, on a leading axis of 1; a
+    cross layer also has its tanh gates and its q/k norms."""
+    p = _layers(cfg, gen, 1, moe=stack.moe,
+                mla=cfg.mla_kv_lora > 0 and stack.name != "cross_layers")
+    if stack.name == "cross_layers":
+        zeros = lambda *s: torch.zeros(s, device=gen.device)  # noqa: E731
+        p.update(gate_attn=zeros(1, 1), gate_mlp=zeros(1, 1),
+                 q_norm=zeros(1, cfg.hd), k_norm=zeros(1, cfg.hd))
+    return p
+
+
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported: ROADMAP "
             "queue 1 item 14")
-    for field, what in (("mla_kv_lora", "MLA attention"),
-                        ("cross_attn_every", "cross-attention"),
-                        ("first_dense_layers", "the first-dense-layer stack")):
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported: ROADMAP queue 1 item 14")
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    """fp32 parameters, on ``gen``'s device: one stack ``layers``, or the
-    local/global pair stacks ``local_layers`` and ``global_layers`` of
-    ``n_layers // 2`` each."""
-    _check_ported(cfg)
+def init_top(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """The parameters outside the layer stacks: the embedding, the final
+    norm and (untied) the head."""
     params = {
         "embed": dense_init(gen, (cfg.vocab, cfg.d_model), 0.02),
         "final_norm": torch.zeros(cfg.d_model, device=gen.device),
@@ -121,16 +183,37 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab),
                                        cfg.d_model ** -0.5)
-    if cfg.local_global:
-        params["local_layers"] = _layers(cfg, gen, cfg.n_layers // 2)
-        params["global_layers"] = _layers(cfg, gen, cfg.n_layers // 2)
-    else:
-        params["layers"] = _layers(cfg, gen, cfg.n_layers)
+    return params
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                cast: Callable = lambda t: t) -> dict:
+    """fp32 parameters, on ``gen``'s device: :func:`init_top`'s and each
+    of :func:`stacks` under its root, passed through ``cast`` (a function
+    of a parameter tree, e.g. to the compute dtype; none by default).
+
+    The layers are drawn one at a time, each cast as it is drawn and
+    copied into its stack, so that no fp32 stack is ever whole beside its
+    cast (at deepseek-v2-lite's 27 layers it would be 62.8 GB); the draws
+    come in the same order with or without ``cast``, so a seed gives the
+    same weights either way."""
+    _check_ported(cfg)
+    params = cast(init_top(cfg, gen))
+    for stack in stacks(cfg):
+        first = cast(init_layer(cfg, gen, stack))
+        out = tree.map_leaves(
+            lambda t: t.new_empty((stack.n, *t.shape[1:])), first)
+        for i in range(stack.n):
+            layer = first if i == 0 else cast(init_layer(cfg, gen, stack))
+            for dst, src in zip(tree.flatten(out)[0], tree.flatten(layer)[0]):
+                dst[i].copy_(src[0])
+            del layer
+        params[stack.name] = out
     return params
 
 
 # ---------------------------------------------------------------------------
-# Layer application and the train-mode stack.
+# Layer application and the stack walk.
 # ---------------------------------------------------------------------------
 
 def _g(gather: Gather, lp: dict) -> dict:
@@ -141,9 +224,14 @@ def _rank_dims(params: dict) -> int:
     return params["final_norm"].dim() - 1
 
 
+def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor, moe: bool
+         ) -> torch.Tensor:
+    return base.moe_block(cfg, p, h) if moe else base.swiglu(p, h)
+
+
 def _self_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
                 window: int = 0, cache: dict | None = None,
-                pos_offset: int | None = None) -> tuple:
+                pos_offset: int | None = None, moe: bool = False) -> tuple:
     h = base.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     attn_out, newkv = base.gqa_attention(cfg, lp["attn"], h, window=window,
                                          cache=cache, pos_offset=pos_offset)
@@ -152,12 +240,132 @@ def _self_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
         attn_out = base.rmsnorm(attn_out, lp["ln1b"], cfg.norm_eps)
     x = x + attn_out
     h = base.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    ffn_out = base.moe_block(cfg, lp["ffn"], h) if cfg.is_moe \
-        else base.swiglu(lp["ffn"], h)
-    ffn_out = base.tag_block_out(cfg, ffn_out)
+    ffn_out = base.tag_block_out(cfg, _ffn(cfg, lp["ffn"], h, moe))
     if cfg.post_norms:
         ffn_out = base.rmsnorm(ffn_out, lp["ln2b"], cfg.norm_eps)
     return x + ffn_out, newkv
+
+
+def _mla_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
+               cache: dict | None = None, pos_offset: int | None = None,
+               moe: bool = False) -> tuple:
+    """Deepseek's MLA block: low-rank compressed KV and a decoupled rope
+    key shared by the heads; returns ``(x, (c_kv, k_rope))``.
+
+    ``cache`` is ``{"c_kv": (B, Smax, kv_lora), "k_rope": (B, Smax, 1,
+    rope), "pos": int}`` for a decode step: the step's rows are written
+    into it in place (``base.write_cache``) and the queries attend over
+    its first ``pos + S`` entries.  Expanded (the default): ``c_kv ·
+    w_ukv`` gives every cached row's ``k_nope`` and ``v`` (``v`` a strided
+    view), the rope key is broadcast over the heads and concatenated, and
+    ``base.attend`` runs at ``(nope + rope, v_dim)``.  ``mla_absorbed``
+    with a cache attends in the latent space instead, with fp32 products
+    over the compressed cache, as the reference does."""
+    *lead, s, _ = x.shape
+    h = base.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    ap = lp["attn"]
+    nope, rope, vd = cfg.mla_qk_nope, cfg.mla_qk_rope, cfg.mla_v_dim
+    nh = cfg.n_heads
+    scale = (nope + rope) ** -0.5
+
+    q = base.mm(h, ap["wq"]).reshape(*lead, s, nh, nope + rope)
+    c_kv = base.mm(h, ap["w_dkv"])                          # (..., S, lora)
+    k_r = base.mm(h, ap["w_kr"]).reshape(*lead, s, 1, rope)
+    pos0 = pos_offset if pos_offset is not None else 0
+    pos = pos0 + torch.arange(s, device=x.device)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = base.apply_rope(q_rope, pos, cfg.rope_theta)
+    k_r = base.apply_rope(k_r, pos, cfg.rope_theta)
+
+    q_pos = kv_len = None
+    if cache is not None:
+        if len(lead) != 1:
+            raise ValueError(f"a KV cache takes (B, S, D) activations, got "
+                             f"{tuple(x.shape)}")
+        q_pos = cache["pos"]
+        kv_len = q_pos + s
+        base.write_cache(cache["c_kv"], c_kv, q_pos)
+        base.write_cache(cache["k_rope"], k_r, q_pos)
+        c_kv, k_r = cache["c_kv"], cache["k_rope"]
+    sk = c_kv.shape[-2]
+
+    if cfg.mla_absorbed and cache is not None:
+        # scores q_nope·(c_kv·W_uk)ᵀ = (q_nope·W_ukᵀ)·c_kvᵀ: the cache is
+        # never re-expanded, and the output stays latent until W_uv
+        lora = cfg.mla_kv_lora
+        w_ukv = ap["w_ukv"].reshape(lora, nh, nope + vd)
+        w_uk, w_uv = w_ukv[..., :nope], w_ukv[..., nope:]
+        q_lat = torch.einsum("bshn,lhn->bshl", q_nope, w_uk)
+        ckv = c_kv.float()
+        scores = torch.einsum("bshl,btl->bhst", q_lat.float(), ckv)
+        scores = scores + torch.einsum("bshr,btqr->bhst", q_rope.float(),
+                                       k_r.float())
+        scores = scores * scale
+        kpos = torch.arange(sk, device=x.device)
+        qp = q_pos + torch.arange(s, device=x.device)
+        mask = (kpos[None, :] <= qp[:, None]) & (kpos[None, :] < kv_len)
+        scores = torch.where(mask, scores, -1e30)
+        p_attn = torch.softmax(scores, dim=-1)
+        o_lat = torch.einsum("bhst,btl->bshl", p_attn, ckv)
+        out = torch.einsum("bshl,lhv->bshv", o_lat.to(cfg.dtype), w_uv)
+    else:
+        ukv = base.mm(c_kv, ap["w_ukv"]).reshape(*lead, sk, nh, nope + vd)
+        k = torch.cat([ukv[..., :nope],
+                       k_r.expand(*lead, sk, nh, rope)], dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        out = base.attend(qq.reshape(-1, s, nh, nope + rope),
+                          k.reshape(-1, sk, nh, nope + rope),
+                          ukv[..., nope:].reshape(-1, sk, nh, vd),
+                          causal=True, q_pos=q_pos, kv_len=kv_len,
+                          scale=scale,
+                          chunk=cfg.attn_chunk if cache is None else 0)
+    out = base.mm(out.reshape(*lead, s, nh * vd), ap["wo"])
+    x = x + base.tag_block_out(cfg, out)
+    h = base.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    x = x + base.tag_block_out(cfg, _ffn(cfg, lp["ffn"], h, moe))
+    return x, (c_kv, k_r)
+
+
+def _gated(gate: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``tanh(gate) · y``, a ``(*R, 1)`` gate on every rank's rows."""
+    return torch.tanh(base._lift(gate, y)) * y
+
+
+def _cross_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+                 vision_kv: tuple) -> torch.Tensor:
+    """The gated cross-attention layer (llama-3.2-vision): the normed
+    queries attend, not causally, over the vision K/V
+    (:func:`cross_kv`), whose dtype may be wider than the queries'."""
+    h = base.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    *lead, s, _ = x.shape
+    nh, hd = cfg.n_heads, cfg.hd
+    ap = lp["attn"]
+    q = base.mm(h, ap["wq"]).reshape(*lead, s, nh, hd)
+    q = base.rmsnorm(q, lp["q_norm"], cfg.norm_eps)
+    k, v = vision_kv
+    out = base.attend(q.reshape(-1, s, nh, hd), k.reshape(-1, *k.shape[-3:]),
+                      v.reshape(-1, *v.shape[-3:]), causal=False)
+    out = base.mm(out.reshape(*lead, s, nh * hd), ap["wo"])
+    x = x + _gated(lp["gate_attn"], out)
+    h = base.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    return x + _gated(lp["gate_mlp"], base.swiglu(lp["ffn"], h))
+
+
+def cross_kv(cfg: ModelConfig, lp: dict, vision_embeds: torch.Tensor
+             ) -> tuple:
+    """A cross layer's K/V ``(*R, B, T, KV, hd)`` from the (gathered)
+    layer's weights, in the promoted dtype of the embeddings and the
+    weights, as ``jnp``'s ``@`` promotes them: the data pipeline's fp32
+    ``vision_embeds`` give fp32 K/V against bf16 weights."""
+    *lead, t, _ = vision_embeds.shape
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    ap = lp["attn"]
+    dt = torch.promote_types(vision_embeds.dtype, ap["wk"].dtype)
+    ve = vision_embeds.to(dt)
+    k = base.mm(ve, ap["wk"].to(dt)).reshape(*lead, t, kv, hd)
+    k = base.rmsnorm(k, lp["k_norm"], cfg.norm_eps)
+    v = base.mm(ve, ap["wv"].to(dt)).reshape(*lead, t, kv, hd)
+    return k, v
 
 
 def _layer_slices(stack, rank_dims: int) -> list:
@@ -169,65 +377,102 @@ def _layer_slices(stack, rank_dims: int) -> list:
             for i in range(n)]
 
 
-def _stacks(cfg: ModelConfig) -> tuple[tuple[str, str, int], ...]:
-    """The parameter stacks a layer walk interleaves, each with its cache
-    entry and attention window: one ``layers``, or the local/global
-    pairs."""
+def _walk(cfg: ModelConfig) -> list[tuple[Stack, int]]:
+    """The layers in the order they run, each a (stack, index): the VLM's
+    groups of ``g − 1`` self layers then one cross layer, gemma2's
+    local/global pairs, or each stack after the other (deepseek's dense
+    layers, then its MoE layers)."""
+    st = stacks(cfg)
+    if cfg.cross_attn_every > 0:
+        selfs, cross = st
+        per = selfs.n // max(cross.n, 1)
+        return [step for j in range(cross.n)
+                for step in [(selfs, j * per + i) for i in range(per)]
+                + [(cross, j)]]
     if cfg.local_global:
-        return (("local_layers", "local", cfg.window),
-                ("global_layers", "global", 0))
-    return (("layers", "layers", 0),)
+        local, glob = st
+        return [step for i in range(local.n)
+                for step in ((local, i), (glob, i))]
+    return [(stack, i) for stack in st for i in range(stack.n)]
+
+
+def _kv_names(cfg: ModelConfig, stack: Stack) -> tuple[str, str]:
+    if cfg.mla_kv_lora > 0 and stack.name != "cross_layers":
+        return "c_kv", "k_rope"
+    return "k", "v"
 
 
 def run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
               mode: str = "train", cache: dict | None = None,
-              pos: int | None = None, gather: Gather = None):
-    """All layers; ``mode`` is ``train``, ``prefill`` or ``decode``.
+              pos: int | None = None,
+              vision_embeds: torch.Tensor | None = None,
+              gather: Gather = None):
+    """All layers, in :func:`_walk`'s order; ``mode`` is ``train``,
+    ``prefill`` or ``decode``.
 
-    The layers are ``params["layers"]``, or with ``local_global`` the
-    pairs of ``local_layers[i]`` (attending within ``cfg.window``) and
-    ``global_layers[i]``.  ``train`` → ``(x, None)``, each layer (a pair
-    with ``local_global``), its FSDP gather included, recomputed in the
-    backward.  ``prefill`` → ``(x, cache)``, every layer's rotated K and
-    V stacked ``(L, B, S, KV, hd)`` under ``{"layers": {"k", "v"}}`` (or
-    ``{"local": ..., "global": ...}``, ``L`` the pairs).  ``decode`` takes
-    that layout as ``cache`` (without ``pos``) and the step's first
-    position ``pos``, writes each layer's K/V into it in place and returns
-    ``(x, cache)``.
+    A self layer is GQA attention (a gemma2 local layer's within
+    ``cfg.window``) or, with ``mla_kv_lora``, MLA; a cross layer attends
+    over :func:`cross_kv` of ``vision_embeds``.  ``train`` → ``(x,
+    None)``, each self layer (a local/global pair) with its FSDP gather
+    recomputed in the backward under ``base.remat``; a cross layer is not
+    (the reference remats only the VLM's self layers).  ``prefill`` →
+    ``(x, cache)``: every layer's K/V stacked ``(L, B, S, KV, hd)`` under
+    its stack's entry, ``{"k", "v"}`` (MLA's ``{"c_kv": (L, B, S,
+    kv_lora), "k_rope": (L, B, S, 1, rope)}``; a cross layer's ``(L, B,
+    T, KV, hd)`` vision K/V).  ``decode`` takes that layout as ``cache``
+    (without ``pos``) and the step's first position ``pos``, writes each
+    self layer's K/V into it in place, reads the cross K/V and never
+    rewrites them, and returns ``(x, cache)``.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"run_stack: mode {mode!r} is not one of train, "
                          "prefill, decode")
     _check_ported(cfg)
-    stacks = _stacks(cfg)
     rd = _rank_dims(params)
-    groups = list(zip(*(_layer_slices(params[name], rd)
-                        for name, _, _ in stacks)))
+    slices = {s.name: _layer_slices(params[s.name], rd) for s in stacks(cfg)}
+    mla = cfg.mla_kv_lora > 0
+
+    def layer(x, stack, lp, c=None, po=None, kv=None):
+        if stack.name == "cross_layers":
+            kv = kv if kv is not None else cross_kv(cfg, lp, vision_embeds)
+            return _cross_layer(cfg, lp, x, kv), kv
+        if mla:
+            return _mla_layer(cfg, lp, x, cache=c, pos_offset=po,
+                              moe=stack.moe)
+        return _self_layer(cfg, lp, x, window=stack.window, cache=c,
+                           pos_offset=po, moe=stack.moe)
+
+    steps = _walk(cfg)
     if mode == "train":
-        def group(x, *lps):
-            for (_, _, win), lp in zip(stacks, lps):
-                x = _self_layer(cfg, _g(gather, lp), x, window=win)[0]
-            return x
-        body = base.remat(cfg, group)
-        for lps in groups:
-            x = body(x, *lps)
+        n = 2 if cfg.local_global else 1
+        for u in range(0, len(steps), n):
+            unit = steps[u:u + n]
+
+            def run(x, *lps, unit=unit):
+                for (stack, _), lp in zip(unit, lps):
+                    x = layer(x, stack, _g(gather, lp))[0]
+                return x
+            if unit[0][0].name != "cross_layers":
+                run = base.remat(cfg, run)
+            x = run(x, *(slices[st.name][i] for st, i in unit))
         return x, None
     if mode == "decode":
-        for i, lps in enumerate(groups):
-            for (_, entry, win), lp in zip(stacks, lps):
-                c = {"k": cache[entry]["k"][i], "v": cache[entry]["v"][i],
-                     "pos": pos}
-                x, _ = _self_layer(cfg, _g(gather, lp), x, window=win,
-                                   cache=c, pos_offset=pos)
+        for stack, i in steps:
+            lp = _g(gather, slices[stack.name][i])
+            names = _kv_names(cfg, stack)
+            entry = {k: cache[stack.entry][k][i] for k in names}
+            if stack.name == "cross_layers":
+                x, _ = layer(x, stack, lp, kv=(entry["k"], entry["v"]))
+            else:
+                x, _ = layer(x, stack, lp, c=dict(entry, pos=pos), po=pos)
         return x, cache
-    kvs = {entry: ([], []) for _, entry, _ in stacks}
-    for lps in groups:
-        for (_, entry, win), lp in zip(stacks, lps):
-            x, (kk, vv) = _self_layer(cfg, _g(gather, lp), x, window=win)
-            kvs[entry][0].append(kk)
-            kvs[entry][1].append(vv)
-    return x, {entry: {"k": torch.stack(ks), "v": torch.stack(vs)}
-               for entry, (ks, vs) in kvs.items()}
+    kvs: dict = {}
+    for stack, i in steps:
+        x, kv = layer(x, stack, _g(gather, slices[stack.name][i]))
+        for name, t in zip(_kv_names(cfg, stack), kv):
+            kvs.setdefault(stack.entry, {}).setdefault(name, []).append(t)
+    return x, {entry: {k: torch.stack(v) for k, v in e.items()}
+               for entry, e in kvs.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -270,7 +515,8 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
     """Mean next-token cross-entropy, one value per rank."""
     tokens, labels = batch["tokens"], batch["labels"]
     x, emb = _embed(cfg, params, tokens, gather)
-    x, _ = run_stack(cfg, params, x, mode="train", gather=gather)
+    x, _ = run_stack(cfg, params, x, mode="train",
+                     vision_embeds=batch.get("vision_embeds"), gather=gather)
     x = base.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = _head(cfg, params, emb, gather)
     return chunked_ce(cfg, x, head, labels, loss_chunk,
@@ -344,7 +590,9 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
     """Forward pass over a prompt; returns (last-token logits, cache)."""
     tokens = batch["tokens"]
     x, emb = _embed(cfg, params, tokens, gather)
-    x, cache = run_stack(cfg, params, x, mode="prefill", gather=gather)
+    x, cache = run_stack(cfg, params, x, mode="prefill",
+                         vision_embeds=batch.get("vision_embeds"),
+                         gather=gather)
     x = base.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = _head(cfg, params, emb, gather)
     logits = base.softcap(base.mm(x[..., -1:, :], head), cfg.logit_softcap)
@@ -383,16 +631,29 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
                dtype: torch.dtype | None = None,
                device: str | torch.device | None = None) -> dict:
     """Zero KV cache sized for ``max_seq`` (the decode dry-run's shapes:
-    ``pos`` stands at ``max_seq - 1``), on ``device``: ``{"layers": {"k",
-    "v"}}`` of ``(L, B, max_seq, KV, hd)``, or ``{"local": ..., "global":
-    ...}`` of the pairs."""
+    ``pos`` stands at ``max_seq - 1``), on ``device``, in ``dtype`` (the
+    compute dtype by default): each stack's entry as :func:`run_stack`'s
+    prefill makes it, ``{"k", "v"}`` of ``(L, B, max_seq, KV, hd)``
+    (MLA's ``{"c_kv", "k_rope"}``), a cross stack's ``(L, B,
+    vision_tokens, KV, hd)``.  Decoding against the zero cross K/V is what
+    the slot server does, as the reference's does: it passes no vision
+    embeddings."""
     _check_ported(cfg)
     dtype = dtype or cfg.dtype
-    n = cfg.n_layers // 2 if cfg.local_global else cfg.n_layers
-    shape = (n, batch_size, max_seq, cfg.n_kv_heads, cfg.hd)
-    cache: dict = {entry: {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device)}
-        for _, entry, _ in _stacks(cfg)}
+    zeros = lambda *s: torch.zeros(s, dtype=dtype,            # noqa: E731
+                                   device=device)
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    cache: dict = {}
+    for st in stacks(cfg):
+        b, n = batch_size, st.n
+        if st.name == "cross_layers":
+            shapes = [(n, b, cfg.vision_tokens, kv, hd)] * 2
+        elif cfg.mla_kv_lora > 0:
+            shapes = [(n, b, max_seq, cfg.mla_kv_lora),
+                      (n, b, max_seq, 1, cfg.mla_qk_rope)]
+        else:
+            shapes = [(n, b, max_seq, kv, hd)] * 2
+        cache[st.entry] = {name: zeros(*shape) for name, shape in
+                           zip(_kv_names(cfg, st), shapes)}
     cache["pos"] = max_seq - 1
     return cache

@@ -543,8 +543,10 @@ def test_flash_kernel_routes_by_dtype_on_cuda(cuda):
 
 @pytest.mark.cuda
 def test_flash_kernel_raises_on_what_neither_kernel_takes_on_cuda(cuda):
-    """fp32 past hd 64, a head dim neither kernel has, another dtype and
-    strides TMA cannot read raise, and launch nothing."""
+    """fp32 past hd 128, a head dim neither kernel has, another dtype,
+    mixed dtypes at the kernel's entry (only ``ops.attention`` upcasts a
+    bf16 query over fp32 K/V) and strides TMA cannot read raise, and
+    launch nothing."""
     def qkv(hd, vd, dtype, pad=0):
         q = torch.randn((1, 64, 2, hd + pad), generator=cuda,
                         device="cuda").to(dtype)[..., :hd]
@@ -552,8 +554,14 @@ def test_flash_kernel_raises_on_what_neither_kernel_takes_on_cuda(cuda):
                         device="cuda").to(dtype)
         return q, q, v
     before = fa.launches
+    q, k, v = qkv(128, 128, torch.float32)
+    with pytest.raises(ValueError, match="dtypes"):
+        fa.attention_fwd(q.bfloat16(), k, v, causal=True, scale=0.125,
+                         attn_cap=0.0, window=0)
+    with pytest.raises(ValueError, match="dtypes"):
+        ops.attention(q.half(), k, v, causal=True)
     for hd, vd, dtype, pad, what in (
-            (128, 128, torch.float32, 0, "not in"),
+            (256, 256, torch.float32, 0, "not in"),
             (48, 48, torch.bfloat16, 0, "not in"),
             (128, 64, torch.bfloat16, 0, "not in"),
             (64, 64, torch.float16, 0, "dtypes"),
@@ -605,6 +613,124 @@ def test_flash_function_gradient_matches_plain_autograd_on_cuda(cuda):
         want = torch.autograd.grad(pout, pins, do)
         for g, w in zip(got, want):
             assert float((g - w).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_fp32_kernel_at_hd_128_matches_plain_on_cuda(cuda):
+    """The CUDA-core kernel at (128, 128), two threads a query row: causal
+    and not, ``Sq != Sk``, GQA 8/8 and 8/1, cap 0 and 30, window 0 and 64,
+    ragged lengths; one fp32 launch each, within 3e-5, and its
+    log-sum-exp too."""
+    cases = 0
+    for h, kv in ((8, 8), (8, 1)):
+        for sq, sk, causal in ((300, 300, True), (100, 333, False),
+                               (77, 1600, False), (129, 129, True)):
+            for cap, win in ((0.0, 0), (30.0, 64)):
+                q = torch.randn((2, sq, h, 128), generator=cuda,
+                                device="cuda")
+                k, v = (torch.randn((2, sk, kv, 128), generator=cuda,
+                                    device="cuda") for _ in range(2))
+                w = win if causal else 0
+                before = (fa.launches, fa.tc_launches)
+                got, lse = fa.attention_fwd(q, k, v, causal=causal,
+                                            scale=128 ** -0.5, attn_cap=cap,
+                                            window=w)
+                assert (fa.launches, fa.tc_launches) == (before[0] + 1,
+                                                         before[1])
+                want, plse = ref.flash_attention_bshd(
+                    q, k, v, causal=causal, attn_cap=cap, window=w,
+                    scale=128 ** -0.5)
+                torch.cuda.synchronize()
+                _assert_flash_close(got, want, v)
+                assert float((lse - plse).abs().max()) <= 3e-5
+                cases += 1
+    assert cases == 16
+
+
+@pytest.mark.cuda
+def test_flash_bf16_query_over_fp32_kv_takes_the_fp32_kernel_on_cuda(cuda):
+    """The VLM's cross layers: bf16 queries over fp32 K/V (non-causal,
+    1600 keys, GQA 8) through ``base.attend`` and ``ops.attention`` go to
+    the fp32 kernel (no tensor-core launch), bf16 out, within one bf16
+    ulp of the CPU's dense ``attend`` on the same inputs (the scale
+    rounded to bf16 in both); masked decode over them as well."""
+    from repro_torch.models import base
+    q = (torch.randn((2, 64, 16, 128), generator=cuda, device="cuda")
+         * 4).bfloat16()
+    k, v = (torch.randn((2, 1600, 2, 128), generator=cuda, device="cuda")
+            for _ in range(2))
+    before = (fa.launches, fa.tc_launches)
+    got = base.attend(q, k, v, causal=False)
+    assert (fa.launches, fa.tc_launches) == (before[0] + 1, before[1])
+    assert got.dtype == torch.bfloat16
+    want = base.attend(q.cpu(), k.cpu(), v.cpu(), causal=False)
+    _assert_flash_close(got.cpu(), want, v.cpu())
+    got = ops.attention(q[:, :1], k, v, causal=True, q_offset=900,
+                        kv_len=901)
+    want, _ = ref.flash_attention_bshd(q[:, :1], k, v, causal=True,
+                                       q_offset=900, kv_len=901)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.tc_launches) == (before[0] + 2, before[1])
+    _assert_flash_close(got, want, v)
+
+
+def _mla_qkv(gen, b, s, h=16, nope=128, rope=64, vd=128):
+    """MLA's expanded attention inputs as ``transformer._mla_layer`` makes
+    them: q and k concatenated (contiguous), v a strided view of the
+    up-projection (head stride nope + vd, base 128 elements in)."""
+    ukv = torch.randn((b, s, h, nope + vd), generator=gen,
+                      device="cuda").bfloat16()
+    k_r = torch.randn((b, s, 1, rope), generator=gen, device="cuda"
+                      ).bfloat16()
+    k = torch.cat([ukv[..., :nope], k_r.expand(b, s, h, rope)], -1)
+    q = torch.randn((b, s, h, nope + rope), generator=gen,
+                    device="cuda").bfloat16()
+    return q, k, ukv[..., nope:]
+
+
+@pytest.mark.cuda
+def test_flash_mla_strided_value_view_on_cuda(cuda):
+    """(192, 128) with MLA's ``v`` a view of the up-projection: its base
+    256 bytes in, head stride 256 and sequence stride 4096 elements, all
+    TMA can read, so it goes to the tensor-core kernel uncopied."""
+    q, k, v = _mla_qkv(cuda, 2, 300)
+    assert not v.is_contiguous() and v.stride()[1:] == (4096, 256, 1)
+    assert (v.data_ptr() - v._base.data_ptr()) == 256
+    before = fa.tc_launches
+    got = ops.attention(q, k, v, causal=True, scale=192 ** -0.5)
+    assert fa.tc_launches == before + 1
+    want, _ = ref.flash_attention_bshd(q, k, v, causal=True,
+                                       scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    _assert_flash_close(got, want, v)
+
+
+@pytest.mark.cuda
+def test_flash_function_gradient_at_mla_dims_on_cuda(cuda):
+    """``FlashAttention`` at (192, 128), MLA's strided ``v`` and the rope
+    key broadcast over the heads: the gradients of q, the up-projection
+    and the shared rope key (summed over the 16 heads) against autograd
+    through the plain forward from the same bf16 inputs, within 2e-2 of
+    each one's largest (the kernel's forward is within a bf16 ulp of the
+    plain one, and the gradients reach the fp32 leaves through bf16)."""
+    q, k, v = _mla_qkv(cuda, 2, 256)
+    do = torch.randn((2, 256, 16, 128), generator=cuda, device="cuda"
+                     ).bfloat16()
+    grads = []
+    for fn in (lambda q, k, v: ops.attention(q, k, v, causal=True,
+                                             scale=192 ** -0.5),
+               lambda q, k, v: ref.flash_attention_bshd(
+                   q, k, v, causal=True, scale=192 ** -0.5)[0]):
+        ukv = torch.cat([k[..., :128], v], -1).float().requires_grad_()
+        k_r = k[:, :, :1, 128:].float().requires_grad_()
+        qq = q.float().requires_grad_()
+        ub = ukv.bfloat16()
+        kk = torch.cat([ub[..., :128],
+                        k_r.bfloat16().expand(2, 256, 16, 64)], -1)
+        out = fn(qq.bfloat16(), kk, ub[..., 128:])
+        grads.append(torch.autograd.grad(out, (qq, ukv, k_r), do))
+    for g, w in zip(*grads):
+        assert float((g - w).abs().max()) <= 2e-2 * float(w.abs().max())
 
 
 #: masked decode cases: (Sq, q_offset, kv_len) over a cache of 300 keys,

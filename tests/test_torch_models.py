@@ -49,12 +49,15 @@ from repro_torch.train import trainer
 
 torch.set_num_threads(1)
 
-ARCHS = ["gemma2-2b", "gemma2-27b", "granite-20b", "qwen3-moe-235b-a22b"]
+ARCHS = ["gemma2-2b", "gemma2-27b", "granite-20b", "qwen3-moe-235b-a22b",
+         "deepseek-v2-lite-16b", "llama-3.2-vision-90b"]
 DTYPES = ["float32", "bfloat16"]
 #: relative tolerance of every compared tensor, by dtype (module doc)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 AXES = ("pod", "data")
 MOE = "qwen3-moe-235b-a22b"
+MLA = "deepseek-v2-lite-16b"
+VLM = "llama-3.2-vision-90b"
 
 
 def _np(a):
@@ -86,21 +89,45 @@ def _cfgs(arch, dtype="float32", **kw):
             configs.load(arch).SMOKE.scaled(dtype=td, **kw))
 
 
+def _open_gates(jp, seed=0):
+    """The VLM's cross-layer tanh gates drawn away from their init of 0
+    (where the cross layers add nothing and get no weight gradient)."""
+    if "cross_layers" not in jp:
+        return jp
+    rng = np.random.default_rng(seed)
+    cross = dict(jp["cross_layers"])
+    for k in ("gate_attn", "gate_mlp"):
+        cross[k] = rng.uniform(0.3, 1.0, cross[k].shape).astype(
+            cross[k].dtype)
+    return dict(jp, cross_layers=cross)
+
+
 @functools.cache
-def _models(arch, dtype="float32"):
+def _models(arch, dtype="float32", **kw):
     """(reference model, its params, port model, the same params); the
     parameters cast to ``dtype`` on both sides, as ``launch.serve``'s
-    tests hold them."""
-    jcfg, cfg = _cfgs(arch, dtype)
+    tests hold them (the VLM's gates opened, ``_open_gates``)."""
+    jcfg, cfg = _cfgs(arch, dtype, **kw)
     jm, m = jget_model(jcfg), get_model(cfg)
     jp = jax.tree.map(lambda a: np.asarray(a.astype(jcfg.dtype)),
-                      jm.init(jax.random.PRNGKey(0)))
+                      _open_gates(jm.init(jax.random.PRNGKey(0))))
     return jm, jp, m, params_from_jax(jp, "cpu")
 
 
 def _tokens(vocab, b, s, seed=0):
     return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(
         np.int32)
+
+
+def _batch(cfg, toks, **more):
+    """``{"tokens": toks, **more}``, with the VLM's fp32 vision embeddings
+    ``(B, vision_tokens, D)`` as the data pipeline makes them."""
+    batch = {"tokens": toks, **more}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = np.random.default_rng(9).standard_normal(
+            (toks.shape[0], cfg.vision_tokens, cfg.d_model)).astype(
+                np.float32) * 0.1
+    return batch
 
 
 # ---------------------------------------------------------------------------
@@ -134,7 +161,7 @@ def test_loss_and_gradients_match_jax(arch):
     jm, jp, m, _ = _models(arch)
     toks = _tokens(m.cfg.vocab, 2, 24)
     labels = _tokens(m.cfg.vocab, 2, 24, seed=1)
-    batch = {"tokens": toks, "labels": labels}
+    batch = _batch(m.cfg, toks, labels=labels)
     jl, jg = jax.jit(jax.value_and_grad(lambda p: jm.loss(p, batch)))(jp)
     p = tree.map_leaves(lambda t: t.requires_grad_(),
                         params_from_jax(jp, "cpu"))
@@ -163,17 +190,25 @@ def test_gemma2_window_hides_keys_and_chunked_attention_matches():
 
 
 def test_unported_variants_and_families_name_their_item():
+    """What is left of ROADMAP queue 1 item 14: whisper, mamba2 and
+    zamba2, their families, and whisper's ``kv_override``
+    cross-attention; the VLM's family is taken."""
     cfg = configs.load("tinyllama-1.1b").SMOKE
     gen = torch.Generator().manual_seed(0)
-    for kw in (dict(mla_kv_lora=16), dict(cross_attn_every=2),
-               dict(first_dense_layers=1)):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            transformer.init_params(cfg.scaled(**kw), gen)
-    for family in ("ssm", "hybrid", "audio", "vlm"):
+    for family in ("ssm", "hybrid", "audio"):
         with pytest.raises(NotImplementedError, match="item 14"):
             get_model(cfg.scaled(family=family))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        configs.load("deepseek-v2-lite-16b")
+        with pytest.raises(NotImplementedError, match="item 14"):
+            transformer.init_params(cfg.scaled(family=family), gen)
+    for arch in ("whisper-medium", "mamba2-370m", "zamba2-1.2b"):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            configs.load(arch)
+    x = torch.zeros((1, 4, cfg.d_model))
+    p = tree.map_leaves(lambda t: t[0], transformer.init_params(
+        cfg, gen)["layers"]["attn"])
+    with pytest.raises(NotImplementedError, match="whisper.*item 14"):
+        base.gqa_attention(cfg, p, x, kv_override=(x, x))
+    assert get_model(cfg.scaled(family="vlm")).cfg.family == "vlm"
 
 
 # ---------------------------------------------------------------------------
@@ -188,9 +223,15 @@ def _port_cache(jc):
 
 
 def _assert_cache(got, want, dtype):
+    """Every entry's tensors (``k``/``v``, MLA's ``c_kv``/``k_rope``, the
+    VLM's ``self`` and ``cross``) in the reference's shapes and dtypes,
+    within the dtype's tolerance."""
     assert set(got) == set(want) and got["pos"] == int(want["pos"])
     for name in set(want) - {"pos"}:
-        for kv in ("k", "v"):
+        assert set(got[name]) == set(want[name])
+        for kv in want[name]:
+            assert str(got[name][kv].dtype).split(".")[1] == \
+                want[name][kv].dtype.name
             _close(got[name][kv], want[name][kv], dtype)
 
 
@@ -202,7 +243,7 @@ def test_init_cache_matches_jax(arch):
     assert set(c) == set(jc)
     for name in set(jc) - {"pos"}:
         assert set(c[name]) == set(jc[name])
-        for kv in ("k", "v"):
+        for kv in jc[name]:
             assert tuple(c[name][kv].shape) == jc[name][kv].shape
             assert str(c[name][kv].dtype).split(".")[1] == \
                 jc[name][kv].dtype.name
@@ -210,9 +251,11 @@ def test_init_cache_matches_jax(arch):
 
 
 def _grow(jc, n):
+    """The prefill's cache grown by ``n`` positions (the cross entry's
+    vision K/V keep their length)."""
     pad = lambda a: jnp.concatenate(                           # noqa: E731
         [a, jnp.zeros(a.shape[:2] + (n,) + a.shape[3:], a.dtype)], 2)
-    return {k: (v if k == "pos" else jax.tree.map(pad, v))
+    return {k: (v if k in ("pos", "cross") else jax.tree.map(pad, v))
             for k, v in jc.items()}
 
 
@@ -224,9 +267,10 @@ def test_prefill_and_decode_match_jax(arch, dtype):
     caches, the port's cache written in place."""
     jm, jp, m, p = _models(arch, dtype)
     toks = _tokens(m.cfg.vocab, 2, 15, seed=3)
-    jl, jc = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(toks[:, :12])})
+    batch = _batch(m.cfg, toks[:, :12])
+    jl, jc = jax.jit(jm.prefill)(jp, batch)
     with torch.inference_mode():
-        l, c = m.prefill(p, {"tokens": torch.from_numpy(toks[:, :12])})
+        l, c = m.prefill(p, params_from_jax(batch, "cpu"))
     assert l.dtype == getattr(torch, dtype) and l.shape == (2, 1, m.cfg.vocab)
     _close(l, jl, dtype)
     _assert_cache(c, jc, dtype)
@@ -255,6 +299,150 @@ def test_gemma2_decode_past_the_window_matches_jax():
             l, c = m.decode(p, torch.from_numpy(toks[:, t:t + 1]), c)
         _close(l, jl)
     _assert_cache(c, jc, "float32")
+
+
+def _decode_steps(jm, jp, m, p, toks, n0=12):
+    """A prefill of ``n0`` grown by 4, then a step of one token and one
+    of two, through both packages: each step's logits (reference's,
+    port's) and the final caches."""
+    batch = _batch(m.cfg, toks[:, :n0])
+    _, jc = jax.jit(jm.prefill)(jp, batch)
+    jc = _grow(jc, 4)
+    c = _port_cache(jc)
+    out = []
+    for t0, t1 in ((n0, n0 + 1), (n0 + 1, n0 + 3)):
+        jl, jc = jax.jit(jm.decode)(jp, jnp.asarray(toks[:, t0:t1]), jc)
+        with torch.inference_mode():
+            l, c = m.decode(p, torch.from_numpy(toks[:, t0:t1]), c)
+        out.append((jl, l))
+    return out, jc, c
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mla_absorbed_decode_matches_jax(dtype):
+    """``mla_absorbed``: the decode attends in the latent space with fp32
+    products over the compressed cache, as the reference's absorbed
+    decode does (the prefill, uncached, is the expanded one)."""
+    jm, jp, m, p = _models(MLA, dtype, mla_absorbed=True)
+    assert m.cfg.mla_absorbed
+    toks = _tokens(m.cfg.vocab, 2, 15, seed=3)
+    steps, jc, c = _decode_steps(jm, jp, m, p, toks)
+    for jl, l in steps:
+        _close(l, jl, dtype)
+    _assert_cache(c, jc, dtype)
+
+
+def test_mla_absorbed_decode_matches_the_expanded_one():
+    """The two MLA decodes compute one function: on the same parameters
+    and the same prefilled cache, the logits and the caches they write
+    within fp32's tolerance."""
+    _, _, m, p = _models(MLA)
+    toks = torch.from_numpy(_tokens(m.cfg.vocab, 2, 16, seed=7))
+    absorbed = get_model(m.cfg.scaled(mla_absorbed=True))
+    out = []
+    for model in (m, absorbed):
+        with torch.inference_mode():
+            _, c = model.prefill(p, {"tokens": toks[:, :12]})
+            for name in ("dense", "moe"):
+                c[name] = {k: torch.cat([v, v.new_zeros(
+                    v.shape[:2] + (4,) + v.shape[3:])], 2)
+                    for k, v in c[name].items()}
+            logits = []
+            for t0, t1 in ((12, 13), (13, 16)):
+                lo, c = model.decode(p, toks[:, t0:t1], c)
+                logits.append(lo)
+        out.append((logits, c))
+    for a, b in zip(out[0][0], out[1][0]):
+        _close(b, a)
+    assert out[0][1]["pos"] == out[1][1]["pos"] == 16
+    for a, b in zip(tree.flatten(out[0][1])[0][:-1],
+                    tree.flatten(out[1][1])[0][:-1]):
+        _close(b, a)
+
+
+def test_vlm_bf16_with_fp32_vision_embeds_matches_jax():
+    """The VLM in bf16 (the compute-dtype parameters the trainer's gather
+    and ``launch.serve`` hand it) with the pipeline's fp32
+    ``vision_embeds``: the cross layers' K/V are fp32, their queries bf16
+    (``attend`` upcasts them, scaled by the bf16-rounded scale), and the
+    loss, its gradients and the prefill's fp32 cross cache match the
+    reference's within bf16's tolerance.
+
+    A gate's gradient is one sum over every (row, position, feature) of
+    the gated output times the gradient arriving there, and it cancels
+    (found: the terms' magnitudes sum to tens of times the result), so
+    bf16's rounding of the terms, which the two packages place
+    differently, moves it by more than 2e-2 of itself: each gate's is
+    held within 2e-2 of the sum of its terms' magnitudes, taken from the
+    port's backward.  The other gradients, bf16 through four layers and
+    the loss (``TOL`` is the forward's), within 5e-2 of each leaf's
+    largest (found: 2.7e-2, the self layers' ``wk``)."""
+    jm, jp, m, _ = _models(VLM, "bfloat16")
+    toks = _tokens(m.cfg.vocab, 2, 24)
+    batch = _batch(m.cfg, toks, labels=_tokens(m.cfg.vocab, 2, 24, seed=1))
+    assert batch["vision_embeds"].dtype == np.float32
+    jl, jg = jax.jit(jax.value_and_grad(lambda q: jm.loss(q, batch)))(jp)
+    p = tree.map_leaves(lambda t: t.requires_grad_(),
+                        params_from_jax(jp, "cpu"))
+    terms: dict = {}
+    real = transformer._gated
+
+    def gated(gate, y):
+        key = (len(terms) // 2, ("gate_attn", "gate_mlp")[len(terms) % 2])
+        terms[key] = None
+        out = real(gate, y)
+        th = 1 - torch.tanh(gate.detach().float()) ** 2
+
+        def hook(g):
+            terms[key] = float((g.float() * y.detach().float() * th)
+                               .abs().sum())
+        out.register_hook(hook)
+        return out
+    with mock.patch.object(transformer, "_gated", gated):
+        loss = m.loss(p, params_from_jax(batch, "cpu"))
+        np.testing.assert_allclose(float(loss.detach()), float(jl),
+                                   rtol=2e-2)
+        loss.backward()
+    assert len(terms) == 4 and None not in terms.values()
+    for path, g, w in zip(tree.paths(p), tree.flatten(p)[0],
+                          jax.tree.leaves(jg)):
+        assert g.grad.dtype == torch.bfloat16
+        if path[-1].startswith("gate_"):
+            for j in range(g.shape[0]):
+                err = abs(float(g.grad[j, 0]) - float(np.float32(w[j, 0])))
+                assert err <= 2e-2 * terms[(j, path[-1])]
+            continue
+        err = float(np.abs(_np(g.grad) - _np(w)).max())
+        assert err <= 5e-2 * float(np.abs(_np(w)).max()), (path, err)
+    with torch.inference_mode():
+        _, c = m.prefill(p, params_from_jax(batch, "cpu"))
+    assert c["cross"]["k"].dtype == torch.float32
+    assert c["self"]["k"].dtype == torch.bfloat16
+
+
+def test_attend_bf16_queries_over_fp32_kv_as_the_jitted_reference():
+    """A bf16 query over fp32 K/V (the VLM's cross layers): the jitted
+    reference multiplies ``fl32(q)`` by the scale rounded to bf16 and
+    returns bf16; ``base.attend`` and ``ops.attention`` (which upcasts the
+    query, as it does on the card before the fp32 kernel) agree within
+    one bf16 ulp, non-causal with ``Sq != Sk`` and GQA 4."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(11)
+    q = np.asarray(jnp.asarray(rng.normal(size=(2, 24, 8, 128)) * 4,
+                               jnp.bfloat16))
+    k, v = (rng.normal(size=(2, 40, 2, 128)).astype(np.float32)
+            for _ in range(2))
+    want = np.asarray(jax.jit(functools.partial(jbase.attend, causal=False))(
+        q, k, v).astype(jnp.float32))
+    assert jax.eval_shape(functools.partial(jbase.attend, causal=False),
+                          q, k, v).dtype == jnp.bfloat16
+    tq, tk, tv = (params_from_jax(x, "cpu") for x in (q, k, v))
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    for got in (base.attend(tq, tk, tv, causal=False),
+                ops.attention(tq, tk, tv, causal=False,
+                              scale=base._scale(tq, None))):
+        assert got.dtype == torch.bfloat16
+        assert np.all(np.abs(got.float().numpy() - want) <= ulp)
 
 
 # ---------------------------------------------------------------------------
@@ -407,10 +595,16 @@ def test_ep_dispatch_backward_is_the_references_custom_vjp():
 #: widened SMOKE configs whose new leaves are FSDP-sharded over ``data``
 #: (``rules.MIN_FSDP_SIZE`` is 64 Ki elements): gemma2's pair stacks and
 #: tied embedding, qwen3's (E, D, F) experts (the router, 2 Ki elements,
-#: replicated)
+#: replicated), deepseek's MLA leaves (``w_dkv``, ``w_kr``, ``w_ukv``),
+#: dense first layer and shared experts, the VLM's cross layers' FFN (its
+#: gates and norms replicated)
 WIDE = {"gemma2-2b": dict(d_model=256, d_ff=512, vocab=512),
         "qwen3-moe-235b-a22b": dict(d_model=256, moe_d_ff=256, vocab=512,
-                                    n_experts=8)}
+                                    n_experts=8),
+        MLA: dict(d_model=512, d_ff=128, moe_d_ff=128, vocab=512,
+                  mla_kv_lora=128, mla_qk_nope=64, mla_qk_rope=128,
+                  mla_v_dim=64),
+        VLM: dict(d_model=256, d_ff=512, vocab=512)}
 
 
 def _wide(arch, dtype="float32", **kw):
@@ -420,8 +614,8 @@ def _wide(arch, dtype="float32", **kw):
 @functools.cache
 def _wide_params(arch, seed=0):
     jcfg, _ = _wide(arch)
-    return jax.tree.map(np.asarray, jget_model(jcfg).init(
-        jax.random.PRNGKey(seed)))
+    return jax.tree.map(np.asarray, _open_gates(jget_model(jcfg).init(
+        jax.random.PRNGKey(seed))))
 
 
 @pytest.mark.parametrize("arch", sorted(WIDE))
@@ -434,14 +628,18 @@ def test_param_specs_fsdp_dims_match_jax(arch, mesh):
     assert tree.flatten(dims)[0] == jax.tree.leaves(jdims)
     sharded = {"/".join(p) for p, d in zip(tree.paths(dims),
                                            tree.flatten(dims)[0]) if d >= 0}
-    if arch == MOE:
-        assert {"layers/ffn/w_gate", "layers/ffn/w_up",
-                "layers/ffn/w_down"} <= sharded
-    else:
-        assert {"embed", "local_layers/ffn/w_up",
-                "global_layers/ffn/w_down"} <= sharded
-    assert not any(s.endswith(("norm", "ln1b", "ln2b", "router"))
-                   for s in sharded)
+    want = {MOE: {"layers/ffn/w_gate", "layers/ffn/w_up",
+                  "layers/ffn/w_down"},
+            MLA: {"layers/attn/w_dkv", "layers/attn/w_kr",
+                  "layers/attn/w_ukv", "dense_layers/attn/w_ukv",
+                  "dense_layers/ffn/w_up", "layers/ffn/shared/w_up",
+                  "layers/ffn/w_gate"},
+            VLM: {"embed", "cross_layers/ffn/w_up", "layers/ffn/w_down"}
+            }.get(arch, {"embed", "local_layers/ffn/w_up",
+                         "global_layers/ffn/w_down"})
+    assert want <= sharded
+    assert not any(s.endswith(("norm", "ln1b", "ln2b", "router", "gate_attn",
+                               "gate_mlp")) for s in sharded)
 
 
 def test_cast_params_keeps_the_router_in_fp32():
@@ -473,8 +671,9 @@ def _per_rank_jax(jp, jmcfg):
 
 @pytest.mark.parametrize("arch,combine,seed", [
     ("gemma2-2b", "gather", 0), (MOE, "gather", 0), (MOE, "scatter_ar", 0),
-    (MOE, "gather", 1)], ids=["gemma2-2b-gather", f"{MOE}-gather",
-                              f"{MOE}-scatter_ar", f"{MOE}-gather-seed1"])
+    (MOE, "gather", 1), (MLA, "scatter_ar", 0), (VLM, "gather", 0)],
+    ids=["gemma2-2b-gather", f"{MOE}-gather", f"{MOE}-scatter_ar",
+         f"{MOE}-gather-seed1", f"{MLA}-scatter_ar", f"{VLM}-gather"])
 def test_two_train_steps_match_jax(arch, combine, seed):
     """Two train steps on ``(2, 4)``, in the network and reproducible,
     the widened configs so that the pair stacks' and the experts' leaves
@@ -525,7 +724,7 @@ def test_two_train_steps_match_jax(arch, combine, seed):
     for _ in range(2):
         batch = {k: np.asarray(v) for k, v in next(stream).items()}
         jparams, jopt, jm = jstep(jparams, jopt, {
-            k: v.reshape(2, 4, -1, 32) for k, v in batch.items()})
+            k: v.reshape(2, 4, -1, *v.shape[1:]) for k, v in batch.items()})
         params, opt, m = step(params, opt, rules.split_batch(
             params_from_jax(batch, "cpu"), mcfg))
         for k in ("loss", "grad_norm"):
@@ -542,7 +741,7 @@ def test_two_train_steps_match_jax(arch, combine, seed):
                                        jax.tree.leaves(jparams), m1)):
         a, b = a.numpy(), np.asarray(b)
         well = np.abs(mm) >= 1e-8
-        if arch == MOE:
+        if jcfg.is_moe:
             d = np.abs(a - b)
             assert float(d.max()) <= 5e-4
             off = d > np.where(well, 1e-5 + 1e-5 * np.abs(b), 1e-4)
@@ -599,14 +798,14 @@ def _ref_launcher(arch, jp, steps):
                                          prefetch=False)
     losses = []
     for _ in range(steps):
-        batch = {k: np.asarray(v).reshape(2, 4, -1, 128)
+        batch = {k: np.asarray(v).reshape(2, 4, -1, *v.shape[1:])
                  for k, v in next(stream).items()}
         params, opt, m = step(params, opt, batch)
         losses.append(float(np.asarray(m["loss"])[0, 0]))
     return losses
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", MOE])
+@pytest.mark.parametrize("arch", ["gemma2-2b", MOE, MLA, VLM])
 def test_launcher_train_steps_match_jax(arch, capsys):
     jp = jax.tree.map(np.asarray, jget_model(jconfigs.load(arch).SMOKE.scaled(
         dtype=jnp.float32)).init(jax.random.PRNGKey(0)))
@@ -632,6 +831,30 @@ def test_launchers_take_the_arch_on_cpu(arch, capsys):
     assert all(r.done and len(r.out) == 4 for r in reqs)
     out = capsys.readouterr().out
     assert out.count(" loss ") == 2 and "served 3 requests" in out
+
+
+@pytest.mark.parametrize("arch", [MLA, VLM, MOE])
+def test_layerwise_cast_draw_has_the_references_leaves(arch):
+    """``init_params(cast=)``, ``launch.serve``'s draw: each layer cast
+    as it is drawn, stacked into the same leaves and shapes as the fp32
+    draw, in the compute dtype but the ``KEEP_F32`` router, and equal to
+    the fp32 draw of the same seed cast (one draw order, with or without
+    ``cast``), each layer its own."""
+    cfg = configs.load(arch).SMOKE
+    m = get_model(cfg)
+    whole = m.init(torch.Generator().manual_seed(0))
+    cast = functools.partial(rules.cast_params, dtype=cfg.dtype)
+    got = m.init(torch.Generator().manual_seed(0), cast=cast)
+    again = m.init(torch.Generator().manual_seed(0), cast=cast)
+    assert tree.paths(got) == tree.paths(whole)
+    for path, a, b, c in zip(tree.paths(got), tree.flatten(got)[0],
+                             tree.flatten(whole)[0], tree.flatten(again)[0]):
+        assert a.shape == b.shape and torch.equal(a, c)
+        assert torch.equal(a, b.to(a.dtype))
+        assert a.dtype == (torch.float32 if path[-1] == "router"
+                           else torch.bfloat16)
+    w = got["layers"]["ffn"]["w_up"]
+    assert not torch.equal(w[0], w[1])
 
 
 def test_serving_keeps_the_router_in_fp32():
@@ -671,6 +894,29 @@ def test_batched_server_on_gemma2_matches_jax():
     assert srv.run(max_steps=500) == js.run(max_steps=500)
     assert [x.out for x in r] == [x.out for x in jr]
     assert set(srv.cache) == {"local", "global", "pos"}
+
+
+@pytest.mark.parametrize("arch,entries", [
+    (MLA, {"dense", "moe", "pos"}), (VLM, {"self", "cross", "pos"})])
+def test_batched_server_on_mla_and_vlm_matches_jax(arch, entries):
+    """The reference's server and the port's on deepseek's SMOKE (the MLA
+    cache) and the VLM's (fp32): the VLM decodes against the zero cross
+    cache of ``init_cache``, as the reference's server does (it passes
+    no vision embeddings), and its cross entry stays zero; every
+    request's tokens and the step count."""
+    jm, jp, m, p = _models(arch)
+    rng = np.random.default_rng(12)
+    lens, budgets = [3, 6, 2, 5], [7, 4, 9, 5]
+    prompts = [rng.integers(0, m.cfg.vocab, size=n) for n in lens]
+    js = JServer(jm, jp, slots=3, max_len=24)
+    srv = BatchedServer(m, p, slots=3, max_len=24)
+    jr = [js.submit(x, max_new=n) for x, n in zip(prompts, budgets)]
+    r = [srv.submit(x, max_new=n) for x, n in zip(prompts, budgets)]
+    assert srv.run(max_steps=500) == js.run(max_steps=500)
+    assert [x.out for x in r] == [x.out for x in jr]
+    assert set(srv.cache) == entries
+    if arch == VLM:
+        assert not any(t.any() for t in srv.cache["cross"].values())
 
 
 def test_flash_bytes_count_the_window():
