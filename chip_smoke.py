@@ -87,15 +87,19 @@
    deepseek's MLA train step, prefill and decode at ``(hd, vd)`` = (192,
    128); the VLM's self prefill and decode, its cross prefill and decode
    over 1600 vision keys, not causal, fp32 K/V, and the slot server's
-   self and bf16 cross decode), granite-20b's 48 query heads on one KV
+   self and bf16 cross decode; whisper's train step, prefill and decode:
+   its encoder over 1500 frames, not causal, its causal decoder, its
+   cross-attention of the decoder's queries over the 1500 encoder keys,
+   not causal, the masked self decode and the cross decode, and the slot
+   server's), granite-20b's 48 query heads on one KV
    head, gemma2's window where it hides most keys (``Sq = Sk = 8192``)
    and its masked decode at ``kv_len`` 6144.  Each is one launch (bf16
    on the tensor cores, fp32 on the CUDA cores) held against the plain
    version at every batch row, timed beside its bound and
    ``scaled_dot_product_attention`` in the same dtype with the same
    boolean mask (no cap: SDPA takes none); where the window hides a key,
-   the plain version without it differs.  After phase 24 every launch
-   that phases 9 and 18–24 recorded must have its case here.
+   the plain version without it differs.  After phase 28 every launch
+   that phases 9 and 18–28 recorded must have its case here.
 8. The wire dense reductions (``WIRE_RUNS``), at the reduction paths'
    model and size: on ``(2, 4)`` the default (the hierarchical schedule,
    rhd levels), ``reproducible=True`` (its fixed-tree variant),
@@ -320,6 +324,41 @@
    VLM's train step does not fit the card at these widths (one group's
    fp32 state with the embedding and head is about 102 GB): it is held
    on the CPU against the reference.
+25. whisper-medium's training step, the first encoder-decoder on the
+   card: phase 9's checks through ``launch.train.setup`` with
+   ``WHISPER_TRAIN_FLAGS`` (``TRAIN_FLAGS`` and ``--arch
+   whisper-medium``) at all 24 encoder and 24 decoder layers, each
+   rank's sequence of 4096 over its 1500 fp32 frames: 5 timed steps,
+   flash ``flash_per_call`` times a step (every encoder layer and twice
+   every decoder layer, self and cross, each again in the remat
+   recompute: 144) on the tensor cores, the cross-attention's ``Sq =
+   4096`` over ``Sk = 1500`` through the plain backward,
+   ``tree_reduce_slots`` launched, losses finite and falling, the F3
+   replay, 2 + 2 layers against the plain attention; the median step,
+   the peak and a profile.
+26. Serving whisper-medium at all 24 + 24 layers (bf16): ``launch.serve
+   --arch whisper-medium`` at its defaults (48 flash launches a decode
+   call: self and cross, the cross over the zero cache), then
+   ``WSP_SERVE_B`` prompts of ``WSP_SERVE_PROMPT`` with the pipeline's
+   fp32 frames, the self K/V grown to ``WSP_SERVE_CACHE`` (the cross K/V
+   keep their 1500 keys), and ``WSP_SERVE_STEPS`` decode steps against
+   the plain attention, as phase 18 holds TinyLlama; other frames move
+   the last prefill logits by more than that tolerance.
+27. mamba2-370m's training step, the first attention-free model: phase
+   9's checks with ``MAMBA_TRAIN_FLAGS`` at all 48 layers (the chunked
+   SSD, chunk 256), no flash launch, ``tree_reduce_slots`` launched,
+   losses finite and falling, the F3 replay, 2 layers with the plain
+   attention patched in (which changes nothing).
+28. Serving mamba2-370m at all 48 layers: ``launch.serve --arch
+   mamba2-370m`` at its defaults (no flash launch); in fp32 at
+   ``MAMBA_FEED_LAYERS`` the chunked prefill of ``MAMBA_FEED_B`` prompts
+   of ``MAMBA_FEED_PROMPT`` (two chunks) against the same tokens fed one
+   at a time through
+   ``decode_step`` (the recurrent path), the last logits within
+   ``MAMBA_FEED_TOL`` of max|logit|, with the decode state's bytes; in
+   bf16 the prefill of ``MAMBA_SERVE_B`` prompts of
+   ``MAMBA_SERVE_PROMPT`` and ``MAMBA_SERVE_STEPS`` lockstep decode
+   steps, their times and a profile of one step.
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line
 of kernel figures, and as its last line ``{"ok": true, "device": ...}``.
@@ -508,6 +547,50 @@ VLM_SERVE_B, VLM_SERVE_PROMPT, VLM_SERVE_CACHE, VLM_SERVE_STEPS = (
 #: the slot servers' lanes and cache length (``launch.serve``'s defaults,
 #: which ``served_at_defaults`` runs; phases 21 and 24 take them too)
 SERVER_SLOTS, SERVER_MAX_LEN = 4, 64
+#: phase 25: whisper-medium's training step, ``TRAIN_FLAGS`` with its
+#: arch, at all 24 encoder and 24 decoder layers (0.79 G parameters: 12.6
+#: GB of fp32 weights, gradients and both Adam moments, which both pods
+#: hold), each rank's 4096 decoder tokens over its 1500 frames
+WHISPER_TRAIN_FLAGS = [*TRAIN_FLAGS, "--arch", "whisper-medium"]
+WHISPER_TRAIN_LAYERS = 24
+#: phase 26: whisper-medium served at all 24 + 24 layers: prompts (each
+#: with the pipeline's 1500 fp32 frames), prompt length, the self K/V
+#: grown to this many positions, lockstep decode steps
+WSP_SERVE_B, WSP_SERVE_PROMPT, WSP_SERVE_CACHE, WSP_SERVE_STEPS = (
+    8, 1024, 1024 + 32, 32)
+#: phase 27: mamba2-370m's training step, ``TRAIN_FLAGS`` with its arch,
+#: at all 48 layers (the SSD's chunk of 256 divides the 4096 tokens)
+MAMBA_TRAIN_FLAGS = [*TRAIN_FLAGS, "--arch", "mamba2-370m"]
+MAMBA_TRAIN_LAYERS = 48
+#: phase 28: mamba2-370m in fp32 at published widths: prompts, prompt
+#: length (two chunks of 256) and depth for the chunked prefill against
+#: the same tokens fed one at a time through ``decode_step`` (the
+#: recurrent path).  Depth cut from 48: the feed is host-bound, 73 ms a
+#: step at 48 layers on an H100, 37.5 s for the 512 steps
+MAMBA_FEED_B, MAMBA_FEED_PROMPT, MAMBA_FEED_LAYERS = 4, 512, 16
+#: phase 28: the chunked prefill's last logits within this share of
+#: max|logit| of the recurrent feed's (``tests/test_models.py::
+#: test_mamba_chunked_equals_recurrent``'s bound on the reference)
+MAMBA_FEED_TOL = 1e-3
+#: phase 28: the bf16 decode at a batch of 16: prompt length (chunked),
+#: lockstep decode steps
+MAMBA_SERVE_B, MAMBA_SERVE_PROMPT, MAMBA_SERVE_STEPS = 16, 1024, 32
+
+
+def flash_per_call(cfg, kind: str) -> int:
+    """Flash launches a model makes in one call of ``kind``: ``train``
+    (a step: the forward and the remat recompute), ``prefill`` or
+    ``decode`` (one step).  A decoder-only layer launches once a call
+    (twice a train step); whisper's encoder layer once, its decoder layer
+    twice (self, cross), each doubled by the remat in a train step;
+    mamba2 never (attention-free)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "audio":
+        return {"train": 2 * (cfg.encoder_layers + 2 * cfg.n_layers),
+                "prefill": cfg.encoder_layers + 2 * cfg.n_layers,
+                "decode": 2 * cfg.n_layers}[kind]
+    return cfg.n_layers * (2 if kind == "train" else 1)
 
 
 def flash_case(b, sq, sk, h, kv, hd, cap=0.0, window=0, q_offset=0,
@@ -526,7 +609,7 @@ def flash_case(b, sq, sk, h, kv, hd, cap=0.0, window=0, q_offset=0,
 
 
 #: phase 7's flash cases at the model paths' launches: every launch shape
-#: that phases 9, 18–24 give the kernel (a decode case at its last step's
+#: that phases 9, 18–26 give the kernel (a decode case at its last step's
 #: position, a slot server's at its cache's end; ``path_flash`` records
 #: the paths' launches and ``main`` checks each has its case here), and
 #: three that no path launches on the card: gemma2's window where it
@@ -539,6 +622,7 @@ _DS = dict(h=16, kv=16, hd=192, vd=128, v_in=256)
 _SRV = (SERVER_SLOTS, 1, SERVER_MAX_LEN)
 _SRV_MASK = dict(q_offset=SERVER_MAX_LEN - 2, kv_len=SERVER_MAX_LEN - 1)
 _VL = dict(h=64, kv=8, hd=128)
+_WS = dict(h=16, kv=16, hd=64)
 FLASH_MODEL_CASES = {k: flash_case(*v) for k, v in {
     "tinyllama train": (8, 4096, 4096, *_TL, 0, 0, None),
     "tinyllama prefill": (SERVE_B, SERVE_PROMPT, SERVE_PROMPT, *_TL, 0, 0,
@@ -593,7 +677,25 @@ FLASH_MODEL_CASES = {k: flash_case(*v) for k, v in {
                                         causal=False, dtype="float32"),
     "vlm server self decode": flash_case(*_SRV, **_VL, **_SRV_MASK),
     "vlm server cross decode bf16": flash_case(SERVER_SLOTS, 1, 1600,
-                                               **_VL, causal=False)}
+                                               **_VL, causal=False),
+    "whisper train encoder": flash_case(8, 1500, 1500, **_WS, causal=False),
+    "whisper train decoder": flash_case(8, 4096, 4096, **_WS),
+    "whisper train cross": flash_case(8, 4096, 1500, **_WS, causal=False),
+    "whisper prefill encoder": flash_case(WSP_SERVE_B, 1500, 1500, **_WS,
+                                          causal=False),
+    "whisper prefill decoder": flash_case(WSP_SERVE_B, WSP_SERVE_PROMPT,
+                                          WSP_SERVE_PROMPT, **_WS),
+    "whisper prefill cross": flash_case(WSP_SERVE_B, WSP_SERVE_PROMPT, 1500,
+                                        **_WS, causal=False),
+    "whisper decode self": flash_case(
+        WSP_SERVE_B, 1, WSP_SERVE_CACHE, **_WS,
+        q_offset=WSP_SERVE_PROMPT + WSP_SERVE_STEPS - 1,
+        kv_len=WSP_SERVE_PROMPT + WSP_SERVE_STEPS),
+    "whisper decode cross": flash_case(WSP_SERVE_B, 1, 1500, **_WS,
+                                       causal=False),
+    "whisper server decode self": flash_case(*_SRV, **_WS, **_SRV_MASK),
+    "whisper server decode cross": flash_case(SERVER_SLOTS, 1, 1500, **_WS,
+                                              causal=False)}
 #: TinyLlama depth, cut from the published 22: the int8 reduction's peak
 #: is about four times the 8 ranks' fp32 gradient bytes (the caller's
 #: gradients and state, the two packed arenas), and 22 layers of fp32
@@ -814,19 +916,20 @@ def phase_quant_vs_plain(torch, ops, qt) -> None:
 
 def phase_profile(torch, run, card: str, what: str) -> None:
     """Where one reduction's device time goes: ``torch.profiler`` over a
-    warm run, device time by operator, largest first."""
+    warm run, device time by kernel, largest first.  It records the
+    device's activity alone: the host's operator events add nothing to
+    the table and cost more than the run to collect (a whisper training
+    step's profile took 99.4 s with them and 31.8 s without on an
+    H100)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    # device-side events only (the kernels); an operator's row would
-    # count its kernels' time a second time
     rows = [(e.self_device_time_total, e.key, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
@@ -1536,15 +1639,24 @@ def phase_train(torch, card, total_mem, tr, flags=TRAIN_FLAGS,
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    published = configs.load(launch._parse(flags).arch).CONFIG
+
+    def depth(n):
+        # an encoder-decoder's encoder is cut with its decoder
+        return dict(n_layers=n, dtype=torch.bfloat16,
+                    **({"encoder_layers": n} if published.encoder_layers
+                       else {}))
     t_phase = t0 = time.perf_counter()
-    run = launch.setup(flags, n_layers=layers, dtype=torch.bfloat16)
+    run = launch.setup(flags, **depth(layers))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(p[(0,) * run.step.mesh.ndim].numel()
                    for p in tree.flatten(run.params)[0])
-    published = configs.load(run.args.arch).CONFIG.n_layers
+    enc = (f" (and {run.cfg.encoder_layers} of {published.encoder_layers} "
+           "encoder layers)" if published.encoder_layers else "")
     print(f"training: {run.cfg.name} at published widths, {run.cfg.n_layers} "
-          f"of {published} layers, bf16 compute, fp32 master weights, mesh "
+          f"of {published.n_layers} layers{enc}, bf16 compute, fp32 master "
+          f"weights, mesh "
           f"{dict(zip(run.mesh.axes, run.mesh.shape))}, global batch "
           f"{run.args.batch} x {run.args.seq} (one sequence a rank), "
           f"{n_params} parameters a rank, set up in {setup_s:.1f} s")
@@ -1559,7 +1671,9 @@ def phase_train(torch, card, total_mem, tr, flags=TRAIN_FLAGS,
         torch.cuda.synchronize()
         steps.append((time.perf_counter() - t) * 1e3)
 
-    with path_flash(f"phase {phase}"):
+    per_step = flash_per_call(run.cfg, "train")
+    with (path_flash(f"phase {phase}") if per_step
+          else contextlib.nullcontext()):
         one()                                  # warm-up
     fa.launches = fa.tc_launches = tr.launches = 0
     drops: list = []
@@ -1576,9 +1690,10 @@ def phase_train(torch, card, total_mem, tr, flags=TRAIN_FLAGS,
           f"{[round(x, 3) for x in norms]}")
     print(f"training step ms (median of 5, {card}): {step_ms:.1f} (runs "
           f"{[round(t, 1) for t in steps[1:]]}; warm-up {steps[0]:.1f}); "
-          f"flash launches {launches} over 5 steps ({launches // 5} a step "
-          f"= 2 x {layers} layers; {tc_launches} of them the tensor-"
-          f"core kernel's); tree_reduce_slots launches "
+          f"flash launches {launches} over 5 steps ({launches // 5} a step,"
+          f" {per_step} by flash_per_call; {tc_launches} of them the "
+          f"tensor-core kernel's); "
+          f"tree_reduce_slots launches "
           f"{folds} ({folds // 5} a step); peak device memory "
           f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}"
           + (f"; the MoE dropped {int(sum(d for d, _ in drops))} of "
@@ -1588,9 +1703,8 @@ def phase_train(torch, card, total_mem, tr, flags=TRAIN_FLAGS,
     check(all(map(math.isfinite, losses)), f"a loss is not finite: {losses}")
     check(losses[5] < losses[1], f"step 5 loss {losses[5]} is not below "
           f"step 1 loss {losses[1]}")
-    per_step = 2 * layers
     check(launches == 5 * per_step, f"flash launches {launches} over 5 "
-          f"steps, want {5 * per_step} (2 a layer a step)")
+          f"steps, want {5 * per_step} ({per_step} a step)")
     check(tc_launches == launches, f"{launches - tc_launches} of the step's "
           "flash launches missed the tensor-core kernel")
     check(folds > 0, "the step's reduction launched no tree_reduce_slots")
@@ -1640,8 +1754,7 @@ def phase_train(torch, card, total_mem, tr, flags=TRAIN_FLAGS,
 
     # -- the plain attention patched in, at COMPARE_LAYERS ------------------
     def compare_step(plain):
-        r = launch.setup(flags, n_layers=COMPARE_LAYERS,
-                         dtype=torch.bfloat16)
+        r = launch.setup(flags, **depth(COMPARE_LAYERS))
         if not plain:
             return r.train_step()
         before = fa.launches
@@ -3580,40 +3693,43 @@ def served_at_defaults(torch, card, arch: str, seed: int) -> None:
     """``launch.serve --arch ARCH`` at the reference's defaults (8
     requests, ``SERVER_SLOTS`` slots, ``max_len`` ``SERVER_MAX_LEN``,
     ``max_new`` 16), the flash counter set to 0 just before and read just
-    after: one launch a layer a decode call, all on the tensor cores, each
-    launch's shape recorded (``path_flash``)."""
+    after: ``flash_per_call(cfg, "decode")`` launches a decode call, all
+    on the tensor cores, each launch's shape recorded (``path_flash``)."""
     import io
 
     from repro_torch import configs
     from repro_torch.kernels import flash_attn as fa
     from repro_torch.launch import serve as launch_serve
-    from repro_torch.models import transformer
+    from repro_torch.models import registry
 
     cfg = configs.load(arch).CONFIG
+    family = registry._FAMILIES[cfg.family]
+    per_call = flash_per_call(cfg, "decode")
     calls = []
-    real_decode = transformer.decode_step
+    real_decode = family.decode_step
 
     def counting_decode(*a, **k):
         calls.append(1)
         return real_decode(*a, **k)
     buf = io.StringIO()
     fa.launches = fa.tc_launches = 0
-    with mock.patch.object(transformer, "decode_step", counting_decode), \
+    with mock.patch.object(family, "decode_step", counting_decode), \
             contextlib.redirect_stdout(buf), \
-            path_flash(f"launch.serve --arch {arch}"):
+            (path_flash(f"launch.serve --arch {arch}") if per_call
+             else contextlib.nullcontext()):
         reqs = launch_serve.main(["--arch", arch, "--seed", str(seed)])
     torch.cuda.synchronize()
     served = (fa.launches, fa.tc_launches)
     print(buf.getvalue(), end="")
-    check(served[0] == served[1] == cfg.n_layers * len(calls) and calls,
+    check(served[0] == served[1] == per_call * len(calls) and calls,
           f"launch.serve --arch {arch}: flash launches {served} for "
-          f"{len(calls)} decode calls of {cfg.n_layers} layers")
+          f"{len(calls)} decode calls of {per_call}")
     check(len(reqs) == 8 and all(r.done and len(r.out) == 16 for r in reqs)
           and all(0 <= t < cfg.vocab for r in reqs for t in r.out),
           f"launch.serve --arch {arch} did not finish its requests")
     print(f"launch.serve --arch {arch} ({cfg.n_layers} layers, bf16, "
           f"{card}): {len(calls)} decode calls, flash launches {served[0]} "
-          f"({served[1]} tensor-core) = {cfg.n_layers} a call")
+          f"({served[1]} tensor-core) = {per_call} a call")
     del reqs
     torch.cuda.empty_cache()
 
@@ -3916,6 +4032,146 @@ def phase_vlm_serve(torch, card, total_mem, seed) -> dict:
     return got
 
 
+def phase_whisper_serve(torch, card, total_mem, seed) -> dict:
+    """Phase 26: whisper-medium served at all 24 + 24 layers (module
+    docstring, item 26)."""
+    from repro_torch import tree
+    from repro_torch.configs import whisper_medium as wsp
+    from repro_torch.data import pipeline
+    from repro_torch.models.registry import get_model
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = wsp.CONFIG
+    served_at_defaults(torch, card, "whisper-medium", seed)
+
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 26)
+    t0 = time.perf_counter()
+    params = layerwise_params(model, gen)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree.flatten(params)[0])
+    print(f"whisper-medium at published widths and all {cfg.encoder_layers}"
+          f" + {cfg.n_layers} layers: {nbytes / 1e9:.2f} GB of bf16 "
+          f"parameters, drawn a layer at a time in "
+          f"{time.perf_counter() - t0:.1f} s")
+    stream = pipeline.synthetic_batches(
+        cfg, WSP_SERVE_B, WSP_SERVE_PROMPT, seed=seed, train=False,
+        device="cuda", prefetch=False)
+    batch = next(stream)
+    frames = batch["enc_frames"]
+    check(frames.dtype == torch.float32 and frames.shape == (
+        WSP_SERVE_B, cfg.encoder_tokens, cfg.d_model),
+        f"enc_frames {frames.dtype} {tuple(frames.shape)}")
+    got = serve_at_scale(torch, card, total_mem, model, params,
+                         batch["tokens"], WSP_SERVE_CACHE, WSP_SERVE_STEPS,
+                         "whisper-medium serving",
+                         extra={"enc_frames": frames},
+                         grown={"dec": ("k", "v")})
+    # the cross-attention reads the frames: other frames (the stream's
+    # next draw) move the last prefill logits by more than the
+    # kernel-vs-plain tolerance
+    other = next(stream)["enc_frames"]
+    with torch.inference_mode():
+        moved_logits, _ = model.prefill(params, {"tokens": batch["tokens"],
+                                                 "enc_frames": other})
+    scale = float(got["logits"][0].abs().max())
+    moved = float((moved_logits[:, -1].float() - got["logits"][0]).abs().max())
+    check(moved > SERVE_LOGIT_TOL * scale, f"whisper: other frames move the "
+          f"logits by {moved}, within {SERVE_LOGIT_TOL} of {scale}")
+    print(f"whisper-medium: other frames move the last prefill logits by up "
+          f"to {moved:.3f}, {moved / scale:.3e} of max|logit| {scale:.3f} "
+          f"(the kernel-vs-plain tolerance is {SERVE_LOGIT_TOL}; the kernel "
+          f"run's own worst {got['worst']:.3e})")
+    del params, batch, frames, other, moved_logits, got["logits"]
+    torch.cuda.empty_cache()
+    print(f"phase 26: phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return got
+
+
+def phase_mamba_serve(torch, card, total_mem, seed) -> dict:
+    """Phase 28: mamba2-370m served at all 48 layers (module docstring,
+    item 28)."""
+    from repro_torch import tree
+    from repro_torch.configs import mamba2_370m as mamba
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.models.registry import get_model
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    served_at_defaults(torch, card, "mamba2-370m", seed)
+
+    # -- (b) fp32: the chunked prefill against the recurrent feed -----------
+    cfg = mamba.CONFIG.scaled(dtype=torch.float32,
+                              n_layers=MAMBA_FEED_LAYERS)
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 28)
+    params = model.init(gen)
+    toks = torch.randint(0, cfg.vocab, (MAMBA_FEED_B, MAMBA_FEED_PROMPT),
+                         generator=gen, device="cuda")
+    check(MAMBA_FEED_PROMPT % cfg.ssm_chunk == 0, "the prompt is not whole "
+          "chunks")
+    fa.launches = 0
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunked, cp = model.prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        cache = model.init_cache(MAMBA_FEED_B, 0, device="cuda")
+        t0 = time.perf_counter()
+        for t in range(MAMBA_FEED_PROMPT):
+            fed, cache = model.decode(params, toks[:, t:t + 1], cache)
+        torch.cuda.synchronize()
+        feed_ms = (time.perf_counter() - t0) * 1e3
+    rel = float((chunked[:, -1] - fed[:, -1]).abs().max()
+                / chunked.abs().max())
+    srel = max(float((cache["layers"][k] - cp["layers"][k]).abs().max()
+                     / cp["layers"][k].abs().max()) for k in cp["layers"])
+    check(fa.launches == 0, f"mamba2 launched flash {fa.launches} times")
+    check(cp["pos"] == cache["pos"] == MAMBA_FEED_PROMPT,
+          f"mamba2 positions {cp['pos']} {cache['pos']}")
+    check(rel <= MAMBA_FEED_TOL, f"mamba2 chunked vs recurrent: {rel}")
+    state = sum(t[:, 0].numel() * t.element_size()
+                for t in cache["layers"].values())
+    print(f"mamba2-370m fp32 at published widths, {cfg.n_layers} of "
+          f"{mamba.CONFIG.n_layers} layers: chunked prefill "
+          f"of {MAMBA_FEED_B} x {MAMBA_FEED_PROMPT} ({pre_ms:.1f} ms) against "
+          f"the same tokens fed one at a time through decode_step "
+          f"({MAMBA_FEED_PROMPT} recurrent steps, {feed_ms:.0f} ms): last "
+          f"logits within {rel:.3e} of max|logit| (tolerance "
+          f"{MAMBA_FEED_TOL}), states within {srel:.3e} of their largest; "
+          f"decode state {state // cfg.n_layers} bytes a layer a sequence "
+          f"in fp32, whatever its length  [{card}]")
+    del params, toks, chunked, cp, cache, fed
+    torch.cuda.empty_cache()
+
+    # -- (c) bf16 at a batch of 16: prefill and lockstep decode -------------
+    cfg = mamba.CONFIG
+    model = get_model(cfg)
+    params = layerwise_params(model, gen)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree.flatten(params)[0])
+    state = sum(t[:, 0].numel() * t.element_size() for t in
+                model.init_cache(1, 0, device="meta")["layers"].values())
+    print(f"mamba2-370m bf16 at all {cfg.n_layers} layers: {nbytes / 1e9:.3f}"
+          f" GB of parameters (A_log, D and dt_bias fp32); decode state "
+          f"{state} bytes a sequence (conv windows bf16, SSM state fp32)")
+    prompts = torch.randint(0, cfg.vocab, (MAMBA_SERVE_B,
+                                           MAMBA_SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    got = serve_at_scale(torch, card, total_mem, model, params, prompts,
+                         MAMBA_SERVE_PROMPT, MAMBA_SERVE_STEPS,
+                         "mamba2-370m serving", grown={})
+    del params, prompts, got["logits"]
+    torch.cuda.empty_cache()
+    print(f"phase 28: phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return got
+
+
 def plain_attention(q, k, v, *, causal=True, scale=None, attn_cap=0.0,
                     window=0, q_offset=0, kv_len=None):
     """``ops.attention``'s signature over the plain version (no kernel)."""
@@ -3952,7 +4208,7 @@ def routing(base, calls: list, replay: list | None = None,
 def serve_at_scale(torch, card, total_mem, model, params, prompts,
                    cache_len: int, steps: int, label: str, *,
                    feed=None, routes=None, extra=None,
-                   fp32_launches: int = 0) -> dict:
+                   fp32_launches: int = 0, grown=None) -> dict:
     """Prefill ``prompts`` (``(B, S)`` on the card), grow the cache to
     ``cache_len`` positions, then ``steps`` lockstep greedy decode steps,
     the flash counter read around each (one launch a layer a step, all on
@@ -3966,16 +4222,22 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
     plain run would have made are counted.  ``feed`` and ``routes`` force
     the kernel run's tokens and expert choices too.  ``extra`` joins the
     prompts in the prefill's batch (the VLM's ``vision_embeds``), and
-    ``fp32_launches`` of a call's launches a layer go to the fp32 kernel
-    (the VLM's cross layers over fp32 K/V); the cross entry of the cache
-    keeps its length.  Prints the median prefill (of 3) and decode step
-    times, the peak and a profile of one decode step; returns the figures
-    and the kernel run's step logits, tokens and expert choices."""
+    ``fp32_launches`` of a call's launches go to the fp32 kernel (the
+    VLM's cross layers over fp32 K/V).  The flash launches a call are
+    ``flash_per_call``'s.  ``grown`` names the cache entries and their
+    tensors that grow along dim 2 (whisper's self ``k``/``v``, not its
+    cross K/V over the encoder's keys; none of mamba2's state); by
+    default every entry but the VLM's cross one.  Prints the median
+    prefill (of 3) and decode step times, the peak and a profile of one
+    decode step; returns the figures and the kernel run's step logits,
+    tokens and expert choices."""
     from repro_torch.kernels import flash_attn as fa
     from repro_torch.kernels import ops
     from repro_torch.models import base
 
     layers = model.cfg.n_layers
+    per_step = flash_per_call(model.cfg, "decode")
+    per_prefill = flash_per_call(model.cfg, "prefill")
     b, s = prompts.shape
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3984,9 +4246,11 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
 
     def grow(cache):
         pad = cache_len - s
-        for name in set(cache) - {"pos", "cross"}:
-            cache[name] = {k: torch.cat([v, v.new_zeros(
-                v.shape[:2] + (pad,) + v.shape[3:])], 2)
+        names = grown if grown is not None else {
+            name: tuple(cache[name]) for name in set(cache) - {"pos", "cross"}}
+        for name, keys in names.items():
+            cache[name] = {k: (torch.cat([v, v.new_zeros(
+                v.shape[:2] + (pad,) + v.shape[3:])], 2) if k in keys else v)
                 for k, v in cache[name].items()}
         return cache
 
@@ -4018,13 +4282,15 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
     kern_routes, kern_flips, flips = [], [0, 0], [0, 0]
     fa.launches = fa.tc_launches = 0
     with (routing(base, kern_routes, routes, kern_flips) if moe
-          else contextlib.nullcontext()), path_flash(label):
+          else contextlib.nullcontext()), \
+            (path_flash(label) if per_step else contextlib.nullcontext()):
         kern = run(feed)
     kern_launches = fa.launches
-    check(all(n == layers for n in kern["launches"]),
-          f"{label}: decode steps launched flash {kern['launches']} times")
-    check(kern_launches == layers * (steps + 1)
-          and fa.tc_launches == (layers - fp32_launches) * (steps + 1),
+    check(all(n == per_step for n in kern["launches"]),
+          f"{label}: decode steps launched flash {kern['launches']} times, "
+          f"want {per_step} each")
+    check(kern_launches == per_prefill + per_step * steps
+          and fa.tc_launches == kern_launches - fp32_launches * (steps + 1),
           f"{label}: flash launches {kern_launches} ({fa.tc_launches} "
           f"tensor-core, want {fp32_launches} a call on the CUDA cores)")
     check(kern["pos"] == s + steps, f"{label}: pos {kern['pos']}")
@@ -4045,7 +4311,7 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
             model.decode(params, tok, cache)     # rewrites one position
     phase_profile(torch, one_step, card,
                   f"one decode step ({label}: {b} rows, {layers} layers, "
-                  f"kv_len {s + steps + 1})")
+                  f"at position {s + steps})")
     del cache
     fa.launches = 0
     with mock.patch.object(ops, "attention", plain_attention), \
@@ -4068,7 +4334,8 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
           f"; decode step ms (median of {steps}) {dec_ms:.2f} (first "
           f"{kern['step_ms'][0]:.2f}, last {kern['step_ms'][-1]:.2f}); "
           f"{b * 1e3 / dec_ms:.1f} tok/s decoding; flash launches "
-          f"{kern_launches} ({layers} a step"
+          f"{kern_launches} ({per_prefill} in the prefill, {per_step} a "
+          f"step"
           + (f", {fp32_launches} of them fp32 on the CUDA cores"
              if fp32_launches else "")
           + f"); peak {peak / 2**30:.2f} GiB "
@@ -4811,6 +5078,13 @@ def main() -> int:
                 DEEPSEEK_TRAIN_LAYERS, phase=22)
     phase_deepseek_serve(torch, card, total_mem, args.seed)
     phase_vlm_serve(torch, card, total_mem, args.seed)
+    # -- the encoder-decoder and the attention-free model --------------------
+    phase_train(torch, card, total_mem, tr, WHISPER_TRAIN_FLAGS,
+                WHISPER_TRAIN_LAYERS, phase=25)
+    phase_whisper_serve(torch, card, total_mem, args.seed)
+    phase_train(torch, card, total_mem, tr, MAMBA_TRAIN_FLAGS,
+                MAMBA_TRAIN_LAYERS, phase=27)
+    phase_mamba_serve(torch, card, total_mem, args.seed)
     check_path_flash(torch)
     launches["flash_attention"] = trained["launches"]
     figures["flash_attention"] = flash_figures(

@@ -18,9 +18,11 @@ whose fp32 weights would not fit beside their cast (deepseek-v2-lite at
 hands its fp32 parameters to a bf16 model, whose decode then fails on a
 mixed-dtype layer carry, so it serves only ``--smoke``.  ``--arch`` takes
 every ported config: tinyllama-1.1b, gemma2-2b, gemma2-27b, granite-20b,
-qwen3-moe-235b-a22b, deepseek-v2-lite-16b (the MLA cache) and
-llama-3.2-vision-90b (decoding against the zero cross-attention cache,
-as the reference's server does: it passes no vision embeddings).  ``--fake-devices`` has no counterpart: the
+qwen3-moe-235b-a22b, deepseek-v2-lite-16b (the MLA cache),
+llama-3.2-vision-90b and whisper-medium (both decoding against the zero
+cross-attention cache, as the reference's server does: it passes no
+vision embeddings or frames) and mamba2-370m (its conv and SSM state,
+every lane stepped in lockstep, as the reference's server steps it).  ``--fake-devices`` has no counterpart: the
 server runs on one device.
 """
 from __future__ import annotations

@@ -18,8 +18,10 @@ none) or, for tests, on the CPU (``--device cpu``).  Examples::
 
 ``--arch`` takes every ported config: tinyllama-1.1b (the default),
 gemma2-2b, gemma2-27b, granite-20b, qwen3-moe-235b-a22b,
-deepseek-v2-lite-16b and llama-3.2-vision-90b (whose batches carry the
-pipeline's fp32 ``vision_embeds``)::
+deepseek-v2-lite-16b, llama-3.2-vision-90b (whose batches carry the
+pipeline's fp32 ``vision_embeds``), whisper-medium (fp32 ``enc_frames``;
+its SMOKE table holds 64 decoder positions, so ``--smoke`` wants
+``--seq`` of at most 64, as the reference does) and mamba2-370m::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
         --smoke --steps 2 --mesh 2x4x1 --device cpu

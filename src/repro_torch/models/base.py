@@ -1,13 +1,12 @@
 """The shared model configuration and the layer library.
 
-The port of ``repro/models/base.py`` for the GQA transformer's train
-forward and its serving steps: ``ModelConfig``, RMSNorm, RoPE,
-soft-capping, remat, attention (dense and chunked online-softmax on the
-CPU, the flash kernel on the card, masked decode over a KV cache on
-both; windows and tanh caps), the GQA block with its q/k norms and cache
-write, SwiGLU, the MoE block (``moe_block`` and its dispatch) and
-cross-entropy.  ``layernorm`` and ``gelu_mlp`` wait for their families
-(ROADMAP queue 1 item 14).
+The port of ``repro/models/base.py``: ``ModelConfig``, RMSNorm,
+LayerNorm with a bias, RoPE, soft-capping, remat, attention (dense and
+chunked online-softmax on the CPU, the flash kernel on the card, masked
+decode over a KV cache on both; windows and tanh caps), the GQA block
+with its q/k norms, cache write and precomputed cross-attention K/V
+(``kv_override``), SwiGLU, the tanh-GELU MLP with biases, the MoE block
+(``moe_block`` and its dispatch) and cross-entropy.
 
 Rank axes.  The port runs every emulated rank in one process, so a
 weight may carry the mesh's rank axes in front, ``(*R, *shape)``, with
@@ -155,6 +154,17 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
     return (x * (1.0 + _lift(w, x).float())).to(dt)
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm in fp32 with weight and bias, back in ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * _lift(w, x).float() + _lift(b, x).float()).to(dt)
 
 
 def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
@@ -379,26 +389,29 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     returned ``(k, v)`` are the cache's own tensors: the caller's cache is
     consumed, as the reference's is under donation.  ``pos_offset`` is
     the rotary position of the first token (``pos`` when decoding).
-    ``kv_override`` (whisper's decoder cross-attention over precomputed
-    K/V) is not ported; the VLM's cross layers have their own block
-    (``transformer._cross_layer``).
+    ``kv_override`` supplies precomputed ``(k, v)`` ``(*R, B, T, KV, hd)``
+    for cross-attention: neither the queries nor those keys get rope, only
+    the queries the q/k norm, and (without a cache) the queries attend
+    over them non-causally.  The reference's models call it with no
+    override (whisper and the VLM have their own cross blocks).
     """
-    if kv_override is not None:
-        raise NotImplementedError(
-            "gqa_attention(kv_override=): whisper's cross-attention is not "
-            "ported: ROADMAP queue 1 item 14")
     *lead, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = mm(x, p["wq"]).reshape(*lead, s, h, hd)
-    kk = mm(x, p["wk"]).reshape(*lead, s, kv, hd)
-    vv = mm(x, p["wv"]).reshape(*lead, s, kv, hd)
+    if kv_override is None:
+        kk = mm(x, p["wk"]).reshape(*lead, s, kv, hd)
+        vv = mm(x, p["wv"]).reshape(*lead, s, kv, hd)
+    else:
+        kk, vv = kv_override
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        kk = rmsnorm(kk, p["k_norm"], cfg.norm_eps)
-    pos0 = pos_offset if pos_offset is not None else 0
-    pos = pos0 + torch.arange(s, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    kk = apply_rope(kk, pos, cfg.rope_theta)
+        if kv_override is None:
+            kk = rmsnorm(kk, p["k_norm"], cfg.norm_eps)
+    if kv_override is None:
+        pos0 = pos_offset if pos_offset is not None else 0
+        pos = pos0 + torch.arange(s, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        kk = apply_rope(kk, pos, cfg.rope_theta)
     if cache is not None:
         if len(lead) != 1:
             raise ValueError(f"a KV cache takes (B, S, D) activations, got "
@@ -411,8 +424,10 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                      attn_cap=cfg.attn_softcap)
         newkv = (cache["k"], cache["v"])
     else:
-        out = attend(q.reshape(-1, s, h, hd), kk.reshape(-1, s, kv, hd),
-                     vv.reshape(-1, s, kv, hd), causal=causal, window=window,
+        out = attend(q.reshape(-1, s, h, hd),
+                     kk.reshape(-1, *kk.shape[-3:]),
+                     vv.reshape(-1, *vv.shape[-3:]),
+                     causal=causal and kv_override is None, window=window,
                      attn_cap=cfg.attn_softcap, chunk=cfg.attn_chunk)
         newkv = (kk, vv)
     return mm(out.reshape(*lead, s, h * hd), p["wo"]), newkv
@@ -424,6 +439,15 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 
 def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     return mm(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]), p["w_down"])
+
+
+def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """``gelu(x·w_up + b_up)·w_down + b_down`` with ``jax.nn.gelu``'s
+    default, the tanh approximation."""
+    up = mm(x, p["w_up"])
+    h = F.gelu(up + _lift(p["b_up"], up), approximate="tanh")
+    out = mm(h, p["w_down"])
+    return out + _lift(p["b_down"], out)
 
 
 def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

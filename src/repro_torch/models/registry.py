@@ -1,8 +1,9 @@
 """Family → model-function dispatch.
 
-The port of ``repro/models/registry.py`` for the ``"dense"``, ``"moe"``
-and ``"vlm"`` families (training and serving, all through
-``transformer``); ``"ssm"``, ``"hybrid"`` and ``"audio"`` raise.  ``init`` takes
+The port of ``repro/models/registry.py``: the ``"dense"``, ``"moe"`` and
+``"vlm"`` families through ``transformer``, ``"audio"`` through
+``whisper`` and ``"ssm"`` through ``mamba2`` (training and serving);
+``"hybrid"`` (zamba2) raises.  ``init`` takes
 a ``torch.Generator`` (on the device the parameters should live on) where
 the reference takes a ``jax.random`` key, and ``init_cache`` also takes
 the ``device`` its cache should live on.
@@ -12,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, transformer, whisper
 from repro_torch.models.base import ModelConfig
 
 @dataclasses.dataclass(frozen=True)
@@ -28,7 +29,8 @@ class Model:
 
 
 _FAMILIES: dict[str, Any] = {"dense": transformer, "moe": transformer,
-                             "vlm": transformer}
+                             "vlm": transformer, "ssm": mamba2,
+                             "audio": whisper}
 
 
 def get_model(cfg: ModelConfig) -> Model:
@@ -36,7 +38,7 @@ def get_model(cfg: ModelConfig) -> Model:
     if mod is None:
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.name}) is not ported: "
-            "ROADMAP queue 1 item 14 (the other families)")
+            "ROADMAP queue 1 item 14 (zamba2's hybrid family)")
     return Model(
         cfg=cfg,
         init=lambda gen, **kw: mod.init_params(cfg, gen, **kw),

@@ -200,16 +200,23 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     _check_ported(cfg)
     params = cast(init_top(cfg, gen))
     for stack in stacks(cfg):
-        first = cast(init_layer(cfg, gen, stack))
-        out = tree.map_leaves(
-            lambda t: t.new_empty((stack.n, *t.shape[1:])), first)
-        for i in range(stack.n):
-            layer = first if i == 0 else cast(init_layer(cfg, gen, stack))
-            for dst, src in zip(tree.flatten(out)[0], tree.flatten(layer)[0]):
-                dst[i].copy_(src[0])
-            del layer
-        params[stack.name] = out
+        params[stack.name] = draw_stack(
+            stack.n, lambda stack=stack: init_layer(cfg, gen, stack), cast)
     return params
+
+
+def draw_stack(n: int, draw: Callable, cast: Callable) -> dict:
+    """``n`` layers stacked on a leading axis: each one ``draw()`` (a
+    layer on a leading axis of 1), ``cast`` as it is drawn and copied into
+    the stack, so that no uncast stack is ever whole."""
+    first = cast(draw())
+    out = tree.map_leaves(lambda t: t.new_empty((n, *t.shape[1:])), first)
+    for i in range(n):
+        layer = first if i == 0 else cast(draw())
+        for dst, src in zip(tree.flatten(out)[0], tree.flatten(layer)[0]):
+            dst[i].copy_(src[0])
+        del layer
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -616,6 +616,43 @@ def test_flash_function_gradient_matches_plain_autograd_on_cuda(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,h,kv,dtype", [
+    (300, 1500, 4, 2, "float32"), (1500, 300, 4, 2, "float32"),
+    (300, 1500, 16, 16, "bfloat16")])
+def test_flash_function_gradient_at_sq_ne_sk_matches_plain_autograd_on_cuda(
+        cuda, sq, sk, h, kv, dtype):
+    """Non-causal attention with ``Sq != Sk`` under training, as
+    whisper's cross-attention runs it (its decoder queries over 1500
+    encoder keys): the kernel's autograd Function (plain chunked
+    backward) against autograd through the plain forward.  Neither 300
+    nor 1500 is a multiple of the kernel's 128-row query block or its key
+    tile, so both ragged tails are live.  fp32 at GQA 4/2 within 1e-4 (the
+    sibling's bound); bf16 on the tensor-core kernel at whisper's 16
+    heads, hd 64, each gradient within 2e-2 of its largest (bf16)."""
+    dt = getattr(torch, dtype)
+    q = torch.randn((2, sq, h, 64), generator=cuda, device="cuda").to(dt)
+    k, v = (torch.randn((2, sk, kv, 64), generator=cuda, device="cuda")
+            .to(dt) for _ in range(2))
+    do = torch.randn((2, sq, h, 64), generator=cuda, device="cuda").to(dt)
+    before = (fa.launches, fa.tc_launches)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.attention(*ins, causal=False)
+    got = torch.autograd.grad(out, ins, do)
+    assert (fa.launches - before[0], fa.tc_launches - before[1]) == (
+        1, int(dt == torch.bfloat16))
+    pins = [t.clone().requires_grad_() for t in (q, k, v)]
+    pout, _ = ref.flash_attention_bshd(*pins, causal=False)
+    want = torch.autograd.grad(pout, pins, do)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dt
+        err = float((g.float() - w.float()).abs().max())
+        if dt == torch.float32:
+            assert err <= 1e-4
+        else:
+            assert err <= 2e-2 * float(w.float().abs().max())
+
+
+@pytest.mark.cuda
 def test_flash_fp32_kernel_at_hd_128_matches_plain_on_cuda(cuda):
     """The CUDA-core kernel at (128, 128), two threads a query row: causal
     and not, ``Sq != Sk``, GQA 8/8 and 8/1, cap 0 and 30, window 0 and 64,
@@ -981,5 +1018,50 @@ def test_new_models_decode_on_cuda_matches_cpu(cuda, arch):
                 outs.append(logits)
         runs[dev] = (torch.cat(outs, 1).cpu(), fa.launches)
     assert runs["cuda"][1] == cfg.n_layers * 9 and runs["cpu"][1] == 0
+    got, want = runs["cuda"][0], runs["cpu"][0]
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-medium", "mamba2-370m"])
+def test_whisper_and_mamba2_decode_on_cuda_matches_cpu(cuda, arch):
+    """whisper's and mamba2's SMOKE configs (fp32): a prefill of 32 (with
+    whisper's frames; mamba2's chunked SSD), whisper's self K/V grown by
+    8, then 8 decode steps on the card against the CPU.  Whisper launches
+    flash in every encoder layer and twice a decoder layer (self, cross)
+    in the prefill, twice a decoder layer a step after it; mamba2 never.
+    Logits within 1e-4 of max|logit|."""
+    from repro_torch import configs
+    from repro_torch.models.registry import get_model
+    cfg = configs.load(arch).SMOKE.scaled(dtype=torch.float32)
+    model = get_model(cfg)
+    full = model.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (4, 40), generator=g)
+    batch = {"tokens": toks[:, :32]}
+    if cfg.family == "audio":
+        batch["enc_frames"] = torch.randn(
+            (4, cfg.encoder_tokens, cfg.d_model), generator=g) * 0.1
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = tree.map_leaves(lambda t: t.to(dev), full)
+        fa.launches = 0
+        with torch.inference_mode():
+            logits, cache = model.prefill(
+                p, {k: v.to(dev) for k, v in batch.items()})
+            if "dec" in cache:
+                for k in ("k", "v"):
+                    v = cache["dec"][k]
+                    cache["dec"][k] = torch.cat(
+                        [v, torch.zeros_like(v[:, :, :8])], 2)
+            outs = [logits]
+            for t in range(32, 40):
+                logits, cache = model.decode(p, toks[:, t:t + 1].to(dev),
+                                             cache)
+                outs.append(logits)
+        runs[dev] = (torch.cat(outs, 1).cpu(), fa.launches)
+    want_launches = (cfg.encoder_layers + 2 * cfg.n_layers * 9
+                     if cfg.family == "audio" else 0)
+    assert runs["cuda"][1] == want_launches and runs["cpu"][1] == 0
     got, want = runs["cuda"][0], runs["cpu"][0]
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

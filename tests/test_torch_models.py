@@ -190,25 +190,27 @@ def test_gemma2_window_hides_keys_and_chunked_attention_matches():
 
 
 def test_unported_variants_and_families_name_their_item():
-    """What is left of ROADMAP queue 1 item 14: whisper, mamba2 and
-    zamba2, their families, and whisper's ``kv_override``
-    cross-attention; the VLM's family is taken."""
+    """What is left of ROADMAP queue 1 items 14 and 16: zamba2 and its
+    hybrid family (the config and the model), and tensor parallelism
+    over ``model`` (the train step and the launcher); whisper's audio,
+    mamba2's ssm and the VLM's families are taken."""
     cfg = configs.load("tinyllama-1.1b").SMOKE
     gen = torch.Generator().manual_seed(0)
-    for family in ("ssm", "hybrid", "audio"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            get_model(cfg.scaled(family=family))
-        with pytest.raises(NotImplementedError, match="item 14"):
-            transformer.init_params(cfg.scaled(family=family), gen)
-    for arch in ("whisper-medium", "mamba2-370m", "zamba2-1.2b"):
+    with pytest.raises(NotImplementedError, match="item 14"):
+        get_model(cfg.scaled(family="hybrid"))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        transformer.init_params(cfg.scaled(family="hybrid"), gen)
+    for arch in ("zamba2-1.2b", "zamba2_1_2b"):
         with pytest.raises(NotImplementedError, match="item 14"):
             configs.load(arch)
-    x = torch.zeros((1, 4, cfg.d_model))
-    p = tree.map_leaves(lambda t: t[0], transformer.init_params(
-        cfg, gen)["layers"]["attn"])
-    with pytest.raises(NotImplementedError, match="whisper.*item 14"):
-        base.gqa_attention(cfg, p, x, kv_override=(x, x))
-    assert get_model(cfg.scaled(family="vlm")).cfg.family == "vlm"
+    mcfg = rules.MeshCfg(("data", "model"), (4, 2))
+    with pytest.raises(NotImplementedError, match="item 16"):
+        trainer.make_train_step(get_model(cfg), mcfg, trainer.TrainConfig(),
+                                get_model(cfg).init(gen))
+    with pytest.raises(NotImplementedError, match="item 16"):
+        launch_train.setup(["--smoke", "--device", "cpu", "--mesh", "4x2"])
+    for family in ("vlm", "audio", "ssm"):
+        assert get_model(cfg.scaled(family=family)).cfg.family == family
 
 
 # ---------------------------------------------------------------------------
