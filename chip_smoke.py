@@ -91,15 +91,18 @@
    its encoder over 1500 frames, not causal, its causal decoder, its
    cross-attention of the decoder's queries over the 1500 encoder keys,
    not causal, the masked self decode and the cross decode, and the slot
-   server's), granite-20b's 48 query heads on one KV
+   server's; zamba2's shared block, 32 MHA heads × 64, in its train
+   step, prefill, decode and slot server; TinyLlama's train step on
+   ``2x2x2``, a model rank's 16 heads over 2 KV heads, all 8 ranks'
+   rows in one launch), granite-20b's 48 query heads on one KV
    head, gemma2's window where it hides most keys (``Sq = Sk = 8192``)
    and its masked decode at ``kv_len`` 6144.  Each is one launch (bf16
    on the tensor cores, fp32 on the CUDA cores) held against the plain
    version at every batch row, timed beside its bound and
    ``scaled_dot_product_attention`` in the same dtype with the same
    boolean mask (no cap: SDPA takes none); where the window hides a key,
-   the plain version without it differs.  After phase 28 every launch
-   that phases 9 and 18–28 recorded must have its case here.
+   the plain version without it differs.  After phase 31 every launch
+   that phases 9, 18–31 recorded must have its case here.
 8. The wire dense reductions (``WIRE_RUNS``), at the reduction paths'
    model and size: on ``(2, 4)`` the default (the hierarchical schedule,
    rhd levels), ``reproducible=True`` (its fixed-tree variant),
@@ -359,6 +362,36 @@
    bf16 the prefill of ``MAMBA_SERVE_B`` prompts of
    ``MAMBA_SERVE_PROMPT`` and ``MAMBA_SERVE_STEPS`` lockstep decode
    steps, their times and a profile of one step.
+29. zamba2-1.2b's training step, the first hybrid: phase 9's checks with
+   ``ZAMBA_TRAIN_FLAGS`` at ``ZAMBA_TRAIN_LAYERS`` = 30 of 38 layers (5
+   groups of 6 mamba layers, each closed by the shared attention block,
+   whose uses are one leaf's and sum their gradients; 38 do not fit the
+   card): flash once a group
+   a step (``flash_per_call``: the shared block runs outside remat) on
+   the tensor cores, ``tree_reduce_slots`` launched, losses finite and
+   falling, the F3 replay, and one group (``ZAMBA_COMPARE_LAYERS``)
+   against the plain attention.
+30. Serving zamba2-1.2b: ``launch.serve --arch zamba2-1.2b`` at its
+   defaults (6 flash launches a decode call); in fp32 at
+   ``ZAMBA_FEED_LAYERS`` (two groups) the chunked prefill of
+   ``ZAMBA_FEED_B`` prompts of ``ZAMBA_FEED_PROMPT`` against the same
+   tokens fed one at a time through ``decode_step``, the last logits
+   within ``ZAMBA_FEED_TOL`` of max|logit|, the mamba state and the
+   shared block's K/V beside the prefill's; in bf16 at all 38 layers the
+   prefill of ``ZAMBA_SERVE_B`` prompts of ``ZAMBA_SERVE_PROMPT``, the
+   K/V (not the mamba state) grown to ``ZAMBA_SERVE_CACHE``, and
+   ``ZAMBA_SERVE_STEPS`` decode steps against the plain attention.
+31. Tensor and expert parallelism over ``model``: phase 9's checks (the
+   F3 replay among them) with ``TP_TRAIN_FLAGS`` (TinyLlama at 22
+   layers on ``2x2x2``, global batch 4: a model rank's 16 of 32 heads
+   over 2 of 4 KV heads, half the FFN and of the vocabulary), its step
+   time and peak beside ``2x2x1``'s at the same batch; in fp32 two steps
+   of ``2x2x2`` against ``2x2x1`` for TinyLlama at ``COMPARE_LAYERS`` and
+   zamba2 at two groups, losses and gradient norms within
+   ``TP_FP32_TOL``; deepseek-v2-lite's two layers in bf16 (32 experts a
+   model rank), the ``2x2x2`` steps forced on the ``2x2x1`` steps' expert
+   choices (the flips counted), within ``TP_BF16_TOL``, the dropped
+   choices' share equal.
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line
 of kernel figures, and as its last line ``{"ok": true, "device": ...}``.
@@ -575,6 +608,56 @@ MAMBA_FEED_TOL = 1e-3
 #: phase 28: the bf16 decode at a batch of 16: prompt length (chunked),
 #: lockstep decode steps
 MAMBA_SERVE_B, MAMBA_SERVE_PROMPT, MAMBA_SERVE_STEPS = 16, 1024, 32
+#: phase 29: zamba2-1.2b's training step, ``TRAIN_FLAGS`` with its arch.
+#: Depth cut from the published 38 (6 groups of 6 mamba layers, each
+#: closed by the shared block, and a tail of 2) to the deepest whole
+#: number of groups that fits: 5.  The shared block's uses run outside
+#: remat and keep their activations, about 5.8 GB a use for the 8 ranks,
+#: beside the fp32 weights, gradients and both Adam moments that both
+#: pods hold (37.5 GB at 38 layers): 38 layers ran out of the card's
+#: memory in the first forward, 30 peak at 65.87 GiB, and a sixth group
+#: would add about 11 GB (measured on one H100)
+ZAMBA_TRAIN_FLAGS = [*TRAIN_FLAGS, "--arch", "zamba2-1.2b"]
+ZAMBA_TRAIN_LAYERS = 30
+#: phase 29's step against the plain attention: one group (at
+#: ``COMPARE_LAYERS`` zamba2 has no attention to compare)
+ZAMBA_COMPARE_LAYERS = 6
+#: phase 30: zamba2 in fp32 at published widths, two groups deep: the
+#: chunked prefill of ``ZAMBA_FEED_B`` prompts of ``ZAMBA_FEED_PROMPT``
+#: (two chunks) against the same tokens fed one at a time through
+#: ``decode_step``, the last logits within ``ZAMBA_FEED_TOL`` of
+#: max|logit| (``tests/test_models.py::test_prefill_vs_decode_consistency``'s
+#: bound on the reference)
+ZAMBA_FEED_B, ZAMBA_FEED_PROMPT, ZAMBA_FEED_LAYERS = 4, 512, 12
+ZAMBA_FEED_TOL = 2e-3
+#: phase 30: the bf16 serving run at all 38 layers: prompts, prompt
+#: length, the shared block's K/V grown to this many positions, steps
+ZAMBA_SERVE_B, ZAMBA_SERVE_PROMPT, ZAMBA_SERVE_CACHE, ZAMBA_SERVE_STEPS = (
+    16, 1024, 1024 + 32, 32)
+#: phase 30: the kernel run's logits within this share of max|logit| of
+#: the plain-attention run's.  Both are bf16 through 38 mamba layers and
+#: 6 attention blocks, each with its own rounding, so two errors of up to
+#: ``SERVE_LOGIT_TOL`` add to about √2 of it (as ``MLA_ABSORBED_TOL``).
+#: The fp32 witness measures each run's error against the same steps in
+#: fp32 and holds the kernel run's within ``ZAMBA_WITNESS_RATIO`` of the
+#: plain run's: the kernel no less exact than the plain attention
+ZAMBA_SERVE_TOL = math.sqrt(2) * SERVE_LOGIT_TOL
+ZAMBA_WITNESS_RATIO = 1.25
+#: phase 31: tensor parallelism over ``model``: ``TRAIN_FLAGS`` on
+#: ``2x2x2`` (2 pods x 2 data ranks, each split over 2 model ranks) and
+#: on ``2x2x1``, both at a global batch of 4 (one sequence a (pod, data)
+#: rank)
+TP_TRAIN_FLAGS = ["--mesh", "2x2x2", "--batch", "4", *TRAIN_FLAGS[4:]]
+DP_TRAIN_FLAGS = ["--mesh", "2x2x1", "--batch", "4", *TRAIN_FLAGS[4:]]
+#: phase 31: ``2x2x2`` against ``2x2x1`` in fp32: losses and gradient
+#: norms within this share (the CPU tests' bound: fp32 sums in another
+#: order), TinyLlama at ``COMPARE_LAYERS`` and zamba2 at two groups
+TP_FP32_TOL = 1e-5
+ZAMBA_TP_LAYERS = 12
+#: phase 31: deepseek-v2-lite's two layers at ``2x2x2`` (32 experts a
+#: model rank) against ``2x2x1`` in bf16, the ``2x2x2`` step forced on the
+#: ``2x2x1`` step's expert choices: losses and norms within this share
+TP_BF16_TOL = 2e-2
 
 
 def flash_per_call(cfg, kind: str) -> int:
@@ -583,9 +666,12 @@ def flash_per_call(cfg, kind: str) -> int:
     ``decode`` (one step).  A decoder-only layer launches once a call
     (twice a train step); whisper's encoder layer once, its decoder layer
     twice (self, cross), each doubled by the remat in a train step;
-    mamba2 never (attention-free)."""
+    mamba2 never (attention-free); zamba2 once a group in every call (its
+    shared block runs outside remat)."""
     if cfg.family == "ssm":
         return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every
     if cfg.family == "audio":
         return {"train": 2 * (cfg.encoder_layers + 2 * cfg.n_layers),
                 "prefill": cfg.encoder_layers + 2 * cfg.n_layers,
@@ -609,7 +695,7 @@ def flash_case(b, sq, sk, h, kv, hd, cap=0.0, window=0, q_offset=0,
 
 
 #: phase 7's flash cases at the model paths' launches: every launch shape
-#: that phases 9, 18–26 give the kernel (a decode case at its last step's
+#: that phases 9, 18–31 give the kernel (a decode case at its last step's
 #: position, a slot server's at its cache's end; ``path_flash`` records
 #: the paths' launches and ``main`` checks each has its case here), and
 #: three that no path launches on the card: gemma2's window where it
@@ -623,6 +709,7 @@ _SRV = (SERVER_SLOTS, 1, SERVER_MAX_LEN)
 _SRV_MASK = dict(q_offset=SERVER_MAX_LEN - 2, kv_len=SERVER_MAX_LEN - 1)
 _VL = dict(h=64, kv=8, hd=128)
 _WS = dict(h=16, kv=16, hd=64)
+_ZA = dict(h=32, kv=32, hd=64)
 FLASH_MODEL_CASES = {k: flash_case(*v) for k, v in {
     "tinyllama train": (8, 4096, 4096, *_TL, 0, 0, None),
     "tinyllama prefill": (SERVE_B, SERVE_PROMPT, SERVE_PROMPT, *_TL, 0, 0,
@@ -695,7 +782,16 @@ FLASH_MODEL_CASES = {k: flash_case(*v) for k, v in {
                                        causal=False),
     "whisper server decode self": flash_case(*_SRV, **_WS, **_SRV_MASK),
     "whisper server decode cross": flash_case(SERVER_SLOTS, 1, 1500, **_WS,
-                                              causal=False)}
+                                              causal=False),
+    "zamba2 train": flash_case(8, 4096, 4096, **_ZA),
+    "zamba2 prefill": flash_case(ZAMBA_SERVE_B, ZAMBA_SERVE_PROMPT,
+                                 ZAMBA_SERVE_PROMPT, **_ZA),
+    "zamba2 decode": flash_case(
+        ZAMBA_SERVE_B, 1, ZAMBA_SERVE_CACHE, **_ZA,
+        q_offset=ZAMBA_SERVE_PROMPT + ZAMBA_SERVE_STEPS - 1,
+        kv_len=ZAMBA_SERVE_PROMPT + ZAMBA_SERVE_STEPS),
+    "zamba2 server decode": flash_case(*_SRV, **_ZA, **_SRV_MASK),
+    "tinyllama train 2x2x2": flash_case(8, 4096, 4096, 16, 2, 64)}
 #: TinyLlama depth, cut from the published 22: the int8 reduction's peak
 #: is about four times the 8 ranks' fp32 gradient bytes (the caller's
 #: gradients and state, the two packed arenas), and 22 layers of fp32
@@ -1623,10 +1719,11 @@ def counting_drops(drops: list):
 
 
 def phase_train(torch, card, total_mem, tr, flags=TRAIN_FLAGS,
-                layers=TRAIN_LAYERS, phase=9) -> dict:
+                layers=TRAIN_LAYERS, phase=9,
+                compare_layers=COMPARE_LAYERS) -> dict:
     """The training step at full width (the launcher's ``flags``, depth
     ``layers``): checks, time, memory, profile, the F3 replay and the
-    comparison against the plain attention at ``COMPARE_LAYERS``."""
+    comparison against the plain attention at ``compare_layers``."""
     from repro_torch import configs
     from repro_torch import tree
     from repro_torch.core import collectives as coll
@@ -1754,7 +1851,7 @@ def phase_train(torch, card, total_mem, tr, flags=TRAIN_FLAGS,
 
     # -- the plain attention patched in, at COMPARE_LAYERS ------------------
     def compare_step(plain):
-        r = launch.setup(flags, **depth(COMPARE_LAYERS))
+        r = launch.setup(flags, **depth(compare_layers))
         if not plain:
             return r.train_step()
         before = fa.launches
@@ -1770,7 +1867,7 @@ def phase_train(torch, card, total_mem, tr, flags=TRAIN_FLAGS,
            for k in ("loss", "grad_norm")}
     check(all(v <= 2e-2 for v in rel.values()),
           f"kernel step vs plain-attention step: {rel}")
-    print(f"kernel step vs plain-attention step at {COMPARE_LAYERS} layers: "
+    print(f"kernel step vs plain-attention step at {compare_layers} layers: "
           f"loss {float(km['loss']):.5f} vs {float(pm['loss']):.5f}, grad "
           f"norm {float(km['grad_norm']):.5f} vs {float(pm['grad_norm']):.5f}"
           f"; relative {rel['loss']:.2e} and {rel['grad_norm']:.2e} (bf16 "
@@ -4172,6 +4269,272 @@ def phase_mamba_serve(torch, card, total_mem, seed) -> dict:
     return got
 
 
+def phase_zamba_serve(torch, card, total_mem, seed) -> dict:
+    """Phase 30: zamba2-1.2b served (module docstring, item 30)."""
+    from repro_torch import tree
+    from repro_torch.configs import zamba2_1_2b as zamba
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.models.registry import get_model
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    served_at_defaults(torch, card, "zamba2-1.2b", seed)
+
+    # -- (b) fp32: the chunked prefill against the recurrent feed -----------
+    cfg = zamba.CONFIG.scaled(dtype=torch.float32,
+                              n_layers=ZAMBA_FEED_LAYERS)
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+    params = model.init(gen)
+    toks = torch.randint(0, cfg.vocab, (ZAMBA_FEED_B, ZAMBA_FEED_PROMPT),
+                         generator=gen, device="cuda")
+    check(ZAMBA_FEED_PROMPT % cfg.ssm_chunk == 0, "the prompt is not whole "
+          "chunks")
+    groups = flash_per_call(cfg, "decode")
+    fa.launches = 0
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunked, cp = model.prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        pre_launches = fa.launches
+        cache = model.init_cache(ZAMBA_FEED_B, ZAMBA_FEED_PROMPT,
+                                 device="cuda")
+        cache["pos"] = 0
+        t0 = time.perf_counter()
+        for t in range(ZAMBA_FEED_PROMPT):
+            fed, cache = model.decode(params, toks[:, t:t + 1], cache)
+        torch.cuda.synchronize()
+        feed_ms = (time.perf_counter() - t0) * 1e3
+    rel = float((chunked[:, -1] - fed[:, -1]).abs().max()
+                / chunked.abs().max())
+    srel = max(float((cache["mamba"][k] - cp["mamba"][k]).abs().max()
+                     / cp["mamba"][k].abs().max()) for k in cp["mamba"])
+    krel = max(float((cache["attn"][k] - cp["attn"][k]).abs().max()
+                     / cp["attn"][k].abs().max()) for k in cp["attn"])
+    check(pre_launches == groups and fa.launches == groups * (
+        ZAMBA_FEED_PROMPT + 1), f"zamba2 flash launches {pre_launches}, "
+        f"{fa.launches}: want {groups} a call")
+    check(cp["pos"] == cache["pos"] == ZAMBA_FEED_PROMPT,
+          f"zamba2 positions {cp['pos']} {cache['pos']}")
+    check(rel <= ZAMBA_FEED_TOL, f"zamba2 chunked vs recurrent: {rel}")
+    print(f"zamba2-1.2b fp32 at published widths, {cfg.n_layers} of "
+          f"{zamba.CONFIG.n_layers} layers ({groups} groups): chunked "
+          f"prefill of {ZAMBA_FEED_B} x {ZAMBA_FEED_PROMPT} ({pre_ms:.1f} ms)"
+          f" against the same tokens fed one at a time through decode_step "
+          f"({ZAMBA_FEED_PROMPT} recurrent steps, {feed_ms:.0f} ms): last "
+          f"logits within {rel:.3e} of max|logit| (tolerance "
+          f"{ZAMBA_FEED_TOL}), mamba states within {srel:.3e} and the shared"
+          f" block's K/V within {krel:.3e} of their largest; flash "
+          f"{groups} launches a call (fp32, the CUDA cores)  [{card}]")
+    del params, toks, chunked, cp, cache, fed
+    torch.cuda.empty_cache()
+
+    # -- (c) bf16 at all 38 layers: prefill and lockstep decode ------------
+    cfg = zamba.CONFIG
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 300)
+    params = layerwise_params(model, gen)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree.flatten(params)[0])
+    meta = model.init_cache(1, ZAMBA_SERVE_CACHE, device="meta")
+    state = sum(t[:, 0].numel() * t.element_size()
+                for t in meta["mamba"].values())
+    kv = sum(t[:, 0].numel() * t.element_size()
+             for t in meta["attn"].values()) // ZAMBA_SERVE_CACHE
+    print(f"zamba2-1.2b bf16 at all {cfg.n_layers} layers: "
+          f"{nbytes / 1e9:.3f} GB of parameters; a sequence's cache: "
+          f"{state} bytes of mamba state, whatever its length, and "
+          f"{kv} bytes of the shared block's K/V a position "
+          f"({flash_per_call(cfg, 'decode')} groups)")
+    prompts = torch.randint(0, cfg.vocab, (ZAMBA_SERVE_B,
+                                           ZAMBA_SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    got = serve_at_scale(torch, card, total_mem, model, params, prompts,
+                         ZAMBA_SERVE_CACHE, ZAMBA_SERVE_STEPS,
+                         "zamba2-1.2b serving", grown={"attn": ("k", "v")},
+                         tol=ZAMBA_SERVE_TOL)
+    probe = params["layers"]["wz"][-1]
+    del params
+    torch.cuda.empty_cache()
+    zamba_fp32_witness(torch, card, cfg, seed + 300, prompts, got, probe)
+    del prompts, got["logits"], got["plain_logits"]
+    torch.cuda.empty_cache()
+    print(f"phase 30: phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return got
+
+
+def zamba_fp32_witness(torch, card, cfg, seed, prompts, got, probe) -> None:
+    """Phase 30's witness for ``ZAMBA_SERVE_TOL``: the serving run's
+    prefill and decode steps taken again in fp32, on the bf16 run's
+    weights (``seed``'s draw rounded to bf16 and held in fp32: one draw
+    order, so ``probe``, a bf16 leaf of that run, must come out equal),
+    with the plain attention, teacher-forced on the kernel run's tokens.
+    Against it the kernel run's bf16 logits must lie within
+    ``ZAMBA_WITNESS_RATIO`` times the plain run's error (plus 1e-3 of
+    max|logit|): the bf16 pipeline's own error is the mamba stack's, and
+    the kernel may add to it no more than the plain attention does."""
+    from repro_torch import tree
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding import rules
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg.scaled(dtype=torch.float32))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init(gen, cast=lambda t: tree.map_leaves(
+        lambda x: x.float(), rules.cast_params(t, torch.bfloat16)))
+    check(torch.equal(params["layers"]["wz"][-1], probe.float()),
+          "the fp32 witness's weights are not the bf16 run's")
+    pad = ZAMBA_SERVE_CACHE - prompts.shape[1]
+    f32 = []
+    before = fa.launches
+    with torch.inference_mode(), \
+            mock.patch.object(ops, "attention", plain_attention):
+        logits, cache = model.prefill(params, {"tokens": prompts})
+        cache["attn"] = {k: torch.cat([v, v.new_zeros(
+            v.shape[:2] + (pad,) + v.shape[3:])], 2)
+            for k, v in cache["attn"].items()}
+        for tok in got["toks"]:
+            f32.append(logits[:, -1].float())
+            logits, cache = model.decode(params, tok[:, None], cache)
+    torch.cuda.synchronize()
+    check(fa.launches == before, "the fp32 witness launched the kernel")
+    peak = torch.cuda.max_memory_allocated()
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    e_kern, near, mism_k = compare_logits(got["logits"], f32)
+    e_plain, _, mism_p = compare_logits(got["plain_logits"], f32)
+    check(e_kern <= ZAMBA_WITNESS_RATIO * e_plain + 1e-3, f"zamba2 bf16 "
+          f"runs vs fp32: kernel {e_kern}, plain {e_plain}")
+    print(f"zamba2-1.2b fp32 witness ({len(f32)} steps of "
+          f"{prompts.shape[0]} rows after the prefill, {cfg.n_layers} "
+          f"layers, the bf16 run's weights in fp32, plain attention, forced "
+          f"on its tokens; {card}): the kernel run's bf16 logits within "
+          f"{e_kern:.3e} of max|logit|, the plain run's within "
+          f"{e_plain:.3e} (the kernel's within {ZAMBA_WITNESS_RATIO} times "
+          f"the plain's and 1e-3); hypot {math.hypot(e_kern, e_plain):.3e}"
+          f" against the two runs' {got['worst']:.3e} apart (tolerance "
+          f"{ZAMBA_SERVE_TOL:.4g}); greedy tokens differing from fp32 "
+          f"outside its {near} near ties: kernel {mism_k}, plain {mism_p}; "
+          f"peak "
+          f"{peak / 2**30:.2f} GiB; {time.perf_counter() - t0:.1f} s")
+
+
+def steps_of(torch, flags, layers, n, *, dtype=None, record=None,
+             replay=None, drops=None) -> dict:
+    """``n`` steps of the launcher's job (``flags``, depth ``layers``,
+    ``dtype`` the compute dtype, bf16 by default): a warm-up step, then
+    ``n - 1`` timed ones.  ``record`` collects the MoE router's expert
+    choices, ``replay`` forces them (``routing``), ``drops`` collects the
+    dropped choices (``counting_drops``).  Returns the losses, gradient
+    norms, the timed steps' median and the peak."""
+    from repro_torch.launch import train as launch
+    from repro_torch.models import base
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = launch.setup(flags, n_layers=layers,
+                       dtype=dtype or torch.bfloat16)
+    losses, norms, ms = [], [], []
+    flips = [0, 0]
+    with (routing(base, record if record is not None else [], replay,
+                  flips) if record is not None or replay is not None
+          else contextlib.nullcontext()), \
+            (counting_drops(drops) if drops is not None
+             else contextlib.nullcontext()):
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = run.train_step()
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(losses=losses, norms=norms, peak=peak, flips=flips,
+               step_ms=statistics.median(ms[1:]) if n > 1 else ms[0],
+               mesh=dict(zip(run.mesh.axes, run.mesh.shape)),
+               name=run.cfg.name)
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tensor_parallel(torch, card, total_mem, tr) -> dict:
+    """Phase 31: tensor and expert parallelism over ``model`` (module
+    docstring, item 31)."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tp = phase_train(torch, card, total_mem, tr, TP_TRAIN_FLAGS,
+                     TRAIN_LAYERS, phase=31)
+    dp = steps_of(torch, DP_TRAIN_FLAGS, TRAIN_LAYERS, 6)
+    check(all(map(math.isfinite, dp["losses"])) and
+          dp["losses"][-1] < dp["losses"][1], f"2x2x1: {dp['losses']}")
+    first = abs(tp["loss1"] - dp["losses"][0]) / abs(dp["losses"][0])
+    check(first <= TP_BF16_TOL, f"2x2x2 vs 2x2x1 warm-up loss: {first}")
+    print(f"TinyLlama-1.1B at {TRAIN_LAYERS} layers, global batch 4 x "
+          f"4096, bf16 ({card}): mesh 2x2x2 step {tp['step_ms']:.1f} ms, "
+          f"peak {tp['peak'] / 2**30:.2f} GiB; mesh 2x2x1 step "
+          f"{dp['step_ms']:.1f} ms, peak {dp['peak'] / 2**30:.2f} GiB "
+          f"(losses {[round(x, 4) for x in dp['losses']]}); warm-up losses "
+          f"{tp['loss1']:.5f} and {dp['losses'][0]:.5f}, {first:.2e} apart")
+
+    # -- fp32: 2x2x2 against 2x2x1 ----------------------------------------
+    for label, flags, layers in (
+            ("tinyllama-1.1b", [], COMPARE_LAYERS),
+            ("zamba2-1.2b", ["--arch", "zamba2-1.2b"], ZAMBA_TP_LAYERS)):
+        a = steps_of(torch, TP_TRAIN_FLAGS + flags, layers, 2,
+                     dtype=torch.float32)
+        b = steps_of(torch, DP_TRAIN_FLAGS + flags, layers, 2,
+                     dtype=torch.float32)
+        rel = max(abs(x - y) / abs(y) for x, y in zip(
+            a["losses"] + a["norms"], b["losses"] + b["norms"]))
+        check(rel <= TP_FP32_TOL, f"{label} fp32 2x2x2 vs 2x2x1: {rel}")
+        print(f"{label} fp32 at {layers} layers, 2 steps: 2x2x2 losses "
+              f"{a['losses']} norms {a['norms']}; 2x2x1 losses "
+              f"{b['losses']} norms {b['norms']}; worst relative "
+              f"{rel:.2e} (tolerance {TP_FP32_TOL}); peaks "
+              f"{a['peak'] / 2**30:.2f} and {b['peak'] / 2**30:.2f} GiB "
+              f"[{card}]")
+
+    # -- deepseek's experts split over model, bf16 -----------------------
+    ds = ["--arch", "deepseek-v2-lite-16b"]
+    routes: list = []
+    dp_drops: list = []
+    tp_drops: list = []
+    b = steps_of(torch, DP_TRAIN_FLAGS + ds, DEEPSEEK_TRAIN_LAYERS, 2,
+                 record=routes, drops=dp_drops)
+    forced = [r.unsqueeze(2).expand(*r.shape[:2], 2, *r.shape[2:])
+              for r in routes]
+    a = steps_of(torch, TP_TRAIN_FLAGS + ds, DEEPSEEK_TRAIN_LAYERS, 2,
+                 replay=forced, drops=tp_drops)
+    rel = max(abs(x - y) / abs(y) for x, y in zip(
+        a["losses"] + a["norms"], b["losses"] + b["norms"]))
+    share = [sum(d for d, _ in x) / sum(n for _, n in x)
+             for x in (tp_drops, dp_drops)]
+    check(rel <= TP_BF16_TOL, f"deepseek 2x2x2 vs 2x2x1: {rel}")
+    check(tp_drops and share[0] == share[1],
+          f"deepseek dropped-choice shares {share}")
+    print(f"deepseek-v2-lite-16b bf16 at {DEEPSEEK_TRAIN_LAYERS} layers, 2 "
+          f"steps, 32 experts a model rank on 2x2x2: losses {a['losses']} "
+          f"norms {a['norms']}; 2x2x1 losses {b['losses']} norms "
+          f"{b['norms']}; worst relative {rel:.2e} (tolerance "
+          f"{TP_BF16_TOL}); the 2x2x2 step forced on the 2x2x1 step's "
+          f"expert choices, its own differing in {a['flips'][0]} of "
+          f"{a['flips'][1]} router rows; dropped-choice share "
+          f"{share[0]:.4%} on both ({len(tp_drops)} router calls); step "
+          f"{a['step_ms']:.1f} and {b['step_ms']:.1f} ms, peaks "
+          f"{a['peak'] / 2**30:.2f} and {b['peak'] / 2**30:.2f} GiB "
+          f"[{card}]")
+    print(f"phase 31: phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return dict(tp, dp_step_ms=dp["step_ms"], dp_peak=dp["peak"])
+
+
 def plain_attention(q, k, v, *, causal=True, scale=None, attn_cap=0.0,
                     window=0, q_offset=0, kv_len=None):
     """``ops.attention``'s signature over the plain version (no kernel)."""
@@ -4208,7 +4571,8 @@ def routing(base, calls: list, replay: list | None = None,
 def serve_at_scale(torch, card, total_mem, model, params, prompts,
                    cache_len: int, steps: int, label: str, *,
                    feed=None, routes=None, extra=None,
-                   fp32_launches: int = 0, grown=None) -> dict:
+                   fp32_launches: int = 0, grown=None,
+                   tol: float = SERVE_LOGIT_TOL) -> dict:
     """Prefill ``prompts`` (``(B, S)`` on the card), grow the cache to
     ``cache_len`` positions, then ``steps`` lockstep greedy decode steps,
     the flash counter read around each (one launch a layer a step, all on
@@ -4320,8 +4684,8 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
         plain = run(feed=kern["toks"])
     check(fa.launches == 0, f"{label}: the plain run launched the kernel")
     worst, near, mism = compare_logits(kern["logits"], plain["logits"])
-    check(worst <= SERVE_LOGIT_TOL, f"{label}: decode logits {worst} of "
-          f"max|logit| from the plain run's, beyond {SERVE_LOGIT_TOL}")
+    check(worst <= tol, f"{label}: decode logits {worst} of "
+          f"max|logit| from the plain run's, beyond {tol}")
     check(mism == 0, f"{label}: {mism} greedy tokens differ outside a near "
           "tie")
     ptoks = sum(int((lk.argmax(-1) != lp.argmax(-1)).sum())
@@ -4341,7 +4705,7 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
           + f"); peak {peak / 2**30:.2f} GiB "
           f"of {total_mem / 2**30:.1f}; against the plain attention "
           f"teacher-forced: logits within {worst:.3e} of max|logit| "
-          f"(tolerance {SERVE_LOGIT_TOL}), greedy tokens differing {ptoks} "
+          f"(tolerance {tol}), greedy tokens differing {ptoks} "
           f"of {b * steps}, {near} plain-run near ties within the tolerance"
           + (f"; the plain run's own expert choices would differ in "
              f"{flips[0]} of {flips[1]} router rows" if moe else "")
@@ -4349,8 +4713,8 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
              f"{kern_flips[1]})" if routes is not None else ""))
     return dict(pre_ms=pre_ms, dec_ms=dec_ms, peak=peak, worst=worst,
                 launches=kern_launches, logits=kern["logits"],
-                toks=kern["toks"], routes=kern_routes,
-                step_ms=kern["step_ms"])
+                plain_logits=plain["logits"], toks=kern["toks"],
+                routes=kern_routes, step_ms=kern["step_ms"])
 
 
 def flash_figures(torch, card, case: dict) -> dict:
@@ -5085,6 +5449,13 @@ def main() -> int:
     phase_train(torch, card, total_mem, tr, MAMBA_TRAIN_FLAGS,
                 MAMBA_TRAIN_LAYERS, phase=27)
     phase_mamba_serve(torch, card, total_mem, args.seed)
+    # -- the hybrid: zamba2 trained and served ------------------------------
+    phase_train(torch, card, total_mem, tr, ZAMBA_TRAIN_FLAGS,
+                ZAMBA_TRAIN_LAYERS, phase=29,
+                compare_layers=ZAMBA_COMPARE_LAYERS)
+    phase_zamba_serve(torch, card, total_mem, args.seed)
+    # -- tensor and expert parallelism over model ---------------------------
+    phase_tensor_parallel(torch, card, total_mem, tr)
     check_path_flash(torch)
     launches["flash_attention"] = trained["launches"]
     figures["flash_attention"] = flash_figures(

@@ -3,8 +3,7 @@
 The port of ``repro/configs/__init__.py`` for the configs whose model is
 ported: each module exports ``CONFIG`` (the published configuration),
 ``SMOKE`` (a reduced same-family config for CPU smoke tests) and
-``SHAPES`` (its shape cells).  zamba2 waits for its model (ROADMAP
-queue 1 item 14).
+``SHAPES`` (its shape cells).
 """
 from __future__ import annotations
 
@@ -13,7 +12,7 @@ import importlib
 
 ARCHS = ["qwen3_moe_235b_a22b", "deepseek_v2_lite_16b", "mamba2_370m",
          "whisper_medium", "llama32_vision_90b", "gemma2_27b",
-         "tinyllama_1_1b", "granite_20b", "gemma2_2b"]
+         "tinyllama_1_1b", "granite_20b", "gemma2_2b", "zamba2_1_2b"]
 
 #: canonical ids → module names (the reference's, for the ported archs)
 ALIASES = {"qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
@@ -24,7 +23,8 @@ ALIASES = {"qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
            "gemma2-27b": "gemma2_27b",
            "tinyllama-1.1b": "tinyllama_1_1b",
            "granite-20b": "granite_20b",
-           "gemma2-2b": "gemma2_2b"}
+           "gemma2-2b": "gemma2_2b",
+           "zamba2-1.2b": "zamba2_1_2b"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +50,5 @@ def load(arch: str):
     """Return the config module for an arch id (canonical or module name)."""
     name = ALIASES.get(arch, arch)
     if name not in ARCHS:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported (have {ARCHS}): ROADMAP queue 1 "
-            "item 14")
+        raise NotImplementedError(f"unknown arch {arch!r} (have {ARCHS})")
     return importlib.import_module(f"repro_torch.configs.{name}")

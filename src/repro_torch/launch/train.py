@@ -67,8 +67,14 @@ applies the SLO policy's remediations to the shared switch::
         --mesh 2x4x1 --device cpu --tenants 3 --health-policy auto \
         --incidents-out /tmp/incidents.json
 
-Not ported: tensor parallelism (a ``model`` axis > 1), which stops
-naming ROADMAP queue 1 item 16.
+``--mesh PxDxM`` with ``M`` > 1 trains tensor- and expert-parallel over
+``model`` (``core.tp``): a rank's heads, FFN columns, experts and
+vocabulary rows, the gradients reduced over ``(pod, data)`` with each
+``model`` rank's shard as a group of its own, with every transport
+option and checkpoint that ``M`` = 1 takes::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 3 \
+        --mesh 2x2x2 --device cpu --transport innetwork --reproducible
 """
 from __future__ import annotations
 
@@ -292,15 +298,33 @@ class Run:
         (``rules.unshard_params``), and the error-feedback residual of
         rank 0, the one the reference saves."""
         from repro_torch.sharding import rules
-        dims = self.step.dims
-        first = (0,) * self.step.mesh.ndim
-        opt = {"m": rules.unshard_params(self.opt["m"], self.mesh, dims),
-               "v": rules.unshard_params(self.opt["v"], self.mesh, dims),
+        dims, tpd = self.step.dims, self.step.tp_dims
+        opt = {"m": rules.unshard_params(self.opt["m"], self.mesh, dims,
+                                         tpd),
+               "v": rules.unshard_params(self.opt["v"], self.mesh, dims,
+                                         tpd),
                "step": self.opt["step"]}
         if "ef" in self.opt:
-            opt["ef"] = [e[first] for e in self.opt["ef"]]
-        return {"p": rules.unshard_params(self.params, self.mesh, dims),
+            opt["ef"] = rules.unshard_params(
+                self.opt["ef"], self.mesh, [-1] * len(self.opt["ef"]),
+                self._rep_tp_dims())
+        return {"p": rules.unshard_params(self.params, self.mesh, dims,
+                                          tpd),
                 "o": opt}
+
+    def _rep_tp_dims(self) -> list:
+        """The TP dims of the leaves the ``GradReducer`` reduces (the
+        error-feedback state's), each counted with its stack axis."""
+        from repro_torch import tree
+        from repro_torch.sharding import rules
+        dims = tree.flatten(self.step.dims)[0]
+        out = []
+        for path, d, t in zip(tree.paths(self.step.dims), dims,
+                              tree.flatten(self.step.tp_dims)[0]):
+            if d < 0:
+                out.append(t + int(rules._leaf_name(path)[1]) if t >= 0
+                           else -1)
+        return out
 
     def load_state(self, state: dict) -> None:
         """Lay a global state (:meth:`state`, or a restored checkpoint) out
@@ -310,13 +334,12 @@ class Run:
         import torch
 
         from repro_torch.sharding import rules
-        shape = self.step.mesh.shape
         opt = {"m": rules.shard_params(state["o"]["m"], self.mesh),
                "v": rules.shard_params(state["o"]["v"], self.mesh),
                "step": state["o"]["step"]}
         if "ef" in state["o"]:
-            opt["ef"] = [torch.broadcast_to(e, shape + e.shape).contiguous()
-                         for e in state["o"]["ef"]]
+            opt["ef"] = [rules.replicate(e, self.mesh, t) for e, t in zip(
+                state["o"]["ef"], self._rep_tp_dims())]
         self.params = rules.shard_params(state["p"], self.mesh)
         self.opt = opt
 
@@ -340,10 +363,6 @@ def _prepare(args, overrides):
     else:
         sys.exit("--mesh must be DxM or PxDxM")
     mcfg = rules.MeshCfg(axes, shape)
-    if mcfg.tp > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: tensor parallelism over 'model' is not "
-            "ported (ROADMAP queue 1 item 16)")
 
     mod = configs.load(args.arch)
     cfg = mod.SMOKE if args.smoke else mod.CONFIG

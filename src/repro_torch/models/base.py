@@ -15,6 +15,15 @@ number of rank axes from the weight (``w.dim()`` less its own rank) and
 run one product per rank (``mm``): a weight is never broadcast across
 another rank's rows, so autograd hands each rank its own gradient.  With
 no rank axes they are the reference's functions on one rank.
+
+Tensor parallelism.  Under ``core.tp.parallel(tp)`` with ``tp`` > 1 the
+last rank axis is ``model``, and a leaf that the sharding rules split
+holds its rank's block: the attention blocks run on the rank's heads
+(the count read from the leaves' shapes), ``swiglu`` and ``gelu_mlp``
+column- then row-parallel, ``moe_block`` on the rank's ``E / tp``
+experts, and ``rmsnorm(split_dim=)`` normalizes a dim split over
+``model``; ``core.tp``'s operators join the regions.  Whether a dim is
+split follows the rules' divisibility (``tp.splits`` of its full size).
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch.core import tp
 from repro_torch.kernels import ops
 
 
@@ -148,11 +158,19 @@ def _lift(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                      w.shape[-1])
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
-            ) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+            split_dim: int | None = None) -> torch.Tensor:
+    """RMSNorm over the last dim in fp32, back in ``x``'s dtype.  With
+    ``split_dim`` (the ``model`` axis) the last dim is split over
+    ``model``: its sum of squares is summed over the ranks first."""
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+    if split_dim is None:
+        ms = (x * x).mean(-1, keepdim=True)
+    else:
+        n = x.shape[-1] * x.shape[split_dim]
+        ms = tp.allreduce_model((x * x).sum(-1, keepdim=True), split_dim) / n
+    x = x * torch.rsqrt(ms + eps)
     return (x * (1.0 + _lift(w, x).float())).to(dt)
 
 
@@ -371,6 +389,72 @@ def write_cache(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
     cache[:, start:start + s] = new
 
 
+def _rank_kv(t: torch.Tensor, md: int, h: int, hl: int) -> torch.Tensor:
+    """Replicated K or V ``(*R, B, S, KV, hd)`` → each ``model`` rank's
+    KV heads for its ``hl`` query heads of ``h`` (heads ``m·hl …``):
+    consecutive KV heads where the rank's query heads cover whole groups,
+    the one KV head where a group spans ranks (MQA)."""
+    kv = t.shape[-2]
+    g = h // kv
+    if hl % g == 0:
+        n = hl // g
+    elif g % hl == 0:
+        n = 1
+    else:
+        raise NotImplementedError(
+            f"{hl} query heads a rank of {h} do not align with the groups "
+            f"of {kv} KV heads")
+    t = tp.copy_to_model(t, md)
+    return torch.stack([t.select(md, m).narrow(-2, m * hl // g, n)
+                        for m in range(t.shape[md])], md)
+
+
+def _heads(cfg: ModelConfig, wq: torch.Tensor) -> tuple[int, int | None]:
+    """(the query heads a rank holds, the ``model`` axis or ``None``)
+    from the query projection's width."""
+    h, hd = cfg.n_heads, cfg.hd
+    if not tp.splits(h * hd):
+        return h, None
+    if h % tp.size():
+        raise NotImplementedError(
+            f"tensor parallelism of {tp.size()} splits {h} query heads "
+            "inside a head")
+    return wq.shape[-1] // hd, tp.model_dim(wq, 2)
+
+
+def rank_kv(cfg: ModelConfig, p: dict, x: torch.Tensor, md: int | None,
+            xl: torch.Tensor | None = None, rope_pos=None) -> tuple:
+    """K/V ``(*R, B, T, KV_r, hd)`` of ``x`` for the rank's query heads:
+    the rank's own KV heads where the heads split whole over ``model``;
+    otherwise the whole K/V (computed replicated, or gathered over
+    ``model`` where the projection splits inside a head, granite's MQA)
+    and then each rank's heads (:func:`_rank_kv`).  ``k_norm`` (where
+    ``p`` has it) and rope at ``rope_pos`` apply to K.  ``xl`` is ``x``
+    entered into the rank-local region (``x`` itself without one)."""
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    *lead, t, _ = x.shape
+    xl = x if xl is None else xl
+    local = md is not None and kv % tp.size() == 0
+    if md is None or local:
+        kk, vv = mm(xl, p["wk"]), mm(xl, p["wv"])
+    elif tp.splits(kv * hd):
+        kk = tp.gather_from_model(mm(xl, p["wk"]), md)
+        vv = tp.gather_from_model(mm(xl, p["wv"]), md)
+    else:
+        kk, vv = mm(x, p["wk"]), mm(x, p["wv"])
+    kk = kk.reshape(*lead, t, -1, hd)
+    vv = vv.reshape(*lead, t, -1, hd)
+    if "k_norm" in p:
+        w = tp.copy_to_model(p["k_norm"], md) if local else p["k_norm"]
+        kk = rmsnorm(kk, w, cfg.norm_eps)
+    if rope_pos is not None:
+        kk = apply_rope(kk, rope_pos, cfg.rope_theta)
+    if md is not None and not local:
+        hl = cfg.n_heads // tp.size()
+        kk, vv = (_rank_kv(a, md, cfg.n_heads, hl) for a in (kk, vv))
+    return kk, vv
+
+
 def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
                   pos_offset: int | torch.Tensor | None = None,
@@ -380,6 +464,9 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 
     ``x`` is ``(*R, B, S, D)`` with weights ``(*R, ...)``; returns
     ``(out, (k, v))``.  The rank axes fold into attention's batch dim.
+    Under tensor parallelism a rank runs its query heads (``wq``'s width
+    over ``hd``), the K/V of :func:`rank_kv`, and ``wo`` row-parallel,
+    its partial output summed over ``model``.
 
     ``cache`` is ``{"k": (B, Smax, KV, hd), "v": ..., "pos": int}`` for a
     decode step (no rank axes): the new K/V are written into it **in
@@ -396,22 +483,24 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     override (whisper and the VLM have their own cross blocks).
     """
     *lead, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = mm(x, p["wq"]).reshape(*lead, s, h, hd)
-    if kv_override is None:
-        kk = mm(x, p["wk"]).reshape(*lead, s, kv, hd)
-        vv = mm(x, p["wv"]).reshape(*lead, s, kv, hd)
-    else:
-        kk, vv = kv_override
-    if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        if kv_override is None:
-            kk = rmsnorm(kk, p["k_norm"], cfg.norm_eps)
+    hd = cfg.hd
+    h, md = _heads(cfg, p["wq"])
+    xl = tp.copy_to_model(x, md) if md is not None else x
+    q = mm(xl, p["wq"]).reshape(*lead, s, h, hd)
+    pos = None
     if kv_override is None:
         pos0 = pos_offset if pos_offset is not None else 0
         pos = pos0 + torch.arange(s, device=x.device)
+    if cfg.qk_norm:
+        qn = p["q_norm"] if md is None else tp.copy_to_model(p["q_norm"], md)
+        q = rmsnorm(q, qn, cfg.norm_eps)
+    if kv_override is None:
+        kk, vv = rank_kv(cfg, p, x, md, xl, rope_pos=pos)
         q = apply_rope(q, pos, cfg.rope_theta)
-        kk = apply_rope(kk, pos, cfg.rope_theta)
+    else:
+        kk, vv = kv_override
+        if md is not None:
+            kk, vv = (_rank_kv(a, md, cfg.n_heads, h) for a in (kk, vv))
     if cache is not None:
         if len(lead) != 1:
             raise ValueError(f"a KV cache takes (B, S, D) activations, got "
@@ -430,23 +519,40 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                      causal=causal and kv_override is None, window=window,
                      attn_cap=cfg.attn_softcap, chunk=cfg.attn_chunk)
         newkv = (kk, vv)
-    return mm(out.reshape(*lead, s, h * hd), p["wo"]), newkv
+    out = mm(out.reshape(*lead, s, h * hd), p["wo"])
+    return (out if md is None else tp.reduce_from_model(out, md)), newkv
 
 
 # ---------------------------------------------------------------------------
 # Feed-forward and loss.
 # ---------------------------------------------------------------------------
 
-def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return mm(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]), p["w_down"])
+def swiglu(p: dict, x: torch.Tensor, d_ff: int = 0) -> torch.Tensor:
+    """``(silu(x·w_gate) · x·w_up)·w_down``; where the hidden width
+    ``d_ff`` splits over ``model``, column- then row-parallel, the
+    partial outputs summed over ``model``."""
+    md = tp.model_dim(p["w_gate"], 2) if tp.splits(d_ff) else None
+    if md is not None:
+        x = tp.copy_to_model(x, md)
+    out = mm(F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"]), p["w_down"])
+    return out if md is None else tp.reduce_from_model(out, md)
 
 
-def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(p: dict, x: torch.Tensor, d_ff: int = 0) -> torch.Tensor:
     """``gelu(x·w_up + b_up)·w_down + b_down`` with ``jax.nn.gelu``'s
-    default, the tanh approximation."""
+    default, the tanh approximation.  Where ``d_ff`` splits over
+    ``model``: column- then row-parallel, each rank its block of
+    ``b_up``, and ``b_down`` added once, after the sum over ``model``."""
+    md = tp.model_dim(p["w_up"], 2) if tp.splits(d_ff) else None
+    b_up = p["b_up"]
+    if md is not None:
+        x = tp.copy_to_model(x, md)
+        b_up = tp.local_slice(b_up, md)
     up = mm(x, p["w_up"])
-    h = F.gelu(up + _lift(p["b_up"], up), approximate="tanh")
+    h = F.gelu(up + _lift(b_up, up), approximate="tanh")
     out = mm(h, p["w_down"])
+    if md is not None:
+        out = tp.reduce_from_model(out, md)
     return out + _lift(p["b_down"], out)
 
 
@@ -462,19 +568,25 @@ def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
     ``x`` is ``(*R, B, S, D)`` with the router ``(*R, D, E)`` and the
     expert weights ``w_gate``/``w_up`` ``(*R, E, D, F)``, ``w_down``
-    ``(*R, E, F, D)``.  Each rank routes its own ``T = B·S`` tokens, as
-    the reference does at ``model = 1`` (expert parallelism over ``model``
-    is ROADMAP queue 1 item 16): the router's fp32 softmax, its top-k
-    (ties to the lower index) renormalized, each (token, choice) placed
-    at its running count within its expert, choices past the capacity
-    dropped.  The dispatch adds every choice's row into its expert slot,
-    a dropped one as a zero row at its clipped slot (``flat_c`` is
-    clipped, not dropped, in the reference's ``.at[].add``); the
-    experts are batched products.  ``moe_combine`` ``gather`` (the
-    default) gathers each choice's slot weighted by its gate and sums the
-    ``k``; ``scatter_ar`` scatters each kept slot's gated row into its
-    token (``slot_to_row``), through :class:`_EPDispatch`, whose backward
-    is the reference's f32 scatter.
+    ``(*R, E, F, D)``.  Each rank routes its own ``T = B·S`` tokens: the
+    router's fp32 softmax, its top-k (ties to the lower index)
+    renormalized, each (token, choice) placed at its running count within
+    its expert, choices past the capacity dropped.  The dispatch adds
+    every choice's row into its expert slot, a dropped one as a zero row
+    at its clipped slot (``flat_c`` is clipped, not dropped, in the
+    reference's ``.at[].add``); the experts are batched products.
+    ``moe_combine`` ``gather`` (the default) gathers each choice's slot
+    weighted by its gate and sums the ``k``; ``scatter_ar`` scatters each
+    kept slot's gated row into its token (``slot_to_row``), through
+    :class:`_EPDispatch`, whose backward is the reference's f32 scatter.
+
+    Expert parallelism: where ``E`` splits over ``model`` a rank holds
+    ``E / tp`` experts (``w_*`` ``(*R, E/tp, ...)``).  The router, the
+    capacity and the choices stay global (the replicated region); the
+    dispatch keeps the rows of the rank's own experts only, the others
+    become zero rows as a dropped choice does, and the combine's partial
+    output is summed over ``model`` once.  The shared experts run
+    column- then row-parallel (``swiglu``).
     """
     r = p["router"].dim() - 2
     lead = x.shape[:r]
@@ -484,6 +596,8 @@ def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     e, k = cfg.n_experts, cfg.experts_per_token
     cap = max(int(cfg.capacity_factor * t * k / e), min(t * k, 32))
     dev = x.device
+    md = tp.model_dim(p["router"], 2) if tp.splits(e) else None
+    el = p["w_gate"].shape[-3]                                    # own E
 
     xt = x.reshape(*lead, t, d)
     logits = mm(xt.to(p["router"].dtype), p["router"]).float()   # (*R,T,E)
@@ -497,9 +611,20 @@ def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     pos, keep_f = _expert_slots(flat_e, e, cap)                   # (P,Tk)
     flat_c = torch.clamp(pos, 0, cap - 1)
     ranks = torch.arange(nr, device=dev)[:, None]
-    slot = (ranks * e + flat_e) * cap + flat_c                    # (P,Tk)
+    xs, own_e = xt, flat_e
+    if md is not None:
+        # the rank's own experts: ids m·el … (m+1)·el - 1, made local
+        # (``model`` is the last rank axis: flat rank r is model rank
+        # r mod tp)
+        xs = tp.copy_to_model(xt, md)
+        gate_vals = tp.copy_to_model(gate_vals, md)
+        own_e = flat_e - (ranks % x.shape[md]) * el
+        mine = (own_e >= 0) & (own_e < el)
+        keep_f = keep_f & mine
+        own_e = torch.where(mine, own_e, 0)
+    slot = (ranks * el + own_e) * cap + flat_c                    # (P,Tk)
 
-    src = xt.reshape(nr, t, 1, d).expand(nr, t, k, d).reshape(nr, t * k, d)
+    src = xs.reshape(nr, t, 1, d).expand(nr, t, k, d).reshape(nr, t * k, d)
     src = torch.where(keep_f[..., None], src, 0).to(cfg.dtype)
     w = torch.where(keep_f.reshape(gate_vals.shape), gate_vals,
                     0.0).to(cfg.dtype)                            # (*R,T,k)
@@ -508,39 +633,42 @@ def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         # slot → flat row (unique by construction); a dropped choice's
         # slot is out of range and never written
         rows = torch.arange(t * k, device=dev).expand(nr, t * k)
-        slot_to_row = torch.full((nr * e * cap,), t * k, dtype=torch.int64,
+        slot_to_row = torch.full((nr * el * cap,), t * k, dtype=torch.int64,
                                  device=dev)
         slot_to_row.scatter_reduce_(0, slot[keep_f], rows[keep_f],
                                     reduce="amin")
-        slot_to_row = slot_to_row.reshape(nr, e * cap)
-        xin = _EPDispatch.apply(src, slot, slot_to_row, e * cap)
+        slot_to_row = slot_to_row.reshape(nr, el * cap)
+        xin = _EPDispatch.apply(src, slot, slot_to_row, el * cap)
     else:
-        xin = _dispatch(src, slot, e * cap)
-    xin = xin.reshape(*lead, e, cap, d)
+        xin = _dispatch(src, slot, el * cap)
+    xin = xin.reshape(*lead, el, cap, d)
 
     h = F.silu(torch.matmul(xin, p["w_gate"]))
     h = h * torch.matmul(xin, p["w_up"])
-    out_e = torch.matmul(h, p["w_down"]).reshape(nr, e * cap, d)
+    out_e = torch.matmul(h, p["w_down"]).reshape(nr, el * cap, d)
 
     if cfg.moe_combine == "scatter_ar":
         kept = slot[keep_f]
-        slot_gate = torch.zeros(nr * e * cap, dtype=cfg.dtype,
+        slot_gate = torch.zeros(nr * el * cap, dtype=cfg.dtype,
                                 device=dev).index_put(
             (kept,), w.reshape(nr, t * k)[keep_f], accumulate=True)
         tok = slot_to_row // k + ranks * (t + 1)                  # (P,E·C)
         out = torch.zeros(nr * (t + 1), d, dtype=cfg.dtype,
                           device=dev).index_put(
             (tok.reshape(-1),),
-            (out_e * slot_gate.reshape(nr, e * cap, 1)).reshape(-1, d),
+            (out_e * slot_gate.reshape(nr, el * cap, 1)).reshape(-1, d),
             accumulate=True)
         out = out.reshape(nr, t + 1, d)[:, :t]
     else:
-        gath = out_e.reshape(nr * e * cap, d)[slot.reshape(-1)]
+        gath = out_e.reshape(nr * el * cap, d)[slot.reshape(-1)]
         out = (gath.reshape(nr, t, k, d)
                * w.reshape(nr, t, k, 1)).sum(2)
     out = out.reshape(*lead, t, d)
+    if md is not None:
+        out = tp.reduce_from_model(out, md)
     if cfg.n_shared_experts > 0:
-        out = out + swiglu(p["shared"], xt)
+        out = out + swiglu(p["shared"], xt,
+                           cfg.moe_d_ff * cfg.n_shared_experts)
     return out.reshape(x.shape)
 
 
@@ -590,11 +718,28 @@ class _EPDispatch(torch.autograd.Function):
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  logit_cap: float = 0.0, rank_dims: int = 0
-                  ) -> torch.Tensor:
+                  logit_cap: float = 0.0, rank_dims: int = 0,
+                  md: int | None = None) -> torch.Tensor:
     """Mean token cross-entropy, one value per rank (the leading
-    ``rank_dims`` axes are kept)."""
+    ``rank_dims`` axes are kept).
+
+    Vocab-parallel with a ``model`` axis ``md``: ``logits`` are the
+    rank's block of the vocabulary.  The maximum and the sum of the
+    exponentials are taken over ``model`` too, and the label's logit
+    comes from the rank that holds it."""
     logits = softcap(logits.float(), logit_cap)
-    lp = torch.log_softmax(logits, dim=-1)
-    ll = torch.take_along_dim(lp, labels.long()[..., None], dim=-1)[..., 0]
+    labels = labels.long()[..., None]
+    if md is None:
+        lp = torch.log_softmax(logits, dim=-1)
+        ll = torch.take_along_dim(lp, labels, dim=-1)[..., 0]
+    else:
+        vl = logits.shape[-1]
+        mx = tp.pmax(logits.amax(-1, keepdim=True), md)
+        se = tp.reduce_from_model(
+            torch.exp(logits - mx).sum(-1, keepdim=True), md)
+        idx = labels - tp.rank_index(labels, md) * vl
+        mine = (idx >= 0) & (idx < vl)
+        own = torch.take_along_dim(logits, torch.where(mine, idx, 0), dim=-1)
+        pick = tp.reduce_from_model(torch.where(mine, own, 0.0), md)
+        ll = (pick - mx - torch.log(se))[..., 0]
     return -ll.mean(dim=tuple(range(rank_dims, ll.dim())))

@@ -32,6 +32,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import tp
 from repro_torch.models import base
 from repro_torch.models import transformer as tf
 from repro_torch.models.base import ModelConfig
@@ -126,20 +127,38 @@ def mamba_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                 cache: dict | None = None) -> tuple:
     """One Mamba-2 mixer over ``x`` ``(*R, B, S, D)``; ``cache`` is
     ``{"conv_x", "conv_b", "conv_c", "ssm"}`` (the state to start from),
-    and the new state is returned beside the output when it is given."""
+    and the new state is returned beside the output when it is given.
+
+    Where ``d_inner`` splits over ``model`` the SSD heads do: a rank holds
+    its ``d_inner / tp`` columns of ``wz``, ``wx`` and ``conv_xw`` and
+    rows of ``out_proj`` (row-parallel, summed over ``model``).  ``wb``,
+    ``wc``, ``wdt``, the B/C convs, ``dt``'s softplus and the decay run
+    replicated; each rank takes its heads of ``dt`` and of the decay, and
+    its block of ``conv_xb``, ``D`` and ``gate_norm``, whose norm sums
+    its squares over ``model``."""
     *lead, s, _ = x.shape
     di, n, h, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
     nb = math.prod(lead)
+    md = tp.model_dim(p["wz"], 2) if tp.splits(di) else None
+    xl, conv_xb, d_skip, gate_norm = x, p["conv_xb"], p["D"], p["gate_norm"]
+    if md is not None:
+        if h % tp.size():
+            raise NotImplementedError(
+                f"tensor parallelism of {tp.size()} splits {h} SSD heads "
+                "inside a head")
+        h //= tp.size()
+        xl = tp.copy_to_model(x, md)
+        conv_xb, d_skip, gate_norm = (tp.local_slice(t, md) for t in (
+            conv_xb, d_skip, gate_norm))
 
-    z = base.mm(x, p["wz"])                                   # (...,S,di)
-    xin = base.mm(x, p["wx"])
+    z = base.mm(xl, p["wz"])                                  # (...,S,di)
+    xin = base.mm(xl, p["wx"])
     bb = base.mm(x, p["wb"])                                  # (...,S,N)
     cc = base.mm(x, p["wc"])
     dt = base.mm(x, p["wdt"])                                 # (...,S,H)
 
     state = cache or {}
-    xin, ncx = _causal_conv(xin, p["conv_xw"], p["conv_xb"],
-                            state.get("conv_x"))
+    xin, ncx = _causal_conv(xin, p["conv_xw"], conv_xb, state.get("conv_x"))
     bb, ncb = _causal_conv(bb, p["conv_bw"], p["conv_bb"],
                            state.get("conv_b"))
     cc, ncc = _causal_conv(cc, p["conv_cw"], p["conv_cb"],
@@ -149,6 +168,9 @@ def mamba_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     dt = torch.logaddexp(dt, torch.zeros_like(dt))            # softplus
     a = -torch.exp(p["A_log"].float())                        # (*R, H)
     a_bar = dt * base._lift(a, dt)                            # log decay
+    if md is not None:
+        bb, cc = tp.copy_to_model(bb, md), tp.copy_to_model(cc, md)
+        dt, a_bar = tp.local_slice(dt, md), tp.local_slice(a_bar, md)
     xh = xin.reshape(*lead, s, h, pd)
     xdt = xh.float() * dt[..., None]
 
@@ -163,11 +185,13 @@ def mamba_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         y, h_final = _ssd_recurrent(*args, h0)
     y = y.reshape(*lead, s, h, pd)
 
-    y = y + xh.float() * base._lift(p["D"], xh[..., 0]).float()[..., None]
-    y = y.reshape(*lead, s, di).to(
+    y = y + xh.float() * base._lift(d_skip, xh[..., 0]).float()[..., None]
+    y = y.reshape(*lead, s, h * pd).to(
         cfg.dtype if x.dtype != torch.float32 else torch.float32)
-    y = base.rmsnorm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
+    y = base.rmsnorm(y * F.silu(z), gate_norm, cfg.norm_eps, split_dim=md)
     out = base.mm(y, p["out_proj"])
+    if md is not None:
+        out = tp.reduce_from_model(out, md)
     new_cache = None
     if cache is not None:
         new_cache = {"conv_x": ncx, "conv_b": ncb, "conv_c": ncc,

@@ -2,8 +2,8 @@
 
 The port of ``repro/models/registry.py``: the ``"dense"``, ``"moe"`` and
 ``"vlm"`` families through ``transformer``, ``"audio"`` through
-``whisper`` and ``"ssm"`` through ``mamba2`` (training and serving);
-``"hybrid"`` (zamba2) raises.  ``init`` takes
+``whisper``, ``"ssm"`` through ``mamba2`` and ``"hybrid"`` through
+``zamba2`` (training and serving).  ``init`` takes
 a ``torch.Generator`` (on the device the parameters should live on) where
 the reference takes a ``jax.random`` key, and ``init_cache`` also takes
 the ``device`` its cache should live on.
@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
-from repro_torch.models import mamba2, transformer, whisper
+from repro_torch.models import mamba2, transformer, whisper, zamba2
 from repro_torch.models.base import ModelConfig
 
 @dataclasses.dataclass(frozen=True)
@@ -30,15 +30,13 @@ class Model:
 
 _FAMILIES: dict[str, Any] = {"dense": transformer, "moe": transformer,
                              "vlm": transformer, "ssm": mamba2,
-                             "audio": whisper}
+                             "audio": whisper, "hybrid": zamba2}
 
 
 def get_model(cfg: ModelConfig) -> Model:
     mod = _FAMILIES.get(cfg.family)
     if mod is None:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported: "
-            "ROADMAP queue 1 item 14 (zamba2's hybrid family)")
+        raise ValueError(f"unknown model family {cfg.family!r} ({cfg.name})")
     return Model(
         cfg=cfg,
         init=lambda gen, **kw: mod.init_params(cfg, gen, **kw),

@@ -46,6 +46,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
+from repro_torch.core import tp
 from repro_torch.models import base
 from repro_torch.models.base import ModelConfig
 
@@ -166,13 +167,6 @@ def init_layer(cfg: ModelConfig, gen: torch.Generator, stack: Stack
     return p
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported: ROADMAP "
-            "queue 1 item 14")
-
-
 def init_top(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """The parameters outside the layer stacks: the embedding, the final
     norm and (untied) the head."""
@@ -197,7 +191,6 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     cast (at deepseek-v2-lite's 27 layers it would be 62.8 GB); the draws
     come in the same order with or without ``cast``, so a seed gives the
     same weights either way."""
-    _check_ported(cfg)
     params = cast(init_top(cfg, gen))
     for stack in stacks(cfg):
         params[stack.name] = draw_stack(
@@ -233,7 +226,7 @@ def _rank_dims(params: dict) -> int:
 
 def _ffn(cfg: ModelConfig, p: dict, h: torch.Tensor, moe: bool
          ) -> torch.Tensor:
-    return base.moe_block(cfg, p, h) if moe else base.swiglu(p, h)
+    return base.moe_block(cfg, p, h) if moe else base.swiglu(p, h, cfg.d_ff)
 
 
 def _self_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
@@ -272,17 +265,24 @@ def _mla_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
     h = base.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     ap = lp["attn"]
     nope, rope, vd = cfg.mla_qk_nope, cfg.mla_qk_rope, cfg.mla_v_dim
-    nh = cfg.n_heads
+    nh, md = base._heads(cfg.scaled(head_dim=nope + rope), ap["wq"])
     scale = (nope + rope) ** -0.5
 
-    q = base.mm(h, ap["wq"]).reshape(*lead, s, nh, nope + rope)
-    c_kv = base.mm(h, ap["w_dkv"])                          # (..., S, lora)
+    hc = tp.copy_to_model(h, md) if md is not None else h
+    q = base.mm(hc, ap["wq"]).reshape(*lead, s, nh, nope + rope)
+    if md is not None and tp.splits(cfg.mla_kv_lora):
+        c_kv = tp.gather_from_model(base.mm(hc, ap["w_dkv"]), md)
+    else:
+        c_kv = base.mm(h, ap["w_dkv"])                      # (..., S, lora)
     k_r = base.mm(h, ap["w_kr"]).reshape(*lead, s, 1, rope)
     pos0 = pos_offset if pos_offset is not None else 0
     pos = pos0 + torch.arange(s, device=x.device)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = base.apply_rope(q_rope, pos, cfg.rope_theta)
     k_r = base.apply_rope(k_r, pos, cfg.rope_theta)
+    if md is not None:
+        # the latent and the shared rope key enter the rank's heads
+        c_kv, k_r = tp.copy_to_model(c_kv, md), tp.copy_to_model(k_r, md)
 
     q_pos = kv_len = None
     if cache is not None:
@@ -327,6 +327,8 @@ def _mla_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
                           scale=scale,
                           chunk=cfg.attn_chunk if cache is None else 0)
     out = base.mm(out.reshape(*lead, s, nh * vd), ap["wo"])
+    if md is not None:
+        out = tp.reduce_from_model(out, md)
     x = x + base.tag_block_out(cfg, out)
     h = base.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     x = x + base.tag_block_out(cfg, _ffn(cfg, lp["ffn"], h, moe))
@@ -345,17 +347,23 @@ def _cross_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     (:func:`cross_kv`), whose dtype may be wider than the queries'."""
     h = base.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     *lead, s, _ = x.shape
-    nh, hd = cfg.n_heads, cfg.hd
+    hd = cfg.hd
     ap = lp["attn"]
+    nh, md = base._heads(cfg, ap["wq"])
+    qn = lp["q_norm"]
+    if md is not None:
+        h, qn = tp.copy_to_model(h, md), tp.copy_to_model(qn, md)
     q = base.mm(h, ap["wq"]).reshape(*lead, s, nh, hd)
-    q = base.rmsnorm(q, lp["q_norm"], cfg.norm_eps)
+    q = base.rmsnorm(q, qn, cfg.norm_eps)
     k, v = vision_kv
     out = base.attend(q.reshape(-1, s, nh, hd), k.reshape(-1, *k.shape[-3:]),
                       v.reshape(-1, *v.shape[-3:]), causal=False)
     out = base.mm(out.reshape(*lead, s, nh * hd), ap["wo"])
+    if md is not None:
+        out = tp.reduce_from_model(out, md)
     x = x + _gated(lp["gate_attn"], out)
     h = base.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + _gated(lp["gate_mlp"], base.swiglu(lp["ffn"], h))
+    return x + _gated(lp["gate_mlp"], base.swiglu(lp["ffn"], h, cfg.d_ff))
 
 
 def cross_kv(cfg: ModelConfig, lp: dict, vision_embeds: torch.Tensor
@@ -364,15 +372,13 @@ def cross_kv(cfg: ModelConfig, lp: dict, vision_embeds: torch.Tensor
     layer's weights, in the promoted dtype of the embeddings and the
     weights, as ``jnp``'s ``@`` promotes them: the data pipeline's fp32
     ``vision_embeds`` give fp32 K/V against bf16 weights."""
-    *lead, t, _ = vision_embeds.shape
-    kv, hd = cfg.n_kv_heads, cfg.hd
     ap = lp["attn"]
     dt = torch.promote_types(vision_embeds.dtype, ap["wk"].dtype)
+    _, md = base._heads(cfg, ap["wq"])
     ve = vision_embeds.to(dt)
-    k = base.mm(ve, ap["wk"].to(dt)).reshape(*lead, t, kv, hd)
-    k = base.rmsnorm(k, lp["k_norm"], cfg.norm_eps)
-    v = base.mm(ve, ap["wv"].to(dt)).reshape(*lead, t, kv, hd)
-    return k, v
+    return base.rank_kv(cfg, {"wk": ap["wk"].to(dt), "wv": ap["wv"].to(dt),
+                              "k_norm": lp["k_norm"]}, ve, md,
+                        tp.copy_to_model(ve, md) if md is not None else None)
 
 
 def _layer_slices(stack, rank_dims: int) -> list:
@@ -434,7 +440,6 @@ def run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"run_stack: mode {mode!r} is not one of train, "
                          "prefill, decode")
-    _check_ported(cfg)
     rd = _rank_dims(params)
     slices = {s.name: _layer_slices(params[s.name], rd) for s in stacks(cfg)}
     mla = cfg.mla_kv_lora > 0
@@ -500,11 +505,29 @@ def _take_rows(table: torch.Tensor, tokens: torch.Tensor,
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
            gather: Gather):
+    """The token rows of the (gathered) embedding; returns ``(x, emb)``.
+    Where the vocabulary splits over ``model`` (vocab-parallel), each rank
+    looks up the tokens of its rows, zero for the others, and the rows
+    are summed over ``model``."""
     emb = params["embed"]
     if gather is not None:
         emb = gather({"embed": emb})["embed"]
-    x = _take_rows(emb.to(cfg.dtype), tokens, _rank_dims(params))
-    return x, emb
+    return lookup(cfg, emb, tokens, _rank_dims(params)), emb
+
+
+def lookup(cfg: ModelConfig, emb: torch.Tensor, tokens: torch.Tensor,
+           rank_dims: int) -> torch.Tensor:
+    """``emb[tokens]`` in the compute dtype on every rank; vocab-parallel
+    where the vocabulary splits over ``model``."""
+    if not tp.splits(cfg.vocab):
+        return _take_rows(emb.to(cfg.dtype), tokens, rank_dims)
+    md = rank_dims - 1
+    idx = tokens.long() - tp.rank_index(tokens, md) * emb.shape[-2]
+    mine = (idx >= 0) & (idx < emb.shape[-2])
+    rows = _take_rows(emb.to(cfg.dtype), torch.where(mine, idx, 0),
+                      rank_dims)
+    rows = torch.where(mine[..., None], rows, 0)
+    return tp.reduce_from_model(rows, md)
 
 
 def _head(cfg: ModelConfig, params: dict, emb: torch.Tensor,
@@ -531,8 +554,13 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
 
 
 def _chunk_ce(cap: float, x: torch.Tensor, head: torch.Tensor,
-              labels: torch.Tensor, rank_dims: int = 0) -> torch.Tensor:
-    return base.cross_entropy(base.mm(x, head), labels, cap, rank_dims)
+              labels: torch.Tensor, rank_dims: int = 0,
+              md: int | None = None) -> torch.Tensor:
+    """One chunk's cross-entropy; vocab-parallel with a ``model`` axis
+    ``md`` (the head holds the rank's vocabulary columns)."""
+    if md is not None:
+        x = tp.copy_to_model(x, md)
+    return base.cross_entropy(base.mm(x, head), labels, cap, rank_dims, md)
 
 
 def _ce_fits(nbytes: int, device: torch.device) -> bool:
@@ -562,7 +590,13 @@ def chunked_ce(cfg: ModelConfig, x: torch.Tensor, head: torch.Tensor,
     rank's chunk is taken alone under ``checkpoint`` and recomputed in the
     backward, so one rank's logits are all that is live.  Both sum a
     rank's chunks in order, as the reference's scan does, and give the
-    same values."""
+    same values.
+
+    Where the vocabulary splits over ``model`` (``head`` holds a rank's
+    columns) the cross-entropy is vocab-parallel
+    (``base.cross_entropy``), and the rank-at-a-time path takes the
+    ``model`` ranks of one ``(pod, data)`` rank together."""
+    md = rank_dims - 1 if tp.splits(cfg.vocab) else None
     s = x.shape[-2]
     chunk = min(chunk, s)
     if s % chunk:
@@ -575,18 +609,21 @@ def chunked_ce(cfg: ModelConfig, x: torch.Tensor, head: torch.Tensor,
         for c in range(nc):
             sl = slice(c * chunk, (c + 1) * chunk)
             tot = tot + _chunk_ce(cfg.logit_softcap, x[..., sl, :], head,
-                                  labels[..., sl], rank_dims) * (1.0 / nc)
+                                  labels[..., sl], rank_dims, md) * (1.0 / nc)
         return tot
-    xs = x.reshape(-1, *x.shape[rank_dims:])
-    hs = head.reshape(-1, *head.shape[-2:])
-    ls = labels.reshape(-1, *labels.shape[rank_dims:])
+    # one (pod, data) rank at a time, its model ranks (if any) together
+    g = () if md is None else (x.shape[md],)
+    xs = x.reshape(-1, *g, *x.shape[rank_dims:])
+    hs = head.reshape(-1, *g, *head.shape[-2:])
+    ls = labels.reshape(-1, *g, *labels.shape[rank_dims:])
     tot = []
     for r in range(xs.shape[0]):
-        t = torch.zeros((), device=x.device)
+        t = torch.zeros(g, device=x.device)
         for c in range(nc):
             sl = slice(c * chunk, (c + 1) * chunk)
             ce = checkpoint(_chunk_ce, cfg.logit_softcap, xs[r, ..., sl, :],
-                            hs[r], ls[r, ..., sl], use_reentrant=False)
+                            hs[r], ls[r, ..., sl], len(g), 0 if g else None,
+                            use_reentrant=False)
             t = t + ce * (1.0 / nc)
         tot.append(t)
     return torch.stack(tot).reshape(x.shape[:rank_dims])
@@ -645,7 +682,6 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
     vision_tokens, KV, hd)``.  Decoding against the zero cross K/V is what
     the slot server does, as the reference's does: it passes no vision
     embeddings."""
-    _check_ported(cfg)
     dtype = dtype or cfg.dtype
     zeros = lambda *s: torch.zeros(s, dtype=dtype,            # noqa: E731
                                    device=device)

@@ -33,6 +33,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core import tp
 from repro_torch.models import base
 from repro_torch.models import transformer as tf
 from repro_torch.models.base import ModelConfig
@@ -135,14 +136,23 @@ def _mha(cfg: ModelConfig, p: dict, xq: torch.Tensor,
     ``cache`` (``{"k", "v"}``).  With both, ``cache`` is a self-attention
     decode's ``{"k", "v", "pos"}``: the step's K/V are written into it in
     place at ``pos`` and the queries attend at ``pos + arange(S)`` over
-    its first ``pos + S`` entries."""
+    its first ``pos + S`` entries.  Under tensor parallelism a rank runs
+    its heads (its blocks of ``bq`` and ``bv``), ``wo`` row-parallel and
+    ``bo`` once, after the sum over ``model``."""
     *lead, s, _ = xq.shape
-    h, hd = cfg.n_heads, cfg.hd
-    q = _bias(base.mm(xq, p["wq"]), p["bq"]).reshape(*lead, s, h, hd)
+    hd = cfg.hd
+    h, md = base._heads(cfg, p["wq"])
+    bq, bv = p["bq"], p["bv"]
+    if md is not None:
+        same = xkv is xq
+        xq = tp.copy_to_model(xq, md)
+        xkv = xq if same else tp.copy_to_model(xkv, md)
+        bq, bv = tp.local_slice(bq, md), tp.local_slice(bv, md)
+    q = _bias(base.mm(xq, p["wq"]), bq).reshape(*lead, s, h, hd)
     if xkv is not None:
         t = xkv.shape[-2]
         k = base.mm(xkv, p["wk"]).reshape(*lead, t, h, hd)
-        v = _bias(base.mm(xkv, p["wv"]), p["bv"]).reshape(*lead, t, h, hd)
+        v = _bias(base.mm(xkv, p["wv"]), bv).reshape(*lead, t, h, hd)
     else:
         k, v = cache["k"], cache["v"]              # precomputed cross K/V
     q_pos = kv_len = None
@@ -160,6 +170,8 @@ def _mha(cfg: ModelConfig, p: dict, xq: torch.Tensor,
                       q_pos=q_pos, kv_len=kv_len,
                       chunk=cfg.attn_chunk if cache is None else 0)
     out = base.mm(out.reshape(*lead, s, h * hd), p["wo"])
+    if md is not None:
+        out = tp.reduce_from_model(out, md)
     return _bias(out, p["bo"]), (k, v)
 
 
@@ -180,7 +192,7 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor, *,
         lp = _g(gather, lp)
         h = _norm(x, lp["ln1"])
         x = x + _mha(cfg, lp["attn"], h, h, causal=False)[0]
-        return x + base.gelu_mlp(lp["mlp"], _norm(x, lp["ln2"]))
+        return x + base.gelu_mlp(lp["mlp"], _norm(x, lp["ln2"]), cfg.d_ff)
     body = base.remat(cfg, body)
     for lp in tf._layer_slices(params["enc_layers"], rd):
         x = body(x, lp)
@@ -214,7 +226,8 @@ def _decoder(cfg: ModelConfig, params: dict, x: torch.Tensor,
                           cache={"k": lc["xk"], "v": lc["xv"]})
         x = x + a
         h = _norm(x, lp["ln2"])
-        x = x + base.tag_block_out(cfg, base.gelu_mlp(lp["mlp"], h))
+        x = x + base.tag_block_out(cfg, base.gelu_mlp(lp["mlp"], h,
+                                                      cfg.d_ff))
         return x, kv, xkv
 
     if mode == "train":
@@ -246,7 +259,7 @@ def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor, pos: int,
     rd = _rank_dims(params)
     s = tokens.shape[-1]
     start = min(max(pos, 0), dec_pos.shape[-2] - s)
-    x = tf._take_rows(emb.to(cfg.dtype), tokens, rd) \
+    x = tf.lookup(cfg, emb, tokens, rd) \
         + _rows(dec_pos, start, s, rd).to(cfg.dtype)
     return x, emb
 

@@ -1,22 +1,26 @@
 """Single source of truth for how every tensor is partitioned.
 
-The port of ``repro/sharding/rules.py`` for the FSDP half.  Strategy:
+The port of ``repro/sharding/rules.py``.  Strategy:
 
+  * **TP/EP over ``model``**: attention projections on the flattened
+    head dim, MLP ffn dims, mamba's ``d_inner``, MLA's latent, expert
+    (E) dim, vocabulary; a leaf whose TP dim does not divide by ``tp``
+    stays replicated (``decide``).  The layers run the split explicitly
+    (``core.tp``).
   * **FSDP/ZeRO over ``data``**: every ≥64 Ki-element matrix is sharded
-    on one dim, gathered per layer through ``core.fsdp.gather_params``
-    (whose backward is the Flare gradient reduce-scatter).  Parameters
-    are replicated across ``pod``.
+    on a non-TP dim, gathered per layer through
+    ``core.fsdp.gather_params`` (whose backward is the Flare gradient
+    reduce-scatter).  Parameters are replicated across ``pod``.
   * small tensors (norms) replicate; their gradients go through the
     ``GradReducer`` engine.
-  * tensor parallelism over ``model`` is not ported (ROADMAP queue 1
-    item 16): ``decide`` still reports the TP dim the reference would
-    use, so the FSDP decisions are the reference's, but nothing shards
-    over ``model``.
 
 There are no ``PartitionSpec``s: on the rank-axis layout a rank-local
 leaf ``x`` is a tensor ``(*mesh, *x.shape)`` (``shard_params``; its
 global view ``unshard_params``), and a batch row block is a rank's
 (``split_batch``), exactly where a ``NamedSharding`` would place them.
+The rank axes are ``(pod, data)``, and ``(pod, data, model)`` where
+``model`` > 1 (``MeshCfg.rank_mesh``): at ``model`` = 1 the layout,
+the shapes and the bits are those of a mesh without the axis.
 ``cache_specs``, which describes a sharded KV cache for the dry-run
 tooling, is ROADMAP queue 1 item 15.
 """
@@ -71,9 +75,11 @@ class MeshCfg:
                          if a != "model")
 
     def rank_mesh(self) -> RankMesh:
-        """The reduction axes as the port's rank mesh."""
-        return RankMesh(tuple(s for a, s in zip(self.axes, self.shape)
-                              if a != "model"), self.reduce_axes)
+        """The port's rank mesh: the reduction axes, and ``model`` last
+        where it is larger than 1."""
+        axes = self.reduce_axes + (("model",) if self.tp > 1 else ())
+        return RankMesh(tuple(self.shape[self.axes.index(a)] for a in axes),
+                        axes)
 
 
 #: leaf name → (tp_dim, fsdp_dim) for 2D weights
@@ -125,19 +131,41 @@ def _leaf_name(path: tuple) -> tuple[str, bool]:
     return (keys[-1] if keys else ""), stacked
 
 
-def _fsdp_dim(path: tuple, shape, mesh: MeshCfg) -> int | None:
+def _dims(path: tuple, shape, mesh: MeshCfg) -> tuple:
+    """(tp dim, fsdp dim) of a global leaf, each of the sliced leaf (no
+    stack axis) or ``None``; the TP dim ``None`` at ``model`` = 1."""
     name, stacked = _leaf_name(path)
     sliced = tuple(shape[1:] if stacked else shape)
-    return decide(name, sliced, tp=mesh.tp, fsdp=mesh.fsdp)[1]
+    tp_dim, fsdp_dim = decide(name, sliced, tp=mesh.tp, fsdp=mesh.fsdp)
+    return (tp_dim if mesh.tp > 1 else None), fsdp_dim
 
 
 def param_specs(params_tree: Any, mesh: MeshCfg) -> Any:
     """The FSDP dim of every leaf of a global params tree (of the sliced
     leaf, no stack axis; -1 for a replicated leaf)."""
     def f(path, leaf):
-        d = _fsdp_dim(path, leaf.shape, mesh)
+        d = _dims(path, leaf.shape, mesh)[1]
         return -1 if d is None else d
     return tree.map_with_path(f, params_tree)
+
+
+def tp_specs(params_tree: Any, mesh: MeshCfg) -> Any:
+    """The TP dim of every leaf of a global params tree (of the sliced
+    leaf; -1 where it is replicated over ``model``, every leaf at
+    ``model`` = 1)."""
+    def f(path, leaf):
+        d = _dims(path, leaf.shape, mesh)[0]
+        return -1 if d is None else d
+    return tree.map_with_path(f, params_tree)
+
+
+def _local(sliced: tuple, dims: tuple, mesh: MeshCfg) -> tuple:
+    """A sliced global shape divided on its TP and FSDP dims."""
+    local = list(sliced)
+    for d, n in zip(dims, (mesh.tp, mesh.fsdp)):
+        if d is not None:
+            local[d] //= n
+    return tuple(local)
 
 
 #: leaves that must stay fp32 through the compute path
@@ -176,11 +204,9 @@ def make_gather(mesh: MeshCfg, algorithm: str, params_tree: Any,
     def record(path, leaf):
         name, stacked = _leaf_name(path)
         sliced = tuple(leaf.shape[1:] if stacked else leaf.shape)
-        _, fsdp_dim = decide(name, sliced, tp=mesh.tp, fsdp=mesh.fsdp)
-        local = list(sliced)
-        if fsdp_dim is not None:
-            local[fsdp_dim] //= mesh.fsdp
-        key = (name, tuple(local))
+        dims = _dims(path, leaf.shape, mesh)
+        fsdp_dim = dims[1]
+        key = (name, _local(sliced, dims, mesh))
         val = -1 if fsdp_dim is None else fsdp_dim
         if lookup.get(key, val) != val:
             raise ValueError(f"ambiguous FSDP decision for {key}")
@@ -205,37 +231,62 @@ def make_gather(mesh: MeshCfg, algorithm: str, params_tree: Any,
 
 def shard_fsdp_leaves(params: Any, mesh: MeshCfg) -> Any:
     """What each rank's params look like: ``meta`` tensors with the
-    shapes divided on their FSDP dims (no allocation)."""
+    shapes divided on their TP and FSDP dims (no allocation)."""
     def f(path, leaf):
         _, stacked = _leaf_name(path)
-        d = _fsdp_dim(path, leaf.shape, mesh)
         shape = list(leaf.shape)
-        if d is not None:
-            shape[d + (1 if stacked else 0)] //= mesh.fsdp
+        shape[int(stacked):] = _local(tuple(shape[int(stacked):]),
+                                      _dims(path, leaf.shape, mesh), mesh)
         return torch.empty(shape, dtype=leaf.dtype, device="meta")
     return tree.map_with_path(f, params)
 
 
+def _split(leaf: torch.Tensor, d: int | None, n: int, off: int
+           ) -> torch.Tensor:
+    """``(n, *block)``: ``n`` blocks of ``leaf`` on dim ``d + off``, or ``n``
+    copies where ``d`` is ``None``."""
+    if d is None:
+        return leaf.unsqueeze(0).expand(n, *leaf.shape)
+    return torch.stack(leaf.chunk(n, dim=d + off))
+
+
+def _join(x: torch.Tensor, d: int, off: int) -> torch.Tensor:
+    """Inverse of :func:`_split`: the blocks on the leading axis
+    concatenated on dim ``d + off``, or the first where ``d`` < 0."""
+    return x[0] if d < 0 else torch.cat(x.unbind(0), dim=d + off)
+
+
 def shard_params(params: Any, mesh: MeshCfg) -> Any:
     """Global leaves → every rank's own copy, ``(*mesh, *local)``: data
-    rank ``d`` holds block ``d`` of each FSDP dim, every pod the same;
-    replicated leaves are copied to every rank."""
-    rmesh = mesh.rank_mesh()
+    rank ``d`` holds block ``d`` of each FSDP dim, ``model`` rank ``m``
+    block ``m`` of each TP dim, every pod the same; replicated leaves
+    are copied to every rank."""
+    pods = mesh.rank_mesh().shape[:len(mesh.reduce_axes) - 1]
 
     def f(path, leaf):
         _, stacked = _leaf_name(path)
-        d = _fsdp_dim(path, leaf.shape, mesh)
-        if d is None:
-            per_data = leaf.unsqueeze(0).expand(mesh.fsdp, *leaf.shape)
-        else:
-            per_data = torch.stack(leaf.chunk(mesh.fsdp,
-                                              dim=d + (1 if stacked else 0)))
-        outer = rmesh.shape[:-1]
-        return per_data.expand(*outer, *per_data.shape).contiguous()
+        tp_dim, fsdp_dim = _dims(path, leaf.shape, mesh)
+        per = _split(leaf, fsdp_dim, mesh.fsdp, int(stacked))
+        if mesh.tp > 1:                          # (data, model, *local)
+            per = torch.stack([_split(b, tp_dim, mesh.tp, int(stacked))
+                               for b in per.unbind(0)])
+        return per.expand(*pods, *per.shape).contiguous()
     return tree.map_with_path(f, params)
 
 
-def unshard_params(params: Any, mesh: MeshCfg, dims: Any) -> Any:
+def replicate(x: torch.Tensor, mesh: MeshCfg, tp_dim: int = -1
+              ) -> torch.Tensor:
+    """A global tensor on every rank, ``(*mesh, *local)``: the same on
+    every ``(pod, data)`` rank, split on ``tp_dim`` (of ``x``) over
+    ``model`` where that is given and ``model`` > 1."""
+    if mesh.tp > 1:
+        x = _split(x, None if tp_dim < 0 else tp_dim, mesh.tp, 0)
+    red = mesh.rank_mesh().shape[:len(mesh.reduce_axes)]
+    return x.expand(*red, *x.shape).contiguous()
+
+
+def unshard_params(params: Any, mesh: MeshCfg, dims: Any,
+                   tp_dims: Any = None) -> Any:
     """Every rank's leaves ``(*mesh, *local)`` → the global leaves: the
     inverse of :func:`shard_params`, and what the reference's
     ``device_get`` of a sharded array gives.  An FSDP leaf is its data
@@ -245,20 +296,28 @@ def unshard_params(params: Any, mesh: MeshCfg, dims: Any) -> Any:
     ``dims`` is each leaf's FSDP dim, -1 where replicated
     (:func:`param_specs` of the global tree, ``TrainStep.dims``): a local
     shape alone does not tell a replicated leaf from the shard of a leaf
-    ``fsdp`` times larger.
+    ``fsdp`` times larger.  ``tp_dims`` is each leaf's TP dim
+    (:func:`tp_specs`, ``TrainStep.tp_dims``), needed where ``model`` > 1:
+    a TP leaf is its ``model`` blocks concatenated, those of data rank
+    0's group first.
     """
-    first = (0,) * mesh.rank_mesh().ndim
+    if mesh.tp > 1 and tp_dims is None:
+        raise ValueError("unshard_params at model > 1 needs tp_dims")
+    pods = mesh.rank_mesh().ndim - (2 if mesh.tp > 1 else 1)
 
-    def f(path, leaf, d):
-        if d < 0:
-            return leaf[first]
+    def f(path, leaf, d, t):
         _, stacked = _leaf_name(path)
-        pod0 = leaf[first[:-1]]                 # (fsdp, *local)
-        return torch.cat(pod0.unbind(0), dim=d + (1 if stacked else 0))
+        per = leaf[(0,) * pods]                 # (fsdp, [tp,] *local)
+        if mesh.tp > 1:
+            per = torch.stack([_join(b, t, int(stacked))
+                               for b in per.unbind(0)])
+        return _join(per, d, int(stacked))
 
     leaves, spec = tree.flatten(params)
-    return tree.unflatten(spec, [f(p, l, d) for p, l, d in zip(
-        tree.paths(params), leaves, tree.flatten(dims)[0])])
+    tps = (tree.flatten(tp_dims)[0] if tp_dims is not None
+           else [-1] * len(leaves))
+    return tree.unflatten(spec, [f(p, l, d, t) for p, l, d, t in zip(
+        tree.paths(params), leaves, tree.flatten(dims)[0], tps)])
 
 
 def split_batch(batch: Any, mesh: MeshCfg) -> Any:
@@ -266,18 +325,24 @@ def split_batch(batch: Any, mesh: MeshCfg) -> Any:
     reference's ``batch_spec`` places them: rank ``r`` of the flattened
     (pod, data) axes gets rows ``r·B/P … (r+1)·B/P``; a batch that only
     divides by ``data`` is split over it and shared by the pods; one
-    that divides by neither goes whole to every rank."""
-    rmesh = mesh.rank_mesh()
+    that divides by neither goes whole to every rank.  Every ``model``
+    rank of a ``(pod, data)`` rank gets the same rows."""
+    red = mesh.rank_mesh().shape[:len(mesh.reduce_axes)]
     dworld = mesh.data_world
+    tp = (mesh.tp,) if mesh.tp > 1 else ()
 
     def f(leaf):
         if leaf.dim() == 0:
-            return leaf.expand(rmesh.shape)
+            return leaf.expand(*red, *tp)
         b, rest = leaf.shape[0], tuple(leaf.shape[1:])
         if b % dworld == 0:
-            return leaf.reshape(*rmesh.shape, b // dworld, *rest)
-        if b % mesh.fsdp == 0:
+            per = leaf.reshape(*red, b // dworld, *rest)
+        elif b % mesh.fsdp == 0:
             per = leaf.reshape(mesh.fsdp, b // mesh.fsdp, *rest)
-            return per.expand(*rmesh.shape[:-1], *per.shape)
-        return leaf.expand(*rmesh.shape, *leaf.shape)
+            per = per.expand(*red[:-1], *per.shape)
+        else:
+            per = leaf.expand(*red, *leaf.shape)
+        if not tp:
+            return per
+        return per.unsqueeze(len(red)).expand(*red, *tp, *per.shape[len(red):])
     return tree.map_leaves(f, batch)

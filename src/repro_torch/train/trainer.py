@@ -20,7 +20,18 @@ Each rank differentiates its own loss, divided by the data world size.
 Autograd sees one leaf per parameter and per layer (views of the stacked
 storage) whose ``.grad`` is a view into one zeroed stacked buffer, so the
 per-layer gradients land in place and no rank's gradient is summed with
-another's.
+another's; a leaf used several times (zamba2's shared block) gets the
+sum of its uses' gradients.
+
+With ``model`` > 1 the rank axes are ``(pod, data, model)`` and the
+layers run tensor- and expert-parallel (``core.tp``), every ``model``
+rank differentiating its own copy of the loss: the conjugate operators
+make each rank's gradient of a TP leaf its block's, and of a leaf
+replicated over ``model`` the whole gradient, the same on every
+``model`` rank.  The FSDP collectives and the ``GradReducer`` reduce
+over ``(pod, data)``, each ``model`` rank's shard as a group of its own;
+the gradient norm counts a TP leaf over ``model`` and a replicated one
+once; the loss is summed over ``(pod, data)``.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import tree
+from repro_torch.core import tp
 from repro_torch.core.engine import FlareConfig, GradReducer
 from repro_torch.mesh import RankMesh
 from repro_torch.sharding import rules
@@ -95,6 +107,7 @@ class TrainStep:
     reducer: GradReducer
     mesh: RankMesh
     dims: Any = None        # FSDP dim of every leaf, -1 where replicated
+    tp_dims: Any = None     # TP dim of every leaf, -1 where replicated
 
     def __call__(self, params, opt_state, batch):
         return self.step(params, opt_state, batch)
@@ -123,13 +136,11 @@ def make_train_step(model, mesh_cfg: rules.MeshCfg, tcfg: TrainConfig,
     ``transport="innetwork"`` only): several jobs' steps then reduce as
     tenants of one switch.
     """
-    if mesh_cfg.tp > 1:
-        raise NotImplementedError(
-            f"tensor parallelism over 'model' (size {mesh_cfg.tp}) is not "
-            "ported: ROADMAP queue 1 item 16")
     mesh = mesh_cfg.rank_mesh()
     nd = mesh.ndim
     dims = rules.param_specs(params_tree, mesh_cfg)
+    tp_dims = rules.tp_specs(params_tree, mesh_cfg)
+    tp_leaves = [d >= 0 for d in tree.flatten(tp_dims)[0]]
     gather = rules.make_gather(mesh_cfg, tcfg.gather_algorithm, params_tree,
                                compute_dtype=model.cfg.dtype)
     reducer = GradReducer(tcfg.flare, mesh, manager=reduce_manager,
@@ -137,15 +148,16 @@ def make_train_step(model, mesh_cfg: rules.MeshCfg, tcfg: TrainConfig,
     reduce_axes = mesh_cfg.reduce_axes
     data_world = mesh_cfg.data_world
 
-    def sumsq(g: torch.Tensor) -> torch.Tensor:
-        return (g.float() ** 2).sum(dim=tuple(range(nd, g.dim())))
+    def sumsq(i: int, g: torch.Tensor) -> torch.Tensor:
+        ss = (g.float() ** 2).sum(dim=tuple(range(nd, g.dim())))
+        return mesh.psum(ss, "model") if tp_leaves[i] else ss
 
     def step_body(params, opt_state, batch):
         grads = tree.map_leaves(torch.zeros_like, params)
         view = _autograd_view(params, grads, nd)
-        # local mean / data_world → summed gradients = global mean
-        loss = model.loss(view, batch, gather=gather) / data_world
-        with warnings.catch_warnings():
+        with tp.parallel(mesh_cfg.tp), warnings.catch_warnings():
+            # local mean / data_world → summed gradients = global mean
+            loss = model.loss(view, batch, gather=gather) / data_world
             # a layer's leaf is a strided view of its stack, and so is
             # the gradient it accumulates into
             warnings.filterwarnings("ignore", message=".*layout contract")
@@ -164,8 +176,8 @@ def make_train_step(model, mesh_cfg: rules.MeshCfg, tcfg: TrainConfig,
 
         # --- global grad-norm clipping -----------------------------------
         zero = torch.zeros(mesh.shape, device=loss.device)
-        fsdp_ss = sum((sumsq(g_leaves[i]) for i in fsdp_idx), zero)
-        rep_ss = sum((sumsq(g_leaves[i]) for i in rep_idx), zero)
+        fsdp_ss = sum((sumsq(i, g_leaves[i]) for i in fsdp_idx), zero)
+        rep_ss = sum((sumsq(i, g_leaves[i]) for i in rep_idx), zero)
         if "data" in reduce_axes:
             fsdp_ss = mesh.psum(fsdp_ss, "data")
         gnorm = torch.sqrt(fsdp_ss + rep_ss)
@@ -194,4 +206,5 @@ def make_train_step(model, mesh_cfg: rules.MeshCfg, tcfg: TrainConfig,
             st["ef"] = reducer.init_state([leaves[i] for i in rep_idx])
         return st
 
-    return TrainStep(step_body, init_opt_state, gather, reducer, mesh, dims)
+    return TrainStep(step_body, init_opt_state, gather, reducer, mesh, dims,
+                     tp_dims)

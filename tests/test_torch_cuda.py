@@ -1065,3 +1065,79 @@ def test_whisper_and_mamba2_decode_on_cuda_matches_cpu(cuda, arch):
     assert runs["cuda"][1] == want_launches and runs["cpu"][1] == 0
     got, want = runs["cuda"][0], runs["cpu"][0]
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_zamba2_decode_on_cuda_matches_cpu(cuda):
+    """zamba2's SMOKE config (fp32, two groups and a tail): a prefill of
+    32 (the chunked SSD; the shared block once a group), the shared
+    block's K/V grown by 8, then 8 decode steps on the card against the
+    CPU, the flash kernel once a group a call.  Logits within 1e-4 of
+    max|logit|."""
+    from repro_torch import configs
+    from repro_torch.models.registry import get_model
+    cfg = configs.load("zamba2-1.2b").SMOKE.scaled(dtype=torch.float32)
+    model = get_model(cfg)
+    full = model.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (4, 40),
+                         generator=torch.Generator().manual_seed(1))
+    groups = cfg.n_layers // cfg.hybrid_attn_every
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = tree.map_leaves(lambda t: t.to(dev), full)
+        fa.launches = 0
+        with torch.inference_mode():
+            logits, cache = model.prefill(p, {"tokens": toks[:, :32].to(dev)})
+            for k in ("k", "v"):
+                v = cache["attn"][k]
+                cache["attn"][k] = torch.cat(
+                    [v, torch.zeros_like(v[:, :, :8])], 2)
+            outs = [logits]
+            for t in range(32, 40):
+                logits, cache = model.decode(p, toks[:, t:t + 1].to(dev),
+                                             cache)
+                outs.append(logits)
+        runs[dev] = (torch.cat(outs, 1).cpu(), fa.launches)
+    assert runs["cuda"][1] == groups * 9 and runs["cpu"][1] == 0
+    got, want = runs["cuda"][0], runs["cpu"][0]
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_train_step_on_cuda_matches_cpu(cuda):
+    """One train step of TinyLlama's SMOKE config (fp32) on ``2x2x2``, in
+    the network and reproducible, on the card and on the CPU: a rank's 2
+    of 4 heads, its half of the FFN and of the vocabulary; the card
+    launches flash twice a layer (the forward and its recompute) over all
+    8 ranks' rows, the fold kernel in the reduction, and gives the CPU's
+    loss and gradient norm within fp32 summation-order noise."""
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import tree_reduce as tr
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding import rules
+    from repro_torch.train import trainer
+
+    cfg = tl.SMOKE.scaled(dtype=torch.float32)
+    mcfg = rules.MeshCfg(("pod", "data", "model"), (2, 2, 2))
+    tcfg = trainer.TrainConfig(lr=1e-3, gather_algorithm="fixed_tree",
+                               flare=FlareConfig(axes=AXES,
+                                                 transport="innetwork",
+                                                 reproducible=True))
+    model = get_model(cfg)
+    full = model.init(torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        f = tree.map_leaves(lambda t: t.to(dev), full)
+        step = trainer.make_train_step(model, mcfg, tcfg, f)
+        params = rules.shard_params(f, mcfg)
+        opt = step.init_opt_state(params)
+        batch = next(pipeline.synthetic_batches(cfg, 4, 64, seed=1,
+                                                device=dev))
+        fa.launches = tr.launches = 0
+        params, opt, m = step(params, opt, rules.split_batch(batch, mcfg))
+        runs[dev] = (float(m["loss"]), float(m["grad_norm"]), fa.launches,
+                     tr.launches)
+    assert runs["cuda"][2] == 2 * cfg.n_layers and runs["cuda"][3] > 0
+    assert runs["cpu"][2] == runs["cpu"][3] == 0
+    for a, b in zip(runs["cuda"][:2], runs["cpu"][:2]):
+        assert abs(a - b) <= 1e-4 * abs(b)

@@ -20,6 +20,8 @@ custom backward bitwise.
 """
 import dataclasses
 import functools
+import pathlib
+import re
 from unittest import mock
 
 import jax
@@ -190,27 +192,30 @@ def test_gemma2_window_hides_keys_and_chunked_attention_matches():
 
 
 def test_unported_variants_and_families_name_their_item():
-    """What is left of ROADMAP queue 1 items 14 and 16: zamba2 and its
-    hybrid family (the config and the model), and tensor parallelism
-    over ``model`` (the train step and the launcher); whisper's audio,
-    mamba2's ssm and the VLM's families are taken."""
+    """What is left of ROADMAP queue 1 after items 14 and 16: nothing of
+    either.  Every family is taken (zamba2's hybrid one too, its config
+    under both ids), and tensor parallelism over ``model`` runs in the
+    train step and the launcher; no port source names item 14 or 16."""
     cfg = configs.load("tinyllama-1.1b").SMOKE
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        get_model(cfg.scaled(family="hybrid"))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        transformer.init_params(cfg.scaled(family="hybrid"), gen)
     for arch in ("zamba2-1.2b", "zamba2_1_2b"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            configs.load(arch)
-    mcfg = rules.MeshCfg(("data", "model"), (4, 2))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        trainer.make_train_step(get_model(cfg), mcfg, trainer.TrainConfig(),
-                                get_model(cfg).init(gen))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        launch_train.setup(["--smoke", "--device", "cpu", "--mesh", "4x2"])
-    for family in ("vlm", "audio", "ssm"):
+        assert configs.load(arch).SMOKE.family == "hybrid"
+    for family in ("vlm", "audio", "ssm", "hybrid"):
         assert get_model(cfg.scaled(family=family)).cfg.family == family
+    assert "shared_block" in get_model(cfg.scaled(
+        family="hybrid", hybrid_attn_every=2, ssm_state=16,
+        ssm_headdim=16)).init(gen)
+    assert transformer.init_params(cfg.scaled(family="hybrid"), gen)
+    mcfg = rules.MeshCfg(("data", "model"), (4, 2))
+    step = trainer.make_train_step(get_model(cfg), mcfg, trainer.TrainConfig(),
+                                   get_model(cfg).init(gen))
+    assert step.mesh.axes == ("data", "model")
+    run = launch_train.setup(["--smoke", "--device", "cpu", "--mesh", "4x2"])
+    assert run.step.mesh.shape == (4, 2)
+    root = pathlib.Path(transformer.__file__).parents[1]
+    named = [str(f) for f in sorted(root.rglob("*.py"))
+             if re.search(r"item 1[46]\b", f.read_text())]
+    assert named == []
 
 
 # ---------------------------------------------------------------------------

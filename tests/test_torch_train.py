@@ -808,8 +808,10 @@ def test_launcher_unported_flags_name_their_item(flags, item, tmp_path,
 
 
 def test_launcher_refuses_tensor_parallelism_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        launch_train.main(["--smoke", "--device", "cpu", "--mesh", "4x2"])
+    """Tensor parallelism runs (``tests/test_torch_tp.py``) but for a split
+    that would cut a query head: SMOKE's 4 heads over ``model`` = 8."""
+    with pytest.raises(NotImplementedError, match="inside a head"):
+        launch_train.main(["--smoke", "--device", "cpu", "--mesh", "1x8"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             launch_train.main(["--smoke", "--steps", "1"])
