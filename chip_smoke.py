@@ -392,6 +392,29 @@
    model rank), the ``2x2x2`` steps forced on the ``2x2x1`` steps' expert
    choices (the flips counted), within ``TP_BF16_TOL``, the dropped
    choices' share equal.
+32. The dry-run against the card: ``launch/dryrun.py``'s train tracer
+   counts phase 10's wire step (``WIRE_TRAIN_FLAGS``, 22 layers) on
+   ``meta`` tensors; its predicted peak of live bytes must lie within
+   ``DRYRUN_PEAK_TOL`` of the peak that phase measured on the card, and
+   it must count the flash launches the card made a step.  Prints the
+   counted FLOPs, bytes and wire bytes, their roofline terms on the
+   H100's data-sheet peaks, and the measured step's share of the compute
+   term.
+33. A query head split over ``model``: gemma2-2b at published widths,
+   ``HEAD_SPLIT_LAYERS`` layers, one sequence of 4096 in bf16, on
+   ``--mesh 1x1x16`` (its 8 query heads over 16 model ranks: every rank
+   attends over all heads, XLA's partition inside a head) against
+   ``1x1x1``: flash launched on the tensor cores at hd 256 as
+   ``flash_per_call`` says, losses and gradient norms finite and within
+   ``TP_BF16_TOL``.
+34. The examples on the card at their default sizes, through their
+   ``main`` in this process (``examples_torch/quickstart.py``,
+   ``sparse_allreduce_demo.py``, ``train_e2e.py``, ``serve_batched.py``):
+   what each prints, its claims checked (the collectives within 1e-4 of
+   the sum, F3 bitwise, every transport's and ``train_e2e``'s losses
+   falling, its checkpoints, every request answered) and the
+   kernels it runs launched (the int8 ones, ``sparse_accum_slots``,
+   flash).
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line
 of kernel figures, and as its last line ``{"ok": true, "device": ...}``.
@@ -658,6 +681,15 @@ ZAMBA_TP_LAYERS = 12
 #: model rank) against ``2x2x1`` in bf16, the ``2x2x2`` step forced on the
 #: ``2x2x1`` step's expert choices: losses and norms within this share
 TP_BF16_TOL = 2e-2
+#: phase 32: the dry-run's predicted peak against the card's, within
+#: this share of the card's
+DRYRUN_PEAK_TOL = 0.25
+#: phase 33: gemma2-2b at published widths on one sequence, its 8 query
+#: heads split over 16 model ranks (``--mesh 1x1x16``) and on one rank
+HEAD_SPLIT_FLAGS = ["--arch", "gemma2-2b", "--batch", "1", "--seq", "4096",
+                    "--lr", "5e-6", "--device", "cuda"]
+HEAD_SPLIT_LAYERS = 2
+HEAD_SPLIT_STEPS = 3
 
 
 def flash_per_call(cfg, kind: str) -> int:
@@ -2054,7 +2086,8 @@ def phase_wire_train(torch, card, total_mem, innet: dict) -> dict:
           f"vs rhd: loss {l_ring!r} bitwise equal; grad norm {n_ring!r} vs "
           f"{n_rhd!r}, relative {rel:.2e} (limit 1e-3)")
     torch.cuda.empty_cache()
-    return {"loss1": losses[0], "norm1": norms[0]}
+    return {"loss1": losses[0], "norm1": norms[0], "peak": peak,
+            "step_ms": step_ms}
 
 
 def phase_lossy_train(torch, card, total_mem, dense: dict) -> None:
@@ -4535,6 +4568,163 @@ def phase_tensor_parallel(torch, card, total_mem, tr) -> dict:
     return dict(tp, dp_step_ms=dp["step_ms"], dp_peak=dp["peak"])
 
 
+def phase_dryrun(torch, card, wire: dict) -> None:
+    """Phase 32: the dry-run's train tracer against the card (module
+    docstring, item 32); ``wire`` is phase 10's measured step."""
+    from repro_torch.launch import dryrun, step_analysis
+
+    t_phase = time.perf_counter()
+    stats, secs, mcfg = dryrun.trace_flags(
+        WIRE_TRAIN_FLAGS, n_layers=TRAIN_LAYERS, dtype=torch.bfloat16)
+    terms = step_analysis.roofline_terms(stats.flops, stats.bytes_accessed,
+                                         stats.total_wire_bytes, 1)
+    pred, meas = stats.peak_bytes, wire["peak"]
+    rel = (pred - meas) / meas
+    step_s = wire["step_ms"] / 1e3
+    flash = stats.kernels.get("flash_attention", {})
+    print(f"dry-run of the wire step ({' '.join(WIRE_TRAIN_FLAGS)}, "
+          f"{TRAIN_LAYERS} layers, mesh {dict(zip(mcfg.axes, mcfg.shape))}) "
+          f"on meta in {secs:.1f} s: predicted peak {pred / 2**30:.2f} GiB "
+          f"(arguments {stats.argument_bytes / 2**30:.2f} GiB) vs the card's "
+          f"{meas / 2**30:.2f} GiB, {rel:+.2%} (tolerance "
+          f"{DRYRUN_PEAK_TOL:.0%}) [{card}]")
+    print(f"dry-run counts, the whole program on one card: flops "
+          f"{stats.flops:.4e} (flash {flash.get('flops', 0):.4e} in "
+          f"{flash.get('launches', 0)} launches), bytes accessed "
+          f"{stats.bytes_accessed:.4e} (2 x written), wire bytes "
+          f"{stats.total_wire_bytes:.4e}; roofline on the H100 data sheet: "
+          f"compute {terms['compute_s'] * 1e3:.1f} ms, memory "
+          f"{terms['memory_s'] * 1e3:.1f} ms, collective "
+          f"{terms['collective_s'] * 1e3:.1f} ms, dominant "
+          f"{terms['dominant']}; the measured step {wire['step_ms']:.1f} "
+          f"ms is {step_s / terms['compute_s']:.2f} x the compute term "
+          f"(compute term {terms['compute_s'] / step_s:.2%} of the step), "
+          f"{step_s / terms['memory_s']:.2f} x the memory term")
+    check(abs(rel) <= DRYRUN_PEAK_TOL, f"dry-run peak {pred} vs the card's "
+          f"{meas}: {rel:+.2%}")
+    check(flash.get("launches") == 2 * TRAIN_LAYERS,
+          f"the dry-run counted {flash.get('launches')} flash launches, "
+          f"the card made {2 * TRAIN_LAYERS} a step")
+    print(f"phase 32: phase {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def phase_head_split(torch, card) -> dict:
+    """Phase 33: gemma2-2b's query heads split over ``model`` (module
+    docstring, item 33)."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attn as fa
+
+    t_phase = time.perf_counter()
+    fa.launches = fa.tc_launches = 0
+    a = steps_of(torch, ["--mesh", "1x1x16", *HEAD_SPLIT_FLAGS],
+                 HEAD_SPLIT_LAYERS, HEAD_SPLIT_STEPS)
+    launches, tc = fa.launches, fa.tc_launches
+    b = steps_of(torch, ["--mesh", "1x1x1", *HEAD_SPLIT_FLAGS],
+                 HEAD_SPLIT_LAYERS, HEAD_SPLIT_STEPS)
+    want = HEAD_SPLIT_STEPS * flash_per_call(
+        configs.load("gemma2-2b").CONFIG.scaled(n_layers=HEAD_SPLIT_LAYERS),
+        "train")
+    rel = max(abs(x - y) / abs(y) for x, y in zip(
+        a["losses"] + a["norms"], b["losses"] + b["norms"]))
+    print(f"gemma2-2b at published widths, {HEAD_SPLIT_LAYERS} layers, one "
+          f"sequence of 4096, bf16: 8 query heads split over 16 model ranks "
+          f"(mesh {a['mesh']}) losses {a['losses']} norms {a['norms']}, "
+          f"step {a['step_ms']:.1f} ms, peak {a['peak'] / 2**30:.2f} GiB, "
+          f"flash launches {launches} ({tc} on the tensor cores, hd 256); "
+          f"one rank (mesh {b['mesh']}) losses {b['losses']} norms "
+          f"{b['norms']}, step {b['step_ms']:.1f} ms, peak "
+          f"{b['peak'] / 2**30:.2f} GiB; worst relative {rel:.2e} "
+          f"(tolerance {TP_BF16_TOL}) [{card}]")
+    check(all(map(math.isfinite, a["losses"] + a["norms"])),
+          f"1x1x16: {a['losses']} {a['norms']}")
+    check(launches == want and tc == launches, f"flash launches {launches} "
+          f"({tc} tensor-core) over {HEAD_SPLIT_STEPS} steps, want {want}")
+    check(rel <= TP_BF16_TOL, f"gemma2-2b 1x1x16 vs 1x1x1: {rel}")
+    print(f"phase 33: phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return dict(split=a, one=b, launches=launches)
+
+
+def _example(name: str):
+    """An ``examples_torch`` module, loaded from its file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(torch, card) -> None:
+    """Phase 34: the four examples on the card (module docstring, item
+    34)."""
+    import tempfile
+
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import quant as qt
+    from repro_torch.kernels import sparse_accum as sa
+
+    def reset():
+        fa.launches = 0
+        for d in (qt.launches, sa.launches):
+            for k in d:
+                d[k] = 0
+
+    t_phase = time.perf_counter()
+    reset()
+    t = time.perf_counter()
+    out = _example("quickstart").main([])
+    print(f"examples: quickstart {time.perf_counter() - t:.1f} s; int8 "
+          f"launches {dict(qt.launches)}, sparse {dict(sa.launches)} "
+          f"[{card}]")
+    check(all(out[a] <= 1e-4 for a in ("ring", "rhd", "fixed_tree",
+                                       "two_level", "psum", "auto")),
+          f"quickstart collectives: {out}")
+    check(out["f3_bitwise"] and 0 < out["nnz"] < 1 << 16
+          and out["int8_rel_err"] < 0.02 and out["incidents"],
+          f"quickstart: {out}")
+    check(all(qt.launches[k] > 0 for k in ("quantize", "dequantize",
+                                           "dequant_accum_slots")),
+          f"quickstart's int8 mode launched {qt.launches}")
+
+    reset()
+    t = time.perf_counter()
+    out = _example("sparse_allreduce_demo").main([])
+    print(f"examples: sparse_allreduce_demo {time.perf_counter() - t:.1f} "
+          f"s; int8 launches {dict(qt.launches)}, sparse "
+          f"{dict(sa.launches)}, flash {fa.launches} [{card}]")
+    for name, r in out.items():
+        check(all(map(math.isfinite, r["losses"]))
+              and r["losses"][-1] < r["losses"][0],
+              f"sparse_allreduce_demo {name}: {r['losses']}")
+    check(qt.launches["quantize"] > 0 and sa.launches["sparse_accum_slots"]
+          > 0 and fa.launches > 0, "sparse_allreduce_demo launched "
+          f"{qt.launches} {sa.launches} flash {fa.launches}")
+
+    reset()
+    with tempfile.TemporaryDirectory() as ck:
+        t = time.perf_counter()
+        out = _example("train_e2e").main(["--ckpt", ck])
+        print(f"examples: train_e2e {time.perf_counter() - t:.1f} s, "
+              f"{out['tok_s']:.0f} tok/s, flash launches {fa.launches} "
+              f"[{card}]")
+    losses = out["losses"]
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+          and out["steps"] == [100, 200] and fa.launches > 0,
+          f"train_e2e: losses {losses[0]} → {losses[-1]}, checkpoints "
+          f"{out['steps']}, flash {fa.launches}")
+
+    reset()
+    t = time.perf_counter()
+    reqs = _example("serve_batched").main([])
+    print(f"examples: serve_batched {time.perf_counter() - t:.1f} s, flash "
+          f"launches {fa.launches} [{card}]")
+    check(len(reqs) == 10 and all(r.done and r.out for r in reqs)
+          and fa.launches > 0, "serve_batched left a request unanswered")
+    torch.cuda.empty_cache()
+    print(f"phase 34: phase {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def plain_attention(q, k, v, *, causal=True, scale=None, attn_cap=0.0,
                     window=0, q_offset=0, kv_len=None):
     """``ops.attention``'s signature over the plain version (no kernel)."""
@@ -5456,6 +5646,10 @@ def main() -> int:
     phase_zamba_serve(torch, card, total_mem, args.seed)
     # -- tensor and expert parallelism over model ---------------------------
     phase_tensor_parallel(torch, card, total_mem, tr)
+    # -- the dry-run against the card, a head split, the examples ----------
+    phase_dryrun(torch, card, dense_wire)
+    phase_head_split(torch, card)
+    phase_examples(torch, card)
     check_path_flash(torch)
     launches["flash_attention"] = trained["launches"]
     figures["flash_attention"] = flash_figures(

@@ -52,3 +52,9 @@ def load(arch: str):
     if name not in ARCHS:
         raise NotImplementedError(f"unknown arch {arch!r} (have {ARCHS})")
     return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def all_cells():
+    """Every (arch × shape) cell: the 32-cell dry-run matrix (8 archs × 3
+    shapes, the 2 subquadratic ones × 4)."""
+    return [(a, s) for a in ARCHS for s in load(a).SHAPES]

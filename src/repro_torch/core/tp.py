@@ -44,6 +44,8 @@ import contextlib
 
 import torch
 
+from repro_torch.launch import step_analysis
+
 _SIZE = [1]
 
 
@@ -87,12 +89,18 @@ def psum(x: torch.Tensor, dim: int) -> torch.Tensor:
     acc = x.select(dim, 0)
     for m in range(1, x.shape[dim]):
         acc = acc + x.select(dim, m)
-    return acc.unsqueeze(dim).expand(x.shape)
+    out = acc.unsqueeze(dim).expand(x.shape)
+    step_analysis.collective("all-reduce", out, x.shape[dim],
+                             step_analysis.group_ranks(x, dim))
+    return out
 
 
 def pmax(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The maximum over ``dim``, on every rank, outside autograd."""
-    return x.detach().amax(dim, keepdim=True).expand(x.shape)
+    out = x.detach().amax(dim, keepdim=True).expand(x.shape)
+    step_analysis.collective("all-reduce", out, x.shape[dim],
+                             step_analysis.group_ranks(x, dim))
+    return out
 
 
 def rank_index(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -139,8 +147,11 @@ def _gather(x: torch.Tensor, dim: int, along: int) -> torch.Tensor:
     """Every rank's shard joined along ``along`` (a dim after the rank
     axes), on every rank."""
     full = torch.cat(x.unbind(dim), dim=along - 1 if along > dim else along)
-    return full.unsqueeze(dim).expand(
+    out = full.unsqueeze(dim).expand(
         *x.shape[:dim], x.shape[dim], *full.shape[dim:])
+    step_analysis.collective("all-gather", out, x.shape[dim],
+                             step_analysis.group_ranks(x, dim))
+    return out
 
 
 class _Gather(torch.autograd.Function):

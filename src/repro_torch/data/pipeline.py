@@ -1,6 +1,8 @@
 """Synthetic data pipeline.
 
-The port of ``synthetic_batches`` from ``repro/data/pipeline.py``: a
+The port of ``repro/data/pipeline.py``.  ``batch_structs`` gives
+``meta`` stand-ins for every model input of an (arch, shape-cell): the
+dry-run's inputs, no allocation.  ``synthetic_batches`` is a
 deterministic Zipf-ish token stream drawn with numpy from
 ``numpy.random.default_rng(seed)``, the same draws in the same order as
 the reference, so both packages see the same tokens.  Generation is
@@ -15,7 +17,32 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from repro_torch.configs import ShapeCell
 from repro_torch.models.base import ModelConfig
+
+
+def batch_structs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    """``meta`` tensors of the shapes and dtypes of the model inputs of
+    one (arch × shape) cell (the reference's ``jax.ShapeDtypeStruct``
+    stand-ins): the audio and VLM frames except at decode."""
+    b, s = cell.global_batch, cell.seq_len
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    if cell.kind == "train":
+        batch = {"tokens": meta((b, s), torch.int32),
+                 "labels": meta((b, s), torch.int32)}
+    elif cell.kind == "prefill":
+        batch = {"tokens": meta((b, s), torch.int32)}
+    else:  # decode: one new token against a seq_len cache
+        batch = {"tokens": meta((b, 1), torch.int32)}
+    if cfg.family == "audio" and cell.kind != "decode":
+        batch["enc_frames"] = meta((b, cfg.encoder_tokens, cfg.d_model),
+                                   cfg.dtype)
+    if cfg.family == "vlm" and cell.kind != "decode":
+        batch["vision_embeds"] = meta((b, cfg.vision_tokens, cfg.d_model),
+                                      cfg.dtype)
+    return batch
 
 
 def _make_batch(cfg: ModelConfig, b: int, s: int, rng: np.random.Generator,

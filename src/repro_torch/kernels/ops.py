@@ -5,6 +5,12 @@ quantization kernels, the sparse accumulate, the per-block top-k and
 flash attention.  A
 tensor on the CPU takes the plain PyTorch version (``ref``); a tensor on
 the card launches the CUDA kernel or raises — there is no fallback.
+
+A ``meta`` tensor (the dry-run's shapes without storage,
+``launch/dryrun.py``) takes an explicit branch of its own: it returns
+outputs of the kernel's shapes and dtypes and adds the kernel's
+operations and bytes to the step being counted
+(``launch.step_analysis.kernel``).  Nothing on the card reaches it.
 """
 from __future__ import annotations
 
@@ -16,6 +22,15 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sparse_accum as _sa
 from repro_torch.kernels import topk_compact as _tk
 from repro_torch.kernels import tree_reduce as _tr
+from repro_torch.launch import step_analysis as _sa_count
+
+
+def _meta_launch(name: str, outs: tuple, moved: int, flops: int = 0):
+    """The ``meta`` branch's launch: count the kernel's work, return its
+    outputs (no storage).  The byte-bound kernels count no operations,
+    as ``FlopCounterMode`` counts none for elementwise work."""
+    _sa_count.kernel(name, flops, moved, outs)
+    return outs
 
 
 def accum_dtype_for(dtype: torch.dtype) -> torch.dtype:
@@ -63,6 +78,11 @@ def tree_reduce_slots(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return tree_reduce_slots_plain(x)
     g, squeeze = _grouped(x)
+    if x.device.type == "meta":
+        gp = _pad_pow2(g, 1)
+        out, = _meta_launch("tree_reduce_slots", (gp.new_empty(
+            (gp.shape[0], *gp.shape[2:])),), _tr.bytes_moved(gp))
+        return out[0] if squeeze else out
     out = _tr.tree_reduce_slots(_pad_pow2(g, 1))
     return out[0] if squeeze else out
 
@@ -75,6 +95,10 @@ def tree_reduce(x: torch.Tensor) -> torch.Tensor:
     p, n = x.shape
     if x.device.type == "cpu":
         return tree_reduce_slots_plain(x.reshape(1, p, 1, n)).reshape(n)
+    if x.device.type == "meta":
+        xp = _pad_pow2(x, 0)
+        return _meta_launch("tree_reduce", (x.new_empty(n),),
+                            _tr.bytes_moved(xp.reshape(1, -1, 1, n)))[0]
     return _tr.tree_reduce(_pad_pow2(x, 0))
 
 
@@ -126,6 +150,12 @@ def quantize(x: torch.Tensor, qblock: int = 256
         x2 = torch.cat([x2, x2.new_zeros(x2.shape[0], pad)], dim=-1)
     if x2.device.type == "cpu":
         q, s = quantize_plain(x2, qblock)
+    elif x2.device.type == "meta":
+        r, n = x2.shape
+        q, s = _meta_launch("quantize", (
+            x2.new_empty((r, n), dtype=torch.int8),
+            x2.new_empty((r, n // qblock), dtype=torch.float32)),
+            _quant.quantize_bytes(x2, qblock))
     else:
         q, s = _quant.quantize(x2, qblock)
     return (q[0], s[0]) if squeeze else (q, s)
@@ -163,6 +193,13 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, qblock: int = 256,
                          "!= 0")
     if q.device.type == "cpu":
         return dequantize_plain(q, scales, qblock, out_dtype, minuend, out)
+    if q.device.type == "meta":
+        if minuend is not None:
+            out_dtype = minuend.dtype
+        if out is None:
+            out = q.new_empty(q.shape, dtype=out_dtype)
+        return _meta_launch("dequantize", (out,), _quant.dequantize_bytes(
+            q, qblock, out_dtype, minuend is not None))[0]
     return _quant.dequantize(q, scales, qblock, out_dtype, minuend, out)
 
 
@@ -206,6 +243,12 @@ def dequant_accum_slots(q: torch.Tensor, scales: torch.Tensor,
     if q.device.type == "cpu":
         return dequant_accum_slots_plain(q, scales, qblock, wire_order)
     q4, s4, squeeze = _stack_slots(q, scales)
+    if q.device.type == "meta":
+        g, _, s, e = q4.shape
+        out, = _meta_launch("dequant_accum_slots", (q4.new_empty(
+            (g, s, e), dtype=torch.float32),),
+            _quant.dequant_accum_bytes(q4, qblock))
+        return out[0] if squeeze else out
     out = _quant.dequant_accum_slots(q4, s4, qblock, wire_order)
     return out[0] if squeeze else out
 
@@ -234,6 +277,10 @@ def dequant_accum(q: torch.Tensor, scales: torch.Tensor,
         raise ValueError(f"dequant_accum: n={n} % qblock={qblock} != 0")
     if q.device.type == "cpu":
         return dequant_accum_plain(q, scales, qblock, wire_order)
+    if q.device.type == "meta":
+        return _meta_launch("dequant_accum", (q.new_empty(
+            n, dtype=torch.float32),), _quant.dequant_accum_bytes(
+            q.reshape(1, q.shape[0], n // qblock, qblock), qblock))[0]
     return _quant.dequant_accum(q, scales, qblock, wire_order)
 
 
@@ -254,6 +301,14 @@ def sparse_accum_slots_plain(idx: torch.Tensor, val: torch.Tensor,
     for c in _row_chunks(i2.shape[0], e):
         out[c] = _ref.sparse_accum_slots(i2[c], v2[c], size)
     return out.reshape(*lead, size)
+
+
+def _meta_sparse_bytes(idx: torch.Tensor, val: torch.Tensor,
+                       size: int) -> int:
+    """``sparse_accum_bytes`` with every entry kept: a ``meta`` list has
+    no values to tell a dropped entry by."""
+    rows = idx.numel() // max(1, idx.shape[-1])
+    return idx.numel() * (4 + val.element_size()) + 4 * rows * size
 
 
 def _lists(t: torch.Tensor) -> torch.Tensor:
@@ -277,6 +332,10 @@ def sparse_accum_slots(idx: torch.Tensor, val: torch.Tensor, size: int,
                          f"{tuple(val.shape)}")
     if idx.device.type == "cpu":
         return sparse_accum_slots_plain(idx, val, size)
+    if idx.device.type == "meta":
+        return _meta_launch("sparse_accum_slots", (val.new_empty(
+            (*idx.shape[:-1], size), dtype=torch.float32),),
+            _meta_sparse_bytes(idx, val, size))[0]
     out = _sa.sparse_accum_slots(_lists(idx), _lists(val), size,
                                  indices_sorted)
     return out.reshape(*idx.shape[:-1], size)
@@ -293,6 +352,10 @@ def sparse_accum(idx: torch.Tensor, val: torch.Tensor,
     if idx.device.type == "cpu":
         return sparse_accum_slots_plain(idx.unsqueeze(0), val.unsqueeze(0),
                                         size).reshape(size)
+    if idx.device.type == "meta":
+        return _meta_launch("sparse_accum", (val.new_empty(
+            size, dtype=torch.float32),),
+            _meta_sparse_bytes(idx, val, size))[0]
     return _sa.sparse_accum(idx, val, size)
 
 
@@ -324,6 +387,11 @@ def topk_compact(x: torch.Tensor, k: int, block: int = 512
         x = torch.cat([x, x.new_zeros(pad)])
     if x.device.type == "cpu":
         return topk_compact_plain(x, k, block)
+    if x.device.type == "meta":
+        nb = x.numel() // block
+        return _meta_launch("topk_compact", (
+            x.new_empty((nb, k)), x.new_empty((nb, k), dtype=torch.int32)),
+            _tk.topk_bytes(x, k, block))
     return _tk.topk_compact(x.contiguous(), k, block)
 
 
@@ -378,6 +446,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               q_offset=q_offset, kv_len=kv_len)
     if q.device.type == "cpu":
         return _ref.flash_attention_bshd(q, k, v, **kw)[0]
+    if q.device.type == "meta":
+        if not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in (q, k, v))):
+            return _meta_attention_fwd(q, k, v, **kw)[0]
+        return _MetaFlash.apply(q, k, v, causal, scale, attn_cap, window)
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in (q, k, v))):
         return _fa.attention_fwd(q, k, v, **kw)[0]
@@ -385,6 +458,55 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("masked attention on the card is forward-only: "
                          "run it under torch.no_grad or inference_mode")
     return _fa.FlashAttention.apply(q, k, v, causal, scale, attn_cap, window)
+
+
+def _meta_attention_fwd(q, k, v, *, causal, scale, attn_cap, window,
+                        q_offset=0, kv_len=None):
+    """The ``meta`` branch of ``flash_attn.attention_fwd``: ``(o, lse)`` of
+    the kernel's shapes and dtypes, its flops and bytes counted.  The
+    dtypes and head dims the card's kernels refuse are refused here."""
+    del scale, attn_cap
+    dims = _fa.TC_DIMS if q.dtype == torch.bfloat16 else _fa.FP32_DIMS
+    b, sq, h, hd = q.shape
+    sk, vd = k.shape[1], v.shape[-1]
+    if q.dtype not in _fa.DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype or (hd, vd) not in dims:
+        raise ValueError(f"flash_attention kernel: {q.dtype} {k.dtype} "
+                         f"{v.dtype} at (hd, vd) = {(hd, vd)}; wants one "
+                         f"dtype of {list(_fa.DTYPES)} and {dims}")
+    return _meta_launch(
+        "flash_attention",
+        (q.new_empty((b, sq, h, vd)),
+         q.new_empty((b, h, sq), dtype=torch.float32)),
+        _fa.bytes_moved(q, k, v, kv_len, window=window, q_offset=q_offset),
+        _fa.flops(b, h, sq, sk, hd, causal=causal, window=window, vd=vd,
+                  q_offset=q_offset, kv_len=kv_len))
+
+
+class _MetaFlash(_fa.FlashAttention):
+    """``FlashAttention`` with the ``meta`` branch's forward; its
+    backward is the card's, the plain chunked recompute, traced once a
+    shape (``step_analysis.repeat``): on ``meta`` its loop over query
+    chunks is most of a layer's tracing time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, attn_cap, window):
+        o, lse = _meta_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                     attn_cap=attn_cap, window=window)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.opts = (causal, scale, attn_cap, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        ts = (*ctx.saved_tensors, do)
+        causal, scale, attn_cap, window = ctx.opts
+        key = ("flash_attention_bwd", ctx.opts,
+               *((t.shape, t.stride(), t.dtype) for t in ts))
+        dq, dk, dv = _sa_count.repeat(key, lambda *a: _ref.flash_attention_bwd(
+            *a, causal=causal, scale=scale, attn_cap=attn_cap,
+            window=window), *ts)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -6,7 +6,11 @@ against, bit for bit.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from repro_torch.launch.step_analysis import repeat as _repeat
 
 
 def tree_reduce(x: torch.Tensor, accum_dtype: torch.dtype = torch.float32,
@@ -361,57 +365,72 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the keys those rows can see; dK and dV accumulate in fp32.  The
     softmax's own backward, ``ds = p·(dp − Σ p·dp)``, is taken over the
     whole row, as the reference's autodiff of ``softmax`` does; masked
-    scores get no gradient.
+    scores get no gradient.  Each block is :func:`_bwd_block`, traced
+    once a shape by the dry-run (``step_analysis.repeat``).
     """
     b, sq, h, hd = q.shape
     sk, kv, vd = k.shape[1], k.shape[2], v.shape[-1]
-    g = h // kv
     dq = torch.empty_like(q)
     dk = torch.zeros((b, sk, kv, hd), device=q.device)
     dv = torch.zeros((b, sk, kv, vd), device=q.device)
     nb = max(1, max_elems // (h * min(q_chunk, sq) * sk))
+    opts = dict(causal=causal, scale=scale, attn_cap=attn_cap, window=window)
     for b0 in range(0, b, nb):
         b1 = min(b, b0 + nb)
-        n = b1 - b0
         for i0 in range(0, sq, q_chunk):
             i1 = min(sq, i0 + q_chunk)
-            qn = i1 - i0
             lo, hi = 0, sk
             if causal and i1 - 1 < sk:     # every row sees its own key
                 hi = i1
                 if window > 0:
                     lo = max(0, i0 - window + 1)
-            qc = (q[b0:b1, i0:i1].float() * scale).reshape(
-                n, qn, kv, g, hd).permute(0, 2, 3, 1, 4)     # (n,KV,G,qn,hd)
-            doc = do[b0:b1, i0:i1].float().reshape(
-                n, qn, kv, g, vd).permute(0, 2, 3, 1, 4)
-            kk = k[b0:b1, lo:hi].float().permute(0, 2, 1, 3).unsqueeze(2)
-            vv = v[b0:b1, lo:hi].float().permute(0, 2, 1, 3).unsqueeze(2)
-            s = qc @ kk.transpose(-1, -2)                    # (n,KV,G,qn,kn)
-            t = None
-            if attn_cap > 0:
-                t = torch.tanh(s.div_(attn_cap))
-                s = t * attn_cap
-            mask = _mask(torch.arange(i0, i1, device=q.device),
-                         torch.arange(lo, hi, device=q.device), causal,
-                         window)
-            if mask is not None:
-                s.masked_fill_(~mask, MASKED)
-            lse_c = lse[b0:b1, :, i0:i1].reshape(n, kv, g, qn, 1)
-            p = s.sub_(lse_c).exp_()
-            dv[b0:b1, lo:hi] += (p.transpose(-1, -2) @ doc).sum(2).permute(
-                0, 2, 1, 3)
-            dp = doc @ vv.transpose(-1, -2)
-            ds = dp.sub_((p * dp).sum(-1, keepdim=True)).mul_(p)
-            del p, s
-            if t is not None:
-                ds.mul_(t.mul_(t).neg_().add_(1.0))
-                del t
-            if mask is not None:
-                ds.masked_fill_(~mask, 0.0)
-            dq[b0:b1, i0:i1] = (ds @ kk).mul_(scale).permute(
-                0, 3, 1, 2, 4).reshape(n, qn, h, hd).to(q.dtype)
-            dk[b0:b1, lo:hi] += (ds.transpose(-1, -2) @ qc).sum(2).permute(
-                0, 2, 1, 3)
-            del ds, dp
+            blk = (q[b0:b1, i0:i1], k[b0:b1, lo:hi], v[b0:b1, lo:hi],
+                   lse[b0:b1, :, i0:i1], do[b0:b1, i0:i1])
+            key = ("flash_bwd_block", tuple(opts.items()), i0 - lo,
+                   *((t.shape, t.stride(), t.dtype) for t in blk))
+            dq_c, dk_c, dv_c = _repeat(key, functools.partial(
+                _bwd_block, i0=i0, lo=lo, **opts), *blk)
+            dv[b0:b1, lo:hi] += dv_c
+            dq[b0:b1, i0:i1] = dq_c
+            dk[b0:b1, lo:hi] += dk_c
+            del dq_c, dk_c, dv_c
     return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_block(q, k, v, lse, do, *, i0: int, lo: int, causal: bool,
+               scale: float, attn_cap: float, window: int) -> tuple:
+    """One block of :func:`flash_attention_bwd`: query rows ``i0 …`` of
+    ``q`` (``(n, qn, H, hd)``) against keys ``lo …`` → the block's dQ in
+    ``q``'s dtype and its fp32 dK and dV terms ``(n, kn, KV, ·)``."""
+    n, qn, h, hd = q.shape
+    kn, kv, vd = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // kv
+    qc = (q.float() * scale).reshape(
+        n, qn, kv, g, hd).permute(0, 2, 3, 1, 4)             # (n,KV,G,qn,hd)
+    doc = do.float().reshape(n, qn, kv, g, vd).permute(0, 2, 3, 1, 4)
+    kk = k.float().permute(0, 2, 1, 3).unsqueeze(2)
+    vv = v.float().permute(0, 2, 1, 3).unsqueeze(2)
+    s = qc @ kk.transpose(-1, -2)                            # (n,KV,G,qn,kn)
+    t = None
+    if attn_cap > 0:
+        t = torch.tanh(s.div_(attn_cap))
+        s = t * attn_cap
+    mask = _mask(torch.arange(i0, i0 + qn, device=q.device),
+                 torch.arange(lo, lo + kn, device=q.device), causal, window)
+    if mask is not None:
+        s.masked_fill_(~mask, MASKED)
+    lse_c = lse.reshape(n, kv, g, qn, 1)
+    p = s.sub_(lse_c).exp_()
+    dv = (p.transpose(-1, -2) @ doc).sum(2).permute(0, 2, 1, 3)
+    dp = doc @ vv.transpose(-1, -2)
+    ds = dp.sub_((p * dp).sum(-1, keepdim=True)).mul_(p)
+    del p, s
+    if t is not None:
+        ds.mul_(t.mul_(t).neg_().add_(1.0))
+        del t
+    if mask is not None:
+        ds.masked_fill_(~mask, 0.0)
+    dq = (ds @ kk).mul_(scale).permute(0, 3, 1, 2, 4).reshape(
+        n, qn, h, hd).to(q.dtype)
+    dk = (ds.transpose(-1, -2) @ qc).sum(2).permute(0, 2, 1, 3)
+    return dq, dk, dv

@@ -348,13 +348,21 @@ def _prepare(args, overrides):
     """The device, the mesh config and the model the flags ask for."""
     import torch
 
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device (use --device cpu "
+                           "to run the ranks on the CPU)")
+    return (torch.device(args.device), *mesh_and_model(args, overrides))
+
+
+def mesh_and_model(args, overrides):
+    """The mesh config, the model config and the model the flags ask for
+    (no device: the dry-run traces them on ``meta``)."""
+    import torch
+
     from repro_torch import configs
     from repro_torch.models.registry import get_model
     from repro_torch.sharding import rules
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device (use --device cpu "
-                           "to run the ranks on the CPU)")
     dims = [int(x) for x in args.mesh.split("x")]
     if len(dims) == 2:
         axes, shape = ("data", "model"), tuple(dims)
@@ -370,7 +378,7 @@ def _prepare(args, overrides):
         cfg = cfg.scaled(dtype=torch.float32)
     if overrides:
         cfg = cfg.scaled(**overrides)
-    return torch.device(args.device), mcfg, cfg, get_model(cfg)
+    return mcfg, cfg, get_model(cfg)
 
 
 def _job(args, dev, mcfg, cfg, model, tcfg, *, init_seed: int,
@@ -395,21 +403,12 @@ def _job(args, dev, mcfg, cfg, model, tcfg, *, init_seed: int,
     return Run(args, cfg, mcfg, step, params, opt, stream, telemetry)
 
 
-def setup(argv=None, **overrides) -> Run:
-    """Parse the flags and build the job (``overrides`` replace fields
-    of the model config, e.g. ``n_layers``)."""
-    args = _parse(argv)
-    _check_flags(args)
-    if args.tenants > 1:
-        raise ValueError("--tenants > 1 builds several jobs: use "
-                         "setup_tenants")
-
+def train_config(args, mcfg, telemetry=None):
+    """The ``TrainConfig`` of one job's flags."""
     from repro_torch.core.engine import FlareConfig
     from repro_torch.train import trainer
 
-    dev, mcfg, cfg, model = _prepare(args, overrides)
-    telemetry = _telemetry(args)
-    tcfg = trainer.TrainConfig(
+    return trainer.TrainConfig(
         lr=args.lr,
         gather_algorithm=("fixed_tree" if args.reproducible
                           else args.gather_algorithm),
@@ -420,6 +419,19 @@ def setup(argv=None, **overrides) -> Run:
                           transport=args.transport,
                           fault_plan=_fault_plan(args),
                           telemetry=telemetry))
+
+
+def setup(argv=None, **overrides) -> Run:
+    """Parse the flags and build the job (``overrides`` replace fields
+    of the model config, e.g. ``n_layers``)."""
+    args = _parse(argv)
+    _check_flags(args)
+    if args.tenants > 1:
+        raise ValueError("--tenants > 1 builds several jobs: use "
+                         "setup_tenants")
+    dev, mcfg, cfg, model = _prepare(args, overrides)
+    telemetry = _telemetry(args)
+    tcfg = train_config(args, mcfg, telemetry)
     return _job(args, dev, mcfg, cfg, model, tcfg, init_seed=0, data_seed=1,
                 telemetry=telemetry)
 

@@ -5,8 +5,9 @@ a device mesh, one program per rank, with collectives over named axes.
 The port emulates the same mesh in one process on one device: a
 rank-local tensor ``x`` becomes ``(pod, data, *x.shape)`` and every
 collective becomes a tensor operation along the rank axes.  This module
-is the counterpart of ``compat.axis_size`` / ``world_size`` and of the
-fake meshes ``launch/mesh.FAKE_FLAT`` / ``FAKE_2D``.
+is the counterpart of ``compat.axis_size`` / ``world_size``, of the
+fake meshes ``launch/mesh.FAKE_FLAT`` / ``FAKE_2D`` and of its
+production meshes ``SINGLE_POD`` / ``MULTI_POD`` (``mesh_cfg``).
 
 * ``all_gather`` returns a **view** — every rank's copy of the stack is
   the same storage, never materialised.
@@ -25,10 +26,25 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.launch import step_analysis
+
 #: Reduction meshes over 8 emulated ranks, axes ``("pod", "data")``.
 FLAT = (1, 8)
 TWO_LEVEL = (2, 4)
 AXES = ("pod", "data")
+
+#: The production meshes the dry-run describes: 256 chips ``(data,
+#: model)``, and 2 pods of 256 ``(pod, data, model)``.
+SINGLE_POD = (16, 16)
+MULTI_POD = (2, 16, 16)
+
+
+def mesh_cfg(*, multi_pod: bool = False):
+    """The production mesh as a ``sharding.rules.MeshCfg``."""
+    from repro_torch.sharding.rules import MeshCfg
+    if multi_pod:
+        return MeshCfg(("pod", "data", "model"), MULTI_POD)
+    return MeshCfg(("data", "model"), SINGLE_POD)
 
 
 def axis_tuple(axes: str | Sequence[str]) -> tuple[str, ...]:
@@ -100,7 +116,10 @@ class RankMesh:
         k = self.dim(axis)
         shape = list(x.shape)
         shape.insert(k, self.shape[k])
-        return x.unsqueeze(k).expand(shape).movedim(k + 1, self.ndim)
+        out = x.unsqueeze(k).expand(shape).movedim(k + 1, self.ndim)
+        step_analysis.collective("all-gather", out, self.shape[k],
+                                 self.world_size())
+        return out
 
     def group_stack(self, x: torch.Tensor, axis: str,
                     rank: int) -> torch.Tensor:
@@ -140,7 +159,10 @@ class RankMesh:
             acc = acc + ranks[c]
         for k in ks:
             acc = acc.unsqueeze(k)
-        return acc.expand(x.shape)
+        out = acc.expand(x.shape)
+        step_analysis.collective("all-reduce", out, ranks.shape[0],
+                                 self.world_size())
+        return out
 
     def all_to_all(self, x: torch.Tensor, axis: str, split_axis: int,
                    concat_axis: int, tiled: bool = True) -> torch.Tensor:
@@ -166,7 +188,9 @@ class RankMesh:
         # rank r's chunk j ← rank j's chunk r: swap the two axes
         x = x.transpose(k, sa).movedim(sa, ca).contiguous()
         # tiled: the sources' chunks, in rank order, join concat_axis
-        return x.flatten(ca, ca + 1) if tiled else x
+        out = x.flatten(ca, ca + 1) if tiled else x
+        step_analysis.collective("all-to-all", out, p, self.world_size())
+        return out
 
     def ppermute(self, x: torch.Tensor, axis: str,
                  perm: Sequence[tuple[int, int]]) -> torch.Tensor:
@@ -178,6 +202,8 @@ class RankMesh:
         src = [None] * p
         for s, d in perm:
             src[d] = s
+        step_analysis.collective("collective-permute", x, p,
+                                 self.world_size())
         if all(s is not None for s in src):
             idx = torch.tensor(src, dtype=torch.long, device=x.device)
             return x.index_select(k, idx)

@@ -409,16 +409,23 @@ def _rank_kv(t: torch.Tensor, md: int, h: int, hl: int) -> torch.Tensor:
                         for m in range(t.shape[md])], md)
 
 
-def _heads(cfg: ModelConfig, wq: torch.Tensor) -> tuple[int, int | None]:
-    """(the query heads a rank holds, the ``model`` axis or ``None``)
-    from the query projection's width."""
+def _heads(cfg: ModelConfig, wq: torch.Tensor, inside: bool = False
+           ) -> tuple[int, int | None]:
+    """(the query heads a rank attends over, the ``model`` axis or
+    ``None``) from the query projection's width.  Where ``model`` splits
+    the projection inside a head (``h·hd`` divides by it, ``h`` does
+    not), a caller that takes ``inside`` gets every head: it attends over
+    all of them on every rank (:func:`gqa_attention`); any other caller
+    raises."""
     h, hd = cfg.n_heads, cfg.hd
     if not tp.splits(h * hd):
         return h, None
     if h % tp.size():
-        raise NotImplementedError(
-            f"tensor parallelism of {tp.size()} splits {h} query heads "
-            "inside a head")
+        if not inside:
+            raise NotImplementedError(
+                f"tensor parallelism of {tp.size()} splits {h} query heads "
+                "inside a head")
+        return h, tp.model_dim(wq, 2)
     return wq.shape[-1] // hd, tp.model_dim(wq, 2)
 
 
@@ -450,8 +457,10 @@ def rank_kv(cfg: ModelConfig, p: dict, x: torch.Tensor, md: int | None,
     if rope_pos is not None:
         kk = apply_rope(kk, rope_pos, cfg.rope_theta)
     if md is not None and not local:
-        hl = cfg.n_heads // tp.size()
-        kk, vv = (_rank_kv(a, md, cfg.n_heads, hl) for a in (kk, vv))
+        # a query head split over model: every rank holds all the K/V
+        kk, vv = (_rank_kv(a, md, cfg.n_heads, cfg.n_heads // tp.size())
+                  if cfg.n_heads % tp.size() == 0
+                  else tp.copy_to_model(a, md).contiguous() for a in (kk, vv))
     return kk, vv
 
 
@@ -466,7 +475,12 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     ``(out, (k, v))``.  The rank axes fold into attention's batch dim.
     Under tensor parallelism a rank runs its query heads (``wq``'s width
     over ``hd``), the K/V of :func:`rank_kv`, and ``wo`` row-parallel,
-    its partial output summed over ``model``.
+    its partial output summed over ``model``.  Where ``model`` splits a
+    query head (gemma2-2b's 8 heads over 16 ranks), it partitions as XLA
+    does: a rank's query columns are gathered over ``model``, every rank
+    attends over all the heads and all the K/V, and keeps its own
+    columns of the output for ``wo``; the gather's backward is a sum over
+    ``model`` of the ranks' partial gradients, then each rank's block.
 
     ``cache`` is ``{"k": (B, Smax, KV, hd), "v": ..., "pos": int}`` for a
     decode step (no rank axes): the new K/V are written into it **in
@@ -484,23 +498,33 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     """
     *lead, s, _ = x.shape
     hd = cfg.hd
-    h, md = _heads(cfg, p["wq"])
+    h, md = _heads(cfg, p["wq"], inside=True)
+    cols = p["wq"].shape[-1]
+    split = md is not None and cols != h * hd       # a head split over model
     xl = tp.copy_to_model(x, md) if md is not None else x
-    q = mm(xl, p["wq"]).reshape(*lead, s, h, hd)
+    q = mm(xl, p["wq"])
+    if split:       # the whole query, replicated, and back in below
+        q = tp.gather_from_model(q, md)
+    q = q.reshape(*lead, s, h, hd)
     pos = None
     if kv_override is None:
         pos0 = pos_offset if pos_offset is not None else 0
         pos = pos0 + torch.arange(s, device=x.device)
     if cfg.qk_norm:
-        qn = p["q_norm"] if md is None else tp.copy_to_model(p["q_norm"], md)
+        qn = (p["q_norm"] if md is None or split
+              else tp.copy_to_model(p["q_norm"], md))
         q = rmsnorm(q, qn, cfg.norm_eps)
     if kv_override is None:
         kk, vv = rank_kv(cfg, p, x, md, xl, rope_pos=pos)
         q = apply_rope(q, pos, cfg.rope_theta)
     else:
         kk, vv = kv_override
-        if md is not None:
+        if split:
+            kk, vv = (tp.copy_to_model(a, md).contiguous() for a in (kk, vv))
+        elif md is not None:
             kk, vv = (_rank_kv(a, md, cfg.n_heads, h) for a in (kk, vv))
+    if split:       # each rank's own copy (the kernel reads no stride 0)
+        q = tp.copy_to_model(q, md).contiguous()
     if cache is not None:
         if len(lead) != 1:
             raise ValueError(f"a KV cache takes (B, S, D) activations, got "
@@ -519,7 +543,10 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                      causal=causal and kv_override is None, window=window,
                      attn_cap=cfg.attn_softcap, chunk=cfg.attn_chunk)
         newkv = (kk, vv)
-    out = mm(out.reshape(*lead, s, h * hd), p["wo"])
+    out = out.reshape(*lead, s, h * hd)
+    if split:                           # the rank's own columns for wo
+        out = tp.own_slice(out, md, out.dim() - 1, cols)
+    out = mm(out, p["wo"])
     return (out if md is None else tp.reduce_from_model(out, md)), newkv
 
 

@@ -1141,3 +1141,37 @@ def test_tensor_parallel_train_step_on_cuda_matches_cpu(cuda):
     assert runs["cpu"][2] == runs["cpu"][3] == 0
     for a, b in zip(runs["cuda"][:2], runs["cpu"][:2]):
         assert abs(a - b) <= 1e-4 * abs(b)
+
+
+@pytest.mark.cuda
+def test_head_split_train_step_on_cuda_matches_cpu(cuda):
+    """One train step of gemma2-2b's SMOKE config (fp32) on ``1x1x8``: its
+    4 query heads split over 8 ``model`` ranks, so every rank attends over
+    all the heads and keeps its own columns of the output; the card
+    launches flash twice a layer over the 8 ranks' rows and gives the
+    CPU's loss and gradient norm within fp32 summation-order noise."""
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.data import pipeline
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding import rules
+    from repro_torch.train import trainer
+
+    cfg = gemma2_2b.SMOKE.scaled(dtype=torch.float32)
+    mcfg = rules.MeshCfg(("pod", "data", "model"), (1, 1, 8))
+    tcfg = trainer.TrainConfig(lr=1e-3, flare=FlareConfig(axes=AXES))
+    model = get_model(cfg)
+    full = model.init(torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        f = tree.map_leaves(lambda t: t.to(dev), full)
+        step = trainer.make_train_step(model, mcfg, tcfg, f)
+        params = rules.shard_params(f, mcfg)
+        opt = step.init_opt_state(params)
+        batch = next(pipeline.synthetic_batches(cfg, 2, 64, seed=1,
+                                                device=dev))
+        fa.launches = 0
+        params, opt, m = step(params, opt, rules.split_batch(batch, mcfg))
+        runs[dev] = (float(m["loss"]), float(m["grad_norm"]), fa.launches)
+    assert runs["cuda"][2] == 2 * cfg.n_layers and runs["cpu"][2] == 0
+    for a, b in zip(runs["cuda"][:2], runs["cpu"][:2]):
+        assert abs(a - b) <= 1e-4 * abs(b)

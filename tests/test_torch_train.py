@@ -808,10 +808,14 @@ def test_launcher_unported_flags_name_their_item(flags, item, tmp_path,
 
 
 def test_launcher_refuses_tensor_parallelism_and_a_missing_card():
-    """Tensor parallelism runs (``tests/test_torch_tp.py``) but for a split
-    that would cut a query head: SMOKE's 4 heads over ``model`` = 8."""
-    with pytest.raises(NotImplementedError, match="inside a head"):
-        launch_train.main(["--smoke", "--device", "cpu", "--mesh", "1x8"])
+    """Tensor parallelism runs, a query head split over ``model`` too:
+    SMOKE's 4 heads over ``model`` = 8 train as XLA partitions them
+    (``tests/test_torch_tp.py`` holds that split to the reference's own
+    8-device step); without a card ``--device cuda`` is refused."""
+    losses = launch_train.main(["--smoke", "--device", "cpu", "--mesh",
+                                "1x8", "--steps", "3", "--lr", "1e-2"])
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    assert losses[-1] < losses[0]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             launch_train.main(["--smoke", "--steps", "1"])
