@@ -102,7 +102,14 @@
    ``scaled_dot_product_attention`` in the same dtype with the same
    boolean mask (no cap: SDPA takes none); where the window hides a key,
    the plain version without it differs.  After phase 31 every launch
-   that phases 9, 18–31 recorded must have its case here.
+   that phases 9, 18–31 recorded must have its case here.  Then the
+   partial launch over a sequence split (``shards=``, sharded serving's
+   decode) alone: 2 data × 4 ``model`` ranks × 2 rows, the keys one
+   layer's strided slice of a ``(ranks, L, B, S_l, KV, d)`` cache, GQA
+   8/2, keyless shards, the window and the cap across shard boundaries,
+   Sq > 1, bf16 at every ``TC_DIMS`` pair and fp32 at hd 64 and 128,
+   against ``ref.flash_attention_partial``: bf16 one ulp, fp32 3e-5, a
+   keyless row ``o = 0``, ``lse = -inf`` bit for bit.
 8. The wire dense reductions (``WIRE_RUNS``), at the reduction paths'
    model and size: on ``(2, 4)`` the default (the hierarchical schedule,
    rhd levels), ``reproducible=True`` (its fixed-tree variant),
@@ -416,6 +423,49 @@
    kernels it runs launched (the int8 ones, ``sparse_accum_slots``,
    flash).
 
+35. Sharded serving (``serve.engine.make_serve_fns``): TinyLlama-1.1B at
+   published widths and 22 layers, bf16, global batch ``SHARD_B``, a
+   cache of ``SHARD_CACHE``, on ``(pod, data, model)`` = ``1x2x8`` (4
+   KV heads over 8 ranks: the cache split over its sequence, attended
+   by one partial flash launch a layer over every rank's block and
+   combined by the log-sum-exp over ``model``) and ``1x2x4`` (KV heads
+   over ``model``), each against the unsharded ``prefill`` /
+   ``decode_step`` on the same parameters: (a) a prefill of
+   ``SHARD_B`` prompts of ``SHARD_PROMPT``, logits within
+   ``SERVE_LOGIT_TOL`` of max|logit| and the cache's global view within
+   ``SHARD_CACHE_TOL`` of its largest element; (b) ``SHARD_STEPS``
+   teacher-forced decode steps from ``SHARD_POS`` in the cache (its
+   first ``SHARD_POS`` rows an unsharded prefill's, placed by
+   ``shard_cache``; at ``1x2x8`` ranks 5–7 hold no visible key on every
+   step), each step's logits within ``SERVE_LOGIT_TOL``, the flash
+   counters set to 0 just before and read just after (a partial launch
+   a layer a step at ``1x2x8``, an ordinary one at ``1x2x4``); (c) an
+   fp32 witness at ``SHARD_FP32_LAYERS`` layers within
+   ``SHARD_FP32_TOL``; (d) the last step's last partial launch at
+   ``1x2x8``, its tensors as the main path gave them, against the
+   plain version (``ref.flash_attention_partial``) on the same inputs:
+   the output within one bf16 ulp, the log-sum-exp within 3e-5 on the
+   rows that see a key, the keyless rows ``o = 0``, ``lse = -inf`` in
+   both.  Prints the median decode step at each layout
+   and unsharded, the peaks, the launches a step, and the partial
+   launch's time against its byte bound and against
+   ``scaled_dot_product_attention`` with a boolean mask over the same
+   shard's keys (its output only).  The dry-run's trace of the ``1x2x8``
+   decode step on ``meta`` must predict the card's peak for it (the
+   step's arguments and what it allocates above them) within
+   ``DRYRUN_PEAK_TOL``.
+36. gemma2-2b served sharded at all 26 layers, bf16, ``1x1x8`` (one of
+   its 8 query heads a rank, its 4 KV heads at hd 256 split over the
+   sequence: ``GEMMA_SHARD_CACHE`` / 8 positions a rank): global batch
+   ``GEMMA_SHARD_B``, ``GEMMA_SHARD_STEPS`` teacher-forced decode steps
+   from ``GEMMA_SHARD_POS``, so that on the local layers the window of
+   4096 starts inside rank 0, ``kv_len`` ends inside rank 4, ranks 5–7
+   are keyless and both softcaps apply: logits within
+   ``SERVE_LOGIT_TOL`` of the unsharded decode's; the last step's last
+   partial launch (a global layer) and its last windowed one (a local
+   layer) against the plain version as in phase 35 (d); the same
+   figures as phase 35.
+
 Prints the card's name and power limit (``nvidia-smi``), one JSON line
 of kernel figures, and as its last line ``{"ok": true, "device": ...}``.
 Exits non-zero without a result when no GPU is present or any check
@@ -690,6 +740,30 @@ HEAD_SPLIT_FLAGS = ["--arch", "gemma2-2b", "--batch", "1", "--seq", "4096",
                     "--lr", "5e-6", "--device", "cuda"]
 HEAD_SPLIT_LAYERS = 2
 HEAD_SPLIT_STEPS = 3
+#: phase 35: TinyLlama-1.1B served sharded at 22 layers: global batch,
+#: prompt, cache, the decode's first position and its steps; the two
+#: layouts ``(pod, data, model)``: the cache split over its sequence
+#: (4 KV heads over 8) and over its KV heads
+SHARD_B, SHARD_PROMPT, SHARD_CACHE = 16, 4096, 4096
+SHARD_POS, SHARD_STEPS = 2048, 32
+SHARD_MESHES = ((1, 2, 8), (1, 2, 4))
+#: phase 35: the sharded prefill's bf16 cache against the unsharded
+#: one's, within this share of its largest element.  Tensor parallelism
+#: sums a row-parallel product's bf16 partial outputs over ``model`` in
+#: bf16 (as XLA's all-reduce of them does), so every layer past the first
+#: takes K/V from a residual stream a few bf16 ulps off: the CPU
+#: rehearsal at 3–6 narrow layers found 1.4e-2 at ``1x2x8`` and at
+#: ``1x2x4`` alike (fp32: 1.3e-6), past the 1e-2 first planned.  The fp32
+#: witness holds the cache at ``SHARD_FP32_TOL``
+SHARD_CACHE_TOL = SERVE_LOGIT_TOL
+#: phase 35: the fp32 witness, its depth, decode steps and bound (the CPU
+#: tests hold fp32 at 1e-5 at SMOKE size)
+SHARD_FP32_LAYERS, SHARD_FP32_STEPS, SHARD_FP32_TOL = 2, 4, 1e-4
+#: phase 36: gemma2-2b served sharded at 26 layers on ``1x1x8``: global
+#: batch, the decode's first position, cache, steps
+GEMMA_SHARD_B, GEMMA_SHARD_POS = 8, 5000
+GEMMA_SHARD_CACHE, GEMMA_SHARD_STEPS = 8192, 16
+GEMMA_SHARD_MESH = (1, 1, 8)
 
 
 def flash_per_call(cfg, kind: str) -> int:
@@ -4725,6 +4799,486 @@ def phase_examples(torch, card) -> None:
     print(f"phase 34: phase {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
+def partial_vs_plain(torch, fa, ref, launch: tuple, label: str) -> tuple:
+    """One partial flash launch ``(q, k, v, kw)`` against its plain
+    version, ``ref.flash_attention_partial``, on the same inputs: the
+    output within :func:`flash_err`'s bound, the log-sum-exp within 3e-5
+    on every row that sees a key, and every keyless row exact in both
+    (``o = 0``, ``lse = -inf``).  Returns (the output's worst error, the
+    log-sum-exp's, the keyless rows)."""
+    q, k, v, kw = launch
+    o, lse = fa.attention_fwd(q, k, v, **kw)
+    po, plse = ref.flash_attention_partial(q, k, v, **kw)
+    torch.cuda.synchronize()
+    none = torch.isinf(plse)
+    check(torch.equal(torch.isinf(lse), none)
+          and not bool(o.movedim(-2, -3)[none].any())
+          and not bool(po.movedim(-2, -3)[none].any()),
+          f"{label}: keyless rows are not o = 0, lse = -inf")
+    err = flash_err(torch, o, po, v)
+    lerr = float((lse[~none] - plse[~none]).abs().max())
+    check(lerr <= 3e-5, f"{label}: partial flash lse {lerr} > 3e-5")
+    return err, lerr, int(none.sum())
+
+
+def phase_flash_partial_vs_plain(torch, ref, fa) -> None:
+    """Phase 7's partial launches (module docstring, item 7): the flash
+    kernel over a sequence split (``shards=``) against its plain version,
+    ``ref.flash_attention_partial``."""
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    n, b, sk, h, kv, shards = 8, 2, 96, 8, 2, 4
+    # Sq, q_offset, kv_len, causal, cap, window over 4 shards of 96 keys
+    cases = ((1, 150, 151, True, 0.0, 0), (3, 250, 253, True, 30.0, 100),
+             (1, 383, 384, True, 50.0, 0), (5, 0, 200, False, 0.0, 0),
+             (128, 90, 240, True, 0.0, 0), (1, 10, 11, True, 30.0, 8))
+    dims = [("bfloat16", d) for d in fa.TC_DIMS] + [
+        ("float32", (64, 64)), ("float32", (128, 128))]
+    worst, keyless, count = {}, 0, 0
+    before = (fa.partial_launches, fa.tc_launches)
+    for name, (hd, vd) in dims:
+        dt = getattr(torch, name)
+        k = torch.randn((n, 2, b, sk, kv, hd), generator=gen,
+                        device="cuda").to(dt)[:, 1]
+        v = torch.randn((n, 2, b, sk, kv, vd), generator=gen,
+                        device="cuda").to(dt)[:, 1]
+        for sq, off, kvl, causal, cap, win in cases:
+            q = torch.randn((n, b, sq, h, hd), generator=gen,
+                            device="cuda").to(dt)
+            kw = dict(shards=shards, causal=causal, attn_cap=cap,
+                      window=win, q_offset=off, kv_len=kvl,
+                      scale=hd ** -0.5)
+            err, _, none = partial_vs_plain(
+                torch, fa, ref, (q, k, v, kw),
+                f"partial flash {name} ({hd}, {vd}) {(sq, off, kvl)}")
+            worst[name] = max(worst.get(name, 0.0), err)
+            keyless += none
+            count += 1
+    check(fa.partial_launches - before[0] == count
+          and fa.tc_launches - before[1] == len(fa.TC_DIMS) * len(cases),
+          "partial flash: launch counters")
+    print(f"flash partial launches vs plain (ref.flash_attention_partial): "
+          f"{count} launches over 4 shards of 96 keys (2 data x 4 model "
+          f"ranks x 2 rows, GQA 8/2, the keys a strided layer slice), bf16 "
+          f"at {list(fa.TC_DIMS)} worst {worst['bfloat16']:.3e} (one ulp), "
+          f"fp32 at hd 64 and 128 worst {worst['float32']:.3e} (3e-5); "
+          f"{keyless} keyless rows o = 0, lse = -inf in both")
+
+
+def grown(torch, cache: dict, cache_len: int) -> dict:
+    """A prefill's cache with every K/V entry grown along its sequence to
+    ``cache_len`` positions (zeros past the prompts; new tensors)."""
+    out = dict(cache)
+    for name in set(cache) - {"pos"}:
+        out[name] = {k: torch.cat([v, v.new_zeros(
+            v.shape[:2] + (cache_len - v.shape[2],) + v.shape[3:])], 2)
+            for k, v in cache[name].items()}
+    return out
+
+
+def steps_timed(torch, step, toks) -> tuple:
+    """``step(token)`` for each column of ``toks`` (teacher-forced),
+    synchronised: the last-position fp32 logits and the ms of each."""
+    logits, ms = [], []
+    for i in range(toks.shape[1]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(toks[:, i:i + 1])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(out[:, -1].float())
+    return logits, ms
+
+
+def rel_err(got: list, want: list) -> float:
+    """The worst |got − want| over each pair, as a share of the pair's
+    max|want|."""
+    return max(float((a - b).abs().max()) / float(b.abs().max())
+               for a, b in zip(got, want))
+
+
+def sharded_decode(torch, card, model, params, cache, toks, mesh: tuple,
+                   cache_len: int, label: str, *, want: list,
+                   tol: float = SERVE_LOGIT_TOL, prompts=None,
+                   want_prefill=None, want_cache=None,
+                   cache_tol: float = SHARD_CACHE_TOL,
+                   dryrun_pos: int | None = None) -> dict:
+    """``make_serve_fns`` on ``(pod, data, model)`` = ``mesh``: with
+    ``prompts``, the sharded prefill against ``want_prefill`` /
+    ``want_cache`` (the unsharded one's logits and cache, within ``tol``
+    and ``cache_tol``); then the
+    sharded decode of ``toks`` teacher-forced from the global ``cache``
+    (placed by ``shard_cache``), the flash counters set to 0 just before
+    and read just after, each step's logits against ``want`` within
+    ``tol``.  A cache split over its sequence launches one partial flash
+    a layer a step, and the recorded launches must leave some shard
+    keyless.  With ``dryrun_pos`` the dry-run's trace of one decode step
+    at that position on ``meta`` must predict the card's peak for it
+    within ``DRYRUN_PEAK_TOL``.  Returns the figures and the last step's
+    last partial launch and, where a layer has a window, its last
+    windowed one (their tensors, ``launches``: to hold them against the
+    plain version and to time the first)."""
+    from repro_torch import tree
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.serve.engine import make_serve_fns
+    from repro_torch.sharding import rules
+
+    cfg = model.cfg
+    b = toks.shape[0]
+    mc = rules.MeshCfg(("pod", "data", "model"), mesh)
+    prefill_fn, decode_fn, layout = make_serve_fns(
+        model, mc, cache_batch=b, cache_len=cache_len)
+    sp = layout.shard_params(params)
+    seq = bool(layout.seq_split)
+    out = dict(mesh="x".join(map(str, mesh)), seq_split=seq)
+    if prompts is not None:
+        logits, pc = prefill_fn(sp, {"tokens": prompts})
+        out["prefill_err"] = rel_err([logits[:, -1].float()],
+                                     [want_prefill[:, -1].float()])
+        got = tree.flatten(layout.unshard_cache(pc))[0]
+        out["cache_err"] = max(
+            float((a.float() - w.float()).abs().max())
+            / float(w.float().abs().max())
+            for a, w in zip(got, tree.flatten(want_cache)[0])
+            if isinstance(a, torch.Tensor))
+        check(out["prefill_err"] <= tol, f"{label} {out['mesh']}: prefill "
+              f"logits {out['prefill_err']} of max|logit| from unsharded")
+        check(out["cache_err"] <= cache_tol, f"{label} {out['mesh']}: "
+              f"prefill cache {out['cache_err']} from unsharded")
+        del logits, pc, got
+    torch.cuda.empty_cache()
+    scache = layout.shard_cache(cache)
+    rec, keyless = {}, []
+    real = fa.attention_fwd
+
+    def record(q, k, v, **kw):
+        if kw.get("shards"):
+            rec["last"] = (q, k, v, kw)
+            if kw["window"]:
+                rec["window"] = (q, k, v, kw)
+            keyless.append(sum(m * k.shape[2] >= kw["kv_len"]
+                               for m in range(kw["shards"])))
+        return real(q, k, v, **kw)
+
+    def step(tok):
+        nonlocal scache
+        logits, scache = decode_fn(sp, tok, scache)
+        return logits
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.tc_launches = fa.partial_launches = 0
+    with mock.patch.object(fa, "attention_fwd", record):
+        logits, ms = steps_timed(torch, step, toks)
+    n = toks.shape[1]
+    layers = flash_per_call(cfg, "decode")
+    out.update(launches=fa.launches, partial=fa.partial_launches,
+               tc=fa.tc_launches, step_ms=ms,
+               peak=torch.cuda.max_memory_allocated(),
+               err=rel_err(logits, want),
+               recorded=[rec[k] for k in ("last", "window") if k in rec],
+               keyless=min(keyless) if keyless else 0)
+    tc = cfg.dtype == torch.bfloat16
+    check(out["launches"] == layers * n
+          and out["tc"] == (out["launches"] if tc else 0)
+          and out["partial"] == (out["launches"] if seq else 0),
+          f"{label} {out['mesh']}: flash launches {out['launches']} "
+          f"({out['partial']} partial, {out['tc']} tensor-core) over {n} "
+          f"steps of {layers} layers")
+    check(not seq or out["keyless"] >= 1, f"{label} {out['mesh']}: no "
+          "partial launch left a shard keyless")
+    check(out["err"] <= tol, f"{label} {out['mesh']}: decode logits "
+          f"{out['err']} of max|logit| from the unsharded decode's")
+    if dryrun_pos is not None:
+        out.update(dryrun_peak(torch, model, mc, decode_fn, sp, scache,
+                               toks[:, :1], cache_len, dryrun_pos))
+    del scache, sp
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_peak(torch, model, mc, decode_fn, sp, scache, tok,
+                cache_len: int, pos: int) -> dict:
+    """The dry-run's predicted peak of one sharded decode step at ``pos``
+    (``make_serve_fns`` on ``meta``, ``step_analysis.analyze``) against the
+    card's: the step's arguments (parameters, cache, tokens) and the most
+    it allocates above them.  Checked within ``DRYRUN_PEAK_TOL``."""
+    from repro_torch.launch import step_analysis
+    from repro_torch.models.registry import abstract_params
+    from repro_torch.serve.engine import make_serve_fns
+
+    b = tok.shape[0]
+    _, df, lay = make_serve_fns(model, mc, cache_batch=b,
+                                cache_len=cache_len, device="meta")
+    p = lay.shard_params(abstract_params(model))
+    c = lay.shard_cache(model.init_cache(b, cache_len, device="meta"))
+    c["pos"] = pos
+    t0 = time.perf_counter()
+    stats, _ = step_analysis.analyze(df, p, torch.empty(
+        tok.shape, dtype=tok.dtype, device="meta"), c)
+    secs = time.perf_counter() - t0
+    scache["pos"] = pos
+    args = sum(step_analysis._storages(step_analysis._tensors(
+        (sp, scache, tok))).values())
+    torch.cuda.synchronize()
+    base_alloc = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    decode_fn(sp, tok, scache)
+    torch.cuda.synchronize()
+    meas = args + torch.cuda.max_memory_allocated() - base_alloc
+    rel = (stats.peak_bytes - meas) / meas
+    check(abs(rel) <= DRYRUN_PEAK_TOL, f"dry-run decode peak "
+          f"{stats.peak_bytes} vs the card's {meas}: {rel:+.2%}")
+    return dict(dry_peak=stats.peak_bytes, dry_args=stats.argument_bytes,
+                card_peak=meas, card_args=args, dry_rel=rel, dry_s=secs,
+                dry_flash=stats.kernels.get("flash_attention", {}))
+
+
+def partial_figures(torch, card, recorded: list, label: str) -> dict:
+    """The main path's recorded partial launches (``recorded``: the last
+    step's last one, and its last windowed one where a layer has a
+    window) each held against the plain version on the same inputs at
+    their own shapes (:func:`partial_vs_plain`); then the first one's
+    time (CUDA events) against its bound (bytes at 3.35 TB/s or flops at
+    the bf16 peak, the larger) and against
+    ``scaled_dot_product_attention`` over the same shard's keys with the
+    boolean mask of each row's visible keys (its output only: a keyless
+    row's is NaN there), and the plain version's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import ref
+
+    checked = []
+    for launch in recorded:
+        kw = launch[3]
+        err, lerr, none = partial_vs_plain(
+            torch, fa, ref, launch, f"{label} partial launch at q "
+            f"{tuple(launch[0].shape)}, window {kw['window']}")
+        checked.append(dict(window=kw["window"], err=err, lse_err=lerr,
+                            keyless=none, shape=tuple(launch[0].shape)))
+    q, k, v, kw = recorded[0]
+    n, b, sq, h, hd = q.shape
+    sk, kvh, vd = k.shape[2], k.shape[3], v.shape[-1]
+    shards = kw["shards"]
+    ms = cuda_ms(lambda: fa.attention_fwd(q, k, v, **kw), 20)
+    plain_ms = cuda_ms(lambda: ref.flash_attention_partial(q, k, v, **kw), 3)
+    nbytes = fa.bytes_moved(q, k, v, kw["kv_len"], window=kw["window"],
+                            q_offset=kw["q_offset"], shards=shards)
+    flops = fa.flops(n * b, h, sq, sk, hd, causal=kw["causal"],
+                     window=kw["window"], vd=vd, q_offset=kw["q_offset"],
+                     kv_len=kw["kv_len"], shards=shards)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+    qt = q.reshape(n * b, sq, h, hd).transpose(1, 2)
+    kt, vt = (t.reshape(n * b, sk, kvh, t.shape[-1]).transpose(1, 2)
+              for t in (k, v))
+    dev = q.device
+    kpos = ((torch.arange(n, device=dev) % shards) * sk).repeat_interleave(
+        b)[:, None, None] + torch.arange(sk, device=dev)
+    qpos = (kw["q_offset"] + torch.arange(sq, device=dev))[None, :, None]
+    mask = kpos < kw["kv_len"]
+    if kw["causal"]:
+        mask = mask & (kpos <= qpos)
+        if kw["window"]:
+            mask = mask & (kpos > qpos - kw["window"])
+    mask = mask[:, None]
+    l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, scale=kw["scale"], enable_gqa=True), 20)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, library_ms=l_ms,
+                bytes=nbytes, flops=flops, checked=checked,
+                shape=(tuple(q.shape), tuple(k.shape), kw["q_offset"],
+                       kw["kv_len"]))
+
+
+def print_sharded(card, label: str, runs: list, plain: dict, fig: dict,
+                  phase: int, t_phase: float) -> None:
+    """Phases 35–36's figures: decode step medians, peaks, launches a
+    step, the partial launch's time."""
+    for r in runs:
+        n = len(r["step_ms"])
+        print(f"{label} on {r['mesh']} ("
+              f"{'sequence' if r['seq_split'] else 'KV heads'} split over "
+              f"model): decode step ms (median of {n}, {card}) "
+              f"{statistics.median(r['step_ms']):.2f} (first "
+              f"{r['step_ms'][0]:.2f}); flash launches a step "
+              f"{r['launches'] // n} ({r['partial'] // n} partial); peak "
+              f"{r['peak'] / 2**30:.2f} GiB; logits within {r['err']:.3e} "
+              f"of max|logit| of the unsharded steps"
+              + (f"; keyless shards a partial launch >= {r['keyless']}"
+                 if r["seq_split"] else "")
+              + (f"; prefill logits {r['prefill_err']:.3e}, cache "
+                 f"{r['cache_err']:.3e} of its largest"
+                 if "prefill_err" in r else ""))
+        if "dry_peak" in r:
+            print(f"{label} on {r['mesh']}: the dry-run's trace of one "
+                  f"decode step on meta ({r['dry_s']:.1f} s) predicts a peak "
+                  f"of {r['dry_peak'] / 2**30:.3f} GiB (arguments "
+                  f"{r['dry_args'] / 2**30:.3f}, flash "
+                  f"{r['dry_flash'].get('launches', 0)} launches) against "
+                  f"the card's {r['card_peak'] / 2**30:.3f} GiB (arguments "
+                  f"{r['card_args'] / 2**30:.3f}): {r['dry_rel']:+.2%} "
+                  f"(tolerance {DRYRUN_PEAK_TOL:.0%})")
+    print(f"{label} unsharded: decode step ms (median of "
+          f"{len(plain['step_ms'])}, {card}) "
+          f"{statistics.median(plain['step_ms']):.2f}; peak "
+          f"{plain['peak'] / 2**30:.2f} GiB")
+    (qs, ks, off, kvl) = fig["shape"]
+    print(f"{label}: the partial flash launch q {qs} k {ks} (a layer's "
+          f"strided slice) at position {off}, kv_len {kvl}: "
+          f"{fig['ms']:.4f} ms against its bound {fig['bound_ms']:.4f} ms "
+          f"({fig['bytes'] / 1e6:.2f} MB, {fig['flops'] / 1e9:.3f} GFLOP; "
+          f"{fig['bound_ms'] / fig['ms']:.1%}), plain "
+          f"{fig['plain_ms']:.3f} ms, library scaled_dot_product_attention "
+          f"with the boolean mask over the same shard's keys "
+          f"{fig['library_ms']:.4f} ms  [{card}]")
+    for c in fig["checked"]:
+        print(f"{label}: the recorded partial launch q {c['shape']} "
+              f"(window {c['window']}) against its plain version "
+              f"(ref.flash_attention_partial) on the same inputs: output "
+              f"{c['err']:.3e} (one bf16 ulp), lse {c['lse_err']:.3e} "
+              f"(3e-5), {c['keyless']} keyless rows o = 0, lse = -inf in "
+              f"both")
+    print(f"phase {phase}: phase {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+
+
+def unsharded_run(torch, model, params, cache, toks) -> dict:
+    """The unsharded decode of ``toks`` teacher-forced on ``cache`` (a
+    copy: the global cache is placed again for each layout)."""
+    from repro_torch import tree
+    c = tree.map_leaves(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                        else t, cache)
+
+    def step(tok):
+        nonlocal c
+        with torch.no_grad():
+            logits, c = model.decode(params, tok, c)
+        return logits
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits, ms = steps_timed(torch, step, toks)
+    peak = torch.cuda.max_memory_allocated()
+    del c
+    torch.cuda.empty_cache()
+    return dict(logits=logits, step_ms=ms, peak=peak)
+
+
+def phase_sharded_serve(torch, card, seed) -> dict:
+    """Phase 35: TinyLlama-1.1B served sharded (module docstring, item
+    35)."""
+    from repro_torch.configs import tinyllama_1_1b as tl
+    from repro_torch.models.registry import get_model
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = tl.CONFIG
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 35)
+    params = layerwise_params(model, gen)
+    prompts = torch.randint(0, cfg.vocab, (SHARD_B, SHARD_PROMPT),
+                            generator=gen, device="cuda")
+    with torch.no_grad():
+        want_prefill, want_cache = model.prefill(params, {"tokens": prompts})
+        cache = grown(torch, model.prefill(
+            params, {"tokens": prompts[:, :SHARD_POS]})[1], SHARD_CACHE)
+    toks = prompts[:, SHARD_POS:SHARD_POS + SHARD_STEPS]
+    plain = unsharded_run(torch, model, params, cache, toks)
+    runs = []
+    for mesh in SHARD_MESHES:
+        runs.append(sharded_decode(
+            torch, card, model, params, cache, toks, mesh, SHARD_CACHE,
+            "TinyLlama-1.1B sharded serving", want=plain["logits"],
+            prompts=prompts, want_prefill=want_prefill,
+            want_cache=want_cache,
+            dryrun_pos=SHARD_POS if mesh == SHARD_MESHES[0] else None))
+        if mesh == SHARD_MESHES[0]:
+            fig = partial_figures(torch, card, runs[-1]["recorded"],
+                                  "TinyLlama 1x2x8")
+        runs[-1]["recorded"] = None
+    check(runs[0]["seq_split"] and not runs[1]["seq_split"]
+          and runs[0]["keyless"] >= 3, f"phase 35's layouts: "
+          f"{[(r['mesh'], r['seq_split'], r['keyless']) for r in runs]}")
+    del params, cache, want_cache, plain["logits"]
+    torch.cuda.empty_cache()
+
+    # -- (c) the fp32 witness at SHARD_FP32_LAYERS layers --------------------
+    cfg32 = cfg.scaled(n_layers=SHARD_FP32_LAYERS, dtype=torch.float32)
+    m32 = get_model(cfg32)
+    p32 = m32.init(torch.Generator(device="cuda").manual_seed(seed + 36))
+    short = prompts[:, :SHARD_POS]
+    with torch.no_grad():
+        w32, wc32 = m32.prefill(p32, {"tokens": short})
+    c32 = grown(torch, wc32, SHARD_CACHE)
+    t32 = toks[:, :SHARD_FP32_STEPS]
+    plain32 = unsharded_run(torch, m32, p32, c32, t32)
+    worst32 = []
+    for mesh in SHARD_MESHES:
+        r = sharded_decode(torch, card, m32, p32, c32, t32, mesh,
+                           SHARD_CACHE, "TinyLlama fp32 witness",
+                           want=plain32["logits"], tol=SHARD_FP32_TOL,
+                           prompts=short, want_prefill=w32, want_cache=wc32,
+                           cache_tol=SHARD_FP32_TOL)
+        worst32.append((r["mesh"], r["prefill_err"], r["err"]))
+    print(f"TinyLlama fp32 witness at {SHARD_FP32_LAYERS} layers (prefill of "
+          f"{SHARD_B} x {SHARD_POS}, {SHARD_FP32_STEPS} decode steps): "
+          f"sharded against unsharded, prefill / decode logits within "
+          f"{[(m, f'{a:.2e}', f'{b:.2e}') for m, a, b in worst32]} of "
+          f"max|logit| (tolerance {SHARD_FP32_TOL})")
+    del p32, c32, wc32
+    torch.cuda.empty_cache()
+    print_sharded(card, "TinyLlama-1.1B (22 layers, bf16, global batch "
+                  f"{SHARD_B}, cache {SHARD_CACHE}, {SHARD_STEPS} steps "
+                  f"from {SHARD_POS})", runs, plain, fig, 35, t_phase)
+    return dict(runs=runs, plain=plain, fig=fig,
+                partial=sum(r["partial"] for r in runs))
+
+
+def phase_gemma_sharded(torch, card, seed) -> dict:
+    """Phase 36: gemma2-2b served sharded on ``1x1x8`` (module docstring,
+    item 36)."""
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.models.registry import get_model
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = gemma2_2b.CONFIG
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 36)
+    params = layerwise_params(model, gen)
+    prompts = torch.randint(0, cfg.vocab, (GEMMA_SHARD_B, GEMMA_SHARD_POS
+                                           + GEMMA_SHARD_STEPS),
+                            generator=gen, device="cuda")
+    with torch.no_grad():
+        cache = grown(torch, model.prefill(
+            params, {"tokens": prompts[:, :GEMMA_SHARD_POS]})[1],
+            GEMMA_SHARD_CACHE)
+    toks = prompts[:, GEMMA_SHARD_POS:]
+    plain = unsharded_run(torch, model, params, cache, toks)
+    run = sharded_decode(torch, card, model, params, cache, toks,
+                         GEMMA_SHARD_MESH, GEMMA_SHARD_CACHE,
+                         "gemma2-2b sharded serving", want=plain["logits"])
+    sl = GEMMA_SHARD_CACHE // GEMMA_SHARD_MESH[2]
+    last = GEMMA_SHARD_POS + GEMMA_SHARD_STEPS
+    check(run["seq_split"] and run["keyless"] >= 3
+          and GEMMA_SHARD_POS - cfg.window + 1 < sl
+          and 4 * sl < last <= 5 * sl, f"phase 36's masks across shards: "
+          f"{run['keyless']} keyless, window from "
+          f"{GEMMA_SHARD_POS - cfg.window + 1}, kv_len to {last}")
+    check(len(run["recorded"]) == 2, "phase 36 recorded no windowed "
+          "partial launch")
+    fig = partial_figures(torch, card, run["recorded"], "gemma2-2b 1x1x8")
+    run["recorded"] = None
+    del params, cache
+    torch.cuda.empty_cache()
+    print_sharded(card, "gemma2-2b (26 layers, bf16, global batch "
+                  f"{GEMMA_SHARD_B}, cache {GEMMA_SHARD_CACHE}, "
+                  f"{GEMMA_SHARD_STEPS} steps from {GEMMA_SHARD_POS}, window "
+                  f"{cfg.window}, caps {cfg.attn_softcap} / "
+                  f"{cfg.logit_softcap})", [run], plain, fig, 36, t_phase)
+    return dict(runs=[run], plain=plain, fig=fig, partial=run["partial"])
+
+
 def plain_attention(q, k, v, *, causal=True, scale=None, attn_cap=0.0,
                     window=0, q_offset=0, kv_len=None):
     """``ops.attention``'s signature over the plain version (no kernel)."""
@@ -4970,6 +5524,7 @@ def main() -> int:
     phase_sparse_vs_plain(torch, ops, tk, sa, sparse)
     phase_flash_vs_plain(torch, ops, ref, fa, base)
     flash_cases = phase_flash_model_cases(torch, fa, ref, card)
+    phase_flash_partial_vs_plain(torch, ref, fa)
 
     # -- the dense main path: (2, 4) mesh, full width -----------------------
     cfg = tl.CONFIG.scaled(n_layers=LAYERS)
@@ -5650,8 +6205,12 @@ def main() -> int:
     phase_dryrun(torch, card, dense_wire)
     phase_head_split(torch, card)
     phase_examples(torch, card)
+    # -- sharded serving: a sequence-split cache over model ------------------
+    sharded = phase_sharded_serve(torch, card, args.seed)
+    gemma_sharded = phase_gemma_sharded(torch, card, args.seed)
     check_path_flash(torch)
-    launches["flash_attention"] = trained["launches"]
+    launches["flash_attention"] = (trained["launches"] + sharded["partial"]
+                                   + gemma_sharded["partial"])
     figures["flash_attention"] = flash_figures(
         torch, card, flash_cases["tinyllama train"])
 
@@ -5661,7 +6220,8 @@ def main() -> int:
           "hierarchical wire int8 reduction, its launches those of two); "
           "tree_reduce, sparse_accum and topk_compact are one launch each; "
           "flash_attention is one launch at the training path's shape, its "
-          "launches those of 5 training steps")
+          "launches those of 5 training steps and the partial launches of "
+          "phases 35-36's sharded decode steps")
     routes = [("tree_reduce_slots", "tree_reduce"),
               ("tree_reduce", "tree_reduce"), ("quantize", "quant"),
               ("dequantize", "quant"), ("dequant_accum_slots", "quant"),

@@ -27,7 +27,10 @@ rank's gradient the gradient of one loss:
   * :func:`gather_from_model` leaves it with shards: an all-gather along
     a dim forward, each rank's own slice backward;
   * :func:`allreduce_model` sums partial values that feed rank-local
-    work again (a norm over a split dim): a sum both ways.
+    work again (a norm over a split dim): a sum both ways;
+  * :func:`lse_combine` joins partial attention over a sequence split
+    across ``model`` (sharded serving's decode): each rank's output over
+    its block of keys, weighted by its log-sum-exp.
 
 Sums over ``model`` run in rank order, rank 0 first, so a replay gives
 the same bits, and every rank holds the one result (a broadcast view).
@@ -208,3 +211,22 @@ def local_slice(x: torch.Tensor, dim: int, along: int = -1) -> torch.Tensor:
     along = along % x.dim()
     tp = x.shape[dim]
     return own_slice(copy_to_model(x, dim), dim, along, x.shape[along] // tp)
+
+
+def lse_combine(o: torch.Tensor, lse: torch.Tensor, dim: int
+                ) -> torch.Tensor:
+    """Every ``model`` rank's partial attention over its block of keys →
+    the attention over all of them, on every rank (serving, no autograd).
+
+    ``o`` is ``(..., Sq, H, vd)``, ``lse`` ``(..., Sq, H)`` fp32, the
+    ``model`` axis at ``dim``.  Rank ``m`` weighs its output by
+    ``exp(lse_m − max lse)`` (:func:`pmax`); the weighted outputs and the
+    weights are summed in fp32 in rank order (:func:`psum`) and divided.
+    A rank with ``lse = -inf`` (no visible key) contributes exactly 0.
+    Returns ``o``'s shape and dtype."""
+    lse = lse.float()
+    keyless = torch.isneginf(lse)
+    w = torch.where(keyless, 0.0, torch.exp(lse - pmax(lse, dim)))
+    num = psum(w[..., None] * o.float(), dim)
+    den = psum(w, dim)[..., None]
+    return (num / torch.clamp(den, min=1e-30)).to(o.dtype)

@@ -93,6 +93,23 @@
 // every row of the block (exact: each skipped score would add
 // exp(−1e30 − m) = 0 to a row that holds its own key), and both schedule
 // heavy (late) causal query tiles first.
+//
+// Batch rows: the launch's batch is N · B rows, (outer n, inner b), each
+// with a stride of its own, so that a KV cache laid out (ranks, L, B, S,
+// KV, hd) is read where it lies, one layer's slice of every rank in one
+// launch (row n · B + b of the output and the log-sum-exp).
+//
+// Partial attention over a shard of the keys (shards > 0): the keys of
+// outer row n are the (n mod shards)-th block of Sk keys of a sequence
+// split over `shards` ranks, key j at the absolute position
+// (n mod shards) · Sk + j.  The causal mask, the window and kv_len (the
+// count of valid keys of the whole sequence) apply to that position.  A
+// query row that sees none of its shard's keys writes o = 0 and
+// lse = −inf, so that the shards' results combine by their log-sum-exp
+// (core/tp.py::lse_combine) with that shard's weight exactly 0; a block
+// none of whose rows sees a key writes that and returns.  Without
+// shards a row without a key is the caller's error (the wrapper refuses
+// it), as before.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -117,14 +134,28 @@ struct Args {
   const void* v;
   void* o;
   float* lse;
-  int B, H, KV, Sq, Sk;
-  // element strides (batch, seq, head) of q, k, v, o
-  long long qs[3], ks[3], vs[3], os[3];
+  int B, H, KV, Sq, Sk;  // B: the inner batch rows an outer row
+  // element strides (outer, batch, seq, head) of q, k, v, o
+  long long qs[4], ks[4], vs[4], os[4];
   float scale, cap;
   int causal, window;
-  int q_off;  // absolute position of query row 0
-  int klim;   // keys below min(Sk, kv_len) exist; the rest are hidden
+  int q_off;   // absolute position of query row 0
+  int kv_len;  // keys at or past this absolute position are hidden
+  int shards;  // > 0: partial attention over shard (n mod shards)
 };
+
+// The first key of outer row n's shard, an absolute position.
+__device__ __forceinline__ int shard_base(int n, int shards, int Sk) {
+  return shards > 0 ? (n % shards) * Sk : 0;
+}
+
+// Whether the row at position p (counted from the shard's first key)
+// sees one of the klim keys below min(Sk, kv_len) under the mask.
+__device__ __forceinline__ bool row_sees(int p, int klim, int causal, int window) {
+  const int hi = causal ? min(klim, p + 1) : klim;
+  const int lo = causal && window > 0 ? max(0, p - window + 1) : 0;
+  return hi > lo;
+}
 
 // TPR threads a query row (neighbours in one warp), each holding the DH =
 // HD / TPR head dims from d0 on.
@@ -137,17 +168,22 @@ __global__ void __launch_bounds__(QT * TPR) flash_fwd_kernel(Args a) {
   __shared__ __align__(16) float vsm[KTT][HD];
 
   const int bh = blockIdx.x;
-  const int b = bh / a.H, h = bh % a.H;
+  const int bb = bh / a.H, h = bh % a.H;
+  const int n = bb / a.B, b = bb % a.B;
   const int kvh = h / (a.H / a.KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * QT;   // late tiles first
   const int row = q0 + threadIdx.x / TPR;
   const int d0 = threadIdx.x % TPR * DH;
   const bool live = row < a.Sq;
+  // positions from here on count from the shard's first key
+  const int kb0 = shard_base(n, a.shards, a.Sk);
+  const int qoff = a.q_off - kb0;
+  const int klim = min(a.Sk, a.kv_len - kb0);  // may be <= 0: no key
 
   float qr[DH];
   {
-    const T* qp = static_cast<const T*>(a.q) + b * a.qs[0] +
-                  static_cast<long long>(live ? row : 0) * a.qs[1] + h * a.qs[2] + d0;
+    const T* qp = static_cast<const T*>(a.q) + n * a.qs[0] + b * a.qs[1] +
+                  static_cast<long long>(live ? row : 0) * a.qs[2] + h * a.qs[3] + d0;
 #pragma unroll
     for (int d = 0; d < DH; ++d) qr[d] = live ? to_f(qp[d]) * a.scale : 0.f;
   }
@@ -157,16 +193,16 @@ __global__ void __launch_bounds__(QT * TPR) flash_fwd_kernel(Args a) {
   float m = -INFINITY, l = 0.f;
 
   // the key range any row of this block can see
-  const int qlast = a.q_off + min(q0 + QT, a.Sq) - 1;
-  int kbeg = 0, kend = a.klim;
+  const int qlast = qoff + min(q0 + QT, a.Sq) - 1;
+  int kbeg = 0, kend = klim;
   if (a.causal) {
-    kend = min(a.klim, qlast + 1);
-    if (a.window > 0 && qlast < a.klim) kbeg = max(0, a.q_off + q0 - a.window + 1) / KTT * KTT;
+    kend = min(klim, qlast + 1);
+    if (a.window > 0 && qlast < klim) kbeg = max(0, qoff + q0 - a.window + 1) / KTT * KTT;
   }
-  const int pos = a.q_off + row;  // the row's absolute position
+  const int pos = qoff + row;  // the row's position
 
-  const T* kb = static_cast<const T*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
-  const T* vb = static_cast<const T*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
+  const T* kb = static_cast<const T*>(a.k) + n * a.ks[0] + b * a.ks[1] + kvh * a.ks[3];
+  const T* vb = static_cast<const T*>(a.v) + n * a.vs[0] + b * a.vs[1] + kvh * a.vs[3];
 
   for (int t0 = kbeg; t0 < kend; t0 += KTT) {
     __syncthreads();   // the previous tile is consumed
@@ -174,8 +210,8 @@ __global__ void __launch_bounds__(QT * TPR) flash_fwd_kernel(Args a) {
       const int r = i / HD, c = i % HD;
       const int key = t0 + r;
       const bool in = key < kend;
-      ksm[r][c] = in ? to_f(kb[static_cast<long long>(key) * a.ks[1] + c]) : 0.f;
-      vsm[r][c] = in ? to_f(vb[static_cast<long long>(key) * a.vs[1] + c]) : 0.f;
+      ksm[r][c] = in ? to_f(kb[static_cast<long long>(key) * a.ks[2] + c]) : 0.f;
+      vsm[r][c] = in ? to_f(vb[static_cast<long long>(key) * a.vs[2] + c]) : 0.f;
     }
     __syncthreads();
     const int nk = min(KTT, kend - t0);
@@ -246,17 +282,20 @@ __global__ void __launch_bounds__(QT * TPR) flash_fwd_kernel(Args a) {
   }
 
   if (live) {
+    // a shard's row without a key: o = 0 and lse = −inf
+    const bool none = a.shards > 0 && !row_sees(pos, klim, a.causal, a.window);
     const float den = fmaxf(l, 1e-30f);
-    T* op = static_cast<T*>(a.o) + b * a.os[0] + static_cast<long long>(row) * a.os[1] +
-            h * a.os[2] + d0;
+    T* op = static_cast<T*>(a.o) + n * a.os[0] + b * a.os[1] +
+            static_cast<long long>(row) * a.os[2] + h * a.os[3] + d0;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) op[d] = from_f<T>(acc[d] / den);
-    if (d0 == 0) a.lse[static_cast<long long>(bh) * a.Sq + row] = m + logf(l);
+    for (int d = 0; d < DH; ++d) op[d] = from_f<T>(none ? 0.f : acc[d] / den);
+    if (d0 == 0)
+      a.lse[static_cast<long long>(bh) * a.Sq + row] = none ? -INFINITY : m + logf(l);
   }
 }
 
-cudaError_t launch_fp32(const Args& a, int hd, cudaStream_t s) {
-  const dim3 grid(a.B * a.H, (a.Sq + QT - 1) / QT);
+cudaError_t launch_fp32(const Args& a, int N, int hd, cudaStream_t s) {
+  const dim3 grid(N * a.B * a.H, (a.Sq + QT - 1) / QT);
   switch (hd) {
     case 16: flash_fwd_kernel<float, 16, 1><<<grid, QT, 0, s>>>(a); break;
     case 32: flash_fwd_kernel<float, 32, 1><<<grid, QT, 0, s>>>(a); break;
@@ -304,12 +343,13 @@ struct Shape {
 struct Args {
   void* o;
   float* lse;
-  int H, KV, Sq, Sk;
-  long long os[3];  // element strides (batch, seq, head) of o
+  int B, H, KV, Sq, Sk;  // B: the inner batch rows an outer row
+  long long os[4];  // element strides (outer, batch, seq, head) of o
   float scale, cap;
   int causal, window;
-  int q_off;  // absolute position of query row 0
-  int klim;   // keys below min(Sk, kv_len) exist; the rest are hidden
+  int q_off;   // absolute position of query row 0
+  int kv_len;  // keys at or past this absolute position are hidden
+  int shards;  // > 0: partial attention over shard (n mod shards)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -340,13 +380,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
-// One box of a 4-D (dim, heads, seq, batch) tensor map into shared memory.
+// One box of a 5-D (dim, heads, seq, batch, outer) tensor map into shared
+// memory.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
+                                         int c0, int c1, int c2, int c3, int c4) {
   asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+      "r"(bar)
       : "memory");
 }
 
@@ -494,9 +536,10 @@ struct Frag {
 // thread's two rows: s becomes exp2(s − m), l gathers it, and al0, al1
 // are the factors the output rows are rescaled by.
 template <int KT>
-__device__ __forceinline__ void softmax_tile(float (&s)[KT / 2], const Args& a, const Frag& f,
-                                             int t0, float& m0, float& m1, float& l0,
-                                             float& l1, float& al0, float& al1) {
+__device__ __forceinline__ void softmax_tile(float (&s)[KT / 2], const Args& a, int qoff,
+                                             int klim, const Frag& f, int t0, float& m0,
+                                             float& m1, float& l0, float& l1, float& al0,
+                                             float& al1) {
   if (a.cap > 0.f) {
 #pragma unroll
     for (int i = 0; i < KT / 2; ++i) s[i] = tanhf(s[i] * a.scale / a.cap) * a.cap * LOG2E;
@@ -505,16 +548,16 @@ __device__ __forceinline__ void softmax_tile(float (&s)[KT / 2], const Args& a, 
 #pragma unroll
     for (int i = 0; i < KT / 2; ++i) s[i] *= c;
   }
-  const int lo = a.q_off + f.r_lo;  // the warpgroup's first absolute position
-  const bool whole = t0 + KT <= a.klim &&
+  const int lo = qoff + f.r_lo;  // the warpgroup's first position
+  const bool whole = t0 + KT <= klim &&
                      (!a.causal || (t0 + KT - 1 <= lo &&
                                     (a.window == 0 || t0 > lo + 63 - a.window)));
   if (!whole) {
 #pragma unroll
     for (int i = 0; i < KT / 2; ++i) {
       const int key = t0 + 8 * (i / 4) + f.col + (i & 1);
-      const int row = a.q_off + ((i & 2) ? f.row1 : f.row0);
-      if (key >= a.klim) {
+      const int row = qoff + ((i & 2) ? f.row1 : f.row0);
+      if (key >= klim) {
         s[i] = -INFINITY;  // no such key
       } else if (a.causal && (key > row || (a.window > 0 && key <= row - a.window))) {
         s[i] = -1e30f * LOG2E;
@@ -551,7 +594,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[KT / 2], const Args& a, 
   l1 = l1 * al1 + ps1;
 }
 
-template <int HD, int VD>
+// SHARDED: a partial launch (shards > 0).  The ordinary launch is an
+// instance of its own that does none of the shard work (tools/flash_ab.py
+// times it against an earlier version of this file).
+template <int HD, int VD, bool SHARDED>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -571,17 +617,34 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t vfree = kfree + 8 * STAGES;         // [STAGES] V released
 
   const int bh = blockIdx.x;
-  const int b = bh / a.H, h = bh % a.H;
+  const int bb = bh / a.H, h = bh % a.H;
+  const int n = bb / a.B, b = bb % a.B;
   const int kvh = h / (a.H / a.KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * QT;  // late tiles first
+  // positions from here on count from the shard's first key
+  const int kb0 = SHARDED ? (n % a.shards) * a.Sk : 0;
+  const int qoff = a.q_off - kb0;
+  const int klim = min(a.Sk, a.kv_len - kb0);  // may be <= 0: no key
   // the key range any row of this block can see
-  const int qlast = a.q_off + min(q0 + QT, a.Sq) - 1;
-  int kbeg = 0, kend = a.klim;
+  const int qlast = qoff + min(q0 + QT, a.Sq) - 1;
+  int kbeg = 0, kend = klim;
   if (a.causal) {
-    kend = min(a.klim, qlast + 1);
-    if (a.window > 0 && qlast < a.klim) kbeg = max(0, a.q_off + q0 - a.window + 1) / KT * KT;
+    kend = min(klim, qlast + 1);
+    if (a.window > 0 && qlast < klim) kbeg = max(0, qoff + q0 - a.window + 1) / KT * KT;
   }
   const int ntiles = (kend - kbeg + KT - 1) / KT;
+  if (SHARDED && ntiles <= 0) {  // a shard none of whose rows sees a key (block-uniform)
+    __nv_bfloat16* ob =
+        static_cast<__nv_bfloat16*>(a.o) + n * a.os[0] + b * a.os[1] + h * a.os[3];
+    float* lb = a.lse + static_cast<long long>(bh) * a.Sq;
+    for (int i = threadIdx.x; i < QT * VD; i += THREADS) {
+      const int row = q0 + i / VD;
+      if (row < a.Sq) ob[row * a.os[2] + i % VD] = __float2bfloat16(0.f);
+    }
+    for (int i = threadIdx.x; i < QT; i += THREADS)
+      if (q0 + i < a.Sq) lb[q0 + i] = -INFINITY;
+    return;
+  }
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
@@ -601,7 +664,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (warp == 4 * CONSUMERS && lane == 0) {
       mbar_expect_tx(qbar, S::Q_BYTES);
 #pragma unroll 1
-      for (int c = 0; c < S::HC; ++c) tma_load(sq + c * QT * 128, &tq, qbar, 64 * c, h, q0, b);
+      for (int c = 0; c < S::HC; ++c) tma_load(sq + c * QT * 128, &tq, qbar, 64 * c, h, q0, b, n);
 #pragma unroll 1
       for (int it = 0; it < ntiles; ++it) {
         const int st = it % STAGES;
@@ -611,12 +674,14 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_expect_tx(kfull + 8 * st, S::K_BYTES);
 #pragma unroll 1
         for (int c = 0; c < S::HC; ++c)
-          tma_load(sk + st * S::K_BYTES + c * KT * 128, &tk, kfull + 8 * st, 64 * c, kvh, t0, b);
+          tma_load(sk + st * S::K_BYTES + c * KT * 128, &tk, kfull + 8 * st, 64 * c, kvh, t0, b,
+                   n);
         if (it >= STAGES) mbar_wait(vfree + 8 * st, par);
         mbar_expect_tx(vfull + 8 * st, S::V_BYTES);
 #pragma unroll 1
         for (int c = 0; c < S::VC; ++c)
-          tma_load(sv + st * S::V_BYTES + c * KT * 128, &tv, vfull + 8 * st, 64 * c, kvh, t0, b);
+          tma_load(sv + st * S::V_BYTES + c * KT * 128, &tv, vfull + 8 * st, 64 * c, kvh, t0, b,
+                   n);
       }
     }
     return;
@@ -700,7 +765,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   wg_wait<0>();
   pin(s);
   release(kfree, 0);
-  softmax_tile<KT>(s, a, f, kbeg, m0, m1, l0, l1, al0, al1);
+  softmax_tile<KT>(s, a, qoff, klim, f, kbeg, m0, m1, l0, l1, al0, al1);
   to_operand();
   // tile it's scores on the tensor cores while tile it - 1's P·V follows
   // them, then tile it's softmax while P·V runs
@@ -712,7 +777,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     wg_wait<1>();
     pin(s);
     release(kfree, it);
-    softmax_tile<KT>(s, a, f, kbeg + it * KT, m0, m1, l0, l1, al0, al1);
+    softmax_tile<KT>(s, a, qoff, klim, f, kbeg + it * KT, m0, m1, l0, l1, al0, al1);
     wg_wait<0>();
 #pragma unroll
     for (int c = 0; c < S::VC; ++c) pin(o[c]);
@@ -741,14 +806,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   pin(plo);
 
   // the epilogue: the row sums over the 4 lanes, o / max(l, 1e-30) in
-  // bf16 clipped at Sq and vd, and the log-sum-exp m · ln 2 + log(l)
+  // bf16 clipped at Sq and vd, and the log-sum-exp m · ln 2 + log(l); a
+  // shard's row without a key writes o = 0 and lse = −inf
 #pragma unroll
   for (int sh = 1; sh <= 2; sh *= 2) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
     l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
   }
+  const bool none0 = SHARDED && !row_sees(qoff + f.row0, klim, a.causal, a.window);
+  const bool none1 = SHARDED && !row_sees(qoff + f.row1, klim, a.causal, a.window);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.o) + b * a.os[0] + h * a.os[2];
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.o) + n * a.os[0] + b * a.os[1] + h * a.os[3];
 #pragma unroll
   for (int c = 0; c < S::VC; ++c)
 #pragma unroll
@@ -756,16 +824,18 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int d = 64 * c + 8 * (i / 4) + f.col;
       if (d >= VD) continue;
       if (f.row0 < a.Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + f.row0 * a.os[1] + d) =
-            __floats2bfloat162_rn(o[c][i] / d0, o[c][i + 1] / d0);
+        *reinterpret_cast<__nv_bfloat162*>(ob + f.row0 * a.os[2] + d) =
+            none0 ? __floats2bfloat162_rn(0.f, 0.f)
+                  : __floats2bfloat162_rn(o[c][i] / d0, o[c][i + 1] / d0);
       if (f.row1 < a.Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + f.row1 * a.os[1] + d) =
-            __floats2bfloat162_rn(o[c][i + 2] / d1, o[c][i + 3] / d1);
+        *reinterpret_cast<__nv_bfloat162*>(ob + f.row1 * a.os[2] + d) =
+            none1 ? __floats2bfloat162_rn(0.f, 0.f)
+                  : __floats2bfloat162_rn(o[c][i + 2] / d1, o[c][i + 3] / d1);
     }
   if (lane % 4 == 0) {
     float* lb = a.lse + static_cast<long long>(bh) * a.Sq;
-    if (f.row0 < a.Sq) lb[f.row0] = m0 * LN2 + logf(l0);
-    if (f.row1 < a.Sq) lb[f.row1] = m1 * LN2 + logf(l1);
+    if (f.row0 < a.Sq) lb[f.row0] = none0 ? -INFINITY : m0 * LN2 + logf(l0);
+    if (f.row1 < a.Sq) lb[f.row1] = none1 ? -INFINITY : m1 * LN2 + logf(l1);
   }
 }
 
@@ -793,92 +863,100 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 (batch, seq, heads, dim) tensor with element strides st (batch,
-// seq, head) and a contiguous dim, read in boxes of 64 × rows.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int dim,
+// A bf16 (outer, batch, seq, heads, dim) tensor with element strides st
+// (outer, batch, seq, head) and a contiguous dim, read in boxes of
+// 64 × rows.
+bool make_map(CUtensorMap* map, const void* ptr, int N, int B, int S, int heads, int dim,
               const long long* st, int rows) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dim), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(dim), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B),
+                              static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[4] = {static_cast<cuuint64_t>(st[3]) * 2,
+                                 static_cast<cuuint64_t>(st[2]) * 2,
                                  static_cast<cuuint64_t>(st[1]) * 2,
                                  static_cast<cuuint64_t>(st[0]) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+  const cuuint32_t box[5] = {64, 1, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr), dims, strides,
              box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD, int VD>
-cudaError_t launch(const void* q, const void* k, const void* v, const Args& a, int B,
+cudaError_t launch(const void* q, const void* k, const void* v, const Args& a, int N,
                    const long long* strides, cudaStream_t s) {
   using Sh = Shape<HD, VD>;
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, B, a.Sq, a.H, HD, strides, QT) ||
-      !make_map(&mk, k, B, a.Sk, a.KV, HD, strides + 3, Sh::KT) ||
-      !make_map(&mv, v, B, a.Sk, a.KV, VD, strides + 6, Sh::KT))
+  if (!make_map(&mq, q, N, a.B, a.Sq, a.H, HD, strides, QT) ||
+      !make_map(&mk, k, N, a.B, a.Sk, a.KV, HD, strides + 4, Sh::KT) ||
+      !make_map(&mv, v, N, a.B, a.Sk, a.KV, VD, strides + 8, Sh::KT))
     return cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<HD, VD>, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
+  const auto kernel = a.shards > 0 ? flash_fwd_wgmma_kernel<HD, VD, true>
+                                    : flash_fwd_wgmma_kernel<HD, VD, false>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
   if (e != cudaSuccess) return e;
-  const dim3 grid(B * a.H, (a.Sq + QT - 1) / QT);
-  flash_fwd_wgmma_kernel<HD, VD><<<grid, THREADS, Sh::SMEM, s>>>(mq, mk, mv, a);
+  const dim3 grid(N * a.B * a.H, (a.Sq + QT - 1) / QT);
+  kernel<<<grid, THREADS, Sh::SMEM, s>>>(mq, mk, mv, a);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
-// q (B, Sq, H, hd), k (B, Sk, KV, hd), v (B, Sk, KV, vd), o (B, Sq, H, vd)
-// in dtype (0 = fp32: the CUDA-core kernel; 1 = bf16: the tensor-core
-// kernel); lse (B, H, Sq) fp32, contiguous.  strides holds the (batch,
-// seq, head) element strides of q, k, v and o in that order; the bf16
-// kernel reads q, k and v by TMA, so their bases are 16-byte aligned and
-// their strides multiples of 8 elements.  Query row i sits at position
-// q_offset + i and keys at or past kv_len are hidden (q_offset = 0 and
-// kv_len = Sk: no such mask); the caller makes sure that every row sees
-// a key.  Returns the launch's cudaError_t (0 on success); launches
-// nothing and returns cudaErrorInvalidValue for arguments neither kernel
-// takes.
+// q (N, B, Sq, H, hd), k (N, B, Sk, KV, hd), v (N, B, Sk, KV, vd), o (N, B,
+// Sq, H, vd) in dtype (0 = fp32: the CUDA-core kernel; 1 = bf16: the
+// tensor-core kernel); lse (N, B, H, Sq) fp32, contiguous.  strides holds
+// the (outer, batch, seq, head) element strides of q, k, v and o in that
+// order; the bf16 kernel reads q, k and v by TMA, so their bases are
+// 16-byte aligned and their strides multiples of 8 elements.  Query row i
+// sits at position q_offset + i and keys at or past kv_len are hidden
+// (q_offset = 0 and kv_len = Sk: no such mask).  shards = 0: every row
+// must see a key (the caller makes sure of it); shards > 0: outer row n
+// holds the (n mod shards)-th block of Sk keys of the sequence, and a row
+// that sees none of them writes o = 0, lse = −inf.  Returns the launch's
+// cudaError_t (0 on success); launches nothing and returns
+// cudaErrorInvalidValue for arguments neither kernel takes.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                              void* lse, int dtype, int hd, int vd, int B, int H, int KV,
-                              int Sq, int Sk, const long long* strides, float scale,
+                              void* lse, int dtype, int hd, int vd, int N, int B, int H,
+                              int KV, int Sq, int Sk, const long long* strides, float scale,
                               int causal, float cap, int window, int q_offset, int kv_len,
-                              void* stream) {
-  if (B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Sk < 1 || Sq > 65535 * QT ||
-      q_offset < 0 || kv_len < 1)
+                              int shards, void* stream) {
+  if (N < 1 || B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Sk < 1 ||
+      Sq > 65535 * QT || q_offset < 0 || kv_len < 1 || shards < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int klim = kv_len < Sk ? kv_len : Sk;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     tc::Args a;
     a.o = o;
     a.lse = static_cast<float*>(lse);
+    a.B = B;
     a.H = H;
     a.KV = KV;
     a.Sq = Sq;
     a.Sk = Sk;
-    for (int i = 0; i < 3; ++i) a.os[i] = strides[9 + i];
+    for (int i = 0; i < 4; ++i) a.os[i] = strides[12 + i];
     a.scale = scale;
     a.cap = cap;
     a.causal = causal;
     a.window = window;
     a.q_off = q_offset;
-    a.klim = klim;
+    a.kv_len = kv_len;
+    a.shards = shards;
     cudaError_t err = cudaErrorInvalidValue;
     if (hd == vd) {
       switch (hd) {
-        case 16: err = tc::launch<16, 16>(q, k, v, a, B, strides, s); break;
-        case 32: err = tc::launch<32, 32>(q, k, v, a, B, strides, s); break;
-        case 64: err = tc::launch<64, 64>(q, k, v, a, B, strides, s); break;
-        case 128: err = tc::launch<128, 128>(q, k, v, a, B, strides, s); break;
-        case 256: err = tc::launch<256, 256>(q, k, v, a, B, strides, s); break;
+        case 16: err = tc::launch<16, 16>(q, k, v, a, N, strides, s); break;
+        case 32: err = tc::launch<32, 32>(q, k, v, a, N, strides, s); break;
+        case 64: err = tc::launch<64, 64>(q, k, v, a, N, strides, s); break;
+        case 128: err = tc::launch<128, 128>(q, k, v, a, N, strides, s); break;
+        case 256: err = tc::launch<256, 256>(q, k, v, a, N, strides, s); break;
         default: break;
       }
     } else if (hd == 192 && vd == 128) {
-      err = tc::launch<192, 128>(q, k, v, a, B, strides, s);
+      err = tc::launch<192, 128>(q, k, v, a, N, strides, s);
     }
     return static_cast<int>(err);
   }
@@ -894,17 +972,18 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
   a.KV = KV;
   a.Sq = Sq;
   a.Sk = Sk;
-  for (int i = 0; i < 3; ++i) {
+  for (int i = 0; i < 4; ++i) {
     a.qs[i] = strides[i];
-    a.ks[i] = strides[3 + i];
-    a.vs[i] = strides[6 + i];
-    a.os[i] = strides[9 + i];
+    a.ks[i] = strides[4 + i];
+    a.vs[i] = strides[8 + i];
+    a.os[i] = strides[12 + i];
   }
   a.scale = scale;
   a.cap = cap;
   a.causal = causal;
   a.window = window;
   a.q_off = q_offset;
-  a.klim = klim;
-  return static_cast<int>(launch_fp32(a, hd, s));
+  a.kv_len = kv_len;
+  a.shards = shards;
+  return static_cast<int>(launch_fp32(a, N, hd, s));
 }

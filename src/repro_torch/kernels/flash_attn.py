@@ -15,6 +15,16 @@ reference's ``attend(q_pos=pos + arange(Sq), kv_len=pos + Sq)`` over a KV
 cache.  The kernel streams only the keys some row can see, so a decode
 step reads the cache's filled part; it is then bound by those bytes.
 
+Rank axes: the tensors may also be ``(N, B, S, heads, d)``, an outer and
+an inner batch dim each with a stride of its own, so that one layer's
+slice of a cache laid out ``(ranks, L, B, S, KV, hd)`` is read where it
+lies.  Partial attention over a sequence split across ``shards`` ranks
+(``shards=``, the sharded serving's decode): outer row ``n`` holds the
+``(n mod shards)``-th block of ``Sk`` keys, key ``j`` at the absolute
+position ``(n mod shards)·Sk + j``, the masks and ``kv_len`` apply there,
+and a query row that sees none of its block's keys gets ``o = 0`` and
+``lse = -inf``; ``core.tp.lse_combine`` joins the blocks' results.
+
 The dtype alone picks the kernel: bf16 runs on the tensor cores
 (``wgmma`` fed by TMA, probabilities split into two bf16 halves; head
 dims ``TC_DIMS``), fp32 on the CUDA cores (``FP32_DIMS``), the only
@@ -60,55 +70,78 @@ QT = 128
 launches = 0
 #: The tensor-core kernel's launches alone, counted the same way.
 tc_launches = 0
+#: The partial launches over a shard of the keys alone (``shards=``).
+partial_launches = 0
 
 
 @functools.cache
 def _entry():
     fn = _build.load(SOURCE).flash_attn_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+def _spans(sq: int, sk: int, *, causal: bool, window: int, q_offset: int,
+           kv_len: int | None, base: int = 0) -> torch.Tensor:
+    """Each query row's count of visible keys among the ``sk`` keys at
+    the absolute positions ``base …``: the causal mask, the window and
+    ``kv_len`` applied there."""
+    klim = min(sk, (sk + base if kv_len is None else kv_len) - base)
+    pos = q_offset - base + torch.arange(sq, dtype=torch.int64)
+    if not causal:
+        return torch.full((sq,), max(klim, 0), dtype=torch.int64)
+    hi = torch.clamp(pos + 1, max=klim)
+    lo = torch.clamp(pos - window + 1, min=0) if window > 0 else 0 * pos
+    return torch.clamp(hi - lo, min=0)
+
+
+def _bases(sk: int, shards: int | None) -> tuple:
+    """The absolute position of each shard's first key (one shard, at 0,
+    without ``shards``)."""
+    return tuple(m * sk for m in range(shards or 1))
+
+
 def flops(b: int, h: int, sq: int, sk: int, hd: int, *, causal: bool,
           window: int = 0, vd: int | None = None, q_offset: int = 0,
-          kv_len: int | None = None) -> int:
+          kv_len: int | None = None, shards: int | None = None) -> int:
     """Flops one forward launch needs: ``2·hd`` for the score and ``2·vd``
     for its share of ``P·V``, for every (query, key) pair the mask leaves
-    visible."""
+    visible.  With ``shards`` the launch's ``b`` rows are spread evenly
+    over the shards (rank-major), each over its own block of keys."""
     vd = hd if vd is None else vd
-    klim = sk if kv_len is None else min(sk, kv_len)
-    if not causal:
-        pairs = sq * klim
-    else:
-        pos = q_offset + torch.arange(sq, dtype=torch.int64)
-        hi = torch.clamp(pos + 1, max=klim)
-        lo = torch.clamp(pos - window + 1, min=0) if window > 0 else 0 * pos
-        pairs = int(torch.clamp(hi - lo, min=0).sum())
-    return 2 * (hd + vd) * pairs * b * h
+    pairs = sum(int(_spans(sq, sk, causal=causal, window=window,
+                           q_offset=q_offset, kv_len=kv_len, base=k0).sum())
+                for k0 in _bases(sk, shards))
+    return 2 * (hd + vd) * pairs * (b // len(_bases(sk, shards))) * h
 
 
 def bytes_moved(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 kv_len: int | None = None, *, window: int = 0,
-                q_offset: int = 0) -> int:
+                q_offset: int = 0, shards: int | None = None) -> int:
     """Bytes one launch must move: q and the keys and values some query
     row can see read once (those below ``kv_len``, all of them by
     default, and with a causal ``window`` none before the first row's
-    window, which starts at ``q_offset - window + 1``), the output ``(B,
-    Sq, H, vd)`` and the fp32 log-sum-exp written once."""
-    b, sq, h, _ = q.shape
-    sk = k.shape[1]
-    keys = sk if kv_len is None else min(sk, kv_len)
-    if window > 0:
-        keys -= min(keys, max(0, q_offset - window + 1))
-    out = b * sq * h * v.shape[-1] * q.element_size()
-    return (q.numel() * q.element_size()
-            + (k.numel() * k.element_size()
-               + v.numel() * v.element_size()) // sk * keys
-            + out + 4 * b * h * sq)
+    window, which starts at ``q_offset - window + 1``; with ``shards``
+    those of each shard's block of keys, its rows spread evenly over the
+    shards), the output ``(…, Sq, H, vd)`` and the fp32 log-sum-exp
+    written once."""
+    sq, h = q.shape[-3], q.shape[-2]
+    rows = q.numel() // (sq * h * q.shape[-1])
+    sk = k.shape[-3]
+    per_key = (k.numel() * k.element_size()
+               + v.numel() * v.element_size()) // sk
+    lo = max(0, q_offset - window + 1) if window > 0 else 0
+    bases = _bases(sk, shards)
+    keys = sum(max(0, min(k0 + sk, k0 + sk if kv_len is None else kv_len)
+                   - max(k0, lo)) for k0 in bases)
+    out = rows * sq * h * v.shape[-1] * q.element_size()
+    return (q.numel() * q.element_size() + per_key * keys // len(bases)
+            + out + 4 * rows * h * sq)
 
 
 def rows_see_a_key(sq: int, sk: int, *, causal: bool, window: int,
@@ -130,35 +163,45 @@ def rows_see_a_key(sq: int, sk: int, *, causal: bool, window: int,
     return True
 
 
-def _strides(t: torch.Tensor) -> tuple[int, int, int]:
-    """``t``'s (batch, seq, head) element strides, a size-1 dim's taken
-    as if packed (it is never stepped, and TMA checks every stride)."""
+def _strides(t: torch.Tensor) -> tuple[int, int, int, int]:
+    """``t``'s (outer, batch, seq, head) element strides (``t`` is ``(N,
+    B, S, heads, d)``), a size-1 dim's taken as if packed (it is never
+    stepped, and TMA checks every stride)."""
     out = []
-    inner = t.shape[3]                      # the head dim is contiguous
-    for d in (2, 1, 0):
+    inner = t.shape[4]                      # the head dim is contiguous
+    for d in (3, 2, 1, 0):
         out.append(t.stride(d) if t.shape[d] > 1 else inner)
         inner = out[-1] * t.shape[d]
-    return out[2], out[1], out[0]
+    return out[3], out[2], out[1], out[0]
 
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool, scale: float, attn_cap: float, window: int,
-                  q_offset: int = 0, kv_len: int | None = None
+                  q_offset: int = 0, kv_len: int | None = None,
+                  shards: int | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch a kernel → ``(o (B, Sq, H, vd), lse (B, H, Sq) fp32)``.
 
     ``q`` is ``(B, Sq, H, hd)``, ``k`` ``(B, Sk, KV, hd)`` and ``v``
     ``(B, Sk, KV, vd)``, CUDA tensors of one dtype, ``H % KV == 0``, each
-    with a contiguous last dim.  bf16 launches the tensor-core kernel at
-    ``(hd, vd)`` in ``TC_DIMS``; it reads q, k and v by TMA, so each base
-    is 16-byte aligned and each stride a multiple of 8 elements.  fp32
-    launches the CUDA-core kernel at ``(hd, vd)`` in ``FP32_DIMS`` (other
-    strides free).  ``q_offset`` (a host int, at least 0) is query row
-    0's position and ``kv_len`` (a host int, at least 1; ``Sk`` by
-    default) hides the keys at or past it; a mask under which some row
-    sees no key raises.  Anything else raises; nothing is copied.
+    with a contiguous last dim; or all three ``(N, B, …)``, which gives
+    ``o (N, B, Sq, H, vd)`` and ``lse (N, B, H, Sq)``.  bf16 launches the
+    tensor-core kernel at ``(hd, vd)`` in ``TC_DIMS``; it reads q, k and v
+    by TMA, so each base is 16-byte aligned and each stride a multiple of
+    8 elements.  fp32 launches the CUDA-core kernel at ``(hd, vd)`` in
+    ``FP32_DIMS`` (other strides free).  ``q_offset`` (a host int, at
+    least 0) is query row 0's position and ``kv_len`` (a host int, at
+    least 1; ``Sk`` by default) hides the keys at or past it.
+
+    Without ``shards`` a mask under which some row sees no key raises.
+    With ``shards`` (at least 1) the launch is partial attention over a
+    sequence split across ``shards`` ranks: outer row ``n``'s keys are
+    the ``(n mod shards)``-th block of ``Sk``, at the absolute positions
+    ``(n mod shards)·Sk + j``, ``kv_len`` counts the whole sequence's
+    valid keys, and a row that sees none of its block's keys gets ``o =
+    0`` and ``lse = -inf``.  Anything else raises; nothing is copied.
     """
-    global launches, tc_launches
+    global launches, tc_launches, partial_launches
     ts = (q, k, v)
     if any(t.device.type != "cuda" for t in ts):
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
@@ -169,14 +212,18 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention kernel: dtypes {q.dtype} "
                          f"{k.dtype} {v.dtype}; wants one of {list(DTYPES)}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape[:3] != k.shape[:3]:
+    nd = q.dim()
+    if nd not in (4, 5) or k.dim() != nd or v.dim() != nd \
+            or v.shape[:-1] != k.shape[:-1]:
         raise ValueError(f"flash_attention kernel wants (B, Sq, H, hd) q, "
-                         f"(B, Sk, KV, hd) k and (B, Sk, KV, vd) v; got "
+                         f"(B, Sk, KV, hd) k and (B, Sk, KV, vd) v (or all "
+                         f"with an outer (N, ...) dim); got "
                          f"{tuple(q.shape)} {tuple(k.shape)} "
                          f"{tuple(v.shape)}")
-    b, sq, h, hd = q.shape
-    sk, kv, vd = k.shape[1], k.shape[2], v.shape[3]
-    if k.shape[0] != b or k.shape[3] != hd or h % kv:
+    q5, k5, v5 = (t if nd == 5 else t.unsqueeze(0) for t in ts)
+    n, b, sq, h, hd = q5.shape
+    sk, kv, vd = k5.shape[2], k5.shape[3], v5.shape[4]
+    if k5.shape[:2] != (n, b) or k5.shape[4] != hd or h % kv:
         raise ValueError(f"flash_attention kernel: q {tuple(q.shape)} and "
                          f"k {tuple(k.shape)} do not match (H % KV == 0)")
     tc = q.dtype == torch.bfloat16
@@ -184,47 +231,56 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if (hd, vd) not in dims:
         raise ValueError(f"flash_attention kernel: (hd, vd) = {(hd, vd)} "
                          f"not in {dims} for {q.dtype}")
-    if sq < 1 or sk < 1 or b < 1 or sq > 65535 * QT:
+    if sq < 1 or sk < 1 or b < 1 or n < 1 or sq > 65535 * QT:
         raise ValueError(f"flash_attention kernel: empty or too long "
                          f"{tuple(q.shape)} {tuple(k.shape)}")
-    kv_len = sk if kv_len is None else kv_len
+    kv_len = (sk * (shards or 1)) if kv_len is None else kv_len
     if not (isinstance(q_offset, int) and isinstance(kv_len, int)):
         raise TypeError(f"flash_attention kernel: q_offset and kv_len are "
                         f"host ints, got {type(q_offset).__name__} and "
                         f"{type(kv_len).__name__}")
-    if (q_offset, kv_len) != (0, sk) and (
+    if shards is not None and (not isinstance(shards, int) or shards < 1):
+        raise ValueError(f"flash_attention kernel: shards {shards!r} is not "
+                         "a count of at least 1")
+    if shards is not None and (q_offset < 0 or kv_len < 1):
+        raise ValueError(f"flash_attention kernel: q_offset {q_offset}, "
+                         f"kv_len {kv_len}")
+    if shards is None and (q_offset, kv_len) != (0, sk) and (
             q_offset < 0 or kv_len < 1 or not rows_see_a_key(
                 sq, sk, causal=causal, window=window, q_offset=q_offset,
                 kv_len=kv_len)):
         raise ValueError(f"flash_attention kernel: q_offset {q_offset}, "
                          f"kv_len {kv_len} leave a query row of "
                          f"{tuple(q.shape)} without a key")
-    if any(t.stride(3) != 1 for t in ts):
+    if any(t.stride(-1) != 1 for t in ts):
         raise ValueError("flash_attention kernel: the head dim must be "
                          "contiguous")
-    strides = [_strides(t) for t in ts]
+    strides = [_strides(t) for t in (q5, k5, v5)]
     if tc and (any(t.data_ptr() % 16 for t in ts)
                or any(x % 8 for st in strides for x in st)):
         raise ValueError(f"flash_attention kernel: TMA wants 16-byte "
                          f"aligned bases and strides of 8 elements; got "
                          f"strides {strides}")
-    o = torch.empty((b, sq, h, vd), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    cstrides = (ctypes.c_longlong * 12)(*strides[0], *strides[1],
-                                        *strides[2], *o.stride()[:3])
+    o = torch.empty((n, b, sq, h, vd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((n, b, h, sq), dtype=torch.float32, device=q.device)
+    cstrides = (ctypes.c_longlong * 16)(*strides[0], *strides[1],
+                                        *strides[2], *o.stride()[:4])
     fn = _entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), DTYPES[q.dtype], hd, vd, b, h, kv, sq, sk,
+                 lse.data_ptr(), DTYPES[q.dtype], hd, vd, n, b, h, kv, sq, sk,
                  cstrides, float(scale), int(bool(causal)), float(attn_cap),
-                 int(window), q_offset, kv_len, stream)
+                 int(window), q_offset, kv_len, shards or 0, stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError "
                            f"{err} for q {tuple(q.shape)} k {tuple(k.shape)} "
                            f"v {tuple(v.shape)} {q.dtype}")
     launches += 1
     tc_launches += tc
+    partial_launches += shards is not None
+    if nd == 4:
+        return o[0], lse[0]
     return o, lse
 
 

@@ -444,6 +444,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     kw = dict(causal=causal, scale=scale, attn_cap=attn_cap, window=window,
               q_offset=q_offset, kv_len=kv_len)
+    if q.dim() == 5:
+        return _attention_ranks(q, k, v, **kw)
     if q.device.type == "cpu":
         return _ref.flash_attention_bshd(q, k, v, **kw)[0]
     if q.device.type == "meta":
@@ -460,27 +462,79 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _fa.FlashAttention.apply(q, k, v, causal, scale, attn_cap, window)
 
 
+def _attention_ranks(q, k, v, *, causal, scale, attn_cap, window,
+                     q_offset, kv_len) -> torch.Tensor:
+    """:func:`attention` of ``(N, B, …)`` tensors, forward only: on the
+    card one launch reads k and v where they lie (an outer and an inner
+    batch stride: one layer of a cache laid out ``(ranks, L, B, …)``);
+    on ``meta`` the kernel's count.  On the CPU the caller folds the
+    batch dims (``models.base.attend``)."""
+    kw = dict(causal=causal, scale=scale, attn_cap=attn_cap, window=window,
+              q_offset=q_offset, kv_len=kv_len)
+    if q.device.type == "cuda":
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise ValueError("attention over rank axes on the card is "
+                             "forward-only: run it under torch.no_grad or "
+                             "inference_mode")
+        return _fa.attention_fwd(q, k, v, **kw)[0]
+    if q.device.type == "meta":
+        return _meta_attention_fwd(q, k, v, **kw)[0]
+    raise ValueError(f"attention over (N, B, ...) tensors runs on the card "
+                     f"or on meta, not on {q.device}: fold the batch dims")
+
+
+def attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      shards: int, causal: bool = True,
+                      scale: float | None = None, attn_cap: float = 0.0,
+                      window: int = 0, q_offset: int = 0,
+                      kv_len: int | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Partial attention over a sequence split across ``shards`` ranks,
+    forward only: ``q`` ``(N, B, Sq, H, hd)``, ``k``/``v`` ``(N, B, Sk,
+    KV, vd)``, outer row ``n`` holding the ``(n mod shards)``-th block of
+    ``Sk`` keys (rank-major rows, ``model`` the last rank axis), the masks
+    and ``kv_len`` at the keys' absolute positions → ``(o (N, B, Sq, H,
+    vd), lse (N, B, H, Sq) fp32)``, ``o = 0`` and ``lse = -inf`` on a row
+    that sees no key of its block.  ``core.tp.lse_combine`` joins the
+    blocks.  On the CPU the plain version (``ref.flash_attention_partial``),
+    on the card one launch of the flash kernel over every rank's rows."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    kw = dict(causal=causal, scale=scale, attn_cap=attn_cap, window=window,
+              q_offset=q_offset, kv_len=kv_len, shards=shards)
+    if q.device.type == "cpu":
+        return _ref.flash_attention_partial(q, k, v, **kw)
+    if q.device.type == "meta":
+        return _meta_attention_fwd(q, k, v, **kw)
+    return _fa.attention_fwd(q, k, v, **kw)
+
+
 def _meta_attention_fwd(q, k, v, *, causal, scale, attn_cap, window,
-                        q_offset=0, kv_len=None):
+                        q_offset=0, kv_len=None, shards=None):
     """The ``meta`` branch of ``flash_attn.attention_fwd``: ``(o, lse)`` of
-    the kernel's shapes and dtypes, its flops and bytes counted.  The
-    dtypes and head dims the card's kernels refuse are refused here."""
+    the kernel's shapes and dtypes, its flops and bytes counted (of a
+    partial launch, each shard's visible keys).  The dtypes and head dims
+    the card's kernels refuse are refused here."""
     del scale, attn_cap
     dims = _fa.TC_DIMS if q.dtype == torch.bfloat16 else _fa.FP32_DIMS
-    b, sq, h, hd = q.shape
-    sk, vd = k.shape[1], v.shape[-1]
+    *lead, sq, h, hd = q.shape
+    sk, vd = k.shape[-3], v.shape[-1]
     if q.dtype not in _fa.DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype or (hd, vd) not in dims:
         raise ValueError(f"flash_attention kernel: {q.dtype} {k.dtype} "
                          f"{v.dtype} at (hd, vd) = {(hd, vd)}; wants one "
                          f"dtype of {list(_fa.DTYPES)} and {dims}")
+    rows = 1
+    for d in lead:
+        rows *= d
     return _meta_launch(
         "flash_attention",
-        (q.new_empty((b, sq, h, vd)),
-         q.new_empty((b, h, sq), dtype=torch.float32)),
-        _fa.bytes_moved(q, k, v, kv_len, window=window, q_offset=q_offset),
-        _fa.flops(b, h, sq, sk, hd, causal=causal, window=window, vd=vd,
-                  q_offset=q_offset, kv_len=kv_len))
+        (q.new_empty((*lead, sq, h, vd)),
+         q.new_empty((*lead, h, sq), dtype=torch.float32)),
+        _fa.bytes_moved(q, k, v, kv_len, window=window, q_offset=q_offset,
+                        shards=shards),
+        _fa.flops(rows, h, sq, sk, hd, causal=causal, window=window, vd=vd,
+                  q_offset=q_offset, kv_len=kv_len, shards=shards))
 
 
 class _MetaFlash(_fa.FlashAttention):

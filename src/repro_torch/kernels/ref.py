@@ -292,7 +292,8 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, scale: float | None = None,
                          attn_cap: float = 0.0, window: int = 0,
                          kv_tile: int = 512, q_offset: int = 0,
-                         kv_len: int | None = None
+                         kv_len: int | None = None,
+                         k_base: torch.Tensor | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain version of the flash kernel: ``(o, lse)``.
 
@@ -306,6 +307,11 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Masked decode, as the reference's ``attend``: query row ``i`` sits at
     position ``q_offset + i`` for the causal mask and the window, and
     keys at or past ``kv_len`` are masked too (every key is walked).
+
+    ``k_base`` ``(B,)`` (with ``kv_len``; a shard of a sequence,
+    :func:`flash_attention_partial`): batch row ``b``'s key ``j`` sits at
+    the position ``k_base[b] + j`` for those masks, and a query row that
+    sees none of its keys gets ``o = 0`` and ``lse = -inf``.
     """
     b, sq, h, hd = q.shape
     sk, kv, vd = k.shape[1], k.shape[2], v.shape[-1]
@@ -316,15 +322,26 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = torch.zeros((b, kv, g, sq), device=q.device)
     o = torch.zeros((b, kv, g, sq, vd), device=q.device)
     q_pos = q_offset + torch.arange(sq, device=q.device)
+    seen = torch.zeros((b, 1, 1, sq), dtype=torch.bool, device=q.device)
     for t0 in range(0, sk, kv_tile):
         kb = k[:, t0:t0 + kv_tile].float().permute(0, 2, 1, 3).unsqueeze(2)
         vb = v[:, t0:t0 + kv_tile].float().permute(0, 2, 1, 3).unsqueeze(2)
         s = qf @ kb.transpose(-1, -2)                        # (B,KV,G,Sq,T)
         if attn_cap > 0:
             s = torch.tanh(s / attn_cap) * attn_cap
-        mask = _mask(q_pos, torch.arange(t0, t0 + kb.shape[-2],
-                                         device=q.device), causal, window,
-                     kv_len)
+        k_pos = torch.arange(t0, t0 + kb.shape[-2], device=q.device)
+        if k_base is None:
+            mask = _mask(q_pos, k_pos, causal, window, kv_len)
+        else:                   # each row's keys at positions of its own
+            kp = (k_base[:, None] + k_pos)[:, None, :]          # (B, 1, T)
+            qp = q_pos[:, None]
+            mask = (kp < kv_len).expand(b, sq, kp.shape[-1])
+            if causal:
+                mask = mask & (kp <= qp)
+                if window > 0:
+                    mask = mask & (kp > qp - window)
+            mask = mask[:, None, None]                          # (B,1,1,Sq,T)
+            seen = seen | mask.any(-1)
         if mask is not None:
             s = torch.where(mask, s, MASKED)
         m_new = torch.maximum(m, s.amax(-1))
@@ -334,8 +351,36 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o = o * alpha[..., None] + p @ vb
         m = m_new
     out = o / torch.clamp(l[..., None], min=1e-30)
+    lse = m + torch.log(l)
+    if k_base is not None:
+        out = torch.where(seen[..., None], out, 0.0)
+        lse = torch.where(seen, lse, -torch.inf)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, vd).to(q.dtype)
-    return out, (m + torch.log(l)).reshape(b, h, sq)
+    return out, lse.reshape(b, h, sq)
+
+
+def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, shards: int,
+                            kv_len: int | None = None, **kw
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the flash kernel's partial launch over a
+    sequence split across ``shards`` ranks: ``(o, lse)``.
+
+    ``q`` ``(N, B, Sq, H, hd)``, ``k``/``v`` ``(N, B, Sk, KV, vd)``: outer
+    row ``n`` holds the ``(n mod shards)``-th block of ``Sk`` keys, key
+    ``j`` at the absolute position ``(n mod shards)·Sk + j``, where the
+    causal mask, the window and ``kv_len`` (the whole sequence's valid
+    keys, all of them by default) apply; a query row that sees none of
+    its block's keys gets ``o = 0`` and ``lse = -inf``
+    (:func:`flash_attention_bshd` with ``k_base``).  Returns ``o (N, B,
+    Sq, H, vd)`` in ``q``'s dtype and ``lse (N, B, H, Sq)`` fp32."""
+    n, b, sk = q.shape[0], q.shape[1], k.shape[2]
+    base = ((torch.arange(n, device=q.device) % shards) * sk
+            ).repeat_interleave(b)
+    o, lse = flash_attention_bshd(
+        *(t.reshape(n * b, *t.shape[2:]) for t in (q, k, v)),
+        kv_len=sk * shards if kv_len is None else kv_len, k_base=base, **kw)
+    return o.reshape(n, b, *o.shape[1:]), lse.reshape(n, b, *lse.shape[1:])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,9 +1,10 @@
-"""Production-mesh dry-run: count every train cell on ``meta`` tensors.
+"""Production-mesh dry-run: count every cell on ``meta`` tensors.
 
 The port of ``repro/launch/dryrun.py``.  The reference lowers and
 compiles each (arch × shape × mesh) cell for 256 and 512 TPU chips and
-reads the compiled program.  The port runs one train step of the cell
-eagerly on ``meta`` tensors, every rank of the production mesh laid out
+reads the compiled program.  The port runs one step of the cell (a
+train step, or a serving prefill or decode step) eagerly on ``meta``
+tensors, every rank of the production mesh laid out
 on the leading tensor axes (``sharding.rules``), and counts it as it
 runs (``step_analysis``): no memory and no card.  Run as::
 
@@ -21,12 +22,13 @@ Per cell this script:
   3. runs ``trainer.make_train_step`` once, forward and backward, under
      ``step_analysis.analyze``: the layers, the FSDP collectives, the
      ``GradReducer`` and AdamW, the kernels through their ``meta``
-     branches,
+     branches; a serve cell runs ``serve.engine.make_serve_fns``'s
+     prefill or decode step instead (``trace_serve``: the parameters in
+     the compute dtype, the cache as ``rules.cache_specs`` lays it out),
   4. prints a rank's FLOPs, bytes, collectives, memory and roofline,
   5. writes a JSON record under ``results/dryrun_torch/``.
 
-A serve cell raises ``NotImplementedError`` (ROADMAP queue 1 item 17)
-and lands under FAILURES.  The record keeps the reference's keys where
+The record keeps the reference's keys where
 the quantity is the same (``model_flops_global``, ``useful_flops_ratio``,
 ``collectives``, ``roofline``); ``flops_per_rank`` and
 ``bytes_per_rank`` are the whole program's over the world size,
@@ -45,26 +47,14 @@ import traceback
 
 import torch
 
-from repro_torch import configs, tree
+from repro_torch import configs
 from repro_torch import mesh as mesh_mod
 from repro_torch.core.engine import FlareConfig
 from repro_torch.data import pipeline
 from repro_torch.launch import analytic, step_analysis
-from repro_torch.models.registry import get_model
+from repro_torch.models.registry import abstract_params, get_model
 from repro_torch.sharding import rules
 from repro_torch.train import trainer
-
-
-def abstract_params(model) -> dict:
-    """The global parameters' shapes and dtypes as ``meta`` tensors:
-    ``model.init`` under ``FakeTensorMode`` (a ``meta`` device has no
-    ``torch.Generator``, which the init draws from)."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-
-    with FakeTensorMode():
-        fake = model.init(torch.Generator().manual_seed(0))
-    return tree.map_leaves(lambda t: torch.empty(
-        t.shape, dtype=t.dtype, device="meta"), fake)
 
 
 def trace_train(model, mcfg: rules.MeshCfg, tcfg: trainer.TrainConfig,
@@ -82,6 +72,38 @@ def trace_train(model, mcfg: rules.MeshCfg, tcfg: trainer.TrainConfig,
     b = rules.split_batch(batch, mcfg)
     t0 = time.perf_counter()
     stats, _ = step_analysis.analyze(step, p, opt, b)
+    return stats, time.perf_counter() - t0
+
+
+def trace_serve(model, mcfg: rules.MeshCfg, cell,
+                params: dict | None = None
+                ) -> tuple[step_analysis.StepStats, float]:
+    """One serving step of a prefill or decode cell on every rank of
+    ``mcfg`` on ``meta`` tensors, counted: the counterpart of the
+    reference's ``_serve_lowered``.  The parameters (``abstract_params``
+    by default) in the compute dtype, laid out by ``make_serve_fns``'s
+    layout; a prefill cell runs ``prefill_fn`` over ``global_batch ×
+    seq_len`` tokens, a decode cell one token a row against a
+    ``seq_len`` cache (``model.init_cache`` placed by ``cache_specs``) at
+    ``pos = seq_len − 1``.  Returns the whole program's ``StepStats`` and
+    the seconds the step took to count."""
+    from repro_torch.serve.engine import make_serve_fns
+
+    full = abstract_params(model) if params is None else params
+    prefill_fn, decode_fn, layout = make_serve_fns(
+        model, mcfg, cache_batch=cell.global_batch, cache_len=cell.seq_len,
+        device="meta")
+    p = layout.shard_params(full)
+    batch = pipeline.batch_structs(model.cfg, cell)
+    if cell.kind == "prefill":
+        fn, args = prefill_fn, (p, batch)
+    else:
+        cache = layout.shard_cache(model.init_cache(
+            cell.global_batch, cell.seq_len, device="meta"))
+        cache["pos"] = cell.seq_len - 1
+        fn, args = decode_fn, (p, batch["tokens"], cache)
+    t0 = time.perf_counter()
+    stats, _ = step_analysis.analyze(fn, *args)
     return stats, time.perf_counter() - t0
 
 
@@ -111,11 +133,6 @@ def run_cell(arch: str, cell, *, multi_pod: bool, out_dir: str,
              tag: str = "", overrides: dict | None = None) -> dict:
     """Count one cell and write its record (returned)."""
     arch = configs.ALIASES.get(arch, arch)   # canonical module name
-    if cell.kind != "train":
-        raise NotImplementedError(
-            f"{arch}.{cell.name}: the dry-run of a {cell.kind} cell needs "
-            "sharded serving (make_serve_fns, batch_spec, cache_specs), "
-            "ROADMAP queue 1 item 17")
     cfg = configs.load(arch).CONFIG
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
@@ -128,8 +145,12 @@ def run_cell(arch: str, cell, *, multi_pod: bool, out_dir: str,
         gather_algorithm=gather_algorithm,
         flare=FlareConfig(axes=mcfg.reduce_axes, algorithm=flare_algorithm))
     params = abstract_params(model)
-    stats, trace_s = trace_train(model, mcfg, tcfg,
-                                 pipeline.batch_structs(cfg, cell), params)
+    if cell.kind == "train":
+        stats, trace_s = trace_train(model, mcfg, tcfg,
+                                     pipeline.batch_structs(cfg, cell),
+                                     params)
+    else:
+        stats, trace_s = trace_serve(model, mcfg, cell, params)
     per = stats.per_rank(chips)
     mf = analytic.model_flops(cfg, params, cell)
     terms = step_analysis.roofline_terms(per.flops, per.bytes_accessed,
@@ -223,8 +244,7 @@ def main(argv=None):
                          gather_algorithm=args.gather_algorithm,
                          tag=args.tag, overrides=overrides)
             except Exception as e:
-                if not isinstance(e, NotImplementedError):
-                    traceback.print_exc()
+                traceback.print_exc()
                 failures.append((label, repr(e)))
     print(f"\n[dryrun] {time.perf_counter() - t0:.1f} s in all")
     if failures:

@@ -27,6 +27,7 @@ split follows the rules' divisibility (``tp.splits`` of its full size).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -39,6 +40,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.core import tp
 from repro_torch.kernels import ops
+from repro_torch.launch import step_analysis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,7 +301,19 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     form a decode step makes); on the card it must be, and ``kv_len`` a
     host int too: they are the flash kernel's launch arguments, so that
     no layer syncs the card to read a position.
+
+    The tensors may also be ``(N, B, …)`` (a cache on the rank axes,
+    :func:`attend_ranks`): on the card one launch reads them where they
+    lie, on the CPU the batch dims are folded.
     """
+    if q.dim() == 5 and q.device.type == "cpu":
+        n, b = q.shape[:2]
+        out = attend(q.reshape(n * b, *q.shape[2:]),
+                     k.reshape(n * b, *k.shape[2:]),
+                     v.reshape(n * b, *v.shape[2:]), causal=causal,
+                     q_pos=q_pos, kv_len=kv_len, window=window,
+                     attn_cap=attn_cap, scale=scale, chunk=chunk)
+        return out.reshape(n, b, *out.shape[1:])
     if q.device.type != "cpu":
         if not (q_pos is None or isinstance(q_pos, int)) or not (
                 kv_len is None or isinstance(kv_len, int)):
@@ -380,13 +394,113 @@ def _attend_chunked(q, k, v, *, causal, window, attn_cap, scale, chunk):
     return out.to(q.dtype)
 
 
-def write_cache(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
-    """``new``'s ``S`` rows into ``cache`` in place at ``pos`` along dim 1,
-    the start clamped to ``[0, Smax − S]`` as ``dynamic_update_slice``
-    clamps it."""
-    s = new.shape[1]
-    start = min(max(pos, 0), cache.shape[1] - s)
-    cache[:, start:start + s] = new
+def write_cache(cache: torch.Tensor, new: torch.Tensor, pos: int, *,
+                dim: int = 1, md: int | None = None) -> None:
+    """``new``'s ``S`` rows into ``cache`` in place at ``pos`` along
+    ``dim``, the start clamped to ``[0, Smax − S]`` as
+    ``dynamic_update_slice`` clamps it.  With ``md`` (the ``model`` axis)
+    the cache is split over its sequence: ``model`` rank ``m`` holds rows
+    ``m·S_l … (m+1)·S_l`` of the whole (``Smax = tp·S_l``) and takes the
+    new rows that fall there (``new`` whole on every rank)."""
+    s = new.shape[dim]
+    if md is None:
+        start = min(max(pos, 0), cache.shape[dim] - s)
+        if dim == 1:
+            cache[:, start:start + s] = new
+        else:
+            cache.narrow(dim, start, s).copy_(new)
+        return
+    sl, shards = cache.shape[dim], cache.shape[md]
+    start = min(max(pos, 0), sl * shards - s)
+    for m in range(shards):
+        lo, hi = max(start, m * sl), min(start + s, (m + 1) * sl)
+        if lo < hi:
+            cache.select(md, m).narrow(dim - 1, lo - m * sl, hi - lo).copy_(
+                new.select(md, m).narrow(dim - 1, lo - start, hi - lo))
+
+
+@dataclasses.dataclass(frozen=True)
+class Serving:
+    """What a sharded serving step takes from its layout beyond
+    ``tp.parallel``'s size; ``serve.engine.make_serve_fns`` sets it
+    (:func:`serving`) from ``rules.cache_specs`` and ``batch_spec``, the
+    one place that decides them.  ``route``: the leading rank dims whose
+    rows form one global batch (the ``(pod, data)`` axes the tokens are
+    split over, ``()`` where every rank holds them whole; ``None``: each
+    rank routes its own rows, as a train step does).  ``seq``: the cache
+    entries (a cache's top-level keys) that lie split over their
+    sequence on ``model``."""
+
+    route: tuple[int, ...] | None = None
+    seq: frozenset = frozenset()
+
+
+_SERVING: list = [Serving()]
+
+
+@contextlib.contextmanager
+def serving(route: tuple[int, ...], seq: frozenset):
+    """Run the layers as one sharded serving step (:class:`Serving`)."""
+    before = _SERVING[0]
+    _SERVING[0] = Serving(tuple(route), frozenset(seq))
+    try:
+        yield
+    finally:
+        _SERVING[0] = before
+
+
+def seq_split(entry: str) -> bool:
+    """Whether the serving step's cache ``entry`` lies split over its
+    sequence on ``model`` (:func:`serving`; False outside one)."""
+    return entry in _SERVING[0].seq
+
+
+def cache_rows(t: torch.Tensor, rank_dims: int) -> torch.Tensor:
+    """Each ``model`` rank's block of rows of K/V ``(*R, B, S, …)`` that
+    every rank holds whole: what a sequence-split cache keeps of a
+    prefill (``model`` the last of the ``rank_dims`` rank axes)."""
+    s, n = t.shape[rank_dims + 1], tp.size()
+    if s % n:
+        raise NotImplementedError(
+            f"a cache split over its sequence on {n} model ranks needs a "
+            f"length that divides by {n}, got {s}")
+    return tp.own_slice(t, rank_dims - 1, rank_dims + 1, s // n)
+
+
+def attend_ranks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 **kw) -> torch.Tensor:
+    """:func:`attend` of ``(*R, B, S, heads, d)`` tensors with rank axes
+    ``R`` (a cache's layer slice among them): the rank axes fold into one
+    outer batch dim, a view even of a slice of a ``(*R, L, B, …)`` cache,
+    so that the card reads the cache where it lies."""
+    r = q.dim() - 4
+    if r == 0:
+        return attend(q, k, v, **kw)
+    out = attend(*(t.flatten(0, r - 1) for t in (q, k, v)), **kw)
+    return out.reshape(*q.shape[:-1], out.shape[-1])
+
+
+def attend_shards(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, q_pos: int = 0,
+                  kv_len: int | None = None, window: int = 0,
+                  attn_cap: float = 0.0, scale: float | None = None
+                  ) -> torch.Tensor:
+    """Attention over a cache split over its sequence on ``model``: ``q``
+    ``(*R, B, Sq, H, hd)`` every query head on every rank, ``k``/``v``
+    ``(*R, B, S_l, KV, d)`` each ``model`` rank's block of keys (``model``
+    the last rank axis; ``kv_len`` and the positions count in the whole
+    sequence).  One partial launch over every rank's rows
+    (``ops.attention_partial``), then ``core.tp.lse_combine`` over
+    ``model``: the whole attention, on every rank.  The query scale is
+    :func:`attend`'s."""
+    r = q.dim() - 4
+    o, lse = ops.attention_partial(
+        *(t.flatten(0, r - 1) for t in (q, k, v)), shards=q.shape[r - 1],
+        causal=causal, scale=_scale(q, scale), attn_cap=attn_cap,
+        window=window, q_offset=q_pos, kv_len=kv_len)
+    o = o.reshape(*q.shape[:-1], v.shape[-1])
+    lse = lse.reshape(*q.shape[:-3], q.shape[-2], q.shape[-3])
+    return tp.lse_combine(o, lse.transpose(-1, -2), r - 1)
 
 
 def _rank_kv(t: torch.Tensor, md: int, h: int, hl: int) -> torch.Tensor:
@@ -429,15 +543,15 @@ def _heads(cfg: ModelConfig, wq: torch.Tensor, inside: bool = False
     return wq.shape[-1] // hd, tp.model_dim(wq, 2)
 
 
-def rank_kv(cfg: ModelConfig, p: dict, x: torch.Tensor, md: int | None,
-            xl: torch.Tensor | None = None, rope_pos=None) -> tuple:
-    """K/V ``(*R, B, T, KV_r, hd)`` of ``x`` for the rank's query heads:
-    the rank's own KV heads where the heads split whole over ``model``;
-    otherwise the whole K/V (computed replicated, or gathered over
-    ``model`` where the projection splits inside a head, granite's MQA)
-    and then each rank's heads (:func:`_rank_kv`).  ``k_norm`` (where
-    ``p`` has it) and rope at ``rope_pos`` apply to K.  ``xl`` is ``x``
-    entered into the rank-local region (``x`` itself without one)."""
+def kv_heads(cfg: ModelConfig, p: dict, x: torch.Tensor, md: int | None,
+             xl: torch.Tensor | None = None, rope_pos=None) -> tuple:
+    """K/V ``(*R, B, T, KV_r, hd)`` of ``x`` as a KV cache holds them: the
+    rank's own KV heads where the heads split whole over ``model``;
+    otherwise every KV head, the same on every rank (computed
+    replicated, or gathered over ``model`` where the projection splits
+    inside a head, granite's MQA).  ``k_norm`` (where ``p`` has it) and
+    rope at ``rope_pos`` apply to K.  ``xl`` is ``x`` entered into the
+    rank-local region (``x`` itself without one)."""
     kv, hd = cfg.n_kv_heads, cfg.hd
     *lead, t, _ = x.shape
     xl = x if xl is None else xl
@@ -456,12 +570,20 @@ def rank_kv(cfg: ModelConfig, p: dict, x: torch.Tensor, md: int | None,
         kk = rmsnorm(kk, w, cfg.norm_eps)
     if rope_pos is not None:
         kk = apply_rope(kk, rope_pos, cfg.rope_theta)
-    if md is not None and not local:
-        # a query head split over model: every rank holds all the K/V
-        kk, vv = (_rank_kv(a, md, cfg.n_heads, cfg.n_heads // tp.size())
-                  if cfg.n_heads % tp.size() == 0
-                  else tp.copy_to_model(a, md).contiguous() for a in (kk, vv))
     return kk, vv
+
+
+def heads_of(cfg: ModelConfig, kvs: tuple, md: int | None) -> tuple:
+    """The K/V of :func:`kv_heads` for the rank's query heads: as they
+    are, or, where every rank holds them whole, each rank's
+    (:func:`_rank_kv`; with a query head split over ``model``, all of
+    them, a copy a rank)."""
+    if md is None or cfg.n_kv_heads % tp.size() == 0:
+        return kvs
+    # a query head split over model: every rank holds all the K/V
+    return tuple(_rank_kv(a, md, cfg.n_heads, cfg.n_heads // tp.size())
+                 if cfg.n_heads % tp.size() == 0
+                 else tp.copy_to_model(a, md).contiguous() for a in kvs)
 
 
 def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
@@ -474,7 +596,7 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     ``x`` is ``(*R, B, S, D)`` with weights ``(*R, ...)``; returns
     ``(out, (k, v))``.  The rank axes fold into attention's batch dim.
     Under tensor parallelism a rank runs its query heads (``wq``'s width
-    over ``hd``), the K/V of :func:`rank_kv`, and ``wo`` row-parallel,
+    over ``hd``), the K/V of :func:`heads_of`, and ``wo`` row-parallel,
     its partial output summed over ``model``.  Where ``model`` splits a
     query head (gemma2-2b's 8 heads over 16 ranks), it partitions as XLA
     does: a rank's query columns are gathered over ``model``, every rank
@@ -483,18 +605,31 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     ``model`` of the ranks' partial gradients, then each rank's block.
 
     ``cache`` is ``{"k": (B, Smax, KV, hd), "v": ..., "pos": int}`` for a
-    decode step (no rank axes): the new K/V are written into it **in
-    place** at ``pos``, the start clamped to ``[0, Smax - S]`` as
-    ``dynamic_update_slice`` clamps it, and the queries attend at
-    positions ``pos + arange(S)`` over the first ``pos + S`` entries.  The
-    returned ``(k, v)`` are the cache's own tensors: the caller's cache is
-    consumed, as the reference's is under donation.  ``pos_offset`` is
-    the rotary position of the first token (``pos`` when decoding).
-    ``kv_override`` supplies precomputed ``(k, v)`` ``(*R, B, T, KV, hd)``
-    for cross-attention: neither the queries nor those keys get rope, only
-    the queries the q/k norm, and (without a cache) the queries attend
-    over them non-causally.  The reference's models call it with no
-    override (whisper and the VLM have their own cross blocks).
+    decode step: the new K/V are written into it **in place** at ``pos``,
+    the start clamped to ``[0, Smax - S]`` as ``dynamic_update_slice``
+    clamps it, and the queries attend at positions ``pos + arange(S)``
+    over the first ``pos + S`` entries.  The returned ``(k, v)`` are the
+    cache's own tensors: the caller's cache is consumed, as the
+    reference's is under donation.  ``pos_offset`` is the rotary position
+    of the first token (``pos`` when decoding).  ``kv_override`` supplies
+    precomputed ``(k, v)`` ``(*R, B, T, KV, hd)`` for cross-attention:
+    neither the queries nor those keys get rope, only the queries the q/k
+    norm, and (without a cache) the queries attend over them
+    non-causally.  The reference's models call it with no override
+    (whisper and the VLM have their own cross blocks).  Without a cache
+    the returned ``(k, v)`` are the step's K/V as a cache holds them
+    (:func:`kv_heads`).
+
+    Sharded serving: the cache may carry the rank axes, ``(*R, B, Smax_r,
+    KV_r, hd)``, laid out as ``rules.cache_specs`` says.  Its KV heads
+    split over ``model`` (or no ``model`` axis): each rank writes and
+    attends over its own heads.  Its sequence split over ``model``
+    (``cache["seq"]`` true: the caller's :func:`seq_split` of the cache's
+    entry): the new K/V, whole on every rank, are written on
+    the rank that holds position ``pos``; the queries are gathered over
+    ``model`` (every head on every rank); one partial launch attends over
+    every rank's block of keys and ``lse_combine`` joins them
+    (:func:`attend_shards`); each rank keeps its own heads for ``wo``.
     """
     *lead, s, _ = x.shape
     hd = cfg.hd
@@ -515,10 +650,11 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
               else tp.copy_to_model(p["q_norm"], md))
         q = rmsnorm(q, qn, cfg.norm_eps)
     if kv_override is None:
-        kk, vv = rank_kv(cfg, p, x, md, xl, rope_pos=pos)
+        kvs = kv_heads(cfg, p, x, md, xl, rope_pos=pos)
+        kk, vv = heads_of(cfg, kvs, md)
         q = apply_rope(q, pos, cfg.rope_theta)
     else:
-        kk, vv = kv_override
+        kk, vv = kvs = kv_override
         if split:
             kk, vv = (tp.copy_to_model(a, md).contiguous() for a in (kk, vv))
         elif md is not None:
@@ -526,15 +662,8 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     if split:       # each rank's own copy (the kernel reads no stride 0)
         q = tp.copy_to_model(q, md).contiguous()
     if cache is not None:
-        if len(lead) != 1:
-            raise ValueError(f"a KV cache takes (B, S, D) activations, got "
-                             f"{tuple(x.shape)}")
-        pos = cache["pos"]
-        write_cache(cache["k"], kk, pos)
-        write_cache(cache["v"], vv, pos)
-        out = attend(q, cache["k"], cache["v"], causal=True, q_pos=pos,
-                     kv_len=pos + s, window=window,
-                     attn_cap=cfg.attn_softcap)
+        out = _attend_cache(cfg, q, kvs if cache.get("seq") else (kk, vv),
+                            cache, window=window, md=md, whole=split)
         newkv = (cache["k"], cache["v"])
     else:
         out = attend(q.reshape(-1, s, h, hd),
@@ -542,12 +671,41 @@ def gqa_attention(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                      vv.reshape(-1, *vv.shape[-3:]),
                      causal=causal and kv_override is None, window=window,
                      attn_cap=cfg.attn_softcap, chunk=cfg.attn_chunk)
-        newkv = (kk, vv)
+        newkv = kvs
     out = out.reshape(*lead, s, h * hd)
     if split:                           # the rank's own columns for wo
         out = tp.own_slice(out, md, out.dim() - 1, cols)
     out = mm(out, p["wo"])
     return (out if md is None else tp.reduce_from_model(out, md)), newkv
+
+
+def _attend_cache(cfg: ModelConfig, q: torch.Tensor, kv: tuple,
+                  cache: dict, *, window: int, md: int | None,
+                  whole: bool) -> torch.Tensor:
+    """The decode attention of :func:`gqa_attention`: ``kv`` (the step's
+    K/V, every KV head where the cache splits its sequence) written into
+    ``cache`` at its ``pos``, then ``q`` ``(*R, B, S, H_r, hd)`` over it;
+    returns ``q``'s shape.  ``whole``: ``q`` holds every head already (a
+    head split over ``model``)."""
+    pos = cache["pos"]
+    s = q.shape[-3]
+    dim = q.dim() - 3                               # the cache's sequence
+    kw = dict(q_pos=pos, kv_len=pos + s, window=window,
+              attn_cap=cfg.attn_softcap)
+    if not cache.get("seq"):
+        write_cache(cache["k"], kv[0], pos, dim=dim)
+        write_cache(cache["v"], kv[1], pos, dim=dim)
+        return attend_ranks(q, cache["k"], cache["v"], causal=True, **kw)
+    mdx = dim - 2                                   # model: the last rank axis
+    write_cache(cache["k"], kv[0], pos, dim=dim, md=mdx)
+    write_cache(cache["v"], kv[1], pos, dim=dim, md=mdx)
+    hl = q.shape[-2]
+    if md is not None and not whole:                # every head on every rank
+        q = tp.copy_to_model(tp.gather_from_model(q, md, -2), md).contiguous()
+    out = attend_shards(q, cache["k"], cache["v"], **kw)
+    if md is not None and not whole:                # the rank's own heads
+        out = tp.own_slice(out, md, out.dim() - 2, hl)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -590,6 +748,22 @@ def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _before(flat_e: torch.Tensor, e: int, lead: tuple,
+            dims: tuple[int, ...]) -> torch.Tensor:
+    """For each (token, choice) of ``flat_e`` ``(P, T·k)``, the choices of
+    its expert on the ranks before its own along ``dims`` (in rank order,
+    the other rank dims apart): an exclusive scan of the ranks' counts,
+    which the ranks all-gather."""
+    counts = F.one_hot(flat_e, e).sum(1).reshape(*lead, e)
+    front = counts.movedim(dims, tuple(range(len(dims))))
+    flat = front.flatten(0, len(dims) - 1)
+    step_analysis.collective("all-gather", flat, flat.shape[0],
+                             math.prod(lead))
+    excl = flat.cumsum(0) - flat
+    back = excl.reshape(front.shape).movedim(tuple(range(len(dims))), dims)
+    return back.reshape(-1, e).gather(-1, flat_e)
+
+
 def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """Capacity-based top-k MoE with scatter dispatch, on every rank.
 
@@ -607,6 +781,11 @@ def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     kept slot's gated row into its token (``slot_to_row``), through
     :class:`_EPDispatch`, whose backward is the reference's f32 scatter.
 
+    Serving (:func:`serving`'s ``route``) takes the capacity and the
+    drops of the global batch, the ranks' rows in rank order; a rank's
+    expert buffer holds its own choices only, ``min(cap, T·k)`` slots an
+    expert (a kept choice has ``pos < cap`` and ``pos < T·k``).
+
     Expert parallelism: where ``E`` splits over ``model`` a rank holds
     ``E / tp`` experts (``w_*`` ``(*R, E/tp, ...)``).  The router, the
     capacity and the choices stay global (the replicated region); the
@@ -621,7 +800,9 @@ def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     b, s, d = x.shape[r:]
     t = b * s
     e, k = cfg.n_experts, cfg.experts_per_token
-    cap = max(int(cfg.capacity_factor * t * k / e), min(t * k, 32))
+    dims = _SERVING[0].route if r else None
+    tg = t * math.prod(lead[d] for d in dims or ())   # the global batch's
+    cap = max(int(cfg.capacity_factor * tg * k / e), min(tg * k, 32))
     dev = x.device
     md = tp.model_dim(p["router"], 2) if tp.splits(e) else None
     el = p["w_gate"].shape[-3]                                    # own E
@@ -636,7 +817,10 @@ def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
     flat_e = gate_idx.reshape(nr, t * k)
     pos, keep_f = _expert_slots(flat_e, e, cap)                   # (P,Tk)
-    flat_c = torch.clamp(pos, 0, cap - 1)
+    if tg > t:                                 # placed in the global batch
+        keep_f = pos + _before(flat_e, e, lead, dims) < cap
+    slots = min(cap, t * k)                 # a rank's own, an expert
+    flat_c = torch.clamp(pos, 0, slots - 1)
     ranks = torch.arange(nr, device=dev)[:, None]
     xs, own_e = xt, flat_e
     if md is not None:
@@ -649,7 +833,7 @@ def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         mine = (own_e >= 0) & (own_e < el)
         keep_f = keep_f & mine
         own_e = torch.where(mine, own_e, 0)
-    slot = (ranks * el + own_e) * cap + flat_c                    # (P,Tk)
+    slot = (ranks * el + own_e) * slots + flat_c                  # (P,Tk)
 
     src = xs.reshape(nr, t, 1, d).expand(nr, t, k, d).reshape(nr, t * k, d)
     src = torch.where(keep_f[..., None], src, 0).to(cfg.dtype)
@@ -660,34 +844,34 @@ def moe_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         # slot → flat row (unique by construction); a dropped choice's
         # slot is out of range and never written
         rows = torch.arange(t * k, device=dev).expand(nr, t * k)
-        slot_to_row = torch.full((nr * el * cap,), t * k, dtype=torch.int64,
-                                 device=dev)
+        slot_to_row = torch.full((nr * el * slots,), t * k,
+                                 dtype=torch.int64, device=dev)
         slot_to_row.scatter_reduce_(0, slot[keep_f], rows[keep_f],
                                     reduce="amin")
-        slot_to_row = slot_to_row.reshape(nr, el * cap)
-        xin = _EPDispatch.apply(src, slot, slot_to_row, el * cap)
+        slot_to_row = slot_to_row.reshape(nr, el * slots)
+        xin = _EPDispatch.apply(src, slot, slot_to_row, el * slots)
     else:
-        xin = _dispatch(src, slot, el * cap)
-    xin = xin.reshape(*lead, el, cap, d)
+        xin = _dispatch(src, slot, el * slots)
+    xin = xin.reshape(*lead, el, slots, d)
 
     h = F.silu(torch.matmul(xin, p["w_gate"]))
     h = h * torch.matmul(xin, p["w_up"])
-    out_e = torch.matmul(h, p["w_down"]).reshape(nr, el * cap, d)
+    out_e = torch.matmul(h, p["w_down"]).reshape(nr, el * slots, d)
 
     if cfg.moe_combine == "scatter_ar":
         kept = slot[keep_f]
-        slot_gate = torch.zeros(nr * el * cap, dtype=cfg.dtype,
+        slot_gate = torch.zeros(nr * el * slots, dtype=cfg.dtype,
                                 device=dev).index_put(
             (kept,), w.reshape(nr, t * k)[keep_f], accumulate=True)
         tok = slot_to_row // k + ranks * (t + 1)                  # (P,E·C)
         out = torch.zeros(nr * (t + 1), d, dtype=cfg.dtype,
                           device=dev).index_put(
             (tok.reshape(-1),),
-            (out_e * slot_gate.reshape(nr, el * cap, 1)).reshape(-1, d),
+            (out_e * slot_gate.reshape(nr, el * slots, 1)).reshape(-1, d),
             accumulate=True)
         out = out.reshape(nr, t + 1, d)[:, :t]
     else:
-        gath = out_e.reshape(nr * el * cap, d)[slot.reshape(-1)]
+        gath = out_e.reshape(nr * el * slots, d)[slot.reshape(-1)]
         out = (gath.reshape(nr, t, k, d)
                * w.reshape(nr, t, k, 1)).sum(2)
     out = out.reshape(*lead, t, d)

@@ -18,8 +18,9 @@ lifted onto each rank's rows, and only the SSD scan, which holds no
 weight, folds the rank axes into its batch.  ``A_log``, ``D`` and
 ``dt_bias`` stay fp32 (``rules.KEEP_F32``).
 
-Serving, on one rank: ``prefill`` runs from a zero state and returns the
-last logits and the cache ``{"layers": {"conv_x", "conv_b", "conv_c",
+Serving (on the rank axes too, ``serve.engine.make_serve_fns``):
+``prefill`` runs from a zero state and returns the last logits and the
+cache ``{"layers": {"conv_x", "conv_b", "conv_c",
 "ssm"}, "pos"}`` (the conv windows in the compute dtype, ``ssm`` fp32,
 each stacked ``(L, B, ...)``); ``decode_step`` steps it, writing the new
 state into the cache in place.
@@ -126,8 +127,13 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def mamba_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                 cache: dict | None = None) -> tuple:
     """One Mamba-2 mixer over ``x`` ``(*R, B, S, D)``; ``cache`` is
-    ``{"conv_x", "conv_b", "conv_c", "ssm"}`` (the state to start from),
-    and the new state is returned beside the output when it is given.
+    ``{"conv_x", "conv_b", "conv_c", "ssm"}`` (the state to start from; a
+    missing entry is zero, ``{}`` the zero state), and the new state is
+    returned beside the output when it is given.  On the rank axes a
+    serving cache lies as ``rules.cache_specs`` says: ``ssm`` over the
+    rank's heads, ``conv_x`` its ``d_inner`` block, ``conv_b`` /
+    ``conv_c`` its block of the state's features, gathered over
+    ``model`` for the (replicated) convolution and cut again after it.
 
     Where ``d_inner`` splits over ``model`` the SSD heads do: a rank holds
     its ``d_inner / tp`` columns of ``wz``, ``wx`` and ``conv_xw`` and
@@ -158,11 +164,20 @@ def mamba_block(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     dt = base.mm(x, p["wdt"])                                 # (...,S,H)
 
     state = cache or {}
+    # a serving cache on the rank axes holds a rank's block of the B/C
+    # conv windows (rules.cache_specs splits their features over model);
+    # the convolution runs on them whole
+    bc_split = cache is not None and tp.splits(n)
+    mdx = len(lead) - 2
+    cb, c_c = state.get("conv_b"), state.get("conv_c")
+    if bc_split and cb is not None:
+        cb, c_c = (tp.gather_from_model(t, mdx) for t in (cb, c_c))
     xin, ncx = _causal_conv(xin, p["conv_xw"], conv_xb, state.get("conv_x"))
-    bb, ncb = _causal_conv(bb, p["conv_bw"], p["conv_bb"],
-                           state.get("conv_b"))
-    cc, ncc = _causal_conv(cc, p["conv_cw"], p["conv_cb"],
-                           state.get("conv_c"))
+    bb, ncb = _causal_conv(bb, p["conv_bw"], p["conv_bb"], cb)
+    cc, ncc = _causal_conv(cc, p["conv_cw"], p["conv_cb"], c_c)
+    if bc_split:
+        ncb, ncc = (tp.own_slice(t, mdx, t.dim() - 1, n // tp.size())
+                    for t in (ncb, ncc))
 
     dt = dt.float() + base._lift(p["dt_bias"], dt).float()
     dt = torch.logaddexp(dt, torch.zeros_like(dt))            # softplus
@@ -274,19 +289,21 @@ def _run(cfg: ModelConfig, params: dict, x: torch.Tensor, *, mode: str,
         for lp in slices:
             x = run(x, lp)
         return x, None
+    rd = tf._rank_dims(params)
     if mode == "decode":
         states = cache["layers"]
         for i, lp in enumerate(slices):
-            x, nc = layer(x, lp, {k: t[i] for k, t in states.items()})
+            x, nc = layer(x, lp, {k: t.select(rd, i)
+                                  for k, t in states.items()})
             for k, t in nc.items():
-                states[k][i].copy_(t)
+                states[k].select(rd, i).copy_(t)
         return x, cache
     new: dict = {}
     for lp in slices:
-        x, nc = layer(x, lp, _zero_layer_cache(cfg, x.shape[:-2], x.device))
+        x, nc = layer(x, lp, {})              # from a zero state
         for k, t in nc.items():
             new.setdefault(k, []).append(t)
-    return x, {"layers": {k: torch.stack(v) for k, v in new.items()}}
+    return x, {"layers": {k: torch.stack(v, rd) for k, v in new.items()}}
 
 
 def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -314,7 +331,8 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
     x, emb = tf._embed(cfg, params, tokens, gather)
     x, cache = _run(cfg, params, x, mode="prefill", gather=gather)
     cache["pos"] = tokens.shape[-1]
-    return _logits(cfg, params, x[..., -1:, :], emb, gather), cache
+    last = x[..., -1:, :].contiguous()
+    return _logits(cfg, params, last, emb, gather), cache
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,

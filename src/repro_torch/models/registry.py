@@ -3,7 +3,8 @@
 The port of ``repro/models/registry.py``: the ``"dense"``, ``"moe"`` and
 ``"vlm"`` families through ``transformer``, ``"audio"`` through
 ``whisper``, ``"ssm"`` through ``mamba2`` and ``"hybrid"`` through
-``zamba2`` (training and serving).  ``init`` takes
+``zamba2`` (training and serving); ``abstract_params``, the parameters'
+shapes without storage.  ``init`` takes
 a ``torch.Generator`` (on the device the parameters should live on) where
 the reference takes a ``jax.random`` key, and ``init_cache`` also takes
 the ``device`` its cache should live on.
@@ -13,6 +14,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
+import torch
+
+from repro_torch import tree
 from repro_torch.models import mamba2, transformer, whisper, zamba2
 from repro_torch.models.base import ModelConfig
 
@@ -48,3 +52,16 @@ def get_model(cfg: ModelConfig) -> Model:
         init_cache=lambda bs, max_seq, **kw: mod.init_cache(cfg, bs, max_seq,
                                                             **kw),
     )
+
+
+def abstract_params(model: Model) -> dict:
+    """The global parameters' shapes and dtypes as ``meta`` tensors:
+    ``model.init`` under ``FakeTensorMode`` (the counterpart of
+    ``jax.eval_shape``; a ``meta`` device has no ``torch.Generator``,
+    which the init draws from)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        fake = model.init(torch.Generator().manual_seed(0))
+    return tree.map_leaves(lambda t: torch.empty(
+        t.shape, dtype=t.dtype, device="meta"), fake)

@@ -260,7 +260,13 @@ def _mla_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
     view), the rope key is broadcast over the heads and concatenated, and
     ``base.attend`` runs at ``(nope + rope, v_dim)``.  ``mla_absorbed``
     with a cache attends in the latent space instead, with fp32 products
-    over the compressed cache, as the reference does."""
+    over the compressed cache, as the reference does.
+
+    On the rank axes with ``model`` > 1 the cache is split over its
+    sequence (it has no heads): the rows go to the rank that holds them,
+    every head's query attends over each rank's block (expanded with
+    every head's ``w_ukv`` columns, or in the latent space) and the
+    blocks combine by their log-sum-exp."""
     *lead, s, _ = x.shape
     h = base.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     ap = lp["attn"]
@@ -285,47 +291,89 @@ def _mla_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
         c_kv, k_r = tp.copy_to_model(c_kv, md), tp.copy_to_model(k_r, md)
 
     q_pos = kv_len = None
+    shards = cache is not None and bool(cache.get("seq"))
+    mdx = len(lead) - 2                   # model: the last rank axis
     if cache is not None:
-        if len(lead) != 1:
-            raise ValueError(f"a KV cache takes (B, S, D) activations, got "
-                             f"{tuple(x.shape)}")
         q_pos = cache["pos"]
         kv_len = q_pos + s
-        base.write_cache(cache["c_kv"], c_kv, q_pos)
-        base.write_cache(cache["k_rope"], k_r, q_pos)
+        for name, t in (("c_kv", c_kv), ("k_rope", k_r)):
+            base.write_cache(cache[name], t, q_pos, dim=len(lead),
+                             md=mdx if shards else None)
         c_kv, k_r = cache["c_kv"], cache["k_rope"]
     sk = c_kv.shape[-2]
 
+    def every_head(t):                    # the rank's heads → all of them
+        if not shards or md is None:
+            return t
+        return tp.copy_to_model(tp.gather_from_model(t, md, -2),
+                                md).contiguous()
+
+    def own_heads(t):                     # all the heads → the rank's own
+        if not shards or md is None:
+            return t
+        return tp.own_slice(t, md, t.dim() - 2, nh)
+
     if cfg.mla_absorbed and cache is not None:
         # scores q_nope·(c_kv·W_uk)ᵀ = (q_nope·W_ukᵀ)·c_kvᵀ: the cache is
-        # never re-expanded, and the output stays latent until W_uv
-        lora = cfg.mla_kv_lora
-        w_ukv = ap["w_ukv"].reshape(lora, nh, nope + vd)
+        # never re-expanded, and the output stays latent until W_uv; over
+        # a sequence split, each rank's block of the latent cache scores
+        # every head's latent query, and the blocks' softmaxes combine by
+        # their log-sum-exp
+        w_ukv = ap["w_ukv"].reshape(*ap["w_ukv"].shape[:-1], nh, nope + vd)
         w_uk, w_uv = w_ukv[..., :nope], w_ukv[..., nope:]
-        q_lat = torch.einsum("bshn,lhn->bshl", q_nope, w_uk)
+        q_lat = every_head(torch.einsum("...bshn,...lhn->...bshl", q_nope,
+                                        w_uk))
         ckv = c_kv.float()
-        scores = torch.einsum("bshl,btl->bhst", q_lat.float(), ckv)
-        scores = scores + torch.einsum("bshr,btqr->bhst", q_rope.float(),
+        scores = torch.einsum("...bshl,...btl->...bhst", q_lat.float(), ckv)
+        scores = scores + torch.einsum("...bshr,...btqr->...bhst",
+                                       every_head(q_rope).float(),
                                        k_r.float())
         scores = scores * scale
         kpos = torch.arange(sk, device=x.device)
-        qp = q_pos + torch.arange(s, device=x.device)
-        mask = (kpos[None, :] <= qp[:, None]) & (kpos[None, :] < kv_len)
+        if shards:
+            kpos = kpos + tp.rank_index(scores, mdx) * sk
+        qp = (q_pos + torch.arange(s, device=x.device))[:, None]
+        mask = (kpos <= qp) & (kpos < kv_len)
         scores = torch.where(mask, scores, -1e30)
-        p_attn = torch.softmax(scores, dim=-1)
-        o_lat = torch.einsum("bhst,btl->bshl", p_attn, ckv)
-        out = torch.einsum("bshl,lhv->bshv", o_lat.to(cfg.dtype), w_uv)
+        if shards:
+            seen = mask.any(-1)
+            mx = scores.amax(-1, keepdim=True)
+            e = torch.exp(scores - mx)
+            tot = e.sum(-1, keepdim=True)
+            p_attn = torch.where(seen[..., None], e / tot, 0.0)
+            lse = torch.where(seen, (mx + torch.log(tot))[..., 0],
+                              -torch.inf)
+            o_lat = torch.einsum("...bhst,...btl->...bshl", p_attn, ckv)
+            o_lat = own_heads(tp.lse_combine(o_lat, lse.transpose(-1, -2),
+                                             mdx))
+        else:
+            p_attn = torch.softmax(scores, dim=-1)
+            o_lat = torch.einsum("...bhst,...btl->...bshl", p_attn, ckv)
+        out = torch.einsum("...bshl,...lhv->...bshv", o_lat.to(cfg.dtype),
+                           w_uv)
     else:
-        ukv = base.mm(c_kv, ap["w_ukv"]).reshape(*lead, sk, nh, nope + vd)
+        w_ukv = ap["w_ukv"]
+        if shards and md is not None:     # every head's columns
+            w_ukv = tp.gather_from_model(w_ukv, md)
+        hk = cfg.n_heads if shards and md is not None else nh
+        ukv = base.mm(c_kv, w_ukv).reshape(*lead, sk, hk, nope + vd)
         k = torch.cat([ukv[..., :nope],
-                       k_r.expand(*lead, sk, nh, rope)], dim=-1)
+                       k_r.expand(*lead, sk, hk, rope)], dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
-        out = base.attend(qq.reshape(-1, s, nh, nope + rope),
-                          k.reshape(-1, sk, nh, nope + rope),
-                          ukv[..., nope:].reshape(-1, sk, nh, vd),
-                          causal=True, q_pos=q_pos, kv_len=kv_len,
-                          scale=scale,
-                          chunk=cfg.attn_chunk if cache is None else 0)
+        if shards:
+            out = own_heads(base.attend_shards(
+                every_head(qq), k, ukv[..., nope:], q_pos=q_pos,
+                kv_len=kv_len, scale=scale))
+        elif cache is not None and len(lead) > 1:
+            out = base.attend_ranks(qq, k, ukv[..., nope:], causal=True,
+                                    q_pos=q_pos, kv_len=kv_len, scale=scale)
+        else:
+            out = base.attend(qq.reshape(-1, s, nh, nope + rope),
+                              k.reshape(-1, sk, nh, nope + rope),
+                              ukv[..., nope:].reshape(-1, sk, nh, vd),
+                              causal=True, q_pos=q_pos, kv_len=kv_len,
+                              scale=scale,
+                              chunk=cfg.attn_chunk if cache is None else 0)
     out = base.mm(out.reshape(*lead, s, nh * vd), ap["wo"])
     if md is not None:
         out = tp.reduce_from_model(out, md)
@@ -341,10 +389,15 @@ def _gated(gate: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def _cross_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-                 vision_kv: tuple) -> torch.Tensor:
+                 vision_kv: tuple, cached: bool = False,
+                 seq: bool = False) -> torch.Tensor:
     """The gated cross-attention layer (llama-3.2-vision): the normed
-    queries attend, not causally, over the vision K/V
-    (:func:`cross_kv`), whose dtype may be wider than the queries'."""
+    queries attend, not causally, over the vision K/V, whose dtype may be
+    wider than the queries'.  ``vision_kv`` is :func:`cross_kv`'s, or with
+    ``cached`` a decode step's cache entry; on the rank axes a cache
+    split over its vision tokens (``seq``) is attended by
+    every head's query over each rank's block, combined over ``model``
+    (``base.attend_shards``)."""
     h = base.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     *lead, s, _ = x.shape
     hd = cfg.hd
@@ -356,8 +409,20 @@ def _cross_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     q = base.mm(h, ap["wq"]).reshape(*lead, s, nh, hd)
     q = base.rmsnorm(q, qn, cfg.norm_eps)
     k, v = vision_kv
-    out = base.attend(q.reshape(-1, s, nh, hd), k.reshape(-1, *k.shape[-3:]),
-                      v.reshape(-1, *v.shape[-3:]), causal=False)
+    if cached and seq:
+        qa = q if md is None else tp.copy_to_model(
+            tp.gather_from_model(q, md, -2), md).contiguous()
+        out = base.attend_shards(qa, k, v, causal=False,
+                                 kv_len=k.shape[-3] * tp.size())
+        if md is not None:
+            out = tp.own_slice(out, md, out.dim() - 2, nh)
+    elif cached:
+        out = base.attend_ranks(q, k, v, causal=False)
+    else:
+        k, v = base.heads_of(cfg, (k, v), md)
+        out = base.attend(q.reshape(-1, s, nh, hd),
+                          k.reshape(-1, *k.shape[-3:]),
+                          v.reshape(-1, *v.shape[-3:]), causal=False)
     out = base.mm(out.reshape(*lead, s, nh * hd), ap["wo"])
     if md is not None:
         out = tp.reduce_from_model(out, md)
@@ -369,16 +434,17 @@ def _cross_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor,
 def cross_kv(cfg: ModelConfig, lp: dict, vision_embeds: torch.Tensor
              ) -> tuple:
     """A cross layer's K/V ``(*R, B, T, KV, hd)`` from the (gathered)
-    layer's weights, in the promoted dtype of the embeddings and the
-    weights, as ``jnp``'s ``@`` promotes them: the data pipeline's fp32
-    ``vision_embeds`` give fp32 K/V against bf16 weights."""
+    layer's weights, as a cache holds them (``base.kv_heads``), in the
+    promoted dtype of the embeddings and the weights, as ``jnp``'s ``@``
+    promotes them: the data pipeline's fp32 ``vision_embeds`` give fp32
+    K/V against bf16 weights."""
     ap = lp["attn"]
     dt = torch.promote_types(vision_embeds.dtype, ap["wk"].dtype)
     _, md = base._heads(cfg, ap["wq"])
     ve = vision_embeds.to(dt)
-    return base.rank_kv(cfg, {"wk": ap["wk"].to(dt), "wv": ap["wv"].to(dt),
-                              "k_norm": lp["k_norm"]}, ve, md,
-                        tp.copy_to_model(ve, md) if md is not None else None)
+    return base.kv_heads(cfg, {"wk": ap["wk"].to(dt), "wv": ap["wv"].to(dt),
+                               "k_norm": lp["k_norm"]}, ve, md,
+                         tp.copy_to_model(ve, md) if md is not None else None)
 
 
 def _layer_slices(stack, rank_dims: int) -> list:
@@ -446,8 +512,10 @@ def run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
 
     def layer(x, stack, lp, c=None, po=None, kv=None):
         if stack.name == "cross_layers":
-            kv = kv if kv is not None else cross_kv(cfg, lp, vision_embeds)
-            return _cross_layer(cfg, lp, x, kv), kv
+            cached = kv is not None
+            kv = kv if cached else cross_kv(cfg, lp, vision_embeds)
+            return _cross_layer(cfg, lp, x, kv, cached,
+                                base.seq_split(stack.entry)), kv
         if mla:
             return _mla_layer(cfg, lp, x, cache=c, pos_offset=po,
                               moe=stack.moe)
@@ -472,18 +540,21 @@ def run_stack(cfg: ModelConfig, params: dict, x: torch.Tensor, *,
         for stack, i in steps:
             lp = _g(gather, slices[stack.name][i])
             names = _kv_names(cfg, stack)
-            entry = {k: cache[stack.entry][k][i] for k in names}
+            entry = {k: cache[stack.entry][k].select(rd, i) for k in names}
             if stack.name == "cross_layers":
                 x, _ = layer(x, stack, lp, kv=(entry["k"], entry["v"]))
             else:
-                x, _ = layer(x, stack, lp, c=dict(entry, pos=pos), po=pos)
+                x, _ = layer(x, stack, lp, po=pos, c=dict(
+                    entry, pos=pos, seq=base.seq_split(stack.entry)))
         return x, cache
     kvs: dict = {}
     for stack, i in steps:
         x, kv = layer(x, stack, _g(gather, slices[stack.name][i]))
         for name, t in zip(_kv_names(cfg, stack), kv):
+            if base.seq_split(stack.entry):
+                t = base.cache_rows(t, rd)
             kvs.setdefault(stack.entry, {}).setdefault(name, []).append(t)
-    return x, {entry: {k: torch.stack(v) for k, v in e.items()}
+    return x, {entry: {k: torch.stack(v, rd) for k, v in e.items()}
                for entry, e in kvs.items()}
 
 
@@ -639,7 +710,8 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
                          gather=gather)
     x = base.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = _head(cfg, params, emb, gather)
-    logits = base.softcap(base.mm(x[..., -1:, :], head), cfg.logit_softcap)
+    logits = base.softcap(base.mm(x[..., -1:, :].contiguous(), head),
+                          cfg.logit_softcap)
     cache["pos"] = tokens.shape[-1]
     return logits, cache
 

@@ -17,8 +17,10 @@ stacked ``L`` axis after them) with the batch ``(*R, B, ...)``, as in
 trainer's autograd view).  Every weight product runs once per rank
 (``base.mm``); attention folds the rank axes into its batch.
 
-Serving, on one rank: ``prefill`` encodes the frames and returns the
-last logits and the cache ``{"dec": {"k", "v", "xk", "xv"}, "pos"}``,
+Serving (on the rank axes too, the cache's heads split over ``model``,
+``serve.engine.make_serve_fns``): ``prefill`` encodes the frames and
+returns the last logits and the cache ``{"dec": {"k", "v", "xk", "xv"},
+"pos"}``,
 the self K/V ``(L, B, S, H, hd)`` of the prompt and the cross K/V ``(L,
 B, encoder_tokens, H, hd)``, filled once.  ``decode_step`` writes the
 step's self K/V into the cache in place at ``pos`` (clamped as
@@ -146,7 +148,8 @@ def _mha(cfg: ModelConfig, p: dict, xq: torch.Tensor,
     if md is not None:
         same = xkv is xq
         xq = tp.copy_to_model(xq, md)
-        xkv = xq if same else tp.copy_to_model(xkv, md)
+        if xkv is not None:
+            xkv = xq if same else tp.copy_to_model(xkv, md)
         bq, bv = tp.local_slice(bq, md), tp.local_slice(bv, md)
     q = _bias(base.mm(xq, p["wq"]), bq).reshape(*lead, s, h, hd)
     if xkv is not None:
@@ -156,19 +159,26 @@ def _mha(cfg: ModelConfig, p: dict, xq: torch.Tensor,
     else:
         k, v = cache["k"], cache["v"]              # precomputed cross K/V
     q_pos = kv_len = None
+    if cache is not None and base.seq_split("dec"):
+        raise NotImplementedError(
+            f"whisper's cache lies split over its sequence on model (its "
+            f"{cfg.n_heads} heads over {tp.size()} ranks); the port "
+            "attends it split over its heads only")
     if cache is not None and xkv is not None:      # self-attention decode
-        if len(lead) != 1:
-            raise ValueError(f"a KV cache takes (B, S, D) activations, got "
-                             f"{tuple(xq.shape)}")
         q_pos = cache["pos"]
         kv_len = q_pos + s
-        base.write_cache(cache["k"], k, q_pos)
-        base.write_cache(cache["v"], v, q_pos)
+        base.write_cache(cache["k"], k, q_pos, dim=len(lead))
+        base.write_cache(cache["v"], v, q_pos, dim=len(lead))
         k, v = cache["k"], cache["v"]
-    out = base.attend(q.reshape(-1, s, h, hd), k.reshape(-1, *k.shape[-3:]),
-                      v.reshape(-1, *v.shape[-3:]), causal=causal,
-                      q_pos=q_pos, kv_len=kv_len,
-                      chunk=cfg.attn_chunk if cache is None else 0)
+    if cache is not None and len(lead) > 1:        # a cache on the rank axes
+        out = base.attend_ranks(q, k, v, causal=causal, q_pos=q_pos,
+                                kv_len=kv_len)
+    else:
+        out = base.attend(q.reshape(-1, s, h, hd),
+                          k.reshape(-1, *k.shape[-3:]),
+                          v.reshape(-1, *v.shape[-3:]), causal=causal,
+                          q_pos=q_pos, kv_len=kv_len,
+                          chunk=cfg.attn_chunk if cache is None else 0)
     out = base.mm(out.reshape(*lead, s, h * hd), p["wo"])
     if md is not None:
         out = tp.reduce_from_model(out, md)
@@ -235,17 +245,19 @@ def _decoder(cfg: ModelConfig, params: dict, x: torch.Tensor,
         for lp in slices:
             x = run(x, enc_out, lp)
         return x, None
+    rd = _rank_dims(params)
     if mode == "decode":
         dec = cache["dec"]
         for i, lp in enumerate(slices):
-            x = layer(x, lp, None, {k: t[i] for k, t in dec.items()})[0]
+            x = layer(x, lp, None, {k: t.select(rd, i)
+                                    for k, t in dec.items()})[0]
         return x, cache
     kvs: dict = {"k": [], "v": [], "xk": [], "xv": []}
     for lp in slices:
         x, kv, xkv = layer(x, lp, enc_out)
         for name, t in zip(kvs, (*kv, *xkv)):
             kvs[name].append(t)
-    return x, {"dec": {k: torch.stack(v) for k, v in kvs.items()}}
+    return x, {"dec": {k: torch.stack(v, rd) for k, v in kvs.items()}}
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor, pos: int,
@@ -298,7 +310,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
     x, cache = _decoder(cfg, params, x, enc_out, mode="prefill",
                         gather=gather)
     cache["pos"] = tokens.shape[-1]
-    return _logits(cfg, params, x[..., -1:, :], emb), cache
+    return _logits(cfg, params, x[..., -1:, :].contiguous(), emb), cache
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,

@@ -15,7 +15,8 @@ mamba layers after the last group.  In training only the mamba layers
 run under ``base.remat``; the shared block keeps its activations, as the
 reference's does.
 
-Serving, on one rank: the cache is ``{"mamba": {"conv_x", "conv_b",
+Serving (on the rank axes too, ``serve.engine.make_serve_fns``): the
+cache is ``{"mamba": {"conv_x", "conv_b",
 "conv_c", "ssm"} (L, B, ...), "attn": {"k", "v"} (ngroups, B, max_seq,
 KV, hd), "pos"}``; ``decode_step`` writes both parts in place.
 """
@@ -83,31 +84,35 @@ def _run(cfg: ModelConfig, params: dict, x: torch.Tensor, *, mode: str,
             if closes[i]:
                 x = attn(x)[0]
         return x, None
+    rd = tf._rank_dims(params)
     if mode == "decode":
         states, kv = cache["mamba"], cache["attn"]
         for i, lp in enumerate(slices):
-            x, nc = mamba(x, lp, {k: t[i] for k, t in states.items()})
+            x, nc = mamba(x, lp, {k: t.select(rd, i)
+                                  for k, t in states.items()})
             for k, t in nc.items():
-                states[k][i].copy_(t)
+                states[k].select(rd, i).copy_(t)
             if closes[i]:
                 j = i // g
-                x, _ = attn(x, {"k": kv["k"][j], "v": kv["v"][j],
-                                "pos": pos}, pos)
+                x, _ = attn(x, {"k": kv["k"].select(rd, j),
+                                "v": kv["v"].select(rd, j), "pos": pos,
+                                "seq": base.seq_split("attn")}, pos)
         return x, cache
     new: dict = {}
     kvs: dict = {"k": [], "v": []}
+    rows = base.seq_split("attn")
     for i, lp in enumerate(slices):
-        x, nc = mamba(x, lp, mamba2._zero_layer_cache(cfg, x.shape[:-2],
-                                                      x.device))
+        x, nc = mamba(x, lp, {})              # from a zero state
         for k, t in nc.items():
             new.setdefault(k, []).append(t)
         if closes[i]:
-            x, (k, v) = attn(x)
-            kvs["k"].append(k)
-            kvs["v"].append(v)
-    none = x.new_zeros((0, *x.shape[:-1], cfg.n_kv_heads, cfg.hd))
-    return x, {"mamba": {k: torch.stack(v) for k, v in new.items()},
-               "attn": {k: torch.stack(v) if v else none
+            x, kv = attn(x)
+            for name, t in zip(("k", "v"), kv):
+                kvs[name].append(base.cache_rows(t, rd) if rows else t)
+    none = x.new_zeros((*x.shape[:rd], 0, *x.shape[rd:-1], cfg.n_kv_heads,
+                        cfg.hd))
+    return x, {"mamba": {k: torch.stack(v, rd) for k, v in new.items()},
+               "attn": {k: torch.stack(v, rd) if v else none
                         for k, v in kvs.items()}}
 
 
@@ -130,7 +135,8 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *,
     x, emb = tf._embed(cfg, params, tokens, gather)
     x, cache = _run(cfg, params, x, mode="prefill", gather=gather)
     cache["pos"] = tokens.shape[-1]
-    return mamba2._logits(cfg, params, x[..., -1:, :], emb, gather), cache
+    last = x[..., -1:, :].contiguous()
+    return mamba2._logits(cfg, params, last, emb, gather), cache
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,

@@ -1,13 +1,21 @@
-"""Serving: a slot-based batched server over the model's decode step.
+"""Serving: sharded prefill/decode steps and a slot-based batched server.
 
-The port of ``repro/serve/engine.py``'s ``Request`` and
-``BatchedServer``.  Serving has no gradient reduction, so the paper's
-technique does not apply here (DESIGN.md §Arch-applicability); every
-attention of every step is the flash kernel on the card (masked decode
-over the KV cache).  The reference's ``make_serve_fns`` describes a
-sharded layout for a JAX mesh (``NamedSharding``s for the parameters
-and ``rules.cache_specs`` for the cache); that is the dry-run tooling's,
-ROADMAP queue 1 item 15.
+The port of ``repro/serve/engine.py``.  Serving has no gradient
+reduction, so the paper's technique does not apply here (DESIGN.md
+§Arch-applicability); every attention of every step is the flash kernel
+on the card (masked decode over the KV cache).
+
+``make_serve_fns`` is the sharded entry point: prefill and decode steps
+on the rank-axis layout of a ``(pod, data, model)`` mesh.  Parameters
+follow the same FSDP+TP rules as training (``rules.shard_params``,
+gathered per layer by ``rules.make_gather``), in the compute dtype; the
+tokens are placed as ``rules.batch_spec`` says and the cache as
+``rules.cache_specs`` does: KV heads over ``model`` when they divide,
+otherwise a *sequence-split* KV cache, each ``model`` rank holding
+``S/tp`` of the context, attended by one partial flash launch over every
+rank's block and combined by the log-sum-exp over ``model``
+(``base.attend_shards``).  Where the reference's XLA partitions the
+softmax reduction, the port computes it explicitly.
 
 The server follows the reference step for step, its quirk included:
 one decode step writes every lane's K/V at one shared position, the
@@ -22,9 +30,136 @@ host once.  Steps run under ``torch.inference_mode()``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from repro_torch import tree
+from repro_torch.core import tp
+from repro_torch.models import base
+from repro_torch.models.registry import abstract_params
+from repro_torch.sharding import rules
+
+#: the cache leaves that hold K/V (a sequence or heads dim to split)
+_KV_LEAVES = frozenset(rules._CACHE_SEQ_DIM)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeLayout:
+    """Where sharded serving puts everything, the counterpart of the
+    reference's ``shardings``: the mesh, each parameter's FSDP and TP dims
+    (``rules.param_specs`` / ``tp_specs`` of the cast parameters, -1 where
+    replicated), each cache leaf's :class:`rules.Spec`
+    (``rules.cache_specs`` of the ``(cache_batch, cache_len)`` cache),
+    the device and the compute dtype."""
+
+    mesh: rules.MeshCfg
+    params: Any
+    tp: Any
+    cache: Any
+    device: torch.device
+    dtype: torch.dtype
+
+    def shard_params(self, params: Any) -> Any:
+        """Global parameters → every rank's, in the compute dtype
+        (``rules.cast_params``; ``KEEP_F32`` leaves stay fp32), on the
+        device."""
+        cast = rules.cast_params(params, self.dtype)
+        return rules.shard_params(
+            tree.map_leaves(lambda t: t.to(self.device), cast), self.mesh)
+
+    @property
+    def seq_split(self) -> frozenset:
+        """The cache entries split over their sequence on ``model``
+        (``rules.seq_split_entries``)."""
+        return rules.seq_split_entries(self.cache, self.mesh)
+
+    def shard_cache(self, cache: Any) -> Any:
+        """A global cache (``model.init_cache``'s layout) → the rank
+        axes, on the device."""
+        return rules.shard_cache(tree.map_leaves(
+            lambda t: t.to(self.device) if isinstance(t, torch.Tensor)
+            else t, cache), self.mesh, self.cache)
+
+    def unshard_cache(self, cache: Any) -> Any:
+        """A cache on the rank axes → its global view."""
+        return rules.unshard_cache(cache, self.mesh, self.cache)
+
+
+def make_serve_fns(model, mesh_cfg: rules.MeshCfg, *, cache_batch: int,
+                   cache_len: int, device: str | torch.device = "cuda"
+                   ) -> tuple[Callable, Callable, ServeLayout]:
+    """``(prefill_fn, decode_fn, layout)`` on the mesh ``mesh_cfg``.
+
+    ``prefill_fn(params, batch)`` → ``(logits (B, 1, V), cache)`` and
+    ``decode_fn(params, tokens, cache)`` → ``(logits (B, S, V), cache)``:
+    ``params`` are ``layout.shard_params(global_params)``, ``batch`` and
+    ``tokens`` global (``(B, S)`` int tokens; the VLM's
+    ``vision_embeds``, whisper's ``enc_frames``), the logits global, the
+    cache on the rank axes as ``layout.cache`` says (``prefill_fn``'s for
+    the prompt's length; ``layout.shard_cache`` places a global one).
+    ``decode_fn`` writes the cache in place (it is consumed, as the
+    reference's is under donation).  Both run without autograd, under
+    ``core.tp.parallel``.  At ``model`` = 1 and ``data`` = 1 they are the
+    unsharded ``prefill`` / ``decode_step`` on the rank axes' single
+    rank.  A K/V cache that the specs would leave whole over ``model``
+    (neither its heads nor its length divide) is refused.
+
+    ``device`` is where the steps run (the card by default; there is no
+    fallback to the CPU).  The FSDP gathers take the rhd schedule, the
+    trainer's default (forward only: every schedule gives the same
+    bits)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_serve_fns: no CUDA device (pass "
+                           "device='cpu' to serve on the CPU)")
+    cfg = model.cfg
+    shapes = rules.cast_params(abstract_params(model), cfg.dtype)
+    cache_like = model.init_cache(cache_batch, cache_len, device="meta")
+    layout = ServeLayout(mesh_cfg, rules.param_specs(shapes, mesh_cfg),
+                         rules.tp_specs(shapes, mesh_cfg),
+                         rules.cache_specs(cache_like, mesh_cfg), dev,
+                         cfg.dtype)
+    if mesh_cfg.tp > 1:
+        for path, sp in zip(tree.paths(layout.cache),
+                            tree.flatten(layout.cache)[0]):
+            if path[-1] in _KV_LEAVES and sp.dim_of("model") is None:
+                raise NotImplementedError(
+                    f"make_serve_fns: cache leaf {'/'.join(map(str, path))}"
+                    f" would stay whole over {mesh_cfg.tp} model ranks "
+                    f"(neither its heads nor its length {cache_len} divide)")
+    seq = layout.seq_split
+    gather = rules.make_gather(mesh_cfg, "rhd", shapes)
+    vocab = "model" if mesh_cfg.tp > 1 and cfg.vocab % mesh_cfg.tp == 0 \
+        else None
+
+    def run(fn, tokens: torch.Tensor, *args) -> tuple:
+        """``fn`` on the rank axes as the layout says (``base.serving``:
+        an MoE routes the global batch, the layers attend each cache
+        entry as it is split); its logits made global: the rows as the
+        tokens were placed, the vocabulary blocks joined over ``model``
+        where it is split."""
+        rows = rules.batch_spec({"t": tokens}, mesh_cfg)["t"].dims
+        split = (rows or ((),))[0]
+        dims = tuple(mesh_cfg.reduce_axes.index(a) for a in split)
+        with tp.parallel(mesh_cfg.tp), base.serving(dims, seq), \
+                torch.no_grad():
+            logits, cache = fn(*args, gather=gather)
+        spec = rules.Spec(((rows or (None,))[0], None, vocab))
+        return rules._unplace(logits, spec, mesh_cfg), cache
+
+    def prefill_fn(params: Any, batch: dict) -> tuple:
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        return run(model.prefill, batch["tokens"], params,
+                   rules.split_batch(batch, mesh_cfg))
+
+    def decode_fn(params: Any, tokens: torch.Tensor, cache: Any) -> tuple:
+        tokens = tokens.to(dev)
+        return run(model.decode, tokens, params,
+                   rules.split_batch({"t": tokens}, mesh_cfg)["t"], cache)
+
+    return prefill_fn, decode_fn, layout
 
 
 @dataclasses.dataclass

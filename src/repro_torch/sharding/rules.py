@@ -21,8 +21,14 @@ global view ``unshard_params``), and a batch row block is a rank's
 The rank axes are ``(pod, data)``, and ``(pod, data, model)`` where
 ``model`` > 1 (``MeshCfg.rank_mesh``): at ``model`` = 1 the layout,
 the shapes and the bits are those of a mesh without the axis.
-``cache_specs``, which describes a sharded KV cache for the dry-run
-tooling, is ROADMAP queue 1 item 15.
+
+Serving's batch and cache: ``batch_spec`` and ``cache_specs`` name, for
+each leaf, the mesh axes each dim is split over (a :class:`Spec`, the
+entries of the reference's ``PartitionSpec``): the batch over the data
+axes, and a cache's KV heads, else its sequence, else its features over
+``model``.  ``split_batch`` and ``shard_cache`` lay a global tree out on
+the rank axes as those specs say (``_place``), ``unshard_cache`` takes it
+back (``_unplace``).
 """
 from __future__ import annotations
 
@@ -320,29 +326,177 @@ def unshard_params(params: Any, mesh: MeshCfg, dims: Any,
         tree.paths(params), leaves, tree.flatten(dims)[0], tps)])
 
 
-def split_batch(batch: Any, mesh: MeshCfg) -> Any:
-    """Each rank's rows of a global batch, ``(*mesh, rows, ...)``, as the
-    reference's ``batch_spec`` places them: rank ``r`` of the flattened
-    (pod, data) axes gets rows ``r·B/P … (r+1)·B/P``; a batch that only
-    divides by ``data`` is split over it and shared by the pods; one
-    that divides by neither goes whole to every rank.  Every ``model``
-    rank of a ``(pod, data)`` rank gets the same rows."""
-    red = mesh.rank_mesh().shape[:len(mesh.reduce_axes)]
-    dworld = mesh.data_world
-    tp = (mesh.tp,) if mesh.tp > 1 else ()
+# ---------------------------------------------------------------------------
+# Batch and cache specs (serving), and their placement on the rank axes.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """How a global leaf lies on the mesh: for each of its leading dims the
+    mesh axes it is split over, as the reference's ``PartitionSpec``
+    entries (a tuple of names, one name, or ``None`` for a whole dim;
+    dims past the entries are whole)."""
+
+    dims: tuple = ()
+
+    def axes(self, d: int) -> tuple[str, ...]:
+        e = self.dims[d] if d < len(self.dims) else None
+        return () if e is None else (e,) if isinstance(e, str) else tuple(e)
+
+    def dim_of(self, axis: str) -> int | None:
+        """The dim split over ``axis``, or ``None``."""
+        for d in range(len(self.dims)):
+            if axis in self.axes(d):
+                return d
+        return None
+
+
+def batch_spec(batch_tree: Any, mesh: MeshCfg) -> Any:
+    """Shard the leading batch dim over (pod, data) when divisible, else
+    over ``data`` when that divides it, else replicate: the reference's
+    ``batch_spec``, a :class:`Spec` for every leaf."""
+    daxes = mesh.reduce_axes
 
     def f(leaf):
         if leaf.dim() == 0:
-            return leaf.expand(*red, *tp)
-        b, rest = leaf.shape[0], tuple(leaf.shape[1:])
-        if b % dworld == 0:
-            per = leaf.reshape(*red, b // dworld, *rest)
-        elif b % mesh.fsdp == 0:
-            per = leaf.reshape(mesh.fsdp, b // mesh.fsdp, *rest)
-            per = per.expand(*red[:-1], *per.shape)
-        else:
-            per = leaf.expand(*red, *leaf.shape)
-        if not tp:
-            return per
-        return per.unsqueeze(len(red)).expand(*red, *tp, *per.shape[len(red):])
-    return tree.map_leaves(f, batch)
+            return Spec()
+        if leaf.shape[0] % mesh.data_world == 0:
+            return Spec((daxes,))
+        if leaf.shape[0] % mesh.fsdp == 0:
+            return Spec((("data",),))
+        return Spec()
+    return tree.map_leaves(f, batch_tree)
+
+
+_CACHE_SEQ_DIM = {"k": 2, "v": 2, "c_kv": 2, "k_rope": 2,
+                  "xk": 2, "xv": 2}
+_CACHE_HEAD_DIM = {"k": 3, "v": 3, "xk": 3, "xv": 3, "ssm": 2}
+_CACHE_FEAT_DIM = {"conv_x": 3, "conv_b": 3, "conv_c": 3}
+
+
+def cache_specs(cache_tree: Any, mesh: MeshCfg) -> Any:
+    """Partition KV/SSM caches, as the reference's ``cache_specs``: the
+    batch dim (caches are stacked ``(L, B, ...)``) over the data axes, or
+    ``data``, when divisible; then ``model`` over the heads if they
+    divide, else the sequence, else the features, else nothing.  A
+    :class:`Spec` for every leaf (``pos``, a host int, is replicated)."""
+    daxes = mesh.reduce_axes
+
+    def f(path, leaf):
+        keys = [k for k in path if isinstance(k, str)]
+        name = keys[-1] if keys else ""
+        if not isinstance(leaf, torch.Tensor) or leaf.dim() == 0:
+            return Spec()
+        spec: list = [None] * leaf.dim()
+        if leaf.dim() >= 2:
+            if leaf.shape[1] % mesh.data_world == 0:
+                spec[1] = daxes
+            elif leaf.shape[1] % mesh.fsdp == 0:
+                spec[1] = "data"
+        for dim_map in (_CACHE_HEAD_DIM, _CACHE_SEQ_DIM, _CACHE_FEAT_DIM):
+            d = dim_map.get(name)
+            if d is not None and d < leaf.dim() and spec[d] is None \
+                    and leaf.shape[d] % mesh.tp == 0:
+                spec[d] = "model"
+                break
+        return Spec(tuple(spec))
+    return tree.map_with_path(f, cache_tree)
+
+
+def seq_split_entries(specs: Any, mesh: MeshCfg) -> frozenset:
+    """The entries (top-level keys) of a cache whose :func:`cache_specs`
+    split a K/V leaf over its sequence on ``model``, none at ``model`` =
+    1 (the specs name it there, a split into one block): what the
+    serving layers read (``models.base.serving``)."""
+    if mesh.tp == 1:
+        return frozenset()
+    return frozenset(
+        entry for entry, leaves in specs.items() if isinstance(leaves, dict)
+        and any(name in _CACHE_SEQ_DIM
+                and sp.dim_of("model") == _CACHE_SEQ_DIM[name]
+                for name, sp in leaves.items()))
+
+
+def _place(x: torch.Tensor, spec: Spec, mesh: MeshCfg) -> torch.Tensor:
+    """A global leaf on the rank axes as ``spec`` says, ``(*mesh,
+    *local)``: a dim split over the data axes in blocks, rank ``r`` of the
+    flattened (pod, data) axes the ``r``-th; one split over ``data``
+    alone the same for every pod; one split over ``model`` in blocks
+    over the ``model`` ranks; the rest whole on every rank.  A view where
+    one can be (``expand``s share storage)."""
+    red = mesh.rank_mesh().shape[:len(mesh.reduce_axes)]
+    nred = len(red)
+    bd = next((d for d in range(x.dim())
+               if set(spec.axes(d)) & {"pod", "data"}), None)
+    if bd is None:
+        y = x.expand(*red, *x.shape)
+    elif spec.axes(bd) == ("data",) and nred > 1:
+        y = x.unflatten(bd, (mesh.fsdp, x.shape[bd] // mesh.fsdp))
+        y = y.movedim(bd, 0)
+        y = y.expand(*red[:-1], *y.shape)
+    else:
+        y = x.unflatten(bd, (*red, x.shape[bd] // math.prod(red)))
+        y = y.movedim(list(range(bd, bd + nred)), list(range(nred)))
+    if mesh.tp == 1:
+        return y
+    md = spec.dim_of("model")
+    if md is None:
+        return y.unsqueeze(nred).expand(*red, mesh.tp, *y.shape[nred:])
+    return torch.stack(y.chunk(mesh.tp, dim=nred + md), nred)
+
+
+def _unplace(x: torch.Tensor, spec: Spec, mesh: MeshCfg) -> torch.Tensor:
+    """Inverse of :func:`_place`: every rank's leaf ``(*mesh, *local)`` →
+    the global leaf; a replicated dim is the first rank's copy."""
+    nred = len(mesh.reduce_axes)
+    if mesh.tp > 1:
+        md = spec.dim_of("model")
+        x = (x.select(nred, 0) if md is None
+             else torch.cat(x.unbind(nred), dim=nred + md))
+    bd = next((d for d in range(x.dim() - nred)
+               if set(spec.axes(d)) & {"pod", "data"}), None)
+    if bd is None:
+        return x[(0,) * nred]
+    if spec.axes(bd) == ("data",) and nred > 1:
+        x = x[(0,) * (nred - 1)].movedim(0, bd)
+        return x.flatten(bd, bd + 1)
+    x = x.movedim(list(range(nred)), list(range(bd, bd + nred)))
+    return x.flatten(bd, bd + nred)
+
+
+def split_batch(batch: Any, mesh: MeshCfg) -> Any:
+    """Each rank's rows of a global batch, ``(*mesh, rows, ...)``, as the
+    reference's ``batch_spec`` places them (:func:`batch_spec`,
+    :func:`_place`): rank ``r`` of the flattened (pod, data) axes gets
+    rows ``r·B/P … (r+1)·B/P``; a batch that only divides by ``data`` is
+    split over it and shared by the pods; one that divides by neither
+    goes whole to every rank.  Every ``model`` rank of a ``(pod, data)``
+    rank gets the same rows.  Views of the batch."""
+    specs = batch_spec(batch, mesh)
+    return tree.unflatten(tree.flatten(batch)[1], [
+        _place(x, sp, mesh) for x, sp in zip(tree.flatten(batch)[0],
+                                             tree.flatten(specs)[0])])
+
+
+def shard_cache(cache: Any, mesh: MeshCfg, specs: Any | None = None) -> Any:
+    """A global serving cache laid out on the rank axes as ``specs``
+    (:func:`cache_specs` of it by default) say: every leaf ``(*mesh, L,
+    B_r, S or S/tp, …)``, each rank's own copy, never the global cache's
+    storage (the steps write it in place); ``pos`` as it is."""
+    specs = cache_specs(cache, mesh) if specs is None else specs
+    leaves, struct = tree.flatten(cache)
+    return tree.unflatten(struct, [
+        _place(x, sp, mesh).clone(memory_format=torch.contiguous_format)
+        if isinstance(x, torch.Tensor) else x
+        for x, sp in zip(leaves, tree.flatten(specs)[0])])
+
+
+def unshard_cache(cache: Any, mesh: MeshCfg, specs: Any) -> Any:
+    """The global view of a cache laid out by :func:`shard_cache` (or
+    returned by a sharded prefill or decode step): the inverse of
+    :func:`shard_cache` under the same ``specs``, whatever the sequence
+    length."""
+    leaves, struct = tree.flatten(cache)
+    return tree.unflatten(struct, [
+        _unplace(x, sp, mesh) if isinstance(x, torch.Tensor) else x
+        for x, sp in zip(leaves, tree.flatten(specs)[0])])

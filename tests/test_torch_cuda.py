@@ -885,6 +885,132 @@ def test_decode_step_on_cuda_matches_cpu(cuda, dtype):
     assert float((got - want).abs().max()) <= tol
 
 
+#: partial launches over 4 shards of 75 keys (a sequence of 300):
+#: Sq, q_offset, kv_len, causal, cap, window.  Shards past kv_len, before
+#: the window and past the causal edge see no key; at Sq 128 some rows of
+#: one block see keys of a shard and others none.
+_PARTIAL_CASES = ((1, 130, 131, True, 0.0, 0), (3, 200, 203, True, 0.0, 64),
+                  (1, 299, 300, True, 30.0, 0), (5, 0, 160, False, 0.0, 0),
+                  (128, 72, 200, True, 0.0, 0), (1, 10, 11, True, 30.0, 8))
+
+
+def _assert_partial_close(got, want, v):
+    """The kernel's ``(o, lse)`` against the plain version's: a row the
+    plain version leaves without a key is ``o = 0``, ``lse = -inf`` in
+    both, bit for bit; the others at the flash tolerances (lse 3e-5, as
+    the unmasked kernel's)."""
+    (o, lse), (po, plse) = got, want
+    none = torch.isinf(plse)
+    assert torch.equal(torch.isinf(lse), none)
+    assert bool((lse[none] < 0).all())
+    assert not bool(o.movedim(-2, -3)[none].any())
+    _assert_flash_close(o, po, v)
+    assert float((lse[~none] - plse[~none]).abs().max()) <= 3e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dims", [
+    *(("float32", d) for d in fa.FP32_DIMS),
+    *(("bfloat16", d) for d in fa.TC_DIMS)])
+def test_flash_partial_matches_plain_on_cuda(cuda, dtype, dims):
+    """Partial attention over a sequence split across 4 shards
+    (``shards=``), at every (hd, vd) each kernel takes: 2 data ranks × 4
+    ``model`` ranks × 2 rows, the keys one layer's strided slice of a
+    ``(ranks, L, B, Sk, KV, d)`` cache, GQA 8/2, the cases above (keyless
+    shards, the window and the cap across shard boundaries, Sq > 1):
+    one partial launch each, of the kernel the dtype picks, held to
+    ``ref.flash_attention_partial``."""
+    dt = getattr(torch, dtype)
+    hd, vd = dims
+    n, b, sk, h, kv = 8, 2, 75, 8, 2
+    k = torch.randn((n, 2, b, sk, kv, hd), generator=cuda,
+                    device="cuda").to(dt)[:, 1]
+    v = torch.randn((n, 2, b, sk, kv, vd), generator=cuda,
+                    device="cuda").to(dt)[:, 1]
+    for sq, off, kvl, causal, cap, win in _PARTIAL_CASES:
+        q = torch.randn((n, b, sq, h, hd), generator=cuda,
+                        device="cuda").to(dt)
+        kw = dict(shards=4, causal=causal, attn_cap=cap, window=win,
+                  q_offset=off, kv_len=kvl, scale=hd ** -0.5)
+        before = (fa.launches, fa.tc_launches, fa.partial_launches)
+        got = ops.attention_partial(q, k, v, **kw)
+        assert (fa.launches, fa.tc_launches, fa.partial_launches) == (
+            before[0] + 1, before[1] + (dt == torch.bfloat16),
+            before[2] + 1)
+        want = ref.flash_attention_partial(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert got[0].shape == (n, b, sq, h, vd)
+        assert got[1].shape == (n, b, h, sq)
+        assert bool(torch.isinf(want[1]).any()) == (
+            (sq, off) != (1, 299)), (sq, off)
+        _assert_partial_close(got, want, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_over_rank_axes_reads_a_strided_cache_on_cuda(cuda, dtype):
+    """``ops.attention`` of ``(N, B, …)`` tensors (the heads split's
+    decode over a cache laid out ``(ranks, L, B, S, KV, hd)``): one launch
+    over one layer's strided slice, equal to the 4-D launch over the
+    folded copy, bit for bit."""
+    dt = getattr(torch, dtype)
+    k, v = (torch.randn((4, 3, 2, 200, 2, 64), generator=cuda,
+                        device="cuda").to(dt)[:, 2] for _ in range(2))
+    q = torch.randn((4, 2, 1, 8, 64), generator=cuda, device="cuda").to(dt)
+    kw = dict(causal=True, q_offset=150, kv_len=151)
+    before = fa.launches
+    got = ops.attention(q, k, v, **kw)
+    assert fa.launches == before + 1 and got.shape == (4, 2, 1, 8, 64)
+    want = ops.attention(q.reshape(8, 1, 8, 64), k.reshape(8, 200, 2, 64),
+                         v.reshape(8, 200, 2, 64), **kw)
+    assert _same_bits(got.reshape(8, 1, 8, 64), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4), (4, 2)])
+def test_sharded_serving_on_cuda_matches_cpu(cuda, shape):
+    """``make_serve_fns`` on the card against the same steps on the CPU
+    (TinyLlama's SMOKE, fp32, ``("data", "model")`` = ``shape``): a
+    prefill of 16 and three decode steps from position 16 of a cache of
+    32, logits within 1e-4 of max|logit|.  At ``(2, 4)`` the cache splits
+    over its sequence: one partial launch a layer a step; at ``(4, 2)``
+    over its KV heads: none."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.serve.engine import make_serve_fns
+    from repro_torch.sharding import rules
+    cfg = tl.SMOKE.scaled(dtype=torch.float32)
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (4, 16), generator=g)
+    toks = torch.randint(0, cfg.vocab, (4, 3), generator=g)
+    mc = rules.MeshCfg(("data", "model"), shape)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        prefill, decode, layout = make_serve_fns(
+            model, mc, cache_batch=4, cache_len=32, device=dev)
+        sp = layout.shard_params(params)
+        logits, cache = prefill(sp, {"tokens": prompts})
+        full = model.init_cache(4, 32)
+        for name in ("k", "v"):
+            full["layers"][name][:, :, :16] = layout.unshard_cache(cache)[
+                "layers"][name].cpu()
+        full["pos"] = 16
+        cache = layout.shard_cache(full)
+        fa.launches = fa.partial_launches = 0
+        out = [logits.cpu()]
+        for i in range(3):
+            logits, cache = decode(sp, toks[:, i:i + 1], cache)
+            out.append(logits.cpu())
+        runs[dev] = (out, fa.launches, fa.partial_launches)
+    got, want = runs["cuda"][0], runs["cpu"][0]
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    seq = shape == (2, 4)
+    assert runs["cuda"][1:] == (3 * cfg.n_layers, 3 * cfg.n_layers * seq)
+    assert runs["cpu"][1:] == (0, 0)
+
+
 def test_flash_kernel_wrapper_refuses_what_it_does_not_take():
     """Checked before anything is built, so this runs without a card."""
     q = torch.zeros((1, 8, 2, 64))

@@ -7,7 +7,8 @@ equal the reference's for every cell (the port's parameter tree from
 ``tests/test_hlo_and_infra.py``'s functions, the wire bytes of the
 collectives what ``collectives.wire_bytes_per_rank`` models, and the
 same on ``meta`` tensors as on CPU tensors; ``launch.dryrun.run_cell``
-writes a train record at published widths.
+writes a train record and serve records (a prefill, a decode against a
+sequence-split cache, mamba2's 500k decode) at published widths.
 """
 import dataclasses
 import functools
@@ -196,22 +197,28 @@ def test_mamba2_step_counts_the_same_on_meta_and_on_cpu():
     assert cpu.peak_bytes == meta.peak_bytes > cpu.argument_bytes
 
 
+_RECORD_KEYS = {"arch", "shape", "kind", "mesh", "chips", "seq_len",
+                "global_batch", "flare_algorithm", "gather_algorithm",
+                "trace_s", "flops_per_rank", "bytes_per_rank",
+                "model_flops_global", "useful_flops_ratio", "memory",
+                "collectives", "roofline"}
+
+
+def _reference_model_flops(arch, cell):
+    jcfg = dataclasses.replace(jconfigs.load(arch).CONFIG, n_layers=2)
+    return janalytic.model_flops(jcfg, jax.eval_shape(
+        jget_model(jcfg).init, jax.random.PRNGKey(0)), cell)
+
+
 def test_run_cell_tinyllama_at_published_widths(tmp_path):
     rec = dryrun.run_cell("tinyllama-1.1b", configs.TRAIN_4K,
                           multi_pod=False, out_dir=str(tmp_path),
                           overrides={"n_layers": 2})
-    keys = {"arch", "shape", "kind", "mesh", "chips", "seq_len",
-            "global_batch", "flare_algorithm", "gather_algorithm", "trace_s",
-            "flops_per_rank", "bytes_per_rank", "model_flops_global",
-            "useful_flops_ratio", "memory", "collectives", "roofline"}
-    assert keys <= set(rec)
+    assert _RECORD_KEYS <= set(rec)
     assert set(rec["memory"]) == {"argument_bytes", "output_bytes",
                                   "peak_bytes"}
     assert rec["mesh"] == "16x16" and rec["chips"] == 256
-    jcfg = dataclasses.replace(jconfigs.load("tinyllama-1.1b").CONFIG,
-                               n_layers=2)
-    want = janalytic.model_flops(jcfg, jax.eval_shape(
-        jget_model(jcfg).init, jax.random.PRNGKey(0)), configs.TRAIN_4K)
+    want = _reference_model_flops("tinyllama-1.1b", configs.TRAIN_4K)
     assert abs(rec["model_flops_global"] - want) <= 1e-12 * want
     assert 0.4 < rec["useful_flops_ratio"] <= 1.0
     # a launch a layer forward, and again in the remat recompute
@@ -221,10 +228,39 @@ def test_run_cell_tinyllama_at_published_widths(tmp_path):
     assert json.loads(path.read_text()) == rec
 
 
-def test_a_serve_cell_names_its_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 17"):
-        dryrun.run_cell("gemma2-2b", configs.DECODE_32K, multi_pod=False,
-                        out_dir="unused")
+@pytest.mark.parametrize("arch,cell,multi,launches", [
+    ("tinyllama-1.1b", configs.PREFILL_32K, False, 2),
+    ("tinyllama-1.1b", configs.DECODE_32K, True, 2),
+    ("mamba2-370m", configs.LONG_500K, False, 0)],
+    ids=["tinyllama-prefill_32k", "tinyllama-decode_32k-2x16x16",
+         "mamba2-long_500k"])
+def test_run_cell_serve_cells_at_published_widths(tmp_path, arch, cell,
+                                                  multi, launches):
+    """A serve cell's record at published widths and 2 layers
+    (``trace_serve``: ``make_serve_fns`` on ``meta``): the train record's
+    keys, the reference's analytic ``model_flops``, and the flash
+    launches counted, one a layer (at decode the partial launch over
+    TinyLlama's sequence-split cache, 4 KV heads on 16 ``model`` ranks);
+    mamba2 has none.  The decode's cache is an argument: a rank's block
+    of TinyLlama's is 2 layers × 4 rows × 2048 positions of 4 KV heads of
+    64, K and V in bf16."""
+    rec = dryrun.run_cell(arch, cell, multi_pod=multi,
+                          out_dir=str(tmp_path), overrides={"n_layers": 2})
+    assert _RECORD_KEYS <= set(rec)
+    assert rec["kind"] == cell.kind and rec["n_layers"] == 2
+    assert rec["chips"] == (512 if multi else 256)
+    want = _reference_model_flops(arch, cell)
+    assert abs(rec["model_flops_global"] - want) <= 1e-12 * want
+    kernels = rec["collectives"]["kernels"]
+    assert kernels.get("flash_attention", {}).get("launches", 0) == launches
+    assert rec["flops_per_rank"] > 0 and rec["bytes_per_rank"] > 0
+    assert rec["memory"]["peak_bytes"] >= rec["memory"]["argument_bytes"] > 0
+    if cell.kind == "decode" and launches:
+        assert rec["memory"]["argument_bytes"] > 2 * 2 * 4 * 2048 * 4 * 64 * 2
+        assert kernels["flash_attention"]["bytes_moved"] > 0
+    name = configs.ALIASES.get(arch, arch)
+    path = tmp_path / f"{name}.{cell.name}.{rec['mesh']}.json"
+    assert json.loads(path.read_text()) == rec
 
 
 def test_flash_meta_branch_counts_the_kernel_and_refuses_its_refusals():
