@@ -69,7 +69,8 @@
    kernel, beside the kernel's memory bound; ``topk_compact`` also at
    k = 8 and 64 on the sparsifier's 2^28 vector.
 7. The flash attention kernels (``csrc/flash_attn.cu``: bf16 on the
-   tensor cores, fp32 on the CUDA cores) against their plain version:
+   tensor cores, fp32 on the CUDA cores, every launch of at most 64 query
+   rows a KV group on the decode kernel) against their plain version:
    causal and not, cap 0 and 30, window 0 and 256, GQA 1, 4 and 8, ragged
    ``Sq``/``Sk``, fp32 (``atol = 3e-5``, the reference's own) and bf16
    (one bf16 ulp of the plain version on the same bf16 inputs) at hd 64,
@@ -79,7 +80,14 @@
    threads a query row), causal and not, ``Sq != Sk``, GQA 8, cap 0 and
    30; ``base.attend`` in bf16 at hd 128 on the card against its dense
    CPU branch (the scale rounded to bf16 in both), and a bf16 query over
-   fp32 K/V the same way (upcast, the fp32 kernel, bf16 out).  Then
+   fp32 K/V the same way (upcast, the fp32 kernel, bf16 out).  The decode
+   kernel (``DECODE_CASES``) in both dtypes at every ``TC_DIMS`` pair:
+   G 1, 2, 8, 16 and 48, Sq 1 and 4, ragged ``kv_len``, the window inside
+   and past the cache, cap 50, cross launches (not causal), one split and
+   many, fp32 keys and values off 16 bytes (4-byte copies); each launch
+   counted by ``decode_launches``, twice the same bits, against the plain
+   version and the plain version of its own splits
+   (``ref.flash_attention_split``).  Then
    ``FLASH_MODEL_CASES``: every launch shape that the model paths give
    the kernel (TinyLlama's train step, prefill and decode; gemma2-2b's
    train step, prefill and decode, local and global, hd 256, cap 50,
@@ -96,8 +104,9 @@
    ``2x2x2``, a model rank's 16 heads over 2 KV heads, all 8 ranks'
    rows in one launch), granite-20b's 48 query heads on one KV
    head, gemma2's window where it hides most keys (``Sq = Sk = 8192``)
-   and its masked decode at ``kv_len`` 6144.  Each is one launch (bf16
-   on the tensor cores, fp32 on the CUDA cores) held against the plain
+   and its masked decode at ``kv_len`` 6144.  Each is one launch (a
+   decode-shaped one on the decode kernel, else bf16 on the tensor cores
+   and fp32 on the CUDA cores) held against the plain
    version at every batch row, timed beside its bound and
    ``scaled_dot_product_attention`` in the same dtype with the same
    boolean mask (no cap: SDPA takes none); where the window hides a key,
@@ -109,7 +118,10 @@
    8/2, keyless shards, the window and the cap across shard boundaries,
    Sq > 1, bf16 at every ``TC_DIMS`` pair and fp32 at hd 64 and 128,
    against ``ref.flash_attention_partial``: bf16 one ulp, fp32 3e-5, a
-   keyless row ``o = 0``, ``lse = -inf`` bit for bit.
+   keyless row ``o = 0``, ``lse = -inf`` bit for bit; every launch of Sq
+   < 128 on the decode kernel; and the decode kernel's partial launches
+   at G 1 and 48 over longer shards (many splits, keyless shards), both
+   dtypes at every ``TC_DIMS`` pair.
 8. The wire dense reductions (``WIRE_RUNS``), at the reduction paths'
    model and size: on ``(2, 4)`` the default (the hierarchical schedule,
    rhd levels), ``reproducible=True`` (its fixed-tree variant),
@@ -264,7 +276,7 @@
    weights from a seed.  The main path, ``launch.serve`` at the
    reference's defaults (8 requests, 4 slots, ``max_len`` 64, ``max_new``
    16), with the flash counter set to 0 just before and read just after:
-   22 launches a decode call, every one on the tensor cores; its tok/s.
+   22 launches a decode call, every one on the decode kernel; its tok/s.
    At scale: ``prefill`` of ``SERVE_B`` prompts of ``SERVE_PROMPT``
    tokens, the cache grown to ``SERVE_CACHE``, then ``SERVE_STEPS``
    lockstep greedy decode steps (22 flash launches a step), against the
@@ -330,7 +342,7 @@
    plain attention, the cross layers' launches on the fp32 kernel
    (counted); closing the gates moves the logits by more than the
    tolerance; the slot server (``SERVER_SLOTS`` lanes, ``SERVER_MAX_LEN``)
-   against the zero cross cache, every launch on the tensor cores.  The
+   against the zero cross cache, every launch on the decode kernel.  The
    VLM's train step does not fit the card at these widths (one group's
    fp32 state with the embedding and head is about 102 GB): it is held
    on the CPU against the reference.
@@ -898,6 +910,16 @@ FLASH_MODEL_CASES = {k: flash_case(*v) for k, v in {
         kv_len=ZAMBA_SERVE_PROMPT + ZAMBA_SERVE_STEPS),
     "zamba2 server decode": flash_case(*_SRV, **_ZA, **_SRV_MASK),
     "tinyllama train 2x2x2": flash_case(8, 4096, 4096, 16, 2, 64)}
+#: phase 7's synthetic decode-kernel launches over 2 KV heads, each at
+#: every ``TC_DIMS`` pair in both dtypes: G (query heads a KV head), Sq,
+#: Sk, q_offset, kv_len, causal, cap, window.  A ragged ``kv_len``, the
+#: window inside the cache and past it, cap 50, Sq 4, cross launches.
+DECODE_CASES = ((1, 1, 2000, 1990, 1991, True, 0.0, 0),
+                (2, 1, 2048, 2011, 2012, True, 50.0, 1024),
+                (8, 4, 2048, 1020, 1024, True, 30.0, 256),
+                (16, 1, 1100, 1099, 1100, True, 0.0, 2000),
+                (48, 1, 1500, 0, None, False, 0.0, 0),
+                (8, 1, 1600, 0, None, False, 50.0, 0))
 #: TinyLlama depth, cut from the published 22: the int8 reduction's peak
 #: is about four times the 8 ranks' fp32 gradient bytes (the caller's
 #: gradients and state, the two packed arenas), and 22 layers of fp32
@@ -927,7 +949,8 @@ SPARCML_K = 1
 #: the informative part of a templated kernel name in a profile
 KERNEL_NAME = re.compile(
     r"(tree_reduce|quantize|dequantize|dequant_accum|accum_sorted|"
-    r"accum_scatter|zero|topk|flash_fwd_wgmma|flash_fwd)_kernel(<[^>]*>)?|"
+    r"accum_scatter|zero|topk|flash_fwd_wgmma|flash_fwd|flash_decode_join|"
+    r"flash_decode)_kernel(<[^>]*>)?|"
     r"\w*gemm\w*|"
     r"CatArrayBatchedCopy\w*|\w*(Sort|sort|TopK|topk|Select)\w*|"
     r"\w+_kernel_cuda|\w*Functor\w*(<\w+>)?")
@@ -963,10 +986,19 @@ def trees_same_bits(a, b) -> bool:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of one call, by CUDA events around ``iters``."""
+    """Mean device time of one call, by CUDA events around ``iters``
+    calls queued behind a sleep on the card (twice the host's time for
+    them, at most 50 ms), so that the host's launch cost does not pace
+    short launches (a call that synchronises is paced all the same)."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    ahead = min(2 * iters * (time.perf_counter() - t0), 0.05)
+    torch.cuda._sleep(int(ahead * 2e9))         # cycles, at most 2 GHz
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1535,6 +1567,43 @@ def flash_err(torch, got, want, v) -> float:
     return err
 
 
+def decode_vs_plain(torch, fa, ref, q, k, v, kw: dict, label: str) -> tuple:
+    """One launch of ``q, k, v, kw``, which must be the decode kernel's
+    (``decode_launches`` and ``launches`` up by one, ``tc_launches`` not),
+    twice with the same bits, against the plain version
+    (``ref.flash_attention_bshd``, or ``flash_attention_partial`` with
+    ``shards``) and the plain version of its own splits
+    (``ref.flash_attention_split`` at ``decode_plan``'s plan), as
+    :func:`partial_vs_plain` holds them (keyless rows exact).  Returns
+    (the output's worst error, the log-sum-exp's, the keyless rows, the
+    plan)."""
+    n, b = (q.shape[0], q.shape[1]) if q.dim() == 5 else (1, q.shape[0])
+    sq, h, hd = q.shape[-3:]
+    sk, kvh, vd = k.shape[-3], k.shape[-2], v.shape[-1]
+    before = (fa.launches, fa.tc_launches, fa.decode_launches)
+    o, lse = fa.attention_fwd(q, k, v, **kw)
+    again = fa.attention_fwd(q, k, v, **kw)
+    check((fa.launches, fa.tc_launches, fa.decode_launches) == (
+        before[0] + 2, before[1], before[2] + 2),
+        f"{label}: not on the decode kernel")
+    check(same_bits(o, again[0]) and same_bits(lse, again[1]),
+          f"{label}: the same launch gave other bits")
+    shards = kw.get("shards")
+    plan = fa.decode_plan(
+        n, b, h, kvh, sq, sk, hd, vd, q.dtype, causal=kw["causal"],
+        window=kw["window"], q_offset=kw.get("q_offset", 0),
+        kv_len=kw.get("kv_len") or sk * (shards or 1), shards=shards)
+    blocks = n * b * kvh
+    check(blocks * plan.splits >= min(2 * fa.SMS, blocks * plan.tiles),
+          f"{label}: {blocks * plan.splits} blocks for {plan.tiles} tiles")
+    res = partial_vs_plain(torch, fa, ref, (q, k, v, kw), label,
+                           got=(o, lse))
+    partial_vs_plain(torch, fa, ref, (q, k, v, kw), f"{label} (its splits)",
+                     got=(o, lse), plain=ref.flash_attention_split(
+                         q, k, v, **plan._asdict(), **kw))
+    return (*res, plan)
+
+
 def phase_flash_vs_plain(torch, ops, ref, fa, base) -> None:
     """The flash kernels vs their plain version on synthetic cases."""
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1643,6 +1712,56 @@ def phase_flash_vs_plain(torch, ops, ref, fa, base) -> None:
     want = base.attend(q.cpu(), k.cpu(), v.cpu(), causal=True)
     attend_err = flash_err(torch, got, want, v.cpu())
     cases += 1
+    # the decode kernel, both dtypes at every TC_DIMS pair (DECODE_CASES),
+    # and fp32 keys and values 4 bytes off 16 (the 4-byte copies)
+    dec = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    dec_cases, splits = 0, set()
+    for dt in dec:
+        for hd, vd in fa.TC_DIMS:
+            for g, sq, sk, off, kvl, causal, cap, win in DECODE_CASES:
+                q = torch.randn((2, sq, 2 * g, hd), generator=gen,
+                                device="cuda").to(dt)
+                k = torch.randn((2, sk, 2, hd), generator=gen,
+                                device="cuda").to(dt)
+                v = torch.randn((2, sk, 2, vd), generator=gen,
+                                device="cuda").to(dt)
+                kw = dict(causal=causal, scale=hd ** -0.5, attn_cap=cap,
+                          window=win, q_offset=off, kv_len=kvl)
+                label = f"decode {dt} {(hd, vd)} G {g} Sq {sq} Sk {sk}"
+                err, _, _, plan = decode_vs_plain(torch, fa, ref, q, k, v,
+                                                  kw, label)
+                dec[dt] = max(dec[dt], err)
+                splits.add(plan.splits)
+                dec_cases += 1
+                if dt == torch.float32 and g == 8 and sq == 4:
+                    ko, vo = (torch.randn((2, sk, 2, d + 1), generator=gen,
+                                          device="cuda")[..., 1:]
+                              for d in (hd, vd))
+                    check(bool(ko.data_ptr() % 16), "an aligned offset view")
+                    err, *_ = decode_vs_plain(torch, fa, ref, q, ko, vo, kw,
+                                              f"{label} off 16 bytes")
+                    dec[dt] = max(dec[dt], err)
+                    dec_cases += 1
+    # the first 9 keys of 1100, one tile: one split, no join
+    for dt in dec:
+        q = torch.randn((4, 1, 16, 128), generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn((4, 1100, 8, 128), generator=gen,
+                            device="cuda").to(dt) for _ in range(2))
+        err, _, _, plan = decode_vs_plain(
+            torch, fa, ref, q, k, v, dict(causal=True, scale=128 ** -0.5,
+                                          attn_cap=0.0, window=0,
+                                          q_offset=8, kv_len=9),
+            f"decode {dt} one split")
+        check(plan.splits == 1, f"one tile took {plan.splits} splits")
+        dec[dt] = max(dec[dt], err)
+        dec_cases += 1
+    cases += dec_cases
+    print(f"flash decode kernel vs plain: {dec_cases} launches (G 1, 2, 8, "
+          f"16 and 48, Sq 1 and 4, the masks, cross launches, fp32 and bf16 "
+          f"at {list(fa.TC_DIMS)}, {min(splits)} to {max(splits)} splits a "
+          f"launch), each twice with the same bits, against the plain version "
+          f"and the plain version of its splits: worst fp32 "
+          f"{dec[torch.float32]:.3e}, bf16 {dec[torch.bfloat16]:.3e}")
     print(f"flash kernels vs plain: {cases} cases within tolerance (causal "
           "and not, cap 0 and 30, window 0 and 256, GQA 1, 4 and 8, ragged "
           "Sq and Sk; fp32 on the CUDA cores at atol 3e-5, bf16 on the "
@@ -1716,8 +1835,9 @@ def check_path_flash(torch) -> None:
 
 def phase_flash_model_cases(torch, fa, ref, card) -> dict:
     """Phase 7's model-path cases (``FLASH_MODEL_CASES``): flash against
-    its plain version at every batch row, one launch each (bf16 on the
-    tensor cores, fp32 on the CUDA cores), timed by CUDA events beside its
+    its plain version at every batch row, one launch each (a decode-shaped
+    one, ``G·Sq <= 64``, on the decode kernel; else bf16 on the tensor
+    cores, fp32 on the CUDA cores), timed by CUDA events beside its
     bound and ``scaled_dot_product_attention`` in the same dtype on the
     same boolean mask, or none where nothing is masked (SDPA takes no
     tanh cap: it is timed without one).  Where the window hides a key,
@@ -1743,11 +1863,13 @@ def phase_flash_model_cases(torch, fa, ref, card) -> dict:
         sk = k.shape[1]
         win, off, kvl = kw["window"], kw["q_offset"], kw["kv_len"]
         causal = kw["causal"]
-        before = (fa.launches, fa.tc_launches)
+        dec = fa.decodes(h, k.shape[2], sq)
+        route = "decode" if dec else "tensor-core" if tc else "CUDA-core"
+        before = (fa.launches, fa.tc_launches, fa.decode_launches)
         got, _ = fa.attention_fwd(q, k, v, **kw)
-        check((fa.launches, fa.tc_launches) == (before[0] + 1,
-                                                before[1] + tc),
-              f"{name}: not on the {'tensor' if tc else 'CUDA'} cores")
+        check((fa.launches, fa.tc_launches, fa.decode_launches) == (
+            before[0] + 1, before[1] + (tc and not dec), before[2] + dec),
+            f"{name}: not on the {route} kernel")
         want, _ = ref.flash_attention_bshd(q, k, v, **kw)
         torch.cuda.synchronize()
         err = flash_err(torch, got, want, v)
@@ -1785,7 +1907,7 @@ def phase_flash_model_cases(torch, fa, ref, card) -> dict:
               f"{tuple(k.shape)} v {tuple(v.shape)}"
               + (f" (a view, strides {v.stride()}, offset "
                  f"{v.storage_offset()})" if case["v_in"] else "")
-              + f" {case['dtype']} "
+              + f" {case['dtype']} ({route} kernel) "
               f"{'causal' if causal else 'not causal'} cap {kw['attn_cap']} "
               f"window {win}" + (f" q_offset {off} kv_len {kvl}" if kvl
                                  else "")
@@ -1799,7 +1921,7 @@ def phase_flash_model_cases(torch, fa, ref, card) -> dict:
               + f", no cap, {l_ms:.4f} ms; max |kernel - "
               f"plain| over all {b} batch rows {err:.3e}  [{card}]")
         out[name] = dict(ms=k_ms, bound_ms=bound, plain_ms=p_ms,
-                         library_ms=l_ms, max_abs_err=err)
+                         library_ms=l_ms, max_abs_err=err, route=route)
         del q, k, v, got, want, mask
         torch.cuda.empty_cache()
     return out
@@ -3878,7 +4000,7 @@ def phase_qwen_serve(torch, card, total_mem, seed) -> dict:
     reqs = [srv.submit(torch.randint(0, cfg.vocab, (n,),
                                      generator=rng).numpy(), max_new=8)
             for n in (3, 5, 2, 7)]
-    fa.launches = 0
+    fa.launches = fa.decode_launches = 0
     with path_flash("phase 21 BatchedServer"):
         steps = srv.run()
     torch.cuda.synchronize()
@@ -3886,7 +4008,8 @@ def phase_qwen_serve(torch, card, total_mem, seed) -> dict:
           and fa.launches > 0 and fa.launches % cfg.n_layers == 0,
           f"qwen3 BatchedServer: {fa.launches} flash launches")
     print(f"qwen3 BatchedServer: 4 requests of 8 tokens in {steps} steps, "
-          f"flash launches {fa.launches} ({cfg.n_layers} a decode call)")
+          f"flash launches {fa.launches} ({cfg.n_layers} a decode call, "
+          f"{fa.decode_launches} on the decode kernel)")
     del params, prompts, srv, got["logits"], got["routes"], ar
     torch.cuda.empty_cache()
     print(f"phase 21: phase {time.perf_counter() - t_phase:.1f} s ({card})")
@@ -3898,7 +4021,7 @@ def served_at_defaults(torch, card, arch: str, seed: int) -> None:
     requests, ``SERVER_SLOTS`` slots, ``max_len`` ``SERVER_MAX_LEN``,
     ``max_new`` 16), the flash counter set to 0 just before and read just
     after: ``flash_per_call(cfg, "decode")`` launches a decode call, all
-    on the tensor cores, each launch's shape recorded (``path_flash``)."""
+    on the decode kernel, each launch's shape recorded (``path_flash``)."""
     import io
 
     from repro_torch import configs
@@ -3916,14 +4039,14 @@ def served_at_defaults(torch, card, arch: str, seed: int) -> None:
         calls.append(1)
         return real_decode(*a, **k)
     buf = io.StringIO()
-    fa.launches = fa.tc_launches = 0
+    fa.launches = fa.decode_launches = 0
     with mock.patch.object(family, "decode_step", counting_decode), \
             contextlib.redirect_stdout(buf), \
             (path_flash(f"launch.serve --arch {arch}") if per_call
              else contextlib.nullcontext()):
         reqs = launch_serve.main(["--arch", arch, "--seed", str(seed)])
     torch.cuda.synchronize()
-    served = (fa.launches, fa.tc_launches)
+    served = (fa.launches, fa.decode_launches)
     print(buf.getvalue(), end="")
     check(served[0] == served[1] == per_call * len(calls) and calls,
           f"launch.serve --arch {arch}: flash launches {served} for "
@@ -3933,7 +4056,7 @@ def served_at_defaults(torch, card, arch: str, seed: int) -> None:
           f"launch.serve --arch {arch} did not finish its requests")
     print(f"launch.serve --arch {arch} ({cfg.n_layers} layers, bf16, "
           f"{card}): {len(calls)} decode calls, flash launches {served[0]} "
-          f"({served[1]} tensor-core) = {per_call} a call")
+          f"({served[1]} on the decode kernel) = {per_call} a call")
     del reqs
     torch.cuda.empty_cache()
 
@@ -4216,20 +4339,20 @@ def phase_vlm_serve(torch, card, total_mem, seed) -> dict:
     reqs = [srv.submit(torch.randint(0, cfg.vocab, (n,),
                                      generator=rng).numpy(), max_new=8)
             for n in (3, 5, 2, 7)]
-    fa.launches = fa.tc_launches = 0
+    fa.launches = fa.decode_launches = 0
     with path_flash("phase 24 BatchedServer"):
         steps = srv.run()
     torch.cuda.synchronize()
     check(all(r.done and len(r.out) == 8 for r in reqs)
           and fa.launches > 0 and fa.launches % cfg.n_layers == 0
-          and fa.tc_launches == fa.launches
+          and fa.decode_launches == fa.launches
           and not any(t.any() for t in srv.cache["cross"].values()),
           f"vlm BatchedServer: {fa.launches} flash launches "
-          f"({fa.tc_launches} tensor-core)")
+          f"({fa.decode_launches} on the decode kernel)")
     print(f"llama-3.2-vision BatchedServer: 4 requests of 8 tokens in {steps} "
           f"steps against the zero cross cache, flash launches "
-          f"{fa.launches} ({cfg.n_layers} a decode call, all on the tensor "
-          f"cores)")
+          f"{fa.launches} ({cfg.n_layers} a decode call, all "
+          f"{fa.decode_launches} on the decode kernel)")
     del params, srv, cross
     torch.cuda.empty_cache()
     print(f"phase 24: phase {time.perf_counter() - t_phase:.1f} s ({card})")
@@ -4799,16 +4922,20 @@ def phase_examples(torch, card) -> None:
     print(f"phase 34: phase {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
-def partial_vs_plain(torch, fa, ref, launch: tuple, label: str) -> tuple:
-    """One partial flash launch ``(q, k, v, kw)`` against its plain
-    version, ``ref.flash_attention_partial``, on the same inputs: the
-    output within :func:`flash_err`'s bound, the log-sum-exp within 3e-5
-    on every row that sees a key, and every keyless row exact in both
-    (``o = 0``, ``lse = -inf``).  Returns (the output's worst error, the
-    log-sum-exp's, the keyless rows)."""
+def partial_vs_plain(torch, fa, ref, launch: tuple, label: str, *,
+                     got=None, plain=None) -> tuple:
+    """One partial flash launch ``(q, k, v, kw)`` (its ``got`` output if
+    given) against its plain version, ``ref.flash_attention_partial`` (or
+    ``flash_attention_bshd`` without ``shards``; ``plain`` if given), on
+    the same inputs: the output within :func:`flash_err`'s bound, the
+    log-sum-exp within 3e-5 on every row that sees a key, and every
+    keyless row exact in both (``o = 0``, ``lse = -inf``).  Returns (the
+    output's worst error, the log-sum-exp's, the keyless rows)."""
     q, k, v, kw = launch
-    o, lse = fa.attention_fwd(q, k, v, **kw)
-    po, plse = ref.flash_attention_partial(q, k, v, **kw)
+    o, lse = got or fa.attention_fwd(q, k, v, **kw)
+    po, plse = plain or (ref.flash_attention_partial(q, k, v, **kw)
+                         if kw.get("shards")
+                         else ref.flash_attention_bshd(q, k, v, **kw))
     torch.cuda.synchronize()
     none = torch.isinf(plse)
     check(torch.equal(torch.isinf(lse), none)
@@ -4824,7 +4951,8 @@ def partial_vs_plain(torch, fa, ref, launch: tuple, label: str) -> tuple:
 def phase_flash_partial_vs_plain(torch, ref, fa) -> None:
     """Phase 7's partial launches (module docstring, item 7): the flash
     kernel over a sequence split (``shards=``) against its plain version,
-    ``ref.flash_attention_partial``."""
+    ``ref.flash_attention_partial``; then the decode kernel's partial
+    launches over longer shards."""
     gen = torch.Generator(device="cuda").manual_seed(35)
     n, b, sk, h, kv, shards = 8, 2, 96, 8, 2, 4
     # Sq, q_offset, kv_len, causal, cap, window over 4 shards of 96 keys
@@ -4834,7 +4962,7 @@ def phase_flash_partial_vs_plain(torch, ref, fa) -> None:
     dims = [("bfloat16", d) for d in fa.TC_DIMS] + [
         ("float32", (64, 64)), ("float32", (128, 128))]
     worst, keyless, count = {}, 0, 0
-    before = (fa.partial_launches, fa.tc_launches)
+    before = (fa.partial_launches, fa.tc_launches, fa.decode_launches)
     for name, (hd, vd) in dims:
         dt = getattr(torch, name)
         k = torch.randn((n, 2, b, sk, kv, hd), generator=gen,
@@ -4853,15 +4981,55 @@ def phase_flash_partial_vs_plain(torch, ref, fa) -> None:
             worst[name] = max(worst.get(name, 0.0), err)
             keyless += none
             count += 1
+    decoded = sum(fa.decodes(h, kv, c[0]) for c in cases)
     check(fa.partial_launches - before[0] == count
-          and fa.tc_launches - before[1] == len(fa.TC_DIMS) * len(cases),
+          and fa.tc_launches - before[1]
+          == len(fa.TC_DIMS) * (len(cases) - decoded)
+          and fa.decode_launches - before[2] == len(dims) * decoded,
           "partial flash: launch counters")
     print(f"flash partial launches vs plain (ref.flash_attention_partial): "
           f"{count} launches over 4 shards of 96 keys (2 data x 4 model "
-          f"ranks x 2 rows, GQA 8/2, the keys a strided layer slice), bf16 "
+          f"ranks x 2 rows, GQA 8/2, the keys a strided layer slice; "
+          f"{len(dims) * decoded} of them on the decode kernel), bf16 "
           f"at {list(fa.TC_DIMS)} worst {worst['bfloat16']:.3e} (one ulp), "
           f"fp32 at hd 64 and 128 worst {worst['float32']:.3e} (3e-5); "
           f"{keyless} keyless rows o = 0, lse = -inf in both")
+    # the decode kernel's partial launches at G 1 and 48 over shards of
+    # 1024 keys (one layer's slice of a cache), both dtypes at every
+    # TC_DIMS pair (MLA's strided v at (192, 128)): Sq, q_offset, kv_len,
+    # causal, cap, window
+    n, b, sk, kv = 8, 2, 1024, 2
+    dec, keyless, count, splits = {}, 0, 0, set()
+    for name in ("float32", "bfloat16"):
+        dt = getattr(torch, name)
+        for hd, vd in fa.TC_DIMS:
+            k = torch.randn((n, 2, b, sk, kv, hd), generator=gen,
+                            device="cuda").to(dt)[:, 1]
+            wide = 256 if (hd, vd) == (192, 128) else vd
+            v = torch.randn((n, 2, b, sk, kv, wide), generator=gen,
+                            device="cuda").to(dt)[:, 1][..., wide - vd:]
+            for g, off, kvl, causal, cap, win in (
+                    (1, 2600, 2601, True, 0.0, 0),
+                    (48, 3000, 3001, True, 50.0, 500),
+                    (48, 0, 3500, False, 0.0, 0)):
+                q = torch.randn((n, b, 1, g * kv, hd), generator=gen,
+                                device="cuda").to(dt)
+                kw = dict(shards=4, causal=causal, attn_cap=cap, window=win,
+                          q_offset=off, kv_len=kvl, scale=hd ** -0.5)
+                err, _, none, plan = decode_vs_plain(
+                    torch, fa, ref, q, k, v, kw,
+                    f"partial decode {name} ({hd}, {vd}) G {g} {(off, kvl)}")
+                dec[name] = max(dec.get(name, 0.0), err)
+                keyless += none
+                splits.add(plan.splits)
+                count += 1
+    check(keyless > 0 and max(splits) > 1, "partial decode: no keyless row "
+          "or no launch of many splits")
+    print(f"flash decode kernel partial launches vs plain: {count} launches "
+          f"over 4 shards of 1024 keys at G 1 and 48, {min(splits)} to "
+          f"{max(splits)} splits, fp32 worst {dec['float32']:.3e}, bf16 "
+          f"worst {dec['bfloat16']:.3e}; {keyless} keyless rows o = 0, "
+          "lse = -inf in both")
 
 
 def grown(torch, cache: dict, cache_len: int) -> dict:
@@ -4967,23 +5135,24 @@ def sharded_decode(torch, card, model, params, cache, toks, mesh: tuple,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.launches = fa.tc_launches = fa.partial_launches = 0
+    fa.decode_launches = 0
     with mock.patch.object(fa, "attention_fwd", record):
         logits, ms = steps_timed(torch, step, toks)
     n = toks.shape[1]
     layers = flash_per_call(cfg, "decode")
     out.update(launches=fa.launches, partial=fa.partial_launches,
-               tc=fa.tc_launches, step_ms=ms,
+               tc=fa.tc_launches, decode=fa.decode_launches, step_ms=ms,
                peak=torch.cuda.max_memory_allocated(),
                err=rel_err(logits, want),
                recorded=[rec[k] for k in ("last", "window") if k in rec],
                keyless=min(keyless) if keyless else 0)
-    tc = cfg.dtype == torch.bfloat16
     check(out["launches"] == layers * n
-          and out["tc"] == (out["launches"] if tc else 0)
+          and out["tc"] == 0 and out["decode"] == out["launches"]
           and out["partial"] == (out["launches"] if seq else 0),
           f"{label} {out['mesh']}: flash launches {out['launches']} "
-          f"({out['partial']} partial, {out['tc']} tensor-core) over {n} "
-          f"steps of {layers} layers")
+          f"({out['partial']} partial, {out['decode']} on the decode "
+          f"kernel, {out['tc']} tensor-core) over {n} steps of {layers} "
+          f"layers")
     check(not seq or out["keyless"] >= 1, f"{label} {out['mesh']}: no "
           "partial launch left a shard keyless")
     check(out["err"] <= tol, f"{label} {out['mesh']}: decode logits "
@@ -5099,7 +5268,8 @@ def print_sharded(card, label: str, runs: list, plain: dict, fig: dict,
               f"model): decode step ms (median of {n}, {card}) "
               f"{statistics.median(r['step_ms']):.2f} (first "
               f"{r['step_ms'][0]:.2f}); flash launches a step "
-              f"{r['launches'] // n} ({r['partial'] // n} partial); peak "
+              f"{r['launches'] // n} ({r['partial'] // n} partial, "
+              f"{r['decode'] // n} on the decode kernel); peak "
               f"{r['peak'] / 2**30:.2f} GiB; logits within {r['err']:.3e} "
               f"of max|logit| of the unsharded steps"
               + (f"; keyless shards a partial launch >= {r['keyless']}"
@@ -5320,7 +5490,8 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
     """Prefill ``prompts`` (``(B, S)`` on the card), grow the cache to
     ``cache_len`` positions, then ``steps`` lockstep greedy decode steps,
     the flash counter read around each (one launch a layer a step, all on
-    the tensor cores); the same steps with the plain attention patched in,
+    the decode kernel; the prefill's on the tensor cores but for
+    ``fp32_launches``); the same steps with the plain attention patched in,
     teacher-forced on the kernel's tokens: logits within
     ``SERVE_LOGIT_TOL`` of max|logit|, greedy tokens equal except where
     the plain run's top two lie within it (counted).  An MoE model's
@@ -5388,7 +5559,7 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
 
     moe = model.cfg.is_moe
     kern_routes, kern_flips, flips = [], [0, 0], [0, 0]
-    fa.launches = fa.tc_launches = 0
+    fa.launches = fa.tc_launches = fa.decode_launches = 0
     with (routing(base, kern_routes, routes, kern_flips) if moe
           else contextlib.nullcontext()), \
             (path_flash(label) if per_step else contextlib.nullcontext()):
@@ -5397,10 +5568,14 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
     check(all(n == per_step for n in kern["launches"]),
           f"{label}: decode steps launched flash {kern['launches']} times, "
           f"want {per_step} each")
+    tc_launches, decode_launches = fa.tc_launches, fa.decode_launches
     check(kern_launches == per_prefill + per_step * steps
-          and fa.tc_launches == kern_launches - fp32_launches * (steps + 1),
-          f"{label}: flash launches {kern_launches} ({fa.tc_launches} "
-          f"tensor-core, want {fp32_launches} a call on the CUDA cores)")
+          and tc_launches == per_prefill - fp32_launches
+          and decode_launches == per_step * steps,
+          f"{label}: flash launches {kern_launches} ({tc_launches} "
+          f"tensor-core, {decode_launches} on the decode kernel, want "
+          f"{fp32_launches} of the prefill's on the CUDA cores and every "
+          "decode step's on the decode kernel)")
     check(kern["pos"] == s + steps, f"{label}: pos {kern['pos']}")
     prefills = [kern["prefill_ms"]]
     for _ in range(2):
@@ -5443,8 +5618,8 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
           f"{kern['step_ms'][0]:.2f}, last {kern['step_ms'][-1]:.2f}); "
           f"{b * 1e3 / dec_ms:.1f} tok/s decoding; flash launches "
           f"{kern_launches} ({per_prefill} in the prefill, {per_step} a "
-          f"step"
-          + (f", {fp32_launches} of them fp32 on the CUDA cores"
+          f"step, {decode_launches} on the decode kernel"
+          + (f", {fp32_launches} of a call's fp32"
              if fp32_launches else "")
           + f"); peak {peak / 2**30:.2f} GiB "
           f"of {total_mem / 2**30:.1f}; against the plain attention "

@@ -37,16 +37,69 @@
 // multiply-adds twice (scores, then P·V) per head: 550 GFLOP, 0.56 ms at
 // the tensor cores' 989 TFLOP/s; its bytes (q and the 4 KV heads' k, v
 // read once, o and the log-sum-exp written once, 306 MB) take 0.09 ms at
-// 3.35 TB/s.  A decode launch is bound by bytes instead: one query row a
-// (batch, head) over the cache's first kv_len keys does 4·hd operations a
-// key, and the cache gives 4·hd bytes a key and KV head in bf16 (its K
-// and V rows): at B = 16, kv_len 1088, 32 heads over 4 KV heads of 64,
-// 17.8 MB (5.3 µs) against 0.14 GFLOP (0.14 µs).  This
-// kernel spends a whole block of 128 query rows on it, 127 of them
-// padding, and each of a KV group's 8 query heads reads the group's K
-// and V again (from L2): simple and right, not shaped for decode.
+// 3.35 TB/s.
 //
-// Two kernels, picked by dtype alone:
+// A decode launch is bound by bytes instead, and has a kernel of its own
+// (flash_decode_kernel, below), which replaces these two kernels on every
+// launch whose KV group holds at most 64 query rows (G · Sq <= 64, G =
+// H / KV; every Sq = 1 decode, masked, cross or partial).  Each key and KV
+// head gives 2·(hd + vd) bytes of K and V and takes 2·(hd + vd)
+// operations for each of the group's G · Sq rows: at G <= 16 far fewer
+// operations a byte than even the CUDA cores' 20 (67 TFLOP/s over 3.35
+// TB/s).  TinyLlama's decode (B = 16, kv_len 1088, 32 heads over 4 KV
+// heads of 64, bf16) moves 17.8 MB (5.3 µs) for 0.14 GFLOP; gemma2-2b's
+// global decode (B = 2 over 6176 keys, 8 heads over 4 KV heads of 256)
+// 50.6 MB (15.1 µs) for 0.10 GFLOP.  The training kernels spent a block
+// of 128 query rows on one live row and read a group's K and V once for
+// each of its query heads, on a grid of B · H blocks (16 for gemma2-2b's
+// decode, on 132 SMs).  The decode kernel instead:
+//
+// * holds one (outer n, batch b, KV head) and one contiguous split of the
+//   keys some of its rows can see in each block, all G · Sq query rows of
+//   the group in registers, so K and V are read from device memory once
+//   a launch.  Only the visible range [lo, hi) (causal edge, window,
+//   kv_len, the shard's base) is split, in whole tiles, into at least as
+//   many splits as give the grid two blocks an SM (the plan is
+//   flash_attn.py::decode_plan, which the wrapper passes in); KV heads
+//   run fastest in the grid, so blocks running together read neighbouring
+//   heads of the same keys;
+// * streams K and V through a ring of 3 stages of about 32 KB in dynamic
+//   shared memory by cp.async (16-byte copies, or 4-byte ones where an
+//   fp32 base or stride does not allow 16; keys past the split are
+//   zero-filled), two tiles in flight while one is used;
+// * computes in fp32 on the CUDA cores for both dtypes (bf16 scales the
+//   fp32 product, fp32 scales q first, as the kernels above do; scores in
+//   log2 units, ex2 on the SFU): a key is DL lanes wide, each lane holding
+//   hd / DL of q's and vd / DL of the output's values for RC rows, the
+//   score summed over the DL lanes by shuffles.  Up to 16 rows RC = 2 and
+//   DL = hd / 16, within 128 registers, so that two blocks share an SM;
+//   above, RC = 8 and DL = hd / 8 (DL = 16 at hd 192).  A warp scores 32
+//   / DL keys at once, two each, then updates each row's max and sum
+//   once; the cap's tanhf is computed once a score (one lane of the key's
+//   DL each, then shuffled), the mask only on batches of keys that cross
+//   an edge, and the output is rescaled only when some lane's max moved.
+//   Each group of lanes keeps its own online softmax state; the states
+//   meet at the end, first inside the warp (shuffles), then across the
+//   warps that share a row chunk (shared memory), in a fixed order.  No
+//   mma: the rows of a group are few;
+// * with more than one split, writes each row's fp32 partial (m, l, the
+//   unnormalised o) to scratch the wrapper allocates, and a second kernel
+//   (flash_decode_join_kernel) joins the splits in a fixed order, without
+//   atomics: the same launch gives the same bits.  A split a row cannot
+//   see adds exactly 0 (m = −inf); a row that sees no key of the launch
+//   (only under shards) gets o = 0, lse = −inf.  With one split the
+//   first kernel writes o and lse itself.
+//
+// What holds it (measured on an H100 80GB HBM3 at 700 W, PERF.md §6):
+// the stream of K and V alone, with the arithmetic taken out, reaches
+// about 2 TB/s on these layouts (a key's 128-512 bytes a KV head, 2 KB
+// apart); at 8 or more rows the arithmetic adds as much again, most of
+// it bf16 conversions and shuffles repeated in each row chunk's warps.
+//
+// Keys that no row sees are never loaded, and the rows' masked keys add
+// exactly 0, as in the kernels above (exact whenever a row sees a key).
+//
+// The training and prefill launches keep two kernels, picked by dtype:
 //
 // * bf16 (flash_fwd_wgmma_kernel): the tensor cores.  A block holds 128
 //   query rows of one (batch, head): two consumer warpgroups of 64 rows
@@ -124,9 +177,13 @@ constexpr int KT = 64;    // keys a shared-memory tile (32 above hd 64)
 constexpr int SUB = 16;   // keys scored into registers at a time
 
 __device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
 
 struct Args {
   const void* q;
@@ -905,6 +962,613 @@ cudaError_t launch(const void* q, const void* k, const void* v, const Args& a, i
 }
 
 }  // namespace tc
+
+
+// ---------------------------------------------------------------------------
+// The decode kernel: one block a (n, b, KV head, key split), fp32 on the
+// CUDA cores, both dtypes (the note at the top of this file).
+// ---------------------------------------------------------------------------
+
+namespace dec {
+
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int STAGES = 3;            // K/V ring depth
+constexpr int KB = 2;                // keys a lane group scores before an update
+constexpr int TILE_BYTES = 32768;    // what a stage aims at
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* lse;
+  float* part_o;   // [row][split][vd]: a split's unnormalised output
+  float* part_ml;  // [row][split][2]: its max (log2 units) and sum
+  int B, H, KV, Sq, Sk;  // B: the inner batch rows an outer row
+  // element strides (outer, batch, seq, head) of q, k, v, o
+  long long qs[4], ks[4], vs[4], os[4];
+  float scale, cap;
+  int causal, window;
+  int q_off;   // absolute position of query row 0
+  int kv_len;  // keys at or past this absolute position are hidden
+  int shards;  // > 0: partial attention over shard (n mod shards)
+  int R;       // query rows a block: G · Sq, row r = g · Sq + i
+  int wk;      // warps sharing a row chunk (the chunks are WARPS / wk)
+  int tile, tiles, splits;  // keys a stage; tiles of the widest range; splits
+  int vec16;   // 16-byte copies (else 4-byte, fp32 only)
+};
+
+// Lanes a key for RC rows a warp: hd / 16 (a lane holds 16 of q's and of
+// the output's values a row), hd / 8 at RC = 8 (8 a row, for registers),
+// 16 at hd 192 (12 of q's, 8 of the output's).
+__host__ __device__ constexpr int lanes(int hd, int rc) {
+  return hd == 192 ? 16 : rc == 8 ? hd / 8 : hd / 16;
+}
+
+// The keys of a stage for R rows: a whole number of batches (the KB keys
+// of every lane group of a warp), about TILE_BYTES of K and V; the warps
+// that share a row chunk take the batches in turn.
+// flash_attn.py::decode_tile is the same.
+__host__ __device__ inline int tile_keys(int hd, int vd, int esize, int R, int* wk) {
+  const int rc = R <= 16 ? 2 : 8;
+  int chunks = 1;
+  while (chunks * rc < R) chunks *= 2;
+  *wk = WARPS / chunks;
+  const int batch = 32 / lanes(hd, rc) * KB;
+  const int per = TILE_BYTES / (batch * (hd + vd) * esize);
+  return batch * (per > 1 ? per : 1);
+}
+
+// Values a lane reads from shared memory at once: 16 bytes where its
+// share of a row is a multiple of them, else 4 values.
+template <typename T, int E>
+__host__ __device__ constexpr int chunk() {
+  return E % (16 / static_cast<int>(sizeof(T))) == 0 ? 16 / static_cast<int>(sizeof(T)) : 4;
+}
+
+// The head dim of a lane's value e: chunks of C values, interleaved over
+// the DL lanes of a key (neighbouring lanes on neighbouring addresses).
+template <int C, int DL>
+__device__ __forceinline__ int dim_of(int e, int dl) {
+  return ((e / C) * DL + dl) * C + e % C;
+}
+
+// C values at p (shared memory, aligned to C values) into fp32.
+template <int C>
+__device__ __forceinline__ void load_chunk(const float* p, float* out) {
+  static_assert(C == 4, "fp32 chunks are 16 bytes");
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  out[0] = x.x;
+  out[1] = x.y;
+  out[2] = x.z;
+  out[3] = x.w;
+}
+template <int C>
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float* out) {
+  static_assert(C == 4 || C == 8, "bf16 chunks are 8 or 16 bytes");
+  uint32_t w[C / 2];
+  if constexpr (C == 8) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    w[0] = x.x;
+    w[1] = x.y;
+    w[2] = x.z;
+    w[3] = x.w;
+  } else {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    w[0] = x.x;
+    w[1] = x.y;
+  }
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// A lane's E values of a row at p (DL lanes a row, chunks of C).
+template <int E, int C, int DL, typename T>
+__device__ __forceinline__ void load_row(const T* p, int dl, float (&out)[E]) {
+#pragma unroll
+  for (int c = 0; c < E / C; ++c) load_chunk<C>(p + (c * DL + dl) * C, out + c * C);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(tc::smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(tc::smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The visible keys [lo, hi) of outer row n's block of keys (positions
+// counted from the shard's first key); empty where hi <= lo.
+__device__ __forceinline__ void key_range(const Args& a, int n, int& qoff, int& lo, int& hi) {
+  const int kb0 = a.shards > 0 ? (n % a.shards) * a.Sk : 0;
+  qoff = a.q_off - kb0;
+  const int klim = min(a.Sk, a.kv_len - kb0);
+  lo = 0;
+  hi = klim;
+  if (a.causal) {
+    hi = min(klim, qoff + a.Sq);
+    if (a.window > 0) lo = max(0, qoff - a.window + 1);
+  }
+}
+
+// RC: query rows a warp holds (2, or 8 above 16 rows).  At RC = 2 a
+// thread keeps within 128 registers, so that two blocks or more share an
+// SM and one's start and end overlap the other's stream.
+template <typename T, int HD, int VD, int RC>
+__global__ void __launch_bounds__(THREADS, RC <= 2 ? 2 : 1)
+    flash_decode_kernel(const __grid_constant__ Args a) {
+  constexpr int DL = lanes(HD, RC), KL = 32 / DL;  // lanes a key, keys a warp at once
+  constexpr int EK = HD / DL, EV = VD / DL;     // a lane's values of q and of o
+  constexpr int CK = chunk<T, EK>(), CV = chunk<T, EV>();
+  static_assert(EK % CK == 0 && EV % CV == 0 && 32 % DL == 0, "bad lane split");
+  extern __shared__ __align__(16) uint8_t dsmem[];
+  T* ring = reinterpret_cast<T*>(dsmem);
+  const int tile = a.tile;
+  const int stage = tile * (HD + VD);
+
+  // the block: (n, b, split, KV head), KV heads fastest, so that blocks
+  // running together read the same keys' rows of neighbouring heads
+  int blk = blockIdx.x;
+  const int kvh = blk % a.KV;
+  blk /= a.KV;
+  const int split = blk % a.splits;
+  blk /= a.splits;
+  const int b = blk % a.B, n = blk / a.B;
+  const int G = a.H / a.KV;
+  int qoff, lo, hi;
+  key_range(a, n, qoff, lo, hi);
+  // this split's whole tiles of the visible range
+  const int s_lo = lo + static_cast<int>(static_cast<long long>(split) * a.tiles / a.splits) * tile;
+  const int s_hi =
+      min(hi, lo + static_cast<int>(static_cast<long long>(split + 1) * a.tiles / a.splits) * tile);
+  const int ntiles = s_hi > s_lo ? (s_hi - s_lo + tile - 1) / tile : 0;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kg = warp % a.wk;           // this warp's share of a tile's keys
+  const int r0 = warp / a.wk * RC;      // its first row
+  const int nr = min(RC, a.R - r0);     // its rows (none past R)
+  const int ks = lane / DL, dl = lane % DL;
+
+  // q: this lane's values of its rows, fp32 scaled first
+  const float qscale = sizeof(T) == 4 ? a.scale : 1.f;
+  const float post = sizeof(T) == 4 ? 1.f : a.scale;
+  float qr[RC][EK];
+  int pos[RC];
+#pragma unroll
+  for (int rr = 0; rr < RC; ++rr) {
+    const int r = r0 + rr, i = r % a.Sq, h = kvh * G + r / a.Sq;
+    pos[rr] = qoff + i;
+    const T* qp = static_cast<const T*>(a.q) + n * a.qs[0] + b * a.qs[1] +
+                  static_cast<long long>(i) * a.qs[2] + h * a.qs[3];
+    if (rr >= nr) {
+#pragma unroll
+      for (int e = 0; e < EK; ++e) qr[rr][e] = 0.f;
+    } else if (sizeof(T) == 2 || a.vec16) {  // 16-byte aligned rows
+      load_row<EK, CK, DL>(qp, dl, qr[rr]);
+#pragma unroll
+      for (int e = 0; e < EK; ++e) qr[rr][e] *= qscale;
+    } else {
+#pragma unroll
+      for (int e = 0; e < EK; ++e) qr[rr][e] = to_f(qp[dim_of<CK, DL>(e, dl)]) * qscale;
+    }
+  }
+  // the causal positions of the block's first and last rows
+  const int pmin = qoff, pmax = qoff + a.Sq - 1;
+  float acc[RC][EV], m[RC], l[RC];
+#pragma unroll
+  for (int rr = 0; rr < RC; ++rr) {
+    m[rr] = -INFINITY;
+    l[rr] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EV; ++e) acc[rr][e] = 0.f;
+  }
+
+  const T* kbase = static_cast<const T*>(a.k) + n * a.ks[0] + b * a.ks[1] + kvh * a.ks[3];
+  const T* vbase = static_cast<const T*>(a.v) + n * a.vs[0] + b * a.vs[1] + kvh * a.vs[3];
+  // tile `it` of the split into its stage: K [tile][HD], then V [tile][VD];
+  // keys past the split zero-filled
+  auto load_tile = [&](int it) {
+    T* kst = ring + (it % STAGES) * stage;
+    T* vst = kst + tile * HD;
+    const int key0 = s_lo + it * tile;
+    if (sizeof(T) == 2 || a.vec16) {
+      constexpr int PV = 16 / sizeof(T), KC = HD / PV, PER = (HD + VD) / PV;
+      for (int c = threadIdx.x; c < tile * PER; c += THREADS) {
+        const int j = c / PER, w = c % PER, key = key0 + j;
+        const bool in = key < s_hi;
+        const T* src = w < KC ? kbase + static_cast<long long>(key) * a.ks[2] + w * PV
+                              : vbase + static_cast<long long>(key) * a.vs[2] + (w - KC) * PV;
+        T* dst = w < KC ? kst + j * HD + w * PV : vst + j * VD + (w - KC) * PV;
+        cp_async16(dst, in ? src : kbase, in ? 16 : 0);
+      }
+    } else {
+      for (int c = threadIdx.x; c < tile * (HD + VD); c += THREADS) {
+        const int j = c / (HD + VD), w = c % (HD + VD), key = key0 + j;
+        const bool in = key < s_hi;
+        const T* src = w < HD ? kbase + static_cast<long long>(key) * a.ks[2] + w
+                              : vbase + static_cast<long long>(key) * a.vs[2] + (w - HD);
+        T* dst = w < HD ? kst + j * HD + w : vst + j * VD + (w - HD);
+        cp_async4(dst, in ? src : kbase, in ? 4 : 0);
+      }
+    }
+  };
+
+#pragma unroll 1
+  for (int it = 0; it < STAGES - 1; ++it) {
+    if (it < ntiles) load_tile(it);
+    cp_commit();
+  }
+  const int sweep = KL * KB * a.wk;  // the keys the warps of a row chunk take at once
+#pragma unroll 1
+  for (int it = 0; it < ntiles; ++it) {
+    cp_wait<STAGES - 2>();  // tile it has landed (this thread's copies)
+    __syncthreads();        // everyone's, and tile it - 1 is consumed
+    if (it + STAGES - 1 < ntiles) load_tile(it + STAGES - 1);
+    cp_commit();
+    if (nr <= 0) continue;
+    const T* kt = ring + (it % STAGES) * stage;
+    const T* vt = kt + tile * HD;
+    const int key0 = s_lo + it * tile;
+#pragma unroll 1
+    for (int j0 = kg * KL * KB; j0 < tile; j0 += sweep) {
+      // the scores of KB keys for every row: this lane's share, then the
+      // sum over the key's DL lanes (every lane gets the same bits)
+      float s[KB][RC];
+#pragma unroll
+      for (int kb = 0; kb < KB; ++kb) {
+        float kf[EK];
+        load_row<EK, CK, DL>(kt + (j0 + kb * KL + ks) * HD, dl, kf);
+#pragma unroll
+        for (int rr = 0; rr < RC; ++rr) {
+          if (rr >= nr) break;
+          float x = 0.f;
+#pragma unroll
+          for (int e = 0; e < EK; ++e) x = fmaf(qr[rr][e], kf[e], x);
+          s[kb][rr] = x;
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < RC; ++rr) {
+        if (rr >= nr) break;
+#pragma unroll
+        for (int off = 1; off < DL; off *= 2)
+#pragma unroll
+          for (int kb = 0; kb < KB; ++kb) s[kb][rr] += __shfl_xor_sync(0xffffffffu, s[kb][rr], off);
+      }
+      // scale and cap: the cap's tanhf once a (key, row) score, lane p of
+      // a key's DL lanes computing score p where there are lanes enough
+#pragma unroll
+      for (int rr = 0; rr < RC; ++rr) {
+        if (rr >= nr) break;
+#pragma unroll
+        for (int kb = 0; kb < KB; ++kb) s[kb][rr] *= post;
+      }
+      if (a.cap > 0.f) {
+        if constexpr (DL >= KB * RC) {
+          float mine = 0.f;  // score dl = rr · KB + kb (registers: no index)
+#pragma unroll
+          for (int rr = 0; rr < RC; ++rr)
+#pragma unroll
+            for (int kb = 0; kb < KB; ++kb)
+              if (rr < nr && dl == rr * KB + kb) mine = s[kb][rr];
+          const float capped = tanhf(mine / a.cap) * a.cap;
+#pragma unroll
+          for (int rr = 0; rr < RC; ++rr) {
+            if (rr >= nr) break;
+#pragma unroll
+            for (int kb = 0; kb < KB; ++kb)
+              s[kb][rr] = __shfl_sync(0xffffffffu, capped, ks * DL + rr * KB + kb);
+          }
+        } else {
+#pragma unroll
+          for (int rr = 0; rr < RC; ++rr) {
+            if (rr >= nr) break;
+#pragma unroll
+            for (int kb = 0; kb < KB; ++kb) s[kb][rr] = tanhf(s[kb][rr] / a.cap) * a.cap;
+          }
+        }
+      }
+      // mask (−inf: the key is not this row's, or past the split) only
+      // where the warp's batch of keys crosses an edge of a row's range;
+      // then one online-softmax step a row
+      const int b0 = key0 + j0, b1 = b0 + KL * KB;  // the warp's keys [b0, b1)
+      const bool whole = b1 <= s_hi && (!a.causal || (b1 - 1 <= pmin &&
+                                                      (a.window == 0 || b0 > pmax - a.window)));
+#pragma unroll
+      for (int rr = 0; rr < RC; ++rr) {
+        if (rr >= nr) break;
+        float mt = -INFINITY;
+#pragma unroll
+        for (int kb = 0; kb < KB; ++kb) {
+          const int key = b0 + kb * KL + ks;
+          const bool seen = whole || (key < s_hi && (!a.causal || (key <= pos[rr] &&
+                                                     (a.window == 0 || key > pos[rr] - a.window))));
+          s[kb][rr] = seen ? s[kb][rr] * LOG2E : -INFINITY;
+          mt = fmaxf(mt, s[kb][rr]);
+        }
+        const float mn = fmaxf(m[rr], mt);
+        float alpha = 1.f;
+        if (mn == -INFINITY) {
+#pragma unroll
+          for (int kb = 0; kb < KB; ++kb) s[kb][rr] = 0.f;
+        } else {
+          if (mn > m[rr]) alpha = tc::ex2(m[rr] - mn);  // the max moved (rarely, once warm)
+          float ps = 0.f;
+#pragma unroll
+          for (int kb = 0; kb < KB; ++kb) {
+            s[kb][rr] = tc::ex2(s[kb][rr] - mn);
+            ps += s[kb][rr];
+          }
+          l[rr] = l[rr] * alpha + ps;
+          m[rr] = mn;
+        }
+        if (__any_sync(0xffffffffu, alpha != 1.f)) {
+#pragma unroll
+          for (int e = 0; e < EV; ++e) acc[rr][e] *= alpha;
+        }
+      }
+      // P · V
+#pragma unroll
+      for (int kb = 0; kb < KB; ++kb) {
+        float vf[EV];
+        load_row<EV, CV, DL>(vt + (j0 + kb * KL + ks) * VD, dl, vf);
+#pragma unroll
+        for (int rr = 0; rr < RC; ++rr) {
+          if (rr >= nr) break;
+#pragma unroll
+          for (int e = 0; e < EV; ++e) acc[rr][e] = fmaf(s[kb][rr], vf[e], acc[rr][e]);
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // the ring is free: it holds the warps' states next
+
+  // the lane groups of a warp, DL lanes apart, fold into the first
+#pragma unroll
+  for (int rr = 0; rr < RC; ++rr) {
+    if (rr >= nr) break;
+#pragma unroll
+    for (int off = DL; off < 32; off *= 2) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m[rr], off);
+      const float l2 = __shfl_xor_sync(0xffffffffu, l[rr], off);
+      const float mx = fmaxf(m[rr], m2);
+      const float a1 = mx == -INFINITY ? 0.f : tc::ex2(m[rr] - mx);
+      const float a2 = mx == -INFINITY ? 0.f : tc::ex2(m2 - mx);
+      l[rr] = l[rr] * a1 + l2 * a2;
+#pragma unroll
+      for (int e = 0; e < EV; ++e)
+        acc[rr][e] = acc[rr][e] * a1 + __shfl_xor_sync(0xffffffffu, acc[rr][e], off) * a2;
+      m[rr] = mx;
+    }
+  }
+  // then the warps of a row chunk, through shared memory, in warp order
+  float* so = reinterpret_cast<float*>(dsmem);      // [WARPS][RC][VD]
+  float* sm = so + WARPS * RC * VD;                 // [WARPS][RC]
+  float* sl = sm + WARPS * RC;                      // [WARPS][RC]
+  if (ks == 0) {
+#pragma unroll
+    for (int rr = 0; rr < RC; ++rr) {
+      if (rr >= nr) break;
+#pragma unroll
+      for (int e = 0; e < EV; ++e) so[(warp * RC + rr) * VD + dim_of<CV, DL>(e, dl)] = acc[rr][e];
+      if (dl == 0) {
+        sm[warp * RC + rr] = m[rr];
+        sl[warp * RC + rr] = l[rr];
+      }
+    }
+  }
+  __syncthreads();
+  for (int x = threadIdx.x; x < a.R * VD; x += THREADS) {
+    const int r = x / VD, d = x % VD;
+    const int w0 = r / RC * a.wk, rr = r % RC;
+    float mx = -INFINITY;
+    for (int w = w0; w < w0 + a.wk; ++w) mx = fmaxf(mx, sm[w * RC + rr]);
+    float lsum = 0.f, osum = 0.f;
+    if (mx != -INFINITY) {
+      for (int w = w0; w < w0 + a.wk; ++w) {
+        const float f = tc::ex2(sm[w * RC + rr] - mx);
+        lsum += sl[w * RC + rr] * f;
+        osum += so[(w * RC + rr) * VD + d] * f;
+      }
+    }
+    const int i = r % a.Sq, h = kvh * G + r / a.Sq;
+    const long long row = (static_cast<long long>(n * a.B + b) * a.H + h) * a.Sq + i;
+    if (a.splits == 1) {
+      // a row without a key (a shard's only): o = 0, lse = −inf
+      T* op = static_cast<T*>(a.o) + n * a.os[0] + b * a.os[1] +
+              static_cast<long long>(i) * a.os[2] + h * a.os[3];
+      op[d] = from_f<T>(mx == -INFINITY ? 0.f : osum / fmaxf(lsum, 1e-30f));
+      if (d == 0) a.lse[row] = mx == -INFINITY ? -INFINITY : mx * LN2 + logf(lsum);
+    } else {
+      const long long p = row * a.splits + split;
+      a.part_o[p * VD + d] = osum;
+      if (d == 0) {
+        a.part_ml[2 * p] = mx;
+        a.part_ml[2 * p + 1] = lsum;
+      }
+    }
+  }
+}
+
+// The splits of each query row (one block a row) joined: o = Σ O_s w_s /
+// Σ l_s w_s in the input dtype, w_s = 2^(m_s − M), and lse = M ln 2 + log
+// Σ l_s w_s; a row no split saw gets o = 0, lse = −inf.  The weights are
+// staged in shared memory; a thread sums four dims over every G-th split
+// (G = 1024 / vd groups of threads, float4 loads), then the groups' sums
+// are added in group order: a fixed order, the same bits every launch.
+constexpr int JOIN_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(JOIN_THREADS) flash_decode_join_kernel(
+    const __grid_constant__ Args a, int VD) {
+  extern __shared__ __align__(16) float jsm[];  // w_s, l_s w_s, then [G][vd] sums
+  __shared__ float red[JOIN_THREADS / 32];
+  const long long row = blockIdx.x;
+  const int i = static_cast<int>(row % a.Sq);
+  long long t = row / a.Sq;
+  const int h = static_cast<int>(t % a.H);
+  t /= a.H;
+  const int b = static_cast<int>(t % a.B), n = static_cast<int>(t / a.B);
+  const float* ml = a.part_ml + row * a.splits * 2;
+  const float* po = a.part_o + row * a.splits * VD;
+  float mx = -INFINITY;
+  for (int s = threadIdx.x; s < a.splits; s += JOIN_THREADS) mx = fmaxf(mx, ml[2 * s]);
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = mx;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < JOIN_THREADS / 32; ++w) mx = fmaxf(mx, red[w]);
+  for (int s = threadIdx.x; s < a.splits; s += JOIN_THREADS) {
+    const float w = mx == -INFINITY ? 0.f : tc::ex2(ml[2 * s] - mx);
+    jsm[s] = w;
+    jsm[a.splits + s] = ml[2 * s + 1] * w;
+  }
+  __syncthreads();
+  const int dv = VD / 4, groups = JOIN_THREADS / dv;
+  const int dg = threadIdx.x % dv, sg = threadIdx.x / dv;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = sg; s < a.splits; s += groups) {
+    const float4 x = *reinterpret_cast<const float4*>(po + s * VD + 4 * dg);
+    const float w = jsm[s];
+    acc.x += x.x * w;
+    acc.y += x.y * w;
+    acc.z += x.z * w;
+    acc.w += x.w * w;
+  }
+  float* part = jsm + ((2 * a.splits + 3) & ~3);
+  *reinterpret_cast<float4*>(part + sg * VD + 4 * dg) = acc;
+  float lsum = 0.f;
+  for (int s = 0; s < a.splits; ++s) lsum += jsm[a.splits + s];
+  __syncthreads();
+  T* op = static_cast<T*>(a.o) + n * a.os[0] + b * a.os[1] + static_cast<long long>(i) * a.os[2] +
+          h * a.os[3];
+  for (int d = threadIdx.x; d < VD; d += JOIN_THREADS) {
+    float osum = 0.f;
+    for (int g = 0; g < groups; ++g) osum += part[g * VD + d];
+    op[d] = from_f<T>(mx == -INFINITY ? 0.f : osum / fmaxf(lsum, 1e-30f));
+  }
+  if (threadIdx.x == 0) a.lse[row] = mx == -INFINITY ? -INFINITY : mx * LN2 + logf(lsum);
+}
+
+template <typename T, int HD, int VD, int RC>
+cudaError_t launch_rc(const Args& a, int N, cudaStream_t s) {
+  const size_t ring = static_cast<size_t>(STAGES) * a.tile * (HD + VD) * sizeof(T);
+  const size_t merge = static_cast<size_t>(WARPS) * RC * (VD + 2) * sizeof(float);
+  const size_t smem = ring > merge ? ring : merge;
+  if (smem > 232448) return cudaErrorInvalidValue;
+  const auto kernel = flash_decode_kernel<T, HD, VD, RC>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<N * a.B * a.KV * a.splits, THREADS, smem, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.splits == 1) return e;
+  const size_t jsmem = (((2 * a.splits + 3) & ~3) + 4 * JOIN_THREADS) * sizeof(float);
+  flash_decode_join_kernel<T><<<N * a.B * a.H * a.Sq, JOIN_THREADS, jsmem, s>>>(a, VD);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD, int VD>
+cudaError_t launch(const Args& a, int N, cudaStream_t s) {
+  return a.R <= 16 ? launch_rc<T, HD, VD, 2>(a, N, s) : launch_rc<T, HD, VD, 8>(a, N, s);
+}
+
+template <typename T>
+cudaError_t launch_dims(const Args& a, int N, int hd, int vd, cudaStream_t s) {
+  if (hd == vd) {
+    switch (hd) {
+      case 16: return launch<T, 16, 16>(a, N, s);
+      case 32: return launch<T, 32, 32>(a, N, s);
+      case 64: return launch<T, 64, 64>(a, N, s);
+      case 128: return launch<T, 128, 128>(a, N, s);
+      case 256: return launch<T, 256, 256>(a, N, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (hd == 192 && vd == 128) return launch<T, 192, 128>(a, N, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace dec
+
+// The decode kernel: q, k, v, o, lse, strides, the mask and shards as for
+// flash_attn_fwd below, any dtype at any (hd, vd) of the bf16 kernel, G ·
+// Sq <= 64 query rows a KV group.  tile, tiles and splits are
+// flash_attn.py::decode_plan's (tile must be the kernel's own); with
+// splits > 1, part_o (N·B·H·Sq, splits, vd) and part_ml (N·B·H·Sq,
+// splits, 2) are fp32 scratch, and the join kernel follows on the same
+// stream.  vec16: every base 16-byte aligned and every stride a multiple
+// of 16 bytes (bf16 must be; fp32 otherwise copies 4 bytes at a time).
+// Returns the launches' cudaError_t (0 on success); launches nothing and
+// returns cudaErrorInvalidValue for what it does not take.
+extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                                void* part_o, void* part_ml, int dtype, int hd, int vd, int N,
+                                int B, int H, int KV, int Sq, int Sk, const long long* strides,
+                                float scale, int causal, float cap, int window, int q_offset,
+                                int kv_len, int shards, int tile, int tiles, int splits,
+                                int vec16, void* stream) {
+  if (N < 1 || B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Sk < 1 || q_offset < 0 ||
+      kv_len < 1 || shards < 0 || (dtype != 0 && dtype != 1) || H / KV * Sq > 64 ||
+      tiles < 1 || splits < 1 || splits > tiles || splits > 4096 ||
+      (splits > 1 && (!part_o || !part_ml)) ||
+      (dtype == 1 && !vec16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dec::Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.lse = static_cast<float*>(lse);
+  a.part_o = static_cast<float*>(part_o);
+  a.part_ml = static_cast<float*>(part_ml);
+  a.B = B;
+  a.H = H;
+  a.KV = KV;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  for (int i = 0; i < 4; ++i) {
+    a.qs[i] = strides[i];
+    a.ks[i] = strides[4 + i];
+    a.vs[i] = strides[8 + i];
+    a.os[i] = strides[12 + i];
+  }
+  a.scale = scale;
+  a.cap = cap;
+  a.causal = causal;
+  a.window = window;
+  a.q_off = q_offset;
+  a.kv_len = kv_len;
+  a.shards = shards;
+  a.R = H / KV * Sq;
+  a.tile = tile;
+  a.tiles = tiles;
+  a.splits = splits;
+  a.vec16 = vec16;
+  if (tile != dec::tile_keys(hd, vd, dtype == 1 ? 2 : 4, a.R, &a.wk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dtype == 1 ? dec::launch_dims<__nv_bfloat16>(a, N, hd, vd, s)
+                                     : dec::launch_dims<float>(a, N, hd, vd, s));
+}
 
 // q (N, B, Sq, H, hd), k (N, B, Sk, KV, hd), v (N, B, Sk, KV, vd), o (N, B,
 // Sq, H, vd) in dtype (0 = fp32: the CUDA-core kernel; 1 = bf16: the

@@ -25,11 +25,19 @@ position ``(n mod shards)·Sk + j``, the masks and ``kv_len`` apply there,
 and a query row that sees none of its block's keys gets ``o = 0`` and
 ``lse = -inf``; ``core.tp.lse_combine`` joins the blocks' results.
 
-The dtype alone picks the kernel: bf16 runs on the tensor cores
-(``wgmma`` fed by TMA, probabilities split into two bf16 halves; head
-dims ``TC_DIMS``), fp32 on the CUDA cores (``FP32_DIMS``), the only
-route that holds fp32 to the reference's 3e-5.  ``launches`` counts
-every launch, ``tc_launches`` the tensor-core kernel's alone.
+The shape picks the decode kernel: a launch whose KV group holds at
+most ``DECODE_ROWS`` query rows (``G·Sq``, ``G = H / KV``: every decode
+step, masked, cross or partial) runs ``flash_decode_kernel``, one block
+a (batch row, KV head, split of the visible keys), which reads the cache
+once and computes in fp32 on the CUDA cores in both dtypes at every
+``TC_DIMS`` pair; :func:`decode_plan` splits the keys, and a second
+kernel joins the splits by their log-sum-exp.  Every other launch is a
+training or prefill one, and the dtype picks its kernel: bf16 runs on
+the tensor cores (``wgmma`` fed by TMA, probabilities split into two
+bf16 halves; head dims ``TC_DIMS``), fp32 on the CUDA cores
+(``FP32_DIMS``), the only route that holds fp32 to the reference's
+3e-5.  ``launches`` counts every launch, ``tc_launches`` the tensor-core
+kernel's alone, ``decode_launches`` the decode kernel's.
 
 ``FlashAttention`` is the ``torch.autograd.Function`` around it.  The
 JAX package has no backward kernel (its training path differentiates
@@ -47,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -64,6 +73,17 @@ FP32_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128))
 TC_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
 #: query rows a block (the grid's second dimension is ceil(Sq / QT))
 QT = 128
+#: the most query rows of a KV group (``G·Sq``) the decode kernel holds
+DECODE_ROWS = 64
+#: the card's SMs: a decode launch's grid has at least two blocks each
+#: where it has that many tiles (an H100 SXM's 132)
+SMS = 132
+#: the decode kernel's warps a block, keys a lane group scores before an
+#: update, and the bytes of K and V a stage of its 3-stage ring aims at
+#: (``csrc/flash_attn.cu``'s ``dec::WARPS``, ``KB``, ``TILE_BYTES``)
+DECODE_WARPS, DECODE_KB, DECODE_TILE_BYTES = 8, 2, 32768
+#: the most splits a decode launch takes (the join's shared memory)
+DECODE_SPLITS = 4096
 
 #: Kernel launches so far, either kernel; the wrapper adds one per launch
 #: and nothing else touches it but a caller that resets it.
@@ -72,6 +92,8 @@ launches = 0
 tc_launches = 0
 #: The partial launches over a shard of the keys alone (``shards=``).
 partial_launches = 0
+#: The decode kernel's launches alone (a launch with a join counts once).
+decode_launches = 0
 
 
 @functools.cache
@@ -84,6 +106,95 @@ def _entry():
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _decode_entry():
+    fn = _build.load(SOURCE).flash_decode_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                      ctypes.c_int, ctypes.c_float]
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def decodes(h: int, kv: int, sq: int) -> bool:
+    """Whether a launch of ``h`` query heads over ``kv`` KV heads and ``sq``
+    query rows takes the decode kernel: its KV group's ``G·Sq`` rows fit
+    in one block (the shape alone decides)."""
+    return h // kv * sq <= DECODE_ROWS
+
+
+def dims(dtype: torch.dtype, h: int, kv: int, sq: int) -> tuple:
+    """The (hd, vd) pairs a launch of this dtype and shape can take."""
+    return (TC_DIMS if dtype == torch.bfloat16 or decodes(h, kv, sq)
+            else FP32_DIMS)
+
+
+def decode_lanes(hd: int, rows: int) -> int:
+    """Lanes a key of the decode kernel for ``rows`` query rows a block:
+    ``hd / 16`` (a warp holds 2 rows, up to 16), ``hd / 8`` above 16 rows
+    (8 a warp), 16 at hd 192 (``dec::lanes``)."""
+    return 16 if hd == 192 else hd // 8 if rows > 16 else hd // 16
+
+
+def decode_tile(hd: int, vd: int, esize: int, rows: int) -> int:
+    """Keys a stage of the decode kernel's ring for ``rows`` query rows:
+    whole batches (``DECODE_KB`` keys of every lane group of a warp,
+    ``32 / decode_lanes`` groups), about ``DECODE_TILE_BYTES`` of K and V
+    (``dec::tile_keys``)."""
+    batch = 32 // decode_lanes(hd, rows) * DECODE_KB
+    return batch * max(1, DECODE_TILE_BYTES // (batch * (hd + vd) * esize))
+
+
+class DecodePlan(NamedTuple):
+    """How a decode launch splits its keys: ``tile`` keys a stage,
+    ``tiles`` tiles in the widest visible range of a block, ``splits``
+    contiguous runs of whole tiles, each a block of its own
+    (``ref.split_keys`` gives split ``s``'s keys)."""
+    tile: int
+    tiles: int
+    splits: int
+
+
+def decode_plan(n: int, b: int, h: int, kv: int, sq: int, sk: int,
+                hd: int, vd: int, dtype: torch.dtype, *, causal: bool,
+                window: int, q_offset: int, kv_len: int,
+                shards: int | None = None) -> DecodePlan:
+    """The decode launch's splits: the visible range of each outer row's
+    keys (``ref.visible_keys``, the widest over the shards), in whole
+    tiles, cut into at least as many splits as give the grid of
+    ``n·b·kv`` blocks a split ``2·SMS`` blocks, never more splits than
+    tiles; of those counts, up to four times the least, the one whose
+    waves of blocks (two blocks an SM at up to 16 rows, else one) take
+    the fewest tile times, a block's start and end counted as one tile.
+    The choice is kept for each (blocks, tiles, rows): a decode step asks
+    once a layer, at a new position."""
+    tile = _decode_tile(hd, vd, _ESIZE[dtype], h // kv * sq)
+    span = max(hi - lo for lo, hi in (
+        _ref.visible_keys(sq, sk, causal=causal, window=window,
+                          q_offset=q_offset, kv_len=kv_len, base=k0)
+        for k0 in _bases(sk, shards)))
+    tiles = max(1, -(-span // tile))
+    return DecodePlan(tile, tiles, _splits(n * b * kv, tiles, h // kv * sq))
+
+
+_ESIZE = {torch.float32: 4, torch.bfloat16: 2}
+_decode_tile = functools.lru_cache(maxsize=256)(decode_tile)
+
+
+@functools.lru_cache(maxsize=4096)
+def _splits(blocks: int, tiles: int, rows: int) -> int:
+    """:func:`decode_plan`'s split count for ``blocks`` blocks a split
+    and ``tiles`` tiles."""
+    least = min(tiles, -(-2 * SMS // blocks), DECODE_SPLITS)
+    slots = SMS * (2 if rows <= 16 else 1)
+
+    def cost(s):
+        return -(-blocks * s // slots) * (-(-tiles // s) + 1)
+    return min(range(least, min(tiles, 4 * least, DECODE_SPLITS) + 1),
+               key=lambda s: (cost(s), s))
 
 
 def _spans(sq: int, sk: int, *, causal: bool, window: int, q_offset: int,
@@ -167,11 +278,12 @@ def _strides(t: torch.Tensor) -> tuple[int, int, int, int]:
     """``t``'s (outer, batch, seq, head) element strides (``t`` is ``(N,
     B, S, heads, d)``), a size-1 dim's taken as if packed (it is never
     stepped, and TMA checks every stride)."""
+    shape, stride = t.shape, t.stride()
     out = []
-    inner = t.shape[4]                      # the head dim is contiguous
+    inner = shape[4]                        # the head dim is contiguous
     for d in (3, 2, 1, 0):
-        out.append(t.stride(d) if t.shape[d] > 1 else inner)
-        inner = out[-1] * t.shape[d]
+        out.append(stride[d] if shape[d] > 1 else inner)
+        inner = out[-1] * shape[d]
     return out[3], out[2], out[1], out[0]
 
 
@@ -185,13 +297,17 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q`` is ``(B, Sq, H, hd)``, ``k`` ``(B, Sk, KV, hd)`` and ``v``
     ``(B, Sk, KV, vd)``, CUDA tensors of one dtype, ``H % KV == 0``, each
     with a contiguous last dim; or all three ``(N, B, …)``, which gives
-    ``o (N, B, Sq, H, vd)`` and ``lse (N, B, H, Sq)``.  bf16 launches the
-    tensor-core kernel at ``(hd, vd)`` in ``TC_DIMS``; it reads q, k and v
-    by TMA, so each base is 16-byte aligned and each stride a multiple of
-    8 elements.  fp32 launches the CUDA-core kernel at ``(hd, vd)`` in
-    ``FP32_DIMS`` (other strides free).  ``q_offset`` (a host int, at
-    least 0) is query row 0's position and ``kv_len`` (a host int, at
-    least 1; ``Sk`` by default) hides the keys at or past it.
+    ``o (N, B, Sq, H, vd)`` and ``lse (N, B, H, Sq)``.  A launch of at
+    most ``DECODE_ROWS`` query rows a KV group (:func:`decodes`) takes the
+    decode kernel at ``(hd, vd)`` in ``TC_DIMS``, in either dtype, its
+    keys split by :func:`decode_plan` (fp32 scratch for the splits is
+    allocated here).  Any other bf16 launch takes the tensor-core kernel
+    at ``(hd, vd)`` in ``TC_DIMS``, any other fp32 one the CUDA-core
+    kernel at ``(hd, vd)`` in ``FP32_DIMS``.  bf16 is read by TMA or
+    16-byte copies, so each base is 16-byte aligned and each stride a
+    multiple of 8 elements; fp32 strides are free.  ``q_offset`` (a host
+    int, at least 0) is query row 0's position and ``kv_len`` (a host
+    int, at least 1; ``Sk`` by default) hides the keys at or past it.
 
     Without ``shards`` a mask under which some row sees no key raises.
     With ``shards`` (at least 1) the launch is partial attention over a
@@ -201,7 +317,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     valid keys, and a row that sees none of its block's keys gets ``o =
     0`` and ``lse = -inf``.  Anything else raises; nothing is copied.
     """
-    global launches, tc_launches, partial_launches
+    global launches, tc_launches, partial_launches, decode_launches
     ts = (q, k, v)
     if any(t.device.type != "cuda" for t in ts):
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
@@ -226,11 +342,12 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k5.shape[:2] != (n, b) or k5.shape[4] != hd or h % kv:
         raise ValueError(f"flash_attention kernel: q {tuple(q.shape)} and "
                          f"k {tuple(k.shape)} do not match (H % KV == 0)")
-    tc = q.dtype == torch.bfloat16
-    dims = TC_DIMS if tc else FP32_DIMS
-    if (hd, vd) not in dims:
+    dec = decodes(h, kv, sq)
+    tc = q.dtype == torch.bfloat16 and not dec
+    takes = dims(q.dtype, h, kv, sq)
+    if (hd, vd) not in takes:
         raise ValueError(f"flash_attention kernel: (hd, vd) = {(hd, vd)} "
-                         f"not in {dims} for {q.dtype}")
+                         f"not in {takes} for {q.dtype}")
     if sq < 1 or sk < 1 or b < 1 or n < 1 or sq > 65535 * QT:
         raise ValueError(f"flash_attention kernel: empty or too long "
                          f"{tuple(q.shape)} {tuple(k.shape)}")
@@ -256,28 +373,48 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention kernel: the head dim must be "
                          "contiguous")
     strides = [_strides(t) for t in (q5, k5, v5)]
-    if tc and (any(t.data_ptr() % 16 for t in ts)
-               or any(x % 8 for st in strides for x in st)):
-        raise ValueError(f"flash_attention kernel: TMA wants 16-byte "
-                         f"aligned bases and strides of 8 elements; got "
-                         f"strides {strides}")
+    per16 = 16 // q.element_size()
+    vec16 = not (any(t.data_ptr() % 16 for t in ts)
+                 or any(x % per16 for st in strides for x in st))
+    if q.dtype == torch.bfloat16 and not vec16:
+        raise ValueError(f"flash_attention kernel: bf16 is read by TMA or "
+                         f"16-byte copies, which want 16-byte aligned bases "
+                         f"and strides of 8 elements; got strides {strides}")
     o = torch.empty((n, b, sq, h, vd), dtype=q.dtype, device=q.device)
     lse = torch.empty((n, b, h, sq), dtype=torch.float32, device=q.device)
     cstrides = (ctypes.c_longlong * 16)(*strides[0], *strides[1],
                                         *strides[2], *o.stride()[:4])
-    fn = _entry()
+    opts = (float(scale), int(bool(causal)), float(attn_cap), int(window),
+            q_offset, kv_len, shards or 0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), DTYPES[q.dtype], hd, vd, n, b, h, kv, sq, sk,
-                 cstrides, float(scale), int(bool(causal)), float(attn_cap),
-                 int(window), q_offset, kv_len, shards or 0, stream)
+        if dec:
+            plan = decode_plan(n, b, h, kv, sq, sk, hd, vd, q.dtype,
+                               causal=causal, window=window,
+                               q_offset=q_offset, kv_len=kv_len,
+                               shards=shards)
+            # the splits' fp32 partials: o (rows, splits, vd), then (m, l)
+            # (rows, splits, 2)
+            parts = n * b * h * sq * plan.splits
+            part = (torch.empty(parts * (vd + 2), dtype=torch.float32,
+                                device=q.device) if plan.splits > 1 else None)
+            ptrs = ((part.data_ptr(), part.data_ptr() + 4 * parts * vd)
+                    if part is not None else (None, None))
+            err = _decode_entry()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), *ptrs, DTYPES[q.dtype], hd, vd, n, b, h, kv,
+                sq, sk, cstrides, *opts, *plan, int(vec16), stream)
+        else:
+            err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           o.data_ptr(), lse.data_ptr(), DTYPES[q.dtype], hd,
+                           vd, n, b, h, kv, sq, sk, cstrides, *opts, stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError "
                            f"{err} for q {tuple(q.shape)} k {tuple(k.shape)} "
                            f"v {tuple(v.shape)} {q.dtype}")
     launches += 1
     tc_launches += tc
+    decode_launches += dec
     partial_launches += shards is not None
     if nd == 4:
         return o[0], lse[0]

@@ -428,7 +428,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the window or ``kv_len`` hides a key; query row ``i`` sits at
     position ``q_offset + i`` (masked decode over a KV cache).  On the
     card bf16 runs on the tensor cores and fp32 on the CUDA cores
-    (``flash_attn``); when no gradient is wanted the kernel launches
+    (``flash_attn``), and a decode-shaped launch (``G·Sq`` at most
+    ``flash_attn.DECODE_ROWS``) on the decode kernel in either dtype;
+    when no gradient is wanted the kernel launches
     directly, so nothing is saved for a backward.  The masked form is
     serving's and has no backward on the card.
 
@@ -516,9 +518,9 @@ def _meta_attention_fwd(q, k, v, *, causal, scale, attn_cap, window,
     partial launch, each shard's visible keys).  The dtypes and head dims
     the card's kernels refuse are refused here."""
     del scale, attn_cap
-    dims = _fa.TC_DIMS if q.dtype == torch.bfloat16 else _fa.FP32_DIMS
     *lead, sq, h, hd = q.shape
     sk, vd = k.shape[-3], v.shape[-1]
+    dims = _fa.dims(q.dtype, h, k.shape[-2], sq)
     if q.dtype not in _fa.DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype or (hd, vd) not in dims:
         raise ValueError(f"flash_attention kernel: {q.dtype} {k.dtype} "

@@ -383,6 +383,100 @@ def flash_attention_partial(q: torch.Tensor, k: torch.Tensor,
     return o.reshape(n, b, *o.shape[1:]), lse.reshape(n, b, *lse.shape[1:])
 
 
+def visible_keys(sq: int, sk: int, *, causal: bool, window: int,
+                 q_offset: int, kv_len: int, base: int = 0
+                 ) -> tuple[int, int]:
+    """``[lo, hi)``: the keys of a block of ``sk`` at the absolute
+    positions ``base …`` that some of ``sq`` query rows from ``q_offset``
+    on can see (the causal edge of the last row, the window of the first,
+    ``kv_len``), counted from the block's first key; ``hi == lo`` where no
+    row sees one."""
+    qoff = q_offset - base
+    hi = min(sk, kv_len - base)
+    lo = 0
+    if causal:
+        hi = min(hi, qoff + sq)
+        if window > 0:
+            lo = max(0, qoff - window + 1)
+    return lo, max(lo, hi)
+
+
+def split_keys(lo: int, hi: int, s: int, *, tile: int, tiles: int,
+               splits: int) -> tuple[int, int]:
+    """Split ``s``'s keys ``[a, e)`` of the visible range ``[lo, hi)``:
+    tiles ``s·tiles // splits`` up to ``(s + 1)·tiles // splits`` of
+    ``tile`` keys from ``lo``, cut at ``hi`` (empty, at ``hi``, past
+    it)."""
+    a = min(hi, lo + s * tiles // splits * tile)
+    return a, max(a, min(hi, lo + (s + 1) * tiles // splits * tile))
+
+
+def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, tile: int, tiles: int, splits: int,
+                          causal: bool = True, scale: float | None = None,
+                          attn_cap: float = 0.0, window: int = 0,
+                          q_offset: int = 0, kv_len: int | None = None,
+                          shards: int | None = None, kv_tile: int = 512
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the decode kernel's launch: ``(o, lse)`` by
+    its splits (``flash_attn.decode_plan``'s ``tile``, ``tiles`` and
+    ``splits``).
+
+    Shapes as :func:`flash_attention_bshd` (``(B, …)``) or, with an outer
+    dim, :func:`flash_attention_partial` (``(N, B, …)``; with ``shards``
+    outer row ``n``'s keys sit at ``(n mod shards)·Sk …``).  Each split
+    ``s`` of each outer row's visible keys (:func:`visible_keys`,
+    :func:`split_keys`) is :func:`flash_attention_bshd` over those keys
+    alone (``k_base``: their positions; a row that sees none of them gets
+    ``o = 0``, ``lse = -inf``), in fp32; the splits are joined in split
+    order by their log-sum-exp, ``o = Σ w_s o_s / Σ w_s`` with ``w_s =
+    exp(lse_s − max lse)`` (a keyless split weighs exactly 0), ``lse =
+    max lse + log Σ w_s``.  A row that sees no key of the launch gets
+    ``o = 0``, ``lse = -inf``.  ``o`` in ``q``'s dtype, ``lse`` fp32."""
+    outer = q.dim() == 5
+    if not outer:
+        q, k, v = (t.unsqueeze(0) for t in (q, k, v))
+    n, b, sq, h, _ = q.shape
+    sk, vd = k.shape[2], v.shape[-1]
+    kv_len = sk * (shards or 1) if kv_len is None else kv_len
+    kw = dict(causal=causal, scale=scale, attn_cap=attn_cap, window=window,
+              q_offset=q_offset, kv_len=kv_len, kv_tile=kv_tile)
+    os_ = torch.zeros((splits, n, b, sq, h, vd), device=q.device)
+    lses = torch.full((splits, n, b, h, sq), -torch.inf, device=q.device)
+    for m in range(shards or 1):
+        rows = torch.arange(m, n, shards or 1, device=q.device)
+        base = m * sk
+        lo, hi = visible_keys(sq, sk, causal=causal, window=window,
+                              q_offset=q_offset, kv_len=kv_len, base=base)
+        for s in range(splits):
+            a, e = split_keys(lo, hi, s, tile=tile, tiles=tiles,
+                              splits=splits)
+            if e == a:
+                continue
+            qs, ks, vs = (t[rows].float().reshape(-1, *t.shape[2:])
+                          for t in (q, k[:, :, a:e], v[:, :, a:e]))
+            o, lse = flash_attention_bshd(
+                qs, ks, vs, k_base=torch.full((qs.shape[0],), base + a,
+                                              device=q.device), **kw)
+            os_[s, rows] = o.reshape(len(rows), b, *o.shape[1:])
+            lses[s, rows] = lse.reshape(len(rows), b, *lse.shape[1:])
+    top = lses.amax(0)
+    w = torch.where(torch.isneginf(lses), 0.0,
+                    torch.exp(lses - torch.where(torch.isneginf(top), 0.0,
+                                                 top)))
+    num = torch.zeros_like(os_[0])
+    den = torch.zeros_like(lses[0])
+    for s in range(splits):                     # the kernel's fixed order
+        num = num + w[s].transpose(-1, -2)[..., None] * os_[s]
+        den = den + w[s]
+    o = (num / torch.clamp(den.transpose(-1, -2)[..., None], min=1e-30)
+         ).to(q.dtype)
+    lse = torch.where(torch.isneginf(top), -torch.inf, top + torch.log(den))
+    if not outer:
+        return o[0], lse[0]
+    return o, lse
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
                     attn_cap: float = 0.0, window: int = 0,

@@ -16,11 +16,11 @@ apply: NaN payloads are not compared, and ``sparse_accum_slots`` on
 unsorted lists adds three or more duplicates of an index in the
 hardware's order (``rtol = atol = 1e-5``, the reference's own tolerance).
 The flash attention kernels sum in another order than their plain
-version: fp32 outputs (the CUDA-core kernel) are held at ``atol = 3e-5``
-(the reference's own tolerance for it), bf16 outputs (the tensor-core
-kernel) to one bf16 ulp of the plain version computed from the same bf16
-inputs, plus the fp32 sums' rounding floor where an output nearly
-cancels.
+version: fp32 outputs (the CUDA-core kernel, the decode kernel) are held
+at ``atol = 3e-5`` (the reference's own tolerance for it), bf16 outputs
+(the tensor-core kernel, the decode kernel) to one bf16 ulp of the plain
+version computed from the same bf16 inputs, plus the fp32 sums' rounding
+floor where an output nearly cancels.
 """
 import pytest
 import torch
@@ -530,27 +530,32 @@ def test_flash_tensor_core_kernel_takes_strided_views_on_cuda(cuda):
 
 @pytest.mark.cuda
 def test_flash_kernel_routes_by_dtype_on_cuda(cuda):
-    """bf16 goes to the tensor-core kernel, fp32 to the CUDA-core one."""
-    q = torch.randn((1, 64, 2, 64), generator=cuda, device="cuda")
-    before, tc_before = fa.launches, fa.tc_launches
-    fa.attention_fwd(q.bfloat16(), q.bfloat16(), q.bfloat16(), causal=True,
-                     scale=0.125, attn_cap=0.0, window=0)
-    assert (fa.launches, fa.tc_launches) == (before + 1, tc_before + 1)
-    fa.attention_fwd(q, q, q, causal=True, scale=0.125, attn_cap=0.0,
-                     window=0)
-    assert (fa.launches, fa.tc_launches) == (before + 2, tc_before + 1)
+    """Past 64 query rows a KV group bf16 goes to the tensor-core kernel,
+    fp32 to the CUDA-core one; at 64 rows both go to the decode kernel."""
+    for sq, dec in ((65, 0), (64, 1)):
+        q = torch.randn((1, sq, 2, 64), generator=cuda, device="cuda")
+        before = (fa.launches, fa.tc_launches, fa.decode_launches)
+        fa.attention_fwd(q.bfloat16(), q.bfloat16(), q.bfloat16(),
+                         causal=True, scale=0.125, attn_cap=0.0, window=0)
+        assert (fa.launches, fa.tc_launches, fa.decode_launches) == (
+            before[0] + 1, before[1] + 1 - dec, before[2] + dec)
+        fa.attention_fwd(q, q, q, causal=True, scale=0.125, attn_cap=0.0,
+                         window=0)
+        assert (fa.launches, fa.tc_launches, fa.decode_launches) == (
+            before[0] + 2, before[1] + 1 - dec, before[2] + 2 * dec)
 
 
 @pytest.mark.cuda
 def test_flash_kernel_raises_on_what_neither_kernel_takes_on_cuda(cuda):
-    """fp32 past hd 128, a head dim neither kernel has, another dtype,
-    mixed dtypes at the kernel's entry (only ``ops.attention`` upcasts a
-    bf16 query over fp32 K/V) and strides TMA cannot read raise, and
-    launch nothing."""
+    """fp32 past hd 128 outside a decode launch, a head dim no kernel has,
+    another dtype, mixed dtypes at the kernel's entry (only
+    ``ops.attention`` upcasts a bf16 query over fp32 K/V) and strides TMA
+    cannot read raise, and launch nothing (65 query rows a KV group: not
+    a decode launch)."""
     def qkv(hd, vd, dtype, pad=0):
-        q = torch.randn((1, 64, 2, hd + pad), generator=cuda,
+        q = torch.randn((1, 65, 2, hd + pad), generator=cuda,
                         device="cuda").to(dtype)[..., :hd]
-        v = torch.randn((1, 64, 2, vd), generator=cuda,
+        v = torch.randn((1, 65, 2, vd), generator=cuda,
                         device="cuda").to(dtype)
         return q, q, v
     before = fa.launches
@@ -702,12 +707,14 @@ def test_flash_bf16_query_over_fp32_kv_takes_the_fp32_kernel_on_cuda(cuda):
     assert got.dtype == torch.bfloat16
     want = base.attend(q.cpu(), k.cpu(), v.cpu(), causal=False)
     _assert_flash_close(got.cpu(), want, v.cpu())
+    dec = fa.decode_launches
     got = ops.attention(q[:, :1], k, v, causal=True, q_offset=900,
                         kv_len=901)
     want, _ = ref.flash_attention_bshd(q[:, :1], k, v, causal=True,
                                        q_offset=900, kv_len=901)
     torch.cuda.synchronize()
     assert (fa.launches, fa.tc_launches) == (before[0] + 2, before[1])
+    assert fa.decode_launches == dec + 1
     _assert_flash_close(got, want, v)
 
 
@@ -785,8 +792,9 @@ _DECODE_CASES = ((1, 0, 1), (1, 62, 63), (1, 64, 65), (1, 199, 200),
 def test_flash_masked_decode_matches_plain_on_cuda(cuda, dtype, dims):
     """Masked decode (``q_offset``, ``kv_len``) at every (hd, vd) each
     kernel takes, Sq 1, 7 and 128, GQA 8/1 and 4/4, with the window and
-    the cap once: one launch each, of the kernel the dtype picks, held to
-    the plain version at the unmasked tolerances."""
+    the cap once: one launch each, of the kernel the shape and the dtype
+    pick (the decode kernel at ``G·Sq <= 64``), held to the plain version
+    at the unmasked tolerances."""
     dt = getattr(torch, dtype)
     hd, vd = dims
     cases = 0
@@ -803,10 +811,13 @@ def test_flash_masked_decode_matches_plain_on_cuda(cuda, dtype, dims):
                                 device="cuda").to(dt)
                 kw = dict(causal=True, attn_cap=cap, window=win,
                           q_offset=off, kv_len=kvl)
-                before = (fa.launches, fa.tc_launches)
+                dec = fa.decodes(h, kv, sq)
+                before = (fa.launches, fa.tc_launches, fa.decode_launches)
                 got = ops.attention(q, k, v, **kw)
-                assert (fa.launches, fa.tc_launches) == (
-                    before[0] + 1, before[1] + (dt == torch.bfloat16))
+                assert (fa.launches, fa.tc_launches, fa.decode_launches) == (
+                    before[0] + 1,
+                    before[1] + (dt == torch.bfloat16 and not dec),
+                    before[2] + dec)
                 want, _ = ref.flash_attention_bshd(q, k, v, scale=hd ** -0.5,
                                                    **kw)
                 torch.cuda.synchronize()
@@ -918,7 +929,8 @@ def test_flash_partial_matches_plain_on_cuda(cuda, dtype, dims):
     ``model`` ranks × 2 rows, the keys one layer's strided slice of a
     ``(ranks, L, B, Sk, KV, d)`` cache, GQA 8/2, the cases above (keyless
     shards, the window and the cap across shard boundaries, Sq > 1):
-    one partial launch each, of the kernel the dtype picks, held to
+    one partial launch each, of the kernel the shape and the dtype pick
+    (the decode kernel at ``G·Sq <= 64``), held to
     ``ref.flash_attention_partial``."""
     dt = getattr(torch, dtype)
     hd, vd = dims
@@ -932,11 +944,14 @@ def test_flash_partial_matches_plain_on_cuda(cuda, dtype, dims):
                         device="cuda").to(dt)
         kw = dict(shards=4, causal=causal, attn_cap=cap, window=win,
                   q_offset=off, kv_len=kvl, scale=hd ** -0.5)
-        before = (fa.launches, fa.tc_launches, fa.partial_launches)
+        dec = fa.decodes(h, kv, sq)
+        before = (fa.launches, fa.tc_launches, fa.partial_launches,
+                  fa.decode_launches)
         got = ops.attention_partial(q, k, v, **kw)
-        assert (fa.launches, fa.tc_launches, fa.partial_launches) == (
-            before[0] + 1, before[1] + (dt == torch.bfloat16),
-            before[2] + 1)
+        assert (fa.launches, fa.tc_launches, fa.partial_launches,
+                fa.decode_launches) == (
+            before[0] + 1, before[1] + (dt == torch.bfloat16 and not dec),
+            before[2] + 1, before[3] + dec)
         want = ref.flash_attention_partial(q, k, v, **kw)
         torch.cuda.synchronize()
         assert got[0].shape == (n, b, sq, h, vd)
@@ -1097,7 +1112,8 @@ def test_flash_model_paths_match_plain_on_cuda(cuda, case):
 def test_flash_windowed_masked_decode_matches_plain_on_cuda(cuda, sq):
     """Masked decode with gemma2's window at hd 256 (GQA 8/4): the cache
     filled past the window (``kv_len`` 700 and 900 of 1024, window 256),
-    so the window and ``kv_len`` both hide keys in one launch."""
+    so the window and ``kv_len`` both hide keys in one launch, of the
+    decode kernel."""
     k, v = (torch.randn((2, 1024, 4, 256), generator=cuda,
                         device="cuda").bfloat16() for _ in range(2))
     for off in (700 - sq, 900 - sq):
@@ -1105,12 +1121,129 @@ def test_flash_windowed_masked_decode_matches_plain_on_cuda(cuda, sq):
                         device="cuda").bfloat16()
         kw = dict(causal=True, attn_cap=50.0, window=256, q_offset=off,
                   kv_len=off + sq)
-        before = fa.tc_launches
+        before = (fa.tc_launches, fa.decode_launches)
         got = ops.attention(q, k, v, **kw)
-        assert fa.tc_launches == before + 1
+        assert (fa.tc_launches, fa.decode_launches) == (before[0],
+                                                        before[1] + 1)
         want, _ = ref.flash_attention_bshd(q, k, v, scale=256 ** -0.5, **kw)
         torch.cuda.synchronize()
         _assert_flash_close(got, want, v)
+
+
+#: decode-kernel launches over 2 KV heads: G (query heads a KV head), Sq,
+#: Sk, q_offset, kv_len, causal, cap, window.  A ragged ``kv_len``, the
+#: cap, the window inside the cache and past it, Sq 4, a cross launch.
+_DECODE_KERNEL_CASES = (
+    (1, 1, 700, 650, 651, True, 0.0, 0),
+    (2, 1, 700, 400, 401, True, 50.0, 0),
+    (8, 4, 700, 596, 600, True, 30.0, 256),
+    (16, 1, 700, 699, 700, True, 0.0, 1000),
+    (48, 1, 700, 0, None, False, 0.0, 0),
+    (16, 4, 333, 100, 104, True, 0.0, 0))
+
+
+def _decode_kernel_vs_plain(q, k, v, **kw):
+    """One launch, which must be the decode kernel's, twice (the same
+    bits), against the plain version (``ref.flash_attention_bshd``, or
+    ``flash_attention_partial`` with ``shards``) and against the plain
+    version of its own splits (``ref.flash_attention_split`` at
+    ``decode_plan``'s plan), keyless rows exact.  Returns the plan."""
+    n, b = (q.shape[0], q.shape[1]) if q.dim() == 5 else (1, q.shape[0])
+    sq, h, hd = q.shape[-3:]
+    sk, kv, vd = k.shape[-3], k.shape[-2], v.shape[-1]
+    before = (fa.launches, fa.tc_launches, fa.decode_launches)
+    got = fa.attention_fwd(q, k, v, **kw)
+    assert (fa.launches, fa.tc_launches, fa.decode_launches) == (
+        before[0] + 1, before[1], before[2] + 1)
+    again = fa.attention_fwd(q, k, v, **kw)
+    assert _same_bits(got[0], again[0]) and _same_bits(got[1], again[1])
+    shards = kw.get("shards")
+    plan = fa.decode_plan(
+        n, b, h, kv, sq, sk, hd, vd, q.dtype, causal=kw["causal"],
+        window=kw["window"], q_offset=kw.get("q_offset", 0),
+        kv_len=kw.get("kv_len") or sk * (shards or 1), shards=shards)
+    blocks = n * b * kv
+    assert blocks * plan.splits >= min(2 * fa.SMS, blocks * plan.tiles)
+    split = ref.flash_attention_split(q, k, v, **plan._asdict(), **kw)
+    want = (ref.flash_attention_partial(q, k, v, **kw) if shards
+            else ref.flash_attention_bshd(q, k, v, **kw))
+    torch.cuda.synchronize()
+    _assert_partial_close(got, want, v)
+    _assert_partial_close(got, split, v)
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dims", [(d, x) for d in ("float32", "bfloat16")
+                                        for x in fa.TC_DIMS])
+def test_flash_decode_kernel_matches_plain_on_cuda(cuda, dtype, dims):
+    """The decode kernel in both dtypes at every (hd, vd) of ``TC_DIMS``:
+    G 1, 2, 8, 16 and 48 over 2 KV heads, Sq 1 and 4, every mask
+    (``_DECODE_KERNEL_CASES``), launches of one split and of many (the
+    plan's grid at least two blocks an SM where there are tiles enough),
+    and in fp32 keys and values 4 bytes off 16 (the 4-byte copies)."""
+    dt = getattr(torch, dtype)
+    hd, vd = dims
+    split = set()
+    for g, sq, sk, off, kvl, causal, cap, win in _DECODE_KERNEL_CASES:
+        q = torch.randn((2, sq, 2 * g, hd), generator=cuda,
+                        device="cuda").to(dt)
+        k = torch.randn((2, sk, 2, hd), generator=cuda, device="cuda").to(dt)
+        v = torch.randn((2, sk, 2, vd), generator=cuda, device="cuda").to(dt)
+        kw = dict(causal=causal, scale=hd ** -0.5, attn_cap=cap,
+                  window=win, q_offset=off, kv_len=kvl)
+        split.add(_decode_kernel_vs_plain(q, k, v, **kw).splits > 1)
+        if dt == torch.float32 and g == 8:
+            ko = torch.randn((2, sk, 2, hd + 1), generator=cuda,
+                             device="cuda")[..., 1:]
+            vo = torch.randn((2, sk, 2, vd + 1), generator=cuda,
+                             device="cuda")[..., 1:]
+            assert ko.data_ptr() % 16 and vo.data_ptr() % 16
+            _decode_kernel_vs_plain(q, ko, vo, **kw)
+    # the first 9 keys of 200, one tile: one split
+    q = torch.randn((4, 1, 16, hd), generator=cuda, device="cuda").to(dt)
+    k = torch.randn((4, 200, 8, hd), generator=cuda, device="cuda").to(dt)
+    v = torch.randn((4, 200, 8, vd), generator=cuda, device="cuda").to(dt)
+    split.add(_decode_kernel_vs_plain(
+        q, k, v, causal=True, scale=hd ** -0.5, attn_cap=0.0, window=0,
+        q_offset=8, kv_len=9).splits > 1)
+    assert split == {True, False}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dims", [(d, x) for d in ("float32", "bfloat16")
+                                        for x in fa.TC_DIMS])
+def test_flash_decode_kernel_partial_over_a_strided_cache_on_cuda(
+        cuda, dtype, dims):
+    """The decode kernel's partial launches (``shards=`` 4, shards of 1024
+    keys, 2 data × 4 model ranks × 2 rows) over one layer's slice of a
+    ``(ranks, L, B, S, KV, d)`` cache, at (192, 128) the values MLA's
+    strided view (head stride 256, 128 values in): G 1, 8 and 48, Sq 1
+    and 4, keyless shards under ``kv_len``, the window and the causal
+    edge, the cap, a cross launch; launches of many splits."""
+    dt = getattr(torch, dtype)
+    hd, vd = dims
+    n, b, sk, kv = 8, 2, 1024, 2
+    k = torch.randn((n, 2, b, sk, kv, hd), generator=cuda,
+                    device="cuda").to(dt)[:, 1]
+    wide = 256 if (hd, vd) == (192, 128) else vd
+    v = torch.randn((n, 2, b, sk, kv, wide), generator=cuda,
+                    device="cuda").to(dt)[:, 1][..., wide - vd:]
+    keyless, splits = 0, set()
+    for g, sq, off, kvl, causal, cap, win in (
+            (1, 1, 2600, 2601, True, 0.0, 0),
+            (8, 1, 4095, 4096, True, 50.0, 500),
+            (48, 1, 0, 3500, False, 0.0, 0), (8, 4, 1500, 1504, True, 0.0, 0)):
+        q = torch.randn((n, b, sq, g * kv, hd), generator=cuda,
+                        device="cuda").to(dt)
+        kw = dict(shards=4, causal=causal, scale=hd ** -0.5, attn_cap=cap,
+                  window=win, q_offset=off, kv_len=kvl)
+        before = fa.partial_launches
+        splits.add(_decode_kernel_vs_plain(q, k, v, **kw).splits)
+        assert fa.partial_launches == before + 2
+        _, lse = ref.flash_attention_partial(q, k, v, **kw)
+        keyless += int(torch.isinf(lse).sum())
+    assert keyless > 0 and max(splits) > 1
 
 
 @pytest.mark.cuda
