@@ -69,16 +69,18 @@
    kernel, beside the kernel's memory bound; ``topk_compact`` also at
    k = 8 and 64 on the sparsifier's 2^28 vector.
 7. The flash attention kernels (``csrc/flash_attn.cu``: bf16 on the
-   tensor cores, fp32 on the CUDA cores, every launch of at most 64 query
-   rows a KV group on the decode kernel) against their plain version:
-   causal and not, cap 0 and 30, window 0 and 256, GQA 1, 4 and 8, ragged
-   ``Sq``/``Sk``, fp32 (``atol = 3e-5``, the reference's own) and bf16
-   (one bf16 ulp of the plain version on the same bf16 inputs) at hd 64,
-   with the launch counters showing every bf16 case on the tensor-core
-   kernel and no fp32 one; bf16 at ``(hd, vd)`` = (16, 16), (32, 32),
-   (128, 128), (256, 256) and (192, 128); fp32 at (128, 128) (two
-   threads a query row), causal and not, ``Sq != Sk``, GQA 8, cap 0 and
-   30; ``base.attend`` in bf16 at hd 128 on the card against its dense
+   tensor cores by wgmma, fp32 on them in three TF32 products, every
+   launch of at most 64 query rows a KV group on the decode kernel)
+   against their plain version: causal and not, cap 0 and 30, window 0
+   and 256, GQA 1, 4 and 8, ragged ``Sq``/``Sk``, fp32 (``atol = 3e-5``,
+   the reference's own, on ``o`` and ``lse``, each launch twice with the
+   same bits) and bf16 (one bf16 ulp of the plain version on the same
+   bf16 inputs) at hd 64, with the launch counters showing every bf16
+   case on the wgmma kernel and every fp32 one on the 3xTF32 kernel
+   (``fp32_launches``); both dtypes at ``(hd, vd)`` = (16, 16), (32, 32),
+   (128, 128), (256, 256) and (192, 128); fp32 at (128, 128), causal and
+   not, ``Sq != Sk``, GQA 8, cap 0 and 30; ``base.attend`` in bf16 at hd
+   128 on the card against its dense
    CPU branch (the scale rounded to bf16 in both), and a bf16 query over
    fp32 K/V the same way (upcast, the fp32 kernel, bf16 out).  The decode
    kernel (``DECODE_CASES``) in both dtypes at every ``TC_DIMS`` pair:
@@ -104,19 +106,23 @@
    ``2x2x2``, a model rank's 16 heads over 2 KV heads, all 8 ranks'
    rows in one launch), granite-20b's 48 query heads on one KV
    head, gemma2's window where it hides most keys (``Sq = Sk = 8192``)
-   and its masked decode at ``kv_len`` 6144.  Each is one launch (a
-   decode-shaped one on the decode kernel, else bf16 on the tensor cores
-   and fp32 on the CUDA cores) held against the plain
-   version at every batch row, timed beside its bound and
-   ``scaled_dot_product_attention`` in the same dtype with the same
-   boolean mask (no cap: SDPA takes none); where the window hides a key,
+   and its masked decode at ``kv_len`` 6144, and the fp32 kernel at
+   gemma2-2b's (256, 256) with cap 50 and deepseek's (192, 128).  Each
+   is one launch (a decode-shaped one on the decode kernel, else bf16 on
+   the wgmma kernel and fp32, twice with the same bits, on the 3xTF32
+   one) held against the plain version at every batch row, timed beside
+   its bound (fp32: three times its flops at TF32's rate, the CUDA-core
+   bound printed beside it) and ``scaled_dot_product_attention`` in the
+   same dtype with the same boolean mask (no cap: SDPA takes none; in
+   fp32 its distance from the plain version without the cap is printed
+   beside the kernel's); where the window hides a key,
    the plain version without it differs.  After phase 31 every launch
    that phases 9, 18–31 recorded must have its case here.  Then the
    partial launch over a sequence split (``shards=``, sharded serving's
    decode) alone: 2 data × 4 ``model`` ranks × 2 rows, the keys one
    layer's strided slice of a ``(ranks, L, B, S_l, KV, d)`` cache, GQA
    8/2, keyless shards, the window and the cap across shard boundaries,
-   Sq > 1, bf16 at every ``TC_DIMS`` pair and fp32 at hd 64 and 128,
+   Sq > 1, both dtypes at every ``TC_DIMS`` pair,
    against ``ref.flash_attention_partial``: bf16 one ulp, fp32 3e-5, a
    keyless row ``o = 0``, ``lse = -inf`` bit for bit; every launch of Sq
    < 128 on the decode kernel; and the decode kernel's partial launches
@@ -506,9 +512,14 @@ HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet), the flash
 #: kernel's bound: the least time its flops could take on this card
 BF16_FLOPS_PER_S = 989e12
-#: H100 SXM fp32 rate outside the tensor cores (NVIDIA data sheet), the
-#: bound of the fp32 flash kernel's launches
+#: H100 SXM fp32 rate outside the tensor cores (NVIDIA data sheet): the
+#: bound the fp32 flash launches had on the CUDA cores, printed beside
+#: their bound on the tensor cores
 FP32_FLOPS_PER_S = 67e12
+#: H100 SXM dense TF32 tensor-core rate (NVIDIA data sheet): the fp32
+#: flash kernel does each product three times in TF32 (3xTF32), so its
+#: bound takes three times its flops at this rate
+TF32_FLOPS_PER_S = 495e12
 #: depth of the training phase: TinyLlama's published 22 (predicted
 #: peak 45-60 GiB of the card's 80)
 TRAIN_LAYERS = 22
@@ -802,8 +813,8 @@ def flash_case(b, sq, sk, h, kv, hd, cap=0.0, window=0, q_offset=0,
                v_in=None) -> dict:
     """One ``FLASH_MODEL_CASES`` entry: the launch's shapes (q ``(b, sq,
     h, hd)``, k ``(b, sk, kv, hd)``, v ``(b, sk, kv, vd)``), cap, window,
-    mask, the kernel's dtype (bf16: the tensor cores; fp32: the CUDA
-    cores, which a bf16 query over fp32 K/V reaches upcast) and, where
+    mask, the kernel's dtype (bf16: the wgmma kernel; fp32: the 3xTF32
+    kernel, which a bf16 query over fp32 K/V reaches upcast) and, where
     the model's ``v`` is a strided view of a wider tensor, that tensor's
     width a head (MLA's up-projection: ``v`` its last ``vd`` of ``v_in``
     values a head)."""
@@ -816,10 +827,11 @@ def flash_case(b, sq, sk, h, kv, hd, cap=0.0, window=0, q_offset=0,
 #: that phases 9, 18–31 give the kernel (a decode case at its last step's
 #: position, a slot server's at its cache's end; ``path_flash`` records
 #: the paths' launches and ``main`` checks each has its case here), and
-#: three that no path launches on the card: gemma2's window where it
-#: hides most keys (Sq = Sk = 8192), granite-20b's 48 query heads on one
-#: KV head, and gemma2's windowed decode at ``kv_len`` 6144 of an
-#: 8192-position cache.  MLA's ``v`` is the model's strided view of its
+#: five that no path's recorded phase launches on the card: gemma2's
+#: window where it hides most keys (Sq = Sk = 8192), granite-20b's 48
+#: query heads on one KV head, gemma2's windowed decode at ``kv_len``
+#: 6144 of an 8192-position cache, and the fp32 kernel at (256, 256) and
+#: (192, 128).  MLA's ``v`` is the model's strided view of its
 #: up-projection (head stride 256, 128 values in)
 _TL, _GE, _QW = (32, 4, 64, 0.0), (8, 4, 256, 50.0), (64, 4, 128, 0.0)
 _DS = dict(h=16, kv=16, hd=192, vd=128, v_in=256)
@@ -909,7 +921,13 @@ FLASH_MODEL_CASES = {k: flash_case(*v) for k, v in {
         q_offset=ZAMBA_SERVE_PROMPT + ZAMBA_SERVE_STEPS - 1,
         kv_len=ZAMBA_SERVE_PROMPT + ZAMBA_SERVE_STEPS),
     "zamba2 server decode": flash_case(*_SRV, **_ZA, **_SRV_MASK),
-    "tinyllama train 2x2x2": flash_case(8, 4096, 4096, 16, 2, 64)}
+    "tinyllama train 2x2x2": flash_case(8, 4096, 4096, 16, 2, 64),
+    # the fp32 kernel at the two pairs it took first: gemma2-2b's global
+    # attention (hd 256, cap 50) and deepseek's MLA (192, 128), strided v,
+    # as the fp32 witnesses run them, at 2 batch rows
+    "gemma2 global fp32": flash_case(2, 4096, 4096, *_GE, 0, 0, None,
+                                     dtype="float32"),
+    "deepseek fp32": flash_case(2, 4096, 4096, **_DS, dtype="float32")}
 #: phase 7's synthetic decode-kernel launches over 2 KV heads, each at
 #: every ``TC_DIMS`` pair in both dtypes: G (query heads a KV head), Sq,
 #: Sk, q_offset, kv_len, causal, cap, window.  A ragged ``kv_len``, the
@@ -939,7 +957,8 @@ REPLACES = {"tree_reduce_slots": "src/repro/kernels/tree_reduce.py:101",
             "sparse_accum_slots": "src/repro/kernels/sparse_accum.py:123",
             "sparse_accum": "src/repro/kernels/sparse_accum.py:67",
             "topk_compact": "src/repro/kernels/topk_compact.py:95",
-            "flash_attention": "src/repro/kernels/flash_attn.py:86"}
+            "flash_attention": "src/repro/kernels/flash_attn.py:86",
+            "flash_fwd_tf32_kernel": "src/repro/kernels/flash_attn.py:86"}
 QBLOCK = 256
 #: the sparse path's fractions: the root densifies at 0.01, the level-1
 #: switches at 0.05 (``density_threshold`` 0.25)
@@ -949,8 +968,8 @@ SPARCML_K = 1
 #: the informative part of a templated kernel name in a profile
 KERNEL_NAME = re.compile(
     r"(tree_reduce|quantize|dequantize|dequant_accum|accum_sorted|"
-    r"accum_scatter|zero|topk|flash_fwd_wgmma|flash_fwd|flash_decode_join|"
-    r"flash_decode)_kernel(<[^>]*>)?|"
+    r"accum_scatter|zero|topk|flash_fwd_wgmma|flash_fwd_tf32|"
+    r"flash_decode_join|flash_decode)_kernel(<[^>]*>)?|"
     r"\w*gemm\w*|"
     r"CatArrayBatchedCopy\w*|\w*(Sort|sort|TopK|topk|Select)\w*|"
     r"\w+_kernel_cuda|\w*Functor\w*(<\w+>)?")
@@ -1604,12 +1623,31 @@ def decode_vs_plain(torch, fa, ref, q, k, v, kw: dict, label: str) -> tuple:
     return (*res, plan)
 
 
+def fp32_vs_plain(torch, fa, ref, q, k, v, kw: dict, label: str) -> float:
+    """One fp32 launch of ``q, k, v, kw``, which must be the 3xTF32
+    kernel's (``fp32_launches`` up by one), twice with the same bits,
+    ``o`` and ``lse`` within 3e-5 of the plain version; returns the worse
+    of the two errors."""
+    before = fa.fp32_launches
+    o, lse = fa.attention_fwd(q, k, v, **kw)
+    again = fa.attention_fwd(q, k, v, **kw)
+    check(fa.fp32_launches == before + 2, f"{label}: not on the fp32 kernel")
+    check(same_bits(o, again[0]) and same_bits(lse, again[1]),
+          f"{label}: the same launch gave other bits")
+    want, plse = ref.flash_attention_bshd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = flash_err(torch, o, want, v)
+    lerr = float((lse - plse).abs().max())
+    check(lerr <= 3e-5, f"{label}: log-sum-exp {lerr} from plain > 3e-5")
+    return max(err, lerr)
+
+
 def phase_flash_vs_plain(torch, ops, ref, fa, base) -> None:
     """The flash kernels vs their plain version on synthetic cases."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     cases = 0
-    fa.launches = fa.tc_launches = 0
+    fa.launches = fa.tc_launches = fa.fp32_launches = 0
     for dtype in (torch.float32, torch.bfloat16):
         for h, kv in ((8, 8), (8, 1)):
             for sq, sk, causal in ((700, 700, True), (300, 1000, False),
@@ -1623,6 +1661,13 @@ def phase_flash_vs_plain(torch, ops, ref, fa, base) -> None:
                     k, v = (torch.randn((2, sk, kv, 64), generator=gen,
                                         device="cuda").to(dtype)
                             for _ in range(2))
+                    cases += 1
+                    if dtype == torch.float32:
+                        worst[dtype] = max(worst[dtype], fp32_vs_plain(
+                            torch, fa, ref, q, k, v, dict(
+                                causal=causal, scale=0.125, attn_cap=cap,
+                                window=win), f"fp32 {(sq, sk, h, kv)}"))
+                        continue
                     got = ops.attention(q, k, v, causal=causal,
                                         attn_cap=cap, window=win)
                     want, _ = ref.flash_attention_bshd(
@@ -1630,11 +1675,13 @@ def phase_flash_vs_plain(torch, ops, ref, fa, base) -> None:
                     torch.cuda.synchronize()
                     worst[dtype] = max(worst[dtype],
                                        flash_err(torch, got, want, v))
-                    cases += 1
-    # every bf16 case went to the tensor cores, every fp32 one did not
-    check(fa.launches == cases and fa.tc_launches == cases // 2,
-          f"flash routing: {fa.tc_launches} tensor-core launches of "
-          f"{fa.launches}, want {cases // 2} of {cases} (bf16 only)")
+    # every bf16 case went to the wgmma kernel, every fp32 one (launched
+    # twice) to the 3xTF32 one
+    check(fa.launches == 3 * cases // 2 and fa.tc_launches == cases // 2
+          and fa.fp32_launches == cases,
+          f"flash routing: {fa.tc_launches} bf16 and {fa.fp32_launches} "
+          f"fp32 tensor-core launches of {fa.launches}, want {cases // 2} "
+          f"and {cases} of {3 * cases // 2}")
     # the (BH, S, hd) signature of the TPU kernel, fp32
     q, k, v = (torch.randn((6, 333, 64), generator=gen, device="cuda")
                for _ in range(3))
@@ -1642,21 +1689,23 @@ def phase_flash_vs_plain(torch, ops, ref, fa, base) -> None:
         torch, ops.flash_attention(q, k, v, causal=True, attn_cap=30.0),
         ref.flash_attention(q, k, v, causal=True, attn_cap=30.0), v))
     cases += 1
-    # the tensor-core kernel's other head dims, bf16: (hd, vd) with GQA
-    # 8/2, causal and not, cap and window, ragged Sq and Sk, Sq > Sk (rows
-    # past Sk + 255 see no key)
+    # both tensor-core kernels' other head dims: (hd, vd) with GQA 8/2,
+    # causal and not, cap and window, ragged Sq and Sk, Sq > Sk (rows past
+    # Sk + 255 see no key)
     wide = 0
     for hd, vd in ((16, 16), (32, 32), (128, 128), (256, 256), (192, 128)):
         for sq, sk, causal, cap, win in ((700, 700, True, 0.0, 0),
                                          (300, 1000, False, 30.0, 0),
                                          (129, 129, True, 30.0, 256),
                                          (600, 300, True, 0.0, 256)):
-            q = torch.randn((2, sq, 8, hd), generator=gen,
-                            device="cuda").bfloat16()
-            k = torch.randn((2, sk, 2, hd), generator=gen,
-                            device="cuda").bfloat16()
-            v = torch.randn((2, sk, 2, vd), generator=gen,
-                            device="cuda").bfloat16()
+            q = torch.randn((2, sq, 8, hd), generator=gen, device="cuda")
+            k = torch.randn((2, sk, 2, hd), generator=gen, device="cuda")
+            v = torch.randn((2, sk, 2, vd), generator=gen, device="cuda")
+            worst[torch.float32] = max(worst[torch.float32], fp32_vs_plain(
+                torch, fa, ref, q, k, v, dict(
+                    causal=causal, scale=hd ** -0.5, attn_cap=cap,
+                    window=win), f"fp32 {(hd, vd)} {(sq, sk)}"))
+            q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
             before = fa.tc_launches
             got = ops.attention(q, k, v, causal=causal, attn_cap=cap,
                                 window=win)
@@ -1667,10 +1716,10 @@ def phase_flash_vs_plain(torch, ops, ref, fa, base) -> None:
                   f"(hd, vd) = {(hd, vd)} missed the tensor-core kernel")
             worst[torch.bfloat16] = max(worst[torch.bfloat16],
                                         flash_err(torch, got, want, v))
-            wide += 1
+            wide += 2
     cases += wide
-    # the CUDA-core kernel at (128, 128), two threads a query row (the
-    # VLM's fp32 cross K/V): causal and not, Sq != Sk, GQA 8, cap 0 and 30
+    # the fp32 kernel at (128, 128), the VLM's fp32 cross K/V: causal and
+    # not, Sq != Sk, GQA 8, cap 0 and 30
     fp32_128 = 0
     for sq, sk, causal in ((700, 700, True), (300, 1600, False),
                            (129, 1000, True)):
@@ -1678,15 +1727,10 @@ def phase_flash_vs_plain(torch, ops, ref, fa, base) -> None:
             q = torch.randn((2, sq, 64, 128), generator=gen, device="cuda")
             k, v = (torch.randn((2, sk, 8, 128), generator=gen,
                                 device="cuda") for _ in range(2))
-            before = (fa.launches, fa.tc_launches)
-            got = ops.attention(q, k, v, causal=causal, attn_cap=cap)
-            want, _ = ref.flash_attention_bshd(q, k, v, causal=causal,
-                                               attn_cap=cap)
-            torch.cuda.synchronize()
-            check((fa.launches, fa.tc_launches) == (before[0] + 1, before[1]),
-                  "fp32 (128, 128) missed the CUDA-core kernel")
-            worst[torch.float32] = max(worst[torch.float32],
-                                       flash_err(torch, got, want, v))
+            worst[torch.float32] = max(worst[torch.float32], fp32_vs_plain(
+                torch, fa, ref, q, k, v, dict(
+                    causal=causal, scale=128 ** -0.5, attn_cap=cap,
+                    window=0), f"fp32 (128, 128) GQA 8 {(sq, sk)}"))
             fp32_128 += 1
     # a bf16 query over fp32 K/V through base.attend: upcast, the fp32
     # kernel, bf16 out, against the CPU's dense branch (scale rounded to
@@ -1695,11 +1739,12 @@ def phase_flash_vs_plain(torch, ops, ref, fa, base) -> None:
          * 4).bfloat16()
     k, v = (torch.randn((2, 1600, 8, 128), generator=gen, device="cuda")
             for _ in range(2))
-    before = (fa.launches, fa.tc_launches)
+    before = (fa.launches, fa.tc_launches, fa.fp32_launches)
     got = base.attend(q, k, v, causal=False).cpu()
-    check((fa.launches, fa.tc_launches) == (before[0] + 1, before[1])
-          and got.dtype == torch.bfloat16,
-          "a bf16 query over fp32 K/V missed the fp32 kernel")
+    check((fa.launches, fa.tc_launches, fa.fp32_launches) == (
+        before[0] + 1, before[1], before[2] + 1)
+        and got.dtype == torch.bfloat16,
+        "a bf16 query over fp32 K/V missed the fp32 kernel")
     mixed_err = flash_err(torch, got, base.attend(
         q.cpu(), k.cpu(), v.cpu(), causal=False), v.cpu())
     cases += fp32_128 + 1
@@ -1764,10 +1809,11 @@ def phase_flash_vs_plain(torch, ops, ref, fa, base) -> None:
           f"{dec[torch.float32]:.3e}, bf16 {dec[torch.bfloat16]:.3e}")
     print(f"flash kernels vs plain: {cases} cases within tolerance (causal "
           "and not, cap 0 and 30, window 0 and 256, GQA 1, 4 and 8, ragged "
-          "Sq and Sk; fp32 on the CUDA cores at atol 3e-5, bf16 on the "
-          f"tensor cores within one ulp + 2^-17 max|v|, {wide} of them at "
-          "(hd, vd) = (16, 16), (32, 32), (128, 128), (256, 256), (192, "
-          f"128); {fp32_128} fp32 at (128, 128), GQA 8, Sq != Sk); worst "
+          "Sq and Sk; fp32 on the 3xTF32 kernel, each launched twice with "
+          "the same bits, o and lse at atol 3e-5, bf16 on the wgmma kernel "
+          f"within one ulp + 2^-17 max|v|, {wide} of them at (hd, vd) = "
+          "(16, 16), (32, 32), (128, 128), (256, 256), (192, 128) in both "
+          f"dtypes; {fp32_128} fp32 at (128, 128), GQA 8, Sq != Sk); worst "
           f"error fp32 {worst[torch.float32]:.3e}, bf16 "
           f"{worst[torch.bfloat16]:.3e}; base.attend bf16 hd 128 on the card "
           f"vs the CPU's dense branch {attend_err:.3e}; a bf16 query over "
@@ -1836,14 +1882,18 @@ def check_path_flash(torch) -> None:
 def phase_flash_model_cases(torch, fa, ref, card) -> dict:
     """Phase 7's model-path cases (``FLASH_MODEL_CASES``): flash against
     its plain version at every batch row, one launch each (a decode-shaped
-    one, ``G·Sq <= 64``, on the decode kernel; else bf16 on the tensor
-    cores, fp32 on the CUDA cores), timed by CUDA events beside its
-    bound and ``scaled_dot_product_attention`` in the same dtype on the
-    same boolean mask, or none where nothing is masked (SDPA takes no
-    tanh cap: it is timed without one).  Where the window hides a key,
+    one, ``G·Sq <= 64``, on the decode kernel; else bf16 on the wgmma
+    kernel, fp32 on the 3xTF32 one, twice with the same bits and its
+    log-sum-exp within 3e-5 too), timed by CUDA events beside its bound
+    and ``scaled_dot_product_attention`` in the same dtype on the same
+    boolean mask, or none where nothing is masked (SDPA takes no tanh
+    cap: it is timed without one, and in fp32 its output is held against
+    the plain version without the cap).  Where the window hides a key,
     the plain version without it must differ.  The bound takes the
-    operations at the dtype's peak (bf16 on the tensor cores, fp32 on the
-    CUDA cores).  Returns each case's figures."""
+    operations at the kernel's peak: bf16 on the tensor cores, fp32 three
+    times on them in TF32 (the fp32 launch's bound on the CUDA cores
+    printed beside it), a decode launch's fp32 on the CUDA cores.
+    Returns each case's figures."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(24)
     out = {}
@@ -1864,15 +1914,24 @@ def phase_flash_model_cases(torch, fa, ref, card) -> dict:
         win, off, kvl = kw["window"], kw["q_offset"], kw["kv_len"]
         causal = kw["causal"]
         dec = fa.decodes(h, k.shape[2], sq)
-        route = "decode" if dec else "tensor-core" if tc else "CUDA-core"
-        before = (fa.launches, fa.tc_launches, fa.decode_launches)
-        got, _ = fa.attention_fwd(q, k, v, **kw)
-        check((fa.launches, fa.tc_launches, fa.decode_launches) == (
-            before[0] + 1, before[1] + (tc and not dec), before[2] + dec),
+        fp32 = not (tc or dec)
+        route = "decode" if dec else "wgmma" if tc else "3xTF32"
+        before = (fa.launches, fa.tc_launches, fa.decode_launches,
+                  fa.fp32_launches)
+        if fp32:
+            err = fp32_vs_plain(torch, fa, ref, q, k, v, kw, name)
+        else:
+            got, _ = fa.attention_fwd(q, k, v, **kw)
+        check((fa.launches, fa.tc_launches, fa.decode_launches,
+               fa.fp32_launches) == (
+            before[0] + 1 + fp32, before[1] + (tc and not dec),
+            before[2] + dec, before[3] + 2 * fp32),
             f"{name}: not on the {route} kernel")
         want, _ = ref.flash_attention_bshd(q, k, v, **kw)
         torch.cuda.synchronize()
-        err = flash_err(torch, got, want, v)
+        if not fp32:
+            err = flash_err(torch, got, want, v)
+            del got
         if win and off + sq - 1 >= win:
             opened, _ = ref.flash_attention_bshd(q, k, v,
                                                  **dict(kw, window=0))
@@ -1893,16 +1952,40 @@ def phase_flash_model_cases(torch, fa, ref, card) -> dict:
                 mask &= kp[None] > pos[:, None] - win
             mask = mask[None, None]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, scale=kw["scale"],
-            enable_gqa=True), 10)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=kw["scale"],
+                enable_gqa=True)
+        l_ms = cuda_ms(sdpa, 10)
+        sdpa_err = None
+        if fp32:
+            uncapped = (want if not kw["attn_cap"] else
+                        ref.flash_attention_bshd(q, k, v, **dict(
+                            kw, attn_cap=0.0))[0])
+            sdpa_err = float((sdpa().transpose(1, 2) - uncapped).abs().max())
+            del uncapped
         flops = fa.flops(b, h, sq, sk, hd, causal=causal, window=win,
                          q_offset=off, kv_len=kvl or sk, vd=v.shape[-1])
         nbytes = fa.bytes_moved(q, k, v, kvl or sk, window=win,
                                 q_offset=off)
-        rate = BF16_FLOPS_PER_S if tc else FP32_FLOPS_PER_S
-        by_ops = flops / rate > nbytes / HBM_BYTES_PER_S
-        bound = max(flops / rate, nbytes / HBM_BYTES_PER_S) * 1e3
+        byte_s = nbytes / HBM_BYTES_PER_S
+        if fp32:
+            cores = max(flops / FP32_FLOPS_PER_S, byte_s) * 1e3
+            print(f"flash_attention {name}: on the CUDA cores its bound "
+                  f"would be {cores:.4f} ms ({flops} flops at "
+                  f"{FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s); on the tensor "
+                  "cores in three TF32 products it is the one below  "
+                  f"[{card}]")
+            ops_s = 3 * flops / TF32_FLOPS_PER_S
+            rate_txt = (f"3 x {flops} flops at "
+                        f"{TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s TF32")
+        else:
+            rate = BF16_FLOPS_PER_S if tc else FP32_FLOPS_PER_S
+            ops_s = flops / rate
+            rate_txt = f"{flops} flops at {rate / 1e12:.0f} TFLOP/s"
+        by_ops = ops_s > byte_s
+        bound = max(ops_s, byte_s) * 1e3
         print(f"flash_attention {name}: q {tuple(q.shape)} k "
               f"{tuple(k.shape)} v {tuple(v.shape)}"
               + (f" (a view, strides {v.stride()}, offset "
@@ -1912,17 +1995,20 @@ def phase_flash_model_cases(torch, fa, ref, card) -> dict:
               f"window {win}" + (f" q_offset {off} kv_len {kvl}" if kvl
                                  else "")
               + f": {k_ms:.4f} ms; bound {bound:.4f} ms by "
-              f"{'operations' if by_ops else 'bytes'} ({flops} flops at "
-              f"{rate / 1e12:.0f} TFLOP/s, {nbytes} bytes; "
-              f"{bound / k_ms:.1%} of the bound); plain "
+              f"{'operations' if by_ops else 'bytes'} ({rate_txt}, "
+              f"{nbytes} bytes; {bound / k_ms:.1%} of the bound); plain "
               f"{p_ms:.3f} ms; library scaled_dot_product_attention "
               f"{case['dtype']} with " + ("the boolean mask" if mask is not
                                           None else "no mask")
-              + f", no cap, {l_ms:.4f} ms; max |kernel - "
-              f"plain| over all {b} batch rows {err:.3e}  [{card}]")
+              + f", no cap, {l_ms:.4f} ms"
+              + (f" (|sdpa - plain without the cap| {sdpa_err:.3e})"
+                 if fp32 else "")
+              + f"; max |kernel - plain| over all {b} batch rows "
+              f"{err:.3e}  [{card}]")
         out[name] = dict(ms=k_ms, bound_ms=bound, plain_ms=p_ms,
-                         library_ms=l_ms, max_abs_err=err, route=route)
-        del q, k, v, got, want, mask
+                         library_ms=l_ms, max_abs_err=err, route=route,
+                         library_err=sdpa_err)
+        del q, k, v, want, mask, qt, kt, vt
         torch.cuda.empty_cache()
     return out
 
@@ -4558,7 +4644,8 @@ def phase_zamba_serve(torch, card, total_mem, seed) -> dict:
           f"logits within {rel:.3e} of max|logit| (tolerance "
           f"{ZAMBA_FEED_TOL}), mamba states within {srel:.3e} and the shared"
           f" block's K/V within {krel:.3e} of their largest; flash "
-          f"{groups} launches a call (fp32, the CUDA cores)  [{card}]")
+          f"{groups} launches a call (fp32, three TF32 products on the "
+          f"tensor cores)  [{card}]")
     del params, toks, chunked, cp, cache, fed
     torch.cuda.empty_cache()
 
@@ -4959,10 +5046,11 @@ def phase_flash_partial_vs_plain(torch, ref, fa) -> None:
     cases = ((1, 150, 151, True, 0.0, 0), (3, 250, 253, True, 30.0, 100),
              (1, 383, 384, True, 50.0, 0), (5, 0, 200, False, 0.0, 0),
              (128, 90, 240, True, 0.0, 0), (1, 10, 11, True, 30.0, 8))
-    dims = [("bfloat16", d) for d in fa.TC_DIMS] + [
-        ("float32", (64, 64)), ("float32", (128, 128))]
-    worst, keyless, count = {}, 0, 0
-    before = (fa.partial_launches, fa.tc_launches, fa.decode_launches)
+    dims = [(name, d) for name in ("bfloat16", "float32")
+            for d in fa.TC_DIMS]
+    worst, keyless, count, twice = {}, 0, 0, 0
+    before = (fa.partial_launches, fa.tc_launches, fa.decode_launches,
+              fa.fp32_launches)
     for name, (hd, vd) in dims:
         dt = getattr(torch, name)
         k = torch.randn((n, 2, b, sk, kv, hd), generator=gen,
@@ -4975,16 +5063,26 @@ def phase_flash_partial_vs_plain(torch, ref, fa) -> None:
             kw = dict(shards=shards, causal=causal, attn_cap=cap,
                       window=win, q_offset=off, kv_len=kvl,
                       scale=hd ** -0.5)
-            err, _, none = partial_vs_plain(
-                torch, fa, ref, (q, k, v, kw),
-                f"partial flash {name} ({hd}, {vd}) {(sq, off, kvl)}")
+            label = f"partial flash {name} ({hd}, {vd}) {(sq, off, kvl)}"
+            got = None
+            if name == "float32" and not fa.decodes(h, kv, sq):
+                got = fa.attention_fwd(q, k, v, **kw)
+                again = fa.attention_fwd(q, k, v, **kw)
+                check(same_bits(got[0], again[0])
+                      and same_bits(got[1], again[1]),
+                      f"{label}: the same launch gave other bits")
+                twice += 1
+            err, _, none = partial_vs_plain(torch, fa, ref, (q, k, v, kw),
+                                            label, got=got)
             worst[name] = max(worst.get(name, 0.0), err)
             keyless += none
             count += 1
     decoded = sum(fa.decodes(h, kv, c[0]) for c in cases)
-    check(fa.partial_launches - before[0] == count
+    check(fa.partial_launches - before[0] == count + twice
           and fa.tc_launches - before[1]
           == len(fa.TC_DIMS) * (len(cases) - decoded)
+          and fa.fp32_launches - before[3] == 2 * twice
+          == 2 * len(fa.TC_DIMS) * (len(cases) - decoded)
           and fa.decode_launches - before[2] == len(dims) * decoded,
           "partial flash: launch counters")
     print(f"flash partial launches vs plain (ref.flash_attention_partial): "
@@ -4992,7 +5090,8 @@ def phase_flash_partial_vs_plain(torch, ref, fa) -> None:
           f"ranks x 2 rows, GQA 8/2, the keys a strided layer slice; "
           f"{len(dims) * decoded} of them on the decode kernel), bf16 "
           f"at {list(fa.TC_DIMS)} worst {worst['bfloat16']:.3e} (one ulp), "
-          f"fp32 at hd 64 and 128 worst {worst['float32']:.3e} (3e-5); "
+          f"fp32 at the same worst {worst['float32']:.3e} (3e-5; each "
+          f"fp32 one outside the decode kernel twice, the same bits); "
           f"{keyless} keyless rows o = 0, lse = -inf in both")
     # the decode kernel's partial launches at G 1 and 48 over shards of
     # 1024 keys (one layer's slice of a cache), both dtypes at every
@@ -5559,23 +5658,25 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
 
     moe = model.cfg.is_moe
     kern_routes, kern_flips, flips = [], [0, 0], [0, 0]
-    fa.launches = fa.tc_launches = fa.decode_launches = 0
+    fa.launches = fa.tc_launches = fa.decode_launches = fa.fp32_launches = 0
     with (routing(base, kern_routes, routes, kern_flips) if moe
           else contextlib.nullcontext()), \
             (path_flash(label) if per_step else contextlib.nullcontext()):
         kern = run(feed)
-    kern_launches = fa.launches
+    kern_launches, kern_fp32 = fa.launches, fa.fp32_launches
     check(all(n == per_step for n in kern["launches"]),
           f"{label}: decode steps launched flash {kern['launches']} times, "
           f"want {per_step} each")
     tc_launches, decode_launches = fa.tc_launches, fa.decode_launches
     check(kern_launches == per_prefill + per_step * steps
           and tc_launches == per_prefill - fp32_launches
+          and kern_fp32 == fp32_launches
           and decode_launches == per_step * steps,
           f"{label}: flash launches {kern_launches} ({tc_launches} "
-          f"tensor-core, {decode_launches} on the decode kernel, want "
-          f"{fp32_launches} of the prefill's on the CUDA cores and every "
-          "decode step's on the decode kernel)")
+          f"bf16 and {kern_fp32} fp32 on the tensor cores, "
+          f"{decode_launches} on the decode kernel, want {fp32_launches} "
+          "of the prefill's on the fp32 kernel and every decode step's on "
+          "the decode kernel)")
     check(kern["pos"] == s + steps, f"{label}: pos {kern['pos']}")
     prefills = [kern["prefill_ms"]]
     for _ in range(2):
@@ -5631,7 +5732,8 @@ def serve_at_scale(torch, card, total_mem, model, params, prompts,
           + (f" (this run's own from the forced ones in {kern_flips[0]} of "
              f"{kern_flips[1]})" if routes is not None else ""))
     return dict(pre_ms=pre_ms, dec_ms=dec_ms, peak=peak, worst=worst,
-                launches=kern_launches, logits=kern["logits"],
+                launches=kern_launches, fp32_launches=kern_fp32,
+                logits=kern["logits"],
                 plain_logits=plain["logits"], toks=kern["toks"],
                 routes=kern_routes, step_ms=kern["step_ms"])
 
@@ -6361,7 +6463,7 @@ def main() -> int:
     phase_train(torch, card, total_mem, tr, DEEPSEEK_TRAIN_FLAGS,
                 DEEPSEEK_TRAIN_LAYERS, phase=22)
     phase_deepseek_serve(torch, card, total_mem, args.seed)
-    phase_vlm_serve(torch, card, total_mem, args.seed)
+    vlm = phase_vlm_serve(torch, card, total_mem, args.seed)
     # -- the encoder-decoder and the attention-free model --------------------
     phase_train(torch, card, total_mem, tr, WHISPER_TRAIN_FLAGS,
                 WHISPER_TRAIN_LAYERS, phase=25)
@@ -6388,6 +6490,13 @@ def main() -> int:
                                    + gemma_sharded["partial"])
     figures["flash_attention"] = flash_figures(
         torch, card, flash_cases["tinyllama train"])
+    # the fp32 kernel: its launches those of the VLM's serving run (its
+    # prefill's cross layers over the fp32 vision embeddings), its figures
+    # phase 7's at that launch, against SDPA in fp32
+    launches["flash_fwd_tf32_kernel"] = vlm["fp32_launches"]
+    figures["flash_fwd_tf32_kernel"] = flash_cases["vlm cross prefill fp32"]
+    check(launches["flash_fwd_tf32_kernel"] > 0,
+          "the VLM's serving run launched no fp32 flash kernel")
 
     print("kernel figures are per reduction: the sum over one reduction's "
           "launches (one step of the int8 path; for sparse_accum_slots one "
@@ -6396,20 +6505,24 @@ def main() -> int:
           "tree_reduce, sparse_accum and topk_compact are one launch each; "
           "flash_attention is one launch at the training path's shape, its "
           "launches those of 5 training steps and the partial launches of "
-          "phases 35-36's sharded decode steps")
+          "phases 35-36's sharded decode steps; flash_fwd_tf32_kernel (the "
+          "fp32 flash forward, three TF32 products on the tensor cores) is "
+          "one launch at the VLM's cross prefill, its launches those of "
+          "the VLM's serving run, its library call SDPA in fp32")
     routes = [("tree_reduce_slots", "tree_reduce"),
               ("tree_reduce", "tree_reduce"), ("quantize", "quant"),
               ("dequantize", "quant"), ("dequant_accum_slots", "quant"),
               ("dequant_accum", "quant"), ("sparse_accum_slots", "sparse"),
               ("sparse_accum", "sparse"), ("topk_compact", "sparse"),
-              ("flash_attention", "flash_attn")]
+              ("flash_attention", "flash_attn"),
+              ("flash_fwd_tf32_kernel", "flash_attn")]
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=SOURCES[src],
         replaces=REPLACES[name], launches=launches[name],
         max_abs_err=figures[name]["max_abs_err"], ms=figures[name]["ms"],
         plain_ms=figures[name]["plain_ms"],
         bound_ms=figures[name]["bound_ms"],
-        bound_by="operations" if name == "flash_attention" else "bytes",
+        bound_by="operations" if name.startswith("flash") else "bytes",
         library_ms=figures[name]["library_ms"]) for name, src in routes]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -128,19 +128,50 @@
 //   GEMMs (named barriers), so that one's softmax runs under the other's
 //   GEMMs.  Head dims (hd, vd): (16, 16), (32, 32), (64, 64), (128, 128),
 //   (256, 256) and (192, 128).
-// * fp32 (flash_fwd_kernel): the CUDA cores (67 TFLOP/s), which hold
-//   fp32 to the reference's 3e-5.  One block per (batch · head, 128 query
-//   rows), TPR threads a query row: each holds hd / TPR of the row's
-//   scaled q (fl32(q) · scale) and of its output accumulator in
-//   registers, the partial scores of the TPR threads are summed by warp
-//   shuffles (so every thread of a row holds the same score bits and the
-//   same running max and sum), and K and V stream through shared memory
-//   in fp32 tiles.  hd = vd in {16, 32, 64} take one thread a row and
-//   tiles of 64 keys; hd = vd = 128 takes two threads a row, so that a
-//   thread keeps 64 + 64 floats of q and accumulator as at hd 64 (one
-//   thread a row would need 256 of the 255 registers and spill), and
-//   tiles of 32 keys, so that the two fp32 tiles stay within the 48 KB of
-//   static shared memory (32 KB).
+// * fp32 (flash_fwd_tf32_kernel): the tensor cores in TF32, three
+//   products a GEMM (3xTF32), so that fp32 holds the reference's 3e-5.
+//   What bounds it: operations, three times the flops at TF32's 495
+//   TFLOP/s (the VLM's cross prefill, q (2, 1024, 64, 128) over 1600
+//   keys: 3 · 107.4 GFLOP, a 0.651 ms floor; on the CUDA cores' 67 the
+//   one product alone takes 1.603 ms).  The first fp32 kernel held a
+//   query row a thread on the CUDA cores, one shared-memory load every
+//   4 FMAs, and loaded K and V synchronously between two barriers.  This
+//   one:
+//   - splits each fp32 operand x as big = tf32(x) and small = tf32(x −
+//     big), tf32 rounding as cvt.rna.tf32.f32 does (to nearest, ties
+//     away), and computes every product as small·big + big·small +
+//     big·big (smallest terms first) with mma.sync.m16n8k8 (TF32 wgmma
+//     wants both shared operands K-major, and V is (keys, vd) with vd
+//     contiguous): the dropped small·small is about 2^-22 of a product,
+//     the arithmetic of the library's OpMultiplyAddFastF32.  A tensor
+//     core aligns its addends to the largest and truncates, so each
+//     product into a long running sum would lose about an ulp of it, all
+//     one way (on an H100 at hd 256 with q = k that moved the log-sum-exp
+//     by 5e-5): the products of two 8-wide chunks (CHUNKS) are summed
+//     from 0 and then added to the score or the output in fp32;
+//   - gives each of 8 warps 16 query rows (a block 128), its scores as
+//     mma fragments: thread (g = lane / 4, t = lane % 4) holds keys 2t
+//     and 2t + 1 of rows g and g + 8, and that fragment is the A operand
+//     of P·V as it stands, k-slot t taking key 2t and k-slot t + 4 key
+//     2t + 1, V's B fragment read in the same order (V[2t][g],
+//     V[2t + 1][g]): no shuffle between the two GEMMs;
+//   - keeps fl32(q) · scale in shared memory (split as it is read) and
+//     streams K and V through a ring of two stages in dynamic shared
+//     memory by cp.async (16-byte copies, or 4-byte ones where a base or
+//     a stride is off 16 bytes; keys past the block's range are
+//     zero-filled), tile j + 1 in flight while tile j is used; once a
+//     tile lands the block splits it, the big halves in place and the
+//     small ones beside, so that each of the 8 warps reads its fragments
+//     split; rows are padded to d + 4 floats, so that the fragments'
+//     reads fall on 32 banks;
+//   - tiles of 32 keys (8 at hd 256, where q alone takes 133 KB and the
+//     output 128 registers a thread), one block an SM;
+//   - the online softmax in fp32 on the fragment's rows (4 lanes a row,
+//     shuffles), the cap's tanhf, the masks only on tiles that cross an
+//     edge, exp2((s − m) · log2 e) on the SFU.
+//   Head dims (hd, vd): those of the bf16 kernel.  What holds it at
+//   about 29 % of the floor is not measured (PERF.md §6 and §7: the
+//   variants timed on an H100, and what they showed).
 //
 // Both skip key tiles that the causal mask or the window hides from
 // every row of the block (exact: each skipped score would add
@@ -171,10 +202,6 @@
 #include <stdint.h>
 
 namespace {
-
-constexpr int QT = 128;   // query rows a block
-constexpr int KT = 64;    // keys a shared-memory tile (32 above hd 64)
-constexpr int SUB = 16;   // keys scored into registers at a time
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -212,155 +239,6 @@ __device__ __forceinline__ bool row_sees(int p, int klim, int causal, int window
   const int hi = causal ? min(klim, p + 1) : klim;
   const int lo = causal && window > 0 ? max(0, p - window + 1) : 0;
   return hi > lo;
-}
-
-// TPR threads a query row (neighbours in one warp), each holding the DH =
-// HD / TPR head dims from d0 on.
-template <typename T, int HD, int TPR>
-__global__ void __launch_bounds__(QT * TPR) flash_fwd_kernel(Args a) {
-  constexpr int DH = HD / TPR;
-  constexpr int KTT = HD > 64 ? KT / 2 : KT;
-  static_assert(DH % 4 == 0 && 32 % TPR == 0, "bad head split");
-  __shared__ __align__(16) float ksm[KTT][HD];
-  __shared__ __align__(16) float vsm[KTT][HD];
-
-  const int bh = blockIdx.x;
-  const int bb = bh / a.H, h = bh % a.H;
-  const int n = bb / a.B, b = bb % a.B;
-  const int kvh = h / (a.H / a.KV);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * QT;   // late tiles first
-  const int row = q0 + threadIdx.x / TPR;
-  const int d0 = threadIdx.x % TPR * DH;
-  const bool live = row < a.Sq;
-  // positions from here on count from the shard's first key
-  const int kb0 = shard_base(n, a.shards, a.Sk);
-  const int qoff = a.q_off - kb0;
-  const int klim = min(a.Sk, a.kv_len - kb0);  // may be <= 0: no key
-
-  float qr[DH];
-  {
-    const T* qp = static_cast<const T*>(a.q) + n * a.qs[0] + b * a.qs[1] +
-                  static_cast<long long>(live ? row : 0) * a.qs[2] + h * a.qs[3] + d0;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) qr[d] = live ? to_f(qp[d]) * a.scale : 0.f;
-  }
-  float acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  // the key range any row of this block can see
-  const int qlast = qoff + min(q0 + QT, a.Sq) - 1;
-  int kbeg = 0, kend = klim;
-  if (a.causal) {
-    kend = min(klim, qlast + 1);
-    if (a.window > 0 && qlast < klim) kbeg = max(0, qoff + q0 - a.window + 1) / KTT * KTT;
-  }
-  const int pos = qoff + row;  // the row's position
-
-  const T* kb = static_cast<const T*>(a.k) + n * a.ks[0] + b * a.ks[1] + kvh * a.ks[3];
-  const T* vb = static_cast<const T*>(a.v) + n * a.vs[0] + b * a.vs[1] + kvh * a.vs[3];
-
-  for (int t0 = kbeg; t0 < kend; t0 += KTT) {
-    __syncthreads();   // the previous tile is consumed
-    for (int i = threadIdx.x; i < KTT * HD; i += QT * TPR) {
-      const int r = i / HD, c = i % HD;
-      const int key = t0 + r;
-      const bool in = key < kend;
-      ksm[r][c] = in ? to_f(kb[static_cast<long long>(key) * a.ks[2] + c]) : 0.f;
-      vsm[r][c] = in ? to_f(vb[static_cast<long long>(key) * a.vs[2] + c]) : 0.f;
-    }
-    __syncthreads();
-    const int nk = min(KTT, kend - t0);
-    for (int j0 = 0; j0 < nk; j0 += SUB) {
-      float s[SUB];
-#pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) s[jj] = 0.f;
-#pragma unroll
-      for (int c = 0; c < DH / 4; ++c) {
-        const float q0v = qr[4 * c], q1v = qr[4 * c + 1], q2v = qr[4 * c + 2],
-                    q3v = qr[4 * c + 3];
-#pragma unroll
-        for (int jj = 0; jj < SUB; ++jj) {
-          const float4 k4 = reinterpret_cast<const float4*>(&ksm[j0 + jj][d0])[c];
-          s[jj] = fmaf(q0v, k4.x, s[jj]);
-          s[jj] = fmaf(q1v, k4.y, s[jj]);
-          s[jj] = fmaf(q2v, k4.z, s[jj]);
-          s[jj] = fmaf(q3v, k4.w, s[jj]);
-        }
-      }
-      // add the row's other partial sums (a + b == b + a: every thread of
-      // the row gets the same bits)
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off /= 2) {
-#pragma unroll
-        for (int jj = 0; jj < SUB; ++jj) s[jj] += __shfl_xor_sync(0xffffffffu, s[jj], off);
-      }
-      float mt = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        const int key = t0 + j0 + jj;
-        float x = s[jj];
-        if (a.cap > 0.f) x = tanhf(x / a.cap) * a.cap;
-        if (j0 + jj >= nk) {
-          x = -INFINITY;   // past the block's key range: no such key
-        } else if (a.causal && (key > pos || (a.window > 0 && key <= pos - a.window))) {
-          x = -1e30f;
-        }
-        s[jj] = x;
-        mt = fmaxf(mt, x);
-      }
-      // the sub-tile holds at least one key in range, so mn is finite
-      const float mn = fmaxf(m, mt);
-      const float alpha = expf(m - mn);
-      float ps = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        s[jj] = expf(s[jj] - mn);
-        ps += s[jj];
-      }
-      l = l * alpha + ps;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int jj = 0; jj < SUB; ++jj) {
-        const float p = s[jj];
-#pragma unroll
-        for (int c = 0; c < DH / 4; ++c) {
-          const float4 v4 = reinterpret_cast<const float4*>(&vsm[j0 + jj][d0])[c];
-          acc[4 * c] = fmaf(p, v4.x, acc[4 * c]);
-          acc[4 * c + 1] = fmaf(p, v4.y, acc[4 * c + 1]);
-          acc[4 * c + 2] = fmaf(p, v4.z, acc[4 * c + 2]);
-          acc[4 * c + 3] = fmaf(p, v4.w, acc[4 * c + 3]);
-        }
-      }
-      m = mn;
-    }
-  }
-
-  if (live) {
-    // a shard's row without a key: o = 0 and lse = −inf
-    const bool none = a.shards > 0 && !row_sees(pos, klim, a.causal, a.window);
-    const float den = fmaxf(l, 1e-30f);
-    T* op = static_cast<T*>(a.o) + n * a.os[0] + b * a.os[1] +
-            static_cast<long long>(row) * a.os[2] + h * a.os[3] + d0;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) op[d] = from_f<T>(none ? 0.f : acc[d] / den);
-    if (d0 == 0)
-      a.lse[static_cast<long long>(bh) * a.Sq + row] = none ? -INFINITY : m + logf(l);
-  }
-}
-
-cudaError_t launch_fp32(const Args& a, int N, int hd, cudaStream_t s) {
-  const dim3 grid(N * a.B * a.H, (a.Sq + QT - 1) / QT);
-  switch (hd) {
-    case 16: flash_fwd_kernel<float, 16, 1><<<grid, QT, 0, s>>>(a); break;
-    case 32: flash_fwd_kernel<float, 32, 1><<<grid, QT, 0, s>>>(a); break;
-    case 64: flash_fwd_kernel<float, 64, 1><<<grid, QT, 0, s>>>(a); break;
-    case 128: flash_fwd_kernel<float, 128, 2><<<grid, 2 * QT, 0, s>>>(a); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1510,6 +1388,392 @@ cudaError_t launch_dims(const Args& a, int N, int hd, int vd, cudaStream_t s) {
 
 }  // namespace dec
 
+
+// ---------------------------------------------------------------------------
+// fp32: 3xTF32 on the tensor cores (the note at the top of this file).
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+using tc::ex2;
+using tc::LOG2E;
+constexpr int STAGES = 2;  // K/V ring depth
+
+template <int HD, int VD>
+struct Shape {
+  static constexpr int WARPS = 8;                  // 16 query rows each
+  static constexpr int QT = 16 * WARPS;            // query rows a block
+  static constexpr int THREADS = 32 * WARPS;
+  // keys a tile: at hd 256 q alone takes 133 KB, and 8 keys keep the
+  // 128 accumulator registers a thread free of spills
+  static constexpr int KT = HD == 256 ? 8 : 32;
+  static constexpr int HP = HD + 4, VP = VD + 4;   // padded rows, floats
+  static constexpr int TILE = KT * (HP + VP);      // floats of a tile: K, then V
+  // q, the ring's stages (each split in place into its big halves once
+  // it lands), and the small halves of the tile in use
+  static constexpr int SMEM = 4 * (QT * HP + (STAGES + 1) * TILE);
+  static_assert(HD % 8 == 0 && VD % 8 == 0, "dims are multiples of 8");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero, on the 13 low bits: half of their weight added to the
+// magnitude, then cut), in two integer operations; cvt.rna compiles to a
+// longer sequence that took the kernel 6-15 % longer on an H100
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small, each a TF32 value
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ uint32_t bits(float x) { return __float_as_uint(x); }
+
+// x's four values split: x keeps the big halves, lo gets the small ones
+__device__ __forceinline__ void split4(float4& x, float4& lo) {
+  uint32_t b, s;
+  split(x.x, b, s);
+  x.x = __uint_as_float(b);
+  lo.x = __uint_as_float(s);
+  split(x.y, b, s);
+  x.y = __uint_as_float(b);
+  lo.y = __uint_as_float(s);
+  split(x.z, b, s);
+  x.z = __uint_as_float(b);
+  lo.z = __uint_as_float(s);
+  split(x.w, b, s);
+  x.w = __uint_as_float(b);
+  lo.w = __uint_as_float(s);
+}
+
+// d += a · b, one m16n8k8 TF32 product (fp32 accumulate)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Chunks of 8 terms a sum takes on the tensor cores, from 0, before it
+// is added to its running total in fp32 (the header: a tensor core
+// truncates each sum to its largest addend)
+constexpr int CHUNKS = 2;
+
+// c += a · b (8 of the sum's terms) in three TF32 products, the smallest
+// first: small·big, big·small, big·big (a's halves ab, as; b's bb0/bb1
+// and bs0/bs1)
+__device__ __forceinline__ void prod3(float (&c)[4], const uint32_t (&ab)[4],
+                                      const uint32_t (&as)[4], uint32_t bb0, uint32_t bb1,
+                                      uint32_t bs0, uint32_t bs1) {
+  mma(c, as, bb0, bb1);
+  mma(c, ab, bs0, bs1);
+  mma(c, ab, bb0, bb1);
+}
+
+// One block: QT query rows of one (n, b, head), WARPS warps of 16 rows.
+// vec16: every base 16-byte aligned and every stride a multiple of 4.
+template <int HD, int VD>
+__global__ void __launch_bounds__(Shape<HD, VD>::THREADS, 1)
+    flash_fwd_tf32_kernel(const __grid_constant__ Args a, int vec16) {
+  using S = Shape<HD, VD>;
+  constexpr int KT = S::KT, HP = S::HP, VP = S::VP, QT = S::QT;
+  extern __shared__ __align__(16) float fsm[];
+  float* qsm = fsm;                         // [QT][HP]: fl32(q) · scale
+  float* ring = fsm + QT * HP;              // [STAGES]: K [KT][HP], V [KT][VP]
+  float* small = ring + STAGES * S::TILE;   // the same, the small halves
+
+  const int bh = blockIdx.x;
+  const int bb = bh / a.H, h = bh % a.H;
+  const int n = bb / a.B, b = bb % a.B;
+  const int kvh = h / (a.H / a.KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * QT;  // late tiles first
+  // positions from here on count from the shard's first key
+  const int qoff = a.q_off - shard_base(n, a.shards, a.Sk);
+  const int klim = min(a.Sk, a.kv_len - shard_base(n, a.shards, a.Sk));  // may be <= 0
+  // the key range any row of this block can see
+  const int qlast = qoff + min(q0 + QT, a.Sq) - 1;
+  int kbeg = 0, kend = klim;
+  if (a.causal) {
+    kend = min(klim, qlast + 1);
+    if (a.window > 0 && qlast < klim) kbeg = max(0, qoff + q0 - a.window + 1) / KT * KT;
+  }
+  const int ntiles = (kend - kbeg + KT - 1) / KT;
+  float* ob = static_cast<float*>(a.o) + n * a.os[0] + b * a.os[1] + h * a.os[3];
+  float* lb = a.lse + static_cast<long long>(bh) * a.Sq;
+  if (ntiles <= 0) {  // no row of the block sees a key (a shard's only)
+    for (int i = threadIdx.x; i < QT * VD; i += S::THREADS) {
+      const int row = q0 + i / VD;
+      if (row < a.Sq) ob[row * a.os[2] + i % VD] = 0.f;
+    }
+    for (int i = threadIdx.x; i < QT; i += S::THREADS)
+      if (q0 + i < a.Sq) lb[q0 + i] = -INFINITY;
+    return;
+  }
+
+  const float* qb = static_cast<const float*>(a.q) + n * a.qs[0] + b * a.qs[1] + h * a.qs[3];
+  const float* kbase = static_cast<const float*>(a.k) + n * a.ks[0] + b * a.ks[1] + kvh * a.ks[3];
+  const float* vbase = static_cast<const float*>(a.v) + n * a.vs[0] + b * a.vs[1] + kvh * a.vs[3];
+  // tile `it` into its stage; keys past the block's range zero-filled
+  auto load_tile = [&](int it) {
+    float* kst = ring + (it % STAGES) * S::TILE;
+    float* vst = kst + KT * HP;
+    const int key0 = kbeg + it * KT;
+    if (vec16) {
+      constexpr int KC = HD / 4, PER = (HD + VD) / 4;
+      for (int c = threadIdx.x; c < KT * PER; c += S::THREADS) {
+        const int j = c / PER, w = c % PER, key = key0 + j;
+        const bool in = key < kend;
+        const float* src = w < KC ? kbase + static_cast<long long>(key) * a.ks[2] + 4 * w
+                                  : vbase + static_cast<long long>(key) * a.vs[2] + 4 * (w - KC);
+        float* dst = w < KC ? kst + j * HP + 4 * w : vst + j * VP + 4 * (w - KC);
+        dec::cp_async16(dst, in ? src : kbase, in ? 16 : 0);
+      }
+    } else {
+      for (int c = threadIdx.x; c < KT * (HD + VD); c += S::THREADS) {
+        const int j = c / (HD + VD), w = c % (HD + VD), key = key0 + j;
+        const bool in = key < kend;
+        const float* src = w < HD ? kbase + static_cast<long long>(key) * a.ks[2] + w
+                                  : vbase + static_cast<long long>(key) * a.vs[2] + (w - HD);
+        float* dst = w < HD ? kst + j * HP + w : vst + j * VP + (w - HD);
+        dec::cp_async4(dst, in ? src : kbase, in ? 4 : 0);
+      }
+    }
+  };
+  load_tile(0);
+  dec::cp_commit();
+  // q, scaled first (the fp32 order), while tile 0 lands; rows past Sq 0
+  for (int c = threadIdx.x; c < QT * (HD / 4); c += S::THREADS) {
+    const int r = c / (HD / 4), w = c % (HD / 4), row = q0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < a.Sq) {
+      const float* src = qb + static_cast<long long>(row) * a.qs[2] + 4 * w;
+      x = vec16 ? *reinterpret_cast<const float4*>(src)
+                : make_float4(src[0], src[1], src[2], src[3]);
+    }
+    *reinterpret_cast<float4*>(qsm + r * HP + 4 * w) =
+        make_float4(x.x * a.scale, x.y * a.scale, x.z * a.scale, x.w * a.scale);
+  }
+
+  // this thread's place in the warp's fragments: rows g and g + 8 of the
+  // warp's 16, keys (and output columns) 2t and 2t + 1 of each 8
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r_lo = q0 + 16 * warp;
+  const int row0 = r_lo + g, row1 = row0 + 8;
+  const int pos0 = qoff + row0, pos1 = qoff + row1;
+  const float* qw = qsm + 16 * warp * HP;
+  float acc[VD / 8][4];
+#pragma unroll
+  for (int i = 0; i < VD / 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+#pragma unroll 1
+  for (int it = 0; it < ntiles; ++it) {
+    dec::cp_wait<0>();  // tile it has landed (this thread's copies)
+    __syncthreads();    // everyone's, q too, and tile it - 1 is consumed
+    if (it + 1 < ntiles) load_tile(it + 1);
+    dec::cp_commit();
+    // the tile split once for every warp: its big halves in place, its
+    // small ones beside (the rows' padding too, never read)
+    float* kt = ring + (it % STAGES) * S::TILE;
+    for (int c = threadIdx.x; c < S::TILE / 4; c += S::THREADS) {
+      float4 x = reinterpret_cast<float4*>(kt)[c], lo;
+      split4(x, lo);
+      reinterpret_cast<float4*>(kt)[c] = x;
+      reinterpret_cast<float4*>(small)[c] = lo;
+    }
+    __syncthreads();
+    if (r_lo >= a.Sq) continue;  // a warp past the last row
+    const float* vt = kt + KT * HP;
+    const float* ks = small;
+    const float* vs = small + KT * HP;
+    const int t0 = kbeg + it * KT;
+
+    // S = (fl32(q) · scale) · Kᵀ, three TF32 products
+    float s[KT / 8][4];
+#pragma unroll
+    for (int i = 0; i < KT / 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    constexpr int SC = HD / 8 < CHUNKS ? HD / 8 : CHUNKS;
+#pragma unroll 4  // in full, the loads run ahead and spill
+    for (int k0 = 0; k0 < HD / 8; k0 += SC) {
+      uint32_t ab[SC][4], as[SC][4];
+#pragma unroll
+      for (int u = 0; u < SC; ++u) {
+        const float* qa = qw + g * HP + 8 * (k0 + u) + t;
+        split(qa[0], ab[u][0], as[u][0]);
+        split(qa[8 * HP], ab[u][1], as[u][1]);
+        split(qa[4], ab[u][2], as[u][2]);
+        split(qa[8 * HP + 4], ab[u][3], as[u][3]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < KT / 8; ++nb) {
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int u = 0; u < SC; ++u) {
+          const int o = (8 * nb + g) * HP + 8 * (k0 + u) + t;
+          prod3(c, ab[u], as[u], bits(kt[o]), bits(kt[o + 4]), bits(ks[o]), bits(ks[o + 4]));
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[nb][j] += c[j];
+      }
+    }
+
+    // cap, then the masks, only where the tile crosses an edge of the
+    // warp's rows: −1e30 where the causal mask or the window hides a key,
+    // −inf past the block's range
+    if (a.cap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < KT / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = tanhf(s[i][j] / a.cap) * a.cap;
+    }
+    const int lo = qoff + r_lo;  // the warp's first position
+    const bool whole = t0 + KT <= kend &&
+                       (!a.causal || (t0 + KT - 1 <= lo &&
+                                      (a.window == 0 || t0 > lo + 15 - a.window)));
+    if (!whole) {
+#pragma unroll
+      for (int i = 0; i < KT / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = t0 + 8 * i + 2 * t + (j & 1);
+          const int pos = (j & 2) ? pos1 : pos0;
+          if (key >= kend) {
+            s[i][j] = -INFINITY;
+          } else if (a.causal && (key > pos || (a.window > 0 && key <= pos - a.window))) {
+            s[i][j] = -1e30f;
+          }
+        }
+    }
+    // the online softmax on rows g and g + 8 (the tile holds a key of the
+    // range, so each row's max is finite)
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int i = 0; i < KT / 8; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(s[i][0], s[i][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[i][2], s[i][3]));
+    }
+#pragma unroll
+    for (int sh = 1; sh <= 2; sh *= 2) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+    }
+    const float al0 = ex2((m0 - mx0) * LOG2E), al1 = ex2((m1 - mx1) * LOG2E);
+    m0 = mx0;
+    m1 = mx1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < KT / 8; ++i) {
+      s[i][0] = ex2((s[i][0] - mx0) * LOG2E);
+      s[i][1] = ex2((s[i][1] - mx0) * LOG2E);
+      s[i][2] = ex2((s[i][2] - mx1) * LOG2E);
+      s[i][3] = ex2((s[i][3] - mx1) * LOG2E);
+      ps0 += s[i][0] + s[i][1];
+      ps1 += s[i][2] + s[i][3];
+    }
+    l0 = l0 * al0 + ps0;  // this thread's share; the 4 lanes add at the end
+    l1 = l1 * al1 + ps1;
+#pragma unroll
+    for (int i = 0; i < VD / 8; ++i) {
+      acc[i][0] *= al0;
+      acc[i][1] *= al0;
+      acc[i][2] *= al1;
+      acc[i][3] *= al1;
+    }
+
+    // O += P · V, three TF32 products: the score fragment is P's A
+    // fragment, k-slot t key 2t and k-slot t + 4 key 2t + 1
+    constexpr int PC = KT / 8 < CHUNKS ? KT / 8 : CHUNKS;
+#pragma unroll
+    for (int k0 = 0; k0 < KT / 8; k0 += PC) {
+      uint32_t pb[PC][4], ps[PC][4];
+#pragma unroll
+      for (int u = 0; u < PC; ++u) {
+        split(s[k0 + u][0], pb[u][0], ps[u][0]);
+        split(s[k0 + u][2], pb[u][1], ps[u][1]);
+        split(s[k0 + u][1], pb[u][2], ps[u][2]);
+        split(s[k0 + u][3], pb[u][3], ps[u][3]);
+      }
+#pragma unroll
+      for (int c = 0; c < VD / 8; ++c) {
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int u = 0; u < PC; ++u) {
+          const int o = (8 * (k0 + u) + 2 * t) * VP + 8 * c + g;
+          prod3(d, pb[u], ps[u], bits(vt[o]), bits(vt[o + VP]), bits(vs[o]), bits(vs[o + VP]));
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[c][j] += d[j];
+      }
+    }
+  }
+  dec::cp_wait<0>();
+  if (r_lo >= a.Sq) return;
+
+  // the row sums over the 4 lanes, o / max(l, 1e-30) clipped at Sq and the
+  // log-sum-exp m + log(l); a shard's row without a key writes o = 0 and
+  // lse = −inf
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh *= 2) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
+  }
+  const bool none0 = a.shards > 0 && !row_sees(pos0, klim, a.causal, a.window);
+  const bool none1 = a.shards > 0 && !row_sees(pos1, klim, a.causal, a.window);
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int c = 0; c < VD / 8; ++c) {
+    const int d = 8 * c + 2 * t;
+    if (row0 < a.Sq)
+      *reinterpret_cast<float2*>(ob + row0 * a.os[2] + d) =
+          none0 ? make_float2(0.f, 0.f) : make_float2(acc[c][0] / d0, acc[c][1] / d0);
+    if (row1 < a.Sq)
+      *reinterpret_cast<float2*>(ob + row1 * a.os[2] + d) =
+          none1 ? make_float2(0.f, 0.f) : make_float2(acc[c][2] / d1, acc[c][3] / d1);
+  }
+  if (t == 0) {
+    if (row0 < a.Sq) lb[row0] = none0 ? -INFINITY : m0 + logf(l0);
+    if (row1 < a.Sq) lb[row1] = none1 ? -INFINITY : m1 + logf(l1);
+  }
+}
+
+template <int HD, int VD>
+cudaError_t launch(const Args& a, int N, int vec16, cudaStream_t s) {
+  using Sh = Shape<HD, VD>;
+  const dim3 grid(N * a.B * a.H, (a.Sq + Sh::QT - 1) / Sh::QT);
+  const auto kernel = flash_fwd_tf32_kernel<HD, VD>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, Sh::THREADS, Sh::SMEM, s>>>(a, vec16);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dims(const Args& a, int N, int hd, int vd, int vec16, cudaStream_t s) {
+  if (hd == vd) {
+    switch (hd) {
+      case 16: return launch<16, 16>(a, N, vec16, s);
+      case 32: return launch<32, 32>(a, N, vec16, s);
+      case 64: return launch<64, 64>(a, N, vec16, s);
+      case 128: return launch<128, 128>(a, N, vec16, s);
+      case 256: return launch<256, 256>(a, N, vec16, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (hd == 192 && vd == 128) return launch<192, 128>(a, N, vec16, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace f32
+
 // The decode kernel: q, k, v, o, lse, strides, the mask and shards as for
 // flash_attn_fwd below, any dtype at any (hd, vd) of the bf16 kernel, G ·
 // Sq <= 64 query rows a KV group.  tile, tiles and splits are
@@ -1571,25 +1835,30 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v, voi
 }
 
 // q (N, B, Sq, H, hd), k (N, B, Sk, KV, hd), v (N, B, Sk, KV, vd), o (N, B,
-// Sq, H, vd) in dtype (0 = fp32: the CUDA-core kernel; 1 = bf16: the
-// tensor-core kernel); lse (N, B, H, Sq) fp32, contiguous.  strides holds
-// the (outer, batch, seq, head) element strides of q, k, v and o in that
-// order; the bf16 kernel reads q, k and v by TMA, so their bases are
-// 16-byte aligned and their strides multiples of 8 elements.  Query row i
-// sits at position q_offset + i and keys at or past kv_len are hidden
-// (q_offset = 0 and kv_len = Sk: no such mask).  shards = 0: every row
-// must see a key (the caller makes sure of it); shards > 0: outer row n
-// holds the (n mod shards)-th block of Sk keys of the sequence, and a row
-// that sees none of them writes o = 0, lse = −inf.  Returns the launch's
-// cudaError_t (0 on success); launches nothing and returns
-// cudaErrorInvalidValue for arguments neither kernel takes.
+// Sq, H, vd) in dtype (0 = fp32: the 3xTF32 kernel; 1 = bf16: the wgmma
+// kernel), both at the (hd, vd) pairs (16, 16), (32, 32), (64, 64), (128,
+// 128), (256, 256) and (192, 128); lse (N, B, H, Sq) fp32, contiguous.
+// strides holds the (outer, batch, seq, head) element strides of q, k, v
+// and o in that order; the bf16 kernel reads q, k and v by TMA, so their
+// bases are 16-byte aligned and their strides multiples of 8 elements.
+// vec16: every base of q, k, v 16-byte aligned and every stride a
+// multiple of 16 bytes (bf16 must be; fp32 otherwise copies 4 bytes at a
+// time).  Query row i sits at position q_offset + i and keys at or past
+// kv_len are hidden (q_offset = 0 and kv_len = Sk: no such mask).
+// shards = 0: every row must see a key (the caller makes sure of it);
+// shards > 0: outer row n holds the (n mod shards)-th block of Sk keys of
+// the sequence, and a row that sees none of them writes o = 0, lse =
+// −inf.  Returns the launch's cudaError_t (0 on success); launches
+// nothing and returns cudaErrorInvalidValue for arguments neither kernel
+// takes.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                               void* lse, int dtype, int hd, int vd, int N, int B, int H,
                               int KV, int Sq, int Sk, const long long* strides, float scale,
                               int causal, float cap, int window, int q_offset, int kv_len,
-                              int shards, void* stream) {
+                              int shards, int vec16, void* stream) {
   if (N < 1 || B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Sk < 1 ||
-      Sq > 65535 * QT || q_offset < 0 || kv_len < 1 || shards < 0)
+      Sq > 65535 * tc::QT || q_offset < 0 || kv_len < 1 || shards < 0 ||
+      (dtype == 1 && !vec16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
@@ -1624,7 +1893,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
     }
     return static_cast<int>(err);
   }
-  if (dtype != 0 || hd != vd) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q;
   a.k = k;
@@ -1649,5 +1918,5 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
   a.q_off = q_offset;
   a.kv_len = kv_len;
   a.shards = shards;
-  return static_cast<int>(launch_fp32(a, N, hd, s));
+  return static_cast<int>(f32::launch_dims(a, N, hd, vd, vec16, s));
 }

@@ -29,15 +29,19 @@ The shape picks the decode kernel: a launch whose KV group holds at
 most ``DECODE_ROWS`` query rows (``G·Sq``, ``G = H / KV``: every decode
 step, masked, cross or partial) runs ``flash_decode_kernel``, one block
 a (batch row, KV head, split of the visible keys), which reads the cache
-once and computes in fp32 on the CUDA cores in both dtypes at every
-``TC_DIMS`` pair; :func:`decode_plan` splits the keys, and a second
-kernel joins the splits by their log-sum-exp.  Every other launch is a
-training or prefill one, and the dtype picks its kernel: bf16 runs on
-the tensor cores (``wgmma`` fed by TMA, probabilities split into two
-bf16 halves; head dims ``TC_DIMS``), fp32 on the CUDA cores
-(``FP32_DIMS``), the only route that holds fp32 to the reference's
-3e-5.  ``launches`` counts every launch, ``tc_launches`` the tensor-core
-kernel's alone, ``decode_launches`` the decode kernel's.
+once and computes in fp32 on the CUDA cores in both dtypes;
+:func:`decode_plan` splits the keys, and a second kernel joins the
+splits by their log-sum-exp.  Every other launch is a training or
+prefill one, and the dtype picks its kernel, both on the tensor cores:
+bf16 runs ``flash_fwd_wgmma_kernel`` (``wgmma`` fed by TMA, probabilities
+split into two bf16 halves), fp32 ``flash_fwd_tf32_kernel`` (``mma.sync``
+in TF32, each operand split into a TF32 big and small part and each
+product taken three times, small·big + big·small + big·big, which holds
+fp32 to the reference's 3e-5; K and V through a ``cp.async`` ring).
+Every kernel takes the head dims ``TC_DIMS``.  ``launches`` counts every
+launch, ``tc_launches`` the bf16 tensor-core kernel's alone,
+``fp32_launches`` the fp32 one's, ``decode_launches`` the decode
+kernel's.
 
 ``FlashAttention`` is the ``torch.autograd.Function`` around it.  The
 JAX package has no backward kernel (its training path differentiates
@@ -66,10 +70,7 @@ SOURCE = _build.CSRC / "flash_attn.cu"
 
 #: dtype codes of the C entry point
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: (hd, vd) the CUDA-core kernel takes, fp32 only (128: two threads a
-#: query row)
-FP32_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128))
-#: (hd, vd) the tensor-core kernel takes, bf16 only
+#: (hd, vd) every kernel takes, in either dtype
 TC_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
 #: query rows a block (the grid's second dimension is ceil(Sq / QT))
 QT = 128
@@ -88,8 +89,10 @@ DECODE_SPLITS = 4096
 #: Kernel launches so far, either kernel; the wrapper adds one per launch
 #: and nothing else touches it but a caller that resets it.
 launches = 0
-#: The tensor-core kernel's launches alone, counted the same way.
+#: The bf16 tensor-core kernel's launches alone, counted the same way.
 tc_launches = 0
+#: The fp32 (3xTF32) kernel's launches alone.
+fp32_launches = 0
 #: The partial launches over a shard of the keys alone (``shards=``).
 partial_launches = 0
 #: The decode kernel's launches alone (a launch with a join counts once).
@@ -101,9 +104,8 @@ def _entry():
     fn = _build.load(SOURCE).flash_attn_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
-                      ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_float]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -127,9 +129,9 @@ def decodes(h: int, kv: int, sq: int) -> bool:
 
 
 def dims(dtype: torch.dtype, h: int, kv: int, sq: int) -> tuple:
-    """The (hd, vd) pairs a launch of this dtype and shape can take."""
-    return (TC_DIMS if dtype == torch.bfloat16 or decodes(h, kv, sq)
-            else FP32_DIMS)
+    """The (hd, vd) pairs a launch of this dtype and shape can take:
+    ``TC_DIMS``, whichever kernel the dtype and the shape pick."""
+    return TC_DIMS
 
 
 def decode_lanes(hd: int, rows: int) -> int:
@@ -299,13 +301,13 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with a contiguous last dim; or all three ``(N, B, …)``, which gives
     ``o (N, B, Sq, H, vd)`` and ``lse (N, B, H, Sq)``.  A launch of at
     most ``DECODE_ROWS`` query rows a KV group (:func:`decodes`) takes the
-    decode kernel at ``(hd, vd)`` in ``TC_DIMS``, in either dtype, its
-    keys split by :func:`decode_plan` (fp32 scratch for the splits is
-    allocated here).  Any other bf16 launch takes the tensor-core kernel
-    at ``(hd, vd)`` in ``TC_DIMS``, any other fp32 one the CUDA-core
-    kernel at ``(hd, vd)`` in ``FP32_DIMS``.  bf16 is read by TMA or
-    16-byte copies, so each base is 16-byte aligned and each stride a
-    multiple of 8 elements; fp32 strides are free.  ``q_offset`` (a host
+    decode kernel, its keys split by :func:`decode_plan` (fp32 scratch
+    for the splits is allocated here).  Any other bf16 launch takes the
+    wgmma kernel, any other fp32 one the 3xTF32 kernel; every kernel at
+    ``(hd, vd)`` in ``TC_DIMS``.  bf16 is read by TMA or 16-byte copies,
+    so each base is 16-byte aligned and each stride a multiple of 8
+    elements; fp32 strides are free (16-byte copies where they allow,
+    else 4-byte ones).  ``q_offset`` (a host
     int, at least 0) is query row 0's position and ``kv_len`` (a host
     int, at least 1; ``Sk`` by default) hides the keys at or past it.
 
@@ -317,7 +319,8 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     valid keys, and a row that sees none of its block's keys gets ``o =
     0`` and ``lse = -inf``.  Anything else raises; nothing is copied.
     """
-    global launches, tc_launches, partial_launches, decode_launches
+    global launches, tc_launches, fp32_launches, partial_launches
+    global decode_launches
     ts = (q, k, v)
     if any(t.device.type != "cuda" for t in ts):
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
@@ -407,13 +410,15 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         else:
             err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            o.data_ptr(), lse.data_ptr(), DTYPES[q.dtype], hd,
-                           vd, n, b, h, kv, sq, sk, cstrides, *opts, stream)
+                           vd, n, b, h, kv, sq, sk, cstrides, *opts,
+                           int(vec16), stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError "
                            f"{err} for q {tuple(q.shape)} k {tuple(k.shape)} "
                            f"v {tuple(v.shape)} {q.dtype}")
     launches += 1
     tc_launches += tc
+    fp32_launches += not (tc or dec)
     decode_launches += dec
     partial_launches += shards is not None
     if nd == 4:

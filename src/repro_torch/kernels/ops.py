@@ -427,9 +427,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k`` in fp32, capped by ``attn_cap``, ``-1e30`` where the causal mask,
     the window or ``kv_len`` hides a key; query row ``i`` sits at
     position ``q_offset + i`` (masked decode over a KV cache).  On the
-    card bf16 runs on the tensor cores and fp32 on the CUDA cores
-    (``flash_attn``), and a decode-shaped launch (``G·Sq`` at most
-    ``flash_attn.DECODE_ROWS``) on the decode kernel in either dtype;
+    card bf16 runs on the tensor cores in bf16 and fp32 on them in three
+    TF32 products (``flash_attn``), and a decode-shaped launch (``G·Sq``
+    at most ``flash_attn.DECODE_ROWS``) on the decode kernel in either
+    dtype;
     when no gradient is wanted the kernel launches
     directly, so nothing is saved for a backward.  The masked form is
     serving's and has no backward on the card.

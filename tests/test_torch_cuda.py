@@ -16,7 +16,7 @@ apply: NaN payloads are not compared, and ``sparse_accum_slots`` on
 unsorted lists adds three or more duplicates of an index in the
 hardware's order (``rtol = atol = 1e-5``, the reference's own tolerance).
 The flash attention kernels sum in another order than their plain
-version: fp32 outputs (the CUDA-core kernel, the decode kernel) are held
+version: fp32 outputs (the 3xTF32 kernel, the decode kernel) are held
 at ``atol = 3e-5`` (the reference's own tolerance for it), bf16 outputs
 (the tensor-core kernel, the decode kernel) to one bf16 ulp of the plain
 version computed from the same bf16 inputs, plus the fp32 sums' rounding
@@ -530,35 +530,41 @@ def test_flash_tensor_core_kernel_takes_strided_views_on_cuda(cuda):
 
 @pytest.mark.cuda
 def test_flash_kernel_routes_by_dtype_on_cuda(cuda):
-    """Past 64 query rows a KV group bf16 goes to the tensor-core kernel,
-    fp32 to the CUDA-core one; at 64 rows both go to the decode kernel."""
+    """Past 64 query rows a KV group bf16 goes to the wgmma kernel, fp32
+    to the 3xTF32 one (``fp32_launches``); at 64 rows both go to the
+    decode kernel."""
     for sq, dec in ((65, 0), (64, 1)):
         q = torch.randn((1, sq, 2, 64), generator=cuda, device="cuda")
-        before = (fa.launches, fa.tc_launches, fa.decode_launches)
+        before = (fa.launches, fa.tc_launches, fa.decode_launches,
+                  fa.fp32_launches)
         fa.attention_fwd(q.bfloat16(), q.bfloat16(), q.bfloat16(),
                          causal=True, scale=0.125, attn_cap=0.0, window=0)
-        assert (fa.launches, fa.tc_launches, fa.decode_launches) == (
-            before[0] + 1, before[1] + 1 - dec, before[2] + dec)
+        assert (fa.launches, fa.tc_launches, fa.decode_launches,
+                fa.fp32_launches) == (
+            before[0] + 1, before[1] + 1 - dec, before[2] + dec, before[3])
         fa.attention_fwd(q, q, q, causal=True, scale=0.125, attn_cap=0.0,
                          window=0)
-        assert (fa.launches, fa.tc_launches, fa.decode_launches) == (
-            before[0] + 2, before[1] + 1 - dec, before[2] + 2 * dec)
+        assert (fa.launches, fa.tc_launches, fa.decode_launches,
+                fa.fp32_launches) == (
+            before[0] + 2, before[1] + 1 - dec, before[2] + 2 * dec,
+            before[3] + 1 - dec)
 
 
 @pytest.mark.cuda
 def test_flash_kernel_raises_on_what_neither_kernel_takes_on_cuda(cuda):
-    """fp32 past hd 128 outside a decode launch, a head dim no kernel has,
-    another dtype, mixed dtypes at the kernel's entry (only
-    ``ops.attention`` upcasts a bf16 query over fp32 K/V) and strides TMA
-    cannot read raise, and launch nothing (65 query rows a KV group: not
-    a decode launch)."""
+    """A head dim no kernel has (in either dtype), another dtype, mixed
+    dtypes at the kernel's entry (only ``ops.attention`` upcasts a bf16
+    query over fp32 K/V) and strides TMA cannot read raise, and launch
+    nothing (65 query rows a KV group: not a decode launch); fp32 at
+    (256, 256), which no fp32 kernel took before the 3xTF32 one, launches
+    and holds the plain version."""
     def qkv(hd, vd, dtype, pad=0):
         q = torch.randn((1, 65, 2, hd + pad), generator=cuda,
                         device="cuda").to(dtype)[..., :hd]
         v = torch.randn((1, 65, 2, vd), generator=cuda,
                         device="cuda").to(dtype)
         return q, q, v
-    before = fa.launches
+    before, fp32 = fa.launches, fa.fp32_launches
     q, k, v = qkv(128, 128, torch.float32)
     with pytest.raises(ValueError, match="dtypes"):
         fa.attention_fwd(q.bfloat16(), k, v, causal=True, scale=0.125,
@@ -566,7 +572,7 @@ def test_flash_kernel_raises_on_what_neither_kernel_takes_on_cuda(cuda):
     with pytest.raises(ValueError, match="dtypes"):
         ops.attention(q.half(), k, v, causal=True)
     for hd, vd, dtype, pad, what in (
-            (256, 256, torch.float32, 0, "not in"),
+            (48, 48, torch.float32, 0, "not in"),
             (48, 48, torch.bfloat16, 0, "not in"),
             (128, 64, torch.bfloat16, 0, "not in"),
             (64, 64, torch.float16, 0, "dtypes"),
@@ -575,6 +581,15 @@ def test_flash_kernel_raises_on_what_neither_kernel_takes_on_cuda(cuda):
             fa.attention_fwd(*qkv(hd, vd, dtype, pad), causal=True,
                              scale=0.125, attn_cap=0.0, window=0)
     assert fa.launches == before
+    q, k, v = qkv(256, 256, torch.float32)
+    got, lse = fa.attention_fwd(q, k, v, causal=True, scale=0.0625,
+                                attn_cap=50.0, window=0)
+    assert (fa.launches, fa.fp32_launches - fp32) == (before + 1, 1)
+    want, plse = ref.flash_attention_bshd(q, k, v, causal=True, scale=0.0625,
+                                          attn_cap=50.0)
+    torch.cuda.synchronize()
+    _assert_flash_close(got, want, v)
+    assert float((lse - plse).abs().max()) <= 3e-5
 
 
 @pytest.mark.cuda
@@ -659,10 +674,10 @@ def test_flash_function_gradient_at_sq_ne_sk_matches_plain_autograd_on_cuda(
 
 @pytest.mark.cuda
 def test_flash_fp32_kernel_at_hd_128_matches_plain_on_cuda(cuda):
-    """The CUDA-core kernel at (128, 128), two threads a query row: causal
-    and not, ``Sq != Sk``, GQA 8/8 and 8/1, cap 0 and 30, window 0 and 64,
-    ragged lengths; one fp32 launch each, within 3e-5, and its
-    log-sum-exp too."""
+    """The fp32 kernel at (128, 128), the VLM's cross width: causal and
+    not, ``Sq != Sk``, GQA 8/8 and 8/1, cap 0 and 30, window 0 and 64,
+    ragged lengths; one launch of the 3xTF32 kernel each, within 3e-5,
+    and its log-sum-exp too."""
     cases = 0
     for h, kv in ((8, 8), (8, 1)):
         for sq, sk, causal in ((300, 300, True), (100, 333, False),
@@ -673,12 +688,12 @@ def test_flash_fp32_kernel_at_hd_128_matches_plain_on_cuda(cuda):
                 k, v = (torch.randn((2, sk, kv, 128), generator=cuda,
                                     device="cuda") for _ in range(2))
                 w = win if causal else 0
-                before = (fa.launches, fa.tc_launches)
+                before = (fa.launches, fa.tc_launches, fa.fp32_launches)
                 got, lse = fa.attention_fwd(q, k, v, causal=causal,
                                             scale=128 ** -0.5, attn_cap=cap,
                                             window=w)
-                assert (fa.launches, fa.tc_launches) == (before[0] + 1,
-                                                         before[1])
+                assert (fa.launches, fa.tc_launches, fa.fp32_launches) == (
+                    before[0] + 1, before[1], before[2] + 1)
                 want, plse = ref.flash_attention_bshd(
                     q, k, v, causal=causal, attn_cap=cap, window=w,
                     scale=128 ** -0.5)
@@ -687,6 +702,72 @@ def test_flash_fp32_kernel_at_hd_128_matches_plain_on_cuda(cuda):
                 assert float((lse - plse).abs().max()) <= 3e-5
                 cases += 1
     assert cases == 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", fa.TC_DIMS)
+def test_flash_tf32_kernel_matches_plain_at_every_dim_pair_on_cuda(cuda,
+                                                                   dims):
+    """The fp32 kernel (three TF32 products on the tensor cores) at every
+    (hd, vd): causal, the window with the cap at 50, not causal over
+    ``Sq != Sk``, lengths off the 64- and 32-key tiles and the 128- and
+    64-row blocks, GQA 8/1 and 4/4; a partial launch (``shards=``) over an
+    ``(N, B)`` cache's strided layer slice, keyless rows and all; the
+    VLM's cross case (GQA 8, 1600 keys, not causal) with K and V 4 bytes
+    off 16 (the 4-byte copies).  Each launch on the 3xTF32 kernel, twice
+    with the same bits, ``o`` and ``lse`` within 3e-5 of the plain
+    version."""
+    hd, vd = dims
+
+    def launch(q, k, v, **kw):
+        before = (fa.launches, fa.fp32_launches, fa.tc_launches,
+                  fa.decode_launches)
+        got = fa.attention_fwd(q, k, v, **kw)
+        again = fa.attention_fwd(q, k, v, **kw)
+        assert (fa.launches, fa.fp32_launches, fa.tc_launches,
+                fa.decode_launches) == (before[0] + 2, before[1] + 2,
+                                        before[2], before[3])
+        assert _same_bits(got[0], again[0]) and _same_bits(got[1], again[1])
+        return got
+
+    def randn(*shape):
+        return torch.randn(shape, generator=cuda, device="cuda")
+    for h, kv in ((8, 1), (4, 4)):
+        for sq, sk, causal, cap, win in ((300, 300, True, 0.0, 0),
+                                         (129, 333, True, 50.0, 100),
+                                         (200, 77, False, 30.0, 0)):
+            q, k, v = randn(2, sq, h, hd), randn(2, sk, kv, hd), randn(
+                2, sk, kv, vd)
+            kw = dict(causal=causal, scale=hd ** -0.5, attn_cap=cap,
+                      window=win)
+            o, lse = launch(q, k, v, **kw)
+            want, plse = ref.flash_attention_bshd(q, k, v, **kw)
+            torch.cuda.synchronize()
+            _assert_flash_close(o, want, v)
+            assert float((lse - plse).abs().max()) <= 3e-5
+    # partial: 2 data ranks x 4 shards of 75 keys, one layer of a
+    # (ranks, L, B, Sk, KV, d) cache
+    n, b, sk = 8, 2, 75
+    k = randn(n, 2, b, sk, 2, hd)[:, 1]
+    v = randn(n, 2, b, sk, 2, vd)[:, 1]
+    q = randn(n, b, 128, 8, hd)
+    kw = dict(shards=4, causal=True, attn_cap=50.0, window=64, q_offset=72,
+              kv_len=200, scale=hd ** -0.5)
+    got = launch(q, k, v, **kw)
+    want = ref.flash_attention_partial(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isinf(want[1]).any())
+    _assert_partial_close(got, want, v)
+    # the VLM's cross layer, K and V off 16 bytes
+    q = randn(2, 100, 16, hd)
+    k, v = (randn(2, 1600, 2, d + 1)[..., 1:] for d in (hd, vd))
+    assert k.data_ptr() % 16 and v.data_ptr() % 16
+    kw = dict(causal=False, scale=hd ** -0.5, attn_cap=0.0, window=0)
+    o, lse = launch(q, k, v, **kw)
+    want, plse = ref.flash_attention_bshd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _assert_flash_close(o, want, v)
+    assert float((lse - plse).abs().max()) <= 3e-5
 
 
 @pytest.mark.cuda
@@ -787,7 +868,7 @@ _DECODE_CASES = ((1, 0, 1), (1, 62, 63), (1, 64, 65), (1, 199, 200),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,dims", [
-    *(("float32", d) for d in fa.FP32_DIMS),
+    *(("float32", d) for d in fa.TC_DIMS),
     *(("bfloat16", d) for d in fa.TC_DIMS)])
 def test_flash_masked_decode_matches_plain_on_cuda(cuda, dtype, dims):
     """Masked decode (``q_offset``, ``kv_len``) at every (hd, vd) each
@@ -921,7 +1002,7 @@ def _assert_partial_close(got, want, v):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,dims", [
-    *(("float32", d) for d in fa.FP32_DIMS),
+    *(("float32", d) for d in fa.TC_DIMS),
     *(("bfloat16", d) for d in fa.TC_DIMS)])
 def test_flash_partial_matches_plain_on_cuda(cuda, dtype, dims):
     """Partial attention over a sequence split across 4 shards

@@ -12,7 +12,9 @@ after a warm-up, queued behind a sleep on the card so that the host's
 launch cost does not pace them, ``--reps`` times; the median of the
 reps is kept.  The
 cases are the training launch of the TinyLlama step (q ``(8, 4096, 32,
-64)``, causal), an fp32 causal launch, and the decode launches of
+64)``, causal), an fp32 causal launch, the VLM's fp32 cross prefill (q
+``(2, 1024, 64, 128)`` over 1600 keys of 8 KV heads, not causal: the
+fp32 kernel's launch on the serving path), and the decode launches of
 ``chip_smoke.py``: the TinyLlama and gemma2-2b unsharded decodes of
 phases 35 and 36 (one query over a 4096 and an 8192 cache), gemma2-2b's
 global and windowed decode of phase 20, the partial launches of phases
@@ -21,8 +23,9 @@ decode and a slot server's decode.  The inputs are drawn from a seed,
 so every tree sees the same; each case's output bits are hashed, and
 the run says whether every tree gave the same bits.  A decode launch
 (``G·Sq <= 64``) may give other bits in two trees where one routes it
-to another kernel (the decode kernel sums in another order); a
-training or prefill launch must not.  Prints one JSON object a line,
+to another kernel (the decode kernel sums in another order), and an
+fp32 launch where the trees' fp32 kernels differ; a bf16 training or
+prefill launch must not.  Prints one JSON object a line,
 the card's name and power limit first, and writes them to ``--out``.
 Needs a CUDA card; exits 1 without one.
 """
@@ -51,6 +54,8 @@ CASES = (
      (8, 8192, 4, 256), True, 50.0, 4096, 5000, 5001, None),
     ("train fp32", "float32", (4, 1024, 8, 64), (4, 1024, 8, 64),
      True, 0.0, 0, 0, None, None),
+    ("prefill cross VLM fp32", "float32", (2, 1024, 64, 128),
+     (2, 1600, 8, 128), False, 0.0, 0, 0, None, None),
     ("decode gemma2-2b global, phase 20", "bfloat16", (2, 1, 8, 256),
      (2, 6176, 4, 256), True, 50.0, 0, 6175, 6176, None),
     ("decode gemma2-2b local, phase 20", "bfloat16", (2, 1, 8, 256),
@@ -161,12 +166,13 @@ def main() -> int:
             for i in range(len(CASES))]
     lines.append(dict(
         same_bits_in_every_tree=all(same),
-        training_and_prefill_same_bits=all(
-            ok for ok, c in zip(same, CASES) if not decode_shaped(c)),
-        decode_cases_with_other_bits=[
-            c[0] for ok, c in zip(same, CASES) if not ok and decode_shaped(c)],
+        bf16_training_and_prefill_same_bits=all(
+            ok for ok, c in zip(same, CASES)
+            if not decode_shaped(c) and c[1] == "bfloat16"),
+        cases_with_other_bits=[c[0] for ok, c in zip(same, CASES) if not ok],
         note="decode-shaped launches may give other bits in two trees "
-             "where one takes the decode kernel; training and prefill "
+             "where one takes the decode kernel, fp32 ones where the "
+             "trees' fp32 kernels differ; bf16 training and prefill "
              "launches must not"))
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "w") as f:
