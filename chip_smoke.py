@@ -127,7 +127,21 @@
    keyless row ``o = 0``, ``lse = -inf`` bit for bit; every launch of Sq
    < 128 on the decode kernel; and the decode kernel's partial launches
    at G 1 and 48 over longer shards (many splits, keyless shards), both
-   dtypes at every ``TC_DIMS`` pair.
+   dtypes at every ``TC_DIMS`` pair.  Then the backward kernel
+   (``csrc/flash_bwd.cu``) against its plain version
+   ``ref.flash_attention_bwd`` on the forward kernel's ``o`` and
+   log-sum-exp: ``BWD_SYNTH`` at every ``TC_DIMS`` pair in both dtypes
+   (causal and not, cap, window, GQA 8/8 and 8/2, ragged ``Sq`` and
+   ``Sk``, ``Sq != Sk``) and ``BWD_CASES``, every training launch of the
+   path phases (TinyLlama's, on ``2x2x2`` too, gemma2-2b's local and
+   global at hd 256 with cap 50, deepseek's MLA with its strided ``v``,
+   whisper's encoder, decoder and cross, zamba2's) and two fp32 ones;
+   each launched twice with the same bits, one ``bwd_launches`` each,
+   fp32 within 1e-4, bf16 each gradient within 2e-2 of its largest; each
+   model case timed beside its bound (five products a visible pair:
+   ``flash_attn.flops_bwd``), the plain backward and SDPA's backward (the
+   gradient alone, its forward outside the timed window, KV heads
+   repeated, no cap).
 8. The wire dense reductions (``WIRE_RUNS``), at the reduction paths'
    model and size: on ``(2, 4)`` the default (the hierarchical schedule,
    rhd levels), ``reproducible=True`` (its fixed-tree variant),
@@ -159,7 +173,15 @@
    parameters (loss and gradient norm within 2e-2 relative: bf16).
    The kernel's line takes phase 7's figures at the path's launch, with
    ``scaled_dot_product_attention`` causal and unmasked as its library
-   yardstick (which the port never calls).
+   yardstick (which the port never calls).  Every ``phase_train`` run
+   (phases 9, 19, 22, 25, 27, 29, 31) also counts the backward kernel's
+   launches over its 5 steps (``bwd_launches``: one a call site of the
+   attention a step, 22 a TinyLlama step) and the plain backward's calls
+   (none), records each backward launch's signature (``path_bwd``, each
+   a ``BWD_CASES`` case) and prints its step time and peak beside the
+   step's with the plain attention backward (``PLAIN_BWD_STEPS``); the
+   comparison step at ``compare_layers`` patches the plain forward and
+   the plain backward in.
 10. The training step on the wire, the launcher's default
    (``WIRE_TRAIN_FLAGS``: the same flags without ``--transport innetwork
    --reproducible``), after the in-network run is freed: a warm-up step,
@@ -928,6 +950,32 @@ FLASH_MODEL_CASES = {k: flash_case(*v) for k, v in {
     "gemma2 global fp32": flash_case(2, 4096, 4096, *_GE, 0, 0, None,
                                      dtype="float32"),
     "deepseek fp32": flash_case(2, 4096, 4096, **_DS, dtype="float32")}
+#: phase 7's synthetic backward launches, each at every ``TC_DIMS`` pair
+#: in both dtypes: B, Sq, Sk, H, KV, causal, cap, window; lengths ragged
+#: against every tile of both backward kernels
+BWD_SYNTH = ((2, 300, 300, 8, 8, True, 0.0, 0),
+             (1, 300, 300, 8, 2, True, 30.0, 100),
+             (2, 200, 333, 8, 2, False, 0.0, 0),
+             (1, 333, 200, 8, 8, False, 50.0, 0),
+             (1, 257, 257, 8, 2, True, 0.0, 64))
+#: phase 7's backward cases: every training launch of the path phases
+#: (``path_bwd`` records them), the fp32 shape ``tools/flash_ab.py`` times
+#: and phase 31's fp32 TinyLlama on ``2x2x2``
+BWD_CASES = {name: FLASH_MODEL_CASES[name] for name in (
+    "tinyllama train", "tinyllama train 2x2x2", "gemma2 train local",
+    "gemma2 train global", "deepseek train", "whisper train encoder",
+    "whisper train decoder", "whisper train cross", "zamba2 train")} | {
+    "train fp32": flash_case(4, 1024, 1024, 8, 8, 64, dtype="float32"),
+    "tinyllama fp32 2x2x2": flash_case(8, 4096, 4096, 16, 2, 64,
+                                       dtype="float32")}
+#: each training phase's step ms and peak GiB with the plain attention
+#: backward, the last run before the backward kernel (PERF.md §5; an
+#: NVIDIA H100 80GB HBM3 at 700.00 W), printed beside this run's
+PLAIN_BWD_STEPS = {"phase 9": (4107.0, 45.03), "phase 10": (4070.3, 45.03),
+                   "int8": (4059.8, 45.03), "sparse": (4092.0, 45.03),
+                   "phase 19": (2518.7, 65.10), "phase 22": (1114.5, 59.43),
+                   "phase 25": (4625.2, 40.02), "phase 27": (3446.9, 29.20),
+                   "phase 29": (4684.0, 65.89), "phase 31": (2356.7, 42.05)}
 #: phase 7's synthetic decode-kernel launches over 2 KV heads, each at
 #: every ``TC_DIMS`` pair in both dtypes: G (query heads a KV head), Sq,
 #: Sk, q_offset, kv_len, causal, cap, window.  A ragged ``kv_len``, the
@@ -946,7 +994,8 @@ LAYERS = 4
 SOURCES = {"tree_reduce": "src/repro_torch/kernels/csrc/tree_reduce.cu",
            "quant": "src/repro_torch/kernels/csrc/quant.cu",
            "sparse": "src/repro_torch/kernels/csrc/sparse.cu",
-           "flash_attn": "src/repro_torch/kernels/csrc/flash_attn.cu"}
+           "flash_attn": "src/repro_torch/kernels/csrc/flash_attn.cu",
+           "flash_bwd": "src/repro_torch/kernels/csrc/flash_bwd.cu"}
 #: the pallas_call each kernel replaces
 REPLACES = {"tree_reduce_slots": "src/repro/kernels/tree_reduce.py:101",
             "tree_reduce": "src/repro/kernels/tree_reduce.py:56",
@@ -958,7 +1007,9 @@ REPLACES = {"tree_reduce_slots": "src/repro/kernels/tree_reduce.py:101",
             "sparse_accum": "src/repro/kernels/sparse_accum.py:67",
             "topk_compact": "src/repro/kernels/topk_compact.py:95",
             "flash_attention": "src/repro/kernels/flash_attn.py:86",
-            "flash_fwd_tf32_kernel": "src/repro/kernels/flash_attn.py:86"}
+            "flash_fwd_tf32_kernel": "src/repro/kernels/flash_attn.py:86",
+            # the reference has no backward kernel: XLA differentiates attend
+            "flash_attention_bwd": "src/repro/models/base.py:189"}
 QBLOCK = 256
 #: the sparse path's fractions: the root densifies at 0.01, the level-1
 #: switches at 0.05 (``density_threshold`` 0.25)
@@ -969,7 +1020,8 @@ SPARCML_K = 1
 KERNEL_NAME = re.compile(
     r"(tree_reduce|quantize|dequantize|dequant_accum|accum_sorted|"
     r"accum_scatter|zero|topk|flash_fwd_wgmma|flash_fwd_tf32|"
-    r"flash_decode_join|flash_decode)_kernel(<[^>]*>)?|"
+    r"flash_decode_join|flash_decode|flash_bwd_dot|flash_bwd_dkdv|"
+    r"flash_bwd_dq)_kernel(<[^>]*>)?|"
     r"\w*gemm\w*|"
     r"CatArrayBatchedCopy\w*|\w*(Sort|sort|TopK|topk|Select)\w*|"
     r"\w+_kernel_cuda|\w*Functor\w*(<\w+>)?")
@@ -1879,6 +1931,207 @@ def check_path_flash(torch) -> None:
           "against the plain version at every batch row")
 
 
+#: label → the set of ``flash_signature``s of the backward launches a
+#: training phase made
+PATH_BWD: dict = {}
+
+
+def path_bwd(label: str):
+    """Record the signature of every backward launch under ``label`` (the
+    kernel still launches)."""
+    from repro_torch.kernels import flash_attn as fa
+    seen = PATH_BWD.setdefault(label, set())
+    real = fa.attention_bwd
+
+    def record(q, k, v, o, lse, do, **kw):
+        seen.add(flash_signature(q, k, v, **kw))
+        return real(q, k, v, o, lse, do, **kw)
+    return mock.patch.object(fa, "attention_bwd", record)
+
+
+def check_path_bwd(torch) -> None:
+    """Every backward launch the training phases recorded has its phase-7
+    case in ``BWD_CASES``."""
+    cases = {flash_signature(*(torch.empty(shape, dtype=getattr(
+        torch, case["dtype"]), device="meta")
+        for shape in case_shapes(case)), **case_kw(torch, case))
+        for case in BWD_CASES.values()}
+    for label, seen in PATH_BWD.items():
+        missing = seen - cases
+        check(bool(seen) and not missing, f"{label}: backward launches "
+              f"{sorted(missing)} have no case in BWD_CASES")
+    print(f"every backward launch of {sorted(PATH_BWD)} is a phase-7 case "
+          f"({sum(map(len, PATH_BWD.values()))} shapes), held there against "
+          "the plain backward")
+
+
+@contextlib.contextmanager
+def counting_plain_bwd(calls: list):
+    """Append one to ``calls`` for every call of the plain attention
+    backward (``ref.flash_attention_bwd``); a training step on the card
+    makes none."""
+    from repro_torch.kernels import ref
+    real = ref.flash_attention_bwd
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    with mock.patch.object(ref, "flash_attention_bwd", counted):
+        yield
+
+
+def bwd_vs_plain(torch, fa, ref, q, k, v, o, lse, do, kw: dict,
+                 label: str) -> tuple:
+    """One backward launch ``(q, k, v, o, lse, do)`` against its plain
+    version on the same inputs: launched twice with the same bits, one
+    ``bwd_launches`` each; fp32 within 1e-4, bf16 each gradient within
+    2e-2 of its largest.  Returns the largest ``|kernel - plain|`` and the
+    largest plain gradient."""
+    before = fa.bwd_launches
+    got = fa.attention_bwd(q, k, v, o, lse, do, **kw)
+    again = fa.attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    check(fa.bwd_launches == before + 2, f"{label}: backward launches "
+          f"{fa.bwd_launches - before}, want 2")
+    check(all(same_bits(a, b) for a, b in zip(got, again)),
+          f"{label}: two backward launches differ")
+    del again
+    want = ref.flash_attention_bwd(q, k, v, lse, do, **kw)
+    worst = top = 0.0
+    for g, w, t, what in zip(got, want, (q, k, v), ("dq", "dk", "dv")):
+        check(g.shape == t.shape and g.dtype == w.dtype == t.dtype,
+              f"{label}: {what} {tuple(g.shape)} {g.dtype}")
+        err = float((g.float() - w.float()).abs().max())
+        big = float(w.float().abs().max())
+        bound = 1e-4 if q.dtype == torch.float32 else 2e-2 * big
+        check(err <= bound, f"{label}: {what} |kernel - plain| {err:.3e} > "
+              f"{bound:.3e}")
+        worst, top = max(worst, err), max(top, big)
+    return worst, top
+
+
+def sdpa_bwd_ms(torch, q, k, v, do, kw: dict):
+    """SDPA's backward on the same inputs, the gradient alone (its forward
+    outside the timed window): the KV heads repeated to the query heads,
+    ``is_causal`` where the window hides no key, else the boolean mask, no
+    cap (SDPA takes none).  ``None`` where SDPA refuses the shape."""
+    import torch.nn.functional as F
+    sq, h = q.shape[1], q.shape[2]
+    g = h // k.shape[2]
+    qt = q.detach().transpose(1, 2).requires_grad_()
+    kt, vt = (x.detach().repeat_interleave(g, dim=2).transpose(1, 2)
+              .requires_grad_() for x in (k, v))
+    win, mask = kw["window"], None
+    if kw["causal"] and win and sq - 1 >= win:
+        pos = torch.arange(sq, device="cuda")
+        kp = torch.arange(k.shape[1], device="cuda")
+        mask = ((kp[None] <= pos[:, None])
+                & (kp[None] > pos[:, None] - win))[None, None]
+    try:
+        out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=kw["scale"],
+            is_causal=kw["causal"] and mask is None)
+        dot = do.transpose(1, 2)
+        return cuda_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 3)
+    except RuntimeError as e:
+        print(f"SDPA's backward refused q {tuple(q.shape)} k "
+              f"{tuple(k.shape)} v {tuple(v.shape)}: {str(e)[:200]}")
+        return None
+
+
+def phase_flash_bwd(torch, fa, ref, card) -> dict:
+    """Phase 7's backward (module docstring, item 7): ``BWD_SYNTH`` at
+    every ``TC_DIMS`` pair in both dtypes, then ``BWD_CASES`` timed beside
+    their bound, the plain backward and SDPA's backward.  Returns each
+    model case's figures."""
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    t_phase = time.perf_counter()
+
+    def draw(shapes, dtype, v_in=None):
+        qs, ks, vs = shapes
+        q, k = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+                for s in (qs, ks))
+        if v_in:
+            v = torch.randn((*vs[:-1], v_in), generator=gen,
+                            device="cuda").to(dtype)[..., -vs[-1]:]
+        else:
+            v = torch.randn(vs, generator=gen, device="cuda").to(dtype)
+        do = torch.randn((*qs[:-1], vs[-1]), generator=gen,
+                         device="cuda").to(dtype)
+        return q, k, v, do
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype in worst:
+        for hd, vd in fa.TC_DIMS:
+            for b, sq, sk, h, kv, causal, cap, win in BWD_SYNTH:
+                q, k, v, do = draw(((b, sq, h, hd), (b, sk, kv, hd),
+                                    (b, sk, kv, vd)), dtype)
+                kw = dict(causal=causal, scale=hd ** -0.5, attn_cap=cap,
+                          window=win)
+                o, lse = fa.attention_fwd(q, k, v, **kw)
+                err, top = bwd_vs_plain(
+                    torch, fa, ref, q, k, v, o, lse, do, kw,
+                    f"backward {dtype} {(hd, vd)} {(b, sq, sk, h, kv)}")
+                worst[dtype] = max(worst[dtype], err / (
+                    1.0 if dtype == torch.float32 else top))
+    print(f"flash backward kernel vs plain: {len(BWD_SYNTH)} cases at "
+          f"{len(fa.TC_DIMS)} (hd, vd) pairs in fp32 and bf16, each twice "
+          f"the same bits; fp32 worst |kernel - plain| "
+          f"{worst[torch.float32]:.3e} (bound 1e-4), bf16 worst "
+          f"{worst[torch.bfloat16]:.3e} of the largest gradient (bound 2e-2)")
+    out = {}
+    for name, case in BWD_CASES.items():
+        dtype = getattr(torch, case["dtype"])
+        q, k, v, do = draw(case_shapes(case), dtype, case["v_in"])
+        kw = {key: val for key, val in case_kw(torch, case).items()
+              if key in ("causal", "scale", "attn_cap", "window")}
+        o, lse = fa.attention_fwd(q, k, v, **kw)
+        err, top = bwd_vs_plain(torch, fa, ref, q, k, v, o, lse, do, kw,
+                                f"backward {name}")
+        torch.cuda.empty_cache()
+        k_ms = cuda_ms(lambda: fa.attention_bwd(q, k, v, o, lse, do, **kw),
+                       5)
+        p_ms = cuda_ms(lambda: ref.flash_attention_bwd(q, k, v, lse, do,
+                                                       **kw), 1, warmup=1)
+        torch.cuda.empty_cache()
+        l_ms = sdpa_bwd_ms(torch, q, k, v, do, kw)
+        torch.cuda.empty_cache()
+        b, sq, h, hd = q.shape
+        flops = fa.flops_bwd(b, h, sq, k.shape[1], hd, causal=kw["causal"],
+                             window=kw["window"], vd=v.shape[-1])
+        nbytes = fa.bytes_moved_bwd(q, k, v)
+        if dtype == torch.float32:
+            ops_s = 3 * flops / TF32_FLOPS_PER_S
+            rate_txt = (f"3 x {flops} flops at "
+                        f"{TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s TF32")
+        else:
+            ops_s = flops / BF16_FLOPS_PER_S
+            rate_txt = (f"{flops} flops at {BF16_FLOPS_PER_S / 1e12:.0f} "
+                        "TFLOP/s")
+        by_ops = ops_s > nbytes / HBM_BYTES_PER_S
+        bound = max(ops_s, nbytes / HBM_BYTES_PER_S) * 1e3
+        print(f"flash_attention_bwd {name}: q {tuple(q.shape)} k "
+              f"{tuple(k.shape)} v {tuple(v.shape)}"
+              + (f" (a view, strides {v.stride()})" if case["v_in"] else "")
+              + f" {case['dtype']} {'causal' if kw['causal'] else 'not causal'}"
+              f" cap {kw['attn_cap']} window {kw['window']}: {k_ms:.4f} ms; "
+              f"bound {bound:.4f} ms by "
+              f"{'operations' if by_ops else 'bytes'} ({rate_txt}, {nbytes} "
+              f"bytes; {bound / k_ms:.1%} of the bound); plain {p_ms:.3f} ms;"
+              f" library SDPA backward (the gradient alone, KV heads "
+              f"repeated, no cap) "
+              + (f"{l_ms:.4f} ms" if l_ms is not None else "refused")
+              + f"; max |kernel - plain| {err:.3e} (largest plain gradient "
+              f"{top:.3e})  [{card}]")
+        out[name] = dict(ms=k_ms, bound_ms=bound, plain_ms=p_ms,
+                         library_ms=l_ms, max_abs_err=err)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    print(f"phase 7 backward: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return out
+
+
 def phase_flash_model_cases(torch, fa, ref, card) -> dict:
     """Phase 7's model-path cases (``FLASH_MODEL_CASES``): flash against
     its plain version at every batch row, one launch each (a decode-shaped
@@ -2083,17 +2336,25 @@ def phase_train(torch, card, total_mem, tr, flags=TRAIN_FLAGS,
         steps.append((time.perf_counter() - t) * 1e3)
 
     per_step = flash_per_call(run.cfg, "train")
+    # one backward a call site of the attention: its forward runs once more
+    # in the remat recompute, the backward once
+    per_bwd = flash_per_call(run.cfg, "prefill")
     with (path_flash(f"phase {phase}") if per_step
-          else contextlib.nullcontext()):
+          else contextlib.nullcontext()), \
+            (path_bwd(f"phase {phase}") if per_step
+             else contextlib.nullcontext()):
         one()                                  # warm-up
-    fa.launches = fa.tc_launches = tr.launches = 0
+    fa.launches = fa.tc_launches = fa.bwd_launches = tr.launches = 0
     drops: list = []
+    plain_bwd: list = []
     with (counting_drops(drops) if run.cfg.is_moe
-          else contextlib.nullcontext()):
+          else contextlib.nullcontext()), counting_plain_bwd(plain_bwd):
         for _ in range(5):
             one()
     torch.cuda.synchronize()
     launches, tc_launches, folds = fa.launches, fa.tc_launches, tr.launches
+    bwd = fa.bwd_launches
+    was_ms, was_peak = PLAIN_BWD_STEPS[f"phase {phase}"]
     peak = torch.cuda.max_memory_allocated()
     step_ms = statistics.median(steps[1:])
     print(f"training losses (warm-up, then steps 1-5): "
@@ -2103,10 +2364,13 @@ def phase_train(torch, card, total_mem, tr, flags=TRAIN_FLAGS,
           f"{[round(t, 1) for t in steps[1:]]}; warm-up {steps[0]:.1f}); "
           f"flash launches {launches} over 5 steps ({launches // 5} a step,"
           f" {per_step} by flash_per_call; {tc_launches} of them the "
-          f"tensor-core kernel's); "
+          f"tensor-core kernel's); backward kernel launches {bwd} "
+          f"({bwd // 5} a step), plain backward calls {len(plain_bwd)}; "
           f"tree_reduce_slots launches "
           f"{folds} ({folds // 5} a step); peak device memory "
-          f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}"
+          f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}; with the "
+          f"plain attention backward {was_ms:.1f} ms, peak {was_peak:.2f} "
+          "GiB (PERF.md)"
           + (f"; the MoE dropped {int(sum(d for d, _ in drops))} of "
              f"{sum(n for _, n in drops)} expert choices over "
              f"{len(drops)} router calls (forward and remat recompute; "
@@ -2118,6 +2382,9 @@ def phase_train(torch, card, total_mem, tr, flags=TRAIN_FLAGS,
           f"steps, want {5 * per_step} ({per_step} a step)")
     check(tc_launches == launches, f"{launches - tc_launches} of the step's "
           "flash launches missed the tensor-core kernel")
+    check(bwd == 5 * per_bwd and not plain_bwd, f"backward kernel launches "
+          f"{bwd} and plain backward calls {len(plain_bwd)} over 5 steps, "
+          f"want {5 * per_bwd} and none")
     check(folds > 0, "the step's reduction launched no tree_reduce_slots")
 
     phase_profile(torch, run.train_step, card, "one training step")
@@ -2168,12 +2435,17 @@ def phase_train(torch, card, total_mem, tr, flags=TRAIN_FLAGS,
         r = launch.setup(flags, **depth(compare_layers))
         if not plain:
             return r.train_step()
-        before = fa.launches
+        before = (fa.launches, fa.bwd_launches)
         with mock.patch.object(fa, "attention_fwd",
                                lambda q, k, v, **kw:
-                               ref.flash_attention_bshd(q, k, v, **kw)):
+                               ref.flash_attention_bshd(q, k, v, **kw)), \
+                mock.patch.object(fa, "attention_bwd",
+                                  lambda q, k, v, o, lse, do, **kw:
+                                  ref.flash_attention_bwd(q, k, v, lse, do,
+                                                          **kw)):
             m = r.train_step()
-        check(fa.launches == before, "the plain step launched the kernel")
+        check((fa.launches, fa.bwd_launches) == before,
+              "the plain step launched a kernel")
         return m
     km, pm = compare_step(False), compare_step(True)
     torch.cuda.synchronize()
@@ -2190,7 +2462,8 @@ def phase_train(torch, card, total_mem, tr, flags=TRAIN_FLAGS,
     print(f"phase {phase}: phase {time.perf_counter() - t_phase:.1f} s "
           f"({card})")
     return {"launches": launches, "folds": folds, "step_ms": step_ms,
-            "peak": peak, "loss1": losses[0], "norm1": norms[0]}
+            "peak": peak, "loss1": losses[0], "norm1": norms[0],
+            "bwd_launches": bwd}
 
 
 def phase_wire_reductions(torch, card, total_mem, cfg, seed) -> None:
@@ -2315,12 +2588,14 @@ def phase_wire_train(torch, card, total_mem, innet: dict) -> dict:
 
     one()                                      # warm-up: step 1
     hier = Capture(coll, "hierarchical_allreduce", keep=0)
-    fa.launches = fa.tc_launches = 0
-    with hier.patch():
+    fa.launches = fa.tc_launches = fa.bwd_launches = 0
+    plain_bwd: list = []
+    with hier.patch(), counting_plain_bwd(plain_bwd):
         for _ in range(WIRE_STEPS):
             one()
     torch.cuda.synchronize()
-    launches, tc_launches = fa.launches, fa.tc_launches
+    launches, tc_launches, bwd = fa.launches, fa.tc_launches, fa.bwd_launches
+    was_ms, was_peak = PLAIN_BWD_STEPS["phase 10"]
     peak = torch.cuda.max_memory_allocated()
     step_ms = statistics.median(steps[1:])
     print(f"wire training ({' '.join(WIRE_TRAIN_FLAGS)}, {TRAIN_LAYERS} "
@@ -2330,9 +2605,12 @@ def phase_wire_train(torch, card, total_mem, innet: dict) -> dict:
     print(f"wire training step ms (median of {WIRE_STEPS}, {card}): "
           f"{step_ms:.1f} (runs {[round(t, 1) for t in steps[1:]]}; warm-up "
           f"{steps[0]:.1f}); flash launches {launches} over {WIRE_STEPS} "
-          f"steps, {tc_launches} of them the tensor-core kernel's; "
+          f"steps, {tc_launches} of them the tensor-core kernel's; backward "
+          f"kernel launches {bwd}, plain backward calls {len(plain_bwd)}; "
           f"hierarchical_allreduce calls {hier.calls}; peak device memory "
-          f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}")
+          f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}; with the "
+          f"plain attention backward {was_ms:.1f} ms, peak {was_peak:.2f} "
+          "GiB (PERF.md)")
     check(all(map(math.isfinite, losses)), f"a loss is not finite: {losses}")
     check(losses[-1] < losses[0], f"the last loss {losses[-1]} is not below "
           f"step 1's {losses[0]}")
@@ -2341,6 +2619,10 @@ def phase_wire_train(torch, card, total_mem, innet: dict) -> dict:
           f"flash launches {launches} ({tc_launches} tensor-core) over "
           f"{WIRE_STEPS} steps, want {2 * TRAIN_LAYERS} a step, all on the "
           "tensor cores")
+    check(bwd == WIRE_STEPS * TRAIN_LAYERS and not plain_bwd,
+          f"backward kernel launches {bwd} and plain backward calls "
+          f"{len(plain_bwd)} over {WIRE_STEPS} steps, want "
+          f"{TRAIN_LAYERS} a step and none")
     check(hier.calls >= WIRE_STEPS, "the norms missed the hierarchical "
           "schedule")
     rel = abs(norms[0] - innet["norm1"]) / innet["norm1"]
@@ -2409,15 +2691,19 @@ def phase_lossy_train(torch, card, total_mem, dense: dict) -> None:
             steps.append((time.perf_counter() - t0) * 1e3)
 
         one()                                  # warm-up: step 1
-        fa.launches = fa.tc_launches = qt.wire_launches = 0
+        fa.launches = fa.tc_launches = fa.bwd_launches = 0
+        qt.wire_launches = 0
         for k in qt.launches:
             qt.launches[k] = 0
         for k in sa.launches:
             sa.launches[k] = 0
-        for _ in range(LOSSY_STEPS):
-            one()
+        plain_bwd: list = []
+        with counting_plain_bwd(plain_bwd):
+            for _ in range(LOSSY_STEPS):
+                one()
         torch.cuda.synchronize()
         launches, tc_launches = fa.launches, fa.tc_launches
+        bwd = fa.bwd_launches
         kernels = {k: v // LOSSY_STEPS for k, v in dict(
             qt.launches, wire_order=qt.wire_launches, **sa.launches).items()
             if v}
@@ -2431,7 +2717,10 @@ def phase_lossy_train(torch, card, total_mem, dense: dict) -> None:
               f"{LOSSY_STEPS}, {card}): {statistics.median(steps[1:]):.1f} "
               f"(runs {[round(x, 1) for x in steps[1:]]}; warm-up "
               f"{steps[0]:.1f}); flash launches {launches} over "
-              f"{LOSSY_STEPS} steps ({tc_launches} tensor-core); reduction "
+              f"{LOSSY_STEPS} steps ({tc_launches} tensor-core), backward "
+              f"kernel launches {bwd}, plain backward calls "
+              f"{len(plain_bwd)}; with the plain attention backward "
+              f"{PLAIN_BWD_STEPS[name][0]:.1f} ms; reduction "
               f"kernels a step {kernels}; opt['ef'] "
               f"{[tuple(e.shape) for e in ef]}; peak device memory "
               f"{peak / 2**30:.2f} GiB of {total_mem / 2**30:.1f}; step 1 "
@@ -2445,6 +2734,9 @@ def phase_lossy_train(torch, card, total_mem, dense: dict) -> None:
               and tc_launches == launches, f"--{name}: flash launches "
               f"{launches} ({tc_launches} tensor-core) over {LOSSY_STEPS} "
               "steps")
+        check(bwd == LOSSY_STEPS * TRAIN_LAYERS and not plain_bwd,
+              f"--{name}: backward kernel launches {bwd} and plain backward "
+              f"calls {len(plain_bwd)} over {LOSSY_STEPS} steps")
         check(len(ef) == 3, f"--{name}: opt['ef'] holds {len(ef)} leaves")
         check(kernels.get("wire_order" if name == "int8"
                           else "sparse_accum_slots", 0) > 0,
@@ -5795,13 +6087,15 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     total_mem = torch.cuda.get_device_properties(0).total_memory
 
-    phase_build(kb, [tr.SOURCE, qt.SOURCE, sa.SOURCE, fa.SOURCE])
+    phase_build(kb, [tr.SOURCE, qt.SOURCE, sa.SOURCE, fa.SOURCE,
+                     fa.BWD_SOURCE])
     phase_kernel_vs_plain(torch, ops)
     phase_quant_vs_plain(torch, ops, qt)
     phase_sparse_vs_plain(torch, ops, tk, sa, sparse)
     phase_flash_vs_plain(torch, ops, ref, fa, base)
     flash_cases = phase_flash_model_cases(torch, fa, ref, card)
     phase_flash_partial_vs_plain(torch, ref, fa)
+    bwd_cases = phase_flash_bwd(torch, fa, ref, card)
 
     # -- the dense main path: (2, 4) mesh, full width -----------------------
     cfg = tl.CONFIG.scaled(n_layers=LAYERS)
@@ -6486,6 +6780,11 @@ def main() -> int:
     sharded = phase_sharded_serve(torch, card, args.seed)
     gemma_sharded = phase_gemma_sharded(torch, card, args.seed)
     check_path_flash(torch)
+    check_path_bwd(torch)
+    # the backward kernel: its launches those of phase 9's 5 steps, its
+    # figures phase 7's at the path's launch, against SDPA's backward
+    launches["flash_attention_bwd"] = trained["bwd_launches"]
+    figures["flash_attention_bwd"] = bwd_cases["tinyllama train"]
     launches["flash_attention"] = (trained["launches"] + sharded["partial"]
                                    + gemma_sharded["partial"])
     figures["flash_attention"] = flash_figures(
@@ -6508,14 +6807,19 @@ def main() -> int:
           "phases 35-36's sharded decode steps; flash_fwd_tf32_kernel (the "
           "fp32 flash forward, three TF32 products on the tensor cores) is "
           "one launch at the VLM's cross prefill, its launches those of "
-          "the VLM's serving run, its library call SDPA in fp32")
+          "the VLM's serving run, its library call SDPA in fp32; "
+          "flash_attention_bwd (the backward of the training launches, "
+          "which replaces XLA's autodiff of the reference's attend) is one "
+          "backward at the training path's shape, its launches those of "
+          "phase 9's 5 steps, its library call SDPA's backward")
     routes = [("tree_reduce_slots", "tree_reduce"),
               ("tree_reduce", "tree_reduce"), ("quantize", "quant"),
               ("dequantize", "quant"), ("dequant_accum_slots", "quant"),
               ("dequant_accum", "quant"), ("sparse_accum_slots", "sparse"),
               ("sparse_accum", "sparse"), ("topk_compact", "sparse"),
               ("flash_attention", "flash_attn"),
-              ("flash_fwd_tf32_kernel", "flash_attn")]
+              ("flash_fwd_tf32_kernel", "flash_attn"),
+              ("flash_attention_bwd", "flash_bwd")]
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=SOURCES[src],
         replaces=REPLACES[name], launches=launches[name],

@@ -45,13 +45,20 @@ kernel's.
 
 ``FlashAttention`` is the ``torch.autograd.Function`` around it.  The
 JAX package has no backward kernel (its training path differentiates
-the attention through XLA), so the backward is the plain PyTorch
-``ref.flash_attention_bwd``: it recomputes the probabilities from the
-saved log-sum-exp one chunk of query rows at a time.
+the attention through XLA); the port's backward is a kernel of its own,
+``csrc/flash_bwd.cu`` (:func:`attention_bwd`): a pass for ``D = Σ dO·O``,
+a dK/dV kernel (one block a KV head and tile of keys, looping over the
+group's heads and the query tiles that see them) and a dQ kernel (one
+block a head and tile of query rows), both recomputing the
+probabilities from the forward's saved log-sum-exp on the tensor cores
+(bf16 ``mma.sync``, fp32 in three TF32 products), without atomics, at
+every ``TC_DIMS`` pair.  ``bwd_launches`` counts its launches (one a
+backward).  Its plain version is ``ref.flash_attention_bwd``, which the
+tests and ``chip_smoke.py`` hold it against.
 
-The source is compiled with ``nvcc`` for ``sm_90a`` at first use into
+The sources are compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/`` beside this file and loaded with ``ctypes`` (``build.py``);
-the kernel launches on PyTorch's current stream.  Nothing is built when
+the kernels launch on PyTorch's current stream.  Nothing is built when
 this module is imported.  The plain version of the forward is
 ``ref.flash_attention_bshd``; ``ops`` picks between them by device.
 """
@@ -67,6 +74,7 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref as _ref
 
 SOURCE = _build.CSRC / "flash_attn.cu"
+BWD_SOURCE = _build.CSRC / "flash_bwd.cu"
 
 #: dtype codes of the C entry point
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -97,6 +105,9 @@ fp32_launches = 0
 partial_launches = 0
 #: The decode kernel's launches alone (a launch with a join counts once).
 decode_launches = 0
+#: The backward's launches (its three kernels count once), counted apart
+#: from ``launches``, which counts forward launches only.
+bwd_launches = 0
 
 
 @functools.cache
@@ -117,6 +128,17 @@ def _decode_entry():
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_int, ctypes.c_float]
                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_entry():
+    fn = _build.load(BWD_SOURCE).flash_attn_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                      ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -255,6 +277,29 @@ def bytes_moved(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = rows * sq * h * v.shape[-1] * q.element_size()
     return (q.numel() * q.element_size() + per_key * keys // len(bases)
             + out + 4 * rows * h * sq)
+
+
+def flops_bwd(b: int, h: int, sq: int, sk: int, hd: int, *, causal: bool,
+              window: int = 0, vd: int | None = None) -> int:
+    """Flops one backward launch needs: five products for every visible
+    (query, key) pair of a training launch (``S``, ``dP``, ``dV``, ``dK``,
+    ``dQ``), ``2·(3·hd + 2·vd)``; the kernel's dQ pass recomputes ``S``
+    and ``dP``, which is not counted."""
+    vd = hd if vd is None else vd
+    pairs = int(_spans(sq, sk, causal=causal, window=window, q_offset=0,
+                       kv_len=None).sum())
+    return 2 * (3 * hd + 2 * vd) * pairs * b * h
+
+
+def bytes_moved_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                    ) -> int:
+    """Bytes one backward launch must move: q, k, v, the output and its
+    gradient (both ``(B, Sq, H, vd)`` in q's dtype) and the fp32
+    log-sum-exp read once, dq, dk and dv written once."""
+    b, sq, h, _ = q.shape
+    ins = sum(t.numel() * t.element_size() for t in (q, k, v))
+    out = 2 * b * sq * h * v.shape[-1] * q.element_size()
+    return 2 * ins + out + 4 * b * h * sq
 
 
 def rows_see_a_key(sq: int, sk: int, *, causal: bool, window: int,
@@ -426,23 +471,113 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o, lse
 
 
+def _packed(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the backward kernel reads it: the last dim contiguous, the
+    base 16-byte aligned and each stepped stride a multiple of 16 bytes;
+    a copy where ``t`` is not (an expanded or oddly strided gradient)."""
+    per16 = 16 // t.element_size()
+    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+          and all(st % per16 == 0 for n, st in zip(t.shape[:-1], t.stride())
+                  if n > 1))
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                  causal: bool, scale: float, attn_cap: float, window: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernels → ``(dq, dk, dv)`` of a training launch
+    of :func:`attention_fwd` (no ``q_offset``, ``kv_len`` or ``shards``).
+
+    ``q`` ``(B, Sq, H, hd)``, ``k`` ``(B, Sk, KV, hd)``, ``v`` ``(B, Sk,
+    KV, vd)``, the forward's output ``o`` and its gradient ``do`` ``(B, Sq,
+    H, vd)``, CUDA tensors of one dtype at ``(hd, vd)`` in ``TC_DIMS``;
+    ``lse`` the forward's ``(B, H, Sq)`` fp32.  The gradients come back
+    contiguous in that dtype, ``dk`` and ``dv`` summed over each KV head's
+    query heads, all accumulated in fp32.  A tensor the kernels cannot
+    read where it lies (the last dim not contiguous, a base or a stride
+    off 16 bytes) is copied first; MLA's strided ``v`` is read in place.
+    Anything else raises, as does a mask under which a row sees no key.
+    """
+    global bwd_launches
+    ts = (q, k, v, o, do)
+    if any(t.device.type != "cuda" for t in (*ts, lse)):
+        raise ValueError(f"flash_attention backward kernel needs CUDA "
+                         f"tensors, got {[str(t.device) for t in ts]}")
+    if len({t.device for t in (*ts, lse)}) != 1:
+        raise ValueError("flash_attention backward kernel: tensors on "
+                         "different devices")
+    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in ts) \
+            or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention backward kernel: dtypes "
+                         f"{[t.dtype for t in ts]} lse {lse.dtype}; wants "
+                         f"one of {list(DTYPES)} and fp32 lse")
+    if any(t.dim() != 4 for t in ts):
+        raise ValueError(f"flash_attention backward kernel wants 4-D "
+                         f"tensors, got {[tuple(t.shape) for t in ts]}")
+    b, sq, h, hd = q.shape
+    sk, kv, vd = k.shape[1], k.shape[2], v.shape[-1]
+    if (k.shape != (b, sk, kv, hd) or v.shape[:3] != (b, sk, kv) or h % kv
+            or o.shape != (b, sq, h, vd) or do.shape != o.shape
+            or lse.shape != (b, h, sq)):
+        raise ValueError(f"flash_attention backward kernel: q "
+                         f"{tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} o {tuple(o.shape)} do "
+                         f"{tuple(do.shape)} lse {tuple(lse.shape)} do not "
+                         f"match (H % KV == 0)")
+    if (hd, vd) not in TC_DIMS:
+        raise ValueError(f"flash_attention backward kernel: (hd, vd) = "
+                         f"{(hd, vd)} not in {TC_DIMS}")
+    if not rows_see_a_key(sq, sk, causal=causal, window=window, q_offset=0,
+                          kv_len=sk):
+        raise ValueError(f"flash_attention backward kernel: window "
+                         f"{window} leaves a query row of {tuple(q.shape)} "
+                         f"without a key of {tuple(k.shape)}")
+    if sq > 65535 * 64 or sk > 65535 * 32:
+        raise ValueError(f"flash_attention backward kernel: too long "
+                         f"{tuple(q.shape)} {tuple(k.shape)}")
+    ts = tuple(_packed(t) for t in ts)
+    lse = lse.contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    dd = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 15)(*(
+        st if n > 1 else 0 for t in ts
+        for n, st in zip(t.shape[:3], t.stride()[:3])))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _bwd_entry()(
+            *(t.data_ptr() for t in ts), lse.data_ptr(), dd.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), DTYPES[q.dtype],
+            hd, vd, b, h, kv, sq, sk, strides, float(scale),
+            int(bool(causal)), float(attn_cap), int(window), stream)
+    if err:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: "
+                           f"cudaError {err} for q {tuple(q.shape)} k "
+                           f"{tuple(k.shape)} v {tuple(v.shape)} {q.dtype}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
 class FlashAttention(torch.autograd.Function):
-    """Attention whose forward is the kernel and whose backward is the
-    plain chunked recompute from the saved log-sum-exp."""
+    """Attention whose forward and backward are kernels: the backward
+    recomputes the probabilities from the saved log-sum-exp
+    (:func:`attention_bwd`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, attn_cap, window):
         o, lse = attention_fwd(q, k, v, causal=causal, scale=scale,
                                attn_cap=attn_cap, window=window)
-        ctx.save_for_backward(q, k, v, lse)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = (causal, scale, attn_cap, window)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, lse = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         causal, scale, attn_cap, window = ctx.opts
-        dq, dk, dv = _ref.flash_attention_bwd(
-            q, k, v, lse, do, causal=causal, scale=scale, attn_cap=attn_cap,
-            window=window)
+        dq, dk, dv = attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   scale=scale, attn_cap=attn_cap,
+                                   window=window)
         return dq, dk, dv, None, None, None, None

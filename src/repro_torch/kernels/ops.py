@@ -414,7 +414,7 @@ def blockwise_sparsify(x: torch.Tensor, k: int, block: int = 512
 # ``flash_attention``.  ``attention`` takes the model's ``(B, S, H, hd)``
 # layout with GQA; ``flash_attention`` keeps the TPU kernel's ``(BH, S,
 # hd)`` signature.  On the card both run the kernel under an autograd
-# Function whose backward is the plain chunked recompute.
+# Function whose backward is a kernel too (``csrc/flash_bwd.cu``).
 # ---------------------------------------------------------------------------
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -541,28 +541,36 @@ def _meta_attention_fwd(q, k, v, *, causal, scale, attn_cap, window,
 
 
 class _MetaFlash(_fa.FlashAttention):
-    """``FlashAttention`` with the ``meta`` branch's forward; its
-    backward is the card's, the plain chunked recompute, traced once a
-    shape (``step_analysis.repeat``): on ``meta`` its loop over query
-    chunks is most of a layer's tracing time."""
+    """``FlashAttention`` with the ``meta`` branch's forward and backward:
+    the backward counts the card's backward kernel (its outputs, bytes
+    and flops, ``flash_attn.flops_bwd``) and refuses what it refuses."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, attn_cap, window):
         o, lse = _meta_attention_fwd(q, k, v, causal=causal, scale=scale,
                                      attn_cap=attn_cap, window=window)
-        ctx.save_for_backward(q, k, v, lse)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = (causal, scale, attn_cap, window)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        ts = (*ctx.saved_tensors, do)
-        causal, scale, attn_cap, window = ctx.opts
-        key = ("flash_attention_bwd", ctx.opts,
-               *((t.shape, t.stride(), t.dtype) for t in ts))
-        dq, dk, dv = _sa_count.repeat(key, lambda *a: _ref.flash_attention_bwd(
-            *a, causal=causal, scale=scale, attn_cap=attn_cap,
-            window=window), *ts)
+        q, k, v, _, _ = ctx.saved_tensors
+        causal, _, _, window = ctx.opts
+        b, sq, h, hd = q.shape
+        sk = k.shape[1]
+        if not _fa.rows_see_a_key(sq, sk, causal=causal, window=window,
+                                  q_offset=0, kv_len=sk):
+            raise ValueError(f"flash_attention backward kernel: window "
+                             f"{window} leaves a query row of "
+                             f"{tuple(q.shape)} without a key")
+        dq, dk, dv = _meta_launch(
+            "flash_attention_bwd", (q.new_empty(q.shape),
+                                    k.new_empty(k.shape),
+                                    v.new_empty(v.shape)),
+            _fa.bytes_moved_bwd(q, k, v),
+            _fa.flops_bwd(b, h, sq, sk, hd, causal=causal, window=window,
+                          vd=v.shape[-1]))
         return dq, dk, dv, None, None, None, None
 
 

@@ -6,11 +6,7 @@ against, bit for bit.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
-
-from repro_torch.launch.step_analysis import repeat as _repeat
 
 
 def tree_reduce(x: torch.Tensor, accum_dtype: torch.dtype = torch.float32,
@@ -504,8 +500,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the keys those rows can see; dK and dV accumulate in fp32.  The
     softmax's own backward, ``ds = p·(dp − Σ p·dp)``, is taken over the
     whole row, as the reference's autodiff of ``softmax`` does; masked
-    scores get no gradient.  Each block is :func:`_bwd_block`, traced
-    once a shape by the dry-run (``step_analysis.repeat``).
+    scores get no gradient.  Each block is :func:`_bwd_block`.  The
+    card's ``csrc/flash_bwd.cu`` computes the same function; this is its
+    plain version, which the tests and ``chip_smoke.py`` hold it against.
     """
     b, sq, h, hd = q.shape
     sk, kv, vd = k.shape[1], k.shape[2], v.shape[-1]
@@ -523,12 +520,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 hi = i1
                 if window > 0:
                     lo = max(0, i0 - window + 1)
-            blk = (q[b0:b1, i0:i1], k[b0:b1, lo:hi], v[b0:b1, lo:hi],
-                   lse[b0:b1, :, i0:i1], do[b0:b1, i0:i1])
-            key = ("flash_bwd_block", tuple(opts.items()), i0 - lo,
-                   *((t.shape, t.stride(), t.dtype) for t in blk))
-            dq_c, dk_c, dv_c = _repeat(key, functools.partial(
-                _bwd_block, i0=i0, lo=lo, **opts), *blk)
+            dq_c, dk_c, dv_c = _bwd_block(
+                q[b0:b1, i0:i1], k[b0:b1, lo:hi], v[b0:b1, lo:hi],
+                lse[b0:b1, :, i0:i1], do[b0:b1, i0:i1], i0=i0, lo=lo, **opts)
             dv[b0:b1, lo:hi] += dv_c
             dq[b0:b1, i0:i1] = dq_c
             dk[b0:b1, lo:hi] += dk_c

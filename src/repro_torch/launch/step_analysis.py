@@ -206,7 +206,6 @@ class _Counter:
         self.live = [0, 0]
         self.tracked: set = set()
         self.flops = FlopCounterMode(display=False)
-        self.memo: dict = {}
         counter = self
 
         class Counting(TorchDispatchMode):
@@ -244,51 +243,6 @@ class _Counter:
                 self.live[1] = max(self.live[1], self.live[0])
                 weakref.finalize(st, self._release, sid, n)
 
-    def _figures(self) -> tuple:
-        st = self.stats
-        return (self.flops.get_total_flops() + st.flops, st.bytes_written,
-                dict(st.bytes_by_shape))
-
-
-_COUNTERS: list = []
-
-
-def repeat(key: Any, fn: Callable, *args) -> tuple:
-    """``fn(*args)`` for a call whose work is a function of ``key`` alone
-    (its shapes, dtypes and options): inside :func:`analyze` the first
-    call with a ``key`` is traced, and each later one adds the first's
-    flops, bytes and peak above its start and returns new tensors of its
-    outputs' shapes, strides and dtypes without running ``fn`` (every
-    layer of a stack makes the same calls).  ``fn`` returns a tuple of
-    tensors and makes no collective.  Outside :func:`analyze`, just
-    ``fn(*args)``."""
-    if not _COUNTERS:
-        return fn(*args)
-    c = _COUNTERS[-1]
-    st = c.stats
-    start = c.live[0]
-    if key not in c.memo:
-        before, peak = c._figures(), c.live[1]
-        c.live[1] = start
-        out = fn(*args)
-        after = c._figures()
-        shapes = {k: v - before[2].get(k, 0.0) for k, v in after[2].items()
-                  if v != before[2].get(k, 0.0)}
-        c.memo[key] = (after[0] - before[0], after[1] - before[1], shapes,
-                       c.live[1] - start,
-                       [(t.shape, t.stride(), t.dtype) for t in out])
-        c.live[1] = max(peak, c.live[1])
-        return out
-    flops, written, shapes, above, metas = c.memo[key]
-    st.flops += flops
-    st.bytes_written += written
-    for k, v in shapes.items():
-        st.bytes_by_shape[k] = st.bytes_by_shape.get(k, 0.0) + v
-    c.live[1] = max(c.live[1], start + above)
-    dev = _tensors(args)[0].device
-    return tuple(torch.empty_strided(shape, stride, dtype=dtype, device=dev)
-                 for shape, stride, dtype in metas)
-
 
 def analyze(fn: Callable, *args, **kwargs) -> tuple[StepStats, Any]:
     """Run ``fn(*args, **kwargs)`` once under the counters; returns its
@@ -298,13 +252,11 @@ def analyze(fn: Callable, *args, **kwargs) -> tuple[StepStats, Any]:
     stats.argument_bytes = float(sum(held.values()))
     c = _Counter(stats, held)
     _ACTIVE.append(stats)
-    _COUNTERS.append(c)
     try:
         with c.flops, c.mode:
             out = fn(*args, **kwargs)
     finally:
         _ACTIVE.pop()
-        _COUNTERS.pop()
     stats.flops += c.flops.get_total_flops()
     stats.output_bytes = float(sum(_storages(_tensors(out)).values()))
     stats.peak_bytes = stats.argument_bytes + c.live[1]

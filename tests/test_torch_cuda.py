@@ -20,8 +20,13 @@ version: fp32 outputs (the 3xTF32 kernel, the decode kernel) are held
 at ``atol = 3e-5`` (the reference's own tolerance for it), bf16 outputs
 (the tensor-core kernel, the decode kernel) to one bf16 ulp of the plain
 version computed from the same bf16 inputs, plus the fp32 sums' rounding
-floor where an output nearly cancels.
+floor where an output nearly cancels.  The backward kernel rounds its
+probabilities and their gradients to bf16 as product operands: its bf16
+gradients are held within 2e-2 of each one's largest, its fp32 ones (three
+TF32 products a product) within 1e-4.
 """
+from unittest import mock
+
 import pytest
 import torch
 
@@ -616,10 +621,12 @@ def test_flash_kernel_lse_and_public_signature_on_cuda(cuda):
 
 @pytest.mark.cuda
 def test_flash_function_gradient_matches_plain_autograd_on_cuda(cuda):
-    """The kernel's autograd Function (plain chunked backward) against
-    autograd through the plain forward, fp32, GQA 4/2."""
+    """The kernel's autograd Function (the backward kernel,
+    ``csrc/flash_bwd.cu``, one launch a backward) against autograd
+    through the plain forward, fp32, GQA 4/2."""
     for causal, cap, win in ((True, 0.0, 0), (True, 30.0, 50),
                              (False, 0.0, 0)):
+        before = fa.bwd_launches
         q = torch.randn((2, 300, 4, 64), generator=cuda, device="cuda")
         k, v = (torch.randn((2, 300, 2, 64), generator=cuda, device="cuda")
                 for _ in range(2))
@@ -631,6 +638,7 @@ def test_flash_function_gradient_matches_plain_autograd_on_cuda(cuda):
         pout, _ = ref.flash_attention_bshd(*pins, causal=causal,
                                            attn_cap=cap, window=win)
         want = torch.autograd.grad(pout, pins, do)
+        assert fa.bwd_launches == before + 1
         for g, w in zip(got, want):
             assert float((g - w).abs().max()) <= 1e-4
 
@@ -643,8 +651,8 @@ def test_flash_function_gradient_at_sq_ne_sk_matches_plain_autograd_on_cuda(
         cuda, sq, sk, h, kv, dtype):
     """Non-causal attention with ``Sq != Sk`` under training, as
     whisper's cross-attention runs it (its decoder queries over 1500
-    encoder keys): the kernel's autograd Function (plain chunked
-    backward) against autograd through the plain forward.  Neither 300
+    encoder keys): the kernel's autograd Function (the backward kernel)
+    against autograd through the plain forward.  Neither 300
     nor 1500 is a multiple of the kernel's 128-row query block or its key
     tile, so both ragged tails are live.  fp32 at GQA 4/2 within 1e-4 (the
     sibling's bound); bf16 on the tensor-core kernel at whisper's 16
@@ -654,12 +662,12 @@ def test_flash_function_gradient_at_sq_ne_sk_matches_plain_autograd_on_cuda(
     k, v = (torch.randn((2, sk, kv, 64), generator=cuda, device="cuda")
             .to(dt) for _ in range(2))
     do = torch.randn((2, sq, h, 64), generator=cuda, device="cuda").to(dt)
-    before = (fa.launches, fa.tc_launches)
+    before = (fa.launches, fa.tc_launches, fa.bwd_launches)
     ins = [t.clone().requires_grad_() for t in (q, k, v)]
     out = ops.attention(*ins, causal=False)
     got = torch.autograd.grad(out, ins, do)
-    assert (fa.launches - before[0], fa.tc_launches - before[1]) == (
-        1, int(dt == torch.bfloat16))
+    assert (fa.launches - before[0], fa.tc_launches - before[1],
+            fa.bwd_launches - before[2]) == (1, int(dt == torch.bfloat16), 1)
     pins = [t.clone().requires_grad_() for t in (q, k, v)]
     pout, _ = ref.flash_attention_bshd(*pins, causal=False)
     want = torch.autograd.grad(pout, pins, do)
@@ -834,10 +842,12 @@ def test_flash_mla_strided_value_view_on_cuda(cuda):
 def test_flash_function_gradient_at_mla_dims_on_cuda(cuda):
     """``FlashAttention`` at (192, 128), MLA's strided ``v`` and the rope
     key broadcast over the heads: the gradients of q, the up-projection
-    and the shared rope key (summed over the 16 heads) against autograd
-    through the plain forward from the same bf16 inputs, within 2e-2 of
-    each one's largest (the kernel's forward is within a bf16 ulp of the
-    plain one, and the gradients reach the fp32 leaves through bf16)."""
+    and the shared rope key (summed over the 16 heads), through the
+    forward and backward kernels (``v`` read where it lies), against
+    autograd through the plain forward from the same bf16 inputs, within
+    2e-2 of each one's largest (the kernel's forward is within a bf16 ulp
+    of the plain one, its backward rounds P and dS to bf16, and the
+    gradients reach the fp32 leaves through bf16)."""
     q, k, v = _mla_qkv(cuda, 2, 256)
     do = torch.randn((2, 256, 16, 128), generator=cuda, device="cuda"
                      ).bfloat16()
@@ -856,6 +866,83 @@ def test_flash_function_gradient_at_mla_dims_on_cuda(cuda):
         grads.append(torch.autograd.grad(out, (qq, ukv, k_r), do))
     for g, w in zip(*grads):
         assert float((g - w).abs().max()) <= 2e-2 * float(w.abs().max())
+
+
+#: the backward kernel's cases: B, Sq, Sk, H, KV, causal, cap, window;
+#: lengths ragged against every tile (the dK/dV kernel's 32 or 64 keys and
+#: 32 or 64 query rows, the dQ kernel's 64 or 128 rows and 16-64 keys)
+_BWD_CASES = ((2, 300, 300, 8, 8, True, 0.0, 0),
+              (1, 300, 300, 8, 2, True, 30.0, 100),
+              (2, 200, 333, 8, 2, False, 0.0, 0),
+              (1, 333, 200, 8, 8, False, 50.0, 0),
+              (1, 257, 257, 8, 2, True, 0.0, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims", fa.TC_DIMS, ids=str)
+def test_flash_backward_kernel_matches_plain_on_cuda(cuda, dtype, dims):
+    """The backward kernel (``csrc/flash_bwd.cu``) at every ``TC_DIMS``
+    pair against its plain version ``ref.flash_attention_bwd`` on the same
+    inputs and the forward kernel's ``o`` and log-sum-exp: causal and
+    not, cap and window, GQA 8/8 and 8/2, ragged ``Sq`` and ``Sk``, ``Sq
+    != Sk``.  fp32 within 1e-4, bf16 each gradient within 2e-2 of its
+    largest (the bounds of the gradient tests above).  Each launch twice
+    with the same bits, ``bwd_launches`` up by one a launch, the plain
+    version never called; and through the autograd Function the same
+    bits again, one launch a backward."""
+    hd, vd = dims
+    dt = getattr(torch, dtype)
+    for b, sq, sk, h, kv, causal, cap, win in _BWD_CASES:
+        q = torch.randn((b, sq, h, hd), generator=cuda, device="cuda").to(dt)
+        k = torch.randn((b, sk, kv, hd), generator=cuda, device="cuda").to(dt)
+        v = torch.randn((b, sk, kv, vd), generator=cuda, device="cuda").to(dt)
+        do = torch.randn((b, sq, h, vd), generator=cuda, device="cuda").to(dt)
+        kw = dict(causal=causal, scale=hd ** -0.5, attn_cap=cap, window=win)
+        o, lse = fa.attention_fwd(q, k, v, **kw)
+        before = fa.bwd_launches
+        with mock.patch.object(ref, "flash_attention_bwd",
+                               side_effect=AssertionError("plain called")):
+            got = fa.attention_bwd(q, k, v, o, lse, do, **kw)
+            again = fa.attention_bwd(q, k, v, o, lse, do, **kw)
+            ins = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = fa.FlashAttention.apply(*ins, causal, kw["scale"], cap, win)
+            viaf = torch.autograd.grad(out, ins, do)
+        torch.cuda.synchronize()
+        assert fa.bwd_launches == before + 3
+        for g, a, f in zip(got, again, viaf):
+            assert _same_bits(g, a) and _same_bits(g, f)
+        want = ref.flash_attention_bwd(q, k, v, lse, do, **kw)
+        label = (dtype, dims, b, sq, sk, h, kv, causal, cap, win)
+        for g, w, t in zip(got, want, (q, k, v)):
+            assert g.shape == t.shape and g.dtype == w.dtype == dt, label
+            err = float((g.float() - w.float()).abs().max())
+            if dt == torch.float32:
+                assert err <= 1e-4, (label, err)
+            else:
+                assert err <= 2e-2 * float(w.float().abs().max()), (label,
+                                                                     err)
+
+
+@pytest.mark.cuda
+def test_flash_backward_kernel_refuses_what_it_cannot_take(cuda):
+    """A row without a key under the window, a masked launch's gradient
+    and a head-dim pair outside ``TC_DIMS`` raise, naming the shape;
+    nothing falls back to the plain version."""
+    q = torch.randn((1, 300, 2, 64), generator=cuda, device="cuda")
+    kv = torch.randn((1, 100, 2, 64), generator=cuda, device="cuda")
+    o = torch.zeros_like(q)
+    lse = torch.zeros((1, 2, 300), device="cuda")
+    with pytest.raises(ValueError, match="without a key"):
+        fa.attention_bwd(q, kv, kv, o, lse, o, causal=True, scale=0.125,
+                         attn_cap=0.0, window=50)
+    q48 = torch.randn((1, 64, 2, 48), generator=cuda, device="cuda")
+    with pytest.raises(ValueError, match="not in"):
+        fa.attention_bwd(q48, q48, q48, q48, lse[..., :64], q48, causal=True,
+                         scale=0.125, attn_cap=0.0, window=0)
+    with pytest.raises(ValueError, match="forward-only"):
+        ops.attention(q.requires_grad_(), kv, kv, causal=True, q_offset=4,
+                      kv_len=100)
 
 
 #: masked decode cases: (Sq, q_offset, kv_len) over a cache of 300 keys,

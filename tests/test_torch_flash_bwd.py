@@ -1,0 +1,247 @@
+"""The flash attention backward: its plain version against the JAX
+package, and the card kernel's rounding emulated on the CPU.
+
+The JAX package has no backward kernel: its train step differentiates
+``repro.models.base.attend`` through XLA.  The port's plain backward,
+``ref.flash_attention_bwd`` (the chunked recompute from the forward's
+log-sum-exp, which the card's ``csrc/flash_bwd.cu`` computes and
+``chip_smoke.py`` holds it against), is held here against the jitted
+``jax.vjp`` of ``attend`` in both its branches (``chunk = 0`` and the
+online softmax, ``chunk > 0``), fp32 and bf16, at the models' cases: GQA
+8/2 causal, hd 256 with cap 50 and a window, MLA's (192, 128), cross
+attention with ``Sq != Sk`` (not causal), and lengths ragged against 64
+and 128.  Inputs are seeded numpy draws.
+
+Tolerances: fp32 ``2e-5`` of each gradient's largest value, both sides
+summing in fp32 in other orders over at most 200 keys; bf16 two bf16
+ulps of each gradient's largest (both round the same fp32 gradient to
+bf16 once; the reference's q·scale and the port's differ in the last
+fp32 bit).
+
+The card kernel rounds P and dS to bf16 as product operands and takes D
+from the bf16 output.  ``_kernel_emulation`` repeats those rounding
+points in fp32 arithmetic, its sums in the kernel's tile order; held
+against the reference's fp32 gradient it stays within half of the card's
+bound (each gradient within 2e-2 of its largest): the bound has margin
+before any chip run.
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import base as jbase
+from repro_torch.kernels import flash_attn as fa
+from repro_torch.kernels import ops, ref
+from repro_torch.launch import step_analysis
+from repro_torch.models import base
+
+torch.set_num_threads(1)
+
+#: name → (B, Sq, Sk, H, KV, hd, vd, causal, cap, window, chunk of the
+#: reference's online-softmax branch, 0 where the lengths do not allow it)
+CASES = {
+    "gqa 8/2 causal": (2, 128, 128, 8, 2, 32, 32, True, 0.0, 0, 32),
+    "hd 256 cap 50 window": (1, 128, 128, 4, 2, 256, 256, True, 50.0, 48,
+                             64),
+    "mla (192, 128)": (1, 128, 128, 4, 4, 192, 128, True, 0.0, 0, 64),
+    "cross sq != sk": (2, 96, 160, 4, 4, 64, 64, False, 0.0, 0, 32),
+    "ragged 150 x 200": (1, 150, 200, 4, 2, 64, 64, True, 0.0, 0, 0),
+    "ragged 200 x 150": (1, 200, 150, 4, 2, 64, 64, False, 30.0, 0, 0),
+}
+#: fp32: a fraction of each gradient's largest value; bf16: bf16 ulps of it
+FP32_TOL, BF16_ULPS = 2e-5, 2
+
+
+def _draw(rng, case, dtype):
+    b, sq, sk, h, kv, hd, vd = case[:7]
+    shapes = ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, vd),
+              (b, sq, h, vd))
+    xs = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    if dtype == "bfloat16":
+        xs = [np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+              for x in xs]
+    return xs
+
+
+def _jax_grads(xs, case, dtype, chunk):
+    *_, causal, cap, win, _ = case
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    q, k, v, do = (jnp.asarray(x, jd) for x in xs)
+
+    @jax.jit
+    def grads(q, k, v, do):
+        _, vjp = jax.vjp(lambda q, k, v: jbase.attend(
+            q, k, v, causal=causal, window=win, attn_cap=cap, chunk=chunk),
+            q, k, v)
+        return vjp(do)
+    return [np.asarray(g.astype(jnp.float32)) for g in grads(q, k, v, do)]
+
+
+def _port_grads(xs, case, dtype):
+    *_, causal, cap, win, _ = case
+    q, k, v, do = (torch.from_numpy(x).to(getattr(torch, dtype)) for x in xs)
+    scale = base._scale(q, None)
+    _, lse = ref.flash_attention_bshd(q, k, v, causal=causal, scale=scale,
+                                      attn_cap=cap, window=win)
+    got = ref.flash_attention_bwd(q, k, v, lse, do, causal=causal,
+                                  scale=scale, attn_cap=cap, window=win,
+                                  q_chunk=64, max_elems=1 << 16)
+    for g, t in zip(got, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+    return [g.float().numpy() for g in got]
+
+
+def _bf16_ulp(x: float) -> float:
+    """One bf16 ulp at ``x`` (8 significant bits)."""
+    return math.ldexp(1.0, math.frexp(max(abs(x), 1e-30))[1] - 8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("branch", ["dense", "chunked"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_backward_matches_jax_vjp_of_attend(name, branch, dtype):
+    """``ref.flash_attention_bwd`` from the plain forward's log-sum-exp
+    against the jitted ``jax.vjp`` of the reference's ``attend``, the
+    dense branch and the online-softmax one (the ragged cases have no
+    chunk that divides their keys, and run the dense branch twice)."""
+    case = CASES[name]
+    chunk = case[-1] if branch == "chunked" else 0
+    xs = _draw(np.random.default_rng(sorted(CASES).index(name)), case, dtype)
+    want = _jax_grads(xs, case, dtype, chunk)
+    got = _port_grads(xs, case, dtype)
+    for g, w, what in zip(got, want, "qkv"):
+        top = float(np.abs(w).max())
+        tol = (FP32_TOL * top if dtype == "float32"
+               else BF16_ULPS * _bf16_ulp(top))
+        err = float(np.abs(g - w).max())
+        assert err <= tol, (what, err, tol)
+
+
+def _kernel_emulation(q, k, v, o, lse, do, *, causal, scale, cap, window,
+                      tile=64):
+    """``csrc/flash_bwd.cu``'s bf16 rounding in fp32 arithmetic: scores
+    from the bf16 operands scaled after the product, P = 2^(s·log2 e −
+    lse·log2 e) (0 where masked), D = Σ dO·O from the bf16 output, dS =
+    P·(dP − D)·(1 − tanh²); P and dS rounded to bf16 as the operands of
+    dV += Pᵀ·dO, dK += dSᵀ·Q and dQ += dS·K, each a sum of fp32 tile
+    products taken in the kernel's order (query tiles of ``tile`` for dK
+    and dV, the group's heads outermost; key tiles for dQ); the scale
+    applied to dK and dQ at the end; the results rounded to bf16.  q
+    ``(Sq, H, hd)``, k ``(Sk, KV, hd)``, v ``(Sk, KV, vd)``, o and do
+    ``(Sq, H, vd)`` bf16, lse ``(H, Sq)`` fp32."""
+    sq, h, _ = q.shape
+    sk, kv, _ = k.shape
+    g = h // kv
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    rows, keys = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+    vis = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        vis = keys <= rows
+        if window:
+            vis &= keys > rows - window
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    log2e = math.log2(math.e)
+    for hh in range(h):
+        j = hh // g
+        x = (qf[:, hh] @ kf[:, j].T) * scale
+        dt = torch.ones_like(x)
+        if cap:
+            th = torch.tanh(x / cap)
+            x, dt = th * cap, 1 - th * th
+        p = torch.where(vis, torch.exp2(x * log2e - lse[hh][:, None] * log2e),
+                        0.0)
+        d = (dof[:, hh] * of[:, hh]).sum(-1, keepdim=True)
+        ds = p * (dof[:, hh] @ vf[:, j].T - d) * dt
+        pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+        for i0 in range(0, sq, tile):
+            sl = slice(i0, i0 + tile)
+            dv[:, j] += pb[sl].T @ dof[sl, hh]
+            dk[:, j] += dsb[sl].T @ qf[sl, hh]
+        for k0 in range(0, sk, tile):
+            sl = slice(k0, k0 + tile)
+            dq[:, hh] += dsb[:, sl] @ kf[sl, j]
+    return ((dq * scale).bfloat16(), (dk * scale).bfloat16(), dv.bfloat16())
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("tinyllama causal, GQA 8/2", (1024, 1024, 8, 2, 64, 64, True, 0.0, 0)),
+    ("gemma2 hd 256, cap 50, window", (512, 512, 4, 2, 256, 256, True, 50.0,
+                                       256)),
+    ("mla (192, 128)", (512, 512, 4, 4, 192, 128, True, 0.0, 0)),
+    ("whisper cross", (384, 600, 4, 4, 64, 64, False, 0.0, 0))])
+def test_kernel_rounding_holds_the_card_bound_with_margin(name, shape):
+    """The bf16 kernel's rounding points, emulated, against the
+    reference's fp32 gradient (the jitted ``jax.vjp`` of ``attend`` at the
+    same bf16-valued inputs in fp32): each gradient within 1e-2 of its
+    largest, half of the card's 2e-2 bound."""
+    sq, sk, h, kv, hd, vd, causal, cap, win = shape
+    rng = np.random.default_rng(7)
+    xs = _draw(rng, (1, sq, sk, h, kv, hd, vd), "bfloat16")
+    case = (1, sq, sk, h, kv, hd, vd, causal, cap, win, 0)
+    want = _jax_grads(xs, case, "float32", 0)
+    q, k, v, do = (torch.from_numpy(x[0]).bfloat16() for x in xs)
+    scale = base._scale(q, None)
+    o, lse = ref.flash_attention_bshd(q[None], k[None], v[None],
+                                      causal=causal, scale=scale,
+                                      attn_cap=cap, window=win)
+    got = _kernel_emulation(q, k, v, o[0], lse[0], do, causal=causal,
+                            scale=scale, cap=cap, window=win)
+    for gr, w, what in zip(got, want, "qkv"):
+        top = float(np.abs(w).max())
+        err = float(np.abs(gr.float().numpy() - w[0]).max())
+        assert err <= 1e-2 * top, (name, what, err / top)
+
+
+def test_backward_kernel_wrapper_refuses_cpu_tensors():
+    """On the CPU the model differentiates the plain forward; the
+    backward kernel's wrapper takes CUDA tensors only."""
+    q = torch.zeros((1, 16, 2, 16))
+    lse = torch.zeros((1, 2, 16))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        fa.attention_bwd(q, q, q, q, lse, q, causal=True, scale=0.25,
+                         attn_cap=0.0, window=0)
+
+
+@pytest.mark.parametrize("causal,window,sq,sk", [
+    (True, 0, 256, 256), (True, 64, 200, 200), (False, 0, 96, 160)])
+def test_meta_backward_counts_the_kernel(causal, window, sq, sk):
+    """The dry-run's backward (``ops._MetaFlash``) counts one launch of the
+    backward kernel: its flops ``2·(3·hd + 2·vd)`` a visible pair (the
+    forward's ``2·(hd + vd)``, so 2.5 times the forward's at hd = vd
+    here), its bytes, its three outputs in the inputs' shapes and dtype."""
+    q = torch.empty(2, sq, 8, 64, dtype=torch.bfloat16, device="meta",
+                    requires_grad=True)
+    k, v = (torch.empty(2, sk, 2, 64, dtype=torch.bfloat16, device="meta",
+                        requires_grad=True) for _ in range(2))
+
+    def step(q, k, v):
+        out = ops.attention(q, k, v, causal=causal, window=window)
+        return torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    st, (dq, dk, dv) = step_analysis.analyze(step, q, k, v)
+    fwd, bwd = st.kernels["flash_attention"], st.kernels[
+        "flash_attention_bwd"]
+    assert fwd["launches"] == bwd["launches"] == 1
+    assert bwd["flops"] == fa.flops_bwd(2, 8, sq, sk, 64, causal=causal,
+                                        window=window)
+    assert 2 * bwd["flops"] == 5 * fwd["flops"]
+    assert bwd["bytes_moved"] == fa.bytes_moved_bwd(q, k, v)
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    assert dq.dtype == dk.dtype == torch.bfloat16
+    before = fa.bwd_launches
+    step(q, k, v)
+    assert fa.bwd_launches == before     # the card's counter never moves
+
+
+def test_meta_backward_refuses_a_row_without_a_key():
+    """Causal with a window and ``Sq`` past ``Sk + window``: the last rows
+    see no key, which the backward kernel refuses, on ``meta`` too."""
+    q = torch.empty(1, 300, 2, 64, device="meta", requires_grad=True)
+    kv = torch.empty(1, 100, 2, 64, device="meta", requires_grad=True)
+    out = ops.attention(q, kv, kv, causal=True, window=50)
+    with pytest.raises(ValueError, match="without a key"):
+        torch.autograd.grad(out, (q, kv), torch.ones_like(out))

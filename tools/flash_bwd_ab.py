@@ -1,0 +1,158 @@
+"""Time the flash attention backward kernel (``csrc/flash_bwd.cu``) of one
+or more sources on one card, in one run, kernel by kernel.
+
+    python3 tools/flash_bwd_ab.py [--source PATH ...] [--out FILE]
+
+Each ``--source`` is a version of ``csrc/flash_bwd.cu`` (the checkout's
+own by default); each is built and timed in a process of its own, in the
+order given, so that two versions are compared on the same card (give
+them as A B B A).  The cases are the training paths' backward launches:
+TinyLlama's step (q ``(8, 4096, 32, 64)`` over 4 KV heads, bf16,
+causal), gemma2-2b's global attention (hd 256, cap 50), deepseek's MLA
+at ``(hd, vd)`` = (192, 128) with ``v`` a strided view, whisper's cross
+attention (4096 queries over 1500 keys, not causal) and an fp32 causal
+launch ``(4, 1024, 8, 64)``.  Inputs are drawn from a seed, the forward
+kernel gives ``o`` and the log-sum-exp.  Each case: the mean device time
+of a backward by CUDA events over ``--iters`` launches queued behind a
+sleep on the card (``chip_smoke.cuda_ms``), the device time of each of
+its three kernels (``flash_bwd_dot``, ``flash_bwd_dkdv``,
+``flash_bwd_dq``) by ``torch.profiler``, the bound (five products a
+visible pair at the card's peak, bf16 989 TFLOP/s, fp32 three TF32
+products at 495), and a hash of the gradients' bits.  Prints one JSON
+object a line, the card's name and power limit first, and writes them
+to ``--out``.  Needs a CUDA card; exits 1 without one.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+#: name, dtype, q (B, Sq, H, hd), k (B, Sk, KV, hd), vd, causal, cap,
+#: window, the width of the tensor ``v`` is a view of (None: contiguous)
+CASES = (
+    ("train TinyLlama", "bfloat16", (8, 4096, 32, 64), (8, 4096, 4, 64), 64,
+     True, 0.0, 0, None),
+    ("train gemma2-2b global", "bfloat16", (8, 4096, 8, 256),
+     (8, 4096, 4, 256), 256, True, 50.0, 0, None),
+    ("train deepseek MLA", "bfloat16", (8, 4096, 16, 192), (8, 4096, 16, 192),
+     128, True, 0.0, 0, 256),
+    ("train whisper cross", "bfloat16", (8, 4096, 16, 64), (8, 1500, 16, 64),
+     64, False, 0.0, 0, None),
+    ("train fp32", "float32", (4, 1024, 8, 64), (4, 1024, 8, 64), 64, True,
+     0.0, 0, None),
+)
+KERNEL = re.compile(r"flash_bwd_(dot|dkdv|dq)_kernel")
+
+
+def child(source: str, iters: int) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "src"))
+    from chip_smoke import (BF16_FLOPS_PER_S, HBM_BYTES_PER_S,
+                            TF32_FLOPS_PER_S, cuda_ms)
+    from repro_torch.kernels import build as kb
+    from repro_torch.kernels import flash_attn as fa
+
+    fa.BWD_SOURCE = Path(source)
+    lib = kb.build(fa.BWD_SOURCE)[0]
+    log = lib.with_suffix(".log").read_text()
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
+    print(json.dumps({"source": source, "build": lib.name,
+                      "registers_max": max(regs),
+                      "spill_stores_max": max(spills, default=0)}),
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for name, dtype, qs, ks, vd, causal, cap, win, v_in in CASES:
+        dt = getattr(torch, dtype)
+        q, k = (torch.randn(s, generator=gen, device="cuda").to(dt)
+                for s in (qs, ks))
+        if v_in:
+            v = torch.randn((*ks[:3], v_in), generator=gen,
+                            device="cuda").to(dt)[..., -vd:]
+        else:
+            v = torch.randn((*ks[:3], vd), generator=gen, device="cuda").to(dt)
+        do = torch.randn((*qs[:3], vd), generator=gen, device="cuda").to(dt)
+        kw = dict(causal=causal, scale=qs[-1] ** -0.5, attn_cap=cap,
+                  window=win)
+        o, lse = fa.attention_fwd(q, k, v, **kw)
+
+        def bwd():
+            return fa.attention_bwd(q, k, v, o, lse, do, **kw)
+        ms = cuda_ms(bwd, iters)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                bwd()
+            torch.cuda.synchronize()
+        parts = {}
+        for e in prof.key_averages():
+            m = KERNEL.search(e.key)
+            if m:
+                parts[m.group(1)] = parts.get(m.group(1), 0.0) + (
+                    e.device_time_total / 1e3 / 3)
+        digest = hashlib.sha256()
+        for g in bwd():
+            digest.update(g.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes())
+        b, sq, h, hd = qs
+        flops = fa.flops_bwd(b, h, sq, ks[1], hd, causal=causal, window=win,
+                             vd=vd)
+        ops_s = (flops / BF16_FLOPS_PER_S if dt == torch.bfloat16
+                 else 3 * flops / TF32_FLOPS_PER_S)
+        bound = max(ops_s, fa.bytes_moved_bwd(q, k, v) / HBM_BYTES_PER_S)
+        print(json.dumps({"source": source, "case": name, "ms": ms,
+                          "kernels_ms": parts, "bound_ms": bound * 1e3,
+                          "of_bound": bound * 1e3 / ms,
+                          "bits": digest.hexdigest()[:16]}), flush=True)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--source", action="append", default=[])
+    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--out", default="results/flash_bwd_ab.jsonl")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        child(args.child, args.iters)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("flash_bwd_ab: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    lines = [json.dumps({"card": card})]
+    print(lines[0], flush=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for src in args.source or [str(ROOT / "src/repro_torch/kernels/csrc/"
+                                          "flash_bwd.cu")]:
+        out = subprocess.run([sys.executable, __file__, "--child",
+                              str(Path(src).resolve()), "--iters",
+                              str(args.iters)], env=env, capture_output=True,
+                             text=True)
+        sys.stdout.write(out.stdout)
+        if out.returncode:
+            sys.stderr.write(out.stderr[-4000:])
+            return out.returncode
+        lines += out.stdout.splitlines()
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
