@@ -127,12 +127,14 @@
    keyless row ``o = 0``, ``lse = -inf`` bit for bit; every launch of Sq
    < 128 on the decode kernel; and the decode kernel's partial launches
    at G 1 and 48 over longer shards (many splits, keyless shards), both
-   dtypes at every ``TC_DIMS`` pair.  Then the backward kernel
-   (``csrc/flash_bwd.cu``) against its plain version
-   ``ref.flash_attention_bwd`` on the forward kernel's ``o`` and
-   log-sum-exp: ``BWD_SYNTH`` at every ``TC_DIMS`` pair in both dtypes
-   (causal and not, cap, window, GQA 8/8 and 8/2, ragged ``Sq`` and
-   ``Sk``, ``Sq != Sk``) and ``BWD_CASES``, every training launch of the
+   dtypes at every ``TC_DIMS`` pair.  Then the backward kernels
+   (``csrc/flash_bwd.cu``: bf16 on ``flash_bwd_dkdv_wgmma_kernel`` and
+   ``flash_bwd_dq_wgmma_kernel``, fp32 on the 3xTF32 ``mma.sync`` ones)
+   against their plain version ``ref.flash_attention_bwd`` on the
+   forward kernel's ``o`` and log-sum-exp: ``BWD_SYNTH`` at every
+   ``TC_DIMS`` pair in both dtypes (causal and not, cap, window, GQA 8/8,
+   8/2 and 8/1, ``Sq`` and ``Sk`` ragged against every tile, ``Sq !=
+   Sk``, a strided ``v``) and ``BWD_CASES``, every training launch of the
    path phases (TinyLlama's, on ``2x2x2`` too, gemma2-2b's local and
    global at hd 256 with cap 50, deepseek's MLA with its strided ``v``,
    whisper's encoder, decoder and cross, zamba2's) and two fp32 ones;
@@ -141,7 +143,10 @@
    model case timed beside its bound (five products a visible pair:
    ``flash_attn.flops_bwd``), the plain backward and SDPA's backward (the
    gradient alone, its forward outside the timed window, KV heads
-   repeated, no cap).
+   repeated, no cap), and each of its kernels' device time by the
+   profiler, the bf16 dK/dV and dQ kernels beside their own bounds (four
+   and three products a pair); the path launch's two bf16 kernels go
+   into the last-but-one line as kernels of their own.
 8. The wire dense reductions (``WIRE_RUNS``), at the reduction paths'
    model and size: on ``(2, 4)`` the default (the hierarchical schedule,
    rhd levels), ``reproducible=True`` (its fixed-tree variant),
@@ -951,13 +956,19 @@ FLASH_MODEL_CASES = {k: flash_case(*v) for k, v in {
                                      dtype="float32"),
     "deepseek fp32": flash_case(2, 4096, 4096, **_DS, dtype="float32")}
 #: phase 7's synthetic backward launches, each at every ``TC_DIMS`` pair
-#: in both dtypes: B, Sq, Sk, H, KV, causal, cap, window; lengths ragged
-#: against every tile of both backward kernels
-BWD_SYNTH = ((2, 300, 300, 8, 8, True, 0.0, 0),
-             (1, 300, 300, 8, 2, True, 30.0, 100),
-             (2, 200, 333, 8, 2, False, 0.0, 0),
-             (1, 333, 200, 8, 8, False, 50.0, 0),
-             (1, 257, 257, 8, 2, True, 0.0, 64))
+#: in both dtypes: B, Sq, Sk, H, KV, causal, cap, window and the values
+#: before ``v`` in each head of the tensor it is a view of (0: contiguous,
+#: as MLA's strided ``v``); lengths ragged against every tile of both
+#: dtypes' kernels (``flash_attn.BWD_TILES`` for bf16), GQA 8/8, 8/2 and
+#: 8/1 (``tests/test_torch_cuda.py``'s ``_BWD_CASES``)
+BWD_SYNTH = ((2, 300, 300, 8, 8, True, 0.0, 0, 0),
+             (1, 300, 300, 8, 2, True, 30.0, 100, 0),
+             (2, 200, 333, 8, 2, False, 0.0, 0, 0),
+             (1, 333, 200, 8, 8, False, 50.0, 0, 0),
+             (1, 257, 257, 8, 2, True, 0.0, 64, 0),
+             (1, 130, 130, 8, 1, True, 0.0, 0, 0),
+             (2, 97, 161, 8, 1, False, 30.0, 0, 64),
+             (1, 700, 700, 4, 4, True, 0.0, 300, 64))
 #: phase 7's backward cases: every training launch of the path phases
 #: (``path_bwd`` records them), the fp32 shape ``tools/flash_ab.py`` times
 #: and phase 31's fp32 TinyLlama on ``2x2x2``
@@ -1009,7 +1020,9 @@ REPLACES = {"tree_reduce_slots": "src/repro/kernels/tree_reduce.py:101",
             "flash_attention": "src/repro/kernels/flash_attn.py:86",
             "flash_fwd_tf32_kernel": "src/repro/kernels/flash_attn.py:86",
             # the reference has no backward kernel: XLA differentiates attend
-            "flash_attention_bwd": "src/repro/models/base.py:189"}
+            "flash_attention_bwd": "src/repro/models/base.py:189",
+            "flash_bwd_dkdv_wgmma_kernel": "src/repro/models/base.py:189",
+            "flash_bwd_dq_wgmma_kernel": "src/repro/models/base.py:189"}
 QBLOCK = 256
 #: the sparse path's fractions: the root densifies at 0.01, the level-1
 #: switches at 0.05 (``density_threshold`` 0.25)
@@ -1020,8 +1033,8 @@ SPARCML_K = 1
 KERNEL_NAME = re.compile(
     r"(tree_reduce|quantize|dequantize|dequant_accum|accum_sorted|"
     r"accum_scatter|zero|topk|flash_fwd_wgmma|flash_fwd_tf32|"
-    r"flash_decode_join|flash_decode|flash_bwd_dot|flash_bwd_dkdv|"
-    r"flash_bwd_dq)_kernel(<[^>]*>)?|"
+    r"flash_decode_join|flash_decode|flash_bwd_dot|flash_bwd_dkdv_wgmma|"
+    r"flash_bwd_dq_wgmma|flash_bwd_dkdv|flash_bwd_dq)_kernel(<[^>]*>)?|"
     r"\w*gemm\w*|"
     r"CatArrayBatchedCopy\w*|\w*(Sort|sort|TopK|topk|Select)\w*|"
     r"\w+_kernel_cuda|\w*Functor\w*(<\w+>)?")
@@ -1985,8 +1998,8 @@ def bwd_vs_plain(torch, fa, ref, q, k, v, o, lse, do, kw: dict,
     """One backward launch ``(q, k, v, o, lse, do)`` against its plain
     version on the same inputs: launched twice with the same bits, one
     ``bwd_launches`` each; fp32 within 1e-4, bf16 each gradient within
-    2e-2 of its largest.  Returns the largest ``|kernel - plain|`` and the
-    largest plain gradient."""
+    2e-2 of its largest.  Returns the largest ``|kernel - plain|``, the
+    largest plain gradient and each gradient's ``|kernel - plain|``."""
     before = fa.bwd_launches
     got = fa.attention_bwd(q, k, v, o, lse, do, **kw)
     again = fa.attention_bwd(q, k, v, o, lse, do, **kw)
@@ -1998,6 +2011,7 @@ def bwd_vs_plain(torch, fa, ref, q, k, v, o, lse, do, kw: dict,
     del again
     want = ref.flash_attention_bwd(q, k, v, lse, do, **kw)
     worst = top = 0.0
+    errs = {}
     for g, w, t, what in zip(got, want, (q, k, v), ("dq", "dk", "dv")):
         check(g.shape == t.shape and g.dtype == w.dtype == t.dtype,
               f"{label}: {what} {tuple(g.shape)} {g.dtype}")
@@ -2007,7 +2021,51 @@ def bwd_vs_plain(torch, fa, ref, q, k, v, o, lse, do, kw: dict,
         check(err <= bound, f"{label}: {what} |kernel - plain| {err:.3e} > "
               f"{bound:.3e}")
         worst, top = max(worst, err), max(top, big)
-    return worst, top
+        errs[what] = err
+    return worst, top, errs
+
+
+def bwd_kernel_ms(torch, fn) -> dict:
+    """Device ms of each kernel of one backward launch ``fn`` (``D``,
+    dK/dV, dQ), by ``torch.profiler`` over 3 warm launches; empty where
+    the profiler sees no device time (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        m = KERNEL_NAME.search(e.key)
+        if m and (m.group(1) or "").startswith("flash_bwd"):
+            out[m.group(1)] = (out.get(m.group(1), 0.0)
+                               + e.device_time_total / 1e3 / 3)
+    return out
+
+
+def bwd_kernel_bounds(fa, q, k, v, kw: dict) -> dict:
+    """The least time of the backward's two large kernels on this launch,
+    bf16: dK/dV's four products a visible pair (``S``, ``dP``, ``dV``,
+    ``dK``: ``4·(hd + vd)`` flops) against q, k, v and dO read and dk, dv
+    written; dQ's three (``S``, ``dP``, ``dQ``: ``2·(2·hd + vd)``)
+    against q, k, v and dO read and dq written; the larger of operations
+    over 989 TFLOP/s and bytes over 3.35 TB/s, in ms."""
+    b, sq, h, hd = q.shape
+    vd = v.shape[-1]
+    pairs = fa.flops_bwd(b, h, sq, k.shape[1], hd, causal=kw["causal"],
+                         window=kw["window"], vd=vd) // (2 * (3 * hd + 2 * vd))
+    size = q.element_size()
+    ins = (q.numel() + k.numel() + v.numel() + b * sq * h * vd) * size
+    stats = 8 * b * h * sq  # lse and D
+    return {
+        "flash_bwd_dkdv_wgmma": 1e3 * max(
+            pairs * 4 * (hd + vd) / BF16_FLOPS_PER_S,
+            (ins + stats + (k.numel() + v.numel()) * size) / HBM_BYTES_PER_S),
+        "flash_bwd_dq_wgmma": 1e3 * max(
+            pairs * 2 * (2 * hd + vd) / BF16_FLOPS_PER_S,
+            (ins + stats + q.numel() * size) / HBM_BYTES_PER_S)}
 
 
 def sdpa_bwd_ms(torch, q, k, v, do, kw: dict):
@@ -2064,15 +2122,16 @@ def phase_flash_bwd(torch, fa, ref, card) -> dict:
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for dtype in worst:
         for hd, vd in fa.TC_DIMS:
-            for b, sq, sk, h, kv, causal, cap, win in BWD_SYNTH:
+            for b, sq, sk, h, kv, causal, cap, win, v_pad in BWD_SYNTH:
                 q, k, v, do = draw(((b, sq, h, hd), (b, sk, kv, hd),
-                                    (b, sk, kv, vd)), dtype)
+                                    (b, sk, kv, vd)), dtype,
+                                   v_pad + vd if v_pad else None)
                 kw = dict(causal=causal, scale=hd ** -0.5, attn_cap=cap,
                           window=win)
                 o, lse = fa.attention_fwd(q, k, v, **kw)
-                err, top = bwd_vs_plain(
+                err, top, _ = bwd_vs_plain(
                     torch, fa, ref, q, k, v, o, lse, do, kw,
-                    f"backward {dtype} {(hd, vd)} {(b, sq, sk, h, kv)}")
+                    f"backward {dtype} {(hd, vd)} {(b, sq, sk, h, kv, v_pad)}")
                 worst[dtype] = max(worst[dtype], err / (
                     1.0 if dtype == torch.float32 else top))
     print(f"flash backward kernel vs plain: {len(BWD_SYNTH)} cases at "
@@ -2087,11 +2146,13 @@ def phase_flash_bwd(torch, fa, ref, card) -> dict:
         kw = {key: val for key, val in case_kw(torch, case).items()
               if key in ("causal", "scale", "attn_cap", "window")}
         o, lse = fa.attention_fwd(q, k, v, **kw)
-        err, top = bwd_vs_plain(torch, fa, ref, q, k, v, o, lse, do, kw,
-                                f"backward {name}")
+        err, top, errs = bwd_vs_plain(torch, fa, ref, q, k, v, o, lse, do, kw,
+                                      f"backward {name}")
         torch.cuda.empty_cache()
         k_ms = cuda_ms(lambda: fa.attention_bwd(q, k, v, o, lse, do, **kw),
                        5)
+        parts = bwd_kernel_ms(
+            torch, lambda: fa.attention_bwd(q, k, v, o, lse, do, **kw))
         p_ms = cuda_ms(lambda: ref.flash_attention_bwd(q, k, v, lse, do,
                                                        **kw), 1, warmup=1)
         torch.cuda.empty_cache()
@@ -2124,8 +2185,16 @@ def phase_flash_bwd(torch, fa, ref, card) -> dict:
               + (f"{l_ms:.4f} ms" if l_ms is not None else "refused")
               + f"; max |kernel - plain| {err:.3e} (largest plain gradient "
               f"{top:.3e})  [{card}]")
+        bounds = (bwd_kernel_bounds(fa, q, k, v, kw)
+                  if dtype == torch.bfloat16 else {})
+        print(f"  by kernel (torch.profiler, device ms): " + (", ".join(
+            f"{part} {ms:.4f}" + (f" ({bounds[part] / ms:.1%} of its "
+                                  f"{bounds[part]:.4f} ms bound)"
+                                  if part in bounds else "")
+            for part, ms in sorted(parts.items())) or "not measured"))
         out[name] = dict(ms=k_ms, bound_ms=bound, plain_ms=p_ms,
-                         library_ms=l_ms, max_abs_err=err)
+                         library_ms=l_ms, max_abs_err=err, errs=errs,
+                         kernels_ms=parts, kernel_bounds_ms=bounds)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     print(f"phase 7 backward: {time.perf_counter() - t_phase:.1f} s ({card})")
@@ -6785,6 +6854,20 @@ def main() -> int:
     # figures phase 7's at the path's launch, against SDPA's backward
     launches["flash_attention_bwd"] = trained["bwd_launches"]
     figures["flash_attention_bwd"] = bwd_cases["tinyllama train"]
+    # its two bf16 kernels on the tensor cores, each launched once a
+    # backward: phase 7's figures at the path's launch, each kernel's
+    # device time by the profiler beside its own bound and the error of
+    # the gradients it writes; the plain backward computes all three
+    for part, grads in (("flash_bwd_dkdv_wgmma", ("dk", "dv")),
+                        ("flash_bwd_dq_wgmma", ("dq",))):
+        tl = bwd_cases["tinyllama train"]
+        check(part in tl["kernels_ms"], f"the profiler saw no {part} "
+              f"kernel in the path's backward launch: {tl['kernels_ms']}")
+        launches[f"{part}_kernel"] = trained["bwd_launches"]
+        figures[f"{part}_kernel"] = dict(
+            ms=tl["kernels_ms"][part], bound_ms=tl["kernel_bounds_ms"][part],
+            plain_ms=tl["plain_ms"], library_ms=None,
+            max_abs_err=max(tl["errs"][g] for g in grads))
     launches["flash_attention"] = (trained["launches"] + sharded["partial"]
                                    + gemma_sharded["partial"])
     figures["flash_attention"] = flash_figures(
@@ -6811,7 +6894,11 @@ def main() -> int:
           "flash_attention_bwd (the backward of the training launches, "
           "which replaces XLA's autodiff of the reference's attend) is one "
           "backward at the training path's shape, its launches those of "
-          "phase 9's 5 steps, its library call SDPA's backward")
+          "phase 9's 5 steps, its library call SDPA's backward; "
+          "flash_bwd_dkdv_wgmma_kernel and flash_bwd_dq_wgmma_kernel are "
+          "its bf16 dK/dV and dQ kernels in that launch (device time by "
+          "the profiler, each against its own products' bound, plain_ms "
+          "the whole plain backward, no single library call)")
     routes = [("tree_reduce_slots", "tree_reduce"),
               ("tree_reduce", "tree_reduce"), ("quantize", "quant"),
               ("dequantize", "quant"), ("dequant_accum_slots", "quant"),
@@ -6819,7 +6906,9 @@ def main() -> int:
               ("sparse_accum", "sparse"), ("topk_compact", "sparse"),
               ("flash_attention", "flash_attn"),
               ("flash_fwd_tf32_kernel", "flash_attn"),
-              ("flash_attention_bwd", "flash_bwd")]
+              ("flash_attention_bwd", "flash_bwd"),
+              ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd"),
+              ("flash_bwd_dq_wgmma_kernel", "flash_bwd")]
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=SOURCES[src],
         replaces=REPLACES[name], launches=launches[name],

@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` is compiled for ``sm_90a`` into a shared
 library with a plain C interface, ``build/lib<stem>_<hash>.so`` beside
-this file, named by the hash of the source so that an edited source is
-rebuilt.  The compiler's output (``-Xptxas -v``: registers, spills) is
+this file, named by the hash of the source and of the headers it
+includes (``#include "..."``, followed recursively), so that an edited
+source or header is rebuilt.  The compiler's output (``-Xptxas -v``: registers, spills) is
 kept beside the library as ``.log``.  Nothing is built when a module is
 imported: the kernel wrappers build at their first launch, and
 ``build`` compiles several sources at once, one ``nvcc`` each.
@@ -14,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -36,10 +38,35 @@ def nvcc() -> str:
     return found
 
 
+#: a quoted include, resolved beside the file that names it
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def inputs(source: Path) -> list[Path]:
+    """``source`` and the headers it includes with quotes (resolved
+    beside the file that names them), followed recursively, each once, in
+    the order first met."""
+    seen: list[Path] = []
+    todo = [source]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [Path(os.path.normpath(path.parent / name))
+                 for name in _INCLUDE.findall(
+                     path.read_text(encoding="utf-8"))]
+    return seen
+
+
 def library(source: Path) -> Path:
-    """Where ``source``'s library lives once built."""
-    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{tag}.so"
+    """Where ``source``'s library lives once built: named by the hash of
+    the source's bytes and its headers' (a source without headers keeps
+    the hash of its own bytes alone)."""
+    digest = hashlib.sha256()
+    for path in inputs(source):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build(*sources: Path) -> list[Path]:

@@ -50,9 +50,13 @@ the attention through XLA); the port's backward is a kernel of its own,
 a dK/dV kernel (one block a KV head and tile of keys, looping over the
 group's heads and the query tiles that see them) and a dQ kernel (one
 block a head and tile of query rows), both recomputing the
-probabilities from the forward's saved log-sum-exp on the tensor cores
-(bf16 ``mma.sync``, fp32 in three TF32 products), without atomics, at
-every ``TC_DIMS`` pair.  ``bwd_launches`` counts its launches (one a
+probabilities from the forward's saved log-sum-exp on the tensor cores,
+without atomics, at every ``TC_DIMS`` pair.  bf16 runs
+``flash_bwd_dkdv_wgmma_kernel`` and ``flash_bwd_dq_wgmma_kernel``:
+``wgmma`` fed by TMA from a producer warpgroup, P and dS kept in
+registers as the products' A operand (at hd 256 the dK/dV kernel's two
+consumers share them through shared memory), tiles ``BWD_TILES``;
+fp32 ``mma.sync`` in three TF32 products.  ``bwd_launches`` counts its launches (one a
 backward).  Its plain version is ``ref.flash_attention_bwd``, which the
 tests and ``chip_smoke.py`` hold it against.
 
@@ -93,6 +97,30 @@ SMS = 132
 DECODE_WARPS, DECODE_KB, DECODE_TILE_BYTES = 8, 2, 32768
 #: the most splits a decode launch takes (the join's shared memory)
 DECODE_SPLITS = 4096
+
+
+class BwdTiles(NamedTuple):
+    """The bf16 backward kernels' tiles at one ``(hd, vd)`` pair
+    (``csrc/flash_bwd.cu``'s ``wg::KvTile`` and ``wg::QTile``): the dK/dV
+    kernel's keys a block and query rows a stage (its loop takes the
+    group's heads in turn, each head's stages from the first row that
+    sees the block's keys), the dQ kernel's query rows a block and keys a
+    stage (from the first key a row of the block sees)."""
+    keys: int
+    rows: int
+    dq_rows: int
+    dq_keys: int
+
+
+#: the bf16 backward kernels' tiles by ``(hd, vd)``: dK and dV of a
+#: block's keys in registers (wide, hd 256: its 64 keys shared by the two
+#: consumers); 32 query rows a stage where dK and dV take 160 registers
+BWD_TILES = {(16, 16): BwdTiles(128, 64, 128, 128),
+             (32, 32): BwdTiles(128, 64, 128, 128),
+             (64, 64): BwdTiles(128, 64, 128, 128),
+             (128, 128): BwdTiles(128, 64, 128, 64),
+             (256, 256): BwdTiles(64, 64, 128, 32),
+             (192, 128): BwdTiles(128, 32, 128, 64)}
 
 #: Kernel launches so far, either kernel; the wrapper adds one per launch
 #: and nothing else touches it but a caller that resets it.
@@ -472,13 +500,14 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _packed(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as the backward kernel reads it: the last dim contiguous, the
-    base 16-byte aligned and each stepped stride a multiple of 16 bytes;
-    a copy where ``t`` is not (an expanded or oddly strided gradient)."""
+    """``t`` as the backward kernels read it (bf16 by TMA): the last dim
+    contiguous, the base 16-byte aligned and each stepped stride a
+    positive multiple of 16 bytes; a copy where ``t`` is not (an expanded
+    or oddly strided gradient)."""
     per16 = 16 // t.element_size()
     ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-          and all(st % per16 == 0 for n, st in zip(t.shape[:-1], t.stride())
-                  if n > 1))
+          and all(st > 0 and st % per16 == 0
+                  for n, st in zip(t.shape[:-1], t.stride()) if n > 1))
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 

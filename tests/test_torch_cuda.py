@@ -868,35 +868,46 @@ def test_flash_function_gradient_at_mla_dims_on_cuda(cuda):
         assert float((g - w).abs().max()) <= 2e-2 * float(w.abs().max())
 
 
-#: the backward kernel's cases: B, Sq, Sk, H, KV, causal, cap, window;
-#: lengths ragged against every tile (the dK/dV kernel's 32 or 64 keys and
-#: 32 or 64 query rows, the dQ kernel's 64 or 128 rows and 16-64 keys)
-_BWD_CASES = ((2, 300, 300, 8, 8, True, 0.0, 0),
-              (1, 300, 300, 8, 2, True, 30.0, 100),
-              (2, 200, 333, 8, 2, False, 0.0, 0),
-              (1, 333, 200, 8, 8, False, 50.0, 0),
-              (1, 257, 257, 8, 2, True, 0.0, 64))
+#: the backward kernels' cases: B, Sq, Sk, H, KV, causal, cap, window,
+#: and the values before ``v`` in each head of the tensor it is a view of
+#: (0: ``v`` contiguous; MLA's ``v`` is such a strided view); lengths ragged
+#: against every tile (``flash_attn.BWD_TILES``: the bf16 dK/dV kernel's
+#: 64 or 128 keys a block, 64 keys a consumer and 32 or 64 query rows a
+#: stage, its dQ kernel's 128 rows a block, 64 a consumer and 32-128
+#: keys a stage; fp32's 32 or 64 keys and rows, 64 or 128 rows and 16-64
+#: keys), GQA 8/8, 8/2 and 8/1, a block of many query tiles under a
+#: window
+_BWD_CASES = ((2, 300, 300, 8, 8, True, 0.0, 0, 0),
+              (1, 300, 300, 8, 2, True, 30.0, 100, 0),
+              (2, 200, 333, 8, 2, False, 0.0, 0, 0),
+              (1, 333, 200, 8, 8, False, 50.0, 0, 0),
+              (1, 257, 257, 8, 2, True, 0.0, 64, 0),
+              (1, 130, 130, 8, 1, True, 0.0, 0, 0),
+              (2, 97, 161, 8, 1, False, 30.0, 0, 64),
+              (1, 700, 700, 4, 4, True, 0.0, 300, 64))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dims", fa.TC_DIMS, ids=str)
 def test_flash_backward_kernel_matches_plain_on_cuda(cuda, dtype, dims):
-    """The backward kernel (``csrc/flash_bwd.cu``) at every ``TC_DIMS``
-    pair against its plain version ``ref.flash_attention_bwd`` on the same
-    inputs and the forward kernel's ``o`` and log-sum-exp: causal and
-    not, cap and window, GQA 8/8 and 8/2, ragged ``Sq`` and ``Sk``, ``Sq
-    != Sk``.  fp32 within 1e-4, bf16 each gradient within 2e-2 of its
+    """The backward kernels (``csrc/flash_bwd.cu``: bf16 on ``wgmma``,
+    fp32 in three TF32 products) at every ``TC_DIMS`` pair against their
+    plain version ``ref.flash_attention_bwd`` on the same inputs and the
+    forward kernel's ``o`` and log-sum-exp: causal and not, cap and
+    window, GQA 8/8, 8/2 and 8/1, ragged ``Sq`` and ``Sk``, ``Sq != Sk``,
+    a strided ``v``.  fp32 within 1e-4, bf16 each gradient within 2e-2 of its
     largest (the bounds of the gradient tests above).  Each launch twice
     with the same bits, ``bwd_launches`` up by one a launch, the plain
     version never called; and through the autograd Function the same
     bits again, one launch a backward."""
     hd, vd = dims
     dt = getattr(torch, dtype)
-    for b, sq, sk, h, kv, causal, cap, win in _BWD_CASES:
+    for b, sq, sk, h, kv, causal, cap, win, v_in in _BWD_CASES:
         q = torch.randn((b, sq, h, hd), generator=cuda, device="cuda").to(dt)
         k = torch.randn((b, sk, kv, hd), generator=cuda, device="cuda").to(dt)
-        v = torch.randn((b, sk, kv, vd), generator=cuda, device="cuda").to(dt)
+        v = torch.randn((b, sk, kv, v_in + vd), generator=cuda,
+                        device="cuda").to(dt)[..., v_in:]
         do = torch.randn((b, sq, h, vd), generator=cuda, device="cuda").to(dt)
         kw = dict(causal=causal, scale=hd ** -0.5, attn_cap=cap, window=win)
         o, lse = fa.attention_fwd(q, k, v, **kw)
@@ -913,7 +924,7 @@ def test_flash_backward_kernel_matches_plain_on_cuda(cuda, dtype, dims):
         for g, a, f in zip(got, again, viaf):
             assert _same_bits(g, a) and _same_bits(g, f)
         want = ref.flash_attention_bwd(q, k, v, lse, do, **kw)
-        label = (dtype, dims, b, sq, sk, h, kv, causal, cap, win)
+        label = (dtype, dims, b, sq, sk, h, kv, causal, cap, win, v_in)
         for g, w, t in zip(got, want, (q, k, v)):
             assert g.shape == t.shape and g.dtype == w.dtype == dt, label
             err = float((g.float() - w.float()).abs().max())

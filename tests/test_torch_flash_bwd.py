@@ -18,9 +18,10 @@ ulps of each gradient's largest (both round the same fp32 gradient to
 bf16 once; the reference's q·scale and the port's differ in the last
 fp32 bit).
 
-The card kernel rounds P and dS to bf16 as product operands and takes D
+The card kernels round P and dS to bf16 as product operands and take D
 from the bf16 output.  ``_kernel_emulation`` repeats those rounding
-points in fp32 arithmetic, its sums in the kernel's tile order; held
+points in fp32 arithmetic, its sums in the kernels' tile order
+(``flash_attn.BWD_TILES``); held
 against the reference's fp32 gradient it stays within half of the card's
 bound (each gradient within 2e-2 of its largest): the bound has margin
 before any chip run.
@@ -121,21 +122,23 @@ def test_plain_backward_matches_jax_vjp_of_attend(name, branch, dtype):
         assert err <= tol, (what, err, tol)
 
 
-def _kernel_emulation(q, k, v, o, lse, do, *, causal, scale, cap, window,
-                      tile=64):
+def _kernel_emulation(q, k, v, o, lse, do, *, causal, scale, cap, window):
     """``csrc/flash_bwd.cu``'s bf16 rounding in fp32 arithmetic: scores
     from the bf16 operands scaled after the product, P = 2^(s·log2 e −
     lse·log2 e) (0 where masked), D = Σ dO·O from the bf16 output, dS =
-    P·(dP − D)·(1 − tanh²); P and dS rounded to bf16 as the operands of
+    (P·(1 − tanh²))·(dP − D); P and dS rounded to bf16 as the operands of
     dV += Pᵀ·dO, dK += dSᵀ·Q and dQ += dS·K, each a sum of fp32 tile
-    products taken in the kernel's order (query tiles of ``tile`` for dK
-    and dV, the group's heads outermost; key tiles for dQ); the scale
-    applied to dK and dQ at the end; the results rounded to bf16.  q
-    ``(Sq, H, hd)``, k ``(Sk, KV, hd)``, v ``(Sk, KV, vd)``, o and do
-    ``(Sq, H, vd)`` bf16, lse ``(H, Sq)`` fp32."""
-    sq, h, _ = q.shape
+    products in the kernels' order, their tiles ``flash_attn.BWD_TILES``:
+    dK and dV a block of keys at a time, the group's heads outermost, each
+    head's query stages from the first row that sees the block; dQ a
+    block of rows at a time, its key stages from the first key a row of
+    the block sees; the scale applied to dK and dQ at the end; the results
+    rounded to bf16.  q ``(Sq, H, hd)``, k ``(Sk, KV, hd)``, v ``(Sk, KV,
+    vd)``, o and do ``(Sq, H, vd)`` bf16, lse ``(H, Sq)`` fp32."""
+    sq, h, hd = q.shape
     sk, kv, _ = k.shape
     g = h // kv
+    tiles = fa.BWD_TILES[(hd, v.shape[-1])]
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
     rows, keys = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
     vis = torch.ones((sq, sk), dtype=torch.bool)
@@ -143,9 +146,8 @@ def _kernel_emulation(q, k, v, o, lse, do, *, causal, scale, cap, window,
         vis = keys <= rows
         if window:
             vis &= keys > rows - window
-    dq = torch.zeros_like(qf)
-    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     log2e = math.log2(math.e)
+    pb, dsb = [], []
     for hh in range(h):
         j = hh // g
         x = (qf[:, hh] @ kf[:, j].T) * scale
@@ -156,15 +158,36 @@ def _kernel_emulation(q, k, v, o, lse, do, *, causal, scale, cap, window,
         p = torch.where(vis, torch.exp2(x * log2e - lse[hh][:, None] * log2e),
                         0.0)
         d = (dof[:, hh] * of[:, hh]).sum(-1, keepdim=True)
-        ds = p * (dof[:, hh] @ vf[:, j].T - d) * dt
-        pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
-        for i0 in range(0, sq, tile):
-            sl = slice(i0, i0 + tile)
-            dv[:, j] += pb[sl].T @ dof[sl, hh]
-            dk[:, j] += dsb[sl].T @ qf[sl, hh]
-        for k0 in range(0, sk, tile):
-            sl = slice(k0, k0 + tile)
-            dq[:, hh] += dsb[:, sl] @ kf[sl, j]
+        pb.append(p.bfloat16().float())
+        dsb.append(((p * dt) * (dof[:, hh] @ vf[:, j].T - d)).bfloat16()
+                   .float())
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for k0 in range(0, sk, tiles.keys):
+        ks = slice(k0, k0 + tiles.keys)
+        qbeg, qend = 0, sq
+        if causal:
+            qbeg = min(k0, sq)
+            if window:
+                qend = min(sq, k0 + tiles.keys - 1 + window)
+        for hh in range(h):
+            j = hh // g
+            for q0 in range(qbeg, qend, tiles.rows):
+                rs = slice(q0, q0 + tiles.rows)
+                dv[ks, j] += pb[hh][rs, ks].T @ dof[rs, hh]
+                dk[ks, j] += dsb[hh][rs, ks].T @ qf[rs, hh]
+    for q0 in range(0, sq, tiles.dq_rows):
+        rs = slice(q0, q0 + tiles.dq_rows)
+        kbeg, kend = 0, sk
+        if causal:
+            kend = min(sk, min(q0 + tiles.dq_rows, sq))
+            if window:
+                kbeg = max(0, q0 - window + 1)
+        for hh in range(h):
+            j = hh // g
+            for t0 in range(kbeg, kend, tiles.dq_keys):
+                ts = slice(t0, min(t0 + tiles.dq_keys, kend))
+                dq[rs, hh] += dsb[hh][rs, ts] @ kf[ts, j]
     return ((dq * scale).bfloat16(), (dk * scale).bfloat16(), dv.bfloat16())
 
 
@@ -173,10 +196,12 @@ def _kernel_emulation(q, k, v, o, lse, do, *, causal, scale, cap, window,
     ("gemma2 hd 256, cap 50, window", (512, 512, 4, 2, 256, 256, True, 50.0,
                                        256)),
     ("mla (192, 128)", (512, 512, 4, 4, 192, 128, True, 0.0, 0)),
-    ("whisper cross", (384, 600, 4, 4, 64, 64, False, 0.0, 0))])
+    ("whisper cross", (384, 600, 4, 4, 64, 64, False, 0.0, 0)),
+    ("gqa 8/1 ragged, window", (600, 600, 8, 1, 64, 64, True, 0.0, 200)),
+    ("hd 128, cap 30", (300, 300, 4, 2, 128, 128, True, 30.0, 0))])
 def test_kernel_rounding_holds_the_card_bound_with_margin(name, shape):
-    """The bf16 kernel's rounding points, emulated, against the
-    reference's fp32 gradient (the jitted ``jax.vjp`` of ``attend`` at the
+    """The bf16 kernels' rounding points and summation order, emulated,
+    against the reference's fp32 gradient (the jitted ``jax.vjp`` of ``attend`` at the
     same bf16-valued inputs in fp32): each gradient within 1e-2 of its
     largest, half of the card's 2e-2 bound."""
     sq, sk, h, kv, hd, vd, causal, cap, win = shape
@@ -195,6 +220,18 @@ def test_kernel_rounding_holds_the_card_bound_with_margin(name, shape):
         top = float(np.abs(w).max())
         err = float(np.abs(gr.float().numpy() - w[0]).max())
         assert err <= 1e-2 * top, (name, what, err / top)
+
+
+def test_bwd_tiles_cover_every_pair():
+    """``BWD_TILES`` (the emulation's tile order, the card tests' ragged
+    lengths) has the bf16 kernels' tiles at every ``TC_DIMS`` pair: whole
+    64-row consumers and 16-deep products, the dK/dV kernel's 64 keys a
+    consumer (hd 256 shares them), the dQ kernel's 128 rows."""
+    assert set(fa.BWD_TILES) == set(fa.TC_DIMS)
+    for (hd, vd), t in fa.BWD_TILES.items():
+        assert t.keys == (64 if hd + vd > 320 else 128), (hd, vd)
+        assert t.rows in (32, 64) and t.dq_rows == 128
+        assert t.dq_keys in (32, 64, 128) and t.dq_keys % 16 == 0
 
 
 def test_backward_kernel_wrapper_refuses_cpu_tensors():

@@ -1,12 +1,14 @@
 """Time the flash attention backward kernel (``csrc/flash_bwd.cu``) of one
 or more sources on one card, in one run, kernel by kernel.
 
-    python3 tools/flash_bwd_ab.py [--source PATH ...] [--out FILE]
+    python3 tools/flash_bwd_ab.py [--source PATH ...] [--ab OLD NEW]
+                                  [--out FILE]
 
 Each ``--source`` is a version of ``csrc/flash_bwd.cu`` (the checkout's
-own by default); each is built and timed in a process of its own, in the
-order given, so that two versions are compared on the same card (give
-them as A B B A).  The cases are the training paths' backward launches:
+own by default), built with the headers beside it; each is built and
+timed in a process of its own, in the order given, so that two versions
+are compared on the same card.  ``--ab OLD NEW`` runs them as OLD NEW NEW
+OLD.  The cases are the training paths' backward launches:
 TinyLlama's step (q ``(8, 4096, 32, 64)`` over 4 KV heads, bf16,
 causal), gemma2-2b's global attention (hd 256, cap 50), deepseek's MLA
 at ``(hd, vd)`` = (192, 128) with ``v`` a strided view, whisper's cross
@@ -15,8 +17,9 @@ launch ``(4, 1024, 8, 64)``.  Inputs are drawn from a seed, the forward
 kernel gives ``o`` and the log-sum-exp.  Each case: the mean device time
 of a backward by CUDA events over ``--iters`` launches queued behind a
 sleep on the card (``chip_smoke.cuda_ms``), the device time of each of
-its three kernels (``flash_bwd_dot``, ``flash_bwd_dkdv``,
-``flash_bwd_dq``) by ``torch.profiler``, the bound (five products a
+its three kernels by ``torch.profiler`` (``flash_bwd_dot``, then bf16's
+``flash_bwd_dkdv_wgmma`` and ``flash_bwd_dq_wgmma`` or fp32's
+``flash_bwd_dkdv`` and ``flash_bwd_dq``), the bound (five products a
 visible pair at the card's peak, bf16 989 TFLOP/s, fp32 three TF32
 products at 495), and a hash of the gradients' bits.  Prints one JSON
 object a line, the card's name and power limit first, and writes them
@@ -48,7 +51,7 @@ CASES = (
     ("train fp32", "float32", (4, 1024, 8, 64), (4, 1024, 8, 64), 64, True,
      0.0, 0, None),
 )
-KERNEL = re.compile(r"flash_bwd_(dot|dkdv|dq)_kernel")
+KERNEL = re.compile(r"flash_bwd_(dot|dkdv_wgmma|dq_wgmma|dkdv|dq)_kernel")
 
 
 def child(source: str, iters: int) -> None:
@@ -120,6 +123,7 @@ def child(source: str, iters: int) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--source", action="append", default=[])
+    ap.add_argument("--ab", nargs=2, metavar=("OLD", "NEW"))
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--out", default="results/flash_bwd_ab.jsonl")
     ap.add_argument("--child", help=argparse.SUPPRESS)
@@ -138,8 +142,12 @@ def main() -> int:
     lines = [json.dumps({"card": card})]
     print(lines[0], flush=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    for src in args.source or [str(ROOT / "src/repro_torch/kernels/csrc/"
-                                          "flash_bwd.cu")]:
+    sources = args.source or [str(ROOT / "src/repro_torch/kernels/csrc/"
+                                         "flash_bwd.cu")]
+    if args.ab:
+        old, new = args.ab
+        sources = [old, new, new, old]
+    for src in sources:
         out = subprocess.run([sys.executable, __file__, "--child",
                               str(Path(src).resolve()), "--iters",
                               str(args.iters)], env=env, capture_output=True,
