@@ -129,7 +129,9 @@
    at G 1 and 48 over longer shards (many splits, keyless shards), both
    dtypes at every ``TC_DIMS`` pair.  Then the backward kernels
    (``csrc/flash_bwd.cu``: bf16 on ``flash_bwd_dkdv_wgmma_kernel`` and
-   ``flash_bwd_dq_wgmma_kernel``, fp32 on the 3xTF32 ``mma.sync`` ones)
+   ``flash_bwd_dq_wgmma_kernel``, fp32 on ``flash_bwd_dkdv_tf32_kernel``
+   and ``flash_bwd_dq_tf32_kernel``, three TF32 products on ``wgmma``, at
+   (256, 256) and (192, 128) on the 3xTF32 ``mma.sync`` ones)
    against their plain version ``ref.flash_attention_bwd`` on the
    forward kernel's ``o`` and log-sum-exp: ``BWD_SYNTH`` at every
    ``TC_DIMS`` pair in both dtypes (causal and not, cap, window, GQA 8/8,
@@ -144,9 +146,12 @@
    ``flash_attn.flops_bwd``), the plain backward and SDPA's backward (the
    gradient alone, its forward outside the timed window, KV heads
    repeated, no cap), and each of its kernels' device time by the
-   profiler, the bf16 dK/dV and dQ kernels beside their own bounds (four
-   and three products a pair); the path launch's two bf16 kernels go
-   into the last-but-one line as kernels of their own.
+   profiler beside its own bound (``bwd_kernel_bounds``: D by its bytes,
+   the dK/dV and dQ kernels by four and three products a pair, fp32's
+   three times at TF32's rate); the path launch's two bf16 kernels and
+   TinyLlama's fp32 launch's two go into the last-but-one line as
+   kernels of their own, the fp32 ones with phase 31's fp32 steps'
+   launches.
 8. The wire dense reductions (``WIRE_RUNS``), at the reduction paths'
    model and size: on ``(2, 4)`` the default (the hierarchical schedule,
    rhd levels), ``reproducible=True`` (its fixed-tree variant),
@@ -440,7 +445,9 @@
    time and peak beside ``2x2x1``'s at the same batch; in fp32 two steps
    of ``2x2x2`` against ``2x2x1`` for TinyLlama at ``COMPARE_LAYERS`` and
    zamba2 at two groups, losses and gradient norms within
-   ``TP_FP32_TOL``; deepseek-v2-lite's two layers in bf16 (32 experts a
+   ``TP_FP32_TOL``, every backward launch of those steps counted
+   (``bwd_tf32_launches``) on the fp32 ``wgmma`` kernels, none on the
+   plain backward; deepseek-v2-lite's two layers in bf16 (32 experts a
    model rank), the ``2x2x2`` steps forced on the ``2x2x1`` steps' expert
    choices (the flips counted), within ``TP_BF16_TOL``, the dropped
    choices' share equal.
@@ -1022,7 +1029,9 @@ REPLACES = {"tree_reduce_slots": "src/repro/kernels/tree_reduce.py:101",
             # the reference has no backward kernel: XLA differentiates attend
             "flash_attention_bwd": "src/repro/models/base.py:189",
             "flash_bwd_dkdv_wgmma_kernel": "src/repro/models/base.py:189",
-            "flash_bwd_dq_wgmma_kernel": "src/repro/models/base.py:189"}
+            "flash_bwd_dq_wgmma_kernel": "src/repro/models/base.py:189",
+            "flash_bwd_dkdv_tf32_kernel": "src/repro/models/base.py:189",
+            "flash_bwd_dq_tf32_kernel": "src/repro/models/base.py:189"}
 QBLOCK = 256
 #: the sparse path's fractions: the root densifies at 0.01, the level-1
 #: switches at 0.05 (``density_threshold`` 0.25)
@@ -1034,7 +1043,8 @@ KERNEL_NAME = re.compile(
     r"(tree_reduce|quantize|dequantize|dequant_accum|accum_sorted|"
     r"accum_scatter|zero|topk|flash_fwd_wgmma|flash_fwd_tf32|"
     r"flash_decode_join|flash_decode|flash_bwd_dot|flash_bwd_dkdv_wgmma|"
-    r"flash_bwd_dq_wgmma|flash_bwd_dkdv|flash_bwd_dq)_kernel(<[^>]*>)?|"
+    r"flash_bwd_dq_wgmma|flash_bwd_dkdv_tf32|flash_bwd_dq_tf32|"
+    r"flash_bwd_dkdv|flash_bwd_dq)_kernel(<[^>]*>)?|"
     r"\w*gemm\w*|"
     r"CatArrayBatchedCopy\w*|\w*(Sort|sort|TopK|topk|Select)\w*|"
     r"\w+_kernel_cuda|\w*Functor\w*(<\w+>)?")
@@ -2045,26 +2055,45 @@ def bwd_kernel_ms(torch, fn) -> dict:
     return out
 
 
+def bwd_kernel_names(fa, q, v) -> tuple:
+    """The profiler names of the backward's dK/dV and dQ kernels for this
+    launch's dtype and head dims: bf16 ``wgmma``, fp32 TF32 ``wgmma``, or
+    at fp32's wide pairs (``fa.BWD_TF32_TILES`` lacks them) the
+    ``mma.sync`` ones."""
+    if q.element_size() == 2:
+        return "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"
+    if (q.shape[-1], v.shape[-1]) in fa.BWD_TF32_TILES:
+        return "flash_bwd_dkdv_tf32", "flash_bwd_dq_tf32"
+    return "flash_bwd_dkdv", "flash_bwd_dq"
+
+
 def bwd_kernel_bounds(fa, q, k, v, kw: dict) -> dict:
-    """The least time of the backward's two large kernels on this launch,
-    bf16: dK/dV's four products a visible pair (``S``, ``dP``, ``dV``,
-    ``dK``: ``4·(hd + vd)`` flops) against q, k, v and dO read and dk, dv
-    written; dQ's three (``S``, ``dP``, ``dQ``: ``2·(2·hd + vd)``)
-    against q, k, v and dO read and dq written; the larger of operations
-    over 989 TFLOP/s and bytes over 3.35 TB/s, in ms."""
+    """The least time of each kernel of the backward on this launch, in
+    ms: D (``flash_bwd_dot``) by bytes, the output and its gradient read
+    and D written; dK/dV's four products a visible pair (``S``, ``dP``,
+    ``dV``, ``dK``: ``4·(hd + vd)`` flops) against q, k, v and dO read and
+    dk, dv written; dQ's three (``S``, ``dP``, ``dQ``: ``2·(2·hd + vd)``)
+    against q, k, v and dO read and dq written.  The operations at bf16's
+    989 TFLOP/s, or fp32's three TF32 products at 495; the larger of
+    operations and bytes over 3.35 TB/s."""
     b, sq, h, hd = q.shape
     vd = v.shape[-1]
     pairs = fa.flops_bwd(b, h, sq, k.shape[1], hd, causal=kw["causal"],
                          window=kw["window"], vd=vd) // (2 * (3 * hd + 2 * vd))
     size = q.element_size()
-    ins = (q.numel() + k.numel() + v.numel() + b * sq * h * vd) * size
+    per_flop = (1 / BF16_FLOPS_PER_S if size == 2
+                else 3 / TF32_FLOPS_PER_S)
+    out = b * sq * h * vd * size
+    ins = (q.numel() + k.numel() + v.numel()) * size + out
     stats = 8 * b * h * sq  # lse and D
+    dkdv, dq = bwd_kernel_names(fa, q, v)
     return {
-        "flash_bwd_dkdv_wgmma": 1e3 * max(
-            pairs * 4 * (hd + vd) / BF16_FLOPS_PER_S,
+        "flash_bwd_dot": 1e3 * (2 * out + 4 * b * h * sq) / HBM_BYTES_PER_S,
+        dkdv: 1e3 * max(
+            pairs * 4 * (hd + vd) * per_flop,
             (ins + stats + (k.numel() + v.numel()) * size) / HBM_BYTES_PER_S),
-        "flash_bwd_dq_wgmma": 1e3 * max(
-            pairs * 2 * (2 * hd + vd) / BF16_FLOPS_PER_S,
+        dq: 1e3 * max(
+            pairs * 2 * (2 * hd + vd) * per_flop,
             (ins + stats + q.numel() * size) / HBM_BYTES_PER_S)}
 
 
@@ -2185,8 +2214,7 @@ def phase_flash_bwd(torch, fa, ref, card) -> dict:
               + (f"{l_ms:.4f} ms" if l_ms is not None else "refused")
               + f"; max |kernel - plain| {err:.3e} (largest plain gradient "
               f"{top:.3e})  [{card}]")
-        bounds = (bwd_kernel_bounds(fa, q, k, v, kw)
-                  if dtype == torch.bfloat16 else {})
+        bounds = bwd_kernel_bounds(fa, q, k, v, kw)
         print(f"  by kernel (torch.profiler, device ms): " + (", ".join(
             f"{part} {ms:.4f}" + (f" ({bounds[part] / ms:.1%} of its "
                                   f"{bounds[part]:.4f} ms bound)"
@@ -5163,13 +5191,19 @@ def phase_tensor_parallel(torch, card, total_mem, tr) -> dict:
           f"{tp['loss1']:.5f} and {dp['losses'][0]:.5f}, {first:.2e} apart")
 
     # -- fp32: 2x2x2 against 2x2x1 ----------------------------------------
+    # the fp32 backward kernels' main path: every backward launch of these
+    # steps (hd 64) on the TF32 wgmma kernels, none on mma.sync or the plain
+    from repro_torch.kernels import flash_attn as fa
+    fa.bwd_launches = fa.bwd_tf32_launches = 0
+    plain_bwd: list = []
     for label, flags, layers in (
             ("tinyllama-1.1b", [], COMPARE_LAYERS),
             ("zamba2-1.2b", ["--arch", "zamba2-1.2b"], ZAMBA_TP_LAYERS)):
-        a = steps_of(torch, TP_TRAIN_FLAGS + flags, layers, 2,
-                     dtype=torch.float32)
-        b = steps_of(torch, DP_TRAIN_FLAGS + flags, layers, 2,
-                     dtype=torch.float32)
+        with counting_plain_bwd(plain_bwd):
+            a = steps_of(torch, TP_TRAIN_FLAGS + flags, layers, 2,
+                         dtype=torch.float32)
+            b = steps_of(torch, DP_TRAIN_FLAGS + flags, layers, 2,
+                         dtype=torch.float32)
         rel = max(abs(x - y) / abs(y) for x, y in zip(
             a["losses"] + a["norms"], b["losses"] + b["norms"]))
         check(rel <= TP_FP32_TOL, f"{label} fp32 2x2x2 vs 2x2x1: {rel}")
@@ -5179,6 +5213,12 @@ def phase_tensor_parallel(torch, card, total_mem, tr) -> dict:
               f"{rel:.2e} (tolerance {TP_FP32_TOL}); peaks "
               f"{a['peak'] / 2**30:.2f} and {b['peak'] / 2**30:.2f} GiB "
               f"[{card}]")
+    fp32_bwd, tf32_bwd = fa.bwd_launches, fa.bwd_tf32_launches
+    check(fp32_bwd > 0 and tf32_bwd == fp32_bwd and not plain_bwd,
+          f"fp32 steps: backward launches {fp32_bwd}, on the TF32 wgmma "
+          f"kernels {tf32_bwd}, plain backward calls {len(plain_bwd)}")
+    print(f"fp32 steps: {fp32_bwd} backward launches, all on "
+          f"flash_bwd_dkdv_tf32_kernel and flash_bwd_dq_tf32_kernel")
 
     # -- deepseek's experts split over model, bf16 -----------------------
     ds = ["--arch", "deepseek-v2-lite-16b"]
@@ -5210,7 +5250,8 @@ def phase_tensor_parallel(torch, card, total_mem, tr) -> dict:
           f"{a['peak'] / 2**30:.2f} and {b['peak'] / 2**30:.2f} GiB "
           f"[{card}]")
     print(f"phase 31: phase {time.perf_counter() - t_phase:.1f} s ({card})")
-    return dict(tp, dp_step_ms=dp["step_ms"], dp_peak=dp["peak"])
+    return dict(tp, dp_step_ms=dp["step_ms"], dp_peak=dp["peak"],
+                fp32_bwd_launches=tf32_bwd)
 
 
 def phase_dryrun(torch, card, wire: dict) -> None:
@@ -6840,7 +6881,7 @@ def main() -> int:
                 compare_layers=ZAMBA_COMPARE_LAYERS)
     phase_zamba_serve(torch, card, total_mem, args.seed)
     # -- tensor and expert parallelism over model ---------------------------
-    phase_tensor_parallel(torch, card, total_mem, tr)
+    tp = phase_tensor_parallel(torch, card, total_mem, tr)
     # -- the dry-run against the card, a head split, the examples ----------
     phase_dryrun(torch, card, dense_wire)
     phase_head_split(torch, card)
@@ -6864,6 +6905,19 @@ def main() -> int:
         check(part in tl["kernels_ms"], f"the profiler saw no {part} "
               f"kernel in the path's backward launch: {tl['kernels_ms']}")
         launches[f"{part}_kernel"] = trained["bwd_launches"]
+        figures[f"{part}_kernel"] = dict(
+            ms=tl["kernels_ms"][part], bound_ms=tl["kernel_bounds_ms"][part],
+            plain_ms=tl["plain_ms"], library_ms=None,
+            max_abs_err=max(tl["errs"][g] for g in grads))
+    # the fp32 dK/dV and dQ kernels (three TF32 products on wgmma): their
+    # launches those of phase 31's fp32 steps, their figures phase 7's at
+    # TinyLlama's fp32 launch on 2x2x2
+    for part, grads in (("flash_bwd_dkdv_tf32", ("dk", "dv")),
+                        ("flash_bwd_dq_tf32", ("dq",))):
+        tl = bwd_cases["tinyllama fp32 2x2x2"]
+        check(part in tl["kernels_ms"], f"the profiler saw no {part} "
+              f"kernel in the fp32 backward launch: {tl['kernels_ms']}")
+        launches[f"{part}_kernel"] = tp["fp32_bwd_launches"]
         figures[f"{part}_kernel"] = dict(
             ms=tl["kernels_ms"][part], bound_ms=tl["kernel_bounds_ms"][part],
             plain_ms=tl["plain_ms"], library_ms=None,
@@ -6898,7 +6952,10 @@ def main() -> int:
           "flash_bwd_dkdv_wgmma_kernel and flash_bwd_dq_wgmma_kernel are "
           "its bf16 dK/dV and dQ kernels in that launch (device time by "
           "the profiler, each against its own products' bound, plain_ms "
-          "the whole plain backward, no single library call)")
+          "the whole plain backward, no single library call); "
+          "flash_bwd_dkdv_tf32_kernel and flash_bwd_dq_tf32_kernel are its "
+          "fp32 ones (three TF32 products on wgmma) at TinyLlama's fp32 "
+          "launch on 2x2x2, their launches those of phase 31's fp32 steps")
     routes = [("tree_reduce_slots", "tree_reduce"),
               ("tree_reduce", "tree_reduce"), ("quantize", "quant"),
               ("dequantize", "quant"), ("dequant_accum_slots", "quant"),
@@ -6908,7 +6965,9 @@ def main() -> int:
               ("flash_fwd_tf32_kernel", "flash_attn"),
               ("flash_attention_bwd", "flash_bwd"),
               ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd"),
-              ("flash_bwd_dq_wgmma_kernel", "flash_bwd")]
+              ("flash_bwd_dq_wgmma_kernel", "flash_bwd"),
+              ("flash_bwd_dkdv_tf32_kernel", "flash_bwd"),
+              ("flash_bwd_dq_tf32_kernel", "flash_bwd")]
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=SOURCES[src],
         replaces=REPLACES[name], launches=launches[name],

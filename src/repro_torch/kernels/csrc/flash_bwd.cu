@@ -85,15 +85,38 @@
 // same order, so that without a cap the gradients keep that design's
 // bits.
 //
-// fp32 (flash_bwd_dkdv_kernel, flash_bwd_dq_kernel): mma.sync m16n8k8 in
-// TF32 from shared memory, eight warps, cp.async rings of two stages;
-// each operand split into a TF32 big and small part and each product
-// taken three times (small·big + big·small + big·big), the sums taken
-// from 0 over two 8-wide chunks and then added in fp32, the arithmetic of
-// flash_attn.cu's fp32 forward.  In the dK/dV kernel each warp computes
-// its slice of Sᵀ and dPᵀ and writes Pᵀ and dSᵀ to shared memory, and
-// after a barrier accumulates its slice of dV and dK; the dQ kernel keeps
-// dS in registers as the product's A operand.
+// fp32 (flash_bwd_dkdv_tf32_kernel, flash_bwd_dq_tf32_kernel; namespace
+// tf): the same block, producer and rings on wgmma in TF32
+// (m64nNk8.f32.tf32.tf32), each operand split into a TF32 big and small
+// part (cvt.rna) and each product taken three times, small·big +
+// big·small + big·big: what bounds it is three times the flops at TF32's
+// 495 TFLOP/s.  TF32 wgmma reads both shared-memory operands K-major
+// only (no transpose bit for 32-bit types), and TMA cannot transpose, so
+// the producer's warps 1-3 split each tile once as it lands: the big part
+// in place, the small part beside it and, for a tile that is also a
+// product's B operand along its rows (dK/dV: Q and dO, for dK += dSᵀ·Q
+// and dV += Pᵀ·dO; dQ: K, for dQ += dS·K), both parts transposed into
+// planes of 128-byte rows, the rows in each 8 permuted (slot()) as the
+// accumulator's columns become the register A operand; then it arrives
+// on the stage's "ready" mbarrier, which the consumers wait on.  A
+// consumer splits P and dS in registers.  dK/dV: 64 keys a block, both
+// consumers on them, taking alternate stages of 32 query rows (at hd
+// 128 halves of every stage of 16), their dK and dV added (consumer 0's
+// plus 1's) through shared memory at the end; dQ: two consumers of 64 rows (one at hd 128), 32
+// keys a stage (16 at hd 128).  S and dP sum in place over the head dim;
+// dV, dK and dQ sum from 0 over a tile (a consumer's 32 query rows, 8
+// at hd 128; a stage's 32 keys, 16 at hd 128) and are then added in
+// fp32: a tensor core aligns its addends to the largest and truncates, so
+// a sum kept in place over a whole sequence would lose about an ulp of
+// the total at every k-step, all one way (flash_attn.cu's fp32 forward
+// saw 5e-5 on the log-sum-exp from in-place sums at hd 256).  Held in place over the
+// head dim, S and dP stay within 1.4e-5 of the plain backward.  At
+// (256, 256) and (192, 128) the split K and V (256 and 160 KB at 64
+// keys) leave no room for a stage: those pairs keep flash_bwd_dkdv_kernel
+// and flash_bwd_dq_kernel, mma.sync m16n8k8 in TF32 from shared memory,
+// eight warps, cp.async rings of two stages, the sums taken from 0 over
+// two 8-wide chunks and then added in fp32 (the dK/dV kernel passes Pᵀ
+// and dSᵀ through shared memory between two barriers a tile).
 //
 // Masks are applied per element (p = 0) only on a tile that crosses an
 // edge, and tiles no row of the block sees are skipped; rows past Sq and
@@ -114,7 +137,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int STAGES = 2;  // cp.async ring depth of both fp32 kernels
+constexpr int STAGES = 2;  // cp.async ring depth of the wide pairs' fp32 kernels
 
 using hopper::ex2;  // 2^x on the SFU (ftz: a probability below 2^-126 is 0)
 using hopper::smem_u32;
@@ -153,16 +176,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
 }
 
 // ---------------------------------------------------------------------------
-// fp32's tensor-core route (mma.sync in TF32): a warp's fragments of A
+// fp32 at the wide pairs (mma.sync in TF32): a warp's fragments of A
 // (16 × K, row-major in shared memory), of B for one 8-wide n-tile
 // (stored n-major, "NK": row n holds B[·][n]; or k-major, "KN": row k
 // holds B[k][·]) and the product into an fp32 m16n8 accumulator (thread
 // (g = lane / 4, t = lane % 4) holds rows g and g + 8, columns 2t and
 // 2t + 1).
 // ---------------------------------------------------------------------------
-
-template <typename T>
-struct Mma;
 
 // x rounded to TF32 as cvt.rna.tf32.f32 rounds it (flash_attn.cu's f32::tf32)
 __device__ __forceinline__ uint32_t tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
@@ -181,8 +201,7 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <>
-struct Mma<float> {
+struct Mma {
   static constexpr int K = 8;
   static constexpr int PAD = 4;  // rows of d + 4 floats: a fragment's reads fall on 32 banks
   // mma depths a sum takes on the tensor cores from 0 before it is added
@@ -239,10 +258,10 @@ struct Mma<float> {
 
 // acc[n] += A (16 × KD at a, pitch lda) · B (KD × 8·NT at b, pitch ldb;
 // NK or KN as KN says)
-template <typename T, int KD, int NT, bool KN>
-__device__ __forceinline__ void warp_gemm(float (&acc)[NT][4], const T* a, int lda, const T* b,
+template <int KD, int NT, bool KN>
+__device__ __forceinline__ void warp_gemm(float (&acc)[NT][4], const float* a, int lda, const float* b,
                                           int ldb, int lane) {
-  using M = Mma<T>;
+  using M = Mma;
   constexpr int STEPS = KD / M::K;
   constexpr int CH = STEPS < M::CH ? STEPS : M::CH;
   static_assert(KD % M::K == 0 && STEPS % CH == 0, "depth");
@@ -272,10 +291,10 @@ __device__ __forceinline__ void warp_gemm(float (&acc)[NT][4], const T* a, int l
 
 // acc[n] += C (16 × KD, the warp's accumulator fragments c, as the A
 // operand) · B (KD × 8·NT, KN at b, pitch ldb)
-template <typename T, int KD, int NT>
+template <int KD, int NT>
 __device__ __forceinline__ void warp_gemm_c(float (&acc)[NT][4], const float (&cf)[KD / 8][4],
-                                            const T* b, int ldb, int lane) {
-  using M = Mma<T>;
+                                            const float* b, int ldb, int lane) {
+  using M = Mma;
   constexpr int STEPS = KD / M::K;
   constexpr int CH = STEPS < M::CH ? STEPS : M::CH;
   static_assert(KD % M::K == 0 && STEPS % CH == 0, "depth");
@@ -371,38 +390,35 @@ __global__ void __launch_bounds__(256) flash_bwd_dot_kernel(const __grid_constan
 // dK and dV: one block a (b, KV head, KT keys).
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD, int VD>
+template <int HD, int VD>
 struct KvShape {
-  static constexpr bool F32 = std::is_same<T, float>::value;
+  static_assert(HD + VD > 256, "the wide pairs; the others run tf's kernels");
   static constexpr int WARPS = 8, THREADS = 32 * WARPS;
-  // keys a block: 64 (32 keys at hd >= 192 took gemma2-2b's backward 16.2
-  // ms on an H100 against 13.8 at 64, and deepseek's 20.6 against 16.1:
-  // tools/flash_bwd_ab.py); 32 for fp32 at hd 256, whose 64 would not fit
-  static constexpr int KT = F32 && HD == 256 ? 32 : 64;
-  static constexpr int RG = KT / 16, CG = WARPS / RG;    // warps: key rows × column slices
-  static constexpr int QB = F32 && HD >= 128 ? 32 : 64;  // query rows a tile
-  static constexpr int PAD = Mma<T>::PAD;
+  static constexpr int KT = HD == 256 ? 32 : 64;  // keys a block (64 would not fit at hd 256)
+  static constexpr int RG = KT / 16, CG = WARPS / RG;  // warps: key rows × column slices
+  static constexpr int QB = 32;                        // query rows a tile
+  static constexpr int PAD = Mma::PAD;
   static constexpr int HP = HD + PAD, VP = VD + PAD, QP = QB + PAD;
   static constexpr int QW = QB / CG, DKW = HD / CG, DVW = VD / CG;  // a warp's columns
   static constexpr int STAGE = QB * (HP + VP);                      // Q, then dO
   static constexpr int ELEMS = KT * (HP + VP) + STAGES * STAGE + 2 * KT * QP;
-  static constexpr int SMEM = static_cast<int>(sizeof(T)) * ELEMS + 4 * STAGES * 2 * QB;
+  static constexpr int SMEM = 4 * ELEMS + 4 * STAGES * 2 * QB;
   static_assert(QW % 8 == 0 && DKW % 8 == 0 && DVW % 8 == 0, "column slices");
   static_assert(SMEM <= 232448, "shared memory");
 };
 
-template <typename T, int HD, int VD>
-__global__ void __launch_bounds__(256, HD <= 64 ? 2 : 1)
+template <int HD, int VD>
+__global__ void __launch_bounds__(256, 1)
     flash_bwd_dkdv_kernel(const __grid_constant__ Args a) {
-  using S = KvShape<T, HD, VD>;
+  using S = KvShape<HD, VD>;
   constexpr int KT = S::KT, QB = S::QB, HP = S::HP, VP = S::VP, QP = S::QP;
-  constexpr int EPC = 16 / sizeof(T);  // elements a 16-byte copy
+  constexpr int EPC = 4;  // elements a 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ksm = reinterpret_cast<T*>(smem);  // [KT][HP]
-  T* vsm = ksm + KT * HP;               // [KT][VP]
-  T* ring = vsm + KT * VP;              // [STAGES]: Q [QB][HP], dO [QB][VP]
-  T* psm = ring + STAGES * S::STAGE;    // Pᵀ [KT][QP]
-  T* dssm = psm + KT * QP;              // dSᵀ [KT][QP]
+  float* ksm = reinterpret_cast<float*>(smem);  // [KT][HP]
+  float* vsm = ksm + KT * HP;                   // [KT][VP]
+  float* ring = vsm + KT * VP;                  // [STAGES]: Q [QB][HP], dO [QB][VP]
+  float* psm = ring + STAGES * S::STAGE;        // Pᵀ [KT][QP]
+  float* dssm = psm + KT * QP;                  // dSᵀ [KT][QP]
   float* stats = reinterpret_cast<float*>(dssm + KT * QP);  // [STAGES]: lse [QB], D [QB]
 
   const int b = blockIdx.x / a.KV, kvh = blockIdx.x % a.KV;
@@ -417,28 +433,28 @@ __global__ void __launch_bounds__(256, HD <= 64 ? 2 : 1)
   const int nq = qend > qbeg ? (qend - qbeg + QB - 1) / QB : 0;
   const int ntiles = G * nq;
 
-  const T* kb = static_cast<const T*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
-  const T* vb = static_cast<const T*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
+  const float* kb = static_cast<const float*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
+  const float* vb = static_cast<const float*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
   constexpr int KC = HD / EPC, RC = (HD + VD) / EPC;
   for (int c = threadIdx.x; c < KT * RC; c += S::THREADS) {
     const int j = c / RC, w = c % RC, key = k0 + j;
     const bool in = key < a.Sk;
-    const T* src = w < KC ? kb + key * a.ks[1] + EPC * w : vb + key * a.vs[1] + EPC * (w - KC);
-    T* dst = w < KC ? ksm + j * HP + EPC * w : vsm + j * VP + EPC * (w - KC);
+    const float* src = w < KC ? kb + key * a.ks[1] + EPC * w : vb + key * a.vs[1] + EPC * (w - KC);
+    float* dst = w < KC ? ksm + j * HP + EPC * w : vsm + j * VP + EPC * (w - KC);
     cp_async16(dst, in ? src : kb, in ? 16 : 0);
   }
   // tile `it` (head kvh·G + it / nq, rows qbeg + (it % nq)·QB …) into its stage
   auto load_tile = [&](int it) {
     const int h = kvh * G + it / nq, q0 = qbeg + (it % nq) * QB;
-    T* qst = ring + (it % STAGES) * S::STAGE;
-    T* dst_o = qst + QB * HP;
-    const T* qb = static_cast<const T*>(a.q) + b * a.qs[0] + h * a.qs[2];
-    const T* db = static_cast<const T*>(a.dout) + b * a.ds[0] + h * a.ds[2];
+    float* qst = ring + (it % STAGES) * S::STAGE;
+    float* dst_o = qst + QB * HP;
+    const float* qb = static_cast<const float*>(a.q) + b * a.qs[0] + h * a.qs[2];
+    const float* db = static_cast<const float*>(a.dout) + b * a.ds[0] + h * a.ds[2];
     for (int c = threadIdx.x; c < QB * RC; c += S::THREADS) {
       const int j = c / RC, w = c % RC, row = q0 + j;
       const bool in = row < a.Sq;
-      const T* src = w < KC ? qb + row * a.qs[1] + EPC * w : db + row * a.ds[1] + EPC * (w - KC);
-      T* dst = w < KC ? qst + j * HP + EPC * w : dst_o + j * VP + EPC * (w - KC);
+      const float* src = w < KC ? qb + row * a.qs[1] + EPC * w : db + row * a.ds[1] + EPC * (w - KC);
+      float* dst = w < KC ? qst + j * HP + EPC * w : dst_o + j * VP + EPC * (w - KC);
       cp_async16(dst, in ? src : qb, in ? 16 : 0);
     }
     float* st = stats + (it % STAGES) * 2 * QB;
@@ -472,8 +488,8 @@ __global__ void __launch_bounds__(256, HD <= 64 ? 2 : 1)
     __syncthreads();  // everyone's (K and V too), and tile it - 1 is consumed
     if (it + 1 < ntiles) load_tile(it + 1);
     cp_commit();
-    const T* qst = ring + (it % STAGES) * S::STAGE;
-    const T* dost = qst + QB * HP;
+    const float* qst = ring + (it % STAGES) * S::STAGE;
+    const float* dost = qst + QB * HP;
     const float* st = stats + (it % STAGES) * 2 * QB;
     const int q0 = qbeg + (it % nq) * QB;
 
@@ -483,8 +499,8 @@ __global__ void __launch_bounds__(256, HD <= 64 ? 2 : 1)
     for (int n = 0; n < S::QW / 8; ++n)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[n][j] = dp[n][j] = 0.f;
-    warp_gemm<T, HD, S::QW / 8, false>(s, ksm + rg * 16 * HP, HP, qst + cg * S::QW * HP, HP, lane);
-    warp_gemm<T, VD, S::QW / 8, false>(dp, vsm + rg * 16 * VP, VP, dost + cg * S::QW * VP, VP,
+    warp_gemm<HD, S::QW / 8, false>(s, ksm + rg * 16 * HP, HP, qst + cg * S::QW * HP, HP, lane);
+    warp_gemm<VD, S::QW / 8, false>(dp, vsm + rg * 16 * VP, VP, dost + cg * S::QW * VP, VP,
                                        lane);
     const int qw0 = q0 + cg * S::QW, kw0 = k0 + rg * 16;
     const bool whole = all_visible(a, qw0, qw0 + S::QW - 1, kw0, kw0 + 15);
@@ -505,14 +521,14 @@ __global__ void __launch_bounds__(256, HD <= 64 ? 2 : 1)
       }
     __syncthreads();
     // dV += Pᵀ·dO and dK += dSᵀ·Q on keys rg·16 …, columns cg·DVW … / cg·DKW …
-    warp_gemm<T, QB, S::DVW / 8, true>(dv, psm + rg * 16 * QP, QP, dost + cg * S::DVW, VP, lane);
-    warp_gemm<T, QB, S::DKW / 8, true>(dk, dssm + rg * 16 * QP, QP, qst + cg * S::DKW, HP, lane);
+    warp_gemm<QB, S::DVW / 8, true>(dv, psm + rg * 16 * QP, QP, dost + cg * S::DVW, VP, lane);
+    warp_gemm<QB, S::DKW / 8, true>(dk, dssm + rg * 16 * QP, QP, qst + cg * S::DKW, HP, lane);
   }
   cp_wait<0>();
 
   // dK = scale · Σ dSᵀ·Q and dV, once, rows past Sk clipped
-  T* dkb = static_cast<T*>(a.dk) + (static_cast<long long>(b) * a.Sk * a.KV + kvh) * HD;
-  T* dvb = static_cast<T*>(a.dv) + (static_cast<long long>(b) * a.Sk * a.KV + kvh) * VD;
+  float* dkb = static_cast<float*>(a.dk) + (static_cast<long long>(b) * a.Sk * a.KV + kvh) * HD;
+  float* dvb = static_cast<float*>(a.dv) + (static_cast<long long>(b) * a.Sk * a.KV + kvh) * VD;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int key = k0 + rg * 16 + g + 8 * hf;
@@ -532,34 +548,29 @@ __global__ void __launch_bounds__(256, HD <= 64 ? 2 : 1)
 // dQ: one block a (b, head, QT query rows), a warp 16 rows.
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD, int VD>
+template <int HD, int VD>
 struct QShape {
-  static constexpr bool F32 = std::is_same<T, float>::value;
-  static constexpr int WARPS = F32 && HD >= 192 ? 4 : 8;
+  static_assert(HD + VD > 256, "the wide pairs; the others run tf's kernels");
+  static constexpr int WARPS = 4;
   static constexpr int THREADS = 32 * WARPS, QT = 16 * WARPS;
-  // keys a tile (fp32 at (192, 128) spilled at 32)
-  static constexpr int KB = HD <= 64 ? 64 : HD <= 128 || (!F32 && HD <= 192) ? 32 : 16;
-  // bf16 up to hd 64: two blocks an SM within 128 registers (at one, 196
-  // registers and 8.5 ms at TinyLlama's shape on an H100, at two 5.3 ms:
-  // tools/flash_bwd_ab.py); fp32 spills there, and is slower
-  static constexpr int MIN_BLOCKS = !F32 && HD <= 64 ? 2 : 1;
-  static constexpr int PAD = Mma<T>::PAD;
+  static constexpr int KB = 16;  // keys a tile ((192, 128) spilled at 32)
+  static constexpr int PAD = Mma::PAD;
   static constexpr int HP = HD + PAD, VP = VD + PAD;
   static constexpr int TILE = KB * (HP + VP);  // K, then V
-  static constexpr int SMEM = static_cast<int>(sizeof(T)) * (QT * (HP + VP) + STAGES * TILE);
+  static constexpr int SMEM = 4 * (QT * (HP + VP) + STAGES * TILE);
   static_assert(SMEM <= 232448, "shared memory");
 };
 
-template <typename T, int HD, int VD>
-__global__ void __launch_bounds__(QShape<T, HD, VD>::THREADS, QShape<T, HD, VD>::MIN_BLOCKS)
+template <int HD, int VD>
+__global__ void __launch_bounds__(QShape<HD, VD>::THREADS, 1)
     flash_bwd_dq_kernel(const __grid_constant__ Args a) {
-  using S = QShape<T, HD, VD>;
+  using S = QShape<HD, VD>;
   constexpr int KB = S::KB, QT = S::QT, HP = S::HP, VP = S::VP;
-  constexpr int EPC = 16 / sizeof(T);
+  constexpr int EPC = 4;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* qsm = reinterpret_cast<T*>(smem);  // [QT][HP]
-  T* dosm = qsm + QT * HP;              // [QT][VP]
-  T* ring = dosm + QT * VP;             // [STAGES]: K [KB][HP], V [KB][VP]
+  float* qsm = reinterpret_cast<float*>(smem);  // [QT][HP]
+  float* dosm = qsm + QT * HP;                  // [QT][VP]
+  float* ring = dosm + QT * VP;                 // [STAGES]: K [KB][HP], V [KB][VP]
 
   const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
   const int kvh = h / (a.H / a.KV);
@@ -573,29 +584,29 @@ __global__ void __launch_bounds__(QShape<T, HD, VD>::THREADS, QShape<T, HD, VD>:
   }
   const int ntiles = kend > kbeg ? (kend - kbeg + KB - 1) / KB : 0;
 
-  const T* kb = static_cast<const T*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
-  const T* vb = static_cast<const T*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
+  const float* kb = static_cast<const float*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
+  const float* vb = static_cast<const float*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
   constexpr int KC = HD / EPC, RC = (HD + VD) / EPC;
   auto load_tile = [&](int it) {
-    T* kst = ring + (it % STAGES) * S::TILE;
-    T* vst = kst + KB * HP;
+    float* kst = ring + (it % STAGES) * S::TILE;
+    float* vst = kst + KB * HP;
     const int key0 = kbeg + it * KB;
     for (int c = threadIdx.x; c < KB * RC; c += S::THREADS) {
       const int j = c / RC, w = c % RC, key = key0 + j;
       const bool in = key < kend;
-      const T* src = w < KC ? kb + key * a.ks[1] + EPC * w : vb + key * a.vs[1] + EPC * (w - KC);
-      T* dst = w < KC ? kst + j * HP + EPC * w : vst + j * VP + EPC * (w - KC);
+      const float* src = w < KC ? kb + key * a.ks[1] + EPC * w : vb + key * a.vs[1] + EPC * (w - KC);
+      float* dst = w < KC ? kst + j * HP + EPC * w : vst + j * VP + EPC * (w - KC);
       cp_async16(dst, in ? src : kb, in ? 16 : 0);
     }
   };
   {
-    const T* qb = static_cast<const T*>(a.q) + b * a.qs[0] + h * a.qs[2];
-    const T* db = static_cast<const T*>(a.dout) + b * a.ds[0] + h * a.ds[2];
+    const float* qb = static_cast<const float*>(a.q) + b * a.qs[0] + h * a.qs[2];
+    const float* db = static_cast<const float*>(a.dout) + b * a.ds[0] + h * a.ds[2];
     for (int c = threadIdx.x; c < QT * RC; c += S::THREADS) {
       const int j = c / RC, w = c % RC, row = q0 + j;
       const bool in = row < a.Sq;
-      const T* src = w < KC ? qb + row * a.qs[1] + EPC * w : db + row * a.ds[1] + EPC * (w - KC);
-      T* dst = w < KC ? qsm + j * HP + EPC * w : dosm + j * VP + EPC * (w - KC);
+      const float* src = w < KC ? qb + row * a.qs[1] + EPC * w : db + row * a.ds[1] + EPC * (w - KC);
+      float* dst = w < KC ? qsm + j * HP + EPC * w : dosm + j * VP + EPC * (w - KC);
       cp_async16(dst, in ? src : qb, in ? 16 : 0);
     }
   }
@@ -624,16 +635,16 @@ __global__ void __launch_bounds__(QShape<T, HD, VD>::THREADS, QShape<T, HD, VD>:
     if (it + 1 < ntiles) load_tile(it + 1);
     cp_commit();
     if (!live) continue;  // a warp past the last row
-    const T* kt = ring + (it % STAGES) * S::TILE;
-    const T* vt = kt + KB * HP;
+    const float* kt = ring + (it % STAGES) * S::TILE;
+    const float* vt = kt + KB * HP;
     const int t0 = kbeg + it * KB;
     float s[KB / 8][4], dsf[KB / 8][4];
 #pragma unroll
     for (int n = 0; n < KB / 8; ++n)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[n][j] = dsf[n][j] = 0.f;
-    warp_gemm<T, HD, KB / 8, false>(s, qsm + 16 * warp * HP, HP, kt, HP, lane);
-    warp_gemm<T, VD, KB / 8, false>(dsf, dosm + 16 * warp * VP, VP, vt, VP, lane);
+    warp_gemm<HD, KB / 8, false>(s, qsm + 16 * warp * HP, HP, kt, HP, lane);
+    warp_gemm<VD, KB / 8, false>(dsf, dosm + 16 * warp * VP, VP, vt, VP, lane);
     const int rw0 = q0 + 16 * warp;
     const bool whole = all_visible(a, rw0, rw0 + 15, t0, t0 + KB - 1);
 #pragma unroll
@@ -646,11 +657,11 @@ __global__ void __launch_bounds__(QShape<T, HD, VD>::THREADS, QShape<T, HD, VD>:
              dsf[n][e]);
       }
     // dQ += dS·K, the dS fragment as the A operand
-    warp_gemm_c<T, KB, HD / 8>(acc, dsf, kt, HP, lane);
+    warp_gemm_c<KB, HD / 8>(acc, dsf, kt, HP, lane);
   }
   cp_wait<0>();
   if (!live) return;
-  T* qo = static_cast<T*>(a.dq) + h * HD;
+  float* qo = static_cast<float*>(a.dq) + h * HD;
   const long long rs = static_cast<long long>(a.H) * HD;
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) {
@@ -1282,8 +1293,854 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// fp32: 3xTF32 on wgmma, fed by TMA; each tile split once in shared memory.
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+using namespace hopper;
+using wg::by_case;
+using wg::Consts;
+using wg::none_visible;
+using wg::prob_dt;
+using wg::ring_depth;
+
+constexpr int SPLITTERS = 96;  // the producer's warps 1-3 split what lands
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+
+// D (64 × N, fp32) (+)= A · B in TF32: A and B fp32 in shared memory, both
+// K-major (the only TF32 layout), or A in registers (m64k8: thread (g, t)
+// of warp w holds rows 16w + g and + 8, k-slots t and t + 4).
+__device__ __forceinline__ void wgmma_tf32_ss_n8(float (&d)[4], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3},"
+      " %4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss_n16(float (&d)[8], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 32) {
+    wgmma_tf32_ss_n32(d, da, db, accumulate);
+  } else if constexpr (N == 16) {
+    wgmma_tf32_ss_n16(d, da, db, accumulate);
+  } else {
+    static_assert(N == 8, "score tiles of 8 to 32 columns");
+    wgmma_tf32_ss_n8(d, da, db, accumulate);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 64) {
+    wgmma_tf32_rs_n64(d, a, db, accumulate);
+  } else if constexpr (N == 32) {
+    wgmma_tf32_rs_n32(d, a, db, accumulate);
+  } else {
+    static_assert(N == 16, "output chunks of 16 to 64 columns");
+    wgmma_tf32_rs_n16(d, a, db, accumulate);
+  }
+}
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (the file's tf32())
+__device__ __forceinline__ float rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// Byte offset of column c (< 32) of row r in a tile of 128-byte rows,
+// 128-byte swizzled (the TMA's layout, from a 1024-aligned base).
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ (r & 7)) << 4) | ((c & 3) << 2));
+}
+
+// The k-slot of row r in a transposed plane: in each 8, row 2u at slot u
+// and row 2u + 1 at slot u + 4, the order in which an accumulator's
+// columns become the register A operand (a_from_c's permutation).
+__device__ __forceinline__ int slot(int r) {
+  return (r & ~7) | ((r & 7) >> 1) | ((r & 1) << 2);
+}
+
+// The register A operand of one k-step from four accumulator values of
+// the thread (c[e], e = 0 .. 3: columns 2t, 2t + 1 of row g, then of row
+// g + 8) split into TF32 big and small parts: k-slot t takes column 2t,
+// k-slot t + 4 column 2t + 1 (slot()'s order).
+__device__ __forceinline__ void a_split(uint32_t (&big)[4], uint32_t (&small)[4],
+                                        const float (&c)[4]) {
+  const float x[4] = {c[0], c[2], c[1], c[3]};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float b = rna(x[e]);
+    big[e] = __float_as_uint(b);
+    small[e] = __float_as_uint(rna(x[e] - b));
+  }
+}
+
+// a where FIRST, else b (one name for either of two arrays)
+template <bool FIRST, typename A, typename B>
+__device__ __forceinline__ auto& pick(A& a, B& b) {
+  if constexpr (FIRST)
+    return a;
+  else
+    return b;
+}
+
+// Splits rows 0 .. R - 1 of a landed K-major tile of W real columns
+// (boxes of 32 columns, R · 128 bytes apart, at `raw`): each value x
+// becomes big = tf32(x) in place and small = tf32(x − big) at the same
+// offset from `sm`; with tb, also big and small transposed into the
+// planes tb and ts (row d holds column d, its k-slots the tile's rows in
+// slot() order).  Thread i of n; consecutive threads take consecutive
+// rows, so that both the 16-byte accesses and the transposed stores fall
+// on distinct banks.
+template <bool TRANSPOSE>
+__device__ __forceinline__ void split_tile(uint8_t* raw, uint8_t* sm, uint8_t* tb, uint8_t* ts,
+                                           int R, int W, int i, int n) {
+  for (int w = i; w < R * (W / 4); w += n) {
+    const int r = w % R, c4 = w / R;
+    const uint32_t off = (c4 / 8) * R * 128 + swz(r, (c4 % 8) * 4);
+    const float4 x = *reinterpret_cast<const float4*>(raw + off);
+    const float4 big = make_float4(rna(x.x), rna(x.y), rna(x.z), rna(x.w));
+    const float4 small =
+        make_float4(rna(x.x - big.x), rna(x.y - big.y), rna(x.z - big.z), rna(x.w - big.w));
+    *reinterpret_cast<float4*>(raw + off) = big;
+    *reinterpret_cast<float4*>(sm + off) = small;
+    if constexpr (TRANSPOSE) {
+      const int p = slot(r), d = 4 * c4;
+      *reinterpret_cast<float*>(tb + swz(d, p)) = big.x;
+      *reinterpret_cast<float*>(tb + swz(d + 1, p)) = big.y;
+      *reinterpret_cast<float*>(tb + swz(d + 2, p)) = big.z;
+      *reinterpret_cast<float*>(tb + swz(d + 3, p)) = big.w;
+      *reinterpret_cast<float*>(ts + swz(d, p)) = small.x;
+      *reinterpret_cast<float*>(ts + swz(d + 1, p)) = small.y;
+      *reinterpret_cast<float*>(ts + swz(d + 2, p)) = small.z;
+      *reinterpret_cast<float*>(ts + swz(d + 3, p)) = small.w;
+    }
+  }
+}
+
+// The splitters' hand-off: their stores made visible to wgmma (the async
+// proxy), then one arrival each.
+__device__ __forceinline__ void split_done(uint32_t bar) {
+  fence_async_shared();
+  mbar_arrive(bar);
+}
+
+template <int HD, int VD>
+struct Dims {
+  static constexpr int HDP = HD < 32 ? 32 : HD;  // padded to one 32-wide box
+  static constexpr int VDP = VD < 32 ? 32 : VD;
+  static constexpr int HC = HDP / 32, VC = VDP / 32;  // boxes a row
+  // the products' output chunks: 64 columns, or the whole dim below 64
+  static constexpr int NK = HD < 64 ? HD : 64, NV = VD < 64 ? VD : 64;
+  static constexpr int HN = HD / NK, VN = VD / NV;
+  static_assert(HD % 16 == 0 && VD % 16 == 0, "dims are multiples of 16");
+};
+
+// The dK/dV kernel's tiles: 64 keys a block, both consumers on them,
+// taking alternate stages of QB query rows whole (ALT), or at hd 128,
+// whose ring holds one stage (a consumer must not wait two phases of an
+// mbarrier ahead), each half of every stage; dK and dV of the block's
+// keys are summed over the two consumers at the end.  K and V split once
+// (big in place, small beside); a stage holds Q and dO as they land (big
+// in place after the split), their small parts, and both transposed (big
+// and small planes of 128-byte rows: at most 32 query rows).  Alternate
+// stages give each score wgmma 32 columns for the A tile it reads, not
+// 16: TinyLlama's fp32 launch on an H100 16.7 → 14.8 ms
+// (tools/flash_bwd_ab.py).
+template <int HD, int VD>
+struct KvTile : Dims<HD, VD> {
+  using D = Dims<HD, VD>;
+  static constexpr int KT = 64;
+  static constexpr int QB = D::HDP + D::VDP <= 128 ? 32 : 16;  // query rows a stage
+  static constexpr int K_BYTES = KT * D::HDP * 4, V_BYTES = KT * D::VDP * 4;
+  static constexpr int Q_BYTES = QB * D::HDP * 4, O_BYTES = QB * D::VDP * 4;
+  static constexpr int QT_BYTES = HD * 128, OT_BYTES = VD * 128;
+  // Q, small Q, dO, small dO, then Qᵀ big and small, dOᵀ big and small
+  static constexpr int STAGE = 2 * (Q_BYTES + O_BYTES + QT_BYTES + OT_BYTES);
+  static constexpr int STATS = 2 * QB * 4;  // lse · log2 e, then D
+  static constexpr int FIXED = 2 * (K_BYTES + V_BYTES);
+  static constexpr int RING = ring_depth(FIXED, STAGE + STATS + 24);
+  static constexpr int SMEM = 1024 + FIXED + RING * (STAGE + STATS) + 8 * (2 + 3 * RING);
+  static constexpr bool ALT = RING % wg::CONSUMERS == 0;
+  static constexpr int NQ = ALT ? QB : QB / 2;  // a consumer's rows a stage
+  // separate fresh sums for dV and dK a tile, or one shared (registers)
+  static constexpr bool ONE_TMP = HD + VD > 128 || (ALT && HD + VD == 128);
+  static_assert(RING >= 1 && SMEM <= wg::SMEM_MAX, "shared memory");
+  static_assert(64 * (HD + VD) * 4 <= FIXED, "the halves' exchange fits where K and V were");
+};
+
+// The dQ kernel's tiles: CQ consumers of 64 rows (one at hd 128, whose Q
+// and dO take 128 KB), KB keys a stage: K as it lands (big in place),
+// its small part, both transposed, V and its small part.
+template <int HD, int VD>
+struct QTile : Dims<HD, VD> {
+  using D = Dims<HD, VD>;
+  static constexpr int CQ = HD + VD <= 128 ? 2 : 1;
+  static constexpr int QT = 64 * CQ, THREADS = 128 * (CQ + 1);
+  static constexpr int KB = HD + VD <= 128 ? 32 : 16;  // keys a stage
+  static constexpr int Q_BYTES = QT * D::HDP * 4, O_BYTES = QT * D::VDP * 4;
+  static constexpr int K_BYTES = KB * D::HDP * 4, V_BYTES = KB * D::VDP * 4;
+  static constexpr int KT_BYTES = HD * 128;
+  // K, small K, V, small V, Kᵀ big and small
+  static constexpr int STAGE = 2 * (K_BYTES + V_BYTES + KT_BYTES);
+  static constexpr int FIXED = 2 * (Q_BYTES + O_BYTES);
+  static constexpr int RING = ring_depth(FIXED, STAGE + 24);
+  static constexpr int SMEM = 1024 + FIXED + RING * STAGE + 8 * (2 + 3 * RING);
+  static_assert(RING >= 1 && SMEM <= wg::SMEM_MAX, "shared memory");
+};
+
+// dK and dV: one block a (b, KV head, 64 keys).
+template <int HD, int VD>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    flash_bwd_dkdv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const __grid_constant__ Args a) {
+  using S = KvTile<HD, VD>;
+  constexpr int KT = S::KT, QB = S::QB, NQ = S::NQ, RING = S::RING;
+  constexpr int HC = S::HC, VC = S::VC, NK = S::NK, NV = S::NV, HN = S::HN, VN = S::VN;
+  constexpr int CONSUMERS = wg::CONSUMERS;
+  // byte offsets from the 1024-aligned base: K, small K, V, small V, then
+  // the ring; in a stage Q, small Q, dO, small dO, Qᵀ big and small, dOᵀ
+  // big and small
+  constexpr uint32_t KR = 0, KS = KR + S::K_BYTES, VR = KS + S::K_BYTES, VS = VR + S::V_BYTES;
+  constexpr uint32_t QR = 0, QS = QR + S::Q_BYTES, OR = QS + S::Q_BYTES, OS = OR + S::O_BYTES;
+  constexpr uint32_t QTB = OS + S::O_BYTES, QTS = QTB + S::QT_BYTES, OTB = QTS + S::QT_BYTES,
+                     OTS = OTB + S::OT_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gb = smem_raw + (base - raw);                // base, as a generic pointer
+  const uint32_t ring = base + S::FIXED;                // [RING] stages
+  const uint32_t sst = ring + RING * S::STAGE;          // [RING]: lse · log2 e [QB], D [QB]
+  float* stats = reinterpret_cast<float*>(smem_raw + (sst - raw));
+  const uint32_t kvbar = sst + RING * S::STATS;         // K and V landed
+  const uint32_t kvready = kvbar + 8;                   // K and V split
+  const uint32_t full = kvready + 8;                    // [RING] a stage landed
+  const uint32_t ready = full + 8 * RING;               // [RING] split, its stats written
+  const uint32_t empty = ready + 8 * RING;              // [RING] released
+
+  const int b = blockIdx.x / a.KV, kvh = blockIdx.x % a.KV;
+  const int G = a.H / a.KV;
+  const int k0 = blockIdx.y * KT;  // early (heavy, under a causal mask) tiles first
+  int qbeg = 0, qend = a.Sq;
+  if (a.causal) {
+    qbeg = min(k0, a.Sq);
+    if (a.window > 0) qend = min(a.Sq, k0 + KT - 1 + a.window);
+  }
+  const int nq = qend > qbeg ? (qend - qbeg + QB - 1) / QB : 0;
+  const int ntiles = G * nq;  // 0: no row sees the keys, dK = dV = 0
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    mbar_init(kvready, SPLITTERS);
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(ready + 8 * s, SPLITTERS + 32);  // and the stats' 32 lanes
+      mbar_init(empty + 8 * s, 4 * (S::ALT ? 1 : CONSUMERS));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * CONSUMERS) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+    if (ntiles == 0) return;
+    if (warp == 4 * CONSUMERS) {  // loads, and writes each stage's stats
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, S::K_BYTES + S::V_BYTES);
+#pragma unroll 1
+        for (int c = 0; c < HC; ++c) tma_load(base + KR + c * KT * 128, &tk, kvbar, 32 * c, kvh, k0, b, 0);
+#pragma unroll 1
+        for (int c = 0; c < VC; ++c) tma_load(base + VR + c * KT * 128, &tv, kvbar, 32 * c, kvh, k0, b, 0);
+      }
+#pragma unroll 1
+      for (int it = 0; it < ntiles; ++it) {
+        const int st = it % RING;
+        const int h = kvh * G + it / nq, q0 = qbeg + (it % nq) * QB;
+        if (it >= RING) mbar_wait(empty + 8 * st, (it / RING + 1) & 1);  // the previous round's
+        if (lane == 0) {
+          const uint32_t sb = ring + st * S::STAGE;
+          mbar_expect_tx(full + 8 * st, S::Q_BYTES + S::O_BYTES);
+#pragma unroll 1
+          for (int c = 0; c < HC; ++c) tma_load(sb + QR + c * QB * 128, &tq, full + 8 * st, 32 * c, h, q0, b, 0);
+#pragma unroll 1
+          for (int c = 0; c < VC; ++c)
+            tma_load(sb + OR + c * QB * 128, &tdo, full + 8 * st, 32 * c, h, q0, b, 0);
+        }
+        float* sts = stats + st * 2 * QB;
+        const long long lrow = (static_cast<long long>(b) * a.H + h) * a.Sq;
+        for (int i = lane; i < 2 * QB; i += 32) {
+          const int row = q0 + i % QB;
+          sts[i] = row >= a.Sq ? 0.f : i < QB ? a.lse[lrow + row] * LOG2E : a.dd[lrow + row];
+        }
+        mbar_arrive(ready + 8 * st);
+      }
+    } else {  // warps 1-3 split what lands: K and V once, then each stage
+      const int i = threadIdx.x - 128 * CONSUMERS - 32;
+      mbar_wait(kvbar, 0);
+      split_tile<false>(gb + KR, gb + KS, nullptr, nullptr, KT, HD, i, SPLITTERS);
+      split_tile<false>(gb + VR, gb + VS, nullptr, nullptr, KT, VD, i, SPLITTERS);
+      split_done(kvready);
+#pragma unroll 1
+      for (int it = 0; it < ntiles; ++it) {
+        const int st = it % RING;
+        mbar_wait(full + 8 * st, (it / RING) & 1);
+        uint8_t* sg = gb + S::FIXED + st * S::STAGE;
+        split_tile<true>(sg + QR, sg + QS, sg + QTB, sg + QTS, QB, HD, i, SPLITTERS);
+        split_tile<true>(sg + OR, sg + OS, sg + OTB, sg + OTS, QB, VD, i, SPLITTERS);
+        split_done(ready + 8 * st);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+
+  // a consumer warpgroup: the block's 64 keys (its fragment rows key0 and
+  // key1 = key0 + 8), query rows c0 .. c0 + NQ − 1 of a stage
+  const int wgi = warp / 4;
+  const int c0 = S::ALT ? 0 : wgi * NQ;
+  const int key0 = k0 + 16 * (warp % 4) + lane / 4, key1 = key0 + 8;
+  const int col = 2 * (lane % 4);
+  float dk[HN][NK / 2], dv[VN][NV / 2];
+#pragma unroll
+  for (int c = 0; c < HN; ++c)
+#pragma unroll
+    for (int i = 0; i < NK / 2; ++i) dk[c][i] = 0.f;
+#pragma unroll
+  for (int c = 0; c < VN; ++c)
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i) dv[c][i] = 0.f;
+  const Consts cs{a.scale * LOG2E, a.cap > 0.f ? a.scale / a.cap : 0.f, a.cap * LOG2E};
+  auto release = [&](int st) {
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+  };
+
+  if (ntiles > 0) mbar_wait(kvready, 0);
+#pragma unroll 1
+  for (int it = S::ALT ? wgi : 0; it < ntiles; it += S::ALT ? CONSUMERS : 1) {
+    const int st = it % RING;
+    const int q0 = qbeg + (it % nq) * QB, r0 = q0 + c0;  // the consumer's rows r0 …
+    const uint32_t sb = ring + st * S::STAGE;
+    const float* sts = stats + st * 2 * QB;
+    mbar_wait(ready + 8 * st, (it / RING) & 1);
+    if (none_visible(a, r0, r0 + NQ - 1, k0, k0 + KT - 1)) {
+      release(st);
+      continue;
+    }
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ in three TF32 products a k-step (small·big,
+    // big·small, big·big), two groups: P is formed while dPᵀ runs
+    float s[NQ / 2], dp[NQ / 2];
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < HD / 8; ++kc) {
+      const uint32_t ko = (kc / 4) * KT * 128 + (kc % 4) * 32;
+      const uint32_t qo = (kc / 4) * QB * 128 + c0 * 128 + (kc % 4) * 32;
+      wgmma_ss<NQ>(s, desc(base + KS + ko, 16, 1024), desc(sb + QR + qo, 16, 1024), kc > 0);
+      wgmma_ss<NQ>(s, desc(base + KR + ko, 16, 1024), desc(sb + QS + qo, 16, 1024), 1);
+      wgmma_ss<NQ>(s, desc(base + KR + ko, 16, 1024), desc(sb + QR + qo, 16, 1024), 1);
+    }
+    wg_commit();
+#pragma unroll
+    for (int kc = 0; kc < VD / 8; ++kc) {
+      const uint32_t ko = (kc / 4) * KT * 128 + (kc % 4) * 32;
+      const uint32_t oo = (kc / 4) * QB * 128 + c0 * 128 + (kc % 4) * 32;
+      wgmma_ss<NQ>(dp, desc(base + VS + ko, 16, 1024), desc(sb + OR + oo, 16, 1024), kc > 0);
+      wgmma_ss<NQ>(dp, desc(base + VR + ko, 16, 1024), desc(sb + OS + oo, 16, 1024), 1);
+      wgmma_ss<NQ>(dp, desc(base + VR + ko, 16, 1024), desc(sb + OR + oo, 16, 1024), 1);
+    }
+    wg_commit();
+    wg_wait<1>();  // Sᵀ
+    pin(s);
+
+    // Pᵀ split as the register A operand (k-step j: the consumer's query
+    // columns 8j …), and p · dt in place of Sᵀ; lse by query column
+    uint32_t pb[NQ / 8][4], ps[NQ / 8][4];
+    by_case(a.cap > 0.f, all_visible(a, r0, r0 + NQ - 1, k0, k0 + KT - 1),
+            [&](auto capped, auto masked) {
+              constexpr bool CAP = decltype(capped)::value, MASKED = decltype(masked)::value;
+#pragma unroll
+              for (int j = 0; j < NQ / 8; ++j) {
+                float pv[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int ql = c0 + 8 * j + col + (e & 1);  // the stage's row
+                  float dt;
+                  float p = prob_dt<CAP>(s[4 * j + e], sts[ql], cs, dt);
+                  if constexpr (MASKED) {
+                    if (!visible(a, q0 + ql, e & 2 ? key1 : key0)) p = 0.f;
+                  }
+                  pv[e] = p;
+                  s[4 * j + e] = CAP ? p * dt : p;
+                }
+                a_split(pb[j], ps[j], pv);
+              }
+            });
+    // dV += Pᵀ·dO, summed from 0 over the tile and added in fp32; dOᵀ's
+    // planes hold the stage's rows in slot() order
+    float dvt[VN][NV / 2];
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < VN; ++c) {
+        const uint32_t bo = c * NV * 128 + (c0 / 8 + j) * 32;
+        wgmma_rs<NV>(dvt[c], ps[j], desc(sb + OTB + bo, 16, 1024), j > 0);
+        wgmma_rs<NV>(dvt[c], pb[j], desc(sb + OTS + bo, 16, 1024), 1);
+        wgmma_rs<NV>(dvt[c], pb[j], desc(sb + OTB + bo, 16, 1024), 1);
+      }
+    wg_commit();
+    wg_wait<1>();  // dPᵀ
+    pin(dp);
+    // dSᵀ = p · dt · (dPᵀ − D), D by query column, split likewise
+    uint32_t db[NQ / 8][4], dsm[NQ / 8][4];
+#pragma unroll
+    for (int j = 0; j < NQ / 8; ++j) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = s[4 * j + e] * (dp[4 * j + e] - sts[QB + c0 + 8 * j + col + (e & 1)]);
+      a_split(db[j], dsm[j], v);
+    }
+    // dK += dSᵀ·Q likewise (hd 128: into dV's fresh sum once it is added)
+    float dkt_own[S::ONE_TMP ? 1 : HN][S::ONE_TMP ? 1 : NK / 2];
+    auto& dkt = pick<S::ONE_TMP>(dvt, dkt_own);
+    if constexpr (S::ONE_TMP) {
+      static_assert(HN == VN && NK == NV, "one fresh sum for dK and dV");
+      wg_wait<0>();
+#pragma unroll
+      for (int c = 0; c < VN; ++c) {
+        pin(dvt[c]);
+#pragma unroll
+        for (int i = 0; i < NV / 2; ++i) dv[c][i] += dvt[c][i];
+      }
+    }
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < HN; ++c) {
+        const uint32_t bo = c * NK * 128 + (c0 / 8 + j) * 32;
+        wgmma_rs<NK>(dkt[c], dsm[j], desc(sb + QTB + bo, 16, 1024), j > 0);
+        wgmma_rs<NK>(dkt[c], db[j], desc(sb + QTS + bo, 16, 1024), 1);
+        wgmma_rs<NK>(dkt[c], db[j], desc(sb + QTB + bo, 16, 1024), 1);
+      }
+    wg_commit();
+    wg_wait<0>();
+    pin(pb);
+    pin(ps);
+    pin(db);
+    pin(dsm);
+#pragma unroll
+    for (int c = 0; c < HN; ++c) {
+      pin(dkt[c]);
+#pragma unroll
+      for (int i = 0; i < NK / 2; ++i) dk[c][i] += dkt[c][i];
+    }
+    if constexpr (!S::ONE_TMP) {
+#pragma unroll
+      for (int c = 0; c < VN; ++c) {
+        pin(dvt[c]);
+#pragma unroll
+        for (int i = 0; i < NV / 2; ++i) dv[c][i] += dvt[c][i];
+      }
+    }
+    release(st);
+  }
+
+  // The halves summed, consumer 0's plus consumer 1's: consumer 1 hands
+  // over its dK and stores dV, consumer 0 hands over its dV and stores
+  // dK, through the space K and V took (every wgmma read of it is done).
+  // dK = scale · Σ dSᵀ·Q; rows past Sk clipped.
+  wg::bar_consumers();
+  float* xk = reinterpret_cast<float*>(gb);  // [HD / 2][128]: consumer 1's dK
+  float* xv = xk + (HD / 2) * 128;           // [VD / 2][128]: consumer 0's dV
+  const int tid = threadIdx.x % 128;
+  if (wgi == 1) {
+#pragma unroll
+    for (int c = 0; c < HN; ++c)
+#pragma unroll
+      for (int i = 0; i < NK / 2; ++i) xk[(c * NK / 2 + i) * 128 + tid] = dk[c][i];
+  } else {
+#pragma unroll
+    for (int c = 0; c < VN; ++c)
+#pragma unroll
+      for (int i = 0; i < NV / 2; ++i) xv[(c * NV / 2 + i) * 128 + tid] = dv[c][i];
+  }
+  wg::bar_consumers();
+  const long long row0 = (static_cast<long long>(b) * a.Sk + key0) * a.KV + kvh;
+  const long long row1 = row0 + 8LL * a.KV;
+  if (wgi == 0) {
+    float* out = static_cast<float*>(a.dk);
+#pragma unroll
+    for (int c = 0; c < HN; ++c)
+#pragma unroll
+      for (int i = 0; i < NK / 2; i += 4) {
+        const int d = c * NK + 8 * (i / 4) + col;
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = a.scale * (dk[c][i + e] + xk[(c * NK / 2 + i + e) * 128 + tid]);
+        if (key0 < a.Sk) store2(out + row0 * HD + d, v[0], v[1]);
+        if (key1 < a.Sk) store2(out + row1 * HD + d, v[2], v[3]);
+      }
+  } else {
+    float* out = static_cast<float*>(a.dv);
+#pragma unroll
+    for (int c = 0; c < VN; ++c)
+#pragma unroll
+      for (int i = 0; i < NV / 2; i += 4) {
+        const int d = c * NV + 8 * (i / 4) + col;
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = xv[(c * NV / 2 + i + e) * 128 + tid] + dv[c][i + e];
+        if (key0 < a.Sk) store2(out + row0 * VD + d, v[0], v[1]);
+        if (key1 < a.Sk) store2(out + row1 * VD + d, v[2], v[3]);
+      }
+  }
+}
+
+// dQ: one block a (b, head, QT query rows), a consumer 64 rows.
+template <int HD, int VD>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const __grid_constant__ Args a) {
+  using S = QTile<HD, VD>;
+  constexpr int KB = S::KB, QT = S::QT, CQ = S::CQ, RING = S::RING;
+  constexpr int HC = S::HC, VC = S::VC, NK = S::NK, HN = S::HN;
+  // Q, small Q, dO, small dO, then the ring; in a stage K, small K, V,
+  // small V, Kᵀ big and small
+  constexpr uint32_t QR = 0, QS = QR + S::Q_BYTES, OR = QS + S::Q_BYTES, OS = OR + S::O_BYTES;
+  constexpr uint32_t KR = 0, KS = KR + S::K_BYTES, VR = KS + S::K_BYTES, VS = VR + S::V_BYTES;
+  constexpr uint32_t KTB = VS + S::V_BYTES, KTS = KTB + S::KT_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gb = smem_raw + (base - raw);
+  const uint32_t ring = base + S::FIXED;
+  const uint32_t qbar = ring + RING * S::STAGE;  // Q and dO landed
+  const uint32_t qready = qbar + 8;              // Q and dO split
+  const uint32_t full = qready + 8;              // [RING] a stage landed
+  const uint32_t ready = full + 8 * RING;        // [RING] split
+  const uint32_t empty = ready + 8 * RING;       // [RING] released
+
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int kvh = h / (a.H / a.KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * QT;  // late (heavy) tiles first
+  const int qlast = min(q0 + QT, a.Sq) - 1;
+  int kbeg = 0, kend = a.Sk;
+  if (a.causal) {
+    kend = min(a.Sk, qlast + 1);
+    if (a.window > 0) kbeg = max(0, q0 - a.window + 1);
+  }
+  const int ntiles = kend > kbeg ? (kend - kbeg + KB - 1) / KB : 0;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    mbar_init(qready, SPLITTERS);
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(ready + 8 * s, SPLITTERS);
+      mbar_init(empty + 8 * s, 4 * CQ);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * CQ) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+    if (ntiles == 0) return;
+    if (warp == 4 * CQ) {  // one thread loads
+      if (lane == 0) {
+        mbar_expect_tx(qbar, S::Q_BYTES + S::O_BYTES);
+#pragma unroll 1
+        for (int c = 0; c < HC; ++c) tma_load(base + QR + c * QT * 128, &tq, qbar, 32 * c, h, q0, b, 0);
+#pragma unroll 1
+        for (int c = 0; c < VC; ++c) tma_load(base + OR + c * QT * 128, &tdo, qbar, 32 * c, h, q0, b, 0);
+#pragma unroll 1
+        for (int it = 0; it < ntiles; ++it) {
+          const int st = it % RING;
+          const int t0 = kbeg + it * KB;
+          const uint32_t sb = ring + st * S::STAGE;
+          if (it >= RING) mbar_wait(empty + 8 * st, (it / RING + 1) & 1);
+          mbar_expect_tx(full + 8 * st, S::K_BYTES + S::V_BYTES);
+#pragma unroll 1
+          for (int c = 0; c < HC; ++c) tma_load(sb + KR + c * KB * 128, &tk, full + 8 * st, 32 * c, kvh, t0, b, 0);
+#pragma unroll 1
+          for (int c = 0; c < VC; ++c) tma_load(sb + VR + c * KB * 128, &tv, full + 8 * st, 32 * c, kvh, t0, b, 0);
+        }
+      }
+    } else {  // warps 1-3 split what lands: Q and dO once, then each stage
+      const int i = threadIdx.x - 128 * CQ - 32;
+      mbar_wait(qbar, 0);
+      split_tile<false>(gb + QR, gb + QS, nullptr, nullptr, QT, HD, i, SPLITTERS);
+      split_tile<false>(gb + OR, gb + OS, nullptr, nullptr, QT, VD, i, SPLITTERS);
+      split_done(qready);
+#pragma unroll 1
+      for (int it = 0; it < ntiles; ++it) {
+        const int st = it % RING;
+        mbar_wait(full + 8 * st, (it / RING) & 1);
+        uint8_t* sg = gb + S::FIXED + st * S::STAGE;
+        split_tile<true>(sg + KR, sg + KS, sg + KTB, sg + KTS, KB, HD, i, SPLITTERS);
+        split_tile<false>(sg + VR, sg + VS, nullptr, nullptr, KB, VD, i, SPLITTERS);
+        split_done(ready + 8 * st);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+
+  // a consumer warpgroup: rows rlo .. rlo + 63, the thread's row0 and
+  // row1 = row0 + 8
+  const int wgi = warp / 4;
+  const int rlo = q0 + 64 * wgi;
+  const int row0 = rlo + 16 * (warp % 4) + lane / 4, row1 = row0 + 8;
+  const int col = 2 * (lane % 4);
+  const long long lrow = (static_cast<long long>(b) * a.H + h) * a.Sq;
+  const float lse0 = row0 < a.Sq ? a.lse[lrow + row0] * LOG2E : 0.f;
+  const float lse1 = row1 < a.Sq ? a.lse[lrow + row1] * LOG2E : 0.f;
+  const float d0 = row0 < a.Sq ? a.dd[lrow + row0] : 0.f;
+  const float d1 = row1 < a.Sq ? a.dd[lrow + row1] : 0.f;
+
+  float dq[HN][NK / 2];
+#pragma unroll
+  for (int c = 0; c < HN; ++c)
+#pragma unroll
+    for (int i = 0; i < NK / 2; ++i) dq[c][i] = 0.f;
+  const Consts cs{a.scale * LOG2E, a.cap > 0.f ? a.scale / a.cap : 0.f, a.cap * LOG2E};
+  auto release = [&](int st) {
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+  };
+
+  if (ntiles > 0) mbar_wait(qready, 0);
+#pragma unroll 1
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % RING;
+    const int t0 = kbeg + it * KB;
+    const uint32_t sb = ring + st * S::STAGE;
+    mbar_wait(ready + 8 * st, (it / RING) & 1);
+    if (none_visible(a, rlo, rlo + 63, t0, t0 + KB - 1)) {
+      release(st);
+      continue;
+    }
+    // S = Q·Kᵀ and dP = dO·Vᵀ in three TF32 products a k-step, two groups
+    float s[KB / 2], dp[KB / 2];
+    wg_fence();
+#pragma unroll
+    for (int kc = 0; kc < HD / 8; ++kc) {
+      const uint32_t qo = (kc / 4) * QT * 128 + wgi * 64 * 128 + (kc % 4) * 32;
+      const uint32_t ko = (kc / 4) * KB * 128 + (kc % 4) * 32;
+      wgmma_ss<KB>(s, desc(base + QS + qo, 16, 1024), desc(sb + KR + ko, 16, 1024), kc > 0);
+      wgmma_ss<KB>(s, desc(base + QR + qo, 16, 1024), desc(sb + KS + ko, 16, 1024), 1);
+      wgmma_ss<KB>(s, desc(base + QR + qo, 16, 1024), desc(sb + KR + ko, 16, 1024), 1);
+    }
+    wg_commit();
+#pragma unroll
+    for (int kc = 0; kc < VD / 8; ++kc) {
+      const uint32_t oo = (kc / 4) * QT * 128 + wgi * 64 * 128 + (kc % 4) * 32;
+      const uint32_t vo = (kc / 4) * KB * 128 + (kc % 4) * 32;
+      wgmma_ss<KB>(dp, desc(base + OS + oo, 16, 1024), desc(sb + VR + vo, 16, 1024), kc > 0);
+      wgmma_ss<KB>(dp, desc(base + OR + oo, 16, 1024), desc(sb + VS + vo, 16, 1024), 1);
+      wgmma_ss<KB>(dp, desc(base + OR + oo, 16, 1024), desc(sb + VR + vo, 16, 1024), 1);
+    }
+    wg_commit();
+    wg_wait<1>();  // S
+    pin(s);
+    // p · dt in place of S
+    by_case(a.cap > 0.f, all_visible(a, rlo, rlo + 63, t0, t0 + KB - 1),
+            [&](auto capped, auto masked) {
+              constexpr bool CAP = decltype(capped)::value, MASKED = decltype(masked)::value;
+#pragma unroll
+              for (int i = 0; i < KB / 2; ++i) {
+                float dt;
+                float p = prob_dt<CAP>(s[i], i & 2 ? lse1 : lse0, cs, dt);
+                if constexpr (MASKED) {
+                  if (!visible(a, i & 2 ? row1 : row0, t0 + 8 * (i / 4) + col + (i & 1))) p = 0.f;
+                }
+                s[i] = CAP ? p * dt : p;
+              }
+            });
+    wg_wait<0>();  // dP
+    pin(dp);
+    // dS = p · dt · (dP − D) split as the register A operand (k-step j:
+    // keys 8j …), then dQ += dS·K from Kᵀ's planes (keys in slot() order),
+    // summed from 0 over the tile and added in fp32
+    uint32_t db[KB / 8][4], dsm[KB / 8][4];
+#pragma unroll
+    for (int j = 0; j < KB / 8; ++j) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = s[4 * j + e] * (dp[4 * j + e] - (e & 2 ? d1 : d0));
+      a_split(db[j], dsm[j], v);
+    }
+    float dqt[HN][NK / 2];
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < KB / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < HN; ++c) {
+        const uint32_t bo = c * NK * 128 + j * 32;
+        wgmma_rs<NK>(dqt[c], dsm[j], desc(sb + KTB + bo, 16, 1024), j > 0);
+        wgmma_rs<NK>(dqt[c], db[j], desc(sb + KTS + bo, 16, 1024), 1);
+        wgmma_rs<NK>(dqt[c], db[j], desc(sb + KTB + bo, 16, 1024), 1);
+      }
+    wg_commit();
+    wg_wait<0>();
+    pin(db);
+    pin(dsm);
+#pragma unroll
+    for (int c = 0; c < HN; ++c) {
+      pin(dqt[c]);
+#pragma unroll
+      for (int i = 0; i < NK / 2; ++i) dq[c][i] += dqt[c][i];
+    }
+    release(st);
+  }
+
+  float* qo = static_cast<float*>(a.dq) + h * HD;
+  const long long rs = static_cast<long long>(a.H) * HD;
+#pragma unroll
+  for (int c = 0; c < HN; ++c)
+#pragma unroll
+    for (int i = 0; i < NK / 2; i += 4) {
+      const int d = c * NK + 8 * (i / 4) + col;
+      if (row0 < a.Sq)
+        store2(qo + (static_cast<long long>(b) * a.Sq + row0) * rs + d, a.scale * dq[c][i],
+               a.scale * dq[c][i + 1]);
+      if (row1 < a.Sq)
+        store2(qo + (static_cast<long long>(b) * a.Sq + row1) * rs + d, a.scale * dq[c][i + 2],
+               a.scale * dq[c][i + 3]);
+    }
+}
+
+// A (B, S, heads, dim) fp32 tensor's TMA map, read in boxes of 32 × rows
+// (128 bytes, 128-byte swizzled; hd 16 zero-filled to 32): st its (batch,
+// seq, head) element strides, 0 where the dim is 1 (wg::tma_map's rule).
+bool tma_map(CUtensorMap* m, const void* ptr, int B, int S, int heads, int dim, const long long* st,
+             int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  long long full[4];  // (outer, batch, seq, head)
+  long long inner = dim;
+  const int n[3] = {B, S, heads};
+  for (int d = 2; d >= 0; --d) {
+    full[1 + d] = n[d] > 1 ? st[d] : inner;
+    inner = full[1 + d] * n[d];
+  }
+  full[0] = inner;
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(dim), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B), 1};
+  const cuuint64_t strides[4] = {static_cast<cuuint64_t>(full[3]) * 4,
+                                 static_cast<cuuint64_t>(full[2]) * 4,
+                                 static_cast<cuuint64_t>(full[1]) * 4,
+                                 static_cast<cuuint64_t>(full[0]) * 4};
+  const cuuint32_t box[5] = {32, 1, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, const_cast<void*>(ptr), dims, strides, box,
+             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, int VD>
+cudaError_t launch(const Args& a, cudaStream_t s) {
+  using KS = KvTile<HD, VD>;
+  using QS = QTile<HD, VD>;
+  CUtensorMap kq, kk, kv, kdo, mq, mk, mv, mdo;
+  if (!tma_map(&kq, a.q, a.B, a.Sq, a.H, HD, a.qs, KS::QB) ||
+      !tma_map(&kk, a.k, a.B, a.Sk, a.KV, HD, a.ks, KS::KT) ||
+      !tma_map(&kv, a.v, a.B, a.Sk, a.KV, VD, a.vs, KS::KT) ||
+      !tma_map(&kdo, a.dout, a.B, a.Sq, a.H, VD, a.ds, KS::QB) ||
+      !tma_map(&mq, a.q, a.B, a.Sq, a.H, HD, a.qs, QS::QT) ||
+      !tma_map(&mk, a.k, a.B, a.Sk, a.KV, HD, a.ks, QS::KB) ||
+      !tma_map(&mv, a.v, a.B, a.Sk, a.KV, VD, a.vs, QS::KB) ||
+      !tma_map(&mdo, a.dout, a.B, a.Sq, a.H, VD, a.ds, QS::QT))
+    return cudaErrorInvalidValue;
+  const auto kvk = flash_bwd_dkdv_tf32_kernel<HD, VD>;
+  cudaError_t e = cudaFuncSetAttribute(kvk, cudaFuncAttributeMaxDynamicSharedMemorySize, KS::SMEM);
+  if (e != cudaSuccess) return e;
+  kvk<<<dim3(a.B * a.KV, (a.Sk + KS::KT - 1) / KS::KT), wg::THREADS, KS::SMEM, s>>>(kq, kk, kv,
+                                                                                  kdo, a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const auto dqk = flash_bwd_dq_tf32_kernel<HD, VD>;
+  e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, QS::SMEM);
+  if (e != cudaSuccess) return e;
+  dqk<<<dim3(a.B * a.H, (a.Sq + QS::QT - 1) / QS::QT), QS::THREADS, QS::SMEM, s>>>(mq, mk, mv, mdo,
+                                                                                   a);
+  return cudaGetLastError();
+}
+
+}  // namespace tf
+
 // D, then dK and dV, then dQ, on one stream: bf16 on wgmma, fp32 in
-// three TF32 products.
+// three TF32 products on wgmma (on mma.sync at the wide pairs).
 template <typename T, int HD, int VD>
 cudaError_t launch(const Args& a, cudaStream_t s) {
   const long long rows = static_cast<long long>(a.B) * a.H * a.Sq;
@@ -1292,17 +2149,19 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
   if (e != cudaSuccess) return e;
   if constexpr (std::is_same<T, bf16>::value) {
     return wg::launch<HD, VD>(a, s);
+  } else if constexpr (HD + VD <= 256) {
+    return tf::launch<HD, VD>(a, s);
   } else {
-    using KS = KvShape<T, HD, VD>;
-    const auto kv = flash_bwd_dkdv_kernel<T, HD, VD>;
+    using KS = KvShape<HD, VD>;
+    const auto kv = flash_bwd_dkdv_kernel<HD, VD>;
     e = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize, KS::SMEM);
     if (e != cudaSuccess) return e;
     kv<<<dim3(a.B * a.KV, (a.Sk + KS::KT - 1) / KS::KT), KS::THREADS, KS::SMEM, s>>>(a);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
 
-    using QS = QShape<T, HD, VD>;
-    const auto dq = flash_bwd_dq_kernel<T, HD, VD>;
+    using QS = QShape<HD, VD>;
+    const auto dq = flash_bwd_dq_kernel<HD, VD>;
     e = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, QS::SMEM);
     if (e != cudaSuccess) return e;
     dq<<<dim3(a.B * a.H, (a.Sq + QS::QT - 1) / QS::QT), QS::THREADS, QS::SMEM, s>>>(a);

@@ -55,9 +55,17 @@ without atomics, at every ``TC_DIMS`` pair.  bf16 runs
 ``flash_bwd_dkdv_wgmma_kernel`` and ``flash_bwd_dq_wgmma_kernel``:
 ``wgmma`` fed by TMA from a producer warpgroup, P and dS kept in
 registers as the products' A operand (at hd 256 the dK/dV kernel's two
-consumers share them through shared memory), tiles ``BWD_TILES``;
-fp32 ``mma.sync`` in three TF32 products.  ``bwd_launches`` counts its launches (one a
-backward).  Its plain version is ``ref.flash_attention_bwd``, which the
+consumers share them through shared memory), tiles ``BWD_TILES``.  fp32
+runs ``flash_bwd_dkdv_tf32_kernel`` and ``flash_bwd_dq_tf32_kernel``:
+the same structure on ``wgmma`` in TF32, each product taken three times
+(small·big + big·small + big·big), each landed tile split once in shared
+memory by the producer's other warps into its TF32 big and small parts
+and, where a product wants it, transposed (TF32 ``wgmma`` reads shared
+memory K-major only), tiles ``BWD_TF32_TILES``; at the wide pairs (256,
+256) and (192, 128), whose split K and V do not fit beside a stage,
+fp32 stays on ``mma.sync`` in three TF32 products.  ``bwd_launches``
+counts its launches (one a backward), ``bwd_tf32_launches`` those on the
+fp32 ``wgmma`` kernels alone.  Its plain version is ``ref.flash_attention_bwd``, which the
 tests and ``chip_smoke.py`` hold it against.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` at first use into
@@ -100,16 +108,19 @@ DECODE_SPLITS = 4096
 
 
 class BwdTiles(NamedTuple):
-    """The bf16 backward kernels' tiles at one ``(hd, vd)`` pair
-    (``csrc/flash_bwd.cu``'s ``wg::KvTile`` and ``wg::QTile``): the dK/dV
+    """The backward kernels' tiles at one ``(hd, vd)`` pair
+    (``csrc/flash_bwd.cu``'s ``KvTile`` and ``QTile``): the dK/dV
     kernel's keys a block and query rows a stage (its loop takes the
     group's heads in turn, each head's stages from the first row that
     sees the block's keys), the dQ kernel's query rows a block and keys a
-    stage (from the first key a row of the block sees)."""
+    stage (from the first key a row of the block sees); ``alternate``: the
+    fp32 dK/dV kernel's two consumers take alternate stages whole, else
+    (bf16, fp32 at hd 128) each its share of every stage."""
     keys: int
     rows: int
     dq_rows: int
     dq_keys: int
+    alternate: bool = False
 
 
 #: the bf16 backward kernels' tiles by ``(hd, vd)``: dK and dV of a
@@ -121,6 +132,17 @@ BWD_TILES = {(16, 16): BwdTiles(128, 64, 128, 128),
              (128, 128): BwdTiles(128, 64, 128, 64),
              (256, 256): BwdTiles(64, 64, 128, 32),
              (192, 128): BwdTiles(128, 32, 128, 64)}
+
+#: the fp32 backward kernels' tiles by ``(hd, vd)`` (``csrc/flash_bwd.cu``'s
+#: ``tf::KvTile`` and ``tf::QTile``): 64 keys a dK/dV block, its two
+#: consumers taking alternate stages of 32 rows (at hd 128, whose ring
+#: holds one stage, halves of every stage of 16); a dQ block of 128 rows
+#: (64 at hd 128, whose split Q and dO take 128 KB).  The wide pairs are
+#: not here: they run the ``mma.sync`` kernels.
+BWD_TF32_TILES = {(16, 16): BwdTiles(64, 32, 128, 32, True),
+                  (32, 32): BwdTiles(64, 32, 128, 32, True),
+                  (64, 64): BwdTiles(64, 32, 128, 32, True),
+                  (128, 128): BwdTiles(64, 16, 64, 16)}
 
 #: Kernel launches so far, either kernel; the wrapper adds one per launch
 #: and nothing else touches it but a caller that resets it.
@@ -136,6 +158,8 @@ decode_launches = 0
 #: The backward's launches (its three kernels count once), counted apart
 #: from ``launches``, which counts forward launches only.
 bwd_launches = 0
+#: The backward's launches on the fp32 TF32 ``wgmma`` kernels alone.
+bwd_tf32_launches = 0
 
 
 @functools.cache
@@ -528,7 +552,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     off 16 bytes) is copied first; MLA's strided ``v`` is read in place.
     Anything else raises, as does a mask under which a row sees no key.
     """
-    global bwd_launches
+    global bwd_launches, bwd_tf32_launches
     ts = (q, k, v, o, do)
     if any(t.device.type != "cuda" for t in (*ts, lse)):
         raise ValueError(f"flash_attention backward kernel needs CUDA "
@@ -586,6 +610,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"cudaError {err} for q {tuple(q.shape)} k "
                            f"{tuple(k.shape)} v {tuple(v.shape)} {q.dtype}")
     bwd_launches += 1
+    bwd_tf32_launches += (q.dtype == torch.float32
+                          and (hd, vd) in BWD_TF32_TILES)
     return dq, dk, dv
 
 

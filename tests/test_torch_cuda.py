@@ -874,9 +874,13 @@ def test_flash_function_gradient_at_mla_dims_on_cuda(cuda):
 #: against every tile (``flash_attn.BWD_TILES``: the bf16 dK/dV kernel's
 #: 64 or 128 keys a block, 64 keys a consumer and 32 or 64 query rows a
 #: stage, its dQ kernel's 128 rows a block, 64 a consumer and 32-128
-#: keys a stage; fp32's 32 or 64 keys and rows, 64 or 128 rows and 16-64
-#: keys), GQA 8/8, 8/2 and 8/1, a block of many query tiles under a
-#: window
+#: keys a stage; ``flash_attn.BWD_TF32_TILES``: the fp32 dK/dV kernel's 64
+#: keys a block and 32 query rows a stage (16 at hd 128), whole for one
+#: of two consumers in turn (half for each at hd 128),
+#: its dQ kernel's 128 rows a block (64 at hd 128) and 32 keys a stage (16
+#: at hd 128); at the wide pairs fp32's mma.sync kernels' 32 or 64 keys and
+#: rows, 64 or 128 rows and 16-64 keys), GQA 8/8, 8/2 and 8/1, a block of
+#: many query tiles under a window
 _BWD_CASES = ((2, 300, 300, 8, 8, True, 0.0, 0, 0),
               (1, 300, 300, 8, 2, True, 30.0, 100, 0),
               (2, 200, 333, 8, 2, False, 0.0, 0, 0),
@@ -892,7 +896,8 @@ _BWD_CASES = ((2, 300, 300, 8, 8, True, 0.0, 0, 0),
 @pytest.mark.parametrize("dims", fa.TC_DIMS, ids=str)
 def test_flash_backward_kernel_matches_plain_on_cuda(cuda, dtype, dims):
     """The backward kernels (``csrc/flash_bwd.cu``: bf16 on ``wgmma``,
-    fp32 in three TF32 products) at every ``TC_DIMS`` pair against their
+    fp32 in three TF32 products, on ``wgmma`` where ``BWD_TF32_TILES``
+    has the pair, else on ``mma.sync``) at every ``TC_DIMS`` pair against their
     plain version ``ref.flash_attention_bwd`` on the same inputs and the
     forward kernel's ``o`` and log-sum-exp: causal and not, cap and
     window, GQA 8/8, 8/2 and 8/1, ragged ``Sq`` and ``Sk``, ``Sq != Sk``,
@@ -911,7 +916,7 @@ def test_flash_backward_kernel_matches_plain_on_cuda(cuda, dtype, dims):
         do = torch.randn((b, sq, h, vd), generator=cuda, device="cuda").to(dt)
         kw = dict(causal=causal, scale=hd ** -0.5, attn_cap=cap, window=win)
         o, lse = fa.attention_fwd(q, k, v, **kw)
-        before = fa.bwd_launches
+        before, tf32_before = fa.bwd_launches, fa.bwd_tf32_launches
         with mock.patch.object(ref, "flash_attention_bwd",
                                side_effect=AssertionError("plain called")):
             got = fa.attention_bwd(q, k, v, o, lse, do, **kw)
@@ -921,6 +926,8 @@ def test_flash_backward_kernel_matches_plain_on_cuda(cuda, dtype, dims):
             viaf = torch.autograd.grad(out, ins, do)
         torch.cuda.synchronize()
         assert fa.bwd_launches == before + 3
+        assert fa.bwd_tf32_launches - tf32_before == 3 * (
+            dt == torch.float32 and dims in fa.BWD_TF32_TILES)
         for g, a, f in zip(got, again, viaf):
             assert _same_bits(g, a) and _same_bits(g, f)
         want = ref.flash_attention_bwd(q, k, v, lse, do, **kw)

@@ -25,6 +25,17 @@ points in fp32 arithmetic, its sums in the kernels' tile order
 against the reference's fp32 gradient it stays within half of the card's
 bound (each gradient within 2e-2 of its largest): the bound has margin
 before any chip run.
+
+The fp32 kernels take each product as three TF32 products (small·big +
+big·small + big·big, ``cvt.rna`` splits).  ``_tf32_kernel_emulation``
+repeats that arithmetic: the scores and dP summed in place over 8-wide
+k-steps, dV, dK and dQ summed from 0 over each tile (a consumer's share of
+a stage's query rows for dK and dV: alternate stages whole, or halves of
+each; a stage's keys for dQ) and then added in fp32, the two dK/dV
+consumers' sums added at the end, in the kernels' tile order
+(``flash_attn.BWD_TF32_TILES``).  Held against the jitted ``jax.vjp`` of
+``attend`` in fp32 it stays within 5e-5, half of the card's 1e-4, at the
+fp32 training paths' hd 32 and 64 and at every pair those kernels take.
 """
 import math
 
@@ -282,3 +293,162 @@ def test_meta_backward_refuses_a_row_without_a_key():
     out = ops.attention(q, kv, kv, causal=True, window=50)
     with pytest.raises(ValueError, match="without a key"):
         torch.autograd.grad(out, (q, kv), torch.ones_like(out))
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` through the int32 view (to nearest, ties away,
+    on the 13 low bits), as the kernels' ``rna`` rounds."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _sum3(a: torch.Tensor, b: torch.Tensor, acc=None) -> torch.Tensor:
+    """``acc + a @ b`` as a TF32 ``wgmma`` chain computes it: per 8-wide
+    k-step the three products small·big, big·small, big·big, each added to
+    the fp32 accumulator in place (from 0 where ``acc`` is None)."""
+    ab, bb = _tf32(a), _tf32(b)
+    asm, bsm = _tf32(a - ab), _tf32(b - bb)
+    for j in range(0, a.shape[-1], 8):
+        ks = slice(j, j + 8)
+        for x, y in ((asm, bb), (ab, bsm), (ab, bb)):
+            prod = x[:, ks] @ y[ks]
+            acc = prod if acc is None else acc + prod
+    return acc
+
+
+def _tf32_kernel_emulation(q, k, v, o, lse, do, *, causal, scale, cap,
+                           window):
+    """``csrc/flash_bwd.cu``'s fp32 ``wgmma`` kernels' arithmetic in fp32:
+    S and dP in three TF32 products summed in place over the head dim, P =
+    2^(s·scale·log2 e − lse·log2 e) (0 where masked), D = Σ dO·O, dS =
+    (P·(1 − tanh²))·(dP − D); dV += Pᵀ·dO and dK += dSᵀ·Q summed from 0
+    over each consumer's share of a stage (alternate stages whole, or
+    halves of each) and added in fp32, the group's
+    heads outermost, each head's stages from the first row that sees the
+    block, consumer 0's total plus consumer 1's; dQ += dS·K summed from 0
+    over each stage of keys.  q ``(Sq, H, hd)``, k ``(Sk, KV, hd)``, v
+    ``(Sk, KV, vd)``, o and do ``(Sq, H, vd)``, lse ``(H, Sq)``, fp32."""
+    sq, h, hd = q.shape
+    sk, kv, vd = v.shape
+    g = h // kv
+    t = fa.BWD_TF32_TILES[(hd, vd)]
+    rows, keys = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+    vis = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        vis = keys <= rows
+        if window:
+            vis &= keys > rows - window
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    sl = torch.tensor(scale, dtype=torch.float32) * log2e
+    ps, dss = [], []
+    for hh in range(h):
+        j = hh // g
+        x = _sum3(q[:, hh], k[:, j].T)
+        if cap:
+            th = torch.tanh(x * (scale / cap))
+            p = torch.exp2(th * (cap * log2e) - lse[hh][:, None] * log2e)
+            dt = 1 - th * th
+        else:
+            p = torch.exp2(x * sl - lse[hh][:, None] * log2e)
+            dt = torch.ones_like(p)
+        p = torch.where(vis, p, 0.0)
+        d = (do[:, hh] * o[:, hh]).sum(-1, keepdim=True)
+        ps.append(p)
+        dss.append((p * dt) * (_sum3(do[:, hh], v[:, j].T) - d))
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    # a consumer's (first row, rows) of each stage: the whole stage for
+    # one of the two in turn, or a half for each
+    share = (((0, t.rows),) if t.alternate else
+             ((0, t.rows // 2), (t.rows // 2, t.rows // 2)))
+    for k0 in range(0, sk, t.keys):
+        ks = slice(k0, k0 + t.keys)
+        qbeg, qend = 0, sq
+        if causal:
+            qbeg = min(k0, sq)
+            if window:
+                qend = min(sq, k0 + t.keys - 1 + window)
+        for j in range(kv):
+            part = [[0.0, 0.0], [0.0, 0.0]]  # consumer → (dK, dV)
+            it = 0
+            for hh in range(j * g, (j + 1) * g):
+                for q0 in range(qbeg, qend, t.rows):
+                    for c, (r0, n) in enumerate(share):
+                        c = it % 2 if t.alternate else c
+                        rs = slice(q0 + r0, min(q0 + r0 + n, sq))
+                        if rs.start >= rs.stop:
+                            continue
+                        part[c][0] = part[c][0] + _sum3(dss[hh][rs, ks].T,
+                                                        q[rs, hh])
+                        part[c][1] = part[c][1] + _sum3(ps[hh][rs, ks].T,
+                                                        do[rs, hh])
+                    it += 1
+            dk[ks, j] = scale * (part[0][0] + part[1][0])
+            dv[ks, j] = part[0][1] + part[1][1]
+    dq = torch.zeros_like(q)
+    for q0 in range(0, sq, t.dq_rows):
+        rs = slice(q0, q0 + t.dq_rows)
+        kbeg, kend = 0, sk
+        if causal:
+            kend = min(sk, min(q0 + t.dq_rows, sq))
+            if window:
+                kbeg = max(0, q0 - window + 1)
+        for hh in range(h):
+            j = hh // g
+            acc = torch.zeros_like(dq[rs, hh])
+            for t0 in range(kbeg, kend, t.dq_keys):
+                ts = slice(t0, min(t0 + t.dq_keys, sk))
+                acc = acc + _sum3(dss[hh][rs, ts], k[ts, j])
+            dq[rs, hh] = scale * acc
+    return dq, dk, dv
+
+
+#: the fp32 kernels' cases: (Sq, Sk, H, KV, hd, vd, causal, cap, window)
+TF32_CASES = {
+    "tinyllama fp32 hd 64, GQA 8/2": (160, 160, 8, 2, 64, 64, True, 0.0, 0),
+    "train_e2e hd 32": (64, 64, 2, 1, 32, 32, True, 0.0, 0),
+    "hd 16 cap 30, window": (150, 150, 4, 2, 16, 16, True, 30.0, 40),
+    "hd 128 cross": (96, 160, 4, 2, 128, 128, False, 0.0, 0),
+    "hd 128 causal, cap 50": (130, 130, 4, 4, 128, 128, True, 50.0, 0),
+}
+
+
+@pytest.mark.parametrize("name", list(TF32_CASES))
+def test_tf32_kernel_arithmetic_holds_half_the_card_bound(name):
+    """The fp32 ``wgmma`` kernels' arithmetic, emulated, against the
+    reference's fp32 gradient (the jitted ``jax.vjp`` of ``attend``): each
+    gradient within 5e-5, half of the card's 1e-4, at the fp32 training
+    paths' hd 32 and 64 and at every pair those kernels take; lengths
+    ragged against their 64-key blocks and 32-row or 32-key stages."""
+    sq, sk, h, kv, hd, vd, causal, cap, win = TF32_CASES[name]
+    case = (1, sq, sk, h, kv, hd, vd, causal, cap, win, 0)
+    xs = _draw(np.random.default_rng(11), case, "float32")
+    want = _jax_grads(xs, case, "float32", 0)
+    q, k, v, do = (torch.from_numpy(x[0]) for x in xs)
+    scale = base._scale(q, None)
+    o, lse = ref.flash_attention_bshd(q[None], k[None], v[None],
+                                      causal=causal, scale=scale,
+                                      attn_cap=cap, window=win)
+    got = _tf32_kernel_emulation(q, k, v, o[0], lse[0], do, causal=causal,
+                                 scale=scale, cap=cap, window=win)
+    for gr, w, what in zip(got, want, "qkv"):
+        err = float(np.abs(gr.numpy() - w[0]).max())
+        assert err <= 5e-5, (name, what, err)
+
+
+def test_bwd_tf32_tiles_cover_the_narrow_pairs():
+    """``BWD_TF32_TILES`` (the emulation's tile order) has the fp32
+    ``wgmma`` kernels' tiles at every ``TC_DIMS`` pair whose split K and V
+    fit beside a stage: all but (256, 256) and (192, 128), which stay on
+    the ``mma.sync`` kernels; 64 keys a dK/dV block, stages of at most 32
+    rows (a transposed plane's 128-byte row) in whole 8-row k-steps, taken
+    whole by alternate consumers where the ring holds an even number of
+    stages (not at hd 128, whose ring holds one), a dQ block of one or
+    two 64-row consumers and at most 32 keys a stage."""
+    assert set(fa.BWD_TF32_TILES) == {p for p in fa.TC_DIMS
+                                      if sum(p) <= 256}
+    for (hd, vd), t in fa.BWD_TF32_TILES.items():
+        assert t.keys == 64 and t.rows in (16, 32) and t.rows % 16 == 0
+        assert t.dq_rows in (64, 128) and t.dq_keys in (16, 32)
+        assert (t.rows, t.dq_rows, t.dq_keys, t.alternate) == (
+            (32, 128, 32, True) if hd + vd <= 128
+            else (16, 64, 16, False)), (hd, vd)
+    assert not any(t.alternate for t in fa.BWD_TILES.values())

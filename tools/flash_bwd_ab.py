@@ -2,7 +2,7 @@
 or more sources on one card, in one run, kernel by kernel.
 
     python3 tools/flash_bwd_ab.py [--source PATH ...] [--ab OLD NEW]
-                                  [--out FILE]
+                                  [--case TEXT ...] [--iters N] [--out FILE]
 
 Each ``--source`` is a version of ``csrc/flash_bwd.cu`` (the checkout's
 own by default), built with the headers beside it; each is built and
@@ -12,16 +12,24 @@ OLD.  The cases are the training paths' backward launches:
 TinyLlama's step (q ``(8, 4096, 32, 64)`` over 4 KV heads, bf16,
 causal), gemma2-2b's global attention (hd 256, cap 50), deepseek's MLA
 at ``(hd, vd)`` = (192, 128) with ``v`` a strided view, whisper's cross
-attention (4096 queries over 1500 keys, not causal) and an fp32 causal
-launch ``(4, 1024, 8, 64)``.  Inputs are drawn from a seed, the forward
-kernel gives ``o`` and the log-sum-exp.  Each case: the mean device time
+attention (4096 queries over 1500 keys, not causal), an fp32 causal
+launch ``(4, 1024, 8, 64)``, and the fp32 training paths' launches:
+TinyLlama on ``2x2x2`` (``(8, 4096, 16, 64)`` over 2 KV heads) and
+``examples_torch/train_e2e.py``'s (``(16, 64, 2, 32)`` over 1).  The
+forward kernel gives ``o`` and the log-sum-exp.  Each case: the mean device time
 of a backward by CUDA events over ``--iters`` launches queued behind a
 sleep on the card (``chip_smoke.cuda_ms``), the device time of each of
 its three kernels by ``torch.profiler`` (``flash_bwd_dot``, then bf16's
-``flash_bwd_dkdv_wgmma`` and ``flash_bwd_dq_wgmma`` or fp32's
-``flash_bwd_dkdv`` and ``flash_bwd_dq``), the bound (five products a
-visible pair at the card's peak, bf16 989 TFLOP/s, fp32 three TF32
-products at 495), and a hash of the gradients' bits.  Prints one JSON
+``flash_bwd_dkdv_wgmma`` and ``flash_bwd_dq_wgmma``, fp32's
+``flash_bwd_dkdv_tf32`` and ``flash_bwd_dq_tf32``, or at fp32's wide
+pairs ``flash_bwd_dkdv`` and ``flash_bwd_dq``), the bound (five products
+a visible pair at the card's peak, bf16 989 TFLOP/s, fp32 three TF32
+products at 495) and each kernel's (``chip_smoke.bwd_kernel_bounds``),
+and a hash of the gradients' bits (the inputs drawn from a seed of the
+case's own); each build's largest register count and spill, and each
+kernel's tensor-core instructions by ``cuobjdump -sass`` (TF32 and other
+``HGMMA``, ``HMMA``).  ``--case`` (repeated) keeps the cases whose name holds
+one of the strings given.  Prints one JSON
 object a line, the card's name and power limit first, and writes them
 to ``--out``.  Needs a CUDA card; exits 1 without one.
 """
@@ -50,18 +58,51 @@ CASES = (
      64, False, 0.0, 0, None),
     ("train fp32", "float32", (4, 1024, 8, 64), (4, 1024, 8, 64), 64, True,
      0.0, 0, None),
+    ("train TinyLlama fp32 2x2x2", "float32", (8, 4096, 16, 64),
+     (8, 4096, 2, 64), 64, True, 0.0, 0, None),
+    ("train_e2e fp32", "float32", (16, 64, 2, 32), (16, 64, 1, 32), 32, True,
+     0.0, 0, None),
 )
-KERNEL = re.compile(r"flash_bwd_(dot|dkdv_wgmma|dq_wgmma|dkdv|dq)_kernel")
+KERNEL = re.compile(
+    r"flash_bwd_(dot|dkdv_wgmma|dq_wgmma|dkdv_tf32|dq_tf32|dkdv|dq)_kernel")
 
 
-def child(source: str, iters: int) -> None:
+def sass_ops(lib: Path) -> dict:
+    """The tensor-core instructions of each kernel of ``lib`` by
+    ``cuobjdump -sass`` (beside nvcc): ``{kernel: {"HGMMA.TF32": n,
+    "HGMMA": n, "HMMA": n}}`` (``HGMMA`` counts the others), keyed by the
+    name ``KERNEL`` finds and the head dims; empty without cuobjdump."""
+    from repro_torch.kernels import build as kb
+    tool = Path(kb.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True).stdout
+    ops: dict = {}
+    cur = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            m = KERNEL.search(line)
+            dims = re.findall(r"Li(\d+)E", line)
+            cur = ops.setdefault(
+                f"{m.group(1)}<{','.join(dims)}>" if m else line.split()[-1],
+                {"HGMMA.TF32": 0, "HGMMA": 0, "HMMA": 0})
+        elif cur is not None:
+            if "HGMMA" in line:
+                cur["HGMMA.TF32" if ".TF32" in line else "HGMMA"] += 1
+            elif "HMMA" in line:
+                cur["HMMA"] += 1
+    return ops
+
+
+def child(source: str, iters: int, only: list) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "src"))
     from chip_smoke import (BF16_FLOPS_PER_S, HBM_BYTES_PER_S,
-                            TF32_FLOPS_PER_S, cuda_ms)
+                            TF32_FLOPS_PER_S, bwd_kernel_bounds, cuda_ms)
     from repro_torch.kernels import build as kb
     from repro_torch.kernels import flash_attn as fa
 
@@ -72,10 +113,15 @@ def child(source: str, iters: int) -> None:
     spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
     print(json.dumps({"source": source, "build": lib.name,
                       "registers_max": max(regs),
-                      "spill_stores_max": max(spills, default=0)}),
+                      "spill_stores_max": max(spills, default=0),
+                      "sass": sass_ops(lib)}),
           flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    for name, dtype, qs, ks, vd, causal, cap, win, v_in in CASES:
+    for i, (name, dtype, qs, ks, vd, causal, cap, win, v_in) in enumerate(
+            CASES):
+        if only and not any(w in name for w in only):
+            continue
+        # a seed a case: its inputs do not depend on which cases run
+        gen = torch.Generator(device="cuda").manual_seed(11 + i)
         dt = getattr(torch, dtype)
         q, k = (torch.randn(s, generator=gen, device="cuda").to(dt)
                 for s in (qs, ks))
@@ -114,6 +160,8 @@ def child(source: str, iters: int) -> None:
         bound = max(ops_s, fa.bytes_moved_bwd(q, k, v) / HBM_BYTES_PER_S)
         print(json.dumps({"source": source, "case": name, "ms": ms,
                           "kernels_ms": parts, "bound_ms": bound * 1e3,
+                          "kernel_bounds_ms": bwd_kernel_bounds(fa, q, k, v,
+                                                                kw),
                           "of_bound": bound * 1e3 / ms,
                           "bits": digest.hexdigest()[:16]}), flush=True)
         del q, k, v, do, o, lse
@@ -125,11 +173,12 @@ def main() -> int:
     ap.add_argument("--source", action="append", default=[])
     ap.add_argument("--ab", nargs=2, metavar=("OLD", "NEW"))
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--case", action="append", default=[])
     ap.add_argument("--out", default="results/flash_bwd_ab.jsonl")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.child, args.iters)
+        child(args.child, args.iters, args.case)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -150,7 +199,9 @@ def main() -> int:
     for src in sources:
         out = subprocess.run([sys.executable, __file__, "--child",
                               str(Path(src).resolve()), "--iters",
-                              str(args.iters)], env=env, capture_output=True,
+                              str(args.iters),
+                              *(f"--case={c}" for c in args.case)],
+                             env=env, capture_output=True,
                              text=True)
         sys.stdout.write(out.stdout)
         if out.returncode:
