@@ -83,13 +83,18 @@
    128 on the card against its dense
    CPU branch (the scale rounded to bf16 in both), and a bf16 query over
    fp32 K/V the same way (upcast, the fp32 kernel, bf16 out).  The decode
-   kernel (``DECODE_CASES``) in both dtypes at every ``TC_DIMS`` pair:
+   kernels (``DECODE_CASES``) in both dtypes at every ``TC_DIMS`` pair
+   (bf16 on ``flash_decode_mma_kernel``, counted by
+   ``decode_mma_launches``; fp32 on ``flash_decode_kernel``):
    G 1, 2, 8, 16 and 48, Sq 1 and 4, ragged ``kv_len``, the window inside
    and past the cache, cap 50, cross launches (not causal), one split and
-   many, fp32 keys and values off 16 bytes (4-byte copies); each launch
-   counted by ``decode_launches``, twice the same bits, against the plain
-   version and the plain version of its own splits
-   (``ref.flash_attention_split``).  Then
+   many, fp32 keys and values off 16 bytes (4-byte copies), and bf16 at
+   the most splits the plan gives (one (b, KV head) over 65536 keys: one
+   split an SM, joined through scratch), so that bf16 joins its splits
+   both in a cluster and through scratch; each launch counted by
+   ``decode_launches``, twice the same bits, against the plain version
+   and the plain version of its own splits (``ref.flash_attention_split``)
+   within one bf16 ulp (fp32 3e-5).  Then
    ``FLASH_MODEL_CASES``: every launch shape that the model paths give
    the kernel (TinyLlama's train step, prefill and decode; gemma2-2b's
    train step, prefill and decode, local and global, hd 256, cap 50,
@@ -517,6 +522,13 @@
    partial launch (a global layer) and its last windowed one (a local
    layer) against the plain version as in phase 35 (d); the same
    figures as phase 35.
+
+Phases 18–36 run under ``decode_gate``: every flash launch goes through
+a check that a bf16 decode-shaped one moved the bf16 decode kernel's
+counter (``decode_mma_launches``, set to 0 before phase 18) by one and
+any other launch by none; each serving phase with attention must make
+some, and the counter read after phase 36 is the JSON line's
+``flash_decode_mma_kernel`` launches.
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line
 of kernel figures, and as its last line ``{"ok": true, "device": ...}``.
@@ -1031,7 +1043,9 @@ REPLACES = {"tree_reduce_slots": "src/repro/kernels/tree_reduce.py:101",
             "flash_bwd_dkdv_wgmma_kernel": "src/repro/models/base.py:189",
             "flash_bwd_dq_wgmma_kernel": "src/repro/models/base.py:189",
             "flash_bwd_dkdv_tf32_kernel": "src/repro/models/base.py:189",
-            "flash_bwd_dq_tf32_kernel": "src/repro/models/base.py:189"}
+            "flash_bwd_dq_tf32_kernel": "src/repro/models/base.py:189",
+            "flash_bwd_dot_kernel": "src/repro/models/base.py:189",
+            "flash_decode_mma_kernel": "src/repro/kernels/flash_attn.py:86"}
 QBLOCK = 256
 #: the sparse path's fractions: the root densifies at 0.01, the level-1
 #: switches at 0.05 (``density_threshold`` 0.25)
@@ -1042,7 +1056,8 @@ SPARCML_K = 1
 KERNEL_NAME = re.compile(
     r"(tree_reduce|quantize|dequantize|dequant_accum|accum_sorted|"
     r"accum_scatter|zero|topk|flash_fwd_wgmma|flash_fwd_tf32|"
-    r"flash_decode_join|flash_decode|flash_bwd_dot|flash_bwd_dkdv_wgmma|"
+    r"flash_decode_join|flash_decode_mma|flash_decode|flash_bwd_dot|"
+    r"flash_bwd_dkdv_wgmma|"
     r"flash_bwd_dq_wgmma|flash_bwd_dkdv_tf32|flash_bwd_dq_tf32|"
     r"flash_bwd_dkdv|flash_bwd_dq)_kernel(<[^>]*>)?|"
     r"\w*gemm\w*|"
@@ -1674,12 +1689,15 @@ def decode_vs_plain(torch, fa, ref, q, k, v, kw: dict, label: str) -> tuple:
     n, b = (q.shape[0], q.shape[1]) if q.dim() == 5 else (1, q.shape[0])
     sq, h, hd = q.shape[-3:]
     sk, kvh, vd = k.shape[-3], k.shape[-2], v.shape[-1]
-    before = (fa.launches, fa.tc_launches, fa.decode_launches)
+    mma = q.dtype == torch.bfloat16
+    before = (fa.launches, fa.tc_launches, fa.decode_launches,
+              fa.decode_mma_launches)
     o, lse = fa.attention_fwd(q, k, v, **kw)
     again = fa.attention_fwd(q, k, v, **kw)
-    check((fa.launches, fa.tc_launches, fa.decode_launches) == (
-        before[0] + 2, before[1], before[2] + 2),
-        f"{label}: not on the decode kernel")
+    check((fa.launches, fa.tc_launches, fa.decode_launches,
+           fa.decode_mma_launches) == (
+        before[0] + 2, before[1], before[2] + 2, before[3] + 2 * mma),
+        f"{label}: not on the {'bf16' if mma else 'fp32'} decode kernel")
     check(same_bits(o, again[0]) and same_bits(lse, again[1]),
           f"{label}: the same launch gave other bits")
     shards = kw.get("shards")
@@ -1688,7 +1706,14 @@ def decode_vs_plain(torch, fa, ref, q, k, v, kw: dict, label: str) -> tuple:
         window=kw["window"], q_offset=kw.get("q_offset", 0),
         kv_len=kw.get("kv_len") or sk * (shards or 1), shards=shards)
     blocks = n * b * kvh
-    check(blocks * plan.splits >= min(2 * fa.SMS, blocks * plan.tiles),
+    if mma:   # every SM a block, unless a block would not fill its ring
+        # or the grid would outgrow one wave of the blocks SMs hold
+        want = min(fa.SMS, blocks * max(1, plan.tiles // fa.DECODE_STAGES),
+                   blocks * max(1, fa.SMS * fa.decode_blocks_per_sm(hd, vd)
+                                // blocks))
+    else:     # two blocks an SM where the tiles allow
+        want = min(2 * fa.SMS, blocks * plan.tiles)
+    check(blocks * plan.splits >= want,
           f"{label}: {blocks * plan.splits} blocks for {plan.tiles} tiles")
     res = partial_vs_plain(torch, fa, ref, (q, k, v, kw), label,
                            got=(o, lse))
@@ -1835,7 +1860,7 @@ def phase_flash_vs_plain(torch, ops, ref, fa, base) -> None:
     # the decode kernel, both dtypes at every TC_DIMS pair (DECODE_CASES),
     # and fp32 keys and values 4 bytes off 16 (the 4-byte copies)
     dec = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    dec_cases, splits = 0, set()
+    dec_cases, splits, joins = 0, set(), set()
     for dt in dec:
         for hd, vd in fa.TC_DIMS:
             for g, sq, sk, off, kvl, causal, cap, win in DECODE_CASES:
@@ -1852,6 +1877,8 @@ def phase_flash_vs_plain(torch, ops, ref, fa, base) -> None:
                                                   kw, label)
                 dec[dt] = max(dec[dt], err)
                 splits.add(plan.splits)
+                if dt == torch.bfloat16:
+                    joins.add(fa.decode_cluster(plan.splits, hd, vd, 4))
                 dec_cases += 1
                 if dt == torch.float32 and g == 8 and sq == 4:
                     ko, vo = (torch.randn((2, sk, 2, d + 1), generator=gen,
@@ -1875,12 +1902,35 @@ def phase_flash_vs_plain(torch, ops, ref, fa, base) -> None:
         check(plan.splits == 1, f"one tile took {plan.splits} splits")
         dec[dt] = max(dec[dt], err)
         dec_cases += 1
+    # bf16 at the most splits the plan gives (one block a split over 65536
+    # keys: one split an SM, joined through scratch), each TC_DIMS pair
+    for hd, vd in fa.TC_DIMS:
+        q = torch.randn((1, 1, 8, hd), generator=gen,
+                        device="cuda").bfloat16()
+        k = torch.randn((1, 65536, 1, hd), generator=gen,
+                        device="cuda").bfloat16()
+        v = torch.randn((1, 65536, 1, vd), generator=gen,
+                        device="cuda").bfloat16()
+        err, _, _, plan = decode_vs_plain(
+            torch, fa, ref, q, k, v, dict(causal=True, scale=hd ** -0.5,
+                                          attn_cap=0.0, window=0,
+                                          q_offset=65535, kv_len=65536),
+            f"decode bf16 {(hd, vd)} the most splits")
+        check(plan.splits == fa.SMS, f"{plan.splits} splits, not {fa.SMS}")
+        joins.add(fa.decode_cluster(plan.splits, hd, vd, 1))
+        splits.add(plan.splits)
+        dec[torch.bfloat16] = max(dec[torch.bfloat16], err)
+        dec_cases += 1
+    check(joins == {True, False}, "the bf16 decode launches did not take "
+          "both joins (in a cluster, through scratch)")
     cases += dec_cases
-    print(f"flash decode kernel vs plain: {dec_cases} launches (G 1, 2, 8, "
-          f"16 and 48, Sq 1 and 4, the masks, cross launches, fp32 and bf16 "
-          f"at {list(fa.TC_DIMS)}, {min(splits)} to {max(splits)} splits a "
-          f"launch), each twice with the same bits, against the plain version "
-          f"and the plain version of its splits: worst fp32 "
+    print(f"flash decode kernels vs plain: {dec_cases} launches (G 1, 2, "
+          f"8, 16 and 48, Sq 1 and 4, the masks, cross launches, fp32 on "
+          f"flash_decode_kernel and bf16 on flash_decode_mma_kernel at "
+          f"{list(fa.TC_DIMS)}, {min(splits)} to {max(splits)} splits a "
+          f"launch, bf16's joined in a cluster and through scratch), each "
+          f"twice with the same bits, against the plain version and the "
+          f"plain version of its splits: worst fp32 "
           f"{dec[torch.float32]:.3e}, bf16 {dec[torch.bfloat16]:.3e}")
     print(f"flash kernels vs plain: {cases} cases within tolerance (causal "
           "and not, cap 0 and 30, window 0 and 256, GQA 1, 4 and 8, ragged "
@@ -1919,6 +1969,51 @@ def path_flash(label: str):
         seen.add(flash_signature(q, k, v, **kw))
         return real(q, k, v, **kw)
     return mock.patch.object(fa, "attention_fwd", record)
+
+
+@contextlib.contextmanager
+def decode_gate(label: str, counts: dict):
+    """Every flash launch under ``label`` through a check: a bf16 launch
+    that ``flash_attn.decodes`` takes moves ``decode_mma_launches`` (the
+    bf16 decode kernel's counter) up by one, any other launch by none.
+    ``counts[label]``: the bf16 decode launches seen."""
+    import torch
+    from repro_torch.kernels import flash_attn as fa
+    real = fa.attention_fwd
+    seen = [0]
+
+    def gated(q, k, v, **kw):
+        before = fa.decode_mma_launches
+        out = real(q, k, v, **kw)
+        mma = q.dtype == torch.bfloat16 and fa.decodes(
+            q.shape[-2], k.shape[-2], q.shape[-3])
+        check(fa.decode_mma_launches == before + mma, f"{label}: a "
+              f"{'bf16 decode' if mma else 'flash'} launch of q "
+              f"{tuple(q.shape)} {q.dtype} moved the bf16 decode kernel's "
+              f"counter by {fa.decode_mma_launches - before}")
+        seen[0] += mma
+        return out
+    with mock.patch.object(fa, "attention_fwd", gated):
+        yield
+    counts[label] = seen[0]
+
+
+#: the phases whose serving runs make bf16 decode launches
+DECODE_PHASES = ("phase 18", "phase 20", "phase 21", "phase 23",
+                 "phase 24", "phase 26", "phase 30", "phase 35", "phase 36")
+
+
+def check_decode_gates(counts: dict, total: int) -> None:
+    """Every serving phase's bf16 decode launches went through
+    ``flash_decode_mma_kernel`` (``decode_gate``), each serving phase made
+    some, and the kernel's counter, set to 0 before phase 18, counts them
+    all."""
+    check(all(counts[p] > 0 for p in DECODE_PHASES)
+          and sum(counts.values()) == total, f"bf16 decode launches by "
+          f"phase {counts}, the kernel's counter {total}")
+    print(f"bf16 decode launches on flash_decode_mma_kernel, phases 18-36: "
+          f"{total} ({', '.join(f'{p} {n}' for p, n in counts.items() if n)})"
+          "; every one of them counted by the kernel's wrapper")
 
 
 def case_kw(torch, case) -> dict:
@@ -2182,6 +2277,17 @@ def phase_flash_bwd(torch, fa, ref, card) -> dict:
                        5)
         parts = bwd_kernel_ms(
             torch, lambda: fa.attention_bwd(q, k, v, o, lse, do, **kw))
+        # D alone (flash_bwd_dot_kernel) against its plain version
+        before = fa.dot_launches
+        dd = fa.attention_dot(o, do)
+        check(fa.dot_launches == before + 1 and same_bits(
+            dd, fa.attention_dot(o, do)), f"{name}: D's launches or bits")
+        d_err = float((dd - ref.flash_attention_dot(o, do)).abs().max())
+        d_top = float(ref.flash_attention_dot(o.abs(), do.abs()).max())
+        check(d_err <= 1e-5 * d_top, f"{name}: D {d_err} from plain, over "
+              f"1e-5 of its terms' {d_top}")
+        d_ms = cuda_ms(lambda: ref.flash_attention_dot(o, do), 5)
+        del dd
         p_ms = cuda_ms(lambda: ref.flash_attention_bwd(q, k, v, lse, do,
                                                        **kw), 1, warmup=1)
         torch.cuda.empty_cache()
@@ -2219,10 +2325,13 @@ def phase_flash_bwd(torch, fa, ref, card) -> dict:
             f"{part} {ms:.4f}" + (f" ({bounds[part] / ms:.1%} of its "
                                   f"{bounds[part]:.4f} ms bound)"
                                   if part in bounds else "")
-            for part, ms in sorted(parts.items())) or "not measured"))
+            for part, ms in sorted(parts.items())) or "not measured")
+              + f"; D alone vs its plain version {d_err:.3e}, the plain "
+              f"version {d_ms:.4f} ms")
         out[name] = dict(ms=k_ms, bound_ms=bound, plain_ms=p_ms,
                          library_ms=l_ms, max_abs_err=err, errs=errs,
-                         kernels_ms=parts, kernel_bounds_ms=bounds)
+                         kernels_ms=parts, kernel_bounds_ms=bounds,
+                         dot_plain_ms=d_ms, dot_err=d_err)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     print(f"phase 7 backward: {time.perf_counter() - t_phase:.1f} s ({card})")
@@ -2231,10 +2340,12 @@ def phase_flash_bwd(torch, fa, ref, card) -> dict:
 
 def phase_flash_model_cases(torch, fa, ref, card) -> dict:
     """Phase 7's model-path cases (``FLASH_MODEL_CASES``): flash against
-    its plain version at every batch row, one launch each (a decode-shaped
-    one, ``G·Sq <= 64``, on the decode kernel; else bf16 on the wgmma
-    kernel, fp32 on the 3xTF32 one, twice with the same bits and its
-    log-sum-exp within 3e-5 too), timed by CUDA events beside its bound
+    its plain version at every batch row (a decode-shaped one, ``G·Sq <=
+    64``, on a decode kernel, twice with the same bits, against the plain
+    version and the plain version of its splits: ``decode_vs_plain``;
+    else bf16 once on the wgmma kernel, fp32 on the 3xTF32 one, twice
+    with the same bits and its log-sum-exp within 3e-5 too), timed by
+    CUDA events beside its bound
     and ``scaled_dot_product_attention`` in the same dtype on the same
     boolean mask, or none where nothing is masked (SDPA takes no tanh
     cap: it is timed without one, and in fp32 its output is held against
@@ -2267,19 +2378,22 @@ def phase_flash_model_cases(torch, fa, ref, card) -> dict:
         fp32 = not (tc or dec)
         route = "decode" if dec else "wgmma" if tc else "3xTF32"
         before = (fa.launches, fa.tc_launches, fa.decode_launches,
-                  fa.fp32_launches)
+                  fa.fp32_launches, fa.decode_mma_launches)
         if fp32:
             err = fp32_vs_plain(torch, fa, ref, q, k, v, kw, name)
+        elif dec:   # twice, against the plain version and its splits'
+            err = decode_vs_plain(torch, fa, ref, q, k, v, kw, name)[0]
         else:
             got, _ = fa.attention_fwd(q, k, v, **kw)
         check((fa.launches, fa.tc_launches, fa.decode_launches,
-               fa.fp32_launches) == (
-            before[0] + 1 + fp32, before[1] + (tc and not dec),
-            before[2] + dec, before[3] + 2 * fp32),
+               fa.fp32_launches, fa.decode_mma_launches) == (
+            before[0] + 1 + fp32 + dec, before[1] + (tc and not dec),
+            before[2] + 2 * dec, before[3] + 2 * fp32,
+            before[4] + 2 * (tc and dec)),
             f"{name}: not on the {route} kernel")
         want, _ = ref.flash_attention_bshd(q, k, v, **kw)
         torch.cuda.synchronize()
-        if not fp32:
+        if not (fp32 or dec):
             err = flash_err(torch, got, want, v)
             del got
         if win and off + sq - 1 >= win:
@@ -5452,7 +5566,7 @@ def phase_flash_partial_vs_plain(torch, ref, fa) -> None:
             for d in fa.TC_DIMS]
     worst, keyless, count, twice = {}, 0, 0, 0
     before = (fa.partial_launches, fa.tc_launches, fa.decode_launches,
-              fa.fp32_launches)
+              fa.fp32_launches, fa.decode_mma_launches)
     for name, (hd, vd) in dims:
         dt = getattr(torch, name)
         k = torch.randn((n, 2, b, sk, kv, hd), generator=gen,
@@ -5485,7 +5599,9 @@ def phase_flash_partial_vs_plain(torch, ref, fa) -> None:
           == len(fa.TC_DIMS) * (len(cases) - decoded)
           and fa.fp32_launches - before[3] == 2 * twice
           == 2 * len(fa.TC_DIMS) * (len(cases) - decoded)
-          and fa.decode_launches - before[2] == len(dims) * decoded,
+          and fa.decode_launches - before[2] == len(dims) * decoded
+          and fa.decode_mma_launches - before[4]
+          == len(fa.TC_DIMS) * decoded,
           "partial flash: launch counters")
     print(f"flash partial launches vs plain (ref.flash_attention_partial): "
           f"{count} launches over 4 shards of 96 keys (2 data x 4 model "
@@ -6857,38 +6973,61 @@ def main() -> int:
     phase_ft_obs(torch, card, total_mem, args.seed)
     # -- the health plane, and serving ---------------------------------------
     phase_health(torch, card, total_mem, args.seed)
-    phase_serve(torch, card, total_mem, args.seed)
+    # phases 18-36 under decode_gate: every bf16 decode launch on
+    # flash_decode_mma_kernel, its counter set to 0 here and read at the end
+    fa.decode_mma_launches = 0
+    gated = {}
+    with decode_gate("phase 18", gated):
+        phase_serve(torch, card, total_mem, args.seed)
     # -- the other decoder-only models: gemma2 trained and served, qwen3 ----
-    phase_train(torch, card, total_mem, tr, GEMMA_TRAIN_FLAGS,
-                GEMMA_TRAIN_LAYERS, phase=19)
-    phase_gemma_serve(torch, card, total_mem, args.seed)
-    phase_qwen_serve(torch, card, total_mem, args.seed)
+    with decode_gate("phase 19", gated):
+        phase_train(torch, card, total_mem, tr, GEMMA_TRAIN_FLAGS,
+                    GEMMA_TRAIN_LAYERS, phase=19)
+    with decode_gate("phase 20", gated):
+        phase_gemma_serve(torch, card, total_mem, args.seed)
+    with decode_gate("phase 21", gated):
+        phase_qwen_serve(torch, card, total_mem, args.seed)
     # -- the rest of the transformer: deepseek trained and served, the VLM --
-    phase_train(torch, card, total_mem, tr, DEEPSEEK_TRAIN_FLAGS,
-                DEEPSEEK_TRAIN_LAYERS, phase=22)
-    phase_deepseek_serve(torch, card, total_mem, args.seed)
-    vlm = phase_vlm_serve(torch, card, total_mem, args.seed)
+    with decode_gate("phase 22", gated):
+        phase_train(torch, card, total_mem, tr, DEEPSEEK_TRAIN_FLAGS,
+                    DEEPSEEK_TRAIN_LAYERS, phase=22)
+    with decode_gate("phase 23", gated):
+        phase_deepseek_serve(torch, card, total_mem, args.seed)
+    with decode_gate("phase 24", gated):
+        vlm = phase_vlm_serve(torch, card, total_mem, args.seed)
     # -- the encoder-decoder and the attention-free model --------------------
-    phase_train(torch, card, total_mem, tr, WHISPER_TRAIN_FLAGS,
-                WHISPER_TRAIN_LAYERS, phase=25)
-    phase_whisper_serve(torch, card, total_mem, args.seed)
-    phase_train(torch, card, total_mem, tr, MAMBA_TRAIN_FLAGS,
-                MAMBA_TRAIN_LAYERS, phase=27)
-    phase_mamba_serve(torch, card, total_mem, args.seed)
+    with decode_gate("phase 25", gated):
+        phase_train(torch, card, total_mem, tr, WHISPER_TRAIN_FLAGS,
+                    WHISPER_TRAIN_LAYERS, phase=25)
+    with decode_gate("phase 26", gated):
+        phase_whisper_serve(torch, card, total_mem, args.seed)
+    with decode_gate("phase 27", gated):
+        phase_train(torch, card, total_mem, tr, MAMBA_TRAIN_FLAGS,
+                    MAMBA_TRAIN_LAYERS, phase=27)
+    with decode_gate("phase 28", gated):
+        phase_mamba_serve(torch, card, total_mem, args.seed)
     # -- the hybrid: zamba2 trained and served ------------------------------
-    phase_train(torch, card, total_mem, tr, ZAMBA_TRAIN_FLAGS,
-                ZAMBA_TRAIN_LAYERS, phase=29,
-                compare_layers=ZAMBA_COMPARE_LAYERS)
-    phase_zamba_serve(torch, card, total_mem, args.seed)
+    with decode_gate("phase 29", gated):
+        phase_train(torch, card, total_mem, tr, ZAMBA_TRAIN_FLAGS,
+                    ZAMBA_TRAIN_LAYERS, phase=29,
+                    compare_layers=ZAMBA_COMPARE_LAYERS)
+    with decode_gate("phase 30", gated):
+        phase_zamba_serve(torch, card, total_mem, args.seed)
     # -- tensor and expert parallelism over model ---------------------------
-    tp = phase_tensor_parallel(torch, card, total_mem, tr)
+    with decode_gate("phase 31", gated):
+        tp = phase_tensor_parallel(torch, card, total_mem, tr)
     # -- the dry-run against the card, a head split, the examples ----------
-    phase_dryrun(torch, card, dense_wire)
-    phase_head_split(torch, card)
-    phase_examples(torch, card)
+    with decode_gate("phases 32-34", gated):
+        phase_dryrun(torch, card, dense_wire)
+        phase_head_split(torch, card)
+        phase_examples(torch, card)
     # -- sharded serving: a sequence-split cache over model ------------------
-    sharded = phase_sharded_serve(torch, card, args.seed)
-    gemma_sharded = phase_gemma_sharded(torch, card, args.seed)
+    with decode_gate("phase 35", gated):
+        sharded = phase_sharded_serve(torch, card, args.seed)
+    with decode_gate("phase 36", gated):
+        gemma_sharded = phase_gemma_sharded(torch, card, args.seed)
+    launches["flash_decode_mma_kernel"] = fa.decode_mma_launches
+    check_decode_gates(gated, launches["flash_decode_mma_kernel"])
     check_path_flash(torch)
     check_path_bwd(torch)
     # the backward kernel: its launches those of phase 9's 5 steps, its
@@ -6922,6 +7061,22 @@ def main() -> int:
             ms=tl["kernels_ms"][part], bound_ms=tl["kernel_bounds_ms"][part],
             plain_ms=tl["plain_ms"], library_ms=None,
             max_abs_err=max(tl["errs"][g] for g in grads))
+    # D (flash_bwd_dot_kernel), once a backward: its launches those of
+    # phase 9's 5 steps, its figures the profiler's at the path's launch
+    tl = bwd_cases["tinyllama train"]
+    check("flash_bwd_dot" in tl["kernels_ms"], "the profiler saw no D "
+          f"kernel in the path's backward launch: {tl['kernels_ms']}")
+    launches["flash_bwd_dot_kernel"] = trained["bwd_launches"]
+    figures["flash_bwd_dot_kernel"] = dict(
+        ms=tl["kernels_ms"]["flash_bwd_dot"],
+        bound_ms=tl["kernel_bounds_ms"]["flash_bwd_dot"],
+        plain_ms=tl["dot_plain_ms"], library_ms=None,
+        max_abs_err=tl["dot_err"])
+    # the bf16 decode kernel: its launches those of phases 18-36, its
+    # figures phase 7's at TinyLlama's decode, against SDPA
+    check(flash_cases["tinyllama decode"]["route"] == "decode",
+          "TinyLlama's decode launch is not on a decode kernel")
+    figures["flash_decode_mma_kernel"] = flash_cases["tinyllama decode"]
     launches["flash_attention"] = (trained["launches"] + sharded["partial"]
                                    + gemma_sharded["partial"])
     figures["flash_attention"] = flash_figures(
@@ -6955,7 +7110,15 @@ def main() -> int:
           "the whole plain backward, no single library call); "
           "flash_bwd_dkdv_tf32_kernel and flash_bwd_dq_tf32_kernel are its "
           "fp32 ones (three TF32 products on wgmma) at TinyLlama's fp32 "
-          "launch on 2x2x2, their launches those of phase 31's fp32 steps")
+          "launch on 2x2x2, their launches those of phase 31's fp32 steps; "
+          "flash_bwd_dot_kernel is D = sum(dO * O) in that bf16 launch "
+          "(device time by the profiler against its bytes; launched alone "
+          "it is held against its plain fp32 sum, max_abs_err and "
+          "plain_ms), its launches those of phase 9's 5 steps; "
+          "flash_decode_mma_kernel (the bf16 decode kernel: mma.sync, a "
+          "TMA ring, the splits joined in a cluster) is one launch at "
+          "TinyLlama's decode (phase 7, against SDPA with the boolean "
+          "mask), its launches every bf16 decode launch of phases 18-36")
     routes = [("tree_reduce_slots", "tree_reduce"),
               ("tree_reduce", "tree_reduce"), ("quantize", "quant"),
               ("dequantize", "quant"), ("dequant_accum_slots", "quant"),
@@ -6967,14 +7130,18 @@ def main() -> int:
               ("flash_bwd_dkdv_wgmma_kernel", "flash_bwd"),
               ("flash_bwd_dq_wgmma_kernel", "flash_bwd"),
               ("flash_bwd_dkdv_tf32_kernel", "flash_bwd"),
-              ("flash_bwd_dq_tf32_kernel", "flash_bwd")]
+              ("flash_bwd_dq_tf32_kernel", "flash_bwd"),
+              ("flash_bwd_dot_kernel", "flash_bwd"),
+              ("flash_decode_mma_kernel", "flash_attn")]
+    by_bytes = ("flash_bwd_dot_kernel", "flash_decode_mma_kernel")
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", source=SOURCES[src],
         replaces=REPLACES[name], launches=launches[name],
         max_abs_err=figures[name]["max_abs_err"], ms=figures[name]["ms"],
         plain_ms=figures[name]["plain_ms"],
         bound_ms=figures[name]["bound_ms"],
-        bound_by="operations" if name.startswith("flash") else "bytes",
+        bound_by=("operations" if name.startswith("flash")
+                  and name not in by_bytes else "bytes"),
         library_ms=figures[name]["library_ms"]) for name, src in routes]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

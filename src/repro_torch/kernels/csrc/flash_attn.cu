@@ -39,62 +39,96 @@
 // read once, o and the log-sum-exp written once, 306 MB) take 0.09 ms at
 // 3.35 TB/s.
 //
-// A decode launch is bound by bytes instead, and has a kernel of its own
-// (flash_decode_kernel, below), which replaces these two kernels on every
-// launch whose KV group holds at most 64 query rows (G · Sq <= 64, G =
-// H / KV; every Sq = 1 decode, masked, cross or partial).  Each key and KV
-// head gives 2·(hd + vd) bytes of K and V and takes 2·(hd + vd)
-// operations for each of the group's G · Sq rows: at G <= 16 far fewer
-// operations a byte than even the CUDA cores' 20 (67 TFLOP/s over 3.35
-// TB/s).  TinyLlama's decode (B = 16, kv_len 1088, 32 heads over 4 KV
-// heads of 64, bf16) moves 17.8 MB (5.3 µs) for 0.14 GFLOP; gemma2-2b's
-// global decode (B = 2 over 6176 keys, 8 heads over 4 KV heads of 256)
-// 50.6 MB (15.1 µs) for 0.10 GFLOP.  The training kernels spent a block
-// of 128 query rows on one live row and read a group's K and V once for
-// each of its query heads, on a grid of B · H blocks (16 for gemma2-2b's
-// decode, on 132 SMs).  The decode kernel instead:
+// A decode launch is bound by bytes instead, and has kernels of its own,
+// which replace these two on every launch whose KV group holds at most 64
+// query rows (G · Sq <= 64, G = H / KV; every Sq = 1 decode, masked,
+// cross or partial).  Each key and KV head gives 2·(hd + vd) bytes of K
+// and V and takes 2·(hd + vd) operations for each of the group's G · Sq
+// rows: at G <= 16 far fewer operations a byte than even the CUDA cores'
+// 20 (67 TFLOP/s over 3.35 TB/s).  TinyLlama's decode (B = 16, kv_len
+// 1088, 32 heads over 4 KV heads of 64, bf16) moves 17.9 MB (5.4 µs) for
+// 0.14 GFLOP; gemma2-2b's global decode (B = 2 over 6176 keys, 8 heads
+// over 4 KV heads of 256) 50.6 MB (15.1 µs) for 0.10 GFLOP.  Both decode
+// kernels hold one (outer n, batch b, KV head) and one contiguous split
+// of the keys some of its rows can see in each block, all G · Sq query
+// rows of the group, so K and V are read from device memory once a
+// launch; only the visible range [lo, hi) (causal edge, window, kv_len,
+// the shard's base) is split, in whole tiles, by the plan the wrapper
+// passes in (flash_attn.py::decode_plan).  A split a row cannot see adds
+// exactly 0 (m = −inf); a row that sees no key of the launch (only under
+// shards) gets o = 0, lse = −inf; the splits join in a fixed order,
+// without atomics: the same launch gives the same bits.
 //
-// * holds one (outer n, batch b, KV head) and one contiguous split of the
-//   keys some of its rows can see in each block, all G · Sq query rows of
-//   the group in registers, so K and V are read from device memory once
-//   a launch.  Only the visible range [lo, hi) (causal edge, window,
-//   kv_len, the shard's base) is split, in whole tiles, into at least as
-//   many splits as give the grid two blocks an SM (the plan is
-//   flash_attn.py::decode_plan, which the wrapper passes in); KV heads
-//   run fastest in the grid, so blocks running together read neighbouring
-//   heads of the same keys;
-// * streams K and V through a ring of 3 stages of about 32 KB in dynamic
-//   shared memory by cp.async (16-byte copies, or 4-byte ones where an
-//   fp32 base or stride does not allow 16; keys past the split are
-//   zero-filled), two tiles in flight while one is used;
-// * computes in fp32 on the CUDA cores for both dtypes (bf16 scales the
-//   fp32 product, fp32 scales q first, as the kernels above do; scores in
-//   log2 units, ex2 on the SFU): a key is DL lanes wide, each lane holding
-//   hd / DL of q's and vd / DL of the output's values for RC rows, the
-//   score summed over the DL lanes by shuffles.  Up to 16 rows RC = 2 and
-//   DL = hd / 16, within 128 registers, so that two blocks share an SM;
-//   above, RC = 8 and DL = hd / 8 (DL = 16 at hd 192).  A warp scores 32
-//   / DL keys at once, two each, then updates each row's max and sum
-//   once; the cap's tanhf is computed once a score (one lane of the key's
-//   DL each, then shuffled), the mask only on batches of keys that cross
-//   an edge, and the output is rescaled only when some lane's max moved.
-//   Each group of lanes keeps its own online softmax state; the states
-//   meet at the end, first inside the warp (shuffles), then across the
-//   warps that share a row chunk (shared memory), in a fixed order.  No
-//   mma: the rows of a group are few;
-// * with more than one split, writes each row's fp32 partial (m, l, the
-//   unnormalised o) to scratch the wrapper allocates, and a second kernel
-//   (flash_decode_join_kernel) joins the splits in a fixed order, without
-//   atomics: the same launch gives the same bits.  A split a row cannot
-//   see adds exactly 0 (m = −inf); a row that sees no key of the launch
-//   (only under shards) gets o = 0, lse = −inf.  With one split the
-//   first kernel writes o and lse itself.
+// bf16 (flash_decode_mma_kernel, namespace dmma) answers what held the
+// CUDA-core design below, in bf16, at 1.1–3.1 times SDPA's time on the
+// serving paths' launches:
 //
-// What holds it (measured on an H100 80GB HBM3 at 700 W, PERF.md §6):
-// the stream of K and V alone, with the arithmetic taken out, reaches
-// about 2 TB/s on these layouts (a key's 128-512 bytes a KV head, 2 KB
-// apart); at 8 or more rows the arithmetic adds as much again, most of
-// it bf16 conversions and shuffles repeated in each row chunk's warps.
+// * arithmetic on the CUDA cores, repeated for each row chunk: the
+//   scores and P·V run on the tensor cores (mma.sync.m16n8k16, bf16 in,
+//   fp32 accumulate).  The group's rows, padded to m16 tiles (1, 2 or 4),
+//   are S = Q·Kᵀ's A operand, loaded once into registers; K's rows come
+//   from shared memory by ldmatrix, V's by ldmatrix.trans as P·V's B
+//   operand, so an element is read once a block where the rows fit one
+//   tile (every model decode) and never converted on the CUDA cores.  S's
+//   accumulator fragments are P's A operand as they stand, split as P_hi
+//   = bf16(p) and P_lo = bf16(p − P_hi), two products into one fp32
+//   accumulator (flash_fwd_wgmma_kernel's split: a single bf16 P would
+//   move o by about 2^-15 · max|v| over thousands of keys).  Not wgmma:
+//   it takes 64 rows, 4–64 times a decode group's, and these launches are
+//   bound by bytes; the tensor cores are here to take the arithmetic off
+//   the CUDA cores, not for their rate.  Four consumer warps: warp w
+//   holds m tile w % MT and takes the key tiles it ≡ w / MT of the split
+//   (mod 4 / MT), each with its own online softmax, joined in slice order
+//   through shared memory at the end;
+// * copies that cost instructions, and blocks too short to fill a ring:
+//   one producer warp keeps a ring of 8 stages (two a consumer) in
+//   flight by TMA, one 5-D map for K and one for V a launch (hopper.cuh's
+//   make_map, 128-byte swizzle, 64-wide boxes, hd 16 and 32 zero-filled
+//   to 64), a stage a tile of 32 keys up to hd 128 (8 KB of K and V to
+//   hd 64, 16 KB at 128), 16 above (16 KB at hd 256), with a "full" and
+//   an "empty" mbarrier.  Rows of V past the split are zeroed in shared
+//   memory before use (P is 0 there, and 0 · a NaN in a cache's
+//   unwritten rows would not be).  The plan gives each block at least as
+//   many tiles as the ring has stages where the keys allow, and every SM
+//   a block, but never more blocks than the SMs hold at once (two an SM,
+//   one at hd 128 and 256, whose rings take 128 KB); where more blocks
+//   see keys than that, the split count whose waves take the fewest tile
+//   times.  Measured, a box's fixed cost outweighs smaller boxes, and
+//   more lanes issuing them or 256-byte L2 promotion gain nothing;
+// * a second launch for every split decode: the splits of one (n, b, KV
+//   head) are one thread block cluster (cudaLaunchKernelEx), and after a
+//   cluster barrier each block joins every splits-th output of the group
+//   from all the splits' (m, l, unnormalised O) through distributed
+//   shared memory, in split order: no partials in device memory, no
+//   second kernel.  At more than 8 splits (the portable cluster), or
+//   where clusters of more than two would take over three quarters of
+//   the blocks the SMs hold (a cluster's blocks must find room in one GPC
+//   at once; near a full card they waited), the splits write fp32
+//   partials and flash_decode_join_kernel joins them (the plan picks by
+//   the shape).
+//
+// fp32 (flash_decode_kernel, namespace dec) keeps the first decode
+// kernel's design, which beats SDPA's fp32 by 11.7 times on the VLM's
+// cross decode:
+//
+// * a ring of 3 stages of about 32 KB in dynamic shared memory by
+//   cp.async (16-byte copies, or 4-byte ones where a base or stride does
+//   not allow 16; keys past the split are zero-filled);
+// * fp32 on the CUDA cores (q scaled first; scores in log2 units, ex2 on
+//   the SFU): a key is DL lanes wide, each lane holding hd / DL of q's
+//   and vd / DL of the output's values for RC rows, the score summed over
+//   the DL lanes by shuffles.  Up to 16 rows RC = 2 and DL = hd / 16;
+//   above, RC = 8 and DL = hd / 8 (DL = 16 at hd 192).  Each group of
+//   lanes keeps its own online softmax state; the states meet at the end,
+//   inside the warp, then across the warps of a row chunk in warp order;
+// * with more than one split, fp32 partials in scratch and the join
+//   kernel.
+//
+// Measured (PERF.md §6, an H100 80GB HBM3 at 700 W): tools/flash_ab.py
+// --tree OLD/src --tree src --tree src --tree OLD/src times each decode
+// launch beside SDPA and its byte bound in one run; tools/flash_ab.py
+// --sweep times the bf16 launches at forced split counts and both joins,
+// and tools/decode_variants.py the ring's shape and the grid's order.
 //
 // Keys that no row sees are never loaded, and the rows' masked keys add
 // exactly 0, as in the kernels above (exact whenever a row sees a key).
@@ -640,8 +674,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const Args& a, i
 
 
 // ---------------------------------------------------------------------------
-// The decode kernel: one block a (n, b, KV head, key split), fp32 on the
-// CUDA cores, both dtypes (the note at the top of this file).
+// The fp32 decode kernel: one block a (n, b, KV head, key split), fp32 on
+// the CUDA cores (the note at the top of this file).
 // ---------------------------------------------------------------------------
 
 namespace dec {
@@ -673,7 +707,7 @@ struct Args {
   int R;       // query rows a block: G · Sq, row r = g · Sq + i
   int wk;      // warps sharing a row chunk (the chunks are WARPS / wk)
   int tile, tiles, splits;  // keys a stage; tiles of the widest range; splits
-  int vec16;   // 16-byte copies (else 4-byte, fp32 only)
+  int vec16;   // 16-byte copies (else 4-byte)
 };
 
 // Lanes a key for RC rows a warp: hd / 16 (a lane holds 16 of q's and of
@@ -687,68 +721,34 @@ __host__ __device__ constexpr int lanes(int hd, int rc) {
 // of every lane group of a warp), about TILE_BYTES of K and V; the warps
 // that share a row chunk take the batches in turn.
 // flash_attn.py::decode_tile is the same.
-__host__ __device__ inline int tile_keys(int hd, int vd, int esize, int R, int* wk) {
+__host__ __device__ inline int tile_keys(int hd, int vd, int R, int* wk) {
   const int rc = R <= 16 ? 2 : 8;
   int chunks = 1;
   while (chunks * rc < R) chunks *= 2;
   *wk = WARPS / chunks;
   const int batch = 32 / lanes(hd, rc) * KB;
-  const int per = TILE_BYTES / (batch * (hd + vd) * esize);
+  const int per = TILE_BYTES / (batch * (hd + vd) * 4);
   return batch * (per > 1 ? per : 1);
 }
 
-// Values a lane reads from shared memory at once: 16 bytes where its
-// share of a row is a multiple of them, else 4 values.
-template <typename T, int E>
-__host__ __device__ constexpr int chunk() {
-  return E % (16 / static_cast<int>(sizeof(T))) == 0 ? 16 / static_cast<int>(sizeof(T)) : 4;
-}
-
-// The head dim of a lane's value e: chunks of C values, interleaved over
+// The head dim of a lane's value e: chunks of 4 values, interleaved over
 // the DL lanes of a key (neighbouring lanes on neighbouring addresses).
-template <int C, int DL>
+template <int DL>
 __device__ __forceinline__ int dim_of(int e, int dl) {
-  return ((e / C) * DL + dl) * C + e % C;
+  return ((e / 4) * DL + dl) * 4 + e % 4;
 }
 
-// C values at p (shared memory, aligned to C values) into fp32.
-template <int C>
-__device__ __forceinline__ void load_chunk(const float* p, float* out) {
-  static_assert(C == 4, "fp32 chunks are 16 bytes");
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  out[0] = x.x;
-  out[1] = x.y;
-  out[2] = x.z;
-  out[3] = x.w;
-}
-template <int C>
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float* out) {
-  static_assert(C == 4 || C == 8, "bf16 chunks are 8 or 16 bytes");
-  uint32_t w[C / 2];
-  if constexpr (C == 8) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p);
-    w[0] = x.x;
-    w[1] = x.y;
-    w[2] = x.z;
-    w[3] = x.w;
-  } else {
-    const uint2 x = *reinterpret_cast<const uint2*>(p);
-    w[0] = x.x;
-    w[1] = x.y;
-  }
+// A lane's E values of a row at p (DL lanes a row, 16-byte chunks).
+template <int E, int DL>
+__device__ __forceinline__ void load_row(const float* p, int dl, float (&out)[E]) {
 #pragma unroll
-  for (int i = 0; i < C / 2; ++i) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
+  for (int c = 0; c < E / 4; ++c) {
+    const float4 x = *reinterpret_cast<const float4*>(p + (c * DL + dl) * 4);
+    out[4 * c] = x.x;
+    out[4 * c + 1] = x.y;
+    out[4 * c + 2] = x.z;
+    out[4 * c + 3] = x.w;
   }
-}
-
-// A lane's E values of a row at p (DL lanes a row, chunks of C).
-template <int E, int C, int DL, typename T>
-__device__ __forceinline__ void load_row(const T* p, int dl, float (&out)[E]) {
-#pragma unroll
-  for (int c = 0; c < E / C; ++c) load_chunk<C>(p + (c * DL + dl) * C, out + c * C);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
@@ -771,30 +771,31 @@ __device__ __forceinline__ void cp_wait() {
 
 // The visible keys [lo, hi) of outer row n's block of keys (positions
 // counted from the shard's first key); empty where hi <= lo.
-__device__ __forceinline__ void key_range(const Args& a, int n, int& qoff, int& lo, int& hi) {
-  const int kb0 = a.shards > 0 ? (n % a.shards) * a.Sk : 0;
-  qoff = a.q_off - kb0;
-  const int klim = min(a.Sk, a.kv_len - kb0);
+__device__ __forceinline__ void key_range(int n, int shards, int Sk, int q_off, int kv_len,
+                                          int Sq, int causal, int window, int& qoff, int& lo,
+                                          int& hi) {
+  const int kb0 = shards > 0 ? (n % shards) * Sk : 0;
+  qoff = q_off - kb0;
+  const int klim = min(Sk, kv_len - kb0);
   lo = 0;
   hi = klim;
-  if (a.causal) {
-    hi = min(klim, qoff + a.Sq);
-    if (a.window > 0) lo = max(0, qoff - a.window + 1);
+  if (causal) {
+    hi = min(klim, qoff + Sq);
+    if (window > 0) lo = max(0, qoff - window + 1);
   }
 }
 
 // RC: query rows a warp holds (2, or 8 above 16 rows).  At RC = 2 a
 // thread keeps within 128 registers, so that two blocks or more share an
 // SM and one's start and end overlap the other's stream.
-template <typename T, int HD, int VD, int RC>
+template <int HD, int VD, int RC>
 __global__ void __launch_bounds__(THREADS, RC <= 2 ? 2 : 1)
     flash_decode_kernel(const __grid_constant__ Args a) {
   constexpr int DL = lanes(HD, RC), KL = 32 / DL;  // lanes a key, keys a warp at once
   constexpr int EK = HD / DL, EV = VD / DL;     // a lane's values of q and of o
-  constexpr int CK = chunk<T, EK>(), CV = chunk<T, EV>();
-  static_assert(EK % CK == 0 && EV % CV == 0 && 32 % DL == 0, "bad lane split");
+  static_assert(EK % 4 == 0 && EV % 4 == 0 && 32 % DL == 0, "bad lane split");
   extern __shared__ __align__(16) uint8_t dsmem[];
-  T* ring = reinterpret_cast<T*>(dsmem);
+  float* ring = reinterpret_cast<float*>(dsmem);
   const int tile = a.tile;
   const int stage = tile * (HD + VD);
 
@@ -808,7 +809,7 @@ __global__ void __launch_bounds__(THREADS, RC <= 2 ? 2 : 1)
   const int b = blk % a.B, n = blk / a.B;
   const int G = a.H / a.KV;
   int qoff, lo, hi;
-  key_range(a, n, qoff, lo, hi);
+  key_range(n, a.shards, a.Sk, a.q_off, a.kv_len, a.Sq, a.causal, a.window, qoff, lo, hi);
   // this split's whole tiles of the visible range
   const int s_lo = lo + static_cast<int>(static_cast<long long>(split) * a.tiles / a.splits) * tile;
   const int s_hi =
@@ -822,26 +823,24 @@ __global__ void __launch_bounds__(THREADS, RC <= 2 ? 2 : 1)
   const int ks = lane / DL, dl = lane % DL;
 
   // q: this lane's values of its rows, fp32 scaled first
-  const float qscale = sizeof(T) == 4 ? a.scale : 1.f;
-  const float post = sizeof(T) == 4 ? 1.f : a.scale;
   float qr[RC][EK];
   int pos[RC];
 #pragma unroll
   for (int rr = 0; rr < RC; ++rr) {
     const int r = r0 + rr, i = r % a.Sq, h = kvh * G + r / a.Sq;
     pos[rr] = qoff + i;
-    const T* qp = static_cast<const T*>(a.q) + n * a.qs[0] + b * a.qs[1] +
-                  static_cast<long long>(i) * a.qs[2] + h * a.qs[3];
+    const float* qp = static_cast<const float*>(a.q) + n * a.qs[0] + b * a.qs[1] +
+                      static_cast<long long>(i) * a.qs[2] + h * a.qs[3];
     if (rr >= nr) {
 #pragma unroll
       for (int e = 0; e < EK; ++e) qr[rr][e] = 0.f;
-    } else if (sizeof(T) == 2 || a.vec16) {  // 16-byte aligned rows
-      load_row<EK, CK, DL>(qp, dl, qr[rr]);
+    } else if (a.vec16) {  // 16-byte aligned rows
+      load_row<EK, DL>(qp, dl, qr[rr]);
 #pragma unroll
-      for (int e = 0; e < EK; ++e) qr[rr][e] *= qscale;
+      for (int e = 0; e < EK; ++e) qr[rr][e] *= a.scale;
     } else {
 #pragma unroll
-      for (int e = 0; e < EK; ++e) qr[rr][e] = to_f(qp[dim_of<CK, DL>(e, dl)]) * qscale;
+      for (int e = 0; e < EK; ++e) qr[rr][e] = qp[dim_of<DL>(e, dl)] * a.scale;
     }
   }
   // the causal positions of the block's first and last rows
@@ -855,31 +854,31 @@ __global__ void __launch_bounds__(THREADS, RC <= 2 ? 2 : 1)
     for (int e = 0; e < EV; ++e) acc[rr][e] = 0.f;
   }
 
-  const T* kbase = static_cast<const T*>(a.k) + n * a.ks[0] + b * a.ks[1] + kvh * a.ks[3];
-  const T* vbase = static_cast<const T*>(a.v) + n * a.vs[0] + b * a.vs[1] + kvh * a.vs[3];
+  const float* kbase = static_cast<const float*>(a.k) + n * a.ks[0] + b * a.ks[1] + kvh * a.ks[3];
+  const float* vbase = static_cast<const float*>(a.v) + n * a.vs[0] + b * a.vs[1] + kvh * a.vs[3];
   // tile `it` of the split into its stage: K [tile][HD], then V [tile][VD];
   // keys past the split zero-filled
   auto load_tile = [&](int it) {
-    T* kst = ring + (it % STAGES) * stage;
-    T* vst = kst + tile * HD;
+    float* kst = ring + (it % STAGES) * stage;
+    float* vst = kst + tile * HD;
     const int key0 = s_lo + it * tile;
-    if (sizeof(T) == 2 || a.vec16) {
-      constexpr int PV = 16 / sizeof(T), KC = HD / PV, PER = (HD + VD) / PV;
+    if (a.vec16) {
+      constexpr int KC = HD / 4, PER = (HD + VD) / 4;
       for (int c = threadIdx.x; c < tile * PER; c += THREADS) {
         const int j = c / PER, w = c % PER, key = key0 + j;
         const bool in = key < s_hi;
-        const T* src = w < KC ? kbase + static_cast<long long>(key) * a.ks[2] + w * PV
-                              : vbase + static_cast<long long>(key) * a.vs[2] + (w - KC) * PV;
-        T* dst = w < KC ? kst + j * HD + w * PV : vst + j * VD + (w - KC) * PV;
+        const float* src = w < KC ? kbase + static_cast<long long>(key) * a.ks[2] + w * 4
+                                  : vbase + static_cast<long long>(key) * a.vs[2] + (w - KC) * 4;
+        float* dst = w < KC ? kst + j * HD + w * 4 : vst + j * VD + (w - KC) * 4;
         cp_async16(dst, in ? src : kbase, in ? 16 : 0);
       }
     } else {
       for (int c = threadIdx.x; c < tile * (HD + VD); c += THREADS) {
         const int j = c / (HD + VD), w = c % (HD + VD), key = key0 + j;
         const bool in = key < s_hi;
-        const T* src = w < HD ? kbase + static_cast<long long>(key) * a.ks[2] + w
-                              : vbase + static_cast<long long>(key) * a.vs[2] + (w - HD);
-        T* dst = w < HD ? kst + j * HD + w : vst + j * VD + (w - HD);
+        const float* src = w < HD ? kbase + static_cast<long long>(key) * a.ks[2] + w
+                                  : vbase + static_cast<long long>(key) * a.vs[2] + (w - HD);
+        float* dst = w < HD ? kst + j * HD + w : vst + j * VD + (w - HD);
         cp_async4(dst, in ? src : kbase, in ? 4 : 0);
       }
     }
@@ -898,8 +897,8 @@ __global__ void __launch_bounds__(THREADS, RC <= 2 ? 2 : 1)
     if (it + STAGES - 1 < ntiles) load_tile(it + STAGES - 1);
     cp_commit();
     if (nr <= 0) continue;
-    const T* kt = ring + (it % STAGES) * stage;
-    const T* vt = kt + tile * HD;
+    const float* kt = ring + (it % STAGES) * stage;
+    const float* vt = kt + tile * HD;
     const int key0 = s_lo + it * tile;
 #pragma unroll 1
     for (int j0 = kg * KL * KB; j0 < tile; j0 += sweep) {
@@ -909,7 +908,7 @@ __global__ void __launch_bounds__(THREADS, RC <= 2 ? 2 : 1)
 #pragma unroll
       for (int kb = 0; kb < KB; ++kb) {
         float kf[EK];
-        load_row<EK, CK, DL>(kt + (j0 + kb * KL + ks) * HD, dl, kf);
+        load_row<EK, DL>(kt + (j0 + kb * KL + ks) * HD, dl, kf);
 #pragma unroll
         for (int rr = 0; rr < RC; ++rr) {
           if (rr >= nr) break;
@@ -927,14 +926,8 @@ __global__ void __launch_bounds__(THREADS, RC <= 2 ? 2 : 1)
 #pragma unroll
           for (int kb = 0; kb < KB; ++kb) s[kb][rr] += __shfl_xor_sync(0xffffffffu, s[kb][rr], off);
       }
-      // scale and cap: the cap's tanhf once a (key, row) score, lane p of
-      // a key's DL lanes computing score p where there are lanes enough
-#pragma unroll
-      for (int rr = 0; rr < RC; ++rr) {
-        if (rr >= nr) break;
-#pragma unroll
-        for (int kb = 0; kb < KB; ++kb) s[kb][rr] *= post;
-      }
+      // the cap: its tanhf once a (key, row) score, lane p of a key's DL
+      // lanes computing score p where there are lanes enough
       if (a.cap > 0.f) {
         if constexpr (DL >= KB * RC) {
           float mine = 0.f;  // score dl = rr · KB + kb (registers: no index)
@@ -1003,7 +996,7 @@ __global__ void __launch_bounds__(THREADS, RC <= 2 ? 2 : 1)
 #pragma unroll
       for (int kb = 0; kb < KB; ++kb) {
         float vf[EV];
-        load_row<EV, CV, DL>(vt + (j0 + kb * KL + ks) * VD, dl, vf);
+        load_row<EV, DL>(vt + (j0 + kb * KL + ks) * VD, dl, vf);
 #pragma unroll
         for (int rr = 0; rr < RC; ++rr) {
           if (rr >= nr) break;
@@ -1043,7 +1036,7 @@ __global__ void __launch_bounds__(THREADS, RC <= 2 ? 2 : 1)
     for (int rr = 0; rr < RC; ++rr) {
       if (rr >= nr) break;
 #pragma unroll
-      for (int e = 0; e < EV; ++e) so[(warp * RC + rr) * VD + dim_of<CV, DL>(e, dl)] = acc[rr][e];
+      for (int e = 0; e < EV; ++e) so[(warp * RC + rr) * VD + dim_of<DL>(e, dl)] = acc[rr][e];
       if (dl == 0) {
         sm[warp * RC + rr] = m[rr];
         sl[warp * RC + rr] = l[rr];
@@ -1068,9 +1061,9 @@ __global__ void __launch_bounds__(THREADS, RC <= 2 ? 2 : 1)
     const long long row = (static_cast<long long>(n * a.B + b) * a.H + h) * a.Sq + i;
     if (a.splits == 1) {
       // a row without a key (a shard's only): o = 0, lse = −inf
-      T* op = static_cast<T*>(a.o) + n * a.os[0] + b * a.os[1] +
-              static_cast<long long>(i) * a.os[2] + h * a.os[3];
-      op[d] = from_f<T>(mx == -INFINITY ? 0.f : osum / fmaxf(lsum, 1e-30f));
+      float* op = static_cast<float*>(a.o) + n * a.os[0] + b * a.os[1] +
+                  static_cast<long long>(i) * a.os[2] + h * a.os[3];
+      op[d] = mx == -INFINITY ? 0.f : osum / fmaxf(lsum, 1e-30f);
       if (d == 0) a.lse[row] = mx == -INFINITY ? -INFINITY : mx * LN2 + logf(lsum);
     } else {
       const long long p = row * a.splits + split;
@@ -1089,6 +1082,8 @@ __global__ void __launch_bounds__(THREADS, RC <= 2 ? 2 : 1)
 // staged in shared memory; a thread sums four dims over every G-th split
 // (G = 1024 / vd groups of threads, float4 loads), then the groups' sums
 // are added in group order: a fixed order, the same bits every launch.
+// Both decode kernels' scratch paths end here (bf16's where its splits
+// outnumber a cluster's blocks).
 constexpr int JOIN_THREADS = 256;
 
 template <typename T>
@@ -1144,46 +1139,555 @@ __global__ void __launch_bounds__(JOIN_THREADS) flash_decode_join_kernel(
   if (threadIdx.x == 0) a.lse[row] = mx == -INFINITY ? -INFINITY : mx * LN2 + logf(lsum);
 }
 
-template <typename T, int HD, int VD, int RC>
-cudaError_t launch_rc(const Args& a, int N, cudaStream_t s) {
-  const size_t ring = static_cast<size_t>(STAGES) * a.tile * (HD + VD) * sizeof(T);
-  const size_t merge = static_cast<size_t>(WARPS) * RC * (VD + 2) * sizeof(float);
-  const size_t smem = ring > merge ? ring : merge;
-  if (smem > 232448) return cudaErrorInvalidValue;
-  const auto kernel = flash_decode_kernel<T, HD, VD, RC>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  kernel<<<N * a.B * a.KV * a.splits, THREADS, smem, s>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || a.splits == 1) return e;
+// The join after a scratch path's splits (none with one split).
+template <typename T>
+cudaError_t launch_join(const Args& a, int N, int VD, cudaStream_t s) {
+  if (a.splits == 1) return cudaSuccess;
   const size_t jsmem = (((2 * a.splits + 3) & ~3) + 4 * JOIN_THREADS) * sizeof(float);
   flash_decode_join_kernel<T><<<N * a.B * a.H * a.Sq, JOIN_THREADS, jsmem, s>>>(a, VD);
   return cudaGetLastError();
 }
 
-template <typename T, int HD, int VD>
-cudaError_t launch(const Args& a, int N, cudaStream_t s) {
-  return a.R <= 16 ? launch_rc<T, HD, VD, 2>(a, N, s) : launch_rc<T, HD, VD, 8>(a, N, s);
+template <int HD, int VD, int RC>
+cudaError_t launch_rc(const Args& a, int N, cudaStream_t s) {
+  const size_t ring = static_cast<size_t>(STAGES) * a.tile * (HD + VD) * sizeof(float);
+  const size_t merge = static_cast<size_t>(WARPS) * RC * (VD + 2) * sizeof(float);
+  const size_t smem = ring > merge ? ring : merge;
+  if (smem > 232448) return cudaErrorInvalidValue;
+  const auto kernel = flash_decode_kernel<HD, VD, RC>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<N * a.B * a.KV * a.splits, THREADS, smem, s>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_join<float>(a, N, VD, s);
 }
 
-template <typename T>
+template <int HD, int VD>
+cudaError_t launch(const Args& a, int N, cudaStream_t s) {
+  return a.R <= 16 ? launch_rc<HD, VD, 2>(a, N, s) : launch_rc<HD, VD, 8>(a, N, s);
+}
+
 cudaError_t launch_dims(const Args& a, int N, int hd, int vd, cudaStream_t s) {
   if (hd == vd) {
     switch (hd) {
-      case 16: return launch<T, 16, 16>(a, N, s);
-      case 32: return launch<T, 32, 32>(a, N, s);
-      case 64: return launch<T, 64, 64>(a, N, s);
-      case 128: return launch<T, 128, 128>(a, N, s);
-      case 256: return launch<T, 256, 256>(a, N, s);
+      case 16: return launch<16, 16>(a, N, s);
+      case 32: return launch<32, 32>(a, N, s);
+      case 64: return launch<64, 64>(a, N, s);
+      case 128: return launch<128, 128>(a, N, s);
+      case 256: return launch<256, 256>(a, N, s);
       default: return cudaErrorInvalidValue;
     }
   }
-  if (hd == 192 && vd == 128) return launch<T, 192, 128>(a, N, s);
+  if (hd == 192 && vd == 128) return launch<192, 128>(a, N, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace dec
+
+
+// ---------------------------------------------------------------------------
+// The bf16 decode kernel: one block a (n, b, KV head, key split), scores
+// and P·V on the tensor cores by mma.sync, K and V by TMA, the splits
+// joined inside a thread block cluster (the note at the top of this file).
+// ---------------------------------------------------------------------------
+
+namespace dmma {
+
+using namespace hopper;
+using tc::LN2;
+using tc::LOG2E;
+
+constexpr int CONSUMERS = 4;                   // consumer warps
+constexpr int THREADS = 32 * (CONSUMERS + 1);  // and one producer warp
+constexpr int STAGES = 2 * CONSUMERS;          // K/V ring depth: two tiles a warp
+constexpr int CLUSTER = 8;                     // the most splits one cluster joins
+
+template <int HD, int VD>
+struct Shape {
+  static constexpr int HDP = HD < 64 ? 64 : HD;  // padded to one 64-wide box
+  static constexpr int VDP = VD < 64 ? 64 : VD;
+  static constexpr int HC = HDP / 64, VC = VDP / 64;  // boxes a row
+  // keys a tile: 32 where a key's padded K and V take at most 512 bytes
+  // (hd <= 128: 8 KB stages up to hd 64, 16 KB at 128), else 16 (16 KB
+  // at hd 256, 10 KB at (192, 128)); flash_attn.py::decode_tile
+  static constexpr int KT = 2 * (HDP + VDP) <= 512 ? 32 : 16;
+  static constexpr int K_BYTES = KT * HDP * 2, V_BYTES = KT * VDP * 2;
+  static constexpr int STAGE = K_BYTES + V_BYTES;
+  static constexpr int RING = STAGES * STAGE;
+  // the ring, then each warp's (m, l) of 64 rows and the block's joined
+  // ones, then the mbarriers; the ring holds the warps' outputs at the end
+  static constexpr int SMEM = 1024 + RING + 4 * (2 * CONSUMERS * 16 + 2 * 64) + 16 * STAGES;
+  static_assert(4 * CONSUMERS * 16 * VD <= RING, "the warps' outputs fit the ring");
+  static_assert(SMEM <= 232448, "shared memory");
+};
+
+struct Args {
+  const void* q;
+  void* o;
+  float* lse;
+  float* part_o;   // the scratch path's partials, as dec::Args has them
+  float* part_ml;
+  int B, H, KV, Sq, Sk;  // B: the inner batch rows an outer row
+  long long qs[4], os[4];  // element strides (outer, batch, seq, head) of q, o
+  float scale, cap;
+  int causal, window;
+  int q_off;   // absolute position of query row 0
+  int kv_len;  // keys at or past this absolute position are hidden
+  int shards;  // > 0: partial attention over shard (n mod shards)
+  int R;       // query rows a block: G · Sq, row r = g · Sq + i
+  int tiles, splits;  // tiles of the widest range; splits
+  int cluster;  // 1: the splits are one cluster and join there; 0: scratch
+};
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a · b: one m16n8k16 product, bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// addr (this block's shared memory) in block `rank` of the cluster, read
+// as a float
+__device__ __forceinline__ float ld_cluster(uint32_t addr, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  float x;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(x) : "r"(remote) : "memory");
+  return x;
+}
+
+// MT: m16 tiles of the group's rows (1, 2 or 4; 48 rows take 4).  Warp w
+// < CONSUMERS holds tile w % MT and takes the tiles it ≡ w / MT (mod
+// CONSUMERS / MT) of the split; warp CONSUMERS is the producer.
+template <int HD, int VD, int MT>
+__global__ void __launch_bounds__(THREADS, HD + VD > 384 ? 1 : 2)
+    flash_decode_mma_kernel(const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ Args a) {
+  using S = Shape<HD, VD>;
+  constexpr int KT = S::KT, KS = CONSUMERS / MT, ROWS = 16 * MT;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  float* so = reinterpret_cast<float*>(gbase);              // [KS][ROWS][VD], at the end
+  float* sm = reinterpret_cast<float*>(gbase + S::RING);    // [KS][ROWS]
+  float* sl = sm + CONSUMERS * 16;                          // [KS][ROWS]
+  float* fm = sl + CONSUMERS * 16;                          // [ROWS]: the block's joined m
+  float* fl = fm + 64;                                      // and l
+  const uint32_t full = base + S::RING + 4 * (2 * CONSUMERS * 16 + 2 * 64);  // [STAGES]
+  const uint32_t empty = full + 8 * STAGES;                                  // [STAGES]
+
+  const int split = blockIdx.x;
+  int blk = blockIdx.y;
+  const int kvh = blk % a.KV;
+  blk /= a.KV;
+  const int b = blk % a.B, n = blk / a.B;
+  const int G = a.H / a.KV;
+  int qoff, lo, hi;
+  dec::key_range(n, a.shards, a.Sk, a.q_off, a.kv_len, a.Sq, a.causal, a.window, qoff, lo, hi);
+  // this split's whole tiles of the visible range
+  const int s_lo = lo + static_cast<int>(static_cast<long long>(split) * a.tiles / a.splits) * KT;
+  const int s_hi =
+      min(hi, lo + static_cast<int>(static_cast<long long>(split + 1) * a.tiles / a.splits) * KT);
+  const int ntiles = s_hi > s_lo ? (s_hi - s_lo + KT - 1) / KT : 0;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, MT);  // every warp that reads the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS) {  // the producer: one thread keeps the ring full
+    if (lane == 0) {
+#pragma unroll 1
+      for (int it = 0; it < ntiles; ++it) {
+        const int st = it % STAGES;
+        if (it >= STAGES) mbar_wait(empty + 8 * st, (it / STAGES + 1) & 1);
+        mbar_expect_tx(full + 8 * st, S::STAGE);
+        const uint32_t kst = base + st * S::STAGE, vst = kst + S::K_BYTES;
+        const int t0 = s_lo + it * KT;
+#pragma unroll 1
+        for (int c = 0; c < S::HC; ++c)
+          tma_load(kst + c * KT * 128, &tk, full + 8 * st, 64 * c, kvh, t0, b, n);
+#pragma unroll 1
+        for (int c = 0; c < S::VC; ++c)
+          tma_load(vst + c * KT * 128, &tv, full + 8 * st, 64 * c, kvh, t0, b, n);
+      }
+    }
+    __syncwarp();
+  } else {
+    // a consumer: rows r0 = 16 · mt + lane / 4 and r1 = r0 + 8 of its m
+    // tile, columns 2t, 2t + 1 of every 8-wide block
+    const int mt = warp % MT, ks = warp / MT;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = 16 * mt + g, r1 = r0 + 8;
+    const int pmin = qoff, pmax = qoff + a.Sq - 1;
+    // a padded row (r >= R) scores zeros at the last row's position
+    const int pos0 = qoff + (r0 < a.R ? r0 % a.Sq : a.Sq - 1);
+    const int pos1 = qoff + (r1 < a.R ? r1 % a.Sq : a.Sq - 1);
+    // q as the A operand: the raw bf16 pairs (the scale goes on the fp32
+    // product), zero past R
+    uint32_t qa[HD / 16][4];
+    {
+      const __nv_bfloat16* q0 =
+          static_cast<const __nv_bfloat16*>(a.q) + n * a.qs[0] + b * a.qs[1] +
+          static_cast<long long>(r0 % a.Sq) * a.qs[2] + (kvh * G + r0 / a.Sq) * a.qs[3];
+      const __nv_bfloat16* q1 =
+          static_cast<const __nv_bfloat16*>(a.q) + n * a.qs[0] + b * a.qs[1] +
+          static_cast<long long>(r1 % a.Sq) * a.qs[2] + (kvh * G + r1 / a.Sq) * a.qs[3];
+      const bool in0 = r0 < a.R, in1 = r1 < a.R;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int c = 16 * kk + 2 * t;
+        qa[kk][0] = in0 ? *reinterpret_cast<const uint32_t*>(q0 + c) : 0u;
+        qa[kk][1] = in1 ? *reinterpret_cast<const uint32_t*>(q1 + c) : 0u;
+        qa[kk][2] = in0 ? *reinterpret_cast<const uint32_t*>(q0 + c + 8) : 0u;
+        qa[kk][3] = in1 ? *reinterpret_cast<const uint32_t*>(q1 + c + 8) : 0u;
+      }
+    }
+    float o[VD / 8][4];
+#pragma unroll
+    for (int i = 0; i < VD / 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    // this lane's row and 16-byte chunk of an ldmatrix: matrix lane / 8,
+    // its row lane % 8 (the 128-byte swizzle's phase)
+    const int mi = lane / 8, rr = lane % 8;
+
+#pragma unroll 1
+    for (int it = ks; it < ntiles; it += KS) {
+      const int st = it % STAGES;
+      mbar_wait(full + 8 * st, (it / STAGES) & 1);
+      const uint32_t kst = base + st * S::STAGE, vst = kst + S::K_BYTES;
+      const int t0 = s_lo + it * KT;
+      // keys of the tile past the split: V's rows zeroed (P is 0 there,
+      // and 0 · a NaN in the cache's unwritten rows would not be)
+      const int past = t0 + KT - s_hi;
+      if (past > 0) {
+        uint4* vz = reinterpret_cast<uint4*>(gbase + st * S::STAGE + S::K_BYTES);
+        const int first = KT - past;
+        for (int x = lane; x < past * 8 * S::VC; x += 32) {
+          const int c = x / (8 * past), y = x % (8 * past);
+          vz[(c * KT + first + y / 8) * 8 + y % 8] = make_uint4(0u, 0u, 0u, 0u);
+        }
+        __syncwarp();
+      }
+
+      // S = Q · Kᵀ over the tile: K's rows by ldmatrix, two 8-key blocks
+      // and one 16-wide k step each
+      float s[KT / 8][4];
+#pragma unroll
+      for (int i = 0; i < KT / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int chunk = 2 * kk + (mi & 1);
+#pragma unroll
+        for (int nb = 0; nb < KT / 16; ++nb) {
+          const int key = 16 * nb + 8 * (mi >> 1) + rr;
+          uint32_t bk[4];
+          ldsm4(bk, kst + (chunk >> 3) * KT * 128 + key * 128 + (((chunk & 7) ^ rr) << 4));
+          mma(s[2 * nb], qa[kk], bk[0], bk[1]);
+          mma(s[2 * nb + 1], qa[kk], bk[2], bk[3]);
+        }
+      }
+      // scale (capped first when cap > 0) into log2 units; −inf where the
+      // key is past the split or hidden from the row, only on a tile that
+      // crosses such an edge
+      if (a.cap > 0.f) {
+#pragma unroll
+        for (int i = 0; i < KT / 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = tanhf(s[i][j] * a.scale / a.cap) * a.cap * LOG2E;
+      } else {
+        const float c = a.scale * LOG2E;
+#pragma unroll
+        for (int i = 0; i < KT / 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] *= c;
+      }
+      const bool whole = past <= 0 && (!a.causal || (t0 + KT - 1 <= pmin &&
+                                                     (a.window == 0 || t0 > pmax - a.window)));
+      if (!whole) {
+#pragma unroll
+        for (int i = 0; i < KT / 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int key = t0 + 8 * i + 2 * t + (j & 1);
+            const int pos = (j & 2) ? pos1 : pos0;
+            const bool seen = key < s_hi && (!a.causal || (key <= pos && (a.window == 0 ||
+                                                                          key > pos - a.window)));
+            if (!seen) s[i][j] = -INFINITY;
+          }
+      }
+      // the online softmax on rows r0 and r1 (4 lanes a row); a row that
+      // has seen no key yet keeps m = −inf and adds nothing
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int i = 0; i < KT / 8; ++i) {
+        mx0 = fmaxf(mx0, fmaxf(s[i][0], s[i][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[i][2], s[i][3]));
+      }
+#pragma unroll
+      for (int sh = 1; sh <= 2; sh *= 2) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+      }
+      const float b0 = mx0 == -INFINITY ? 0.f : mx0, b1 = mx1 == -INFINITY ? 0.f : mx1;
+      const float al0 = ex2(m0 - b0), al1 = ex2(m1 - b1);
+      m0 = mx0;
+      m1 = mx1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < KT / 8; ++i) {
+        s[i][0] = ex2(s[i][0] - b0);
+        s[i][1] = ex2(s[i][1] - b0);
+        s[i][2] = ex2(s[i][2] - b1);
+        s[i][3] = ex2(s[i][3] - b1);
+        ps0 += s[i][0] + s[i][1];
+        ps1 += s[i][2] + s[i][3];
+      }
+      l0 = l0 * al0 + ps0;  // this thread's share; the 4 lanes add at the end
+      l1 = l1 * al1 + ps1;
+#pragma unroll
+      for (int i = 0; i < VD / 8; ++i) {
+        o[i][0] *= al0;
+        o[i][1] *= al0;
+        o[i][2] *= al1;
+        o[i][3] *= al1;
+      }
+      // O += P_hi · V + P_lo · V: the score fragments of keys 16kc ..
+      // 16kc + 15 are P's A operand as they stand; V's B fragments by
+      // ldmatrix.trans, two 8-wide column blocks each
+#pragma unroll
+      for (int kc = 0; kc < KT / 16; ++kc) {
+        uint32_t phi[4], plo[4];
+        tc::split(s[2 * kc][0], s[2 * kc][1], phi[0], plo[0]);
+        tc::split(s[2 * kc][2], s[2 * kc][3], phi[1], plo[1]);
+        tc::split(s[2 * kc + 1][0], s[2 * kc + 1][1], phi[2], plo[2]);
+        tc::split(s[2 * kc + 1][2], s[2 * kc + 1][3], phi[3], plo[3]);
+        const int key = 16 * kc + 8 * (mi & 1) + rr;
+#pragma unroll
+        for (int nd = 0; nd < VD / 16; ++nd) {
+          const int chunk = 2 * nd + (mi >> 1);
+          uint32_t bv[4];
+          ldsm4_t(bv, vst + (chunk >> 3) * KT * 128 + key * 128 + (((chunk & 7) ^ rr) << 4));
+          mma(o[2 * nd], phi, bv[0], bv[1]);
+          mma(o[2 * nd], plo, bv[0], bv[1]);
+          mma(o[2 * nd + 1], phi, bv[2], bv[3]);
+          mma(o[2 * nd + 1], plo, bv[2], bv[3]);
+        }
+      }
+      // the zeroed rows ordered before the next TMA write into the stage
+      if (past > 0) fence_async_shared();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * st);
+    }
+#pragma unroll
+    for (int sh = 1; sh <= 2; sh *= 2) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
+    }
+    // the warp's (m, l, unnormalised O) into shared memory once every
+    // warp is done with the ring (the barrier below comes first)
+    __syncthreads();
+    float* sw = so + (ks * ROWS) * VD;
+#pragma unroll
+    for (int i = 0; i < VD / 8; ++i) {
+      const int d = 8 * i + 2 * t;
+      *reinterpret_cast<float2*>(sw + r0 * VD + d) = make_float2(o[i][0], o[i][1]);
+      *reinterpret_cast<float2*>(sw + r1 * VD + d) = make_float2(o[i][2], o[i][3]);
+    }
+    if (t == 0) {
+      sm[ks * ROWS + r0] = m0;
+      sm[ks * ROWS + r1] = m1;
+      sl[ks * ROWS + r0] = l0;
+      sl[ks * ROWS + r1] = l1;
+    }
+  }
+  if (warp == CONSUMERS) __syncthreads();  // the consumers' barrier above
+  __syncthreads();
+
+  // the warps' key slices joined in slice order, in place into slice 0:
+  // O = Σ O_k 2^(m_k − M), L = Σ l_k 2^(m_k − M), M = max m_k
+  for (int x = threadIdx.x; x < a.R * VD; x += THREADS) {
+    const int r = x / VD, d = x % VD;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < KS; ++k) mx = fmaxf(mx, sm[k * ROWS + r]);
+    const float bm = mx == -INFINITY ? 0.f : mx;
+    float osum = 0.f, lsum = 0.f;
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      const float w = ex2(sm[k * ROWS + r] - bm);
+      osum += so[(k * ROWS + r) * VD + d] * w;
+      lsum += sl[k * ROWS + r] * w;
+    }
+    so[r * VD + d] = osum;
+    if (d == 0) {
+      fm[r] = mx;
+      fl[r] = lsum;
+    }
+  }
+
+  const int R = a.R;
+  if (!a.cluster) {
+    __syncthreads();
+    // the scratch path: this split's partials, joined by a second kernel
+    for (int x = threadIdx.x; x < R * VD; x += THREADS) {
+      const int r = x / VD, d = x % VD, i = r % a.Sq, h = kvh * G + r / a.Sq;
+      const long long p =
+          ((static_cast<long long>(n * a.B + b) * a.H + h) * a.Sq + i) * a.splits + split;
+      a.part_o[p * VD + d] = so[r * VD + d];
+      if (d == 0) {
+        a.part_ml[2 * p] = fm[r];
+        a.part_ml[2 * p + 1] = fl[r];
+      }
+    }
+    return;
+  }
+  // the cluster's splits joined in split order through distributed shared
+  // memory: block `split` writes every splits-th output of the group
+  cluster_sync();
+  const uint32_t so_u = smem_u32(so), fm_u = smem_u32(fm), fl_u = smem_u32(fl);
+  for (int x = split * THREADS + threadIdx.x; x < R * VD; x += a.splits * THREADS) {
+    const int r = x / VD, d = x % VD, i = r % a.Sq, h = kvh * G + r / a.Sq;
+    float mx = -INFINITY;
+    for (int c = 0; c < a.splits; ++c) mx = fmaxf(mx, ld_cluster(fm_u + 4 * r, c));
+    const float bm = mx == -INFINITY ? 0.f : mx;
+    float osum = 0.f, lsum = 0.f;
+    for (int c = 0; c < a.splits; ++c) {
+      const float w = ex2(ld_cluster(fm_u + 4 * r, c) - bm);
+      osum += ld_cluster(so_u + 4 * (r * VD + d), c) * w;
+      lsum += ld_cluster(fl_u + 4 * r, c) * w;
+    }
+    // a row without a key (a shard's only): o = 0, lse = −inf
+    __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.o) + n * a.os[0] + b * a.os[1] +
+                        static_cast<long long>(i) * a.os[2] + h * a.os[3];
+    op[d] = __float2bfloat16(mx == -INFINITY ? 0.f : osum / fmaxf(lsum, 1e-30f));
+    if (d == 0) {
+      const long long row = (static_cast<long long>(n * a.B + b) * a.H + h) * a.Sq + i;
+      a.lse[row] = mx == -INFINITY ? -INFINITY : mx * LN2 + logf(lsum);
+    }
+  }
+  cluster_sync();  // no block leaves while another reads its shared memory
+}
+
+template <int HD, int VD, int MT>
+cudaError_t launch_mt(const CUtensorMap& mk, const CUtensorMap& mv, const Args& a, int N,
+                      cudaStream_t s) {
+  using Sh = Shape<HD, VD>;
+  const auto kernel = flash_decode_mma_kernel<HD, VD, MT>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.splits, N * a.B * a.KV, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = Sh::SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster ? a.splits : 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, mk, mv, a);
+  if (e != cudaSuccess) return e;
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.cluster) return e;
+  dec::Args j = {};
+  j.o = a.o;
+  j.lse = a.lse;
+  j.part_o = a.part_o;
+  j.part_ml = a.part_ml;
+  j.B = a.B;
+  j.H = a.H;
+  j.KV = a.KV;
+  j.Sq = a.Sq;
+  j.Sk = a.Sk;
+  for (int i = 0; i < 4; ++i) j.os[i] = a.os[i];
+  j.splits = a.splits;
+  return dec::launch_join<__nv_bfloat16>(j, N, VD, s);
+}
+
+template <int HD, int VD>
+cudaError_t launch(const void* k, const void* v, const Args& a, int N, const long long* strides,
+                   cudaStream_t s) {
+  using Sh = Shape<HD, VD>;
+  CUtensorMap mk, mv;
+  if (!make_map(&mk, k, N, a.B, a.Sk, a.KV, HD, strides + 4, Sh::KT) ||
+      !make_map(&mv, v, N, a.B, a.Sk, a.KV, VD, strides + 8, Sh::KT))
+    return cudaErrorInvalidValue;
+  if (a.R <= 16) return launch_mt<HD, VD, 1>(mk, mv, a, N, s);
+  if (a.R <= 32) return launch_mt<HD, VD, 2>(mk, mv, a, N, s);
+  return launch_mt<HD, VD, 4>(mk, mv, a, N, s);
+}
+
+// Keys a tile at (hd, vd), 0 where the kernel takes no such pair
+// (flash_attn.py::decode_tile is the same).
+inline int tile_keys(int hd, int vd) {
+  if (hd == vd) {
+    switch (hd) {
+      case 16: return Shape<16, 16>::KT;
+      case 32: return Shape<32, 32>::KT;
+      case 64: return Shape<64, 64>::KT;
+      case 128: return Shape<128, 128>::KT;
+      case 256: return Shape<256, 256>::KT;
+      default: return 0;
+    }
+  }
+  return hd == 192 && vd == 128 ? Shape<192, 128>::KT : 0;
+}
+
+cudaError_t launch_dims(const void* k, const void* v, const Args& a, int N, int hd, int vd,
+                        const long long* strides, cudaStream_t s) {
+  if (hd == vd) {
+    switch (hd) {
+      case 16: return launch<16, 16>(k, v, a, N, strides, s);
+      case 32: return launch<32, 32>(k, v, a, N, strides, s);
+      case 64: return launch<64, 64>(k, v, a, N, strides, s);
+      case 128: return launch<128, 128>(k, v, a, N, strides, s);
+      case 256: return launch<256, 256>(k, v, a, N, strides, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (hd == 192 && vd == 128) return launch<192, 128>(k, v, a, N, strides, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace dmma
 
 
 // ---------------------------------------------------------------------------
@@ -1571,28 +2075,66 @@ cudaError_t launch_dims(const Args& a, int N, int hd, int vd, int vec16, cudaStr
 
 }  // namespace f32
 
-// The decode kernel: q, k, v, o, lse, strides, the mask and shards as for
-// flash_attn_fwd below, any dtype at any (hd, vd) of the bf16 kernel, G ·
-// Sq <= 64 query rows a KV group.  tile, tiles and splits are
-// flash_attn.py::decode_plan's (tile must be the kernel's own); with
-// splits > 1, part_o (N·B·H·Sq, splits, vd) and part_ml (N·B·H·Sq,
-// splits, 2) are fp32 scratch, and the join kernel follows on the same
-// stream.  vec16: every base 16-byte aligned and every stride a multiple
-// of 16 bytes (bf16 must be; fp32 otherwise copies 4 bytes at a time).
-// Returns the launches' cudaError_t (0 on success); launches nothing and
-// returns cudaErrorInvalidValue for what it does not take.
+// The decode kernels: q, k, v, o, lse, strides, the mask and shards as
+// for flash_attn_fwd below, at any (hd, vd) of the bf16 kernel, G · Sq <=
+// 64 query rows a KV group; bf16 (dtype 1) on the tensor cores
+// (flash_decode_mma_kernel), fp32 (dtype 0) on the CUDA cores
+// (flash_decode_kernel).  tile, tiles and splits are flash_attn.py::
+// decode_plan's (tile must be the dtype's kernel's own).  bf16 with
+// cluster = 1: the splits (at most dmma::CLUSTER) are one thread block
+// cluster and join in it; otherwise, with splits > 1, part_o (N·B·H·Sq,
+// splits, vd) and part_ml (N·B·H·Sq, splits, 2) are fp32 scratch and a
+// join kernel follows on the same stream.  vec16: every base 16-byte
+// aligned and every stride a multiple of 16 bytes (bf16 must be: its K and
+// V are read by TMA; fp32 otherwise copies 4 bytes at a time).  Returns
+// the launches' cudaError_t (0 on success); launches nothing and returns
+// cudaErrorInvalidValue for what it does not take.
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                 void* part_o, void* part_ml, int dtype, int hd, int vd, int N,
                                 int B, int H, int KV, int Sq, int Sk, const long long* strides,
                                 float scale, int causal, float cap, int window, int q_offset,
                                 int kv_len, int shards, int tile, int tiles, int splits,
-                                int vec16, void* stream) {
+                                int cluster, int vec16, void* stream) {
   if (N < 1 || B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Sk < 1 || q_offset < 0 ||
       kv_len < 1 || shards < 0 || (dtype != 0 && dtype != 1) || H / KV * Sq > 64 ||
-      tiles < 1 || splits < 1 || splits > tiles || splits > 4096 ||
-      (splits > 1 && (!part_o || !part_ml)) ||
-      (dtype == 1 && !vec16))
+      tiles < 1 || splits < 1 || splits > tiles || splits > 4096)
     return static_cast<int>(cudaErrorInvalidValue);
+  cluster = cluster || splits == 1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (!vec16 || tile != dmma::tile_keys(hd, vd) || splits > 65535 ||
+        static_cast<long long>(N) * B * KV > 65535 || (cluster && splits > dmma::CLUSTER) ||
+        (!cluster && (!part_o || !part_ml)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    dmma::Args a;
+    a.q = q;
+    a.o = o;
+    a.lse = static_cast<float*>(lse);
+    a.part_o = static_cast<float*>(part_o);
+    a.part_ml = static_cast<float*>(part_ml);
+    a.B = B;
+    a.H = H;
+    a.KV = KV;
+    a.Sq = Sq;
+    a.Sk = Sk;
+    for (int i = 0; i < 4; ++i) {
+      a.qs[i] = strides[i];
+      a.os[i] = strides[12 + i];
+    }
+    a.scale = scale;
+    a.cap = cap;
+    a.causal = causal;
+    a.window = window;
+    a.q_off = q_offset;
+    a.kv_len = kv_len;
+    a.shards = shards;
+    a.R = H / KV * Sq;
+    a.tiles = tiles;
+    a.splits = splits;
+    a.cluster = cluster;
+    return static_cast<int>(dmma::launch_dims(k, v, a, N, hd, vd, strides, s));
+  }
+  if (splits > 1 && (!part_o || !part_ml)) return static_cast<int>(cudaErrorInvalidValue);
   dec::Args a;
   a.q = q;
   a.k = k;
@@ -1624,11 +2166,8 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v, voi
   a.tiles = tiles;
   a.splits = splits;
   a.vec16 = vec16;
-  if (tile != dec::tile_keys(hd, vd, dtype == 1 ? 2 : 4, a.R, &a.wk))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dtype == 1 ? dec::launch_dims<__nv_bfloat16>(a, N, hd, vd, s)
-                                     : dec::launch_dims<float>(a, N, hd, vd, s));
+  if (tile != dec::tile_keys(hd, vd, a.R, &a.wk)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dec::launch_dims(a, N, hd, vd, s));
 }
 
 // q (N, B, Sq, H, hd), k (N, B, Sk, KV, hd), v (N, B, Sk, KV, vd), o (N, B,

@@ -35,8 +35,17 @@
 // written once, so two launches give the same bits).  Three kernels on
 // one stream, the first shared by both dtypes:
 //
-// * flash_bwd_dot_kernel: D, one warp a (batch, head, query row), fixed
-//   shuffle order.
+// * flash_bwd_dot_kernel: D, bound by bytes (O and dO read once, D
+//   written: 0.0814 ms at TinyLlama's bf16 launch).  A warp a row with
+//   lane-strided 2-byte loads (two elements a lane at vd 64) and a
+//   5-step shuffle tree reached 29 % of that bound.  This kernel gives
+//   a row vd · size / 16 lanes (8 at bf16 vd 64, at most 32), each
+//   loading its 16-byte chunks of O and dO, neighbouring lanes on
+//   neighbouring addresses, so a warp takes several rows; each lane group
+//   has DOT_ROWS rows' loads in flight before it sums any, and sums its
+//   chunks in order, then the lanes by a fixed butterfly (the same bits
+//   every launch).  flash_attn.py::attention_dot launches it alone;
+//   tools/flash_bwd_ab.py --ab OLD NEW times it kernel by kernel.
 // * dK and dV: one block per (batch row, KV head, tile of keys), looping
 //   over the group's G heads and, for each, over the query tiles that can
 //   see the keys (from the causal diagonal up to key + window), heavy
@@ -366,24 +375,73 @@ __device__ __forceinline__ void prob(const Args& a, bool vis, float x, float lse
 }
 
 // ---------------------------------------------------------------------------
-// D = Σ_d dO · O, one warp a (b, h, i) row, rows in (B, H, Sq) order.
+// D = Σ_d dO · O: a row's 16-byte chunks of O and dO over L lanes, rows
+// in (B, H, Sq) order (the note at the top of this file).
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(256) flash_bwd_dot_kernel(const __grid_constant__ Args a) {
-  const long long r = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (r >= static_cast<long long>(a.B) * a.H * a.Sq) return;
-  const int i = static_cast<int>(r % a.Sq);
-  const int h = static_cast<int>((r / a.Sq) % a.H);
-  const int b = static_cast<int>(r / (static_cast<long long>(a.Sq) * a.H));
-  const T* o = static_cast<const T*>(a.o) + b * a.os[0] + i * a.os[1] + h * a.os[2];
-  const T* d = static_cast<const T*>(a.dout) + b * a.ds[0] + i * a.ds[1] + h * a.ds[2];
+constexpr int DOT_THREADS = 256;
+constexpr int DOT_ROWS = 4;  // rows a lane group has in flight
+
+// The 8 bf16 or 4 fp32 values of a 16-byte chunk, x · y summed in order.
+__device__ __forceinline__ float dot16(uint4 x, uint4 y, bf16) {
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
   float acc = 0.f;
-  for (int c = lane; c < a.vd; c += 32) acc += to_f(o[c]) * to_f(d[c]);
 #pragma unroll
-  for (int sh = 16; sh >= 1; sh /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, sh);
-  if (lane == 0) a.dd[r] = acc;
+  for (int i = 0; i < 4; ++i) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
+    acc = fmaf(a.x, b.x, acc);
+    acc = fmaf(a.y, b.y, acc);
+  }
+  return acc;
+}
+__device__ __forceinline__ float dot16(uint4 x, uint4 y, float) {
+  float acc = __uint_as_float(x.x) * __uint_as_float(y.x);
+  acc = fmaf(__uint_as_float(x.y), __uint_as_float(y.y), acc);
+  acc = fmaf(__uint_as_float(x.z), __uint_as_float(y.z), acc);
+  return fmaf(__uint_as_float(x.w), __uint_as_float(y.w), acc);
+}
+
+template <typename T, int VD>
+__global__ void __launch_bounds__(DOT_THREADS) flash_bwd_dot_kernel(const __grid_constant__ Args a) {
+  constexpr int CH = VD * static_cast<int>(sizeof(T)) / 16;  // 16-byte chunks a row
+  constexpr int L = CH < 32 ? CH : 32;                         // lanes a row
+  constexpr int E = CH / L;                                    // chunks a lane
+  constexpr int GROUPS = DOT_THREADS / L;                      // rows a block at once
+  const long long rows = static_cast<long long>(a.B) * a.H * a.Sq;
+  const int grp = threadIdx.x / L, lane = threadIdx.x % L;
+  const long long r0 = static_cast<long long>(blockIdx.x) * GROUPS * DOT_ROWS + grp;
+  // every load of the thread's rows issued before any is used
+  uint4 xo[DOT_ROWS][E], xd[DOT_ROWS][E];
+#pragma unroll
+  for (int j = 0; j < DOT_ROWS; ++j) {
+    const long long r = r0 + static_cast<long long>(j) * GROUPS;
+    const bool in = r < rows;
+    const int i = in ? static_cast<int>(r % a.Sq) : 0;
+    const int h = in ? static_cast<int>((r / a.Sq) % a.H) : 0;
+    const int b = in ? static_cast<int>(r / (static_cast<long long>(a.Sq) * a.H)) : 0;
+    const uint4* o = reinterpret_cast<const uint4*>(static_cast<const T*>(a.o) + b * a.os[0] +
+                                                    i * a.os[1] + h * a.os[2]);
+    const uint4* d = reinterpret_cast<const uint4*>(static_cast<const T*>(a.dout) + b * a.ds[0] +
+                                                    i * a.ds[1] + h * a.ds[2]);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      xo[j][e] = in ? __ldg(o + lane + L * e) : make_uint4(0u, 0u, 0u, 0u);
+      xd[j][e] = in ? __ldg(d + lane + L * e) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  // each lane's chunks in order, then the L lanes by a fixed butterfly:
+  // the same bits every launch
+#pragma unroll
+  for (int j = 0; j < DOT_ROWS; ++j) {
+    float acc = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc += dot16(xo[j][e], xd[j][e], T());
+#pragma unroll
+    for (int sh = L / 2; sh >= 1; sh /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, sh);
+    const long long r = r0 + static_cast<long long>(j) * GROUPS;
+    if (lane == 0 && r < rows) a.dd[r] = acc;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -2139,13 +2197,22 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
 
 }  // namespace tf
 
+// D = Σ dO · O into a.dd.
+template <typename T, int VD>
+cudaError_t launch_dot(const Args& a, cudaStream_t s) {
+  const long long rows = static_cast<long long>(a.B) * a.H * a.Sq;
+  constexpr int CH = VD * static_cast<int>(sizeof(T)) / 16;
+  constexpr long long PER_BLOCK = DOT_THREADS / (CH < 32 ? CH : 32) * DOT_ROWS;
+  flash_bwd_dot_kernel<T, VD><<<static_cast<unsigned>((rows + PER_BLOCK - 1) / PER_BLOCK),
+                                DOT_THREADS, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
 // D, then dK and dV, then dQ, on one stream: bf16 on wgmma, fp32 in
 // three TF32 products on wgmma (on mma.sync at the wide pairs).
 template <typename T, int HD, int VD>
 cudaError_t launch(const Args& a, cudaStream_t s) {
-  const long long rows = static_cast<long long>(a.B) * a.H * a.Sq;
-  flash_bwd_dot_kernel<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(a);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_dot<T, VD>(a, s);
   if (e != cudaSuccess) return e;
   if constexpr (std::is_same<T, bf16>::value) {
     return wg::launch<HD, VD>(a, s);
@@ -2244,4 +2311,46 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dtype == 1 ? launch_dims<bf16>(a, hd, vd, s)
                                      : launch_dims<float>(a, hd, vd, s));
+}
+
+// D = Σ_d dO · O alone, the backward's first kernel: o and dout (B, Sq, H,
+// vd) of dtype (0 = fp32, 1 = bf16) at vd 16, 32, 64, 128 or 256, strides
+// their (batch, seq, head) element strides (o's, then dout's), every base
+// 16-byte aligned and every stride a multiple of 16 bytes, the last dim
+// contiguous; dd (B, H, Sq) fp32.  Returns the launch's cudaError_t (0 on
+// success); launches nothing and returns cudaErrorInvalidValue for what
+// it does not take.
+extern "C" int flash_bwd_dot(const void* o, const void* dout, void* dd, int dtype, int vd, int B,
+                             int H, int Sq, const long long* strides, void* stream) {
+  if (B < 1 || H < 1 || Sq < 1 || (dtype != 0 && dtype != 1) ||
+      static_cast<long long>(B) * H * Sq > 4LL * 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per16 = dtype == 1 ? 8 : 4;
+  for (int i = 0; i < 6; ++i)
+    if (strides[i] % per16) return static_cast<int>(cudaErrorInvalidValue);
+  for (const void* p : {o, dout})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return static_cast<int>(cudaErrorInvalidValue);
+  Args a = {};
+  a.o = o;
+  a.dout = dout;
+  a.dd = static_cast<float*>(dd);
+  a.B = B;
+  a.H = H;
+  a.Sq = Sq;
+  a.vd = vd;
+  for (int i = 0; i < 3; ++i) {
+    a.os[i] = strides[i];
+    a.ds[i] = strides[3 + i];
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (vd) {
+    case 16: e = dtype == 1 ? launch_dot<bf16, 16>(a, s) : launch_dot<float, 16>(a, s); break;
+    case 32: e = dtype == 1 ? launch_dot<bf16, 32>(a, s) : launch_dot<float, 32>(a, s); break;
+    case 64: e = dtype == 1 ? launch_dot<bf16, 64>(a, s) : launch_dot<float, 64>(a, s); break;
+    case 128: e = dtype == 1 ? launch_dot<bf16, 128>(a, s) : launch_dot<float, 128>(a, s); break;
+    case 256: e = dtype == 1 ? launch_dot<bf16, 256>(a, s) : launch_dot<float, 256>(a, s); break;
+    default: break;
+  }
+  return static_cast<int>(e);
 }

@@ -25,13 +25,17 @@ position ``(n mod shards)·Sk + j``, the masks and ``kv_len`` apply there,
 and a query row that sees none of its block's keys gets ``o = 0`` and
 ``lse = -inf``; ``core.tp.lse_combine`` joins the blocks' results.
 
-The shape picks the decode kernel: a launch whose KV group holds at
-most ``DECODE_ROWS`` query rows (``G·Sq``, ``G = H / KV``: every decode
-step, masked, cross or partial) runs ``flash_decode_kernel``, one block
-a (batch row, KV head, split of the visible keys), which reads the cache
-once and computes in fp32 on the CUDA cores in both dtypes;
-:func:`decode_plan` splits the keys, and a second kernel joins the
-splits by their log-sum-exp.  Every other launch is a training or
+The shape picks a decode kernel: a launch whose KV group holds at most
+``DECODE_ROWS`` query rows (``G·Sq``, ``G = H / KV``: every decode step,
+masked, cross or partial) runs one block a (batch row, KV head, split of
+the visible keys), which reads the cache once; :func:`decode_plan`
+splits the keys.  bf16 runs ``flash_decode_mma_kernel``: the scores and
+P·V on the tensor cores (``mma.sync``, the group's rows padded to m16
+tiles, P split into two bf16 halves), K and V by TMA into a ring of
+``DECODE_STAGES`` fed by a producer warp, and the splits joined inside a
+thread block cluster (:func:`decode_cluster`; otherwise through scratch
+and a join kernel).  fp32 runs ``flash_decode_kernel`` on the CUDA cores,
+a second kernel joining its splits.  Every other launch is a training or
 prefill one, and the dtype picks its kernel, both on the tensor cores:
 bf16 runs ``flash_fwd_wgmma_kernel`` (``wgmma`` fed by TMA, probabilities
 split into two bf16 halves), fp32 ``flash_fwd_tf32_kernel`` (``mma.sync``
@@ -40,13 +44,14 @@ product taken three times, small·big + big·small + big·big, which holds
 fp32 to the reference's 3e-5; K and V through a ``cp.async`` ring).
 Every kernel takes the head dims ``TC_DIMS``.  ``launches`` counts every
 launch, ``tc_launches`` the bf16 tensor-core kernel's alone,
-``fp32_launches`` the fp32 one's, ``decode_launches`` the decode
-kernel's.
+``fp32_launches`` the fp32 one's, ``decode_launches`` either decode
+kernel's, ``decode_mma_launches`` the bf16 decode kernel's.
 
 ``FlashAttention`` is the ``torch.autograd.Function`` around it.  The
 JAX package has no backward kernel (its training path differentiates
 the attention through XLA); the port's backward is a kernel of its own,
-``csrc/flash_bwd.cu`` (:func:`attention_bwd`): a pass for ``D = Σ dO·O``,
+``csrc/flash_bwd.cu`` (:func:`attention_bwd`): a pass for ``D = Σ dO·O``
+(16-byte loads, several rows a warp; :func:`attention_dot` alone),
 a dK/dV kernel (one block a KV head and tile of keys, looping over the
 group's heads and the query tiles that see them) and a dQ kernel (one
 block a head and tile of query rows), both recomputing the
@@ -96,15 +101,28 @@ TC_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
 QT = 128
 #: the most query rows of a KV group (``G·Sq``) the decode kernel holds
 DECODE_ROWS = 64
-#: the card's SMs: a decode launch's grid has at least two blocks each
-#: where it has that many tiles (an H100 SXM's 132)
+#: the card's SMs (an H100 SXM's 132): the decode plans cover them
 SMS = 132
-#: the decode kernel's warps a block, keys a lane group scores before an
-#: update, and the bytes of K and V a stage of its 3-stage ring aims at
+#: the fp32 decode kernel's warps a block, keys a lane group scores before
+#: an update, and the bytes of K and V a stage of its 3-stage ring aims at
 #: (``csrc/flash_attn.cu``'s ``dec::WARPS``, ``KB``, ``TILE_BYTES``)
 DECODE_WARPS, DECODE_KB, DECODE_TILE_BYTES = 8, 2, 32768
 #: the most splits a decode launch takes (the join's shared memory)
 DECODE_SPLITS = 4096
+#: the bf16 decode kernel's ring: its stages, two a consumer warp
+#: (``dmma::STAGES``)
+DECODE_STAGES = 8
+#: the bf16 decode kernel's consumer warps (``dmma::CONSUMERS``): each
+#: holds one m16 tile of the group's rows (:func:`decode_row_tiles`) and
+#: takes every ``DECODE_CONSUMERS / row tiles``-th key tile of the split
+DECODE_CONSUMERS = 4
+#: a bf16 decode block's start and end in tile times, where its plan
+#: balances several waves of blocks (PERF.md §6, the design runs)
+DECODE_BLOCK_TILES = 8
+#: the most splits the bf16 decode kernel joins inside one thread block
+#: cluster (``dmma::CLUSTER``, the portable cluster size); a plan of more
+#: splits writes them to scratch, and a second kernel joins them
+DECODE_CLUSTER = 8
 
 
 class BwdTiles(NamedTuple):
@@ -153,13 +171,18 @@ tc_launches = 0
 fp32_launches = 0
 #: The partial launches over a shard of the keys alone (``shards=``).
 partial_launches = 0
-#: The decode kernel's launches alone (a launch with a join counts once).
+#: Either decode kernel's launches (a launch with a join counts once).
 decode_launches = 0
+#: The bf16 decode kernel's launches alone (``flash_decode_mma_kernel``).
+decode_mma_launches = 0
 #: The backward's launches (its three kernels count once), counted apart
 #: from ``launches``, which counts forward launches only.
 bwd_launches = 0
 #: The backward's launches on the fp32 TF32 ``wgmma`` kernels alone.
 bwd_tf32_launches = 0
+#: The D kernel's launches on its own (:func:`attention_dot`); inside a
+#: backward it is counted by ``bwd_launches``.
+dot_launches = 0
 
 
 @functools.cache
@@ -179,7 +202,7 @@ def _decode_entry():
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_int, ctypes.c_float]
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -191,6 +214,15 @@ def _bwd_entry():
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_int, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _dot_entry():
+    fn = _build.load(BWD_SOURCE).flash_bwd_dot
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -209,19 +241,30 @@ def dims(dtype: torch.dtype, h: int, kv: int, sq: int) -> tuple:
 
 
 def decode_lanes(hd: int, rows: int) -> int:
-    """Lanes a key of the decode kernel for ``rows`` query rows a block:
-    ``hd / 16`` (a warp holds 2 rows, up to 16), ``hd / 8`` above 16 rows
-    (8 a warp), 16 at hd 192 (``dec::lanes``)."""
+    """Lanes a key of the fp32 decode kernel for ``rows`` query rows a
+    block: ``hd / 16`` (a warp holds 2 rows, up to 16), ``hd / 8`` above
+    16 rows (8 a warp), 16 at hd 192 (``dec::lanes``)."""
     return 16 if hd == 192 else hd // 8 if rows > 16 else hd // 16
 
 
 def decode_tile(hd: int, vd: int, esize: int, rows: int) -> int:
-    """Keys a stage of the decode kernel's ring for ``rows`` query rows:
-    whole batches (``DECODE_KB`` keys of every lane group of a warp,
-    ``32 / decode_lanes`` groups), about ``DECODE_TILE_BYTES`` of K and V
-    (``dec::tile_keys``)."""
+    """Keys a stage of a decode kernel's ring for ``rows`` query rows.
+    bf16 (``esize`` 2, ``dmma::Shape::KT``), whatever the rows: 32 keys
+    where a key's K and V, each padded to a 64-wide box, take at most 512
+    bytes (hd up to 128), else 16 (hd 256, (192, 128)): the design runs'
+    best (PERF.md §6).  fp32 (``dec::tile_keys``): whole
+    batches (``DECODE_KB`` keys of every lane group of a warp,
+    ``32 / decode_lanes`` groups), about ``DECODE_TILE_BYTES``."""
+    if esize == 2:
+        return 32 if 2 * (max(hd, 64) + max(vd, 64)) <= 512 else 16
     batch = 32 // decode_lanes(hd, rows) * DECODE_KB
     return batch * max(1, DECODE_TILE_BYTES // (batch * (hd + vd) * esize))
+
+
+def decode_row_tiles(rows: int) -> int:
+    """The bf16 decode kernel's m16 tiles for ``rows`` query rows of a KV
+    group: 1, 2 or 4 (48 rows take 4), one a consumer warp."""
+    return 1 if rows <= 16 else 2 if rows <= 32 else 4
 
 
 class DecodePlan(NamedTuple):
@@ -238,21 +281,27 @@ def decode_plan(n: int, b: int, h: int, kv: int, sq: int, sk: int,
                 hd: int, vd: int, dtype: torch.dtype, *, causal: bool,
                 window: int, q_offset: int, kv_len: int,
                 shards: int | None = None) -> DecodePlan:
-    """The decode launch's splits: the visible range of each outer row's
+    """The decode launch's splits of the visible range of each outer row's
     keys (``ref.visible_keys``, the widest over the shards), in whole
-    tiles, cut into at least as many splits as give the grid of
-    ``n·b·kv`` blocks a split ``2·SMS`` blocks, never more splits than
-    tiles; of those counts, up to four times the least, the one whose
-    waves of blocks (two blocks an SM at up to 16 rows, else one) take
-    the fewest tile times, a block's start and end counted as one tile.
-    The choice is kept for each (blocks, tiles, rows): a decode step asks
-    once a layer, at a new position."""
+    tiles, never more splits than tiles, for a grid of ``n·b·kv`` blocks
+    a split.  bf16 (:func:`_mma_splits`): enough splits that the grid
+    covers the SMs within one wave of the blocks they hold, as long as
+    each block keeps at least ``DECODE_STAGES`` tiles to fill its ring;
+    :func:`decode_cluster` says how they join.  fp32
+    (:func:`_splits`): at least as many splits as give the grid ``2·SMS``
+    blocks; of those counts, up to four times the least, the one whose
+    waves of blocks take the fewest tile times.  The choice is kept for
+    each shape: a decode step asks once a layer, at a new position."""
     tile = _decode_tile(hd, vd, _ESIZE[dtype], h // kv * sq)
-    span = max(hi - lo for lo, hi in (
-        _ref.visible_keys(sq, sk, causal=causal, window=window,
-                          q_offset=q_offset, kv_len=kv_len, base=k0)
-        for k0 in _bases(sk, shards)))
-    tiles = max(1, -(-span // tile))
+    ranges = [_ref.visible_keys(sq, sk, causal=causal, window=window,
+                                q_offset=q_offset, kv_len=kv_len, base=k0)
+              for k0 in _bases(sk, shards)]
+    tiles = max(1, -(-max(hi - lo for lo, hi in ranges) // tile))
+    if dtype == torch.bfloat16:
+        seen = sum(hi > lo for lo, hi in ranges)   # shards with a key
+        return DecodePlan(tile, tiles, _mma_splits(
+            n * b * kv, n * b * kv * seen // (shards or 1), tiles,
+            decode_blocks_per_sm(hd, vd)))
     return DecodePlan(tile, tiles, _splits(n * b * kv, tiles, h // kv * sq))
 
 
@@ -260,10 +309,61 @@ _ESIZE = {torch.float32: 4, torch.bfloat16: 2}
 _decode_tile = functools.lru_cache(maxsize=256)(decode_tile)
 
 
+def decode_ring_bytes(hd: int, vd: int) -> int:
+    """The bf16 decode kernel's ring at ``(hd, vd)``: ``DECODE_STAGES``
+    tiles of K and V, each row padded to a 64-wide box."""
+    return (DECODE_STAGES * decode_tile(hd, vd, 2, 1)
+            * 2 * (max(hd, 64) + max(vd, 64)))
+
+
+def decode_blocks_per_sm(hd: int, vd: int) -> int:
+    """The bf16 decode kernel's blocks an SM holds at once at ``(hd,
+    vd)``: two where two rings (and 2 KB beside each) fit an SM's 227 KB
+    and the consumers keep within 204 registers a thread (``hd + vd <=
+    384``), else one (hd 128's and hd 256's 128 KB rings)."""
+    fits = 2 * (decode_ring_bytes(hd, vd) + 2048) <= 232448
+    return 2 if fits and hd + vd <= 384 else 1
+
+
+def decode_cluster(splits: int, hd: int, vd: int, blocks: int) -> bool:
+    """Whether a bf16 decode launch of ``splits`` splits of ``blocks``
+    blocks each joins them inside a thread block cluster (else through
+    fp32 scratch and a second kernel): a single split, or at most
+    ``DECODE_CLUSTER`` where the clusters are pairs or take at most three
+    quarters of the blocks the SMs hold at once (a cluster's blocks must
+    find room in one GPC together: near a full card, clusters of more
+    than two waited for one, PERF.md §6)."""
+    slots = SMS * decode_blocks_per_sm(hd, vd)
+    return splits == 1 or (splits <= DECODE_CLUSTER and (
+        splits <= 2 or 4 * blocks * splits <= 3 * slots))
+
+
+@functools.lru_cache(maxsize=4096)
+def _mma_splits(blocks: int, seen: int, tiles: int, per_sm: int) -> int:
+    """:func:`decode_plan`'s bf16 split count for ``blocks`` blocks a
+    split (``seen`` of them over keys some row sees: a partial launch's
+    other shards end at once), ``tiles`` tiles and ``per_sm`` blocks an
+    SM, never leaving a block fewer than ``DECODE_STAGES`` tiles where
+    the keys allow: the fewest splits that give every SM a block, but no
+    more blocks than the SMs hold at once; where the blocks that see
+    keys outnumber those already, the count whose waves of blocks take
+    the fewest tile times, a block's start and end counted as
+    ``DECODE_BLOCK_TILES`` tiles (the last wave's tail balanced)."""
+    slots = SMS * per_sm
+    fill = min(tiles, max(1, tiles // DECODE_STAGES), DECODE_SPLITS)
+    if seen > slots:
+        return min(range(1, fill + 1), key=lambda s: (
+            -(-seen * s // slots) * (-(-tiles // s) + DECODE_BLOCK_TILES),
+            s))
+    cover = -(-SMS // blocks)
+    wave = max(1, slots // blocks)
+    return max(1, min(cover, wave, fill))
+
+
 @functools.lru_cache(maxsize=4096)
 def _splits(blocks: int, tiles: int, rows: int) -> int:
-    """:func:`decode_plan`'s split count for ``blocks`` blocks a split
-    and ``tiles`` tiles."""
+    """:func:`decode_plan`'s fp32 split count for ``blocks`` blocks a
+    split and ``tiles`` tiles."""
     least = min(tiles, -(-2 * SMS // blocks), DECODE_SPLITS)
     slots = SMS * (2 if rows <= 16 else 1)
 
@@ -397,9 +497,11 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``(B, Sk, KV, vd)``, CUDA tensors of one dtype, ``H % KV == 0``, each
     with a contiguous last dim; or all three ``(N, B, …)``, which gives
     ``o (N, B, Sq, H, vd)`` and ``lse (N, B, H, Sq)``.  A launch of at
-    most ``DECODE_ROWS`` query rows a KV group (:func:`decodes`) takes the
-    decode kernel, its keys split by :func:`decode_plan` (fp32 scratch
-    for the splits is allocated here).  Any other bf16 launch takes the
+    most ``DECODE_ROWS`` query rows a KV group (:func:`decodes`) takes a
+    decode kernel (bf16 ``flash_decode_mma_kernel``, fp32
+    ``flash_decode_kernel``), its keys split by :func:`decode_plan` (fp32
+    scratch for splits that do not join in a cluster is allocated here).
+    Any other bf16 launch takes the
     wgmma kernel, any other fp32 one the 3xTF32 kernel; every kernel at
     ``(hd, vd)`` in ``TC_DIMS``.  bf16 is read by TMA or 16-byte copies,
     so each base is 16-byte aligned and each stride a multiple of 8
@@ -417,7 +519,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     0`` and ``lse = -inf``.  Anything else raises; nothing is copied.
     """
     global launches, tc_launches, fp32_launches, partial_launches
-    global decode_launches
+    global decode_launches, decode_mma_launches
     ts = (q, k, v)
     if any(t.device.type != "cuda" for t in ts):
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
@@ -444,6 +546,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"k {tuple(k.shape)} do not match (H % KV == 0)")
     dec = decodes(h, kv, sq)
     tc = q.dtype == torch.bfloat16 and not dec
+    mma = q.dtype == torch.bfloat16 and dec
     takes = dims(q.dtype, h, kv, sq)
     if (hd, vd) not in takes:
         raise ValueError(f"flash_attention kernel: (hd, vd) = {(hd, vd)} "
@@ -493,17 +596,22 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                causal=causal, window=window,
                                q_offset=q_offset, kv_len=kv_len,
                                shards=shards)
-            # the splits' fp32 partials: o (rows, splits, vd), then (m, l)
-            # (rows, splits, 2)
+            # bf16 joins up to DECODE_CLUSTER splits inside a cluster;
+            # otherwise the splits' fp32 partials go to scratch: o (rows,
+            # splits, vd), then (m, l) (rows, splits, 2)
+            cluster = mma and decode_cluster(plan.splits, hd, vd,
+                                             n * b * kv)
             parts = n * b * h * sq * plan.splits
             part = (torch.empty(parts * (vd + 2), dtype=torch.float32,
-                                device=q.device) if plan.splits > 1 else None)
+                                device=q.device)
+                    if plan.splits > 1 and not cluster else None)
             ptrs = ((part.data_ptr(), part.data_ptr() + 4 * parts * vd)
                     if part is not None else (None, None))
             err = _decode_entry()(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), *ptrs, DTYPES[q.dtype], hd, vd, n, b, h, kv,
-                sq, sk, cstrides, *opts, *plan, int(vec16), stream)
+                sq, sk, cstrides, *opts, *plan, int(cluster), int(vec16),
+                stream)
         else:
             err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            o.data_ptr(), lse.data_ptr(), DTYPES[q.dtype], hd,
@@ -517,6 +625,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tc_launches += tc
     fp32_launches += not (tc or dec)
     decode_launches += dec
+    decode_mma_launches += mma
     partial_launches += shards is not None
     if nd == 4:
         return o[0], lse[0]
@@ -613,6 +722,43 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bwd_tf32_launches += (q.dtype == torch.float32
                           and (hd, vd) in BWD_TF32_TILES)
     return dq, dk, dv
+
+
+def attention_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """Launch the backward's D kernel alone → ``D (B, H, Sq)`` fp32, ``D =
+    Σ_d dO·O`` (``flash_bwd_dot_kernel``, which :func:`attention_bwd`
+    launches first).  ``o`` and ``do`` ``(B, Sq, H, vd)``, CUDA tensors of
+    one dtype, ``vd`` one of ``TC_DIMS``' value dims, read where they lie
+    when the last dim is contiguous, the bases 16-byte aligned and each
+    stepped stride a multiple of 16 bytes (else copied).  Its plain
+    version is ``ref.flash_attention_dot``."""
+    global dot_launches
+    if any(t.device.type != "cuda" for t in (o, do)) or o.device != do.device:
+        raise ValueError(f"flash_bwd_dot kernel needs CUDA tensors on one "
+                         f"device, got {o.device} {do.device}")
+    if o.dtype not in DTYPES or do.dtype != o.dtype:
+        raise ValueError(f"flash_bwd_dot kernel: dtypes {o.dtype} {do.dtype};"
+                         f" wants one of {list(DTYPES)}")
+    if o.dim() != 4 or do.shape != o.shape or o.shape[-1] not in {
+            vd for _, vd in TC_DIMS}:
+        raise ValueError(f"flash_bwd_dot kernel wants (B, Sq, H, vd) o and "
+                         f"do of one shape, vd in {sorted({x for _, x in TC_DIMS})}; "
+                         f"got {tuple(o.shape)} {tuple(do.shape)}")
+    b, sq, h, vd = o.shape
+    o, do = _packed(o), _packed(do)
+    dd = torch.empty((b, h, sq), dtype=torch.float32, device=o.device)
+    strides = (ctypes.c_longlong * 6)(*(
+        st if n > 1 else 0 for t in (o, do)
+        for n, st in zip(t.shape[:3], t.stride()[:3])))
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        err = _dot_entry()(o.data_ptr(), do.data_ptr(), dd.data_ptr(),
+                           DTYPES[o.dtype], vd, b, h, sq, strides, stream)
+    if err:
+        raise RuntimeError(f"flash_bwd_dot kernel launch failed: cudaError "
+                           f"{err} for o {tuple(o.shape)} {o.dtype}")
+    dot_launches += 1
+    return dd
 
 
 class FlashAttention(torch.autograd.Function):

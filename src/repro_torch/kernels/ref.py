@@ -530,6 +530,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``D = Σ_d dO·O`` of ``(B, Sq, H, vd)`` ``o`` and ``do`` in fp32,
+    ``(B, H, Sq)``: the plain version of the backward's first kernel
+    (``flash_attn.attention_dot``)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
 def _bwd_block(q, k, v, lse, do, *, i0: int, lo: int, causal: bool,
                scale: float, attn_cap: float, window: int) -> tuple:
     """One block of :func:`flash_attention_bwd`: query rows ``i0 …`` of

@@ -1328,7 +1328,7 @@ _DECODE_KERNEL_CASES = (
     (16, 4, 333, 100, 104, True, 0.0, 0))
 
 
-def _decode_kernel_vs_plain(q, k, v, **kw):
+def _decode_kernel_vs_plain(q, k, v, plan_check=True, **kw):
     """One launch, which must be the decode kernel's, twice (the same
     bits), against the plain version (``ref.flash_attention_bshd``, or
     ``flash_attention_partial`` with ``shards``) and against the plain
@@ -1337,10 +1337,13 @@ def _decode_kernel_vs_plain(q, k, v, **kw):
     n, b = (q.shape[0], q.shape[1]) if q.dim() == 5 else (1, q.shape[0])
     sq, h, hd = q.shape[-3:]
     sk, kv, vd = k.shape[-3], k.shape[-2], v.shape[-1]
-    before = (fa.launches, fa.tc_launches, fa.decode_launches)
+    mma = q.dtype == torch.bfloat16
+    before = (fa.launches, fa.tc_launches, fa.decode_launches,
+              fa.decode_mma_launches)
     got = fa.attention_fwd(q, k, v, **kw)
-    assert (fa.launches, fa.tc_launches, fa.decode_launches) == (
-        before[0] + 1, before[1], before[2] + 1)
+    assert (fa.launches, fa.tc_launches, fa.decode_launches,
+            fa.decode_mma_launches) == (
+        before[0] + 1, before[1], before[2] + 1, before[3] + mma)
     again = fa.attention_fwd(q, k, v, **kw)
     assert _same_bits(got[0], again[0]) and _same_bits(got[1], again[1])
     shards = kw.get("shards")
@@ -1349,7 +1352,16 @@ def _decode_kernel_vs_plain(q, k, v, **kw):
         window=kw["window"], q_offset=kw.get("q_offset", 0),
         kv_len=kw.get("kv_len") or sk * (shards or 1), shards=shards)
     blocks = n * b * kv
-    assert blocks * plan.splits >= min(2 * fa.SMS, blocks * plan.tiles)
+    if not plan_check:
+        pass
+    elif mma:   # every SM a block, unless a block would not fill its
+        # ring or the grid would outgrow one wave of the blocks SMs hold
+        fill = max(1, plan.tiles // fa.DECODE_STAGES)
+        wave = max(1, fa.SMS * fa.decode_blocks_per_sm(hd, vd) // blocks)
+        assert blocks * plan.splits >= min(fa.SMS, blocks * fill,
+                                           blocks * wave)
+    else:
+        assert blocks * plan.splits >= min(2 * fa.SMS, blocks * plan.tiles)
     split = ref.flash_attention_split(q, k, v, **plan._asdict(), **kw)
     want = (ref.flash_attention_partial(q, k, v, **kw) if shards
             else ref.flash_attention_bshd(q, k, v, **kw))
@@ -1394,6 +1406,69 @@ def test_flash_decode_kernel_matches_plain_on_cuda(cuda, dtype, dims):
         q, k, v, causal=True, scale=hd ** -0.5, attn_cap=0.0, window=0,
         q_offset=8, kv_len=9).splits > 1)
     assert split == {True, False}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", fa.TC_DIMS, ids=str)
+def test_flash_decode_mma_kernel_joins_both_ways_on_cuda(cuda, dims):
+    """The bf16 decode kernel (``flash_decode_mma_kernel``, counted by
+    ``decode_mma_launches``) at every ``TC_DIMS`` pair with its splits
+    joined both ways, each forced through ``decode_cluster``: inside a
+    thread block cluster (distributed shared memory, one launch) and
+    through fp32 scratch and the join kernel; G 8 over 2 KV heads at the
+    plan's splits, and one (b, KV head) over 16384 keys at up to
+    ``DECODE_CLUSTER`` splits and at the plan's (one split an SM, more
+    than a cluster joins: scratch only).  Each launch twice with the same
+    bits, within one bf16 ulp of the plain version of its splits and of
+    the whole attention."""
+    hd, vd = dims
+    shapes = (((2, 1, 16, hd), (2, 1600, 2, hd), (2, 1600, 2, vd), False),
+              ((1, 1, 8, hd), (1, 16384, 1, hd), (1, 16384, 1, vd), True))
+    for qs, ks, vs, causal in shapes:
+        q, k, v = (torch.randn(s, generator=cuda, device="cuda").bfloat16()
+                   for s in (qs, ks, vs))
+        kw = dict(causal=causal, scale=hd ** -0.5, attn_cap=0.0, window=0,
+                  q_offset=ks[1] - 1 if causal else 0,
+                  kv_len=ks[1] if causal else None)
+        plan = fa.decode_plan(1, qs[0], qs[2], ks[2], 1, ks[1], hd, vd,
+                              torch.bfloat16, causal=causal, window=0,
+                              q_offset=kw["q_offset"], kv_len=ks[1])
+        assert plan.splits > 1
+        for cluster in (True, False):
+            use = (plan._replace(splits=fa.DECODE_CLUSTER)
+                   if cluster and plan.splits > fa.DECODE_CLUSTER else plan)
+            with mock.patch.object(fa, "decode_plan", return_value=use), \
+                    mock.patch.object(fa, "decode_cluster",
+                                      return_value=cluster):
+                _decode_kernel_vs_plain(q, k, v, plan_check=use is plan, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("vd", sorted({vd for _, vd in fa.TC_DIMS}))
+def test_flash_bwd_dot_kernel_matches_plain_on_cuda(cuda, dtype, vd):
+    """The backward's D kernel alone (``flash_attn.attention_dot``:
+    ``flash_bwd_dot_kernel``, 16-byte loads over ``vd·size / 16`` lanes a
+    row, a fixed butterfly) at every value dim of ``TC_DIMS`` in both
+    dtypes: rows ragged against a block's, ``do`` a strided view (a
+    head's slice of a wider tensor), against ``ref.flash_attention_dot``
+    within 1e-5 of its terms' magnitudes (the fp32 sums in another
+    order); twice the same bits, ``dot_launches`` up by one a launch."""
+    dt = getattr(torch, dtype)
+    for b, sq, h in ((1, 1, 1), (2, 333, 3), (3, 97, 32)):
+        o = torch.randn((b, sq, h, vd), generator=cuda, device="cuda").to(dt)
+        do = torch.randn((b, sq, h, 2 * vd), generator=cuda,
+                         device="cuda").to(dt)[..., vd:]
+        before = fa.dot_launches
+        got = fa.attention_dot(o, do)
+        again = fa.attention_dot(o, do)
+        assert fa.dot_launches == before + 2
+        assert _same_bits(got, again) and got.shape == (b, h, sq)
+        want = ref.flash_attention_dot(o, do)
+        scale = ref.flash_attention_dot(o.abs(), do.abs())
+        torch.cuda.synchronize()
+        assert bool(((got - want).abs() <= 1e-5 * scale + 1e-30).all()), (
+            dtype, vd, b, sq, h)
 
 
 @pytest.mark.cuda

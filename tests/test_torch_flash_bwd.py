@@ -452,3 +452,63 @@ def test_bwd_tf32_tiles_cover_the_narrow_pairs():
             (32, 128, 32, True) if hd + vd <= 128
             else (16, 64, 16, False)), (hd, vd)
     assert not any(t.alternate for t in fa.BWD_TILES.values())
+
+
+def _dot_kernel_emulation(o: np.ndarray, do: np.ndarray, *, bf16: bool
+                          ) -> np.ndarray:
+    """``flash_bwd_dot_kernel``'s D = Σ_d dO·O in fp32, ``(B, Sq, H, vd)``
+    → ``(B, H, Sq)``: a row's 16-byte chunks (8 bf16 or 4 fp32 values)
+    over ``L = min(32, chunks)`` lanes (lane ``l`` takes chunks ``l, l +
+    L, …``), each chunk's products summed in order by fused
+    multiply-adds (bf16 from 0, fp32 from its first product), a lane's
+    chunks added in order, then the lanes by a butterfly (xor ``L/2`` …
+    1).  fp32 arithmetic, each fused step rounded once (in fp64, then to
+    fp32)."""
+    per = 8 if bf16 else 4
+    f32 = np.float32
+    x, y = o.astype(np.float64), do.astype(np.float64)
+    b, sq, h, vd = o.shape
+    ch = vd // per
+    lanes = min(32, ch)
+    acc = np.zeros((b, sq, h, lanes), f32)
+    for lane in range(lanes):
+        for c in range(lane, ch, lanes):
+            if bf16:
+                part, start = np.zeros((b, sq, h), f32), 0
+            else:
+                part, start = (x[..., c * per] * y[..., c * per]).astype(f32), 1
+            for e in range(start, per):
+                part = (x[..., c * per + e] * y[..., c * per + e]
+                        + part.astype(np.float64)).astype(f32)
+            acc[..., lane] = (acc[..., lane] + part).astype(f32)
+    width = lanes
+    while width > 1:
+        width //= 2
+        acc = (acc + acc[..., np.arange(lanes) ^ width]).astype(f32)
+    return acc[..., 0].transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("vd", sorted({vd for _, vd in fa.TC_DIMS}))
+def test_dot_kernel_order_matches_the_reference(dtype, vd):
+    """The D kernel's summation order (``_dot_kernel_emulation``) and
+    ``ref.flash_attention_dot`` against the reference's own D, the jitted
+    ``jnp.sum(dO·O)`` of the JAX package's fp32 arithmetic on the same
+    inputs (bf16 values for a bf16 launch), at every value dim of
+    ``TC_DIMS``: within 2^-20 of each row's Σ|dO·O| (the fp32 sums differ
+    in order only)."""
+    rng = np.random.default_rng(vd)
+    o, do = (rng.normal(size=(2, 37, 3, vd)).astype(np.float32)
+             for _ in range(2))
+    if dtype == "bfloat16":
+        o, do = (torch.from_numpy(x).bfloat16().float().numpy()
+                 for x in (o, do))
+    want = np.asarray(jax.jit(lambda a, b: jnp.sum(a * b, -1).transpose(
+        0, 2, 1))(o, do))
+    mag = np.abs(o * do).sum(-1).transpose(0, 2, 1)
+    emu = _dot_kernel_emulation(o, do, bf16=dtype == "bfloat16")
+    plain = ref.flash_attention_dot(torch.from_numpy(o),
+                                    torch.from_numpy(do)).numpy()
+    for got in (emu, plain):
+        assert got.shape == (2, 3, 37)
+        assert np.all(np.abs(got - want) <= 2.0 ** -20 * mag + 1e-30)

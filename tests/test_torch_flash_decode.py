@@ -21,6 +21,7 @@
 """
 import functools
 import importlib.util
+import math
 from pathlib import Path
 
 import jax
@@ -270,26 +271,81 @@ def test_every_decode_launch_and_no_other_takes_the_decode_kernel():
             assert not fa.decodes(h, kv, sq), name
 
 
-def test_the_plan_covers_the_visible_keys_in_whole_tiles():
-    """On every decode launch of the chip's paths: the splits cut the
-    visible range of each shard into contiguous runs of whole tiles (the
-    last cut at its end), none past it; the grid has at least 264 blocks
-    (two an SM) wherever the launch has that many tiles; the ring fits
-    the block's shared memory."""
-    for name, (n, b, sq, sk, h, kv, hd, vd, dt, causal, win, off, kvl,
-               shards) in _launches().items():
+def _fp32_splits(blocks, tiles, rows):
+    """The fp32 decode plan's split count, written out apart from the
+    port: at least ``2·SMS`` blocks where the tiles allow,
+    then up to four times that, the fewest waves of tile times."""
+    least = min(tiles, -(-2 * fa.SMS // blocks), fa.DECODE_SPLITS)
+    slots = fa.SMS * (2 if rows <= 16 else 1)
+    cost = {s: (-(-blocks * s // slots) * (-(-tiles // s) + 1), s)
+            for s in range(least, min(tiles, 4 * least, fa.DECODE_SPLITS)
+                           + 1)}
+    return min(cost, key=cost.get)
+
+
+def _plan_of(c, dt):
+    n, b, sq, sk, h, kv, hd, vd, _, causal, win, off, kvl, shards = c
+    return fa.decode_plan(n, b, h, kv, sq, sk, hd, vd, dt, causal=causal,
+                          window=win, q_offset=off, kv_len=kvl, shards=shards)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_the_plan_covers_the_visible_keys_in_whole_tiles(dtype):
+    """On every decode launch of the chip's paths, in both dtypes: the
+    splits cut the visible range of each shard into contiguous runs of
+    whole tiles (the last cut at its end), none past it, never more
+    splits than tiles.  bf16: the fewest splits that give every SM a
+    block unless a block would keep fewer tiles than the ring's stages
+    or the grid would outgrow one wave of the blocks the SMs hold; where
+    the blocks that see keys outnumber those already, the fewest waves ×
+    tile times; at most ``DECODE_CLUSTER`` where the cluster join is
+    taken, and the ring within the shared memory of the blocks an SM
+    holds.  fp32: its own plan (``_fp32_splits``), unchanged
+    (at least 264 blocks, two an SM, wherever the launch has that many
+    tiles)."""
+    dt = getattr(torch, dtype)
+    esize = torch.empty((), dtype=dt).element_size()
+    for name, c in _launches().items():
+        n, b, sq, sk, h, kv, hd, vd, _, causal, win, off, kvl, shards = c
         if not fa.decodes(h, kv, sq):
             continue
-        plan = fa.decode_plan(n, b, h, kv, sq, sk, hd, vd, dt,
-                              causal=causal, window=win, q_offset=off,
-                              kv_len=kvl, shards=shards)
-        esize = torch.empty((), dtype=dt).element_size()
-        assert plan.tile == fa.decode_tile(hd, vd, esize, h // kv * sq)
-        assert 3 * plan.tile * (hd + vd) * esize <= 232448, name
-        blocks = n * b * kv
+        plan = _plan_of(c, dt)
+        rows, blocks = h // kv * sq, n * b * kv
+        assert plan.tile == fa.decode_tile(hd, vd, esize, rows)
         assert 1 <= plan.splits <= plan.tiles, name
-        assert blocks * plan.splits >= min(2 * fa.SMS, blocks * plan.tiles), (
-            name, plan)
+        if dt == torch.bfloat16:
+            per_sm = fa.decode_blocks_per_sm(hd, vd)
+            ring = fa.DECODE_STAGES * plan.tile * 2 * (max(hd, 64)
+                                                       + max(vd, 64))
+            assert ring <= 232448 // per_sm - 2048, name
+            fill = max(1, plan.tiles // fa.DECODE_STAGES)
+            wave = max(1, fa.SMS * per_sm // blocks)
+            seen = blocks * sum(hi > lo for lo, hi in (
+                ref.visible_keys(sq, sk, causal=causal, window=win,
+                                 q_offset=off, kv_len=kvl, base=m * sk)
+                for m in range(shards or 1))) // (shards or 1)
+            if seen > fa.SMS * per_sm:   # several waves: their tile times
+                waves = {x: -(-seen * x // (fa.SMS * per_sm)) * (
+                    -(-plan.tiles // x) + fa.DECODE_BLOCK_TILES)
+                    for x in range(1, fill + 1)}
+                assert waves[plan.splits] == min(waves.values()), name
+                assert all(waves[x] > waves[plan.splits]
+                           for x in range(1, plan.splits)), name
+            else:
+                assert plan.splits == min(-(-fa.SMS // blocks), fill,
+                                          wave), (name, plan)
+                assert blocks * plan.splits <= max(blocks, fa.SMS * per_sm)
+                assert blocks * plan.splits >= min(fa.SMS, blocks * fill,
+                                                   blocks * wave)
+            if fa.decode_cluster(plan.splits, hd, vd, blocks):
+                assert plan.splits <= fa.DECODE_CLUSTER, name
+                assert plan.splits <= 2 or (
+                    4 * blocks * plan.splits <= 3 * fa.SMS * per_sm), name
+        else:
+            assert 3 * plan.tile * (hd + vd) * esize <= 232448, name
+            assert blocks * plan.splits >= min(2 * fa.SMS,
+                                               blocks * plan.tiles), name
+            assert plan.splits == _fp32_splits(blocks, plan.tiles, rows)
         spans = []
         for m in range(shards or 1):
             lo, hi = ref.visible_keys(sq, sk, causal=causal, window=win,
@@ -308,25 +364,71 @@ def test_the_plan_covers_the_visible_keys_in_whole_tiles():
             assert sum(e - a for a, e in cuts) == hi - lo, (name, cuts)
         assert (plan.tiles - 1) * plan.tile < max(spans) <= (
             plan.tiles * plan.tile), (name, plan, spans)
-    plan = fa.decode_plan(1, 2, 8, 4, 1, 6176, 256, 256, torch.bfloat16,
+    plan = fa.decode_plan(1, 2, 8, 4, 1, 6176, 256, 256, dt,
                           causal=True, window=4096, q_offset=5999,
                           kv_len=6000)
     assert plan.tiles * plan.tile - 4096 < plan.tile  # the window's keys only
 
 
+def test_the_cluster_join_takes_the_model_launches_that_fit_a_cluster():
+    """bf16: which join each decode launch of the chip's paths takes.
+    The qwen3, TinyLlama and whisper decodes and the VLM's self decode
+    join their splits in a cluster (one launch); the VLM server's cross
+    decode (32 blocks a split, 4 splits, at one block an SM) fills the
+    card and gemma2-2b's 6176-key decodes at B = 2 (8 blocks a split)
+    want 16 splits: both take the scratch join."""
+    plans = {name: _plan_of(c, torch.bfloat16)
+             for name, c in _launches().items() if c[2] == 1}
+    for name in ("qwen3 decode", "vlm server cross decode bf16",
+                 "tinyllama decode", "whisper decode cross",
+                 "vlm self decode", "whisper decode self"):
+        c = _launches()[name]
+        if name != "vlm server cross decode bf16":
+            assert fa.decode_cluster(plans[name].splits, c[6], c[7],
+                                     c[0] * c[1] * c[5]), name
+    assert plans["gemma2 decode global"].splits > fa.DECODE_CLUSTER
+    assert not fa.decode_cluster(plans["gemma2 decode global"].splits,
+                                 256, 256, 8)
+    # the VLM server's 32 blocks at 4 splits fill the card at hd 128's one
+    # block an SM: its splits join through scratch
+    assert not fa.decode_cluster(
+        plans["vlm server cross decode bf16"].splits, 128, 128, 32)
+    assert {p.splits > 1 for p in plans.values()} == {True, False}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_tiles_are_whole_batches_that_fit(dtype):
-    """For every (hd, vd) and every row count up to ``DECODE_ROWS``: the
-    lanes of a key divide a warp and the head dims, a tile is a whole
-    number of batches (``DECODE_KB`` keys of each of a warp's lane
+    """For every (hd, vd) and every row count up to ``DECODE_ROWS``.
+    fp32: the lanes of a key divide a warp and the head dims, a tile is a
+    whole number of batches (``DECODE_KB`` keys of each of a warp's lane
     groups), about ``DECODE_TILE_BYTES`` of K and V, the row chunks fit
-    the block's warps, and three stages fit the block's shared memory."""
+    the block's warps, and three stages fit the block's shared memory.
+    bf16: a tile is 32 keys where a key's K and V (each row padded to a
+    64-wide box) take at most 512 bytes, else 16, whatever the rows; the
+    rows' m16 tiles divide the consumer warps; the ring (two stages a
+    warp) holds the warps' outputs at the end, and as many rings as the
+    SM holds blocks (two, one at hd 128 and 256) fit its shared
+    memory."""
     esize = torch.empty((), dtype=getattr(torch, dtype)).element_size()
     for hd, vd in fa.TC_DIMS:
         for rows in range(1, fa.DECODE_ROWS + 1):
+            tile = fa.decode_tile(hd, vd, esize, rows)
+            if esize == 2:
+                padded = 2 * (max(hd, 64) + max(vd, 64))
+                mt = fa.decode_row_tiles(rows)
+                assert 16 * mt >= rows and fa.DECODE_CONSUMERS % mt == 0
+                assert tile == (32 if padded <= 512 else 16)
+                ring = fa.DECODE_STAGES * tile * padded
+                assert ring == fa.decode_ring_bytes(hd, vd)
+                assert fa.DECODE_STAGES % fa.DECODE_CONSUMERS == 0
+                assert 4 * fa.DECODE_CONSUMERS * 16 * vd <= ring
+                per_sm = fa.decode_blocks_per_sm(hd, vd)
+                assert per_sm * (ring + 2048) <= 232448
+                assert per_sm == (1 if (hd, vd) in ((128, 128), (256, 256))
+                                  else 2)
+                continue
             lanes = fa.decode_lanes(hd, rows)
             assert 32 % lanes == 0 and hd % lanes == 0 and vd % lanes == 0
-            tile = fa.decode_tile(hd, vd, esize, rows)
             chunks = 1
             while chunks * (2 if rows <= 16 else 8) < rows:
                 chunks *= 2
@@ -336,3 +438,217 @@ def test_decode_tiles_are_whole_batches_that_fit(dtype):
             assert tile == batch or tile * (hd + vd) * esize <= (
                 fa.DECODE_TILE_BYTES)
             assert 3 * tile * (hd + vd) * esize <= 232448
+
+
+def _bf16(x):
+    """fp32 ``x`` rounded to bf16 (to nearest even), back in fp32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _fl32_sum(acc, a, b):
+    """``acc + a @ b`` with the product's terms summed exactly (fp64: 16
+    bf16 products) and one fp32 rounding, as an mma step adds its k
+    chunk of 16 into its fp32 accumulator."""
+    return (acc.double() + a.double() @ b.double()).float()
+
+
+def _mma_kernel_emulation(q, k, v, *, plan, causal, scale, cap, window,
+                          q_offset, kv_len, shards=None):
+    """``csrc/flash_attn.cu``'s bf16 decode kernel (``dmma``) in fp32 on
+    the CPU: ``(o bf16, lse fp32, o fp32 before its rounding)``.
+
+    ``q`` ``(N, B, Sq, H, hd)``, ``k`` ``(N, B, Sk, KV, hd)``, ``v``
+    ``(N, B, Sk, KV, vd)``, bf16.  For each (n, b, KV head): the group's
+    ``G·Sq`` rows (row ``g·Sq + i``); each split of the plan
+    (``ref.split_keys``) walks its tiles of ``plan.tile`` keys, tile
+    ``it`` on key slice ``it mod (DECODE_CONSUMERS / row tiles)``; a
+    tile's scores summed over 16-wide k chunks in fp32, scaled (capped
+    first) into log2 units, −inf where a row does not see the key; the
+    slice's online softmax (max, 2^(s − m), the sum, the output rescaled);
+    P split as P_hi = bf16(p) and P_lo = bf16(p − P_hi), two products a
+    16-key chunk into the fp32 output.  The slices join in slice order,
+    then the splits in split order (O = Σ O_s 2^(m_s − M), L likewise),
+    o = O / max(L, 1e-30), lse = M ln 2 + log L; a row that saw no key
+    gets o = 0, lse = −inf."""
+    n, b, sq, h, hd = q.shape
+    sk, kvh, vd = k.shape[2], k.shape[3], v.shape[-1]
+    g = h // kvh
+    rows = g * sq
+    slices = fa.DECODE_CONSUMERS // fa.decode_row_tiles(rows)
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    c_scale = torch.tensor(scale, dtype=torch.float32) * log2e
+    kt = plan.tile
+    o_all = torch.zeros((n, b, sq, h, vd))
+    lse_all = torch.full((n, b, h, sq), -torch.inf)
+    for nn in range(n):
+        base = (nn % shards) * sk if shards else 0
+        lo, hi = ref.visible_keys(sq, sk, causal=causal, window=window,
+                                  q_offset=q_offset, kv_len=kv_len,
+                                  base=base)
+        pos = (q_offset - base + torch.arange(sq)).repeat(g)  # row g·Sq + i
+        for bb in range(b):
+            for j in range(kvh):
+                qr = q[nn, bb, :, j * g:(j + 1) * g].float()     # (Sq, G, hd)
+                qr = qr.transpose(0, 1).reshape(rows, hd)
+                kk, vv = k[nn, bb, :, j].float(), v[nn, bb, :, j].float()
+                parts = []
+                for s in range(plan.splits):
+                    a, e = ref.split_keys(lo, hi, s, tile=kt,
+                                          tiles=plan.tiles,
+                                          splits=plan.splits)
+                    states = []
+                    for sl in range(slices):
+                        m = torch.full((rows,), -torch.inf)
+                        ll = torch.zeros(rows)
+                        acc = torch.zeros((rows, vd))
+                        ntiles = -(-(e - a) // kt) if e > a else 0
+                        for it in range(sl, ntiles, slices):
+                            t0 = a + it * kt
+                            keys = torch.arange(t0, t0 + kt)
+                            kin = keys.clamp(max=sk - 1)
+                            kb = torch.where((keys < sk)[:, None], kk[kin], 0)
+                            vb = torch.where((keys < e)[:, None], vv[kin], 0)
+                            x = torch.zeros((rows, kt))
+                            for c0 in range(0, hd, 16):
+                                x = _fl32_sum(x, qr[:, c0:c0 + 16],
+                                              kb[:, c0:c0 + 16].T)
+                            if cap:
+                                x = torch.tanh(x * scale / cap) * cap * log2e
+                            else:
+                                x = x * c_scale
+                            seen = (keys < e)[None].expand(rows, kt)
+                            if causal:
+                                seen = seen & (keys[None] <= pos[:, None])
+                                if window:
+                                    seen = seen & (keys[None]
+                                                   > pos[:, None] - window)
+                            x = torch.where(seen, x, -torch.inf)
+                            mx = torch.maximum(m, x.amax(-1))
+                            bm = torch.where(torch.isinf(mx), 0.0, mx)
+                            al = torch.exp2(m - bm)
+                            p = torch.exp2(x - bm[:, None])
+                            ll = ll * al + p.sum(-1)
+                            m = mx
+                            acc = acc * al[:, None]
+                            for c0 in range(0, kt, 16):
+                                ph = _bf16(p[:, c0:c0 + 16])
+                                pl = _bf16(p[:, c0:c0 + 16] - ph)
+                                acc = _fl32_sum(acc, ph, vb[c0:c0 + 16])
+                                acc = _fl32_sum(acc, pl, vb[c0:c0 + 16])
+                        states.append((m, ll, acc))
+                    parts.append(_join(states))
+                m, ll, acc = _join(parts)
+                none = torch.isinf(m)
+                out = torch.where(none[:, None], 0.0,
+                                  acc / ll.clamp(min=1e-30)[:, None])
+                lse = torch.where(none, -torch.inf,
+                                  m * math.log(2) + torch.log(ll))
+                out = out.reshape(g, sq, vd).transpose(0, 1)
+                o_all[nn, bb, :, j * g:(j + 1) * g] = out
+                lse_all[nn, bb, j * g:(j + 1) * g] = lse.reshape(g, sq)
+    return o_all.bfloat16(), lse_all, o_all
+
+
+def _join(states):
+    """(m, l, O) states joined in their order: M = max m, w = 2^(m − M)
+    (0 for an empty state), O = Σ O w and L = Σ l w summed in order."""
+    m = torch.stack([s[0] for s in states]).amax(0)
+    bm = torch.where(torch.isinf(m), 0.0, m)
+    ll = torch.zeros_like(m)
+    acc = torch.zeros_like(states[0][2])
+    for sm, sl, so in states:
+        w = torch.exp2(sm - bm)
+        acc = acc + so * w[:, None]
+        ll = ll + sl * w
+    return m, ll, acc
+
+
+#: the models' bf16 decode launches, cut to a CPU's size: name → (N, B,
+#: G, KV, Sq, Sk, hd, vd, causal, cap, window, q_offset, kv_len, shards,
+#: the width v is a view of (MLA's strided v) or 0)
+MMA_CASES = {
+    "hd 64 G 8": (1, 2, 8, 2, 1, 1100, 64, 64, True, 0.0, 0, 1087, 1088,
+                  None, 0),
+    "hd 128 G 16": (1, 2, 16, 2, 1, 600, 128, 128, True, 0.0, 0, 590, 591,
+                    None, 0),
+    "vlm cross hd 128 G 8": (1, 1, 8, 2, 1, 800, 128, 128, False, 0.0, 0, 0,
+                             800, None, 0),
+    "hd 256 cap 50 window 4096": (1, 1, 2, 2, 1, 4200, 256, 256, True, 50.0,
+                                  4096, 4150, 4151, None, 0),
+    "(192, 128) strided v": (1, 2, 1, 4, 1, 300, 192, 128, True, 0.0, 0,
+                             250, 251, None, 256),
+    "shards keyless G 16 Sq 4": (4, 1, 16, 1, 4, 40, 64, 64, True, 0.0, 0,
+                                 66, 70, 4, 0),
+}
+
+
+@pytest.mark.parametrize("name", list(MMA_CASES))
+def test_mma_kernel_emulation_matches_jax_attend(name):
+    """The bf16 decode kernel's arithmetic (``_mma_kernel_emulation``, at
+    ``decode_plan``'s plan) against the jitted reference ``attend`` on
+    the same bf16 inputs, held to the card's bound (``chip_smoke.py``'s
+    ``flash_err``): every output within one bf16 ulp of the reference's
+    bf16 output plus 2^-17 of max|v|.  The margin: the output before its
+    rounding is within that 2^-17 of max|v| alone of the reference's fp32
+    arithmetic on the same inputs.  With ``shards``: against
+    ``ref.flash_attention_partial`` the same way, keyless rows ``o = 0``,
+    ``lse = -inf`` exactly."""
+    (n, b, g, kvh, sq, sk, hd, vd, causal, cap, win, off, kvl, shards,
+     v_in) = MMA_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    h = g * kvh
+    qn = rng.normal(size=(n, b, sq, h, hd)).astype(np.float32)
+    kn = rng.normal(size=(n, b, sk, kvh, hd)).astype(np.float32)
+    vn = rng.normal(size=(n, b, sk, kvh, v_in or vd)).astype(np.float32)
+    tq, tk = (torch.from_numpy(x).bfloat16() for x in (qn, kn))
+    tv = torch.from_numpy(vn).bfloat16()[..., -vd:]
+    scale = 2.0 ** -3                  # exact in bf16: q·scale rounds nothing
+    kw = dict(causal=causal, scale=scale, attn_cap=cap, window=win,
+              q_offset=off, kv_len=kvl)
+    plan = _plan(tq, tk, tv, shards=shards, **kw)
+    got, lse, got32 = _mma_kernel_emulation(
+        tq, tk, tv, plan=plan, causal=causal, scale=scale, cap=cap,
+        window=win, q_offset=off, kv_len=kvl, shards=shards)
+    assert plan.splits > 1 or shards    # every other case joins splits
+    if shards:
+        want, wl = ref.flash_attention_partial(tq, tk, tv, shards=shards,
+                                               **kw)
+        want32, _ = ref.flash_attention_partial(
+            *(x.float() for x in (tq, tk, tv)), shards=shards, **kw)
+        keyless = torch.isinf(wl)
+        assert bool(keyless.any()) and torch.equal(torch.isinf(lse), keyless)
+        assert not bool(got.movedim(-2, -3)[keyless].any())
+        want, want32 = want.float().numpy(), want32.numpy()
+    else:
+        sel = dict(q_pos=off + jnp.arange(sq), kv_len=jnp.int32(kvl))
+        args = [jnp.asarray(x.float().numpy()[0]) for x in (tq, tk, tv)]
+        fn = _jax_attend(causal, win, cap, scale)
+        want = np.asarray(fn(*(x.astype(jnp.bfloat16) for x in args), **sel),
+                          np.float32)[None]
+        want32 = np.asarray(fn(*args, **sel), np.float32)[None]
+    floor = 2.0 ** -17 * float(tv.float().abs().max())
+    assert float(np.abs(got32.numpy() - want32).max()) <= floor, name
+    ulp = np.ldexp(1.0, np.frexp(np.abs(want))[1] - 8)
+    assert np.all(np.abs(got.float().numpy() - want) <= ulp + floor), name
+
+
+def test_mma_kernel_emulation_splits_join_in_order():
+    """The emulation's split join: at the plan's splits, at one split and
+    at as many splits as tiles, the outputs before their rounding agree
+    within 1e-6 of max|v| (the join reorders fp32 sums only), and two
+    calls give the same bits."""
+    rng = np.random.default_rng(7)
+    tq, tk, tv = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                  .bfloat16() for s in ((1, 2, 1, 16, 64), (1, 2, 700, 2, 64),
+                                        (1, 2, 700, 2, 64)))
+    kw = dict(causal=True, scale=0.125, cap=0.0, window=0, q_offset=650,
+              kv_len=651)
+    plan = _plan(tq, tk, tv, attn_cap=0.0, **{x: y for x, y in kw.items()
+                                                if x != "cap"})
+    outs = [_mma_kernel_emulation(tq, tk, tv, plan=p, **kw)[2] for p in (
+        plan, plan._replace(splits=1), plan._replace(splits=plan.tiles))]
+    assert plan.splits not in (1, plan.tiles)
+    for o in outs[1:]:
+        assert float((o - outs[0]).abs().max()) <= 1e-6 * 4.5
+    again = _mma_kernel_emulation(tq, tk, tv, plan=plan, **kw)[2]
+    assert torch.equal(again, outs[0])

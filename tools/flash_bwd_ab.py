@@ -25,8 +25,10 @@ its three kernels by ``torch.profiler`` (``flash_bwd_dot``, then bf16's
 pairs ``flash_bwd_dkdv`` and ``flash_bwd_dq``), the bound (five products
 a visible pair at the card's peak, bf16 989 TFLOP/s, fp32 three TF32
 products at 495) and each kernel's (``chip_smoke.bwd_kernel_bounds``),
-and a hash of the gradients' bits (the inputs drawn from a seed of the
-case's own); each build's largest register count and spill, and each
+SDPA's backward on the same inputs (``chip_smoke.sdpa_bwd_ms``: the
+gradient alone, KV heads repeated, no cap; the yardstick, never called
+by the port), and a hash of the gradients' bits (the inputs drawn from
+a seed of the case's own); each build's largest register count and spill, and each
 kernel's tensor-core instructions by ``cuobjdump -sass`` (TF32 and other
 ``HGMMA``, ``HMMA``).  ``--case`` (repeated) keeps the cases whose name holds
 one of the strings given.  Prints one JSON
@@ -102,7 +104,8 @@ def child(source: str, iters: int, only: list) -> None:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "src"))
     from chip_smoke import (BF16_FLOPS_PER_S, HBM_BYTES_PER_S,
-                            TF32_FLOPS_PER_S, bwd_kernel_bounds, cuda_ms)
+                            TF32_FLOPS_PER_S, bwd_kernel_bounds, cuda_ms,
+                            sdpa_bwd_ms)
     from repro_torch.kernels import build as kb
     from repro_torch.kernels import flash_attn as fa
 
@@ -163,6 +166,7 @@ def child(source: str, iters: int, only: list) -> None:
                           "kernel_bounds_ms": bwd_kernel_bounds(fa, q, k, v,
                                                                 kw),
                           "of_bound": bound * 1e3 / ms,
+                          "sdpa_bwd_ms": sdpa_bwd_ms(torch, q, k, v, do, kw),
                           "bits": digest.hexdigest()[:16]}), flush=True)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
