@@ -135,8 +135,8 @@
    dtypes at every ``TC_DIMS`` pair.  Then the backward kernels
    (``csrc/flash_bwd.cu``: bf16 on ``flash_bwd_dkdv_wgmma_kernel`` and
    ``flash_bwd_dq_wgmma_kernel``, fp32 on ``flash_bwd_dkdv_tf32_kernel``
-   and ``flash_bwd_dq_tf32_kernel``, three TF32 products on ``wgmma``, at
-   (256, 256) and (192, 128) on the 3xTF32 ``mma.sync`` ones)
+   and ``flash_bwd_dq_tf32_kernel``, three TF32 products on ``wgmma`` at
+   every pair, (256, 256) and (192, 128) in a design of their own)
    against their plain version ``ref.flash_attention_bwd`` on the
    forward kernel's ``o`` and log-sum-exp: ``BWD_SYNTH`` at every
    ``TC_DIMS`` pair in both dtypes (causal and not, cap, window, GQA 8/8,
@@ -144,7 +144,9 @@
    Sk``, a strided ``v``) and ``BWD_CASES``, every training launch of the
    path phases (TinyLlama's, on ``2x2x2`` too, gemma2-2b's local and
    global at hd 256 with cap 50, deepseek's MLA with its strided ``v``,
-   whisper's encoder, decoder and cross, zamba2's) and two fp32 ones;
+   whisper's encoder, decoder and cross, zamba2's, and phase 31's fp32
+   steps' at the wide pairs: gemma2-2b's local and global, deepseek's)
+   and two fp32 ones;
    each launched twice with the same bits, one ``bwd_launches`` each,
    fp32 within 1e-4, bf16 each gradient within 2e-2 of its largest; each
    model case timed beside its bound (five products a visible pair:
@@ -156,7 +158,8 @@
    three times at TF32's rate); the path launch's two bf16 kernels and
    TinyLlama's fp32 launch's two go into the last-but-one line as
    kernels of their own, the fp32 ones with phase 31's fp32 steps'
-   launches.
+   launches; gemma2-2b's global and deepseek's fp32 launches' two, the
+   wide pairs', on a line before it, under names that say the pair.
 8. The wire dense reductions (``WIRE_RUNS``), at the reduction paths'
    model and size: on ``(2, 4)`` the default (the hierarchical schedule,
    rhd levels), ``reproducible=True`` (its fixed-tree variant),
@@ -452,8 +455,14 @@
    zamba2 at two groups, losses and gradient norms within
    ``TP_FP32_TOL``, every backward launch of those steps counted
    (``bwd_tf32_launches``) on the fp32 ``wgmma`` kernels, none on the
-   plain backward; deepseek-v2-lite's two layers in bf16 (32 experts a
-   model rank), the ``2x2x2`` steps forced on the ``2x2x1`` steps' expert
+   plain backward; two fp32 steps on ``2x2x1`` of gemma2-2b and of
+   deepseek-v2-lite at ``WIDE_FP32_LAYERS`` (their backward at (256, 256)
+   and (192, 128)), every backward launch on the fp32 ``wgmma`` kernels
+   and recorded (``path_bwd``), each against a twin with the plain
+   backward patched in (deepseek's forced onto the first run's expert
+   choices), losses and gradient norms within ``TP_FP32_TOL``, step time,
+   peak and launches printed; deepseek-v2-lite's two layers in bf16 (32
+   experts a model rank), the ``2x2x2`` steps forced on the ``2x2x1`` steps' expert
    choices (the flips counted), within ``TP_BF16_TOL``, the dropped
    choices' share equal.
 32. The dry-run against the card: ``launch/dryrun.py``'s train tracer
@@ -796,6 +805,10 @@ DP_TRAIN_FLAGS = ["--mesh", "2x2x1", "--batch", "4", *TRAIN_FLAGS[4:]]
 #: order), TinyLlama at ``COMPARE_LAYERS`` and zamba2 at two groups
 TP_FP32_TOL = 1e-5
 ZAMBA_TP_LAYERS = 12
+#: phase 31: gemma2-2b's and deepseek-v2-lite's fp32 steps on ``2x2x1``,
+#: cut in depth only: gemma2-2b's one local layer (window 4096) and one
+#: global, deepseek's dense first layer and one MoE layer
+WIDE_FP32_LAYERS = 2
 #: phase 31: deepseek-v2-lite's two layers at ``2x2x2`` (32 experts a
 #: model rank) against ``2x2x1`` in bf16, the ``2x2x2`` step forced on the
 #: ``2x2x1`` step's expert choices: losses and norms within this share
@@ -856,17 +869,18 @@ def flash_per_call(cfg, kind: str) -> int:
 
 def flash_case(b, sq, sk, h, kv, hd, cap=0.0, window=0, q_offset=0,
                kv_len=None, *, vd=None, causal=True, dtype="bfloat16",
-               v_in=None) -> dict:
+               v_in=None, scale_of="bfloat16") -> dict:
     """One ``FLASH_MODEL_CASES`` entry: the launch's shapes (q ``(b, sq,
     h, hd)``, k ``(b, sk, kv, hd)``, v ``(b, sk, kv, vd)``), cap, window,
     mask, the kernel's dtype (bf16: the wgmma kernel; fp32: the 3xTF32
-    kernel, which a bf16 query over fp32 K/V reaches upcast) and, where
-    the model's ``v`` is a strided view of a wider tensor, that tensor's
-    width a head (MLA's up-projection: ``v`` its last ``vd`` of ``v_in``
-    values a head)."""
+    kernel, which a bf16 query over fp32 K/V reaches upcast), where the
+    model's ``v`` is a strided view of a wider tensor, that tensor's width
+    a head (MLA's up-projection: ``v`` its last ``vd`` of ``v_in`` values
+    a head), and the dtype of the model's query, which rounds its scale
+    (bf16 but in an fp32 model)."""
     return dict(b=b, sq=sq, sk=sk, h=h, kv=kv, hd=hd, cap=cap, window=window,
                 q_offset=q_offset, kv_len=kv_len, vd=vd or hd, causal=causal,
-                dtype=dtype, v_in=v_in)
+                dtype=dtype, v_in=v_in, scale_of=scale_of)
 
 
 #: phase 7's flash cases at the model paths' launches: every launch shape
@@ -979,7 +993,7 @@ FLASH_MODEL_CASES = {k: flash_case(*v) for k, v in {
 #: before ``v`` in each head of the tensor it is a view of (0: contiguous,
 #: as MLA's strided ``v``); lengths ragged against every tile of both
 #: dtypes' kernels (``flash_attn.BWD_TILES`` for bf16), GQA 8/8, 8/2 and
-#: 8/1 (``tests/test_torch_cuda.py``'s ``_BWD_CASES``)
+#: 8/1 (the first eight of ``tests/test_torch_cuda.py``'s ``_BWD_CASES``)
 BWD_SYNTH = ((2, 300, 300, 8, 8, True, 0.0, 0, 0),
              (1, 300, 300, 8, 2, True, 30.0, 100, 0),
              (2, 200, 333, 8, 2, False, 0.0, 0, 0),
@@ -989,15 +1003,22 @@ BWD_SYNTH = ((2, 300, 300, 8, 8, True, 0.0, 0, 0),
              (2, 97, 161, 8, 1, False, 30.0, 0, 64),
              (1, 700, 700, 4, 4, True, 0.0, 300, 64))
 #: phase 7's backward cases: every training launch of the path phases
-#: (``path_bwd`` records them), the fp32 shape ``tools/flash_ab.py`` times
-#: and phase 31's fp32 TinyLlama on ``2x2x2``
+#: (``path_bwd`` records them: phase 31's fp32 steps of gemma2-2b and
+#: deepseek on ``2x2x1`` among them, the wide pairs' path), the fp32 shape
+#: ``tools/flash_ab.py`` times and phase 31's fp32 TinyLlama on ``2x2x2``
 BWD_CASES = {name: FLASH_MODEL_CASES[name] for name in (
     "tinyllama train", "tinyllama train 2x2x2", "gemma2 train local",
     "gemma2 train global", "deepseek train", "whisper train encoder",
     "whisper train decoder", "whisper train cross", "zamba2 train")} | {
     "train fp32": flash_case(4, 1024, 1024, 8, 8, 64, dtype="float32"),
     "tinyllama fp32 2x2x2": flash_case(8, 4096, 4096, 16, 2, 64,
-                                       dtype="float32")}
+                                       dtype="float32"),
+    "gemma2 fp32 train local": flash_case(
+        4, 4096, 4096, *_GE, 4096, dtype="float32", scale_of="float32"),
+    "gemma2 fp32 train global": flash_case(
+        4, 4096, 4096, *_GE, 0, dtype="float32", scale_of="float32"),
+    "deepseek fp32 train": flash_case(4, 4096, 4096, **_DS, dtype="float32",
+                                      scale_of="float32")}
 #: each training phase's step ms and peak GiB with the plain attention
 #: backward, the last run before the backward kernel (PERF.md §5; an
 #: NVIDIA H100 80GB HBM3 at 700.00 W), printed beside this run's
@@ -1058,8 +1079,8 @@ KERNEL_NAME = re.compile(
     r"accum_scatter|zero|topk|flash_fwd_wgmma|flash_fwd_tf32|"
     r"flash_decode_join|flash_decode_mma|flash_decode|flash_bwd_dot|"
     r"flash_bwd_dkdv_wgmma|"
-    r"flash_bwd_dq_wgmma|flash_bwd_dkdv_tf32|flash_bwd_dq_tf32|"
-    r"flash_bwd_dkdv|flash_bwd_dq)_kernel(<[^>]*>)?|"
+    r"flash_bwd_dq_wgmma|flash_bwd_dkdv_tf32|flash_bwd_dq_tf32)"
+    r"_kernel(<[^>]*>)?|"
     r"\w*gemm\w*|"
     r"CatArrayBatchedCopy\w*|\w*(Sort|sort|TopK|topk|Select)\w*|"
     r"\w+_kernel_cuda|\w*Functor\w*(<\w+>)?")
@@ -2018,10 +2039,11 @@ def check_decode_gates(counts: dict, total: int) -> None:
 
 def case_kw(torch, case) -> dict:
     """A ``FLASH_MODEL_CASES`` entry's launch keywords: the model's query
-    scale (``hd ** -0.5`` rounded to bf16: the bf16 query's, also where it
-    is upcast over fp32 K/V), its cap, window and mask."""
+    scale (``hd ** -0.5`` rounded to the query's dtype: bf16, also where
+    the query is upcast over fp32 K/V, or an fp32 model's), its cap,
+    window and mask."""
     return dict(causal=case["causal"], scale=torch.tensor(
-        case["hd"] ** -0.5, dtype=torch.bfloat16).item(),
+        case["hd"] ** -0.5, dtype=getattr(torch, case["scale_of"])).item(),
         attn_cap=case["cap"], window=case["window"],
         q_offset=case["q_offset"], kv_len=case["kv_len"])
 
@@ -2150,16 +2172,12 @@ def bwd_kernel_ms(torch, fn) -> dict:
     return out
 
 
-def bwd_kernel_names(fa, q, v) -> tuple:
+def bwd_kernel_names(q) -> tuple:
     """The profiler names of the backward's dK/dV and dQ kernels for this
-    launch's dtype and head dims: bf16 ``wgmma``, fp32 TF32 ``wgmma``, or
-    at fp32's wide pairs (``fa.BWD_TF32_TILES`` lacks them) the
-    ``mma.sync`` ones."""
+    launch's dtype: bf16 ``wgmma``, fp32 TF32 ``wgmma``."""
     if q.element_size() == 2:
         return "flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"
-    if (q.shape[-1], v.shape[-1]) in fa.BWD_TF32_TILES:
-        return "flash_bwd_dkdv_tf32", "flash_bwd_dq_tf32"
-    return "flash_bwd_dkdv", "flash_bwd_dq"
+    return "flash_bwd_dkdv_tf32", "flash_bwd_dq_tf32"
 
 
 def bwd_kernel_bounds(fa, q, k, v, kw: dict) -> dict:
@@ -2181,7 +2199,7 @@ def bwd_kernel_bounds(fa, q, k, v, kw: dict) -> dict:
     out = b * sq * h * vd * size
     ins = (q.numel() + k.numel() + v.numel()) * size + out
     stats = 8 * b * h * sq  # lse and D
-    dkdv, dq = bwd_kernel_names(fa, q, v)
+    dkdv, dq = bwd_kernel_names(q)
     return {
         "flash_bwd_dot": 1e3 * (2 * out + 4 * b * h * sq) / HBM_BYTES_PER_S,
         dkdv: 1e3 * max(
@@ -2190,6 +2208,23 @@ def bwd_kernel_bounds(fa, q, k, v, kw: dict) -> dict:
         dq: 1e3 * max(
             pairs * 2 * (2 * hd + vd) * per_flop,
             (ins + stats + q.numel() * size) / HBM_BYTES_PER_S)}
+
+
+def sdpa_backend(torch, q, k, v, kw: dict) -> str:
+    """The backend PyTorch's dispatcher picks for SDPA on these inputs,
+    laid out as ``sdpa_bwd_ms`` hands them over (``"unknown"`` where the
+    installed torch does not say)."""
+    try:
+        from torch.nn.attention import SDPBackend
+        g = q.shape[2] // k.shape[2]
+        qt, kt, vt = (x.transpose(1, 2) if x is q else
+                      x.repeat_interleave(g, dim=2).transpose(1, 2)
+                      for x in (q, k, v))
+        return SDPBackend(torch._fused_sdp_choice(
+            qt, kt, vt, None, 0.0, kw["causal"], scale=kw["scale"])).name
+    except (AttributeError, ImportError, RuntimeError, TypeError,
+            ValueError):
+        return "unknown"
 
 
 def sdpa_bwd_ms(torch, q, k, v, do, kw: dict):
@@ -5285,6 +5320,59 @@ def steps_of(torch, flags, layers, n, *, dtype=None, record=None,
     return out
 
 
+def fp32_wide_steps(torch, card) -> dict:
+    """Phase 31's fp32 steps of gemma2-2b and deepseek-v2-lite on
+    ``2x2x1`` (module docstring, item 31): every backward launch, at (256,
+    256) and (192, 128), on the TF32 wgmma kernels, against a twin of the
+    same steps with the plain backward patched in (deepseek's forced onto
+    the first run's expert choices).  Returns each pair's launches."""
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import ref
+
+    def plain_bwd_of(q, k, v, o, lse, do, **kw):
+        return ref.flash_attention_bwd(q, k, v, lse, do, **kw)
+
+    wide = {}
+    for label, arch, pair in (("gemma2-2b", "gemma2-2b", (256, 256)),
+                              ("deepseek-v2-lite-16b", "deepseek-v2-lite-16b",
+                               (192, 128))):
+        flags = DP_TRAIN_FLAGS + ["--arch", arch]
+        routes = [] if arch.startswith("deepseek") else None
+        fa.bwd_launches = fa.bwd_tf32_launches = 0
+        plain_bwd = []
+        with counting_plain_bwd(plain_bwd), path_bwd("phase 31 fp32"):
+            a = steps_of(torch, flags, WIDE_FP32_LAYERS, 2,
+                         dtype=torch.float32, record=routes)
+        bwd, tf32 = fa.bwd_launches, fa.bwd_tf32_launches
+        check(bwd > 0 and tf32 == bwd and not plain_bwd,
+              f"{label} fp32 steps: backward launches {bwd}, on the TF32 "
+              f"wgmma kernels {tf32}, plain backward calls {len(plain_bwd)}")
+        with mock.patch.object(fa, "attention_bwd", plain_bwd_of):
+            b = steps_of(torch, flags, WIDE_FP32_LAYERS, 2,
+                         dtype=torch.float32, replay=routes)
+        check(fa.bwd_launches == bwd, f"{label}: the plain twin launched "
+              "the backward kernel")
+        rel = max(abs(x - y) / abs(y) for x, y in zip(
+            a["losses"] + a["norms"], b["losses"] + b["norms"]))
+        check(all(map(math.isfinite, a["losses"] + a["norms"]))
+              and rel <= TP_FP32_TOL,
+              f"{label} fp32 kernel vs plain backward: {rel}")
+        wide[pair] = bwd
+        print(f"{label} fp32 at {WIDE_FP32_LAYERS} layers on 2x2x1, 2 "
+              f"steps, backward at {pair}: {bwd} backward launches, all on "
+              f"the TF32 wgmma kernels, no plain backward call; losses "
+              f"{a['losses']} norms {a['norms']}; with the plain backward "
+              f"losses {b['losses']} norms {b['norms']}; worst relative "
+              f"{rel:.2e} (tolerance {TP_FP32_TOL})"
+              + (f"; the twin forced on the first run's expert choices, its "
+                 f"own differing in {b['flips'][0]} of {b['flips'][1]} "
+                 f"router rows" if routes is not None else "")
+              + f"; step {a['step_ms']:.1f} ms (plain backward "
+              f"{b['step_ms']:.1f}), peaks {a['peak'] / 2**30:.2f} and "
+              f"{b['peak'] / 2**30:.2f} GiB [{card}]")
+    return wide
+
+
 def phase_tensor_parallel(torch, card, total_mem, tr) -> dict:
     """Phase 31: tensor and expert parallelism over ``model`` (module
     docstring, item 31)."""
@@ -5334,6 +5422,8 @@ def phase_tensor_parallel(torch, card, total_mem, tr) -> dict:
     print(f"fp32 steps: {fp32_bwd} backward launches, all on "
           f"flash_bwd_dkdv_tf32_kernel and flash_bwd_dq_tf32_kernel")
 
+    wide = fp32_wide_steps(torch, card)
+
     # -- deepseek's experts split over model, bf16 -----------------------
     ds = ["--arch", "deepseek-v2-lite-16b"]
     routes: list = []
@@ -5365,7 +5455,7 @@ def phase_tensor_parallel(torch, card, total_mem, tr) -> dict:
           f"[{card}]")
     print(f"phase 31: phase {time.perf_counter() - t_phase:.1f} s ({card})")
     return dict(tp, dp_step_ms=dp["step_ms"], dp_peak=dp["peak"],
-                fp32_bwd_launches=tf32_bwd)
+                fp32_bwd_launches=tf32_bwd, wide_fp32_bwd_launches=wide)
 
 
 def phase_dryrun(torch, card, wire: dict) -> None:
@@ -7061,6 +7151,26 @@ def main() -> int:
             ms=tl["kernels_ms"][part], bound_ms=tl["kernel_bounds_ms"][part],
             plain_ms=tl["plain_ms"], library_ms=None,
             max_abs_err=max(tl["errs"][g] for g in grads))
+    # the same fp32 kernels at the wide pairs, on a line of their own:
+    # their launches those of phase 31's gemma2-2b and deepseek fp32
+    # steps, their figures phase 7's at those steps' launches
+    wide = {}
+    for case, pair in (("gemma2 fp32 train global", (256, 256)),
+                       ("deepseek fp32 train", (192, 128))):
+        tl = bwd_cases[case]
+        for part, grads in (("flash_bwd_dkdv_tf32", ("dk", "dv")),
+                            ("flash_bwd_dq_tf32", ("dq",))):
+            check(part in tl["kernels_ms"], f"the profiler saw no {part} "
+                  f"kernel in {case}'s backward: {tl['kernels_ms']}")
+            wide[f"{part}_kernel {pair}"] = dict(
+                launches=tp["wide_fp32_bwd_launches"][pair],
+                ms=tl["kernels_ms"][part],
+                bound_ms=tl["kernel_bounds_ms"][part],
+                plain_ms=tl["plain_ms"], library_ms=None,
+                max_abs_err=max(tl["errs"][g] for g in grads),
+                backward_ms=tl["ms"], backward_bound_ms=tl["bound_ms"],
+                sdpa_backward_ms=tl["library_ms"])
+    print(json.dumps({"fp32_backward_wide_pairs": wide}))
     # D (flash_bwd_dot_kernel), once a backward: its launches those of
     # phase 9's 5 steps, its figures the profiler's at the path's launch
     tl = bwd_cases["tinyllama train"]

@@ -86,9 +86,9 @@
 // The elementwise pass is compiled four times (cap or not, masked or not)
 // and picked once a tile: a per-element branch on the cap or the mask
 // made it ten times longer (PERF.md §6).  The rounding points are those
-// of the mma.sync design this one replaced: bf16 P and dS (one bf16 each,
-// not the forward's two halves: the gradients' bound is 2e-2 of each
-// one's largest, and tests/test_torch_flash_bwd.py emulates these
+// of the warp-level mma design this one replaced: bf16 P and dS (one
+// bf16 each, not the forward's two halves: the gradients' bound is 2e-2
+// of each one's largest, and tests/test_torch_flash_bwd.py emulates these
 // rounding points and the tiles' summation order on the CPU within half
 // of it), D from the bf16 output; the products sum 16-deep steps in the
 // same order, so that without a cap the gradients keep that design's
@@ -111,21 +111,44 @@
 // consumer splits P and dS in registers.  dK/dV: 64 keys a block, both
 // consumers on them, taking alternate stages of 32 query rows (at hd
 // 128 halves of every stage of 16), their dK and dV added (consumer 0's
-// plus 1's) through shared memory at the end; dQ: two consumers of 64 rows (one at hd 128), 32
-// keys a stage (16 at hd 128).  S and dP sum in place over the head dim;
-// dV, dK and dQ sum from 0 over a tile (a consumer's 32 query rows, 8
-// at hd 128; a stage's 32 keys, 16 at hd 128) and are then added in
-// fp32: a tensor core aligns its addends to the largest and truncates, so
-// a sum kept in place over a whole sequence would lose about an ulp of
-// the total at every k-step, all one way (flash_attn.cu's fp32 forward
-// saw 5e-5 on the log-sum-exp from in-place sums at hd 256).  Held in place over the
-// head dim, S and dP stay within 1.4e-5 of the plain backward.  At
-// (256, 256) and (192, 128) the split K and V (256 and 160 KB at 64
-// keys) leave no room for a stage: those pairs keep flash_bwd_dkdv_kernel
-// and flash_bwd_dq_kernel, mma.sync m16n8k8 in TF32 from shared memory,
-// eight warps, cp.async rings of two stages, the sums taken from 0 over
-// two 8-wide chunks and then added in fp32 (the dK/dV kernel passes Pᵀ
-// and dSᵀ through shared memory between two barriers a tile).
+// plus 1's) through shared memory at the end; dQ: two consumers of 64
+// rows (one at hd 128), 32 keys a stage (16 at hd 128).  S and dP sum in
+// place over the head dim; dV, dK and dQ sum from 0 over a tile (a
+// consumer's 32 query rows, 8 at hd 128; a stage's 32 keys, 16 at hd
+// 128) and are then added in fp32: a tensor core aligns its addends to
+// the largest and truncates, so a sum kept in place over a whole
+// sequence would lose about an ulp of the total at every k-step, all one
+// way (flash_attn.cu's fp32 forward saw 5e-5 on the log-sum-exp from
+// in-place sums at hd 256).  Held in place over the head dim, S and dP
+// stay within 1.4e-5 of the plain backward.
+//
+// At (256, 256) and (192, 128) (Wide; dkdv_wide, dq_wide) the split K and
+// V of 64 keys (256 and 160 KB) leave no room for a stage, and the
+// transposed planes are a stage's largest part.  So a block keeps its
+// stationary tiles as they land (dK/dV: K and V of 64 keys, 128 and 80
+// KB; dQ: Q and dO of 64 rows) and splits their k-step fragments in
+// registers as the register A operand (a_raw), the streamed tile split
+// once by the producer's warps as the B operand: Sᵀ = K·Qᵀ and dPᵀ =
+// V·dOᵀ (dQ: S = Q·Kᵀ, dP = dO·Vᵀ) over stages of 16 query rows (dQ:
+// keys).  The products along a stage's rows swap their operands, so that
+// nothing is transposed: dVᵀ = dOᵀ·P and dKᵀ = Qᵀ·dS (dQ: dQᵀ = Kᵀ·dSᵀ),
+// the A operand read from the stage's split tile by columns (a_t), B the
+// consumer's P or dS written split into a 64-row buffer of 128-byte rows
+// (a stage's 16 big parts, then its 16 small ones).  The two consumers
+// take the roles: dK/dV's consumer 0 forms Sᵀ and P, hands p · dt to
+// consumer 1 through shared memory (two buffers by parity, mbarriers full
+// and empty) and sums dVᵀ; consumer 1 forms dPᵀ and dS and sums dKᵀ; dQ's
+// consumer 0 forms S and P, consumer 1 dP and dS, which both read from a
+// buffer (two by parity) to sum half of dQᵀ's 64-row tiles each.  A stage
+// is announced twice (its first tile split, then its second), so that
+// consumer 0 starts its scores before the split ends.  S and dP sum from
+// 0 over each 128 of the head dim, the chunks then added in fp32; dV, dK
+// and dQ sum from 0 over a stage (16 rows or keys) and are then added in
+// fp32.  Shared memory: a ring of one stage at (256, 256) (64 KB), three
+// at (192, 128).  What holds it back (the dQ kernel's clock64 phases,
+// tools/flash_bwd_phases.py): the scores' 16-wide TF32 wgmmas, 27–52
+// cycles each where the tensor cores' rate gives 7.7, and at (256, 256)
+// the one stage's load and split between tiles.
 //
 // Masks are applied per element (p = 0) only on a tile that crosses an
 // edge, and tiles no row of the block sees are skipped; rows past Sq and
@@ -146,29 +169,8 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int STAGES = 2;  // cp.async ring depth of the wide pairs' fp32 kernels
-
 using hopper::ex2;  // 2^x on the SFU (ftz: a probability below 2^-126 is 0)
 using hopper::smem_u32;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
 // two adjacent values stored as T
 __device__ __forceinline__ void store2(float* p, float x0, float x1) {
@@ -182,149 +184,6 @@ __device__ __forceinline__ void store2(bf16* p, float x0, float x1) {
 __device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
   return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// ---------------------------------------------------------------------------
-// fp32 at the wide pairs (mma.sync in TF32): a warp's fragments of A
-// (16 × K, row-major in shared memory), of B for one 8-wide n-tile
-// (stored n-major, "NK": row n holds B[·][n]; or k-major, "KN": row k
-// holds B[k][·]) and the product into an fp32 m16n8 accumulator (thread
-// (g = lane / 4, t = lane % 4) holds rows g and g + 8, columns 2t and
-// 2t + 1).
-// ---------------------------------------------------------------------------
-
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (flash_attn.cu's f32::tf32)
-__device__ __forceinline__ uint32_t tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
-
-// x = big + small, each a TF32 value
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = tf32(x);
-  small = tf32(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-struct Mma {
-  static constexpr int K = 8;
-  static constexpr int PAD = 4;  // rows of d + 4 floats: a fragment's reads fall on 32 banks
-  // mma depths a sum takes on the tensor cores from 0 before it is added
-  // to its fp32 total (a tensor core aligns addends to the largest and
-  // truncates: flash_attn.cu's f32::CHUNKS)
-  static constexpr int CH = 2;
-  struct A {
-    uint32_t big[4], small[4];
-  };
-  struct B {
-    uint32_t big[2], small[2];
-  };
-  static __device__ __forceinline__ void set_a(A& a, float x0, float x1, float x2, float x3) {
-    split(x0, a.big[0], a.small[0]);
-    split(x1, a.big[1], a.small[1]);
-    split(x2, a.big[2], a.small[2]);
-    split(x3, a.big[3], a.small[3]);
-  }
-  static __device__ __forceinline__ void load_a(A& a, const float* p, int ld, int lane) {
-    const int g = lane / 4, t = lane % 4;
-    const float* r = p + g * ld + t;
-    set_a(a, r[0], r[8 * ld], r[4], r[8 * ld + 4]);
-  }
-  static __device__ __forceinline__ void load_b_nk(B& b, const float* p, int ld, int lane) {
-    const float* r = p + (lane / 4) * ld + lane % 4;
-    split(r[0], b.big[0], b.small[0]);
-    split(r[4], b.big[1], b.small[1]);
-  }
-  static __device__ __forceinline__ void load_b_kn(B& b, const float* p, int ld, int lane) {
-    const float* r = p + (lane % 4) * ld + lane / 4;
-    split(r[0], b.big[0], b.small[0]);
-    split(r[4 * ld], b.big[1], b.small[1]);
-  }
-  // d += a · b in three TF32 products, the smallest first
-  static __device__ __forceinline__ void mma(float (&d)[4], const A& a, const B& b) {
-    mma_tf32(d, a.small, b.big[0], b.big[1]);
-    mma_tf32(d, a.big, b.small[0], b.small[1]);
-    mma_tf32(d, a.big, b.big[0], b.big[1]);
-  }
-  // the A fragment of keys 8·kk .. 8·kk + 7 from accumulator fragments c
-  // (n-tile kk), its k-slot t taking key 2t and k-slot t + 4 key 2t + 1
-  template <int N>
-  static __device__ __forceinline__ void a_from_c(A& a, const float (&c)[N][4], int kk) {
-    set_a(a, c[kk][0], c[kk][2], c[kk][1], c[kk][3]);
-  }
-  // the B fragment matching a_from_c: KN at p (k0, n0), k-slot t row 2t
-  // and k-slot t + 4 row 2t + 1
-  static __device__ __forceinline__ void load_b_kn_c(B& b, const float* p, int ld, int lane) {
-    const float* r = p + 2 * (lane % 4) * ld + lane / 4;
-    split(r[0], b.big[0], b.small[0]);
-    split(r[ld], b.big[1], b.small[1]);
-  }
-};
-
-// acc[n] += A (16 × KD at a, pitch lda) · B (KD × 8·NT at b, pitch ldb;
-// NK or KN as KN says)
-template <int KD, int NT, bool KN>
-__device__ __forceinline__ void warp_gemm(float (&acc)[NT][4], const float* a, int lda, const float* b,
-                                          int ldb, int lane) {
-  using M = Mma;
-  constexpr int STEPS = KD / M::K;
-  constexpr int CH = STEPS < M::CH ? STEPS : M::CH;
-  static_assert(KD % M::K == 0 && STEPS % CH == 0, "depth");
-#pragma unroll 2
-  for (int k0 = 0; k0 < STEPS; k0 += CH) {
-    typename M::A af[CH];
-#pragma unroll
-    for (int u = 0; u < CH; ++u) M::load_a(af[u], a + (k0 + u) * M::K, lda, lane);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int u = 0; u < CH; ++u) {
-        typename M::B bf;
-        const int k = (k0 + u) * M::K;
-        if constexpr (KN)
-          M::load_b_kn(bf, b + k * ldb + 8 * n, ldb, lane);
-        else
-          M::load_b_nk(bf, b + 8 * n * ldb + k, ldb, lane);
-        M::mma(c, af[u], bf);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[n][j] += c[j];
-    }
-  }
-}
-
-// acc[n] += C (16 × KD, the warp's accumulator fragments c, as the A
-// operand) · B (KD × 8·NT, KN at b, pitch ldb)
-template <int KD, int NT>
-__device__ __forceinline__ void warp_gemm_c(float (&acc)[NT][4], const float (&cf)[KD / 8][4],
-                                            const float* b, int ldb, int lane) {
-  using M = Mma;
-  constexpr int STEPS = KD / M::K;
-  constexpr int CH = STEPS < M::CH ? STEPS : M::CH;
-  static_assert(KD % M::K == 0 && STEPS % CH == 0, "depth");
-#pragma unroll
-  for (int k0 = 0; k0 < STEPS; k0 += CH) {
-    typename M::A af[CH];
-#pragma unroll
-    for (int u = 0; u < CH; ++u) M::a_from_c(af[u], cf, k0 + u);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int u = 0; u < CH; ++u) {
-        typename M::B bf;
-        M::load_b_kn_c(bf, b + (k0 + u) * M::K * ldb + 8 * n, ldb, lane);
-        M::mma(c, af[u], bf);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[n][j] += c[j];
-    }
-  }
 }
 
 struct Args {
@@ -357,21 +216,6 @@ __device__ __forceinline__ bool all_visible(const Args& a, int imin, int imax, i
                                             int jmax) {
   return jmax < a.Sk && imax < a.Sq &&
          (!a.causal || (jmax <= imin && (a.window == 0 || jmin > imax - a.window)));
-}
-
-// p and ds of one score x (the fp32 product q · k), its row's lse · log2 e
-// and D, and dp: the cap's tanh, the mask, the softmax's backward.  The
-// exponent is the bf16 forward's: x · (scale · log2 e) uncapped.
-__device__ __forceinline__ void prob(const Args& a, bool vis, float x, float lse2, float d, float& p,
-                                     float& dsv) {
-  if (a.cap > 0.f) {
-    const float th = tanhf(x * a.scale / a.cap);
-    p = vis ? ex2(th * a.cap * LOG2E - lse2) : 0.f;
-    dsv = p * (dsv - d) * (1.f - th * th);
-  } else {
-    p = vis ? ex2(x * (a.scale * LOG2E) - lse2) : 0.f;
-    dsv = p * (dsv - d);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -441,295 +285,6 @@ __global__ void __launch_bounds__(DOT_THREADS) flash_bwd_dot_kernel(const __grid
     for (int sh = L / 2; sh >= 1; sh /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, sh);
     const long long r = r0 + static_cast<long long>(j) * GROUPS;
     if (lane == 0 && r < rows) a.dd[r] = acc;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dK and dV: one block a (b, KV head, KT keys).
-// ---------------------------------------------------------------------------
-
-template <int HD, int VD>
-struct KvShape {
-  static_assert(HD + VD > 256, "the wide pairs; the others run tf's kernels");
-  static constexpr int WARPS = 8, THREADS = 32 * WARPS;
-  static constexpr int KT = HD == 256 ? 32 : 64;  // keys a block (64 would not fit at hd 256)
-  static constexpr int RG = KT / 16, CG = WARPS / RG;  // warps: key rows × column slices
-  static constexpr int QB = 32;                        // query rows a tile
-  static constexpr int PAD = Mma::PAD;
-  static constexpr int HP = HD + PAD, VP = VD + PAD, QP = QB + PAD;
-  static constexpr int QW = QB / CG, DKW = HD / CG, DVW = VD / CG;  // a warp's columns
-  static constexpr int STAGE = QB * (HP + VP);                      // Q, then dO
-  static constexpr int ELEMS = KT * (HP + VP) + STAGES * STAGE + 2 * KT * QP;
-  static constexpr int SMEM = 4 * ELEMS + 4 * STAGES * 2 * QB;
-  static_assert(QW % 8 == 0 && DKW % 8 == 0 && DVW % 8 == 0, "column slices");
-  static_assert(SMEM <= 232448, "shared memory");
-};
-
-template <int HD, int VD>
-__global__ void __launch_bounds__(256, 1)
-    flash_bwd_dkdv_kernel(const __grid_constant__ Args a) {
-  using S = KvShape<HD, VD>;
-  constexpr int KT = S::KT, QB = S::QB, HP = S::HP, VP = S::VP, QP = S::QP;
-  constexpr int EPC = 4;  // elements a 16-byte copy
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* ksm = reinterpret_cast<float*>(smem);  // [KT][HP]
-  float* vsm = ksm + KT * HP;                   // [KT][VP]
-  float* ring = vsm + KT * VP;                  // [STAGES]: Q [QB][HP], dO [QB][VP]
-  float* psm = ring + STAGES * S::STAGE;        // Pᵀ [KT][QP]
-  float* dssm = psm + KT * QP;                  // dSᵀ [KT][QP]
-  float* stats = reinterpret_cast<float*>(dssm + KT * QP);  // [STAGES]: lse [QB], D [QB]
-
-  const int b = blockIdx.x / a.KV, kvh = blockIdx.x % a.KV;
-  const int G = a.H / a.KV;
-  const int k0 = blockIdx.y * KT;  // early (heavy, under a causal mask) tiles first
-  // the query rows that see a key of the block
-  int qbeg = 0, qend = a.Sq;
-  if (a.causal) {
-    qbeg = min(k0, a.Sq);
-    if (a.window > 0) qend = min(a.Sq, k0 + KT - 1 + a.window);
-  }
-  const int nq = qend > qbeg ? (qend - qbeg + QB - 1) / QB : 0;
-  const int ntiles = G * nq;
-
-  const float* kb = static_cast<const float*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
-  const float* vb = static_cast<const float*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
-  constexpr int KC = HD / EPC, RC = (HD + VD) / EPC;
-  for (int c = threadIdx.x; c < KT * RC; c += S::THREADS) {
-    const int j = c / RC, w = c % RC, key = k0 + j;
-    const bool in = key < a.Sk;
-    const float* src = w < KC ? kb + key * a.ks[1] + EPC * w : vb + key * a.vs[1] + EPC * (w - KC);
-    float* dst = w < KC ? ksm + j * HP + EPC * w : vsm + j * VP + EPC * (w - KC);
-    cp_async16(dst, in ? src : kb, in ? 16 : 0);
-  }
-  // tile `it` (head kvh·G + it / nq, rows qbeg + (it % nq)·QB …) into its stage
-  auto load_tile = [&](int it) {
-    const int h = kvh * G + it / nq, q0 = qbeg + (it % nq) * QB;
-    float* qst = ring + (it % STAGES) * S::STAGE;
-    float* dst_o = qst + QB * HP;
-    const float* qb = static_cast<const float*>(a.q) + b * a.qs[0] + h * a.qs[2];
-    const float* db = static_cast<const float*>(a.dout) + b * a.ds[0] + h * a.ds[2];
-    for (int c = threadIdx.x; c < QB * RC; c += S::THREADS) {
-      const int j = c / RC, w = c % RC, row = q0 + j;
-      const bool in = row < a.Sq;
-      const float* src = w < KC ? qb + row * a.qs[1] + EPC * w : db + row * a.ds[1] + EPC * (w - KC);
-      float* dst = w < KC ? qst + j * HP + EPC * w : dst_o + j * VP + EPC * (w - KC);
-      cp_async16(dst, in ? src : qb, in ? 16 : 0);
-    }
-    float* st = stats + (it % STAGES) * 2 * QB;
-    const long long lrow = (static_cast<long long>(b) * a.H + h) * a.Sq;
-    for (int i = threadIdx.x; i < 2 * QB; i += S::THREADS) {
-      const int row = q0 + i % QB;
-      const bool in = row < a.Sq;
-      const float* src = (i < QB ? a.lse : a.dd) + lrow + row;
-      cp_async4(st + i, in ? src : a.lse, in ? 4 : 0);
-    }
-  };
-  if (ntiles > 0) load_tile(0);
-  cp_commit();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int rg = warp % S::RG, cg = warp / S::RG;
-  float dk[S::DKW / 8][4], dv[S::DVW / 8][4];
-#pragma unroll
-  for (int n = 0; n < S::DKW / 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[n][j] = 0.f;
-#pragma unroll
-  for (int n = 0; n < S::DVW / 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dv[n][j] = 0.f;
-
-#pragma unroll 1
-  for (int it = 0; it < ntiles; ++it) {
-    cp_wait<0>();     // tile it has landed (this thread's copies)
-    __syncthreads();  // everyone's (K and V too), and tile it - 1 is consumed
-    if (it + 1 < ntiles) load_tile(it + 1);
-    cp_commit();
-    const float* qst = ring + (it % STAGES) * S::STAGE;
-    const float* dost = qst + QB * HP;
-    const float* st = stats + (it % STAGES) * 2 * QB;
-    const int q0 = qbeg + (it % nq) * QB;
-
-    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ on keys rg·16 …, queries cg·QW …
-    float s[S::QW / 8][4], dp[S::QW / 8][4];
-#pragma unroll
-    for (int n = 0; n < S::QW / 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[n][j] = dp[n][j] = 0.f;
-    warp_gemm<HD, S::QW / 8, false>(s, ksm + rg * 16 * HP, HP, qst + cg * S::QW * HP, HP, lane);
-    warp_gemm<VD, S::QW / 8, false>(dp, vsm + rg * 16 * VP, VP, dost + cg * S::QW * VP, VP,
-                                       lane);
-    const int qw0 = q0 + cg * S::QW, kw0 = k0 + rg * 16;
-    const bool whole = all_visible(a, qw0, qw0 + S::QW - 1, kw0, kw0 + 15);
-#pragma unroll
-    for (int n = 0; n < S::QW / 8; ++n)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int kl = rg * 16 + g + 8 * hf, ql = cg * S::QW + 8 * n + 2 * t;
-        float p[2], dsv[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          dsv[e] = dp[n][2 * hf + e];
-          prob(a, whole || visible(a, q0 + ql + e, k0 + kl), s[n][2 * hf + e],
-               st[ql + e] * LOG2E, st[QB + ql + e], p[e], dsv[e]);
-        }
-        store2(psm + kl * QP + ql, p[0], p[1]);
-        store2(dssm + kl * QP + ql, dsv[0], dsv[1]);
-      }
-    __syncthreads();
-    // dV += Pᵀ·dO and dK += dSᵀ·Q on keys rg·16 …, columns cg·DVW … / cg·DKW …
-    warp_gemm<QB, S::DVW / 8, true>(dv, psm + rg * 16 * QP, QP, dost + cg * S::DVW, VP, lane);
-    warp_gemm<QB, S::DKW / 8, true>(dk, dssm + rg * 16 * QP, QP, qst + cg * S::DKW, HP, lane);
-  }
-  cp_wait<0>();
-
-  // dK = scale · Σ dSᵀ·Q and dV, once, rows past Sk clipped
-  float* dkb = static_cast<float*>(a.dk) + (static_cast<long long>(b) * a.Sk * a.KV + kvh) * HD;
-  float* dvb = static_cast<float*>(a.dv) + (static_cast<long long>(b) * a.Sk * a.KV + kvh) * VD;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int key = k0 + rg * 16 + g + 8 * hf;
-    if (key >= a.Sk) continue;
-    const long long krow = static_cast<long long>(key) * a.KV;
-#pragma unroll
-    for (int n = 0; n < S::DKW / 8; ++n)
-      store2(dkb + krow * HD + cg * S::DKW + 8 * n + 2 * t, a.scale * dk[n][2 * hf],
-             a.scale * dk[n][2 * hf + 1]);
-#pragma unroll
-    for (int n = 0; n < S::DVW / 8; ++n)
-      store2(dvb + krow * VD + cg * S::DVW + 8 * n + 2 * t, dv[n][2 * hf], dv[n][2 * hf + 1]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dQ: one block a (b, head, QT query rows), a warp 16 rows.
-// ---------------------------------------------------------------------------
-
-template <int HD, int VD>
-struct QShape {
-  static_assert(HD + VD > 256, "the wide pairs; the others run tf's kernels");
-  static constexpr int WARPS = 4;
-  static constexpr int THREADS = 32 * WARPS, QT = 16 * WARPS;
-  static constexpr int KB = 16;  // keys a tile ((192, 128) spilled at 32)
-  static constexpr int PAD = Mma::PAD;
-  static constexpr int HP = HD + PAD, VP = VD + PAD;
-  static constexpr int TILE = KB * (HP + VP);  // K, then V
-  static constexpr int SMEM = 4 * (QT * (HP + VP) + STAGES * TILE);
-  static_assert(SMEM <= 232448, "shared memory");
-};
-
-template <int HD, int VD>
-__global__ void __launch_bounds__(QShape<HD, VD>::THREADS, 1)
-    flash_bwd_dq_kernel(const __grid_constant__ Args a) {
-  using S = QShape<HD, VD>;
-  constexpr int KB = S::KB, QT = S::QT, HP = S::HP, VP = S::VP;
-  constexpr int EPC = 4;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qsm = reinterpret_cast<float*>(smem);  // [QT][HP]
-  float* dosm = qsm + QT * HP;                  // [QT][VP]
-  float* ring = dosm + QT * VP;                 // [STAGES]: K [KB][HP], V [KB][VP]
-
-  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
-  const int kvh = h / (a.H / a.KV);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * QT;  // late (heavy) tiles first
-  // the keys a row of the block sees
-  const int qlast = min(q0 + QT, a.Sq) - 1;
-  int kbeg = 0, kend = a.Sk;
-  if (a.causal) {
-    kend = min(a.Sk, qlast + 1);
-    if (a.window > 0) kbeg = max(0, q0 - a.window + 1);
-  }
-  const int ntiles = kend > kbeg ? (kend - kbeg + KB - 1) / KB : 0;
-
-  const float* kb = static_cast<const float*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
-  const float* vb = static_cast<const float*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
-  constexpr int KC = HD / EPC, RC = (HD + VD) / EPC;
-  auto load_tile = [&](int it) {
-    float* kst = ring + (it % STAGES) * S::TILE;
-    float* vst = kst + KB * HP;
-    const int key0 = kbeg + it * KB;
-    for (int c = threadIdx.x; c < KB * RC; c += S::THREADS) {
-      const int j = c / RC, w = c % RC, key = key0 + j;
-      const bool in = key < kend;
-      const float* src = w < KC ? kb + key * a.ks[1] + EPC * w : vb + key * a.vs[1] + EPC * (w - KC);
-      float* dst = w < KC ? kst + j * HP + EPC * w : vst + j * VP + EPC * (w - KC);
-      cp_async16(dst, in ? src : kb, in ? 16 : 0);
-    }
-  };
-  {
-    const float* qb = static_cast<const float*>(a.q) + b * a.qs[0] + h * a.qs[2];
-    const float* db = static_cast<const float*>(a.dout) + b * a.ds[0] + h * a.ds[2];
-    for (int c = threadIdx.x; c < QT * RC; c += S::THREADS) {
-      const int j = c / RC, w = c % RC, row = q0 + j;
-      const bool in = row < a.Sq;
-      const float* src = w < KC ? qb + row * a.qs[1] + EPC * w : db + row * a.ds[1] + EPC * (w - KC);
-      float* dst = w < KC ? qsm + j * HP + EPC * w : dosm + j * VP + EPC * (w - KC);
-      cp_async16(dst, in ? src : qb, in ? 16 : 0);
-    }
-  }
-  if (ntiles > 0) load_tile(0);
-  cp_commit();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row0 = q0 + 16 * warp + g, row1 = row0 + 8;
-  const long long lrow = (static_cast<long long>(b) * a.H + h) * a.Sq;
-  const float lse0 = row0 < a.Sq ? a.lse[lrow + row0] * LOG2E : 0.f;
-  const float lse1 = row1 < a.Sq ? a.lse[lrow + row1] * LOG2E : 0.f;
-  const float d0 = row0 < a.Sq ? a.dd[lrow + row0] : 0.f;
-  const float d1 = row1 < a.Sq ? a.dd[lrow + row1] : 0.f;
-  const bool live = q0 + 16 * warp < a.Sq;
-  float acc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[n][j] = 0.f;
-
-#pragma unroll 1
-  for (int it = 0; it < ntiles; ++it) {
-    cp_wait<0>();
-    __syncthreads();
-    if (it + 1 < ntiles) load_tile(it + 1);
-    cp_commit();
-    if (!live) continue;  // a warp past the last row
-    const float* kt = ring + (it % STAGES) * S::TILE;
-    const float* vt = kt + KB * HP;
-    const int t0 = kbeg + it * KB;
-    float s[KB / 8][4], dsf[KB / 8][4];
-#pragma unroll
-    for (int n = 0; n < KB / 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[n][j] = dsf[n][j] = 0.f;
-    warp_gemm<HD, KB / 8, false>(s, qsm + 16 * warp * HP, HP, kt, HP, lane);
-    warp_gemm<VD, KB / 8, false>(dsf, dosm + 16 * warp * VP, VP, vt, VP, lane);
-    const int rw0 = q0 + 16 * warp;
-    const bool whole = all_visible(a, rw0, rw0 + 15, t0, t0 + KB - 1);
-#pragma unroll
-    for (int n = 0; n < KB / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = t0 + 8 * n + 2 * t + (e & 1), row = e & 2 ? row1 : row0;
-        float p;
-        prob(a, whole || visible(a, row, key), s[n][e], e & 2 ? lse1 : lse0, e & 2 ? d1 : d0, p,
-             dsf[n][e]);
-      }
-    // dQ += dS·K, the dS fragment as the A operand
-    warp_gemm_c<KB, HD / 8>(acc, dsf, kt, HP, lane);
-  }
-  cp_wait<0>();
-  if (!live) return;
-  float* qo = static_cast<float*>(a.dq) + h * HD;
-  const long long rs = static_cast<long long>(a.H) * HD;
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int c = 8 * n + 2 * t;
-    if (row0 < a.Sq)
-      store2(qo + (static_cast<long long>(b) * a.Sq + row0) * rs + c, a.scale * acc[n][0],
-             a.scale * acc[n][1]);
-    if (row1 < a.Sq)
-      store2(qo + (static_cast<long long>(b) * a.Sq + row1) * rs + c, a.scale * acc[n][2],
-             a.scale * acc[n][3]);
   }
 }
 
@@ -819,9 +374,11 @@ struct Consts {
   float sl, sc, cl;
 };
 
-// p of one score x (the fp32 product q · k) and its row's lse · log2 e,
-// as prob() computes it, the mask left to the caller; CAP: the cap's
-// tanh first, and dt = 1 − tanh² (dS = p · dt · (dp − D)).
+// p of one score x (the fp32 product q · k) and its row's lse · log2 e:
+// 2^(x · scale · log2 e − lse · log2 e), the exponent the bf16 forward's,
+// the mask left to the caller; CAP: the cap's tanh first, p = 2^(tanh(x ·
+// scale / cap) · cap · log2 e − lse · log2 e), and dt = 1 − tanh² (dS =
+// p · dt · (dp − D)).
 template <bool CAP>
 __device__ __forceinline__ float prob_dt(float x, float lse2, const Consts& c, float& dt) {
   if constexpr (CAP) {
@@ -1609,14 +1166,11 @@ struct QTile : Dims<HD, VD> {
   static_assert(RING >= 1 && SMEM <= wg::SMEM_MAX, "shared memory");
 };
 
-// dK and dV: one block a (b, KV head, 64 keys).
+// dK and dV at a narrow pair: one block a (b, KV head, 64 keys).
 template <int HD, int VD>
-__global__ void __launch_bounds__(wg::THREADS, 1)
-    flash_bwd_dkdv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
-                               const __grid_constant__ CUtensorMap tk,
-                               const __grid_constant__ CUtensorMap tv,
-                               const __grid_constant__ CUtensorMap tdo,
-                               const __grid_constant__ Args a) {
+__device__ __forceinline__ void dkdv_narrow(const CUtensorMap& tq, const CUtensorMap& tk,
+                                            const CUtensorMap& tv, const CUtensorMap& tdo,
+                                            const Args& a) {
   using S = KvTile<HD, VD>;
   constexpr int KT = S::KT, QB = S::QB, NQ = S::NQ, RING = S::RING;
   constexpr int HC = S::HC, VC = S::VC, NK = S::NK, NV = S::NV, HN = S::HN, VN = S::VN;
@@ -1921,14 +1475,12 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
   }
 }
 
-// dQ: one block a (b, head, QT query rows), a consumer 64 rows.
+// dQ at a narrow pair: one block a (b, head, QT query rows), a consumer 64
+// rows.
 template <int HD, int VD>
-__global__ void __launch_bounds__(wg::THREADS, 1)
-    flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq,
-                             const __grid_constant__ CUtensorMap tk,
-                             const __grid_constant__ CUtensorMap tv,
-                             const __grid_constant__ CUtensorMap tdo,
-                             const __grid_constant__ Args a) {
+__device__ __forceinline__ void dq_narrow(const CUtensorMap& tq, const CUtensorMap& tk,
+                                          const CUtensorMap& tv, const CUtensorMap& tdo,
+                                          const Args& a) {
   using S = QTile<HD, VD>;
   constexpr int KB = S::KB, QT = S::QT, CQ = S::CQ, RING = S::RING;
   constexpr int HC = S::HC, VC = S::VC, NK = S::NK, HN = S::HN;
@@ -2138,6 +1690,619 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     }
 }
 
+// ---------------------------------------------------------------------------
+// fp32 at the wide pairs, (256, 256) and (192, 128): the stationary tiles
+// as they land, split in registers; no transposed planes.
+// ---------------------------------------------------------------------------
+
+// The wide kernels' tiles, the same in both: 64 stationary rows a block
+// (dK/dV: keys, K and V as they land; dQ: query rows, Q and dO), QB
+// streamed rows a stage (dK/dV: query rows, Q and dO; dQ: keys, K and V),
+// each split once into its big part (in place) and small part (beside
+// it).  Buffers outside the ring: two 64-row, 128-byte-row tiles (dK/dV:
+// Pᵀ and dSᵀ; dQ: dS by the use's parity), a row holding a stage's QB
+// columns' big parts and then their small parts, and p · dt twice (by
+// parity), fp32 in the consumers' fragment order.
+template <int HD, int VD>
+struct Wide : Dims<HD, VD> {
+  using D = Dims<HD, VD>;
+  static constexpr int KT = 64;  // stationary rows a block
+  static constexpr int QB = 16;  // streamed rows a stage: 2 · QB columns fill a 128-byte row
+  static constexpr int CH = 16;  // k-steps (128 of the head dim) S and dP sum in place
+  static constexpr int HN = HD / 64, VN = VD / 64;  // 64-row tiles of dKᵀ / dQᵀ and of dVᵀ
+  static constexpr int FIXED = KT * (D::HDP + D::VDP) * 4;
+  static constexpr int STAGE = 2 * QB * (D::HDP + D::VDP) * 4;
+  static constexpr int STATS = 2 * QB * 4;  // dK/dV: lse · log2 e, then D
+  static constexpr int BUF = KT * 128, PDT = KT * QB * 4;
+  static constexpr int BUFS = 2 * BUF + 2 * PDT;
+  static constexpr int BARS = 8 * 9;  // the fixed tiles', p · dt's and the dS buffers' mbarriers
+  static constexpr int RING = ring_depth(FIXED + BUFS + BARS, STAGE + STATS + 32);
+  static constexpr int SMEM = 1024 + FIXED + BUFS + RING * (STAGE + STATS + 32) + BARS;
+  // offsets from the 1024-aligned base
+  static constexpr uint32_t RING_OFF = FIXED, BUF_OFF = FIXED + RING * STAGE,
+                            PDT_OFF = BUF_OFF + 2 * BUF, ST_OFF = PDT_OFF + 2 * PDT,
+                            BAR_OFF = ST_OFF + RING * STATS;
+  // in a stage: the first tile (Q or K) big and small, then the second (dO or V)
+  static constexpr uint32_t AB = 0, AS = QB * D::HC * 128, BB = 2 * AS, BS = BB + QB * D::VC * 128;
+  static_assert(HD % 64 == 0 && VD % 64 == 0 && 2 * QB * 4 == 128, "tiles");
+  static_assert(RING >= 1 && SMEM <= wg::SMEM_MAX, "shared memory");
+};
+
+__device__ __forceinline__ float ld_f(const uint8_t* p) { return *reinterpret_cast<const float*>(p); }
+__device__ __forceinline__ uint32_t ld_u(const uint8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ void st_f(uint8_t* p, float x) { *reinterpret_cast<float*>(p) = x; }
+
+// A named barrier of one consumer warpgroup's 128 threads.
+__device__ __forceinline__ void bar_wg(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// The register A operand of k-step kc (columns 8kc …) of rows r and r + 8
+// of a tile as it landed (R rows a 32-column box, at p), split into TF32
+// big and small parts: k-slot t takes column 8kc + t, k-slot t + 4
+// column 8kc + t + 4.
+template <int R>
+__device__ __forceinline__ void a_raw(uint32_t (&big)[4], uint32_t (&small)[4], const uint8_t* p,
+                                      int r, int kc, int t) {
+  const uint8_t* box = p + (kc / 4) * R * 128;
+  const int c = (kc % 4) * 8 + t;
+  const float x[4] = {ld_f(box + swz(r, c)), ld_f(box + swz(r + 8, c)), ld_f(box + swz(r, c + 4)),
+                      ld_f(box + swz(r + 8, c + 4))};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float b = rna(x[e]);
+    big[e] = __float_as_uint(b);
+    small[e] = __float_as_uint(rna(x[e] - b));
+  }
+}
+
+// The register A operand of k-step j of Xᵀ, X a stage's tile of R rows
+// (32-column boxes of R rows) split into big (at xb) and small (at xs):
+// rows d and d + 8 of Xᵀ (columns of X), k-slots t and t + 4 the rows 8j +
+// t and 8j + t + 4 of X.
+template <int R>
+__device__ __forceinline__ void a_t(uint32_t (&big)[4], uint32_t (&small)[4], const uint8_t* xb,
+                                    const uint8_t* xs, int d, int j, int t) {
+  const int r0 = 8 * j + t, r1 = r0 + 4, d1 = d + 8;
+  const uint32_t o[4] = {(d / 32) * R * 128 + swz(r0, d % 32), (d1 / 32) * R * 128 + swz(r0, d1 % 32),
+                         (d / 32) * R * 128 + swz(r1, d % 32), (d1 / 32) * R * 128 + swz(r1, d1 % 32)};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    big[e] = ld_u(xb + o[e]);
+    small[e] = ld_u(xs + o[e]);
+  }
+}
+
+// acc (64 × N) = A·Bᵀ over KS k-steps in three TF32 products a k-step
+// (small·big, big·small, big·big): A rows r, r + 8 of a tile as it landed
+// (R rows a box, at `at`), split in registers (a_raw); B a stage's tile
+// of N rows, big at bb and small at bs.  Summed in place from 0 over
+// each CH k-steps (a chunk of the head dim), the chunks then added in
+// fp32.  NB k-steps' fragments are in flight, each held until its wgmma
+// is done.
+template <int N, int KS, int R, int CH>
+__device__ __forceinline__ void scores(float (&acc)[N / 2], const uint8_t* at, int r, int t,
+                                       uint32_t bb, uint32_t bs) {
+  constexpr int NCH = (KS + CH - 1) / CH, NB = 4;
+  float part[NCH][N / 2];
+  uint32_t fb[NB][4], fs[NB][4];
+#pragma unroll
+  for (int kc = 0; kc < KS; ++kc) {
+    const int u = kc % NB;
+    if (kc >= NB) {
+      wg_wait<NB - 1>();  // k-step kc − NB is done with fb[u] and fs[u]
+      pin(fb);
+      pin(fs);
+    }
+    a_raw<R>(fb[u], fs[u], at, r, kc, t);
+    wg_fence();
+    const uint32_t off = (kc / 4) * N * 128 + (kc % 4) * 32;
+    wgmma_rs<N>(part[kc / CH], fs[u], desc(bb + off, 16, 1024), kc % CH > 0);
+    wgmma_rs<N>(part[kc / CH], fb[u], desc(bs + off, 16, 1024), 1);
+    wgmma_rs<N>(part[kc / CH], fb[u], desc(bb + off, 16, 1024), 1);
+    wg_commit();
+  }
+  wg_wait<0>();
+  pin(fb);
+  pin(fs);
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) pin(part[c]);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    acc[i] = part[0][i];
+#pragma unroll
+    for (int c = 1; c < NCH; ++c) acc[i] += part[c][i];
+  }
+}
+
+// acc[c] (64 × 64), c < COUNT, += Xᵀ·Y for the 64-row tiles C0 + c of Xᵀ
+// (X's columns 64·(C0 + c) …), each summed from 0 over a stage's R rows
+// in three TF32 products a k-step and then added in fp32, one tile at a
+// time: X a stage's tile (big at xb, small at xs, R rows), Y the 64-row
+// buffer at y (its row n holds Y's column n: R big parts, then R small
+// parts).
+template <int COUNT, int C0, int R, int NT>
+__device__ __forceinline__ void tiles_t(float (&acc)[NT][32], const uint8_t* xb, const uint8_t* xs,
+                                        int w, int g, int t, uint32_t y) {
+  static_assert(COUNT <= NT, "tiles");
+#pragma unroll
+  for (int c = 0; c < COUNT; ++c) {
+    uint32_t fb[R / 8][4], fs[R / 8][4];
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j) a_t<R>(fb[j], fs[j], xb, xs, 64 * (C0 + c) + 16 * w + g, j, t);
+    float tmp[32];
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j) {
+      wgmma_rs<64>(tmp, fs[j], desc(y + j * 32, 16, 1024), j > 0);
+      wgmma_rs<64>(tmp, fb[j], desc(y + R * 4 + j * 32, 16, 1024), 1);
+      wgmma_rs<64>(tmp, fb[j], desc(y + j * 32, 16, 1024), 1);
+    }
+    wg_commit();
+    wg_wait<0>();
+    pin(tmp);
+    pin(fb);
+    pin(fs);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] += tmp[i];
+  }
+}
+
+// x's big part at column c and its small part at column R + c of row r
+// of a 64-row, 128-byte-row buffer (the B operand tiles_t reads)
+template <int R>
+__device__ __forceinline__ void put_split(uint8_t* buf, int r, int c, float x) {
+  const float b = rna(x);
+  st_f(buf + swz(r, c), b);
+  st_f(buf + swz(r, R + c), rna(x - b));
+}
+
+// dK and dV at a wide pair: one block a (b, KV head, 64 keys).  Consumer
+// 0 forms Sᵀ = K·Qᵀ and P, hands p · dt to consumer 1 and sums dVᵀ +=
+// dOᵀ·P; consumer 1 forms dPᵀ = V·dOᵀ and dS and sums dKᵀ += Qᵀ·dS.
+template <int HD, int VD>
+__device__ __forceinline__ void dkdv_wide(const CUtensorMap& tq, const CUtensorMap& tk,
+                                          const CUtensorMap& tv, const CUtensorMap& tdo,
+                                          const Args& a) {
+  using S = Wide<HD, VD>;
+  constexpr int KT = S::KT, QB = S::QB, RING = S::RING, HC = S::HC, VC = S::VC;
+  constexpr uint32_t KR = 0, VR = KT * HC * 128;  // K and V as they land
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gb = smem_raw + (base - raw);
+  const uint32_t ring = base + S::RING_OFF;
+  const uint32_t pbuf = base + S::BUF_OFF, dsbuf = pbuf + S::BUF;  // Pᵀ, dSᵀ
+  float* pdt = reinterpret_cast<float*>(gb + S::PDT_OFF);         // [2][QB / 2][128]
+  float* stats = reinterpret_cast<float*>(gb + S::ST_OFF);        // [RING][2 · QB]
+  const uint32_t kvbar = base + S::BAR_OFF;  // K and V landed
+  const uint32_t pfull = kvbar + 8;          // [2] p · dt written
+  const uint32_t pempty = pfull + 16;        // [2] p · dt read
+  const uint32_t full = kvbar + S::BARS;     // [RING] a stage landed
+  const uint32_t ready = full + 8 * RING;    // [RING] Q split, the stats written
+  const uint32_t ready2 = ready + 8 * RING;  // [RING] dO split
+  const uint32_t empty = ready2 + 8 * RING;  // [RING] released
+
+  const int b = blockIdx.x / a.KV, kvh = blockIdx.x % a.KV;
+  const int G = a.H / a.KV;
+  const int k0 = blockIdx.y * KT;  // early (heavy, under a causal mask) tiles first
+  int qbeg = 0, qend = a.Sq;
+  if (a.causal) {
+    qbeg = min(k0, a.Sq);
+    if (a.window > 0) qend = min(a.Sq, k0 + KT - 1 + a.window);
+  }
+  const int nq = qend > qbeg ? (qend - qbeg + QB - 1) / QB : 0;
+  const int ntiles = G * nq;  // 0: no row sees the keys, dK = dV = 0
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(pfull + 8 * s, 128);
+      mbar_init(pempty + 8 * s, 128);
+    }
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(ready + 8 * s, SPLITTERS + 32);  // and the stats' 32 lanes
+      mbar_init(ready2 + 8 * s, SPLITTERS);
+      mbar_init(empty + 8 * s, 4 * wg::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * wg::CONSUMERS) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+    if (ntiles == 0) return;
+    if (warp == 4 * wg::CONSUMERS) {  // loads, and writes each stage's stats
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, S::FIXED);
+#pragma unroll 1
+        for (int c = 0; c < HC; ++c) tma_load(base + KR + c * KT * 128, &tk, kvbar, 32 * c, kvh, k0, b, 0);
+#pragma unroll 1
+        for (int c = 0; c < VC; ++c) tma_load(base + VR + c * KT * 128, &tv, kvbar, 32 * c, kvh, k0, b, 0);
+      }
+#pragma unroll 1
+      for (int it = 0; it < ntiles; ++it) {
+        const int st = it % RING;
+        const int h = kvh * G + it / nq, q0 = qbeg + (it % nq) * QB;
+        if (it >= RING) mbar_wait(empty + 8 * st, (it / RING + 1) & 1);  // the previous round's
+        if (lane == 0) {
+          const uint32_t sb = ring + st * S::STAGE;
+          mbar_expect_tx(full + 8 * st, S::STAGE / 2);
+#pragma unroll 1
+          for (int c = 0; c < HC; ++c)
+            tma_load(sb + S::AB + c * QB * 128, &tq, full + 8 * st, 32 * c, h, q0, b, 0);
+#pragma unroll 1
+          for (int c = 0; c < VC; ++c)
+            tma_load(sb + S::BB + c * QB * 128, &tdo, full + 8 * st, 32 * c, h, q0, b, 0);
+        }
+        float* sts = stats + st * 2 * QB;
+        const long long lrow = (static_cast<long long>(b) * a.H + h) * a.Sq;
+        for (int i = lane; i < 2 * QB; i += 32) {
+          const int row = q0 + i % QB;
+          sts[i] = row >= a.Sq ? 0.f : i < QB ? a.lse[lrow + row] * LOG2E : a.dd[lrow + row];
+        }
+        mbar_arrive(ready + 8 * st);
+      }
+    } else {  // warps 1-3 split each stage as it lands
+      const int i = threadIdx.x - 128 * wg::CONSUMERS - 32;
+#pragma unroll 1
+      for (int it = 0; it < ntiles; ++it) {
+        const int st = it % RING;
+        mbar_wait(full + 8 * st, (it / RING) & 1);
+        uint8_t* sg = gb + S::RING_OFF + st * S::STAGE;
+        split_tile<false>(sg + S::AB, sg + S::AS, nullptr, nullptr, QB, HD, i, SPLITTERS);
+        split_done(ready + 8 * st);
+        split_tile<false>(sg + S::BB, sg + S::BS, nullptr, nullptr, QB, VD, i, SPLITTERS);
+        split_done(ready2 + 8 * st);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+
+  // a consumer warpgroup: fragment rows (keys) kl and kl + 8, stage
+  // columns (query rows) 8j + 2t + (i & 1) of its value i
+  const int wgi = warp / 4, w = warp % 4, g = lane / 4, t = lane % 4, tid = threadIdx.x % 128;
+  const int kl = 16 * w + g;
+  constexpr int NT = S::VN > S::HN ? S::VN : S::HN;
+  const int nt = wgi == 0 ? S::VN : S::HN;  // consumer 0: dVᵀ, 1: dKᵀ
+  float acc[NT][32];
+#pragma unroll
+  for (int c = 0; c < NT; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  const Consts cs{a.scale * LOG2E, a.cap > 0.f ? a.scale / a.cap : 0.f, a.cap * LOG2E};
+  auto release = [&](int st) {
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+  };
+
+  if (ntiles > 0) mbar_wait(kvbar, 0);
+  int n = 0;  // tiles taken (both consumers take the same)
+#pragma unroll 1
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % RING;
+    const int q0 = qbeg + (it % nq) * QB;
+    const uint32_t sb = ring + st * S::STAGE;
+    const uint8_t* sg = gb + S::RING_OFF + st * S::STAGE;
+    const float* sts = stats + st * 2 * QB;
+    // consumer 0 starts on Q and the stats, consumer 1 waits for dO too
+    mbar_wait(ready + 8 * st, (it / RING) & 1);
+    if (wgi == 1) mbar_wait(ready2 + 8 * st, (it / RING) & 1);
+    if (none_visible(a, q0, q0 + QB - 1, k0, k0 + KT - 1)) {
+      mbar_wait(ready2 + 8 * st, (it / RING) & 1);  // the stage is split before it is released
+      release(st);
+      continue;
+    }
+    float* pq = pdt + (n & 1) * (QB / 2) * 128;
+    if (wgi == 0) {
+      float s[QB / 2];
+      scores<QB, HD / 8, KT, S::CH>(s, gb + KR, kl, t, sb + S::AB, sb + S::AS);
+      // P, and p · dt for consumer 1; lse by query column
+      float pv[QB / 2];
+      by_case(a.cap > 0.f, all_visible(a, q0, q0 + QB - 1, k0, k0 + KT - 1),
+              [&](auto capped, auto masked) {
+                constexpr bool CAP = decltype(capped)::value, MASKED = decltype(masked)::value;
+#pragma unroll
+                for (int i = 0; i < QB / 2; ++i) {
+                  const int ql = 8 * (i / 4) + 2 * t + (i & 1), key = kl + 8 * ((i >> 1) & 1);
+                  float dt;
+                  float p = prob_dt<CAP>(s[i], sts[ql], cs, dt);
+                  if constexpr (MASKED) {
+                    if (!visible(a, q0 + ql, k0 + key)) p = 0.f;
+                  }
+                  pv[i] = p;
+                  s[i] = CAP ? p * dt : p;
+                }
+              });
+      if (n >= 2) mbar_wait(pempty + 8 * (n & 1), ((n >> 1) + 1) & 1);
+#pragma unroll
+      for (int i = 0; i < QB / 2; ++i) pq[i * 128 + tid] = s[i];
+      mbar_arrive(pfull + 8 * (n & 1));
+      // Pᵀ into its buffer once every warp's products of the last tile are done
+      bar_wg(2);
+#pragma unroll
+      for (int i = 0; i < QB / 2; ++i)
+        put_split<QB>(gb + S::BUF_OFF, kl + 8 * ((i >> 1) & 1), 8 * (i / 4) + 2 * t + (i & 1), pv[i]);
+      fence_async_shared();
+      bar_wg(2);
+      mbar_wait(ready2 + 8 * st, (it / RING) & 1);
+      // dVᵀ += dOᵀ·P
+      tiles_t<S::VN, 0, QB>(acc, sg + S::BB, sg + S::BS, w, g, t, pbuf);
+    } else {
+      float dp[QB / 2];
+      scores<QB, VD / 8, KT, S::CH>(dp, gb + VR, kl, t, sb + S::BB, sb + S::BS);
+      // dS = p · dt · (dPᵀ − D), D by query column
+      mbar_wait(pfull + 8 * (n & 1), (n >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < QB / 2; ++i) dp[i] = pq[i * 128 + tid] * (dp[i] - sts[QB + 8 * (i / 4) + 2 * t + (i & 1)]);
+      mbar_arrive(pempty + 8 * (n & 1));
+      bar_wg(3);
+#pragma unroll
+      for (int i = 0; i < QB / 2; ++i)
+        put_split<QB>(gb + S::BUF_OFF + S::BUF, kl + 8 * ((i >> 1) & 1), 8 * (i / 4) + 2 * t + (i & 1),
+                      dp[i]);
+      fence_async_shared();
+      bar_wg(3);
+      // dKᵀ += Qᵀ·dS
+      tiles_t<S::HN, 0, QB>(acc, sg + S::AB, sg + S::AS, w, g, t, dsbuf);
+    }
+    release(st);
+    ++n;
+  }
+
+  // consumer 0 stores dV, consumer 1 dK = scale · Σ dSᵀ·Q; keys past Sk
+  // clipped.  Value i of tile c: row 64c + kl + 8·((i >> 1) & 1) of dVᵀ or
+  // dKᵀ, key k0 + 8·(i / 4) + 2t + (i & 1).
+  float* out = static_cast<float*>(wgi == 0 ? a.dv : a.dk);
+  const int dim = wgi == 0 ? VD : HD;
+  const float f = wgi == 0 ? 1.f : a.scale;
+#pragma unroll
+  for (int c = 0; c < NT; ++c) {
+    if (c >= nt) break;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+      if (key < a.Sk)
+        out[((static_cast<long long>(b) * a.Sk + key) * a.KV + kvh) * dim + 64 * c + kl +
+            8 * ((i >> 1) & 1)] = f * acc[c][i];
+    }
+  }
+}
+
+// dQ at a wide pair: one block a (b, head, 64 query rows).  Consumer 0
+// forms S = Q·Kᵀ and P and hands p · dt to consumer 1, which forms dP =
+// dO·Vᵀ and dS and writes dS into a buffer; consumer 0 sums the first
+// HN / 2 tiles of dQᵀ += Kᵀ·dSᵀ, consumer 1 the others.
+template <int HD, int VD>
+__device__ __forceinline__ void dq_wide(const CUtensorMap& tq, const CUtensorMap& tk,
+                                        const CUtensorMap& tv, const CUtensorMap& tdo,
+                                        const Args& a) {
+  using S = Wide<HD, VD>;
+  constexpr int QT = S::KT, KB = S::QB, RING = S::RING, HC = S::HC, VC = S::VC;
+  constexpr int H0 = S::HN / 2, H1 = S::HN - H0;  // consumer 0's tiles of dQᵀ, consumer 1's
+  constexpr uint32_t QR = 0, OR = QT * HC * 128;  // Q and dO as they land
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* gb = smem_raw + (base - raw);
+  const uint32_t ring = base + S::RING_OFF;
+  float* pdt = reinterpret_cast<float*>(gb + S::PDT_OFF);  // [2][KB / 2][128]
+  const uint32_t qbar = base + S::BAR_OFF;  // Q and dO landed
+  const uint32_t pfull = qbar + 8;          // [2] p · dt written
+  const uint32_t pempty = pfull + 16;       // [2] p · dt read
+  const uint32_t dsfull = pempty + 16;      // [2] dS written
+  const uint32_t dsempty = dsfull + 16;     // [2] dS read
+  const uint32_t full = qbar + S::BARS;      // [RING] a stage landed
+  const uint32_t ready = full + 8 * RING;    // [RING] K split
+  const uint32_t ready2 = ready + 8 * RING;  // [RING] V split
+  const uint32_t empty = ready2 + 8 * RING;  // [RING] released
+
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int kvh = h / (a.H / a.KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * QT;  // late (heavy) tiles first
+  const int qlast = min(q0 + QT, a.Sq) - 1;
+  int kbeg = 0, kend = a.Sk;
+  if (a.causal) {
+    kend = min(a.Sk, qlast + 1);
+    if (a.window > 0) kbeg = max(0, q0 - a.window + 1);
+  }
+  const int ntiles = kend > kbeg ? (kend - kbeg + KB - 1) / KB : 0;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(pfull + 8 * s, 128);
+      mbar_init(pempty + 8 * s, 128);
+      mbar_init(dsfull + 8 * s, 128);
+      mbar_init(dsempty + 8 * s, 4 * wg::CONSUMERS);
+    }
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(ready + 8 * s, SPLITTERS);
+      mbar_init(ready2 + 8 * s, SPLITTERS);
+      mbar_init(empty + 8 * s, 4 * wg::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * wg::CONSUMERS) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+    if (ntiles == 0) return;
+    if (warp == 4 * wg::CONSUMERS) {  // one thread loads
+      if (lane == 0) {
+        mbar_expect_tx(qbar, S::FIXED);
+#pragma unroll 1
+        for (int c = 0; c < HC; ++c) tma_load(base + QR + c * QT * 128, &tq, qbar, 32 * c, h, q0, b, 0);
+#pragma unroll 1
+        for (int c = 0; c < VC; ++c) tma_load(base + OR + c * QT * 128, &tdo, qbar, 32 * c, h, q0, b, 0);
+#pragma unroll 1
+        for (int it = 0; it < ntiles; ++it) {
+          const int st = it % RING;
+          const int t0 = kbeg + it * KB;
+          const uint32_t sb = ring + st * S::STAGE;
+          if (it >= RING) mbar_wait(empty + 8 * st, (it / RING + 1) & 1);
+          mbar_expect_tx(full + 8 * st, S::STAGE / 2);
+#pragma unroll 1
+          for (int c = 0; c < HC; ++c)
+            tma_load(sb + S::AB + c * KB * 128, &tk, full + 8 * st, 32 * c, kvh, t0, b, 0);
+#pragma unroll 1
+          for (int c = 0; c < VC; ++c)
+            tma_load(sb + S::BB + c * KB * 128, &tv, full + 8 * st, 32 * c, kvh, t0, b, 0);
+        }
+      }
+    } else {  // warps 1-3 split each stage as it lands
+      const int i = threadIdx.x - 128 * wg::CONSUMERS - 32;
+#pragma unroll 1
+      for (int it = 0; it < ntiles; ++it) {
+        const int st = it % RING;
+        mbar_wait(full + 8 * st, (it / RING) & 1);
+        uint8_t* sg = gb + S::RING_OFF + st * S::STAGE;
+        split_tile<false>(sg + S::AB, sg + S::AS, nullptr, nullptr, KB, HD, i, SPLITTERS);
+        split_done(ready + 8 * st);
+        split_tile<false>(sg + S::BB, sg + S::BS, nullptr, nullptr, KB, VD, i, SPLITTERS);
+        split_done(ready2 + 8 * st);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+
+  // a consumer warpgroup: fragment rows (query rows) q0 + rl and + 8,
+  // stage columns (keys) 8j + 2t + (i & 1) of its value i
+  const int wgi = warp / 4, w = warp % 4, g = lane / 4, t = lane % 4, tid = threadIdx.x % 128;
+  const int rl = 16 * w + g, row0 = q0 + rl, row1 = row0 + 8;
+  const long long lrow = (static_cast<long long>(b) * a.H + h) * a.Sq;
+  const float lse0 = row0 < a.Sq ? a.lse[lrow + row0] * LOG2E : 0.f;
+  const float lse1 = row1 < a.Sq ? a.lse[lrow + row1] * LOG2E : 0.f;
+  const float d0 = row0 < a.Sq ? a.dd[lrow + row0] : 0.f;
+  const float d1 = row1 < a.Sq ? a.dd[lrow + row1] : 0.f;
+  float acc[H1][32];
+#pragma unroll
+  for (int c = 0; c < H1; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  const Consts cs{a.scale * LOG2E, a.cap > 0.f ? a.scale / a.cap : 0.f, a.cap * LOG2E};
+  auto release = [&](int st) {
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+  };
+
+  if (ntiles > 0) mbar_wait(qbar, 0);
+  int n = 0;  // tiles taken (both consumers take the same)
+#pragma unroll 1
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % RING;
+    const int t0 = kbeg + it * KB;
+    const uint32_t sb = ring + st * S::STAGE;
+    const uint8_t* sg = gb + S::RING_OFF + st * S::STAGE;
+    // consumer 0 starts on K, consumer 1 waits for V too; both have seen
+    // the stage split before they release it
+    mbar_wait(ready + 8 * st, (it / RING) & 1);
+    if (wgi == 1) mbar_wait(ready2 + 8 * st, (it / RING) & 1);
+    if (none_visible(a, q0, q0 + QT - 1, t0, t0 + KB - 1)) {
+      mbar_wait(ready2 + 8 * st, (it / RING) & 1);
+      release(st);
+      continue;
+    }
+    float* pq = pdt + (n & 1) * (KB / 2) * 128;
+    const uint32_t dsb = base + S::BUF_OFF + (n & 1) * S::BUF;
+    if (wgi == 0) {
+      float s[KB / 2];
+      scores<KB, HD / 8, QT, S::CH>(s, gb + QR, rl, t, sb + S::AB, sb + S::AS);
+      by_case(a.cap > 0.f, all_visible(a, q0, q0 + QT - 1, t0, t0 + KB - 1),
+              [&](auto capped, auto masked) {
+                constexpr bool CAP = decltype(capped)::value, MASKED = decltype(masked)::value;
+#pragma unroll
+                for (int i = 0; i < KB / 2; ++i) {
+                  float dt;
+                  float p = prob_dt<CAP>(s[i], i & 2 ? lse1 : lse0, cs, dt);
+                  if constexpr (MASKED) {
+                    if (!visible(a, i & 2 ? row1 : row0, t0 + 8 * (i / 4) + 2 * t + (i & 1))) p = 0.f;
+                  }
+                  s[i] = CAP ? p * dt : p;
+                }
+              });
+      if (n >= 2) mbar_wait(pempty + 8 * (n & 1), ((n >> 1) + 1) & 1);
+#pragma unroll
+      for (int i = 0; i < KB / 2; ++i) pq[i * 128 + tid] = s[i];
+      mbar_arrive(pfull + 8 * (n & 1));
+      mbar_wait(dsfull + 8 * (n & 1), (n >> 1) & 1);
+      tiles_t<H0, 0, KB>(acc, sg + S::AB, sg + S::AS, w, g, t, dsb);
+      mbar_wait(ready2 + 8 * st, (it / RING) & 1);
+    } else {
+      float dp[KB / 2];
+      scores<KB, VD / 8, QT, S::CH>(dp, gb + OR, rl, t, sb + S::BB, sb + S::BS);
+      // dS = p · dt · (dP − D), D by row
+      mbar_wait(pfull + 8 * (n & 1), (n >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < KB / 2; ++i) dp[i] = pq[i * 128 + tid] * (dp[i] - (i & 2 ? d1 : d0));
+      mbar_arrive(pempty + 8 * (n & 1));
+      if (n >= 2) mbar_wait(dsempty + 8 * (n & 1), ((n >> 1) + 1) & 1);
+#pragma unroll
+      for (int i = 0; i < KB / 2; ++i)
+        put_split<KB>(gb + S::BUF_OFF + (n & 1) * S::BUF, rl + 8 * ((i >> 1) & 1), 8 * (i / 4) + 2 * t + (i & 1),
+                      dp[i]);
+      fence_async_shared();
+      mbar_arrive(dsfull + 8 * (n & 1));
+      mbar_wait(dsfull + 8 * (n & 1), (n >> 1) & 1);
+      tiles_t<H1, H0, KB>(acc, sg + S::AB, sg + S::AS, w, g, t, dsb);
+    }
+    if (lane == 0) mbar_arrive(dsempty + 8 * (n & 1));
+    release(st);
+    ++n;
+  }
+
+  // dQ = scale · Σ dS·K; value i of tile c: row 64·(c0 + c) + rl + 8·((i
+  // >> 1) & 1) of dQᵀ (a head dim), query row q0 + 8·(i / 4) + 2t + (i & 1)
+  const int c0 = wgi == 0 ? 0 : H0, nt = wgi == 0 ? H0 : H1;
+  float* qo = static_cast<float*>(a.dq) + h * HD;
+  const long long rs = static_cast<long long>(a.H) * HD;
+#pragma unroll
+  for (int c = 0; c < H1; ++c) {
+    if (c >= nt) break;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int row = q0 + 8 * (i / 4) + 2 * t + (i & 1);
+      if (row < a.Sq)
+        qo[(static_cast<long long>(b) * a.Sq + row) * rs + 64 * (c0 + c) + rl + 8 * ((i >> 1) & 1)] =
+            a.scale * acc[c][i];
+    }
+  }
+}
+
+// dK and dV: one block a (b, KV head, 64 keys).
+template <int HD, int VD>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    flash_bwd_dkdv_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const __grid_constant__ Args a) {
+  if constexpr (HD + VD > 256)
+    dkdv_wide<HD, VD>(tq, tk, tv, tdo, a);
+  else
+    dkdv_narrow<HD, VD>(tq, tk, tv, tdo, a);
+}
+
+// dQ: one block a (b, head, query rows).
+template <int HD, int VD>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const __grid_constant__ Args a) {
+  if constexpr (HD + VD > 256)
+    dq_wide<HD, VD>(tq, tk, tv, tdo, a);
+  else
+    dq_narrow<HD, VD>(tq, tk, tv, tdo, a);
+}
+
 // A (B, S, heads, dim) fp32 tensor's TMA map, read in boxes of 32 × rows
 // (128 bytes, 128-byte swizzled; hd 16 zero-filled to 32): st its (batch,
 // seq, head) element strides, 0 where the dim is 1 (wg::tma_map's rule).
@@ -2168,30 +2333,46 @@ bool tma_map(CUtensorMap* m, const void* ptr, int B, int S, int heads, int dim, 
 
 template <int HD, int VD>
 cudaError_t launch(const Args& a, cudaStream_t s) {
-  using KS = KvTile<HD, VD>;
-  using QS = QTile<HD, VD>;
+  // the dK/dV kernel's stationary keys and streamed query rows, the dQ
+  // kernel's stationary query rows and streamed keys
+  int kt, qb, qt, kb, kv_smem, q_smem, q_threads;
+  if constexpr (HD + VD > 256) {
+    using W = Wide<HD, VD>;
+    kt = qt = W::KT;
+    qb = kb = W::QB;
+    kv_smem = q_smem = W::SMEM;
+    q_threads = wg::THREADS;
+  } else {
+    using KS = KvTile<HD, VD>;
+    using QS = QTile<HD, VD>;
+    kt = KS::KT;
+    qb = KS::QB;
+    qt = QS::QT;
+    kb = QS::KB;
+    kv_smem = KS::SMEM;
+    q_smem = QS::SMEM;
+    q_threads = QS::THREADS;
+  }
   CUtensorMap kq, kk, kv, kdo, mq, mk, mv, mdo;
-  if (!tma_map(&kq, a.q, a.B, a.Sq, a.H, HD, a.qs, KS::QB) ||
-      !tma_map(&kk, a.k, a.B, a.Sk, a.KV, HD, a.ks, KS::KT) ||
-      !tma_map(&kv, a.v, a.B, a.Sk, a.KV, VD, a.vs, KS::KT) ||
-      !tma_map(&kdo, a.dout, a.B, a.Sq, a.H, VD, a.ds, KS::QB) ||
-      !tma_map(&mq, a.q, a.B, a.Sq, a.H, HD, a.qs, QS::QT) ||
-      !tma_map(&mk, a.k, a.B, a.Sk, a.KV, HD, a.ks, QS::KB) ||
-      !tma_map(&mv, a.v, a.B, a.Sk, a.KV, VD, a.vs, QS::KB) ||
-      !tma_map(&mdo, a.dout, a.B, a.Sq, a.H, VD, a.ds, QS::QT))
+  if (!tma_map(&kq, a.q, a.B, a.Sq, a.H, HD, a.qs, qb) ||
+      !tma_map(&kk, a.k, a.B, a.Sk, a.KV, HD, a.ks, kt) ||
+      !tma_map(&kv, a.v, a.B, a.Sk, a.KV, VD, a.vs, kt) ||
+      !tma_map(&kdo, a.dout, a.B, a.Sq, a.H, VD, a.ds, qb) ||
+      !tma_map(&mq, a.q, a.B, a.Sq, a.H, HD, a.qs, qt) ||
+      !tma_map(&mk, a.k, a.B, a.Sk, a.KV, HD, a.ks, kb) ||
+      !tma_map(&mv, a.v, a.B, a.Sk, a.KV, VD, a.vs, kb) ||
+      !tma_map(&mdo, a.dout, a.B, a.Sq, a.H, VD, a.ds, qt))
     return cudaErrorInvalidValue;
   const auto kvk = flash_bwd_dkdv_tf32_kernel<HD, VD>;
-  cudaError_t e = cudaFuncSetAttribute(kvk, cudaFuncAttributeMaxDynamicSharedMemorySize, KS::SMEM);
+  cudaError_t e = cudaFuncSetAttribute(kvk, cudaFuncAttributeMaxDynamicSharedMemorySize, kv_smem);
   if (e != cudaSuccess) return e;
-  kvk<<<dim3(a.B * a.KV, (a.Sk + KS::KT - 1) / KS::KT), wg::THREADS, KS::SMEM, s>>>(kq, kk, kv,
-                                                                                  kdo, a);
+  kvk<<<dim3(a.B * a.KV, (a.Sk + kt - 1) / kt), wg::THREADS, kv_smem, s>>>(kq, kk, kv, kdo, a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const auto dqk = flash_bwd_dq_tf32_kernel<HD, VD>;
-  e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, QS::SMEM);
+  e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, q_smem);
   if (e != cudaSuccess) return e;
-  dqk<<<dim3(a.B * a.H, (a.Sq + QS::QT - 1) / QS::QT), QS::THREADS, QS::SMEM, s>>>(mq, mk, mv, mdo,
-                                                                                   a);
+  dqk<<<dim3(a.B * a.H, (a.Sq + qt - 1) / qt), q_threads, q_smem, s>>>(mq, mk, mv, mdo, a);
   return cudaGetLastError();
 }
 
@@ -2209,31 +2390,15 @@ cudaError_t launch_dot(const Args& a, cudaStream_t s) {
 }
 
 // D, then dK and dV, then dQ, on one stream: bf16 on wgmma, fp32 in
-// three TF32 products on wgmma (on mma.sync at the wide pairs).
+// three TF32 products on wgmma.
 template <typename T, int HD, int VD>
 cudaError_t launch(const Args& a, cudaStream_t s) {
   cudaError_t e = launch_dot<T, VD>(a, s);
   if (e != cudaSuccess) return e;
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (std::is_same<T, bf16>::value)
     return wg::launch<HD, VD>(a, s);
-  } else if constexpr (HD + VD <= 256) {
+  else
     return tf::launch<HD, VD>(a, s);
-  } else {
-    using KS = KvShape<HD, VD>;
-    const auto kv = flash_bwd_dkdv_kernel<HD, VD>;
-    e = cudaFuncSetAttribute(kv, cudaFuncAttributeMaxDynamicSharedMemorySize, KS::SMEM);
-    if (e != cudaSuccess) return e;
-    kv<<<dim3(a.B * a.KV, (a.Sk + KS::KT - 1) / KS::KT), KS::THREADS, KS::SMEM, s>>>(a);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-
-    using QS = QShape<HD, VD>;
-    const auto dq = flash_bwd_dq_kernel<HD, VD>;
-    e = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize, QS::SMEM);
-    if (e != cudaSuccess) return e;
-    dq<<<dim3(a.B * a.H, (a.Sq + QS::QT - 1) / QS::QT), QS::THREADS, QS::SMEM, s>>>(a);
-    return cudaGetLastError();
-  }
 }
 
 template <typename T>

@@ -67,11 +67,16 @@ the same structure on ``wgmma`` in TF32, each product taken three times
 memory by the producer's other warps into its TF32 big and small parts
 and, where a product wants it, transposed (TF32 ``wgmma`` reads shared
 memory K-major only), tiles ``BWD_TF32_TILES``; at the wide pairs (256,
-256) and (192, 128), whose split K and V do not fit beside a stage,
-fp32 stays on ``mma.sync`` in three TF32 products.  ``bwd_launches``
-counts its launches (one a backward), ``bwd_tf32_launches`` those on the
-fp32 ``wgmma`` kernels alone.  Its plain version is ``ref.flash_attention_bwd``, which the
-tests and ``chip_smoke.py`` hold it against.
+256) and (192, 128), whose split K and V do not fit beside a stage, the
+same kernels keep a block's K and V (dQ: Q and dO) as they land and
+split their fragments in registers, take the products along a stage's
+rows transposed (dVᵀ = dOᵀ·P, dKᵀ = Qᵀ·dS, dQᵀ = Kᵀ·dSᵀ, P and dS split
+into shared memory as the B operand) and give each consumer a role
+(scores and dV, or dP and dK).  ``bwd_launches`` counts its launches
+(one a backward), ``bwd_tf32_launches`` those on the fp32 ``wgmma``
+kernels alone: every fp32 backward.  Its plain version is
+``ref.flash_attention_bwd``, which the tests and ``chip_smoke.py`` hold
+it against.
 
 The sources are compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/`` beside this file and loaded with ``ctypes`` (``build.py``);
@@ -133,12 +138,17 @@ class BwdTiles(NamedTuple):
     sees the block's keys), the dQ kernel's query rows a block and keys a
     stage (from the first key a row of the block sees); ``alternate``: the
     fp32 dK/dV kernel's two consumers take alternate stages whole, else
-    (bf16, fp32 at hd 128) each its share of every stage."""
+    (bf16, fp32 at hd 128) each its share of every stage; ``whole``: one
+    consumer sums each stage's dK and another its dV (fp32's wide pairs);
+    ``chunk``: the head dims S and dP sum in place from 0 before the
+    chunks are added in fp32 (0: the whole head dim)."""
     keys: int
     rows: int
     dq_rows: int
     dq_keys: int
     alternate: bool = False
+    whole: bool = False
+    chunk: int = 0
 
 
 #: the bf16 backward kernels' tiles by ``(hd, vd)``: dK and dV of a
@@ -152,15 +162,22 @@ BWD_TILES = {(16, 16): BwdTiles(128, 64, 128, 128),
              (192, 128): BwdTiles(128, 32, 128, 64)}
 
 #: the fp32 backward kernels' tiles by ``(hd, vd)`` (``csrc/flash_bwd.cu``'s
-#: ``tf::KvTile`` and ``tf::QTile``): 64 keys a dK/dV block, its two
-#: consumers taking alternate stages of 32 rows (at hd 128, whose ring
-#: holds one stage, halves of every stage of 16); a dQ block of 128 rows
-#: (64 at hd 128, whose split Q and dO take 128 KB).  The wide pairs are
-#: not here: they run the ``mma.sync`` kernels.
+#: ``tf::KvTile`` and ``tf::QTile``, and ``tf::Wide`` at the wide pairs): 64
+#: keys a dK/dV block, its two consumers taking alternate stages of 32 rows
+#: (at hd 128, whose ring holds one stage, halves of every stage of 16); a
+#: dQ block of 128 rows (64 at hd 128, whose split Q and dO take 128 KB).
+#: At (256, 256) and (192, 128) a block holds its 64 keys' K and V (dQ: its
+#: 64 rows' Q and dO) as they land, stages of 16 rows (dQ: keys), each
+#: stage's dK and dV summed by one consumer apiece, S and dP from 0 over
+#: each 128 of the head dim.
 BWD_TF32_TILES = {(16, 16): BwdTiles(64, 32, 128, 32, True),
                   (32, 32): BwdTiles(64, 32, 128, 32, True),
                   (64, 64): BwdTiles(64, 32, 128, 32, True),
-                  (128, 128): BwdTiles(64, 16, 64, 16)}
+                  (128, 128): BwdTiles(64, 16, 64, 16),
+                  (256, 256): BwdTiles(64, 16, 64, 16, whole=True,
+                                       chunk=128),
+                  (192, 128): BwdTiles(64, 16, 64, 16, whole=True,
+                                       chunk=128)}
 
 #: Kernel launches so far, either kernel; the wrapper adds one per launch
 #: and nothing else touches it but a caller that resets it.
@@ -178,7 +195,8 @@ decode_mma_launches = 0
 #: The backward's launches (its three kernels count once), counted apart
 #: from ``launches``, which counts forward launches only.
 bwd_launches = 0
-#: The backward's launches on the fp32 TF32 ``wgmma`` kernels alone.
+#: The backward's launches on the fp32 TF32 ``wgmma`` kernels alone
+#: (every fp32 backward).
 bwd_tf32_launches = 0
 #: The D kernel's launches on its own (:func:`attention_dot`); inside a
 #: backward it is counted by ``bwd_launches``.
@@ -719,8 +737,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"cudaError {err} for q {tuple(q.shape)} k "
                            f"{tuple(k.shape)} v {tuple(v.shape)} {q.dtype}")
     bwd_launches += 1
-    bwd_tf32_launches += (q.dtype == torch.float32
-                          and (hd, vd) in BWD_TF32_TILES)
+    bwd_tf32_launches += q.dtype == torch.float32
     return dq, dk, dv
 
 

@@ -878,9 +878,11 @@ def test_flash_function_gradient_at_mla_dims_on_cuda(cuda):
 #: keys a block and 32 query rows a stage (16 at hd 128), whole for one
 #: of two consumers in turn (half for each at hd 128),
 #: its dQ kernel's 128 rows a block (64 at hd 128) and 32 keys a stage (16
-#: at hd 128); at the wide pairs fp32's mma.sync kernels' 32 or 64 keys and
-#: rows, 64 or 128 rows and 16-64 keys), GQA 8/8, 8/2 and 8/1, a block of
-#: many query tiles under a window
+#: at hd 128); at the wide pairs 64 keys a dK/dV block and 16 query rows a
+#: stage, 64 rows a dQ block and 16 keys a stage), GQA 8/8, 8/4, 8/2 and
+#: 8/1, a block of many query tiles under a window; gemma2's cap 50 with a
+#: window over GQA 8/4 and deepseek's 16 heads with ``v`` 128 values into
+#: each head of its tensor
 _BWD_CASES = ((2, 300, 300, 8, 8, True, 0.0, 0, 0),
               (1, 300, 300, 8, 2, True, 30.0, 100, 0),
               (2, 200, 333, 8, 2, False, 0.0, 0, 0),
@@ -888,7 +890,9 @@ _BWD_CASES = ((2, 300, 300, 8, 8, True, 0.0, 0, 0),
               (1, 257, 257, 8, 2, True, 0.0, 64, 0),
               (1, 130, 130, 8, 1, True, 0.0, 0, 0),
               (2, 97, 161, 8, 1, False, 30.0, 0, 64),
-              (1, 700, 700, 4, 4, True, 0.0, 300, 64))
+              (1, 700, 700, 4, 4, True, 0.0, 300, 64),
+              (1, 300, 300, 8, 4, True, 50.0, 200, 0),
+              (1, 260, 260, 16, 16, True, 0.0, 0, 128))
 
 
 @pytest.mark.cuda
@@ -896,9 +900,10 @@ _BWD_CASES = ((2, 300, 300, 8, 8, True, 0.0, 0, 0),
 @pytest.mark.parametrize("dims", fa.TC_DIMS, ids=str)
 def test_flash_backward_kernel_matches_plain_on_cuda(cuda, dtype, dims):
     """The backward kernels (``csrc/flash_bwd.cu``: bf16 on ``wgmma``,
-    fp32 in three TF32 products, on ``wgmma`` where ``BWD_TF32_TILES``
-    has the pair, else on ``mma.sync``) at every ``TC_DIMS`` pair against their
-    plain version ``ref.flash_attention_bwd`` on the same inputs and the
+    fp32 in three TF32 products on ``wgmma``, counted by
+    ``bwd_tf32_launches`` at every pair, the wide ones included) at every
+    ``TC_DIMS`` pair against their plain version
+    ``ref.flash_attention_bwd`` on the same inputs and the
     forward kernel's ``o`` and log-sum-exp: causal and not, cap and
     window, GQA 8/8, 8/2 and 8/1, ragged ``Sq`` and ``Sk``, ``Sq != Sk``,
     a strided ``v``.  fp32 within 1e-4, bf16 each gradient within 2e-2 of its
@@ -927,7 +932,8 @@ def test_flash_backward_kernel_matches_plain_on_cuda(cuda, dtype, dims):
         torch.cuda.synchronize()
         assert fa.bwd_launches == before + 3
         assert fa.bwd_tf32_launches - tf32_before == 3 * (
-            dt == torch.float32 and dims in fa.BWD_TF32_TILES)
+            dt == torch.float32)
+        assert dims in fa.BWD_TF32_TILES
         for g, a, f in zip(got, again, viaf):
             assert _same_bits(g, a) and _same_bits(g, f)
         want = ref.flash_attention_bwd(q, k, v, lse, do, **kw)

@@ -29,14 +29,18 @@ before any chip run.
 The fp32 kernels take each product as three TF32 products (small·big +
 big·small + big·big, ``cvt.rna`` splits).  ``_tf32_kernel_emulation``
 repeats that arithmetic: the scores and dP summed in place over 8-wide
-k-steps, dV, dK and dQ summed from 0 over each tile (a consumer's share of
-a stage's query rows for dK and dV: alternate stages whole, or halves of
-each; a stage's keys for dQ) and then added in fp32, the two dK/dV
-consumers' sums added at the end, in the kernels' tile order
+k-steps (at the wide pairs from 0 over each 128 of the head dim, the
+chunks then added), dV, dK and dQ summed from 0 over each tile (a
+consumer's share of a stage's query rows for dK and dV: alternate stages
+whole, halves of each, or at the wide pairs the whole stage, summed by one
+consumer as dVᵀ = dOᵀ·P and dKᵀ = Qᵀ·dS; a stage's keys for dQ, dQᵀ =
+Kᵀ·dSᵀ at the wide pairs) and then added in fp32, the two dK/dV consumers'
+sums added at the end where both hold them, in the kernels' tile order
 (``flash_attn.BWD_TF32_TILES``).  Held against the jitted ``jax.vjp`` of
 ``attend`` in fp32 it stays within 5e-5, half of the card's 1e-4, at the
 fp32 training paths' hd 32 and 64 and at every pair those kernels take.
 """
+import functools
 import math
 
 import jax
@@ -318,15 +322,18 @@ def _sum3(a: torch.Tensor, b: torch.Tensor, acc=None) -> torch.Tensor:
 def _tf32_kernel_emulation(q, k, v, o, lse, do, *, causal, scale, cap,
                            window):
     """``csrc/flash_bwd.cu``'s fp32 ``wgmma`` kernels' arithmetic in fp32:
-    S and dP in three TF32 products summed in place over the head dim, P =
+    S and dP in three TF32 products summed in place over the head dim (or
+    from 0 over each ``chunk`` of it, the chunks added in fp32), P =
     2^(s·scale·log2 e − lse·log2 e) (0 where masked), D = Σ dO·O, dS =
     (P·(1 − tanh²))·(dP − D); dV += Pᵀ·dO and dK += dSᵀ·Q summed from 0
     over each consumer's share of a stage (alternate stages whole, or
-    halves of each) and added in fp32, the group's
-    heads outermost, each head's stages from the first row that sees the
-    block, consumer 0's total plus consumer 1's; dQ += dS·K summed from 0
-    over each stage of keys.  q ``(Sq, H, hd)``, k ``(Sk, KV, hd)``, v
-    ``(Sk, KV, vd)``, o and do ``(Sq, H, vd)``, lse ``(H, Sq)``, fp32."""
+    halves of each; ``whole``: the stage, one consumer each as dVᵀ +=
+    dOᵀ·P and dKᵀ += Qᵀ·dS) and added in fp32, the group's heads
+    outermost, each head's stages from the first row that sees the block,
+    consumer 0's total plus consumer 1's; dQ += dS·K (``whole``: dQᵀ +=
+    Kᵀ·dSᵀ) summed from 0 over each stage of keys.  q ``(Sq, H, hd)``, k
+    ``(Sk, KV, hd)``, v ``(Sk, KV, vd)``, o and do ``(Sq, H, vd)``, lse
+    ``(H, Sq)``, fp32."""
     sq, h, hd = q.shape
     sk, kv, vd = v.shape
     g = h // kv
@@ -339,10 +346,18 @@ def _tf32_kernel_emulation(q, k, v, o, lse, do, *, causal, scale, cap,
             vis &= keys > rows - window
     log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
     sl = torch.tensor(scale, dtype=torch.float32) * log2e
+
+    def scores(a, b):
+        """a @ b: from 0 over each ``t.chunk`` of the depth, then added"""
+        w = t.chunk or a.shape[-1]
+        parts = [_sum3(a[:, i:i + w], b[i:i + w])
+                 for i in range(0, a.shape[-1], w)]
+        return functools.reduce(torch.add, parts)
+
     ps, dss = [], []
     for hh in range(h):
         j = hh // g
-        x = _sum3(q[:, hh], k[:, j].T)
+        x = scores(q[:, hh], k[:, j].T)
         if cap:
             th = torch.tanh(x * (scale / cap))
             p = torch.exp2(th * (cap * log2e) - lse[hh][:, None] * log2e)
@@ -353,11 +368,12 @@ def _tf32_kernel_emulation(q, k, v, o, lse, do, *, causal, scale, cap,
         p = torch.where(vis, p, 0.0)
         d = (do[:, hh] * o[:, hh]).sum(-1, keepdim=True)
         ps.append(p)
-        dss.append((p * dt) * (_sum3(do[:, hh], v[:, j].T) - d))
+        dss.append((p * dt) * (scores(do[:, hh], v[:, j].T) - d))
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
     # a consumer's (first row, rows) of each stage: the whole stage for
-    # one of the two in turn, or a half for each
-    share = (((0, t.rows),) if t.alternate else
+    # one of the two in turn (or, whole, for consumer 0's dV and 1's dK),
+    # or a half for each
+    share = (((0, t.rows),) if t.alternate or t.whole else
              ((0, t.rows // 2), (t.rows // 2, t.rows // 2)))
     for k0 in range(0, sk, t.keys):
         ks = slice(k0, k0 + t.keys)
@@ -375,6 +391,12 @@ def _tf32_kernel_emulation(q, k, v, o, lse, do, *, causal, scale, cap,
                         c = it % 2 if t.alternate else c
                         rs = slice(q0 + r0, min(q0 + r0 + n, sq))
                         if rs.start >= rs.stop:
+                            continue
+                        if t.whole:  # dKᵀ += Qᵀ·dS, dVᵀ += dOᵀ·P
+                            part[c][0] = part[c][0] + _sum3(
+                                q[rs, hh].T, dss[hh][rs, ks]).T
+                            part[c][1] = part[c][1] + _sum3(
+                                do[rs, hh].T, ps[hh][rs, ks]).T
                             continue
                         part[c][0] = part[c][0] + _sum3(dss[hh][rs, ks].T,
                                                         q[rs, hh])
@@ -396,18 +418,26 @@ def _tf32_kernel_emulation(q, k, v, o, lse, do, *, causal, scale, cap,
             acc = torch.zeros_like(dq[rs, hh])
             for t0 in range(kbeg, kend, t.dq_keys):
                 ts = slice(t0, min(t0 + t.dq_keys, sk))
-                acc = acc + _sum3(dss[hh][rs, ts], k[ts, j])
+                acc = acc + (_sum3(k[ts, j].T, dss[hh][rs, ts].T).T
+                             if t.whole else _sum3(dss[hh][rs, ts], k[ts, j]))
             dq[rs, hh] = scale * acc
     return dq, dk, dv
 
 
-#: the fp32 kernels' cases: (Sq, Sk, H, KV, hd, vd, causal, cap, window)
+#: the fp32 kernels' cases: (Sq, Sk, H, KV, hd, vd, causal, cap, window,
+#: the values before ``v`` in each head of the tensor it is a view of (0:
+#: contiguous, as MLA's strided ``v``))
 TF32_CASES = {
-    "tinyllama fp32 hd 64, GQA 8/2": (160, 160, 8, 2, 64, 64, True, 0.0, 0),
-    "train_e2e hd 32": (64, 64, 2, 1, 32, 32, True, 0.0, 0),
-    "hd 16 cap 30, window": (150, 150, 4, 2, 16, 16, True, 30.0, 40),
-    "hd 128 cross": (96, 160, 4, 2, 128, 128, False, 0.0, 0),
-    "hd 128 causal, cap 50": (130, 130, 4, 4, 128, 128, True, 50.0, 0),
+    "tinyllama fp32 hd 64, GQA 8/2": (160, 160, 8, 2, 64, 64, True, 0.0, 0,
+                                      0),
+    "train_e2e hd 32": (64, 64, 2, 1, 32, 32, True, 0.0, 0, 0),
+    "hd 16 cap 30, window": (150, 150, 4, 2, 16, 16, True, 30.0, 40, 0),
+    "hd 128 cross": (96, 160, 4, 2, 128, 128, False, 0.0, 0, 0),
+    "hd 128 causal, cap 50": (130, 130, 4, 4, 128, 128, True, 50.0, 0, 0),
+    "hd 256 cap 50, window, GQA 8/4": (150, 150, 8, 4, 256, 256, True, 50.0,
+                                       70, 0),
+    "mla (192, 128), strided v": (140, 140, 4, 4, 192, 128, True, 0.0, 0,
+                                  64),
 }
 
 
@@ -416,13 +446,19 @@ def test_tf32_kernel_arithmetic_holds_half_the_card_bound(name):
     """The fp32 ``wgmma`` kernels' arithmetic, emulated, against the
     reference's fp32 gradient (the jitted ``jax.vjp`` of ``attend``): each
     gradient within 5e-5, half of the card's 1e-4, at the fp32 training
-    paths' hd 32 and 64 and at every pair those kernels take; lengths
-    ragged against their 64-key blocks and 32-row or 32-key stages."""
-    sq, sk, h, kv, hd, vd, causal, cap, win = TF32_CASES[name]
+    paths' hd 32 and 64 and at every pair those kernels take, gemma2's hd
+    256 with its cap, a window and GQA 8/4, and MLA's (192, 128) with ``v``
+    a strided view; lengths ragged against their 64-key or 64-row blocks
+    and 16- or 32-row or key stages."""
+    sq, sk, h, kv, hd, vd, causal, cap, win, v_pad = TF32_CASES[name]
     case = (1, sq, sk, h, kv, hd, vd, causal, cap, win, 0)
     xs = _draw(np.random.default_rng(11), case, "float32")
     want = _jax_grads(xs, case, "float32", 0)
     q, k, v, do = (torch.from_numpy(x[0]) for x in xs)
+    if v_pad:  # v read where it lies, inside a wider tensor
+        wide = torch.zeros((sk, kv, v_pad + vd))
+        wide[..., v_pad:] = v
+        v = wide[..., v_pad:]
     scale = base._scale(q, None)
     o, lse = ref.flash_attention_bshd(q[None], k[None], v[None],
                                       causal=causal, scale=scale,
@@ -436,22 +472,30 @@ def test_tf32_kernel_arithmetic_holds_half_the_card_bound(name):
 
 def test_bwd_tf32_tiles_cover_the_narrow_pairs():
     """``BWD_TF32_TILES`` (the emulation's tile order) has the fp32
-    ``wgmma`` kernels' tiles at every ``TC_DIMS`` pair whose split K and V
-    fit beside a stage: all but (256, 256) and (192, 128), which stay on
-    the ``mma.sync`` kernels; 64 keys a dK/dV block, stages of at most 32
-    rows (a transposed plane's 128-byte row) in whole 8-row k-steps, taken
-    whole by alternate consumers where the ring holds an even number of
-    stages (not at hd 128, whose ring holds one), a dQ block of one or
-    two 64-row consumers and at most 32 keys a stage."""
-    assert set(fa.BWD_TF32_TILES) == {p for p in fa.TC_DIMS
-                                      if sum(p) <= 256}
+    ``wgmma`` kernels' tiles at every ``TC_DIMS`` pair: 64 keys a dK/dV
+    block, stages of at most 32 rows (a transposed plane's 128-byte row) in
+    whole 8-row k-steps, taken whole by alternate consumers where the ring
+    holds an even number of stages (not at hd 128, whose ring holds one), a
+    dQ block of one or two 64-row consumers and at most 32 keys a stage, S
+    and dP in place over the head dim; at (256, 256) and (192, 128), whose
+    split K and V do not fit beside a stage, stages of 16 rows (keys), a
+    stage's big and small parts side by side in one 128-byte row, each
+    stage's dK and dV summed whole by one consumer, S and dP from 0 over
+    each 128 of the head dim."""
+    assert set(fa.BWD_TF32_TILES) == set(fa.TC_DIMS)
     for (hd, vd), t in fa.BWD_TF32_TILES.items():
         assert t.keys == 64 and t.rows in (16, 32) and t.rows % 16 == 0
         assert t.dq_rows in (64, 128) and t.dq_keys in (16, 32)
+        if hd + vd > 256:
+            assert (t.rows, t.dq_rows, t.dq_keys, t.alternate, t.whole,
+                    t.chunk) == (16, 64, 16, False, True, 128), (hd, vd)
+            continue
         assert (t.rows, t.dq_rows, t.dq_keys, t.alternate) == (
             (32, 128, 32, True) if hd + vd <= 128
             else (16, 64, 16, False)), (hd, vd)
-    assert not any(t.alternate for t in fa.BWD_TILES.values())
+        assert not t.whole and not t.chunk, (hd, vd)
+    assert not any(t.alternate or t.whole or t.chunk
+                   for t in fa.BWD_TILES.values())
 
 
 def _dot_kernel_emulation(o: np.ndarray, do: np.ndarray, *, bf16: bool

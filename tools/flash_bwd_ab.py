@@ -15,22 +15,27 @@ at ``(hd, vd)`` = (192, 128) with ``v`` a strided view, whisper's cross
 attention (4096 queries over 1500 keys, not causal), an fp32 causal
 launch ``(4, 1024, 8, 64)``, and the fp32 training paths' launches:
 TinyLlama on ``2x2x2`` (``(8, 4096, 16, 64)`` over 2 KV heads) and
-``examples_torch/train_e2e.py``'s (``(16, 64, 2, 32)`` over 1).  The
-forward kernel gives ``o`` and the log-sum-exp.  Each case: the mean device time
-of a backward by CUDA events over ``--iters`` launches queued behind a
-sleep on the card (``chip_smoke.cuda_ms``), the device time of each of
-its three kernels by ``torch.profiler`` (``flash_bwd_dot``, then bf16's
+``examples_torch/train_e2e.py``'s (``(16, 64, 2, 32)`` over 1), and
+phase 31's fp32 steps of gemma2-2b (``(4, 4096, 8, 256)`` over 4 KV
+heads, cap 50) and deepseek (``(4, 4096, 16, 192)``, ``v`` the strided
+(192, 128) view) on ``2x2x1``.  The forward kernel gives ``o`` and the
+log-sum-exp.  Each case: the mean device time of a backward by CUDA
+events over ``--iters`` launches queued behind a sleep on the card
+(``chip_smoke.cuda_ms``), the device time of each of its three kernels
+by ``torch.profiler`` (``flash_bwd_dot``, then bf16's
 ``flash_bwd_dkdv_wgmma`` and ``flash_bwd_dq_wgmma``, fp32's
-``flash_bwd_dkdv_tf32`` and ``flash_bwd_dq_tf32``, or at fp32's wide
-pairs ``flash_bwd_dkdv`` and ``flash_bwd_dq``), the bound (five products
-a visible pair at the card's peak, bf16 989 TFLOP/s, fp32 three TF32
-products at 495) and each kernel's (``chip_smoke.bwd_kernel_bounds``),
-SDPA's backward on the same inputs (``chip_smoke.sdpa_bwd_ms``: the
-gradient alone, KV heads repeated, no cap; the yardstick, never called
-by the port), and a hash of the gradients' bits (the inputs drawn from
-a seed of the case's own); each build's largest register count and spill, and each
-kernel's tensor-core instructions by ``cuobjdump -sass`` (TF32 and other
-``HGMMA``, ``HMMA``).  ``--case`` (repeated) keeps the cases whose name holds
+``flash_bwd_dkdv_tf32`` and ``flash_bwd_dq_tf32`` at every pair; an
+older source's ``mma.sync`` kernels at fp32's wide pairs,
+``flash_bwd_dkdv`` and ``flash_bwd_dq``, are found too), the bound (five
+products a visible pair at the card's peak, bf16 989 TFLOP/s, fp32 three
+TF32 products at 495) and each kernel's
+(``chip_smoke.bwd_kernel_bounds``), SDPA's backward on the same inputs
+(``chip_smoke.sdpa_bwd_ms``: the gradient alone, KV heads repeated, no
+cap; the yardstick, never called by the port) and the backend PyTorch
+picked for it, and a hash of the gradients' bits (the inputs drawn from
+a seed of the case's own); each build's largest register count and
+spill, and each kernel's tensor-core instructions by ``cuobjdump -sass``
+(TF32 and other ``HGMMA``, ``HMMA``).  ``--case`` (repeated) keeps the cases whose name holds
 one of the strings given.  Prints one JSON
 object a line, the card's name and power limit first, and writes them
 to ``--out``.  Needs a CUDA card; exits 1 without one.
@@ -64,6 +69,10 @@ CASES = (
      (8, 4096, 2, 64), 64, True, 0.0, 0, None),
     ("train_e2e fp32", "float32", (16, 64, 2, 32), (16, 64, 1, 32), 32, True,
      0.0, 0, None),
+    ("train gemma2-2b fp32", "float32", (4, 4096, 8, 256), (4, 4096, 4, 256),
+     256, True, 50.0, 0, None),
+    ("train deepseek fp32", "float32", (4, 4096, 16, 192),
+     (4, 4096, 16, 192), 128, True, 0.0, 0, 256),
 )
 KERNEL = re.compile(
     r"flash_bwd_(dot|dkdv_wgmma|dq_wgmma|dkdv_tf32|dq_tf32|dkdv|dq)_kernel")
@@ -105,7 +114,7 @@ def child(source: str, iters: int, only: list) -> None:
     sys.path.insert(0, str(ROOT / "src"))
     from chip_smoke import (BF16_FLOPS_PER_S, HBM_BYTES_PER_S,
                             TF32_FLOPS_PER_S, bwd_kernel_bounds, cuda_ms,
-                            sdpa_bwd_ms)
+                            sdpa_backend, sdpa_bwd_ms)
     from repro_torch.kernels import build as kb
     from repro_torch.kernels import flash_attn as fa
 
@@ -167,6 +176,7 @@ def child(source: str, iters: int, only: list) -> None:
                                                                 kw),
                           "of_bound": bound * 1e3 / ms,
                           "sdpa_bwd_ms": sdpa_bwd_ms(torch, q, k, v, do, kw),
+                          "sdpa_backend": sdpa_backend(torch, q, k, v, kw),
                           "bits": digest.hexdigest()[:16]}), flush=True)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
