@@ -277,7 +277,7 @@
    reduction of the same leaves; the report names three sessions; the
    replan's line, after which the reproducible tenant keeps its bits.
 16. Checkpoints, recovery and the flight recorder, through the
-   launcher's ``main`` (``TRAIN_FLAGS`` at ``CKPT_LAYERS``, a 5.80 GB
+   launcher's ``main`` (``TRAIN_FLAGS`` at ``CKPT_LAYERS``, a 3.69 GB
    checkpoint in a temporary directory, removed at the end): 2 steps
    with ``--ckpt-every 2``, the kernel counters set to 0 just before and
    read just after (flash twice a layer a step on the tensor cores,
@@ -413,7 +413,8 @@
    the plain attention, as phase 18 holds TinyLlama; other frames move
    the last prefill logits by more than that tolerance.
 27. mamba2-370m's training step, the first attention-free model: phase
-   9's checks with ``MAMBA_TRAIN_FLAGS`` at all 48 layers (the chunked
+   9's checks with ``MAMBA_TRAIN_FLAGS`` at ``MAMBA_TRAIN_LAYERS`` = 24
+   of 48 layers (the chunked
    SSD, chunk 256), no flash launch, ``tree_reduce_slots`` launched,
    losses finite and falling, the F3 replay, 2 layers with the plain
    attention patched in (which changes nothing).
@@ -428,7 +429,7 @@
    ``MAMBA_SERVE_PROMPT`` and ``MAMBA_SERVE_STEPS`` lockstep decode
    steps, their times and a profile of one step.
 29. zamba2-1.2b's training step, the first hybrid: phase 9's checks with
-   ``ZAMBA_TRAIN_FLAGS`` at ``ZAMBA_TRAIN_LAYERS`` = 30 of 38 layers (5
+   ``ZAMBA_TRAIN_FLAGS`` at ``ZAMBA_TRAIN_LAYERS`` = 12 of 38 layers (2
    groups of 6 mamba layers, each closed by the shared attention block,
    whose uses are one leaf's and sum their gradients; 38 do not fit the
    card): flash once a group
@@ -531,6 +532,35 @@
    partial launch (a global layer) and its last windowed one (a local
    layer) against the plain version as in phase 35 (d); the same
    figures as phase 35.
+
+37. Ranks as processes (``launch/procs.py``, ``mesh.ProcessMesh``): the
+   parent (every library built by phase 1) starts ``PROC_WORLD``
+   processes with ``procs.spawn``, one a rank of the ``2x4`` mesh, all on
+   this one card over gloo (NCCL refuses two ranks on one device; gloo's
+   collectives copy CUDA tensors through the host, and the mesh stages
+   the point-to-point operands itself, so the timings measure host
+   copies and loopback sockets, not an interconnect).  (a) Each
+   draws ``make_grads``' gradients of TinyLlama at ``LAYERS`` layers and
+   keeps its own rank's slice, and reduces them in the network
+   (reproducible: the level's children send their arenas to the switch
+   rank, which alone folds on ``tree_reduce_slots``) and on the wire
+   (``fixed_tree``): every rank's bits (a digest a leaf) equal its slice
+   of the emulated reduction's on the card, the fold launched on the
+   switch ranks (``data`` = 0) and nowhere else; the median of
+   ``PROC_RUNS`` calls (the slowest rank's each) beside the emulated
+   reduction's.  (b) ``launch.train --ranks processes`` with
+   ``TRAIN_FLAGS`` (TinyLlama at published widths, ``PROC_LAYERS`` of
+   22 layers, one 4096-token sequence a rank, FSDP over ``data``, remat
+   ``full``, in the network): two fp32 steps (the TF32 flash kernels)
+   whose losses and gradient norms lie within ``PROC_FP32_RTOL`` of the
+   emulated launcher's same steps, and two bf16 steps (the ``wgmma``
+   kernels), finite, printed beside the emulated run's; each process
+   counts its launches of the flash forward and backward (set to 0
+   before its run, read after), every one of them nonzero, and of the
+   fold, nonzero on the switch ranks.  (c) NCCL asked for with two ranks
+   on this card raises before any process group forms.  It runs right
+   after phase 1's build, while the parent holds next to nothing on the
+   card, which its eight processes share.
 
 Phases 18–36 run under ``decode_gate``: every flash launch goes through
 a check that a bf16 decode-shaped one moved the bf16 decode kernel's
@@ -656,9 +686,11 @@ TENANT_LAYERS = 8
 #: timed steps of every job, after one warm-up step
 TENANT_STEPS = 2
 #: phase 16: the launcher's in-network reproducible step (``TRAIN_FLAGS``)
-#: at this depth holds 483,428,352 parameters, a 5.80 GB checkpoint (fp32
-#: parameters and both Adam moments)
-CKPT_LAYERS = 8
+#: at this depth holds 307,251,200 parameters, a 3.69 GB checkpoint (fp32
+#: parameters and both Adam moments); cut from 8 layers to make room for
+#: phase 37 (the save and restore of 8 took 28.4 s on an NVIDIA H100
+#: 80GB HBM3 at 700 W)
+CKPT_LAYERS = 4
 #: timed steps of phase 16's flight-recorder runs, after one warm-up step
 OBS_STEPS = 3
 #: the at-scale tenants of phase 15 on (2, 4): name, (B, S), FlareConfig
@@ -742,16 +774,20 @@ WHISPER_TRAIN_LAYERS = 24
 #: grown to this many positions, lockstep decode steps
 WSP_SERVE_B, WSP_SERVE_PROMPT, WSP_SERVE_CACHE, WSP_SERVE_STEPS = (
     8, 1024, 1024 + 32, 32)
-#: phase 27: mamba2-370m's training step, ``TRAIN_FLAGS`` with its arch,
-#: at all 48 layers (the SSD's chunk of 256 divides the 4096 tokens)
+#: phase 27: mamba2-370m's training step, ``TRAIN_FLAGS`` with its arch
+#: (the SSD's chunk of 256 divides the 4096 tokens), cut from all 48
+#: layers to 24 to make room for phase 37 in the script's time (a step
+#: took 3.68 s at 48 layers on an NVIDIA H100 80GB HBM3 at 700 W)
 MAMBA_TRAIN_FLAGS = [*TRAIN_FLAGS, "--arch", "mamba2-370m"]
-MAMBA_TRAIN_LAYERS = 48
+MAMBA_TRAIN_LAYERS = 24
 #: phase 28: mamba2-370m in fp32 at published widths: prompts, prompt
 #: length (two chunks of 256) and depth for the chunked prefill against
 #: the same tokens fed one at a time through ``decode_step`` (the
 #: recurrent path).  Depth cut from 48: the feed is host-bound, 73 ms a
-#: step at 48 layers on an H100, 37.5 s for the 512 steps
-MAMBA_FEED_B, MAMBA_FEED_PROMPT, MAMBA_FEED_LAYERS = 4, 512, 16
+#: step at 48 layers on an H100, 37.5 s for the 512 steps; from 16 to 8
+#: to make room for phase 37 (16.1 s at 16 on an NVIDIA H100 80GB HBM3
+#: at 700 W)
+MAMBA_FEED_B, MAMBA_FEED_PROMPT, MAMBA_FEED_LAYERS = 4, 512, 8
 #: phase 28: the chunked prefill's last logits within this share of
 #: max|logit| of the recurrent feed's (``tests/test_models.py::
 #: test_mamba_chunked_equals_recurrent``'s bound on the reference)
@@ -768,8 +804,10 @@ MAMBA_SERVE_B, MAMBA_SERVE_PROMPT, MAMBA_SERVE_STEPS = 16, 1024, 32
 #: pods hold (37.5 GB at 38 layers): 38 layers ran out of the card's
 #: memory in the first forward, 30 peak at 65.87 GiB, and a sixth group
 #: would add about 11 GB (measured on one H100)
+#: Cut again to 2 groups to make room for phase 37 in the script's time
+#: (a step took 4.29 s at 30 layers on an NVIDIA H100 80GB HBM3 at 700 W)
 ZAMBA_TRAIN_FLAGS = [*TRAIN_FLAGS, "--arch", "zamba2-1.2b"]
-ZAMBA_TRAIN_LAYERS = 30
+ZAMBA_TRAIN_LAYERS = 12
 #: phase 29's step against the plain attention: one group (at
 #: ``COMPARE_LAYERS`` zamba2 has no attention to compare)
 ZAMBA_COMPARE_LAYERS = 6
@@ -846,6 +884,24 @@ SHARD_FP32_LAYERS, SHARD_FP32_STEPS, SHARD_FP32_TOL = 2, 4, 1e-4
 GEMMA_SHARD_B, GEMMA_SHARD_POS = 8, 5000
 GEMMA_SHARD_CACHE, GEMMA_SHARD_STEPS = 8192, 16
 GEMMA_SHARD_MESH = (1, 1, 8)
+
+
+#: phase 37: ranks as processes on the one card (gloo), the mesh, the
+#: depth of its train steps (TinyLlama's published widths), the timed
+#: calls of each reduction (the first, checked one among them), the
+#: tolerance of the fp32 steps against the emulated ones and the time
+#: limit of the children
+PROC_MESH = (2, 4)
+PROC_WORLD = 8
+PROC_LAYERS = 2
+PROC_RUNS = 3
+PROC_FP32_RTOL = 1e-5
+PROC_TIMEOUT = 600.0
+#: the reductions of phase 37 (a), reproducible both
+PROC_REDUCTIONS = (("innetwork", dict(transport="innetwork",
+                                      reproducible=True)),
+                   ("wire fixed_tree", dict(algorithm="fixed_tree",
+                                            reproducible=True)))
 
 
 def flash_per_call(cfg, kind: str) -> int:
@@ -1319,6 +1375,230 @@ def make_grads(torch, tree, transformer, cfg, mesh_shape, seed):
     return tree.map_leaves(
         lambda p: torch.randn((*mesh_shape, *p.shape), generator=gen,
                               device="cuda"), params)
+
+
+def own_grads(torch, tree, transformer, cfg, mesh, seed):
+    """``make_grads``' gradients as one rank of ``mesh`` (a
+    ``ProcessMesh``) holds them: the same draws on the card, leaf by
+    leaf, this rank's slice of each kept (``mesh.own``)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    leaves, spec = tree.flatten(transformer.init_params(cfg, gen))
+    shapes = [tuple(l.shape) for l in leaves]
+    del leaves
+    own = []
+    for shape in shapes:
+        full = torch.randn((*mesh.shape, *shape), generator=gen,
+                           device="cuda")
+        own.append(mesh.own(full).clone())
+        del full
+    return tree.unflatten(spec, own)
+
+
+def proc_rank(seed: int) -> dict:
+    """One rank of phase 37, in a process of its own (``procs.spawn``):
+    the reductions of (a) and the train steps of (b), each with its
+    launch counters set to 0 just before and read just after.  Returns
+    what the parent checks: digests, times, launches, losses."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.configs import tinyllama_1_1b as tl
+    from repro_torch.core.engine import FlareConfig, GradReducer
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import tree_reduce as tr
+    from repro_torch.launch import procs
+    from repro_torch.launch import train as launch
+    from repro_torch.mesh import AXES
+    from repro_torch.models import transformer
+
+    mesh, _ = procs.setup(PROC_MESH, AXES, device="cuda", backend="gloo")
+    out = {"rank": mesh.rank, "coords": mesh.coords}
+    grads = own_grads(torch, tree, transformer,
+                      tl.CONFIG.scaled(n_layers=LAYERS), mesh, seed)
+    for name, kw in PROC_REDUCTIONS:
+        red = GradReducer(FlareConfig(axes=AXES, **kw), mesh)
+        got = {"ms": []}
+        for i in range(PROC_RUNS):
+            dist.barrier()
+            torch.cuda.synchronize()
+            tr.launches = 0
+            t0 = time.perf_counter()
+            res, _ = red(grads)
+            torch.cuda.synchronize()
+            got["ms"].append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                got["launches"] = tr.launches
+                got["digests"] = [digest(torch, [l])
+                                  for l in tree.flatten(res)[0]]
+            del res
+        out[name] = got
+    del grads
+    torch.cuda.empty_cache()
+    for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.tc_launches = fa.fp32_launches = 0
+        fa.bwd_launches = fa.bwd_tf32_launches = tr.launches = 0
+        run = launch.setup(TRAIN_FLAGS + ["--ranks", "processes"],
+                           n_layers=PROC_LAYERS, dtype=dtype)
+        got = {"losses": [], "norms": [], "ms": []}
+        for _ in range(2):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = run.train_step()
+            got["losses"].append(float(m["loss"]))
+            got["norms"].append(float(m["grad_norm"]))
+            got["ms"].append((time.perf_counter() - t0) * 1e3)
+        got["launches"] = dict(
+            forward=fa.fp32_launches if label == "fp32" else fa.tc_launches,
+            all_forward=fa.launches, backward=fa.bwd_launches,
+            backward_tf32=fa.bwd_tf32_launches, fold=tr.launches)
+        got["peak"] = torch.cuda.max_memory_allocated()
+        out[label] = got
+        del run
+        torch.cuda.empty_cache()
+    procs.teardown()
+    return out
+
+
+def phase_processes(torch, card, cfg, seed) -> dict:
+    """Phase 37 (module docstring): the emulated references on the card,
+    NCCL's refusal, then ``PROC_WORLD`` processes on the card.  Returns
+    the figures of the phase's JSON line."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.core.engine import FlareConfig, GradReducer
+    from repro_torch.launch import procs
+    from repro_torch.mesh import AXES, RankMesh
+    from repro_torch.models import transformer
+
+    t_phase = time.perf_counter()
+    mesh = RankMesh(PROC_MESH, AXES)
+    coords = list(itertools.product(*map(range, PROC_MESH)))
+    grads = make_grads(torch, tree, transformer, cfg, PROC_MESH, seed)
+    want, emu_ms = {}, {}
+    for name, kw in PROC_REDUCTIONS:
+        red = GradReducer(FlareConfig(axes=AXES, **kw), mesh)
+        res, _ = red(grads)
+        want[name] = [[digest(torch, [l[c]]) for l in tree.flatten(res)[0]]
+                      for c in coords]
+        del res
+        emu_ms[name] = timed(torch, lambda: red(grads), PROC_RUNS)
+    del grads, red
+    emu = {label: steps_of(torch, TRAIN_FLAGS, PROC_LAYERS, 2, dtype=dtype)
+           for label, dtype in (("fp32", torch.float32),
+                                ("bf16", torch.bfloat16))}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # (c) NCCL refuses two ranks on one card before any group forms
+    env = dict(RANK="0", WORLD_SIZE="2", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="2")
+    with mock.patch.dict(os.environ, env):
+        try:
+            procs.setup((2,), ("data",), device="cuda", backend="nccl")
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+    check(refused is not None and not dist.is_initialized(),
+          "nccl with two ranks on one card did not raise before forming a "
+          "process group")
+
+    print(f"phase 37: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated here ({torch.cuda.memory_reserved() / 2**30:.2f} "
+          f"reserved) as {PROC_WORLD} processes start")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = procs.spawn(proc_rank, PROC_WORLD, "gloo",
+                            str(Path(tmp) / "store"), (seed,),
+                            timeout=PROC_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+
+    figures = {}
+    for name, _ in PROC_REDUCTIONS:
+        for c, got in zip(coords, ranks):
+            check(got[name]["digests"] == want[name][coords.index(c)],
+                  f"processes: {name} on rank {c} != its slice of the "
+                  "emulated reduction")
+            switch = name == "innetwork" and c[1] == 0
+            check((got[name]["launches"] > 0) == switch,
+                  f"processes: {name} on rank {c} launched the fold "
+                  f"{got[name]['launches']} times (switch rank: {switch})")
+        calls = [max(r[name]["ms"][i] for r in ranks)
+                 for i in range(PROC_RUNS)]
+        figures[name] = dict(
+            ms=statistics.median(calls), calls_ms=calls,
+            emulated_ms=emu_ms[name][0],
+            fold_launches=[r[name]["launches"] for r in ranks])
+        print(f"processes: {name} reduction of TinyLlama's {LAYERS}-layer "
+              f"gradients on {PROC_MESH}, {PROC_WORLD} processes: every "
+              f"rank's bits == its slice of the emulated reduction (a digest "
+              f"a leaf); fold launches by rank "
+              f"{figures[name]['fold_launches']}; ms (median of "
+              f"{PROC_RUNS}, the slowest rank's each, gloo on one card, "
+              f"staged through the host) {figures[name]['ms']:.1f} (calls "
+              f"{[round(t, 1) for t in calls]}); emulated on the card "
+              f"{emu_ms[name][0]:.3f} [{card}]")
+
+    for label in ("fp32", "bf16"):
+        e = emu[label]
+        for c, got in zip(coords, ranks):
+            g = got[label]
+            lc = g["launches"]
+            check(lc["forward"] > 0 and lc["backward"] > 0
+                  and lc["forward"] == lc["all_forward"],
+                  f"processes {label} step on rank {c}: launches {lc}")
+            if label == "fp32":
+                check(lc["backward_tf32"] == lc["backward"],
+                      f"processes fp32 on rank {c}: backward off the TF32 "
+                      f"kernels {lc}")
+            check((lc["fold"] > 0) == (c[1] == 0),
+                  f"processes {label} on rank {c}: fold launches "
+                  f"{lc['fold']}")
+            vals = g["losses"] + g["norms"]
+            check(all(map(math.isfinite, vals)),
+                  f"processes {label} on rank {c}: {vals}")
+            if label == "fp32":
+                rel = max(abs(a - b) / abs(b) for a, b in zip(
+                    vals, e["losses"] + e["norms"]))
+                check(rel <= PROC_FP32_RTOL,
+                      f"processes fp32 on rank {c}: {rel} from the emulated "
+                      "steps")
+        steps = [max(r[label]["ms"][i] for r in ranks) for i in range(2)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            ranks[0][label]["losses"] + ranks[0][label]["norms"],
+            e["losses"] + e["norms"]))
+        figures[f"train {label}"] = dict(
+            losses=ranks[0][label]["losses"], norms=ranks[0][label]["norms"],
+            emulated_losses=e["losses"], emulated_norms=e["norms"],
+            worst_rel=rel, step_ms=steps, emulated_step_ms=e["step_ms"],
+            launches=[r[label]["launches"] for r in ranks],
+            peak_gib=max(r[label]["peak"] for r in ranks) / 2**30)
+        print(f"processes: launch.train --ranks processes, {label}, "
+              f"TinyLlama at {PROC_LAYERS} of 22 layers, {PROC_MESH}, one "
+              f"4096-token sequence a rank, 2 steps: losses "
+              f"{ranks[0][label]['losses']} norms {ranks[0][label]['norms']}"
+              f" (every rank the same); emulated losses {e['losses']} norms "
+              f"{e['norms']}; worst relative {rel:.2e}"
+              + (f" (tolerance {PROC_FP32_RTOL})" if label == "fp32" else "")
+              + f"; step ms (the slowest rank's, gloo staged through the "
+              f"host) {[round(t, 1) for t in steps]}, emulated "
+              f"{e['step_ms']:.1f}; per process launches "
+              f"{ranks[0][label]['launches']} (rank 0), fold by rank "
+              f"{[r[label]['launches']['fold'] for r in ranks]}; peak a "
+              f"process {figures[f'train {label}']['peak_gib']:.2f} GiB "
+              f"[{card}]")
+    print(f"processes: nccl with two ranks on one card raised before any "
+          f"group formed: {refused!r}")
+    print(f"phase 37: {PROC_WORLD} processes {spawn_s:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return figures
 
 
 def check_against_fp64(torch, grads, out, lead) -> float:
@@ -6405,6 +6685,10 @@ def main() -> int:
 
     phase_build(kb, [tr.SOURCE, qt.SOURCE, sa.SOURCE, fa.SOURCE,
                      fa.BWD_SOURCE])
+    # phase 37 first, while this process holds next to nothing on the card
+    # (eight processes share it)
+    print(json.dumps({"processes": phase_processes(
+        torch, card, tl.CONFIG.scaled(n_layers=LAYERS), args.seed)}))
     phase_kernel_vs_plain(torch, ops)
     phase_quant_vs_plain(torch, ops, qt)
     phase_sparse_vs_plain(torch, ops, tk, sa, sparse)

@@ -240,9 +240,10 @@ class GradReducer:
     def _leaves(self, grads: Any, state: Any):
         leaves, spec = tree.flatten(grads)
         for l in leaves:
-            if tuple(l.shape[:self.mesh.ndim]) != self.mesh.shape:
+            if tuple(l.shape[:self.mesh.ndim]) != self.mesh.lead:
                 raise ValueError(f"leaf {tuple(l.shape)} does not lead with "
-                                 f"the mesh shape {self.mesh.shape}")
+                                 f"the mesh shape's rank dims "
+                                 f"{self.mesh.lead}")
         ef_leaves = tree.flatten(state)[0] if state is not None else None
         return leaves, spec, ef_leaves
 

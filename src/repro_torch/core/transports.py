@@ -52,7 +52,7 @@ import torch
 
 from repro_torch.core import collectives as coll, compression, sparse
 from repro_torch.core import topology
-from repro_torch.mesh import RankMesh
+from repro_torch.mesh import RankMesh, require_emulated
 from repro_torch.switch import dataplane
 
 #: Quantization block of the int8 transport (folded into the arena pad).
@@ -172,6 +172,9 @@ class Int8Transport(Transport):
 
     block: int = QUANT_BLOCK
 
+    def __post_init__(self):
+        require_emulated(self.mesh, "Int8Transport", 19)
+
     def _allreduce(self, v: torch.Tensor) -> torch.Tensor:
         *outer_axes, inner = self.axes
         if self._use_hierarchy() and outer_axes:
@@ -203,6 +206,9 @@ class SparseTransport(Transport):
 
     k_frac: float = 0.01
     density_threshold: float = 0.25
+
+    def __post_init__(self):
+        require_emulated(self.mesh, "SparseTransport", 20)
 
     def _hier(self) -> bool:
         *outer_axes, inner = self.axes
@@ -296,6 +302,15 @@ class SwitchTransport(Transport):
     manager: Any = dataclasses.field(default=None, compare=False)
     tenant: str | None = None
     fault_plan: Any = None
+
+    def __post_init__(self):
+        """On a ``ProcessMesh`` a fault plan (which may degrade to the
+        wire) and a shared switch raise here; the planes raise for the
+        int8 and sparse modes and the per-packet plane."""
+        if self.fault_plan is not None:
+            require_emulated(self.mesh, "the lossy fabric (fault_plan)", 21)
+        if self.manager is not None:
+            require_emulated(self.mesh, "a shared switch (manager=)", 22)
 
     def _ks(self, extents: Sequence[int]) -> tuple[int, ...] | None:
         """Each bucket's top-k of its unpadded extent (sparse mode)."""

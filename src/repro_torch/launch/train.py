@@ -67,6 +67,21 @@ applies the SLO policy's remediations to the shared switch::
         --mesh 2x4x1 --device cpu --tenants 3 --health-policy auto \
         --incidents-out /tmp/incidents.json
 
+``--ranks processes`` runs one process a rank instead of the emulated
+ranks (``launch/procs.py``: a ``ProcessMesh`` over ``torch.distributed``)
+under torchrun, whose ``WORLD_SIZE`` must be the product of ``--mesh``.
+Every process draws the same seeded parameters and global batches and
+keeps its own rank's slice of them (``rules.shard_params``,
+``rules.split_batch``), so the ranks' union is the emulated run's input;
+rank 0 alone prints and exports.  ``--backend gloo`` (the default) runs
+the ranks on the CPU or all on ``cuda:0``; ``nccl`` one a card.  The
+lossy fabric, the int8 and sparse transports, ``--tenants`` and
+``--ckpt-dir`` raise there, naming their ROADMAP item::
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train --smoke \
+        --steps 2 --mesh 2x4x1 --device cpu --ranks processes \
+        --transport innetwork --reproducible
+
 ``--mesh PxDxM`` with ``M`` > 1 trains tensor- and expert-parallel over
 ``model`` (``core.tp``): a rank's heads, FFN columns, experts and
 vocabulary rows, the gradients reduced over ``(pod, data)`` with each
@@ -110,6 +125,16 @@ def _parse(argv=None):
     ap.add_argument("--device", type=str, default="cuda",
                     choices=("cuda", "cpu"),
                     help="where the ranks run (cpu: tests and bring-up)")
+    ap.add_argument("--ranks", type=str, default="emulated",
+                    choices=("emulated", "processes"),
+                    help="emulated: every rank in this process, as leading "
+                         "tensor axes; processes: this process is one rank "
+                         "of a torchrun job (WORLD_SIZE = the mesh's ranks)")
+    ap.add_argument("--backend", type=str, default="gloo",
+                    choices=("gloo", "nccl"),
+                    help="the process groups' backend with --ranks "
+                         "processes: gloo (the CPU, or every rank on one "
+                         "card) or nccl (one card a rank)")
     ap.add_argument("--fault-rate", type=float, default=0.0,
                     help="per-packet drop probability of the injected "
                          "lossy fabric (needs --transport innetwork).  "
@@ -172,6 +197,13 @@ def _parse(argv=None):
 
 
 def _check_flags(args) -> None:
+    if args.ranks == "processes":
+        from repro_torch.mesh import unported
+        for on, what, item in ((args.tenants > 1, "--tenants", 22),
+                               (args.ckpt_dir, "--ckpt-dir", 23),
+                               (args.fault_rate, "--fault-rate", 21)):
+            if on:
+                raise unported(what, item)
     if args.congestion_replan > 0 and args.tenants <= 1:
         sys.exit("--congestion-replan re-plans the shared switch's "
                  "sessions; it needs --tenants > 1")
@@ -430,6 +462,11 @@ def setup(argv=None, **overrides) -> Run:
         raise ValueError("--tenants > 1 builds several jobs: use "
                          "setup_tenants")
     dev, mcfg, cfg, model = _prepare(args, overrides)
+    if args.ranks == "processes":
+        from repro_torch.launch import procs
+        rm = mcfg.rank_mesh()
+        dev = procs.setup(rm.shape, rm.axes, device=args.device,
+                          backend=args.backend)[1]
     telemetry = _telemetry(args)
     tcfg = train_config(args, mcfg, telemetry)
     return _job(args, dev, mcfg, cfg, model, tcfg, init_seed=0, data_seed=1,
@@ -556,15 +593,20 @@ def main(argv=None, **overrides) -> list:
     fields of the model config, as in :func:`setup`."""
     if _parse(argv).tenants > 1:
         return _run_tenants(argv, **overrides)
+    from repro_torch.launch import procs
     run = setup(argv, **overrides)
     args, cfg = run.args, run.cfg
+    root = procs.is_root()
     where = args.device
     if args.device == "cuda":
         import torch
         where += f" ({torch.cuda.get_device_name(0)})"
-    print(f"{cfg.name}: {cfg.n_layers} layers, mesh "
-          f"{dict(zip(run.mesh.axes, run.mesh.shape))} on {where}",
-          flush=True)
+    if args.ranks == "processes":
+        where += f", one process a rank ({args.backend})"
+    if root:
+        print(f"{cfg.name}: {cfg.n_layers} layers, mesh "
+              f"{dict(zip(run.mesh.axes, run.mesh.shape))} on {where}",
+              flush=True)
     start, cm = 0, None
     if args.ckpt_dir:
         from repro_torch.ft import CheckpointManager
@@ -581,15 +623,19 @@ def main(argv=None, **overrides) -> list:
             metrics = run.train_step(batch)
             loss = float(metrics["loss"])
         losses.append(loss)
-        print(f"step {i:5d} loss {loss:8.4f} "
-              f"gnorm {float(metrics['grad_norm']):8.3f} "
-              f"dt {time.time() - t0:6.3f}s", flush=True)
+        if root:
+            print(f"step {i:5d} loss {loss:8.4f} "
+                  f"gnorm {float(metrics['grad_norm']):8.3f} "
+                  f"dt {time.time() - t0:6.3f}s", flush=True)
         if cm and args.ckpt_every and (i + 1) % args.ckpt_every == 0:
             cm.save(i + 1, run.state())
     if cm:
         cm.wait()
-    _health(args, run.telemetry)
-    _export(args, run.telemetry)
+    if root:
+        _health(args, run.telemetry)
+        _export(args, run.telemetry)
+    if args.ranks == "processes":
+        procs.teardown()
     return losses
 
 

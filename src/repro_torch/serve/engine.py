@@ -37,6 +37,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core import tp
+from repro_torch.mesh import require_emulated
 from repro_torch.models import base
 from repro_torch.models.registry import abstract_params
 from repro_torch.sharding import rules
@@ -109,7 +110,8 @@ def make_serve_fns(model, mesh_cfg: rules.MeshCfg, *, cache_batch: int,
     ``device`` is where the steps run (the card by default; there is no
     fallback to the CPU).  The FSDP gathers take the rhd schedule, the
     trainer's default (forward only: every schedule gives the same
-    bits)."""
+    bits).  Serving on a ``ProcessMesh`` raises."""
+    require_emulated(mesh_cfg.rank_mesh(), "serving (make_serve_fns)", 24)
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("make_serve_fns: no CUDA device (pass "

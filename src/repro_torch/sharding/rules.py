@@ -40,7 +40,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core import fsdp as fsdp_mod
-from repro_torch.mesh import RankMesh
+from repro_torch.mesh import ProcessMesh, RankMesh, active, require_emulated
 
 #: leading-axis-stacked parameter collections (per-layer stacks)
 STACKED_ROOTS = frozenset({
@@ -80,12 +80,22 @@ class MeshCfg:
         return math.prod(s for a, s in zip(self.axes, self.shape)
                          if a != "model")
 
-    def rank_mesh(self) -> RankMesh:
+    def rank_mesh(self) -> RankMesh | ProcessMesh:
         """The port's rank mesh: the reduction axes, and ``model`` last
-        where it is larger than 1."""
+        where it is larger than 1.  The ``ProcessMesh`` this thread has
+        activated (``mesh.activate``, ``launch/procs.py``) where there is
+        one, which must have those axes and sizes; else the emulated
+        ``RankMesh``."""
         axes = self.reduce_axes + (("model",) if self.tp > 1 else ())
-        return RankMesh(tuple(self.shape[self.axes.index(a)] for a in axes),
-                        axes)
+        shape = tuple(self.shape[self.axes.index(a)] for a in axes)
+        pm = active()
+        if pm is None:
+            return RankMesh(shape, axes)
+        if (pm.shape, pm.axes) != (shape, axes):
+            raise ValueError(f"the active ProcessMesh {pm.shape} over "
+                             f"{pm.axes} is not this mesh's {shape} over "
+                             f"{axes}")
+        return pm
 
 
 #: leaf name → (tp_dim, fsdp_dim) for 2D weights
@@ -262,12 +272,24 @@ def _join(x: torch.Tensor, d: int, off: int) -> torch.Tensor:
     return x[0] if d < 0 else torch.cat(x.unbind(0), dim=d + off)
 
 
+def _own(rmesh, x: torch.Tensor) -> torch.Tensor:
+    """An every-rank tensor ``(*mesh, *local)`` as the ranks of this
+    program hold it, in storage of their own: all of it on the rank
+    axes, this rank's block ``(*lead, *local)`` on a ``ProcessMesh``."""
+    own = rmesh.own(x)
+    if own is x:
+        return x.contiguous()
+    return own.clone(memory_format=torch.contiguous_format)
+
+
 def shard_params(params: Any, mesh: MeshCfg) -> Any:
     """Global leaves → every rank's own copy, ``(*mesh, *local)``: data
     rank ``d`` holds block ``d`` of each FSDP dim, ``model`` rank ``m``
     block ``m`` of each TP dim, every pod the same; replicated leaves
-    are copied to every rank."""
-    pods = mesh.rank_mesh().shape[:len(mesh.reduce_axes) - 1]
+    are copied to every rank.  On a ``ProcessMesh``, this rank's copy
+    alone, ``(*lead, *local)``."""
+    rmesh = mesh.rank_mesh()
+    pods = rmesh.shape[:len(mesh.reduce_axes) - 1]
 
     def f(path, leaf):
         _, stacked = _leaf_name(path)
@@ -276,7 +298,7 @@ def shard_params(params: Any, mesh: MeshCfg) -> Any:
         if mesh.tp > 1:                          # (data, model, *local)
             per = torch.stack([_split(b, tp_dim, mesh.tp, int(stacked))
                                for b in per.unbind(0)])
-        return per.expand(*pods, *per.shape).contiguous()
+        return _own(rmesh, per.expand(*pods, *per.shape))
     return tree.map_with_path(f, params)
 
 
@@ -284,11 +306,13 @@ def replicate(x: torch.Tensor, mesh: MeshCfg, tp_dim: int = -1
               ) -> torch.Tensor:
     """A global tensor on every rank, ``(*mesh, *local)``: the same on
     every ``(pod, data)`` rank, split on ``tp_dim`` (of ``x``) over
-    ``model`` where that is given and ``model`` > 1."""
+    ``model`` where that is given and ``model`` > 1 (this rank's alone on
+    a ``ProcessMesh``)."""
     if mesh.tp > 1:
         x = _split(x, None if tp_dim < 0 else tp_dim, mesh.tp, 0)
-    red = mesh.rank_mesh().shape[:len(mesh.reduce_axes)]
-    return x.expand(*red, *x.shape).contiguous()
+    rmesh = mesh.rank_mesh()
+    red = rmesh.shape[:len(mesh.reduce_axes)]
+    return _own(rmesh, x.expand(*red, *x.shape))
 
 
 def unshard_params(params: Any, mesh: MeshCfg, dims: Any,
@@ -309,6 +333,8 @@ def unshard_params(params: Any, mesh: MeshCfg, dims: Any,
     """
     if mesh.tp > 1 and tp_dims is None:
         raise ValueError("unshard_params at model > 1 needs tp_dims")
+    require_emulated(mesh.rank_mesh(), "unshard_params (the global state "
+                     "of a checkpoint)", 23)
     pods = mesh.rank_mesh().ndim - (2 if mesh.tp > 1 else 1)
 
     def f(path, leaf, d, t):
@@ -423,8 +449,16 @@ def _place(x: torch.Tensor, spec: Spec, mesh: MeshCfg) -> torch.Tensor:
     flattened (pod, data) axes the ``r``-th; one split over ``data``
     alone the same for every pod; one split over ``model`` in blocks
     over the ``model`` ranks; the rest whole on every rank.  A view where
-    one can be (``expand``s share storage)."""
-    red = mesh.rank_mesh().shape[:len(mesh.reduce_axes)]
+    one can be (``expand``s share storage).  On a ``ProcessMesh`` this
+    rank's block alone, ``(*lead, *local)``."""
+    rmesh = mesh.rank_mesh()
+    return rmesh.own(_place_all(x, spec, mesh, rmesh.shape))
+
+
+def _place_all(x: torch.Tensor, spec: Spec, mesh: MeshCfg,
+               rank_shape: tuple[int, ...]) -> torch.Tensor:
+    """:func:`_place` on every rank, ``(*mesh, *local)``."""
+    red = rank_shape[:len(mesh.reduce_axes)]
     nred = len(red)
     bd = next((d for d in range(x.dim())
                if set(spec.axes(d)) & {"pod", "data"}), None)

@@ -57,7 +57,7 @@ import torch
 
 from repro_torch.core import compression, sparse, topology
 from repro_torch.kernels import ops
-from repro_torch.mesh import RankMesh
+from repro_torch.mesh import RankMesh, require_emulated
 from repro_torch.perfmodel import switch_model as sm
 from repro_torch.switch import handlers as hd
 from repro_torch.switch import packets as pk
@@ -167,19 +167,6 @@ def _multicast(x: torch.Tensor, mesh: RankMesh, axis: str,
     return x
 
 
-def _multicast_root(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
-    """Root multicast down every level: every rank takes the result of
-    the switch above it.  ``x`` lies on the collapsed mesh (size 1 on
-    each reduced axis).
-
-    The result is a broadcast view: the ranks share one copy of the
-    reduced arena (cloned, so the level buffers are released), the way
-    every rank holds the same bits after the multicast.
-    """
-    return x.clone(memory_format=torch.contiguous_format).expand(
-        mesh.shape + tuple(x.shape[mesh.ndim:]))
-
-
 # ---------------------------------------------------------------------------
 # Arrival permutations and header steering.
 # ---------------------------------------------------------------------------
@@ -257,9 +244,10 @@ def _budget_exceeded(sched: pk.FaultSchedule) -> FaultBudgetExceeded:
 
 
 def _new_fault_stats(mesh: RankMesh, device) -> dict:
-    """Per-rank fault counters, ``mesh``-shaped int32: every rank counts
-    every level's ingress, as every rank replays it in the reference."""
-    return {k: torch.zeros(mesh.shape, dtype=torch.int32, device=device)
+    """Per-rank fault counters, int32 of the mesh's rank dims
+    (``mesh.lead``): every rank counts every level's ingress, as every
+    rank replays it in the reference."""
+    return {k: torch.zeros(mesh.lead, dtype=torch.int32, device=device)
             for k in ("retransmits", "duplicates_dropped",
                       "corrupt_rejected", "delivered", "wait_rounds")}
 
@@ -538,11 +526,16 @@ def _dense_level_batched(arena: torch.Tensor, mesh: RankMesh,
     the switches' aggregates on ``mesh.collapse(lvl.axis)``.  Every other
     rank's result would be masked to zero and overwritten by the
     multicast, so it is neither folded nor stored; at the switch ranks
-    the bits are those of ``_dense_level``.
+    the bits are those of ``_dense_level``.  On a ``ProcessMesh`` the
+    children send their packed arenas to the switch rank, which folds its
+    one group (``G = 1``); a child that is not the switch gets ``None``.
     """
     ctx = {"dtype": arena.dtype}
+    up = mesh.collapse(lvl.axis, lvl.switch_rank)
     stack = mesh.group_stack(plan.pack(arena), lvl.axis,
                              lvl.switch_rank)                 # (G, P, n, E)
+    if stack is None:
+        return None, up
     stack = _admit(stack, fault, fault_stats)
     order = _net_order(handler, arrival, lvl.fanin, plan.num_packets)
     if order is not None:
@@ -551,8 +544,7 @@ def _dense_level_batched(arena: torch.Tensor, mesh: RankMesh,
     agg, _ = handler.payload_handler(stack, None, design, n_bufs, ctx)
     del stack           # release the packed copy before the level's output
     out = plan.unpack(handler.completion_handler(agg, ctx))   # (G, B, S)
-    up = mesh.collapse(lvl.axis)
-    return out.reshape(up.shape + tuple(out.shape[1:])), up
+    return out.reshape(up.lead + tuple(out.shape[1:])), up
 
 
 def switch_allreduce_dense(arena: torch.Tensor, mesh: RankMesh,
@@ -577,9 +569,17 @@ def switch_allreduce_dense(arena: torch.Tensor, mesh: RankMesh,
     ``fault_plan`` replays a deterministic lossy fabric on every up-hop;
     a surviving plan leaves the result bitwise the fault-free one.
     ``with_fault_stats`` returns ``(out, fstats)``: the retry and
-    rejection counters, ``mesh``-shaped int32.  ``telemetry`` records
-    the phases under ``tenant`` (``_PlaneObs``).
+    rejection counters, int32 of the mesh's rank dims.  ``telemetry``
+    records the phases under ``tenant`` (``_PlaneObs``).
+
+    On a ``ProcessMesh`` the batched plane runs as the switch's own
+    traffic (``ProcessMesh.group_stack``, ``multicast``); the lossy
+    fabric and the per-packet plane raise there.
     """
+    if fault_plan is not None:
+        require_emulated(mesh, "the lossy fabric (fault_plan)", 21)
+    if not batched:
+        require_emulated(mesh, "the per-packet plane (batched=False)", 25)
     b, s = arena.shape[-2:]
     handler = hd.get_handler("fixed_tree" if reproducible else "dense_sum")
     design, n_bufs = resolve_design(s * arena.element_size(), design,
@@ -598,12 +598,14 @@ def switch_allreduce_dense(arena: torch.Tensor, mesh: RankMesh,
         held = mesh
         for i, lvl in enumerate(levels):
             arrival = arrival_perms[i] if arrival_perms is not None else None
+            if not held.holds:          # a child of a lower switch
+                continue
             with obs(f"plane.l{i + 1}", mode="dense", fanin=lvl.fanin):
                 cur, held = _dense_level_batched(cur, held, lvl, handler,
                                                  design, n_bufs, plan,
                                                  arrival, faults[i], fstats)
         with obs("plane.multicast", mode="dense"):
-            cur = _multicast_root(cur, mesh)
+            cur = mesh.multicast(cur, held, arena)
     else:
         for i, lvl in enumerate(levels):
             arrival = arrival_perms[i] if arrival_perms is not None else None
@@ -722,6 +724,7 @@ def switch_allreduce_int8(arena: torch.Tensor, mesh: RankMesh,
     ``with_fault_stats``, ``telemetry`` and ``tenant`` as in
     ``switch_allreduce_dense``.
     """
+    require_emulated(mesh, "switch_allreduce_int8", 19)
     b, s0 = arena.shape[-2:]
     handler = hd.get_handler("int8_dequant")
     sfmt = _scales_format(fmt, block)
@@ -922,6 +925,7 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
     appends the fault counters (``mesh``-shaped int32) last.
     ``telemetry`` and ``tenant`` as in ``switch_allreduce_dense``.
     """
+    require_emulated(mesh, "switch_allreduce_sparse", 20)
     b, s = arena.shape[-2:]
     handler = hd.get_handler("sparse_merge")
     ks = tuple(int(k) for k in (ks if hasattr(ks, "__len__") else [ks] * b))

@@ -32,6 +32,12 @@ replicated over ``model`` the whole gradient, the same on every
 over ``(pod, data)``, each ``model`` rank's shard as a group of its own;
 the gradient norm counts a TP leaf over ``model`` and a replicated one
 once; the loss is summed over ``(pod, data)``.
+
+With a ``sharding.rules.MeshCfg`` whose ``rank_mesh`` is a
+``ProcessMesh`` (one process a rank, ``launch/procs.py``) the same step
+runs in every process on its own rank's tensors, ``(1, 1, *local)``
+(``mesh.lead``): the collectives go through ``torch.distributed``, and
+every rank's result is its slice of the emulated step's.
 """
 from __future__ import annotations
 
@@ -175,7 +181,7 @@ def make_train_step(model, mesh_cfg: rules.MeshCfg, tcfg: TrainConfig,
                 g_leaves[i] = r
 
         # --- global grad-norm clipping -----------------------------------
-        zero = torch.zeros(mesh.shape, device=loss.device)
+        zero = torch.zeros(mesh.lead, device=loss.device)
         fsdp_ss = sum((sumsq(i, g_leaves[i]) for i in fsdp_idx), zero)
         rep_ss = sum((sumsq(i, g_leaves[i]) for i in rep_idx), zero)
         if "data" in reduce_axes:
@@ -183,7 +189,7 @@ def make_train_step(model, mesh_cfg: rules.MeshCfg, tcfg: TrainConfig,
         gnorm = torch.sqrt(fsdp_ss + rep_ss)
         scale = torch.clamp(tcfg.clip_norm / (gnorm + 1e-9), max=1.0)
         for i, g in enumerate(g_leaves):
-            s = scale.reshape(*mesh.shape, *([1] * (g.dim() - nd)))
+            s = scale.reshape(*mesh.lead, *([1] * (g.dim() - nd)))
             # the FSDP gradients are this step's own buffers; a reduced
             # replicated leaf may be a stride-0 broadcast: never written
             g_leaves[i] = g.mul_(s) if i in fsdp_idx else g * s

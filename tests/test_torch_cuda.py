@@ -1701,3 +1701,45 @@ def test_head_split_train_step_on_cuda_matches_cpu(cuda):
     assert runs["cuda"][2] == 2 * cfg.n_layers and runs["cpu"][2] == 0
     for a, b in zip(runs["cuda"][:2], runs["cpu"][:2]):
         assert abs(a - b) <= 1e-4 * abs(b)
+
+
+@pytest.mark.cuda
+def test_process_mesh_reduces_on_cuda_as_emulated(cuda):
+    """Two gloo ranks, a thread each, on ``cuda:0`` (``mesh.ProcessMesh``,
+    every operand staged through the host) reduce a small arena in the
+    network on ``(1, 2)``: each rank's result is its slice of the
+    emulated reduction's bits, and the fold kernel launched."""
+    import datetime
+    import threading
+
+    from torch.distributed import HashStore
+
+    from repro_torch.mesh import ProcessMesh
+    from repro_torch.switch import dataplane
+
+    shape = (1, 2)
+    arena = torch.randn((*shape, 3, 5000), generator=cuda, device="cuda")
+    want = dataplane.switch_allreduce_dense(arena, RankMesh(shape, AXES),
+                                            AXES, reproducible=True)
+    store, out, errors = HashStore(), [None, None], []
+
+    def rank(r):
+        try:
+            m = ProcessMesh.create(store, r, shape, AXES,
+                                   timeout=datetime.timedelta(seconds=60))
+            out[r] = dataplane.switch_allreduce_dense(
+                m.own(arena), m, AXES, reproducible=True)
+            torch.cuda.synchronize()
+        except BaseException as e:          # the assertion below names it
+            errors.append(repr(e))
+    tr.launches = 0
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    assert tr.launches > 0
+    for r in range(2):
+        assert out[r].device.type == "cuda"
+        assert _same_bits(out[r], want[0, r].unsqueeze(0).unsqueeze(0))
