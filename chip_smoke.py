@@ -541,23 +541,32 @@
    the point-to-point operands itself, so the timings measure host
    copies and loopback sockets, not an interconnect).  (a) Each
    draws ``make_grads``' gradients of TinyLlama at ``LAYERS`` layers and
-   keeps its own rank's slice, and reduces them in the network
-   (reproducible: the level's children send their arenas to the switch
-   rank, which alone folds on ``tree_reduce_slots``) and on the wire
-   (``fixed_tree``): every rank's bits (a digest a leaf) equal its slice
-   of the emulated reduction's on the card, the fold launched on the
-   switch ranks (``data`` = 0) and nowhere else; the median of
-   ``PROC_RUNS`` calls (the slowest rank's each) beside the emulated
-   reduction's.  (b) ``launch.train --ranks processes`` with
-   ``TRAIN_FLAGS`` (TinyLlama at published widths, ``PROC_LAYERS`` of
-   22 layers, one 4096-token sequence a rank, FSDP over ``data``, remat
+   keeps its own rank's slice, and reduces them (``PROC_REDUCTIONS``) in
+   the network (reproducible: the level's children send their arenas to
+   the switch rank, which alone folds on ``tree_reduce_slots``; int8:
+   their int8 payloads and scales, folded on ``dequant_accum_slots``, the
+   root's int8 copy multicast down and dequantized on every rank; sparse
+   at ``sparse_k_frac`` 0.01: their coordinate lists, merged at the
+   switch and densified at the root on ``sparse_accum_slots``, the fp32
+   result multicast down) and on the wire (``fixed_tree``, int8, sparse):
+   every rank's bits (a digest a leaf, one for its error-feedback state)
+   equal its slice of the emulated reduction's on the card, and every
+   kernel launched as ``proc_launch_plan`` says, by the rank's role (the
+   folds on the switch ranks, ``data`` = 0, and nowhere else); the median
+   of ``PROC_RUNS`` calls (the slowest rank's each) beside the emulated
+   reduction's.  (b) ``launch.train --ranks processes`` (``PROC_TRAIN``)
+   with ``TRAIN_FLAGS`` (TinyLlama at published widths, ``PROC_LAYERS``
+   of 22 layers, one 4096-token sequence a rank, FSDP over ``data``, remat
    ``full``, in the network): two fp32 steps (the TF32 flash kernels)
    whose losses and gradient norms lie within ``PROC_FP32_RTOL`` of the
-   emulated launcher's same steps, and two bf16 steps (the ``wgmma``
-   kernels), finite, printed beside the emulated run's; each process
-   counts its launches of the flash forward and backward (set to 0
-   before its run, read after), every one of them nonzero, and of the
-   fold, nonzero on the switch ranks.  (c) NCCL asked for with two ranks
+   emulated launcher's same steps, two bf16 steps (the ``wgmma``
+   kernels), finite, printed beside the emulated run's, and two bf16
+   steps each with ``--compression int8`` and with ``--sparse-k 0.01``
+   (without ``--reproducible``), within ``PROC_FP32_RTOL`` of the
+   emulated steps, whether bitwise printed; each process counts its
+   launches of the flash forward and backward (set to 0 before its run,
+   read after), every one of them nonzero, and of the reductions'
+   kernels, as planned for two steps.  (c) NCCL asked for with two ranks
    on this card raises before any process group forms.  It runs right
    after phase 1's build, while the parent holds next to nothing on the
    card, which its eight processes share.
@@ -897,11 +906,60 @@ PROC_LAYERS = 2
 PROC_RUNS = 3
 PROC_FP32_RTOL = 1e-5
 PROC_TIMEOUT = 600.0
-#: the reductions of phase 37 (a), reproducible both
+#: the reductions of phase 37 (a): reproducible in the network and on the
+#: wire, then the int8 and sparse planes in the network and on the wire
 PROC_REDUCTIONS = (("innetwork", dict(transport="innetwork",
                                       reproducible=True)),
                    ("wire fixed_tree", dict(algorithm="fixed_tree",
-                                            reproducible=True)))
+                                            reproducible=True)),
+                   ("int8 innetwork", dict(transport="innetwork",
+                                           compression="int8")),
+                   ("sparse innetwork", dict(transport="innetwork",
+                                             sparse_k_frac=0.01)),
+                   ("int8 wire", dict(compression="int8")),
+                   ("sparse wire", dict(sparse_k_frac=0.01)))
+#: the train steps of phase 37 (b): label, flags, compute dtype; the lossy
+#: ones in the network without ``--reproducible``, which they refuse
+PROC_TRAIN = (("fp32", TRAIN_FLAGS, "float32"),
+              ("bf16", TRAIN_FLAGS, "bfloat16")) + tuple(
+    (f"bf16 {name}", [f for f in TRAIN_FLAGS if f != "--reproducible"]
+     + extra, "bfloat16") for name, extra in LOSSY_TRAIN.items())
+
+
+def proc_launch_plan(name: str, c: tuple[int, int]) -> dict:
+    """The kernel launches that one reduction ``name`` of phase 37 (a)
+    makes on the rank at ``c`` of ``PROC_MESH`` = (2, 4), by its role
+    (keyed as ``proc_rank`` counts them): the tree reduces ``data``, then
+    ``pod``; ``data`` = 0 are the first level's switch ranks, ``(0, 0)``
+    the second's and the root.  A kernel it does not name launches no
+    time.  A 4 MiB bucket's int8 image is past §6.4's 512 KiB line: the
+    ``single`` design, one fold a level.  The sparse lists (1 % of a
+    bucket of at least 10240 elements) stay under a quarter of it through
+    8 ranks: they densify at the root in the network and after the last
+    merge on the wire."""
+    switch, root = int(c[1] == 0), int(c == (0, 0))
+    plan = {
+        "innetwork": {"fold": switch + root},
+        # quantize: each level the rank takes part in, the root's
+        # requantization, the error feedback's residual; dequantize: the
+        # root's multicast copy and the residual
+        "int8 innetwork": {"int8 fold": switch + root,
+                           "quantize": 2 + switch + root, "dequantize": 2},
+        "sparse innetwork": {"densify": root},
+        # the hierarchical protocol: four legs quantized (a reduce-scatter
+        # and a gather over data and over pod) and the residual; a fold a
+        # reduce-scatter; the two gathers and the residual dequantized
+        "int8 wire": {"quantize": 5, "int8 fold": 2, "dequantize": 3},
+        "sparse wire": {"densify": 1}}.get(name, {})
+    return {k: v for k, v in plan.items() if v}
+
+
+def reduction_kinds(launches: dict) -> set:
+    """The reduction kernels of a ``proc_rank`` launch count or a
+    ``proc_launch_plan``, either fold as ``"fold"``."""
+    return {"fold" if k == "int8 fold" else k for k in launches
+            if k in ("fold", "int8 fold", "quantize", "dequantize",
+                     "densify")}
 
 
 def flash_per_call(cfg, kind: str) -> int:
@@ -1407,11 +1465,28 @@ def proc_rank(seed: int) -> dict:
     from repro_torch.configs import tinyllama_1_1b as tl
     from repro_torch.core.engine import FlareConfig, GradReducer
     from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import quant as qt
+    from repro_torch.kernels import sparse_accum as sa
     from repro_torch.kernels import tree_reduce as tr
     from repro_torch.launch import procs
     from repro_torch.launch import train as launch
     from repro_torch.mesh import AXES
     from repro_torch.models import transformer
+
+    def zero_reduction_counts():
+        tr.launches = 0
+        for counts in (qt.launches, sa.launches):
+            for k in counts:
+                counts[k] = 0
+
+    def reduction_counts() -> dict:
+        """The reductions' launches by role name (``proc_launch_plan``),
+        the ones that did not launch left out."""
+        got = {"fold": tr.launches, "quantize": qt.launches["quantize"],
+               "int8 fold": qt.launches["dequant_accum_slots"],
+               "dequantize": qt.launches["dequantize"],
+               "densify": sa.launches["sparse_accum_slots"]}
+        return {k: v for k, v in got.items() if v}
 
     mesh, _ = procs.setup(PROC_MESH, AXES, device="cuda", backend="gloo")
     out = {"rank": mesh.rank, "coords": mesh.coords}
@@ -1423,25 +1498,29 @@ def proc_rank(seed: int) -> dict:
         for i in range(PROC_RUNS):
             dist.barrier()
             torch.cuda.synchronize()
-            tr.launches = 0
+            zero_reduction_counts()
             t0 = time.perf_counter()
-            res, _ = red(grads)
+            res, state = red(grads)
             torch.cuda.synchronize()
             got["ms"].append((time.perf_counter() - t0) * 1e3)
             if i == 0:
-                got["launches"] = tr.launches
+                got["launches"] = reduction_counts()
                 got["digests"] = [digest(torch, [l])
                                   for l in tree.flatten(res)[0]]
-            del res
+                got["state"] = (None if state is None else
+                                digest(torch, tree.flatten(state)[0]))
+            del res, state
         out[name] = got
     del grads
     torch.cuda.empty_cache()
-    for label, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+    for label, flags, dtype in PROC_TRAIN:
         torch.cuda.reset_peak_memory_stats()
         fa.launches = fa.tc_launches = fa.fp32_launches = 0
-        fa.bwd_launches = fa.bwd_tf32_launches = tr.launches = 0
-        run = launch.setup(TRAIN_FLAGS + ["--ranks", "processes"],
-                           n_layers=PROC_LAYERS, dtype=dtype)
+        fa.bwd_launches = fa.bwd_tf32_launches = 0
+        zero_reduction_counts()
+        run = launch.setup(flags + ["--ranks", "processes"],
+                           n_layers=PROC_LAYERS,
+                           dtype=getattr(torch, dtype))
         got = {"losses": [], "norms": [], "ms": []}
         for _ in range(2):
             dist.barrier()
@@ -1454,7 +1533,7 @@ def proc_rank(seed: int) -> dict:
         got["launches"] = dict(
             forward=fa.fp32_launches if label == "fp32" else fa.tc_launches,
             all_forward=fa.launches, backward=fa.bwd_launches,
-            backward_tf32=fa.bwd_tf32_launches, fold=tr.launches)
+            backward_tf32=fa.bwd_tf32_launches, **reduction_counts())
         got["peak"] = torch.cuda.max_memory_allocated()
         out[label] = got
         del run
@@ -1485,15 +1564,18 @@ def phase_processes(torch, card, cfg, seed) -> dict:
     want, emu_ms = {}, {}
     for name, kw in PROC_REDUCTIONS:
         red = GradReducer(FlareConfig(axes=AXES, **kw), mesh)
-        res, _ = red(grads)
-        want[name] = [[digest(torch, [l[c]]) for l in tree.flatten(res)[0]]
-                      for c in coords]
-        del res
+        res, state = red(grads)
+        want[name] = [dict(
+            digests=[digest(torch, [l[c]]) for l in tree.flatten(res)[0]],
+            state=None if state is None else digest(
+                torch, [l[c] for l in tree.flatten(state)[0]]))
+            for c in coords]
+        del res, state
         emu_ms[name] = timed(torch, lambda: red(grads), PROC_RUNS)
     del grads, red
-    emu = {label: steps_of(torch, TRAIN_FLAGS, PROC_LAYERS, 2, dtype=dtype)
-           for label, dtype in (("fp32", torch.float32),
-                                ("bf16", torch.bfloat16))}
+    emu = {label: steps_of(torch, flags, PROC_LAYERS, 2,
+                           dtype=getattr(torch, dtype))
+           for label, flags, dtype in PROC_TRAIN}
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1523,31 +1605,34 @@ def phase_processes(torch, card, cfg, seed) -> dict:
     figures = {}
     for name, _ in PROC_REDUCTIONS:
         for c, got in zip(coords, ranks):
-            check(got[name]["digests"] == want[name][coords.index(c)],
+            check(got[name]["digests"] == want[name][coords.index(c)]
+                  ["digests"] and got[name]["state"]
+                  == want[name][coords.index(c)]["state"],
                   f"processes: {name} on rank {c} != its slice of the "
-                  "emulated reduction")
-            switch = name == "innetwork" and c[1] == 0
-            check((got[name]["launches"] > 0) == switch,
-                  f"processes: {name} on rank {c} launched the fold "
-                  f"{got[name]['launches']} times (switch rank: {switch})")
+                  "emulated reduction (result or error-feedback state)")
+            plan = proc_launch_plan(name, c)
+            check(got[name]["launches"] == plan,
+                  f"processes: {name} on rank {c} launched "
+                  f"{got[name]['launches']}, the plan {plan}")
         calls = [max(r[name]["ms"][i] for r in ranks)
                  for i in range(PROC_RUNS)]
         figures[name] = dict(
             ms=statistics.median(calls), calls_ms=calls,
             emulated_ms=emu_ms[name][0],
-            fold_launches=[r[name]["launches"] for r in ranks])
+            launches=[r[name]["launches"] for r in ranks])
         print(f"processes: {name} reduction of TinyLlama's {LAYERS}-layer "
               f"gradients on {PROC_MESH}, {PROC_WORLD} processes: every "
               f"rank's bits == its slice of the emulated reduction (a digest "
-              f"a leaf); fold launches by rank "
-              f"{figures[name]['fold_launches']}; ms (median of "
+              f"a leaf, one for its error-feedback state); launches by rank "
+              f"{figures[name]['launches']}, as planned; ms (median of "
               f"{PROC_RUNS}, the slowest rank's each, gloo on one card, "
               f"staged through the host) {figures[name]['ms']:.1f} (calls "
               f"{[round(t, 1) for t in calls]}); emulated on the card "
               f"{emu_ms[name][0]:.3f} [{card}]")
 
-    for label in ("fp32", "bf16"):
+    for label, _, _ in PROC_TRAIN:
         e = emu[label]
+        lossy = label.split()[1] if " " in label else None
         for c, got in zip(coords, ranks):
             g = got[label]
             lc = g["launches"]
@@ -1558,26 +1643,35 @@ def phase_processes(torch, card, cfg, seed) -> dict:
                 check(lc["backward_tf32"] == lc["backward"],
                       f"processes fp32 on rank {c}: backward off the TF32 "
                       f"kernels {lc}")
-            check((lc["fold"] > 0) == (c[1] == 0),
-                  f"processes {label} on rank {c}: fold launches "
-                  f"{lc['fold']}")
+            # the reductions' kernels on the ranks the plan names and
+            # nowhere else; a step's small arena takes the int8 plane's
+            # tree design, whose fold is tree_reduce_slots (and another
+            # count than (a)'s), so either fold is the fold here
+            plan = proc_launch_plan(
+                f"{lossy} innetwork" if lossy else "innetwork", c)
+            check(reduction_kinds(lc) == reduction_kinds(plan),
+                  f"processes {label} on rank {c}: reduction launches "
+                  f"{lc}, the plan's kernels {sorted(plan)}")
             vals = g["losses"] + g["norms"]
             check(all(map(math.isfinite, vals)),
                   f"processes {label} on rank {c}: {vals}")
-            if label == "fp32":
+            if label != "bf16":
                 rel = max(abs(a - b) / abs(b) for a, b in zip(
                     vals, e["losses"] + e["norms"]))
                 check(rel <= PROC_FP32_RTOL,
-                      f"processes fp32 on rank {c}: {rel} from the emulated "
-                      "steps")
+                      f"processes {label} on rank {c}: {rel} from the "
+                      "emulated steps")
         steps = [max(r[label]["ms"][i] for r in ranks) for i in range(2)]
         rel = max(abs(a - b) / abs(b) for a, b in zip(
             ranks[0][label]["losses"] + ranks[0][label]["norms"],
             e["losses"] + e["norms"]))
+        bitwise = all(r[label]["losses"] == e["losses"]
+                      and r[label]["norms"] == e["norms"] for r in ranks)
         figures[f"train {label}"] = dict(
             losses=ranks[0][label]["losses"], norms=ranks[0][label]["norms"],
             emulated_losses=e["losses"], emulated_norms=e["norms"],
-            worst_rel=rel, step_ms=steps, emulated_step_ms=e["step_ms"],
+            worst_rel=rel, bitwise=bitwise, step_ms=steps,
+            emulated_step_ms=e["step_ms"],
             launches=[r[label]["launches"] for r in ranks],
             peak_gib=max(r[label]["peak"] for r in ranks) / 2**30)
         print(f"processes: launch.train --ranks processes, {label}, "
@@ -1586,12 +1680,14 @@ def phase_processes(torch, card, cfg, seed) -> dict:
               f"{ranks[0][label]['losses']} norms {ranks[0][label]['norms']}"
               f" (every rank the same); emulated losses {e['losses']} norms "
               f"{e['norms']}; worst relative {rel:.2e}"
-              + (f" (tolerance {PROC_FP32_RTOL})" if label == "fp32" else "")
+              + ("" if label == "bf16" else
+                 f" (tolerance {PROC_FP32_RTOL})")
+              + f", every rank's bits the emulated steps': {bitwise}"
               + f"; step ms (the slowest rank's, gloo staged through the "
               f"host) {[round(t, 1) for t in steps]}, emulated "
               f"{e['step_ms']:.1f}; per process launches "
-              f"{ranks[0][label]['launches']} (rank 0), fold by rank "
-              f"{[r[label]['launches']['fold'] for r in ranks]}; peak a "
+              f"{ranks[0][label]['launches']} (rank 0), by rank "
+              f"{[r[label]['launches'] for r in ranks]}; peak a "
               f"process {figures[f'train {label}']['peak_gib']:.2f} GiB "
               f"[{card}]")
     print(f"processes: nccl with two ranks on one card raised before any "

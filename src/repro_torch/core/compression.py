@@ -8,13 +8,14 @@ goes through ``kernels.ops`` (the CUDA kernels on the card, their plain
 versions on the CPU), with leading axes flattened into rows of blocks.
 
 The wire protocol (``quantized_*``) runs on the rank-axis layout
-``(*mesh, ..., Z)``: every leading axis after the mesh's (the arena's
-bucket axis) vectorizes, so a batched form is the same function as the
-flat one and every exchange carries all buckets.  Each leg: quantize
-(the ``quantize`` kernel) → ``RankMesh.all_to_all`` (rank ``r`` holds
-every rank's int8 copy of chunk ``r``) → the fp32 accumulation in stack
-order (the ``dequant_accum`` kernel in its wire order) → requantize →
-all-gather → ``dequantize``.
+``(*mesh.lead, ..., Z)``: every leading axis after the mesh's (the
+arena's bucket axis) vectorizes, so a batched form is the same function
+as the flat one and every exchange carries all buckets.  Each leg:
+quantize (the ``quantize`` kernel) → ``mesh.all_to_all`` (rank ``r``
+holds every rank's int8 copy of chunk ``r``; on a ``ProcessMesh`` the
+group's ``alltoall``) → the fp32 accumulation in stack order (the
+``dequant_accum`` kernel in its wire order) → requantize → all-gather →
+``dequantize``.
 """
 from __future__ import annotations
 

@@ -200,10 +200,12 @@ def _is_pow2(p: int) -> bool:
 
 def _exchange_lists(mesh: RankMesh, idx: torch.Tensor, val: torch.Tensor,
                     axis: str, perm) -> tuple[torch.Tensor, torch.Tensor]:
-    """The lists of the XOR partner, every bucket's at once.  A ppermute
-    is an index along the rank axis, so the reference's int32 packing of
-    the pair (one collective instead of two) gives the same bits and
-    would only add a copy; its flat ``_exchange_flat`` is the same."""
+    """The lists of the XOR partner, every bucket's at once.  On a
+    ``RankMesh`` a ppermute is an index along the rank axis, so the
+    reference's int32 packing of the pair (one collective instead of
+    two) gives the same bits and would only add a copy; its flat
+    ``_exchange_flat`` is the same.  On a ``ProcessMesh`` each list is a
+    send and a receive with the partner."""
     return mesh.ppermute(idx, axis, perm), mesh.ppermute(val, axis, perm)
 
 

@@ -172,9 +172,6 @@ class Int8Transport(Transport):
 
     block: int = QUANT_BLOCK
 
-    def __post_init__(self):
-        require_emulated(self.mesh, "Int8Transport", 19)
-
     def _allreduce(self, v: torch.Tensor) -> torch.Tensor:
         *outer_axes, inner = self.axes
         if self._use_hierarchy() and outer_axes:
@@ -206,9 +203,6 @@ class SparseTransport(Transport):
 
     k_frac: float = 0.01
     density_threshold: float = 0.25
-
-    def __post_init__(self):
-        require_emulated(self.mesh, "SparseTransport", 20)
 
     def _hier(self) -> bool:
         *outer_axes, inner = self.axes
@@ -306,7 +300,7 @@ class SwitchTransport(Transport):
     def __post_init__(self):
         """On a ``ProcessMesh`` a fault plan (which may degrade to the
         wire) and a shared switch raise here; the planes raise for the
-        int8 and sparse modes and the per-packet plane."""
+        per-packet plane."""
         if self.fault_plan is not None:
             require_emulated(self.mesh, "the lossy fabric (fault_plan)", 21)
         if self.manager is not None:

@@ -75,12 +75,19 @@ keeps its own rank's slice of them (``rules.shard_params``,
 ``rules.split_batch``), so the ranks' union is the emulated run's input;
 rank 0 alone prints and exports.  ``--backend gloo`` (the default) runs
 the ranks on the CPU or all on ``cuda:0``; ``nccl`` one a card.  The
-lossy fabric, the int8 and sparse transports, ``--tenants`` and
-``--ckpt-dir`` raise there, naming their ROADMAP item::
+int8 and sparse transports run there, in the network and on the wire,
+each rank keeping its own error-feedback state; the lossy fabric,
+``--tenants`` and ``--ckpt-dir`` raise, naming their ROADMAP item::
 
     torchrun --nproc-per-node 8 -m repro_torch.launch.train --smoke \
         --steps 2 --mesh 2x4x1 --device cpu --ranks processes \
         --transport innetwork --reproducible
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train --smoke \
+        --steps 2 --mesh 2x4x1 --device cpu --ranks processes \
+        --transport innetwork --compression int8
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train --smoke \
+        --steps 2 --mesh 2x4x1 --device cpu --ranks processes \
+        --sparse-k 0.01
 
 ``--mesh PxDxM`` with ``M`` > 1 trains tensor- and expert-parallel over
 ``model`` (``core.tp``): a rank's heads, FFN columns, experts and

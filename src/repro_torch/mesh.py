@@ -285,8 +285,6 @@ TIMEOUT = datetime.timedelta(seconds=300)
 #: The paths that do not run on a ``ProcessMesh`` yet, by their ROADMAP
 #: Queue 1 item.
 UNPORTED = {
-    19: "the int8 plane on processes",
-    20: "the sparse plane on processes",
     21: "the lossy fabric on processes",
     22: "tenants on processes",
     23: "checkpoint and resume on processes",

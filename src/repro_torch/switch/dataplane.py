@@ -129,6 +129,15 @@ def _rank_mask(mask: torch.Tensor, mesh: RankMesh,
     return mask.reshape(mask.shape + (1,) * (x.dim() - mesh.ndim))
 
 
+def _like(mesh, shape: tuple[int, ...], dtype: torch.dtype,
+          device) -> torch.Tensor:
+    """A rank-local ``(*lead, *shape)`` tensor's shape and dtype for
+    ``ProcessMesh.multicast``, without its storage (one element
+    broadcast)."""
+    return torch.empty((), dtype=dtype, device=device).expand(
+        mesh.lead + tuple(shape))
+
+
 def _mask_to_switch(out: torch.Tensor, mesh: RankMesh,
                     lvl: topology.MeshLevel) -> torch.Tensor:
     """Place the switches' ``(G, ...)`` aggregates at their ranks of the
@@ -653,19 +662,24 @@ def _int8_level_batched(acc: torch.Tensor, mesh: RankMesh,
     arrival interleave composes with its steering to the identity and is
     never materialised.  Under a fault schedule ``"q"`` is the admission-
     gated stream and the scales sideband fate-shares its mask.  Returns
-    the switches' fp32 aggregates on ``mesh.collapse(lvl.axis)``."""
+    the switches' fp32 aggregates on ``mesh.collapse(lvl.axis)``.  On a
+    ``ProcessMesh`` the children send their int8 payload and scales to
+    the switch rank, which folds its one group (``G = 1``); a child that
+    is not the switch gets ``None``."""
+    up = mesh.collapse(lvl.axis, lvl.switch_rank)
     q, scales = compression.quantize_int8(acc, block)
     stack = {"q": mesh.group_stack(qplan.pack(q), lvl.axis, lvl.switch_rank),
              "scale": mesh.group_stack(splan.pack(scales), lvl.axis,
                                        lvl.switch_rank)}
     del q, scales
+    if stack["q"] is None:
+        return None, up
     stack = _admit(stack, fault, fault_stats)
     agg, _ = handler.payload_handler(stack, None, design, n_bufs,
                                      {"qblock": block})
     del stack           # release the level's int8 copy before unpacking
     out = qplan.unpack(handler.completion_handler(agg, {}))   # (G, B, S)
-    up = mesh.collapse(lvl.axis)
-    return out.reshape(up.shape + tuple(out.shape[1:])), up
+    return out.reshape(up.lead + tuple(out.shape[1:])), up
 
 
 def _int8_level(acc: torch.Tensor, mesh: RankMesh, lvl: topology.MeshLevel,
@@ -718,13 +732,18 @@ def switch_allreduce_int8(arena: torch.Tensor, mesh: RankMesh,
     dequantize-accumulate into an fp32 buffer — the "FPU in every HPU")
     and requantizes the aggregate for the next wire hop; the root
     requantizes once, multicasts, and every rank dequantizes.  The
-    batched plane dequantizes the root's one copy and broadcasts it
-    (stride 0 over the rank axes), as ``_multicast_root`` does: every
-    rank would dequantize the same bits.  ``fault_plan``,
-    ``with_fault_stats``, ``telemetry`` and ``tenant`` as in
-    ``switch_allreduce_dense``.
+    batched plane on a ``RankMesh`` dequantizes the root's one copy and
+    broadcasts it (stride 0 over the rank axes): every rank would
+    dequantize the same bits.  On a ``ProcessMesh`` a rank that no
+    longer holds data skips the upper levels, the root's int8 payload and
+    scales come down the tree (``ProcessMesh.multicast``) and every rank
+    dequantizes its copy.  ``fault_plan``, ``with_fault_stats``,
+    ``telemetry`` and ``tenant`` as in ``switch_allreduce_dense``.
     """
-    require_emulated(mesh, "switch_allreduce_int8", 19)
+    if fault_plan is not None:
+        require_emulated(mesh, "the lossy fabric (fault_plan)", 21)
+    if not batched:
+        require_emulated(mesh, "the per-packet plane (batched=False)", 25)
     b, s0 = arena.shape[-2:]
     handler = hd.get_handler("int8_dequant")
     sfmt = _scales_format(fmt, block)
@@ -749,16 +768,27 @@ def switch_allreduce_int8(arena: torch.Tensor, mesh: RankMesh,
     if batched:
         held = mesh
         for i, lvl in enumerate(levels):
+            if not held.holds:          # a child of a lower switch
+                continue
             with obs(f"plane.l{i + 1}", mode="int8", fanin=lvl.fanin):
                 acc, held = _int8_level_batched(acc, held, lvl, handler,
                                                 design, n_bufs, block, qplan,
                                                 splan, faults[i], fstats)
         with obs("plane.multicast", mode="int8"):
-            q, scales = compression.quantize_int8(acc, block)
+            q, scales = (compression.quantize_int8(acc, block)
+                         if acc is not None else (None, None))
             del acc
-            out = compression.dequantize_int8(q, scales, block,
-                                              dtype=arena.dtype)[..., :s0]
-            out = out.expand(mesh.shape + tuple(out.shape[mesh.ndim:]))
+            if isinstance(mesh, RankMesh):
+                out = compression.dequantize_int8(
+                    q, scales, block, dtype=arena.dtype)[..., :s0]
+                out = out.expand(mesh.shape + tuple(out.shape[mesh.ndim:]))
+            else:
+                q = mesh.multicast(q, held, _like(mesh, (b, s), torch.int8,
+                                                  arena.device))
+                scales = mesh.multicast(scales, held, _like(
+                    mesh, (b, s // block), torch.float32, arena.device))
+                out = compression.dequantize_int8(
+                    q, scales, block, dtype=arena.dtype)[..., :s0]
     else:
         for i, lvl in enumerate(levels):
             arrival = arrival_perms[i] if arrival_perms is not None else None
@@ -824,6 +854,25 @@ def _held_stat(stat: torch.Tensor, mesh: RankMesh, held: RankMesh,
     return out
 
 
+def _path_collisions(mesh, levels: Sequence[topology.MeshLevel],
+                     mine: torch.Tensor, took: Sequence[int]) -> torch.Tensor:
+    """This rank's collision count on a ``ProcessMesh``, bitwise its
+    slice of ``_held_stat``'s sum: at every list level it took part in
+    (``took``), the count of that level's switch of its group.  Each
+    rank's own counts as a switch (``mine``, one a level) are gathered
+    from every rank, not recomputed."""
+    t = mine.reshape(mesh.lead + tuple(mine.shape))
+    for a in reversed(mesh.axes):
+        t = mesh.all_gather(t, a)               # outer axes outermost
+    table = t.reshape(mesh.shape + tuple(mine.shape))
+    out = torch.zeros((), dtype=torch.int32, device=mine.device)
+    for i in took:
+        sw = list(mesh.coords)
+        sw[mesh.dim(levels[i].axis)] = levels[i].switch_rank
+        out = out + table[tuple(sw) + (i,)]
+    return out.reshape(mesh.lead)
+
+
 def _sparse_level_batched(idx: torch.Tensor, val32: torch.Tensor,
                           held: RankMesh, lvl: topology.MeshLevel,
                           handler: hd.Handler, cap: int,
@@ -838,17 +887,20 @@ def _sparse_level_batched(idx: torch.Tensor, val32: torch.Tensor,
     child's image, so arrivals are never materialised.  A fault schedule's
     admission mask gates the stack first.  Returns the merged lists on
     ``held.collapse(lvl.axis)``, the per-switch collision counts and that
-    mesh."""
+    mesh; on a ``ProcessMesh`` a child that is not the switch rank gets
+    ``None`` for the lists and the counts."""
     b = idx.shape[-2]
+    up = held.collapse(lvl.axis, lvl.switch_rank)
     plan = pk.FramePlan(b, 2 * cap, torch.int32, fmt)
     stack = held.group_stack(plan.pack(_pack_lists(idx, val32)), lvl.axis,
                              lvl.switch_rank)                 # (G, P, n, E)
+    if stack is None:           # a child of this level's switch rank
+        return None, None, None, up
     stack = _admit(stack, fault, fault_stats)
     cidx, cval = _unpack_lists(plan.unpack(stack), cap)       # (G, P, B, cap)
     merged, stats = handler.payload_handler({"idx": cidx, "val": cval},
                                             None, "single", 1, {})
-    up = held.collapse(lvl.axis)
-    shape = up.shape + tuple(merged["idx"].shape[1:])
+    shape = up.lead + tuple(merged["idx"].shape[1:])
     return (merged["idx"].reshape(shape), merged["val"].reshape(shape),
             stats["collisions"], up)
 
@@ -919,13 +971,22 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
     copy).  With ``with_stats`` a third item, ``{"collisions",
     "spill_bytes"}``, counts per rank the index collisions on the
     switches of its root path.  The batched plane folds and densifies
-    only the ranks that hold data, and its result is one copy broadcast
-    over the rank axes.  ``fault_plan`` replays a lossy fabric on every
-    up-hop, the list levels' and the densified ones'; ``with_fault_stats``
-    appends the fault counters (``mesh``-shaped int32) last.
-    ``telemetry`` and ``tenant`` as in ``switch_allreduce_dense``.
+    only the ranks that hold data; on a ``RankMesh`` its result is one
+    copy broadcast over the rank axes.  On a ``ProcessMesh`` the children
+    of a level send their packed lists (or, densified, their arenas) to
+    the switch rank, which merges its one group; a rank that no longer
+    holds data skips the upper levels, the root's fp32 result comes down
+    the tree (``ProcessMesh.multicast``), and the collision counts are
+    gathered from the switches (``_path_collisions``).  ``fault_plan``
+    replays a lossy fabric on every up-hop, the list levels' and the
+    densified ones'; ``with_fault_stats`` appends the fault counters
+    (int32 of ``mesh.lead``) last.  ``telemetry`` and ``tenant`` as in
+    ``switch_allreduce_dense``.
     """
-    require_emulated(mesh, "switch_allreduce_sparse", 20)
+    if fault_plan is not None:
+        require_emulated(mesh, "the lossy fabric (fault_plan)", 21)
+    if not batched:
+        require_emulated(mesh, "the per-packet plane (batched=False)", 25)
     b, s = arena.shape[-2:]
     handler = hd.get_handler("sparse_merge")
     ks = tuple(int(k) for k in (ks if hasattr(ks, "__len__") else [ks] * b))
@@ -936,7 +997,7 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
     val, idx = sparse.topk_sparsify(arena, k_max, torch.tensor(
         ks, device=arena.device))
     sent = (val, idx)
-    collisions = torch.zeros(mesh.shape, dtype=torch.int32,
+    collisions = torch.zeros(mesh.lead, dtype=torch.int32,
                              device=arena.device)
     fstats = _new_fault_stats(mesh, arena.device)
     if len(levels) == 1 and levels[0].fanin == 1:
@@ -956,6 +1017,10 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
     dense: torch.Tensor | None = None
     steered = hd.get_handler("dense_sum_steered")
     held, placed = mesh, [slice(None)] * mesh.ndim
+    # on a ProcessMesh: this rank's count as each list level's switch, and
+    # the list levels it took part in
+    mine = torch.zeros(len(levels), dtype=torch.int32, device=arena.device)
+    took = []
     dplan = pk.FramePlan(b, s, torch.float32, fmt)
     faults = fault_schedules(fault_plan, level_packet_counts(
         [l.fanin for l in levels], b, s, arena.dtype, mode="sparse", fmt=fmt,
@@ -963,6 +1028,8 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
     obs = _PlaneObs(telemetry, tenant)
     obs.retries(faults)
     for i, lvl in enumerate(levels):
+        if not held.holds:              # a child of a lower switch
+            continue
         with obs(f"plane.l{i + 1}", mode="sparse", fanin=lvl.fanin):
             arrival = arrival_perms[i] if arrival_perms is not None else None
             if dense is None and sparse.densify_step(cap * lvl.fanin, s,
@@ -982,7 +1049,12 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
                 idx, val32, stat, up = _sparse_level_batched(
                     idx, val32, held, lvl, handler, cap, fmt, faults[i],
                     fstats)
-                collisions += _held_stat(stat, mesh, held, placed, lvl)
+                if isinstance(mesh, RankMesh):
+                    collisions += _held_stat(stat, mesh, held, placed, lvl)
+                else:
+                    took.append(i)
+                    if stat is not None:
+                        mine[i] = stat.reshape(())
                 held = up
                 cap *= lvl.fanin
             else:
@@ -994,8 +1066,9 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
             placed[mesh.dim(lvl.axis)] = lvl.switch_rank
 
     top = levels[-1]
-    if dense is None and batched:
-        dense = _densify(idx, val32, s)                 # root array storage
+    if batched:
+        if dense is None and held.holds:
+            dense = _densify(idx, val32, s)             # root array storage
     elif dense is None:
         k = mesh.dim(top.axis)
         lists = [t.select(k, top.switch_rank).reshape(-1, b, cap)
@@ -1003,8 +1076,12 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
         dense = _mask_to_switch(_densify(*lists, s), mesh, top)
     del idx, val32
     with obs("plane.multicast", mode="sparse"):
-        if batched:
+        if batched and isinstance(mesh, RankMesh):
             red = dense.contiguous()            # one copy for every rank
+        elif batched:
+            red = mesh.multicast(dense, held, _like(mesh, (b, s),
+                                                    torch.float32,
+                                                    arena.device))
         else:
             red = dense
             for lvl in reversed(levels):
@@ -1013,8 +1090,10 @@ def switch_allreduce_sparse(arena: torch.Tensor, mesh: RankMesh,
     if mean:
         red = mesh.mean(red, axes)
     red = red.to(arena.dtype)
-    if batched:
+    if batched and isinstance(mesh, RankMesh):
         red = red.expand(mesh.shape + (b, s))
+    if with_stats and not isinstance(mesh, RankMesh):
+        collisions = _path_collisions(mesh, levels, mine, took)
     ret = [red, sent]
     if with_stats:
         ret.append({"collisions": collisions,

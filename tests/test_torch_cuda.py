@@ -1743,3 +1743,63 @@ def test_process_mesh_reduces_on_cuda_as_emulated(cuda):
     for r in range(2):
         assert out[r].device.type == "cuda"
         assert _same_bits(out[r], want[0, r].unsqueeze(0).unsqueeze(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "sparse"])
+def test_process_mesh_lossy_planes_on_cuda_as_emulated(cuda, mode):
+    """The int8 and sparse in-network planes with two gloo ranks, a
+    thread each, on ``cuda:0`` on ``(1, 2)``: each rank's result (and
+    the sparse plane's sent lists and collision counts) its slice of the
+    emulated plane's bits; the int8 fold launched on the switch rank,
+    the root's int8 copy dequantized on both ranks, the sparse lists
+    densified at the root."""
+    import datetime
+    import threading
+
+    from torch.distributed import HashStore
+
+    from repro_torch.mesh import ProcessMesh
+    from repro_torch.switch import dataplane
+
+    shape = (1, 2)
+    arena = torch.randn((*shape, 3, 5000), generator=cuda, device="cuda")
+
+    def plane(a, m):
+        if mode == "int8":
+            # the single design: one fold a level (an arena this small
+            # would take the tree design, which dequantizes, then folds)
+            return [dataplane.switch_allreduce_int8(a, m, AXES,
+                                                    design="single")]
+        red, sent, st = dataplane.switch_allreduce_sparse(
+            a, m, AXES, 50, with_stats=True)
+        return [red, *sent, st["collisions"]]
+    want = plane(arena, RankMesh(shape, AXES))
+    store, out, errors = HashStore(), [None, None], []
+
+    def rank(r):
+        try:
+            m = ProcessMesh.create(store, r, shape, AXES,
+                                   timeout=datetime.timedelta(seconds=60))
+            out[r] = plane(m.own(arena), m)
+            torch.cuda.synchronize()
+        except BaseException as e:          # the assertion below names it
+            errors.append(repr(e))
+    for k in qt.launches:
+        qt.launches[k] = 0
+    sa.launches["sparse_accum_slots"] = 0
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    if mode == "int8":
+        assert qt.launches["dequant_accum_slots"] == 1
+        assert qt.launches["dequantize"] == 2
+    else:
+        assert sa.launches["sparse_accum_slots"] == 1
+    for r in range(2):
+        for g, w in zip(out[r], want):
+            assert g.device.type == "cuda"
+            assert _same_bits(g, w[0, r].unsqueeze(0).unsqueeze(0))
